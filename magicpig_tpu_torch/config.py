@@ -1,0 +1,152 @@
+"""Model and LSH configuration (PyTorch port of `magicpig_tpu/config.py`).
+
+The knobs mirror the reference system (MagicPIG):
+  * LSH parameters K (bits per table) and L (number of tables);
+  * the attention-cache partition: 4 sink tokens + 64 local tokens + a
+    generation buffer;
+  * dense layers (full attention, no sampling): [0, 16, 32, 48, 64] cut to
+    the model's depth.
+
+`LSHConfig` keeps only the fields the LSH decode path reads. Any other
+estimator, decode mode, debias form or cache quantisation is not ported yet
+and raises `NotImplementedError`.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class RopeScaling:
+    """Llama-3 style RoPE frequency scaling (HF `rope_scaling` dict)."""
+
+    rope_type: str = "default"  # "default" | "llama3"
+    factor: float = 8.0
+    low_freq_factor: float = 1.0
+    high_freq_factor: float = 4.0
+    original_max_position_embeddings: int = 8192
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    """Llama-family transformer shape (full causal attention: the JAX
+    package's sliding window is not ported yet)."""
+
+    name: str = "llama-tiny"
+    vocab_size: int = 128256
+    hidden_size: int = 4096
+    intermediate_size: int = 14336
+    num_hidden_layers: int = 32
+    num_attention_heads: int = 32
+    num_key_value_heads: int = 8
+    head_dim: int = 128
+    rms_norm_eps: float = 1e-5
+    rope_theta: float = 500000.0
+    rope_scaling: RopeScaling | None = None
+    max_position_embeddings: int = 131072
+    tie_word_embeddings: bool = False
+    eos_token_ids: tuple[int, ...] = (128001, 128008, 128009)
+    dtype: torch.dtype = torch.bfloat16
+
+
+_LLAMA3_SCALING = RopeScaling(
+    rope_type="llama3",
+    factor=8.0,
+    low_freq_factor=1.0,
+    high_freq_factor=4.0,
+    original_max_position_embeddings=8192,
+)
+
+_LLAMA32_SCALING = dataclasses.replace(_LLAMA3_SCALING, factor=32.0)
+
+PRESETS: dict[str, ModelConfig] = {
+    # Tiny config for unit tests (fits the CPU, exercises GQA).
+    "llama-tiny": ModelConfig(
+        name="llama-tiny",
+        vocab_size=512,
+        hidden_size=128,
+        intermediate_size=256,
+        num_hidden_layers=4,
+        num_attention_heads=8,
+        num_key_value_heads=2,
+        head_dim=16,
+        rope_theta=10000.0,
+        rope_scaling=None,
+        max_position_embeddings=4096,
+        eos_token_ids=(0,),
+    ),
+    "llama-3.2-1b": ModelConfig(
+        name="llama-3.2-1b",
+        hidden_size=2048,
+        intermediate_size=8192,
+        num_hidden_layers=16,
+        num_attention_heads=32,
+        num_key_value_heads=8,
+        head_dim=64,
+        rope_scaling=_LLAMA32_SCALING,
+        tie_word_embeddings=True,
+    ),
+}
+
+
+def default_dense_layers(num_layers: int) -> tuple[int, ...]:
+    """Layers that keep full (dense) attention: the reference's
+    [0, 16, 32, 48, 64], cut to the model's depth."""
+    return tuple(l for l in (0, 16, 32, 48, 64) if l < num_layers)
+
+
+@dataclasses.dataclass(frozen=True)
+class LSHConfig:
+    """Sparse-attention parameters of the LSH estimator.
+
+    K bits per hash table, L tables; K=0 turns sampling off (full attention
+    in every layer). The fields after `dense_layers` exist so that a caller
+    asking for a path the port does not have yet is told so.
+    """
+
+    K: int = 10
+    L: int = 150
+    num_sink_tokens: int = 4
+    num_local_tokens: int = 64
+    generation_buffer: int = 256
+    dense_layers: tuple[int, ...] | None = None  # None -> default rule
+    estimator: str = "lsh"
+    decode_mode: str = "masked"
+    lsh_debias: str = "exact"
+    offload_quant: str = "none"
+    dense_quant: str = "none"
+
+    def __post_init__(self):
+        for field, value, ported in (
+                ("estimator", self.estimator, "lsh"),
+                ("decode_mode", self.decode_mode, "masked"),
+                ("lsh_debias", self.lsh_debias, "exact"),
+                ("offload_quant", self.offload_quant, "none"),
+                ("dense_quant", self.dense_quant, "none")):
+            if value != ported:
+                raise NotImplementedError(
+                    f"LSHConfig.{field}={value!r} is not ported; only "
+                    f"{ported!r} is")
+        if self.K < 0 or self.L < 0:
+            raise ValueError(f"K and L must be >= 0, got K={self.K} L={self.L}")
+
+    @property
+    def enabled(self) -> bool:
+        """Sparse layers active? (K=0 = full attention everywhere.)"""
+        return self.K != 0
+
+    def dense_layers_for(self, num_layers: int) -> tuple[int, ...]:
+        if not self.enabled:
+            return tuple(range(num_layers))
+        if self.dense_layers is not None:
+            return tuple(l for l in self.dense_layers if l < num_layers)
+        return default_dense_layers(num_layers)
+
+
+def preset(name: str) -> ModelConfig:
+    if name in PRESETS:
+        return PRESETS[name]
+    raise KeyError(f"unknown model preset {name!r}; known: {sorted(PRESETS)}")

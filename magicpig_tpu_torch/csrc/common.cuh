@@ -1,0 +1,75 @@
+// Shared device helpers for the port's attention kernels (sm_90a).
+//
+// Each .cu file in this directory exports plain C entry points that take raw
+// device pointers, sizes and a cudaStream_t, launch on that stream, and
+// return cudaGetLastError(). The Python wrappers in
+// magicpig_tpu_torch/ops/kernels/ check shapes and types before the call.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace mp {
+
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+constexpr float kNegInf = -__builtin_huge_valf();
+
+__device__ __forceinline__ float warp_max(float x) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
+  return x;
+}
+
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    x += __shfl_xor_sync(0xffffffffu, x, off);
+  return x;
+}
+
+// Two bf16 values in one 32-bit register, `lo` in the low half: the operand
+// order of mma.sync fragments (lower column index in the low half).
+__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo,
+                                              __nv_bfloat16 hi) {
+  uint32_t l = static_cast<uint32_t>(__bfloat16_as_ushort(lo));
+  uint32_t h = static_cast<uint32_t>(__bfloat16_as_ushort(hi));
+  return l | (h << 16);
+}
+
+__device__ __forceinline__ uint32_t pack_f32_as_bf16(float lo, float hi) {
+  return pack_bf16(__float2bfloat16_rn(lo), __float2bfloat16_rn(hi));
+}
+
+// D = A * B + D for one m16n8k16 tile: A 16x16 bf16 (row), B 16x8 bf16
+// (col), D 16x8 f32. Fragment layout (g = lane / 4, t = lane % 4):
+//   a0 (g, 2t..2t+1)   a1 (g+8, 2t..)   a2 (g, 2t+8..)   a3 (g+8, 2t+8..)
+//   b0 (k 2t..2t+1, n g)                b1 (k 2t+8..2t+9, n g)
+//   d0 d1 (g, 2t..2t+1)                 d2 d3 (g+8, 2t..2t+1)
+__device__ __forceinline__ void mma_bf16_16816(float (&d)[4],
+                                               const uint32_t (&a)[4],
+                                               uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Eight bf16 values (one 16-byte vector) dotted with eight f32 values.
+__device__ __forceinline__ float dot8(const uint4& kv, const float* q) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&kv);
+  float acc = 0.f;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    float2 f = __bfloat1622float2(h[i]);
+    acc = fmaf(f.x, q[2 * i], acc);
+    acc = fmaf(f.y, q[2 * i + 1], acc);
+  }
+  return acc;
+}
+
+}  // namespace mp

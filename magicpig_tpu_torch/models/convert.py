@@ -1,0 +1,37 @@
+"""Carry JAX-package weights across to the port.
+
+`params_from_numpy` takes the JAX `LlamaParams` as a nested dict of numpy
+arrays (`dataclasses.asdict` of the pytree with numpy leaves) and returns
+the port's `LlamaParams`. The layouts are the same, so this is a copy; it
+imports no JAX.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from magicpig_tpu_torch.models.llama import LayerParams, LlamaParams
+
+
+def params_from_numpy(tree: dict,
+                      device: torch.device | str = "cuda") -> LlamaParams:
+    """tree: {"embed", "lm_head", "final_ln", "cos", "sin": array,
+    "layers": {"wq", ..., "ln_mlp": array}}; other keys (such as the JAX
+    package's unused fused-weight slots, None here) are ignored. Every
+    array keeps its dtype (bf16 included)."""
+
+    def t(a):
+        a = np.asarray(a)
+        if a.dtype.name == "bfloat16":      # numpy has no native bf16
+            return torch.from_numpy(a.astype(np.float32)).to(
+                device=device, dtype=torch.bfloat16)
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    layer_fields = [f.name for f in dataclasses.fields(LayerParams)]
+    layers = LayerParams(**{k: t(tree["layers"][k]) for k in layer_fields})
+    return LlamaParams(embed=t(tree["embed"]), lm_head=t(tree["lm_head"]),
+                       final_ln=t(tree["final_ln"]), layers=layers,
+                       cos=t(tree["cos"]), sin=t(tree["sin"]))

@@ -1,0 +1,168 @@
+"""Attention in plain PyTorch (port of `magicpig_tpu/ops/attention.py`).
+
+These functions are the plain versions of the port's hand-written kernels
+(`ops/kernels/`): the CPU runs them, and on the card each kernel is held
+against them.
+
+  * `flash_prefill`: causal attention of a query span against the KV
+    prefix, online softmax over KV blocks;
+  * `full_decode`: one-query dense attention over a cache prefix with an
+    explicit length, returning (out, lse) for the LSE merge;
+  * `collision_mask` / `lsh_masked_decode`: the LSH-sampled estimator in its
+    dense masked form (>=2-of-L collision mask + debias + masked softmax).
+
+Decode paths take GQA-shaped inputs: q [B, Hq, d] over caches [B, Hkv, S, d]
+with Hq = G * Hkv. Products take their inputs' values exactly and sum in
+float32; probabilities are rounded to the value cache's type before the
+weighted sum of V, as in the JAX functions.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from magicpig_tpu_torch.ops.debias import debias_scores
+
+_NEG_INF = -math.inf
+_PREFILL_BLOCK = 512   # keys per step of the plain prefill's online softmax
+
+
+def _safe_denom(l: torch.Tensor) -> torch.Tensor:
+    """l == 0 only when every score is -inf (the numerator is 0 too)."""
+    return torch.where(l > 0, l, torch.ones_like(l))
+
+
+def _finish(m: torch.Tensor, l: torch.Tensor, acc: torch.Tensor):
+    """(max, sum, weighted V) -> (out, natural-log lse); empty rows give
+    (0, -inf)."""
+    out = acc / _safe_denom(l).unsqueeze(-1)
+    lse = torch.where(l > 0, m + torch.log(_safe_denom(l)),
+                      torch.full_like(l, _NEG_INF))
+    return out, lse
+
+
+def _softmax_pv(scores: torch.Tensor, v: torch.Tensor):
+    """Masked softmax over the last axis of f32 scores [..., S] and the
+    weighted sum of v [..., S, d]. Returns (out f32, lse f32)."""
+    m = torch.max(scores, dim=-1).values
+    m_safe = torch.where(torch.isneginf(m), torch.zeros_like(m), m)
+    p = torch.exp(scores - m_safe.unsqueeze(-1))
+    l = torch.sum(p, dim=-1)
+    acc = torch.matmul(p.to(v.dtype).float(), v.float())
+    return _finish(m_safe, l, acc)
+
+
+def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  length: torch.Tensor, q_offset: torch.Tensor | None = None,
+                  window: int | None = None, return_lse: bool = False):
+    """Causal attention of a query span against the filled KV prefix.
+
+    q: [B, Sq, Hq, d], queries at absolute positions q_offset[b] + i;
+    k, v: [B, Skv, Hkv, d]; length: [B] valid keys; q_offset: [B] or None;
+    window: query t sees keys in (t - window, t], or None for full causal.
+    Returns out [B, Sq, Hq, d] in q.dtype, plus lse [B, Sq, Hq] f32 (-inf
+    where nothing was attended) when return_lse.
+    """
+    b, sq, hq, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    scale = 1.0 / math.sqrt(d)
+    dev = q.device
+    if q_offset is None:
+        q_offset = torch.zeros((b,), dtype=torch.int32, device=dev)
+    qh = q.float().permute(0, 2, 1, 3).reshape(b, hkv, g, sq, d)
+    q_pos = (q_offset.to(torch.int64)[:, None]
+             + torch.arange(sq, device=dev))                 # [B, Sq]
+    kv_len = length.to(torch.int64)
+
+    m = torch.full((b, hkv, g, sq), _NEG_INF, device=dev)
+    l = torch.zeros((b, hkv, g, sq), device=dev)
+    acc = torch.zeros((b, hkv, g, sq, d), device=dev)
+    for start in range(0, skv, _PREFILL_BLOCK):
+        stop = min(start + _PREFILL_BLOCK, skv)
+        kb = k[:, start:stop].float().permute(0, 2, 1, 3)     # [B,Hkv,bk,d]
+        vb = v[:, start:stop].permute(0, 2, 1, 3)
+        k_pos = torch.arange(start, stop, device=dev)
+        s = torch.matmul(qh, kb.unsqueeze(2).transpose(-1, -2)) * scale
+        mask = ((k_pos[None, None, :] <= q_pos[:, :, None])
+                & (k_pos[None, None, :] < kv_len[:, None, None]))
+        if window is not None:
+            mask = mask & (q_pos[:, :, None] - k_pos[None, None, :] < window)
+        s = torch.where(mask[:, None, None], s,
+                        torch.full_like(s, _NEG_INF))
+        m_new = torch.maximum(m, torch.max(s, dim=-1).values)
+        m_safe = torch.where(torch.isneginf(m_new), torch.zeros_like(m_new),
+                             m_new)
+        p = torch.exp(s - m_safe.unsqueeze(-1))
+        alpha = torch.exp(torch.where(torch.isneginf(m),
+                                      torch.zeros_like(m), m - m_safe))
+        l = l * alpha + torch.sum(p, dim=-1)
+        acc = acc * alpha.unsqueeze(-1) + torch.matmul(
+            p.to(vb.dtype).float(), vb.float().unsqueeze(2))
+        m = m_new
+    out, lse = _finish(m, l, acc)
+    out = out.reshape(b, hq, sq, d).permute(0, 2, 1, 3).to(q.dtype)
+    if return_lse:
+        return out, lse.reshape(b, hq, sq).permute(0, 2, 1)
+    return out
+
+
+def full_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                length: torch.Tensor):
+    """Single-token decode attention over a cache prefix, with LSE.
+
+    q: [B, Hq, d]; k, v: [B, Hkv, S, d]; length: [B] valid tokens.
+    Returns (out [B, Hq, d] f32, lse [B, Hq] f32, natural log).
+    """
+    b, hq, d = q.shape
+    hkv, s = k.shape[1], k.shape[2]
+    scale = 1.0 / math.sqrt(d)
+    qh = q.float().reshape(b, hkv, hq // hkv, d)
+    scores = torch.matmul(qh, k.float().transpose(-1, -2)) * scale
+    valid = (torch.arange(s, device=q.device)[None, :]
+             < length.to(torch.int64)[:, None])              # [B, S]
+    scores = torch.where(valid[:, None, None], scores,
+                         torch.full_like(scores, _NEG_INF))
+    out, lse = _softmax_pv(scores, v)
+    return out.reshape(b, hq, d), lse.reshape(b, hq)
+
+
+def collision_mask(q_codes: torch.Tensor, k_codes: torch.Tensor) -> torch.Tensor:
+    """>=2-of-L-tables collision mask from per-table bucket codes.
+
+    q_codes: [B, Hq, L]; k_codes: [B, Hkv, L, S]. Returns bool [B, Hq, S],
+    `(q == k).sum(tables) >= 2`.
+    """
+    b, hq, L = q_codes.shape
+    hkv, s = k_codes.shape[1], k_codes.shape[3]
+    g = hq // hkv
+    qc = q_codes.to(k_codes.dtype).reshape(b, hkv, g, L, 1)
+    count = (qc == k_codes[:, :, None]).to(torch.int16).sum(dim=3)
+    return (count >= 2).reshape(b, hq, s)
+
+
+def lsh_masked_decode(q: torch.Tensor, k_centered: torch.Tensor,
+                      v: torch.Tensor, k_norm: torch.Tensor,
+                      mask: torch.Tensor, length: torch.Tensor, K: int,
+                      L: int):
+    """Dense masked form of LSH-sampled attention with the exact debias.
+
+    q: [B, Hq, d]; k_centered, v: [B, Hkv, S, d]; k_norm: [B, Hkv, S] norms
+    of the centered keys; mask: [B, Hq, S] sampled; length: [B] valid
+    offload length. Returns (out [B, Hq, d] f32, lse [B, Hq] f32).
+    """
+    b, hq, d = q.shape
+    hkv, s = k_centered.shape[1], k_centered.shape[2]
+    g = hq // hkv
+    qh = q.float().reshape(b, hkv, g, d)
+    raw = torch.matmul(qh, k_centered.float().transpose(-1, -2))  # [B,Hkv,G,S]
+    q_norm = torch.linalg.vector_norm(qh, dim=-1, keepdim=True)
+    scores = debias_scores(raw, q_norm, k_norm[:, :, None, :], d, K, L)
+    valid = (torch.arange(s, device=q.device)[None, :]
+             < length.to(torch.int64)[:, None])[:, None, None]
+    full_mask = mask.reshape(b, hkv, g, s) & valid
+    scores = torch.where(full_mask, scores, torch.full_like(scores, _NEG_INF))
+    out, lse = _softmax_pv(scores, v)
+    return out.reshape(b, hq, d), lse.reshape(b, hq)

@@ -1,0 +1,10 @@
+"""Hand-written CUDA kernels of the port, one wrapper module each.
+
+Each wrapper launches its kernel for CUDA tensors (building the library on
+first use) and runs its plain PyTorch version for CPU tensors.
+"""
+
+from magicpig_tpu_torch.ops.kernels._lib import LAUNCHES, reset_launches  # noqa: F401
+from magicpig_tpu_torch.ops.kernels.flash_decode import flash_decode  # noqa: F401
+from magicpig_tpu_torch.ops.kernels.flash_prefill import flash_prefill  # noqa: F401
+from magicpig_tpu_torch.ops.kernels.lsh_fused import lsh_fused_decode  # noqa: F401

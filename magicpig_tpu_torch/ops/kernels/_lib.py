@@ -1,0 +1,159 @@
+"""Build and load the port's CUDA kernels.
+
+All sources under `magicpig_tpu_torch/csrc/` are compiled by ONE `nvcc` call
+into one shared library with a plain C interface, loaded with `ctypes`; no
+PyTorch header is compiled, so the build takes seconds. The library lands in
+`magicpig_tpu_torch/_build/` under a name keyed on a hash of the sources,
+so it is rebuilt only when they change. The build runs on first use, never
+at import.
+
+`LAUNCHES` counts, per wrapper, the calls that launched a kernel; a run can
+reset it and read it back to show that a path went through the kernels.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+import torch
+
+PACKAGE_DIR = Path(__file__).resolve().parents[2]
+CSRC_DIR = PACKAGE_DIR / "csrc"
+BUILD_DIR = PACKAGE_DIR / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo")
+
+LAUNCHES: dict[str, int] = {
+    "flash_prefill": 0,
+    "flash_decode": 0,
+    "lsh_fused_decode": 0,
+}
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+# C entry points: argument types, each returning cudaGetLastError().
+_SIGNATURES = {
+    "mp_flash_prefill": [_P] * 7 + [_I] * 7 + [_F, _P],
+    "mp_flash_decode": [_P] * 8 + [_I] * 5 + [_F, _P],
+    "mp_lsh_fused_decode": [_P] * 13 + [_I] * 7 + [_F, _P],
+}
+
+_lib: ctypes.CDLL | None = None
+last_build_seconds: float | None = None
+last_build_log: str = ""
+
+
+def sources() -> list[Path]:
+    return sorted(p for p in CSRC_DIR.iterdir() if p.suffix in (".cu", ".cuh"))
+
+
+def source_hash() -> str:
+    h = hashlib.sha256()
+    for p in sources():
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
+def nvcc_path() -> str:
+    for cand in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if cand and (Path(cand) / "bin" / "nvcc").exists():
+            return str(Path(cand) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    return found
+
+
+def library_path() -> Path:
+    return BUILD_DIR / f"libmagicpig_kernels_{source_hash()}.so"
+
+
+def build() -> Path:
+    """Compile every .cu under csrc/ with one nvcc call (skipped when the
+    library for these sources and flags exists). Returns its path. The
+    compiler's report (`-Xptxas -v`: registers, shared memory, spills) is
+    kept in `last_build_log` and `_build/build.log`."""
+    global last_build_seconds, last_build_log
+    out = library_path()
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    cu = [str(p) for p in sources() if p.suffix == ".cu"]
+    with tempfile.NamedTemporaryFile(dir=BUILD_DIR, suffix=".so",
+                                     delete=False) as tmp:
+        tmp_path = tmp.name
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp_path, *cu]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    last_build_seconds = time.perf_counter() - t0
+    last_build_log = proc.stdout + proc.stderr
+    (BUILD_DIR / "build.log").write_text(" ".join(cmd) + "\n" + last_build_log)
+    if proc.returncode != 0:
+        os.unlink(tmp_path)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{last_build_log}")
+    os.replace(tmp_path, out)
+    return out
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built on first use)."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        lib.mp_error_string.argtypes = [ctypes.c_int]
+        lib.mp_error_string.restype = ctypes.c_char_p
+        lib.mp_set_device.argtypes = [ctypes.c_int]
+        lib.mp_set_device.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+def _check(err: int, name: str) -> None:
+    if err != 0:
+        msg = library().mp_error_string(err).decode()
+        raise RuntimeError(f"{name}: CUDA error {err} ({msg})")
+
+
+def launch(name: str, entry: str, device: torch.device, *args) -> None:
+    """Call C entry `entry` on `device`'s current stream (appended as the
+    last argument), raise on a CUDA error, and count the launch under
+    `name`. Tensor arguments are passed as device pointers."""
+    lib = library()
+    _check(lib.mp_set_device(device.index or 0), name)
+    cargs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+    cargs.append(torch.cuda.current_stream(device).cuda_stream)
+    _check(getattr(lib, entry)(*cargs), name)
+    LAUNCHES[name] += 1
+
+
+def require(cond: bool, msg: str) -> None:
+    if not cond:
+        raise ValueError(msg)
+
+
+def require_cuda(name: str, *tensors: torch.Tensor) -> None:
+    """Every tensor on one CUDA device, contiguous, 16-byte aligned."""
+    dev = tensors[0].device
+    for t in tensors:
+        require(t.device == dev, f"{name}: tensors on {t.device} and {dev}")
+        require(t.is_contiguous(), f"{name}: inputs must be contiguous")
+        require(t.data_ptr() % 16 == 0, f"{name}: inputs must be 16-byte aligned")
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0

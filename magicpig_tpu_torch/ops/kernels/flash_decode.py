@@ -1,0 +1,66 @@
+"""Dense flash decode with LSE export: wrapper of the hand-written kernel
+`csrc/flash_decode.cu`, with its plain version `ops.attention.full_decode`.
+
+Replaces the TPU kernel `magicpig_tpu/ops/pallas/decode.py::flash_decode`
+(pallas_call at decode.py:184), bf16 K/V. On the H100 it is bound by
+reading K and V once; the kernel splits the sequence into 512-token blocks
+so that a batch of 2 fills the card, and merges the splits by LSE.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from magicpig_tpu_torch.ops import attention
+from magicpig_tpu_torch.ops.kernels import _lib
+
+HEAD_DIM = 64
+SPLIT_TOKENS = 512     # tokens per block (kDecChunk in decode_common.cuh)
+
+
+def check_decode_inputs(name: str, q: torch.Tensor, k: torch.Tensor,
+                        v: torch.Tensor, length: torch.Tensor) -> None:
+    """Shape and type checks shared by the split-sequence decode kernels."""
+    _lib.require(q.device.type == "cuda", f"{name}: unsupported device {q.device}")
+    if k.dtype == torch.int8 or v.dtype == torch.int8:
+        raise NotImplementedError(f"{name}: int8 K/V is not ported")
+    _lib.require_cuda(name, q, k, v, length)
+    b, hq, d = q.shape
+    hkv = k.shape[1]
+    _lib.require(q.dtype == k.dtype == v.dtype == torch.bfloat16,
+                 f"{name}: q, k, v must be bfloat16")
+    _lib.require(d == HEAD_DIM, f"{name}: head_dim {d} != {HEAD_DIM}")
+    _lib.require(k.dim() == 4 and k.shape == v.shape
+                 and k.shape[0] == b and k.shape[3] == d,
+                 f"{name}: k/v shape {tuple(k.shape)}")
+    _lib.require(hq % hkv == 0 and hq // hkv in (1, 2, 4, 8),
+                 f"{name}: group size {hq}/{hkv} unsupported")
+    _lib.require(length.dtype == torch.int32 and length.shape == (b,),
+                 f"{name}: length must be int32 [B]")
+
+
+def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 length: torch.Tensor):
+    """Single-query attention over a cache prefix.
+
+    q: [B, Hq, d]; k, v: [B, Hkv, S, d]; length: [B] int32 valid tokens.
+    Returns (out [B, Hq, d] f32, lse [B, Hq] f32); a request with no valid
+    token gives out 0 and lse -inf. CPU tensors take the plain version.
+    """
+    if q.device.type == "cpu":
+        return attention.full_decode(q, k, v, length)
+    name = "flash_decode"
+    check_decode_inputs(name, q, k, v, length)
+    b, hq, d = q.shape
+    hkv, s = k.shape[1], k.shape[2]
+    nsplit = -(-s // SPLIT_TOKENS)
+    f32 = dict(dtype=torch.float32, device=q.device)
+    part_o = torch.empty((nsplit, b * hq, d), **f32)
+    part_lse = torch.empty((nsplit, b * hq), **f32)
+    out = torch.empty((b, hq, d), **f32)
+    lse = torch.empty((b, hq), **f32)
+    _lib.launch(name, "mp_flash_decode", q.device, q, k, v, length, part_o,
+                part_lse, out, lse, b, s, hq, hkv, d, 1.0 / math.sqrt(d))
+    return out, lse

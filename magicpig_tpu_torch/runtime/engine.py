@@ -1,0 +1,267 @@
+"""The LLM engine: prefill / inference / decode_steps / generate / clear
+(port of `magicpig_tpu/runtime/engine.py`, the single-device path).
+
+PyTorch runs eagerly, so the engine calls the layer functions directly:
+`prefill` runs the whole prompt layer by layer through the flash-prefill
+kernel and fills the attention-server state; a decode step runs every layer
+once (dense layers through flash decode, sparse layers through flash decode
+over the hot tokens plus the fused LSH kernel over the offloaded ones).
+`decode_steps` keeps the greedy tokens on the device and synchronises once.
+"""
+
+from __future__ import annotations
+
+import time
+
+import numpy as np
+import torch
+
+from magicpig_tpu_torch.config import LSHConfig, ModelConfig, preset
+from magicpig_tpu_torch.models.llama import (
+    LlamaParams,
+    init_params,
+    post_attention,
+    qkv_proj,
+    unembed,
+)
+from magicpig_tpu_torch.ops.hashing import make_hash_projections
+from magicpig_tpu_torch.ops.kernels import flash_prefill
+from magicpig_tpu_torch.ops.sampling import greedy_sample, top_p_sample
+from magicpig_tpu_torch.runtime import state as state_lib
+from magicpig_tpu_torch.runtime.server import (
+    decode_dense_layer,
+    decode_sparse_layer,
+    fill_dense_layer,
+    fill_sparse_layer,
+)
+
+
+def resolve_device(device: torch.device | str | None) -> torch.device:
+    """The CUDA card unless the caller names another device; with no card
+    and no device named, raise rather than run on the CPU."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device: pass device='cpu' to run the "
+                               "plain PyTorch versions on the CPU")
+        device = "cuda"
+    return torch.device(device)
+
+
+class LLM:
+    """LSH-sampled decoding engine."""
+
+    def __init__(self, model: str | ModelConfig = "llama-tiny", K: int = 10,
+                 L: int = 150, batch_size: int = 1, max_length: int = 8192,
+                 generation_buffer: int = 256,
+                 params: LlamaParams | None = None, seed: int = 0,
+                 lsh: LSHConfig | None = None,
+                 projections: torch.Tensor | None = None,
+                 device: torch.device | str | None = None):
+        self.device = resolve_device(device)
+        self.config = preset(model) if isinstance(model, str) else model
+        if lsh is None:
+            # K < 0 selects the Quest baseline in the reference; LSHConfig
+            # raises for it until that estimator is ported.
+            lsh = LSHConfig(K=abs(K), L=L, generation_buffer=generation_buffer,
+                            estimator="quest" if K < 0 else "lsh")
+        self.lsh = lsh
+        self.batch_size = batch_size
+        self.max_length = max_length
+        self.groups = state_lib.layer_groups(self.config, self.lsh)
+
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(seed)
+        self.params = params if params is not None else init_params(
+            self.config, max_length, gen, self.device)
+        self.projections = (projections.to(self.device, torch.float32)
+                            if projections is not None else
+                            make_hash_projections(
+                                self.config.head_dim, max(self.lsh.K, 1),
+                                max(self.lsh.L, 1), gen, self.device))
+        self._sample_gen = torch.Generator(device=self.device)
+        self._sample_gen.manual_seed(seed + 1)
+        self.state = state_lib.init_state(self.config, self.lsh, batch_size,
+                                          max_length, self.device)
+        # Mean sampled fraction over decode steps (the reference's "Avg
+        # Sparsity"), kept across clear(). The sum stays on the device so
+        # that a decode step does not wait for the card.
+        self._sparsity_sum = torch.zeros((), dtype=torch.float64,
+                                         device=self.device)
+        self._sparsity_steps = 0
+        # Host mirrors of per-slot cache use for the generation-buffer
+        # guard: past capacity an append would write out of bounds, so
+        # decode entry fails loudly instead.
+        self._hot_used: dict[int, int] = {}
+        self._pos_used: dict[int, int] = {}
+
+    def _tokens(self, input_ids) -> torch.Tensor:
+        if isinstance(input_ids, torch.Tensor):
+            return input_ids.reshape(-1).to(self.device, torch.int64)
+        ids = np.asarray(input_ids, np.int64).reshape(-1)
+        return torch.from_numpy(ids).to(self.device)
+
+    # -- prefill ------------------------------------------------------------
+
+    @torch.no_grad()
+    def prefill(self, input_ids, request_id: int = 0) -> torch.Tensor:
+        """Prefill one request into slot `request_id`; returns logits [1, V]."""
+        cfg, lsh = self.config, self.lsh
+        tokens = self._tokens(input_ids)
+        p = tokens.shape[0]
+        if p < lsh.num_sink_tokens + lsh.num_local_tokens + 1:
+            raise ValueError("prompt shorter than sink + local tokens + 1")
+        if p > self.max_length:
+            raise ValueError(f"prompt of {p} tokens > max_length {self.max_length}")
+        params = self.params
+        hidden = params.embed[tokens][None]                    # [1, P, h]
+        positions = torch.arange(p, device=self.device)[None]
+        length = torch.full((1,), p, dtype=torch.int32, device=self.device)
+        for i, (kind, gi) in enumerate(self.groups):
+            lp = params.layers.layer(i)
+            q, k, v = qkv_proj(lp, cfg, hidden, positions, params.cos, params.sin)
+            attn = flash_prefill(q, k, v, length)              # [1, P, Hq, d]
+            hidden = post_attention(lp, cfg, attn.reshape(1, p, -1), hidden)
+            if kind == "dense":
+                fill_dense_layer(self.state, gi, request_id, k[0], v[0])
+            else:
+                fill_sparse_layer(self.state, gi, request_id, k[0], v[0],
+                                  self.projections, lsh)
+        logits = unembed(params, cfg, hidden[:, -1])           # [1, V]
+        self.state.pos[request_id] = p
+        self._hot_used[request_id] = lsh.num_sink_tokens + lsh.num_local_tokens
+        self._pos_used[request_id] = p
+        return logits
+
+    # -- decode -------------------------------------------------------------
+
+    def _decode(self, tokens: torch.Tensor):
+        """One decode step of the whole batch: (logits [B, V], mean sampled
+        fraction of the sparse layers as a device scalar)."""
+        cfg, lsh, params, st = self.config, self.lsh, self.params, self.state
+        b = tokens.shape[0]
+        hidden = params.embed[tokens]                          # [B, h]
+        positions = st.pos.long()[:, None]
+        frac_sum = torch.zeros((), device=self.device)
+        n_sparse = 0
+        for i, (kind, gi) in enumerate(self.groups):
+            lp = params.layers.layer(i)
+            q, k, v = qkv_proj(lp, cfg, hidden[:, None], positions,
+                               params.cos, params.sin)
+            q, k, v = q[:, 0], k[:, 0], v[:, 0]                # [B, H, d]
+            if kind == "dense":
+                out = decode_dense_layer(st, gi, q, k, v)
+            else:
+                out, frac = decode_sparse_layer(st, gi, q, k, v,
+                                                self.projections, lsh)
+                frac_sum = frac_sum + frac
+                n_sparse += 1
+            hidden = post_attention(lp, cfg, out.reshape(b, 1, -1),
+                                    hidden[:, None])[:, 0]
+        logits = unembed(params, cfg, hidden)                  # [B, V]
+        st.pos += 1
+        st.dense_len += 1
+        st.hot_len += 1
+        return logits, frac_sum / max(n_sparse, 1)
+
+    def _guard_decode(self, n_steps: int):
+        """Fail loudly if `n_steps` more decode tokens would overflow any
+        live slot's generation buffer or the dense cache."""
+        hot_cap = state_lib.hot_capacity(self.lsh)
+        for slot, used in self._hot_used.items():
+            if self.lsh.enabled and used + n_steps > hot_cap:
+                raise ValueError(
+                    f"slot {slot}: {n_steps} more decode steps would use "
+                    f"{used + n_steps} hot tokens > generation-buffer "
+                    f"capacity {hot_cap}; raise LSHConfig.generation_buffer")
+            if self._pos_used.get(slot, 0) + n_steps > self.max_length:
+                raise ValueError(
+                    f"slot {slot}: position {self._pos_used[slot] + n_steps} "
+                    f"would exceed max_length {self.max_length}")
+        for slot in self._hot_used:
+            self._hot_used[slot] += n_steps
+            self._pos_used[slot] += n_steps
+
+    @torch.no_grad()
+    def inference(self, input_ids) -> torch.Tensor:
+        """One decode step for the whole batch; returns logits [B, V]."""
+        self._guard_decode(1)
+        logits, frac = self._decode(self._tokens(input_ids))
+        if self.lsh.enabled:
+            self._sparsity_sum = self._sparsity_sum + frac
+            self._sparsity_steps += 1
+        return logits
+
+    @torch.no_grad()
+    def decode_steps(self, input_ids, n_steps: int) -> torch.Tensor:
+        """Greedy-decode n_steps tokens for the whole batch, tokens kept on
+        the device; returns [n_steps, B] int32."""
+        self._guard_decode(n_steps)
+        tok = self._tokens(input_ids)
+        toks = []
+        frac_sum = torch.zeros((), device=self.device)
+        for _ in range(n_steps):
+            logits, frac = self._decode(tok)
+            tok = greedy_sample(logits).long()
+            toks.append(tok)
+            frac_sum = frac_sum + frac
+        if self.lsh.enabled:
+            self._sparsity_sum = self._sparsity_sum + frac_sum
+            self._sparsity_steps += n_steps
+        return torch.stack(toks).to(torch.int32)
+
+    @property
+    def avg_sparsity(self) -> float:
+        """Mean sampled fraction over all decode steps since creation."""
+        return float(self._sparsity_sum) / max(self._sparsity_steps, 1)
+
+    def sparsity_snapshot(self) -> tuple[torch.Tensor, int]:
+        """Accumulator snapshot for `avg_sparsity_since` (per-run averages)."""
+        return (self._sparsity_sum, self._sparsity_steps)
+
+    def avg_sparsity_since(self, snapshot: tuple[torch.Tensor, int]) -> float:
+        s0, n0 = snapshot
+        return float(self._sparsity_sum - s0) / max(self._sparsity_steps - n0, 1)
+
+    def generate(self, input_ids, max_tokens: int = 128,
+                 temperature: float = 0.6, top_p: float = 0.9,
+                 verbose: bool = False) -> list[int]:
+        """Prefill slot 0 + decode loop (greedy below temperature 0.1, else
+        top-p); returns the generated token ids and clears the state."""
+        hot_cap = state_lib.hot_capacity(self.lsh)
+        base = self.lsh.num_sink_tokens + self.lsh.num_local_tokens
+        if self.lsh.enabled and base + max_tokens > hot_cap:
+            raise ValueError(
+                f"max_tokens={max_tokens} exceeds the generation buffer "
+                f"({hot_cap - base} tokens); raise "
+                f"LSHConfig.generation_buffer")
+        n_prompt = self._tokens(input_ids).shape[0]
+        logits = self.prefill(input_ids, request_id=0)
+        t1 = time.perf_counter()
+        generated: list[int] = []
+        for _ in range(max_tokens):
+            if temperature < 0.1:
+                token = greedy_sample(logits)
+            else:
+                token = top_p_sample(self._sample_gen, logits, temperature,
+                                     top_p)
+            tok = int(token[0])
+            generated.append(tok)
+            if tok in self.config.eos_token_ids:
+                break
+            logits = self.inference(token[:1].expand(self.batch_size))
+        t2 = time.perf_counter()
+        if verbose:
+            n = len(generated)
+            print(f"[INFO] Prefill {n_prompt} tokens")
+            print(f"[INFO] Generate {n} tokens")
+            print(f"[INFO] Decoding Latency {1000 * (t2 - t1) / max(n, 1):.2f} ms/token")
+        self.clear()
+        return generated
+
+    def clear(self):
+        """Reset all server state; the sparsity counters survive."""
+        self.state = state_lib.init_state(self.config, self.lsh,
+                                          self.batch_size, self.max_length,
+                                          self.device)
+        self._hot_used.clear()
+        self._pos_used.clear()

@@ -1,0 +1,127 @@
+"""Attention-server layer ops, dense and LSH branches (port of
+`magicpig_tpu/runtime/server.py`).
+
+  * fill (prefill time): `fill_dense_layer` / `fill_sparse_layer` store a
+    request's prompt K/V; the sparse fill splits sink + local (hot) from the
+    offloaded middle, centers keys by the mean offload key, and stores the
+    centered-key norms and SimHash bit-planes;
+  * decode (step time): `decode_dense_layer` appends the new token and runs
+    flash decode over the prefix; `decode_sparse_layer` runs flash decode
+    over the hot region, the fused LSH kernel over the offload region, and
+    merges the two by LSE.
+
+The state is updated in place (see `runtime/state.py`). Fill takes the
+prompt's K/V at its true length, [P, Hkv, d] with P a host integer.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from magicpig_tpu_torch.config import LSHConfig
+from magicpig_tpu_torch.ops.bitcodes import WORD, build_planes, hash_bits
+from magicpig_tpu_torch.ops.kernels import flash_decode, lsh_fused_decode
+from magicpig_tpu_torch.ops.merge import merge_partials
+from magicpig_tpu_torch.runtime.state import DecodeState
+
+
+def fill_dense_layer(state: DecodeState, di: int, req: int,
+                     k_full: torch.Tensor, v_full: torch.Tensor) -> None:
+    """Store a request's prompt K/V [P, Hkv, d] for a dense layer."""
+    p = k_full.shape[0]
+    state.dense_k[di][req, :, :p] = k_full.transpose(0, 1)
+    state.dense_v[di][req, :, :p] = v_full.transpose(0, 1)
+    state.dense_len[req] = p
+
+
+def _split_offload(k_full: torch.Tensor, v_full: torch.Tensor,
+                   lsh: LSHConfig):
+    """Sink/local/offload partition of a prompt's K/V [P, Hkv, d].
+
+    Returns (off_k, off_v [P - sink - local, Hkv, d], hot_k, hot_v
+    [sink + local, Hkv, d]), un-centered.
+    """
+    p = k_full.shape[0]
+    sink, local = lsh.num_sink_tokens, lsh.num_local_tokens
+    off = slice(sink, p - local)
+    hot_k = torch.cat([k_full[:sink], k_full[p - local:]], dim=0)
+    hot_v = torch.cat([v_full[:sink], v_full[p - local:]], dim=0)
+    return k_full[off], v_full[off], hot_k, hot_v
+
+
+def fill_sparse_layer(state: DecodeState, si: int, req: int,
+                      k_full: torch.Tensor, v_full: torch.Tensor,
+                      projections: torch.Tensor, lsh: LSHConfig) -> None:
+    """Partition a prompt's K/V [P, Hkv, d] into hot + offload and build the
+    LSH state: keys centered by the mean offload key, centered-key norms,
+    bit-plane signatures of the centered keys."""
+    off_k, off_v, hot_k, hot_v = _split_offload(k_full, v_full, lsh)
+    off_len, hot_len = off_k.shape[0], hot_k.shape[0]
+    hkv, d = k_full.shape[1], k_full.shape[2]
+
+    off_f = off_k.float()
+    avg = off_f.sum(dim=0) / max(off_len, 1)                 # [Hkv, d]
+    # Signatures of whole words: pad the centered keys with zero rows (a
+    # zero key hashes to all-zero bits) up to the next word boundary; words
+    # past it stay zero.
+    n_pad = -(-off_len // WORD) * WORD
+    centered = torch.zeros((n_pad, hkv, d), dtype=torch.float32,
+                           device=k_full.device)
+    centered[:off_len] = off_f - avg
+    planes = state.planes[si]
+    planes[req].zero_()
+    planes[req, ..., :n_pad // WORD] = build_planes(centered, projections, lsh.K)
+    state.k_norm[si][req].zero_()
+    state.k_norm[si][req, :, :off_len] = torch.linalg.vector_norm(
+        centered[:off_len], dim=-1).T
+    state.avg_k[si][req] = avg
+    state.off_k[si][req, :, :off_len] = centered[:off_len].transpose(0, 1)
+    state.off_v[si][req, :, :off_len] = off_v.transpose(0, 1)
+    state.hot_k[si][req, :, :hot_len] = (hot_k.float() - avg).transpose(0, 1)
+    state.hot_v[si][req, :, :hot_len] = hot_v.transpose(0, 1)
+    state.off_len[req] = off_len
+    state.hot_len[req] = hot_len
+
+
+def _append(cache: torch.Tensor, new: torch.Tensor, lens: torch.Tensor) -> None:
+    """cache[b, :, lens[b]] = new[b] for every request (in place)."""
+    rows = torch.arange(cache.shape[0], device=cache.device)
+    cache[rows, :, lens.long()] = new.to(cache.dtype)
+
+
+def decode_dense_layer(state: DecodeState, di: int, q: torch.Tensor,
+                       k_new: torch.Tensor, v_new: torch.Tensor) -> torch.Tensor:
+    """Append + full attention over the prefix. q: [B, Hq, d]; k/v_new:
+    [B, Hkv, d]. Returns out [B, Hq, d] f32."""
+    _append(state.dense_k[di], k_new, state.dense_len)
+    _append(state.dense_v[di], v_new, state.dense_len)
+    out, _ = flash_decode(q, state.dense_k[di], state.dense_v[di],
+                          state.dense_len + 1)
+    return out
+
+
+def _lsh_partial(state: DecodeState, si: int, q: torch.Tensor,
+                 projections: torch.Tensor, lsh: LSHConfig):
+    """LSH-sampled partial over the offload region: (out, lse, sampled
+    fraction as a device scalar)."""
+    q_bits = hash_bits(q, projections, lsh.K)                # [B, Hq, L, K]
+    out, lse, cnt = lsh_fused_decode(
+        q, state.off_k[si], state.off_v[si], state.k_norm[si],
+        state.planes[si], q_bits, state.off_len, lsh.K, lsh.L)
+    frac = cnt.sum() / torch.clamp(state.off_len.sum() * q.shape[1], min=1)
+    return out, lse, frac
+
+
+def decode_sparse_layer(state: DecodeState, si: int, q: torch.Tensor,
+                        k_new: torch.Tensor, v_new: torch.Tensor,
+                        projections: torch.Tensor, lsh: LSHConfig):
+    """Hot dense partial + LSH partial over the offload region, merged by
+    LSE. Returns (out [B, Hq, d] f32, sampled fraction)."""
+    k_new = (k_new.float() - state.avg_k[si]).to(k_new.dtype)
+    _append(state.hot_k[si], k_new, state.hot_len)
+    _append(state.hot_v[si], v_new, state.hot_len)
+    o_hot, lse_hot = flash_decode(q, state.hot_k[si], state.hot_v[si],
+                                  state.hot_len + 1)
+    o_off, lse_off, frac = _lsh_partial(state, si, q, projections, lsh)
+    out, _ = merge_partials([o_hot, o_off], [lse_hot, lse_off])
+    return out, frac

@@ -1,0 +1,102 @@
+"""Decode-time cache state (port of `magicpig_tpu/runtime/state.py`).
+
+Layouts chosen for the card (the JAX package's token folding to 128 lanes
+is a TPU choice):
+  * dense layers: [B, Hkv, max_len, d] per layer;
+  * sparse layers: a hot region (sink + local + generated tokens)
+    [B, Hkv, hot_cap, d] and the offloaded middle [B, Hkv, off_cap, d], keys
+    of both centered by the mean offload key; centered-key norms
+    [B, Hkv, off_cap] f32; SimHash bit-planes [B, Hkv, L, K, off_cap/32]
+    int32 in the flat layout of `ops.bitcodes`;
+  * per-request lengths as int32 device tensors [B].
+Fill and decode write into these tensors in place, which keeps one copy of
+each cache.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from magicpig_tpu_torch.config import LSHConfig, ModelConfig
+from magicpig_tpu_torch.ops.bitcodes import num_words
+
+
+@dataclasses.dataclass
+class DecodeState:
+    """All attention-server state of one engine instance."""
+
+    dense_k: list[torch.Tensor]   # per dense layer [B, Hkv, max_len, d]
+    dense_v: list[torch.Tensor]
+    dense_len: torch.Tensor       # [B] i32, valid tokens per request
+    hot_k: list[torch.Tensor]     # per sparse layer [B, Hkv, hot_cap, d]
+    hot_v: list[torch.Tensor]
+    hot_len: torch.Tensor         # [B] i32
+    off_k: list[torch.Tensor]     # per sparse layer [B, Hkv, off_cap, d]
+    off_v: list[torch.Tensor]
+    off_len: torch.Tensor         # [B] i32
+    k_norm: list[torch.Tensor]    # per sparse layer [B, Hkv, off_cap] f32
+    avg_k: list[torch.Tensor]     # per sparse layer [B, Hkv, d] f32
+    planes: list[torch.Tensor]    # per sparse layer [B, Hkv, L, K, W] i32
+    pos: torch.Tensor             # [B] i32, next absolute position
+
+
+def hot_capacity(lsh: LSHConfig) -> int:
+    cap = lsh.num_sink_tokens + lsh.num_local_tokens + lsh.generation_buffer
+    return ((cap + 127) // 128) * 128
+
+
+def offload_capacity(lsh: LSHConfig, max_length: int) -> int:
+    """Offload tokens per request, 128-aligned (whole signature words)."""
+    cap = max(0, max_length - lsh.num_sink_tokens - lsh.num_local_tokens)
+    return ((cap + 127) // 128) * 128
+
+
+def init_state(config: ModelConfig, lsh: LSHConfig, batch_size: int,
+               max_length: int, device: torch.device | str) -> DecodeState:
+    dense = lsh.dense_layers_for(config.num_hidden_layers)
+    nd = len(dense)
+    ns = config.num_hidden_layers - nd
+    b, hkv, d, dt = (batch_size, config.num_key_value_heads, config.head_dim,
+                     config.dtype)
+    off_cap = offload_capacity(lsh, max_length)
+    hot_cap = hot_capacity(lsh)
+
+    def per_layer(n, shape, dtype):
+        return [torch.zeros(shape, dtype=dtype, device=device) for _ in range(n)]
+
+    def lens():
+        return torch.zeros((b,), dtype=torch.int32, device=device)
+
+    return DecodeState(
+        dense_k=per_layer(nd, (b, hkv, max_length, d), dt),
+        dense_v=per_layer(nd, (b, hkv, max_length, d), dt),
+        dense_len=lens(),
+        hot_k=per_layer(ns, (b, hkv, hot_cap, d), dt),
+        hot_v=per_layer(ns, (b, hkv, hot_cap, d), dt),
+        hot_len=lens(),
+        off_k=per_layer(ns, (b, hkv, off_cap, d), dt),
+        off_v=per_layer(ns, (b, hkv, off_cap, d), dt),
+        off_len=lens(),
+        k_norm=per_layer(ns, (b, hkv, off_cap), torch.float32),
+        avg_k=per_layer(ns, (b, hkv, d), torch.float32),
+        planes=per_layer(ns, (b, hkv, max(lsh.L, 1), max(lsh.K, 1),
+                              num_words(off_cap)), torch.int32),
+        pos=lens(),
+    )
+
+
+def layer_groups(config: ModelConfig, lsh: LSHConfig):
+    """Map each layer index to ('dense'|'sparse', index within its group)."""
+    dense = set(lsh.dense_layers_for(config.num_hidden_layers))
+    groups = []
+    di = si = 0
+    for i in range(config.num_hidden_layers):
+        if i in dense:
+            groups.append(("dense", di))
+            di += 1
+        else:
+            groups.append(("sparse", si))
+            si += 1
+    return groups

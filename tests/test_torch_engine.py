@@ -1,0 +1,338 @@
+"""The port's model, attention servers and engine against the JAX package's,
+on the CPU in float32 (so that bf16 rounding order does not decide a
+token), with the JAX weights and hash projections carried across.
+
+Tolerances: float32 model paths 1e-4; greedy tokens and sampled counts
+exactly. A sparse layer's output 2e-2 (`JAX_DEBIAS_TOL`): with random keys,
+most sampled keys collided by chance, have a small collision weight w and
+so the largest debias weight 1/w, and the JAX package's float32 w cancels
+there (its log(w + 1e-4) is off the float64 value by up to 0.047 at K=10,
+L=150; tests/test_torch_ops.py). The port's w does not cancel, and its
+masked decode matches a float64 evaluation to 1e-4
+(tests/test_torch_kernels.py).
+The engines' sampled fractions agree to 2e-3 rather than exactly: the two
+frameworks round the model's float32 products differently, and a SimHash
+sign whose projection lies at rounding scale may flip (one signature bit in
+~10^6 in these runs), moving a few sampled tokens.
+"""
+
+import ast
+import dataclasses
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from magicpig_tpu.config import LSHConfig as JLSHConfig
+from magicpig_tpu.config import preset as jpreset
+from magicpig_tpu.models import llama as jllama
+from magicpig_tpu.runtime import server as jserver
+from magicpig_tpu.runtime import state as jstate
+from magicpig_tpu.runtime.engine import LLM as JLLM
+from magicpig_tpu_torch.config import LSHConfig, preset
+from magicpig_tpu_torch.models import llama as tllama
+from magicpig_tpu_torch.models.convert import params_from_numpy
+from magicpig_tpu_torch.runtime import server as tserver
+from magicpig_tpu_torch.runtime import state as tstate
+from magicpig_tpu_torch.runtime.engine import LLM
+
+ROOT = Path(__file__).resolve().parents[1]
+F32 = 1e-4
+JAX_DEBIAS_TOL = 2e-2
+MAX_LEN = 512
+LSH_KW = dict(K=10, L=150, num_sink_tokens=4, num_local_tokens=16,
+              generation_buffer=32)
+JCFG = dataclasses.replace(jpreset("llama-tiny"), dtype=jnp.float32)
+TCFG = dataclasses.replace(preset("llama-tiny"), dtype=torch.float32)
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))
+
+
+def _np(x):
+    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+@pytest.fixture(scope="module")
+def weights():
+    """JAX llama-tiny weights, and the same weights as the port's params."""
+    jp = jllama.init_params(JCFG, jax.random.key(0), MAX_LEN)
+    tree = dataclasses.asdict(jax.tree_util.tree_map(np.asarray, jp))
+    return jp, params_from_numpy(tree, device="cpu")
+
+
+@pytest.fixture(scope="module")
+def bank():
+    return np.random.default_rng(42).standard_normal(
+        (TCFG.head_dim, LSH_KW["K"] * LSH_KW["L"])).astype(np.float32)
+
+
+def _engines(weights, bank, batch_size=1):
+    jp, tp = weights
+    jl = JLLM(JCFG, batch_size=batch_size, max_length=MAX_LEN, chunk_size=64,
+              params=jp, lsh=JLSHConfig(**LSH_KW))
+    jl.projections = jnp.asarray(bank)
+    tl = LLM(TCFG, batch_size=batch_size, max_length=MAX_LEN, params=tp,
+             lsh=LSHConfig(**LSH_KW), projections=_t(bank), device="cpu")
+    return jl, tl
+
+
+def _prompt(seed, n):
+    return np.random.default_rng(seed).integers(1, TCFG.vocab_size, n).astype(np.int32)
+
+
+# -- model -----------------------------------------------------------------------------
+
+
+def test_params_from_numpy_carries_every_weight(weights):
+    jp, tp = weights
+    for name in ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down",
+                 "ln_attn", "ln_mlp"):
+        np.testing.assert_array_equal(_np(getattr(tp.layers, name)),
+                                      np.asarray(getattr(jp.layers, name)))
+    for name in ("embed", "lm_head", "final_ln", "cos", "sin"):
+        np.testing.assert_array_equal(_np(getattr(tp, name)),
+                                      np.asarray(getattr(jp, name)))
+
+
+@pytest.mark.parametrize("layer", [0, 3])
+def test_layer_math_matches_jax(weights, layer):
+    jp, tp = weights
+    rng = np.random.default_rng(layer)
+    hidden = rng.standard_normal((2, 9, TCFG.hidden_size)).astype(np.float32)
+    pos = np.stack([np.arange(9), np.arange(100, 109)]).astype(np.int32)
+    jq, jk, jv = jllama.qkv_proj(jp.layers.layer(layer), JCFG, jnp.asarray(hidden),
+                                 jnp.asarray(pos), jp.cos, jp.sin)
+    tq, tk, tv = tllama.qkv_proj(tp.layers.layer(layer), TCFG, _t(hidden),
+                                 _t(pos).long(), tp.cos, tp.sin)
+    for a, b in ((tq, jq), (tk, jk), (tv, jv)):
+        np.testing.assert_allclose(_np(a), np.asarray(b), atol=F32, rtol=F32)
+    attn = rng.standard_normal((2, 9, TCFG.num_attention_heads * TCFG.head_dim))
+    attn = attn.astype(np.float32)
+    jh = jllama.post_attention(jp.layers.layer(layer), JCFG, jnp.asarray(attn),
+                               jnp.asarray(hidden))
+    th = tllama.post_attention(tp.layers.layer(layer), TCFG, _t(attn), _t(hidden))
+    np.testing.assert_allclose(_np(th), np.asarray(jh), atol=F32, rtol=F32)
+    np.testing.assert_allclose(
+        _np(tllama.unembed(tp, TCFG, th[:, -1])),
+        np.asarray(jllama.unembed(jp, JCFG, jh[:, -1])), atol=F32, rtol=F32)
+
+
+# -- attention servers ------------------------------------------------------------------
+
+
+# The JAX layer functions, jitted as its engine runs them (op-by-op they
+# compile every small op separately).
+_jfill_dense = jax.jit(jserver.fill_dense_layer, static_argnums=(1,))
+_jdecode_dense = jax.jit(jserver.decode_dense_layer, static_argnums=(1,))
+_jfill_sparse = jax.jit(jserver.fill_sparse_layer, static_argnums=(1, 7))
+_jdecode_sparse = jax.jit(jserver.decode_sparse_layer, static_argnums=(1, 6))
+
+
+def _layer_kv(seed, p, hkv=2, d=16):
+    rng = np.random.default_rng(seed)
+    k = rng.standard_normal((p, hkv, d)).astype(np.float32)
+    v = rng.standard_normal((p, hkv, d)).astype(np.float32)
+    return k, v
+
+
+def test_dense_layer_fill_and_decode_match_jax():
+    jl, tl = JLSHConfig(**LSH_KW), LSHConfig(**LSH_KW)
+    js = jstate.init_state(JCFG, jl, 2, MAX_LEN)
+    ts = tstate.init_state(TCFG, tl, 2, MAX_LEN, "cpu")
+    for req, p in ((0, 100), (1, 37)):
+        k, v = _layer_kv(req, p)
+        pad = np.zeros((128 - p, 2, 16), np.float32)
+        js = _jfill_dense(js, 0, jnp.int32(req),
+                                      jnp.asarray(np.concatenate([k, pad])),
+                                      jnp.asarray(np.concatenate([v, pad])),
+                                      jnp.int32(p))
+        tserver.fill_dense_layer(ts, 0, req, _t(k), _t(v))
+    rng = np.random.default_rng(9)
+    q = rng.standard_normal((2, 8, 16)).astype(np.float32)
+    kn = rng.standard_normal((2, 2, 16)).astype(np.float32)
+    vn = rng.standard_normal((2, 2, 16)).astype(np.float32)
+    jo, js = _jdecode_dense(js, 0, jnp.asarray(q), jnp.asarray(kn),
+                            jnp.asarray(vn))
+    to = tserver.decode_dense_layer(ts, 0, _t(q), _t(kn), _t(vn))
+    np.testing.assert_allclose(_np(to), np.asarray(jo), atol=F32, rtol=F32)
+    np.testing.assert_array_equal(_np(ts.dense_len), np.asarray(js.dense_len))
+
+
+def test_sparse_layer_fill_and_decode_match_jax(bank):
+    jl, tl = JLSHConfig(**LSH_KW), LSHConfig(**LSH_KW)
+    js = jstate.init_state(JCFG, jl, 2, MAX_LEN)
+    ts = tstate.init_state(TCFG, tl, 2, MAX_LEN, "cpu")
+    jproj = jnp.asarray(bank)
+    lens = (300, 120)
+    for req, p in enumerate(lens):
+        k, v = _layer_kv(10 + req, p)
+        pad = np.zeros((320 - p, 2, 16), np.float32)
+        js = _jfill_sparse(js, 1, jnp.int32(req),
+                           jnp.asarray(np.concatenate([k, pad])),
+                           jnp.asarray(np.concatenate([v, pad])),
+                           jnp.int32(p), jproj, jl)
+        tserver.fill_sparse_layer(ts, 1, req, _t(k), _t(v), _t(bank), tl)
+    np.testing.assert_array_equal(_np(ts.off_len), np.asarray(js.off_len))
+    np.testing.assert_array_equal(_np(ts.hot_len), np.asarray(js.hot_len))
+    np.testing.assert_allclose(_np(ts.avg_k[1]), np.asarray(js.avg_k[1]),
+                               atol=F32, rtol=F32)
+    # JAX keeps norms fold-major [B, Hkv, fold, cap/fold] and K token-folded.
+    jnorm = np.asarray(js.k_norm[1]).transpose(0, 1, 3, 2).reshape(2, 2, -1)
+    joff = np.asarray(js.off_k[1]).reshape(2, 2, -1, 16)
+    for req in range(2):
+        n = int(ts.off_len[req])
+        np.testing.assert_allclose(_np(ts.k_norm[1])[req, :, :n], jnorm[req, :, :n],
+                                   atol=F32, rtol=F32)
+        np.testing.assert_allclose(_np(ts.off_k[1])[req, :, :n], joff[req, :, :n],
+                                   atol=F32, rtol=F32)
+
+    rng = np.random.default_rng(13)
+    q = rng.standard_normal((2, 8, 16)).astype(np.float32)
+    kn = rng.standard_normal((2, 2, 16)).astype(np.float32)
+    vn = rng.standard_normal((2, 2, 16)).astype(np.float32)
+    jo, js, jfrac = _jdecode_sparse(js, 1, jnp.asarray(q), jnp.asarray(kn),
+                                    jnp.asarray(vn), jproj, jl)
+    to, tfrac = tserver.decode_sparse_layer(ts, 1, _t(q), _t(kn), _t(vn),
+                                            _t(bank), tl)
+    assert float(tfrac) == pytest.approx(float(jfrac), abs=1e-7)
+    assert float(tfrac) > 0
+    np.testing.assert_allclose(_np(to), np.asarray(jo), atol=JAX_DEBIAS_TOL,
+                               rtol=JAX_DEBIAS_TOL)
+
+
+# -- the engine --------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def single_runs(weights, bank):
+    """Prefill + 8 greedy steps in both engines."""
+    jl, tl = _engines(weights, bank)
+    prompt = _prompt(0, 300)
+    out = {"j_logits": np.asarray(jl.prefill(prompt)),
+           "t_logits": _np(tl.prefill(prompt))}
+    jt, tt = [int(out["j_logits"][0].argmax())], [int(out["t_logits"][0].argmax())]
+    for _ in range(7):
+        jt.append(int(np.asarray(jl.inference(np.asarray([jt[-1]])))[0].argmax()))
+        tt.append(int(_np(tl.inference(torch.tensor([tt[-1]])))[0].argmax()))
+    out.update(j_tokens=jt, t_tokens=tt, j_sparsity=jl.avg_sparsity,
+               t_sparsity=tl.avg_sparsity, t_engine=tl)
+    return out
+
+
+def test_engine_prefill_logits_match_jax(single_runs):
+    np.testing.assert_allclose(single_runs["t_logits"], single_runs["j_logits"],
+                               atol=F32, rtol=F32)
+
+
+def test_engine_greedy_tokens_match_jax(single_runs):
+    assert single_runs["t_tokens"] == single_runs["j_tokens"]
+
+
+def test_engine_avg_sparsity_matches_jax(single_runs):
+    assert 0 < single_runs["t_sparsity"] < 1
+    assert single_runs["t_sparsity"] == pytest.approx(single_runs["j_sparsity"],
+                                                      abs=2e-3)
+
+
+def test_decode_steps_equal_inference_loop(weights, bank):
+    _, tl = _engines(weights, bank)
+    prompt = _prompt(1, 200)
+    first = int(_np(tl.prefill(prompt))[0].argmax())
+    toks = _np(tl.decode_steps([first], 5))[:, 0].tolist()
+    tl.clear()
+    tok = int(_np(tl.prefill(prompt))[0].argmax())
+    loop = []
+    for _ in range(5):
+        tok = int(_np(tl.inference(torch.tensor([tok])))[0].argmax())
+        loop.append(tok)
+    assert toks == loop
+
+
+def test_two_request_batch_and_clear(weights, bank):
+    """Two prefills into slots 0 and 1, then batched decode: each slot
+    matches a single-request engine (itself held against JAX above), and
+    clear() resets every length."""
+    _, tb = _engines(weights, bank, batch_size=2)
+    singles = [_engines(weights, bank)[1] for _ in range(2)]
+    prompts = [_prompt(2, 150), _prompt(3, 220)]
+    batched = [tb.prefill(p, request_id=i) for i, p in enumerate(prompts)]
+    alone = [eng.prefill(p) for eng, p in zip(singles, prompts)]
+    for a, b in zip(batched, alone):
+        np.testing.assert_allclose(_np(a), _np(b), atol=1e-6, rtol=1e-6)
+    toks = [int(_np(x)[0].argmax()) for x in batched]
+    for _ in range(3):
+        step = _np(tb.inference(torch.tensor(toks)))
+        for i, eng in enumerate(singles):
+            one = _np(eng.inference(torch.tensor(toks[i:i + 1])))
+            np.testing.assert_allclose(step[i], one[0], atol=1e-5, rtol=1e-5)
+        toks = step.argmax(-1).tolist()
+
+    tb.clear()
+    st = tb.state
+    for lens in (st.dense_len, st.hot_len, st.off_len, st.pos):
+        assert int(lens.abs().sum()) == 0
+    np.testing.assert_array_equal(_np(tb.prefill(prompts[0])), _np(batched[0]))
+
+
+def test_generation_buffer_guard_raises_as_in_jax(weights, bank):
+    """Both engines refuse decode steps past the hot capacity: here 128 =
+    4 sink + 120 local + 4 buffer tokens, so 4 steps fit after a prefill."""
+    jp, tp = weights
+    kw = dict(LSH_KW, num_local_tokens=120, generation_buffer=4)
+    jl = JLLM(JCFG, max_length=MAX_LEN, chunk_size=64, params=jp,
+              lsh=JLSHConfig(**kw))
+    tl = LLM(TCFG, max_length=MAX_LEN, params=tp, lsh=LSHConfig(**kw),
+             projections=_t(bank), device="cpu")
+    for eng in (jl, tl):
+        with pytest.raises(ValueError, match="exceeds the generation buffer"):
+            eng.generate(_prompt(4, 200), max_tokens=5)
+    tl.prefill(_prompt(5, 200))
+    jl._hot_used[0], jl._pos_used[0] = tl._hot_used[0], tl._pos_used[0]
+    for eng in (jl, tl):
+        with pytest.raises(ValueError, match="generation-buffer"):
+            eng.decode_steps([1], 5)
+    tl.decode_steps([1], 4)                 # exactly fills the buffer
+    with pytest.raises(ValueError, match="generation-buffer"):
+        tl.inference(torch.tensor([1]))
+
+
+def test_generate_greedy_matches_jax_and_clears(weights, bank, single_runs):
+    """Greedy generate() gives JAX's greedy tokens (those of `single_runs`,
+    same prompt) and leaves the state cleared."""
+    _, tl = _engines(weights, bank)
+    got = tl.generate(_prompt(0, 300), max_tokens=8, temperature=0.0)
+    assert got == single_runs["j_tokens"]
+    assert int(tl.state.pos.abs().sum()) == 0
+
+
+def test_llm_without_device_raises_when_no_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        LLM("llama-tiny")
+
+
+# -- imports ----------------------------------------------------------------------------
+
+
+def _imported_roots(path: Path) -> set[str]:
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            roots |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.module and not node.level:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+def test_port_and_chip_smoke_import_no_jax():
+    files = sorted((ROOT / "magicpig_tpu_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    assert len(files) > 10
+    for f in files:
+        bad = _imported_roots(f) & {"jax", "jaxlib", "flax", "magicpig_tpu"}
+        assert not bad, f"{f.relative_to(ROOT)} imports {sorted(bad)}"

@@ -1,0 +1,248 @@
+"""The plain versions of the port's three kernels against the JAX package's
+Pallas kernels (interpret mode, as the JAX tests run them on the CPU). The
+CUDA kernels themselves are held against these plain versions in
+tests/test_torch_kernels_cuda.py (card only).
+
+Tolerances: float32 inputs, 1e-4 for prefill and dense decode (the same
+online-softmax math in another order). The LSH partial 3e-3, as in the JAX
+package's own fused-kernel tests: the Pallas kernel evaluates arccos with a
+2e-4 rad polynomial and the collision weight as 1 - x with x near 1, the
+port with libm arccos and without that cancellation. Sampled counts exactly:
+both sides scan the same signatures of the same keys.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from magicpig_tpu.ops import attention as jatt
+from magicpig_tpu.ops import bitcodes as jbits
+from magicpig_tpu.ops.pallas.decode import flash_decode as j_flash_decode
+from magicpig_tpu.ops.pallas.lsh_decode import lsh_fused_decode as j_lsh_fused_decode
+from magicpig_tpu.ops.pallas.prefill import flash_prefill_pallas
+from magicpig_tpu_torch.ops import attention as tatt
+from magicpig_tpu_torch.ops import bitcodes as tbits
+from magicpig_tpu_torch.ops.kernels import (
+    LAUNCHES,
+    _lib,
+    flash_decode,
+    flash_prefill,
+    lsh_fused_decode,
+)
+from magicpig_tpu_torch.ops.kernels.lsh_fused import lsh_fused_decode_plain
+
+F32 = 1e-4
+LSH_TOL = 3e-3
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))
+
+
+def _np(x):
+    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+# -- flash prefill ---------------------------------------------------------------
+
+
+@pytest.mark.parametrize("B,HKV,G,SQ,SKV,D,lengths,offsets,window", [
+    (1, 2, 4, 256, 256, 64, [256], [0], None),
+    (2, 2, 2, 256, 256, 16, [256, 100], [0, 0], None),   # ragged length
+    (1, 2, 4, 256, 256, 64, [200], [0], 64),             # sliding window
+    (1, 2, 4, 128, 384, 64, [256], [128], None),         # query offset
+    (1, 2, 1, 256, 256, 32, [256], [0], None),           # GQA group of 1
+])
+def test_flash_prefill_plain_matches_pallas(B, HKV, G, SQ, SKV, D, lengths,
+                                            offsets, window):
+    rng = np.random.default_rng(0)
+    q = rng.standard_normal((B, SQ, HKV * G, D)).astype(np.float32)
+    k = rng.standard_normal((B, SKV, HKV, D)).astype(np.float32)
+    v = rng.standard_normal((B, SKV, HKV, D)).astype(np.float32)
+    length = np.asarray(lengths, np.int32)
+    offset = np.asarray(offsets, np.int32)
+    jo, jl = flash_prefill_pallas(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(length),
+        q_offset=jnp.asarray(offset), q_tile=128, chunk_tokens=128,
+        window=window, interpret=True, return_lse=True)
+    to, tl = flash_prefill(_t(q), _t(k), _t(v), _t(length), _t(offset),
+                           window=window, return_lse=True)
+    np.testing.assert_allclose(_np(to), np.asarray(jo), atol=F32, rtol=F32)
+    np.testing.assert_allclose(_np(tl), np.asarray(jl), atol=F32, rtol=F32)
+
+
+# -- flash decode ----------------------------------------------------------------
+
+
+@pytest.mark.parametrize("B,HKV,G,S,D", [
+    (3, 2, 4, 256, 64),
+    (2, 2, 2, 256, 128),
+    (2, 2, 4, 512, 16),
+])
+def test_flash_decode_plain_matches_pallas(B, HKV, G, S, D):
+    rng = np.random.default_rng(1)
+    q = rng.standard_normal((B, HKV * G, D)).astype(np.float32)
+    k = rng.standard_normal((B, HKV, S, D)).astype(np.float32)
+    v = rng.standard_normal((B, HKV, S, D)).astype(np.float32)
+    length = np.asarray(([S, 37, 0] * B)[:B], np.int32)   # last row: empty
+    jo, jl = j_flash_decode(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                            jnp.asarray(length), block_tokens=128,
+                            interpret=True)
+    to, tl = flash_decode(_t(q), _t(k), _t(v), _t(length))
+    np.testing.assert_allclose(_np(to), np.asarray(jo), atol=F32, rtol=F32)
+    np.testing.assert_allclose(_np(tl), np.asarray(jl), atol=F32, rtol=F32)
+    if B == 3:   # a request with no valid token: out 0, lse -inf
+        assert (_np(to)[2] == 0).all() and np.isneginf(_np(tl)[2]).all()
+
+
+# -- fused LSH decode --------------------------------------------------------------
+
+
+def _lsh_inputs(seed, B, HKV, G, S, D, K, L):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((B, HKV * G, D)).astype(np.float32)
+    kc = rng.standard_normal((B, HKV, S, D)).astype(np.float32)
+    # Plant keys near each query so that the sample is not empty.
+    kc[:, :, 5:40] = (q.reshape(B, HKV, G, D)[:, :, :1]
+                      + 0.3 * kc[:, :, 5:40])
+    v = rng.standard_normal((B, HKV, S, D)).astype(np.float32)
+    proj = rng.standard_normal((D, K * L)).astype(np.float32)
+    length = np.asarray(([S, S // 2 + 17] * B)[:B], np.int32)
+    return q, kc, v, proj, length
+
+
+def _port_planes(kc, proj, K):
+    return torch.stack([tbits.build_planes(_t(kc[b]).transpose(0, 1),
+                                           _t(proj), K)
+                        for b in range(kc.shape[0])])
+
+
+@pytest.mark.parametrize("B,HKV,G,S,D,K,L", [
+    (2, 2, 4, 256, 64, 6, 20),      # even L: the one-kernel Pallas form
+    (1, 2, 2, 512, 16, 10, 30),
+    (1, 2, 4, 256, 64, 6, 21),      # odd L: the two-stage Pallas form
+])
+def test_lsh_plain_matches_pallas_fused_decode(B, HKV, G, S, D, K, L):
+    q, kc, v, proj, length = _lsh_inputs(3, B, HKV, G, S, D, K, L)
+    knorm = np.linalg.norm(kc, axis=-1)
+    fold = max(128 // D, 1)
+    blk = jbits.plane_block(S, fold)
+    jplanes = jax.vmap(lambda kb: jbits.build_planes_blocked(
+        kb.transpose(1, 0, 2), jnp.asarray(proj), K, blk, fold))(jnp.asarray(kc))
+    jqb = jbits.hash_bits(jnp.asarray(q), jnp.asarray(proj), K)
+    jo, jl, jc = j_lsh_fused_decode(
+        jnp.asarray(q), jnp.asarray(kc), jnp.asarray(v), jnp.asarray(knorm),
+        jplanes, jqb, jnp.asarray(length), K, L, block_tokens=128,
+        interpret=True)
+    qb = tbits.hash_bits(_t(q), _t(proj), K)
+    to, tl, tc = lsh_fused_decode(_t(q), _t(kc), _t(v), _t(knorm),
+                                  _port_planes(kc, proj, K), qb, _t(length),
+                                  K, L)
+    np.testing.assert_array_equal(_np(tc), np.asarray(jc))
+    assert _np(tc).min() > 0
+    np.testing.assert_allclose(_np(to), np.asarray(jo), atol=LSH_TOL, rtol=LSH_TOL)
+    np.testing.assert_allclose(_np(tl), np.asarray(jl), atol=LSH_TOL, rtol=LSH_TOL)
+
+
+@pytest.mark.parametrize("K,L", [(6, 20), (10, 150)])
+def test_lsh_plain_matches_xla_masked_decode(K, L):
+    """Same mask into both: the port's masked decode against the JAX oracle
+    `lsh_masked_decode` (the XLA form the JAX engine runs on the CPU)."""
+    B, HKV, G, S, D = 2, 2, 4, 256, 64
+    q, kc, v, proj, length = _lsh_inputs(4, B, HKV, G, S, D, K, L)
+    knorm = np.linalg.norm(kc, axis=-1)
+    qb = tbits.hash_bits(_t(q), _t(proj), K)
+    mask = tbits.sampled_mask(qb, _port_planes(kc, proj, K), _t(length))
+    jo, jl = jatt.lsh_masked_decode(
+        jnp.asarray(q), jnp.asarray(kc), jnp.asarray(v), jnp.asarray(knorm),
+        jnp.asarray(_np(mask)), jnp.asarray(length), K, L)
+    to, tl = tatt.lsh_masked_decode(_t(q), _t(kc), _t(v), _t(knorm), mask,
+                                    _t(length), K, L)
+    np.testing.assert_allclose(_np(to), np.asarray(jo), atol=LSH_TOL, rtol=LSH_TOL)
+    np.testing.assert_allclose(_np(tl), np.asarray(jl), atol=LSH_TOL, rtol=LSH_TOL)
+
+
+def test_lsh_masked_decode_matches_float64_evaluation():
+    """The port's masked decode against the same formula in float64 numpy,
+    with random keys (most sampled keys collided by chance, so small
+    collision weights get the largest debias weights)."""
+    from magicpig_tpu.ops.debias import exact_log_weight
+    B, HKV, G, S, D, K, L = 2, 2, 4, 512, 64, 10, 150
+    rng = np.random.default_rng(14)
+    q = rng.standard_normal((B, HKV * G, D)).astype(np.float32)
+    kc = rng.standard_normal((B, HKV, S, D)).astype(np.float32)
+    v = rng.standard_normal((B, HKV, S, D)).astype(np.float32)
+    knorm = np.linalg.norm(kc, axis=-1)
+    proj = rng.standard_normal((D, K * L)).astype(np.float32)
+    length = np.asarray([S, 300], np.int32)
+    qb = tbits.hash_bits(_t(q), _t(proj), K)
+    mask = _np(tbits.sampled_mask(qb, _port_planes(kc, proj, K), _t(length)))
+    assert mask.sum() > 0
+    to, tl = tatt.lsh_masked_decode(_t(q), _t(kc), _t(v), _t(knorm), _t(mask),
+                                    _t(length), K, L)
+
+    qh = q.astype(np.float64).reshape(B, HKV, G, D)
+    raw = np.einsum("bhgd,bhsd->bhgs", qh, kc.astype(np.float64))
+    cos = raw / (np.linalg.norm(qh, axis=-1)[..., None] * knorm[:, :, None])
+    s = raw / np.sqrt(D) - exact_log_weight(cos, K, L)
+    s = np.where(mask.reshape(B, HKV, G, S), s, -np.inf)
+    m = s.max(-1, keepdims=True)
+    p = np.exp(s - m)
+    out = np.einsum("bhgs,bhsd->bhgd", p, v.astype(np.float64)) / p.sum(-1)[..., None]
+    lse = (m[..., 0] + np.log(p.sum(-1))).reshape(B, HKV * G)
+    np.testing.assert_allclose(_np(to), out.reshape(B, HKV * G, D), atol=F32, rtol=F32)
+    np.testing.assert_allclose(_np(tl), lse, atol=F32, rtol=F32)
+
+
+# -- wrappers: dispatch, checks, counting, build key ---------------------------------
+
+
+def test_cpu_tensors_take_the_plain_versions_without_counting():
+    before = dict(LAUNCHES)
+    rng = np.random.default_rng(5)
+    q = _t(rng.standard_normal((1, 4, 64)).astype(np.float32))
+    k = _t(rng.standard_normal((1, 2, 64, 64)).astype(np.float32))
+    length = torch.tensor([50], dtype=torch.int32)
+    o, l = flash_decode(q, k, k, length)
+    po, pl = tatt.full_decode(q, k, k, length)
+    assert torch.equal(o, po) and torch.equal(l, pl)
+    assert LAUNCHES == before
+
+
+@pytest.mark.parametrize("which", ["prefill", "decode", "lsh"])
+def test_wrappers_raise_for_other_devices(which):
+    """A tensor neither on the CPU nor on a card is refused, not run."""
+    m = torch.device("meta")
+    i32 = dict(dtype=torch.int32, device=m)
+    with pytest.raises(ValueError):
+        if which == "prefill":
+            x = torch.empty((1, 64, 4, 64), dtype=torch.bfloat16, device=m)
+            flash_prefill(x, x[:, :, :2], x[:, :, :2], torch.empty((1,), **i32))
+        elif which == "decode":
+            q = torch.empty((1, 4, 64), dtype=torch.bfloat16, device=m)
+            k = torch.empty((1, 2, 64, 64), dtype=torch.bfloat16, device=m)
+            flash_decode(q, k, k, torch.empty((1,), **i32))
+        else:
+            q = torch.empty((1, 4, 64), dtype=torch.bfloat16, device=m)
+            k = torch.empty((1, 2, 64, 64), dtype=torch.bfloat16, device=m)
+            lsh_fused_decode(q, k, k, torch.empty((1, 2, 64), device=m),
+                             torch.empty((1, 2, 3, 2, 2), **i32),
+                             torch.empty((1, 4, 3, 2), **i32),
+                             torch.empty((1,), **i32), 2, 3)
+
+
+def test_build_is_keyed_on_the_sources(tmp_path, monkeypatch):
+    """The library name changes with any source byte, so a stale build is
+    never loaded; every .cu and .cuh of csrc/ is covered."""
+    names = {p.name for p in _lib.sources()}
+    assert {"flash_prefill.cu", "flash_decode.cu", "lsh_fused.cu"} <= names
+    key = _lib.source_hash()
+    for p in _lib.sources():
+        (tmp_path / p.name).write_bytes(p.read_bytes())
+    monkeypatch.setattr(_lib, "CSRC_DIR", tmp_path)
+    assert _lib.source_hash() == key
+    (tmp_path / "common.cuh").write_bytes(
+        (tmp_path / "common.cuh").read_bytes() + b"\n")
+    assert _lib.source_hash() != key
