@@ -7,9 +7,10 @@ The knobs mirror the reference system (MagicPIG):
   * dense layers (full attention, no sampling): [0, 16, 32, 48, 64] cut to
     the model's depth.
 
-`LSHConfig` keeps only the fields the LSH decode path reads. Any other
-estimator, decode mode, debias form or cache quantisation is not ported yet
-and raises `NotImplementedError`.
+`LSHConfig` keeps the fields the ported estimators read: "lsh" (SimHash
+sampling, bf16 offload) and "block_topk" (exact-score block ranking, bf16
+or int8 offload). Any other estimator, decode mode, debias form or cache
+quantisation is not ported yet and raises `NotImplementedError`.
 """
 
 from __future__ import annotations
@@ -98,13 +99,25 @@ def default_dense_layers(num_layers: int) -> tuple[int, ...]:
     return tuple(l for l in (0, 16, 32, 48, 64) if l < num_layers)
 
 
+ESTIMATORS = ("lsh", "quest", "topk", "oracle_sampling", "block_topk")
+PORTED_ESTIMATORS = ("lsh", "block_topk")
+
+
 @dataclasses.dataclass(frozen=True)
 class LSHConfig:
-    """Sparse-attention parameters of the LSH estimator.
+    """Sparse-attention parameters.
 
     K bits per hash table, L tables; K=0 turns sampling off (full attention
-    in every layer). The fields after `dense_layers` exist so that a caller
-    asking for a path the port does not have yet is told so.
+    in every layer). `estimator` picks the sparse layers' algorithm:
+      * "lsh"        -- SimHash >=2-of-L sampling + debias (bf16 offload);
+      * "block_topk" -- every offloaded key scored exactly, the
+        `block_topk_budget_frac` best `block_topk_block_size`-token blocks
+        (by their max score over the GQA group) attended; the offload K/V
+        bf16, or int8 per row with f32 scales (`offload_quant="int8"`).
+        Quantized, `block_topk_pipeline="rescore"` ranks from block maxes
+        and rescores the chosen blocks; "store" (and bf16 offload) stores
+        the scores and attends from them.
+    A value the port does not have yet raises `NotImplementedError`.
     """
 
     K: int = 10
@@ -114,24 +127,43 @@ class LSHConfig:
     generation_buffer: int = 256
     dense_layers: tuple[int, ...] | None = None  # None -> default rule
     estimator: str = "lsh"
+    block_topk_block_size: int = 512
+    block_topk_budget_frac: float = 0.08
+    block_topk_pipeline: str = "rescore"
     decode_mode: str = "masked"
     lsh_debias: str = "exact"
     offload_quant: str = "none"
     dense_quant: str = "none"
 
     def __post_init__(self):
+        if self.estimator not in ESTIMATORS:
+            raise ValueError(f"unknown estimator {self.estimator!r}")
+        if self.block_topk_pipeline not in ("rescore", "store"):
+            raise ValueError(
+                f"unknown block_topk_pipeline {self.block_topk_pipeline!r}")
         for field, value, ported in (
-                ("estimator", self.estimator, "lsh"),
-                ("decode_mode", self.decode_mode, "masked"),
-                ("lsh_debias", self.lsh_debias, "exact"),
-                ("offload_quant", self.offload_quant, "none"),
-                ("dense_quant", self.dense_quant, "none")):
-            if value != ported:
+                ("estimator", self.estimator, PORTED_ESTIMATORS),
+                ("decode_mode", self.decode_mode, ("masked",)),
+                ("lsh_debias", self.lsh_debias, ("exact",)),
+                ("offload_quant", self.offload_quant, ("none", "int8")),
+                ("dense_quant", self.dense_quant, ("none",))):
+            if value not in ported:
                 raise NotImplementedError(
                     f"LSHConfig.{field}={value!r} is not ported; only "
-                    f"{ported!r} is")
+                    f"{ported} are")
+        if self.estimator == "lsh" and self.offload_quantized:
+            raise NotImplementedError(
+                "int8 offload is ported for block_topk only; the LSH kernel "
+                "takes bf16 K/V")
         if self.K < 0 or self.L < 0:
             raise ValueError(f"K and L must be >= 0, got K={self.K} L={self.L}")
+        if self.block_topk_block_size <= 0:
+            raise ValueError("block_topk_block_size must be > 0")
+
+    @property
+    def offload_quantized(self) -> bool:
+        """Offload K/V stored int8 with per-row f32 scales?"""
+        return self.offload_quant != "none"
 
     @property
     def enabled(self) -> bool:
@@ -139,6 +171,8 @@ class LSHConfig:
         return self.K != 0
 
     def dense_layers_for(self, num_layers: int) -> tuple[int, ...]:
+        """Full-attention layers: all with K=0, else the given ones, else
+        the default rule (both ported estimators use it)."""
         if not self.enabled:
             return tuple(range(num_layers))
         if self.dense_layers is not None:

@@ -8,3 +8,9 @@ from magicpig_tpu_torch.ops.kernels._lib import LAUNCHES, reset_launches  # noqa
 from magicpig_tpu_torch.ops.kernels.flash_decode import flash_decode  # noqa: F401
 from magicpig_tpu_torch.ops.kernels.flash_prefill import flash_prefill  # noqa: F401
 from magicpig_tpu_torch.ops.kernels.lsh_fused import lsh_fused_decode  # noqa: F401
+from magicpig_tpu_torch.ops.kernels.block_score import (  # noqa: F401
+    block_rank,
+    exact_scores_ranked,
+)
+from magicpig_tpu_torch.ops.kernels.rescore_attend import rescore_attend  # noqa: F401
+from magicpig_tpu_torch.ops.kernels.block_attend import block_attend  # noqa: F401

@@ -1,6 +1,7 @@
 """Build and load the port's CUDA kernels.
 
-All sources under `magicpig_tpu_torch/csrc/` are compiled by ONE `nvcc` call
+Each `.cu` under `magicpig_tpu_torch/csrc/` is compiled by its own `nvcc`
+process, all started together, and one more `nvcc` call links the objects
 into one shared library with a plain C interface, loaded with `ctypes`; no
 PyTorch header is compiled, so the build takes seconds. The library lands in
 `magicpig_tpu_torch/_build/` under a name keyed on a hash of the sources,
@@ -27,13 +28,18 @@ import torch
 PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v", "-lineinfo")
 
 LAUNCHES: dict[str, int] = {
     "flash_prefill": 0,
     "flash_decode": 0,
     "lsh_fused_decode": 0,
+    "block_rank": 0,
+    "exact_scores_ranked": 0,
+    "rescore_attend": 0,
+    "block_attend": 0,
 }
 
 _P = ctypes.c_void_p
@@ -44,6 +50,9 @@ _SIGNATURES = {
     "mp_flash_prefill": [_P] * 7 + [_I] * 7 + [_F, _P],
     "mp_flash_decode": [_P] * 8 + [_I] * 5 + [_F, _P],
     "mp_lsh_fused_decode": [_P] * 13 + [_I] * 7 + [_F, _P],
+    "mp_block_score": [_P] * 6 + [_I] * 7 + [_F, _P],
+    "mp_rescore_attend": [_P] * 11 + [_I] * 8 + [_F, _P],
+    "mp_block_attend": [_P] * 8 + [_I] * 8 + [_P],
 }
 
 _lib: ctypes.CDLL | None = None
@@ -79,7 +88,8 @@ def library_path() -> Path:
 
 
 def build() -> Path:
-    """Compile every .cu under csrc/ with one nvcc call (skipped when the
+    """Compile each .cu under csrc/ with its own nvcc process, all running
+    at once, and link the objects into the library (skipped when the
     library for these sources and flags exists). Returns its path. The
     compiler's report (`-Xptxas -v`: registers, shared memory, spills) is
     kept in `last_build_log` and `_build/build.log`."""
@@ -88,20 +98,34 @@ def build() -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cu = [str(p) for p in sources() if p.suffix == ".cu"]
-    with tempfile.NamedTemporaryFile(dir=BUILD_DIR, suffix=".so",
-                                     delete=False) as tmp:
-        tmp_path = tmp.name
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp_path, *cu]
+    nvcc = nvcc_path()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    last_build_seconds = time.perf_counter() - t0
-    last_build_log = proc.stdout + proc.stderr
-    (BUILD_DIR / "build.log").write_text(" ".join(cmd) + "\n" + last_build_log)
-    if proc.returncode != 0:
-        os.unlink(tmp_path)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{last_build_log}")
-    os.replace(tmp_path, out)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs, procs, logs = [], [], []
+        for src in (p for p in sources() if p.suffix == ".cu"):
+            obj = str(Path(tmp) / (src.stem + ".o"))
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+            objs.append(obj)
+            procs.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        failed = False
+        for cmd, proc in procs:
+            logs.append(" ".join(cmd) + "\n" + proc.communicate()[0])
+            failed |= proc.returncode != 0
+        if not failed:
+            so = str(Path(tmp) / out.name)
+            cmd = [nvcc, *ARCH_FLAGS, "-shared", "-o", so, *objs]
+            proc = subprocess.run(cmd, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+            logs.append(" ".join(cmd) + "\n" + proc.stdout)
+            failed = proc.returncode != 0
+        last_build_seconds = time.perf_counter() - t0
+        last_build_log = "\n".join(logs)
+        (BUILD_DIR / "build.log").write_text(last_build_log)
+        if failed:
+            raise RuntimeError(f"nvcc failed:\n{last_build_log}")
+        os.replace(so, out)
     return out
 
 

@@ -1,0 +1,122 @@
+"""Exact block scorer of the block_topk estimator: wrappers `block_rank`
+(block maxes only) and `exact_scores_ranked` (scores and block maxes) of the
+hand-written kernel `csrc/block_score.cu`, with their plain version
+`block_scores_plain`.
+
+Replaces the TPU kernel `magicpig_tpu/ops/pallas/score.py::_scores_call`
+(pallas_call at score.py:225), reached through `block_rank` (score.py:301)
+and `exact_scores_ranked` (score.py:272). On the H100 it is bound by
+reading K (int8 with f32 row scales, or bf16) once, plus the f32 score
+store in the `exact_scores_ranked` variant; one block of the kernel scores
+one ranking block of one (request, kv head).
+
+The arithmetic, kernel and plain version alike: q * (1/sqrt(d)) rounded to
+bf16; K as bf16 (int8 values are exact in it); products summed in f32; the
+sum times the row's K scale; -inf at or past `length`; the block max over
+the G query heads and the block's tokens.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from magicpig_tpu_torch.ops.kernels import _lib
+
+HEAD_DIM = 64
+
+
+def scaled_query(q: torch.Tensor, hkv: int) -> torch.Tensor:
+    """q [B, Hq, d] -> [B, Hkv, G, d] f32: q / sqrt(d) rounded to bf16."""
+    b, hq, d = q.shape
+    qs = (q.float() * (1.0 / math.sqrt(d))).to(torch.bfloat16).float()
+    return qs.reshape(b, hkv, hq // hkv, d)
+
+
+def token_scores(q: torch.Tensor, k: torch.Tensor,
+                 k_scale: torch.Tensor | None, positions: torch.Tensor,
+                 length: torch.Tensor) -> torch.Tensor:
+    """Scores [B, Hkv, G, N] f32 of keys k [B, Hkv, N, d] at token
+    `positions` [B, Hkv, N]: -inf where the position is at or past the
+    request's length."""
+    raw = torch.matmul(scaled_query(q, k.shape[1]), k.float().transpose(-1, -2))
+    if k_scale is not None:
+        raw = raw * k_scale.unsqueeze(2)
+    valid = positions < length.to(torch.int64)[:, None, None]
+    return torch.where(valid.unsqueeze(2), raw, torch.full_like(raw, -math.inf))
+
+
+def block_scores_plain(q: torch.Tensor, k: torch.Tensor,
+                       k_scale: torch.Tensor | None, length: torch.Tensor,
+                       block_size: int):
+    """Plain version: (scores [B, Hkv, G, S] f32, block max [B, Hkv,
+    S / block_size] f32)."""
+    b, hkv, s = k.shape[:3]
+    pos = torch.arange(s, device=k.device).expand(b, hkv, s)
+    scores = token_scores(q, k, k_scale, pos, length)
+    g = scores.shape[2]
+    bmax = scores.reshape(b, hkv, g, s // block_size, block_size).amax(dim=(2, 4))
+    return scores, bmax
+
+
+def _launch(name: str, q, k, k_scale, length, block_size: int,
+            store_scores: bool):
+    _lib.require(q.device.type == "cuda", f"{name}: unsupported device {q.device}")
+    b, hq, d = q.shape
+    _lib.require(k.dim() == 4 and k.shape[0] == b and k.shape[3] == d,
+                 f"{name}: k shape {tuple(k.shape)}")
+    hkv, s = k.shape[1], k.shape[2]
+    int8 = k.dtype == torch.int8
+    tensors = [q, k, length] + ([k_scale] if int8 else [])
+    _lib.require_cuda(name, *tensors)
+    _lib.require(q.dtype == torch.bfloat16, f"{name}: q must be bfloat16")
+    _lib.require(k.dtype in (torch.int8, torch.bfloat16),
+                 f"{name}: k must be int8 or bfloat16")
+    _lib.require((k_scale is not None) == int8,
+                 f"{name}: k_scale goes with int8 K, and only with it")
+    _lib.require(not int8 or (k_scale.dtype == torch.float32
+                              and k_scale.shape == (b, hkv, s)),
+                 f"{name}: k_scale must be f32 [B, Hkv, S]")
+    _lib.require(d == HEAD_DIM, f"{name}: head_dim {d} != {HEAD_DIM}")
+    _lib.require(hq % hkv == 0 and hq // hkv in (1, 2, 4, 8),
+                 f"{name}: group size {hq}/{hkv} unsupported")
+    _lib.require(block_size > 0 and block_size % 64 == 0 and s > 0
+                 and s % block_size == 0,
+                 f"{name}: block size {block_size} must be a multiple of 64 "
+                 f"that divides S={s}")
+    _lib.require(length.dtype == torch.int32 and length.shape == (b,),
+                 f"{name}: length must be int32 [B]")
+    f32 = dict(dtype=torch.float32, device=q.device)
+    scores = torch.empty((b, hkv, hq // hkv, s), **f32) if store_scores else None
+    bmax = torch.empty((b, hkv, s // block_size), **f32)
+    _lib.launch(name, "mp_block_score", q.device, q, k, k_scale, length,
+                scores, bmax, b, s, hq, hkv, d, block_size, int(int8),
+                1.0 / math.sqrt(d))
+    return scores, bmax
+
+
+def block_rank(q: torch.Tensor, k: torch.Tensor, k_scale: torch.Tensor | None,
+               length: torch.Tensor, block_size: int) -> torch.Tensor:
+    """Per-block ranking max over the G heads of each kv head.
+
+    q: [B, Hq, d] (raw; scaled here); k: [B, Hkv, S, d] int8 with k_scale
+    [B, Hkv, S] f32, or bf16 with k_scale None; length: [B] int32. Returns
+    [B, Hkv, S / block_size] f32, -inf for blocks wholly past the length.
+    CPU tensors take the plain version.
+    """
+    if q.device.type == "cpu":
+        return block_scores_plain(q, k, k_scale, length, block_size)[1]
+    return _launch("block_rank", q, k, k_scale, length, block_size, False)[1]
+
+
+def exact_scores_ranked(q: torch.Tensor, k: torch.Tensor,
+                        k_scale: torch.Tensor | None, length: torch.Tensor,
+                        block_size: int):
+    """Masked scores and per-block ranking max (inputs as `block_rank`).
+    Returns (scores [B, Hkv, G, S] f32, block max [B, Hkv, S / block_size]
+    f32). CPU tensors take the plain version."""
+    if q.device.type == "cpu":
+        return block_scores_plain(q, k, k_scale, length, block_size)
+    return _launch("exact_scores_ranked", q, k, k_scale, length, block_size,
+                   True)

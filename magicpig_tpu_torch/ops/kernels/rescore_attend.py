@@ -1,0 +1,84 @@
+"""Attention over the selected blocks with their scores recomputed from K
+(the block_topk rescore pipeline): wrapper of the hand-written kernel
+`csrc/rescore_attend.cu`, with its plain version `rescore_attend_plain`.
+
+Replaces the TPU kernel `magicpig_tpu/ops/pallas/rescore_attend.py::
+rescore_attend` (pallas_call at rescore_attend.py:217). The ranking pass
+(`block_rank`) stores only block maxes; this kernel scores the selected
+blocks again with the scorer's own per-token function, so the two agree
+bit for bit, and attends over them. On the H100 it is bound by reading the
+selected blocks' K and V rows and scales once; one block of the kernel
+takes one selected block of one (request, kv head), and the LSE merge of
+`csrc/flash_decode.cu` combines the partials.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from magicpig_tpu_torch.ops.baselines import gather_blocks
+from magicpig_tpu_torch.ops.kernels import _lib
+from magicpig_tpu_torch.ops.kernels.block_attend import (
+    attend_selected_plain,
+    check_selection,
+    merge_buffers,
+)
+from magicpig_tpu_torch.ops.kernels.block_score import token_scores
+
+
+def rescore_attend_plain(q, blk_ids, k, k_scale, v, v_scale, length,
+                         block_size: int):
+    """Plain version of `rescore_attend`."""
+    b, hkv = k.shape[:2]
+    pos = (blk_ids.long().unsqueeze(-1) * block_size
+           + torch.arange(block_size, device=k.device)).reshape(b, hkv, -1)
+    k_sel = gather_blocks(k, blk_ids, block_size)
+    ks_sel = (None if k_scale is None
+              else gather_blocks(k_scale, blk_ids, block_size))
+    vs_sel = (None if v_scale is None
+              else gather_blocks(v_scale, blk_ids, block_size))
+    scores = token_scores(q, k_sel, ks_sel, pos, length)
+    return attend_selected_plain(scores, gather_blocks(v, blk_ids, block_size),
+                                 vs_sel)
+
+
+def rescore_attend(q: torch.Tensor, blk_ids: torch.Tensor, k: torch.Tensor,
+                   k_scale: torch.Tensor | None, v: torch.Tensor,
+                   v_scale: torch.Tensor | None, length: torch.Tensor,
+                   block_size: int):
+    """Attention over the selected blocks, scores recomputed from K.
+
+    q: [B, Hq, d] (raw; scaled as in `block_rank`); blk_ids: [B, Hkv, NB']
+    int32; k, v: [B, Hkv, S, d] int8 with k_scale, v_scale [B, Hkv, S] f32,
+    or both bf16 with no scales; length: [B] int32 valid tokens. Returns
+    (out [B, Hq, d] f32, lse [B, Hq] f32); a row whose selected tokens are
+    all past its length gives (0, -inf). CPU tensors take the plain version.
+    """
+    if q.device.type == "cpu":
+        return rescore_attend_plain(q, blk_ids, k, k_scale, v, v_scale,
+                                    length, block_size)
+    name = "rescore_attend"
+    _lib.require(q.device.type == "cuda", f"{name}: unsupported device {q.device}")
+    b, hq, d = q.shape
+    _lib.require(k.dim() == 4 and k.shape == v.shape and k.shape[0] == b
+                 and k.shape[3] == d, f"{name}: k/v shape {tuple(k.shape)}")
+    _lib.require(k.dtype == v.dtype, f"{name}: k and v must share a type")
+    int8 = k.dtype == torch.int8
+    _lib.require((k_scale is not None) == int8
+                 and (not int8 or (k_scale.dtype == torch.float32
+                                   and k_scale.shape == k.shape[:3])),
+                 f"{name}: k_scale must be f32 [B, Hkv, S] with int8 K only")
+    _lib.require_cuda(name, q, k, length, *([k_scale] if int8 else []))
+    _lib.require(q.dtype == torch.bfloat16, f"{name}: q must be bfloat16")
+    _lib.require(length.dtype == torch.int32 and length.shape == (b,),
+                 f"{name}: length must be int32 [B]")
+    check_selection(name, blk_ids, v, v_scale, hq, block_size)
+    hkv, s = k.shape[1], k.shape[2]
+    nsel = blk_ids.shape[2]
+    part_o, part_lse, out, lse = merge_buffers(nsel, b, hq, q.device)
+    _lib.launch(name, "mp_rescore_attend", q.device, q, blk_ids, k, k_scale,
+                v, v_scale, length, part_o, part_lse, out, lse, b, s, hq, hkv,
+                d, nsel, block_size, int(int8), 1.0 / math.sqrt(d))
+    return out, lse

@@ -5,8 +5,10 @@ PyTorch runs eagerly, so the engine calls the layer functions directly:
 `prefill` runs the whole prompt layer by layer through the flash-prefill
 kernel and fills the attention-server state; a decode step runs every layer
 once (dense layers through flash decode, sparse layers through flash decode
-over the hot tokens plus the fused LSH kernel over the offloaded ones).
-`decode_steps` keeps the greedy tokens on the device and synchronises once.
+over the hot tokens plus the estimator over the offloaded ones: the fused
+LSH kernel, or for `LSHConfig(estimator="block_topk")` the block scorer and
+an attend over the best blocks). `decode_steps` keeps the greedy tokens on
+the device and synchronises once.
 """
 
 from __future__ import annotations
@@ -48,7 +50,8 @@ def resolve_device(device: torch.device | str | None) -> torch.device:
 
 
 class LLM:
-    """LSH-sampled decoding engine."""
+    """Sparse-attention decoding engine (LSH sampling by default; `lsh`
+    picks the estimator and its options)."""
 
     def __init__(self, model: str | ModelConfig = "llama-tiny", K: int = 10,
                  L: int = 150, batch_size: int = 1, max_length: int = 8192,
@@ -211,7 +214,9 @@ class LLM:
 
     @property
     def avg_sparsity(self) -> float:
-        """Mean sampled fraction over all decode steps since creation."""
+        """Mean sampled fraction (block_topk: the realized fraction, its
+        budget clamped to each offload length) over all decode steps since
+        creation."""
         return float(self._sparsity_sum) / max(self._sparsity_steps, 1)
 
     def sparsity_snapshot(self) -> tuple[torch.Tensor, int]:

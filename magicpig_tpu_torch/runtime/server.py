@@ -1,14 +1,16 @@
-"""Attention-server layer ops, dense and LSH branches (port of
-`magicpig_tpu/runtime/server.py`).
+"""Attention-server layer ops: the dense layers and the sparse layers'
+"lsh" and "block_topk" estimators (port of `magicpig_tpu/runtime/server.py`).
 
   * fill (prefill time): `fill_dense_layer` / `fill_sparse_layer` store a
     request's prompt K/V; the sparse fill splits sink + local (hot) from the
-    offloaded middle, centers keys by the mean offload key, and stores the
-    centered-key norms and SimHash bit-planes;
+    offloaded middle. For "lsh" it centers keys by the mean offload key and
+    stores the centered-key norms and SimHash bit-planes; for "block_topk"
+    it stores the offload K/V as they are, or int8 per row with f32 scales;
   * decode (step time): `decode_dense_layer` appends the new token and runs
     flash decode over the prefix; `decode_sparse_layer` runs flash decode
-    over the hot region, the fused LSH kernel over the offload region, and
-    merges the two by LSE.
+    over the hot region and the estimator over the offload region (the
+    fused LSH kernel; or the block scorer, top-k blocks, and an attend over
+    them), and merges the two by LSE.
 
 The state is updated in place (see `runtime/state.py`). Fill takes the
 prompt's K/V at its true length, [P, Hkv, d] with P a host integer.
@@ -16,12 +18,22 @@ prompt's K/V at its true length, [P, Hkv, d] with P a host integer.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from magicpig_tpu_torch.config import LSHConfig
 from magicpig_tpu_torch.ops.bitcodes import WORD, build_planes, hash_bits
-from magicpig_tpu_torch.ops.kernels import flash_decode, lsh_fused_decode
+from magicpig_tpu_torch.ops.kernels import (
+    block_attend,
+    block_rank,
+    exact_scores_ranked,
+    flash_decode,
+    lsh_fused_decode,
+    rescore_attend,
+)
 from magicpig_tpu_torch.ops.merge import merge_partials
+from magicpig_tpu_torch.ops.quant import quantize_rows
 from magicpig_tpu_torch.runtime.state import DecodeState
 
 
@@ -53,12 +65,32 @@ def fill_sparse_layer(state: DecodeState, si: int, req: int,
                       k_full: torch.Tensor, v_full: torch.Tensor,
                       projections: torch.Tensor, lsh: LSHConfig) -> None:
     """Partition a prompt's K/V [P, Hkv, d] into hot + offload and build the
-    LSH state: keys centered by the mean offload key, centered-key norms,
-    bit-plane signatures of the centered keys."""
+    estimator's state (module docstring)."""
     off_k, off_v, hot_k, hot_v = _split_offload(k_full, v_full, lsh)
     off_len, hot_len = off_k.shape[0], hot_k.shape[0]
-    hkv, d = k_full.shape[1], k_full.shape[2]
+    if lsh.estimator == "lsh":
+        off_k, hot_k = _fill_lsh(state, si, req, off_k, hot_k, projections,
+                                 lsh)
+    if lsh.offload_quantized:
+        off_k, k_scale = quantize_rows(off_k)
+        off_v, v_scale = quantize_rows(off_v)
+        state.off_k_scale[si][req, :, :off_len] = k_scale.T
+        state.off_v_scale[si][req, :, :off_len] = v_scale.T
+    state.off_k[si][req, :, :off_len] = off_k.transpose(0, 1)
+    state.off_v[si][req, :, :off_len] = off_v.transpose(0, 1)
+    state.hot_k[si][req, :, :hot_len] = hot_k.transpose(0, 1)
+    state.hot_v[si][req, :, :hot_len] = hot_v.transpose(0, 1)
+    state.off_len[req] = off_len
+    state.hot_len[req] = hot_len
 
+
+def _fill_lsh(state: DecodeState, si: int, req: int, off_k: torch.Tensor,
+              hot_k: torch.Tensor, projections: torch.Tensor,
+              lsh: LSHConfig):
+    """The LSH state of one request: the mean offload key, centered-key
+    norms and the bit-plane signatures of the centered keys. Returns the
+    centered offload (f32) and hot keys."""
+    off_len, hkv, d = off_k.shape
     off_f = off_k.float()
     avg = off_f.sum(dim=0) / max(off_len, 1)                 # [Hkv, d]
     # Signatures of whole words: pad the centered keys with zero rows (a
@@ -66,7 +98,7 @@ def fill_sparse_layer(state: DecodeState, si: int, req: int,
     # past it stay zero.
     n_pad = -(-off_len // WORD) * WORD
     centered = torch.zeros((n_pad, hkv, d), dtype=torch.float32,
-                           device=k_full.device)
+                           device=off_k.device)
     centered[:off_len] = off_f - avg
     planes = state.planes[si]
     planes[req].zero_()
@@ -75,12 +107,7 @@ def fill_sparse_layer(state: DecodeState, si: int, req: int,
     state.k_norm[si][req, :, :off_len] = torch.linalg.vector_norm(
         centered[:off_len], dim=-1).T
     state.avg_k[si][req] = avg
-    state.off_k[si][req, :, :off_len] = centered[:off_len].transpose(0, 1)
-    state.off_v[si][req, :, :off_len] = off_v.transpose(0, 1)
-    state.hot_k[si][req, :, :hot_len] = (hot_k.float() - avg).transpose(0, 1)
-    state.hot_v[si][req, :, :hot_len] = hot_v.transpose(0, 1)
-    state.off_len[req] = off_len
-    state.hot_len[req] = hot_len
+    return centered[:off_len], hot_k.float() - avg
 
 
 def _append(cache: torch.Tensor, new: torch.Tensor, lens: torch.Tensor) -> None:
@@ -112,16 +139,60 @@ def _lsh_partial(state: DecodeState, si: int, q: torch.Tensor,
     return out, lse, frac
 
 
+def _static_budget(n: int, frac: float, floor: int) -> int:
+    """A budget of frac * n items, at least `floor`, at most n."""
+    return max(floor, min(n, int(math.ceil(n * frac))))
+
+
+def _realized_frac(budget_tokens: int, off_len: torch.Tensor) -> torch.Tensor:
+    """Workload metric of a budgeted estimator: the budget clamped to each
+    request's offload length, over the mean offload length (so it never
+    exceeds 1 and compares with the LSH path's sampled fraction)."""
+    lens = off_len.float()
+    covered = torch.clamp(lens, max=float(budget_tokens))
+    return covered.mean() / torch.clamp(lens.mean(), min=1.0)
+
+
+def _block_topk_partial(state: DecodeState, si: int, q: torch.Tensor,
+                        lsh: LSHConfig):
+    """Block-top-k partial over the offload region: (out, lse, realized
+    fraction as a device scalar). int8 with the "rescore" pipeline ranks by
+    block max and rescores the chosen blocks; otherwise the scores are
+    stored and the chosen blocks attended from them."""
+    bs = lsh.block_topk_block_size
+    nb = state.off_k[si].shape[2] // bs
+    blocks = min(_static_budget(nb, lsh.block_topk_budget_frac, floor=1), nb)
+    quant = lsh.offload_quantized
+    k, v, length = state.off_k[si], state.off_v[si], state.off_len
+    k_scale = state.off_k_scale[si] if quant else None
+    v_scale = state.off_v_scale[si] if quant else None
+    if quant and lsh.block_topk_pipeline == "rescore":
+        blk_max = block_rank(q, k, k_scale, length, bs)
+        blk_ids = torch.topk(blk_max, blocks, dim=-1).indices.to(torch.int32)
+        out, lse = rescore_attend(q, blk_ids, k, k_scale, v, v_scale, length,
+                                  bs)
+    else:
+        scores, blk_max = exact_scores_ranked(q, k, k_scale, length, bs)
+        blk_ids = torch.topk(blk_max, blocks, dim=-1).indices.to(torch.int32)
+        out, lse = block_attend(scores, blk_ids, v, v_scale, bs)
+    return out, lse, _realized_frac(blocks * bs, length)
+
+
 def decode_sparse_layer(state: DecodeState, si: int, q: torch.Tensor,
                         k_new: torch.Tensor, v_new: torch.Tensor,
                         projections: torch.Tensor, lsh: LSHConfig):
-    """Hot dense partial + LSH partial over the offload region, merged by
-    LSE. Returns (out [B, Hq, d] f32, sampled fraction)."""
-    k_new = (k_new.float() - state.avg_k[si]).to(k_new.dtype)
+    """Hot dense partial + the estimator's partial over the offload region,
+    merged by LSE. Returns (out [B, Hq, d] f32, sampled or covered fraction
+    as a device scalar)."""
+    if lsh.estimator == "lsh":
+        k_new = (k_new.float() - state.avg_k[si]).to(k_new.dtype)
     _append(state.hot_k[si], k_new, state.hot_len)
     _append(state.hot_v[si], v_new, state.hot_len)
     o_hot, lse_hot = flash_decode(q, state.hot_k[si], state.hot_v[si],
                                   state.hot_len + 1)
-    o_off, lse_off, frac = _lsh_partial(state, si, q, projections, lsh)
+    if lsh.estimator == "lsh":
+        o_off, lse_off, frac = _lsh_partial(state, si, q, projections, lsh)
+    else:
+        o_off, lse_off, frac = _block_topk_partial(state, si, q, lsh)
     out, _ = merge_partials([o_hot, o_off], [lse_hot, lse_off])
     return out, frac

@@ -4,10 +4,13 @@ Layouts chosen for the card (the JAX package's token folding to 128 lanes
 is a TPU choice):
   * dense layers: [B, Hkv, max_len, d] per layer;
   * sparse layers: a hot region (sink + local + generated tokens)
-    [B, Hkv, hot_cap, d] and the offloaded middle [B, Hkv, off_cap, d], keys
-    of both centered by the mean offload key; centered-key norms
-    [B, Hkv, off_cap] f32; SimHash bit-planes [B, Hkv, L, K, off_cap/32]
-    int32 in the flat layout of `ops.bitcodes`;
+    [B, Hkv, hot_cap, d] and the offloaded middle [B, Hkv, off_cap, d] in
+    token order;
+  * LSH only: keys of both regions centered by the mean offload key;
+    centered-key norms [B, Hkv, off_cap] f32; SimHash bit-planes
+    [B, Hkv, L, K, off_cap/32] int32 in the flat layout of `ops.bitcodes`;
+  * int8 offload (block_topk): off_k / off_v int8 with per-row f32 scales
+    off_k_scale / off_v_scale [B, Hkv, off_cap];
   * per-request lengths as int32 device tensors [B].
 Fill and decode write into these tensors in place, which keeps one copy of
 each cache.
@@ -34,8 +37,11 @@ class DecodeState:
     hot_v: list[torch.Tensor]
     hot_len: torch.Tensor         # [B] i32
     off_k: list[torch.Tensor]     # per sparse layer [B, Hkv, off_cap, d]
-    off_v: list[torch.Tensor]
+    off_v: list[torch.Tensor]     # (int8 when the offload is quantized)
+    off_k_scale: list[torch.Tensor]  # int8 only: [B, Hkv, off_cap] f32
+    off_v_scale: list[torch.Tensor]
     off_len: torch.Tensor         # [B] i32
+    # LSH only (empty lists for block_topk):
     k_norm: list[torch.Tensor]    # per sparse layer [B, Hkv, off_cap] f32
     avg_k: list[torch.Tensor]     # per sparse layer [B, Hkv, d] f32
     planes: list[torch.Tensor]    # per sparse layer [B, Hkv, L, K, W] i32
@@ -48,9 +54,13 @@ def hot_capacity(lsh: LSHConfig) -> int:
 
 
 def offload_capacity(lsh: LSHConfig, max_length: int) -> int:
-    """Offload tokens per request, 128-aligned (whole signature words)."""
+    """Offload tokens per request: 128-aligned (whole signature words), and
+    for block_topk a whole number of ranking blocks."""
     cap = max(0, max_length - lsh.num_sink_tokens - lsh.num_local_tokens)
-    return ((cap + 127) // 128) * 128
+    align = 128
+    if lsh.estimator == "block_topk":
+        align = max(align, lsh.block_topk_block_size)
+    return ((cap + align - 1) // align) * align
 
 
 def init_state(config: ModelConfig, lsh: LSHConfig, batch_size: int,
@@ -62,6 +72,9 @@ def init_state(config: ModelConfig, lsh: LSHConfig, batch_size: int,
                      config.dtype)
     off_cap = offload_capacity(lsh, max_length)
     hot_cap = hot_capacity(lsh)
+    n_lsh = ns if lsh.estimator == "lsh" else 0
+    n_quant = ns if lsh.offload_quantized else 0
+    off_dt = torch.int8 if lsh.offload_quantized else dt
 
     def per_layer(n, shape, dtype):
         return [torch.zeros(shape, dtype=dtype, device=device) for _ in range(n)]
@@ -76,13 +89,15 @@ def init_state(config: ModelConfig, lsh: LSHConfig, batch_size: int,
         hot_k=per_layer(ns, (b, hkv, hot_cap, d), dt),
         hot_v=per_layer(ns, (b, hkv, hot_cap, d), dt),
         hot_len=lens(),
-        off_k=per_layer(ns, (b, hkv, off_cap, d), dt),
-        off_v=per_layer(ns, (b, hkv, off_cap, d), dt),
+        off_k=per_layer(ns, (b, hkv, off_cap, d), off_dt),
+        off_v=per_layer(ns, (b, hkv, off_cap, d), off_dt),
+        off_k_scale=per_layer(n_quant, (b, hkv, off_cap), torch.float32),
+        off_v_scale=per_layer(n_quant, (b, hkv, off_cap), torch.float32),
         off_len=lens(),
-        k_norm=per_layer(ns, (b, hkv, off_cap), torch.float32),
-        avg_k=per_layer(ns, (b, hkv, d), torch.float32),
-        planes=per_layer(ns, (b, hkv, max(lsh.L, 1), max(lsh.K, 1),
-                              num_words(off_cap)), torch.int32),
+        k_norm=per_layer(n_lsh, (b, hkv, off_cap), torch.float32),
+        avg_k=per_layer(n_lsh, (b, hkv, d), torch.float32),
+        planes=per_layer(n_lsh, (b, hkv, max(lsh.L, 1), max(lsh.K, 1),
+                                 num_words(off_cap)), torch.int32),
         pos=lens(),
     )
 

@@ -27,9 +27,13 @@ from magicpig_tpu_torch.ops import bitcodes as tbits
 from magicpig_tpu_torch.ops.kernels import (
     LAUNCHES,
     _lib,
+    block_attend,
+    block_rank,
+    exact_scores_ranked,
     flash_decode,
     flash_prefill,
     lsh_fused_decode,
+    rescore_attend,
 )
 from magicpig_tpu_torch.ops.kernels.lsh_fused import lsh_fused_decode_plain
 
@@ -211,33 +215,44 @@ def test_cpu_tensors_take_the_plain_versions_without_counting():
     assert LAUNCHES == before
 
 
-@pytest.mark.parametrize("which", ["prefill", "decode", "lsh"])
+@pytest.mark.parametrize("which", ["prefill", "decode", "lsh", "block_rank",
+                                   "exact_scores_ranked", "rescore_attend",
+                                   "block_attend"])
 def test_wrappers_raise_for_other_devices(which):
     """A tensor neither on the CPU nor on a card is refused, not run."""
     m = torch.device("meta")
     i32 = dict(dtype=torch.int32, device=m)
+    q = torch.empty((1, 4, 64), dtype=torch.bfloat16, device=m)
+    k = torch.empty((1, 2, 64, 64), dtype=torch.bfloat16, device=m)
+    length = torch.empty((1,), **i32)
+    ids = torch.empty((1, 2, 1), **i32)
     with pytest.raises(ValueError):
         if which == "prefill":
             x = torch.empty((1, 64, 4, 64), dtype=torch.bfloat16, device=m)
-            flash_prefill(x, x[:, :, :2], x[:, :, :2], torch.empty((1,), **i32))
+            flash_prefill(x, x[:, :, :2], x[:, :, :2], length)
         elif which == "decode":
-            q = torch.empty((1, 4, 64), dtype=torch.bfloat16, device=m)
-            k = torch.empty((1, 2, 64, 64), dtype=torch.bfloat16, device=m)
-            flash_decode(q, k, k, torch.empty((1,), **i32))
-        else:
-            q = torch.empty((1, 4, 64), dtype=torch.bfloat16, device=m)
-            k = torch.empty((1, 2, 64, 64), dtype=torch.bfloat16, device=m)
+            flash_decode(q, k, k, length)
+        elif which == "lsh":
             lsh_fused_decode(q, k, k, torch.empty((1, 2, 64), device=m),
                              torch.empty((1, 2, 3, 2, 2), **i32),
-                             torch.empty((1, 4, 3, 2), **i32),
-                             torch.empty((1,), **i32), 2, 3)
+                             torch.empty((1, 4, 3, 2), **i32), length, 2, 3)
+        elif which == "block_rank":
+            block_rank(q, k, None, length, 64)
+        elif which == "exact_scores_ranked":
+            exact_scores_ranked(q, k, None, length, 64)
+        elif which == "rescore_attend":
+            rescore_attend(q, ids, k, None, k, None, length, 64)
+        else:
+            block_attend(torch.empty((1, 2, 2, 64), device=m), ids, k, None, 64)
 
 
 def test_build_is_keyed_on_the_sources(tmp_path, monkeypatch):
     """The library name changes with any source byte, so a stale build is
     never loaded; every .cu and .cuh of csrc/ is covered."""
     names = {p.name for p in _lib.sources()}
-    assert {"flash_prefill.cu", "flash_decode.cu", "lsh_fused.cu"} <= names
+    assert {"flash_prefill.cu", "flash_decode.cu", "lsh_fused.cu",
+            "block_score.cu", "rescore_attend.cu", "block_attend.cu",
+            "block_common.cuh"} <= names
     key = _lib.source_hash()
     for p in _lib.sources():
         (tmp_path / p.name).write_bytes(p.read_bytes())

@@ -26,6 +26,7 @@ from magicpig_tpu.ops.merge import merge_partials as j_merge
 from magicpig_tpu.ops.norms import rms_norm as j_rms_norm
 from magicpig_tpu.ops.rope import apply_rope as j_apply_rope
 from magicpig_tpu.ops.rope import rope_cos_sin as j_rope_cos_sin
+from magicpig_tpu.runtime import state as jstate
 from magicpig_tpu.utils.tokenizer import ByteTokenizer as JByteTokenizer
 from magicpig_tpu_torch import config as tcfg
 from magicpig_tpu_torch.ops import attention as tatt
@@ -35,6 +36,7 @@ from magicpig_tpu_torch.ops.merge import merge_partials
 from magicpig_tpu_torch.ops.norms import rms_norm
 from magicpig_tpu_torch.ops.rope import apply_rope, rope_cos_sin
 from magicpig_tpu_torch.ops.sampling import greedy_sample, top_p_sample
+from magicpig_tpu_torch.runtime import state as tstate
 from magicpig_tpu_torch.utils.tokenizer import ByteTokenizer
 
 F32 = 1e-4
@@ -74,12 +76,37 @@ def test_default_dense_layers_match_jax(n):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("estimator", "block_topk"), ("decode_mode", "sampled"),
-    ("lsh_debias", "poly"), ("offload_quant", "int8"),
-    ("dense_quant", "int8")])
+    ("estimator", "quest"), ("estimator", "topk"),
+    ("estimator", "oracle_sampling"), ("decode_mode", "sampled"),
+    ("lsh_debias", "poly"), ("lsh_debias", "none"),
+    ("offload_quant", "int4"), ("dense_quant", "int8"),
+    # int8 offload with the default estimator, "lsh": the LSH kernel takes
+    # bf16 K/V only.
+    ("offload_quant", "int8")])
 def test_unported_lsh_options_raise(field, value):
     with pytest.raises(NotImplementedError):
         tcfg.LSHConfig(**{field: value})
+
+
+@pytest.mark.parametrize("quant", ["none", "int8"])
+def test_block_topk_config_matches_jax(quant):
+    """The ported block_topk options, their defaults, dense layers and the
+    offload capacity (whole ranking blocks) are the JAX package's."""
+    t = tcfg.LSHConfig(estimator="block_topk", offload_quant=quant)
+    j = jcfg.LSHConfig(estimator="block_topk", offload_quant=quant)
+    assert tcfg.ESTIMATORS == jcfg.ESTIMATORS
+    for f in ("block_topk_block_size", "block_topk_budget_frac",
+              "block_topk_pipeline", "offload_quantized"):
+        assert getattr(t, f) == getattr(j, f), f
+    for n in (2, 16, 33):
+        assert t.dense_layers_for(n) == j.dense_layers_for(n)
+    for max_len, bs in ((16384, 512), (512, 16), (700, 64), (300, 512)):
+        tc = dataclasses.replace(t, block_topk_block_size=bs)
+        jc = dataclasses.replace(j, block_topk_block_size=bs)
+        assert tstate.offload_capacity(tc, max_len) == jstate.offload_capacity(
+            jc, max_len, 64)
+    with pytest.raises(ValueError):
+        tcfg.LSHConfig(estimator="block_topk", block_topk_pipeline="other")
 
 
 # -- rope, norm --------------------------------------------------------------
