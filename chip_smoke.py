@@ -10,29 +10,42 @@ Phases, each announced by one flushed progress line with elapsed seconds:
   2. kernels: each hand-written kernel against its plain PyTorch version at
      the shapes of the Llama-3.2-1B decode paths (Hq 32, Hkv 8, d 64;
      prefill 8192 tokens, decode and LSH over 16384 tokens at B=2, K=10,
-     L=150; the block_topk scorer, rescore-attend and block-attend over
-     65536 tokens at B=2, lengths 65536 and 40000, 512-token blocks, 11
-     selected), within `TOL` of it, with its time, its plain version's, a
+     L=150, with bf16 and with int8 K/V; the block_topk scorer,
+     rescore-attend and block-attend over 65536 tokens at B=2, lengths 65536
+     and 40000, 512-token blocks, 11 selected; the int4 matmul at M=2 on the
+     1B's fused gate|up [2048, 16384] and its lm_head [2048, 128256]),
+     within `TOL` of it, with its time, its plain version's, a
      library call's where one computes the same function, and the least
      time the card could take; each tolerance must also reject the plain
-     version run with a planted fault (a 64-token V or K tile, or a whole
-     ranking block of K, zeroed), and the block ids the kernels rank first
-     must be the plain version's;
+     version run with a planted fault (a 64-token V or K tile, a whole
+     ranking block of K, or one 128-input group of one output tile of the
+     int4 weight, zeroed), and the block ids the kernels rank first must be
+     the plain version's;
   3. serve: `LLM("llama-3.2-1b")` at full width and depth with random
      weights drawn on the card; two requests (12000 and 7000 tokens)
      prefilled into slots 0 and 1, 16 greedy decode steps, clear(), a third
      request (9000 tokens) and 8 more steps; every kernel launch of this
      run is counted and must equal what the path implies. Then a profiled
-     pass: a warm prefill and 8 decode steps under torch.profiler (wall,
-     device busy time, idle share, launches, kernels by device time).
+     pass: a warm prefill, 8 decode steps timed and 2 under torch.profiler
+     (wall, device busy time, idle share, launches, kernels by device
+     time).
      Then the same weights under the block_topk estimator with int8
      offload (the rescore pipeline): the two first requests, 16 steps,
      launches counted exactly, the realized fraction checked, and a
-     profiled decode pass;
+     profiled decode pass. Then two quantized configurations of bench.py,
+     each with its own random weights drawn and quantized on the card, the
+     two first requests, 16 steps, launches counted exactly and a profiled
+     decode pass: its "lsh" mode (W8A8 fused weights, LSH K=10, L=150 over
+     int8 offload K/V) and its "full_int8" mode with int4 weights (K=0,
+     every layer dense over int8 K/V, int4 fused weights through the
+     packed-nibble kernel at decode size);
   4. reference: a two-layer cut of the same width at K=1, L=32 (nearly
      every key sampled) on the card against the same engine on the CPU
      (the plain versions); then the same cut under block_topk with bf16
-     offload (the store pipeline, every block attended), launches counted.
+     offload (the store pipeline, every block attended), launches counted;
+     then the cut with int4 fused weights, LSH K=1, L=32 over int8 offload
+     and a dense int8 layer 0 (all three kernels of the quantized slice),
+     launches counted.
 Any failure raises. The last two lines are the kernels' JSON and the result
 JSON; the card's name and power limit come just before them.
 """
@@ -57,13 +70,17 @@ H100_BF16_FLOPS = 989e12            # dense bf16 tensor-core peak
 # scales with the output: under 0.01 of its rms; the block-attend partials
 # (rescore_attend, block_attend) likewise. The lse differs by f32 rounding
 # alone. The block scores are f32 sums of the same bf16-exact products in
-# another order: 1.4e-6 at most where they reach ~5.
+# another order: 1.4e-6 at most where they reach ~5. The int8 decode and LSH
+# partials as their bf16 forms (the plain versions round p times the V scale
+# to bf16, the kernels do not). The int4 matmul's output is an f32 sum of
+# the same exact products (bf16 times a nibble) in another order.
 TOL = {
     "flash_prefill": (4e-3, 1e-2, 0.0),
     "flash_decode": (0.0, 0.0, 0.015),
     "lsh_fused_decode": (0.0, 0.0, 0.015),
     "block_scores": (1e-5, 1e-5, 0.0),
     "block_attend": (0.0, 0.0, 0.015),
+    "w4_matmul": (0.0, 0.0, 1e-5),
     "lse": (1e-4, 1e-5, 0.0),
 }
 
@@ -124,15 +141,15 @@ def device_ms(fn, calls: int = 20) -> float:
 
 
 def timings(kernel, plain, library=None) -> dict:
-    """Event time per call (the kernel's `ms`) and profiler device time of
-    the kernel, its plain version and the library call. The plain versions
-    are timed over fewer calls (3 x 3, and 3): the slowest takes ~67 ms a
-    call, and its time is a reference, not a yardstick."""
+    """Event time per call of the kernel (its `ms`), its plain version and
+    the library call, and profiler device time of the kernel and the
+    library call. The plain versions are timed over fewer calls (3 x 3): the
+    slowest takes ~67 ms a call, and its time is a reference, not a
+    yardstick."""
     return dict(
         ms=cuda_ms(kernel), plain_ms=cuda_ms(plain, calls=3, batches=3),
         library_ms=None if library is None else cuda_ms(library),
         device_ms=device_ms(kernel),
-        plain_device_ms=device_ms(plain, calls=3),
         library_device_ms=None if library is None else device_ms(library))
 
 
@@ -297,8 +314,129 @@ def phase_kernels(torch, F, dev):
         f"skipped tile's worst element {teeth:.1f}x the limit; counts exact, "
         f"sampled {results['lsh_fused_decode']['sampled_frac']:.4f}, "
         f"rows read {results['lsh_fused_decode']['rows_frac']:.4f}")
+    results.update(int8_decode_kernels(torch, q, k, v, length, lens, proj, K, L))
     log_timings(results)
     return results
+
+
+def int8_decode_kernels(torch, q, k, v, length, lens, proj, K, L):
+    """The int8 forms of flash decode and the fused LSH decode, on the same
+    caches quantized per row (for LSH as centered keys whose norms and
+    signatures are those of the dequantized rows, as the fill stores
+    them). No PyTorch call takes int8 K/V with row scales: no library
+    time."""
+    from magicpig_tpu_torch.ops import attention, bitcodes
+    from magicpig_tpu_torch.ops.kernels import flash_decode, lsh_fused_decode
+    from magicpig_tpu_torch.ops.kernels.lsh_fused import lsh_fused_decode_plain
+    from magicpig_tpu_torch.ops.quant import dequantize_rows, quantize_rows
+
+    b, hq, d = q.shape
+    hkv, s = k.shape[1], k.shape[2]
+    kq, ks = quantize_rows(k)
+    vq, vs = quantize_rows(v)
+    results = {}
+
+    # -- flash decode over int8 K/V.
+    got, got_lse = flash_decode(q, kq, vq, length, ks, vs)
+    want, want_lse = attention.full_decode(q, kq, vq, length, ks, vs)
+    tol = TOL["flash_decode"]
+    err, share = check_close("flash_decode_int8", got, want, tol)
+    err = max(err, check_close("flash_decode_int8 lse", got_lse, want_lse,
+                               TOL["lse"])[0])
+    teeth = check_rejects("flash_decode_int8", attention.full_decode(
+        q, kq, drop_tile(vq, 2, 8192), length, ks, vs)[0], want, tol)
+    nbytes = (sum(lens) * hkv * (d * 2 + 8) + q.numel() * 2
+              + b * hq * (d + 1) * 4)
+    results["flash_decode_int8"] = dict(
+        max_abs_err=err, tol=tol, bound=bound_ms(nbytes, 4 * d * hq * sum(lens)),
+        **timings(lambda: flash_decode(q, kq, vq, length, ks, vs),
+                  lambda: attention.full_decode(q, kq, vq, length, ks, vs)))
+    log(f"kernel flash_decode_int8 err {err:.2e}, worst element "
+        f"{share:.2f} of its limit (tol {tol}); a skipped tile's worst "
+        f"element {teeth:.1f}x the limit")
+
+    # -- fused LSH decode over int8 centered keys and values.
+    kd = dequantize_rows(kq, ks, torch.float32)
+    k_norm = kd.norm(dim=-1)
+    planes = torch.stack([bitcodes.build_planes(kd[i].transpose(0, 1), proj, K)
+                          for i in range(b)])
+    del kd
+    q_bits = bitcodes.hash_bits(q, proj, K)
+    args = (q, kq, vq, k_norm, planes, q_bits, length, K, L, ks, vs)
+    got, got_lse, got_cnt = lsh_fused_decode(*args)
+    want, want_lse, want_cnt = lsh_fused_decode_plain(*args)
+    if not torch.equal(got_cnt, want_cnt):
+        raise AssertionError("lsh_fused_decode_int8: sampled counts differ")
+    tol = TOL["lsh_fused_decode"]
+    err, share = check_close("lsh_fused_decode_int8", got, want, tol)
+    err = max(err, check_close("lsh_fused_decode_int8 lse", got_lse, want_lse,
+                               TOL["lse"])[0])
+    teeth = check_rejects("lsh_fused_decode_int8", lsh_fused_decode_plain(
+        q, kq, drop_tile(vq, 2, 8192), k_norm, planes, q_bits, length, K, L,
+        ks, vs)[0], want, tol)
+    sampled = bitcodes.sampled_mask(q_bits, planes, length)    # [B, Hq, S]
+    rows = int(sampled.reshape(b, hkv, -1, s).any(dim=2).sum())
+    words = sum((n + 31) // 32 for n in lens) * hkv * L * K
+    nbytes = (words * 4 + rows * (2 * d + 8 + 4) + q.numel() * 2
+              + q_bits.numel() * 4 + b * hq * (d + 2) * 4)
+    results["lsh_fused_decode_int8"] = dict(
+        max_abs_err=err, tol=tol,
+        bound=bound_ms(nbytes, 4 * d * int(want_cnt.sum())),
+        **timings(lambda: lsh_fused_decode(*args),
+                  lambda: lsh_fused_decode_plain(*args)),
+        sampled_frac=float(want_cnt.sum()) / (hq * sum(lens)),
+        rows_frac=rows / (hkv * sum(lens)))
+    log(f"kernel lsh_fused_int8 err {err:.2e}, worst element {share:.2f} of "
+        f"its limit (tol {tol}); a skipped tile's worst element {teeth:.1f}x "
+        f"the limit; counts exact, sampled "
+        f"{results['lsh_fused_decode_int8']['sampled_frac']:.4f}, rows read "
+        f"{results['lsh_fused_decode_int8']['rows_frac']:.4f}")
+    return results
+
+
+def phase_w4_kernel(torch, dev):
+    """The packed-nibble int4 matmul against its plain version at M=2 (B=2
+    decode) on the 1B's fused gate|up and its lm_head, weights N(0, 1/kin)
+    quantized on the card. The kernels line keeps the lm_head's numbers;
+    the library yardstick is a bf16 torch.matmul over the dequantized
+    weight (no int4 PyTorch call takes this packing)."""
+    from magicpig_tpu_torch.models.llama import quantize_weight4
+    from magicpig_tpu_torch.ops.kernels import w4_matmul
+    from magicpig_tpu_torch.ops.kernels.w4_matmul import (unpack_weight4,
+                                                         w4_matmul_plain)
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(99)
+    m, tol = 2, TOL["w4_matmul"]
+    result = None
+    for label, kin, out in (("gate|up", 2048, 16384), ("lm_head", 2048, 128256)):
+        x = torch.randn((m, kin), generator=gen, device=dev, dtype=torch.bfloat16)
+        w = quantize_weight4(torch.randn((kin, out), generator=gen, device=dev,
+                                         dtype=torch.bfloat16).mul_(kin ** -0.5))
+        got = w4_matmul(x, w.q, w.scale)
+        want = w4_matmul_plain(x, w.q, w.scale)
+        err, share = check_close(f"w4_matmul {label}", got, want, tol)
+        faulty = w.q.clone()
+        faulty[3 * 64:4 * 64, 5 * 256:6 * 256] = 0     # group 3 of tile 5
+        teeth = check_rejects(f"w4_matmul {label}", w4_matmul_plain(
+            x, faulty, w.scale), want, tol,
+            "a skipped 128-input group of one output tile")
+        del faulty
+        wde = (unpack_weight4(w.q).float().reshape(kin // 128, 128, out)
+               * w.scale[:, None, :]).reshape(kin, out).to(torch.bfloat16)
+        nbytes = w.q.numel() + w.scale.numel() * 4 + x.numel() * 2 + m * out * 4
+        r = dict(max_abs_err=err, tol=tol,
+                 bound=bound_ms(nbytes, 2 * m * kin * out),
+                 **timings(lambda: w4_matmul(x, w.q, w.scale),
+                           lambda: w4_matmul_plain(x, w.q, w.scale),
+                           lambda: torch.matmul(x, wde)))
+        log(f"kernel w4_matmul {label} [{kin}, {out}] err {err:.2e}, worst "
+            f"element {share:.2f} of its limit (tol {tol}); a skipped group's "
+            f"worst element {teeth:.1f}x the limit")
+        log_timings({f"w4_matmul {label}": r})
+        del wde, w
+        result = r
+    return {"w4_matmul": result}
 
 
 def log_timings(results) -> None:
@@ -306,8 +444,8 @@ def log_timings(results) -> None:
         lib = ("-" if r["library_ms"] is None else
                f"{r['library_ms']:.4f} ({r['library_device_ms']:.4f})")
         log(f"  {name}: ms per call (device ms): kernel {r['ms']:.4f} "
-            f"({r['device_ms']:.4f})  plain {r['plain_ms']:.4f} "
-            f"({r['plain_device_ms']:.4f})  library {lib}  bound "
+            f"({r['device_ms']:.4f})  plain {r['plain_ms']:.4f}  library "
+            f"{lib}  bound "
             f"{r['bound'][0] * 1e3:.1f} us ({r['bound'][1]})")
 
 
@@ -513,7 +651,7 @@ def phase_serve(torch, dev):
         raise AssertionError(f"avg sparsity {llm.avg_sparsity} not in (0, 1)")
 
     # Where the time goes: the two first requests again, a warm prefill
-    # timed and then profiled, 4 warm-up decode steps, 8 steps timed and 8
+    # timed and then profiled, 4 warm-up decode steps, 8 steps timed and 2
     # profiled. The idle share sets the profiled device time against the
     # unprofiled wall time (the profiler's own cost is on the host).
     llm.clear()
@@ -539,8 +677,11 @@ def phase_serve(torch, dev):
                 params=llm.params, prompts=prompts[:2])
 
 
+PROFILED_STEPS = 2   # the profiler's processing costs seconds per step
+
+
 def profile_decode(torch, decode, tokens, label: str) -> None:
-    """8 decode steps timed, then 8 under torch.profiler: wall and device
+    """8 decode steps timed, then 2 under torch.profiler: wall and device
     busy time per step, the idle share (profiled device time against the
     unprofiled wall time; the profiler's own cost is on the host),
     launches per step and the kernels by device time."""
@@ -548,29 +689,41 @@ def profile_decode(torch, decode, tokens, label: str) -> None:
     tokens = decode(tokens, 8)
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t) * 1e3 / 8
-    busy, n, kernels = profiled(lambda: decode(tokens, 8))
-    busy /= 8
+    n_prof = PROFILED_STEPS
+    busy, n, kernels = profiled(lambda: decode(tokens, n_prof))
+    busy /= n_prof
     log(f"profile: {label}: wall {wall:.2f} ms/step, device busy "
         f"{busy:.3f} ms/step, idle share {max(0.0, 1 - busy / wall):.3f}, "
-        f"{n / 8:.0f} launches/step")
+        f"{n / n_prof:.0f} launches/step")
     for e in kernels[:8]:
-        log(f"  {_device_us(e) / 8:9.1f} us/step {e.count / 8:5.1f} "
+        log(f"  {_device_us(e) / n_prof:9.1f} us/step {e.count / n_prof:5.1f} "
             f"calls/step  {e.key[:70]}")
 
 
-def phase_serve_block(torch, dev, params, prompts):
-    """The block_topk estimator with int8 offload (the rescore pipeline) at
-    Llama-3.2-1B width and depth, on the LSH run's weights and first two
-    prompts: prefill both, 16 greedy steps, launches counted exactly, the
-    realized fraction checked, then a profiled decode pass."""
-    from magicpig_tpu_torch.config import LSHConfig
+def serve_counted(torch, dev, prompts, lsh, label: str, expect_fn,
+                  weight_quant: str = "none", params=None, check_frac=None):
+    """A serve at Llama-3.2-1B width and depth: `params`, or random weights
+    drawn (and quantized as `weight_quant` says, q/k/v and gate|up fused) on
+    the card; the two first requests prefilled, 16 greedy steps, every
+    kernel launch counted and held to `expect_fn(llm)`, the sampled or
+    realized fraction checked (`check_frac(fraction)` raises, or in (0, 1)
+    for a sparse engine), finite logits, then a profiled decode pass."""
+    import dataclasses
+
+    from magicpig_tpu_torch.config import preset
     from magicpig_tpu_torch.ops.kernels import LAUNCHES, reset_launches
     from magicpig_tpu_torch.runtime.engine import LLM
 
-    lsh = LSHConfig(estimator="block_topk", offload_quant="int8")
-    llm = LLM("llama-3.2-1b", batch_size=2, max_length=16384, lsh=lsh,
-              params=params, device=dev, seed=0)
-    cfg = llm.config
+    cfg = preset("llama-3.2-1b")
+    if weight_quant != "none":
+        cfg = dataclasses.replace(cfg, weight_quant=weight_quant,
+                                  fuse_small_linears=True)
+    t = time.perf_counter()
+    llm = LLM(cfg, batch_size=2, max_length=16384, lsh=lsh, params=params,
+              device=dev, seed=1)
+    torch.cuda.synchronize()
+    log(f"serve {label}: engine ({weight_quant} weights) in "
+        f"{time.perf_counter() - t:.1f} s")
     finite = torch.ones((), dtype=torch.bool, device=dev)
 
     def decode(tokens, n):
@@ -596,44 +749,100 @@ def phase_serve_block(torch, dev, params, prompts):
     torch.cuda.synchronize()
     decode_ms = (time.perf_counter() - t) * 1e3 / 16
     launches = dict(LAUNCHES)
-    layers = cfg.num_hidden_layers
-    n_sparse = sum(1 for kind, _ in llm.groups if kind == "sparse")
     expect = dict.fromkeys(launches, 0)
-    expect.update(flash_prefill=2 * layers, flash_decode=16 * layers,
-                  block_rank=16 * n_sparse, rescore_attend=16 * n_sparse)
+    expect.update(expect_fn(llm))
+    log(f"serve {label}: prefill 12000 + 7000 tokens {prefill_s:.2f} s, "
+        f"decode B=2 {decode_ms:.2f} ms/step; avg sparsity "
+        f"{llm.avg_sparsity:.6f}; launches {launches}")
+    if launches != expect:
+        raise AssertionError(f"launches {launches} != path's {expect}")
+    if check_frac is not None:
+        check_frac(llm.avg_sparsity)
+    elif lsh.enabled and not 0 < llm.avg_sparsity < 1:
+        raise AssertionError(f"avg sparsity {llm.avg_sparsity} not in (0, 1)")
+    profile_decode(torch, decode, tokens, f"{label} decode B=2, 12000 + 7000 "
+                   "tokens")
+    if not bool(finite):
+        raise AssertionError(f"non-finite logits in the {label} serve")
+    return dict(prefill_s=prefill_s, decode_ms=decode_ms,
+                avg_sparsity=llm.avg_sparsity, launches=launches)
+
+
+def phase_serve_block(torch, dev, params, prompts):
+    """The block_topk estimator with int8 offload (the rescore pipeline) on
+    the LSH run's weights and first two prompts; the realized fraction is
+    exact."""
+    from magicpig_tpu_torch.config import LSHConfig
+
+    lsh = LSHConfig(estimator="block_topk", offload_quant="int8")
+
+    def expect(llm):
+        n = llm.config.num_hidden_layers
+        n_sparse = sum(1 for kind, _ in llm.groups if kind == "sparse")
+        return dict(flash_prefill=2 * n, flash_decode=16 * n,
+                    block_rank=16 * n_sparse, rescore_attend=16 * n_sparse)
+
     # 3 blocks of 512 (8% of 32, rounded up) against 11932 and 6932
     # offloaded tokens: the realized fraction is 1536 / 9432.
     off = [n - lsh.num_sink_tokens - lsh.num_local_tokens
            for n in (prompts[0].numel(), prompts[1].numel())]
     want_frac = sum(min(3 * 512, n) for n in off) / sum(off)
-    log(f"serve block_topk int8: prefill 12000 + 7000 tokens {prefill_s:.2f} "
-        f"s, decode B=2 {decode_ms:.2f} ms/step; avg sparsity "
-        f"{llm.avg_sparsity:.6f} (expected {want_frac:.6f}); launches "
-        f"{launches}")
-    if launches != expect:
-        raise AssertionError(f"launches {launches} != path's {expect}")
-    if abs(llm.avg_sparsity - want_frac) > 1e-6:
-        raise AssertionError(f"avg sparsity {llm.avg_sparsity} != {want_frac}")
-    profile_decode(torch, decode, tokens,
-                   "block_topk int8 decode B=2, 12000 + 7000 tokens")
-    if not bool(finite):
-        raise AssertionError("non-finite logits in the block_topk serve")
-    return dict(prefill_s=prefill_s, decode_ms=decode_ms,
-                avg_sparsity=llm.avg_sparsity, launches=launches)
+
+    def check_frac(frac):
+        if abs(frac - want_frac) > 1e-6:
+            raise AssertionError(f"avg sparsity {frac} != {want_frac}")
+
+    return serve_counted(torch, dev, prompts, lsh, "block_topk int8", expect,
+                         params=params, check_frac=check_frac)
 
 
-def card_vs_cpu(torch, dev, lsh, label: str, n_prompt: int = 1500):
+def phase_serve_bench_modes(torch, dev, prompts):
+    """bench.py's lsh mode (W8A8 weights, int8 offload) and its full_int8
+    mode with int4 weights."""
+    from magicpig_tpu_torch.config import LSHConfig
+
+    def lsh_expect(llm):
+        n, steps = llm.config.num_hidden_layers, 16
+        n_sparse = sum(1 for kind, _ in llm.groups if kind == "sparse")
+        # flash decode: the dense layer and every sparse layer's hot partial.
+        return dict(flash_prefill=2 * n, flash_decode=steps * n,
+                    lsh_fused_decode_int8=steps * n_sparse)
+
+    def full_int8_expect(llm):
+        n, steps = llm.config.num_hidden_layers, 16
+        # Per decode step 4 int4 products a layer (wqkv, wo, w_gateup,
+        # w_down) and the lm_head; at prefill (M >= 512) the layers take the
+        # dequantized weight and only each request's last-token lm_head
+        # (M = 1) the kernel.
+        return dict(flash_prefill=2 * n, flash_decode_int8=steps * n,
+                    w4_matmul=steps * (4 * n + 1) + 2)
+
+    lsh_mode = serve_counted(
+        torch, dev, prompts, LSHConfig(K=10, L=150, offload_quant="int8"),
+        "bench lsh (W8A8, int8 offload)", lsh_expect, weight_quant="int8")
+    torch.cuda.empty_cache()
+    full_int8 = serve_counted(
+        torch, dev, prompts, LSHConfig(K=0, L=0, dense_quant="int8"),
+        "bench full_int8 (W4, dense int8)", full_int8_expect,
+        weight_quant="int4")
+    return lsh_mode, full_int8
+
+
+def card_vs_cpu(torch, dev, lsh, label: str, n_prompt: int = 1500,
+                weight_quant: str = "none", steps: int = 4):
     """Two layers at 1B width, layer 1 sparse: the card engine against the
     same engine on the CPU (the plain versions), prefill of an n_prompt
-    token prompt and 4 greedy steps. Returns (card engine, CPU engine, the
-    card's launches in this run)."""
+    token prompt and `steps` greedy steps. Returns (card engine, CPU
+    engine, the card's launches in this run)."""
     import dataclasses
 
     from magicpig_tpu_torch.config import preset
     from magicpig_tpu_torch.ops.kernels import LAUNCHES, reset_launches
     from magicpig_tpu_torch.runtime.engine import LLM
 
-    cfg = dataclasses.replace(preset("llama-3.2-1b"), num_hidden_layers=2)
+    cfg = dataclasses.replace(preset("llama-3.2-1b"), num_hidden_layers=2,
+                              weight_quant=weight_quant,
+                              fuse_small_linears=weight_quant != "none")
     card = LLM(cfg, batch_size=1, max_length=2048, lsh=lsh, device=dev, seed=3)
     host = LLM(cfg, batch_size=1, max_length=2048, lsh=lsh, device="cpu",
                params=card.params.to("cpu"),
@@ -644,7 +853,7 @@ def card_vs_cpu(torch, dev, lsh, label: str, n_prompt: int = 1500):
     a, b = card.prefill(prompt).cpu(), host.prefill(prompt)
     errs = [float((a - b).abs().max() / b.abs().max())]
     tok = b.argmax(-1)
-    for _ in range(4):
+    for _ in range(steps):
         a, b = card.inference(tok).cpu(), host.inference(tok)
         errs.append(float((a - b).abs().max() / b.abs().max()))
         tok = b.argmax(-1)
@@ -661,8 +870,9 @@ def card_vs_cpu(torch, dev, lsh, label: str, n_prompt: int = 1500):
 
 def phase_reference(torch, dev):
     """LSH at K=1/L=32 (nearly all keys sampled), then block_topk with bf16
-    offload (the store pipeline: exact_scores_ranked and block_attend);
-    each card engine against its CPU twin. block_topk attends every block
+    offload (the store pipeline: exact_scores_ranked and block_attend), then
+    LSH K=1/L=32 over int8 offload with a dense int8 layer and int4
+    weights; each card engine against its CPU twin. block_topk attends every block
     here (3 hold the 1032 offloaded tokens, the 4th none, so the empty
     partial is exercised too): with half of them chosen, the two devices'
     bf16 activations ranked a different block first at 2 of 5 steps in
@@ -685,6 +895,31 @@ def phase_reference(torch, dev):
         raise AssertionError(f"launches {launches} != path's {expect}")
     if card.avg_sparsity != host.avg_sparsity:
         raise AssertionError("card and CPU realized fractions differ")
+    # The quantized slice's three kernels: int4 fused weights, LSH over
+    # int8 offload, a dense int8 layer 0; 2 steps (the CPU's int4 lm_head
+    # takes about a second a step). Per step: flash decode int8 in
+    # layer 0, the hot partial and the int8 LSH partial in layer 1, 4 int4
+    # products a layer and the lm_head; the 1100-token prefill's products
+    # take the dequantized weight, its last-token lm_head the kernel. At
+    # K=1, L=32 nearly every key is sampled, as in the bf16 LSH cut: at
+    # K=10, L=150 the two devices' bf16 activations flip a few SimHash
+    # signs (sampled fractions 0.0232 and 0.0233 in one run), and the
+    # debias weights of the few keys sampled on one device only moved the
+    # decode logits by 0.13 of the largest; phase 2 holds the kernel at
+    # K=10, L=150 on identical inputs, counts exact.
+    lsh = LSHConfig(K=1, L=32, offload_quant="int8", dense_quant="int8",
+                    dense_layers=(0,))
+    steps = 2
+    card, host, quant = card_vs_cpu(torch, dev, lsh, "int4 weights, int8 "
+                                    "offload and dense K/V, K=1/L=32", 1100,
+                                    weight_quant="int4", steps=steps)
+    expect = dict.fromkeys(quant, 0)
+    expect.update(flash_prefill=2, flash_decode=steps, flash_decode_int8=steps,
+                  lsh_fused_decode_int8=steps, w4_matmul=steps * 9 + 1)
+    if quant != expect:
+        raise AssertionError(f"launches {quant} != path's {expect}")
+    if min(card.avg_sparsity, host.avg_sparsity) < 0.9:
+        raise AssertionError("K=1/L=32 should sample nearly every key")
     return launches
 
 
@@ -720,13 +955,18 @@ def main() -> int:
     kern = phase_kernels(torch, F, dev)
     kern.update(phase_block_kernels(torch, dev))
     torch.cuda.empty_cache()
+    kern.update(phase_w4_kernel(torch, dev))
+    torch.cuda.empty_cache()
 
     log("phase 3 serve llama-3.2-1b")
     serve = phase_serve(torch, dev)
     params, prompts = serve.pop("params"), serve.pop("prompts")
     torch.cuda.empty_cache()
     block = phase_serve_block(torch, dev, params, prompts)
-    del params, prompts
+    del params
+    torch.cuda.empty_cache()
+    lsh_mode, full_int8 = phase_serve_bench_modes(torch, dev, prompts)
+    del prompts
     torch.cuda.empty_cache()
 
     log("phase 4 reference on a small input")
@@ -734,12 +974,18 @@ def main() -> int:
 
     # Each kernel's launches come from the counted run of the path that
     # uses it: the LSH serve, the block_topk int8 serve (rescore pipeline),
-    # or the block_topk bf16 reference (store pipeline).
+    # the block_topk bf16 reference (store pipeline), bench.py's lsh mode
+    # (int8 LSH) or its full_int8 mode with int4 weights (int8 decode, int4
+    # matmul).
     launches = {**serve["launches"],
                 "block_rank": block["launches"]["block_rank"],
                 "rescore_attend": block["launches"]["rescore_attend"],
                 "exact_scores_ranked": store["exact_scores_ranked"],
-                "block_attend": store["block_attend"]}
+                "block_attend": store["block_attend"],
+                "lsh_fused_decode_int8":
+                    lsh_mode["launches"]["lsh_fused_decode_int8"],
+                "flash_decode_int8": full_int8["launches"]["flash_decode_int8"],
+                "w4_matmul": full_int8["launches"]["w4_matmul"]}
     score_src = ("magicpig_tpu_torch/csrc/block_score.cu",
                  "magicpig_tpu/ops/pallas/score.py:225")
     sources = {"flash_prefill": ("magicpig_tpu_torch/csrc/flash_prefill.cu",
@@ -753,7 +999,11 @@ def main() -> int:
                "rescore_attend": ("magicpig_tpu_torch/csrc/rescore_attend.cu",
                                   "magicpig_tpu/ops/pallas/rescore_attend.py:217"),
                "block_attend": ("magicpig_tpu_torch/csrc/block_attend.cu",
-                                "magicpig_tpu/ops/pallas/block_attend.py:224")}
+                                "magicpig_tpu/ops/pallas/block_attend.py:224"),
+               "w4_matmul": ("magicpig_tpu_torch/csrc/w4_matmul.cu",
+                             "magicpig_tpu/ops/pallas/w4_matmul.py:121")}
+    sources["flash_decode_int8"] = sources["flash_decode"]
+    sources["lsh_fused_decode_int8"] = sources["lsh_fused_decode"]
     kernels = []
     for name, r in kern.items():
         kernels.append({

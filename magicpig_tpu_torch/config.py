@@ -7,10 +7,16 @@ The knobs mirror the reference system (MagicPIG):
   * dense layers (full attention, no sampling): [0, 16, 32, 48, 64] cut to
     the model's depth.
 
+`ModelConfig.weight_quant` stores the matmul weights bf16, int8 per output
+channel (W8A8) or int4 in 128-input groups; `fuse_small_linears` joins
+q/k/v and gate/up of quantized weights into one matmul each.
+
 `LSHConfig` keeps the fields the ported estimators read: "lsh" (SimHash
-sampling, bf16 offload) and "block_topk" (exact-score block ranking, bf16
-or int8 offload). Any other estimator, decode mode, debias form or cache
-quantisation is not ported yet and raises `NotImplementedError`.
+sampling) and "block_topk" (exact-score block ranking), each with bf16 or
+int8 offload K/V, and the dense layers' K/V bf16 or int8
+(`dense_quant`). Any other estimator, decode mode, debias form or cache
+quantisation (int4 offload) is not ported yet and raises
+`NotImplementedError`.
 """
 
 from __future__ import annotations
@@ -29,6 +35,9 @@ class RopeScaling:
     low_freq_factor: float = 1.0
     high_freq_factor: float = 4.0
     original_max_position_embeddings: int = 8192
+
+
+WEIGHT_QUANTS = ("none", "int8", "int4")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,6 +60,17 @@ class ModelConfig:
     tie_word_embeddings: bool = False
     eos_token_ids: tuple[int, ...] = (128001, 128008, 128009)
     dtype: torch.dtype = torch.bfloat16
+    # Matmul weight storage: "none" (the model dtype), "int8" (W8A8:
+    # per-output-channel int8 weights, per-token int8 activations) or
+    # "int4" (group-128 int4 weights, nibble-packed; models/llama.py).
+    weight_quant: str = "none"
+    # Quantized weights only: q/k/v and gate/up as one wider matmul each
+    # (quantize, then concatenate: the same numbers as the separate calls).
+    fuse_small_linears: bool = False
+
+    def __post_init__(self):
+        if self.weight_quant not in WEIGHT_QUANTS:
+            raise ValueError(f"unknown weight_quant {self.weight_quant!r}")
 
 
 _LLAMA3_SCALING = RopeScaling(
@@ -109,14 +129,17 @@ class LSHConfig:
 
     K bits per hash table, L tables; K=0 turns sampling off (full attention
     in every layer). `estimator` picks the sparse layers' algorithm:
-      * "lsh"        -- SimHash >=2-of-L sampling + debias (bf16 offload);
+      * "lsh"        -- SimHash >=2-of-L sampling + debias;
       * "block_topk" -- every offloaded key scored exactly, the
         `block_topk_budget_frac` best `block_topk_block_size`-token blocks
-        (by their max score over the GQA group) attended; the offload K/V
-        bf16, or int8 per row with f32 scales (`offload_quant="int8"`).
-        Quantized, `block_topk_pipeline="rescore"` ranks from block maxes
-        and rescores the chosen blocks; "store" (and bf16 offload) stores
-        the scores and attends from them.
+        (by their max score over the GQA group) attended. Quantized,
+        `block_topk_pipeline="rescore"` ranks from block maxes and rescores
+        the chosen blocks; "store" (and bf16 offload) stores the scores and
+        attends from them.
+    `offload_quant="int8"` stores the offload K/V int8 per row with f32
+    scales (for lsh, the centered keys, whose stored norms and signatures
+    are those of the dequantized rows); `dense_quant="int8"` does the same
+    for the dense layers' K/V. The hot sink and local tokens stay exact.
     A value the port does not have yet raises `NotImplementedError`.
     """
 
@@ -146,15 +169,11 @@ class LSHConfig:
                 ("decode_mode", self.decode_mode, ("masked",)),
                 ("lsh_debias", self.lsh_debias, ("exact",)),
                 ("offload_quant", self.offload_quant, ("none", "int8")),
-                ("dense_quant", self.dense_quant, ("none",))):
+                ("dense_quant", self.dense_quant, ("none", "int8"))):
             if value not in ported:
                 raise NotImplementedError(
                     f"LSHConfig.{field}={value!r} is not ported; only "
                     f"{ported} are")
-        if self.estimator == "lsh" and self.offload_quantized:
-            raise NotImplementedError(
-                "int8 offload is ported for block_topk only; the LSH kernel "
-                "takes bf16 K/V")
         if self.K < 0 or self.L < 0:
             raise ValueError(f"K and L must be >= 0, got K={self.K} L={self.L}")
         if self.block_topk_block_size <= 0:
@@ -164,6 +183,11 @@ class LSHConfig:
     def offload_quantized(self) -> bool:
         """Offload K/V stored int8 with per-row f32 scales?"""
         return self.offload_quant != "none"
+
+    @property
+    def dense_quantized(self) -> bool:
+        """Dense-layer K/V stored int8 with per-row f32 scales?"""
+        return self.dense_quant != "none"
 
     @property
     def enabled(self) -> bool:

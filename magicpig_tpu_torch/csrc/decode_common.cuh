@@ -3,6 +3,12 @@
 // 512-token split of one (request, kv head) in 64-token tiles; the G query
 // heads of the kv head share each tile. Partials are (out / l, lse) per
 // (split, request, query head); launch_merge combines them by LSE.
+//
+// K/V come as bf16 rows, or as int8 rows with one f32 scale per (token,
+// kv head) row: an int8 tile is widened to bf16 in shared memory (exact)
+// and its scales kept beside it; the K scale multiplies the score after the
+// dot and the V scale multiplies the probability in the P.V sum, as in the
+// TPU kernels.
 #pragma once
 
 #include "common.cuh"
@@ -20,6 +26,8 @@ template <int G>
 struct __align__(16) DecodeTileSmem {
   __nv_bfloat16 ks[kDecTile][kDecPad];
   __nv_bfloat16 vs[kDecTile][kDecPad];
+  float ksc[kDecTile];     // int8 K/V only: the tile's row scales
+  float vsc[kDecTile];
   float qf[G][kDecD];      // query (pre-scaled for dense decode)
   float ps[G][kDecTile];   // scores, then probabilities, of one tile
   float alpha[G];          // rescale of the accumulators for this tile
@@ -49,6 +57,37 @@ __device__ __forceinline__ void load_kv_tile(DecodeTileSmem<G>& sm,
     }
     *reinterpret_cast<uint4*>(&sm.ks[row][col]) = kx;
     *reinterpret_cast<uint4*>(&sm.vs[row][col]) = vx;
+  }
+}
+
+// The same for int8 rows with f32 scales (k_s, v_s: the head's [S]
+// scales): rows are widened to bf16, exact for int8 values; a row not read
+// gets zeros and scale 0.
+template <int G>
+__device__ __forceinline__ void load_kv_tile(DecodeTileSmem<G>& sm,
+                                             const int8_t* k_h,
+                                             const int8_t* v_h,
+                                             const float* k_s,
+                                             const float* v_s, int t0,
+                                             int stop, int tid,
+                                             const uint32_t* rowmask) {
+  for (int c = tid; c < kDecTile * (kDecD / 8); c += kDecThreads) {
+    const int row = c / (kDecD / 8);
+    const int col = (c % (kDecD / 8)) * 8;
+    const int t = t0 + row;
+    bool need = t < stop;
+    if (rowmask != nullptr) need = need && ((rowmask[row >> 5] >> (row & 31)) & 1u);
+    uint2 kx = make_uint2(0, 0), vx = make_uint2(0, 0);
+    if (need) {
+      kx = *reinterpret_cast<const uint2*>(k_h + static_cast<size_t>(t) * kDecD + col);
+      vx = *reinterpret_cast<const uint2*>(v_h + static_cast<size_t>(t) * kDecD + col);
+    }
+    *reinterpret_cast<uint4*>(&sm.ks[row][col]) = widen_int8x8(kx);
+    *reinterpret_cast<uint4*>(&sm.vs[row][col]) = widen_int8x8(vx);
+    if (col == 0) {
+      sm.ksc[row] = need ? k_s[t] : 0.f;
+      sm.vsc[row] = need ? v_s[t] : 0.f;
+    }
   }
 }
 
@@ -96,6 +135,12 @@ struct OnlineSoftmax {
     for (int r = 0; r < kAcc; ++r) acc[r] = 0.f;
   }
 
+  template <bool kScaleV>
+  static __device__ __forceinline__ float p_of(const DecodeTileSmem<G>& sm,
+                                               int g, int j) {
+    return kScaleV ? sm.ps[g][j] * sm.vsc[j] : sm.ps[g][j];
+  }
+
   // Scores -> probabilities in place; sets sm.alpha. Needs a barrier
   // before and after.
   __device__ __forceinline__ void softmax_tile(DecodeTileSmem<G>& sm,
@@ -119,6 +164,8 @@ struct OnlineSoftmax {
     }
   }
 
+  // kScaleV: int8 V, each probability times its row's V scale.
+  template <bool kScaleV>
   __device__ __forceinline__ void accumulate_pv(const DecodeTileSmem<G>& sm,
                                                 int tid) {
 #pragma unroll
@@ -129,7 +176,7 @@ struct OnlineSoftmax {
         float a = acc[r] * sm.alpha[g];
 #pragma unroll 8
         for (int j = 0; j < kDecTile; ++j)
-          a = fmaf(sm.ps[g][j], __bfloat162float(sm.vs[j][d]), a);
+          a = fmaf(p_of<kScaleV>(sm, g, j), __bfloat162float(sm.vs[j][d]), a);
         acc[r] = a;
       }
     }
@@ -138,6 +185,7 @@ struct OnlineSoftmax {
   // The same over only the tile's rows set in `rowmask` (two words, the
   // same for every thread): rows outside it have probability 0 for every
   // head, so the sum is unchanged, term for term.
+  template <bool kScaleV>
   __device__ __forceinline__ void accumulate_pv_rows(
       const DecodeTileSmem<G>& sm, int tid, const uint32_t* rowmask) {
     const uint32_t w0 = rowmask[0], w1 = rowmask[1];
@@ -149,11 +197,11 @@ struct OnlineSoftmax {
         float a = acc[r] * sm.alpha[g];
         for (uint32_t m = w0; m != 0u; m &= m - 1u) {
           const int j = __ffs(m) - 1;
-          a = fmaf(sm.ps[g][j], __bfloat162float(sm.vs[j][d]), a);
+          a = fmaf(p_of<kScaleV>(sm, g, j), __bfloat162float(sm.vs[j][d]), a);
         }
         for (uint32_t m = w1; m != 0u; m &= m - 1u) {
           const int j = 32 + __ffs(m) - 1;
-          a = fmaf(sm.ps[g][j], __bfloat162float(sm.vs[j][d]), a);
+          a = fmaf(p_of<kScaleV>(sm, g, j), __bfloat162float(sm.vs[j][d]), a);
         }
         acc[r] = a;
       }

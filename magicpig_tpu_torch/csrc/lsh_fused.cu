@@ -4,13 +4,17 @@
 //
 // Replaces magicpig_tpu/ops/pallas/lsh_fused.py::lsh_fused_attention2 (the
 // pallas_call at lsh_fused.py:286), reached through
-// magicpig_tpu/ops/pallas/lsh_decode.py::lsh_fused_decode.
+// magicpig_tpu/ops/pallas/lsh_decode.py::lsh_fused_decode, with bf16 K/V or
+// int8 K/V and per-token f32 scales (its quant=True form: the raw score is
+// q . K_int8 times the K scale, the cosine uses the stored norms of the
+// dequantized keys, and the V scale multiplies p in the P.V sum).
 //
 // Bound on the H100: device memory. The signatures must all be read to
 // know which tokens are sampled: K*L bits per token and kv head, 188 bytes
 // at K=10, L=150, against 256 bytes of bf16 K+V at d = 64, so the scan
 // stream is not small. K, V and the key norm are needed only for tokens that
-// some query head of the group samples (~2% per head at the defaults).
+// some query head of the group samples (~2% per head at the defaults); int8
+// rows halve those bytes and leave the signature words as they are.
 // Design: one block of 128 threads per (512-token split, kv head, request),
 // as in flash_decode.cu. The block first scans its 16 signature words per
 // (table, bit) with coalesced 4-byte reads along the token axis, each thread
@@ -22,6 +26,8 @@
 // sampled (head, token) pairs, and sums P.V over those rows only, with the
 // exact debias (libm acosf, log1pf, expm1f). Whether a fully gathered form
 // beats this streamed scan is for a measurement to decide.
+#include <type_traits>
+
 #include "common.cuh"
 #include "decode_common.cuh"
 
@@ -45,11 +51,14 @@ struct LshSmem {
   int count[G];
 };
 
-template <int G>
+// T: __nv_bfloat16, or int8_t with the row scales k_scale, v_scale [B,
+// Hkv, S] (null for bf16).
+template <int G, typename T>
 __global__ void __launch_bounds__(mp::kDecThreads)
 lsh_fused_split_kernel(const __nv_bfloat16* __restrict__ q,
-                       const __nv_bfloat16* __restrict__ k,
-                       const __nv_bfloat16* __restrict__ v,
+                       const T* __restrict__ k, const T* __restrict__ v,
+                       const float* __restrict__ k_scale,
+                       const float* __restrict__ v_scale,
                        const float* __restrict__ k_norm,
                        const int* __restrict__ planes,
                        const int* __restrict__ q_bits,
@@ -59,6 +68,7 @@ lsh_fused_split_kernel(const __nv_bfloat16* __restrict__ q,
                        float* __restrict__ part_cnt, int batch, int s_cap,
                        int hkv, int K, int L, float sm_scale) {
   using namespace mp;
+  constexpr bool kQ = std::is_same<T, int8_t>::value;
   __shared__ LshSmem<G> sm;
   extern __shared__ uint32_t qcode[];   // [G][L]: K query bits per table
 
@@ -168,8 +178,8 @@ lsh_fused_split_kernel(const __nv_bfloat16* __restrict__ q,
 
   // ---- debiased online softmax over the sampled tokens of the split.
   const size_t head_off = (static_cast<size_t>(b) * hkv + kh) * s_cap;
-  const __nv_bfloat16* k_h = k + head_off * kDecD;
-  const __nv_bfloat16* v_h = v + head_off * kDecD;
+  const T* k_h = k + head_off * kDecD;
+  const T* v_h = v + head_off * kDecD;
   const float* n_h = k_norm + head_off;
   const float fK = static_cast<float>(K), fL = static_cast<float>(L);
 
@@ -178,7 +188,11 @@ lsh_fused_split_kernel(const __nv_bfloat16* __restrict__ q,
   for (int t0 = start; t0 < stop; t0 += kDecTile) {
     const int w0 = (t0 - start) / 32;     // first of this tile's 2 words
     if ((sm.any[w0] | sm.any[w0 + 1]) == 0u) continue;   // block-uniform
-    load_kv_tile<G>(sm.tile, k_h, v_h, t0, stop, tid, &sm.any[w0]);
+    if constexpr (kQ)
+      load_kv_tile<G>(sm.tile, k_h, v_h, k_scale + head_off,
+                      v_scale + head_off, t0, stop, tid, &sm.any[w0]);
+    else
+      load_kv_tile<G>(sm.tile, k_h, v_h, t0, stop, tid, &sm.any[w0]);
     if (tid < kDecTile) {
       const bool need = t0 + tid < stop &&
                         ((sm.any[w0 + (tid >> 5)] >> (tid & 31)) & 1u);
@@ -189,7 +203,8 @@ lsh_fused_split_kernel(const __nv_bfloat16* __restrict__ q,
       const int g = p / kDecTile, j = p % kDecTile;
       float score = kNegInf;
       if ((sm.sel[g][w0 + (j >> 5)] >> (j & 31)) & 1u) {
-        const float raw = row_dot(sm.tile.ks[j], sm.tile.qf[g]);
+        float raw = row_dot(sm.tile.ks[j], sm.tile.qf[g]);
+        if constexpr (kQ) raw *= sm.tile.ksc[j];
         float c = raw / fmaxf(sm.qnorm[g] * sm.knorm[j], 1e-20f);
         c = fminf(fmaxf(c, -1.f), 1.f);
         const float u = powf(1.f - acosf(c) / kPi, fK);
@@ -204,15 +219,16 @@ lsh_fused_split_kernel(const __nv_bfloat16* __restrict__ q,
     __syncthreads();
     st.softmax_tile(sm.tile, tid);
     __syncthreads();
-    st.accumulate_pv_rows(sm.tile, tid, &sm.any[w0]);
+    st.template accumulate_pv_rows<kQ>(sm.tile, tid, &sm.any[w0]);
     __syncthreads();
   }
   st.write_partial(sm.tile, part_o, part_lse, part, tid);
   if (tid < G) part_cnt[part + tid] = static_cast<float>(sm.count[tid]);
 }
 
-template <int G>
+template <int G, typename T>
 int launch_lsh(const void* q, const void* k, const void* v,
+               const void* k_scale, const void* v_scale,
                const void* k_norm, const void* planes, const void* q_bits,
                const void* length, void* part_o, void* part_lse,
                void* part_cnt, void* out, void* lse, void* cnt, int batch,
@@ -221,11 +237,10 @@ int launch_lsh(const void* q, const void* k, const void* v,
   const int nsplit = (s_cap + mp::kDecChunk - 1) / mp::kDecChunk;
   const size_t dyn = static_cast<size_t>(G) * L * sizeof(uint32_t);
   dim3 grid(nsplit, hkv, batch);
-  lsh_fused_split_kernel<G><<<grid, mp::kDecThreads, dyn, stream>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v),
-      static_cast<const float*>(k_norm), static_cast<const int*>(planes),
+  lsh_fused_split_kernel<G, T><<<grid, mp::kDecThreads, dyn, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const float*>(k_scale),
+      static_cast<const float*>(v_scale), static_cast<const float*>(k_norm), static_cast<const int*>(planes),
       static_cast<const int*>(q_bits), static_cast<const int*>(length),
       static_cast<float*>(part_o), static_cast<float*>(part_lse),
       static_cast<float*>(part_cnt), batch, s_cap, hkv, K, L, sm_scale);
@@ -241,8 +256,11 @@ int launch_lsh(const void* q, const void* k, const void* v,
 
 }  // namespace
 
+// k_scale and v_scale null: bf16 K/V; both set: int8 K/V with those
+// per-token scales [B, Hkv, S].
 extern "C" int mp_lsh_fused_decode(const void* q, const void* k,
-                                   const void* v, const void* k_norm,
+                                   const void* v, const void* k_scale,
+                                   const void* v_scale, const void* k_norm,
                                    const void* planes, const void* q_bits,
                                    const void* length, void* part_o,
                                    void* part_lse, void* part_cnt, void* out,
@@ -250,14 +268,20 @@ extern "C" int mp_lsh_fused_decode(const void* q, const void* k,
                                    int hq, int hkv, int head_dim, int K,
                                    int L, float sm_scale, void* stream) {
   if (head_dim != mp::kDecD || hq % hkv != 0 || s_cap % 32 != 0 || K < 1 ||
-      K > kMaxK || L < 1)
+      K > kMaxK || L < 1 || (k_scale == nullptr) != (v_scale == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool quant = k_scale != nullptr;
 #define MP_LSH_CASE(G)                                                      \
   case G:                                                                   \
-    return launch_lsh<G>(q, k, v, k_norm, planes, q_bits, length, part_o,   \
-                         part_lse, part_cnt, out, lse, cnt, batch, s_cap,   \
-                         hkv, K, L, sm_scale, st);
+    return quant ? launch_lsh<G, int8_t>(                                   \
+                       q, k, v, k_scale, v_scale, k_norm, planes, q_bits,   \
+                       length, part_o, part_lse, part_cnt, out, lse, cnt,   \
+                       batch, s_cap, hkv, K, L, sm_scale, st)               \
+                 : launch_lsh<G, __nv_bfloat16>(                            \
+                       q, k, v, nullptr, nullptr, k_norm, planes, q_bits,   \
+                       length, part_o, part_lse, part_cnt, out, lse, cnt,   \
+                       batch, s_cap, hkv, K, L, sm_scale, st);
   switch (hq / hkv) {
     MP_LSH_CASE(1)
     MP_LSH_CASE(2)

@@ -14,7 +14,10 @@ against them.
 Decode paths take GQA-shaped inputs: q [B, Hq, d] over caches [B, Hkv, S, d]
 with Hq = G * Hkv. Products take their inputs' values exactly and sum in
 float32; probabilities are rounded to the value cache's type before the
-weighted sum of V, as in the JAX functions.
+weighted sum of V, as in the JAX functions. int8 caches come with per-token
+f32 scales [B, Hkv, S], as the TPU kernels take them: the K scale multiplies
+the score after the dot, and the V scale multiplies the probability, the
+product rounded to bf16 before the weighted sum of V.
 """
 
 from __future__ import annotations
@@ -43,15 +46,29 @@ def _finish(m: torch.Tensor, l: torch.Tensor, acc: torch.Tensor):
     return out, lse
 
 
-def _softmax_pv(scores: torch.Tensor, v: torch.Tensor):
-    """Masked softmax over the last axis of f32 scores [..., S] and the
-    weighted sum of v [..., S, d]. Returns (out f32, lse f32)."""
+def _softmax_pv(scores: torch.Tensor, v: torch.Tensor,
+                v_scale: torch.Tensor | None = None):
+    """Masked softmax over the last axis of f32 scores [B, Hkv, G, S] and
+    the weighted sum of v [B, Hkv, S, d] (int8 with v_scale [B, Hkv, S]).
+    Returns (out f32, lse f32)."""
     m = torch.max(scores, dim=-1).values
     m_safe = torch.where(torch.isneginf(m), torch.zeros_like(m), m)
     p = torch.exp(scores - m_safe.unsqueeze(-1))
     l = torch.sum(p, dim=-1)
-    acc = torch.matmul(p.to(v.dtype).float(), v.float())
+    if v_scale is None:
+        pv = p.to(v.dtype)
+    else:
+        pv = (p * v_scale[:, :, None, :]).to(torch.bfloat16)
+    acc = torch.matmul(pv.float(), v.float())
     return _finish(m_safe, l, acc)
+
+
+def _raw_scores(qh: torch.Tensor, k: torch.Tensor,
+                k_scale: torch.Tensor | None) -> torch.Tensor:
+    """q . k for qh [B, Hkv, G, d] over k [B, Hkv, S, d] -> [B, Hkv, G, S],
+    times the per-token K scale for int8 k."""
+    raw = torch.matmul(qh, k.float().transpose(-1, -2))
+    return raw if k_scale is None else raw * k_scale[:, :, None, :]
 
 
 def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -110,22 +127,24 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def full_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                length: torch.Tensor):
+                length: torch.Tensor, k_scale: torch.Tensor | None = None,
+                v_scale: torch.Tensor | None = None):
     """Single-token decode attention over a cache prefix, with LSE.
 
-    q: [B, Hq, d]; k, v: [B, Hkv, S, d]; length: [B] valid tokens.
+    q: [B, Hq, d]; k, v: [B, Hkv, S, d] (int8 with k_scale, v_scale
+    [B, Hkv, S]); length: [B] valid tokens.
     Returns (out [B, Hq, d] f32, lse [B, Hq] f32, natural log).
     """
     b, hq, d = q.shape
     hkv, s = k.shape[1], k.shape[2]
     scale = 1.0 / math.sqrt(d)
     qh = q.float().reshape(b, hkv, hq // hkv, d)
-    scores = torch.matmul(qh, k.float().transpose(-1, -2)) * scale
+    scores = _raw_scores(qh, k, k_scale) * scale
     valid = (torch.arange(s, device=q.device)[None, :]
              < length.to(torch.int64)[:, None])              # [B, S]
     scores = torch.where(valid[:, None, None], scores,
                          torch.full_like(scores, _NEG_INF))
-    out, lse = _softmax_pv(scores, v)
+    out, lse = _softmax_pv(scores, v, v_scale)
     return out.reshape(b, hq, d), lse.reshape(b, hq)
 
 
@@ -146,23 +165,25 @@ def collision_mask(q_codes: torch.Tensor, k_codes: torch.Tensor) -> torch.Tensor
 def lsh_masked_decode(q: torch.Tensor, k_centered: torch.Tensor,
                       v: torch.Tensor, k_norm: torch.Tensor,
                       mask: torch.Tensor, length: torch.Tensor, K: int,
-                      L: int):
+                      L: int, k_scale: torch.Tensor | None = None,
+                      v_scale: torch.Tensor | None = None):
     """Dense masked form of LSH-sampled attention with the exact debias.
 
-    q: [B, Hq, d]; k_centered, v: [B, Hkv, S, d]; k_norm: [B, Hkv, S] norms
-    of the centered keys; mask: [B, Hq, S] sampled; length: [B] valid
-    offload length. Returns (out [B, Hq, d] f32, lse [B, Hq] f32).
+    q: [B, Hq, d]; k_centered, v: [B, Hkv, S, d] (int8 with k_scale,
+    v_scale [B, Hkv, S]); k_norm: [B, Hkv, S] norms of the (dequantized)
+    centered keys; mask: [B, Hq, S] sampled; length: [B] valid offload
+    length. Returns (out [B, Hq, d] f32, lse [B, Hq] f32).
     """
     b, hq, d = q.shape
     hkv, s = k_centered.shape[1], k_centered.shape[2]
     g = hq // hkv
     qh = q.float().reshape(b, hkv, g, d)
-    raw = torch.matmul(qh, k_centered.float().transpose(-1, -2))  # [B,Hkv,G,S]
+    raw = _raw_scores(qh, k_centered, k_scale)               # [B,Hkv,G,S]
     q_norm = torch.linalg.vector_norm(qh, dim=-1, keepdim=True)
     scores = debias_scores(raw, q_norm, k_norm[:, :, None, :], d, K, L)
     valid = (torch.arange(s, device=q.device)[None, :]
              < length.to(torch.int64)[:, None])[:, None, None]
     full_mask = mask.reshape(b, hkv, g, s) & valid
     scores = torch.where(full_mask, scores, torch.full_like(scores, _NEG_INF))
-    out, lse = _softmax_pv(scores, v)
+    out, lse = _softmax_pv(scores, v, v_scale)
     return out.reshape(b, hq, d), lse.reshape(b, hq)

@@ -14,3 +14,4 @@ from magicpig_tpu_torch.ops.kernels.block_score import (  # noqa: F401
 )
 from magicpig_tpu_torch.ops.kernels.rescore_attend import rescore_attend  # noqa: F401
 from magicpig_tpu_torch.ops.kernels.block_attend import block_attend  # noqa: F401
+from magicpig_tpu_torch.ops.kernels.w4_matmul import w4_matmul  # noqa: F401

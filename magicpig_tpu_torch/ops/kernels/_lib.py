@@ -35,11 +35,14 @@ NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 LAUNCHES: dict[str, int] = {
     "flash_prefill": 0,
     "flash_decode": 0,
+    "flash_decode_int8": 0,
     "lsh_fused_decode": 0,
+    "lsh_fused_decode_int8": 0,
     "block_rank": 0,
     "exact_scores_ranked": 0,
     "rescore_attend": 0,
     "block_attend": 0,
+    "w4_matmul": 0,
 }
 
 _P = ctypes.c_void_p
@@ -48,11 +51,12 @@ _F = ctypes.c_float
 # C entry points: argument types, each returning cudaGetLastError().
 _SIGNATURES = {
     "mp_flash_prefill": [_P] * 7 + [_I] * 7 + [_F, _P],
-    "mp_flash_decode": [_P] * 8 + [_I] * 5 + [_F, _P],
-    "mp_lsh_fused_decode": [_P] * 13 + [_I] * 7 + [_F, _P],
+    "mp_flash_decode": [_P] * 10 + [_I] * 5 + [_F, _P],
+    "mp_lsh_fused_decode": [_P] * 15 + [_I] * 7 + [_F, _P],
     "mp_block_score": [_P] * 6 + [_I] * 7 + [_F, _P],
     "mp_rescore_attend": [_P] * 11 + [_I] * 8 + [_F, _P],
     "mp_block_attend": [_P] * 8 + [_I] * 8 + [_P],
+    "mp_w4_matmul": [_P] * 5 + [_I] * 5 + [_P],
 }
 
 _lib: ctypes.CDLL | None = None

@@ -2,7 +2,8 @@
 `csrc/flash_decode.cu`, with its plain version `ops.attention.full_decode`.
 
 Replaces the TPU kernel `magicpig_tpu/ops/pallas/decode.py::flash_decode`
-(pallas_call at decode.py:184), bf16 K/V. On the H100 it is bound by
+(pallas_call at decode.py:184): bf16 K/V, or int8 K/V with per-token f32
+scales (counted apart, as "flash_decode_int8"). On the H100 it is bound by
 reading K and V once; the kernel splits the sequence into 512-token blocks
 so that a batch of 2 fills the card, and merges the splits by LSE.
 """
@@ -21,16 +22,28 @@ SPLIT_TOKENS = 512     # tokens per block (kDecChunk in decode_common.cuh)
 
 
 def check_decode_inputs(name: str, q: torch.Tensor, k: torch.Tensor,
-                        v: torch.Tensor, length: torch.Tensor) -> None:
-    """Shape and type checks shared by the split-sequence decode kernels."""
+                        v: torch.Tensor, length: torch.Tensor,
+                        k_scale: torch.Tensor | None = None,
+                        v_scale: torch.Tensor | None = None) -> None:
+    """Shape and type checks shared by the split-sequence decode kernels:
+    bf16 q; bf16 k, v, or int8 k, v with f32 scales [B, Hkv, S]."""
     _lib.require(q.device.type == "cuda", f"{name}: unsupported device {q.device}")
-    if k.dtype == torch.int8 or v.dtype == torch.int8:
-        raise NotImplementedError(f"{name}: int8 K/V is not ported")
     _lib.require_cuda(name, q, k, v, length)
     b, hq, d = q.shape
     hkv = k.shape[1]
-    _lib.require(q.dtype == k.dtype == v.dtype == torch.bfloat16,
-                 f"{name}: q, k, v must be bfloat16")
+    if k_scale is None and v_scale is None:
+        _lib.require(q.dtype == k.dtype == v.dtype == torch.bfloat16,
+                     f"{name}: q, k, v must be bfloat16")
+    else:
+        _lib.require(k_scale is not None and v_scale is not None,
+                     f"{name}: int8 K/V needs both scales")
+        _lib.require_cuda(name, q, k_scale, v_scale)
+        _lib.require(q.dtype == torch.bfloat16
+                     and k.dtype == v.dtype == torch.int8,
+                     f"{name}: q must be bfloat16 and k, v int8")
+        for sc in (k_scale, v_scale):
+            _lib.require(sc.dtype == torch.float32 and sc.shape == k.shape[:3],
+                         f"{name}: scales must be f32 [B, Hkv, S]")
     _lib.require(d == HEAD_DIM, f"{name}: head_dim {d} != {HEAD_DIM}")
     _lib.require(k.dim() == 4 and k.shape == v.shape
                  and k.shape[0] == b and k.shape[3] == d,
@@ -42,17 +55,19 @@ def check_decode_inputs(name: str, q: torch.Tensor, k: torch.Tensor,
 
 
 def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                 length: torch.Tensor):
+                 length: torch.Tensor, k_scale: torch.Tensor | None = None,
+                 v_scale: torch.Tensor | None = None):
     """Single-query attention over a cache prefix.
 
-    q: [B, Hq, d]; k, v: [B, Hkv, S, d]; length: [B] int32 valid tokens.
+    q: [B, Hq, d]; k, v: [B, Hkv, S, d], bf16, or int8 with f32 scales
+    k_scale, v_scale [B, Hkv, S]; length: [B] int32 valid tokens.
     Returns (out [B, Hq, d] f32, lse [B, Hq] f32); a request with no valid
     token gives out 0 and lse -inf. CPU tensors take the plain version.
     """
     if q.device.type == "cpu":
-        return attention.full_decode(q, k, v, length)
-    name = "flash_decode"
-    check_decode_inputs(name, q, k, v, length)
+        return attention.full_decode(q, k, v, length, k_scale, v_scale)
+    name = "flash_decode" if k_scale is None else "flash_decode_int8"
+    check_decode_inputs(name, q, k, v, length, k_scale, v_scale)
     b, hq, d = q.shape
     hkv, s = k.shape[1], k.shape[2]
     nsplit = -(-s // SPLIT_TOKENS)
@@ -61,6 +76,7 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     part_lse = torch.empty((nsplit, b * hq), **f32)
     out = torch.empty((b, hq, d), **f32)
     lse = torch.empty((b, hq), **f32)
-    _lib.launch(name, "mp_flash_decode", q.device, q, k, v, length, part_o,
-                part_lse, out, lse, b, s, hq, hkv, d, 1.0 / math.sqrt(d))
+    _lib.launch(name, "mp_flash_decode", q.device, q, k, v, k_scale, v_scale,
+                length, part_o, part_lse, out, lse, b, s, hq, hkv, d,
+                1.0 / math.sqrt(d))
     return out, lse

@@ -4,10 +4,12 @@ then `ops.attention.lsh_masked_decode`).
 
 Replaces the TPU kernel `magicpig_tpu/ops/pallas/lsh_fused.py::
 lsh_fused_attention2` (pallas_call at lsh_fused.py:286), reached through
-`magicpig_tpu/ops/pallas/lsh_decode.py::lsh_fused_decode`. On the H100 it is
-bound by device memory: every signature word must be read (188 bytes per
-token and kv head at K=10, L=150), but K, V and the key norm only for the
-tokens some head of the group samples, and the kernel reads only those.
+`magicpig_tpu/ops/pallas/lsh_decode.py::lsh_fused_decode`: bf16 K/V, or
+int8 K/V with per-token f32 scales (counted apart, as
+"lsh_fused_decode_int8"). On the H100 it is bound by device memory: every
+signature word must be read (188 bytes per token and kv head at K=10,
+L=150), but K, V and the key norm only for the tokens some head of the
+group samples, and the kernel reads only those.
 """
 
 from __future__ import annotations
@@ -28,31 +30,34 @@ MAX_K = 16                    # bits per table (kMaxK in lsh_fused.cu)
 
 
 def lsh_fused_decode_plain(q, k_centered, v, k_norm, planes, q_bits, length,
-                           K: int, L: int):
+                           K: int, L: int, k_scale=None, v_scale=None):
     """Plain version: the collision mask, then the masked debiased decode."""
     mask = bitcodes.sampled_mask(q_bits, planes, length)
     out, lse = attention.lsh_masked_decode(q, k_centered, v, k_norm, mask,
-                                           length, K, L)
+                                           length, K, L, k_scale, v_scale)
     return out, lse, mask.sum(dim=-1).to(torch.float32)
 
 
 def lsh_fused_decode(q: torch.Tensor, k_centered: torch.Tensor,
                      v: torch.Tensor, k_norm: torch.Tensor,
                      planes: torch.Tensor, q_bits: torch.Tensor,
-                     length: torch.Tensor, K: int, L: int):
+                     length: torch.Tensor, K: int, L: int,
+                     k_scale: torch.Tensor | None = None,
+                     v_scale: torch.Tensor | None = None):
     """LSH-sampled decode partial over the offload region.
 
-    q: [B, Hq, d]; k_centered, v: [B, Hkv, S, d]; k_norm: [B, Hkv, S] f32;
-    planes: [B, Hkv, L, K, S/32] int32 (`ops.bitcodes` flat layout);
-    q_bits: [B, Hq, L, K] int32 0/1; length: [B] int32. Returns (out
-    [B, Hq, d] f32, lse [B, Hq] f32, sampled count [B, Hq] f32). CPU
-    tensors take the plain version.
+    q: [B, Hq, d]; k_centered, v: [B, Hkv, S, d], bf16, or int8 with f32
+    scales k_scale, v_scale [B, Hkv, S]; k_norm: [B, Hkv, S] f32 (norms of
+    the dequantized keys for int8); planes: [B, Hkv, L, K, S/32] int32
+    (`ops.bitcodes` flat layout); q_bits: [B, Hq, L, K] int32 0/1; length:
+    [B] int32. Returns (out [B, Hq, d] f32, lse [B, Hq] f32, sampled count
+    [B, Hq] f32). CPU tensors take the plain version.
     """
     if q.device.type == "cpu":
         return lsh_fused_decode_plain(q, k_centered, v, k_norm, planes,
-                                      q_bits, length, K, L)
-    name = "lsh_fused_decode"
-    check_decode_inputs(name, q, k_centered, v, length)
+                                      q_bits, length, K, L, k_scale, v_scale)
+    name = "lsh_fused_decode" if k_scale is None else "lsh_fused_decode_int8"
+    check_decode_inputs(name, q, k_centered, v, length, k_scale, v_scale)
     b, hq, d = q.shape
     hkv, s = k_centered.shape[1], k_centered.shape[2]
     _lib.require_cuda(name, q, k_norm, planes, q_bits)
@@ -75,6 +80,7 @@ def lsh_fused_decode(q: torch.Tensor, k_centered: torch.Tensor,
     lse = torch.empty((b, hq), **f32)
     cnt = torch.empty((b, hq), **f32)
     _lib.launch(name, "mp_lsh_fused_decode", q.device, q, k_centered, v,
-                k_norm, planes, q_bits, length, part_o, part_lse, part_cnt,
-                out, lse, cnt, b, s, hq, hkv, d, K, L, 1.0 / math.sqrt(d))
+                k_scale, v_scale, k_norm, planes, q_bits, length, part_o,
+                part_lse, part_cnt, out, lse, cnt, b, s, hq, hkv, d, K, L,
+                1.0 / math.sqrt(d))
     return out, lse, cnt

@@ -8,7 +8,10 @@ once (dense layers through flash decode, sparse layers through flash decode
 over the hot tokens plus the estimator over the offloaded ones: the fused
 LSH kernel, or for `LSHConfig(estimator="block_topk")` the block scorer and
 an attend over the best blocks). `decode_steps` keeps the greedy tokens on
-the device and synchronises once.
+the device and synchronises once. The model's weights follow
+`ModelConfig.weight_quant` (bf16, W8A8 or int4 through the packed-nibble
+kernel at decode size), and the caches `LSHConfig.offload_quant` and
+`dense_quant` (bf16, or int8 rows through the kernels' int8 forms).
 """
 
 from __future__ import annotations
@@ -51,7 +54,9 @@ def resolve_device(device: torch.device | str | None) -> torch.device:
 
 class LLM:
     """Sparse-attention decoding engine (LSH sampling by default; `lsh`
-    picks the estimator and its options)."""
+    picks the estimator and its options). Without `params` the weights are
+    drawn on the device from `seed`, quantized as `config.weight_quant`
+    says (one layer at a time); passed-in params may be quantized."""
 
     def __init__(self, model: str | ModelConfig = "llama-tiny", K: int = 10,
                  L: int = 150, batch_size: int = 1, max_length: int = 8192,

@@ -2,10 +2,14 @@
 "lsh" and "block_topk" estimators (port of `magicpig_tpu/runtime/server.py`).
 
   * fill (prefill time): `fill_dense_layer` / `fill_sparse_layer` store a
-    request's prompt K/V; the sparse fill splits sink + local (hot) from the
-    offloaded middle. For "lsh" it centers keys by the mean offload key and
-    stores the centered-key norms and SimHash bit-planes; for "block_topk"
-    it stores the offload K/V as they are, or int8 per row with f32 scales;
+    request's prompt K/V (the dense layers' bf16 or int8 per row with f32
+    scales); the sparse fill splits sink + local (hot) from the offloaded
+    middle. For "lsh" it centers keys by the mean offload key and stores
+    the centered-key norms and SimHash bit-planes; for "block_topk" it
+    stores the offload K/V as they are. Either stores the offload int8 per
+    row with f32 scales when `offload_quant="int8"`; lsh then computes the
+    norms and signatures from the dequantized centered keys, the keys decode
+    scores against;
   * decode (step time): `decode_dense_layer` appends the new token and runs
     flash decode over the prefix; `decode_sparse_layer` runs flash decode
     over the hot region and the estimator over the offload region (the
@@ -33,14 +37,20 @@ from magicpig_tpu_torch.ops.kernels import (
     rescore_attend,
 )
 from magicpig_tpu_torch.ops.merge import merge_partials
-from magicpig_tpu_torch.ops.quant import quantize_rows
+from magicpig_tpu_torch.ops.quant import dequantize_rows, quantize_rows
 from magicpig_tpu_torch.runtime.state import DecodeState
 
 
 def fill_dense_layer(state: DecodeState, di: int, req: int,
                      k_full: torch.Tensor, v_full: torch.Tensor) -> None:
-    """Store a request's prompt K/V [P, Hkv, d] for a dense layer."""
+    """Store a request's prompt K/V [P, Hkv, d] for a dense layer (int8 per
+    row with f32 scales when the state has dense scales)."""
     p = k_full.shape[0]
+    if state.dense_k_scale:
+        k_full, k_scale = quantize_rows(k_full)
+        v_full, v_scale = quantize_rows(v_full)
+        state.dense_k_scale[di][req, :, :p] = k_scale.T
+        state.dense_v_scale[di][req, :, :p] = v_scale.T
     state.dense_k[di][req, :, :p] = k_full.transpose(0, 1)
     state.dense_v[di][req, :, :p] = v_full.transpose(0, 1)
     state.dense_len[req] = p
@@ -88,8 +98,9 @@ def _fill_lsh(state: DecodeState, si: int, req: int, off_k: torch.Tensor,
               hot_k: torch.Tensor, projections: torch.Tensor,
               lsh: LSHConfig):
     """The LSH state of one request: the mean offload key, centered-key
-    norms and the bit-plane signatures of the centered keys. Returns the
-    centered offload (f32) and hot keys."""
+    norms and the bit-plane signatures of the centered keys (with int8
+    offload, of the centered keys quantized and dequantized: the keys decode
+    scores against). Returns the centered offload (f32) and hot keys."""
     off_len, hkv, d = off_k.shape
     off_f = off_k.float()
     avg = off_f.sum(dim=0) / max(off_len, 1)                 # [Hkv, d]
@@ -100,6 +111,8 @@ def _fill_lsh(state: DecodeState, si: int, req: int, off_k: torch.Tensor,
     centered = torch.zeros((n_pad, hkv, d), dtype=torch.float32,
                            device=off_k.device)
     centered[:off_len] = off_f - avg
+    if lsh.offload_quantized:
+        centered = dequantize_rows(*quantize_rows(centered), torch.float32)
     planes = state.planes[si]
     planes[req].zero_()
     planes[req, ..., :n_pad // WORD] = build_planes(centered, projections, lsh.K)
@@ -111,7 +124,8 @@ def _fill_lsh(state: DecodeState, si: int, req: int, off_k: torch.Tensor,
 
 
 def _append(cache: torch.Tensor, new: torch.Tensor, lens: torch.Tensor) -> None:
-    """cache[b, :, lens[b]] = new[b] for every request (in place)."""
+    """cache[b, :, lens[b]] = new[b] for every request (in place); rows
+    [B, Hkv, S, d] or row scales [B, Hkv, S]."""
     rows = torch.arange(cache.shape[0], device=cache.device)
     cache[rows, :, lens.long()] = new.to(cache.dtype)
 
@@ -119,22 +133,33 @@ def _append(cache: torch.Tensor, new: torch.Tensor, lens: torch.Tensor) -> None:
 def decode_dense_layer(state: DecodeState, di: int, q: torch.Tensor,
                        k_new: torch.Tensor, v_new: torch.Tensor) -> torch.Tensor:
     """Append + full attention over the prefix. q: [B, Hq, d]; k/v_new:
-    [B, Hkv, d]. Returns out [B, Hq, d] f32."""
+    [B, Hkv, d]. Returns out [B, Hq, d] f32. With dense int8 the new row is
+    quantized and its scales appended too."""
+    k_scale = v_scale = None
+    if state.dense_k_scale:
+        k_new, k_sc = quantize_rows(k_new)
+        v_new, v_sc = quantize_rows(v_new)
+        k_scale, v_scale = state.dense_k_scale[di], state.dense_v_scale[di]
+        _append(k_scale, k_sc, state.dense_len)
+        _append(v_scale, v_sc, state.dense_len)
     _append(state.dense_k[di], k_new, state.dense_len)
     _append(state.dense_v[di], v_new, state.dense_len)
     out, _ = flash_decode(q, state.dense_k[di], state.dense_v[di],
-                          state.dense_len + 1)
+                          state.dense_len + 1, k_scale, v_scale)
     return out
 
 
 def _lsh_partial(state: DecodeState, si: int, q: torch.Tensor,
                  projections: torch.Tensor, lsh: LSHConfig):
     """LSH-sampled partial over the offload region: (out, lse, sampled
-    fraction as a device scalar)."""
+    fraction as a device scalar). int8 offload passes its scales."""
     q_bits = hash_bits(q, projections, lsh.K)                # [B, Hq, L, K]
+    quant = lsh.offload_quantized
     out, lse, cnt = lsh_fused_decode(
         q, state.off_k[si], state.off_v[si], state.k_norm[si],
-        state.planes[si], q_bits, state.off_len, lsh.K, lsh.L)
+        state.planes[si], q_bits, state.off_len, lsh.K, lsh.L,
+        state.off_k_scale[si] if quant else None,
+        state.off_v_scale[si] if quant else None)
     frac = cnt.sum() / torch.clamp(state.off_len.sum() * q.shape[1], min=1)
     return out, lse, frac
 

@@ -2,15 +2,18 @@
 
 Layouts chosen for the card (the JAX package's token folding to 128 lanes
 is a TPU choice):
-  * dense layers: [B, Hkv, max_len, d] per layer;
+  * dense layers: [B, Hkv, max_len, d] per layer; with dense int8, int8
+    rows and per-row f32 scales dense_k_scale / dense_v_scale
+    [B, Hkv, max_len] in token order (the JAX package keeps them
+    fold-major);
   * sparse layers: a hot region (sink + local + generated tokens)
     [B, Hkv, hot_cap, d] and the offloaded middle [B, Hkv, off_cap, d] in
     token order;
   * LSH only: keys of both regions centered by the mean offload key;
     centered-key norms [B, Hkv, off_cap] f32; SimHash bit-planes
     [B, Hkv, L, K, off_cap/32] int32 in the flat layout of `ops.bitcodes`;
-  * int8 offload (block_topk): off_k / off_v int8 with per-row f32 scales
-    off_k_scale / off_v_scale [B, Hkv, off_cap];
+  * int8 offload (either estimator): off_k / off_v int8 with per-row f32
+    scales off_k_scale / off_v_scale [B, Hkv, off_cap];
   * per-request lengths as int32 device tensors [B].
 Fill and decode write into these tensors in place, which keeps one copy of
 each cache.
@@ -31,7 +34,9 @@ class DecodeState:
     """All attention-server state of one engine instance."""
 
     dense_k: list[torch.Tensor]   # per dense layer [B, Hkv, max_len, d]
-    dense_v: list[torch.Tensor]
+    dense_v: list[torch.Tensor]   # (int8 when the dense layers are quantized)
+    dense_k_scale: list[torch.Tensor]  # dense int8 only: [B, Hkv, max_len]
+    dense_v_scale: list[torch.Tensor]
     dense_len: torch.Tensor       # [B] i32, valid tokens per request
     hot_k: list[torch.Tensor]     # per sparse layer [B, Hkv, hot_cap, d]
     hot_v: list[torch.Tensor]
@@ -75,6 +80,8 @@ def init_state(config: ModelConfig, lsh: LSHConfig, batch_size: int,
     n_lsh = ns if lsh.estimator == "lsh" else 0
     n_quant = ns if lsh.offload_quantized else 0
     off_dt = torch.int8 if lsh.offload_quantized else dt
+    nd_quant = nd if lsh.dense_quantized else 0
+    dense_dt = torch.int8 if lsh.dense_quantized else dt
 
     def per_layer(n, shape, dtype):
         return [torch.zeros(shape, dtype=dtype, device=device) for _ in range(n)]
@@ -83,8 +90,10 @@ def init_state(config: ModelConfig, lsh: LSHConfig, batch_size: int,
         return torch.zeros((b,), dtype=torch.int32, device=device)
 
     return DecodeState(
-        dense_k=per_layer(nd, (b, hkv, max_length, d), dt),
-        dense_v=per_layer(nd, (b, hkv, max_length, d), dt),
+        dense_k=per_layer(nd, (b, hkv, max_length, d), dense_dt),
+        dense_v=per_layer(nd, (b, hkv, max_length, d), dense_dt),
+        dense_k_scale=per_layer(nd_quant, (b, hkv, max_length), torch.float32),
+        dense_v_scale=per_layer(nd_quant, (b, hkv, max_length), torch.float32),
         dense_len=lens(),
         hot_k=per_layer(ns, (b, hkv, hot_cap, d), dt),
         hot_v=per_layer(ns, (b, hkv, hot_cap, d), dt),

@@ -34,6 +34,7 @@ from magicpig_tpu_torch.ops.kernels import (
     flash_prefill,
     lsh_fused_decode,
     rescore_attend,
+    w4_matmul,
 )
 from magicpig_tpu_torch.ops.kernels.lsh_fused import lsh_fused_decode_plain
 
@@ -217,7 +218,8 @@ def test_cpu_tensors_take_the_plain_versions_without_counting():
 
 @pytest.mark.parametrize("which", ["prefill", "decode", "lsh", "block_rank",
                                    "exact_scores_ranked", "rescore_attend",
-                                   "block_attend"])
+                                   "block_attend", "decode_int8", "lsh_int8",
+                                   "w4_matmul"])
 def test_wrappers_raise_for_other_devices(which):
     """A tensor neither on the CPU nor on a card is refused, not run."""
     m = torch.device("meta")
@@ -242,6 +244,20 @@ def test_wrappers_raise_for_other_devices(which):
             exact_scores_ranked(q, k, None, length, 64)
         elif which == "rescore_attend":
             rescore_attend(q, ids, k, None, k, None, length, 64)
+        elif which == "decode_int8":
+            k8 = torch.empty((1, 2, 64, 64), dtype=torch.int8, device=m)
+            sc = torch.empty((1, 2, 64), device=m)
+            flash_decode(q, k8, k8, length, sc, sc)
+        elif which == "lsh_int8":
+            k8 = torch.empty((1, 2, 64, 64), dtype=torch.int8, device=m)
+            sc = torch.empty((1, 2, 64), device=m)
+            lsh_fused_decode(q, k8, k8, sc, torch.empty((1, 2, 3, 2, 2), **i32),
+                             torch.empty((1, 4, 3, 2), **i32), length, 2, 3,
+                             sc, sc)
+        elif which == "w4_matmul":
+            w4_matmul(torch.empty((2, 128), dtype=torch.bfloat16, device=m),
+                      torch.empty((64, 128), dtype=torch.int8, device=m),
+                      torch.empty((1, 128), device=m))
         else:
             block_attend(torch.empty((1, 2, 2, 64), device=m), ids, k, None, 64)
 
@@ -252,7 +268,7 @@ def test_build_is_keyed_on_the_sources(tmp_path, monkeypatch):
     names = {p.name for p in _lib.sources()}
     assert {"flash_prefill.cu", "flash_decode.cu", "lsh_fused.cu",
             "block_score.cu", "rescore_attend.cu", "block_attend.cu",
-            "block_common.cuh"} <= names
+            "block_common.cuh", "decode_common.cuh", "w4_matmul.cu"} <= names
     key = _lib.source_hash()
     for p in _lib.sources():
         (tmp_path / p.name).write_bytes(p.read_bytes())

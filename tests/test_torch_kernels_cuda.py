@@ -11,7 +11,12 @@ size (its `TOL`, where each is explained): |kernel - plain| <= atol + rtol
 1e-2; f32 decode, LSH and block-attend outputs 0.015 of the plain output's
 rms; lse atol 1e-4, rtol 1e-5; sampled counts exactly; block scores and
 block maxes `SCORE_TOL` (f32 sums of the same products in another order),
-and the top-k block ids from them exactly.
+and the top-k block ids from them exactly. The int8 decode and LSH kernels
+like their bf16 forms (0.015 of the rms; lse 1e-4, 1e-5). The int4 matmul
+`W4_TOL`, 1e-5 of the output's rms: f32 sums of the same exact products
+(bf16 times a nibble) in another order. The W8A8 linear on the card equals
+the same function on the CPU exactly (an exact integer product between the
+same float32 steps).
 """
 
 import numpy as np
@@ -20,6 +25,7 @@ import torch
 
 from magicpig_tpu_torch.ops import attention as tatt
 from magicpig_tpu_torch.ops import bitcodes as tbits
+from magicpig_tpu_torch.models import llama as tllama
 from magicpig_tpu_torch.ops.kernels import (
     LAUNCHES,
     block_attend,
@@ -29,14 +35,17 @@ from magicpig_tpu_torch.ops.kernels import (
     flash_prefill,
     lsh_fused_decode,
     rescore_attend,
+    w4_matmul,
 )
 from magicpig_tpu_torch.ops.kernels.block_attend import block_attend_plain
 from magicpig_tpu_torch.ops.kernels.block_score import block_scores_plain
 from magicpig_tpu_torch.ops.kernels.lsh_fused import lsh_fused_decode_plain
 from magicpig_tpu_torch.ops.kernels.rescore_attend import rescore_attend_plain
-from magicpig_tpu_torch.ops.quant import quantize_rows
+from magicpig_tpu_torch.ops.kernels.w4_matmul import w4_matmul_plain
+from magicpig_tpu_torch.ops.quant import dequantize_rows, quantize_rows
 
 SCORE_TOL = (1e-5, 1e-5, 0.0)
+W4_TOL = (0.0, 0.0, 1e-5)
 
 
 @pytest.fixture
@@ -90,6 +99,80 @@ def test_cuda_flash_decode_matches_plain(cuda):
     _assert_within(o, po, rms_share=0.015)
     _assert_within(l, pl, atol=1e-4, rtol=1e-5)
     assert (o[2] == 0).all() and torch.isneginf(l[2]).all()
+
+
+def test_cuda_flash_decode_int8_matches_plain(cuda):
+    """int8 K/V with per-token scales; request 1 ends mid-split, request 2
+    is empty."""
+    rng = np.random.default_rng(12)
+    q = _bf16(rng, 3, 32, 64, device=cuda)
+    k, ks = quantize_rows(_bf16(rng, 3, 8, 1500, 64, device=cuda))
+    v, vs = quantize_rows(_bf16(rng, 3, 8, 1500, 64, device=cuda))
+    length = torch.tensor([1500, 700, 0], dtype=torch.int32, device=cuda)
+    before = dict(LAUNCHES)
+    o, l = flash_decode(q, k, v, length, ks, vs)
+    assert LAUNCHES["flash_decode_int8"] == before["flash_decode_int8"] + 1
+    assert LAUNCHES["flash_decode"] == before["flash_decode"]
+    po, pl = tatt.full_decode(q, k, v, length, ks, vs)
+    _assert_within(o, po, rms_share=0.015)
+    _assert_within(l, pl, atol=1e-4, rtol=1e-5)
+    assert (o[2] == 0).all() and torch.isneginf(l[2]).all()
+
+
+@pytest.mark.parametrize("K,L", [(10, 150), (6, 41)])
+def test_cuda_lsh_fused_int8_matches_plain(cuda, K, L):
+    """int8 centered keys and values, norms of the dequantized keys."""
+    rng = np.random.default_rng(13)
+    B, S = 2, 2048
+    q = _bf16(rng, B, 32, 64, device=cuda)
+    kq, ks = quantize_rows(_bf16(rng, B, 8, S, 64, device=cuda))
+    vq, vs = quantize_rows(_bf16(rng, B, 8, S, 64, device=cuda))
+    kd = dequantize_rows(kq, ks, torch.float32)
+    proj = torch.from_numpy(rng.standard_normal((64, K * L)).astype(np.float32)).to(cuda)
+    planes = torch.stack([tbits.build_planes(kd[b].transpose(0, 1), proj, K)
+                          for b in range(B)])
+    qb = tbits.hash_bits(q, proj, K)
+    length = torch.tensor([S, 1337], dtype=torch.int32, device=cuda)
+    args = (q, kq, vq, kd.norm(dim=-1), planes, qb, length, K, L, ks, vs)
+    before = dict(LAUNCHES)
+    o, l, c = lsh_fused_decode(*args)
+    assert LAUNCHES["lsh_fused_decode_int8"] == before["lsh_fused_decode_int8"] + 1
+    po, pl, pc = lsh_fused_decode_plain(*args)
+    assert torch.equal(c, pc) and c.min() > 0
+    _assert_within(o, po, rms_share=0.015)
+    _assert_within(l, pl, atol=1e-4, rtol=1e-5)
+
+
+@pytest.mark.parametrize("M,KIN,OUT", [
+    (2, 2048, 3072),     # wqkv of Llama-3.2-1B, fused
+    (2, 8192, 2048),     # w_down: 32 K-splits
+    (1, 2048, 384),      # a half-empty last column tile
+    (7, 1024, 256),      # two 4-row slices, the second ragged
+    (64, 4096, 512),     # the largest M the kernel takes
+])
+def test_cuda_w4_matmul_matches_plain(cuda, M, KIN, OUT):
+    rng = np.random.default_rng(14)
+    x = _bf16(rng, M, KIN, device=cuda)
+    w = tllama.quantize_weight4(_bf16(rng, KIN, OUT, device=cuda) * 0.02)
+    before = LAUNCHES["w4_matmul"]
+    y = w4_matmul(x, w.q, w.scale)
+    assert LAUNCHES["w4_matmul"] == before + 1
+    atol, rtol, rms_share = W4_TOL
+    _assert_within(y, w4_matmul_plain(x, w.q, w.scale), atol=atol, rtol=rtol,
+                   rms_share=rms_share)
+
+
+@pytest.mark.parametrize("M", [2, 40])
+def test_cuda_int8_linear_equals_cpu(cuda, M):
+    """W8A8 on the card (the integer GEMM, M padded past 16 where it is
+    smaller) gives the CPU's numbers exactly."""
+    rng = np.random.default_rng(15)
+    x = _bf16(rng, M, 2048, device=cuda)
+    w = tllama.quantize_weight(_bf16(rng, 2048, 1024, device=cuda) * 0.02)
+    got = tllama.linear(x, w)
+    want = tllama.linear(x.cpu(), tllama.QuantWeight(q=w.q.cpu(),
+                                                     scale=w.scale.cpu()))
+    assert torch.equal(got.cpu(), want)
 
 
 @pytest.mark.parametrize("K,L", [(10, 150), (6, 41)])

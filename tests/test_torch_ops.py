@@ -79,13 +79,23 @@ def test_default_dense_layers_match_jax(n):
     ("estimator", "quest"), ("estimator", "topk"),
     ("estimator", "oracle_sampling"), ("decode_mode", "sampled"),
     ("lsh_debias", "poly"), ("lsh_debias", "none"),
-    ("offload_quant", "int4"), ("dense_quant", "int8"),
-    # int8 offload with the default estimator, "lsh": the LSH kernel takes
-    # bf16 K/V only.
-    ("offload_quant", "int8")])
+    ("offload_quant", "int4")])
 def test_unported_lsh_options_raise(field, value):
     with pytest.raises(NotImplementedError):
         tcfg.LSHConfig(**{field: value})
+
+
+@pytest.mark.parametrize("estimator", ["lsh", "block_topk"])
+@pytest.mark.parametrize("offload,dense", [("int8", "none"), ("none", "int8"),
+                                           ("int8", "int8")])
+def test_int8_cache_options_match_jax(estimator, offload, dense):
+    """int8 offload (either estimator) and dense int8 K/V are ported."""
+    t = tcfg.LSHConfig(estimator=estimator, offload_quant=offload,
+                       dense_quant=dense)
+    j = jcfg.LSHConfig(estimator=estimator, offload_quant=offload,
+                       dense_quant=dense)
+    assert t.offload_quantized == j.offload_quantized
+    assert t.dense_quantized == j.dense_quantized
 
 
 @pytest.mark.parametrize("quant", ["none", "int8"])
