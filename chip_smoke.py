@@ -10,9 +10,12 @@ Phases, each announced by one flushed progress line with elapsed seconds:
   2. kernels: each hand-written kernel against its plain PyTorch version at
      the shapes of the Llama-3.2-1B decode paths (Hq 32, Hkv 8, d 64;
      prefill 8192 tokens, decode and LSH over 16384 tokens at B=2, K=10,
-     L=150, with bf16 and with int8 K/V; the block_topk scorer,
+     L=150, with bf16 and with int8 K/V, the LSH kernel with each of its
+     exact, poly and none debias forms; the block_topk scorer,
      rescore-attend and block-attend over 65536 tokens at B=2, lengths 65536
-     and 40000, 512-token blocks, 11 selected; the int4 matmul at M=2 on the
+     and 40000, 512-token blocks, 11 selected, the scorer and rescore also
+     over packed int4 K, where they must equal the int8 kernels on the
+     unpacked rows bit for bit; the int4 matmul at M=2 on the
      1B's fused gate|up [2048, 16384] and its lm_head [2048, 128256]),
      within `TOL` of it, with its time, its plain version's, a
      library call's where one computes the same function, and the least
@@ -32,20 +35,26 @@ Phases, each announced by one flushed progress line with elapsed seconds:
      Then the same weights under the block_topk estimator with int8
      offload (the rescore pipeline): the two first requests, 16 steps,
      launches counted exactly, the realized fraction checked, and a
-     profiled decode pass. Then two quantized configurations of bench.py,
-     each with its own random weights drawn and quantized on the card, the
-     two first requests, 16 steps, launches counted exactly and a profiled
-     decode pass: its "lsh" mode (W8A8 fused weights, LSH K=10, L=150 over
-     int8 offload K/V) and its "full_int8" mode with int4 weights (K=0,
-     every layer dense over int8 K/V, int4 fused weights through the
-     packed-nibble kernel at decode size);
+     profiled decode pass. Then three quantized configurations of
+     bench.py, each with its own random weights drawn and quantized on the
+     card, the two first requests, 16 steps, launches counted exactly and a
+     profiled decode pass: its "lsh" mode (W8A8 fused weights, LSH K=10,
+     L=150 over int8 offload K/V), its "full_int8" mode with int4 weights
+     (K=0, every layer dense over int8 K/V, int4 fused weights through the
+     packed-nibble kernel at decode size) and its "block_topk4" mode (W8A8
+     fused weights, block_topk over packed int4 K and int8 V through the
+     packed scorer and rescore, a dense int8 layer 0; the realized fraction
+     exact);
   4. reference: a two-layer cut of the same width at K=1, L=32 (nearly
      every key sampled) on the card against the same engine on the CPU
      (the plain versions); then the same cut under block_topk with bf16
      offload (the store pipeline, every block attended), launches counted;
      then the cut with int4 fused weights, LSH K=1, L=32 over int8 offload
      and a dense int8 layer 0 (all three kernels of the quantized slice),
-     launches counted.
+     launches counted; then, 2 steps each, block_topk over packed int4 K on
+     the store pipeline and LSH K=1, L=32 over int4-grid K with the poly
+     debias against the CPU, and the bf16 poly, bf16 none and int8 none LSH
+     forms on the card alone, launches counted.
 Any failure raises. The last two lines are the kernels' JSON and the result
 JSON; the card's name and power limit come just before them.
 """
@@ -314,6 +323,9 @@ def phase_kernels(torch, F, dev):
         f"skipped tile's worst element {teeth:.1f}x the limit; counts exact, "
         f"sampled {results['lsh_fused_decode']['sampled_frac']:.4f}, "
         f"rows read {results['lsh_fused_decode']['rows_frac']:.4f}")
+    results.update(lsh_debias_forms(
+        torch, (q, k, v, k_norm, planes, q_bits, length, K, L, None, None),
+        nbytes, rows, flops))
     results.update(int8_decode_kernels(torch, q, k, v, length, lens, proj, K, L))
     log_timings(results)
     return results
@@ -391,6 +403,52 @@ def int8_decode_kernels(torch, q, k, v, length, lens, proj, K, L):
         f"the limit; counts exact, sampled "
         f"{results['lsh_fused_decode_int8']['sampled_frac']:.4f}, rows read "
         f"{results['lsh_fused_decode_int8']['rows_frac']:.4f}")
+    results.update(lsh_debias_forms(torch, args, nbytes, rows,
+                                    4 * d * int(want_cnt.sum())))
+    return results
+
+
+def lsh_debias_forms(torch, args, nbytes, rows, flops):
+    """The poly and none debias forms of the fused LSH kernel on the inputs
+    of its exact form (`args`, scales None for bf16): counts exact, within
+    `TOL` of the plain version, a skipped V tile rejected, and bound by the
+    exact form's bytes (the none form reads no key norm). Each must move
+    the output away from the exact form's."""
+    from magicpig_tpu_torch.ops.kernels import lsh_fused_decode
+    from magicpig_tpu_torch.ops.kernels.lsh_fused import (
+        launch_name, lsh_fused_decode_plain)
+
+    q, k, v, k_norm, planes, q_bits, length, K, L, ks, vs = args
+    exact = lsh_fused_decode_plain(*args)[0]
+    tol, results = TOL["lsh_fused_decode"], {}
+    for debias in ("poly", "none"):
+        name = launch_name(ks is not None, debias)
+        full = (*args, debias)
+        got, got_lse, got_cnt = lsh_fused_decode(*full)
+        want, want_lse, want_cnt = lsh_fused_decode_plain(*full)
+        if not torch.equal(got_cnt, want_cnt):
+            raise AssertionError(f"{name}: sampled counts differ")
+        err, share = check_close(name, got, want, tol)
+        err = max(err, check_close(f"{name} lse", got_lse, want_lse,
+                                   TOL["lse"])[0])
+        teeth = check_rejects(name, lsh_fused_decode_plain(
+            q, k, drop_tile(v, 2, 8192), k_norm, planes, q_bits, length, K, L,
+            ks, vs, debias)[0], want, tol)
+        # The kernel computed this form, not the exact one: it lies nearer
+        # the plain version of its own form than the exact form's.
+        moved = float((got - exact).abs().max())
+        if not err < moved:
+            raise AssertionError(f"{name}: nearer the exact form ({moved:.2e})"
+                                 f" than its own ({err:.2e})")
+        results[name] = dict(
+            max_abs_err=err, tol=tol,
+            bound=bound_ms(nbytes - (4 * rows if debias == "none" else 0),
+                           flops),
+            **timings(lambda: lsh_fused_decode(*full),
+                      lambda: lsh_fused_decode_plain(*full)))
+        log(f"kernel {name} err {err:.2e}, worst element {share:.2f} of its "
+            f"limit (tol {tol}); a skipped tile's worst element {teeth:.1f}x "
+            f"the limit; counts exact; {moved:.2e} from the exact form")
     return results
 
 
@@ -579,7 +637,124 @@ def phase_block_kernels(torch, dev):
     log(f"kernel block_attend   err {err:.2e}, worst element {share:.2f} of "
         f"its limit (tol {tol}); a skipped tile's worst element "
         f"{teeth:.1f}x the limit; {tokens} valid selected rows")
+    del got_s, got_m
+    results.update(packed_block_kernels(torch, q, k, vq, vs, length, bs,
+                                        n_sel, same_top, selected_tokens))
     log_timings(results)
+    return results
+
+
+def packed_block_kernels(torch, q, k, vq, vs, length, bs, n_sel, same_top,
+                         selected_tokens):
+    """The packed int4 forms of the block scorer and rescore-attend on the
+    same keys put on the 4-bit grid: each within `TOL` of its plain version,
+    bit for bit the int8 kernel's numbers on the unpacked rows, and a
+    planted fault rejected (one ranking block of packed K zeroed; for the
+    rescore also one 64-token V tile). The scorer's library yardstick is the
+    bf16 matmul of the int8 rows."""
+    from magicpig_tpu_torch.ops.kernels import (block_rank, exact_scores_ranked,
+                                                rescore_attend)
+    from magicpig_tpu_torch.ops.kernels.block_score import (block_scores_plain,
+                                                            scaled_query)
+    from magicpig_tpu_torch.ops.kernels.rescore_attend import rescore_attend_plain
+    from magicpig_tpu_torch.ops.pack4 import pack_k4
+    from magicpig_tpu_torch.ops.quant import quantize_rows
+
+    b, hq, d = q.shape
+    hkv = k.shape[1]
+    g = hq // hkv
+    k4, ks = quantize_rows(k, bits=4)
+    kp = pack_k4(k4)
+    valid = int(length.sum()) * hkv
+    qs, kt = scaled_query(q, hkv).to(torch.bfloat16), k.transpose(-1, -2)
+    tol, results = TOL["block_scores"], {}
+
+    def library():
+        return torch.matmul(qs, kt)
+
+    def bit_equal(name, got, want):
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"{name}: differs from the int8 kernel on the "
+                                 "unpacked rows")
+
+    def k_block_zeroed(blk):
+        return drop_tile(kp, 2, blk * bs, bs)
+
+    # -- block_rank over packed K.
+    got = block_rank(q, kp, ks, length, bs)
+    want = block_scores_plain(q, kp, ks, length, bs)[1]
+    err, share = check_close("block_rank_int4", got, want, tol)
+    bit_equal("block_rank_int4", [got], [block_rank(q, k4, ks, length, bs)])
+    same_top("block_rank_int4", got, want)
+    teeth = check_rejects("block_rank_int4", block_scores_plain(
+        q, k_block_zeroed(5), ks, length, bs)[1], want, tol,
+        "a skipped ranking block of packed K")
+    nbytes = valid * (d // 2 + 4) + q.numel() * 2 + got.numel() * 4
+    results["block_rank_int4"] = dict(
+        max_abs_err=err, tol=tol, bound=bound_ms(nbytes, 2 * d * g * valid),
+        **timings(lambda: block_rank(q, kp, ks, length, bs),
+                  lambda: block_scores_plain(q, kp, ks, length, bs), library))
+    log(f"kernel block_rank_int4 err {err:.2e}, worst element {share:.2f} "
+        f"of its limit (tol {tol}); equal to the int8 kernel's bit for bit; "
+        f"a skipped ranking block's worst element {teeth:.1f}x the limit; "
+        f"top-{n_sel} ids equal")
+
+    # -- exact_scores_ranked over packed K.
+    got_s, got_m = exact_scores_ranked(q, kp, ks, length, bs)
+    want_s, want_m = block_scores_plain(q, kp, ks, length, bs)
+    err, share = check_close("exact_scores_ranked_int4", got_s, want_s, tol)
+    err2, share2 = check_close("exact_scores_ranked_int4 max", got_m, want_m,
+                               tol)
+    err, share = max(err, err2), max(share, share2)
+    bit_equal("exact_scores_ranked_int4", [got_s, got_m],
+              exact_scores_ranked(q, k4, ks, length, bs))
+    same_top("exact_scores_ranked_int4", got_m, want_m)
+    teeth = check_rejects("exact_scores_ranked_int4", block_scores_plain(
+        q, k_block_zeroed(6), ks, length, bs)[0], want_s, tol,
+        "a skipped ranking block of packed K")
+    nbytes = (valid * (d // 2 + 4) + q.numel() * 2 + got_s.numel() * 4
+              + got_m.numel() * 4)
+    results["exact_scores_ranked_int4"] = dict(
+        max_abs_err=err, tol=tol, bound=bound_ms(nbytes, 2 * d * g * valid),
+        **timings(lambda: exact_scores_ranked(q, kp, ks, length, bs),
+                  lambda: block_scores_plain(q, kp, ks, length, bs), library))
+    log(f"kernel exact_scores_int4 err {err:.2e}, worst element {share:.2f} "
+        f"of its limit (tol {tol}); equal to the int8 kernel's bit for bit; "
+        f"a skipped ranking block's worst element {teeth:.1f}x the limit; "
+        f"top-{n_sel} ids equal")
+    del got_s, want_s, library
+
+    # -- rescore_attend over packed K and int8 V, the blocks ranked first.
+    ids = torch.topk(got_m, n_sel).indices.to(torch.int32)
+    args = (q, ids, kp, ks, vq, vs, length, bs)
+    got, got_lse = rescore_attend(*args)
+    want, want_lse = rescore_attend_plain(*args)
+    tol = TOL["block_attend"]
+    err, share = check_close("rescore_attend_int4", got, want, tol)
+    err = max(err, check_close("rescore_attend_int4 lse", got_lse, want_lse,
+                               TOL["lse"])[0])
+    bit_equal("rescore_attend_int4", [got, got_lse],
+              rescore_attend(q, ids, k4, ks, vq, vs, length, bs))
+    first = int(ids[0, 0, 0])
+    teeth = check_rejects("rescore_attend_int4", rescore_attend_plain(
+        q, ids, kp, ks, drop_tile(vq, 2, first * bs), vs, length, bs)[0],
+        want, tol)
+    teeth_k = check_rejects("rescore_attend_int4", rescore_attend_plain(
+        q, ids, k_block_zeroed(first), ks, vq, vs, length, bs)[0], want, tol,
+        "a skipped ranking block of packed K")
+    tokens = selected_tokens(ids)
+    nbytes = (tokens * (d // 2 + 4 + d + 4) + ids.numel() * 4
+              + q.numel() * 2 + b * hq * (d + 1) * 4)
+    results["rescore_attend_int4"] = dict(
+        max_abs_err=err, tol=tol, bound=bound_ms(nbytes, 4 * d * g * tokens),
+        **timings(lambda: rescore_attend(*args),
+                  lambda: rescore_attend_plain(*args)),
+        selected_tokens=tokens)
+    log(f"kernel rescore_attend_int4 err {err:.2e}, worst element "
+        f"{share:.2f} of its limit (tol {tol}); equal to the int8 kernel's "
+        f"bit for bit; a skipped V tile's worst element {teeth:.1f}x and a "
+        f"skipped K block's {teeth_k:.1f}x the limit; {tokens} valid "
+        "selected rows")
     return results
 
 
@@ -782,8 +957,14 @@ def phase_serve_block(torch, dev, params, prompts):
         return dict(flash_prefill=2 * n, flash_decode=16 * n,
                     block_rank=16 * n_sparse, rescore_attend=16 * n_sparse)
 
-    # 3 blocks of 512 (8% of 32, rounded up) against 11932 and 6932
-    # offloaded tokens: the realized fraction is 1536 / 9432.
+    return serve_counted(torch, dev, prompts, lsh, "block_topk int8", expect,
+                         params=params, check_frac=exact_fraction(lsh, prompts))
+
+
+def exact_fraction(lsh, prompts):
+    """A check of block_topk's realized fraction at the two first prompts:
+    3 blocks of 512 (8% of 32, rounded up) against 11932 and 6932 offloaded
+    tokens give 1536 / 9432."""
     off = [n - lsh.num_sink_tokens - lsh.num_local_tokens
            for n in (prompts[0].numel(), prompts[1].numel())]
     want_frac = sum(min(3 * 512, n) for n in off) / sum(off)
@@ -792,8 +973,7 @@ def phase_serve_block(torch, dev, params, prompts):
         if abs(frac - want_frac) > 1e-6:
             raise AssertionError(f"avg sparsity {frac} != {want_frac}")
 
-    return serve_counted(torch, dev, prompts, lsh, "block_topk int8", expect,
-                         params=params, check_frac=check_frac)
+    return check_frac
 
 
 def phase_serve_bench_modes(torch, dev, prompts):
@@ -817,6 +997,17 @@ def phase_serve_bench_modes(torch, dev, prompts):
         return dict(flash_prefill=2 * n, flash_decode_int8=steps * n,
                     w4_matmul=steps * (4 * n + 1) + 2)
 
+    def block_topk4_expect(llm):
+        n, steps = llm.config.num_hidden_layers, 16
+        n_dense = sum(1 for kind, _ in llm.groups if kind == "dense")
+        n_sparse = n - n_dense
+        # flash decode: the dense layer over int8 K/V, every sparse layer's
+        # hot partial in bf16; the sparse layers' packed scorer and rescore.
+        return dict(flash_prefill=2 * n, flash_decode=steps * n_sparse,
+                    flash_decode_int8=steps * n_dense,
+                    block_rank_int4=steps * n_sparse,
+                    rescore_attend_int4=steps * n_sparse)
+
     lsh_mode = serve_counted(
         torch, dev, prompts, LSHConfig(K=10, L=150, offload_quant="int8"),
         "bench lsh (W8A8, int8 offload)", lsh_expect, weight_quant="int8")
@@ -825,7 +1016,17 @@ def phase_serve_bench_modes(torch, dev, prompts):
         torch, dev, prompts, LSHConfig(K=0, L=0, dense_quant="int8"),
         "bench full_int8 (W4, dense int8)", full_int8_expect,
         weight_quant="int4")
-    return lsh_mode, full_int8
+    torch.cuda.empty_cache()
+    # bench.py's block_topk4 mode (bench.py:66-73): packed int4 K, int8 V,
+    # a dense int8 layer 0; 3 of 32 blocks, so the realized fraction is
+    # 1536 / 9432 as for int8 offload.
+    lsh = LSHConfig(K=1, L=0, estimator="block_topk", offload_quant="int4",
+                    dense_quant="int8")
+    block_topk4 = serve_counted(
+        torch, dev, prompts, lsh, "bench block_topk4 (W8A8, packed int4 K)",
+        block_topk4_expect, weight_quant="int8",
+        check_frac=exact_fraction(lsh, prompts))
+    return lsh_mode, full_int8, block_topk4
 
 
 def card_vs_cpu(torch, dev, lsh, label: str, n_prompt: int = 1500,
@@ -920,6 +1121,86 @@ def phase_reference(torch, dev):
         raise AssertionError(f"launches {quant} != path's {expect}")
     if min(card.avg_sparsity, host.avg_sparsity) < 0.9:
         raise AssertionError("K=1/L=32 should sample nearly every key")
+    del card, host
+    return {**launches, **phase_reference_int4(torch, dev)}
+
+
+def phase_reference_int4(torch, dev):
+    """The int4 slice's cuts, 2 steps each: block_topk with packed int4 K on
+    the store pipeline, every block attended (the packed scorer's stored
+    token-order scores through the unchanged block_attend), and LSH at K=1,
+    L=32 over int4-grid K with the polynomial debias, each card engine
+    against its CPU twin; then the other debias forms of the fused kernel
+    (bf16 poly, bf16 none, int8 none) on the card alone, launches counted
+    and logits finite (phase 2 holds each against its plain version).
+    Returns each kernel form's launches from the run of its path."""
+    from magicpig_tpu_torch.config import LSHConfig
+
+    steps, counted = 2, {}
+
+    def expect(launches, **want):
+        full = dict.fromkeys(launches, 0)
+        full.update(flash_prefill=2, flash_decode=2 * steps, **want)
+        if launches != full:
+            raise AssertionError(f"launches {launches} != path's {full}")
+
+    lsh = LSHConfig(estimator="block_topk", dense_layers=(0,),
+                    block_topk_budget_frac=1.0, offload_quant="int4",
+                    block_topk_pipeline="store")
+    card, host, launches = card_vs_cpu(torch, dev, lsh, "block_topk packed "
+                                       "int4 K, store pipeline", 1100,
+                                       steps=steps)
+    expect(launches, exact_scores_ranked_int4=steps, block_attend=steps)
+    if card.avg_sparsity != host.avg_sparsity:
+        raise AssertionError("card and CPU realized fractions differ")
+    counted["exact_scores_ranked_int4"] = launches["exact_scores_ranked_int4"]
+    lsh = LSHConfig(K=1, L=32, offload_quant="int4", lsh_debias="poly",
+                    dense_layers=(0,))
+    card, host, launches = card_vs_cpu(torch, dev, lsh, "LSH K=1/L=32, int4 "
+                                       "K, poly debias", 1100, steps=steps)
+    expect(launches, lsh_fused_decode_int8_poly=steps)
+    if min(card.avg_sparsity, host.avg_sparsity) < 0.9:
+        raise AssertionError("K=1/L=32 should sample nearly every key")
+    counted["lsh_fused_decode_int8_poly"] = steps
+    del card, host
+    for offload, debias in (("none", "poly"), ("none", "none"),
+                            ("int8", "none")):
+        lsh = LSHConfig(K=10, L=150, offload_quant=offload,
+                        lsh_debias=debias, dense_layers=(0,))
+        name = ("lsh_fused_decode" + ("_int8" if offload == "int8" else "")
+                + f"_{debias}")
+        launches = card_counted(torch, dev, lsh, f"LSH {offload} offload, "
+                                f"{debias} debias", steps)
+        expect(launches, **{name: steps})
+        counted[name] = steps
+    return counted
+
+
+def card_counted(torch, dev, lsh, label: str, steps: int) -> dict:
+    """Two layers at 1B width on the card alone, layer 1 sparse: a
+    1100-token prefill and `steps` greedy steps, finite logits. Returns the
+    launches of this run."""
+    import dataclasses
+
+    from magicpig_tpu_torch.config import preset
+    from magicpig_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+    from magicpig_tpu_torch.runtime.engine import LLM
+
+    cfg = dataclasses.replace(preset("llama-3.2-1b"), num_hidden_layers=2)
+    card = LLM(cfg, batch_size=1, max_length=2048, lsh=lsh, device=dev, seed=3)
+    prompt = torch.randint(1, cfg.vocab_size, (1100,),
+                           generator=torch.Generator().manual_seed(5))
+    reset_launches()
+    logits = card.prefill(prompt)
+    finite = torch.isfinite(logits).all()
+    for _ in range(steps):
+        logits = card.inference(logits.argmax(-1))
+        finite = finite & torch.isfinite(logits).all()
+    launches = dict(LAUNCHES)
+    if not bool(finite):
+        raise AssertionError(f"non-finite logits, {label}")
+    log(f"reference: 2-layer {label} on the card, {steps} steps, sparsity "
+        f"{card.avg_sparsity:.4f}, logits finite")
     return launches
 
 
@@ -965,7 +1246,8 @@ def main() -> int:
     block = phase_serve_block(torch, dev, params, prompts)
     del params
     torch.cuda.empty_cache()
-    lsh_mode, full_int8 = phase_serve_bench_modes(torch, dev, prompts)
+    lsh_mode, full_int8, block_topk4 = phase_serve_bench_modes(torch, dev,
+                                                               prompts)
     del prompts
     torch.cuda.empty_cache()
 
@@ -975,8 +1257,9 @@ def main() -> int:
     # Each kernel's launches come from the counted run of the path that
     # uses it: the LSH serve, the block_topk int8 serve (rescore pipeline),
     # the block_topk bf16 reference (store pipeline), bench.py's lsh mode
-    # (int8 LSH) or its full_int8 mode with int4 weights (int8 decode, int4
-    # matmul).
+    # (int8 LSH), its full_int8 mode with int4 weights (int8 decode, int4
+    # matmul), its block_topk4 mode (the packed scorer and rescore), and
+    # phase 4's int4 cuts (the packed store scorer, the debias forms).
     launches = {**serve["launches"],
                 "block_rank": block["launches"]["block_rank"],
                 "rescore_attend": block["launches"]["rescore_attend"],
@@ -985,7 +1268,14 @@ def main() -> int:
                 "lsh_fused_decode_int8":
                     lsh_mode["launches"]["lsh_fused_decode_int8"],
                 "flash_decode_int8": full_int8["launches"]["flash_decode_int8"],
-                "w4_matmul": full_int8["launches"]["w4_matmul"]}
+                "w4_matmul": full_int8["launches"]["w4_matmul"],
+                "block_rank_int4": block_topk4["launches"]["block_rank_int4"],
+                "rescore_attend_int4":
+                    block_topk4["launches"]["rescore_attend_int4"],
+                **{name: store[name] for name in (
+                    "exact_scores_ranked_int4", "lsh_fused_decode_poly",
+                    "lsh_fused_decode_none", "lsh_fused_decode_int8_poly",
+                    "lsh_fused_decode_int8_none")}}
     score_src = ("magicpig_tpu_torch/csrc/block_score.cu",
                  "magicpig_tpu/ops/pallas/score.py:225")
     sources = {"flash_prefill": ("magicpig_tpu_torch/csrc/flash_prefill.cu",
@@ -1003,7 +1293,10 @@ def main() -> int:
                "w4_matmul": ("magicpig_tpu_torch/csrc/w4_matmul.cu",
                              "magicpig_tpu/ops/pallas/w4_matmul.py:121")}
     sources["flash_decode_int8"] = sources["flash_decode"]
-    sources["lsh_fused_decode_int8"] = sources["lsh_fused_decode"]
+    for form in ("_int8", "_poly", "_none", "_int8_poly", "_int8_none"):
+        sources["lsh_fused_decode" + form] = sources["lsh_fused_decode"]
+    for name in ("block_rank", "exact_scores_ranked", "rescore_attend"):
+        sources[name + "_int4"] = sources[name]
     kernels = []
     for name, r in kern.items():
         kernels.append({

@@ -12,11 +12,12 @@ channel (W8A8) or int4 in 128-input groups; `fuse_small_linears` joins
 q/k/v and gate/up of quantized weights into one matmul each.
 
 `LSHConfig` keeps the fields the ported estimators read: "lsh" (SimHash
-sampling) and "block_topk" (exact-score block ranking), each with bf16 or
-int8 offload K/V, and the dense layers' K/V bf16 or int8
-(`dense_quant`). Any other estimator, decode mode, debias form or cache
-quantisation (int4 offload) is not ported yet and raises
-`NotImplementedError`.
+sampling, with the exact, polynomial or no debias) and "block_topk"
+(exact-score block ranking), each with bf16, int8 or int4 offload K (V
+int8 when quantized), and the dense layers' K/V bf16 or int8
+(`dense_quant`). With int4 offload under block_topk the K rows are stored
+packed, two channels a byte (`ops/pack4.py`). Any other estimator or decode
+mode is not ported yet and raises `NotImplementedError`.
 """
 
 from __future__ import annotations
@@ -138,9 +139,14 @@ class LSHConfig:
         attends from them.
     `offload_quant="int8"` stores the offload K/V int8 per row with f32
     scales (for lsh, the centered keys, whose stored norms and signatures
-    are those of the dequantized rows); `dense_quant="int8"` does the same
-    for the dense layers' K/V. The hot sink and local tokens stay exact.
-    A value the port does not have yet raises `NotImplementedError`.
+    are those of the dequantized rows); "int4" puts K on the 4-bit grid
+    (values in [-7, 7]) and keeps V int8: for lsh in the int8 layout, for
+    block_topk packed two channels a byte (`packed_k4`). `dense_quant="int8"`
+    stores the dense layers' K/V as int8 rows. The hot sink and local tokens
+    stay exact. `lsh_debias` reweights the sampled scores by the exact
+    collision probability ("exact"), by its degree-20 polynomial fit
+    ("poly"), or not at all ("none"). A value the port does not have yet
+    raises `NotImplementedError`.
     """
 
     K: int = 10
@@ -167,8 +173,9 @@ class LSHConfig:
         for field, value, ported in (
                 ("estimator", self.estimator, PORTED_ESTIMATORS),
                 ("decode_mode", self.decode_mode, ("masked",)),
-                ("lsh_debias", self.lsh_debias, ("exact",)),
-                ("offload_quant", self.offload_quant, ("none", "int8")),
+                ("lsh_debias", self.lsh_debias, ("exact", "poly", "none")),
+                ("offload_quant", self.offload_quant,
+                 ("none", "int8", "int4")),
                 ("dense_quant", self.dense_quant, ("none", "int8"))):
             if value not in ported:
                 raise NotImplementedError(
@@ -181,8 +188,24 @@ class LSHConfig:
 
     @property
     def offload_quantized(self) -> bool:
-        """Offload K/V stored int8 with per-row f32 scales?"""
+        """Offload K/V stored quantized (int8 or int4 K, int8 V) with
+        per-row f32 scales?"""
         return self.offload_quant != "none"
+
+    @property
+    def offload_k_bits(self) -> int:
+        """Bits of the offload K grid (V is always quantized at 8)."""
+        return 4 if self.offload_quant == "int4" else 8
+
+    def packed_k4(self, head_dim: int) -> bool:
+        """Store the offload K packed, two 4-bit channels a byte
+        (`ops/pack4.py`)? Only the block_topk scorer and rescore read K as
+        stored, so block_topk with int4 offload packs for any even head
+        dim; the lsh kernel reads int8 rows and keeps them. (The JAX
+        package packs only at 512-token blocks and d >= 64, a rule of its
+        TPU layout.)"""
+        return (self.offload_quant == "int4" and self.estimator == "block_topk"
+                and head_dim % 2 == 0)
 
     @property
     def dense_quantized(self) -> bool:

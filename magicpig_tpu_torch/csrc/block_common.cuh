@@ -4,7 +4,8 @@
 // numbers, and the softmax-and-attend over one selected block.
 //
 // Layouts (token order, no fold): q [B, Hq, 64] bf16; K and V
-// [B, Hkv, S, 64] int8 or bf16; per-row scales [B, Hkv, S] f32 (int8 only);
+// [B, Hkv, S, 64] int8 or bf16, or K packed int4 [B, Hkv, S, 32] (Int4x2
+// below) with V int8; per-row scales [B, Hkv, S] f32 (quantized only);
 // scores [B, Hkv, G, S] f32; block ids [B, Hkv, NB'] int32.
 #pragma once
 
@@ -27,6 +28,25 @@ __device__ __forceinline__ void load_scaled_q(float (*qs)[kBlkD],
     qs[i / kBlkD][i % kBlkD] = __bfloat162float(
         __float2bfloat16_rn(__bfloat162float(q_h[i]) * sm_scale));
 }
+
+// One byte of a packed int4 K row (ops/pack4.py): byte j of a token's 32
+// holds channel j in its low nibble and channel j + 32 in its high one.
+struct Int4x2 {
+  int8_t bits;
+};
+
+// K elements of one token's row: 64, or 32 packed bytes.
+template <typename KT>
+struct KeyRow {
+  static constexpr int kElems = kBlkD;
+};
+template <>
+struct KeyRow<Int4x2> {
+  static constexpr int kElems = kBlkD / 2;
+};
+
+// K selector of the C entry points: 0 bf16, 1 int8, 2 packed int4.
+enum KeyKind : int { kKeyBf16 = 0, kKeyInt8 = 1, kKeyInt4 = 2 };
 
 __device__ __forceinline__ float key_value(const int8_t* row, int e) {
   return static_cast<float>(row[e]);
@@ -80,6 +100,39 @@ __device__ __forceinline__ void token_scores(const KT* __restrict__ krow,
       for (int g = 0; g < G; ++g)
         acc[g] = fmaf(qs[g][c * kPerChunk + j], kv[j], acc[g]);
   }
+#pragma unroll
+  for (int g = 0; g < G; ++g) s[g] = acc[g] * kscale;
+}
+
+// The packed int4 form: the row's 32 bytes in two 16-byte loads, each
+// nibble sign-extended by shifts of its 32-bit word (low nibble of byte b:
+// (int)(w << (28 - 8b)) >> 28; high: (int)(w << (24 - 8b)) >> 28), and the
+// same fmaf over e = 0..63 in the same order as the int8 form, so the two
+// give bit-identical scores for the same 4-bit values.
+template <int G>
+__device__ __forceinline__ void token_scores(const Int4x2* __restrict__ krow,
+                                             float kscale,
+                                             const float (*qs)[kBlkD],
+                                             float (&s)[G]) {
+  float acc[G];
+#pragma unroll
+  for (int g = 0; g < G; ++g) acc[g] = 0.f;
+  const uint4* src = reinterpret_cast<const uint4*>(krow);
+  const uint4 w0 = __ldg(src), w1 = __ldg(src + 1);
+  const uint32_t words[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
+#pragma unroll
+  for (int h = 0; h < 2; ++h)              // low nibbles e < 32, then high
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+        const int shift = (h == 0 ? 28 : 24) - 8 * b;
+        const float kv =
+            static_cast<float>(static_cast<int>(words[i] << shift) >> 28);
+        const int e = h * (kBlkD / 2) + 4 * i + b;
+#pragma unroll
+        for (int g = 0; g < G; ++g) acc[g] = fmaf(qs[g][e], kv, acc[g]);
+      }
 #pragma unroll
   for (int g = 0; g < G; ++g) s[g] = acc[g] * kscale;
 }

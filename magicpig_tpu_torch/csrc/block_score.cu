@@ -7,10 +7,13 @@
 //
 // Replaces magicpig_tpu/ops/pallas/score.py::_scores_call (the pallas_call
 // at score.py:225), reached through block_rank (score.py:301) and
-// exact_scores_ranked (score.py:272); int8 K with f32 row scales, or bf16 K.
+// exact_scores_ranked (score.py:272); int8 K with f32 row scales, packed
+// int4 K with f32 row scales (its packed=True form, score.py:62-92, in the
+// port's layout: two channels a byte, tokens in order), or bf16 K.
 //
-// Bound on the H100: reading K once (64 bytes a token and kv head in int8,
-// 128 in bf16) plus its scales, and in the exact_scores_ranked variant
+// Bound on the H100: reading K once (32 bytes a token and kv head in packed
+// int4, 64 in int8, 128 in bf16) plus its scales, and in the
+// exact_scores_ranked variant
 // writing 4 bytes a token and query head; ~2 flops per byte, so device
 // memory bounds it. Design: the TPU grid walks (request, kv head, 64K-token
 // tile) in order on one core; here one block of 128 threads takes one
@@ -56,14 +59,15 @@ block_score_kernel(const __nv_bfloat16* __restrict__ q,
   load_scaled_q<G>(qs, q + head * G * kBlkD, sm_scale, tid);
   __syncthreads();
 
-  const KT* k_h = k + head * s_cap * kBlkD;
+  constexpr int kRow = KeyRow<KT>::kElems;
+  const KT* k_h = k + head * s_cap * kRow;
   const float* ks_h = k_scale != nullptr ? k_scale + head * s_cap : nullptr;
   float mx = kNegInf;
   for (int i = tid; i < block_size; i += kBlkThreads) {
     const int t = t0 + i;
     float s[G];
     if (t < len) {
-      token_scores<G>(k_h + static_cast<size_t>(t) * kBlkD,
+      token_scores<G>(k_h + static_cast<size_t>(t) * kRow,
                       ks_h != nullptr ? ks_h[t] : 1.f, qs, s);
     } else {
 #pragma unroll
@@ -127,23 +131,32 @@ int dispatch(int g, const void* q, const void* k, const void* k_scale,
 
 }  // namespace
 
-// scores may be null (block max only); k_scale is null for bf16 K.
+// scores may be null (block max only); k_kind is a KeyKind, and k_scale
+// is null exactly for bf16 K.
 extern "C" int mp_block_score(const void* q, const void* k,
                               const void* k_scale, const void* length,
                               void* scores, void* block_max, int batch,
                               int s_cap, int hq, int hkv, int head_dim,
-                              int block_size, int k_int8, float sm_scale,
+                              int block_size, int k_kind, float sm_scale,
                               void* stream) {
   if (head_dim != mp::kBlkD || hq % hkv != 0 || block_size <= 0 ||
       block_size % 64 != 0 || s_cap % block_size != 0 ||
-      (k_int8 != 0) != (k_scale != nullptr))
+      (k_kind != mp::kKeyBf16) != (k_scale != nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (k_int8)
-    return dispatch<int8_t>(hq / hkv, q, k, k_scale, length, scores,
-                            block_max, batch, s_cap, hkv, block_size,
-                            sm_scale, st);
-  return dispatch<__nv_bfloat16>(hq / hkv, q, k, k_scale, length, scores,
-                                 block_max, batch, s_cap, hkv, block_size,
-                                 sm_scale, st);
+  switch (k_kind) {
+    case mp::kKeyBf16:
+      return dispatch<__nv_bfloat16>(hq / hkv, q, k, k_scale, length, scores,
+                                     block_max, batch, s_cap, hkv,
+                                     block_size, sm_scale, st);
+    case mp::kKeyInt8:
+      return dispatch<int8_t>(hq / hkv, q, k, k_scale, length, scores,
+                              block_max, batch, s_cap, hkv, block_size,
+                              sm_scale, st);
+    case mp::kKeyInt4:
+      return dispatch<mp::Int4x2>(hq / hkv, q, k, k_scale, length, scores,
+                                  block_max, batch, s_cap, hkv, block_size,
+                                  sm_scale, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

@@ -1,5 +1,5 @@
 // Fused LSH-sampled decode: the >=2-of-L SimHash collision scan, the
-// length mask, the exact collision-probability debias, online softmax, the
+// length mask, the collision-probability debias, online softmax, the
 // weighted V sum and the sampled count, in one pass.
 //
 // Replaces magicpig_tpu/ops/pallas/lsh_fused.py::lsh_fused_attention2 (the
@@ -7,7 +7,12 @@
 // magicpig_tpu/ops/pallas/lsh_decode.py::lsh_fused_decode, with bf16 K/V or
 // int8 K/V and per-token f32 scales (its quant=True form: the raw score is
 // q . K_int8 times the K scale, the cosine uses the stored norms of the
-// dequantized keys, and the V scale multiplies p in the P.V sum).
+// dequantized keys, and the V scale multiplies p in the P.V sum), and each
+// of its three debias forms (lsh_fused.py:139-158), chosen at compile time:
+// exact (the collision weight, below), poly (log w + eps as a degree-20
+// polynomial of the clipped cosine, its 21 coefficients passed by value and
+// evaluated by Horner's rule with one rounded multiply and one rounded add a
+// step, as the plain version does) and none (the scaled score, unweighted).
 //
 // Bound on the H100: device memory. The signatures must all be read to
 // know which tokens are sampled: K*L bits per token and kv head, 188 bytes
@@ -22,10 +27,11 @@
 // per-thread (once, twice) words with (o1,t1)+(o2,t2) = (o1|o2,
 // t1|t2|(o1&o2)); any L, odd or even. Then it walks the split in 64-token
 // tiles, reading a K/V/norm row only where some head sampled the token
-// (other rows are zero-filled in shared memory, never read), scores only
-// sampled (head, token) pairs, and sums P.V over those rows only, with the
-// exact debias (libm acosf, log1pf, expm1f). Whether a fully gathered form
-// beats this streamed scan is for a measurement to decide.
+// (other rows are zero-filled in shared memory, never read; the none form
+// reads no norm), scores only sampled (head, token) pairs, and sums P.V over
+// those rows only, with the exact debias in libm acosf, log1pf and expm1f.
+// Whether a fully gathered form beats this streamed scan is for a
+// measurement to decide.
 #include <type_traits>
 
 #include "common.cuh"
@@ -38,6 +44,14 @@ constexpr int kSlices = mp::kDecThreads / kWordsPerChunk;     // 8
 constexpr int kMaxK = 16;                                     // bits per table
 constexpr float kPi = 3.14159265358979323846f;
 constexpr float kDebiasEps = 1e-4f;
+constexpr int kPolyTerms = 21;                                // degree 20
+
+// Debias forms (LSHConfig.lsh_debias), a template parameter of the kernel.
+enum Debias : int { kExact = 0, kPoly = 1, kNone = 2 };
+
+struct PolyCoef {
+  float c[kPolyTerms];   // power basis, low degree first
+};
 
 template <int G>
 struct LshSmem {
@@ -52,8 +66,9 @@ struct LshSmem {
 };
 
 // T: __nv_bfloat16, or int8_t with the row scales k_scale, v_scale [B,
-// Hkv, S] (null for bf16).
-template <int G, typename T>
+// Hkv, S] (null for bf16). kDebias: a Debias form; poly holds its
+// coefficients (read by the poly form only).
+template <int G, typename T, int kDebias>
 __global__ void __launch_bounds__(mp::kDecThreads)
 lsh_fused_split_kernel(const __nv_bfloat16* __restrict__ q,
                        const T* __restrict__ k, const T* __restrict__ v,
@@ -66,7 +81,8 @@ lsh_fused_split_kernel(const __nv_bfloat16* __restrict__ q,
                        float* __restrict__ part_o,
                        float* __restrict__ part_lse,
                        float* __restrict__ part_cnt, int batch, int s_cap,
-                       int hkv, int K, int L, float sm_scale) {
+                       int hkv, int K, int L, float sm_scale,
+                       const PolyCoef poly) {
   using namespace mp;
   constexpr bool kQ = std::is_same<T, int8_t>::value;
   __shared__ LshSmem<G> sm;
@@ -193,7 +209,7 @@ lsh_fused_split_kernel(const __nv_bfloat16* __restrict__ q,
                       v_scale + head_off, t0, stop, tid, &sm.any[w0]);
     else
       load_kv_tile<G>(sm.tile, k_h, v_h, t0, stop, tid, &sm.any[w0]);
-    if (tid < kDecTile) {
+    if (kDebias != kNone && tid < kDecTile) {
       const bool need = t0 + tid < stop &&
                         ((sm.any[w0 + (tid >> 5)] >> (tid & 31)) & 1u);
       sm.knorm[tid] = need ? n_h[t0 + tid] : 0.f;
@@ -205,14 +221,25 @@ lsh_fused_split_kernel(const __nv_bfloat16* __restrict__ q,
       if ((sm.sel[g][w0 + (j >> 5)] >> (j & 31)) & 1u) {
         float raw = row_dot(sm.tile.ks[j], sm.tile.qf[g]);
         if constexpr (kQ) raw *= sm.tile.ksc[j];
-        float c = raw / fmaxf(sm.qnorm[g] * sm.knorm[j], 1e-20f);
-        c = fminf(fmaxf(c, -1.f), 1.f);
-        const float u = powf(1.f - acosf(c) / kPi, fK);
-        // w = P[>= 2 of L tables collide], without the cancellation of
-        // 1 - (1-u)^(L-1) (1 + (L-1) u) (see ops/debias.py).
-        const float log_miss = L > 1 ? (fL - 1.f) * log1pf(-u) : 0.f;
-        const float w = -expm1f(log_miss + log1pf((fL - 1.f) * u));
-        score = (raw * sm_scale - logf(w + kDebiasEps)) * kLog2e;
+        float log_w = 0.f;                       // the none form
+        if constexpr (kDebias != kNone) {
+          float c = raw / fmaxf(sm.qnorm[g] * sm.knorm[j], 1e-20f);
+          c = fminf(fmaxf(c, -1.f), 1.f);
+          if constexpr (kDebias == kPoly) {
+            log_w = poly.c[kPolyTerms - 1];
+#pragma unroll
+            for (int i = kPolyTerms - 2; i >= 0; --i)
+              log_w = __fadd_rn(__fmul_rn(log_w, c), poly.c[i]);
+          } else {
+            const float u = powf(1.f - acosf(c) / kPi, fK);
+            // w = P[>= 2 of L tables collide], without the cancellation of
+            // 1 - (1-u)^(L-1) (1 + (L-1) u) (see ops/debias.py).
+            const float log_miss = L > 1 ? (fL - 1.f) * log1pf(-u) : 0.f;
+            const float w = -expm1f(log_miss + log1pf((fL - 1.f) * u));
+            log_w = logf(w + kDebiasEps);
+          }
+        }
+        score = (raw * sm_scale - log_w) * kLog2e;
       }
       sm.tile.ps[g][j] = score;
     }
@@ -226,24 +253,26 @@ lsh_fused_split_kernel(const __nv_bfloat16* __restrict__ q,
   if (tid < G) part_cnt[part + tid] = static_cast<float>(sm.count[tid]);
 }
 
-template <int G, typename T>
+template <int G, typename T, int kDebias>
 int launch_lsh(const void* q, const void* k, const void* v,
                const void* k_scale, const void* v_scale,
                const void* k_norm, const void* planes, const void* q_bits,
                const void* length, void* part_o, void* part_lse,
                void* part_cnt, void* out, void* lse, void* cnt, int batch,
                int s_cap, int hkv, int K, int L, float sm_scale,
-               cudaStream_t stream) {
+               const PolyCoef& poly, cudaStream_t stream) {
   const int nsplit = (s_cap + mp::kDecChunk - 1) / mp::kDecChunk;
   const size_t dyn = static_cast<size_t>(G) * L * sizeof(uint32_t);
   dim3 grid(nsplit, hkv, batch);
-  lsh_fused_split_kernel<G, T><<<grid, mp::kDecThreads, dyn, stream>>>(
+  lsh_fused_split_kernel<G, T, kDebias><<<grid, mp::kDecThreads, dyn,
+                                           stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const float*>(k_scale),
       static_cast<const float*>(v_scale), static_cast<const float*>(k_norm), static_cast<const int*>(planes),
       static_cast<const int*>(q_bits), static_cast<const int*>(length),
       static_cast<float*>(part_o), static_cast<float*>(part_lse),
-      static_cast<float*>(part_cnt), batch, s_cap, hkv, K, L, sm_scale);
+      static_cast<float*>(part_cnt), batch, s_cap, hkv, K, L, sm_scale,
+      poly);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   return mp::launch_merge(static_cast<const float*>(part_o),
@@ -254,10 +283,53 @@ int launch_lsh(const void* q, const void* k, const void* v,
                           stream);
 }
 
+template <int G, int kDebias>
+int dispatch_type(bool quant, const void* q, const void* k, const void* v,
+                  const void* k_scale, const void* v_scale,
+                  const void* k_norm, const void* planes, const void* q_bits,
+                  const void* length, void* part_o, void* part_lse,
+                  void* part_cnt, void* out, void* lse, void* cnt, int batch,
+                  int s_cap, int hkv, int K, int L, float sm_scale,
+                  const PolyCoef& poly, cudaStream_t st) {
+  if (quant)
+    return launch_lsh<G, int8_t, kDebias>(
+        q, k, v, k_scale, v_scale, k_norm, planes, q_bits, length, part_o,
+        part_lse, part_cnt, out, lse, cnt, batch, s_cap, hkv, K, L, sm_scale,
+        poly, st);
+  return launch_lsh<G, __nv_bfloat16, kDebias>(
+      q, k, v, nullptr, nullptr, k_norm, planes, q_bits, length, part_o,
+      part_lse, part_cnt, out, lse, cnt, batch, s_cap, hkv, K, L, sm_scale,
+      poly, st);
+}
+
+template <int G>
+int dispatch_debias(int debias, bool quant, const void* q, const void* k,
+                    const void* v, const void* k_scale, const void* v_scale,
+                    const void* k_norm, const void* planes,
+                    const void* q_bits, const void* length, void* part_o,
+                    void* part_lse, void* part_cnt, void* out, void* lse,
+                    void* cnt, int batch, int s_cap, int hkv, int K, int L,
+                    float sm_scale, const PolyCoef& poly, cudaStream_t st) {
+#define MP_DEBIAS_CASE(D)                                                    \
+  case D:                                                                    \
+    return dispatch_type<G, D>(quant, q, k, v, k_scale, v_scale, k_norm,     \
+                               planes, q_bits, length, part_o, part_lse,     \
+                               part_cnt, out, lse, cnt, batch, s_cap, hkv,   \
+                               K, L, sm_scale, poly, st);
+  switch (debias) {
+    MP_DEBIAS_CASE(kExact)
+    MP_DEBIAS_CASE(kPoly)
+    MP_DEBIAS_CASE(kNone)
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef MP_DEBIAS_CASE
+}
+
 }  // namespace
 
 // k_scale and v_scale null: bf16 K/V; both set: int8 K/V with those
-// per-token scales [B, Hkv, S].
+// per-token scales [B, Hkv, S]. debias: 0 exact, 1 poly (poly_coef: a host
+// array of the 21 coefficients, low degree first), 2 none.
 extern "C" int mp_lsh_fused_decode(const void* q, const void* k,
                                    const void* v, const void* k_scale,
                                    const void* v_scale, const void* k_norm,
@@ -266,22 +338,24 @@ extern "C" int mp_lsh_fused_decode(const void* q, const void* k,
                                    void* part_lse, void* part_cnt, void* out,
                                    void* lse, void* cnt, int batch, int s_cap,
                                    int hq, int hkv, int head_dim, int K,
-                                   int L, float sm_scale, void* stream) {
+                                   int L, float sm_scale, int debias,
+                                   const void* poly_coef, void* stream) {
   if (head_dim != mp::kDecD || hq % hkv != 0 || s_cap % 32 != 0 || K < 1 ||
-      K > kMaxK || L < 1 || (k_scale == nullptr) != (v_scale == nullptr))
+      K > kMaxK || L < 1 || (k_scale == nullptr) != (v_scale == nullptr) ||
+      (debias == kPoly) != (poly_coef != nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
+  PolyCoef poly{};
+  if (poly_coef != nullptr)
+    for (int i = 0; i < kPolyTerms; ++i)
+      poly.c[i] = static_cast<const float*>(poly_coef)[i];
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool quant = k_scale != nullptr;
 #define MP_LSH_CASE(G)                                                      \
   case G:                                                                   \
-    return quant ? launch_lsh<G, int8_t>(                                   \
-                       q, k, v, k_scale, v_scale, k_norm, planes, q_bits,   \
-                       length, part_o, part_lse, part_cnt, out, lse, cnt,   \
-                       batch, s_cap, hkv, K, L, sm_scale, st)               \
-                 : launch_lsh<G, __nv_bfloat16>(                            \
-                       q, k, v, nullptr, nullptr, k_norm, planes, q_bits,   \
-                       length, part_o, part_lse, part_cnt, out, lse, cnt,   \
-                       batch, s_cap, hkv, K, L, sm_scale, st);
+    return dispatch_debias<G>(debias, quant, q, k, v, k_scale, v_scale,     \
+                              k_norm, planes, q_bits, length, part_o,       \
+                              part_lse, part_cnt, out, lse, cnt, batch,     \
+                              s_cap, hkv, K, L, sm_scale, poly, st);
   switch (hq / hkv) {
     MP_LSH_CASE(1)
     MP_LSH_CASE(2)

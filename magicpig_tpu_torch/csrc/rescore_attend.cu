@@ -3,11 +3,13 @@
 // ranking pass stored only block maxes).
 //
 // Replaces magicpig_tpu/ops/pallas/rescore_attend.py::rescore_attend (the
-// pallas_call at rescore_attend.py:217): int8 K and V with f32 row scales
-// (bf16 K and V also taken).
+// pallas_call at rescore_attend.py:217): int8 K and V with f32 row scales,
+// packed int4 K (its packed=True form, in the port's layout, ops/pack4.py)
+// with int8 V, or bf16 K and V.
 //
 // Bound on the H100: reading the selected blocks' K and V rows and their
-// scales once, 136 bytes a token and kv head in int8; the arithmetic is
+// scales once, 136 bytes a token and kv head in int8 (104 with packed int4
+// K); the arithmetic is
 // ~4 flops per byte, so device memory bounds it. Design: the TPU grid is
 // one step per (request, kv head) with a loop over the selected blocks, 16
 // steps at B = 2 on one core. On the card that would be 16 blocks on 132
@@ -23,20 +25,20 @@
 
 namespace {
 
-template <int G, typename T>
+template <int G, typename KT, typename VT>
 __global__ void __launch_bounds__(mp::kBlkThreads)
 rescore_attend_kernel(const __nv_bfloat16* __restrict__ q,
                       const int* __restrict__ blk_ids,
-                      const T* __restrict__ k,
+                      const KT* __restrict__ k,
                       const float* __restrict__ k_scale,
-                      const T* __restrict__ v,
+                      const VT* __restrict__ v,
                       const float* __restrict__ v_scale,
                       const int* __restrict__ length,
                       float* __restrict__ part_o,
                       float* __restrict__ part_lse, int batch, int s_cap,
                       int hkv, int block_size, float sm_scale) {
   using namespace mp;
-  __shared__ BlockAttendSmem<G, T> sm;
+  __shared__ BlockAttendSmem<G, VT> sm;
 
   const int j = blockIdx.x, kh = blockIdx.y, b = blockIdx.z;
   const int nsel = gridDim.x;
@@ -58,28 +60,28 @@ rescore_attend_kernel(const __nv_bfloat16* __restrict__ q,
   const size_t tok0 = head * s_cap + t0;
   for (int i = tid; i < n; i += kBlkThreads) {
     float s[G];
-    token_scores<G>(k + (tok0 + i) * kBlkD,
+    token_scores<G>(k + (tok0 + i) * KeyRow<KT>::kElems,
                     k_scale != nullptr ? k_scale[tok0 + i] : 1.f, sm.qs, s);
 #pragma unroll
     for (int g = 0; g < G; ++g) sm.ps[g * block_size + i] = s[g];
   }
   __syncthreads();
-  attend_block<G, T>(sm, block_size, n, v + tok0 * kBlkD,
+  attend_block<G, VT>(sm, block_size, n, v + tok0 * kBlkD,
                      v_scale != nullptr ? v_scale + tok0 : nullptr, part_o,
                      part_lse, row0, tid);
 }
 
-template <int G, typename T>
+template <int G, typename KT, typename VT>
 int launch(const void* q, const void* blk_ids, const void* k,
            const void* k_scale, const void* v, const void* v_scale,
            const void* length, void* part_o, void* part_lse, void* out,
            void* lse, int batch, int s_cap, int hkv, int nsel,
            int block_size, float sm_scale, cudaStream_t stream) {
   dim3 grid(nsel, hkv, batch);
-  rescore_attend_kernel<G, T><<<grid, mp::kBlkThreads, 0, stream>>>(
+  rescore_attend_kernel<G, KT, VT><<<grid, mp::kBlkThreads, 0, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const int*>(blk_ids),
-      static_cast<const T*>(k), static_cast<const float*>(k_scale),
-      static_cast<const T*>(v), static_cast<const float*>(v_scale),
+      static_cast<const KT*>(k), static_cast<const float*>(k_scale),
+      static_cast<const VT*>(v), static_cast<const float*>(v_scale),
       static_cast<const int*>(length), static_cast<float*>(part_o),
       static_cast<float*>(part_lse), batch, s_cap, hkv, block_size,
       sm_scale);
@@ -91,7 +93,7 @@ int launch(const void* q, const void* blk_ids, const void* k,
                           nullptr, nsel, batch * hkv * G, stream);
 }
 
-template <typename T>
+template <typename KT, typename VT>
 int dispatch(int g, const void* q, const void* blk_ids, const void* k,
              const void* k_scale, const void* v, const void* v_scale,
              const void* length, void* part_o, void* part_lse, void* out,
@@ -99,9 +101,9 @@ int dispatch(int g, const void* q, const void* blk_ids, const void* k,
              int block_size, float sm_scale, cudaStream_t st) {
 #define MP_RESCORE_CASE(G)                                                   \
   case G:                                                                    \
-    return launch<G, T>(q, blk_ids, k, k_scale, v, v_scale, length, part_o, \
-                        part_lse, out, lse, batch, s_cap, hkv, nsel,         \
-                        block_size, sm_scale, st);
+    return launch<G, KT, VT>(q, blk_ids, k, k_scale, v, v_scale, length,    \
+                             part_o, part_lse, out, lse, batch, s_cap, hkv,  \
+                             nsel, block_size, sm_scale, st);
   switch (g) {
     MP_RESCORE_CASE(1)
     MP_RESCORE_CASE(2)
@@ -114,7 +116,8 @@ int dispatch(int g, const void* q, const void* blk_ids, const void* k,
 
 }  // namespace
 
-// int8: K and V int8 with row scales; otherwise both bf16, scales null.
+// k_kind (a KeyKind): bf16 K and V, scales null; int8 K and V with row
+// scales; packed int4 K and int8 V with row scales.
 extern "C" int mp_rescore_attend(const void* q, const void* blk_ids,
                                  const void* k, const void* k_scale,
                                  const void* v, const void* v_scale,
@@ -122,20 +125,28 @@ extern "C" int mp_rescore_attend(const void* q, const void* blk_ids,
                                  void* part_lse, void* out, void* lse,
                                  int batch, int s_cap, int hq, int hkv,
                                  int head_dim, int nsel, int block_size,
-                                 int int8, float sm_scale, void* stream) {
+                                 int k_kind, float sm_scale, void* stream) {
   const int g = hkv > 0 ? hq / hkv : 0;
+  const bool quant = k_kind != mp::kKeyBf16;
   if (head_dim != mp::kBlkD || g * hkv != hq || nsel <= 0 ||
       block_size <= 0 || block_size % 64 != 0 || s_cap % block_size != 0 ||
       g * block_size > mp::kMaxBlockScores ||
-      (int8 != 0) != (k_scale != nullptr) ||
-      (int8 != 0) != (v_scale != nullptr))
+      quant != (k_scale != nullptr) || quant != (v_scale != nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (int8)
-    return dispatch<int8_t>(g, q, blk_ids, k, k_scale, v, v_scale, length,
-                            part_o, part_lse, out, lse, batch, s_cap, hkv,
-                            nsel, block_size, sm_scale, st);
-  return dispatch<__nv_bfloat16>(g, q, blk_ids, k, k_scale, v, v_scale,
-                                 length, part_o, part_lse, out, lse, batch,
-                                 s_cap, hkv, nsel, block_size, sm_scale, st);
+  switch (k_kind) {
+    case mp::kKeyBf16:
+      return dispatch<__nv_bfloat16, __nv_bfloat16>(
+          g, q, blk_ids, k, k_scale, v, v_scale, length, part_o, part_lse,
+          out, lse, batch, s_cap, hkv, nsel, block_size, sm_scale, st);
+    case mp::kKeyInt8:
+      return dispatch<int8_t, int8_t>(
+          g, q, blk_ids, k, k_scale, v, v_scale, length, part_o, part_lse,
+          out, lse, batch, s_cap, hkv, nsel, block_size, sm_scale, st);
+    case mp::kKeyInt4:
+      return dispatch<mp::Int4x2, int8_t>(
+          g, q, blk_ids, k, k_scale, v, v_scale, length, part_o, part_lse,
+          out, lse, batch, s_cap, hkv, nsel, block_size, sm_scale, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

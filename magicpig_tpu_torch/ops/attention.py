@@ -9,7 +9,8 @@ against them.
   * `full_decode`: one-query dense attention over a cache prefix with an
     explicit length, returning (out, lse) for the LSE merge;
   * `collision_mask` / `lsh_masked_decode`: the LSH-sampled estimator in its
-    dense masked form (>=2-of-L collision mask + debias + masked softmax).
+    dense masked form (>=2-of-L collision mask + debias, exact, polynomial
+    or none, + masked softmax).
 
 Decode paths take GQA-shaped inputs: q [B, Hq, d] over caches [B, Hkv, S, d]
 with Hq = G * Hkv. Products take their inputs' values exactly and sum in
@@ -166,13 +167,15 @@ def lsh_masked_decode(q: torch.Tensor, k_centered: torch.Tensor,
                       v: torch.Tensor, k_norm: torch.Tensor,
                       mask: torch.Tensor, length: torch.Tensor, K: int,
                       L: int, k_scale: torch.Tensor | None = None,
-                      v_scale: torch.Tensor | None = None):
-    """Dense masked form of LSH-sampled attention with the exact debias.
+                      v_scale: torch.Tensor | None = None,
+                      debias: str = "exact"):
+    """Dense masked form of LSH-sampled attention.
 
     q: [B, Hq, d]; k_centered, v: [B, Hkv, S, d] (int8 with k_scale,
     v_scale [B, Hkv, S]); k_norm: [B, Hkv, S] norms of the (dequantized)
     centered keys; mask: [B, Hq, S] sampled; length: [B] valid offload
-    length. Returns (out [B, Hq, d] f32, lse [B, Hq] f32).
+    length; debias: "exact", "poly" or "none" (`ops/debias.py`). Returns
+    (out [B, Hq, d] f32, lse [B, Hq] f32).
     """
     b, hq, d = q.shape
     hkv, s = k_centered.shape[1], k_centered.shape[2]
@@ -180,7 +183,8 @@ def lsh_masked_decode(q: torch.Tensor, k_centered: torch.Tensor,
     qh = q.float().reshape(b, hkv, g, d)
     raw = _raw_scores(qh, k_centered, k_scale)               # [B,Hkv,G,S]
     q_norm = torch.linalg.vector_norm(qh, dim=-1, keepdim=True)
-    scores = debias_scores(raw, q_norm, k_norm[:, :, None, :], d, K, L)
+    scores = debias_scores(raw, q_norm, k_norm[:, :, None, :], d, K, L,
+                           debias)
     valid = (torch.arange(s, device=q.device)[None, :]
              < length.to(torch.int64)[:, None])[:, None, None]
     full_mask = mask.reshape(b, hkv, g, s) & valid

@@ -6,14 +6,18 @@ hand-written kernel `csrc/block_score.cu`, with their plain version
 Replaces the TPU kernel `magicpig_tpu/ops/pallas/score.py::_scores_call`
 (pallas_call at score.py:225), reached through `block_rank` (score.py:301)
 and `exact_scores_ranked` (score.py:272). On the H100 it is bound by
-reading K (int8 with f32 row scales, or bf16) once, plus the f32 score
-store in the `exact_scores_ranked` variant; one block of the kernel scores
-one ranking block of one (request, kv head).
+reading K (int8 with f32 row scales, packed int4 with f32 row scales, or
+bf16) once, plus the f32 score store in the `exact_scores_ranked` variant;
+one block of the kernel scores one ranking block of one (request, kv head).
+Packed int4 K ([B, Hkv, S, d/2] bytes, `ops/pack4.py`) is counted apart, as
+"block_rank_int4" and "exact_scores_ranked_int4".
 
 The arithmetic, kernel and plain version alike: q * (1/sqrt(d)) rounded to
-bf16; K as bf16 (int8 values are exact in it); products summed in f32; the
-sum times the row's K scale; -inf at or past `length`; the block max over
-the G query heads and the block's tokens.
+bf16; K as bf16 (int8 and 4-bit values are exact in it); products summed in
+f32; the sum times the row's K scale; -inf at or past `length`; the block
+max over the G query heads and the block's tokens. The packed kernel sums
+the same products in the same order as the int8 one, so its scores equal
+the int8 kernel's on the unpacked rows bit for bit.
 """
 
 from __future__ import annotations
@@ -23,8 +27,11 @@ import math
 import torch
 
 from magicpig_tpu_torch.ops.kernels import _lib
+from magicpig_tpu_torch.ops.pack4 import is_packed, unpack_k4
 
 HEAD_DIM = 64
+KEY_KINDS = {torch.bfloat16: 0, torch.int8: 1}   # KeyKind in block_common.cuh
+KEY_INT4 = 2                                     # packed int4 K
 
 
 def scaled_query(q: torch.Tensor, hkv: int) -> torch.Tensor:
@@ -37,9 +44,11 @@ def scaled_query(q: torch.Tensor, hkv: int) -> torch.Tensor:
 def token_scores(q: torch.Tensor, k: torch.Tensor,
                  k_scale: torch.Tensor | None, positions: torch.Tensor,
                  length: torch.Tensor) -> torch.Tensor:
-    """Scores [B, Hkv, G, N] f32 of keys k [B, Hkv, N, d] at token
-    `positions` [B, Hkv, N]: -inf where the position is at or past the
-    request's length."""
+    """Scores [B, Hkv, G, N] f32 of keys k [B, Hkv, N, d] (or packed int4
+    [B, Hkv, N, d/2]) at token `positions` [B, Hkv, N]: -inf where the
+    position is at or past the request's length."""
+    if is_packed(q, k):
+        k = unpack_k4(k)
     raw = torch.matmul(scaled_query(q, k.shape[1]), k.float().transpose(-1, -2))
     if k_scale is not None:
         raw = raw * k_scale.unsqueeze(2)
@@ -60,24 +69,35 @@ def block_scores_plain(q: torch.Tensor, k: torch.Tensor,
     return scores, bmax
 
 
+def key_kind(name: str, q: torch.Tensor, k: torch.Tensor,
+             k_scale: torch.Tensor | None) -> int:
+    """The kernels' K selector (KeyKind in block_common.cuh) after checking
+    k [B, Hkv, S, d] bf16 or int8, or packed int4 [B, Hkv, S, d/2], and its
+    scales (f32 [B, Hkv, S], with quantized K only)."""
+    b, _, d = q.shape
+    packed = is_packed(q, k)
+    _lib.require(k.dim() == 4 and k.shape[0] == b
+                 and k.shape[3] in (d, d // 2) and k.dtype in KEY_KINDS
+                 and (k.dtype == torch.int8 or k.shape[3] == d),
+                 f"{name}: k must be bf16 or int8 [B, Hkv, S, d], or packed "
+                 f"int4 [B, Hkv, S, d/2]; got {k.dtype} {tuple(k.shape)}")
+    quant = k.dtype == torch.int8
+    _lib.require((k_scale is not None) == quant
+                 and (not quant or (k_scale.dtype == torch.float32
+                                    and k_scale.shape == k.shape[:3])),
+                 f"{name}: k_scale must be f32 [B, Hkv, S], with quantized "
+                 "K only")
+    return KEY_INT4 if packed else KEY_KINDS[k.dtype]
+
+
 def _launch(name: str, q, k, k_scale, length, block_size: int,
             store_scores: bool):
     _lib.require(q.device.type == "cuda", f"{name}: unsupported device {q.device}")
     b, hq, d = q.shape
-    _lib.require(k.dim() == 4 and k.shape[0] == b and k.shape[3] == d,
-                 f"{name}: k shape {tuple(k.shape)}")
+    kind = key_kind(name, q, k, k_scale)
     hkv, s = k.shape[1], k.shape[2]
-    int8 = k.dtype == torch.int8
-    tensors = [q, k, length] + ([k_scale] if int8 else [])
-    _lib.require_cuda(name, *tensors)
+    _lib.require_cuda(name, q, k, length, *([k_scale] if kind else []))
     _lib.require(q.dtype == torch.bfloat16, f"{name}: q must be bfloat16")
-    _lib.require(k.dtype in (torch.int8, torch.bfloat16),
-                 f"{name}: k must be int8 or bfloat16")
-    _lib.require((k_scale is not None) == int8,
-                 f"{name}: k_scale goes with int8 K, and only with it")
-    _lib.require(not int8 or (k_scale.dtype == torch.float32
-                              and k_scale.shape == (b, hkv, s)),
-                 f"{name}: k_scale must be f32 [B, Hkv, S]")
     _lib.require(d == HEAD_DIM, f"{name}: head_dim {d} != {HEAD_DIM}")
     _lib.require(hq % hkv == 0 and hq // hkv in (1, 2, 4, 8),
                  f"{name}: group size {hq}/{hkv} unsupported")
@@ -90,9 +110,9 @@ def _launch(name: str, q, k, k_scale, length, block_size: int,
     f32 = dict(dtype=torch.float32, device=q.device)
     scores = torch.empty((b, hkv, hq // hkv, s), **f32) if store_scores else None
     bmax = torch.empty((b, hkv, s // block_size), **f32)
-    _lib.launch(name, "mp_block_score", q.device, q, k, k_scale, length,
-                scores, bmax, b, s, hq, hkv, d, block_size, int(int8),
-                1.0 / math.sqrt(d))
+    _lib.launch(name + ("_int4" if kind == KEY_INT4 else ""),
+                "mp_block_score", q.device, q, k, k_scale, length, scores,
+                bmax, b, s, hq, hkv, d, block_size, kind, 1.0 / math.sqrt(d))
     return scores, bmax
 
 
@@ -100,8 +120,9 @@ def block_rank(q: torch.Tensor, k: torch.Tensor, k_scale: torch.Tensor | None,
                length: torch.Tensor, block_size: int) -> torch.Tensor:
     """Per-block ranking max over the G heads of each kv head.
 
-    q: [B, Hq, d] (raw; scaled here); k: [B, Hkv, S, d] int8 with k_scale
-    [B, Hkv, S] f32, or bf16 with k_scale None; length: [B] int32. Returns
+    q: [B, Hq, d] (raw; scaled here); k: [B, Hkv, S, d] int8, or packed
+    int4 [B, Hkv, S, d/2] (`ops/pack4.py`), with k_scale [B, Hkv, S] f32,
+    or bf16 with k_scale None; length: [B] int32. Returns
     [B, Hkv, S / block_size] f32, -inf for blocks wholly past the length.
     CPU tensors take the plain version.
     """

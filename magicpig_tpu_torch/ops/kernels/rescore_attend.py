@@ -6,8 +6,10 @@ Replaces the TPU kernel `magicpig_tpu/ops/pallas/rescore_attend.py::
 rescore_attend` (pallas_call at rescore_attend.py:217). The ranking pass
 (`block_rank`) stores only block maxes; this kernel scores the selected
 blocks again with the scorer's own per-token function, so the two agree
-bit for bit, and attends over them. On the H100 it is bound by reading the
-selected blocks' K and V rows and scales once; one block of the kernel
+bit for bit, and attends over them. K is bf16, int8, or packed int4
+(`ops/pack4.py`, counted apart as "rescore_attend_int4") with int8 V. On the
+H100 it is bound by reading the selected blocks' K and V rows and scales
+once; one block of the kernel
 takes one selected block of one (request, kv head), and the LSE merge of
 `csrc/flash_decode.cu` combines the partials.
 """
@@ -25,7 +27,11 @@ from magicpig_tpu_torch.ops.kernels.block_attend import (
     check_selection,
     merge_buffers,
 )
-from magicpig_tpu_torch.ops.kernels.block_score import token_scores
+from magicpig_tpu_torch.ops.kernels.block_score import (
+    KEY_INT4,
+    key_kind,
+    token_scores,
+)
 
 
 def rescore_attend_plain(q, blk_ids, k, k_scale, v, v_scale, length,
@@ -52,7 +58,8 @@ def rescore_attend(q: torch.Tensor, blk_ids: torch.Tensor, k: torch.Tensor,
 
     q: [B, Hq, d] (raw; scaled as in `block_rank`); blk_ids: [B, Hkv, NB']
     int32; k, v: [B, Hkv, S, d] int8 with k_scale, v_scale [B, Hkv, S] f32,
-    or both bf16 with no scales; length: [B] int32 valid tokens. Returns
+    or k packed int4 [B, Hkv, S, d/2] with int8 v and both scales, or both
+    bf16 with no scales; length: [B] int32 valid tokens. Returns
     (out [B, Hq, d] f32, lse [B, Hq] f32); a row whose selected tokens are
     all past its length gives (0, -inf). CPU tensors take the plain version.
     """
@@ -62,15 +69,11 @@ def rescore_attend(q: torch.Tensor, blk_ids: torch.Tensor, k: torch.Tensor,
     name = "rescore_attend"
     _lib.require(q.device.type == "cuda", f"{name}: unsupported device {q.device}")
     b, hq, d = q.shape
-    _lib.require(k.dim() == 4 and k.shape == v.shape and k.shape[0] == b
-                 and k.shape[3] == d, f"{name}: k/v shape {tuple(k.shape)}")
+    kind = key_kind(name, q, k, k_scale)
+    _lib.require(v.dim() == 4 and v.shape[:3] == k.shape[:3]
+                 and v.shape[3] == d, f"{name}: v shape {tuple(v.shape)}")
     _lib.require(k.dtype == v.dtype, f"{name}: k and v must share a type")
-    int8 = k.dtype == torch.int8
-    _lib.require((k_scale is not None) == int8
-                 and (not int8 or (k_scale.dtype == torch.float32
-                                   and k_scale.shape == k.shape[:3])),
-                 f"{name}: k_scale must be f32 [B, Hkv, S] with int8 K only")
-    _lib.require_cuda(name, q, k, length, *([k_scale] if int8 else []))
+    _lib.require_cuda(name, q, k, length, *([k_scale] if kind else []))
     _lib.require(q.dtype == torch.bfloat16, f"{name}: q must be bfloat16")
     _lib.require(length.dtype == torch.int32 and length.shape == (b,),
                  f"{name}: length must be int32 [B]")
@@ -78,7 +81,9 @@ def rescore_attend(q: torch.Tensor, blk_ids: torch.Tensor, k: torch.Tensor,
     hkv, s = k.shape[1], k.shape[2]
     nsel = blk_ids.shape[2]
     part_o, part_lse, out, lse = merge_buffers(nsel, b, hq, q.device)
-    _lib.launch(name, "mp_rescore_attend", q.device, q, blk_ids, k, k_scale,
-                v, v_scale, length, part_o, part_lse, out, lse, b, s, hq, hkv,
-                d, nsel, block_size, int(int8), 1.0 / math.sqrt(d))
+    _lib.launch(name + ("_int4" if kind == KEY_INT4 else ""),
+                "mp_rescore_attend",
+                q.device, q, blk_ids, k, k_scale, v, v_scale, length, part_o,
+                part_lse, out, lse, b, s, hq, hkv, d, nsel, block_size, kind,
+                1.0 / math.sqrt(d))
     return out, lse

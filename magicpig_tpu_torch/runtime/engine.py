@@ -11,7 +11,9 @@ an attend over the best blocks). `decode_steps` keeps the greedy tokens on
 the device and synchronises once. The model's weights follow
 `ModelConfig.weight_quant` (bf16, W8A8 or int4 through the packed-nibble
 kernel at decode size), and the caches `LSHConfig.offload_quant` and
-`dense_quant` (bf16, or int8 rows through the kernels' int8 forms).
+`dense_quant` (bf16, or int8 rows through the kernels' int8 forms; int4
+offload K through the int8 LSH form, or packed through the block kernels'
+int4 forms).
 """
 
 from __future__ import annotations

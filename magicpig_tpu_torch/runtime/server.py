@@ -6,15 +6,19 @@
     scales); the sparse fill splits sink + local (hot) from the offloaded
     middle. For "lsh" it centers keys by the mean offload key and stores
     the centered-key norms and SimHash bit-planes; for "block_topk" it
-    stores the offload K/V as they are. Either stores the offload int8 per
-    row with f32 scales when `offload_quant="int8"`; lsh then computes the
-    norms and signatures from the dequantized centered keys, the keys decode
-    scores against;
+    stores the offload K/V as they are. Either stores the offload quantized
+    per row with f32 scales when `offload_quant` is "int8" or "int4" (K on
+    the 8- or 4-bit grid, V on the 8-bit one); lsh then computes the norms
+    and signatures from the centered keys quantized and dequantized, the
+    keys decode scores against, and quantizes those again for storage, as
+    the JAX fill does; block_topk with int4 packs K two channels a byte
+    (`ops/pack4.py`);
   * decode (step time): `decode_dense_layer` appends the new token and runs
     flash decode over the prefix; `decode_sparse_layer` runs flash decode
     over the hot region and the estimator over the offload region (the
     fused LSH kernel; or the block scorer, top-k blocks, and an attend over
-    them), and merges the two by LSE.
+    them), and merges the two by LSE. The lsh partial applies
+    `LSHConfig.lsh_debias`; the block kernels take packed int4 K as stored.
 
 The state is updated in place (see `runtime/state.py`). Fill takes the
 prompt's K/V at its true length, [P, Hkv, d] with P a host integer.
@@ -37,6 +41,7 @@ from magicpig_tpu_torch.ops.kernels import (
     rescore_attend,
 )
 from magicpig_tpu_torch.ops.merge import merge_partials
+from magicpig_tpu_torch.ops.pack4 import pack_k4
 from magicpig_tpu_torch.ops.quant import dequantize_rows, quantize_rows
 from magicpig_tpu_torch.runtime.state import DecodeState
 
@@ -82,8 +87,10 @@ def fill_sparse_layer(state: DecodeState, si: int, req: int,
         off_k, hot_k = _fill_lsh(state, si, req, off_k, hot_k, projections,
                                  lsh)
     if lsh.offload_quantized:
-        off_k, k_scale = quantize_rows(off_k)
+        off_k, k_scale = quantize_rows(off_k, lsh.offload_k_bits)
         off_v, v_scale = quantize_rows(off_v)
+        if lsh.packed_k4(off_k.shape[-1]):
+            off_k = pack_k4(off_k)
         state.off_k_scale[si][req, :, :off_len] = k_scale.T
         state.off_v_scale[si][req, :, :off_len] = v_scale.T
     state.off_k[si][req, :, :off_len] = off_k.transpose(0, 1)
@@ -98,9 +105,10 @@ def _fill_lsh(state: DecodeState, si: int, req: int, off_k: torch.Tensor,
               hot_k: torch.Tensor, projections: torch.Tensor,
               lsh: LSHConfig):
     """The LSH state of one request: the mean offload key, centered-key
-    norms and the bit-plane signatures of the centered keys (with int8
-    offload, of the centered keys quantized and dequantized: the keys decode
-    scores against). Returns the centered offload (f32) and hot keys."""
+    norms and the bit-plane signatures of the centered keys (with quantized
+    offload, of the centered keys quantized at `offload_k_bits` and
+    dequantized: the keys decode scores against). Returns the centered
+    offload (f32) and hot keys."""
     off_len, hkv, d = off_k.shape
     off_f = off_k.float()
     avg = off_f.sum(dim=0) / max(off_len, 1)                 # [Hkv, d]
@@ -112,7 +120,8 @@ def _fill_lsh(state: DecodeState, si: int, req: int, off_k: torch.Tensor,
                            device=off_k.device)
     centered[:off_len] = off_f - avg
     if lsh.offload_quantized:
-        centered = dequantize_rows(*quantize_rows(centered), torch.float32)
+        centered = dequantize_rows(
+            *quantize_rows(centered, lsh.offload_k_bits), torch.float32)
     planes = state.planes[si]
     planes[req].zero_()
     planes[req, ..., :n_pad // WORD] = build_planes(centered, projections, lsh.K)
@@ -152,14 +161,14 @@ def decode_dense_layer(state: DecodeState, di: int, q: torch.Tensor,
 def _lsh_partial(state: DecodeState, si: int, q: torch.Tensor,
                  projections: torch.Tensor, lsh: LSHConfig):
     """LSH-sampled partial over the offload region: (out, lse, sampled
-    fraction as a device scalar). int8 offload passes its scales."""
+    fraction as a device scalar). Quantized offload passes its scales."""
     q_bits = hash_bits(q, projections, lsh.K)                # [B, Hq, L, K]
     quant = lsh.offload_quantized
     out, lse, cnt = lsh_fused_decode(
         q, state.off_k[si], state.off_v[si], state.k_norm[si],
         state.planes[si], q_bits, state.off_len, lsh.K, lsh.L,
         state.off_k_scale[si] if quant else None,
-        state.off_v_scale[si] if quant else None)
+        state.off_v_scale[si] if quant else None, lsh.lsh_debias)
     frac = cnt.sum() / torch.clamp(state.off_len.sum() * q.shape[1], min=1)
     return out, lse, frac
 
@@ -181,9 +190,10 @@ def _realized_frac(budget_tokens: int, off_len: torch.Tensor) -> torch.Tensor:
 def _block_topk_partial(state: DecodeState, si: int, q: torch.Tensor,
                         lsh: LSHConfig):
     """Block-top-k partial over the offload region: (out, lse, realized
-    fraction as a device scalar). int8 with the "rescore" pipeline ranks by
-    block max and rescores the chosen blocks; otherwise the scores are
-    stored and the chosen blocks attended from them."""
+    fraction as a device scalar). Quantized offload (int8, or packed int4
+    K) with the "rescore" pipeline ranks by block max and rescores the
+    chosen blocks; otherwise the scores are stored and the chosen blocks
+    attended from them."""
     bs = lsh.block_topk_block_size
     nb = state.off_k[si].shape[2] // bs
     blocks = min(_static_budget(nb, lsh.block_topk_budget_frac, floor=1), nb)

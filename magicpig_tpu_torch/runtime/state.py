@@ -12,8 +12,12 @@ is a TPU choice):
   * LSH only: keys of both regions centered by the mean offload key;
     centered-key norms [B, Hkv, off_cap] f32; SimHash bit-planes
     [B, Hkv, L, K, off_cap/32] int32 in the flat layout of `ops.bitcodes`;
-  * int8 offload (either estimator): off_k / off_v int8 with per-row f32
-    scales off_k_scale / off_v_scale [B, Hkv, off_cap];
+  * quantized offload (either estimator): off_k / off_v int8 with per-row
+    f32 scales off_k_scale / off_v_scale [B, Hkv, off_cap] in token order;
+    with int4 offload K holds 4-bit-grid values, and under block_topk it is
+    packed along the head dimension, off_k [B, Hkv, off_cap, d/2] (byte j
+    holds channel j in its low nibble and channel j + d/2 in its high one,
+    `ops/pack4.py`); V stays int8 [B, Hkv, off_cap, d];
   * per-request lengths as int32 device tensors [B].
 Fill and decode write into these tensors in place, which keeps one copy of
 each cache.
@@ -42,6 +46,7 @@ class DecodeState:
     hot_v: list[torch.Tensor]
     hot_len: torch.Tensor         # [B] i32
     off_k: list[torch.Tensor]     # per sparse layer [B, Hkv, off_cap, d]
+                                  # (d/2 packed bytes with packed int4 K)
     off_v: list[torch.Tensor]     # (int8 when the offload is quantized)
     off_k_scale: list[torch.Tensor]  # int8 only: [B, Hkv, off_cap] f32
     off_v_scale: list[torch.Tensor]
@@ -80,6 +85,7 @@ def init_state(config: ModelConfig, lsh: LSHConfig, batch_size: int,
     n_lsh = ns if lsh.estimator == "lsh" else 0
     n_quant = ns if lsh.offload_quantized else 0
     off_dt = torch.int8 if lsh.offload_quantized else dt
+    off_kd = d // 2 if lsh.packed_k4(d) else d
     nd_quant = nd if lsh.dense_quantized else 0
     dense_dt = torch.int8 if lsh.dense_quantized else dt
 
@@ -98,7 +104,7 @@ def init_state(config: ModelConfig, lsh: LSHConfig, batch_size: int,
         hot_k=per_layer(ns, (b, hkv, hot_cap, d), dt),
         hot_v=per_layer(ns, (b, hkv, hot_cap, d), dt),
         hot_len=lens(),
-        off_k=per_layer(ns, (b, hkv, off_cap, d), off_dt),
+        off_k=per_layer(ns, (b, hkv, off_cap, off_kd), off_dt),
         off_v=per_layer(ns, (b, hkv, off_cap, d), off_dt),
         off_k_scale=per_layer(n_quant, (b, hkv, off_cap), torch.float32),
         off_v_scale=per_layer(n_quant, (b, hkv, off_cap), torch.float32),

@@ -16,7 +16,11 @@ like their bf16 forms (0.015 of the rms; lse 1e-4, 1e-5). The int4 matmul
 `W4_TOL`, 1e-5 of the output's rms: f32 sums of the same exact products
 (bf16 times a nibble) in another order. The W8A8 linear on the card equals
 the same function on the CPU exactly (an exact integer product between the
-same float32 steps).
+same float32 steps). The packed int4 forms of the block scorer and the
+rescore-attend are held to their plain versions like the int8 forms, and
+equal the int8 kernels on the unpacked rows bit for bit (the same products
+summed in the same order); the poly and none debias forms of the fused LSH
+kernel like its exact form.
 """
 
 import numpy as np
@@ -42,6 +46,7 @@ from magicpig_tpu_torch.ops.kernels.block_score import block_scores_plain
 from magicpig_tpu_torch.ops.kernels.lsh_fused import lsh_fused_decode_plain
 from magicpig_tpu_torch.ops.kernels.rescore_attend import rescore_attend_plain
 from magicpig_tpu_torch.ops.kernels.w4_matmul import w4_matmul_plain
+from magicpig_tpu_torch.ops.pack4 import pack_k4
 from magicpig_tpu_torch.ops.quant import dequantize_rows, quantize_rows
 
 SCORE_TOL = (1e-5, 1e-5, 0.0)
@@ -254,3 +259,86 @@ def test_cuda_block_attend_matches_plain(cuda, int8):
     ro, rl = rescore_attend(q, ids, k, ks, v, vs, length, 512)
     torch.testing.assert_close(ro, o, atol=1e-6, rtol=1e-5)
     torch.testing.assert_close(rl, l, atol=1e-6, rtol=1e-6)
+
+
+@pytest.mark.parametrize("debias", ["poly", "none"])
+@pytest.mark.parametrize("int8", [False, True])
+def test_cuda_lsh_fused_debias_forms_match_plain(cuda, debias, int8):
+    rng = np.random.default_rng(16)
+    B, S, K, L = 2, 2048, 10, 150
+    q = _bf16(rng, B, 32, 64, device=cuda)
+    k = _bf16(rng, B, 8, S, 64, device=cuda)
+    v = _bf16(rng, B, 8, S, 64, device=cuda)
+    ks = vs = None
+    kd = k.float()
+    if int8:
+        k, ks = quantize_rows(k)
+        v, vs = quantize_rows(v)
+        kd = dequantize_rows(k, ks, torch.float32)
+    proj = torch.from_numpy(rng.standard_normal((64, K * L)).astype(np.float32)).to(cuda)
+    planes = torch.stack([tbits.build_planes(kd[b].transpose(0, 1), proj, K)
+                          for b in range(B)])
+    qb = tbits.hash_bits(q, proj, K)
+    length = torch.tensor([S, 1337], dtype=torch.int32, device=cuda)
+    args = (q, k, v, kd.norm(dim=-1), planes, qb, length, K, L, ks, vs, debias)
+    name = "lsh_fused_decode" + ("_int8" if int8 else "") + "_" + debias
+    before = dict(LAUNCHES)
+    o, l, c = lsh_fused_decode(*args)
+    assert LAUNCHES[name] == before[name] + 1
+    assert sum(LAUNCHES.values()) == sum(before.values()) + 1
+    po, pl, pc = lsh_fused_decode_plain(*args)
+    assert torch.equal(c, pc) and c.min() > 0
+    _assert_within(o, po, rms_share=0.015)
+    _assert_within(l, pl, atol=1e-4, rtol=1e-5)
+    exact = lsh_fused_decode(*args[:-1])[0]
+    assert (exact - o).abs().max() > 1e-3          # the form does something
+
+
+def _int4_inputs(cuda, seed):
+    """B=2 over 4096 tokens, request 1 ragged: K on the 4-bit grid, as the
+    port stores it (packed) and in the int8 layout; int8 V."""
+    q, k, _, v, _, length = _block_inputs(cuda, False, seed)
+    k4, ks = quantize_rows(k, bits=4)
+    vq, vs = quantize_rows(v)
+    return q, pack_k4(k4), k4, ks, vq, vs, length
+
+
+def test_cuda_packed_block_scorer_matches_plain_and_int8(cuda):
+    q, kp, k4, ks, _, _, length = _int4_inputs(cuda, 17)
+    want_s, want_m = block_scores_plain(q, kp, ks, length, 512)
+    before = dict(LAUNCHES)
+    got_m = block_rank(q, kp, ks, length, 512)
+    got_s, got_m2 = exact_scores_ranked(q, kp, ks, length, 512)
+    assert LAUNCHES["block_rank_int4"] == before["block_rank_int4"] + 1
+    assert (LAUNCHES["exact_scores_ranked_int4"]
+            == before["exact_scores_ranked_int4"] + 1)
+    assert sum(LAUNCHES.values()) == sum(before.values()) + 2
+    atol, rtol, _ = SCORE_TOL
+    for got, want in ((got_s, want_s), (got_m, want_m), (got_m2, want_m)):
+        assert torch.equal(torch.isneginf(got), torch.isneginf(want))
+        _assert_within(got, want, atol=atol, rtol=rtol)
+    # Bit for bit the int8 kernel's numbers on the unpacked 4-bit rows.
+    int8_s, int8_m = exact_scores_ranked(q, k4, ks, length, 512)
+    assert torch.equal(got_s, int8_s) and torch.equal(got_m2, int8_m)
+    assert torch.equal(got_m, block_rank(q, k4, ks, length, 512))
+    assert torch.equal(torch.topk(got_m, 3).indices.sort().values,
+                       torch.topk(want_m, 3).indices.sort().values)
+
+
+def test_cuda_packed_rescore_attend_matches_plain_and_int8(cuda):
+    """Request 1's selection includes blocks past its length; the store
+    pipeline (packed scores, the unchanged block_attend) agrees."""
+    q, kp, k4, ks, vq, vs, length = _int4_inputs(cuda, 18)
+    scores, bmax = exact_scores_ranked(q, kp, ks, length, 512)
+    ids = torch.topk(bmax, 5).indices.to(torch.int32)
+    before = dict(LAUNCHES)
+    o, l = rescore_attend(q, ids, kp, ks, vq, vs, length, 512)
+    assert LAUNCHES["rescore_attend_int4"] == before["rescore_attend_int4"] + 1
+    po, pl = rescore_attend_plain(q, ids, kp, ks, vq, vs, length, 512)
+    _assert_within(o, po, rms_share=0.015)
+    _assert_within(l, pl, atol=1e-4, rtol=1e-5)
+    io, il = rescore_attend(q, ids, k4, ks, vq, vs, length, 512)
+    assert torch.equal(o, io) and torch.equal(l, il)
+    bo, bl = block_attend(scores, ids, vq, vs, 512)
+    torch.testing.assert_close(bo, o, atol=1e-6, rtol=1e-5)
+    torch.testing.assert_close(bl, l, atol=1e-6, rtol=1e-6)

@@ -77,9 +77,7 @@ def test_default_dense_layers_match_jax(n):
 
 @pytest.mark.parametrize("field,value", [
     ("estimator", "quest"), ("estimator", "topk"),
-    ("estimator", "oracle_sampling"), ("decode_mode", "sampled"),
-    ("lsh_debias", "poly"), ("lsh_debias", "none"),
-    ("offload_quant", "int4")])
+    ("estimator", "oracle_sampling"), ("decode_mode", "sampled")])
 def test_unported_lsh_options_raise(field, value):
     with pytest.raises(NotImplementedError):
         tcfg.LSHConfig(**{field: value})
@@ -96,6 +94,24 @@ def test_int8_cache_options_match_jax(estimator, offload, dense):
                        dense_quant=dense)
     assert t.offload_quantized == j.offload_quantized
     assert t.dense_quantized == j.dense_quantized
+
+
+@pytest.mark.parametrize("estimator", ["lsh", "block_topk"])
+@pytest.mark.parametrize("debias", ["exact", "poly", "none"])
+def test_int4_offload_and_debias_options_match_jax(estimator, debias):
+    """int4 offload (K on the 4-bit grid, V int8) and the three debias forms
+    are ported. The port packs block_topk's int4 K at any even head dim;
+    the JAX package only at 512-token blocks and d >= 64, where both
+    pack."""
+    kw = dict(estimator=estimator, offload_quant="int4", lsh_debias=debias)
+    t, j = tcfg.LSHConfig(**kw), jcfg.LSHConfig(**kw)
+    assert t.offload_quantized == j.offload_quantized
+    assert t.offload_k_bits == j.offload_k_bits == 4
+    assert t.lsh_debias == j.lsh_debias
+    assert t.packed_k4(64) == j.packed_k4(64) == (estimator == "block_topk")
+    small = tcfg.LSHConfig(block_topk_block_size=16, **kw)
+    assert small.packed_k4(16) == (estimator == "block_topk")
+    assert tcfg.LSHConfig(estimator=estimator).offload_k_bits == 8
 
 
 @pytest.mark.parametrize("quant", ["none", "int8"])
