@@ -23,7 +23,11 @@ Phases, each announced by one flushed progress line with elapsed seconds:
      version run with a planted fault (a 64-token V or K tile, a whole
      ranking block of K, or one 128-input group of one output tile of the
      int4 weight, zeroed), and the block ids the kernels rank first must be
-     the plain version's;
+     the plain version's. The two-stage LSH kernels: the collision scan at
+     K=10, L=150 and K=8, L=75 bit for bit (planted collisions in one word
+     must change the result), the masked attend from its words at K=8,
+     L=75 in its six forms, the odd-L routes timed against each other, and
+     the scorer's scores-only form (`exact_scores`) over bf16 and int8 K;
   3. serve: `LLM("llama-3.2-1b")` at full width and depth with random
      weights drawn on the card; two requests (12000 and 7000 tokens)
      prefilled into slots 0 and 1, 16 greedy decode steps, clear(), a third
@@ -44,7 +48,11 @@ Phases, each announced by one flushed progress line with elapsed seconds:
      packed-nibble kernel at decode size) and its "block_topk4" mode (W8A8
      fused weights, block_topk over packed int4 K and int8 V through the
      packed scorer and rescore, a dense int8 layer 0; the realized fraction
-     exact);
+     exact). Between the LSH serve and block_topk, on the LSH serve's
+     weights and projections: the sampled mode at K=10, L=150 (its first
+     step's sampled fraction in sparse layer 1 equal to the LSH serve's)
+     and the masked mode at odd L (K=8, L=75: the scan and the masked
+     attend), each counted and profiled like the others;
   4. reference: a two-layer cut of the same width at K=1, L=32 (nearly
      every key sampled) on the card against the same engine on the CPU
      (the plain versions); then the same cut under block_topk with bf16
@@ -54,7 +62,10 @@ Phases, each announced by one flushed progress line with elapsed seconds:
      launches counted; then, 2 steps each, block_topk over packed int4 K on
      the store pipeline and LSH K=1, L=32 over int4-grid K with the poly
      debias against the CPU, and the bf16 poly, bf16 none and int8 none LSH
-     forms on the card alone, launches counted.
+     forms on the card alone, launches counted; then the sampled mode at
+     K=1, L=32 (its 128-id budget truncating) and the masked mode at K=1,
+     L=31 over int8 offload with the poly debias against the CPU, and the
+     other masked-attend forms at K=8, L=75 on the card alone.
 Any failure raises. The last two lines are the kernels' JSON and the result
 JSON; the card's name and power limit come just before them.
 """
@@ -328,6 +339,161 @@ def phase_kernels(torch, F, dev):
         nbytes, rows, flops))
     results.update(int8_decode_kernels(torch, q, k, v, length, lens, proj, K, L))
     log_timings(results)
+    two_stage = two_stage_kernels(torch, F, gen, q, k, v, length, lens,
+                                  planes, q_bits)
+    log_timings(two_stage)
+    results.update(two_stage)
+    return results
+
+
+def plant_collisions(planes, q_bits, b: int, h: int, w: int):
+    """A copy of planes in which the 32 keys of word w of request b match
+    query head h in tables 0 and 1 (their plane words set to the head's
+    bits), so that the head's word w gets every bit set."""
+    g = q_bits.shape[1] // planes.shape[1]
+    planes = planes.clone()
+    planes[b, h // g, :2, :, w] = -q_bits[b, h, :2]   # 1 -> all ones, 0 -> 0
+    return planes
+
+
+def scan_kernel(torch, planes, q_bits, label: str) -> dict:
+    """The collision scan against its plain version, bit for bit; planted
+    collisions in one word must change the plain result. Bound: every plane
+    word read once, q_bits read and the words written once (bitwise
+    operations on the CUDA cores, not counted)."""
+    from magicpig_tpu_torch.ops import bitcodes
+    from magicpig_tpu_torch.ops.kernels import collision_words
+
+    got = collision_words(q_bits, planes)
+    want = bitcodes.collision_words(q_bits, planes)
+    if not torch.equal(got, want):
+        raise AssertionError(f"collision_words {label}: differs from the "
+                             "plain scan")
+    faulty = bitcodes.collision_words(q_bits, plant_collisions(planes, q_bits,
+                                                               1, 13, 40))
+    if torch.equal(faulty, got):
+        raise AssertionError(f"collision_words {label}: equality passes "
+                             "planted collisions")
+    nbytes = (planes.numel() + q_bits.numel() + got.numel()) * 4
+    log(f"kernel collision_words {label} bit-exact; planted collisions "
+        f"change {int((faulty != got).sum())} word(s)")
+    return dict(max_abs_err=0.0, tol="bit-exact", bound=bound_ms(nbytes, 0),
+                **timings(lambda: collision_words(q_bits, planes),
+                          lambda: bitcodes.collision_words(q_bits, planes)))
+
+
+def two_stage_kernels(torch, F, gen, q, k, v, length, lens, planes, q_bits):
+    """The two-stage LSH route's kernels on the caches of phase 2: the
+    collision scan at K=10, L=150 (the sampled serve's) and at K=8, L=75
+    (the odd-L serve's); the masked attend from the words at K=8, L=75 in
+    each of its six forms (bf16 and int8 K/V, each with the exact, poly and
+    none debias), counts exact, within `TOL` of its plain version, a skipped
+    V tile rejected, the none form nearer its own plain version than the
+    exact form's; and the odd-L routes on the same inputs, the scan and the
+    masked attend against the fused kernel called directly. The none form's
+    library yardstick is SDPA with the boolean sample mask (bf16 only)."""
+    from magicpig_tpu_torch.ops import bitcodes
+    from magicpig_tpu_torch.ops.kernels import (collision_words, lsh_decode,
+                                                lsh_fused_decode,
+                                                lsh_masked_attention)
+    from magicpig_tpu_torch.ops.kernels.lsh_masked import (
+        launch_name, lsh_masked_attention_plain)
+    from magicpig_tpu_torch.ops.quant import dequantize_rows, quantize_rows
+
+    b, hq, d = q.shape
+    hkv, s = k.shape[1], k.shape[2]
+    K, L = 8, 75
+    results = {"collision_words": scan_kernel(torch, planes, q_bits,
+                                              "K=10, L=150")}
+    proj = torch.randn((d, K * L), generator=gen, device=q.device)
+    valid_words = sum((n + 31) // 32 for n in lens)
+    tol = TOL["lsh_fused_decode"]
+    for quant in (False, True):
+        kk, vv, ks, vs, kd = k, v, None, None, k.float()
+        if quant:
+            kk, ks = quantize_rows(k)
+            vv, vs = quantize_rows(v)
+            kd = dequantize_rows(kk, ks, torch.float32)
+        k_norm = kd.norm(dim=-1)
+        planes75 = torch.stack([bitcodes.build_planes(kd[i].transpose(0, 1),
+                                                      proj, K)
+                                for i in range(b)])
+        del kd
+        qb = bitcodes.hash_bits(q, proj, K)
+        if not quant:
+            scan75 = scan_kernel(torch, planes75, qb, "K=8, L=75")
+        words = (collision_words(qb, planes75)
+                 & bitcodes.valid_words(length, s // 32)[:, None])
+        mask = bitcodes.unpack_words(words, s)                 # [B, Hq, S]
+        rows = int(mask.reshape(b, hkv, -1, s).any(dim=2).sum())
+        row_bytes = 2 * d * 2 + 4 if not quant else 2 * d + 8 + 4
+        exact = None
+        for debias in ("exact", "poly", "none"):
+            name = launch_name(quant, debias)
+            args = (q, kk, vv, k_norm, words, length, K, L, ks, vs, debias)
+            got, got_lse, got_cnt = lsh_masked_attention(*args)
+            want, want_lse, want_cnt = lsh_masked_attention_plain(*args)
+            if not torch.equal(got_cnt, want_cnt):
+                raise AssertionError(f"{name}: sampled counts differ")
+            err, share = check_close(name, got, want, tol)
+            err = max(err, check_close(f"{name} lse", got_lse, want_lse,
+                                       TOL["lse"])[0])
+            teeth = check_rejects(name, lsh_masked_attention_plain(
+                q, kk, drop_tile(vv, 2, 8192), k_norm, words, length, K, L,
+                ks, vs, debias)[0], want, tol)
+            moved = 0.0
+            if debias == "exact":
+                exact = got
+            else:
+                # At K=8, L=75 the polynomial lies closer to the exact
+                # weight than the plain version's bf16 rounding, so only
+                # the none form is told apart here; phase 4's poly cut
+                # (K=1, L=31, where the fit is off by units) tells poly.
+                moved = float((got - exact).abs().max())
+                if debias == "none" and not err < moved:
+                    raise AssertionError(f"{name}: nearer the exact form "
+                                         f"({moved:.2e}) than its own "
+                                         f"({err:.2e})")
+            nbytes = (valid_words * hq * 4 + rows * (row_bytes - (
+                4 if debias == "none" else 0)) + q.numel() * 2
+                + b * hq * (d + 2) * 4)
+            library = None
+            if debias == "none" and not quant:
+                q4, m4 = q[:, :, None], mask[:, :, None]
+                library = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                    q4, kk, vv, attn_mask=m4, enable_gqa=True)
+            results[name] = dict(
+                max_abs_err=err, tol=tol,
+                bound=bound_ms(nbytes, 4 * d * int(want_cnt.sum())),
+                **timings(lambda: lsh_masked_attention(*args),
+                          lambda: lsh_masked_attention_plain(*args), library),
+                sampled_frac=float(want_cnt.sum()) / (hq * sum(lens)),
+                rows_frac=rows / (hkv * sum(lens)))
+            log(f"kernel {name} err {err:.2e}, worst element {share:.2f} of "
+                f"its limit (tol {tol}); a skipped tile's worst element "
+                f"{teeth:.1f}x the limit; counts exact, sampled "
+                f"{results[name]['sampled_frac']:.4f}"
+                + (f"; {moved:.2e} from the exact form" if moved else ""))
+        if not quant:
+            # The odd-L routes on the same inputs: lsh_decode's two stages
+            # against the fused kernel called directly.
+            args = (q, kk, vv, k_norm, planes75, qb, length, K, L)
+            two, fused = lsh_decode(*args), lsh_fused_decode(*args)
+            if not torch.equal(two[2], fused[2]):
+                raise AssertionError("odd-L routes: sampled counts differ")
+            err = check_close("odd-L routes", two[0], fused[0], tol)[0]
+            same = all(torch.equal(a, c) for a, c in zip(two, fused))
+            route = {"two-stage": dict(ms=cuda_ms(lambda: lsh_decode(*args)),
+                                       device_ms=device_ms(
+                                           lambda: lsh_decode(*args))),
+                     "fused": dict(ms=cuda_ms(lambda: lsh_fused_decode(*args)),
+                                   device_ms=device_ms(
+                                       lambda: lsh_fused_decode(*args)))}
+            log(f"routes K=8, L=75, bf16 exact: two-stage {route['two-stage']}"
+                f", fused {route['fused']}; outputs "
+                f"{'equal' if same else f'within tol (err {err:.2e})'}")
+        del planes75, words, mask
+    log_timings({"collision_words K=8, L=75": scan75})
     return results
 
 
@@ -590,7 +756,9 @@ def phase_block_kernels(torch, dev):
     log(f"kernel exact_scores   err {err:.2e}, worst element {share:.2f} of "
         f"its limit (tol {tol}); a skipped K tile's worst element "
         f"{teeth:.1f}x the limit; top-{n_sel} ids equal")
-    del want_s, library
+    del want_s
+    results.update(exact_scores_kernel(torch, q, k, kq, ks, bs, library))
+    del library
 
     # -- rescore_attend: int8 K and V, the blocks block_rank picked.
     ids = torch.topk(block_rank(q, kq, ks, length, bs), n_sel).indices.to(torch.int32)
@@ -641,6 +809,43 @@ def phase_block_kernels(torch, dev):
     results.update(packed_block_kernels(torch, q, k, vq, vs, length, bs,
                                         n_sel, same_top, selected_tokens))
     log_timings(results)
+    return results
+
+
+def exact_scores_kernel(torch, q, k, kq, ks, bs, library) -> dict:
+    """The scorer's scores-only form (`exact_scores`: every token, no
+    length mask, no block max) over the block phase's bf16 and int8 K,
+    within `TOL` of its plain version, a zeroed ranking block of K
+    rejected. No path runs it; the kernels line keeps the bf16 numbers, the
+    int8 form is logged. Bound: K (and its scales) read once, the scores
+    written once."""
+    from magicpig_tpu_torch.ops.kernels import exact_scores
+    from magicpig_tpu_torch.ops.kernels.block_score import exact_scores_plain
+
+    b, hq, d = q.shape
+    hkv, s = k.shape[1], k.shape[2]
+    tol, results = TOL["block_scores"], {}
+    for label, kk, kks in (("bf16", k, None), ("int8", kq, ks)):
+        got = exact_scores(q, kk, kks)
+        want = exact_scores_plain(q, kk, kks)
+        err, share = check_close(f"exact_scores {label}", got, want, tol)
+        teeth = check_rejects(f"exact_scores {label}", exact_scores_plain(
+            q, drop_tile(kk, 2, 7 * bs, bs), kks), want, tol,
+            "a skipped ranking block of K")
+        row = d * kk.element_size() + (4 if kks is not None else 0)
+        nbytes = b * hkv * s * row + q.numel() * 2 + got.numel() * 4
+        r = dict(max_abs_err=err, tol=tol,
+                 bound=bound_ms(nbytes, 2 * d * hq * s * b),
+                 **timings(lambda: exact_scores(q, kk, kks),
+                           lambda: exact_scores_plain(q, kk, kks), library))
+        log(f"kernel exact_scores {label} (scores only, unmasked) err "
+            f"{err:.2e}, worst element {share:.2f} of its limit (tol {tol}); "
+            f"a skipped ranking block's worst element {teeth:.1f}x the limit")
+        if label == "bf16":
+            results["exact_scores"] = r
+        else:
+            log_timings({"exact_scores int8": r})
+        del got, want
     return results
 
 
@@ -758,6 +963,27 @@ def packed_block_kernels(torch, q, k, vq, vs, length, bs, n_sel, same_top,
     return results
 
 
+def first_step_fractions(decode, tokens):
+    """One decode step with every sparse layer's sampled fraction recorded
+    (the engine's sparse decode wrapped for that step only). Returns (the
+    step's tokens, the fractions of sparse layers 1, 2, ... in order)."""
+    from magicpig_tpu_torch.runtime import engine
+
+    inner, fracs = engine.decode_sparse_layer, []
+
+    def recorded(*args, **kwargs):
+        out, frac = inner(*args, **kwargs)
+        fracs.append(frac)
+        return out, frac
+
+    engine.decode_sparse_layer = recorded
+    try:
+        tokens = decode(tokens, 1)
+    finally:
+        engine.decode_sparse_layer = inner
+    return tokens, fracs
+
+
 def phase_serve(torch, dev):
     """The main path at Llama-3.2-1B width and depth, kernels counted."""
     from magicpig_tpu_torch.ops.kernels import LAUNCHES, reset_launches
@@ -795,7 +1021,8 @@ def phase_serve(torch, dev):
     finite = finite & torch.isfinite(l0).all() & torch.isfinite(l1).all()
     first = torch.cat([l0.argmax(-1), l1.argmax(-1)])
     t = time.perf_counter()
-    decode(first, 16)
+    tokens, first_fracs = first_step_fractions(decode, first)
+    decode(tokens, 15)
     torch.cuda.synchronize()
     decode_ms = (time.perf_counter() - t) * 1e3 / 16
     log(f"serve: prefill 12000 + 7000 tokens {prefill_s:.2f} s, "
@@ -849,7 +1076,9 @@ def phase_serve(torch, dev):
     return dict(prefill_s=prefill_s, decode_ms=decode_ms,
                 prefill2_s=prefill2_s, decode2_ms=decode2_ms,
                 avg_sparsity=llm.avg_sparsity, launches=launches,
-                params=llm.params, prompts=prompts[:2])
+                params=llm.params, projections=llm.projections,
+                prompts=prompts[:2],
+                first_fracs=[float(f) for f in first_fracs])
 
 
 PROFILED_STEPS = 2   # the profiler's processing costs seconds per step
@@ -876,13 +1105,15 @@ def profile_decode(torch, decode, tokens, label: str) -> None:
 
 
 def serve_counted(torch, dev, prompts, lsh, label: str, expect_fn,
-                  weight_quant: str = "none", params=None, check_frac=None):
+                  weight_quant: str = "none", params=None, check_frac=None,
+                  projections=None):
     """A serve at Llama-3.2-1B width and depth: `params`, or random weights
     drawn (and quantized as `weight_quant` says, q/k/v and gate|up fused) on
-    the card; the two first requests prefilled, 16 greedy steps, every
-    kernel launch counted and held to `expect_fn(llm)`, the sampled or
-    realized fraction checked (`check_frac(fraction)` raises, or in (0, 1)
-    for a sparse engine), finite logits, then a profiled decode pass."""
+    the card; the two first requests prefilled, 16 greedy steps (the first
+    with each sparse layer's sampled fraction recorded), every kernel
+    launch counted and held to `expect_fn(llm)`, the sampled or realized
+    fraction checked (`check_frac(fraction)` raises, or in (0, 1) for a
+    sparse engine), finite logits, then a profiled decode pass."""
     import dataclasses
 
     from magicpig_tpu_torch.config import preset
@@ -895,7 +1126,7 @@ def serve_counted(torch, dev, prompts, lsh, label: str, expect_fn,
                                   fuse_small_linears=True)
     t = time.perf_counter()
     llm = LLM(cfg, batch_size=2, max_length=16384, lsh=lsh, params=params,
-              device=dev, seed=1)
+              projections=projections, device=dev, seed=1)
     torch.cuda.synchronize()
     log(f"serve {label}: engine ({weight_quant} weights) in "
         f"{time.perf_counter() - t:.1f} s")
@@ -920,7 +1151,9 @@ def serve_counted(torch, dev, prompts, lsh, label: str, expect_fn,
     prefill_s = time.perf_counter() - t
     finite = finite & torch.isfinite(l0).all() & torch.isfinite(l1).all()
     t = time.perf_counter()
-    tokens = decode(torch.cat([l0.argmax(-1), l1.argmax(-1)]), 16)
+    tokens, first_fracs = first_step_fractions(
+        decode, torch.cat([l0.argmax(-1), l1.argmax(-1)]))
+    tokens = decode(tokens, 15)
     torch.cuda.synchronize()
     decode_ms = (time.perf_counter() - t) * 1e3 / 16
     launches = dict(LAUNCHES)
@@ -940,7 +1173,8 @@ def serve_counted(torch, dev, prompts, lsh, label: str, expect_fn,
     if not bool(finite):
         raise AssertionError(f"non-finite logits in the {label} serve")
     return dict(prefill_s=prefill_s, decode_ms=decode_ms,
-                avg_sparsity=llm.avg_sparsity, launches=launches)
+                avg_sparsity=llm.avg_sparsity, launches=launches,
+                first_fracs=[float(f) for f in first_fracs])
 
 
 def phase_serve_block(torch, dev, params, prompts):
@@ -959,6 +1193,44 @@ def phase_serve_block(torch, dev, params, prompts):
 
     return serve_counted(torch, dev, prompts, lsh, "block_topk int8", expect,
                          params=params, check_frac=exact_fraction(lsh, prompts))
+
+
+def phase_serve_two_stage(torch, dev, serve):
+    """The two-stage LSH decode on the LSH run's weights, projections and
+    first two prompts (`serve`, phase_serve's result): the sampled mode at K=10,
+    L=150 (the collision scan, the budget ids, the gathered decode), whose
+    first step's sampled count in sparse layer 1 must equal the masked
+    serve's (the same query, the same collision words; later layers see
+    activations that the two estimators round differently); and the masked
+    mode at K=8, L=75, odd L: the scan and the masked attend."""
+    from magicpig_tpu_torch.config import LSHConfig
+
+    def expect_fn(*names):
+        def expect(llm):
+            n = llm.config.num_hidden_layers
+            n_sparse = sum(1 for kind, _ in llm.groups if kind == "sparse")
+            return dict(flash_prefill=2 * n, flash_decode=16 * n,
+                        **{name: 16 * n_sparse for name in names})
+        return expect
+
+    params, prompts = serve["params"], serve["prompts"]
+    sampled = serve_counted(
+        torch, dev, prompts, LSHConfig(K=10, L=150, decode_mode="sampled"),
+        "sampled K=10/L=150", expect_fn("collision_words"), params=params,
+        projections=serve["projections"])
+    got, want = sampled["first_fracs"], serve["first_fracs"]
+    if got[0] != want[0]:
+        raise AssertionError(f"sampled serve: layer 1's first-step fraction "
+                             f"{got[0]} != the masked serve's {want[0]}")
+    worst = max(abs(a - b) / b for a, b in zip(got, want))
+    log(f"serve sampled: first step, sparse layer 1 sampled fraction "
+        f"{got[0]:.6f} equals the masked serve's; all layers within "
+        f"{worst:.2e} of it (relative)")
+    torch.cuda.empty_cache()
+    odd = serve_counted(
+        torch, dev, prompts, LSHConfig(K=8, L=75), "odd L K=8/L=75",
+        expect_fn("collision_words", "lsh_masked_attention"), params=params)
+    return sampled, odd
 
 
 def exact_fraction(lsh, prompts):
@@ -1176,6 +1448,60 @@ def phase_reference_int4(torch, dev):
     return counted
 
 
+def phase_reference_two_stage(torch, dev):
+    """The two-stage slice's cuts, 2 steps each: the sampled mode at K=1,
+    L=32, where nearly every one of the 1032 offloaded keys is sampled and
+    the 128-id budget truncates (equal masks give equal ids), and the
+    masked mode at K=1, L=31 (odd: the scan and the masked attend) over
+    int8 offload with the poly debias, each card engine against its CPU
+    twin; then the other forms of the masked attend at K=8, L=75 (bf16
+    poly and none, int8 exact and none) on the card alone, launches
+    counted and logits finite (the bf16 exact form runs in phase 3's odd-L
+    serve; phase 2 holds each form against its plain version). Returns
+    each kernel form's launches from the run of its path."""
+    from magicpig_tpu_torch.config import LSHConfig
+    from magicpig_tpu_torch.ops.kernels.lsh_masked import launch_name
+
+    steps, counted = 2, {}
+
+    def expect(launches, **want):
+        full = dict.fromkeys(launches, 0)
+        full.update(flash_prefill=2, flash_decode=2 * steps,
+                    collision_words=steps, **want)
+        if launches != full:
+            raise AssertionError(f"launches {launches} != path's {full}")
+
+    lsh = LSHConfig(K=1, L=32, decode_mode="sampled", dense_layers=(0,))
+    card, host, launches = card_vs_cpu(torch, dev, lsh, "sampled K=1/L=32, "
+                                       "the budget truncating", 1100,
+                                       steps=steps)
+    expect(launches)
+    if lsh.sample_budget(card.state.off_k[0].shape[2]) != 128:
+        raise AssertionError("the sampled cut's budget is not 128")
+    if min(card.avg_sparsity, host.avg_sparsity) < 0.9:
+        raise AssertionError("K=1/L=32 should sample nearly every key")
+    lsh = LSHConfig(K=1, L=31, offload_quant="int8", lsh_debias="poly",
+                    dense_layers=(0,))
+    card, host, launches = card_vs_cpu(torch, dev, lsh, "masked K=1/L=31, "
+                                       "int8 offload, poly debias", 1100,
+                                       steps=steps)
+    expect(launches, lsh_masked_attention_int8_poly=steps)
+    if min(card.avg_sparsity, host.avg_sparsity) < 0.9:
+        raise AssertionError("K=1/L=31 should sample nearly every key")
+    counted["lsh_masked_attention_int8_poly"] = steps
+    del card, host
+    for offload, debias in (("none", "poly"), ("none", "none"),
+                            ("int8", "exact"), ("int8", "none")):
+        lsh = LSHConfig(K=8, L=75, offload_quant=offload, lsh_debias=debias,
+                        dense_layers=(0,))
+        name = launch_name(offload == "int8", debias)
+        launches = card_counted(torch, dev, lsh, f"LSH K=8/L=75, {offload} "
+                                f"offload, {debias} debias", steps)
+        expect(launches, **{name: steps})
+        counted[name] = steps
+    return counted
+
+
 def card_counted(torch, dev, lsh, label: str, steps: int) -> dict:
     """Two layers at 1B width on the card alone, layer 1 sparse: a
     1100-token prefill and `steps` greedy steps, finite logits. Returns the
@@ -1241,8 +1567,11 @@ def main() -> int:
 
     log("phase 3 serve llama-3.2-1b")
     serve = phase_serve(torch, dev)
-    params, prompts = serve.pop("params"), serve.pop("prompts")
     torch.cuda.empty_cache()
+    sampled, odd = phase_serve_two_stage(torch, dev, serve)
+    torch.cuda.empty_cache()
+    params, prompts = serve.pop("params"), serve.pop("prompts")
+    del serve["projections"]
     block = phase_serve_block(torch, dev, params, prompts)
     del params
     torch.cuda.empty_cache()
@@ -1253,6 +1582,7 @@ def main() -> int:
 
     log("phase 4 reference on a small input")
     store = phase_reference(torch, dev)
+    masked_forms = phase_reference_two_stage(torch, dev)
 
     # Each kernel's launches come from the counted run of the path that
     # uses it: the LSH serve, the block_topk int8 serve (rescore pipeline),
@@ -1275,7 +1605,14 @@ def main() -> int:
                 **{name: store[name] for name in (
                     "exact_scores_ranked_int4", "lsh_fused_decode_poly",
                     "lsh_fused_decode_none", "lsh_fused_decode_int8_poly",
-                    "lsh_fused_decode_int8_none")}}
+                    "lsh_fused_decode_int8_none")},
+                "collision_words": sampled["launches"]["collision_words"],
+                "lsh_masked_attention":
+                    odd["launches"]["lsh_masked_attention"],
+                **masked_forms}
+    # No path of the port (or of the JAX package) calls the scores-only
+    # scorer, so its count stands as the LSH serve measured it; every counted
+    # run above holds every kernel not on its path, this one too, at 0.
     score_src = ("magicpig_tpu_torch/csrc/block_score.cu",
                  "magicpig_tpu/ops/pallas/score.py:225")
     sources = {"flash_prefill": ("magicpig_tpu_torch/csrc/flash_prefill.cu",
@@ -1292,9 +1629,16 @@ def main() -> int:
                                 "magicpig_tpu/ops/pallas/block_attend.py:224"),
                "w4_matmul": ("magicpig_tpu_torch/csrc/w4_matmul.cu",
                              "magicpig_tpu/ops/pallas/w4_matmul.py:121")}
+    sources["collision_words"] = ("magicpig_tpu_torch/csrc/collision_words.cu",
+                                  "magicpig_tpu/ops/pallas/collide.py:76")
+    sources["lsh_masked_attention"] = (
+        "magicpig_tpu_torch/csrc/lsh_masked.cu",
+        "magicpig_tpu/ops/pallas/lsh_decode.py:271")
+    sources["exact_scores"] = score_src
     sources["flash_decode_int8"] = sources["flash_decode"]
     for form in ("_int8", "_poly", "_none", "_int8_poly", "_int8_none"):
         sources["lsh_fused_decode" + form] = sources["lsh_fused_decode"]
+        sources["lsh_masked_attention" + form] = sources["lsh_masked_attention"]
     for name in ("block_rank", "exact_scores_ranked", "rescore_attend"):
         sources[name + "_int4"] = sources[name]
     kernels = []

@@ -12,17 +12,20 @@ channel (W8A8) or int4 in 128-input groups; `fuse_small_linears` joins
 q/k/v and gate/up of quantized weights into one matmul each.
 
 `LSHConfig` keeps the fields the ported estimators read: "lsh" (SimHash
-sampling, with the exact, polynomial or no debias) and "block_topk"
+sampling, with the exact, polynomial or no debias, decoded in the masked
+or the sampled form) and "block_topk"
 (exact-score block ranking), each with bf16, int8 or int4 offload K (V
 int8 when quantized), and the dense layers' K/V bf16 or int8
 (`dense_quant`). With int4 offload under block_topk the K rows are stored
-packed, two channels a byte (`ops/pack4.py`). Any other estimator or decode
-mode is not ported yet and raises `NotImplementedError`.
+packed, two channels a byte (`ops/pack4.py`). Any other estimator is not
+ported yet and raises `NotImplementedError`; an unknown decode mode raises
+`ValueError`.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 
@@ -122,6 +125,7 @@ def default_dense_layers(num_layers: int) -> tuple[int, ...]:
 
 ESTIMATORS = ("lsh", "quest", "topk", "oracle_sampling", "block_topk")
 PORTED_ESTIMATORS = ("lsh", "block_topk")
+DECODE_MODES = ("masked", "sampled")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -145,8 +149,12 @@ class LSHConfig:
     stores the dense layers' K/V as int8 rows. The hot sink and local tokens
     stay exact. `lsh_debias` reweights the sampled scores by the exact
     collision probability ("exact"), by its degree-20 polynomial fit
-    ("poly"), or not at all ("none"). A value the port does not have yet
-    raises `NotImplementedError`.
+    ("poly"), or not at all ("none"). `decode_mode` "masked" attends every
+    sampled key of the offload region in place; "sampled" compacts each
+    head's sampled keys to a static budget of token ids
+    (`sample_budget`), gathers those rows and applies the exact debias
+    whatever `lsh_debias` says (as the reference's sampled path does). A
+    value the port does not have yet raises `NotImplementedError`.
     """
 
     K: int = 10
@@ -159,6 +167,10 @@ class LSHConfig:
     block_topk_block_size: int = 512
     block_topk_budget_frac: float = 0.08
     block_topk_pipeline: str = "rescore"
+    # Static per-head budget of the sampled mode, a fraction of the offload
+    # capacity (the expected collision rate at K=10, L=150 is ~2%).
+    sample_budget_frac: float = 0.06
+    min_sample_budget: int = 128
     decode_mode: str = "masked"
     lsh_debias: str = "exact"
     offload_quant: str = "none"
@@ -167,12 +179,13 @@ class LSHConfig:
     def __post_init__(self):
         if self.estimator not in ESTIMATORS:
             raise ValueError(f"unknown estimator {self.estimator!r}")
+        if self.decode_mode not in DECODE_MODES:
+            raise ValueError(f"unknown decode_mode {self.decode_mode!r}")
         if self.block_topk_pipeline not in ("rescore", "store"):
             raise ValueError(
                 f"unknown block_topk_pipeline {self.block_topk_pipeline!r}")
         for field, value, ported in (
                 ("estimator", self.estimator, PORTED_ESTIMATORS),
-                ("decode_mode", self.decode_mode, ("masked",)),
                 ("lsh_debias", self.lsh_debias, ("exact", "poly", "none")),
                 ("offload_quant", self.offload_quant,
                  ("none", "int8", "int4")),
@@ -216,6 +229,15 @@ class LSHConfig:
     def enabled(self) -> bool:
         """Sparse layers active? (K=0 = full attention everywhere.)"""
         return self.K != 0
+
+    def sample_budget(self, offload_len: int) -> int:
+        """Static budget of sampled tokens per (head, step) of the sampled
+        mode: `sample_budget_frac` of `offload_len`, at least
+        `min_sample_budget`, rounded up to a multiple of 128 and at most
+        `offload_len`."""
+        b = max(self.min_sample_budget,
+                int(math.ceil(offload_len * self.sample_budget_frac)))
+        return min(offload_len, ((b + 127) // 128) * 128)
 
     def dense_layers_for(self, num_layers: int) -> tuple[int, ...]:
         """Full-attention layers: all with K=0, else the given ones, else

@@ -1,25 +1,28 @@
 // Exact block scorer of the block_topk estimator: the scaled scores q.K of
 // every offloaded key for the G query heads of its kv head, with the
 // per-row K scale and the length mask, and the max of each ranking block
-// over the G heads and the block's tokens. One kernel, two variants by a
-// compile-time flag: block max only (block_rank) or scores and block max
-// (exact_scores_ranked).
+// over the G heads and the block's tokens. One kernel, three variants by
+// compile-time flags: block max only (block_rank), scores and block max
+// (exact_scores_ranked), or scores only, unmasked (exact_scores).
 //
 // Replaces magicpig_tpu/ops/pallas/score.py::_scores_call (the pallas_call
-// at score.py:225), reached through block_rank (score.py:301) and
-// exact_scores_ranked (score.py:272); int8 K with f32 row scales, packed
+// at score.py:225), reached through block_rank (score.py:301),
+// exact_scores_ranked (score.py:272), and exact_scores_folded (score.py:251)
+// and exact_scores (score.py:326), whose token-order scores the port's
+// layout stores directly (bf16 or int8 K); int8 K with f32 row scales, packed
 // int4 K with f32 row scales (its packed=True form, score.py:62-92, in the
 // port's layout: two channels a byte, tokens in order), or bf16 K.
 //
 // Bound on the H100: reading K once (32 bytes a token and kv head in packed
 // int4, 64 in int8, 128 in bf16) plus its scales, and in the
 // exact_scores_ranked variant
-// writing 4 bytes a token and query head; ~2 flops per byte, so device
+// writing 4 bytes a token and query head (both score-storing variants);
+// ~2 flops per byte, so device
 // memory bounds it. Design: the TPU grid walks (request, kv head, 64K-token
 // tile) in order on one core; here one block of 128 threads takes one
 // (ranking block, kv head, request), 2048 blocks at B = 2, Hkv = 8, S = 64K.
 // A block wholly at or past the request's length writes -inf and reads no
-// K. Each thread scores whole tokens: it loads a key row in 16-byte pieces
+// K (exact_scores masks nothing: every token is scored). Each thread scores whole tokens: it loads a key row in 16-byte pieces
 // and sums against the G bf16-rounded queries held in shared memory (one
 // shared function, token_scores, that the rescore kernel calls too). The
 // block max is a warp shuffle and a shared-memory reduce, stored once.
@@ -27,7 +30,9 @@
 
 namespace {
 
-template <int G, typename KT, bool kStoreScores>
+// kRank: mask at the length and store the block max (else score every
+// token, store no block max; length and block_max are unused).
+template <int G, typename KT, bool kStoreScores, bool kRank>
 __global__ void __launch_bounds__(mp::kBlkThreads)
 block_score_kernel(const __nv_bfloat16* __restrict__ q,
                    const KT* __restrict__ k,
@@ -43,7 +48,7 @@ block_score_kernel(const __nv_bfloat16* __restrict__ q,
   const int blk = blockIdx.x, kh = blockIdx.y, b = blockIdx.z;
   const int nb = gridDim.x;
   const int tid = threadIdx.x;
-  const int len = min(length[b], s_cap);
+  const int len = kRank ? min(length[b], s_cap) : s_cap;
   const int t0 = blk * block_size;
   const size_t head = static_cast<size_t>(b) * hkv + kh;
   float* sc = kStoreScores ? scores + head * G * s_cap : nullptr;
@@ -79,6 +84,7 @@ block_score_kernel(const __nv_bfloat16* __restrict__ q,
       if (kStoreScores) sc[static_cast<size_t>(g) * s_cap + t] = s[g];
     }
   }
+  if (!kRank) return;
   mx = warp_max(mx);
   if ((tid & 31) == 0) red[tid >> 5] = mx;
   __syncthreads();
@@ -101,12 +107,18 @@ int launch(const void* q, const void* k, const void* k_scale,
   const auto* ks = static_cast<const float*>(k_scale);
   const auto* lp = static_cast<const int*>(length);
   auto* bm = static_cast<float*>(block_max);
-  if (scores != nullptr)
-    block_score_kernel<G, KT, true><<<grid, mp::kBlkThreads, 0, stream>>>(
-        qp, kp, ks, lp, static_cast<float*>(scores), bm, s_cap, hkv,
-        block_size, sm_scale);
+  auto* sc = static_cast<float*>(scores);
+  if (block_max == nullptr)
+    block_score_kernel<G, KT, true, false><<<grid, mp::kBlkThreads, 0,
+                                             stream>>>(
+        qp, kp, ks, lp, sc, bm, s_cap, hkv, block_size, sm_scale);
+  else if (scores != nullptr)
+    block_score_kernel<G, KT, true, true><<<grid, mp::kBlkThreads, 0,
+                                            stream>>>(
+        qp, kp, ks, lp, sc, bm, s_cap, hkv, block_size, sm_scale);
   else
-    block_score_kernel<G, KT, false><<<grid, mp::kBlkThreads, 0, stream>>>(
+    block_score_kernel<G, KT, false, true><<<grid, mp::kBlkThreads, 0,
+                                             stream>>>(
         qp, kp, ks, lp, nullptr, bm, s_cap, hkv, block_size, sm_scale);
   return static_cast<int>(cudaGetLastError());
 }
@@ -131,8 +143,9 @@ int dispatch(int g, const void* q, const void* k, const void* k_scale,
 
 }  // namespace
 
-// scores may be null (block max only); k_kind is a KeyKind, and k_scale
-// is null exactly for bf16 K.
+// scores may be null (block max only), or block_max null (scores only,
+// unmasked: length unused); k_kind is a KeyKind, and k_scale is null
+// exactly for bf16 K.
 extern "C" int mp_block_score(const void* q, const void* k,
                               const void* k_scale, const void* length,
                               void* scores, void* block_max, int batch,
@@ -141,7 +154,8 @@ extern "C" int mp_block_score(const void* q, const void* k,
                               void* stream) {
   if (head_dim != mp::kBlkD || hq % hkv != 0 || block_size <= 0 ||
       block_size % 64 != 0 || s_cap % block_size != 0 ||
-      (k_kind != mp::kKeyBf16) != (k_scale != nullptr))
+      (k_kind != mp::kKeyBf16) != (k_scale != nullptr) ||
+      (scores == nullptr && block_max == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (k_kind) {

@@ -10,7 +10,11 @@ against them.
     explicit length, returning (out, lse) for the LSE merge;
   * `collision_mask` / `lsh_masked_decode`: the LSH-sampled estimator in its
     dense masked form (>=2-of-L collision mask + debias, exact, polynomial
-    or none, + masked softmax).
+    or none, + masked softmax);
+  * `mask_to_budget_ids` / `lsh_sampled_decode`: the same estimator in its
+    budgeted-gather form (the sampled ids of each head compacted to a
+    static budget, the rows gathered, the exact debias). It has no kernel:
+    the JAX package computes it in XLA too.
 
 Decode paths take GQA-shaped inputs: q [B, Hq, d] over caches [B, Hkv, S, d]
 with Hq = G * Hkv. Products take their inputs' values exactly and sum in
@@ -28,6 +32,7 @@ import math
 import torch
 
 from magicpig_tpu_torch.ops.debias import debias_scores
+from magicpig_tpu_torch.ops.quant import dequantize_rows
 
 _NEG_INF = -math.inf
 _PREFILL_BLOCK = 512   # keys per step of the plain prefill's online softmax
@@ -190,4 +195,66 @@ def lsh_masked_decode(q: torch.Tensor, k_centered: torch.Tensor,
     full_mask = mask.reshape(b, hkv, g, s) & valid
     scores = torch.where(full_mask, scores, torch.full_like(scores, _NEG_INF))
     out, lse = _softmax_pv(scores, v, v_scale)
+    return out.reshape(b, hq, d), lse.reshape(b, hq)
+
+
+def mask_to_budget_ids(mask: torch.Tensor, budget: int):
+    """Compact a sample mask [..., S] to `budget` token ids and validity.
+
+    The ids of set bits come first, lowest first, then those of clear bits,
+    lowest first: past the budget the highest set ids are dropped. This is
+    the order of the JAX package's `lax.top_k` over the int8 mask (stable);
+    `torch.topk` promises no order among ties, so a stable sort gives it.
+    Returns (ids [..., budget] int32, valid [..., budget] bool).
+    """
+    order = torch.sort(mask.to(torch.int8), dim=-1, descending=True,
+                       stable=True).indices[..., :budget]
+    return order.to(torch.int32), torch.gather(mask.bool(), -1, order)
+
+
+def _gather_rows(cache: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """cache [B, Hkv, S, ...] rows at ids [B, Hkv, N] -> [B, Hkv, N, ...]."""
+    idx = ids.long().reshape(*ids.shape, *([1] * (cache.dim() - 3)))
+    return torch.gather(cache, 2, idx.expand(*ids.shape, *cache.shape[3:]))
+
+
+def lsh_sampled_decode(q: torch.Tensor, k_centered: torch.Tensor,
+                       v: torch.Tensor, k_norm: torch.Tensor,
+                       ids: torch.Tensor, ids_valid: torch.Tensor, K: int,
+                       L: int, k_scale: torch.Tensor | None = None,
+                       v_scale: torch.Tensor | None = None):
+    """Budgeted-gather form of LSH-sampled attention.
+
+    q: [B, Hq, d]; k_centered, v: [B, Hkv, S, d] (int8 with k_scale,
+    v_scale [B, Hkv, S]: the gathered rows are dequantized to bf16, the
+    values the JAX package gathers from its dequantized cache); k_norm:
+    [B, Hkv, S]; ids, ids_valid: [B, Hq, budget] from `mask_to_budget_ids`.
+    Applies the exact debias with the key norm clamped at 1e-20. Equals
+    `lsh_masked_decode` wherever the budget covers every sampled key.
+    Returns (out [B, Hq, d] f32, lse [B, Hq] f32).
+    """
+    b, hq, d = q.shape
+    hkv = k_centered.shape[1]
+    g, budget = hq // hkv, ids.shape[-1]
+    idh = ids.reshape(b, hkv, g * budget)
+    kg, vg = _gather_rows(k_centered, idh), _gather_rows(v, idh)
+    if k_scale is not None:
+        kg = dequantize_rows(kg, _gather_rows(k_scale, idh))
+        vg = dequantize_rows(vg, _gather_rows(v_scale, idh))
+    kg = kg.reshape(b, hkv, g, budget, d)
+    vg = vg.reshape(b, hkv, g, budget, d)
+    kn = _gather_rows(k_norm, idh).reshape(b, hkv, g, budget)
+    qh = q.float().reshape(b, hkv, g, 1, d)
+    raw = torch.matmul(qh, kg.float().transpose(-1, -2)).squeeze(-2)
+    q_norm = torch.linalg.vector_norm(qh, dim=-1)            # [B,Hkv,G,1]
+    scores = debias_scores(raw, q_norm, torch.clamp(kn, min=1e-20), d, K, L)
+    scores = torch.where(ids_valid.reshape(b, hkv, g, budget), scores,
+                         torch.full_like(scores, _NEG_INF))
+    m = torch.max(scores, dim=-1).values
+    m_safe = torch.where(torch.isneginf(m), torch.zeros_like(m), m)
+    p = torch.exp(scores - m_safe.unsqueeze(-1))
+    l = torch.sum(p, dim=-1)
+    acc = torch.matmul(p.to(vg.dtype).float().unsqueeze(-2),
+                       vg.float()).squeeze(-2)
+    out, lse = _finish(m_safe, l, acc)
     return out.reshape(b, hq, d), lse.reshape(b, hq)

@@ -7,9 +7,15 @@ first use) and runs its plain PyTorch version for CPU tensors.
 from magicpig_tpu_torch.ops.kernels._lib import LAUNCHES, reset_launches  # noqa: F401
 from magicpig_tpu_torch.ops.kernels.flash_decode import flash_decode  # noqa: F401
 from magicpig_tpu_torch.ops.kernels.flash_prefill import flash_prefill  # noqa: F401
-from magicpig_tpu_torch.ops.kernels.lsh_fused import lsh_fused_decode  # noqa: F401
+from magicpig_tpu_torch.ops.kernels.collision_words import collision_words  # noqa: F401
+from magicpig_tpu_torch.ops.kernels.lsh_masked import lsh_masked_attention  # noqa: F401
+from magicpig_tpu_torch.ops.kernels.lsh_fused import (  # noqa: F401
+    lsh_decode,
+    lsh_fused_decode,
+)
 from magicpig_tpu_torch.ops.kernels.block_score import (  # noqa: F401
     block_rank,
+    exact_scores,
     exact_scores_ranked,
 )
 from magicpig_tpu_torch.ops.kernels.rescore_attend import rescore_attend  # noqa: F401

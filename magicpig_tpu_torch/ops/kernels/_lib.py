@@ -42,10 +42,18 @@ LAUNCHES: dict[str, int] = {
     "lsh_fused_decode_none": 0,
     "lsh_fused_decode_int8_poly": 0,
     "lsh_fused_decode_int8_none": 0,
+    "collision_words": 0,
+    "lsh_masked_attention": 0,
+    "lsh_masked_attention_int8": 0,
+    "lsh_masked_attention_poly": 0,
+    "lsh_masked_attention_none": 0,
+    "lsh_masked_attention_int8_poly": 0,
+    "lsh_masked_attention_int8_none": 0,
     "block_rank": 0,
     "block_rank_int4": 0,
     "exact_scores_ranked": 0,
     "exact_scores_ranked_int4": 0,
+    "exact_scores": 0,
     "rescore_attend": 0,
     "rescore_attend_int4": 0,
     "block_attend": 0,
@@ -60,6 +68,8 @@ _SIGNATURES = {
     "mp_flash_prefill": [_P] * 7 + [_I] * 7 + [_F, _P],
     "mp_flash_decode": [_P] * 10 + [_I] * 5 + [_F, _P],
     "mp_lsh_fused_decode": [_P] * 15 + [_I] * 7 + [_F, _I, _P, _P],
+    "mp_lsh_masked_attention": [_P] * 14 + [_I] * 7 + [_F, _I, _P, _P],
+    "mp_collision_words": [_P] * 3 + [_I] * 6 + [_P],
     "mp_block_score": [_P] * 6 + [_I] * 7 + [_F, _P],
     "mp_rescore_attend": [_P] * 11 + [_I] * 8 + [_F, _P],
     "mp_block_attend": [_P] * 8 + [_I] * 8 + [_P],

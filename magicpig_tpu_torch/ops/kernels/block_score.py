@@ -1,14 +1,20 @@
 """Exact block scorer of the block_topk estimator: wrappers `block_rank`
-(block maxes only) and `exact_scores_ranked` (scores and block maxes) of the
-hand-written kernel `csrc/block_score.cu`, with their plain version
-`block_scores_plain`.
+(block maxes only), `exact_scores_ranked` (scores and block maxes) and
+`exact_scores` (scores only, unmasked) of the hand-written kernel
+`csrc/block_score.cu`, with their plain versions `block_scores_plain` and
+`exact_scores_plain`.
 
 Replaces the TPU kernel `magicpig_tpu/ops/pallas/score.py::_scores_call`
-(pallas_call at score.py:225), reached through `block_rank` (score.py:301)
-and `exact_scores_ranked` (score.py:272). On the H100 it is bound by
+(pallas_call at score.py:225), reached through `block_rank` (score.py:301),
+`exact_scores_ranked` (score.py:272), `exact_scores_folded` (score.py:251)
+and `exact_scores` (score.py:326); the last two differ only in the TPU's
+folded layout, and the port's token-order scores are `exact_scores`'s
+(bf16 or int8 K, counted as "exact_scores"). On the H100 it is bound by
 reading K (int8 with f32 row scales, packed int4 with f32 row scales, or
 bf16) once, plus the f32 score store in the `exact_scores_ranked` variant;
-one block of the kernel scores one ranking block of one (request, kv head).
+one block of the kernel scores one ranking block of one (request, kv head)
+(for `exact_scores`, one 512-token span, or the largest power-of-two span
+from 64 that divides S).
 Packed int4 K ([B, Hkv, S, d/2] bytes, `ops/pack4.py`) is counted apart, as
 "block_rank_int4" and "exact_scores_ranked_int4".
 
@@ -69,6 +75,15 @@ def block_scores_plain(q: torch.Tensor, k: torch.Tensor,
     return scores, bmax
 
 
+def exact_scores_plain(q: torch.Tensor, k: torch.Tensor,
+                       k_scale: torch.Tensor | None) -> torch.Tensor:
+    """Plain version of `exact_scores`: the scores of every token."""
+    b, hkv, s = k.shape[:3]
+    pos = torch.arange(s, device=k.device).expand(b, hkv, s)
+    full = torch.full((b,), s, dtype=torch.int32, device=k.device)
+    return token_scores(q, k, k_scale, pos, full)
+
+
 def key_kind(name: str, q: torch.Tensor, k: torch.Tensor,
              k_scale: torch.Tensor | None) -> int:
     """The kernels' K selector (KeyKind in block_common.cuh) after checking
@@ -91,12 +106,13 @@ def key_kind(name: str, q: torch.Tensor, k: torch.Tensor,
 
 
 def _launch(name: str, q, k, k_scale, length, block_size: int,
-            store_scores: bool):
+            store_scores: bool, rank: bool = True):
     _lib.require(q.device.type == "cuda", f"{name}: unsupported device {q.device}")
     b, hq, d = q.shape
     kind = key_kind(name, q, k, k_scale)
     hkv, s = k.shape[1], k.shape[2]
-    _lib.require_cuda(name, q, k, length, *([k_scale] if kind else []))
+    _lib.require_cuda(name, q, k, *([length] if rank else []),
+                      *([k_scale] if kind else []))
     _lib.require(q.dtype == torch.bfloat16, f"{name}: q must be bfloat16")
     _lib.require(d == HEAD_DIM, f"{name}: head_dim {d} != {HEAD_DIM}")
     _lib.require(hq % hkv == 0 and hq // hkv in (1, 2, 4, 8),
@@ -105,11 +121,12 @@ def _launch(name: str, q, k, k_scale, length, block_size: int,
                  and s % block_size == 0,
                  f"{name}: block size {block_size} must be a multiple of 64 "
                  f"that divides S={s}")
-    _lib.require(length.dtype == torch.int32 and length.shape == (b,),
+    _lib.require(not rank or (length.dtype == torch.int32
+                              and length.shape == (b,)),
                  f"{name}: length must be int32 [B]")
     f32 = dict(dtype=torch.float32, device=q.device)
     scores = torch.empty((b, hkv, hq // hkv, s), **f32) if store_scores else None
-    bmax = torch.empty((b, hkv, s // block_size), **f32)
+    bmax = torch.empty((b, hkv, s // block_size), **f32) if rank else None
     _lib.launch(name + ("_int4" if kind == KEY_INT4 else ""),
                 "mp_block_score", q.device, q, k, k_scale, length, scores,
                 bmax, b, s, hq, hkv, d, block_size, kind, 1.0 / math.sqrt(d))
@@ -141,3 +158,22 @@ def exact_scores_ranked(q: torch.Tensor, k: torch.Tensor,
         return block_scores_plain(q, k, k_scale, length, block_size)
     return _launch("exact_scores_ranked", q, k, k_scale, length, block_size,
                    True)
+
+
+def exact_scores(q: torch.Tensor, k: torch.Tensor,
+                 k_scale: torch.Tensor | None) -> torch.Tensor:
+    """Scaled scores of every token, no length mask, no block max.
+
+    q: [B, Hq, d] (raw; scaled here); k: [B, Hkv, S, d] int8 with k_scale
+    [B, Hkv, S] f32, or bf16 with k_scale None; S a multiple of 64.
+    Returns [B, Hkv, G, S] f32 in token order (the JAX package's
+    `exact_scores`). CPU tensors take the plain version.
+    """
+    if q.device.type == "cpu":
+        return exact_scores_plain(q, k, k_scale)
+    name = "exact_scores"
+    _lib.require(not is_packed(q, k), f"{name}: takes bf16 or int8 K")
+    s = k.shape[2]
+    span = next((n for n in (512, 256, 128, 64) if s % n == 0), 0)
+    _lib.require(span > 0, f"{name}: S={s} must be a multiple of 64")
+    return _launch(name, q, k, k_scale, None, span, True, rank=False)[0]

@@ -1,6 +1,8 @@
 """Fused LSH-sampled decode: wrapper of the hand-written kernel
 `csrc/lsh_fused.cu`, with its plain version (`ops.bitcodes.sampled_mask`
-then `ops.attention.lsh_masked_decode`).
+then `ops.attention.lsh_masked_decode`), and `lsh_decode`, which routes the
+masked decode between it and the two-stage kernels as the JAX package
+routes it.
 
 Replaces the TPU kernel `magicpig_tpu/ops/pallas/lsh_fused.py::
 lsh_fused_attention2` (pallas_call at lsh_fused.py:286), reached through
@@ -16,28 +18,25 @@ group samples, and the kernel reads only those.
 
 from __future__ import annotations
 
-import ctypes
-import math
-
 import torch
 
 from magicpig_tpu_torch.ops import attention, bitcodes
-from magicpig_tpu_torch.ops.debias import DEBIAS_FORMS, log_weight_poly
-from magicpig_tpu_torch.ops.kernels import _lib
-from magicpig_tpu_torch.ops.kernels.flash_decode import (
-    SPLIT_TOKENS,
-    check_decode_inputs,
+from magicpig_tpu_torch.ops.kernels.collision_words import (
+    check_scan_inputs,
+    collision_words,
 )
-
-MAX_QCODE_BYTES = 12 * 1024   # dynamic shared memory for the query codes
-MAX_K = 16                    # bits per table (kMaxK in lsh_fused.cu)
+from magicpig_tpu_torch.ops.kernels.lsh_masked import (
+    check_attend_inputs,
+    form_name,
+    launch_attend,
+    lsh_masked_attention,
+)
 
 
 def launch_name(quant: bool, debias: str) -> str:
     """The launch counter of one form: "lsh_fused_decode", "_int8" for int8
     K/V, then "_poly" or "_none" for those debias forms."""
-    return ("lsh_fused_decode" + ("_int8" if quant else "")
-            + ("" if debias == "exact" else f"_{debias}"))
+    return form_name("lsh_fused_decode", quant, debias)
 
 
 def lsh_fused_decode_plain(q, k_centered, v, k_norm, planes, q_bits, length,
@@ -58,7 +57,8 @@ def lsh_fused_decode(q: torch.Tensor, k_centered: torch.Tensor,
                      k_scale: torch.Tensor | None = None,
                      v_scale: torch.Tensor | None = None,
                      debias: str = "exact"):
-    """LSH-sampled decode partial over the offload region.
+    """LSH-sampled decode partial over the offload region, scan included
+    (any L).
 
     q: [B, Hq, d]; k_centered, v: [B, Hkv, S, d], bf16, or int8 with f32
     scales k_scale, v_scale [B, Hkv, S]; k_norm: [B, Hkv, S] f32 (norms of
@@ -72,37 +72,31 @@ def lsh_fused_decode(q: torch.Tensor, k_centered: torch.Tensor,
         return lsh_fused_decode_plain(q, k_centered, v, k_norm, planes,
                                       q_bits, length, K, L, k_scale, v_scale,
                                       debias)
-    _lib.require(debias in DEBIAS_FORMS, f"unknown debias form {debias!r}")
     name = launch_name(k_scale is not None, debias)
-    check_decode_inputs(name, q, k_centered, v, length, k_scale, v_scale)
-    b, hq, d = q.shape
-    hkv, s = k_centered.shape[1], k_centered.shape[2]
-    _lib.require_cuda(name, q, k_norm, planes, q_bits)
-    _lib.require(k_norm.dtype == torch.float32 and k_norm.shape == (b, hkv, s),
-                 f"{name}: k_norm must be f32 [B, Hkv, S]")
-    _lib.require(planes.dtype == torch.int32
-                 and planes.shape == (b, hkv, L, K, s // 32) and s % 32 == 0,
-                 f"{name}: planes must be int32 [B, Hkv, L, K, S/32]")
-    _lib.require(q_bits.dtype == torch.int32 and q_bits.shape == (b, hq, L, K),
-                 f"{name}: q_bits must be int32 [B, Hq, L, K]")
-    _lib.require(1 <= K <= MAX_K and L >= 1
-                 and (hq // hkv) * L * 4 <= MAX_QCODE_BYTES,
-                 f"{name}: K={K}, L={L} unsupported")
-    nsplit = -(-s // SPLIT_TOKENS)
-    f32 = dict(dtype=torch.float32, device=q.device)
-    part_o = torch.empty((nsplit, b * hq, d), **f32)
-    part_lse = torch.empty((nsplit, b * hq), **f32)
-    part_cnt = torch.empty((nsplit, b * hq), **f32)
-    out = torch.empty((b, hq, d), **f32)
-    lse = torch.empty((b, hq), **f32)
-    cnt = torch.empty((b, hq), **f32)
-    coef = None
-    if debias == "poly":   # copied by value into the launch's arguments
-        poly = log_weight_poly(K, L)
-        coef = (ctypes.c_float * len(poly))(*poly)
-    _lib.launch(name, "mp_lsh_fused_decode", q.device, q, k_centered, v,
-                k_scale, v_scale, k_norm, planes, q_bits, length, part_o,
-                part_lse, part_cnt, out, lse, cnt, b, s, hq, hkv, d, K, L,
-                1.0 / math.sqrt(d), DEBIAS_FORMS.index(debias),
-                None if coef is None else ctypes.addressof(coef))
-    return out, lse, cnt
+    check_attend_inputs(name, q, k_centered, v, k_norm, length, k_scale,
+                        v_scale, debias)
+    check_scan_inputs(name, planes, q_bits, k_centered.shape[1],
+                      k_centered.shape[2], K, L)
+    return launch_attend(name, "mp_lsh_fused_decode", q, k_centered, v,
+                         k_scale, v_scale, k_norm, (planes, q_bits), length,
+                         K, L, debias)
+
+
+def lsh_decode(q: torch.Tensor, k_centered: torch.Tensor, v: torch.Tensor,
+               k_norm: torch.Tensor, planes: torch.Tensor,
+               q_bits: torch.Tensor, length: torch.Tensor, K: int, L: int,
+               k_scale: torch.Tensor | None = None,
+               v_scale: torch.Tensor | None = None, debias: str = "exact"):
+    """The masked LSH partial, routed as the JAX package's
+    `lsh_decode.py::lsh_fused_decode` routes it: even L through the fused
+    kernel; odd L (and L = 1) in two stages, the collision words
+    (`collision_words`), then the masked attend (`lsh_masked_attention`,
+    which ignores the bits at or past the length). The fused kernel itself
+    takes any L; which route odd L should keep is for a measurement to
+    decide. Arguments and result as `lsh_fused_decode`."""
+    if L >= 2 and L % 2 == 0:
+        return lsh_fused_decode(q, k_centered, v, k_norm, planes, q_bits,
+                                length, K, L, k_scale, v_scale, debias)
+    return lsh_masked_attention(q, k_centered, v, k_norm,
+                                collision_words(q_bits, planes), length, K, L,
+                                k_scale, v_scale, debias)

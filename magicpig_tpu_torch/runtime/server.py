@@ -15,10 +15,14 @@
     (`ops/pack4.py`);
   * decode (step time): `decode_dense_layer` appends the new token and runs
     flash decode over the prefix; `decode_sparse_layer` runs flash decode
-    over the hot region and the estimator over the offload region (the
-    fused LSH kernel; or the block scorer, top-k blocks, and an attend over
-    them), and merges the two by LSE. The lsh partial applies
-    `LSHConfig.lsh_debias`; the block kernels take packed int4 K as stored.
+    over the hot region and the estimator over the offload region, and
+    merges the two by LSE. The lsh partial in the masked mode runs the
+    fused LSH kernel for even L and, for odd L, the collision scan and the
+    masked attend (`lsh_decode`), with `LSHConfig.lsh_debias`; in the
+    sampled mode it runs the collision scan, compacts each head's sampled
+    keys to the static budget and attends the gathered rows with the exact
+    debias. block_topk runs the block scorer, top-k blocks, and an attend
+    over them; the block kernels take packed int4 K as stored.
 
 The state is updated in place (see `runtime/state.py`). Fill takes the
 prompt's K/V at its true length, [P, Hkv, d] with P a host integer.
@@ -31,13 +35,24 @@ import math
 import torch
 
 from magicpig_tpu_torch.config import LSHConfig
-from magicpig_tpu_torch.ops.bitcodes import WORD, build_planes, hash_bits
+from magicpig_tpu_torch.ops.attention import (
+    lsh_sampled_decode,
+    mask_to_budget_ids,
+)
+from magicpig_tpu_torch.ops.bitcodes import (
+    WORD,
+    build_planes,
+    hash_bits,
+    unpack_words,
+    valid_words,
+)
 from magicpig_tpu_torch.ops.kernels import (
     block_attend,
     block_rank,
+    collision_words,
     exact_scores_ranked,
     flash_decode,
-    lsh_fused_decode,
+    lsh_decode,
     rescore_attend,
 )
 from magicpig_tpu_torch.ops.merge import merge_partials
@@ -161,16 +176,32 @@ def decode_dense_layer(state: DecodeState, di: int, q: torch.Tensor,
 def _lsh_partial(state: DecodeState, si: int, q: torch.Tensor,
                  projections: torch.Tensor, lsh: LSHConfig):
     """LSH-sampled partial over the offload region: (out, lse, sampled
-    fraction as a device scalar). Quantized offload passes its scales."""
+    fraction as a device scalar). Quantized offload passes its scales.
+
+    The sampled mode follows the JAX server: its budget comes from the
+    offload capacity, and it applies the exact debias whatever
+    `lsh_debias` says."""
     q_bits = hash_bits(q, projections, lsh.K)                # [B, Hq, L, K]
     quant = lsh.offload_quantized
-    out, lse, cnt = lsh_fused_decode(
-        q, state.off_k[si], state.off_v[si], state.k_norm[si],
-        state.planes[si], q_bits, state.off_len, lsh.K, lsh.L,
-        state.off_k_scale[si] if quant else None,
-        state.off_v_scale[si] if quant else None, lsh.lsh_debias)
-    frac = cnt.sum() / torch.clamp(state.off_len.sum() * q.shape[1], min=1)
-    return out, lse, frac
+    k, v, k_norm, planes = (state.off_k[si], state.off_v[si],
+                            state.k_norm[si], state.planes[si])
+    k_scale = state.off_k_scale[si] if quant else None
+    v_scale = state.off_v_scale[si] if quant else None
+    n_valid = torch.clamp(state.off_len.sum() * q.shape[1], min=1)
+    if lsh.decode_mode == "masked":
+        out, lse, cnt = lsh_decode(q, k, v, k_norm, planes, q_bits,
+                                   state.off_len, lsh.K, lsh.L, k_scale,
+                                   v_scale, lsh.lsh_debias)
+        return out, lse, cnt.sum() / n_valid
+    off_cap = k.shape[2]
+    words = collision_words(q_bits, planes)
+    words = words & valid_words(state.off_len, planes.shape[-1])[:, None]
+    mask = unpack_words(words, off_cap)                      # [B, Hq, S]
+    ids, ids_valid = mask_to_budget_ids(mask, lsh.sample_budget(off_cap))
+    # Quantized rows are gathered with their scales, then dequantized.
+    out, lse = lsh_sampled_decode(q, k, v, k_norm, ids, ids_valid, lsh.K,
+                                  lsh.L, k_scale, v_scale)
+    return out, lse, mask.sum() / n_valid
 
 
 def _static_budget(n: int, frac: float, floor: int) -> int:

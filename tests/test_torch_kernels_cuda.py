@@ -20,7 +20,10 @@ same float32 steps). The packed int4 forms of the block scorer and the
 rescore-attend are held to their plain versions like the int8 forms, and
 equal the int8 kernels on the unpacked rows bit for bit (the same products
 summed in the same order); the poly and none debias forms of the fused LSH
-kernel like its exact form.
+kernel like its exact form. The collision scan bit for bit; the masked
+attend from words, each of its six forms, like the fused kernel, and the
+two-stage route of `lsh_decode` against the fused kernel on the same
+inputs to the same limits; `exact_scores` like the block scores.
 """
 
 import numpy as np
@@ -34,16 +37,27 @@ from magicpig_tpu_torch.ops.kernels import (
     LAUNCHES,
     block_attend,
     block_rank,
+    collision_words,
+    exact_scores,
     exact_scores_ranked,
     flash_decode,
     flash_prefill,
+    lsh_decode,
     lsh_fused_decode,
+    lsh_masked_attention,
     rescore_attend,
     w4_matmul,
 )
 from magicpig_tpu_torch.ops.kernels.block_attend import block_attend_plain
-from magicpig_tpu_torch.ops.kernels.block_score import block_scores_plain
+from magicpig_tpu_torch.ops.kernels.block_score import (
+    block_scores_plain,
+    exact_scores_plain,
+)
 from magicpig_tpu_torch.ops.kernels.lsh_fused import lsh_fused_decode_plain
+from magicpig_tpu_torch.ops.kernels.lsh_masked import (
+    launch_name as masked_launch_name,
+)
+from magicpig_tpu_torch.ops.kernels.lsh_masked import lsh_masked_attention_plain
 from magicpig_tpu_torch.ops.kernels.rescore_attend import rescore_attend_plain
 from magicpig_tpu_torch.ops.kernels.w4_matmul import w4_matmul_plain
 from magicpig_tpu_torch.ops.pack4 import pack_k4
@@ -342,3 +356,111 @@ def test_cuda_packed_rescore_attend_matches_plain_and_int8(cuda):
     bo, bl = block_attend(scores, ids, vq, vs, 512)
     torch.testing.assert_close(bo, o, atol=1e-6, rtol=1e-5)
     torch.testing.assert_close(bl, l, atol=1e-6, rtol=1e-6)
+
+
+def plant_collisions(planes, q_bits, b, h, w):
+    """A copy of planes in which the 32 keys of word w of request b match
+    query head h in tables 0 and 1 (their plane words set to the head's
+    bits): the head's word w then has every bit set."""
+    g = q_bits.shape[1] // planes.shape[1]
+    planes = planes.clone()
+    planes[b, h // g, :2, :, w] = -q_bits[b, h, :2]   # 1 -> all ones, 0 -> 0
+    return planes
+
+
+@pytest.mark.parametrize("K,L", [(10, 150), (8, 75), (3, 1)])
+def test_cuda_collision_words_bit_exact(cuda, K, L):
+    """Random planes (any bit pattern), W not a multiple of the kernel's
+    32-word block; planted collisions in one word change the result."""
+    rng = np.random.default_rng(17)
+    B, HQ, HKV, W = 2, 32, 8, 77
+    qb = torch.from_numpy(rng.integers(0, 2, (B, HQ, L, K)).astype(np.int32)).to(cuda)
+    planes = torch.from_numpy(rng.integers(-2**31, 2**31 - 1, (B, HKV, L, K, W))
+                              .astype(np.int32)).to(cuda)
+    before = LAUNCHES["collision_words"]
+    got = collision_words(qb, planes)
+    assert LAUNCHES["collision_words"] == before + 1
+    want = tbits.collision_words(qb.cpu(), planes.cpu())
+    assert torch.equal(got.cpu(), want)
+    if L > 1:
+        faulty = collision_words(qb, plant_collisions(planes, qb, 1, 13, 40))
+        assert int(faulty[1, 13, 40]) == -1
+        assert not torch.equal(faulty.cpu(), want)
+
+
+def _lsh_case(cuda, rng, int8, K, L, S=2048):
+    q = _bf16(rng, 2, 32, 64, device=cuda)
+    k = _bf16(rng, 2, 8, S, 64, device=cuda)
+    v = _bf16(rng, 2, 8, S, 64, device=cuda)
+    ks = vs = None
+    kd = k.float()
+    if int8:
+        k, ks = quantize_rows(k)
+        v, vs = quantize_rows(v)
+        kd = dequantize_rows(k, ks, torch.float32)
+    proj = torch.from_numpy(rng.standard_normal((64, K * L)).astype(np.float32)).to(cuda)
+    planes = torch.stack([tbits.build_planes(kd[b].transpose(0, 1), proj, K)
+                          for b in range(2)])
+    qb = tbits.hash_bits(q, proj, K)
+    length = torch.tensor([S, 1337], dtype=torch.int32, device=cuda)
+    return q, k, v, kd.norm(dim=-1), planes, qb, length, ks, vs
+
+
+@pytest.mark.parametrize("debias", ["exact", "poly", "none"])
+@pytest.mark.parametrize("int8", [False, True])
+def test_cuda_lsh_masked_attention_matches_plain(cuda, debias, int8):
+    """Each form from the words of the whole capacity (the kernel ignores
+    bits past the length), K=8, L=75."""
+    rng = np.random.default_rng(18)
+    K, L = 8, 75
+    q, k, v, kn, planes, qb, length, ks, vs = _lsh_case(cuda, rng, int8, K, L)
+    words = collision_words(qb, planes)
+    args = (q, k, v, kn, words, length, K, L, ks, vs, debias)
+    name = masked_launch_name(int8, debias)
+    before = dict(LAUNCHES)
+    o, l, c = lsh_masked_attention(*args)
+    assert LAUNCHES[name] == before[name] + 1
+    assert sum(LAUNCHES.values()) == sum(before.values()) + 1
+    po, pl, pc = lsh_masked_attention_plain(*args)
+    assert torch.equal(c, pc) and c.min() > 0
+    _assert_within(o, po, rms_share=0.015)
+    _assert_within(l, pl, atol=1e-4, rtol=1e-5)
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_cuda_two_stage_route_matches_fused_kernel(cuda, int8):
+    """Odd L: lsh_decode takes the scan and the masked attend, whose
+    counts equal the fused kernel's on the same inputs and whose outputs
+    agree with it to the kernels' limits."""
+    rng = np.random.default_rng(19)
+    K, L = 8, 75
+    q, k, v, kn, planes, qb, length, ks, vs = _lsh_case(cuda, rng, int8, K, L)
+    args = (q, k, v, kn, planes, qb, length, K, L, ks, vs)
+    before = dict(LAUNCHES)
+    o, l, c = lsh_decode(*args)
+    name = masked_launch_name(int8, "exact")
+    assert LAUNCHES[name] == before[name] + 1
+    assert LAUNCHES["collision_words"] == before["collision_words"] + 1
+    assert sum(LAUNCHES.values()) == sum(before.values()) + 2
+    fo, fl, fc = lsh_fused_decode(*args)
+    assert torch.equal(c, fc)
+    _assert_within(o, fo, rms_share=0.015)
+    _assert_within(l, fl, atol=1e-4, rtol=1e-5)
+
+
+@pytest.mark.parametrize("int8", [True, False])
+def test_cuda_exact_scores_matches_plain(cuda, int8):
+    """Every token scored (no length mask, S not a multiple of 512)."""
+    rng = np.random.default_rng(20)
+    q = _bf16(rng, 2, 32, 64, device=cuda)
+    k = _bf16(rng, 2, 8, 4032, 64, device=cuda)
+    ks = None
+    if int8:
+        k, ks = quantize_rows(k)
+    before = LAUNCHES["exact_scores"]
+    got = exact_scores(q, k, ks)
+    assert LAUNCHES["exact_scores"] == before + 1
+    want = exact_scores_plain(q, k, ks)
+    assert torch.isfinite(got).all()
+    atol, rtol, _ = SCORE_TOL
+    _assert_within(got, want, atol=atol, rtol=rtol)

@@ -77,10 +77,16 @@ def test_default_dense_layers_match_jax(n):
 
 @pytest.mark.parametrize("field,value", [
     ("estimator", "quest"), ("estimator", "topk"),
-    ("estimator", "oracle_sampling"), ("decode_mode", "sampled")])
+    ("estimator", "oracle_sampling")])
 def test_unported_lsh_options_raise(field, value):
     with pytest.raises(NotImplementedError):
         tcfg.LSHConfig(**{field: value})
+
+
+@pytest.mark.parametrize("mode", ["gathered", "dense", ""])
+def test_unknown_decode_mode_raises(mode):
+    with pytest.raises(ValueError, match="decode_mode"):
+        tcfg.LSHConfig(decode_mode=mode)
 
 
 @pytest.mark.parametrize("estimator", ["lsh", "block_topk"])
