@@ -6,11 +6,16 @@
 Phases, each announced by one flushed progress line with elapsed seconds:
   0. device: a CUDA card or exit non-zero; its name and power limit;
   1. build: the kernels of `magicpig_tpu_torch/csrc/`, one nvcc per source
-     started together, then one link;
+     started together, then one link; the counts of warpgroup MMA (HGMMA),
+     TMA (UTMALDG) and bulk-copy (UBLKCP) instructions in the prefill and
+     decode kernels' SASS;
   2. kernels: each hand-written kernel against its plain PyTorch version at
      the shapes of the Llama-3.2-1B decode paths (Hq 32, Hkv 8, d 64;
-     prefill 8192 tokens, decode and LSH over 16384 tokens at B=2, K=10,
-     L=150, with bf16 and with int8 K/V, the LSH kernel with each of its
+     prefill 8192 and 12000 tokens, decode at the hot cache (B=2, capacity
+     384, lengths 68 and 69, bf16 and int8), decode and LSH over 16384
+     tokens at B=2, K=10, L=150, with bf16 and with int8 K/V (decode also
+     at splits of 512, 1024 and 2048 tokens), the LSH
+     kernel with each of its
      exact, poly and none debias forms; the block_topk scorer,
      rescore-attend and block-attend over 65536 tokens at B=2, lengths 65536
      and 40000, 512-token blocks, 11 selected, the scorer and rescore also
@@ -86,14 +91,16 @@ H100_BF16_FLOPS = 989e12            # dense bf16 tensor-core peak
 # is bf16: one rounding step of it is up to 2^-7 of its value, and the
 # kernel's bf16 probabilities in P.V move an early query's output, a mix of
 # a few V rows, by a few 1e-3 in the units of V. The decode partials are
-# f32 and differ by the plain version's bf16 probabilities, an error that
+# f32 and differ by the plain version's bf16 probabilities (flash_decode
+# rounds its own to bf16 too, from its approximate exp2), an error that
 # scales with the output: under 0.01 of its rms; the block-attend partials
 # (rescore_attend, block_attend) likewise. The lse differs by f32 rounding
 # alone. The block scores are f32 sums of the same bf16-exact products in
 # another order: 1.4e-6 at most where they reach ~5. The int8 decode and LSH
 # partials as their bf16 forms (the plain versions round p times the V scale
-# to bf16, the kernels do not). The int4 matmul's output is an f32 sum of
-# the same exact products (bf16 times a nibble) in another order.
+# to bf16, as flash_decode does; the LSH kernels do not). The int4 matmul's
+# output is an f32 sum of the same exact products (bf16 times a nibble) in
+# another order.
 TOL = {
     "flash_prefill": (4e-3, 1e-2, 0.0),
     "flash_decode": (0.0, 0.0, 0.015),
@@ -153,11 +160,15 @@ def profiled(fn) -> tuple:
 
 def device_ms(fn, calls: int = 20) -> float:
     """Device time of one call: the kernel time torch.profiler records over
-    `calls` calls, divided by `calls` (no host time between launches)."""
+    `calls` calls, divided by `calls` (no host time between launches). The
+    profiler now and then drops kernels from a session, so three sessions
+    run and the one that recorded the most kernels counts."""
     import torch
     fn()
     torch.cuda.synchronize()
-    return profiled(lambda: [fn() for _ in range(calls)])[0] / calls
+    sessions = [profiled(lambda: [fn() for _ in range(calls)])
+                for _ in range(3)]
+    return max(sessions, key=lambda s: s[1])[0] / calls
 
 
 def timings(kernel, plain, library=None) -> dict:
@@ -226,11 +237,38 @@ def bound_ms(nbytes: float, flops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def sass_counts(so) -> dict:
+    """Per kernel of flash_prefill.cu and flash_decode.cu (its first
+    template instance of each name), the counts of warpgroup MMA (HGMMA),
+    TMA tensor load (UTMALDG) and bulk copy (UBLKCP) instructions in the
+    built library's SASS, from the toolkit's cuobjdump."""
+    from pathlib import Path
+
+    from magicpig_tpu_torch.ops.kernels import _lib
+
+    tool = Path(_lib.nvcc_path()).parent / "cuobjdump"
+    sass = subprocess.run([str(tool), "--dump-sass", str(so)],
+                          capture_output=True, text=True, check=True).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            name = next((k for k in ("flash_prefill_kernel",
+                                     "flash_decode_kernel") if k in fn), None)
+            if name in counts:
+                name = None          # one template instance is enough
+            elif name is not None:
+                counts[name] = dict.fromkeys(("HGMMA", "UTMALDG", "UBLKCP"), 0)
+        elif name is not None:
+            for op in counts[name]:
+                counts[name][op] += f" {op}" in line
+    return counts
+
+
 def phase_kernels(torch, F, dev):
     """Each kernel against its plain version at the slice's shapes."""
     from magicpig_tpu_torch.ops import attention, bitcodes
-    from magicpig_tpu_torch.ops.kernels import (flash_decode, flash_prefill,
-                                                lsh_fused_decode)
+    from magicpig_tpu_torch.ops.kernels import flash_decode, lsh_fused_decode
     from magicpig_tpu_torch.ops.kernels.lsh_fused import lsh_fused_decode_plain
 
     gen = torch.Generator(device=dev)
@@ -242,29 +280,10 @@ def phase_kernels(torch, F, dev):
     hq, hkv, d, K, L = 32, 8, 64, 10, 150
     results = {}
 
-    # -- flash prefill: one 8192-token prompt, causal.
-    s = 8192
-    q, k, v = rnd(1, s, hq, d), rnd(1, s, hkv, d), rnd(1, s, hkv, d)
-    length = torch.full((1,), s, dtype=torch.int32, device=dev)
-    got = flash_prefill(q, k, v, length)
-    want = attention.flash_prefill(q, k, v, length)
-    tol = TOL["flash_prefill"]
-    err, share = check_close("flash_prefill", got, want, tol)
-    teeth = check_rejects("flash_prefill", attention.flash_prefill(
-        q, k, drop_tile(v, 1, 4096), length), want, tol)
-    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-    nbytes = 2 * (2 * q.numel() + 2 * k.numel())          # q, out, k, v
-    flops = 4 * d * hq * (s * (s + 1) // 2)
-    results["flash_prefill"] = dict(
-        max_abs_err=err, tol=tol, bound=bound_ms(nbytes, flops),
-        **timings(lambda: flash_prefill(q, k, v, length),
-                  lambda: attention.flash_prefill(q, k, v, length),
-                  lambda: F.scaled_dot_product_attention(
-                      qt, kt, vt, is_causal=True, enable_gqa=True)))
-    log(f"kernel flash_prefill  err {err:.2e}, worst element "
-        f"{share:.2f} of its limit (tol {tol}); a "
-        f"skipped tile's worst element {teeth:.1f}x the limit")
-    del q, k, v, got, want, qt, kt, vt
+    # -- flash prefill: one 8192-token prompt, causal, and the serve's
+    # 12000-token prompt.
+    results.update(prefill_kernel(torch, F, rnd, 8192, "flash_prefill"))
+    results.update(prefill_kernel(torch, F, rnd, 12000, "flash_prefill_12000"))
 
     # -- flash decode: B=2 over a 16384-token cache, one request ragged.
     b, s = 2, 16384
@@ -293,6 +312,7 @@ def phase_kernels(torch, F, dev):
     log(f"kernel flash_decode   err {err:.2e}, worst element "
         f"{share:.2f} of its limit (tol {tol}); a "
         f"skipped tile's worst element {teeth:.1f}x the limit")
+    decode_split_sweep(torch, q, k, v, length)
 
     # -- fused LSH decode: the same caches as centered keys, K=10, L=150.
     proj = torch.randn((d, K * L), generator=gen, device=dev)
@@ -338,11 +358,120 @@ def phase_kernels(torch, F, dev):
         torch, (q, k, v, k_norm, planes, q_bits, length, K, L, None, None),
         nbytes, rows, flops))
     results.update(int8_decode_kernels(torch, q, k, v, length, lens, proj, K, L))
+    results.update(hot_decode_kernels(torch, F, rnd))
     log_timings(results)
     two_stage = two_stage_kernels(torch, F, gen, q, k, v, length, lens,
                                   planes, q_bits)
     log_timings(two_stage)
     results.update(two_stage)
+    return results
+
+
+def prefill_kernel(torch, F, rnd, s: int, name: str) -> dict:
+    """flash_prefill over one s-token prompt, causal, Hq 32, Hkv 8, d 64,
+    against its plain version, a skipped V tile rejected, SDPA beside it."""
+    from magicpig_tpu_torch.ops import attention
+    from magicpig_tpu_torch.ops.kernels import flash_prefill
+
+    hq, hkv, d = 32, 8, 64
+    dev = torch.device("cuda")
+    q, k, v = rnd(1, s, hq, d), rnd(1, s, hkv, d), rnd(1, s, hkv, d)
+    length = torch.full((1,), s, dtype=torch.int32, device=dev)
+    got = flash_prefill(q, k, v, length)
+    want = attention.flash_prefill(q, k, v, length)
+    tol = TOL["flash_prefill"]
+    err, share = check_close(name, got, want, tol)
+    teeth = check_rejects(name, attention.flash_prefill(
+        q, k, drop_tile(v, 1, s // 2), length), want, tol)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    nbytes = 2 * (2 * q.numel() + 2 * k.numel())          # q, out, k, v
+    flops = 4 * d * hq * (s * (s + 1) // 2)
+    result = dict(
+        max_abs_err=err, tol=tol, bound=bound_ms(nbytes, flops),
+        **timings(lambda: flash_prefill(q, k, v, length),
+                  lambda: attention.flash_prefill(q, k, v, length),
+                  lambda: F.scaled_dot_product_attention(
+                      qt, kt, vt, is_causal=True, enable_gqa=True)))
+    log(f"kernel {name} err {err:.2e}, worst element {share:.2f} of its "
+        f"limit (tol {tol}); a skipped tile's worst element {teeth:.1f}x the "
+        f"limit")
+    return {name: result}
+
+
+def decode_split_sweep(torch, q, k, v, length, k_scale=None,
+                       v_scale=None) -> dict:
+    """flash_decode's device time (us) for splits of 512, 1024 and 2048
+    tokens on the given caches, the split the wrapper picks among them: the
+    evidence for `split_tokens`."""
+    from magicpig_tpu_torch.ops.kernels import _lib
+    from magicpig_tpu_torch.ops.kernels.flash_decode import _device_state
+
+    b, hq, d = q.shape
+    hkv, s = k.shape[1], k.shape[2]
+    name = "flash_decode" if k_scale is None else "flash_decode_int8"
+    tickets, _ = _device_state(q.device, b * hkv)
+    times = {}
+    for chunk in (512, 1024, 2048):
+        n = -(-s // chunk)
+        f32 = dict(dtype=torch.float32, device=q.device)
+        part_o, part_lse = (torch.empty((n, b * hq, d), **f32),
+                            torch.empty((n, b * hq), **f32))
+        out, lse = torch.empty((b, hq, d), **f32), torch.empty((b, hq), **f32)
+        times[chunk] = round(device_ms(lambda: _lib.launch(
+            name, "mp_flash_decode", q.device, q, k, v, k_scale, v_scale,
+            length, part_o, part_lse, tickets, out, lse, b, s, hq, hkv, d,
+            chunk, d ** -0.5)) * 1e3, 2)
+    log(f"  {name} device us by split tokens: {times}")
+    return times
+
+
+def hot_decode_kernels(torch, F, rnd) -> dict:
+    """flash_decode as the sparse layers' hot caches call it every step: B=2,
+    capacity 384, lengths 68 and 69, bf16 (SDPA beside it) and int8 (no
+    library call takes int8 K/V with row scales); each against its plain
+    version, a zeroed first V tile rejected."""
+    from magicpig_tpu_torch.ops import attention
+    from magicpig_tpu_torch.ops.kernels import flash_decode
+    from magicpig_tpu_torch.ops.quant import quantize_rows
+
+    b, hq, hkv, d, s, lens = 2, 32, 8, 64, 384, [68, 69]
+    dev = torch.device("cuda")
+    q, k, v = rnd(b, hq, d), rnd(b, hkv, s, d), rnd(b, hkv, s, d)
+    length = torch.tensor(lens, dtype=torch.int32, device=dev)
+    mask = (torch.arange(s, device=dev)[None] < length[:, None])[:, None, None]
+    q4 = q[:, :, None]
+    kq, ks = quantize_rows(k)
+    vq, vs = quantize_rows(v)
+    results = {}
+    for name, args, faulty, row_bytes, library in (
+            ("flash_decode_hot", (k, v, None, None),
+             (k, drop_tile(v, 2, 0), None, None), d * 2,
+             lambda: F.scaled_dot_product_attention(q4, k, v, attn_mask=mask,
+                                                   enable_gqa=True)),
+            ("flash_decode_int8_hot", (kq, vq, ks, vs),
+             (kq, drop_tile(vq, 2, 0), ks, vs), d + 4, None)):
+        kk, vv, ksc, vsc = args
+        got, got_lse = flash_decode(q, kk, vv, length, ksc, vsc)
+        want, want_lse = attention.full_decode(q, kk, vv, length, ksc, vsc)
+        tol = TOL["flash_decode"]
+        err, share = check_close(name, got, want, tol)
+        err = max(err, check_close(f"{name} lse", got_lse, want_lse,
+                                   TOL["lse"])[0])
+        fk, fv, fks, fvs = faulty
+        teeth = check_rejects(name, attention.full_decode(
+            q, fk, fv, length, fks, fvs)[0], want, tol)
+        nbytes = (sum(lens) * hkv * row_bytes * 2 + q.numel() * 2
+                  + b * hq * (d + 1) * 4)
+        results[name] = dict(
+            max_abs_err=err, tol=tol,
+            bound=bound_ms(nbytes, 4 * d * hq * sum(lens)),
+            **timings(lambda: flash_decode(q, kk, vv, length, ksc, vsc),
+                      lambda: attention.full_decode(q, kk, vv, length, ksc,
+                                                    vsc),
+                      library))
+        log(f"kernel {name} err {err:.2e}, worst element {share:.2f} of its "
+            f"limit (tol {tol}); a zeroed first tile's worst element "
+            f"{teeth:.1f}x the limit")
     return results
 
 
@@ -532,6 +661,7 @@ def int8_decode_kernels(torch, q, k, v, length, lens, proj, K, L):
     log(f"kernel flash_decode_int8 err {err:.2e}, worst element "
         f"{share:.2f} of its limit (tol {tol}); a skipped tile's worst "
         f"element {teeth:.1f}x the limit")
+    decode_split_sweep(torch, q, kq, vq, length, ks, vs)
 
     # -- fused LSH decode over int8 centered keys and values.
     kd = dequantize_rows(kq, ks, torch.float32)
@@ -1557,6 +1687,8 @@ def main() -> int:
     log(f"phase 1 build: {so.name} in {time.perf_counter() - t:.1f} s "
         f"(nvcc {_lib.last_build_seconds}); registers {regs}; "
         f"spills {spills or 'none'}")
+    log(f"phase 1 SASS (HGMMA, TMA and bulk-copy instructions): "
+        f"{sass_counts(so)}")
 
     log("phase 2 kernels vs plain versions")
     kern = phase_kernels(torch, F, dev)
@@ -1636,6 +1768,13 @@ def main() -> int:
         "magicpig_tpu/ops/pallas/lsh_decode.py:271")
     sources["exact_scores"] = score_src
     sources["flash_decode_int8"] = sources["flash_decode"]
+    # The phase-2 shapes of the serve's own calls: its 12000-token prompt
+    # and the hot caches; launches as their kernel's.
+    for shape, kernel in (("flash_prefill_12000", "flash_prefill"),
+                          ("flash_decode_hot", "flash_decode"),
+                          ("flash_decode_int8_hot", "flash_decode_int8")):
+        sources[shape] = sources[kernel]
+        launches[shape] = launches[kernel]
     for form in ("_int8", "_poly", "_none", "_int8_poly", "_int8_none"):
         sources["lsh_fused_decode" + form] = sources["lsh_fused_decode"]
         sources["lsh_masked_attention" + form] = sources["lsh_masked_attention"]
@@ -1649,7 +1788,9 @@ def main() -> int:
             "launches": launches[name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
-            "bound_by": r["bound"][1], "library_ms": r["library_ms"]})
+            "bound_by": r["bound"][1], "library_ms": r["library_ms"],
+            "device_ms": r["device_ms"],
+            "library_device_ms": r["library_device_ms"]})
     log(f"done in {time.perf_counter() - T0:.1f} s")
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,5 +1,6 @@
-// Split-sequence flash decode with LSE export, and the LSE merge of the
-// per-split partials (also used by the fused LSH decode).
+// Split-sequence flash decode with LSE export, its splits merged in the
+// same launch; and the LSE merge of per-split partials that the other
+// split kernels (lsh_common.cuh, rescore_attend.cu, block_attend.cu) launch.
 //
 // Replaces magicpig_tpu/ops/pallas/decode.py::flash_decode (the pallas_call
 // at decode.py:184), bf16 K/V, or int8 K/V with per-token f32 scales (its
@@ -9,106 +10,351 @@
 //
 // Bound on the H100: reading K and V once, 256 bytes per token and kv head
 // at d = 64 in bf16, 136 in int8 (rows and scales), over 3.35 TB/s; the
-// arithmetic is ~2 flops per byte. int8 rows are widened to bf16 in shared
-// memory; the K scale multiplies each score, the V scale each probability
-// in the P.V sum (decode_common.cuh). Design:
-// the TPU kernel walks the sequence in order on one core, but one block per
-// (request, kv head) would put 16 blocks on 132 SMs at B = 2. So the
-// sequence is cut into 512-token splits, one block each (blocks past the
-// request's length exit at once); 64-token K/V tiles go through shared
-// memory with 16-byte loads, the G x 64 scores and the online softmax are
-// f32, and a second small kernel merges the splits by their LSE.
+// arithmetic is ~2 flops per byte. Design, one block per (split, kv head,
+// request), the split size chosen by the wrapper from the capacity and the
+// SM count (`chunk`, a multiple of 64 tokens):
+//  - one copy warp: its first lane brings each 64-token tile of K and V
+//    (contiguous in the [B, Hkv, S, 64] layout: 8 KB each in bf16, 4 KB in
+//    int8) with cp.async.bulk into a three-stage ring, only the rows below
+//    the length, and signals a full mbarrier per stage;
+//  - four compute warps, 16 tokens of each tile each, no block barrier per
+//    tile: a lane holds 8 dims of one token (16-byte shared loads, 4 tokens
+//    a pass, conflict-free), the G scores are reduced over 8 lanes, the
+//    online softmax is per warp in registers (log2 units), and each warp
+//    releases the stage on its empty mbarrier; rows past the length are
+//    never read from device memory, and their scores and V values are
+//    selected away, not multiplied (stale shared memory may hold NaNs);
+//  - int8 rows are widened in registers; the K scale multiplies the score
+//    and the V scale the probability, which is rounded to bf16 as the TPU
+//    kernel's P.V operand is (the row sums take it unrounded);
+//  - the four warps' states meet once in shared memory; a split that is
+//    the request's only one writes out and lse directly; otherwise it
+//    writes its partial, and the last block of the (request, kv head) to
+//    take a ticket (an atomic after __threadfence) merges the partials by
+//    LSE and resets the ticket to 0 for the next call. So one launch per
+//    call, and no memset.
 #include <type_traits>
 
 #include "common.cuh"
 #include "decode_common.cuh"
+#include "hopper_common.cuh"
 
 namespace {
 
+constexpr int kD = 64;
+constexpr int kTile = 64;             // tokens per copy
+constexpr int kStages = 3;
+constexpr int kWarps = 4;             // compute warps; one more copies
+constexpr int kThreads = (kWarps + 1) * 32;
+
+template <typename T>
+__host__ __device__ constexpr int tile_bytes() {
+  return kTile * kD * static_cast<int>(sizeof(T));
+}
+
+template <typename T>
+__host__ __device__ constexpr int smem_bytes() {
+  return 2 * kStages * tile_bytes<T>();
+}
+
+// Eight consecutive elements of a row as f32.
+__device__ __forceinline__ void load8(const __nv_bfloat16* p, float (&x)[8]) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h[i]);
+    x[2 * i] = f.x;
+    x[2 * i + 1] = f.y;
+  }
+}
+
+// int8 to f32 on the full-rate units: byte b + 128 placed in the mantissa
+// of 2^23 gives 2^23 + 128 + b exactly; one byte permute and one add.
+__device__ __forceinline__ void load8(const int8_t* p, float (&x)[8]) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const uint32_t w[2] = {u.x ^ 0x80808080u, u.y ^ 0x80808080u};
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+    x[i] = __uint_as_float(
+               __byte_perm(w[i / 4], 0x4B000000u, 0x7540u | (i & 3))) -
+           8388736.f;
+}
+
 // T: __nv_bfloat16, or int8_t with the row scales k_scale, v_scale [B,
-// Hkv, S] (null for bf16).
+// Hkv, S] (null for bf16). part_o [nsplit, B * Hq, 64] and part_lse
+// [nsplit, B * Hq] hold the partials of requests with more than one split;
+// tickets [B * Hkv] is 0 between calls.
 template <int G, typename T>
-__global__ void __launch_bounds__(mp::kDecThreads)
-flash_decode_split_kernel(const __nv_bfloat16* __restrict__ q,
-                          const T* __restrict__ k, const T* __restrict__ v,
-                          const float* __restrict__ k_scale,
-                          const float* __restrict__ v_scale,
-                          const int* __restrict__ length,
-                          float* __restrict__ part_o,
-                          float* __restrict__ part_lse, int batch, int s_cap,
-                          int hkv, float scale_log2) {
-  using namespace mp;
+__global__ void __launch_bounds__(kThreads)
+flash_decode_kernel(const __nv_bfloat16* __restrict__ q,
+                    const T* __restrict__ k, const T* __restrict__ v,
+                    const float* __restrict__ k_scale,
+                    const float* __restrict__ v_scale,
+                    const int* __restrict__ length, float* __restrict__ part_o,
+                    float* __restrict__ part_lse, int* __restrict__ tickets,
+                    float* __restrict__ out, float* __restrict__ lse,
+                    int batch, int s_cap, int hkv, int chunk,
+                    float scale_log2) {
   constexpr bool kQ = std::is_same<T, int8_t>::value;
-  __shared__ DecodeTileSmem<G> sm;
+  extern __shared__ __align__(128) uint8_t smem[];
+  __shared__ __align__(8) uint64_t full[kStages], empty[kStages];
+  __shared__ float red_m[kWarps][G], red_l[kWarps][G];
+  __shared__ float red_o[kWarps][G][kD];
+  __shared__ int is_last;
 
-  const int split = blockIdx.x;
-  const int kh = blockIdx.y;
-  const int b = blockIdx.z;
-  const int tid = threadIdx.x;
+  const int split = blockIdx.x, kh = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int hq = hkv * G;
-  const int start = split * kDecChunk;
-  const int stop = min(min(length[b], s_cap), start + kDecChunk);
-  const size_t part = (static_cast<size_t>(split) * batch + b) * hq + kh * G;
-
-  if (start >= stop) {
-    write_empty_partial<G>(part_o, part_lse, nullptr, part, tid);
+  const int len = min(length[b], s_cap);
+  const int n_act = (len + chunk - 1) / chunk;    // splits with tokens
+  const size_t row = static_cast<size_t>(b) * hq + kh * G;  // first head row
+  if (split >= n_act) {
+    if (split == 0)                               // an empty request
+      for (int i = tid; i < G * kD; i += kThreads) {
+        out[row * kD + i] = 0.f;
+        if (i < G) lse[row + i] = mp::kNegInf;
+      }
     return;
   }
-  const __nv_bfloat16* q_b = q + (static_cast<size_t>(b) * hq + kh * G) * kDecD;
-  for (int i = tid; i < G * kDecD; i += kDecThreads)
-    sm.qf[i / kDecD][i % kDecD] = __bfloat162float(q_b[i]) * scale_log2;
+  const int start = split * chunk;
+  const int stop = min(len, start + chunk);
+  const int ntiles = (stop - start + kTile - 1) / kTile;
+  const size_t head = static_cast<size_t>(b) * hkv + kh;
+  uint8_t* k_s = smem;                            // stage i at i * tile bytes
+  uint8_t* v_s = smem + kStages * tile_bytes<T>();
 
-  const size_t head_off = (static_cast<size_t>(b) * hkv + kh) * s_cap;
-  const T* k_h = k + head_off * kDecD;
-  const T* v_h = v + head_off * kDecD;
-
-  OnlineSoftmax<G> st;
-  st.init();
-  for (int t0 = start; t0 < stop; t0 += kDecTile) {
-    if constexpr (kQ)
-      load_kv_tile<G>(sm, k_h, v_h, k_scale + head_off, v_scale + head_off,
-                      t0, stop, tid, nullptr);
-    else
-      load_kv_tile<G>(sm, k_h, v_h, t0, stop, tid, nullptr);
-    __syncthreads();
-    for (int p = tid; p < G * kDecTile; p += kDecThreads) {
-      const int g = p / kDecTile, j = p % kDecTile;
-      float score = kNegInf;
-      if (t0 + j < stop) {
-        score = row_dot(sm.ks[j], sm.qf[g]);
-        if constexpr (kQ) score *= sm.ksc[j];
-      }
-      sm.ps[g][j] = score;
+  if (tid == 0) {
+#pragma unroll
+    for (int s = 0; s < kStages; ++s) {
+      hp::mbar_init(&full[s], 1);
+      hp::mbar_init(&empty[s], kWarps);
     }
-    __syncthreads();
-    st.softmax_tile(sm, tid);
-    __syncthreads();
-    st.template accumulate_pv<kQ>(sm, tid);
-    __syncthreads();
+    hp::fence_barrier_init();
   }
-  st.write_partial(sm, part_o, part_lse, part, tid);
+  __syncthreads();
+
+  if (warp == kWarps) {
+    // Copy warp.
+    if (lane == 0) {
+      const T* k_h = k + head * s_cap * kD;
+      const T* v_h = v + head * s_cap * kD;
+      for (int i = 0; i < ntiles; ++i) {
+        const int s = i % kStages;
+        if (i >= kStages) hp::mbar_wait(&empty[s], (i / kStages - 1) & 1);
+        const int t0 = start + i * kTile;
+        const uint32_t bytes =
+            min(kTile, stop - t0) * kD * static_cast<int>(sizeof(T));
+        hp::mbar_arrive_expect_tx(&full[s], 2 * bytes);
+        const size_t off = static_cast<size_t>(t0) * kD;
+        hp::bulk_load(k_s + s * tile_bytes<T>(), k_h + off, bytes, &full[s]);
+        hp::bulk_load(v_s + s * tile_bytes<T>(), v_h + off, bytes, &full[s]);
+      }
+    }
+    __syncwarp();
+  } else {
+    // Compute warp: lane = (token r of 4, dims 8c..8c+7); this warp's tokens
+    // of a tile are warp * 16 + r + 4p, p = 0..3.
+    const int r = lane >> 3, c = lane & 7;
+    const int tok = warp * 16 + r;
+    float qf[G][8];
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      load8(q + (row + g) * kD + 8 * c, qf[g]);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) qf[g][j] *= scale_log2;
+    }
+    float m[G], l[G], acc[G][8];
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      m[g] = mp::kNegInf;
+      l[g] = 0.f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[g][j] = 0.f;
+    }
+    const float* ks_h = kQ ? k_scale + head * s_cap : nullptr;
+    const float* vs_h = kQ ? v_scale + head * s_cap : nullptr;
+
+    for (int i = 0; i < ntiles; ++i) {
+      const int s = i % kStages;
+      const int t0 = start + i * kTile;
+      bool valid[4];
+      float ksc[4], vsc[4];
+#pragma unroll
+      for (int p = 0; p < 4; ++p) {
+        const int t = t0 + tok + 4 * p;
+        valid[p] = t < stop;
+        ksc[p] = kQ && valid[p] ? __ldg(ks_h + t) : 1.f;
+        vsc[p] = kQ && valid[p] ? __ldg(vs_h + t) : 1.f;
+      }
+      hp::mbar_wait(&full[s], (i / kStages) & 1);
+      const T* kt = reinterpret_cast<const T*>(k_s + s * tile_bytes<T>());
+      const T* vt = reinterpret_cast<const T*>(v_s + s * tile_bytes<T>());
+
+      float sc[G][4];
+#pragma unroll
+      for (int p = 0; p < 4; ++p) {
+        float kx[8];
+        load8(kt + (tok + 4 * p) * kD + 8 * c, kx);
+#pragma unroll
+        for (int g = 0; g < G; ++g) {
+          float a = 0.f;
+#pragma unroll
+          for (int j = 0; j < 8; ++j) a = fmaf(kx[j], qf[g][j], a);
+          sc[g][p] = a;
+        }
+      }
+#pragma unroll
+      for (int g = 0; g < G; ++g)
+#pragma unroll
+        for (int p = 0; p < 4; ++p) {
+          float a = sc[g][p];
+          a += __shfl_xor_sync(0xffffffffu, a, 1);
+          a += __shfl_xor_sync(0xffffffffu, a, 2);
+          a += __shfl_xor_sync(0xffffffffu, a, 4);
+          sc[g][p] = valid[p] ? a * ksc[p] : mp::kNegInf;
+        }
+      // Online softmax over the warp's 16 tokens; the 8 lanes of a token
+      // hold the same values, the 4 tokens of a pass are lanes 8 apart.
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        float mx = fmaxf(fmaxf(sc[g][0], sc[g][1]), fmaxf(sc[g][2], sc[g][3]));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 8));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 16));
+        const float mn = fmaxf(m[g], mx);
+        const float mu = mn == mp::kNegInf ? 0.f : mn;
+        const float al = hp::ex2(m[g] - mu);
+        float ps = 0.f;
+#pragma unroll
+        for (int p = 0; p < 4; ++p) {
+          sc[g][p] = hp::ex2(sc[g][p] - mu);
+          ps += sc[g][p];
+        }
+        ps += __shfl_xor_sync(0xffffffffu, ps, 8);
+        ps += __shfl_xor_sync(0xffffffffu, ps, 16);
+        l[g] = l[g] * al + ps;
+        m[g] = mn;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[g][j] *= al;
+      }
+#pragma unroll
+      for (int p = 0; p < 4; ++p) {
+        float vx[8];
+        load8(vt + (tok + 4 * p) * kD + 8 * c, vx);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) vx[j] = valid[p] ? vx[j] : 0.f;
+#pragma unroll
+        for (int g = 0; g < G; ++g) {
+          // The TPU kernel's P.V operand: p (times the V scale) in bf16.
+          const float w =
+              __bfloat162float(__float2bfloat16_rn(sc[g][p] * vsc[p]));
+#pragma unroll
+          for (int j = 0; j < 8; ++j) acc[g][j] = fmaf(w, vx[j], acc[g][j]);
+        }
+      }
+      __syncwarp();
+      if (lane == 0) hp::mbar_arrive(&empty[s]);
+    }
+
+    // The warp's state: accumulators summed over its 4 token lanes.
+#pragma unroll
+    for (int g = 0; g < G; ++g)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        float a = acc[g][j];
+        a += __shfl_xor_sync(0xffffffffu, a, 8);
+        a += __shfl_xor_sync(0xffffffffu, a, 16);
+        if (r == 0) red_o[warp][g][8 * c + j] = a;
+      }
+    if (lane == 0)
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        red_m[warp][g] = m[g];
+        red_l[warp][g] = l[g];
+      }
+  }
+  __syncthreads();
+
+  // The block's (out / l, natural-log lse) per head.
+  const size_t part = static_cast<size_t>(split) * batch * hq + row;
+  for (int idx = tid; idx < G * kD; idx += kThreads) {
+    const int g = idx / kD;
+    float mx = mp::kNegInf;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, red_m[w][g]);
+    const float mu = mx == mp::kNegInf ? 0.f : mx;
+    float sum_l = 0.f, sum_o = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const float f = hp::ex2(red_m[w][g] - mu);
+      sum_l += red_l[w][g] * f;
+      sum_o += red_o[w][g][idx % kD] * f;
+    }
+    const float o_val = sum_l > 0.f ? sum_o / sum_l : 0.f;
+    const float lse_val =
+        sum_l > 0.f ? mu * mp::kLn2 + logf(sum_l) : mp::kNegInf;
+    if (n_act == 1) {
+      out[row * kD + idx] = o_val;
+      if (idx % kD == 0) lse[row + g] = lse_val;
+    } else {
+      part_o[part * kD + idx] = o_val;
+      if (idx % kD == 0) part_lse[part + g] = lse_val;
+    }
+  }
+  if (n_act == 1) return;
+
+  // The last split of this (request, kv head) to finish merges them all.
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) {
+    is_last = atomicAdd(&tickets[head], 1) == n_act - 1;
+    if (is_last) atomicExch(&tickets[head], 0);
+  }
+  __syncthreads();
+  if (!is_last) return;
+  __threadfence();
+  // One pass over the partials with a running max; loads of 8 splits at a
+  // time in flight (every active split has a token: its lse is finite).
+  const size_t split_stride = static_cast<size_t>(batch) * hq;
+  for (int idx = tid; idx < G * kD; idx += kThreads) {
+    const int g = idx / kD;
+    float mx = mp::kNegInf, acc = 0.f, denom = 0.f;
+#pragma unroll 8
+    for (int sp = 0; sp < n_act; ++sp) {
+      const size_t pi = sp * split_stride + row;
+      const float ls = __ldcg(part_lse + pi + g);
+      const float ov = __ldcg(part_o + pi * kD + idx);
+      const float nm = fmaxf(mx, ls);
+      const float keep = expf(mx - nm), w = expf(ls - nm);
+      denom = denom * keep + w;
+      acc = acc * keep + w * ov;
+      mx = nm;
+    }
+    out[row * kD + idx] = acc / denom;
+    if (idx % kD == 0) lse[row + g] = mx + logf(denom);
+  }
 }
 
 template <int G, typename T>
 int launch_decode(const void* q, const void* k, const void* v,
                   const void* k_scale, const void* v_scale,
-                  const void* length, void* part_o, void* part_lse, void* out,
-                  void* lse, int batch, int s_cap, int hkv, float sm_scale,
-                  cudaStream_t stream) {
-  const int nsplit = (s_cap + mp::kDecChunk - 1) / mp::kDecChunk;
-  dim3 grid(nsplit, hkv, batch);
-  flash_decode_split_kernel<G, T><<<grid, mp::kDecThreads, 0, stream>>>(
+                  const void* length, void* part_o, void* part_lse,
+                  void* tickets, void* out, void* lse, int batch, int s_cap,
+                  int hkv, int chunk, float sm_scale, cudaStream_t stream) {
+  static unsigned smem_set = 0;
+  const cudaError_t err =
+      hp::allow_smem(flash_decode_kernel<G, T>, smem_bytes<T>(), smem_set);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 grid((s_cap + chunk - 1) / chunk, hkv, batch);
+  flash_decode_kernel<G, T><<<grid, kThreads, smem_bytes<T>(), stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const float*>(k_scale),
       static_cast<const float*>(v_scale), static_cast<const int*>(length),
-      static_cast<float*>(part_o), static_cast<float*>(part_lse), batch,
-      s_cap, hkv, sm_scale * mp::kLog2e);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return mp::launch_merge(static_cast<const float*>(part_o),
-                          static_cast<const float*>(part_lse), nullptr,
-                          static_cast<float*>(out), static_cast<float*>(lse),
-                          nullptr, nsplit, batch * hkv * G, stream);
+      static_cast<float*>(part_o), static_cast<float*>(part_lse),
+      static_cast<int*>(tickets), static_cast<float*>(out),
+      static_cast<float*>(lse), batch, s_cap, hkv, chunk,
+      sm_scale * mp::kLog2e);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // One block per (request, query head), one thread per output lane.
@@ -152,27 +398,31 @@ int mp::launch_merge(const float* part_o, const float* part_lse,
 }
 
 // k_scale and v_scale null: bf16 K/V; both set: int8 K/V with those
-// per-token scales [B, Hkv, S].
+// per-token scales [B, Hkv, S]. `chunk`: tokens per split, a positive
+// multiple of 64.
 extern "C" int mp_flash_decode(const void* q, const void* k, const void* v,
                                const void* k_scale, const void* v_scale,
                                const void* length, void* part_o,
-                               void* part_lse, void* out, void* lse,
-                               int batch, int s_cap, int hq, int hkv,
-                               int head_dim, float sm_scale, void* stream) {
-  if (head_dim != mp::kDecD || hq % hkv != 0 ||
-      (k_scale == nullptr) != (v_scale == nullptr))
+                               void* part_lse, void* tickets, void* out,
+                               void* lse, int batch, int s_cap, int hq,
+                               int hkv, int head_dim, int chunk,
+                               float sm_scale, void* stream) {
+  if (head_dim != kD || hkv <= 0 || hq % hkv != 0 || chunk <= 0 ||
+      chunk % kTile != 0 || (k_scale == nullptr) != (v_scale == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
+  if (batch == 0 || s_cap == 0) return static_cast<int>(cudaSuccess);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool quant = k_scale != nullptr;
 #define MP_DECODE_CASE(G)                                                    \
   case G:                                                                    \
     return quant ? launch_decode<G, int8_t>(q, k, v, k_scale, v_scale,       \
-                                            length, part_o, part_lse, out,   \
-                                            lse, batch, s_cap, hkv,          \
-                                            sm_scale, st)                    \
+                                            length, part_o, part_lse,        \
+                                            tickets, out, lse, batch, s_cap, \
+                                            hkv, chunk, sm_scale, st)        \
                  : launch_decode<G, __nv_bfloat16>(                          \
                        q, k, v, nullptr, nullptr, length, part_o, part_lse,  \
-                       out, lse, batch, s_cap, hkv, sm_scale, st);
+                       tickets, out, lse, batch, s_cap, hkv, chunk,          \
+                       sm_scale, st);
   switch (hq / hkv) {
     MP_DECODE_CASE(1)
     MP_DECODE_CASE(2)

@@ -7,208 +7,232 @@
 //
 // Bound on the H100: at Llama-3.2-1B width an 8K prompt is ~275 GFLOP of
 // attention per layer against ~50 MB of q/k/v/out, so the kernel is
-// compute-bound and has to run on the tensor cores. Design: one block per
-// (request, kv head, 256 query rows), the rows being the G query heads of
-// that kv head times 256/G queries, so each K/V tile read from device memory
-// feeds all G heads. Sixteen warps each own one 16-row mma.sync m16n8k16
-// tile (bf16 in, f32 accumulate); scores, probabilities and the output
-// accumulator stay in registers in the FlashAttention-2 layout, and only
-// 64-key K/V tiles pass through shared memory. The causal triangle is
-// skipped per block (key tiles past the block's last query are never read)
-// and per warp. wgmma, TMA and a pipelined tile ring are later work.
+// compute-bound and has to run on the tensor cores at the warpgroup rate.
+// Design, one block per (128 queries, query head, request), 384 threads:
+//  - a producer warpgroup (40 registers after setmaxnreg) whose first
+//    thread brings the Q tile and then 128-key K and V tiles by TMA, with
+//    the 128-byte swizzle, into a two-stage ring of shared memory, each
+//    stage with a full and an empty mbarrier for K and for V;
+//  - two consumer warpgroups (232 registers), 64 query rows each:
+//    S = Q K^T on wgmma m64n128k16 from shared memory, the online softmax
+//    in registers on the accumulator layout (log2 units), P rounded to bf16
+//    in registers as the A operand of O += P V on wgmma m64n64k16, V read
+//    through a transposed (MN-major) descriptor;
+//  - the G query heads of a kv head sit in neighbouring blocks and share
+//    each K/V tile through L2 (K and V of an 8K layer are 16 MB);
+//  - only key tiles that some row of the block can see are loaded; the
+//    mask is evaluated only on tiles that cross the causal diagonal, the
+//    window's edge or the length; V rows past the length are zeroed in
+//    shared memory on the tile that holds them (a probability of 0 times a
+//    NaN there is NaN), and TMA zero-fills rows past the tensor's end;
+//  - query tiles start last-first, so the longest causal rows go first;
+//  - the output is staged in bf16 in the block's Q tile (XOR-swizzled
+//    16-byte chunks) and stored with 16-byte stores.
 #include "common.cuh"
+#include "hopper_common.cuh"
 
 namespace {
 
-constexpr int kD = 64;                  // head dim
-constexpr int kRows = 256;              // query rows per block
-constexpr int kWarps = kRows / 16;      // one 16-row MMA tile per warp
-constexpr int kThreads = kWarps * 32;
-constexpr int kTileK = 64;              // keys per shared-memory tile
-constexpr int kPad = kD + 8;            // row stride (bf16): conflict-free
+constexpr int kD = 64;                          // head dim
+constexpr int kBM = 128;                        // query rows per block
+constexpr int kBN = 128;                        // keys per K/V tile
+constexpr int kStages = 2;
+constexpr int kThreads = 384;                   // producer + 2 consumers
+constexpr uint32_t kTileBytes = kBN * kD * 2;   // a K, V or Q tile: 16 KB
+constexpr int kSmemBytes = (1 + 2 * kStages) * kTileBytes + 1024;
 
-__global__ void __launch_bounds__(kThreads)
-flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,
-                     const __nv_bfloat16* __restrict__ k,
-                     const __nv_bfloat16* __restrict__ v,
+__global__ void __launch_bounds__(kThreads, 1)
+flash_prefill_kernel(const __grid_constant__ CUtensorMap tm_q,
+                     const __grid_constant__ CUtensorMap tm_k,
+                     const __grid_constant__ CUtensorMap tm_v,
                      const int* __restrict__ length,
                      const int* __restrict__ q_offset,
                      __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
                      int sq, int skv, int hq, int hkv, int window,
-                     float scale_log2) {
-  __shared__ __align__(16) __nv_bfloat16 ks[kTileK][kPad];
-  __shared__ __align__(16) __nv_bfloat16 vs[kTileK][kPad];
+                     int n_qtiles, float scale_log2) {
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t q_full;
+  __shared__ __align__(8) uint64_t k_full[kStages], k_empty[kStages];
+  __shared__ __align__(8) uint64_t v_full[kStages], v_empty[kStages];
 
-  const int g_heads = hq / hkv;
-  const int qt = kRows / g_heads;       // queries per head in this block
-  const int b = blockIdx.z;
-  const int kh = blockIdx.y;
-  const int q0 = blockIdx.x * qt;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int gr = lane >> 2;             // fragment row group
-  const int tq = lane & 3;              // fragment column pair
+  // 128-byte swizzled tiles need a 1024-byte aligned base.
+  uint8_t* q_s =
+      smem_raw + ((1024u - (hp::smem_u32(smem_raw) & 1023u)) & 1023u);
+  uint8_t* k_s = q_s + kTileBytes;                 // stage i at i * kTileBytes
+  uint8_t* v_s = k_s + kStages * kTileBytes;
 
-  const int len = length[b];
+  const int heads_x_batch = gridDim.x / n_qtiles;
+  const int qt = n_qtiles - 1 - static_cast<int>(blockIdx.x) / heads_x_batch;
+  const int h = static_cast<int>(blockIdx.x) % heads_x_batch % hq;
+  const int b = static_cast<int>(blockIdx.x) % heads_x_batch / hq;
+  const int kh = h / (hq / hkv);
+  const int len = min(length[b], skv);
   const int qoff = q_offset[b];
+  const int q0 = qt * kBM;
+  const int q_last = min(q0 + kBM, sq) - 1;
+  // Keys the block can see: [lo, hi), walked in tiles from t_begin.
+  const int hi = min(len, qoff + q_last + 1);
+  const int lo = window > 0 ? max(0, qoff + q0 - window + 1) : 0;
+  const int t_begin = (lo / kBN) * kBN;
+  const int ntiles = hi > lo ? (hi - t_begin + kBN - 1) / kBN : 0;
 
-  // This warp's 16 rows: one query head, 16 consecutive queries.
-  const int head = kh * g_heads + (warp * 16) / qt;
-  const int i_base = q0 + (warp * 16) % qt;
-  const int r0 = i_base + gr;           // query index of rows gr and gr + 8
-  const int r1 = r0 + 8;
-  const int pos0 = qoff + r0;
-  const int pos1 = qoff + r1;
-
-  // Key range of the whole block: [lo, hi).
-  const int q_last = min(q0 + qt, sq) - 1;
-  int hi = min(len, qoff + q_last + 1);
-  hi = min(hi, skv);
-  int lo = 0;
-  if (window > 0) lo = max(0, qoff + q0 - window + 1);
-  // Key range of this warp (for skipping tiles it cannot see).
-  const int w_last = min(i_base + 15, sq - 1);
-  const int w_hi = min(hi, qoff + w_last + 1);
-  const int w_lo = window > 0 ? max(0, qoff + i_base - window + 1) : 0;
-
-  // Q fragments (4 k-steps of 16 over d = 64), straight from device memory.
-  uint32_t qa[kD / 16][4];
-  {
-    const size_t row_stride = static_cast<size_t>(hq) * kD;
-    const __nv_bfloat16* q_b = q + static_cast<size_t>(b) * sq * row_stride +
-                               static_cast<size_t>(head) * kD;
+  if (threadIdx.x == 0) {
+    hp::mbar_init(&q_full, 1);
 #pragma unroll
-    for (int kk = 0; kk < kD / 16; ++kk) {
-      const int c = kk * 16 + 2 * tq;
-      uint32_t x0 = 0, x1 = 0, x2 = 0, x3 = 0;
-      if (r0 < sq) {
-        const __nv_bfloat16* p = q_b + r0 * row_stride + c;
-        x0 = *reinterpret_cast<const uint32_t*>(p);
-        x2 = *reinterpret_cast<const uint32_t*>(p + 8);
-      }
-      if (r1 < sq) {
-        const __nv_bfloat16* p = q_b + r1 * row_stride + c;
-        x1 = *reinterpret_cast<const uint32_t*>(p);
-        x3 = *reinterpret_cast<const uint32_t*>(p + 8);
-      }
-      qa[kk][0] = x0;
-      qa[kk][1] = x1;
-      qa[kk][2] = x2;
-      qa[kk][3] = x3;
+    for (int s = 0; s < kStages; ++s) {
+      hp::mbar_init(&k_full[s], 1);
+      hp::mbar_init(&v_full[s], 1);
+      hp::mbar_init(&k_empty[s], 8);         // one arrival per consumer warp
+      hp::mbar_init(&v_empty[s], 8);
     }
+    hp::fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // Producer.
+    hp::regs_dec<40>();
+    if (threadIdx.x == 0 && ntiles > 0) {
+      hp::mbar_arrive_expect_tx(&q_full, kTileBytes);
+      hp::tma_load_4d(q_s, &tm_q, 0, h, q0, b, &q_full);
+      for (int i = 0; i < ntiles; ++i) {
+        const int s = i % kStages;
+        const uint32_t round = i / kStages;
+        const int t0 = t_begin + i * kBN;
+        if (i >= kStages) hp::mbar_wait(&k_empty[s], (round - 1) & 1);
+        hp::mbar_arrive_expect_tx(&k_full[s], kTileBytes);
+        hp::tma_load_4d(k_s + s * kTileBytes, &tm_k, 0, kh, t0, b, &k_full[s]);
+        if (i >= kStages) hp::mbar_wait(&v_empty[s], (round - 1) & 1);
+        hp::mbar_arrive_expect_tx(&v_full[s], kTileBytes);
+        hp::tma_load_4d(v_s + s * kTileBytes, &tm_v, 0, kh, t0, b, &v_full[s]);
+      }
+    }
+    return;
   }
 
-  float o[kD / 8][4];
-#pragma unroll
-  for (int j = 0; j < kD / 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
-  float m0 = mp::kNegInf, m1 = mp::kNegInf;   // running max (log2 units)
-  float l0 = 0.f, l1 = 0.f;                   // this thread's partial sums
+  // Consumers: warpgroup cw owns block rows cw * 64 .. cw * 64 + 63; this
+  // thread rows r0 and r0 + 8 of them (the accumulator layout).
+  hp::regs_inc<232>();
+  const int cw = wg - 1;
+  const int tw = threadIdx.x - 128 * wg;
+  const int warp = tw >> 5, lane = tw & 31;
+  const int gr = lane >> 2, tq = lane & 3;
+  const int r0 = cw * 64 + warp * 16 + gr;
+  const int pos0 = qoff + q0 + r0, pos1 = pos0 + 8;
+  const uint64_t q_desc = hp::sw128_desc(q_s + cw * 64 * 128);
 
-  const size_t kv_row = static_cast<size_t>(hkv) * kD;
-  const __nv_bfloat16* k_b = k + static_cast<size_t>(b) * skv * kv_row +
-                             static_cast<size_t>(kh) * kD;
-  const __nv_bfloat16* v_b = v + static_cast<size_t>(b) * skv * kv_row +
-                             static_cast<size_t>(kh) * kD;
+  float o[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) o[i] = 0.f;
+  float m0 = mp::kNegInf, m1 = mp::kNegInf;     // running max, raw scores
+  float l0 = 0.f, l1 = 0.f;                     // this thread's partial sums
 
-  for (int t0 = (lo / kTileK) * kTileK; t0 < hi; t0 += kTileK) {
-    // Cooperative tile load: 64 rows x 8 vectors of 16 bytes, K and V.
-    for (int c = tid; c < kTileK * (kD / 8); c += kThreads) {
-      const int row = c / (kD / 8);
-      const int col = (c % (kD / 8)) * 8;
-      const int t = t0 + row;
-      uint4 kx = make_uint4(0, 0, 0, 0), vx = make_uint4(0, 0, 0, 0);
-      if (t < hi) {
-        kx = *reinterpret_cast<const uint4*>(k_b + t * kv_row + col);
-        vx = *reinterpret_cast<const uint4*>(v_b + t * kv_row + col);
-      }
-      *reinterpret_cast<uint4*>(&ks[row][col]) = kx;
-      *reinterpret_cast<uint4*>(&vs[row][col]) = vx;
-    }
-    __syncthreads();
+  if (ntiles > 0) hp::mbar_wait(&q_full, 0);
+  for (int i = 0; i < ntiles; ++i) {
+    const int s = i % kStages;
+    const uint32_t parity = (i / kStages) & 1;
+    const int t0 = t_begin + i * kBN;
 
-    if (t0 < w_hi && t0 + kTileK > w_lo && i_base < sq) {
-      // S = Q K^T for 8 column tiles of 8 keys.
-      float s[kTileK / 8][4];
+    // S = Q K^T over d = 64: four k-steps of 16 (32 bytes each).
+    float sc[64];
+    const uint64_t k_desc = hp::sw128_desc(k_s + s * kTileBytes);
+    hp::mbar_wait(&k_full[s], parity);
+    hp::wgmma_fence();
 #pragma unroll
-      for (int j = 0; j < kTileK / 8; ++j) {
-        s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+    for (int kk = 0; kk < kD / 16; ++kk)
+      hp::wgmma_ss_m64n128k16(sc, q_desc + 2 * kk, k_desc + 2 * kk, kk);
+    hp::wgmma_commit();
+    hp::wgmma_wait<0>();
+    hp::fence_regs(sc);
+    __syncwarp();
+    if (lane == 0) hp::mbar_arrive(&k_empty[s]);
+
+    // Mask, only on tiles that cross the diagonal, an edge or the length.
+    const bool need_mask = t0 + kBN - 1 > qoff + q0 || t0 + kBN > len ||
+                           (window > 0 && qoff + q_last - t0 >= window);
+    if (need_mask) {
 #pragma unroll
-        for (int kk = 0; kk < kD / 16; ++kk) {
-          const __nv_bfloat16* kr = &ks[j * 8 + gr][kk * 16 + 2 * tq];
-          const uint32_t b0 = *reinterpret_cast<const uint32_t*>(kr);
-          const uint32_t b1 = *reinterpret_cast<const uint32_t*>(kr + 8);
-          mp::mma_bf16_16816(s[j], qa[kk], b0, b1);
-        }
-      }
-      // Mask, scale (log2 units), row max.
-      float mx0 = mp::kNegInf, mx1 = mp::kNegInf;
-#pragma unroll
-      for (int j = 0; j < kTileK / 8; ++j) {
+      for (int j = 0; j < kBN / 8; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int key = t0 + j * 8 + 2 * tq + (e & 1);
           const int pos = e < 2 ? pos0 : pos1;
-          const int row = e < 2 ? r0 : r1;
-          bool ok = key <= pos && key < hi && row < sq;
+          bool ok = key <= pos && key < len;
           if (window > 0) ok = ok && pos - key < window;
-          const float x = ok ? s[j][e] * scale_log2 : mp::kNegInf;
-          s[j][e] = x;
-          if (e < 2) mx0 = fmaxf(mx0, x); else mx1 = fmaxf(mx1, x);
+          if (!ok) sc[4 * j + e] = mp::kNegInf;
         }
-      }
-#pragma unroll
-      for (int off = 1; off < 4; off <<= 1) {
-        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
-        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
-      }
-      const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-      const float mu0 = mn0 == mp::kNegInf ? 0.f : mn0;
-      const float mu1 = mn1 == mp::kNegInf ? 0.f : mn1;
-      const float al0 = exp2f(m0 - mu0), al1 = exp2f(m1 - mu1);
-      m0 = mn0;
-      m1 = mn1;
-      float ps0 = 0.f, ps1 = 0.f;
-#pragma unroll
-      for (int j = 0; j < kTileK / 8; ++j) {
-        s[j][0] = exp2f(s[j][0] - mu0);
-        s[j][1] = exp2f(s[j][1] - mu0);
-        s[j][2] = exp2f(s[j][2] - mu1);
-        s[j][3] = exp2f(s[j][3] - mu1);
-        ps0 += s[j][0] + s[j][1];
-        ps1 += s[j][2] + s[j][3];
-      }
-      l0 = l0 * al0 + ps0;
-      l1 = l1 * al1 + ps1;
-#pragma unroll
-      for (int j = 0; j < kD / 8; ++j) {
-        o[j][0] *= al0;
-        o[j][1] *= al0;
-        o[j][2] *= al1;
-        o[j][3] *= al1;
-      }
-      // O += P V: P from the score registers (C layout of two adjacent
-      // 8-key tiles == A layout of one 16-key step), V from shared memory.
-#pragma unroll
-      for (int kk = 0; kk < kTileK / 16; ++kk) {
-        uint32_t pa[4];
-        pa[0] = mp::pack_f32_as_bf16(s[2 * kk][0], s[2 * kk][1]);
-        pa[1] = mp::pack_f32_as_bf16(s[2 * kk][2], s[2 * kk][3]);
-        pa[2] = mp::pack_f32_as_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-        pa[3] = mp::pack_f32_as_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-        const int kr = kk * 16 + 2 * tq;
-#pragma unroll
-        for (int jd = 0; jd < kD / 8; ++jd) {
-          const int col = jd * 8 + gr;
-          const uint32_t b0 = mp::pack_bf16(vs[kr][col], vs[kr + 1][col]);
-          const uint32_t b1 = mp::pack_bf16(vs[kr + 8][col], vs[kr + 9][col]);
-          mp::mma_bf16_16816(o[jd], pa, b0, b1);
-        }
-      }
     }
-    __syncthreads();
+
+    // Online softmax; the row max runs over the quad's 4 threads.
+    float mx0 = m0, mx1 = m1;
+#pragma unroll
+    for (int j = 0; j < kBN / 8; ++j) {
+      mx0 = fmaxf(mx0, fmaxf(sc[4 * j], sc[4 * j + 1]));
+      mx1 = fmaxf(mx1, fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
+    }
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+    }
+    const float mu0 = mx0 == mp::kNegInf ? 0.f : mx0 * scale_log2;
+    const float mu1 = mx1 == mp::kNegInf ? 0.f : mx1 * scale_log2;
+    const float al0 = hp::ex2(m0 * scale_log2 - mu0);
+    const float al1 = hp::ex2(m1 * scale_log2 - mu1);
+    m0 = mx0;
+    m1 = mx1;
+    // P in bf16 as eight A fragments of 16 keys (C layout of two adjacent
+    // 8-key column blocks == A layout of one 16-key step).
+    uint32_t pa[kBN / 16][4];
+    float ps0 = 0.f, ps1 = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < kBN / 16; ++kk) {
+      float p[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        p[e] = hp::ex2(
+            fmaf(sc[8 * kk + e], scale_log2, (e & 2) ? -mu1 : -mu0));
+      ps0 += (p[0] + p[1]) + (p[4] + p[5]);
+      ps1 += (p[2] + p[3]) + (p[6] + p[7]);
+      pa[kk][0] = mp::pack_f32_as_bf16(p[0], p[1]);
+      pa[kk][1] = mp::pack_f32_as_bf16(p[2], p[3]);
+      pa[kk][2] = mp::pack_f32_as_bf16(p[4], p[5]);
+      pa[kk][3] = mp::pack_f32_as_bf16(p[6], p[7]);
+    }
+    l0 = l0 * al0 + ps0;
+    l1 = l1 * al1 + ps1;
+#pragma unroll
+    for (int j = 0; j < kD / 8; ++j) {
+      o[4 * j] *= al0;
+      o[4 * j + 1] *= al0;
+      o[4 * j + 2] *= al1;
+      o[4 * j + 3] *= al1;
+    }
+
+    // O += P V: 8 k-steps of 16 keys (16 rows of 128 bytes each).
+    uint8_t* v_tile = v_s + s * kTileBytes;
+    hp::mbar_wait(&v_full[s], parity);
+    if (t0 + kBN > len && len < skv) {            // block-uniform
+      const uint4 zero = make_uint4(0, 0, 0, 0);
+      uint4* rows = reinterpret_cast<uint4*>(v_tile);
+      for (int c = max(len - t0, 0) * 8 + cw * 128 + tw; c < kBN * 8; c += 256)
+        rows[c] = zero;                           // a whole row: swizzle-free
+      hp::fence_proxy_async();
+      hp::named_barrier(1, 256);
+    }
+    const uint64_t v_desc = hp::sw128_desc(v_tile);
+    hp::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBN / 16; ++kk)
+      hp::wgmma_rs_m64n64k16(o, pa[kk], v_desc + 128 * kk, 1);
+    hp::wgmma_commit();
+    hp::wgmma_wait<0>();
+    hp::fence_regs(o);
+#pragma unroll
+    for (int kk = 0; kk < kBN / 16; ++kk) hp::fence_regs(pa[kk]);
+    __syncwarp();
+    if (lane == 0) hp::mbar_arrive(&v_empty[s]);
   }
 
   // Row sums live spread over the 4 threads of a quad.
@@ -219,27 +243,38 @@ flash_prefill_kernel(const __nv_bfloat16* __restrict__ q,
   }
   const float inv0 = l0 > 0.f ? 1.f / l0 : 0.f;
   const float inv1 = l1 > 0.f ? 1.f / l1 : 0.f;
-  const size_t row_stride = static_cast<size_t>(hq) * kD;
-  __nv_bfloat16* out_b = out + static_cast<size_t>(b) * sq * row_stride +
-                         static_cast<size_t>(head) * kD;
+
+  // Stage this warpgroup's 64 rows in its (consumed) half of the Q tile,
+  // 16-byte chunk c of row r at chunk c ^ (r % 8): conflict-free both ways.
+  uint8_t* stage = q_s + cw * 64 * 128;
+  const int lr = warp * 16 + gr;                  // local row; lr + 8 too
 #pragma unroll
-  for (int jd = 0; jd < kD / 8; ++jd) {
-    const int c = jd * 8 + 2 * tq;
-    if (r0 < sq)
-      *reinterpret_cast<uint32_t*>(out_b + r0 * row_stride + c) =
-          mp::pack_f32_as_bf16(o[jd][0] * inv0, o[jd][1] * inv0);
-    if (r1 < sq)
-      *reinterpret_cast<uint32_t*>(out_b + r1 * row_stride + c) =
-          mp::pack_f32_as_bf16(o[jd][2] * inv1, o[jd][3] * inv1);
+  for (int j = 0; j < kD / 8; ++j) {
+    const int off = ((j ^ (lr & 7)) << 4) + tq * 4;
+    *reinterpret_cast<uint32_t*>(stage + lr * 128 + off) =
+        mp::pack_f32_as_bf16(o[4 * j] * inv0, o[4 * j + 1] * inv0);
+    *reinterpret_cast<uint32_t*>(stage + (lr + 8) * 128 + off) =
+        mp::pack_f32_as_bf16(o[4 * j + 2] * inv1, o[4 * j + 3] * inv1);
   }
-  if (lse != nullptr && tq == 0) {
-    float* lse_b = lse + static_cast<size_t>(b) * sq * hq + head;
-    if (r0 < sq)
-      lse_b[static_cast<size_t>(r0) * hq] =
-          l0 > 0.f ? m0 * mp::kLn2 + logf(l0) : mp::kNegInf;
-    if (r1 < sq)
-      lse_b[static_cast<size_t>(r1) * hq] =
-          l1 > 0.f ? m1 * mp::kLn2 + logf(l1) : mp::kNegInf;
+  hp::named_barrier(2 + cw, 128);
+  for (int c = tw; c < 64 * 8; c += 128) {
+    const int row = c >> 3, ch = c & 7;
+    const int qi = q0 + cw * 64 + row;
+    if (qi < sq)
+      *reinterpret_cast<uint4*>(
+          out + ((static_cast<size_t>(b) * sq + qi) * hq + h) * kD + ch * 8) =
+          *reinterpret_cast<const uint4*>(stage + row * 128 +
+                                          ((ch ^ (row & 7)) << 4));
+  }
+  if (tq == 0 && lse != nullptr) {
+    const int qi0 = q0 + r0, qi1 = qi0 + 8;
+    float* lse_b = lse + static_cast<size_t>(b) * sq * hq + h;
+    if (qi0 < sq)
+      lse_b[static_cast<size_t>(qi0) * hq] =
+          l0 > 0.f ? m0 * scale_log2 * mp::kLn2 + logf(l0) : mp::kNegInf;
+    if (qi1 < sq)
+      lse_b[static_cast<size_t>(qi1) * hq] =
+          l1 > 0.f ? m1 * scale_log2 * mp::kLn2 + logf(l1) : mp::kNegInf;
   }
 }
 
@@ -250,17 +285,36 @@ extern "C" int mp_flash_prefill(const void* q, const void* k, const void* v,
                                 void* out, void* lse, int batch, int sq,
                                 int skv, int hq, int hkv, int head_dim,
                                 int window, float sm_scale, void* stream) {
-  if (head_dim != kD || hq % hkv != 0 || kRows % (16 * (hq / hkv)) != 0)
+  if (head_dim != kD || hkv <= 0 || hq % hkv != 0 || batch <= 0 || sq <= 0 ||
+      skv < 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int qt = kRows / (hq / hkv);
-  dim3 grid((sq + qt - 1) / qt, hkv, batch);
-  flash_prefill_kernel<<<grid, kThreads, 0,
+  const uint32_t box[4] = {kD, 1, kBN, 1};
+  CUtensorMap tm_q, tm_k, tm_v;
+  const uint64_t qdim[4] = {kD, static_cast<uint64_t>(hq),
+                            static_cast<uint64_t>(sq),
+                            static_cast<uint64_t>(batch)};
+  const uint64_t kdim[4] = {kD, static_cast<uint64_t>(hkv),
+                            static_cast<uint64_t>(skv),
+                            static_cast<uint64_t>(batch)};
+  if (!hp::bf16_map_4d(&tm_q, q, qdim, box))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (skv == 0) {                 // no key: no tile is loaded, any map will do
+    tm_k = tm_q;
+    tm_v = tm_q;
+  } else if (!hp::bf16_map_4d(&tm_k, k, kdim, box) ||
+             !hp::bf16_map_4d(&tm_v, v, kdim, box)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  static unsigned smem_set = 0;
+  const cudaError_t err =
+      hp::allow_smem(flash_prefill_kernel, kSmemBytes, smem_set);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int n_qtiles = (sq + kBM - 1) / kBM;
+  flash_prefill_kernel<<<n_qtiles * hq * batch, kThreads, kSmemBytes,
                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<const int*>(length),
+      tm_q, tm_k, tm_v, static_cast<const int*>(length),
       static_cast<const int*>(q_offset), static_cast<__nv_bfloat16*>(out),
-      static_cast<float*>(lse), sq, skv, hq, hkv, window,
+      static_cast<float*>(lse), sq, skv, hq, hkv, window, n_qtiles,
       sm_scale * mp::kLog2e);
   return static_cast<int>(cudaGetLastError());
 }

@@ -4,8 +4,9 @@
 Replaces the TPU kernel `magicpig_tpu/ops/pallas/decode.py::flash_decode`
 (pallas_call at decode.py:184): bf16 K/V, or int8 K/V with per-token f32
 scales (counted apart, as "flash_decode_int8"). On the H100 it is bound by
-reading K and V once; the kernel splits the sequence into 512-token blocks
-so that a batch of 2 fills the card, and merges the splits by LSE.
+reading K and V once; the kernel streams K/V tiles with bulk copies, splits
+the sequence so that a small batch fills the card (`split_tokens`), and
+merges the splits by LSE in the same launch; see the source for the design.
 """
 
 from __future__ import annotations
@@ -18,7 +19,40 @@ from magicpig_tpu_torch.ops import attention
 from magicpig_tpu_torch.ops.kernels import _lib
 
 HEAD_DIM = 64
-SPLIT_TOKENS = 512     # tokens per block (kDecChunk in decode_common.cuh)
+SPLIT_TOKENS = 512     # tokens per block of the LSH and block kernels
+                       # (kDecChunk in decode_common.cuh)
+DECODE_TILE = 64       # tokens per copy of flash_decode (kTile)
+MIN_SPLIT = 256        # fewest tokens per flash_decode split
+MAX_SPLIT = 1024       # most tokens per flash_decode split
+
+# Per device: the merge tickets (int32, 0 between calls; the kernel resets
+# each one it uses) and the SM count.
+_tickets: dict[torch.device, torch.Tensor] = {}
+_num_sms: dict[torch.device, int] = {}
+
+
+def split_tokens(capacity: int, batch: int, hkv: int, num_sms: int) -> int:
+    """Tokens per flash_decode split: the capacity of every (request, kv
+    head) cut into about one block per SM, in whole 64-token tiles, within
+    [MIN_SPLIT, MAX_SPLIT]. A short cache takes one split, which writes its
+    output without a merge. `chip_smoke.py` phase 2 times 512, 1024 and 2048
+    at B=2 over 16384 + 11000 tokens (`PERF.md`)."""
+    per_split = -(-capacity * batch * hkv // max(1, num_sms))
+    tiles = -(-per_split // DECODE_TILE)
+    return min(MAX_SPLIT, max(MIN_SPLIT, tiles * DECODE_TILE))
+
+
+def _device_state(device: torch.device,
+                  pairs: int) -> tuple[torch.Tensor, int]:
+    """The device's tickets (at least `pairs`) and SM count."""
+    if device not in _num_sms:
+        props = torch.cuda.get_device_properties(device)
+        _num_sms[device] = props.multi_processor_count
+    tickets = _tickets.get(device)
+    if tickets is None or tickets.numel() < pairs:
+        tickets = torch.zeros((pairs,), dtype=torch.int32, device=device)
+        _tickets[device] = tickets
+    return tickets, _num_sms[device]
 
 
 def check_decode_inputs(name: str, q: torch.Tensor, k: torch.Tensor,
@@ -70,13 +104,15 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     check_decode_inputs(name, q, k, v, length, k_scale, v_scale)
     b, hq, d = q.shape
     hkv, s = k.shape[1], k.shape[2]
-    nsplit = -(-s // SPLIT_TOKENS)
+    tickets, num_sms = _device_state(q.device, b * hkv)
+    chunk = split_tokens(s, b, hkv, num_sms)
+    nsplit = -(-s // chunk)
     f32 = dict(dtype=torch.float32, device=q.device)
     part_o = torch.empty((nsplit, b * hq, d), **f32)
     part_lse = torch.empty((nsplit, b * hq), **f32)
     out = torch.empty((b, hq, d), **f32)
     lse = torch.empty((b, hq), **f32)
     _lib.launch(name, "mp_flash_decode", q.device, q, k, v, k_scale, v_scale,
-                length, part_o, part_lse, out, lse, b, s, hq, hkv, d,
-                1.0 / math.sqrt(d))
+                length, part_o, part_lse, tickets, out, lse, b, s, hq, hkv,
+                d, chunk, 1.0 / math.sqrt(d))
     return out, lse

@@ -4,8 +4,9 @@
 Replaces the TPU kernel `magicpig_tpu/ops/pallas/prefill.py::
 flash_prefill_pallas` (pallas_call at prefill.py:249). On the H100 the work
 is bound by tensor-core operations (~275 GFLOP per layer for an 8K prompt at
-Llama-3.2-1B width), so the kernel runs its products on mma.sync with the
-score and output tiles kept in registers; see the source for the design.
+Llama-3.2-1B width), so the kernel runs its products on warpgroup MMAs
+(wgmma) fed by TMA copies through a ring of shared memory, with the score
+and output tiles in registers; see the source for the design.
 """
 
 from __future__ import annotations
@@ -18,7 +19,6 @@ from magicpig_tpu_torch.ops import attention
 from magicpig_tpu_torch.ops.kernels import _lib
 
 HEAD_DIM = 64          # the kernel's head dim
-ROWS_PER_BLOCK = 256   # query heads of one kv head x queries, per block
 
 
 def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -47,8 +47,9 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _lib.require(d == HEAD_DIM, f"{name}: head_dim {d} != {HEAD_DIM}")
     _lib.require(k.shape == v.shape == (b, skv, hkv, d),
                  f"{name}: k/v shape {tuple(k.shape)}")
-    _lib.require(hq % hkv == 0 and ROWS_PER_BLOCK % (16 * (hq // hkv)) == 0,
+    _lib.require(hkv > 0 and hq % hkv == 0,
                  f"{name}: group size {hq}/{hkv} unsupported")
+    _lib.require(sq > 0, f"{name}: empty query span")
     _lib.require(length.dtype == q_offset.dtype == torch.int32
                  and length.shape == q_offset.shape == (b,),
                  f"{name}: length and q_offset must be int32 [B]")

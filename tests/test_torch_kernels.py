@@ -36,6 +36,7 @@ from magicpig_tpu_torch.ops.kernels import (
     rescore_attend,
     w4_matmul,
 )
+from magicpig_tpu_torch.ops.kernels.flash_decode import split_tokens
 from magicpig_tpu_torch.ops.kernels.lsh_fused import lsh_fused_decode_plain
 
 F32 = 1e-4
@@ -260,6 +261,29 @@ def test_wrappers_raise_for_other_devices(which):
                       torch.empty((1, 128), device=m))
         else:
             block_attend(torch.empty((1, 2, 2, 64), device=m), ids, k, None, 64)
+
+
+@pytest.mark.parametrize("capacity,batch,hkv,sms,want", [
+    (16384, 2, 8, 132, 1024),    # the dense layer of the 1B serve
+    (384, 2, 8, 132, 256),       # its hot caches: one split with tokens
+    (16384, 9, 2, 132, 1024),
+    (1500, 3, 8, 132, 320),      # 5 splits a pair, 120 blocks
+    (4096, 2, 8, 132, 512),      # 128 blocks
+    (65, 1, 1, 1, 256),
+])
+def test_decode_split_size(capacity, batch, hkv, sms, want):
+    """flash_decode's split: whole 64-token tiles, 256 to 1024 tokens, and
+    below 1024 about one block per SM over all (request, kv head) pairs: no
+    more than one per SM plus one split a pair, and, above 256, one tile
+    less would give more than one per SM."""
+    chunk = split_tokens(capacity, batch, hkv, sms)
+    assert chunk == want
+    assert chunk % 64 == 0 and 256 <= chunk <= 1024
+    pairs = batch * hkv
+    if chunk < 1024:
+        assert -(-capacity // chunk) * pairs <= sms + pairs
+    if 256 < chunk < 1024:
+        assert (chunk - 64) * sms < capacity * pairs
 
 
 def test_build_is_keyed_on_the_sources(tmp_path, monkeypatch):

@@ -23,7 +23,10 @@ summed in the same order); the poly and none debias forms of the fused LSH
 kernel like its exact form. The collision scan bit for bit; the masked
 attend from words, each of its six forms, like the fused kernel, and the
 two-stage route of `lsh_decode` against the fused kernel on the same
-inputs to the same limits; `exact_scores` like the block scores.
+inputs to the same limits; `exact_scores` like the block scores. The
+prefill and decode edge cases poison the cache rows past each length with
+NaN and hold the kernels to the plain versions on the tail-zeroed cache,
+to the same limits.
 """
 
 import numpy as np
@@ -136,6 +139,101 @@ def test_cuda_flash_decode_int8_matches_plain(cuda):
     _assert_within(o, po, rms_share=0.015)
     _assert_within(l, pl, atol=1e-4, rtol=1e-5)
     assert (o[2] == 0).all() and torch.isneginf(l[2]).all()
+
+
+def _kernel_launches(fn, calls: int = 3) -> int:
+    """CUDA kernels that `calls` calls of `fn` launch, by torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
+@pytest.mark.parametrize("sq", [1, 63, 129, 300, 1000])
+@pytest.mark.parametrize("g", [1, 2, 4, 8])
+def test_cuda_flash_prefill_edges(cuda, g, sq):
+    """Query spans off every tile size, a q_offset, length < Skv (request 1
+    ends inside its own span), a window and the LSE; cache rows past each
+    length hold NaN, which the kernel must never let through: it is held
+    to the plain version on the same inputs with that tail zeroed."""
+    rng = np.random.default_rng(21)
+    hkv, offs = 2, [200, 50]
+    skv = sq + 237
+    lens = [200 + sq, 50 + max(sq - 3, 1)]
+    q = _bf16(rng, 2, sq, g * hkv, 64, device=cuda)
+    k = _bf16(rng, 2, skv, hkv, 64, device=cuda)
+    v = _bf16(rng, 2, skv, hkv, 64, device=cuda)
+    kz, vz = k.clone(), v.clone()
+    for b, n in enumerate(lens):
+        k[b, n:] = float("nan")
+        v[b, n:] = float("nan")
+        kz[b, n:] = 0
+        vz[b, n:] = 0
+    length = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    offset = torch.tensor(offs, dtype=torch.int32, device=cuda)
+    for window in (None, 77):
+        before = LAUNCHES["flash_prefill"]
+        o, l = flash_prefill(q, k, v, length, offset, window=window,
+                             return_lse=True)
+        assert LAUNCHES["flash_prefill"] == before + 1
+        po, pl = tatt.flash_prefill(q, kz, vz, length, offset, window=window,
+                                    return_lse=True)
+        assert torch.isfinite(o).all() and not torch.isnan(l).any()
+        _assert_within(o, po, atol=4e-3, rtol=1e-2)
+        _assert_within(l, pl, atol=1e-4, rtol=1e-5)
+
+
+@pytest.mark.parametrize("capacity", [384, 16384])
+@pytest.mark.parametrize("g", [1, 2, 4, 8])
+@pytest.mark.parametrize("int8", [False, True])
+def test_cuda_flash_decode_edges(cuda, int8, g, capacity):
+    """Ragged and zero lengths around every tile and split edge; cache rows
+    past each length hold NaN (bf16) or NaN scales (int8), held to the
+    plain version on the tail-zeroed cache. One launch per call, counted
+    by the wrapper and by torch.profiler, and a second call equal to the
+    first (the merge tickets were reset)."""
+    rng = np.random.default_rng(22)
+    hkv = 2
+    lens = [min(n, capacity) for n in (0, 1, 63, 64, 65, 511, 512, 513, capacity)]
+    b = len(lens)
+    q = _bf16(rng, b, g * hkv, 64, device=cuda)
+    k = _bf16(rng, b, hkv, capacity, 64, device=cuda)
+    v = _bf16(rng, b, hkv, capacity, 64, device=cuda)
+    ks = vs = None
+    if int8:
+        k, ks = quantize_rows(k)
+        v, vs = quantize_rows(v)
+    zeroed = [x.clone() if x is not None else None for x in (k, v, ks, vs)]
+    for i, n in enumerate(lens):
+        for x in zeroed:
+            if x is not None:
+                x[i, :, n:] = 0
+        if int8:
+            ks[i, :, n:] = float("nan")
+            vs[i, :, n:] = float("nan")
+        else:
+            k[i, :, n:] = float("nan")
+            v[i, :, n:] = float("nan")
+    length = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    name = "flash_decode_int8" if int8 else "flash_decode"
+    before = dict(LAUNCHES)
+    o, l = flash_decode(q, k, v, length, ks, vs)
+    assert LAUNCHES[name] == before[name] + 1
+    assert sum(LAUNCHES.values()) == sum(before.values()) + 1
+    kz, vz, ksz, vsz = zeroed
+    po, pl = tatt.full_decode(q, kz, vz, length, ksz, vsz)
+    assert torch.isfinite(o).all() and not torch.isnan(l).any()
+    _assert_within(o, po, rms_share=0.015)
+    _assert_within(l, pl, atol=1e-4, rtol=1e-5)
+    assert (o[0] == 0).all() and torch.isneginf(l[0]).all()
+    o2, l2 = flash_decode(q, k, v, length, ks, vs)
+    assert torch.equal(o, o2) and torch.equal(l, l2)
+    assert _kernel_launches(lambda: flash_decode(q, k, v, length, ks, vs)) == 3
 
 
 @pytest.mark.parametrize("K,L", [(10, 150), (6, 41)])
