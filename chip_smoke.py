@@ -7,8 +7,10 @@ Phases, each announced by one flushed progress line with elapsed seconds:
   0. device: a CUDA card or exit non-zero; its name and power limit;
   1. build: the kernels of `magicpig_tpu_torch/csrc/`, one nvcc per source
      started together, then one link; the counts of warpgroup MMA (HGMMA),
-     TMA (UTMALDG) and bulk-copy (UBLKCP) instructions in the prefill and
-     decode kernels' SASS;
+     TMA (UTMALDG), bulk-copy (UBLKCP), mma.sync (HMMA) and cp.async
+     (LDGSTS) instructions in the prefill, decode, block scorer, rescore
+     and both LSH kernels' SASS (mma.sync in the scorer and the rescore,
+     cp.async in the scorer and the LSH kernels, or it fails);
   2. kernels: each hand-written kernel against its plain PyTorch version at
      the shapes of the Llama-3.2-1B decode paths (Hq 32, Hkv 8, d 64;
      prefill 8192 and 12000 tokens, decode at the hot cache (B=2, capacity
@@ -16,7 +18,8 @@ Phases, each announced by one flushed progress line with elapsed seconds:
      tokens at B=2, K=10, L=150, with bf16 and with int8 K/V (decode also
      at splits of 512, 1024 and 2048 tokens), the LSH
      kernel with each of its
-     exact, poly and none debias forms; the block_topk scorer,
+     exact, poly and none debias forms, and both LSH kernels at splits of
+     512, 1024 and 2048 tokens (counts equal); the block_topk scorer,
      rescore-attend and block-attend over 65536 tokens at B=2, lengths 65536
      and 40000, 512-token blocks, 11 selected, the scorer and rescore also
      over packed int4 K, where they must equal the int8 kernels on the
@@ -96,9 +99,10 @@ H100_BF16_FLOPS = 989e12            # dense bf16 tensor-core peak
 # scales with the output: under 0.01 of its rms; the block-attend partials
 # (rescore_attend, block_attend) likewise. The lse differs by f32 rounding
 # alone. The block scores are f32 sums of the same bf16-exact products in
-# another order: 1.4e-6 at most where they reach ~5. The int8 decode and LSH
-# partials as their bf16 forms (the plain versions round p times the V scale
-# to bf16, as flash_decode does; the LSH kernels do not). The int4 matmul's
+# another order (the scorer's on tensor cores): 1.4e-6 at most where they
+# reach ~5. The int8 decode and LSH partials as their bf16 forms (the plain
+# versions round p times the V scale to bf16, as flash_decode and the LSH
+# kernels do). The int4 matmul's
 # output is an f32 sum of the same exact products (bf16 times a nibble) in
 # another order.
 TOL = {
@@ -237,10 +241,26 @@ def bound_ms(nbytes: float, flops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+# Kernels whose SASS phase 1 counts (one template instance each: G = 4 for
+# the block and LSH kernels; the LSH template's two kernels told apart by
+# its kWords flag in the mangled name), and the instructions counted:
+# warpgroup MMA, TMA tensor load, bulk copy, mma.sync and cp.async.
+SASS_KERNELS = {
+    "flash_prefill_kernel": ("flash_prefill_kernel",),
+    "flash_decode_kernel": ("flash_decode_kernel",),
+    "block_score_kernel": ("block_score_kernel", "Li4E"),
+    "rescore_attend_kernel": ("rescore_attend_kernel", "Li4E"),
+    "lsh_masked (lsh_split_kernel, words)": ("lsh_split_kernel", "Li4E",
+                                             "Lb1E"),
+    "lsh_fused (lsh_split_kernel, scan)": ("lsh_split_kernel", "Li4E",
+                                           "Lb0E"),
+}
+SASS_OPS = ("HGMMA", "UTMALDG", "UBLKCP", "HMMA", "LDGSTS")
+
+
 def sass_counts(so) -> dict:
-    """Per kernel of flash_prefill.cu and flash_decode.cu (its first
-    template instance of each name), the counts of warpgroup MMA (HGMMA),
-    TMA tensor load (UTMALDG) and bulk copy (UBLKCP) instructions in the
+    """Per kernel of `SASS_KERNELS` (its first instance whose mangled name
+    holds every listed part), the counts of `SASS_OPS` instructions in the
     built library's SASS, from the toolkit's cuobjdump."""
     from pathlib import Path
 
@@ -253,16 +273,51 @@ def sass_counts(so) -> dict:
     for line in sass.splitlines():
         if "Function :" in line:
             fn = line.split("Function :")[1].strip()
-            name = next((k for k in ("flash_prefill_kernel",
-                                     "flash_decode_kernel") if k in fn), None)
+            name = next((k for k, parts in SASS_KERNELS.items()
+                         if all(p in fn for p in parts)), None)
             if name in counts:
                 name = None          # one template instance is enough
             elif name is not None:
-                counts[name] = dict.fromkeys(("HGMMA", "UTMALDG", "UBLKCP"), 0)
+                counts[name] = dict.fromkeys(SASS_OPS, 0)
         elif name is not None:
             for op in counts[name]:
                 counts[name][op] += f" {op}" in line
     return counts
+
+
+def check_sass(counts) -> None:
+    """The redesigned block and LSH kernels use what they were designed
+    for: mma.sync in the scorer and the rescore, cp.async in the scorer and
+    both LSH kernels."""
+    for name, op in (("block_score_kernel", "HMMA"),
+                     ("rescore_attend_kernel", "HMMA"),
+                     ("block_score_kernel", "LDGSTS"),
+                     ("lsh_masked (lsh_split_kernel, words)", "LDGSTS"),
+                     ("lsh_fused (lsh_split_kernel, scan)", "LDGSTS")):
+        if counts.get(name, {}).get(op, 0) == 0:
+            raise AssertionError(f"{name}: no {op} instruction in its SASS")
+
+
+def lsh_split_sweep(torch, name: str, entry: str, args, selection) -> dict:
+    """An LSH kernel's device time (us) for splits of 512, 1024 and 2048
+    tokens on the given inputs (`args` as `lsh_masked_attention`'s, its
+    selection replaced by `selection`), each split's counts equal to the
+    first's: the evidence for `LSH_SPLIT`."""
+    from magicpig_tpu_torch.ops.kernels.lsh_masked import launch_attend
+
+    q, k, v, k_norm, _, length, K, L, ks, vs, debias = args
+    times, counts = {}, None
+    for split in (512, 1024, 2048):
+        def call():
+            return launch_attend(name, entry, q, k, v, ks, vs, k_norm,
+                                 selection, length, K, L, debias, split=split)
+        cnt = call()[2]
+        if counts is not None and not torch.equal(cnt, counts):
+            raise AssertionError(f"{name}: split {split} changes the counts")
+        counts = cnt
+        times[split] = round(device_ms(call) * 1e3, 2)
+    log(f"  {name} device us by split tokens: {times}")
+    return times
 
 
 def phase_kernels(torch, F, dev):
@@ -354,6 +409,9 @@ def phase_kernels(torch, F, dev):
         f"skipped tile's worst element {teeth:.1f}x the limit; counts exact, "
         f"sampled {results['lsh_fused_decode']['sampled_frac']:.4f}, "
         f"rows read {results['lsh_fused_decode']['rows_frac']:.4f}")
+    lsh_split_sweep(torch, "lsh_fused_decode", "mp_lsh_fused_decode",
+                    (q, k, v, k_norm, None, length, K, L, None, None, "exact"),
+                    (planes, q_bits))
     results.update(lsh_debias_forms(
         torch, (q, k, v, k_norm, planes, q_bits, length, K, L, None, None),
         nbytes, rows, flops))
@@ -404,12 +462,12 @@ def decode_split_sweep(torch, q, k, v, length, k_scale=None,
     tokens on the given caches, the split the wrapper picks among them: the
     evidence for `split_tokens`."""
     from magicpig_tpu_torch.ops.kernels import _lib
-    from magicpig_tpu_torch.ops.kernels.flash_decode import _device_state
+    from magicpig_tpu_torch.ops.kernels.flash_decode import device_state
 
     b, hq, d = q.shape
     hkv, s = k.shape[1], k.shape[2]
     name = "flash_decode" if k_scale is None else "flash_decode_int8"
-    tickets, _ = _device_state(q.device, b * hkv)
+    tickets, _ = device_state(q.device, b * hkv)
     times = {}
     for chunk in (512, 1024, 2048):
         n = -(-s // chunk)
@@ -603,6 +661,9 @@ def two_stage_kernels(torch, F, gen, q, k, v, length, lens, planes, q_bits):
                 f"{teeth:.1f}x the limit; counts exact, sampled "
                 f"{results[name]['sampled_frac']:.4f}"
                 + (f"; {moved:.2e} from the exact form" if moved else ""))
+            if debias == "exact" and not quant:
+                lsh_split_sweep(torch, name, "mp_lsh_masked_attention", args,
+                                (words,))
         if not quant:
             # The odd-L routes on the same inputs: lsh_decode's two stages
             # against the fused kernel called directly.
@@ -1687,8 +1748,9 @@ def main() -> int:
     log(f"phase 1 build: {so.name} in {time.perf_counter() - t:.1f} s "
         f"(nvcc {_lib.last_build_seconds}); registers {regs}; "
         f"spills {spills or 'none'}")
-    log(f"phase 1 SASS (HGMMA, TMA and bulk-copy instructions): "
-        f"{sass_counts(so)}")
+    sass = sass_counts(so)
+    log(f"phase 1 SASS ({', '.join(SASS_OPS)} instructions): {sass}")
+    check_sass(sass)
 
     log("phase 2 kernels vs plain versions")
     kern = phase_kernels(torch, F, dev)

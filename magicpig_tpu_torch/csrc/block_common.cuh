@@ -1,7 +1,7 @@
 // Building blocks of the block_topk kernels (block_score.cu,
-// rescore_attend.cu, block_attend.cu): the G scores of one token, shared by
-// the scorer and the rescore so that ranking and attend see bit-identical
-// numbers, and the softmax-and-attend over one selected block.
+// rescore_attend.cu, block_attend.cu): the score routine on tensor cores,
+// shared by the scorer and the rescore so that ranking and attend see
+// bit-identical numbers, and the softmax-and-attend over one selected block.
 //
 // Layouts (token order, no fold): q [B, Hq, 64] bf16; K and V
 // [B, Hkv, S, 64] int8 or bf16, or K packed int4 [B, Hkv, S, 32] (Int4x2
@@ -17,17 +17,6 @@ constexpr int kBlkD = 64;              // head dim
 constexpr int kBlkThreads = 128;
 constexpr int kBlkTile = 64;           // V tokens per shared-memory tile
 constexpr int kMaxBlockScores = 8192;  // G * block_size floats per block
-
-// The G query heads of one kv head, times sm_scale and rounded to bf16 (as
-// the TPU kernels do before the dot), kept as f32.
-template <int G>
-__device__ __forceinline__ void load_scaled_q(float (*qs)[kBlkD],
-                                              const __nv_bfloat16* q_h,
-                                              float sm_scale, int tid) {
-  for (int i = tid; i < G * kBlkD; i += kBlkThreads)
-    qs[i / kBlkD][i % kBlkD] = __bfloat162float(
-        __float2bfloat16_rn(__bfloat162float(q_h[i]) * sm_scale));
-}
 
 // One byte of a packed int4 K row (ops/pack4.py): byte j of a token's 32
 // holds channel j in its low nibble and channel j + 32 in its high one.
@@ -48,93 +37,134 @@ struct KeyRow<Int4x2> {
 // K selector of the C entry points: 0 bf16, 1 int8, 2 packed int4.
 enum KeyKind : int { kKeyBf16 = 0, kKeyInt8 = 1, kKeyInt4 = 2 };
 
-__device__ __forceinline__ float key_value(const int8_t* row, int e) {
-  return static_cast<float>(row[e]);
-}
-__device__ __forceinline__ float key_value(const __nv_bfloat16* row, int e) {
-  return __bfloat162float(row[e]);
+// ---- The score routine: 16 keys against the G heads on mma.sync.
+//
+// One m16n8k16 bf16 product a k-step, f32 sums: the 16 keys are the rows
+// (A), the G queries the columns (B, zero columns up to 8), the 64 channels
+// four k-steps. The channels are ordered so that one lane's 16 channels of
+// a key row are contiguous in every K kind: lane (r = lane / 4, t = lane %
+// 4) holds channels 16t .. 16t + 15 of keys r and r + 8, and k-step kk
+// takes channels 16t + 4kk + {0, 1} at k positions 2t, 2t + 1 and 16t +
+// 4kk + {2, 3} at 2t + 8, 2t + 9. So a lane reads one 16-byte piece of an
+// int8 row (two of bf16, one of packed int4) for all four k-steps, and the
+// packed form puts each 4-bit value in the register and k position that
+// the int8 form puts it: the same products, summed in the same order.
+// Each score depends on its own key row and query alone, so the scorer
+// and the rescore, which tile the keys differently, agree bit for bit.
+
+// Bytes of one key row.
+template <typename KT>
+__host__ __device__ constexpr int key_row_bytes() {
+  return KeyRow<KT>::kElems * static_cast<int>(sizeof(KT));
 }
 
-// One 16-byte chunk of a key row as f32 values: 16 int8 or 8 bf16.
-__device__ __forceinline__ void chunk_values(const uint4& w, float* out,
-                                             const int8_t*) {
-  const uint32_t words[4] = {w.x, w.y, w.z, w.w};
+// The B operand: q * sm_scale rounded to bf16 (as the TPU kernel rounds it
+// before the dot), head n = lane / 4's channels of k-step kk in qb[kk]
+// (zero for n >= G).
+template <int G>
+__device__ __forceinline__ void load_q_frag(const __nv_bfloat16* q_h,
+                                            float sm_scale, int lane,
+                                            uint32_t (&qb)[4][2]) {
+  const int n = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      uint32_t w = 0u;
+      if (n < G) {
+        const __nv_bfloat16* p = q_h + n * kBlkD + 16 * t + 4 * kk + 2 * h;
+        w = pack_f32_as_bf16(__bfloat162float(p[0]) * sm_scale,
+                             __bfloat162float(p[1]) * sm_scale);
+      }
+      qb[kk][h] = w;
+    }
+}
+
+// The raw bytes of lane t's channels of one key row starting at `row`:
+// bf16 pieces 2t and 2t + 1 (their 16-byte units XORed with `swz`, the
+// scorer's shared-memory swizzle; 0 in device memory), the int8 piece t,
+// or packed int4 piece t % 2.
+__device__ __forceinline__ void key_chunks(const uint8_t* row, int t, int swz,
+                                           uint4 (&x)[2], const __nv_bfloat16*) {
+  const uint4* u = reinterpret_cast<const uint4*>(row);
+  x[0] = u[(2 * t) ^ swz];
+  x[1] = u[(2 * t + 1) ^ swz];
+}
+__device__ __forceinline__ void key_chunks(const uint8_t* row, int t, int,
+                                           uint4 (&x)[2], const int8_t*) {
+  x[0] = reinterpret_cast<const uint4*>(row)[t];
+}
+__device__ __forceinline__ void key_chunks(const uint8_t* row, int t, int,
+                                           uint4 (&x)[2], const Int4x2*) {
+  x[0] = reinterpret_cast<const uint4*>(row)[t & 1];
+}
+
+// Sixteen biased bytes (value + bias in 0..255) to eight bf16 pairs, in
+// byte order: each byte placed in the mantissa of 2^23 gives 2^23 + byte
+// exactly (one byte permute), minus 2^23 + bias (one add); integers this
+// small are exact in bf16.
+__device__ __forceinline__ void widen_biased(const uint32_t (&u)[4],
+                                             float bias, uint32_t (&w)[8]) {
+  const float off = 8388608.f + bias;
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
-      out[4 * i + j] =
-          static_cast<float>(static_cast<int8_t>(words[i] >> (8 * j)));
+    for (int j = 0; j < 2; ++j) {
+      const float lo = __uint_as_float(__byte_perm(u[i], 0x4B000000u,
+                                                   0x7540u | (2 * j))) - off;
+      const float hi = __uint_as_float(__byte_perm(u[i], 0x4B000000u,
+                                                   0x7540u | (2 * j + 1))) - off;
+      w[2 * i + j] = pack_f32_as_bf16(lo, hi);
+    }
 }
-__device__ __forceinline__ void chunk_values(const uint4& w, float* out,
-                                             const __nv_bfloat16*) {
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&w);
+
+// The A operand words of one key row from its raw bytes: word j holds
+// channels 16t + 2j, 16t + 2j + 1.
+__device__ __forceinline__ void key_words(const uint4 (&x)[2], int,
+                                          uint32_t (&w)[8],
+                                          const __nv_bfloat16*) {
+  const uint32_t v[8] = {x[0].x, x[0].y, x[0].z, x[0].w,
+                         x[1].x, x[1].y, x[1].z, x[1].w};
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    out[2 * i] = f.x;
-    out[2 * i + 1] = f.y;
+  for (int i = 0; i < 8; ++i) w[i] = v[i];
+}
+__device__ __forceinline__ void key_words(const uint4 (&x)[2], int,
+                                          uint32_t (&w)[8], const int8_t*) {
+  const uint32_t u[4] = {x[0].x ^ 0x80808080u, x[0].y ^ 0x80808080u,
+                         x[0].z ^ 0x80808080u, x[0].w ^ 0x80808080u};
+  widen_biased(u, 128.f, w);
+}
+// Packed int4: lanes t < 2 take the low nibbles (channels 0..31), t >= 2
+// the high ones (32..63); a two's-complement nibble XOR 8 is value + 8.
+__device__ __forceinline__ void key_words(const uint4 (&x)[2], int t,
+                                          uint32_t (&w)[8], const Int4x2*) {
+  const int sh = t >= 2 ? 4 : 0;
+  const uint32_t v[4] = {x[0].x, x[0].y, x[0].z, x[0].w};
+  uint32_t u[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) u[i] = ((v[i] >> sh) & 0x0F0F0F0Fu) ^ 0x08080808u;
+  widen_biased(u, 8.f, w);
+}
+
+// Scores of keys r and r + 8 (A words wa, wb) for heads 2t, 2t + 1:
+// d[0], d[1] key r; d[2], d[3] key r + 8. Unscaled: the caller multiplies
+// by the row's K scale (1 for bf16) with score_of.
+__device__ __forceinline__ void mma_scores(const uint32_t (&wa)[8],
+                                           const uint32_t (&wb)[8],
+                                           const uint32_t (&qb)[4][2],
+                                           float (&d)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) d[i] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint32_t a[4] = {wa[2 * kk], wb[2 * kk], wa[2 * kk + 1],
+                           wb[2 * kk + 1]};
+    mma_bf16_16816(d, a, qb[kk][0], qb[kk][1]);
   }
 }
 
-// The G scores of one token: sum over e = 0..63, in that order, of
-// qs[g][e] * k[e] in f32 (fmaf), times the row's scale. Both the scorer
-// and the rescore call this, so ranking and attend agree bit for bit.
-template <int G, typename KT>
-__device__ __forceinline__ void token_scores(const KT* __restrict__ krow,
-                                             float kscale,
-                                             const float (*qs)[kBlkD],
-                                             float (&s)[G]) {
-  constexpr int kPerChunk = 16 / sizeof(KT);
-  float acc[G];
-#pragma unroll
-  for (int g = 0; g < G; ++g) acc[g] = 0.f;
-  const uint4* src = reinterpret_cast<const uint4*>(krow);
-#pragma unroll
-  for (int c = 0; c < kBlkD / kPerChunk; ++c) {
-    float kv[kPerChunk];
-    chunk_values(__ldg(src + c), kv, krow);
-#pragma unroll
-    for (int j = 0; j < kPerChunk; ++j)
-#pragma unroll
-      for (int g = 0; g < G; ++g)
-        acc[g] = fmaf(qs[g][c * kPerChunk + j], kv[j], acc[g]);
-  }
-#pragma unroll
-  for (int g = 0; g < G; ++g) s[g] = acc[g] * kscale;
-}
-
-// The packed int4 form: the row's 32 bytes in two 16-byte loads, each
-// nibble sign-extended by shifts of its 32-bit word (low nibble of byte b:
-// (int)(w << (28 - 8b)) >> 28; high: (int)(w << (24 - 8b)) >> 28), and the
-// same fmaf over e = 0..63 in the same order as the int8 form, so the two
-// give bit-identical scores for the same 4-bit values.
-template <int G>
-__device__ __forceinline__ void token_scores(const Int4x2* __restrict__ krow,
-                                             float kscale,
-                                             const float (*qs)[kBlkD],
-                                             float (&s)[G]) {
-  float acc[G];
-#pragma unroll
-  for (int g = 0; g < G; ++g) acc[g] = 0.f;
-  const uint4* src = reinterpret_cast<const uint4*>(krow);
-  const uint4 w0 = __ldg(src), w1 = __ldg(src + 1);
-  const uint32_t words[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
-#pragma unroll
-  for (int h = 0; h < 2; ++h)              // low nibbles e < 32, then high
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int b = 0; b < 4; ++b) {
-        const int shift = (h == 0 ? 28 : 24) - 8 * b;
-        const float kv =
-            static_cast<float>(static_cast<int>(words[i] << shift) >> 28);
-        const int e = h * (kBlkD / 2) + 4 * i + b;
-#pragma unroll
-        for (int g = 0; g < G; ++g) acc[g] = fmaf(qs[g][e], kv, acc[g]);
-      }
-#pragma unroll
-  for (int g = 0; g < G; ++g) s[g] = acc[g] * kscale;
+__device__ __forceinline__ float score_of(float dot, float kscale) {
+  return __fmul_rn(dot, kscale);
 }
 
 template <typename VT>
@@ -154,7 +184,6 @@ template <int G, typename VT>
 struct __align__(16) BlockAttendSmem {
   float ps[kMaxBlockScores];   // [G][block_size]: scores, then p (x V scale)
   VTile<VT> vt;
-  float qs[G][kBlkD];
   float m[G];
   float l[G];
 };

@@ -14,26 +14,54 @@
 // port's layout: two channels a byte, tokens in order), or bf16 K.
 //
 // Bound on the H100: reading K once (32 bytes a token and kv head in packed
-// int4, 64 in int8, 128 in bf16) plus its scales, and in the
-// exact_scores_ranked variant
-// writing 4 bytes a token and query head (both score-storing variants);
-// ~2 flops per byte, so device
-// memory bounds it. Design: the TPU grid walks (request, kv head, 64K-token
-// tile) in order on one core; here one block of 128 threads takes one
-// (ranking block, kv head, request), 2048 blocks at B = 2, Hkv = 8, S = 64K.
-// A block wholly at or past the request's length writes -inf and reads no
-// K (exact_scores masks nothing: every token is scored). Each thread scores whole tokens: it loads a key row in 16-byte pieces
-// and sums against the G bf16-rounded queries held in shared memory (one
-// shared function, token_scores, that the rescore kernel calls too). The
-// block max is a warp shuffle and a shared-memory reduce, stored once.
+// int4, 64 in int8, 128 in bf16) plus its scales, and in the score-storing
+// variants writing 4 bytes a token and query head; ~2 flops per byte, so
+// device memory bounds it. A thread-a-token design (eight 16-byte loads a
+// row, G x 64 fmaf on CUDA cores reading q from shared memory) lost to a
+// bf16 matmul by 1.4x on the H100; this one streams K through shared memory
+// and runs the dot on the tensor cores. One block of four warps takes one
+// (ranking block, kv head, request), 2048 blocks at B = 2, Hkv = 8, S = 64K
+// (blocks of 2048 keys, four ranking blocks each, measured slower: fewer
+// warps in flight); a block wholly at or past the request's length writes
+// -inf and reads no K (exact_scores masks nothing: every token is scored).
+// Each warp owns every fourth 32-key tile of the block and streams it
+// through its own ring of shared-memory stages (two for bf16, four for the
+// narrower rows; measured) with 16-byte cp.async copies, neighbouring lanes
+// on neighbouring bytes, rows at or past the length zero-filled and never
+// read (bf16 units swizzled so that the lanes' 16-byte reads hit distinct
+// banks); no block barrier until the block max. The dot is the score
+// routine of block_common.cuh (mma.sync, int8 and int4 widened to bf16 in
+// registers, exact), which the rescore calls too. The epilogue scales by
+// the row's K scale, masks at the length, stages the tile in shared memory
+// so that each head's 32 scores leave as 16-byte streaming stores, and
+// takes the block max by warp shuffles and one shared-memory reduce.
+#include <type_traits>
+
 #include "block_common.cuh"
+#include "hopper_common.cuh"
 
 namespace {
+
+constexpr int kWarps = 4;
+constexpr int kThreads = kWarps * 32;
+constexpr int kTileKeys = 32;      // keys a warp takes at a time
+constexpr int kScPad = 36;         // staged score row stride (floats)
+
+// A warp's stage: the tile's key rows, then their 32 f32 scales.
+template <typename KT>
+struct Ring {
+  static constexpr int kRowBytes = mp::key_row_bytes<KT>();
+  static constexpr int kStages = kRowBytes == 128 ? 2 : 4;
+  static constexpr int kBytes = kTileKeys * kRowBytes + kTileKeys * 4;
+  static constexpr int kSmem =
+      kWarps * kStages * kBytes + kWarps * 8 * kScPad * 4;
+  static_assert(kSmem <= 48 * 1024, "more needs the dynamic-size attribute");
+};
 
 // kRank: mask at the length and store the block max (else score every
 // token, store no block max; length and block_max are unused).
 template <int G, typename KT, bool kStoreScores, bool kRank>
-__global__ void __launch_bounds__(mp::kBlkThreads)
+__global__ void __launch_bounds__(kThreads)
 block_score_kernel(const __nv_bfloat16* __restrict__ q,
                    const KT* __restrict__ k,
                    const float* __restrict__ k_scale,
@@ -42,12 +70,14 @@ block_score_kernel(const __nv_bfloat16* __restrict__ q,
                    float* __restrict__ block_max, int s_cap, int hkv,
                    int block_size, float sm_scale) {
   using namespace mp;
-  __shared__ float qs[G][kBlkD];
-  __shared__ float red[kBlkThreads / 32];
+  using R = Ring<KT>;
+  constexpr bool kBf16 = std::is_same<KT, __nv_bfloat16>::value;
+  extern __shared__ __align__(128) uint8_t smem[];
+  __shared__ float red[kWarps];
 
   const int blk = blockIdx.x, kh = blockIdx.y, b = blockIdx.z;
   const int nb = gridDim.x;
-  const int tid = threadIdx.x;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int len = kRank ? min(length[b], s_cap) : s_cap;
   const int t0 = blk * block_size;
   const size_t head = static_cast<size_t>(b) * hkv + kh;
@@ -55,43 +85,112 @@ block_score_kernel(const __nv_bfloat16* __restrict__ q,
 
   if (t0 >= len) {
     if (kStoreScores)
-      for (int i = tid; i < G * block_size; i += kBlkThreads)
+      for (int i = tid; i < G * block_size; i += kThreads)
         sc[static_cast<size_t>(i / block_size) * s_cap + t0 +
            i % block_size] = kNegInf;
     if (tid == 0) block_max[head * nb + blk] = kNegInf;
     return;
   }
-  load_scaled_q<G>(qs, q + head * G * kBlkD, sm_scale, tid);
-  __syncthreads();
+  const int stop = min(len, t0 + block_size);
+  uint32_t qb[4][2];
+  load_q_frag<G>(q + head * G * kBlkD, sm_scale, lane, qb);
 
-  constexpr int kRow = KeyRow<KT>::kElems;
-  const KT* k_h = k + head * s_cap * kRow;
-  const float* ks_h = k_scale != nullptr ? k_scale + head * s_cap : nullptr;
+  const uint8_t* k_h = reinterpret_cast<const uint8_t*>(k) +
+                       head * s_cap * R::kRowBytes;
+  const float* ks_h = kBf16 ? nullptr : k_scale + head * s_cap;
+  uint8_t* ring = smem + warp * R::kStages * R::kBytes;
+  float* staged = reinterpret_cast<float*>(smem + kWarps * R::kStages * R::kBytes) +
+                  warp * 8 * kScPad;
+  // This warp's tiles: warp, warp + 4, ...; the first `nv` have a key
+  // below the length.
+  const int ntiles = block_size / kTileKeys;
+  const int nvalid = (stop - t0 + kTileKeys - 1) / kTileKeys;
+  const int mine = (ntiles - warp + kWarps - 1) / kWarps;
+  const int nv = nvalid > warp ? (nvalid - warp + kWarps - 1) / kWarps : 0;
+
+  auto fetch = [&](int j) {
+    const int tok0 = t0 + (warp + kWarps * j) * kTileKeys;
+    uint8_t* dst = ring + (j % R::kStages) * R::kBytes;
+    constexpr int kUnits = R::kRowBytes / 16;
+#pragma unroll
+    for (int c = lane; c < kTileKeys * kUnits; c += 32) {
+      const int r = c / kUnits, u = c % kUnits;
+      const bool ok = tok0 + r < stop;
+      const uint8_t* src = k_h +
+          static_cast<size_t>(ok ? tok0 + r : tok0) * R::kRowBytes + 16 * u;
+      hp::cp_async_16(dst + r * R::kRowBytes + 16 * (kBf16 ? u ^ (r & 1) : u),
+                      src, ok);
+    }
+    if (!kBf16 && lane < kTileKeys / 4)
+      hp::cp_async_16(dst + kTileKeys * R::kRowBytes + 16 * lane,
+                      ks_h + tok0 + 4 * lane);
+  };
+
+  const int r = lane >> 2, t = lane & 3;
   float mx = kNegInf;
-  for (int i = tid; i < block_size; i += kBlkThreads) {
-    const int t = t0 + i;
-    float s[G];
-    if (t < len) {
-      token_scores<G>(k_h + static_cast<size_t>(t) * kRow,
-                      ks_h != nullptr ? ks_h[t] : 1.f, qs, s);
-    } else {
 #pragma unroll
-      for (int g = 0; g < G; ++g) s[g] = kNegInf;
-    }
-#pragma unroll
-    for (int g = 0; g < G; ++g) {
-      mx = fmaxf(mx, s[g]);
-      if (kStoreScores) sc[static_cast<size_t>(g) * s_cap + t] = s[g];
-    }
+  for (int j = 0; j < R::kStages - 1; ++j) {
+    if (j < nv) fetch(j);
+    hp::cp_async_commit();
   }
+  for (int j = 0; j < nv; ++j) {
+    if (j + R::kStages - 1 < nv) fetch(j + R::kStages - 1);
+    hp::cp_async_commit();
+    hp::cp_async_wait<R::kStages - 1>();
+    __syncwarp();
+    const uint8_t* st = ring + (j % R::kStages) * R::kBytes;
+    const float* scl = reinterpret_cast<const float*>(st + kTileKeys * R::kRowBytes);
+    const int tok0 = t0 + (warp + kWarps * j) * kTileKeys;
+#pragma unroll
+    for (int m = 0; m < 2; ++m) {
+      const int ka = 16 * m + r, kb = ka + 8;
+      uint4 xa[2], xb[2];
+      key_chunks(st + ka * R::kRowBytes, t, ka & 1, xa, k);
+      key_chunks(st + kb * R::kRowBytes, t, kb & 1, xb, k);
+      uint32_t wa[8], wb[8];
+      key_words(xa, t, wa, k);
+      key_words(xb, t, wb, k);
+      float d[4];
+      mma_scores(wa, wb, qb, d);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int key = i < 2 ? ka : kb, h = 2 * t + (i & 1);
+        const float s = tok0 + key < stop
+                            ? score_of(d[i], kBf16 ? 1.f : scl[key])
+                            : kNegInf;
+        if (h < G) {
+          mx = fmaxf(mx, s);
+          if (kStoreScores) staged[h * kScPad + key] = s;
+        }
+      }
+    }
+    if (kStoreScores) {
+      __syncwarp();
+      for (int c = lane; c < G * kTileKeys / 4; c += 32) {
+        const int h = c / (kTileKeys / 4), p = c % (kTileKeys / 4);
+        __stcs(reinterpret_cast<float4*>(sc + static_cast<size_t>(h) * s_cap +
+                                         tok0 + 4 * p),
+               *reinterpret_cast<const float4*>(staged + h * kScPad + 4 * p));
+      }
+    }
+    __syncwarp();
+  }
+  if (kStoreScores)   // this warp's tiles wholly past the length
+    for (int j = nv; j < mine; ++j) {
+      const int tok0 = t0 + (warp + kWarps * j) * kTileKeys;
+      for (int c = lane; c < G * kTileKeys / 4; c += 32)
+        *reinterpret_cast<float4*>(sc + static_cast<size_t>(c / (kTileKeys / 4)) *
+                                            s_cap + tok0 + 4 * (c % (kTileKeys / 4))) =
+            make_float4(kNegInf, kNegInf, kNegInf, kNegInf);
+    }
   if (!kRank) return;
   mx = warp_max(mx);
-  if ((tid & 31) == 0) red[tid >> 5] = mx;
+  if (lane == 0) red[warp] = mx;
   __syncthreads();
   if (tid == 0) {
     float m = red[0];
 #pragma unroll
-    for (int w = 1; w < kBlkThreads / 32; ++w) m = fmaxf(m, red[w]);
+    for (int w = 1; w < kWarps; ++w) m = fmaxf(m, red[w]);
     block_max[head * nb + blk] = m;
   }
 }
@@ -101,6 +200,7 @@ int launch(const void* q, const void* k, const void* k_scale,
            const void* length, void* scores, void* block_max, int batch,
            int s_cap, int hkv, int block_size, float sm_scale,
            cudaStream_t stream) {
+  const int v = block_max == nullptr ? 0 : scores != nullptr ? 1 : 2;
   dim3 grid(s_cap / block_size, hkv, batch);
   const auto* qp = static_cast<const __nv_bfloat16*>(q);
   const auto* kp = static_cast<const KT*>(k);
@@ -108,17 +208,15 @@ int launch(const void* q, const void* k, const void* k_scale,
   const auto* lp = static_cast<const int*>(length);
   auto* bm = static_cast<float*>(block_max);
   auto* sc = static_cast<float*>(scores);
-  if (block_max == nullptr)
-    block_score_kernel<G, KT, true, false><<<grid, mp::kBlkThreads, 0,
-                                             stream>>>(
+  constexpr int kSmem = Ring<KT>::kSmem;
+  if (v == 0)
+    block_score_kernel<G, KT, true, false><<<grid, kThreads, kSmem, stream>>>(
         qp, kp, ks, lp, sc, bm, s_cap, hkv, block_size, sm_scale);
-  else if (scores != nullptr)
-    block_score_kernel<G, KT, true, true><<<grid, mp::kBlkThreads, 0,
-                                            stream>>>(
+  else if (v == 1)
+    block_score_kernel<G, KT, true, true><<<grid, kThreads, kSmem, stream>>>(
         qp, kp, ks, lp, sc, bm, s_cap, hkv, block_size, sm_scale);
   else
-    block_score_kernel<G, KT, false, true><<<grid, mp::kBlkThreads, 0,
-                                             stream>>>(
+    block_score_kernel<G, KT, false, true><<<grid, kThreads, kSmem, stream>>>(
         qp, kp, ks, lp, nullptr, bm, s_cap, hkv, block_size, sm_scale);
   return static_cast<int>(cudaGetLastError());
 }

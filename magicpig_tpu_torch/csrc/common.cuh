@@ -59,19 +59,12 @@ __device__ __forceinline__ void mma_bf16_16816(float (&d)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// Eight int8 values (one 8-byte vector) widened to eight bf16 values (one
-// 16-byte vector); exact, int8 values are bf16 values.
-__device__ __forceinline__ uint4 widen_int8x8(const uint2& x) {
-  uint32_t out[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const uint32_t w = i < 2 ? x.x : x.y;
-    const int sh = (i & 1) * 16;
-    const float lo = static_cast<float>(static_cast<int8_t>((w >> sh) & 0xffu));
-    const float hi = static_cast<float>(static_cast<int8_t>((w >> (sh + 8)) & 0xffu));
-    out[i] = pack_f32_as_bf16(lo, hi);
-  }
-  return make_uint4(out[0], out[1], out[2], out[3]);
+// Element e of a row of int8 or bf16 values, as f32.
+__device__ __forceinline__ float key_value(const int8_t* row, int e) {
+  return static_cast<float>(row[e]);
+}
+__device__ __forceinline__ float key_value(const __nv_bfloat16* row, int e) {
+  return __bfloat162float(row[e]);
 }
 
 // Eight bf16 values (one 16-byte vector) dotted with eight f32 values.

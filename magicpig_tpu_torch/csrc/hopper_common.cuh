@@ -1,8 +1,9 @@
-// Hopper (sm_90a) building blocks for the redesigned flash_prefill.cu and
-// flash_decode.cu: mbarriers, bulk and tensor (TMA) copies into shared
-// memory, warpgroup MMA (wgmma) with its shared-memory descriptors, register
-// reallocation and named barriers, each a thin wrapper of one PTX
-// instruction; and, on the host, the encoding of a tiled tensor map.
+// Hopper (sm_90a) building blocks of the redesigned kernels: mbarriers,
+// bulk and tensor (TMA) copies into shared memory, cp.async copies (the
+// block scorer's rings, the LSH attend's gathers), warpgroup MMA (wgmma)
+// with its shared-memory descriptors, register reallocation and named
+// barriers, each a thin wrapper of one PTX instruction; and, on the host,
+// the dynamic shared-memory limit and the encoding of a tiled tensor map.
 //
 // A waiting thread polls its mbarrier with try_wait; after 2 s on the
 // global timer it traps, so that a phase error ends the launch with an
@@ -87,6 +88,35 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src,
       "[%0], [%1], %2, [%3];\n"
       :: "r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
+}
+
+// 16 bytes (both addresses 16-byte aligned) from device memory to shared
+// memory by cp.async, past L1; with `full` false nothing is read and the 16
+// bytes are zero-filled. Completion: cp_async_commit, then cp_async_wait.
+__device__ __forceinline__ void cp_async_16(void* dst, const void* src,
+                                            bool full = true) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(full ? 16 : 0)
+               : "memory");
+}
+
+// 4 bytes by cp.async, through L1.
+__device__ __forceinline__ void cp_async_4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+               :: "r"(smem_u32(dst)), "l"(src) : "memory");
+}
+
+// Closes the calling thread's group of cp.async copies.
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most kPending of the calling thread's groups are in
+// flight. Other threads' copies are visible after a barrier (__syncwarp
+// among a warp's lanes, __syncthreads across warps).
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(kPending) : "memory");
 }
 
 // One box of a 4-D tensor map at element coordinates (c0 innermost),

@@ -4,8 +4,9 @@
 // flag: kWords reads each head's selection words from a [B, Hq, S/32]
 // int32 array; otherwise the block scans the signatures itself
 // (collide_common.cuh). Everything after the selection is the same code:
-// the length mask, the collision-probability debias, online softmax, the
-// weighted V sum over the sampled rows only, and the sampled count.
+// the length mask, the collision-probability debias, the softmax, the
+// weighted V sum over the sampled rows only, the sampled count, and the
+// merge of the splits.
 //
 // K/V come bf16, or int8 with per-token f32 scales (the TPU kernels'
 // quant=True form: the raw score is q . K_int8 times the K scale, the
@@ -17,17 +18,35 @@
 // Horner's rule with one rounded multiply and one rounded add a step, as
 // the plain version does) and none (the scaled score, unweighted).
 //
-// Design: one block of 128 threads per (512-token split, kv head,
-// request), as in flash_decode.cu. The block first finds its selection
-// words: 16 words per head (read, or scanned with each thread owning one
-// word and every 8th table for all G heads, the (once, twice) pairs merged
-// in shared memory), ANDed with the split's valid tokens. Then it walks
-// the split in 64-token tiles, skipping a tile no head of the group
-// sampled, reading a K/V/norm row only where some head sampled the token
-// (other rows are zero-filled in shared memory, never read; the none form
-// reads no norm), scores only sampled (head, token) pairs, and sums P.V
-// over those rows only, with the exact debias in libm acosf, log1pf and
-// expm1f. Splits merge by LSE (launch_merge in flash_decode.cu).
+// Bound on the H100: device memory: the selection (words, or every
+// signature word for the scan) and the K/V/norm rows that some head of the
+// group sampled, 2-21% of the rows at the served K and L. Walking each
+// split in 64-token tiles (zero-filling the unsampled rows, four barriers
+// and a dependent load a tile, every (head, token) pair of a tile visited
+// and a second launch for the merge) cost 10-30x that bound on the card;
+// this design gathers. One block of 128 threads takes one split (`split`
+// tokens, a power of two from 32 to 2048) of one (kv head, request):
+//  - it gets the split's selection words (read, or scanned with each
+//    thread owning one word and every 128/words-th table for all G heads,
+//    the (once, twice) pairs merged in shared memory), ANDed with the
+//    valid tokens; ORs them across the group's heads; and numbers the
+//    sampled rows and each head's sampled pairs by prefix popcounts over
+//    the words (warp scans);
+//  - per pass of at most 160 rows (whole words; one pass unless nearly
+//    every key is sampled), it writes the rows' token indices and each
+//    head's pairs into shared memory (a thread a token, slots by
+//    popcounts) and fetches exactly those K rows, V rows, norms and scales
+//    in one batch of coalesced cp.async copies (nothing is zero-filled, no
+//    unsampled row is read); it scores only the sampled (head, row) pairs,
+//    laid out densely by head so that every lane that runs the debias has
+//    a pair, takes one softmax per head over the pass (online across
+//    passes) and runs P.V on mma.sync over the pass's rows (P dense per
+//    head, bf16, zero where the head did not sample);
+//  - a split that is its request's only one writes the output; otherwise
+//    it writes its partial, and the last block of the (request, kv head)
+//    to take a ticket (an atomic after __threadfence) brings the partials
+//    into shared memory in batches, merges them by LSE and resets the
+//    ticket to 0 for the next call: one launch a call.
 #pragma once
 
 #include <type_traits>
@@ -35,14 +54,18 @@
 #include "collide_common.cuh"
 #include "common.cuh"
 #include "decode_common.cuh"
+#include "hopper_common.cuh"
 
 namespace mp {
 
-constexpr int kLshWordsPerChunk = kDecChunk / 32;             // 16
-constexpr int kLshSlices = kDecThreads / kLshWordsPerChunk;   // 8
+constexpr int kLshThreads = 128;
+constexpr int kLshMaxWords = 64;       // words of a split: 2048 tokens
+constexpr int kLshCap = 160;           // rows gathered a pass: a 512-token
+                                       // split sampled up to 31% in one
 constexpr float kPi = 3.14159265358979323846f;
 constexpr float kDebiasEps = 1e-4f;
-constexpr int kPolyTerms = 21;                                // degree 20
+constexpr int kPolyTerms = 21;         // degree 20
+constexpr int kMaxDynSmem = 227 * 1024;  // a block's most on the H100
 
 // Debias forms (LSHConfig.lsh_debias), a template parameter of the kernel.
 enum Debias : int { kExact = 0, kPoly = 1, kNone = 2 };
@@ -53,26 +76,49 @@ struct PolyCoef {
 
 // Arguments of one launch. Selection: planes [B, Hkv, L, K, S/32] and
 // q_bits [B, Hq, L, K] for the scan, or words [B, Hq, S/32] (the other
-// pointers null). k_scale, v_scale [B, Hkv, S]: int8 K/V only.
+// pointers null). k_scale, v_scale [B, Hkv, S]: int8 K/V only. Partials
+// [nsplit, B * Hq] (part_o with 64 values a row); tickets [B * Hkv], 0
+// between calls.
 struct LshArgs {
   const void *q, *k, *v, *k_scale, *v_scale, *k_norm;
   const int *planes, *q_bits, *words, *length;
   float *part_o, *part_lse, *part_cnt, *out, *lse, *cnt;
-  int batch, s_cap, hkv, K, L;
+  int* tickets;
+  int batch, s_cap, hkv, K, L, split;
   float sm_scale;
   PolyCoef poly;
 };
 
-template <int G>
-struct LshSmem {
-  DecodeTileSmem<G> tile;
-  uint32_t once[kLshSlices][G][kLshWordsPerChunk];
-  uint32_t twice[kLshSlices][G][kLshWordsPerChunk];
-  uint32_t sel[G][kLshWordsPerChunk];   // sampled and valid tokens
-  uint32_t any[kLshWordsPerChunk];      // sampled by some head of the group
-  float qnorm[G];
-  float knorm[kDecTile];
-  int count[G];
+template <int G, typename T>
+struct __align__(16) LshSmem {
+  static constexpr int kRowBytes = kDecD * static_cast<int>(sizeof(T));
+  union {
+    struct {                           // the scan's per-thread partials
+      uint32_t once[G][kLshThreads];
+      uint32_t twice[G][kLshThreads];
+    } scan;
+    struct {                           // a pass's gathered rows
+      uint8_t k[kLshCap * kRowBytes];  // 16-byte units swizzled (k_unit)
+      uint8_t v[kLshCap * kRowBytes];
+    } rows;
+  } u;
+  float qf[G][kDecD];                  // raw query
+  float ps[G * kLshCap];               // the pass's pair scores, then p
+  float knorm[kLshCap];
+  float ksc[kLshCap];                  // int8 only
+  float vsc[kLshCap];
+  uint32_t sel[G][kLshMaxWords];       // sampled and valid tokens
+  uint32_t any[kLshMaxWords];          // sampled by some head of the group
+  int anybase[kLshMaxWords + 1];       // rows before each word
+  int hbase[G][kLshMaxWords + 1];      // head g's pairs before each word
+  uint16_t pslot[G][kLshCap];          // the pass's row of head g's pairs
+  uint16_t rowtok[kLshCap];            // each gathered row's token - start
+  uint32_t pdense[G][kLshCap / 2];     // the P.V operand, bf16 pairs: p of
+                                       // head g at each of the pass's rows
+  float qnorm[G], m[G], l[G], alpha[G];
+  float cnt[G];                        // the merge's summed counts
+  int off[G + 1];                      // the pass's pairs before head g
+  int is_last;
 };
 
 // Valid-token mask of a word whose first token is `first` (of [.., stop)).
@@ -81,170 +127,509 @@ __device__ __forceinline__ uint32_t valid_bits(int first, int stop) {
   return n >= 32 ? 0xffffffffu : ((1u << n) - 1u);
 }
 
+// Byte offset of 16-byte unit `unit` of gathered K row `row` (kUnits units
+// a row): within each 128-byte line the unit index is XORed with the
+// line's index, so that lanes reading the same unit of different rows hit
+// distinct banks.
+template <int kUnits>
+__device__ __forceinline__ int k_unit(int row, int unit) {
+  const int lin = row * kUnits + unit, line = lin >> 3;
+  return line * 128 + 16 * ((lin & 7) ^ (line & 7));
+}
+
+// q . K for one gathered K row.
+__device__ __forceinline__ float key_dot(const uint8_t* kbuf, int row,
+                                         const float* qg,
+                                         const __nv_bfloat16*) {
+  float acc = 0.f;
+#pragma unroll
+  for (int u = 0; u < 8; ++u)
+    acc += dot8(*reinterpret_cast<const uint4*>(kbuf + k_unit<8>(row, u)),
+                qg + 8 * u);
+  return acc;
+}
+__device__ __forceinline__ float key_dot(const uint8_t* kbuf, int row,
+                                         const float* qg, const int8_t*) {
+  float acc = 0.f;
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    const uint4 x = *reinterpret_cast<const uint4*>(kbuf + k_unit<4>(row, u));
+    const uint32_t w[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+    for (int i = 0; i < 16; ++i)
+      acc = fmaf(static_cast<float>(static_cast<int8_t>(w[i / 4] >> (8 * (i % 4)))),
+                 qg[16 * u + i], acc);
+  }
+  return acc;
+}
+
+// A V element as the bits of a bf16 (int8 values are exact in bf16).
+__device__ __forceinline__ uint32_t bf16_bits(__nv_bfloat16 x) {
+  return __bfloat16_as_ushort(x);
+}
+__device__ __forceinline__ uint32_t bf16_bits(int8_t x) {
+  return __bfloat16_as_ushort(__float2bfloat16_rn(static_cast<float>(x)));
+}
+
 // T: __nv_bfloat16, or int8_t with the row scales. kDebias: a Debias
 // form. kWords: selection words given (else scanned from the planes).
 template <int G, typename T, int kDebias, bool kWords>
-__global__ void __launch_bounds__(kDecThreads)
+__global__ void __launch_bounds__(kLshThreads)
 lsh_split_kernel(const LshArgs a) {
   constexpr bool kQ = std::is_same<T, int8_t>::value;
-  __shared__ LshSmem<G> sm;
-  extern __shared__ uint32_t qcode[];   // scan only: [G][L] query codes
+  using Smem = LshSmem<G, T>;
+  constexpr int kRowBytes = Smem::kRowBytes;
+  constexpr int kUnits = kRowBytes / 16;
+  constexpr int kWarps = kLshThreads / 32;
+  extern __shared__ __align__(16) uint8_t lsh_smem[];
+  Smem& sm = *reinterpret_cast<Smem*>(lsh_smem);
+  uint32_t* qcode = reinterpret_cast<uint32_t*>(lsh_smem + sizeof(Smem));
 
-  const __nv_bfloat16* __restrict__ q = static_cast<const __nv_bfloat16*>(a.q);
-  const int split = blockIdx.x;
-  const int kh = blockIdx.y;
-  const int b = blockIdx.z;
-  const int tid = threadIdx.x;
+  const int split = blockIdx.x, kh = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int K = a.K, L = a.L, s_cap = a.s_cap;
+  const int nw = a.split / 32;
   const int hq = a.hkv * G;
   const int words = s_cap / 32;
-  const int start = split * kDecChunk;
-  const int stop = min(min(a.length[b], s_cap), start + kDecChunk);
-  const size_t part = (static_cast<size_t>(split) * a.batch + b) * hq + kh * G;
-
-  if (start >= stop) {
-    write_empty_partial<G>(a.part_o, a.part_lse, a.part_cnt, part, tid);
+  const int len = min(a.length[b], s_cap);
+  const int n_act = (len + a.split - 1) / a.split;   // splits with tokens
+  const size_t row = static_cast<size_t>(b) * hq + kh * G;  // first head's
+  if (split >= n_act) {
+    if (split == 0)                                  // an empty request
+      for (int i = tid; i < G * kDecD; i += kLshThreads) {
+        a.out[row * kDecD + i] = 0.f;
+        if (i < G) {
+          a.lse[row + i] = kNegInf;
+          a.cnt[row + i] = 0.f;
+        }
+      }
     return;
   }
+  const int start = split * a.split;
+  const int stop = min(len, start + a.split);
 
   // Query: raw f32 values (the debias needs the unscaled dot), norms and,
-  // for the scan, packed sign bits.
-  const size_t qrow = static_cast<size_t>(b) * hq + kh * G;
-  for (int i = tid; i < G * kDecD; i += kDecThreads)
-    sm.tile.qf[i / kDecD][i % kDecD] = __bfloat162float(q[qrow * kDecD + i]);
-  if constexpr (!kWords)
-    load_qcodes(qcode, a.q_bits + qrow * L * K, G * L, K, tid, kDecThreads);
-  if (tid < G) sm.count[tid] = 0;
-  __syncthreads();
-  if (tid < G) {
-    float s = 0.f;
-    for (int d = 0; d < kDecD; ++d) s += sm.tile.qf[tid][d] * sm.tile.qf[tid][d];
-    sm.qnorm[tid] = sqrtf(s);
-  }
-
-  // ---- the split's selection words, ANDed with its valid tokens.
+  // for the scan, packed sign bits; the given words load beside them.
+  const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(a.q);
+  for (int i = tid; i < G * kDecD; i += kLshThreads)
+    sm.qf[i / kDecD][i % kDecD] = __bfloat162float(q[row * kDecD + i]);
   if constexpr (kWords) {
-    if (tid < G * kLshWordsPerChunk) {
-      const int g = tid / kLshWordsPerChunk, wi = tid % kLshWordsPerChunk;
-      const int first = start + 32 * wi;
+    for (int i = tid; i < G * nw; i += kLshThreads) {
+      const int g = i / nw, w = i % nw, first = start + 32 * w;
       uint32_t t = 0u;
       if (first < stop)
-        t = static_cast<uint32_t>(a.words[(qrow + g) * words + first / 32]) &
+        t = static_cast<uint32_t>(a.words[(row + g) * words + first / 32]) &
             valid_bits(first, stop);
-      sm.sel[g][wi] = t;
-      atomicAdd(&sm.count[g], __popc(t));
+      sm.sel[g][w] = t;
     }
   } else {
-    // Thread (slice, wi) owns word wi, tables slice + 8n.
-    const int wi = tid % kLshWordsPerChunk;
-    const int slice = tid / kLshWordsPerChunk;
+    load_qcodes(qcode, a.q_bits + row * L * K, G * L, K, tid, kLshThreads);
+  }
+  __syncthreads();
+  for (int g = warp; g < G; g += kWarps) {
+    const float x0 = sm.qf[g][lane], x1 = sm.qf[g][lane + 32];
+    const float s = warp_sum(x0 * x0 + x1 * x1);
+    if (lane == 0) {
+      sm.qnorm[g] = sqrtf(s);
+      sm.m[g] = kNegInf;
+      sm.l[g] = 0.f;
+    }
+  }
+
+  // ---- the scan's selection words, ANDed with the split's valid tokens.
+  if constexpr (!kWords) {
+    // Thread (slice, wi) owns word wi, tables slice + nslices * n.
+    const int wi = tid % nw, slice = tid / nw, nslices = kLshThreads / nw;
     uint32_t once[G], twice[G];
     if (start + 32 * wi < stop) {
-      const int* pw = a.planes + static_cast<size_t>(b * a.hkv + kh) * L * K * words +
+      const int* pw = a.planes +
+                      static_cast<size_t>(b * a.hkv + kh) * L * K * words +
                       start / 32 + wi;
-      scan_tables<G>(pw, words, qcode, K, L, slice, kLshSlices, once, twice);
+      scan_tables<G>(pw, words, qcode, K, L, slice, nslices, once, twice);
     } else {
 #pragma unroll
       for (int g = 0; g < G; ++g) once[g] = twice[g] = 0u;
     }
 #pragma unroll
     for (int g = 0; g < G; ++g) {
-      sm.once[slice][g][wi] = once[g];
-      sm.twice[slice][g][wi] = twice[g];
+      sm.u.scan.once[g][tid] = once[g];
+      sm.u.scan.twice[g][tid] = twice[g];
     }
     __syncthreads();
-    if (tid < G * kLshWordsPerChunk) {
-      const int g = tid / kLshWordsPerChunk, w = tid % kLshWordsPerChunk;
+    for (int i = tid; i < G * nw; i += kLshThreads) {
+      const int g = i / nw, w = i % nw;
       uint32_t o = 0u, t = 0u;
-      for (int s = 0; s < kLshSlices; ++s)
-        merge_collisions(o, t, sm.once[s][g][w], sm.twice[s][g][w]);
-      t &= valid_bits(start + 32 * w, stop);
-      sm.sel[g][w] = t;
-      atomicAdd(&sm.count[g], __popc(t));
-    }
-  }
-  __syncthreads();
-  if (tid < kLshWordsPerChunk) {
-    uint32_t any = 0u;
-#pragma unroll
-    for (int g = 0; g < G; ++g) any |= sm.sel[g][tid];
-    sm.any[tid] = any;
-  }
-  __syncthreads();
-
-  // ---- debiased online softmax over the sampled tokens of the split.
-  const size_t head_off = (static_cast<size_t>(b) * a.hkv + kh) * s_cap;
-  const T* k_h = static_cast<const T*>(a.k) + head_off * kDecD;
-  const T* v_h = static_cast<const T*>(a.v) + head_off * kDecD;
-  const float* n_h = static_cast<const float*>(a.k_norm) + head_off;
-  const float fK = static_cast<float>(K), fL = static_cast<float>(L);
-
-  OnlineSoftmax<G> st;
-  st.init();
-  for (int t0 = start; t0 < stop; t0 += kDecTile) {
-    const int w0 = (t0 - start) / 32;     // first of this tile's 2 words
-    if ((sm.any[w0] | sm.any[w0 + 1]) == 0u) continue;   // block-uniform
-    if constexpr (kQ)
-      load_kv_tile<G>(sm.tile, k_h, v_h,
-                      static_cast<const float*>(a.k_scale) + head_off,
-                      static_cast<const float*>(a.v_scale) + head_off, t0,
-                      stop, tid, &sm.any[w0]);
-    else
-      load_kv_tile<G>(sm.tile, k_h, v_h, t0, stop, tid, &sm.any[w0]);
-    if (kDebias != kNone && tid < kDecTile) {
-      const bool need = t0 + tid < stop &&
-                        ((sm.any[w0 + (tid >> 5)] >> (tid & 31)) & 1u);
-      sm.knorm[tid] = need ? n_h[t0 + tid] : 0.f;
+      for (int s = 0; s < nslices; ++s)
+        merge_collisions(o, t, sm.u.scan.once[g][s * nw + w],
+                         sm.u.scan.twice[g][s * nw + w]);
+      sm.sel[g][w] = t & valid_bits(start + 32 * w, stop);
     }
     __syncthreads();
-    for (int p = tid; p < G * kDecTile; p += kDecThreads) {
-      const int g = p / kDecTile, j = p % kDecTile;
-      float score = kNegInf;
-      if ((sm.sel[g][w0 + (j >> 5)] >> (j & 31)) & 1u) {
-        float raw = row_dot(sm.tile.ks[j], sm.tile.qf[g]);
-        if constexpr (kQ) raw *= sm.tile.ksc[j];
-        float log_w = 0.f;                       // the none form
-        if constexpr (kDebias != kNone) {
-          float c = raw / fmaxf(sm.qnorm[g] * sm.knorm[j], 1e-20f);
-          c = fminf(fmaxf(c, -1.f), 1.f);
-          if constexpr (kDebias == kPoly) {
-            log_w = a.poly.c[kPolyTerms - 1];
+  }
+
+  // ---- prefix popcounts over the words: list 0 the rows some head
+  // sampled, list 1 + g head g's pairs; warp w scans lists w, w + 4, ...
+  // side by side (independent shuffle chains).
+  {
+    constexpr int kLists = (G + kWarps) / kWarps;
+    int carry[kLists];
 #pragma unroll
-            for (int i = kPolyTerms - 2; i >= 0; --i)
-              log_w = __fadd_rn(__fmul_rn(log_w, c), a.poly.c[i]);
+    for (int i = 0; i < kLists; ++i) carry[i] = 0;
+    for (int h = 0; 32 * h < nw; ++h) {
+      const int w = lane + 32 * h;
+      int c[kLists], inc[kLists];
+#pragma unroll
+      for (int i = 0; i < kLists; ++i) {
+        const int li = warp + kWarps * i;
+        uint32_t x = 0u;
+        if (li <= G && w < nw) {
+          if (li == 0) {
+#pragma unroll
+            for (int g = 0; g < G; ++g) x |= sm.sel[g][w];
+            sm.any[w] = x;
           } else {
-            const float u = powf(1.f - acosf(c) / kPi, fK);
-            // w = P[>= 2 of L tables collide], without the cancellation of
-            // 1 - (1-u)^(L-1) (1 + (L-1) u) (see ops/debias.py).
-            const float log_miss = L > 1 ? (fL - 1.f) * log1pf(-u) : 0.f;
-            const float w = -expm1f(log_miss + log1pf((fL - 1.f) * u));
-            log_w = logf(w + kDebiasEps);
+            x = sm.sel[li - 1][w];
           }
         }
-        score = (raw * a.sm_scale - log_w) * kLog2e;
+        c[i] = inc[i] = __popc(x);
       }
-      sm.tile.ps[g][j] = score;
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1)
+#pragma unroll
+        for (int i = 0; i < kLists; ++i) {
+          const int y = __shfl_up_sync(0xffffffffu, inc[i], off);
+          if (lane >= off) inc[i] += y;
+        }
+#pragma unroll
+      for (int i = 0; i < kLists; ++i) {
+        const int li = warp + kWarps * i;
+        if (li <= G && w < nw)
+          (li == 0 ? sm.anybase : sm.hbase[li - 1])[w] = carry[i] + inc[i] - c[i];
+        carry[i] += __shfl_sync(0xffffffffu, inc[i], 31);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kLists; ++i) {
+      const int li = warp + kWarps * i;
+      if (li <= G && lane == 0)
+        (li == 0 ? sm.anybase : sm.hbase[li - 1])[nw] = carry[i];
+    }
+  }
+  __syncthreads();
+
+  // ---- passes of whole words, at most kLshCap rows each.
+  const size_t head_off = (static_cast<size_t>(b) * a.hkv + kh) * s_cap;
+  const uint8_t* k_h = static_cast<const uint8_t*>(a.k) + head_off * kRowBytes;
+  const uint8_t* v_h = static_cast<const uint8_t*>(a.v) + head_off * kRowBytes;
+  const float* n_h = static_cast<const float*>(a.k_norm) + head_off;
+  const float* ks_h = kQ ? static_cast<const float*>(a.k_scale) + head_off : nullptr;
+  const float* vs_h = kQ ? static_cast<const float*>(a.v_scale) + head_off : nullptr;
+  const float fK = static_cast<float>(K), fL = static_cast<float>(L);
+  // P.V on mma.sync: warp w owns output dims 16w .. 16w + 15 (two n-tiles
+  // of 8); lane (r = lane / 4, t = lane % 4) accumulates head r's dims
+  // 16w + 8nt + 2t + {0, 1} (heads r >= G are zero rows of P).
+  const int pr = lane >> 2, pt = lane & 3;
+  float acc[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+
+  for (int w0 = 0; w0 < nw;) {
+    // The pass: words w0 .. w1 - 1, the longest run whose rows fit (the
+    // fitting words after w0 form a prefix: a ballot counts them).
+    const int r0 = sm.anybase[w0];
+    int w1 = w0 + 1;
+#pragma unroll
+    for (int h = 0; h < kLshMaxWords / 32; ++h) {
+      const int w = lane + 32 * h;
+      w1 += __popc(__ballot_sync(0xffffffffu, w > w0 && w < nw &&
+                                 sm.anybase[w + 1] - r0 <= kLshCap));
+    }
+    const int nr = sm.anybase[w1] - r0;
+    if (nr == 0) {                                   // block-uniform
+      w0 = w1;
+      continue;
+    }
+    // The pass's rows in token order, and each head's pairs as rows: a
+    // thread a token, its slot by popcounts below its bit.
+    for (int t = 32 * w0 + tid; t < 32 * w1; t += kLshThreads) {
+      const int w = t >> 5, bit = t & 31;
+      const uint32_t below = (1u << bit) - 1u, any = sm.any[w];
+      if ((any >> bit) & 1u) {
+        const int slot = sm.anybase[w] - r0 + __popc(any & below);
+        sm.rowtok[slot] = static_cast<uint16_t>(t);
+#pragma unroll
+        for (int g = 0; g < G; ++g) {
+          const uint32_t x = sm.sel[g][w];
+          if ((x >> bit) & 1u)
+            sm.pslot[g][sm.hbase[g][w] - sm.hbase[g][w0] + __popc(x & below)] =
+                static_cast<uint16_t>(slot);
+        }
+      }
+    }
+    for (int i = tid; i < G * kLshCap / 2; i += kLshThreads)
+      (&sm.pdense[0][0])[i] = 0u;
+    if (tid <= G) {
+      int o = 0;
+      for (int g = 0; g < tid; ++g) o += sm.hbase[g][w1] - sm.hbase[g][w0];
+      sm.off[tid] = o;
     }
     __syncthreads();
-    st.softmax_tile(sm.tile, tid);
+
+    // Fetch exactly those rows, coalesced: K (swizzled) and V units, norms,
+    // scales.
+    for (int c = tid; c < nr * 2 * kUnits; c += kLshThreads) {
+      const int rr = c / (2 * kUnits), part = c % (2 * kUnits);
+      const size_t tok = start + sm.rowtok[rr];
+      if (part < kUnits)
+        hp::cp_async_16(sm.u.rows.k + k_unit<kUnits>(rr, part),
+                        k_h + tok * kRowBytes + 16 * part);
+      else
+        hp::cp_async_16(sm.u.rows.v + rr * kRowBytes + 16 * (part - kUnits),
+                        v_h + tok * kRowBytes + 16 * (part - kUnits));
+    }
+    for (int rr = tid; rr < nr; rr += kLshThreads) {
+      const size_t tok = start + sm.rowtok[rr];
+      if (kDebias != kNone) hp::cp_async_4(&sm.knorm[rr], n_h + tok);
+      if (kQ) {
+        hp::cp_async_4(&sm.ksc[rr], ks_h + tok);
+        hp::cp_async_4(&sm.vsc[rr], vs_h + tok);
+      }
+    }
+    hp::cp_async_commit();
+    hp::cp_async_wait<0>();
     __syncthreads();
-    st.template accumulate_pv_rows<kQ>(sm.tile, tid, &sm.any[w0]);
+
+    // Score the sampled pairs only, densely by head.
+    const int np = sm.off[G];
+    for (int i = tid; i < np; i += kLshThreads) {
+      int g = 0;
+      while (g + 1 < G && i >= sm.off[g + 1]) ++g;
+      const int slot = sm.pslot[g][i - sm.off[g]];
+      float raw = key_dot(sm.u.rows.k, slot, sm.qf[g],
+                          static_cast<const T*>(nullptr));
+      if constexpr (kQ) raw *= sm.ksc[slot];
+      float log_w = 0.f;                       // the none form
+      if constexpr (kDebias != kNone) {
+        float c = raw / fmaxf(sm.qnorm[g] * sm.knorm[slot], 1e-20f);
+        c = fminf(fmaxf(c, -1.f), 1.f);
+        if constexpr (kDebias == kPoly) {
+          log_w = a.poly.c[kPolyTerms - 1];
+#pragma unroll
+          for (int t = kPolyTerms - 2; t >= 0; --t)
+            log_w = __fadd_rn(__fmul_rn(log_w, c), a.poly.c[t]);
+        } else {
+          const float u = powf(1.f - acosf(c) / kPi, fK);
+          // w = P[>= 2 of L tables collide], without the cancellation of
+          // 1 - (1-u)^(L-1) (1 + (L-1) u) (see ops/debias.py).
+          const float log_miss = L > 1 ? (fL - 1.f) * log1pf(-u) : 0.f;
+          const float w = -expm1f(log_miss + log1pf((fL - 1.f) * u));
+          log_w = logf(w + kDebiasEps);
+        }
+      }
+      sm.ps[i] = (raw * a.sm_scale - log_w) * kLog2e;
+    }
+    __syncthreads();
+
+    // One softmax per head over the pass (log2 units), online across
+    // passes. The P.V operand is p (times the V scale) rounded to bf16, as
+    // the TPU kernel feeds its matrix unit, placed at its row in the head's
+    // dense row of P; the row sum takes p unrounded.
+    for (int g = warp; g < G; g += kWarps) {
+      const int o = sm.off[g], n = sm.off[g + 1] - o;
+      float mx = kNegInf;
+      for (int j = lane; j < n; j += 32) mx = fmaxf(mx, sm.ps[o + j]);
+      mx = warp_max(mx);
+      const float m_old = sm.m[g];
+      const float mn = fmaxf(m_old, mx);
+      const float mu = mn == kNegInf ? 0.f : mn;
+      float sum = 0.f;
+      __nv_bfloat16* prow = reinterpret_cast<__nv_bfloat16*>(sm.pdense[g]);
+      for (int j = lane; j < n; j += 32) {
+        const float p = exp2f(sm.ps[o + j] - mu);
+        const int slot = sm.pslot[g][j];
+        sum += p;
+        prow[slot] = __float2bfloat16_rn(kQ ? p * sm.vsc[slot] : p);
+      }
+      sum = warp_sum(sum);
+      if (lane == 0) {
+        const float al = exp2f(m_old - mu);
+        sm.alpha[g] = al;
+        sm.l[g] = sm.l[g] * al + sum;
+        sm.m[g] = mn;
+      }
+    }
+    __syncthreads();
+
+    // P.V: D[head, dim] += P[head, row] V[row, dim] over the pass's rows,
+    // 16 a k-step (rows past nr read as zero).
+    const T* vbuf = reinterpret_cast<const T*>(sm.u.rows.v);
+    float d[2][4] = {};
+    for (int k0 = 0; k0 < nr; k0 += 16) {
+      const int ka = k0 + 2 * pt;
+      uint32_t af[4] = {0u, 0u, 0u, 0u};     // rows 8..15 of P are zero
+      if (pr < G) {
+        af[0] = sm.pdense[pr][ka / 2];
+        af[2] = sm.pdense[pr][ka / 2 + 4];
+      }
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+        const int n = 16 * warp + 8 * nt + pr;
+        uint32_t v[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int kr = ka + (i & 1) + 8 * (i >> 1);
+          v[i] = kr < nr ? bf16_bits(vbuf[kr * kDecD + n]) : 0u;
+        }
+        mma_bf16_16816(d[nt], af, v[0] | (v[1] << 16), v[2] | (v[3] << 16));
+      }
+    }
+    if (pr < G) {
+      const float al = sm.alpha[pr];
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) acc[nt][e] = acc[nt][e] * al + d[nt][e];
+    }
+    __syncthreads();
+    w0 = w1;
+  }
+
+  // ---- the split's normalised output and natural-log LSE, per head.
+  const size_t part = (static_cast<size_t>(split) * a.batch + b) * hq + kh * G;
+  float* o_dst = n_act == 1 ? a.out + row * kDecD : a.part_o + part * kDecD;
+  if (pr < G) {
+    const float li = sm.l[pr];
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+      *reinterpret_cast<float2*>(o_dst + pr * kDecD + 16 * warp + 8 * nt + 2 * pt) =
+          li > 0.f ? make_float2(acc[nt][0] / li, acc[nt][1] / li)
+                   : make_float2(0.f, 0.f);
+  }
+  if (tid < G) {
+    const float li = sm.l[tid];
+    const float lse = li > 0.f ? sm.m[tid] * kLn2 + logf(li) : kNegInf;
+    const float cnt = static_cast<float>(sm.hbase[tid][nw]);
+    if (n_act == 1) {
+      a.lse[row + tid] = lse;
+      a.cnt[row + tid] = cnt;
+    } else {
+      a.part_lse[part + tid] = lse;
+      a.part_cnt[part + tid] = cnt;
+    }
+  }
+  if (n_act == 1) return;
+
+  // The last split of this (request, kv head) to finish merges them all.
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) {
+    const int ti = b * a.hkv + kh;
+    sm.is_last = atomicAdd(&a.tickets[ti], 1) == n_act - 1;
+    if (sm.is_last) atomicExch(&a.tickets[ti], 0);
+  }
+  __syncthreads();
+  if (!sm.is_last) return;
+  __threadfence();
+  // The partials come into shared memory (the gathered rows' buffer, then
+  // the scores') in batches of kBatch splits, one round trip each: a warp a
+  // head takes the max of the batch's lse and weights each split by
+  // exp(lse - max) once; each output value then sums its weighted partials
+  // (a split with no sample has lse -inf: weight 0, a zero partial), and
+  // the running sums rescale from batch to batch.
+  constexpr int kAcc = (G * kDecD + kLshThreads - 1) / kLshThreads;
+  constexpr int kFit = 2 * kLshCap * kRowBytes / (G * kDecD * 4);
+  constexpr int kBatch = kFit < kLshCap / 2 ? kFit : kLshCap / 2;
+  float* o_st = reinterpret_cast<float*>(sm.u.rows.k);
+  float* w_st = sm.ps;                         // lse, then weights
+  float* cnt_st = sm.ps + kBatch * G;
+  const size_t stride = static_cast<size_t>(a.batch) * hq;
+  float num[kAcc];
+#pragma unroll
+  for (int r = 0; r < kAcc; ++r) num[r] = 0.f;
+  if (tid < G) {
+    sm.m[tid] = kNegInf;
+    sm.l[tid] = 0.f;
+    sm.cnt[tid] = 0.f;
+  }
+  for (int sp0 = 0; sp0 < n_act; sp0 += kBatch) {
+    const int nsp = min(kBatch, n_act - sp0);
+    for (int c = tid; c < nsp * G * (kDecD / 4); c += kLshThreads) {
+      const int sp = c / (G * kDecD / 4), u = c % (G * kDecD / 4);
+      hp::cp_async_16(o_st + sp * G * kDecD + 4 * u,
+                      a.part_o + ((sp0 + sp) * stride + row) * kDecD + 4 * u);
+    }
+    for (int c = tid; c < nsp * G; c += kLshThreads) {
+      const size_t pi = (sp0 + c / G) * stride + row + c % G;
+      hp::cp_async_4(w_st + c, a.part_lse + pi);
+      hp::cp_async_4(cnt_st + c, a.part_cnt + pi);
+    }
+    hp::cp_async_commit();
+    hp::cp_async_wait<0>();
+    __syncthreads();
+    for (int g = warp; g < G; g += kWarps) {
+      float mx = kNegInf, cnt = 0.f;
+      for (int sp = lane; sp < nsp; sp += 32) {
+        mx = fmaxf(mx, w_st[sp * G + g]);
+        cnt += cnt_st[sp * G + g];
+      }
+      mx = fmaxf(warp_max(mx), sm.m[g]);
+      const float mu = mx == kNegInf ? 0.f : mx;
+      float sum = 0.f;
+      for (int sp = lane; sp < nsp; sp += 32) {
+        const float wt = expf(w_st[sp * G + g] - mu);
+        w_st[sp * G + g] = wt;
+        sum += wt;
+      }
+      sum = warp_sum(sum);
+      cnt = warp_sum(cnt);
+      if (lane == 0) {
+        const float keep = expf(sm.m[g] - mu);
+        sm.alpha[g] = keep;
+        sm.l[g] = sm.l[g] * keep + sum;
+        sm.m[g] = mx;
+        sm.cnt[g] += cnt;
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int r = 0; r < kAcc; ++r) {
+      const int idx = tid + r * kLshThreads;
+      if (idx < G * kDecD) {
+        const int g = idx / kDecD;
+        float x = num[r] * sm.alpha[g];
+#pragma unroll 8
+        for (int sp = 0; sp < nsp; ++sp)
+          x = fmaf(w_st[sp * G + g], o_st[sp * G * kDecD + idx], x);
+        num[r] = x;
+      }
+    }
     __syncthreads();
   }
-  st.write_partial(sm.tile, a.part_o, a.part_lse, part, tid);
-  if (tid < G) a.part_cnt[part + tid] = static_cast<float>(sm.count[tid]);
+#pragma unroll
+  for (int r = 0; r < kAcc; ++r) {
+    const int idx = tid + r * kLshThreads;
+    if (idx < G * kDecD) {
+      const float den = sm.l[idx / kDecD];
+      a.out[row * kDecD + idx] = den > 0.f ? num[r] / den : 0.f;
+    }
+  }
+  if (tid < G) {
+    const float den = sm.l[tid];
+    a.lse[row + tid] = den > 0.f ? sm.m[tid] + logf(den) : kNegInf;
+    a.cnt[row + tid] = sm.cnt[tid];
+  }
 }
 
 template <int G, typename T, int kDebias, bool kWords>
 int launch_lsh(const LshArgs& a, cudaStream_t stream) {
-  const int nsplit = (a.s_cap + kDecChunk - 1) / kDecChunk;
-  const size_t dyn = kWords ? 0 : static_cast<size_t>(G) * a.L * sizeof(uint32_t);
-  dim3 grid(nsplit, a.hkv, a.batch);
-  lsh_split_kernel<G, T, kDebias, kWords><<<grid, kDecThreads, dyn, stream>>>(a);
-  cudaError_t err = cudaGetLastError();
+  // The scan's query codes grow with L: allow the card's most once.
+  static unsigned smem_set = 0;
+  const int dyn = static_cast<int>(sizeof(LshSmem<G, T>)) +
+                  (kWords ? 0 : G * a.L * static_cast<int>(sizeof(uint32_t)));
+  const cudaError_t err = hp::allow_smem(
+      lsh_split_kernel<G, T, kDebias, kWords>, kMaxDynSmem, smem_set);
   if (err != cudaSuccess) return static_cast<int>(err);
-  return launch_merge(a.part_o, a.part_lse, a.part_cnt, a.out, a.lse, a.cnt,
-                      nsplit, a.batch * a.hkv * G, stream);
+  dim3 grid((a.s_cap + a.split - 1) / a.split, a.hkv, a.batch);
+  lsh_split_kernel<G, T, kDebias, kWords><<<grid, kLshThreads, dyn, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <int G, bool kWords>
@@ -266,15 +651,19 @@ int dispatch_lsh_form(int debias, bool quant, const LshArgs& a,
 // Check the sizes, copy the polynomial (a host array of the 21
 // coefficients, low degree first; debias 1 only) into the arguments, and
 // launch the form for hq / hkv heads a group. k_scale and v_scale null:
-// bf16 K/V; both set: int8. debias: 0 exact, 1 poly, 2 none.
+// bf16 K/V; both set: int8. debias: 0 exact, 1 poly, 2 none. split: tokens
+// a block, a power of two from 32 to 2048.
 template <bool kWords>
 int launch_lsh_decode(LshArgs a, int hq, int head_dim, int debias,
                       const void* poly_coef, void* stream) {
-  if (head_dim != kDecD || hq % a.hkv != 0 || a.s_cap % 32 != 0 ||
-      a.K < 1 || a.K > kMaxK || a.L < 1 ||
+  if (head_dim != kDecD || a.hkv <= 0 || hq % a.hkv != 0 ||
+      a.s_cap % 32 != 0 || a.K < 1 || a.K > kMaxK || a.L < 1 ||
+      a.split < 32 || a.split > 32 * kLshMaxWords ||
+      (a.split & (a.split - 1)) != 0 || a.tickets == nullptr ||
       (a.k_scale == nullptr) != (a.v_scale == nullptr) ||
       (debias == kPoly) != (poly_coef != nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
+  if (a.batch == 0 || a.s_cap == 0) return static_cast<int>(cudaSuccess);
   if (poly_coef != nullptr)
     for (int i = 0; i < kPolyTerms; ++i)
       a.poly.c[i] = static_cast<const float*>(poly_coef)[i];

@@ -15,25 +15,28 @@
 // stream is not small. K, V and the key norm are needed only for tokens that
 // some query head of the group samples (~2% per head at the defaults); int8
 // rows halve those bytes and leave the signature words as they are. The
-// block scans its 16 signature words per (table, bit) with coalesced
-// 4-byte reads along the token axis, each thread owning one word and every
-// 8th table for all G heads, then attends only the sampled rows. Whether a
-// fully gathered form beats this streamed scan is for a measurement to
-// decide.
+// block scans its split's signature words per (table, bit) with coalesced
+// 4-byte reads along the token axis, each thread owning one word and a
+// slice of the tables for all G heads, then gathers and attends only the
+// sampled rows and merges the splits in the same launch (lsh_common.cuh).
 #include "lsh_common.cuh"
 
 // k_scale and v_scale null: bf16 K/V; both set: int8 K/V with those
 // per-token scales [B, Hkv, S]. debias: 0 exact, 1 poly (poly_coef: a host
-// array of the 21 coefficients, low degree first), 2 none.
+// array of the 21 coefficients, low degree first), 2 none. Partials
+// [nsplit, B * Hq] for nsplit = ceil(S / split); tickets [B * Hkv] int32,
+// 0 between calls (the kernel resets each one it uses); split: tokens a
+// block, a power of two from 32 to 2048.
 extern "C" int mp_lsh_fused_decode(const void* q, const void* k,
                                    const void* v, const void* k_scale,
                                    const void* v_scale, const void* k_norm,
                                    const void* planes, const void* q_bits,
                                    const void* length, void* part_o,
-                                   void* part_lse, void* part_cnt, void* out,
-                                   void* lse, void* cnt, int batch, int s_cap,
-                                   int hq, int hkv, int head_dim, int K,
-                                   int L, float sm_scale, int debias,
+                                   void* part_lse, void* part_cnt,
+                                   void* tickets, void* out, void* lse,
+                                   void* cnt, int batch, int s_cap, int hq,
+                                   int hkv, int head_dim, int K, int L,
+                                   int split, float sm_scale, int debias,
                                    const void* poly_coef, void* stream) {
   mp::LshArgs a{};
   a.q = q; a.k = k; a.v = v; a.k_scale = k_scale; a.v_scale = v_scale;
@@ -44,10 +47,12 @@ extern "C" int mp_lsh_fused_decode(const void* q, const void* k,
   a.part_o = static_cast<float*>(part_o);
   a.part_lse = static_cast<float*>(part_lse);
   a.part_cnt = static_cast<float*>(part_cnt);
+  a.tickets = static_cast<int*>(tickets);
   a.out = static_cast<float*>(out);
   a.lse = static_cast<float*>(lse);
   a.cnt = static_cast<float*>(cnt);
   a.batch = batch; a.s_cap = s_cap; a.hkv = hkv; a.K = K; a.L = L;
+  a.split = split;
   a.sm_scale = sm_scale;
   return mp::launch_lsh_decode<false>(a, hq, head_dim, debias, poly_coef,
                                       stream);

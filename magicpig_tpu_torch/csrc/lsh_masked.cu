@@ -14,9 +14,9 @@
 // Bound on the H100: device memory: the words (4 bytes per 32 tokens and
 // query head) and the K/V/norm rows some head of the group sampled. The
 // attend is the fused kernel's (lsh_common.cuh with kWords): a block reads
-// its 16 words per head instead of scanning the signatures, skips a
-// 64-token tile no head sampled, and reads K, V and the norm of the
-// sampled rows only.
+// its split's words instead of scanning the signatures, gathers the
+// sampled rows only, scores only the sampled pairs and merges the splits
+// in the same launch.
 #include "lsh_common.cuh"
 
 // words [B, Hq, S/32] int32: bit j of word w set iff token 32w + j is
@@ -28,11 +28,12 @@ extern "C" int mp_lsh_masked_attention(const void* q, const void* k,
                                        const void* k_norm, const void* words,
                                        const void* length, void* part_o,
                                        void* part_lse, void* part_cnt,
-                                       void* out, void* lse, void* cnt,
-                                       int batch, int s_cap, int hq, int hkv,
-                                       int head_dim, int K, int L,
-                                       float sm_scale, int debias,
-                                       const void* poly_coef, void* stream) {
+                                       void* tickets, void* out, void* lse,
+                                       void* cnt, int batch, int s_cap,
+                                       int hq, int hkv, int head_dim, int K,
+                                       int L, int split, float sm_scale,
+                                       int debias, const void* poly_coef,
+                                       void* stream) {
   mp::LshArgs a{};
   a.q = q; a.k = k; a.v = v; a.k_scale = k_scale; a.v_scale = v_scale;
   a.k_norm = k_norm;
@@ -41,10 +42,12 @@ extern "C" int mp_lsh_masked_attention(const void* q, const void* k,
   a.part_o = static_cast<float*>(part_o);
   a.part_lse = static_cast<float*>(part_lse);
   a.part_cnt = static_cast<float*>(part_cnt);
+  a.tickets = static_cast<int*>(tickets);
   a.out = static_cast<float*>(out);
   a.lse = static_cast<float*>(lse);
   a.cnt = static_cast<float*>(cnt);
   a.batch = batch; a.s_cap = s_cap; a.hkv = hkv; a.K = K; a.L = L;
+  a.split = split;
   a.sm_scale = sm_scale;
   return mp::launch_lsh_decode<true>(a, hq, head_dim, debias, poly_coef,
                                      stream);

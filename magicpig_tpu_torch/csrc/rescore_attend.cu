@@ -16,10 +16,12 @@
 // SMs, so one block of 128 threads takes one (selected block, kv head,
 // request), writes its normalised partial and its LSE, and the LSE merge of
 // flash_decode.cu combines the partials. The scores come from the scorer's
-// own token_scores (block_common.cuh), so ranking and attend agree bit for
-// bit; tokens at or past the length are not read, a block wholly past it
-// writes the empty partial (0, -inf), and a row of empty partials merges to
-// (0, -inf). The V scale multiplies p.
+// own routine (block_common.cuh: mma.sync over 16 keys at a time, each
+// warp's 32 keys of a step read straight from device memory, all before
+// its products), so ranking and attend
+// agree bit for bit; tokens at or past the length are not read, a block
+// wholly past it writes the empty partial (0, -inf), and a row of empty
+// partials merges to (0, -inf). The V scale multiplies p.
 #include "block_common.cuh"
 #include "decode_common.cuh"
 
@@ -54,16 +56,43 @@ rescore_attend_kernel(const __nv_bfloat16* __restrict__ q,
     return;
   }
   const size_t head = static_cast<size_t>(b) * hkv + kh;
-  load_scaled_q<G>(sm.qs, q + head * G * kBlkD, sm_scale, tid);
-  __syncthreads();
+  const int warp = tid >> 5, lane = tid & 31, r = lane >> 2, t = lane & 3;
+  uint32_t qb[4][2];
+  load_q_frag<G>(q + head * G * kBlkD, sm_scale, lane, qb);
 
+  // 32 keys a warp at a time, the warps in turn: the four rows a lane
+  // needs (keys m0 + r, + 8, + 16, + 24) and their scales are all loaded
+  // before the two 16-key products, so a warp waits on device memory once
+  // a step.
+  constexpr int kRowBytes = key_row_bytes<KT>();
   const size_t tok0 = head * s_cap + t0;
-  for (int i = tid; i < n; i += kBlkThreads) {
-    float s[G];
-    token_scores<G>(k + (tok0 + i) * KeyRow<KT>::kElems,
-                    k_scale != nullptr ? k_scale[tok0 + i] : 1.f, sm.qs, s);
+  const uint8_t* k_blk = reinterpret_cast<const uint8_t*>(k) + tok0 * kRowBytes;
+  for (int m0 = 32 * warp; m0 < n; m0 += 32 * (kBlkThreads / 32)) {
+    uint4 x[4][2] = {};
+    float ksc[4] = {1.f, 1.f, 1.f, 1.f};
 #pragma unroll
-    for (int g = 0; g < G; ++g) sm.ps[g * block_size + i] = s[g];
+    for (int i = 0; i < 4; ++i) {
+      const int key = m0 + r + 8 * i;
+      if (key < n) {
+        key_chunks(k_blk + static_cast<size_t>(key) * kRowBytes, t, 0, x[i], k);
+        if (k_scale != nullptr) ksc[i] = k_scale[tok0 + key];
+      }
+    }
+#pragma unroll
+    for (int m = 0; m < 2; ++m) {
+      uint32_t wa[8], wb[8];
+      key_words(x[2 * m], t, wa, k);
+      key_words(x[2 * m + 1], t, wb, k);
+      float d[4];
+      mma_scores(wa, wb, qb, d);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int row = 2 * m + (i >> 1), h = 2 * t + (i & 1);
+        const int key = m0 + r + 8 * row;
+        if (h < G && key < n)
+          sm.ps[h * block_size + key] = score_of(d[i], ksc[row]);
+      }
+    }
   }
   __syncthreads();
   attend_block<G, VT>(sm, block_size, n, v + tok0 * kBlkD,

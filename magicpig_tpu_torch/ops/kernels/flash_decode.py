@@ -19,8 +19,6 @@ from magicpig_tpu_torch.ops import attention
 from magicpig_tpu_torch.ops.kernels import _lib
 
 HEAD_DIM = 64
-SPLIT_TOKENS = 512     # tokens per block of the LSH and block kernels
-                       # (kDecChunk in decode_common.cuh)
 DECODE_TILE = 64       # tokens per copy of flash_decode (kTile)
 MIN_SPLIT = 256        # fewest tokens per flash_decode split
 MAX_SPLIT = 1024       # most tokens per flash_decode split
@@ -42,8 +40,8 @@ def split_tokens(capacity: int, batch: int, hkv: int, num_sms: int) -> int:
     return min(MAX_SPLIT, max(MIN_SPLIT, tiles * DECODE_TILE))
 
 
-def _device_state(device: torch.device,
-                  pairs: int) -> tuple[torch.Tensor, int]:
+def device_state(device: torch.device,
+                 pairs: int) -> tuple[torch.Tensor, int]:
     """The device's tickets (at least `pairs`) and SM count."""
     if device not in _num_sms:
         props = torch.cuda.get_device_properties(device)
@@ -104,7 +102,7 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     check_decode_inputs(name, q, k, v, length, k_scale, v_scale)
     b, hq, d = q.shape
     hkv, s = k.shape[1], k.shape[2]
-    tickets, num_sms = _device_state(q.device, b * hkv)
+    tickets, num_sms = device_state(q.device, b * hkv)
     chunk = split_tokens(s, b, hkv, num_sms)
     nsplit = -(-s // chunk)
     f32 = dict(dtype=torch.float32, device=q.device)

@@ -12,7 +12,8 @@ debias, counted as "lsh_masked_attention", "_int8" for int8 K/V, then
 reads the packed collision words [B, Hq, S/32] int32 that stage 1 writes
 (`collision_words.py`), 8x fewer bytes. On the H100 it is bound by device
 memory: the words, and K, V and the key norm of the rows some head of the
-group sampled, which alone it reads.
+group sampled, which alone it gathers; the splits merge in the same launch
+(merge tickets per device, as flash decode's).
 """
 
 from __future__ import annotations
@@ -26,9 +27,13 @@ from magicpig_tpu_torch.ops import attention, bitcodes
 from magicpig_tpu_torch.ops.debias import DEBIAS_FORMS, log_weight_poly
 from magicpig_tpu_torch.ops.kernels import _lib
 from magicpig_tpu_torch.ops.kernels.flash_decode import (
-    SPLIT_TOKENS,
     check_decode_inputs,
+    device_state,
 )
+
+LSH_SPLIT = 512    # tokens a block of both LSH kernels: a power of two from
+                   # 32 to 2048; `chip_smoke.py` phase 2 times 512, 1024 and
+                   # 2048 (`PERF.md`)
 
 
 def form_name(base: str, quant: bool, debias: str) -> str:
@@ -58,13 +63,15 @@ def check_attend_inputs(name: str, q, k_centered, v, k_norm, length,
 
 def launch_attend(name: str, entry: str, q, k_centered, v, k_scale, v_scale,
                   k_norm, selection: tuple, length, K: int, L: int,
-                  debias: str):
+                  debias: str, split: int = LSH_SPLIT):
     """Allocate the split partials and outputs, and launch `entry` with
     `selection` (the scan's planes and q_bits, or the words) between the
-    norms and the length. Returns (out, lse, count)."""
+    norms and the length, `split` tokens a block. Returns (out, lse,
+    count)."""
     b, hq, d = q.shape
     hkv, s = k_centered.shape[1], k_centered.shape[2]
-    nsplit = -(-s // SPLIT_TOKENS)
+    nsplit = -(-s // split)
+    tickets, _ = device_state(q.device, b * hkv)
     f32 = dict(dtype=torch.float32, device=q.device)
     part_o = torch.empty((nsplit, b * hq, d), **f32)
     part_lse = torch.empty((nsplit, b * hq), **f32)
@@ -77,9 +84,9 @@ def launch_attend(name: str, entry: str, q, k_centered, v, k_scale, v_scale,
         poly = log_weight_poly(K, L)
         coef = (ctypes.c_float * len(poly))(*poly)
     _lib.launch(name, entry, q.device, q, k_centered, v, k_scale, v_scale,
-                k_norm, *selection, length, part_o, part_lse, part_cnt, out,
-                lse, cnt, b, s, hq, hkv, d, K, L, 1.0 / math.sqrt(d),
-                DEBIAS_FORMS.index(debias),
+                k_norm, *selection, length, part_o, part_lse, part_cnt,
+                tickets, out, lse, cnt, b, s, hq, hkv, d, K, L, split,
+                1.0 / math.sqrt(d), DEBIAS_FORMS.index(debias),
                 None if coef is None else ctypes.addressof(coef))
     return out, lse, cnt
 

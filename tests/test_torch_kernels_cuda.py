@@ -24,9 +24,11 @@ kernel like its exact form. The collision scan bit for bit; the masked
 attend from words, each of its six forms, like the fused kernel, and the
 two-stage route of `lsh_decode` against the fused kernel on the same
 inputs to the same limits; `exact_scores` like the block scores. The
-prefill and decode edge cases poison the cache rows past each length with
-NaN and hold the kernels to the plain versions on the tail-zeroed cache,
-to the same limits.
+prefill, decode and block scorer edge cases poison the cache rows past each
+length with NaN and hold the kernels to the plain versions on the
+tail-zeroed cache, to the same limits; the LSH edge cases poison every row
+that no head samples (the attends gather only sampled rows). The rescore
+pipeline equals the store pipeline bit for bit (the scorer's routine).
 """
 
 import numpy as np
@@ -58,9 +60,12 @@ from magicpig_tpu_torch.ops.kernels.block_score import (
 )
 from magicpig_tpu_torch.ops.kernels.lsh_fused import lsh_fused_decode_plain
 from magicpig_tpu_torch.ops.kernels.lsh_masked import (
+    launch_attend,
+    lsh_masked_attention_plain,
+)
+from magicpig_tpu_torch.ops.kernels.lsh_masked import (
     launch_name as masked_launch_name,
 )
-from magicpig_tpu_torch.ops.kernels.lsh_masked import lsh_masked_attention_plain
 from magicpig_tpu_torch.ops.kernels.rescore_attend import rescore_attend_plain
 from magicpig_tpu_torch.ops.kernels.w4_matmul import w4_matmul_plain
 from magicpig_tpu_torch.ops.pack4 import pack_k4
@@ -141,17 +146,26 @@ def test_cuda_flash_decode_int8_matches_plain(cuda):
     assert (o[2] == 0).all() and torch.isneginf(l[2]).all()
 
 
-def _kernel_launches(fn, calls: int = 3) -> int:
-    """CUDA kernels that `calls` calls of `fn` launch, by torch.profiler."""
+def _kernel_launches(fn, calls: int = 3, tries: int = 3) -> int:
+    """CUDA kernels that `calls` calls of `fn` launch, by torch.profiler.
+    The profiler now and then drops the kernels of a profiled run, so up to
+    `tries` runs are profiled and the fullest counts (as in
+    `chip_smoke.py`'s `device_ms`); a run that records `calls` kernels or
+    more ends it."""
     from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
+    best = 0
+    for _ in range(tries):
         torch.cuda.synchronize()
-    return sum(e.count for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        best = max(best, sum(e.count for e in prof.key_averages()
+                             if e.device_type == torch.autograd.DeviceType.CUDA))
+        if best >= calls:
+            break
+    return best
 
 
 @pytest.mark.parametrize("sq", [1, 63, 129, 300, 1000])
@@ -367,10 +381,10 @@ def test_cuda_block_attend_matches_plain(cuda, int8):
     po, pl = block_attend_plain(scores, ids, v, vs, 512)
     _assert_within(o, po, rms_share=0.015)
     _assert_within(l, pl, atol=1e-4, rtol=1e-5)
-    # The two pipelines agree: the rescore sees the stored scores' numbers.
+    # The two pipelines agree bit for bit: the rescore recomputes the stored
+    # scores with the scorer's own routine.
     ro, rl = rescore_attend(q, ids, k, ks, v, vs, length, 512)
-    torch.testing.assert_close(ro, o, atol=1e-6, rtol=1e-5)
-    torch.testing.assert_close(rl, l, atol=1e-6, rtol=1e-6)
+    assert torch.equal(ro, o) and torch.equal(rl, l)
 
 
 @pytest.mark.parametrize("debias", ["poly", "none"])
@@ -452,8 +466,7 @@ def test_cuda_packed_rescore_attend_matches_plain_and_int8(cuda):
     io, il = rescore_attend(q, ids, k4, ks, vq, vs, length, 512)
     assert torch.equal(o, io) and torch.equal(l, il)
     bo, bl = block_attend(scores, ids, vq, vs, 512)
-    torch.testing.assert_close(bo, o, atol=1e-6, rtol=1e-5)
-    torch.testing.assert_close(bl, l, atol=1e-6, rtol=1e-6)
+    assert torch.equal(bo, o) and torch.equal(bl, l)
 
 
 def plant_collisions(planes, q_bits, b, h, w):
@@ -562,3 +575,182 @@ def test_cuda_exact_scores_matches_plain(cuda, int8):
     assert torch.isfinite(got).all()
     atol, rtol, _ = SCORE_TOL
     _assert_within(got, want, atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("g", [1, 2, 4, 8])
+@pytest.mark.parametrize("kind", ["bf16", "int8", "int4"])
+def test_cuda_block_scorer_edges(cuda, kind, g):
+    """Lengths around every tile and block edge (0 included) over a
+    2048-token capacity in 512-token blocks; K rows past each length hold
+    NaN (bf16) or NaN scales (int8, packed int4), held to the plain version
+    on the tail-zeroed cache. Both masked variants agree on the block max
+    bit for bit, and the packed kernel equals the int8 one on the unpacked
+    rows; the scores-only form matches on the zeroed cache (bf16, int8)."""
+    rng = np.random.default_rng(23)
+    hkv, cap, bs = 2, 2048, 512
+    lens = [0, 1, 63, 64, 65, 511, 512, 513, cap]
+    q = _bf16(rng, len(lens), g * hkv, 64, device=cuda)
+    k = _bf16(rng, len(lens), hkv, cap, 64, device=cuda)
+    ks = None
+    if kind != "bf16":
+        k, ks = quantize_rows(k, bits=4 if kind == "int4" else 8)
+    kz = k.clone()
+    ksz = None if ks is None else ks.clone()
+    for i, n in enumerate(lens):
+        kz[i, :, n:] = 0
+        if ks is None:
+            k[i, :, n:] = float("nan")
+        else:
+            ksz[i, :, n:] = 0
+            ks[i, :, n:] = float("nan")
+    pk = pack_k4 if kind == "int4" else (lambda x: x)
+    length = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    want_s, want_m = block_scores_plain(q, pk(kz), ksz, length, bs)
+    got_m = block_rank(q, pk(k), ks, length, bs)
+    got_s, got_m2 = exact_scores_ranked(q, pk(k), ks, length, bs)
+    atol, rtol, _ = SCORE_TOL
+    for got, want in ((got_s, want_s), (got_m, want_m), (got_m2, want_m)):
+        assert not torch.isnan(got).any()
+        assert torch.equal(torch.isneginf(got), torch.isneginf(want))
+        _assert_within(got, want, atol=atol, rtol=rtol)
+    assert torch.equal(got_m, got_m2)
+    if kind == "int4":
+        int8_s, int8_m = exact_scores_ranked(q, k, ks, length, bs)
+        assert torch.equal(got_s, int8_s) and torch.equal(got_m2, int8_m)
+    else:
+        _assert_within(exact_scores(q, kz, ksz), exact_scores_plain(q, kz, ksz),
+                       atol=atol, rtol=rtol)
+
+
+def _masked_edge_case(cuda, int8, g, seed=24):
+    """B=6 over 2048 tokens, G heads a kv head (Hkv 2), K=8, L=75: lengths
+    not multiples of 32, one (33) ending before the second split and one 0;
+    request 0 samples from its collision words with head 1 sampling none,
+    request 2 every key (more rows than a pass holds), request 3 none."""
+    rng = np.random.default_rng(seed)
+    B, S, HKV, K, L = 6, 2048, 2, 8, 75
+    lens = [2048, 1337, 1000, 33, 0, 513]
+    q = _bf16(rng, B, g * HKV, 64, device=cuda)
+    k = _bf16(rng, B, HKV, S, 64, device=cuda)
+    v = _bf16(rng, B, HKV, S, 64, device=cuda)
+    ks = vs = None
+    kd = k.float()
+    if int8:
+        k, ks = quantize_rows(k)
+        v, vs = quantize_rows(v)
+        kd = dequantize_rows(k, ks, torch.float32)
+    proj = torch.from_numpy(rng.standard_normal((64, K * L)).astype(np.float32)).to(cuda)
+    planes = torch.stack([tbits.build_planes(kd[i].transpose(0, 1), proj, K)
+                          for i in range(B)])
+    qb = tbits.hash_bits(q, proj, K)
+    words = collision_words(qb, planes)
+    words[0, 1] = 0
+    words[2] = -1
+    words[3] = 0
+    length = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    return (q, k, v, kd.norm(dim=-1), words, length, K, L, ks, vs), planes, qb
+
+
+def _poison_unsampled(args, mask):
+    """(poisoned args, zeroed args): every K/V row and norm that no head of
+    its group samples (mask [B, Hq, S], valid tokens only) set to NaN (for
+    int8 the scales and norms; the rows keep their bytes), and the same
+    rows zeroed for the plain version."""
+    q, k, v, kn, sel, length, K, L, ks, vs = args
+    b, hkv, s = k.shape[:3]
+    unsampled = ~mask.reshape(b, hkv, -1, s).any(dim=2)      # [B, Hkv, S]
+    poisoned, zeroed = list(args), list(args)
+    for i, x in ((1, k), (2, v), (3, kn), (8, ks), (9, vs)):
+        if x is None:
+            continue
+        z = x.clone()
+        z[unsampled] = 0
+        zeroed[i] = z
+        if x.dtype != torch.int8:
+            p = x.clone()
+            p[unsampled] = float("nan")
+            poisoned[i] = p
+    return tuple(poisoned), tuple(zeroed)
+
+
+@pytest.mark.parametrize("g", [1, 2, 4, 8])
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("debias", ["exact", "none"])
+def test_cuda_lsh_masked_attention_edges(cuda, debias, int8, g):
+    """The masked attend reads only the sampled rows: every unsampled K/V
+    row and norm is NaN (int8: scales and norms), and the kernel is held to
+    the plain version on the same inputs with those rows zeroed; counts
+    exact, a head with no sample (0, -inf, 0). One launch per call, counted
+    by the wrapper and by torch.profiler; a second call equal to the first
+    (the merge tickets were reset); other split sizes give the same counts
+    and outputs within the same limits."""
+    args, _, _ = _masked_edge_case(cuda, int8, g)
+    args = (*args, debias)
+    q, k, v, kn, words, length, K, L, ks, vs, _ = args
+    s = k.shape[2]
+    mask = tbits.unpack_words(words & tbits.valid_words(length, s // 32)[:, None], s)
+    poisoned, zeroed = _poison_unsampled(args[:-1], mask)
+    poisoned, zeroed = (*poisoned, debias), (*zeroed, debias)
+    name = masked_launch_name(int8, debias)
+    before = dict(LAUNCHES)
+    o, l, c = lsh_masked_attention(*poisoned)
+    assert LAUNCHES[name] == before[name] + 1
+    assert sum(LAUNCHES.values()) == sum(before.values()) + 1
+    po, pl, pc = lsh_masked_attention_plain(*zeroed)
+    assert torch.equal(c, pc)
+    assert torch.isfinite(o).all() and not torch.isnan(l).any()
+    _assert_within(o, po, rms_share=0.015)
+    _assert_within(l, pl, atol=1e-4, rtol=1e-5)
+    empty = pc == 0
+    assert empty[0, 1] and empty[3].all() and empty[4].all()
+    assert (o[empty] == 0).all() and torch.isneginf(l[empty]).all()
+    assert (pc[2] == float(min(int(length[2]), s))).all()
+    o2, l2, c2 = lsh_masked_attention(*poisoned)
+    assert torch.equal(o, o2) and torch.equal(l, l2) and torch.equal(c, c2)
+    assert _kernel_launches(lambda: lsh_masked_attention(*poisoned)) == 3
+    for split in (32, 1024, 2048):
+        so, sl, sc = launch_attend(name, "mp_lsh_masked_attention", q,
+                                   poisoned[1], poisoned[2], poisoned[8],
+                                   poisoned[9], poisoned[3], (words,), length,
+                                   K, L, debias, split=split)
+        assert torch.equal(sc, pc)
+        _assert_within(so, po, rms_share=0.015)
+        _assert_within(sl, pl, atol=1e-4, rtol=1e-5)
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_cuda_lsh_fused_overflow_and_poison(cuda, int8):
+    """The fused kernel at K=1, L=32 (nearly every key sampled: more rows
+    than a pass holds) over ragged lengths, every unsampled row and norm
+    poisoned, against the plain version on the zeroed rows; one launch per
+    call; split sizes 32 to 2048 scan to the same counts."""
+    rng = np.random.default_rng(25)
+    B, S, K, L = 3, 2048, 1, 32
+    q, k, v, kn, planes, qb, _, ks, vs = _lsh_case(cuda, rng, int8, K, L, S=S)
+    first = lambda x: None if x is None else x[:1]  # noqa: E731
+    rep = lambda x: None if x is None else x.repeat(B, *([1] * (x.dim() - 1)))  # noqa: E731
+    q, k, v, kn, planes, qb, ks, vs = map(first, (q, k, v, kn, planes, qb, ks, vs))
+    q, k, v, kn, planes, qb, ks, vs = map(rep, (q, k, v, kn, planes, qb, ks, vs))
+    length = torch.tensor([2048, 1000, 31], dtype=torch.int32, device=cuda)
+    mask = tbits.sampled_mask(qb, planes, length)
+    assert mask.float().mean() > 0.4
+    poisoned, zeroed = _poison_unsampled(
+        (q, k, v, kn, None, length, K, L, ks, vs), mask)
+    pick = lambda a: (*a[:4], planes, qb, length, K, L, a[8], a[9])  # noqa: E731
+    name = "lsh_fused_decode" + ("_int8" if int8 else "")
+    before = dict(LAUNCHES)
+    o, l, c = lsh_fused_decode(*pick(poisoned))
+    assert LAUNCHES[name] == before[name] + 1
+    po, pl, pc = lsh_fused_decode_plain(*pick(zeroed))
+    assert torch.equal(c, pc)
+    assert torch.isfinite(o).all()
+    _assert_within(o, po, rms_share=0.015)
+    _assert_within(l, pl, atol=1e-4, rtol=1e-5)
+    assert _kernel_launches(lambda: lsh_fused_decode(*pick(poisoned))) == 3
+    p = pick(poisoned)
+    for split in (32, 1024, 2048):
+        so, sl, sc = launch_attend(name, "mp_lsh_fused_decode", p[0], p[1],
+                                   p[2], p[9], p[10], p[3], (planes, qb),
+                                   length, K, L, "exact", split=split)
+        assert torch.equal(sc, pc)
+        _assert_within(so, po, rms_share=0.015)
