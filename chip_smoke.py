@@ -8,9 +8,10 @@ Phases, each announced by one flushed progress line with elapsed seconds:
   1. build: the kernels of `magicpig_tpu_torch/csrc/`, one nvcc per source
      started together, then one link; the counts of warpgroup MMA (HGMMA),
      TMA (UTMALDG), bulk-copy (UBLKCP), mma.sync (HMMA) and cp.async
-     (LDGSTS) instructions in the prefill, decode, block scorer, rescore
-     and both LSH kernels' SASS (mma.sync in the scorer and the rescore,
-     cp.async in the scorer and the LSH kernels, or it fails);
+     (LDGSTS) instructions in the prefill, decode, block scorer, rescore,
+     collision scan and both LSH kernels' SASS (mma.sync in the scorer and
+     the rescore, cp.async in the scorer and the LSH kernels, TMA in the
+     collision scan and the fused LSH kernel, or it fails);
   2. kernels: each hand-written kernel against its plain PyTorch version at
      the shapes of the Llama-3.2-1B decode paths (Hq 32, Hkv 8, d 64;
      prefill 8192 and 12000 tokens, decode at the hot cache (B=2, capacity
@@ -33,8 +34,11 @@ Phases, each announced by one flushed progress line with elapsed seconds:
      int4 weight, zeroed), and the block ids the kernels rank first must be
      the plain version's. The two-stage LSH kernels: the collision scan at
      K=10, L=150 and K=8, L=75 bit for bit (planted collisions in one word
-     must change the result), the masked attend from its words at K=8,
-     L=75 in its six forms, the odd-L routes timed against each other, and
+     must change the result), the scan with phase 2's lengths (bit for
+     bit, plane bits past each length poisoned, which would collide if
+     read; blocks of 8 to 64 words timed), the masked attend from its
+     words at K=8, L=75 in its six forms, the odd-L routes timed against
+     each other, and
      the scorer's scores-only form (`exact_scores`) over bf16 and int8 K;
   3. serve: `LLM("llama-3.2-1b")` at full width and depth with random
      weights drawn on the card; two requests (12000 and 7000 tokens)
@@ -254,6 +258,7 @@ SASS_KERNELS = {
                                              "Lb1E"),
     "lsh_fused (lsh_split_kernel, scan)": ("lsh_split_kernel", "Li4E",
                                            "Lb0E"),
+    "collision_words_kernel": ("collision_words_kernel", "Li4E"),
 }
 SASS_OPS = ("HGMMA", "UTMALDG", "UBLKCP", "HMMA", "LDGSTS")
 
@@ -288,12 +293,15 @@ def sass_counts(so) -> dict:
 def check_sass(counts) -> None:
     """The redesigned block and LSH kernels use what they were designed
     for: mma.sync in the scorer and the rescore, cp.async in the scorer and
-    both LSH kernels."""
+    both LSH kernels, TMA in both collision scans (the fused kernel's and
+    the standalone one)."""
     for name, op in (("block_score_kernel", "HMMA"),
                      ("rescore_attend_kernel", "HMMA"),
                      ("block_score_kernel", "LDGSTS"),
                      ("lsh_masked (lsh_split_kernel, words)", "LDGSTS"),
-                     ("lsh_fused (lsh_split_kernel, scan)", "LDGSTS")):
+                     ("lsh_fused (lsh_split_kernel, scan)", "LDGSTS"),
+                     ("lsh_fused (lsh_split_kernel, scan)", "UTMALDG"),
+                     ("collision_words_kernel", "UTMALDG")):
         if counts.get(name, {}).get(op, 0) == 0:
             raise AssertionError(f"{name}: no {op} instruction in its SASS")
 
@@ -569,6 +577,52 @@ def scan_kernel(torch, planes, q_bits, label: str) -> dict:
                           lambda: bitcodes.collision_words(q_bits, planes)))
 
 
+def poison_past_length(planes, q_bits, length):
+    """A copy of planes whose bits at or past each request's length (whole
+    words, and the tail of the word that holds it) carry the first query
+    head of each group's own bits: read, they would make that head collide
+    with every key in every table."""
+    from magicpig_tpu_torch.ops import bitcodes
+
+    g = q_bits.shape[1] // planes.shape[1]
+    keep = bitcodes.valid_words(length, planes.shape[-1])[:, None, None, None]
+    return (planes & keep) | (-q_bits[:, ::g, :, :, None] & ~keep)
+
+
+def scan_length_kernel(torch, planes, q_bits, length, lens) -> dict:
+    """The collision scan with lengths, as both serves call it, against its
+    plain version bit for bit on planes poisoned past each length (the
+    plain scan without the length must see the poison); blocks of 8, 16, 32
+    and 64 words timed. Bound: the plane words before each length read
+    once, q_bits and the lengths read, every output word written."""
+    from magicpig_tpu_torch.ops import bitcodes
+    from magicpig_tpu_torch.ops.kernels import collision_words
+    from magicpig_tpu_torch.ops.kernels.collision_words import launch_scan
+
+    b, hq, L, K = q_bits.shape
+    hkv, w = planes.shape[1], planes.shape[-1]
+    poisoned = poison_past_length(planes, q_bits, length)
+    want = bitcodes.collision_words(q_bits, planes, length)
+    if torch.equal(bitcodes.collision_words(q_bits, poisoned), want):
+        raise AssertionError("collision_words with lengths: the poison "
+                             "collides nowhere")
+    for label, p in (("clean", planes), ("poisoned", poisoned)):
+        if not torch.equal(collision_words(q_bits, p, length), want):
+            raise AssertionError(f"collision_words with lengths ({label} "
+                                 "planes): differs from the plain scan")
+    del poisoned
+    sweep = {bw: round(device_ms(lambda: launch_scan(
+        q_bits, planes, length, bw)) * 1e3, 2) for bw in (8, 16, 32, 64)}
+    valid = sum((n + 31) // 32 for n in lens)
+    nbytes = (valid * hkv * L * K + q_bits.numel() + b * hq * w + b) * 4
+    log(f"kernel collision_words with lengths {lens} bit-exact, the poison "
+        f"past them unread; device us by block words: {sweep}")
+    return dict(max_abs_err=0.0, tol="bit-exact", bound=bound_ms(nbytes, 0),
+                **timings(lambda: collision_words(q_bits, planes, length),
+                          lambda: bitcodes.collision_words(q_bits, planes,
+                                                           length)))
+
+
 def two_stage_kernels(torch, F, gen, q, k, v, length, lens, planes, q_bits):
     """The two-stage LSH route's kernels on the caches of phase 2: the
     collision scan at K=10, L=150 (the sampled serve's) and at K=8, L=75
@@ -591,7 +645,9 @@ def two_stage_kernels(torch, F, gen, q, k, v, length, lens, planes, q_bits):
     hkv, s = k.shape[1], k.shape[2]
     K, L = 8, 75
     results = {"collision_words": scan_kernel(torch, planes, q_bits,
-                                              "K=10, L=150")}
+                                              "K=10, L=150"),
+               "collision_words_length": scan_length_kernel(
+                   torch, planes, q_bits, length, lens)}
     proj = torch.randn((d, K * L), generator=gen, device=q.device)
     valid_words = sum((n + 31) // 32 for n in lens)
     tol = TOL["lsh_fused_decode"]
@@ -609,8 +665,7 @@ def two_stage_kernels(torch, F, gen, q, k, v, length, lens, planes, q_bits):
         qb = bitcodes.hash_bits(q, proj, K)
         if not quant:
             scan75 = scan_kernel(torch, planes75, qb, "K=8, L=75")
-        words = (collision_words(qb, planes75)
-                 & bitcodes.valid_words(length, s // 32)[:, None])
+        words = collision_words(qb, planes75, length)
         mask = bitcodes.unpack_words(words, s)                 # [B, Hq, S]
         rows = int(mask.reshape(b, hkv, -1, s).any(dim=2).sum())
         row_bytes = 2 * d * 2 + 4 if not quant else 2 * d + 8 + 4
@@ -1825,6 +1880,11 @@ def main() -> int:
                              "magicpig_tpu/ops/pallas/w4_matmul.py:121")}
     sources["collision_words"] = ("magicpig_tpu_torch/csrc/collision_words.cu",
                                   "magicpig_tpu/ops/pallas/collide.py:76")
+    # With lengths (the serves' call): the same kernel and count, the other
+    # pallas_call site.
+    sources["collision_words_length"] = (sources["collision_words"][0],
+                                         "magicpig_tpu/ops/pallas/mask.py:87")
+    launches["collision_words_length"] = launches["collision_words"]
     sources["lsh_masked_attention"] = (
         "magicpig_tpu_torch/csrc/lsh_masked.cu",
         "magicpig_tpu/ops/pallas/lsh_decode.py:271")

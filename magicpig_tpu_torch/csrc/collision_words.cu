@@ -1,101 +1,131 @@
 // Standalone >=2-of-L collision scan: packed collision words of every query
 // head, bit j of word w set iff key 32w + j collides with the query in at
-// least two of the L tables.
+// least two of the L tables; with a length, only the keys before it.
 //
 // Replaces both drop-in Pallas scans of the JAX package:
 // magicpig_tpu/ops/pallas/collide.py::collision_words_pallas (pallas_call at
 // collide.py:76, planes [B, Hkv, L, K, W]) and
 // magicpig_tpu/ops/pallas/mask.py::collision_words_pallas (pallas_call at
 // mask.py:87, the same planes viewed as [B, Hkv, L*K, W]); the flat layout
-// makes them one function. Bit-exact: the result is made of bitwise
-// operations only.
+// makes them one function. With a length it also does the AND with the
+// valid words that the JAX callers apply right after their scan
+// (runtime/server.py:505-512, lsh_decode.py:353-358). Bit-exact: the result
+// is made of bitwise operations only.
 //
-// Bound on the H100: device memory. Every plane word is read once (K*L*4
-// bytes per 32 tokens and kv head, 188 bytes a token-head at K=10, L=150),
-// the output is 1/(K*L) of that per head. Design: one thread per word,
-// reading coalesced along W; the tables of a word are split over the 8
-// warps of a 256-thread block (warp s takes tables s, s + 8, ...), so a
-// thread runs ~L/8 tables with the K loads of a table in flight together
-// (the scan of collide_common.cuh, which the fused LSH kernel runs too),
-// and the 8 partial (once, twice) pairs merge in shared memory. The G
-// heads of a kv head share each plane word read.
+// Bound on the H100: device memory. Every plane word of the valid words is
+// read once (K*L*4 bytes per 32 tokens and kv head, 188 bytes a token-head
+// at K=10, L=150); the output is 1/(K*L) of that per head. Design: a block
+// of 128 threads scans a tile of `block_words` words of one (request, kv
+// head) through collide_common.cuh's ring (TMA boxes of whole tables into
+// shared memory, matched there, the G heads of the group sharing every
+// word read). A tile wholly past the length writes zeros and exits before
+// reading anything; the tile that holds the length reads only its valid
+// words. Tiles are small (16 words by default, `SCAN_WORDS`; 8, 32 and 64
+// measured slower) so that several blocks share each SM (a 48 KB ring: four
+// a SM) and the hardware's scheduler evens out requests of unequal length.
 #include "collide_common.cuh"
 
 namespace {
 
-constexpr int kWordsPerBlock = 32;
-constexpr int kScanSlices = 8;
-constexpr int kScanThreads = kWordsPerBlock * kScanSlices;   // 256
+constexpr int kScanThreads = 128;
+constexpr int kRingBytes = 48 * 1024;
 
 template <int G>
 __global__ void __launch_bounds__(kScanThreads)
-collision_words_kernel(const int* __restrict__ planes,
-                       const int* __restrict__ q_bits, int* __restrict__ out,
-                       int words, int hkv, int K, int L) {
+collision_words_kernel(const __grid_constant__ CUtensorMap map, int use_map,
+                       const int* __restrict__ planes,
+                       const int* __restrict__ q_bits,
+                       const int* __restrict__ length, int* __restrict__ out,
+                       int words, int hkv, int K, int L, int nw, int tables) {
   using namespace mp;
-  extern __shared__ uint32_t qcode[];   // [G][L]
-  __shared__ uint32_t s_once[kScanSlices][G][kWordsPerBlock];
-  __shared__ uint32_t s_twice[kScanSlices][G][kWordsPerBlock];
+  extern __shared__ __align__(128) uint8_t ring[];
+  __shared__ uint64_t bar[kScanStages];
 
-  const int kh = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x;
-  const int wi = tid % kWordsPerBlock, slice = tid / kWordsPerBlock;
-  const int w0 = blockIdx.x * kWordsPerBlock;
-  const size_t head0 = static_cast<size_t>(b) * hkv * G + kh * G;   // b*Hq + kh*G
-
-  load_qcodes(qcode, q_bits + head0 * L * K, G * L, K, tid, kScanThreads);
-  __syncthreads();
-
-  uint32_t once[G], twice[G];
-  if (w0 + wi < words) {
-    const int* pw = planes + (static_cast<size_t>(b) * hkv + kh) * L * K * words + w0 + wi;
-    scan_tables<G>(pw, words, qcode, K, L, slice, kScanSlices, once, twice);
-  } else {
-#pragma unroll
-    for (int g = 0; g < G; ++g) once[g] = twice[g] = 0u;
+  const int kh = blockIdx.y, b = blockIdx.z, tid = threadIdx.x;
+  const int w0 = blockIdx.x * nw;
+  const int len = length == nullptr ? words * 32
+                                    : max(min(length[b], words * 32), 0);
+  const int wlen = (len + 31) / 32;
+  const int head = b * hkv + kh;
+  const size_t head0 = static_cast<size_t>(head) * G;   // b*Hq + kh*G
+  const int n_out = min(nw, words - w0);
+  if (w0 >= wlen) {
+    for (int i = tid; i < G * n_out; i += kScanThreads)
+      out[(head0 + i / n_out) * words + w0 + i % n_out] = 0;
+    return;
   }
-#pragma unroll
-  for (int g = 0; g < G; ++g) {
-    s_once[slice][g][wi] = once[g];
-    s_twice[slice][g][wi] = twice[g];
-  }
-  __syncthreads();
-  for (int i = tid; i < G * kWordsPerBlock; i += kScanThreads) {
-    const int g = i / kWordsPerBlock, j = i % kWordsPerBlock;
-    if (w0 + j >= words) continue;
-    uint32_t o = 0u, t = 0u;
-    for (int s = 0; s < kScanSlices; ++s)
-      merge_collisions(o, t, s_once[s][g][j], s_twice[s][g][j]);
-    out[(head0 + g) * words + w0 + j] = static_cast<int>(t);
+
+  ScanTile tile{};
+  tile.map = use_map ? &map : nullptr;
+  tile.rows = planes + static_cast<size_t>(head) * L * K * words;
+  tile.q_bits = q_bits + head0 * L * K;
+  tile.row0 = head * L * K;
+  tile.words = words;
+  tile.w0 = w0;
+  tile.nw = nw;
+  tile.wlen = wlen;
+  tile.K = K;
+  tile.L = L;
+  tile.tables = tables;
+  scan_begin<G, kScanThreads>(tile, ring, bar, tid);
+  uint32_t* part = reinterpret_cast<uint32_t*>(ring);
+  scan_run<G, kScanThreads>(tile, ring, bar, part, tid);
+  for (int i = tid; i < G * n_out; i += kScanThreads) {
+    const int g = i / n_out, w = i % n_out;
+    const uint32_t t = w0 + w < wlen
+        ? scan_word<G, kScanThreads>(part, nw, g, w) & valid_bits(32 * (w0 + w), len)
+        : 0u;
+    out[(head0 + g) * words + w0 + w] = static_cast<int>(t);
   }
 }
 
 template <int G>
-int launch(const void* planes, const void* q_bits, void* out, int batch,
-           int words, int hkv, int K, int L, cudaStream_t stream) {
-  dim3 grid((words + kWordsPerBlock - 1) / kWordsPerBlock, hkv, batch);
-  const size_t dyn = static_cast<size_t>(G) * L * sizeof(uint32_t);
-  collision_words_kernel<G><<<grid, kScanThreads, dyn, stream>>>(
-      static_cast<const int*>(planes), static_cast<const int*>(q_bits),
-      static_cast<int*>(out), words, hkv, K, L);
+int launch(const void* planes, const void* q_bits, const void* length,
+           void* out, int batch, int words, int hkv, int K, int L, int nw,
+           cudaStream_t stream) {
+  static_assert(4 * kScanThreads * G * 4 <= kRingBytes, "partials fit the ring");
+  const int tables = mp::scan_stage_tables(K, L, nw, G, kScanThreads, kRingBytes);
+  if (tables < 1) return static_cast<int>(cudaErrorInvalidValue);
+  static unsigned smem_set = 0;   // the ring: above 48 KB
+  const cudaError_t err = hp::allow_smem(collision_words_kernel<G>, kRingBytes,
+                                         smem_set);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // TMA where its boxes fit (mp::scan_tma_fits); otherwise every tile comes
+  // by cp.async.
+  CUtensorMap map{};
+  const int use_map = mp::scan_tma_fits(words, nw);
+  if (use_map && !mp::scan_map(&map, planes, words, batch * hkv * L * K, nw, K,
+                               tables))
+    return static_cast<int>(cudaErrorInvalidValue);
+  dim3 grid((words + nw - 1) / nw, hkv, batch);
+  collision_words_kernel<G><<<grid, kScanThreads, kRingBytes, stream>>>(
+      map, use_map, static_cast<const int*>(planes),
+      static_cast<const int*>(q_bits), static_cast<const int*>(length),
+      static_cast<int*>(out), words, hkv, K, L, nw, tables);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// planes [B, Hkv, L, K, W] int32, q_bits [B, Hq, L, K] int32 0/1 ->
-// out [B, Hq, W] int32.
+// planes [B, Hkv, L, K, W] int32, q_bits [B, Hq, L, K] int32 0/1, length
+// [B] int32 or null (every word) -> out [B, Hq, W] int32. block_words: words
+// a block, a power of two from 1 to 64.
 extern "C" int mp_collision_words(const void* planes, const void* q_bits,
-                                  void* out, int batch, int words, int hq,
-                                  int hkv, int K, int L, void* stream) {
-  if (hq % hkv != 0 || words < 1 || K < 1 || K > mp::kMaxK || L < 1)
+                                  const void* length, void* out, int batch,
+                                  int words, int hq, int hkv, int K, int L,
+                                  int block_words, void* stream) {
+  if (hkv <= 0 || hq % hkv != 0 || words < 1 || K < 1 || K > mp::kMaxK ||
+      L < 1 || block_words < 1 || block_words > mp::kScanMaxWords ||
+      (block_words & (block_words - 1)) != 0)
     return static_cast<int>(cudaErrorInvalidValue);
+  if (batch == 0) return static_cast<int>(cudaSuccess);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int nw = block_words;
   switch (hq / hkv) {
-    case 1: return launch<1>(planes, q_bits, out, batch, words, hkv, K, L, st);
-    case 2: return launch<2>(planes, q_bits, out, batch, words, hkv, K, L, st);
-    case 4: return launch<4>(planes, q_bits, out, batch, words, hkv, K, L, st);
-    case 8: return launch<8>(planes, q_bits, out, batch, words, hkv, K, L, st);
+    case 1: return launch<1>(planes, q_bits, length, out, batch, words, hkv, K, L, nw, st);
+    case 2: return launch<2>(planes, q_bits, length, out, batch, words, hkv, K, L, nw, st);
+    case 4: return launch<4>(planes, q_bits, length, out, batch, words, hkv, K, L, nw, st);
+    case 8: return launch<8>(planes, q_bits, length, out, batch, words, hkv, K, L, nw, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks of the redesigned kernels: mbarriers,
 // bulk and tensor (TMA) copies into shared memory, cp.async copies (the
-// block scorer's rings, the LSH attend's gathers), warpgroup MMA (wgmma)
+// block scorer's rings, the LSH attend's gathers, the collision scan's
+// ragged tiles), warpgroup MMA (wgmma)
 // with its shared-memory descriptors, register reallocation and named
 // barriers, each a thin wrapper of one PTX instruction; and, on the host,
 // the dynamic shared-memory limit and the encoding of a tiled tensor map.
@@ -111,12 +112,31 @@ __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
+// One arrival on `bar` once every cp.async the calling thread issued so far
+// has landed; the barrier's count must include it (.noinc).
+__device__ __forceinline__ void cp_async_mbar_arrive_noinc(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n"
+               :: "r"(smem_u32(bar)) : "memory");
+}
+
 // Waits until at most kPending of the calling thread's groups are in
 // flight. Other threads' copies are visible after a barrier (__syncwarp
 // among a warp's lanes, __syncthreads across warps).
 template <int kPending>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(kPending) : "memory");
+}
+
+// One box of a 2-D tensor map at element coordinates (c0 innermost),
+// completion counted on `bar`; elements outside the tensor read as zero.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            int c0, int c1, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.tile."
+      "mbarrier::complete_tx::bytes [%0], [%1, {%2, %3}], [%4];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0),
+         "r"(c1), "r"(smem_u32(bar))
+      : "memory");
 }
 
 // One box of a 4-D tensor map at element coordinates (c0 innermost),
@@ -299,6 +319,23 @@ inline bool bf16_map_4d(CUtensorMap* map, const void* base,
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
             gdim, gstride, bdim, estride, CU_TENSOR_MAP_INTERLEAVE_NONE,
             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// An int32 matrix [rows, cols] (cols contiguous, cols * 4 a multiple of 16
+// bytes) read in boxes of box_rows x box_cols (box_cols * 4 a multiple of
+// 16), unswizzled. Returns false when cuTensorMapEncodeTiled refuses it.
+inline bool int32_map_2d(CUtensorMap* map, const void* base, uint64_t cols,
+                         uint64_t rows, uint32_t box_cols, uint32_t box_rows) {
+  EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t gdim[2] = {cols, rows};
+  const cuuint64_t gstride[1] = {cols * 4};
+  const cuuint32_t bdim[2] = {box_cols, box_rows};
+  const cuuint32_t estride[2] = {1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_INT32, 2, const_cast<void*>(base),
+            gdim, gstride, bdim, estride, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 

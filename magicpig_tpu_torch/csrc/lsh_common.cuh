@@ -26,9 +26,9 @@
 // and a second launch for the merge) cost 10-30x that bound on the card;
 // this design gathers. One block of 128 threads takes one split (`split`
 // tokens, a power of two from 32 to 2048) of one (kv head, request):
-//  - it gets the split's selection words (read, or scanned with each
-//    thread owning one word and every 128/words-th table for all G heads,
-//    the (once, twice) pairs merged in shared memory), ANDed with the
+//  - it gets the split's selection words (read, or scanned by the ring of
+//    collide_common.cuh, whose stages overlay the gathered rows' buffer and
+//    whose first TMA boxes leave before the query is loaded), ANDed with the
 //    valid tokens; ORs them across the group's heads; and numbers the
 //    sampled rows and each head's sampled pairs by prefix popcounts over
 //    the words (warp scans);
@@ -66,6 +66,8 @@ constexpr float kPi = 3.14159265358979323846f;
 constexpr float kDebiasEps = 1e-4f;
 constexpr int kPolyTerms = 21;         // degree 20
 constexpr int kMaxDynSmem = 227 * 1024;  // a block's most on the H100
+constexpr int kScanRingBytes = 40 * 1024;  // the fused scan's ring: the size
+                                           // of a pass's bf16 rows
 
 // Debias forms (LSHConfig.lsh_debias), a template parameter of the kernel.
 enum Debias : int { kExact = 0, kPoly = 1, kNone = 2 };
@@ -75,28 +77,30 @@ struct PolyCoef {
 };
 
 // Arguments of one launch. Selection: planes [B, Hkv, L, K, S/32] and
-// q_bits [B, Hq, L, K] for the scan, or words [B, Hq, S/32] (the other
-// pointers null). k_scale, v_scale [B, Hkv, S]: int8 K/V only. Partials
-// [nsplit, B * Hq] (part_o with 64 values a row); tickets [B * Hkv], 0
-// between calls.
+// q_bits [B, Hq, L, K] for the scan (with the planes' tensor map when
+// scan_tma is set, and scan_tables tables a ring stage), or words
+// [B, Hq, S/32] (the other pointers null). k_scale, v_scale [B, Hkv, S]:
+// int8 K/V only. Partials [nsplit, B * Hq] (part_o with 64 values a row);
+// tickets [B * Hkv], 0 between calls.
 struct LshArgs {
+  CUtensorMap plane_map;
   const void *q, *k, *v, *k_scale, *v_scale, *k_norm;
   const int *planes, *q_bits, *words, *length;
   float *part_o, *part_lse, *part_cnt, *out, *lse, *cnt;
   int* tickets;
-  int batch, s_cap, hkv, K, L, split;
+  int batch, s_cap, hkv, K, L, split, scan_tables, scan_tma;
   float sm_scale;
   PolyCoef poly;
 };
 
-template <int G, typename T>
-struct __align__(16) LshSmem {
+// kScan: the fused kernel's, whose union also holds the scan's ring.
+template <int G, typename T, bool kScan>
+struct __align__(128) LshSmem {
   static constexpr int kRowBytes = kDecD * static_cast<int>(sizeof(T));
+  static constexpr int kRingBytes = kScan ? kScanRingBytes : 128;
   union {
-    struct {                           // the scan's per-thread partials
-      uint32_t once[G][kLshThreads];
-      uint32_t twice[G][kLshThreads];
-    } scan;
+    uint8_t ring[kRingBytes];          // the scan's stages (128-aligned)
+    uint32_t scan_part[4 * kLshThreads * G];   // then its threads' partials
     struct {                           // a pass's gathered rows
       uint8_t k[kLshCap * kRowBytes];  // 16-byte units swizzled (k_unit)
       uint8_t v[kLshCap * kRowBytes];
@@ -119,13 +123,8 @@ struct __align__(16) LshSmem {
   float cnt[G];                        // the merge's summed counts
   int off[G + 1];                      // the pass's pairs before head g
   int is_last;
+  uint64_t scan_bar[kScanStages];      // the ring's stages
 };
-
-// Valid-token mask of a word whose first token is `first` (of [.., stop)).
-__device__ __forceinline__ uint32_t valid_bits(int first, int stop) {
-  const int n = min(max(stop - first, 0), 32);
-  return n >= 32 ? 0xffffffffu : ((1u << n) - 1u);
-}
 
 // Byte offset of 16-byte unit `unit` of gathered K row `row` (kUnits units
 // a row): within each 128-byte line the unit index is XORed with the
@@ -175,15 +174,14 @@ __device__ __forceinline__ uint32_t bf16_bits(int8_t x) {
 // form. kWords: selection words given (else scanned from the planes).
 template <int G, typename T, int kDebias, bool kWords>
 __global__ void __launch_bounds__(kLshThreads)
-lsh_split_kernel(const LshArgs a) {
+lsh_split_kernel(const __grid_constant__ LshArgs a) {
   constexpr bool kQ = std::is_same<T, int8_t>::value;
-  using Smem = LshSmem<G, T>;
+  using Smem = LshSmem<G, T, !kWords>;
   constexpr int kRowBytes = Smem::kRowBytes;
   constexpr int kUnits = kRowBytes / 16;
   constexpr int kWarps = kLshThreads / 32;
-  extern __shared__ __align__(16) uint8_t lsh_smem[];
+  extern __shared__ __align__(128) uint8_t lsh_smem[];
   Smem& sm = *reinterpret_cast<Smem*>(lsh_smem);
-  uint32_t* qcode = reinterpret_cast<uint32_t*>(lsh_smem + sizeof(Smem));
 
   const int split = blockIdx.x, kh = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -208,8 +206,27 @@ lsh_split_kernel(const LshArgs a) {
   const int start = split * a.split;
   const int stop = min(len, start + a.split);
 
-  // Query: raw f32 values (the debias needs the unscaled dot), norms and,
-  // for the scan, packed sign bits; the given words load beside them.
+  // The scan's first stages leave before anything else is loaded.
+  ScanTile tile{};
+  if constexpr (!kWords) {
+    const int head = b * a.hkv + kh;
+    tile.map = a.scan_tma ? &a.plane_map : nullptr;
+    tile.rows = a.planes + static_cast<size_t>(head) * L * K * words;
+    tile.q_bits = a.q_bits + row * L * K;
+    tile.row0 = head * L * K;
+    tile.words = words;
+    tile.w0 = start / 32;
+    tile.nw = nw;
+    tile.wlen = (len + 31) / 32;
+    tile.K = K;
+    tile.L = L;
+    tile.tables = a.scan_tables;
+    scan_begin<G, kLshThreads>(tile, sm.u.ring, sm.scan_bar, tid);
+  }
+
+  // Query: raw f32 values (the debias needs the unscaled dot) and norms;
+  // the given words load beside them (the scan's query bits come with its
+  // stages).
   const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(a.q);
   for (int i = tid; i < G * kDecD; i += kLshThreads)
     sm.qf[i / kDecD][i % kDecD] = __bfloat162float(q[row * kDecD + i]);
@@ -222,8 +239,6 @@ lsh_split_kernel(const LshArgs a) {
             valid_bits(first, stop);
       sm.sel[g][w] = t;
     }
-  } else {
-    load_qcodes(qcode, a.q_bits + row * L * K, G * L, K, tid, kLshThreads);
   }
   __syncthreads();
   for (int g = warp; g < G; g += kWarps) {
@@ -238,31 +253,12 @@ lsh_split_kernel(const LshArgs a) {
 
   // ---- the scan's selection words, ANDed with the split's valid tokens.
   if constexpr (!kWords) {
-    // Thread (slice, wi) owns word wi, tables slice + nslices * n.
-    const int wi = tid % nw, slice = tid / nw, nslices = kLshThreads / nw;
-    uint32_t once[G], twice[G];
-    if (start + 32 * wi < stop) {
-      const int* pw = a.planes +
-                      static_cast<size_t>(b * a.hkv + kh) * L * K * words +
-                      start / 32 + wi;
-      scan_tables<G>(pw, words, qcode, K, L, slice, nslices, once, twice);
-    } else {
-#pragma unroll
-      for (int g = 0; g < G; ++g) once[g] = twice[g] = 0u;
-    }
-#pragma unroll
-    for (int g = 0; g < G; ++g) {
-      sm.u.scan.once[g][tid] = once[g];
-      sm.u.scan.twice[g][tid] = twice[g];
-    }
-    __syncthreads();
+    scan_run<G, kLshThreads>(tile, sm.u.ring, sm.scan_bar, sm.u.scan_part,
+                             tid);
     for (int i = tid; i < G * nw; i += kLshThreads) {
       const int g = i / nw, w = i % nw;
-      uint32_t o = 0u, t = 0u;
-      for (int s = 0; s < nslices; ++s)
-        merge_collisions(o, t, sm.u.scan.once[g][s * nw + w],
-                         sm.u.scan.twice[g][s * nw + w]);
-      sm.sel[g][w] = t & valid_bits(start + 32 * w, stop);
+      sm.sel[g][w] = scan_word<G, kLshThreads>(sm.u.scan_part, nw, g, w) &
+                     valid_bits(start + 32 * w, stop);
     }
     __syncthreads();
   }
@@ -619,11 +615,23 @@ lsh_split_kernel(const LshArgs a) {
 }
 
 template <int G, typename T, int kDebias, bool kWords>
-int launch_lsh(const LshArgs& a, cudaStream_t stream) {
+int launch_lsh(LshArgs a, cudaStream_t stream) {
+  if constexpr (!kWords) {
+    // The ring's stages, and a tensor map over the planes where TMA's boxes
+    // fit (scan_tma_fits; otherwise every tile comes by cp.async).
+    const int words = a.s_cap / 32, nw = a.split / 32;
+    a.scan_tables = scan_stage_tables(a.K, a.L, nw, G, kLshThreads,
+                                      LshSmem<G, T, true>::kRingBytes);
+    if (a.scan_tables < 1) return static_cast<int>(cudaErrorInvalidValue);
+    a.scan_tma = scan_tma_fits(words, nw);
+    if (a.scan_tma && !scan_map(&a.plane_map, a.planes, words,
+                                a.batch * a.hkv * a.L * a.K, nw, a.K,
+                                a.scan_tables))
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
   // The scan's query codes grow with L: allow the card's most once.
   static unsigned smem_set = 0;
-  const int dyn = static_cast<int>(sizeof(LshSmem<G, T>)) +
-                  (kWords ? 0 : G * a.L * static_cast<int>(sizeof(uint32_t)));
+  const int dyn = static_cast<int>(sizeof(LshSmem<G, T, !kWords>));
   const cudaError_t err = hp::allow_smem(
       lsh_split_kernel<G, T, kDebias, kWords>, kMaxDynSmem, smem_set);
   if (err != cudaSuccess) return static_cast<int>(err);

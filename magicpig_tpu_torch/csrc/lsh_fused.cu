@@ -15,10 +15,10 @@
 // stream is not small. K, V and the key norm are needed only for tokens that
 // some query head of the group samples (~2% per head at the defaults); int8
 // rows halve those bytes and leave the signature words as they are. The
-// block scans its split's signature words per (table, bit) with coalesced
-// 4-byte reads along the token axis, each thread owning one word and a
-// slice of the tables for all G heads, then gathers and attends only the
-// sampled rows and merges the splits in the same launch (lsh_common.cuh).
+// block streams its split's plane rows by TMA into a ring in shared memory
+// and matches them there (collide_common.cuh), then gathers and attends
+// only the sampled rows and merges the splits in the same launch
+// (lsh_common.cuh).
 #include "lsh_common.cuh"
 
 // k_scale and v_scale null: bf16 K/V; both set: int8 K/V with those

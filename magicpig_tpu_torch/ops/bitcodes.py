@@ -74,12 +74,14 @@ def build_planes(keys: torch.Tensor, projections: torch.Tensor,
     return torch.cat(parts, dim=-1)
 
 
-def collision_words(q_bits: torch.Tensor, planes: torch.Tensor) -> torch.Tensor:
+def collision_words(q_bits: torch.Tensor, planes: torch.Tensor,
+                    length: torch.Tensor | None = None) -> torch.Tensor:
     """>=2-of-L collision mask, packed 32 keys per int32 word.
 
-    q_bits: [B, Hq, L, K] 0/1; planes: [B, Hkv, L, K, W] int32.
-    Returns [B, Hq, W] int32: bit j of word w is set iff key w*32+j collides
-    with the query in >= 2 tables.
+    q_bits: [B, Hq, L, K] 0/1; planes: [B, Hkv, L, K, W] int32; length:
+    [B] int32 or None. Returns [B, Hq, W] int32: bit j of word w is set iff
+    key w*32+j collides with the query in >= 2 tables (and, with a length,
+    lies before it: the result ANDed with `valid_words`).
 
     The (once, twice) scan over tables is associative, (o1, t1) + (o2, t2) =
     (o1 | o2, t1 | t2 | (o1 & o2)), so it runs as a pairwise tree over L.
@@ -100,7 +102,10 @@ def collision_words(q_bits: torch.Tensor, planes: torch.Tensor) -> torch.Tensor:
         o1, o2 = once[:, :, :, 0::2], once[:, :, :, 1::2]
         twice = twice[:, :, :, 0::2] | twice[:, :, :, 1::2] | (o1 & o2)
         once = o1 | o2
-    return twice.reshape(b, hq, w)
+    words = twice.reshape(b, hq, w)
+    if length is not None:
+        words = words & valid_words(length, w)[:, None]
+    return words
 
 
 def valid_words(lengths: torch.Tensor, w: int) -> torch.Tensor:
@@ -122,6 +127,4 @@ def sampled_mask(q_bits: torch.Tensor, planes: torch.Tensor,
                  length: torch.Tensor) -> torch.Tensor:
     """The >=2-of-L collision mask of every valid token: [B, Hq, S] bool."""
     s = planes.shape[-1] * WORD
-    words = collision_words(q_bits, planes)
-    words = words & valid_words(length, planes.shape[-1])[:, None]
-    return unpack_words(words, s)
+    return unpack_words(collision_words(q_bits, planes, length), s)

@@ -69,7 +69,7 @@ _SIGNATURES = {
     "mp_flash_decode": [_P] * 11 + [_I] * 6 + [_F, _P],
     "mp_lsh_fused_decode": [_P] * 16 + [_I] * 8 + [_F, _I, _P, _P],
     "mp_lsh_masked_attention": [_P] * 15 + [_I] * 8 + [_F, _I, _P, _P],
-    "mp_collision_words": [_P] * 3 + [_I] * 6 + [_P],
+    "mp_collision_words": [_P] * 4 + [_I] * 7 + [_P],
     "mp_block_score": [_P] * 6 + [_I] * 7 + [_F, _P],
     "mp_rescore_attend": [_P] * 11 + [_I] * 8 + [_F, _P],
     "mp_block_attend": [_P] * 8 + [_I] * 8 + [_P],

@@ -6,9 +6,11 @@ Replaces both drop-in Pallas scans of the JAX package,
 `magicpig_tpu/ops/pallas/collide.py::collision_words_pallas` (pallas_call
 at collide.py:76) and `magicpig_tpu/ops/pallas/mask.py::
 collision_words_pallas` (pallas_call at mask.py:87, the same planes viewed
-as [B, Hkv, L*K, W]): in the port's flat layout they are one function.
+as [B, Hkv, L*K, W]): in the port's flat layout they are one function. With
+a length it also applies the AND with the valid words that the JAX callers
+apply right after their scan, and reads no plane word past the length.
 Counted as "collision_words". Bit-exact against the plain version; bound on
-the H100 by reading every plane word once.
+the H100 by reading every (valid) plane word once.
 """
 
 from __future__ import annotations
@@ -19,7 +21,9 @@ from magicpig_tpu_torch.ops import bitcodes
 from magicpig_tpu_torch.ops.kernels import _lib
 
 MAX_K = 16                    # bits per table (kMaxK in collide_common.cuh)
-MAX_QCODE_BYTES = 12 * 1024   # dynamic shared memory for the query codes
+SCAN_WORDS = 16               # words (512 tokens) a block: a power of two
+                              # from 1 to 64; `chip_smoke.py` phase 2 times
+                              # 16, 32 and 64 (`PERF.md`)
 
 
 def check_scan_inputs(name: str, planes: torch.Tensor, q_bits: torch.Tensor,
@@ -35,21 +39,31 @@ def check_scan_inputs(name: str, planes: torch.Tensor, q_bits: torch.Tensor,
                  f"{name}: q_bits must be int32 [B, Hq, L, K]")
     _lib.require(hq % hkv == 0 and hq // hkv in (1, 2, 4, 8),
                  f"{name}: group size {hq}/{hkv} unsupported")
-    _lib.require(1 <= K <= MAX_K and L >= 1
-                 and (hq // hkv) * L * 4 <= MAX_QCODE_BYTES,
+    _lib.require(1 <= K <= MAX_K and L >= 1,
                  f"{name}: K={K}, L={L} unsupported")
 
 
-def collision_words(q_bits: torch.Tensor, planes: torch.Tensor) -> torch.Tensor:
+def collision_words(q_bits: torch.Tensor, planes: torch.Tensor,
+                    length: torch.Tensor | None = None) -> torch.Tensor:
     """>=2-of-L collision words of every query head.
 
     q_bits: [B, Hq, L, K] int32 0/1; planes: [B, Hkv, L, K, W] int32 (the
-    flat layout of `ops.bitcodes`). Returns [B, Hq, W] int32: bit j of word
-    w set iff key 32w + j collides with the query in >= 2 tables. CPU
-    tensors take the plain version.
+    flat layout of `ops.bitcodes`); length: [B] int32 or None. Returns
+    [B, Hq, W] int32: bit j of word w set iff key 32w + j collides with the
+    query in >= 2 tables and, with a length, lies before it (the words at
+    or past it are 0, and no plane word there is read). CPU tensors take the
+    plain version.
     """
     if q_bits.device.type == "cpu":
-        return bitcodes.collision_words(q_bits, planes)
+        return bitcodes.collision_words(q_bits, planes, length)
+    return launch_scan(q_bits, planes, length)
+
+
+def launch_scan(q_bits: torch.Tensor, planes: torch.Tensor,
+                length: torch.Tensor | None = None,
+                block_words: int = SCAN_WORDS) -> torch.Tensor:
+    """Check the inputs and launch the kernel, `block_words` words a
+    block."""
     name = "collision_words"
     _lib.require(q_bits.device.type == "cuda",
                  f"{name}: unsupported device {q_bits.device}")
@@ -57,7 +71,11 @@ def collision_words(q_bits: torch.Tensor, planes: torch.Tensor) -> torch.Tensor:
     b, hq, L, K = q_bits.shape
     hkv, w = planes.shape[1], planes.shape[-1]
     check_scan_inputs(name, planes, q_bits, hkv, w * bitcodes.WORD, K, L)
+    if length is not None:
+        _lib.require_cuda(name, q_bits, length)
+        _lib.require(length.dtype == torch.int32 and length.shape == (b,),
+                     f"{name}: length must be int32 [B]")
     out = torch.empty((b, hq, w), dtype=torch.int32, device=q_bits.device)
     _lib.launch(name, "mp_collision_words", q_bits.device, planes, q_bits,
-                out, b, w, hq, hkv, K, L)
+                length, out, b, w, hq, hkv, K, L, block_words)
     return out

@@ -91,12 +91,13 @@ def lsh_decode(q: torch.Tensor, k_centered: torch.Tensor, v: torch.Tensor,
     `lsh_decode.py::lsh_fused_decode` routes it: even L through the fused
     kernel; odd L (and L = 1) in two stages, the collision words
     (`collision_words`), then the masked attend (`lsh_masked_attention`,
-    which ignores the bits at or past the length). The fused kernel itself
-    takes any L; which route odd L should keep is for a measurement to
-    decide. Arguments and result as `lsh_fused_decode`."""
+    which ignores the bits at or past the length; the scan reads none of
+    them). The fused kernel itself takes any L; which route odd L should
+    keep is for a measurement to decide. Arguments and result as
+    `lsh_fused_decode`."""
     if L >= 2 and L % 2 == 0:
         return lsh_fused_decode(q, k_centered, v, k_norm, planes, q_bits,
                                 length, K, L, k_scale, v_scale, debias)
     return lsh_masked_attention(q, k_centered, v, k_norm,
-                                collision_words(q_bits, planes), length, K, L,
-                                k_scale, v_scale, debias)
+                                collision_words(q_bits, planes, length), length,
+                                K, L, k_scale, v_scale, debias)

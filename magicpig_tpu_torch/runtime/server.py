@@ -44,7 +44,6 @@ from magicpig_tpu_torch.ops.bitcodes import (
     build_planes,
     hash_bits,
     unpack_words,
-    valid_words,
 )
 from magicpig_tpu_torch.ops.kernels import (
     block_attend,
@@ -194,8 +193,7 @@ def _lsh_partial(state: DecodeState, si: int, q: torch.Tensor,
                                    v_scale, lsh.lsh_debias)
         return out, lse, cnt.sum() / n_valid
     off_cap = k.shape[2]
-    words = collision_words(q_bits, planes)
-    words = words & valid_words(state.off_len, planes.shape[-1])[:, None]
+    words = collision_words(q_bits, planes, state.off_len)   # valid tokens
     mask = unpack_words(words, off_cap)                      # [B, Hq, S]
     ids, ids_valid = mask_to_budget_ids(mask, lsh.sample_budget(off_cap))
     # Quantized rows are gathered with their scales, then dequantized.

@@ -499,6 +499,57 @@ def test_cuda_collision_words_bit_exact(cuda, K, L):
         assert not torch.equal(faulty.cpu(), want)
 
 
+def _poison_past_length(planes, qb, length):
+    """A copy of planes whose bits at or past each request's length (whole
+    words, and the tail of the word that holds it) carry the first query
+    head of each group's own bits (all ones where its bit is 1): read, they
+    would make that head collide with every key in every table."""
+    g = qb.shape[1] // planes.shape[1]
+    keep = tbits.valid_words(length, planes.shape[-1])[:, None, None, None]
+    pattern = -qb[:, ::g, :, :, None]                  # [B, Hkv, L, K, 1]
+    return (planes & keep) | (pattern & ~keep)
+
+
+@pytest.mark.parametrize("W", [77, 100])
+@pytest.mark.parametrize("g", [1, 2, 4, 8])
+def test_cuda_collision_words_lengths_and_poison(cuda, g, W):
+    """K 1, 10, 16 by L 1, 2, 3, 75, 150; lengths 0, 1, 31, 32, 33, a mid
+    value and the full capacity. W = 77 takes cp.async for every tile (TMA
+    cannot stride its rows), W = 100 TMA for whole tiles and cp.async for
+    the ragged last one and each tile that holds a length; blocks of 1, 4,
+    16 (the default) and 64 words. Without a length the kernel equals the
+    plain scan bit for bit; with one it equals the plain scan ANDed with the
+    valid words, on planes poisoned past each length (which the plain scan
+    without a length shows would collide: request 0, of length 0, would be
+    all ones in each group's first head), one launch a call."""
+    from magicpig_tpu_torch.ops.kernels.collision_words import launch_scan
+
+    rng = np.random.default_rng(26)
+    hkv = 2
+    lens = [0, 1, 31, 32, 33, 16 * W + 5, 32 * W]
+    length = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    for K in (1, 10, 16):
+        for L in (1, 2, 3, 75, 150):
+            qb = torch.from_numpy(rng.integers(0, 2, (len(lens), g * hkv, L, K))
+                                  .astype(np.int32)).to(cuda)
+            planes = torch.from_numpy(rng.integers(
+                -2**31, 2**31 - 1, (len(lens), hkv, L, K, W)).astype(np.int32)).to(cuda)
+            poisoned = _poison_past_length(planes, qb, length)
+            want = tbits.collision_words(qb.cpu(), planes.cpu())
+            want_len = tbits.collision_words(qb.cpu(), planes.cpu(), length.cpu())
+            assert torch.equal(want_len, want & tbits.valid_words(length.cpu(), W)[:, None])
+            if L > 1:    # read, the poison collides (request 0: every word)
+                seen = tbits.collision_words(qb.cpu(), poisoned.cpu())
+                assert (seen[0, ::g] == -1).all() and not want_len[0].any()
+            before = LAUNCHES["collision_words"]
+            assert torch.equal(collision_words(qb, poisoned, length).cpu(), want_len)
+            assert LAUNCHES["collision_words"] == before + 1
+            for bw in (1, 4, 16, 64):
+                assert torch.equal(launch_scan(qb, planes, None, bw).cpu(), want)
+                assert torch.equal(launch_scan(qb, poisoned, length, bw).cpu(),
+                                   want_len)
+
+
 def _lsh_case(cuda, rng, int8, K, L, S=2048):
     q = _bf16(rng, 2, 32, 64, device=cuda)
     k = _bf16(rng, 2, 8, S, 64, device=cuda)
@@ -754,3 +805,58 @@ def test_cuda_lsh_fused_overflow_and_poison(cuda, int8):
                                    length, K, L, "exact", split=split)
         assert torch.equal(sc, pc)
         _assert_within(so, po, rms_share=0.015)
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_cuda_lsh_fused_lengths(cuda, int8):
+    """G = 8, K = 16, L = 40 over a 2048-token capacity at lengths 0, 1, 31,
+    33, 1017 (inside the tail word of the second 512-token split) and 2048,
+    keys planted near each head's query around every length so that the
+    sample is not empty; the plane bits past each length poisoned (the
+    scan's tile that holds a length reads only its valid words). Counts
+    exact and outputs within the limits against the plain version on the
+    clean planes, at the default split and at 32 (one-word tiles) and 1024
+    tokens."""
+    rng = np.random.default_rng(27)
+    hkv, g, S, K, L = 2, 8, 2048, 16, 40
+    lens = [0, 1, 31, 33, 1017, 2048]
+    B = len(lens)
+    q = _bf16(rng, B, g * hkv, 64, device=cuda)
+    kc = rng.standard_normal((B, hkv, S, 64)).astype(np.float32)
+    qg = q.float().cpu().numpy().reshape(B, hkv, g, 64)
+    for t in [*range(0, 40), *range(990, 1030), *range(2000, 2048)]:
+        kc[:, :, t] = qg[:, :, t % g] + 0.2 * kc[:, :, t]
+    k = torch.from_numpy(kc).to(cuda, torch.bfloat16)
+    v = _bf16(rng, B, hkv, S, 64, device=cuda)
+    ks = vs = None
+    kd = k.float()
+    if int8:
+        k, ks = quantize_rows(k)
+        v, vs = quantize_rows(v)
+        kd = dequantize_rows(k, ks, torch.float32)
+    proj = torch.from_numpy(rng.standard_normal((64, K * L)).astype(np.float32)).to(cuda)
+    planes = torch.stack([tbits.build_planes(kd[i].transpose(0, 1), proj, K)
+                          for i in range(B)])
+    qb = tbits.hash_bits(q, proj, K)
+    length = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    poisoned = _poison_past_length(planes, qb, length)
+    kn = kd.norm(dim=-1)
+    args = (q, k, v, kn, poisoned, qb, length, K, L, ks, vs)
+    name = "lsh_fused_decode" + ("_int8" if int8 else "")
+    before = dict(LAUNCHES)
+    o, l, c = lsh_fused_decode(*args)
+    assert LAUNCHES[name] == before[name] + 1
+    assert sum(LAUNCHES.values()) == sum(before.values()) + 1
+    po, pl, pc = lsh_fused_decode_plain(q, k, v, kn, planes, qb, length, K, L,
+                                        ks, vs)
+    assert torch.equal(c, pc)
+    assert (pc[0] == 0).all() and (pc[4:] > 0).any(dim=-1).all()
+    _assert_within(o, po, rms_share=0.015)
+    _assert_within(l, pl, atol=1e-4, rtol=1e-5)
+    for split in (32, 1024):
+        so, sl, sc = launch_attend(name, "mp_lsh_fused_decode", q, k, v, ks, vs,
+                                   kn, (poisoned, qb), length, K, L, "exact",
+                                   split=split)
+        assert torch.equal(sc, pc)
+        _assert_within(so, po, rms_share=0.015)
+        _assert_within(sl, pl, atol=1e-4, rtol=1e-5)

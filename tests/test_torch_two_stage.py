@@ -27,6 +27,7 @@ tests run them on the CPU. Tolerances:
 """
 
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -38,6 +39,7 @@ from magicpig_tpu.config import LSHConfig as JLSHConfig
 from magicpig_tpu.config import preset as jpreset
 from magicpig_tpu.models import llama as jllama
 from magicpig_tpu.ops import attention as jatt
+from magicpig_tpu.ops import bitcodes as jbits
 from magicpig_tpu.ops.pallas.collide import collision_words_pallas as j_collide
 from magicpig_tpu.ops.pallas.lsh_decode import lsh_masked_attention as j_masked
 from magicpig_tpu.ops.pallas.mask import collision_words_pallas as j_mask_scan
@@ -98,29 +100,76 @@ def _fold_major(scale, d):
 # -- the collision scan (B5, B6) ------------------------------------------------
 
 
-@pytest.mark.parametrize("B,HKV,G,L,K,W", [
+SCAN_CASES = [
     (2, 2, 4, 20, 6, 16),      # even L
     (1, 2, 4, 21, 6, 16),      # odd L
     (1, 2, 4, 75, 8, 32),      # the odd-L serve's K and L
     (1, 1, 8, 1, 3, 8),        # one table: nothing collides twice
-])
-def test_collision_words_match_both_pallas_scans(B, HKV, G, L, K, W):
+]
+
+
+@functools.lru_cache(maxsize=None)
+def _scan_case(B, HKV, G, L, K, W):
+    """Random q bits and planes (any bit pattern), and the words of both
+    Pallas scans in interpret mode, computed once per shape."""
     rng = np.random.default_rng(L)
     q_bits = rng.integers(0, 2, (B, HKV * G, L, K)).astype(np.int32)
     planes = rng.integers(-2**31, 2**31 - 1, (B, HKV, L, K, W)).astype(np.int32)
-    before = dict(LAUNCHES)
-    got = _np(collision_words(_t(q_bits), _t(planes)))
-    assert LAUNCHES == before                  # the CPU takes the plain version
     jq, jp = jnp.asarray(q_bits), jnp.asarray(planes)
-    np.testing.assert_array_equal(
-        got, np.asarray(j_collide(jq, jp, word_block=8, interpret=True)))
-    np.testing.assert_array_equal(
-        got, np.asarray(j_mask_scan(jq, jp, K, L, block_words=8,
-                                    interpret=True)))
-    if L > 1:
+    return (q_bits, planes,
+            np.asarray(j_collide(jq, jp, word_block=8, interpret=True)),
+            np.asarray(j_mask_scan(jq, jp, K, L, block_words=8, interpret=True)))
+
+
+def _scan_lengths(length, B, W):
+    """Per-request lengths for a case: `length` ("mid" 16W + 5, "full" the
+    capacity 32W) for request 0, the rest of the capacity for request 1."""
+    n = {"mid": 16 * W + 5, "full": 32 * W}.get(length, length)
+    return np.array([n, 32 * W - n][:B], dtype=np.int32)
+
+
+@pytest.mark.parametrize("length", [None, 0, 1, 31, 32, 33, "mid", "full"])
+@pytest.mark.parametrize("B,HKV,G,L,K,W", SCAN_CASES)
+def test_collision_words_match_both_pallas_scans(B, HKV, G, L, K, W, length):
+    """The plain scan against both Pallas scans bit for bit; with a length,
+    against their words ANDed with JAX's `valid_words`, as the JAX callers
+    apply it right after the scan."""
+    q_bits, planes, j_words, j_words2 = _scan_case(B, HKV, G, L, K, W)
+    lens = None if length is None else _scan_lengths(length, B, W)
+    before = dict(LAUNCHES)
+    got = _np(collision_words(_t(q_bits), _t(planes),
+                              None if lens is None else _t(lens)))
+    assert LAUNCHES == before                  # the CPU takes the plain version
+    if lens is not None:
+        valid = np.asarray(jbits.valid_words(jnp.asarray(lens), W))[:, None]
+        j_words, j_words2 = j_words & valid, j_words2 & valid
+    np.testing.assert_array_equal(got, j_words)
+    np.testing.assert_array_equal(got, j_words2)
+    if L > 1 and length not in (0, 1):
         assert got.any()
-    else:
+    if L == 1:
         assert not got.any()
+
+
+@pytest.mark.parametrize("length", [0, 33, "mid"])
+@pytest.mark.parametrize("B,HKV,G,L,K,W", SCAN_CASES[:3])
+def test_collision_words_ignore_planes_past_the_length(B, HKV, G, L, K, W,
+                                                       length):
+    """Plane bits at or past each length (whole words and the tail of the
+    word that holds it) poisoned with the first query head of each group's
+    own bits, which would make that head collide with every key if read:
+    the words with the length do not change (both Pallas scans on the clean
+    planes, ANDed with JAX's `valid_words`)."""
+    q_bits, planes, j_words, _ = _scan_case(B, HKV, G, L, K, W)
+    lens = _scan_lengths(length, B, W)
+    keep = _np(tbits.valid_words(_t(lens), W))[:, None, None, None]
+    poisoned = (planes & keep) | (-q_bits[:, ::G, :, :, None] & ~keep)
+    seen = _np(collision_words(_t(q_bits), _t(poisoned)))
+    past = lens <= 32 * (W - 1)                # the last word is poisoned
+    assert past.any() and (seen[past][:, ::G, -1] == -1).all()
+    got = _np(collision_words(_t(q_bits), _t(poisoned), _t(lens)))
+    valid = np.asarray(jbits.valid_words(jnp.asarray(lens), W))[:, None]
+    np.testing.assert_array_equal(got, j_words & valid)
 
 
 # -- the masked attend from words (B4) --------------------------------------------
