@@ -7,11 +7,14 @@ Phases, each announced by one flushed progress line with elapsed seconds:
   0. device: a CUDA card or exit non-zero; its name and power limit;
   1. build: the kernels of `magicpig_tpu_torch/csrc/`, one nvcc per source
      started together, then one link; the counts of warpgroup MMA (HGMMA),
-     TMA (UTMALDG), bulk-copy (UBLKCP), mma.sync (HMMA) and cp.async
-     (LDGSTS) instructions in the prefill, decode, block scorer, rescore,
-     collision scan and both LSH kernels' SASS (mma.sync in the scorer and
-     the rescore, cp.async in the scorer and the LSH kernels, TMA in the
-     collision scan and the fused LSH kernel, or it fails);
+     TMA (UTMALDG), bulk-copy (UBLKCP), mma.sync (HMMA), cp.async (LDGSTS)
+     and integer-to-float (I2F) instructions in the prefill, decode, block
+     scorer, both block attends, int4 matmul, collision scan and both LSH
+     kernels' SASS (mma.sync in the scorer, the attends and the int4
+     matmul, bulk copies in the attends, cp.async in the scorer, the int4
+     matmul and the LSH kernels, TMA in the collision scan and the fused
+     LSH kernel, and no I2F in the int4 matmul, or it fails; the
+     disassembly runs beside phase 2 and is checked after it);
   2. kernels: each hand-written kernel against its plain PyTorch version at
      the shapes of the Llama-3.2-1B decode paths (Hq 32, Hkv 8, d 64;
      prefill 8192 and 12000 tokens, decode at the hot cache (B=2, capacity
@@ -24,8 +27,11 @@ Phases, each announced by one flushed progress line with elapsed seconds:
      rescore-attend and block-attend over 65536 tokens at B=2, lengths 65536
      and 40000, 512-token blocks, 11 selected, the scorer and rescore also
      over packed int4 K, where they must equal the int8 kernels on the
-     unpacked rows bit for bit; the int4 matmul at M=2 on the
-     1B's fused gate|up [2048, 16384] and its lm_head [2048, 128256]),
+     unpacked rows bit for bit, and both attends at chunks of 128, 256
+     and 512 tokens; the attends also at the block_topk serves' own shape (B=2,
+     3 of 32 blocks of a 16384-token offload, lengths 11932 and 6932); the
+     int4 matmul at M=2 on each product of the 1B's decode step with fused
+     weights (`W4_SHAPES`), each also at 1 to 16 K-splits),
      within `TOL` of it, with its time, its plain version's, a
      library call's where one computes the same function, and the least
      time the card could take; each tolerance must also reject the plain
@@ -91,6 +97,7 @@ import time
 T0 = time.perf_counter()
 H100_BYTES_PER_S = 3.35e12          # HBM3, H100 SXM data sheet
 H100_BF16_FLOPS = 989e12            # dense bf16 tensor-core peak
+ATTEND_CHUNKS = (128, 256, 512)    # the attends' chunks `chunk_plan` picks
 
 # Each kernel against its plain version on the card, as (atol, rtol,
 # rms_share): |kernel - plain| <= atol + rtol * |plain| + rms_share *
@@ -248,32 +255,48 @@ def bound_ms(nbytes: float, flops: float):
 # Kernels whose SASS phase 1 counts (one template instance each: G = 4 for
 # the block and LSH kernels; the LSH template's two kernels told apart by
 # its kWords flag in the mangled name), and the instructions counted:
-# warpgroup MMA, TMA tensor load, bulk copy, mma.sync and cp.async.
+# warpgroup MMA, TMA tensor load, bulk copy, mma.sync, cp.async and
+# integer-to-float conversion.
 SASS_KERNELS = {
     "flash_prefill_kernel": ("flash_prefill_kernel",),
     "flash_decode_kernel": ("flash_decode_kernel",),
     "block_score_kernel": ("block_score_kernel", "Li4E"),
     "rescore_attend_kernel": ("rescore_attend_kernel", "Li4E"),
+    "block_attend_kernel": ("block_attend_kernel", "Li4E"),
+    "w4_matmul_kernel": ("w4_matmul_kernel",),
     "lsh_masked (lsh_split_kernel, words)": ("lsh_split_kernel", "Li4E",
                                              "Lb1E"),
     "lsh_fused (lsh_split_kernel, scan)": ("lsh_split_kernel", "Li4E",
                                            "Lb0E"),
     "collision_words_kernel": ("collision_words_kernel", "Li4E"),
 }
-SASS_OPS = ("HGMMA", "UTMALDG", "UBLKCP", "HMMA", "LDGSTS")
+SASS_OPS = ("HGMMA", "UTMALDG", "UBLKCP", "HMMA", "LDGSTS", "I2F")
 
 
-def sass_counts(so) -> dict:
-    """Per kernel of `SASS_KERNELS` (its first instance whose mangled name
-    holds every listed part), the counts of `SASS_OPS` instructions in the
-    built library's SASS, from the toolkit's cuobjdump."""
+def start_sass_dump(so):
+    """The toolkit's cuobjdump of the built library's SASS, started in the
+    background (it takes ~20 s) into a file beside the library. Returns
+    (process, file)."""
     from pathlib import Path
 
     from magicpig_tpu_torch.ops.kernels import _lib
 
     tool = Path(_lib.nvcc_path()).parent / "cuobjdump"
-    sass = subprocess.run([str(tool), "--dump-sass", str(so)],
-                          capture_output=True, text=True, check=True).stdout
+    path = so.with_suffix(".sass")
+    with open(path, "w") as out:
+        proc = subprocess.Popen([str(tool), "--dump-sass", str(so)],
+                                stdout=out)
+    return proc, path
+
+
+def sass_counts(dump) -> dict:
+    """Per kernel of `SASS_KERNELS` (its first instance whose mangled name
+    holds every listed part), the counts of `SASS_OPS` instructions in the
+    SASS dump that `start_sass_dump` started."""
+    proc, path = dump
+    if proc.wait() != 0:
+        raise RuntimeError(f"cuobjdump failed with exit code {proc.returncode}")
+    sass = path.read_text()
     counts, name = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
@@ -291,12 +314,21 @@ def sass_counts(so) -> dict:
 
 
 def check_sass(counts) -> None:
-    """The redesigned block and LSH kernels use what they were designed
-    for: mma.sync in the scorer and the rescore, cp.async in the scorer and
-    both LSH kernels, TMA in both collision scans (the fused kernel's and
-    the standalone one)."""
+    """The redesigned kernels use what they were designed for: mma.sync in
+    the scorer, both attends of the selected blocks and the int4 matmul
+    (which converts no integer to float: its nibbles become bf16 by bit
+    operations), bulk copies in both attends, cp.async in the scorer, the
+    int4 matmul and both LSH kernels, TMA in both collision scans (the
+    fused kernel's and the standalone one)."""
+    if counts.get("w4_matmul_kernel", {}).get("I2F", 1) != 0:
+        raise AssertionError("w4_matmul_kernel: I2F in its SASS")
     for name, op in (("block_score_kernel", "HMMA"),
                      ("rescore_attend_kernel", "HMMA"),
+                     ("rescore_attend_kernel", "UBLKCP"),
+                     ("block_attend_kernel", "HMMA"),
+                     ("block_attend_kernel", "UBLKCP"),
+                     ("w4_matmul_kernel", "HMMA"),
+                     ("w4_matmul_kernel", "LDGSTS"),
                      ("block_score_kernel", "LDGSTS"),
                      ("lsh_masked (lsh_split_kernel, words)", "LDGSTS"),
                      ("lsh_fused (lsh_split_kernel, scan)", "LDGSTS"),
@@ -304,6 +336,40 @@ def check_sass(counts) -> None:
                      ("collision_words_kernel", "UTMALDG")):
         if counts.get(name, {}).get(op, 0) == 0:
             raise AssertionError(f"{name}: no {op} instruction in its SASS")
+
+
+def attend_chunk_sweep(name: str, call) -> dict:
+    """An attend of the selected blocks (`call(chunk)`: its launcher, None
+    for `chunk_plan`'s choice) timed at each chunk of ATTEND_CHUNKS, device
+    us, each chunk's output within `TOL` of the default's: the evidence for
+    `chunk_plan`."""
+    want, times = call(None)[0], {}
+    for chunk in ATTEND_CHUNKS:
+        check_close(f"{name} chunk {chunk}", call(chunk)[0], want,
+                    TOL["block_attend"])
+        times[chunk] = round(device_ms(lambda: call(chunk)) * 1e3, 2)
+    log(f"  {name} device us by chunk tokens: {times}")
+    return times
+
+
+def w4_split_sweep(name: str, x, w) -> dict:
+    """The int4 matmul timed at about 1 to 16 K-splits (at most 16 groups a
+    split) with the wrapper's columns a lane, device us: the evidence for
+    `w4_plan`."""
+    from magicpig_tpu_torch.ops.kernels.flash_decode import device_state
+    from magicpig_tpu_torch.ops.kernels.w4_matmul import (
+        MAX_GROUPS_PER_BLOCK, W4_GROUP, launch_w4, split_groups, w4_plan)
+
+    (m, kin), out = x.shape, w.scale.shape[1]
+    lane_cols = w4_plan(kin, out, m, device_state(x.device, 1)[1])[0]
+    groups, times = kin // W4_GROUP, {}
+    for want in (1, 2, 4, 8, 16):
+        ksplit, per = split_groups(groups, want)
+        if per <= MAX_GROUPS_PER_BLOCK and ksplit not in times:
+            times[ksplit] = round(device_ms(
+                lambda: launch_w4(x, w.q, w.scale, ksplit, per, lane_cols)) * 1e3, 2)
+    log(f"  {name} device us by K-splits ({lane_cols} columns a lane): {times}")
+    return times
 
 
 def lsh_split_sweep(torch, name: str, entry: str, args, selection) -> dict:
@@ -864,12 +930,21 @@ def lsh_debias_forms(torch, args, nbytes, rows, flops):
     return results
 
 
+# The int4 products of a decode step of the 1B with fused weights
+# (`bench.py`'s full_int8 mode with int4 weights), as (kernels-line name,
+# kin, out): q|k|v, o, gate|up, down, and the lm_head, whose numbers stay
+# in the line's `w4_matmul` entry.
+W4_SHAPES = (("w4_matmul_wqkv", 2048, 3072), ("w4_matmul_wo", 2048, 2048),
+             ("w4_matmul_gateup", 2048, 16384),
+             ("w4_matmul_wdown", 8192, 2048), ("w4_matmul", 2048, 128256))
+
+
 def phase_w4_kernel(torch, dev):
     """The packed-nibble int4 matmul against its plain version at M=2 (B=2
-    decode) on the 1B's fused gate|up and its lm_head, weights N(0, 1/kin)
-    quantized on the card. The kernels line keeps the lm_head's numbers;
-    the library yardstick is a bf16 torch.matmul over the dequantized
-    weight (no int4 PyTorch call takes this packing)."""
+    decode) on each product a decode step runs (`W4_SHAPES`), weights
+    N(0, 1/kin) quantized on the card, each with a zeroed weight group
+    rejected. The library yardstick is a bf16 torch.matmul over the
+    dequantized weight (no int4 PyTorch call takes this packing)."""
     from magicpig_tpu_torch.models.llama import quantize_weight4
     from magicpig_tpu_torch.ops.kernels import w4_matmul
     from magicpig_tpu_torch.ops.kernels.w4_matmul import (unpack_weight4,
@@ -878,35 +953,52 @@ def phase_w4_kernel(torch, dev):
     gen = torch.Generator(device=dev)
     gen.manual_seed(99)
     m, tol = 2, TOL["w4_matmul"]
-    result = None
-    for label, kin, out in (("gate|up", 2048, 16384), ("lm_head", 2048, 128256)):
+    results = {}
+    for name, kin, out in W4_SHAPES:
         x = torch.randn((m, kin), generator=gen, device=dev, dtype=torch.bfloat16)
         w = quantize_weight4(torch.randn((kin, out), generator=gen, device=dev,
                                          dtype=torch.bfloat16).mul_(kin ** -0.5))
         got = w4_matmul(x, w.q, w.scale)
         want = w4_matmul_plain(x, w.q, w.scale)
-        err, share = check_close(f"w4_matmul {label}", got, want, tol)
+        err, share = check_close(name, got, want, tol)
         faulty = w.q.clone()
         faulty[3 * 64:4 * 64, 5 * 256:6 * 256] = 0     # group 3 of tile 5
-        teeth = check_rejects(f"w4_matmul {label}", w4_matmul_plain(
-            x, faulty, w.scale), want, tol,
-            "a skipped 128-input group of one output tile")
+        teeth = check_rejects(name, w4_matmul_plain(x, faulty, w.scale), want,
+                              tol, "a skipped 128-input group of one output "
+                              "tile")
         del faulty
         wde = (unpack_weight4(w.q).float().reshape(kin // 128, 128, out)
                * w.scale[:, None, :]).reshape(kin, out).to(torch.bfloat16)
         nbytes = w.q.numel() + w.scale.numel() * 4 + x.numel() * 2 + m * out * 4
-        r = dict(max_abs_err=err, tol=tol,
-                 bound=bound_ms(nbytes, 2 * m * kin * out),
-                 **timings(lambda: w4_matmul(x, w.q, w.scale),
-                           lambda: w4_matmul_plain(x, w.q, w.scale),
-                           lambda: torch.matmul(x, wde)))
-        log(f"kernel w4_matmul {label} [{kin}, {out}] err {err:.2e}, worst "
-            f"element {share:.2f} of its limit (tol {tol}); a skipped group's "
-            f"worst element {teeth:.1f}x the limit")
-        log_timings({f"w4_matmul {label}": r})
+        results[name] = dict(
+            max_abs_err=err, tol=tol, bound=bound_ms(nbytes, 2 * m * kin * out),
+            **timings(lambda: w4_matmul(x, w.q, w.scale),
+                      lambda: w4_matmul_plain(x, w.q, w.scale),
+                      lambda: torch.matmul(x, wde)),
+            device_ms_cold=w4_cold_ms(torch, x, w, w4_matmul))
+        log(f"kernel {name} [{kin}, {out}] err {err:.2e}, worst element "
+            f"{share:.2f} of its limit (tol {tol}); a skipped group's worst "
+            f"element {teeth:.1f}x the limit; device us with the weight "
+            f"out of L2 {results[name]['device_ms_cold'] * 1e3:.2f}")
+        w4_split_sweep(name, x, w)
         del wde, w
-        result = r
-    return {"w4_matmul": result}
+    log_timings(results)
+    return results
+
+
+def w4_cold_ms(torch, x, w, w4_matmul) -> float:
+    """Device ms of the int4 matmul on a weight that is not in the 50 MB
+    L2, as each layer of a serve finds its own: the calls cycle through
+    copies of the weight, 96 MB or more in all."""
+    import itertools
+
+    copies = max(1, min(32, -(-(96 << 20) // w.q.numel())))
+    weights = [(w.q, w.scale)] + [(w.q.clone(), w.scale.clone())
+                                  for _ in range(copies - 1)]
+    turn = itertools.cycle(weights)
+    ms = device_ms(lambda: w4_matmul(x, *next(turn)))
+    del weights
+    return ms
 
 
 def log_timings(results) -> None:
@@ -927,10 +1019,12 @@ def phase_block_kernels(torch, dev):
     from magicpig_tpu_torch.ops.kernels import (block_attend, block_rank,
                                                 exact_scores_ranked,
                                                 rescore_attend)
-    from magicpig_tpu_torch.ops.kernels.block_attend import block_attend_plain
+    from magicpig_tpu_torch.ops.kernels.block_attend import (
+        block_attend_plain, launch_block_attend)
     from magicpig_tpu_torch.ops.kernels.block_score import (block_scores_plain,
                                                             scaled_query)
-    from magicpig_tpu_torch.ops.kernels.rescore_attend import rescore_attend_plain
+    from magicpig_tpu_torch.ops.kernels.rescore_attend import (
+        launch_rescore_attend, rescore_attend_plain)
     from magicpig_tpu_torch.ops.quant import quantize_rows
 
     gen = torch.Generator(device=dev)
@@ -1029,6 +1123,8 @@ def phase_block_kernels(torch, dev):
     log(f"kernel rescore_attend err {err:.2e}, worst element {share:.2f} of "
         f"its limit (tol {tol}); a skipped tile's worst element "
         f"{teeth:.1f}x the limit; {tokens} valid selected rows")
+    attend_chunk_sweep("rescore_attend", lambda c: launch_rescore_attend(
+        q, ids, kq, ks, vq, vs, length, bs, c))
 
     # -- block_attend: bf16 V, the stored scores of the bf16 scorer.
     ids = torch.topk(got_m, n_sel).indices.to(torch.int32)
@@ -1051,6 +1147,8 @@ def phase_block_kernels(torch, dev):
     log(f"kernel block_attend   err {err:.2e}, worst element {share:.2f} of "
         f"its limit (tol {tol}); a skipped tile's worst element "
         f"{teeth:.1f}x the limit; {tokens} valid selected rows")
+    attend_chunk_sweep("block_attend", lambda c: launch_block_attend(
+        got_s, ids, v, None, bs, c))
     del got_s, got_m
     results.update(packed_block_kernels(torch, q, k, vq, vs, length, bs,
                                         n_sel, same_top, selected_tokens))
@@ -1107,7 +1205,8 @@ def packed_block_kernels(torch, q, k, vq, vs, length, bs, n_sel, same_top,
                                                 rescore_attend)
     from magicpig_tpu_torch.ops.kernels.block_score import (block_scores_plain,
                                                             scaled_query)
-    from magicpig_tpu_torch.ops.kernels.rescore_attend import rescore_attend_plain
+    from magicpig_tpu_torch.ops.kernels.rescore_attend import (
+        launch_rescore_attend, rescore_attend_plain)
     from magicpig_tpu_torch.ops.pack4 import pack_k4
     from magicpig_tpu_torch.ops.quant import quantize_rows
 
@@ -1206,6 +1305,102 @@ def packed_block_kernels(torch, q, k, vq, vs, length, bs, n_sel, same_top,
         f"bit for bit; a skipped V tile's worst element {teeth:.1f}x and a "
         f"skipped K block's {teeth_k:.1f}x the limit; {tokens} valid "
         "selected rows")
+    attend_chunk_sweep("rescore_attend_int4", lambda c: launch_rescore_attend(
+        *args, c))
+    return results
+
+
+def serve_attend_kernels(torch, dev) -> dict:
+    """The rescore-attend (int8 K, packed int4 K) and the block-attend (bf16
+    V, stored scores) at the block_topk serves' own shape, rows "_serve":
+    B=2 over a 16384-token offload holding the phase-3 prompts' offload
+    lengths (11932 and 6932), 512-token blocks, the 3 of 32 that each
+    scorer ranks first (48 selected blocks of work against the phase-2
+    shape's 176). Each within `TOL` of its plain version, a skipped V tile
+    rejected."""
+    from magicpig_tpu_torch.ops.kernels import (block_attend, block_rank,
+                                                exact_scores_ranked,
+                                                rescore_attend)
+    from magicpig_tpu_torch.ops.kernels.block_attend import (
+        block_attend_plain, launch_block_attend)
+    from magicpig_tpu_torch.ops.kernels.rescore_attend import (
+        launch_rescore_attend, rescore_attend_plain)
+    from magicpig_tpu_torch.ops.pack4 import pack_k4
+    from magicpig_tpu_torch.ops.quant import quantize_rows
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2468)
+    b, hq, hkv, d, s, bs, n_sel = 2, 32, 8, 64, 16384, 512, 3
+    g = hq // hkv
+    length = torch.tensor([11932, 6932], dtype=torch.int32, device=dev)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev, dtype=torch.bfloat16)
+
+    q, k, v = rnd(b, hq, d), rnd(b, hkv, s, d), rnd(b, hkv, s, d)
+    kq, ks = quantize_rows(k)
+    vq, vs = quantize_rows(v)
+    k4, ks4 = quantize_rows(k, bits=4)
+    kp = pack_k4(k4)
+    scores, bmax = exact_scores_ranked(q, k, None, length, bs)
+    tol, out_bytes = TOL["block_attend"], b * hq * (d + 1) * 4
+
+    def top(block_max):
+        return torch.topk(block_max, n_sel).indices.to(torch.int32)
+
+    def tokens_of(ids):
+        start = ids.long() * bs
+        return int((length.long()[:, None, None] - start).clamp(0, bs).sum())
+
+    ids8, ids4, ids16 = (top(block_rank(q, kq, ks, length, bs)),
+                         top(block_rank(q, kp, ks4, length, bs)), top(bmax))
+    cases = {
+        # name: (kernel of V, its launcher at a chunk, plain version of V,
+        # V, selected ids, bytes each valid selected token reads, scores
+        # stored)
+        "rescore_attend_serve": (
+            lambda vv: rescore_attend(q, ids8, kq, ks, vv, vs, length, bs),
+            lambda c: launch_rescore_attend(q, ids8, kq, ks, vq, vs, length,
+                                            bs, c),
+            lambda vv: rescore_attend_plain(q, ids8, kq, ks, vv, vs, length,
+                                            bs), vq, ids8, 2 * d + 8, False),
+        "rescore_attend_int4_serve": (
+            lambda vv: rescore_attend(q, ids4, kp, ks4, vv, vs, length, bs),
+            lambda c: launch_rescore_attend(q, ids4, kp, ks4, vq, vs, length,
+                                            bs, c),
+            lambda vv: rescore_attend_plain(q, ids4, kp, ks4, vv, vs, length,
+                                            bs), vq, ids4, d // 2 + d + 8, False),
+        "block_attend_serve": (
+            lambda vv: block_attend(scores, ids16, vv, None, bs),
+            lambda c: launch_block_attend(scores, ids16, v, None, bs, c),
+            lambda vv: block_attend_plain(scores, ids16, vv, None, bs), v,
+            ids16, 2 * d, True),
+    }
+    results = {}
+    for name, (kernel, launch, plain, vv, ids, per_token,
+               stored) in cases.items():
+        got, got_lse = kernel(vv)
+        want, want_lse = plain(vv)
+        err, share = check_close(name, got, want, tol)
+        err = max(err, check_close(name + " lse", got_lse, want_lse,
+                                   TOL["lse"])[0])
+        teeth = check_rejects(name, plain(drop_tile(
+            vv, 2, int(ids[0, 0, 0]) * bs))[0], want, tol)
+        tokens = tokens_of(ids)
+        # Rescore: the valid selected rows' K, V and scales; block-attend:
+        # every selected token's G stored scores and the valid rows' V.
+        nbytes = (tokens * per_token + ids.numel() * 4 + q.numel() * 2
+                  + out_bytes + (ids.numel() * bs * g * 4 if stored else 0))
+        flops = (2 if stored else 4) * d * g * tokens
+        results[name] = dict(
+            max_abs_err=err, tol=tol, bound=bound_ms(nbytes, flops),
+            **timings(lambda: kernel(vv), lambda: plain(vv)),
+            selected_tokens=tokens)
+        log(f"kernel {name} err {err:.2e}, worst element {share:.2f} of its "
+            f"limit (tol {tol}); a skipped tile's worst element {teeth:.1f}x "
+            f"the limit; {tokens} valid selected rows")
+        attend_chunk_sweep(name, launch)
+    log_timings(results)
     return results
 
 
@@ -1357,13 +1552,15 @@ def serve_counted(torch, dev, prompts, lsh, label: str, expect_fn,
     drawn (and quantized as `weight_quant` says, q/k/v and gate|up fused) on
     the card; the two first requests prefilled, 16 greedy steps (the first
     with each sparse layer's sampled fraction recorded), every kernel
-    launch counted and held to `expect_fn(llm)`, the sampled or realized
+    launch counted and held to `expect_fn(llm)` (the int4 matmul's by
+    weight shape too, under its "w4_shapes"), the sampled or realized
     fraction checked (`check_frac(fraction)` raises, or in (0, 1) for a
     sparse engine), finite logits, then a profiled decode pass."""
     import dataclasses
 
     from magicpig_tpu_torch.config import preset
-    from magicpig_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+    from magicpig_tpu_torch.ops.kernels import (LAUNCHES, W4_SHAPE_LAUNCHES,
+                                                reset_launches)
     from magicpig_tpu_torch.runtime.engine import LLM
 
     cfg = preset("llama-3.2-1b")
@@ -1402,14 +1599,17 @@ def serve_counted(torch, dev, prompts, lsh, label: str, expect_fn,
     tokens = decode(tokens, 15)
     torch.cuda.synchronize()
     decode_ms = (time.perf_counter() - t) * 1e3 / 16
-    launches = dict(LAUNCHES)
+    launches, w4_shapes = dict(LAUNCHES), dict(W4_SHAPE_LAUNCHES)
     expect = dict.fromkeys(launches, 0)
     expect.update(expect_fn(llm))
+    expect_w4 = expect.pop("w4_shapes", {})
     log(f"serve {label}: prefill 12000 + 7000 tokens {prefill_s:.2f} s, "
         f"decode B=2 {decode_ms:.2f} ms/step; avg sparsity "
-        f"{llm.avg_sparsity:.6f}; launches {launches}")
-    if launches != expect:
-        raise AssertionError(f"launches {launches} != path's {expect}")
+        f"{llm.avg_sparsity:.6f}; launches {launches}"
+        + (f", int4 matmul by weight shape {w4_shapes}" if w4_shapes else ""))
+    if launches != expect or w4_shapes != expect_w4:
+        raise AssertionError(f"launches {launches}, {w4_shapes} != path's "
+                             f"{expect}, {expect_w4}")
     if check_frac is not None:
         check_frac(llm.avg_sparsity)
     elif lsh.enabled and not 0 < llm.avg_sparsity < 1:
@@ -1420,7 +1620,7 @@ def serve_counted(torch, dev, prompts, lsh, label: str, expect_fn,
         raise AssertionError(f"non-finite logits in the {label} serve")
     return dict(prefill_s=prefill_s, decode_ms=decode_ms,
                 avg_sparsity=llm.avg_sparsity, launches=launches,
-                first_fracs=[float(f) for f in first_fracs])
+                w4_shapes=w4_shapes, first_fracs=[float(f) for f in first_fracs])
 
 
 def phase_serve_block(torch, dev, params, prompts):
@@ -1512,8 +1712,11 @@ def phase_serve_bench_modes(torch, dev, prompts):
         # w_down) and the lm_head; at prefill (M >= 512) the layers take the
         # dequantized weight and only each request's last-token lm_head
         # (M = 1) the kernel.
+        *layers, (_, kin, out) = W4_SHAPES          # the lm_head last
+        w4_shapes = {f"{k}x{o}": steps * n for _, k, o in layers}
+        w4_shapes[f"{kin}x{out}"] = steps + 2
         return dict(flash_prefill=2 * n, flash_decode_int8=steps * n,
-                    w4_matmul=steps * (4 * n + 1) + 2)
+                    w4_matmul=steps * (4 * n + 1) + 2, w4_shapes=w4_shapes)
 
     def block_topk4_expect(llm):
         n, steps = llm.config.num_hidden_layers, 16
@@ -1803,16 +2006,22 @@ def main() -> int:
     log(f"phase 1 build: {so.name} in {time.perf_counter() - t:.1f} s "
         f"(nvcc {_lib.last_build_seconds}); registers {regs}; "
         f"spills {spills or 'none'}")
-    sass = sass_counts(so)
+    dump = start_sass_dump(so)
+    try:
+        log("phase 2 kernels vs plain versions")
+        kern = phase_kernels(torch, F, dev)
+        kern.update(phase_block_kernels(torch, dev))
+        torch.cuda.empty_cache()
+        kern.update(serve_attend_kernels(torch, dev))
+        torch.cuda.empty_cache()
+        kern.update(phase_w4_kernel(torch, dev))
+        torch.cuda.empty_cache()
+        sass = sass_counts(dump)
+    finally:
+        dump[0].kill()
+        dump[0].wait()
     log(f"phase 1 SASS ({', '.join(SASS_OPS)} instructions): {sass}")
     check_sass(sass)
-
-    log("phase 2 kernels vs plain versions")
-    kern = phase_kernels(torch, F, dev)
-    kern.update(phase_block_kernels(torch, dev))
-    torch.cuda.empty_cache()
-    kern.update(phase_w4_kernel(torch, dev))
-    torch.cuda.empty_cache()
 
     log("phase 3 serve llama-3.2-1b")
     serve = phase_serve(torch, dev)
@@ -1902,12 +2111,33 @@ def main() -> int:
         sources["lsh_masked_attention" + form] = sources["lsh_masked_attention"]
     for name in ("block_rank", "exact_scores_ranked", "rescore_attend"):
         sources[name + "_int4"] = sources[name]
+    # The serve-shape rows and the other int4 products: their kernel's
+    # source. Rows of one kernel at two shapes share its count:
+    # `launches_of` names the count a row's `launches` is, and rows that
+    # name the same one must not be summed. The int4 products' rows each
+    # carry their own shape's share of the serve's count (the lm_head's in
+    # the `w4_matmul` row).
+    launches_of = {}
+    for shape, kernel in (("flash_prefill_12000", "flash_prefill"),
+                          ("flash_decode_hot", "flash_decode"),
+                          ("flash_decode_int8_hot", "flash_decode_int8"),
+                          ("collision_words_length", "collision_words")):
+        launches_of[shape] = kernel
+    for name in ("rescore_attend", "rescore_attend_int4", "block_attend"):
+        sources[name + "_serve"] = sources[name]
+        launches[name + "_serve"] = launches[name]
+        launches_of[name + "_serve"] = name
+    for name, kin, out in W4_SHAPES:
+        sources[name] = sources["w4_matmul"]
+        launches[name] = full_int8["w4_shapes"][f"{kin}x{out}"]
+        launches_of[name] = f"w4_matmul {kin}x{out}"
     kernels = []
     for name, r in kern.items():
         kernels.append({
             "name": name, "route": "cuda", "source": sources[name][0],
             "replaces": sources[name][1],
             "launches": launches[name],
+            "launches_of": launches_of.get(name, name),
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
             "bound_by": r["bound"][1], "library_ms": r["library_ms"],

@@ -1,7 +1,7 @@
 // Building blocks of the block_topk kernels (block_score.cu,
 // rescore_attend.cu, block_attend.cu): the score routine on tensor cores,
 // shared by the scorer and the rescore so that ranking and attend see
-// bit-identical numbers, and the softmax-and-attend over one selected block.
+// bit-identical numbers (the attend itself: chunk_attend.cuh).
 //
 // Layouts (token order, no fold): q [B, Hq, 64] bf16; K and V
 // [B, Hkv, S, 64] int8 or bf16, or K packed int4 [B, Hkv, S, 32] (Int4x2
@@ -15,8 +15,6 @@ namespace mp {
 
 constexpr int kBlkD = 64;              // head dim
 constexpr int kBlkThreads = 128;
-constexpr int kBlkTile = 64;           // V tokens per shared-memory tile
-constexpr int kMaxBlockScores = 8192;  // G * block_size floats per block
 
 // One byte of a packed int4 K row (ops/pack4.py): byte j of a token's 32
 // holds channel j in its low nibble and channel j + 32 in its high one.
@@ -165,112 +163,6 @@ __device__ __forceinline__ void mma_scores(const uint32_t (&wa)[8],
 
 __device__ __forceinline__ float score_of(float dot, float kscale) {
   return __fmul_rn(dot, kscale);
-}
-
-template <typename VT>
-struct VTile;
-template <>
-struct VTile<int8_t> {
-  static constexpr int kPad = kBlkD + 16;   // row stride in bytes
-  int8_t v[kBlkTile][kPad];
-};
-template <>
-struct VTile<__nv_bfloat16> {
-  static constexpr int kPad = kBlkD + 8;    // row stride in elements
-  __nv_bfloat16 v[kBlkTile][kPad];
-};
-
-template <int G, typename VT>
-struct __align__(16) BlockAttendSmem {
-  float ps[kMaxBlockScores];   // [G][block_size]: scores, then p (x V scale)
-  VTile<VT> vt;
-  float m[G];
-  float l[G];
-};
-
-__device__ __forceinline__ void write_empty_block(float* part_o,
-                                                  float* part_lse,
-                                                  size_t row0, int g_count,
-                                                  int tid) {
-  for (int i = tid; i < g_count * kBlkD; i += kBlkThreads)
-    part_o[row0 * kBlkD + i] = 0.f;
-  if (tid < g_count) part_lse[row0 + tid] = kNegInf;
-}
-
-// Softmax over the scores sm.ps[g][0..n) of one selected block (natural-log
-// units, -inf masked) and the weighted sum of its n V rows from v_blk
-// ([n, 64], scales vs_blk or null). Writes the normalised partial
-// part_o[row0 + g] and its lse part_lse[row0 + g]; a head with no finite
-// score writes (0, -inf). The V scale multiplies p, not V.
-template <int G, typename VT>
-__device__ __forceinline__ void attend_block(
-    BlockAttendSmem<G, VT>& sm, int bs, int n, const VT* __restrict__ v_blk,
-    const float* __restrict__ vs_blk, float* __restrict__ part_o,
-    float* __restrict__ part_lse, size_t row0, int tid) {
-  const int warp = tid >> 5, lane = tid & 31;
-  constexpr int kWarps = kBlkThreads / 32;
-  for (int g = warp; g < G; g += kWarps) {
-    float* s = sm.ps + g * bs;
-    float mx = kNegInf;
-    for (int i = lane; i < n; i += 32) mx = fmaxf(mx, s[i]);
-    mx = warp_max(mx);
-    const float mu = mx == kNegInf ? 0.f : mx;
-    float sum = 0.f;
-    for (int i = lane; i < n; i += 32) {
-      const float p = expf(s[i] - mu);
-      sum += p;
-      s[i] = vs_blk != nullptr ? p * vs_blk[i] : p;
-    }
-    sum = warp_sum(sum);
-    if (lane == 0) {
-      sm.m[g] = mx;
-      sm.l[g] = sum;
-    }
-  }
-  __syncthreads();
-
-  constexpr int kAcc = (G * kBlkD + kBlkThreads - 1) / kBlkThreads;
-  float acc[kAcc];
-#pragma unroll
-  for (int r = 0; r < kAcc; ++r) acc[r] = 0.f;
-  constexpr int kPerChunk = 16 / sizeof(VT);
-  for (int t0 = 0; t0 < n; t0 += kBlkTile) {
-    const int rows = min(kBlkTile, n - t0);
-    for (int c = tid; c < kBlkTile * (kBlkD / kPerChunk); c += kBlkThreads) {
-      const int row = c / (kBlkD / kPerChunk);
-      const int col = (c % (kBlkD / kPerChunk)) * kPerChunk;
-      uint4 x = make_uint4(0, 0, 0, 0);
-      if (row < rows)
-        x = __ldg(reinterpret_cast<const uint4*>(
-            v_blk + static_cast<size_t>(t0 + row) * kBlkD + col));
-      *reinterpret_cast<uint4*>(&sm.vt.v[row][col]) = x;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int r = 0; r < kAcc; ++r) {
-      const int idx = tid + r * kBlkThreads;
-      if (idx < G * kBlkD) {
-        const int g = idx / kBlkD, d = idx % kBlkD;
-        const float* p = sm.ps + g * bs + t0;
-        float a = acc[r];
-        for (int j = 0; j < rows; ++j)
-          a = fmaf(p[j], key_value(&sm.vt.v[j][0], d), a);
-        acc[r] = a;
-      }
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int r = 0; r < kAcc; ++r) {
-    const int idx = tid + r * kBlkThreads;
-    if (idx < G * kBlkD) {
-      const float l = sm.l[idx / kBlkD];
-      part_o[row0 * kBlkD + idx] = l > 0.f ? acc[r] / l : 0.f;
-    }
-  }
-  if (tid < G)
-    part_lse[row0 + tid] =
-        sm.l[tid] > 0.f ? sm.m[tid] + logf(sm.l[tid]) : kNegInf;
 }
 
 // Selected block `j` of (request b, kv head kh): its id, or -1 when the id

@@ -59,12 +59,20 @@ __device__ __forceinline__ void mma_bf16_16816(float (&d)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// Element e of a row of int8 or bf16 values, as f32.
-__device__ __forceinline__ float key_value(const int8_t* row, int e) {
-  return static_cast<float>(row[e]);
-}
-__device__ __forceinline__ float key_value(const __nv_bfloat16* row, int e) {
-  return __bfloat162float(row[e]);
+// The ticket of a launch's in-launch merge: once the block's writes are
+// done (after a __syncthreads), one thread adds one to *ticket at device
+// scope with acquire-release order; the block that takes the last of
+// `count` resets it to 0 for the next launch and returns true. The
+// release makes the block's writes visible to the last block, and the
+// acquire orders the last block's reads after the next __syncthreads
+// behind every block's writes.
+__device__ __forceinline__ bool take_ticket(int* ticket, int count) {
+  int old;
+  asm volatile("atom.acq_rel.gpu.global.add.s32 %0, [%1], 1;"
+               : "=r"(old) : "l"(ticket) : "memory");
+  const bool last = old == count - 1;
+  if (last) atomicExch(ticket, 0);
+  return last;
 }
 
 // Eight bf16 values (one 16-byte vector) dotted with eight f32 values.

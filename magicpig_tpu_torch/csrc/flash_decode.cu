@@ -1,6 +1,5 @@
 // Split-sequence flash decode with LSE export, its splits merged in the
-// same launch; and the LSE merge of per-split partials that the other
-// split kernels (lsh_common.cuh, rescore_attend.cu, block_attend.cu) launch.
+// same launch.
 //
 // Replaces magicpig_tpu/ops/pallas/decode.py::flash_decode (the pallas_call
 // at decode.py:184), bf16 K/V, or int8 K/V with per-token f32 scales (its
@@ -357,45 +356,7 @@ int launch_decode(const void* q, const void* k, const void* v,
   return static_cast<int>(cudaGetLastError());
 }
 
-// One block per (request, query head), one thread per output lane.
-__global__ void merge_kernel(const float* __restrict__ part_o,
-                             const float* __restrict__ part_lse,
-                             const float* __restrict__ part_cnt,
-                             float* __restrict__ out, float* __restrict__ lse,
-                             float* __restrict__ cnt, int nsplit, int rows) {
-  const int r = blockIdx.x;
-  const int d = threadIdx.x;
-  float mx = mp::kNegInf;
-  for (int s = 0; s < nsplit; ++s)
-    mx = fmaxf(mx, part_lse[static_cast<size_t>(s) * rows + r]);
-  float acc = 0.f, denom = 0.f, c = 0.f;
-  if (mx != mp::kNegInf) {
-    for (int s = 0; s < nsplit; ++s) {
-      const size_t i = static_cast<size_t>(s) * rows + r;
-      const float w = expf(part_lse[i] - mx);
-      denom += w;
-      acc += w * part_o[i * mp::kDecD + d];
-    }
-  }
-  if (part_cnt != nullptr && d == 0)
-    for (int s = 0; s < nsplit; ++s)
-      c += part_cnt[static_cast<size_t>(s) * rows + r];
-  out[static_cast<size_t>(r) * mp::kDecD + d] = denom > 0.f ? acc / denom : 0.f;
-  if (d == 0) {
-    lse[r] = denom > 0.f ? mx + logf(denom) : mp::kNegInf;
-    if (cnt != nullptr) cnt[r] = c;
-  }
-}
-
 }  // namespace
-
-int mp::launch_merge(const float* part_o, const float* part_lse,
-                     const float* part_cnt, float* out, float* lse,
-                     float* cnt, int nsplit, int rows, cudaStream_t stream) {
-  merge_kernel<<<rows, kDecD, 0, stream>>>(part_o, part_lse, part_cnt, out,
-                                           lse, cnt, nsplit, rows);
-  return static_cast<int>(cudaGetLastError());
-}
 
 // k_scale and v_scale null: bf16 K/V; both set: int8 K/V with those
 // per-token scales [B, Hkv, S]. `chunk`: tokens per split, a positive

@@ -10,182 +10,311 @@
 // [kin/128, out].
 //
 // Bound on the H100: at M = 2 (decode) reading the packed weight once, half
-// a byte per weight plus 4 bytes of scale per 128 weights, over 3.35 TB/s;
-// the arithmetic is 4 flops per weight byte per row of x. Design: the TPU
-// kernel walks (out block, kin block) with the kin axis innermost so that
-// one f32 accumulator block stays resident; on the card the out axis is cut
-// into 256-column tiles and the kin axis into splits of whole groups, one
-// block of 256 threads each, so that even a 2048-wide output fills the 132
-// SMs. A lane owns 8 adjacent output columns and loads them 8 bytes at a
-// time (a warp reads 256 contiguous bytes of a packed row); each of the 8
-// warps takes 8 of a group's 64 packed rows. The nibbles are sign-extended
-// by shifts in registers and never stored. x rows of the block's groups sit
-// in shared memory as f32 (read as broadcasts); each warp's group partial is
-// scaled by the group scale into its accumulators, the 8 warps are summed in
-// a fixed order through shared memory, and with more than one split a
-// second kernel sums the splits' partials in order (no atomics: the result
-// does not depend on the schedule). M > 4 runs in 4-row slices, one more
-// grid dimension.
+// a byte per weight plus 4 bytes of scale per 128 weights, over 3.35 TB/s.
+// A design with the products on CUDA cores (each nibble shifted, converted
+// by I2F and multiplied by M FMAs) spent its time on the conversion, which
+// the card issues at 16 a clock per SM against 128 FMAs; and every split-K
+// call launched a second kernel for the reduce. This design:
+//  - the products run on mma.sync m16n8k16 with the weight as A (output
+//    columns as its rows) and x as B (its rows as columns: a block takes
+//    8 rows of x), f32 sums per 128-input group, each group's sums scaled
+//    by the group scale into the accumulators, as the TPU kernel does;
+//  - a nibble pair becomes a bf16 pair without a conversion: one byte
+//    permute puts a byte's low nibble in the mantissa of one half and its
+//    high nibble (the word shifted by one) in the other, a LOP3 masks them,
+//    flips their sign bits and sets the exponent of 128, and one bf16x2 FMA
+//    takes them to the signed values (128 + u) - 136 and (128 + 8u) / 8 - 24,
+//    exact. So the k order of a product pairs input g*128 + j with
+//    g*128 + 64 + j; x comes into shared memory with the first stage and
+//    each lane pairs its inputs so;
+//  - each warp owns 8 * kLaneCols output columns (lane (r, t): columns
+//    kLaneCols * r onwards, its bytes of each packed row) and streams its
+//    packed rows, one group and its scales a stage, through its own ring of
+//    cp.async stages, so that loads overlap the products without block
+//    barriers. kLaneCols is 16 where the output's column tiles alone fill
+//    the card (the lm_head: half the blocks, twice the bytes a row each),
+//    else 8;
+//  - a block (4 warps) takes a split of whole groups; with more than one
+//    split each writes its partial, and the last block of the output tile
+//    to take a ticket (an acquire-release atomic, common.cuh; tickets
+//    shared with flash_decode) sums the splits' partials in split order
+//    and resets the ticket to 0: one launch a call, no float atomics, a
+//    result that does not depend on the schedule. (The splits of a tile
+//    as one thread block cluster, summed through distributed shared
+//    memory, ran slower on the card at the layers' shapes: PERF.md.)
+// M > 8 runs in 8-row slices, one more grid dimension.
 #include "common.cuh"
+#include "hopper_common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kColsPerLane = 8;
-constexpr int kCols = 32 * kColsPerLane;       // output columns per block
+constexpr int kWarps = 4;
+constexpr int kThreads = kWarps * 32;
 constexpr int kGroup = 128;                    // inputs per scale group
-constexpr int kRowsPerWarp = kGroup / 2 / kWarps;   // packed rows: 8
-constexpr int kMaxGroups = 16;                 // groups of x per block
-constexpr int kMTile = 4;                      // rows of x per block (max)
-constexpr int kSmemFloats = kMTile * kMaxGroups * kGroup;   // 32 KB
-static_assert(kSmemFloats >= kWarps * kMTile * kCols, "reduce buffer");
+constexpr int kGroupRows = kGroup / 2;         // packed rows a group
+constexpr int kMRows = 8;                      // rows of x a block
+constexpr int kMaxGroups = 16;                 // groups of a split
+constexpr int kMaxSplits = 16;                 // partials a reduce sums
+constexpr int kStages = 2;                     // a warp's ring
 
-// The signed nibble at bit `sh` (0, 4, ..., 28) of w, as a float.
-__device__ __forceinline__ float nibble(uint32_t w, int sh) {
-  return static_cast<float>(static_cast<int32_t>(w << (28 - sh)) >> 28);
+// Sizes for kLaneCols columns a lane (its bytes of a packed row).
+template <int kLaneCols>
+struct Tile {
+  static constexpr int kWarpCols = 8 * kLaneCols;   // output columns a warp
+  static constexpr int kCols = kWarps * kWarpCols;  // output columns a block
+  static constexpr int kMTiles = kLaneCols / 2;     // products a k-step
+  static constexpr int kWords = kLaneCols / 4;      // a lane's words a row
+  static constexpr int kStageBytes = kGroupRows * kWarpCols + kWarpCols * 4;
+  static constexpr int kRingBytes = kWarps * kStages * kStageBytes;
+};
+
+// A row of x in shared memory over ng groups, padded by 16 bytes so that
+// the 8 rows' reads of one instruction hit distinct banks.
+__host__ __device__ constexpr int x_row_bytes(int ng) { return ng * kGroup * 2 + 16; }
+
+// A block's shared memory: the rings, then m8 rows of x over gps groups.
+template <int kLaneCols>
+constexpr int smem_bytes(int gps, int m8) {
+  return Tile<kLaneCols>::kRingBytes + m8 * x_row_bytes(gps);
 }
 
-template <int MT>
+// One weight register: the nibbles of byte k of w (w1 = w >> 1) as the
+// bf16 pair (low nibble, high nibble), signed.
+template <int k>
+__device__ __forceinline__ uint32_t nibble_pair(uint32_t w, uint32_t w1) {
+  constexpr uint32_t sel = k | (k << 4) | ((4 + k) << 8) | ((4 + k) << 12);
+  const uint32_t p = (__byte_perm(w, w1, sel) & 0x0078000Fu) ^ 0x43404308u;
+  uint32_t v;
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;"
+      : "=r"(v) : "r"(p), "r"(0x3E003F80u), "r"(0xC1C0C308u));
+  return v;
+}
+
+// The products of a k-step from m-tile i on: m-tile i's weights (columns
+// kLaneCols * r + 2i (m = r) and + 2i + 1 (m = r + 8) of packed rows a and
+// b) times the x fragment.
+template <int kLaneCols, int i>
+__device__ __forceinline__ void mtiles(const uint32_t (&wa)[kLaneCols / 4],
+                                       const uint32_t (&wa1)[kLaneCols / 4],
+                                       const uint32_t (&wb)[kLaneCols / 4],
+                                       const uint32_t (&wb1)[kLaneCols / 4],
+                                       uint2 xb, float (&d)[kLaneCols / 2][4]) {
+  if constexpr (i < kLaneCols / 2) {
+    constexpr int w = i >> 1, k = 2 * (i & 1);
+    const uint32_t a[4] = {nibble_pair<k>(wa[w], wa1[w]),
+                           nibble_pair<k + 1>(wa[w], wa1[w]),
+                           nibble_pair<k>(wb[w], wb1[w]),
+                           nibble_pair<k + 1>(wb[w], wb1[w])};
+    mp::mma_bf16_16816(d[i], a, xb.x, xb.y);
+    mtiles<kLaneCols, i + 1>(wa, wa1, wb, wb1, xb, d);
+  }
+}
+
+// A lane's words of a packed row in shared memory.
+template <int kWords>
+__device__ __forceinline__ void load_words(const uint8_t* p, uint32_t (&w)[kWords]) {
+  if constexpr (kWords == 2) {
+    const uint2 v = *reinterpret_cast<const uint2*>(p);
+    w[0] = v.x;
+    w[1] = v.y;
+  } else {
+    const uint4 v = *reinterpret_cast<const uint4*>(p);
+    w[0] = v.x;
+    w[1] = v.y;
+    w[2] = v.z;
+    w[3] = v.w;
+  }
+}
+
+// Grid (tiles, splits, M slices). part: f32 [ksplit, M, out] (unused with
+// one split); tickets [tiles x M slices], 0 between calls; gps: groups a
+// split.
+template <int kLaneCols>
 __global__ void __launch_bounds__(kThreads)
 w4_matmul_kernel(const __nv_bfloat16* __restrict__ x,
                  const int8_t* __restrict__ q,
                  const float* __restrict__ scale, float* __restrict__ part,
-                 int m, int kin, int out, int groups_per_split) {
-  __shared__ __align__(16) float smem[kSmemFloats];
-  const int tile = blockIdx.x, split = blockIdx.y;
-  const int m0 = blockIdx.z * MT;
+                 float* __restrict__ y, int* __restrict__ tickets, int m,
+                 int kin, int out, int gps) {
+  using T = Tile<kLaneCols>;
+  constexpr int kWarpCols = T::kWarpCols, kCols = T::kCols;
+  constexpr int kMTiles = T::kMTiles, kWords = T::kWords;
+  constexpr int kStageBytes = T::kStageBytes;
+  extern __shared__ __align__(128) uint8_t smem[];
+  __shared__ int is_last;
+  const int tile = blockIdx.x, split = blockIdx.y, ksplit = gridDim.y;
+  const int m0 = blockIdx.z * kMRows, m8 = min(kMRows, m - m0);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int groups = kin / kGroup;
-  const int g0 = split * groups_per_split;
-  const int ng = min(groups, g0 + groups_per_split) - g0;
-  const int span = ng * kGroup;                // inputs of this block
+  const int r = lane >> 2, t = lane & 3;
+  const int g0 = split * gps;
+  const int ng = min(kin / kGroup, g0 + gps) - g0;
+  const int col0 = tile * kCols + warp * kWarpCols;   // this warp's columns
+  const bool active = col0 < out;
+  uint8_t* ring = smem + warp * kStages * kStageBytes;
+  uint8_t* xs = smem + T::kRingBytes;
+  const int xrow = x_row_bytes(ng);
 
-  // x[m0 .. m0+MT, g0*128 .. +span] as f32; rows past m are zeros.
-  for (int i = tid; i < MT * span; i += kThreads) {
-    const int r = i / span, c = i % span;
-    smem[i] = m0 + r < m
-                  ? __bfloat162float(x[static_cast<size_t>(m0 + r) * kin +
-                                       g0 * kGroup + c])
-                  : 0.f;
-  }
-  __syncthreads();
-
-  const int col = tile * kCols + lane * kColsPerLane;
-  float acc[MT][kColsPerLane];
+  // Group g0 + gi of this warp's columns: 64 rows of kWarpCols bytes and
+  // their scales, 16 bytes a copy, neighbouring lanes on neighbouring
+  // bytes.
+  auto fetch = [&](int gi) {
+    uint8_t* st = ring + (gi % kStages) * kStageBytes;
+    const int8_t* src = q + static_cast<size_t>(g0 + gi) * kGroupRows * out + col0;
 #pragma unroll
-  for (int r = 0; r < MT; ++r)
-#pragma unroll
-    for (int c = 0; c < kColsPerLane; ++c) acc[r][c] = 0.f;
-
-  if (col < out) {
-    for (int gi = 0; gi < ng; ++gi) {
-      const int g = g0 + gi;
-      const int8_t* qrow =
-          q + static_cast<size_t>(g * (kGroup / 2) + warp * kRowsPerWarp) * out + col;
-      uint2 w[kRowsPerWarp];
-#pragma unroll
-      for (int r = 0; r < kRowsPerWarp; ++r)
-        w[r] = __ldg(reinterpret_cast<const uint2*>(qrow + static_cast<size_t>(r) * out));
-      float p[MT][kColsPerLane];
-#pragma unroll
-      for (int r = 0; r < MT; ++r)
-#pragma unroll
-        for (int c = 0; c < kColsPerLane; ++c) p[r][c] = 0.f;
-#pragma unroll
-      for (int r = 0; r < kRowsPerWarp; ++r) {
-        const int j = gi * kGroup + warp * kRowsPerWarp + r;
-        float xl[MT], xh[MT];
-#pragma unroll
-        for (int mm = 0; mm < MT; ++mm) {
-          xl[mm] = smem[mm * span + j];            // input g*128 + j
-          xh[mm] = smem[mm * span + j + kGroup / 2];   // input g*128 + 64 + j
-        }
-#pragma unroll
-        for (int c = 0; c < kColsPerLane; ++c) {
-          const uint32_t word = c < 4 ? w[r].x : w[r].y;
-          const int sh = (c & 3) * 8;
-          const float lo = nibble(word, sh), hi = nibble(word, sh + 4);
-#pragma unroll
-          for (int mm = 0; mm < MT; ++mm)
-            p[mm][c] = fmaf(xh[mm], hi, fmaf(xl[mm], lo, p[mm][c]));
-        }
-      }
-      const float4 s0 = __ldg(reinterpret_cast<const float4*>(
-          scale + static_cast<size_t>(g) * out + col));
-      const float4 s1 = __ldg(reinterpret_cast<const float4*>(
-          scale + static_cast<size_t>(g) * out + col + 4));
-      const float s[kColsPerLane] = {s0.x, s0.y, s0.z, s0.w,
-                                     s1.x, s1.y, s1.z, s1.w};
-#pragma unroll
-      for (int mm = 0; mm < MT; ++mm)
-#pragma unroll
-        for (int c = 0; c < kColsPerLane; ++c)
-          acc[mm][c] = fmaf(p[mm][c], s[c], acc[mm][c]);
+    for (int j = 0; j < kGroupRows * kWarpCols / 16 / 32; ++j) {
+      const int u = lane + 32 * j;
+      hp::cp_async_16(st + 16 * u, src + static_cast<size_t>(u / (kWarpCols / 16)) * out +
+                                       16 * (u % (kWarpCols / 16)));
     }
+    if (lane < kWarpCols / 4)
+      hp::cp_async_16(st + kGroupRows * kWarpCols + 16 * lane,
+                      scale + static_cast<size_t>(g0 + gi) * out + col0 + 4 * lane);
+  };
+  // x rows m0 .. m0 + m8 over this split's inputs, raw, in the first
+  // stage's copies: one round trip before the products start.
+  for (int n = 0; n < m8; ++n)
+    for (int u = tid; u < ng * (kGroup / 8); u += kThreads)
+      hp::cp_async_16(xs + n * xrow + 16 * u,
+                      x + static_cast<size_t>(m0 + n) * kin + g0 * kGroup + 8 * u);
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (active && s < ng) fetch(s);
+    hp::cp_async_commit();
   }
-  __syncthreads();                             // x no longer read
 
-  // Sum the 8 warps in order: red[warp][row][column of the tile].
+  float acc[kMTiles][4] = {};
+  for (int gi = 0; gi < ng; ++gi) {
+    if (active && gi + kStages - 1 < ng) fetch(gi + kStages - 1);
+    hp::cp_async_commit();
+    hp::cp_async_wait<kStages - 1>();
+    if (gi == 0)
+      __syncthreads();                       // x, from every thread's copies
+    else
+      __syncwarp();
+    if (!active) continue;
+    const uint8_t* st = ring + (gi % kStages) * kStageBytes;
+    float d[kMTiles][4] = {};
 #pragma unroll
-  for (int mm = 0; mm < MT; ++mm)
+    for (int s = 0; s < 8; ++s) {
+      // Packed rows 8s + t and 8s + 4 + t: k positions 2t, 2t + 1 and
+      // 2t + 8, 2t + 9 of the product.
+      uint32_t wa[kWords], wb[kWords], wa1[kWords], wb1[kWords];
+      load_words(st + (8 * s + t) * kWarpCols + kLaneCols * r, wa);
+      load_words(st + (8 * s + 4 + t) * kWarpCols + kLaneCols * r, wb);
 #pragma unroll
-    for (int c = 0; c < kColsPerLane; ++c)
-      smem[(warp * MT + mm) * kCols + lane * kColsPerLane + c] = acc[mm][c];
+      for (int w = 0; w < kWords; ++w) {
+        wa1[w] = wa[w] >> 1;
+        wb1[w] = wb[w] >> 1;
+      }
+      // x row r's inputs j, j + 64 and j + 4, j + 68 (j = 8s + t) as bf16
+      // pairs: the k order of the weight's registers.
+      uint2 xb = make_uint2(0u, 0u);
+      if (r < m8) {
+        const uint8_t* xr = xs + r * xrow + 2 * (gi * kGroup + 8 * s + t);
+        const auto h = [xr](int i) {
+          return static_cast<uint32_t>(*reinterpret_cast<const uint16_t*>(xr + 2 * i));
+        };
+        xb = make_uint2(__byte_perm(h(0), h(64), 0x5410),
+                        __byte_perm(h(4), h(68), 0x5410));
+      }
+      mtiles<kLaneCols, 0>(wa, wa1, wb, wb1, xb, d);
+    }
+    // The group's sums times its scales: d[i][0], d[i][1] at column
+    // kLaneCols * r + 2i, d[i][2], d[i][3] at kLaneCols * r + 2i + 1.
+    float sc[kLaneCols];
+#pragma unroll
+    for (int c = 0; c < kLaneCols; c += 4)
+      *reinterpret_cast<float4*>(sc + c) = *reinterpret_cast<const float4*>(
+          st + kGroupRows * kWarpCols + 4 * (kLaneCols * r + c));
+#pragma unroll
+    for (int i = 0; i < kMTiles; ++i) {
+      const float s0 = sc[2 * i], s1 = sc[2 * i + 1];
+      acc[i][0] = fmaf(d[i][0], s0, acc[i][0]);
+      acc[i][1] = fmaf(d[i][1], s0, acc[i][1]);
+      acc[i][2] = fmaf(d[i][2], s1, acc[i][2]);
+      acc[i][3] = fmaf(d[i][3], s1, acc[i][3]);
+    }
+    __syncwarp();
+  }
+
+  // Rows m0 + 2t (acc[i][0], acc[i][2]) and m0 + 2t + 1 (acc[i][1],
+  // acc[i][3]), columns col0 + kLaneCols * r onwards: to y, or with more
+  // than one split to this split's partial.
+  float* dst = ksplit == 1 ? y : part + static_cast<size_t>(split) * m * out;
+  if (active)
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+      if (2 * t + e < m8) {
+        float* o = dst + static_cast<size_t>(m0 + 2 * t + e) * out + col0 +
+                   kLaneCols * r;
+#pragma unroll
+        for (int c = 0; c < kLaneCols; c += 4)
+          *reinterpret_cast<float4*>(o + c) =
+              make_float4(acc[c / 2][e], acc[c / 2][e + 2], acc[c / 2 + 1][e],
+                          acc[c / 2 + 1][e + 2]);
+      }
+  if (ksplit == 1) return;
+
+  // The last split of this output tile to finish sums them all, in order.
   __syncthreads();
-  const int oc = tile * kCols + tid;
-#pragma unroll
-  for (int mm = 0; mm < MT; ++mm) {
-    float sum = 0.f;
-#pragma unroll
-    for (int wi = 0; wi < kWarps; ++wi) sum += smem[(wi * MT + mm) * kCols + tid];
-    if (oc < out && m0 + mm < m)
-      part[(static_cast<size_t>(split) * m + m0 + mm) * out + oc] = sum;
+  if (tid == 0) is_last = mp::take_ticket(tickets + blockIdx.z * gridDim.x + tile, ksplit);
+  __syncthreads();
+  if (!is_last) return;
+  const size_t plane = static_cast<size_t>(m) * out;
+  for (int i = tid; i < m8 * kCols / 4; i += kThreads) {
+    const int col = tile * kCols + 4 * (i % (kCols / 4));
+    if (col >= out) continue;
+    const size_t at = static_cast<size_t>(m0 + i / (kCols / 4)) * out + col;
+    float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 16
+    for (int s = 0; s < ksplit; ++s) {
+      const float4 v = __ldcg(reinterpret_cast<const float4*>(part + s * plane + at));
+      sum.x += v.x;
+      sum.y += v.y;
+      sum.z += v.z;
+      sum.w += v.w;
+    }
+    *reinterpret_cast<float4*>(y + at) = sum;
   }
 }
 
-// out[i] = sum over splits, in order, of part[split][i].
-__global__ void w4_reduce_kernel(const float* __restrict__ part,
-                                 float* __restrict__ out, int ksplit,
-                                 size_t n) {
-  const size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  float sum = 0.f;
-  for (int s = 0; s < ksplit; ++s) sum += part[static_cast<size_t>(s) * n + i];
-  out[i] = sum;
-}
-
-template <int MT>
+template <int kLaneCols>
 int launch_w4(const void* x, const void* q, const void* scale, void* part,
-              int m, int kin, int out, int ksplit, int gps,
-              cudaStream_t stream) {
-  dim3 grid((out + kCols - 1) / kCols, ksplit, (m + MT - 1) / MT);
-  w4_matmul_kernel<MT><<<grid, kThreads, 0, stream>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(q),
-      static_cast<const float*>(scale), static_cast<float*>(part), m, kin,
-      out, gps);
+              void* y, void* tickets, int m, int kin, int out, int ksplit,
+              int gps, cudaStream_t stream) {
+  static unsigned smem_set = 0;
+  const cudaError_t err =
+      hp::allow_smem(w4_matmul_kernel<kLaneCols>,
+                     smem_bytes<kLaneCols>(kMaxGroups, kMRows), smem_set);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 grid((out + Tile<kLaneCols>::kCols - 1) / Tile<kLaneCols>::kCols, ksplit,
+            (m + kMRows - 1) / kMRows);
+  w4_matmul_kernel<kLaneCols>
+      <<<grid, kThreads, smem_bytes<kLaneCols>(gps, min(kMRows, m)), stream>>>(
+          static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(q),
+          static_cast<const float*>(scale), static_cast<float*>(part),
+          static_cast<float*>(y), static_cast<int*>(tickets), m, kin, out, gps);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// part: f32 [ksplit, M, out] (the output itself when ksplit == 1); y: f32
-// [M, out]; split s takes the groups [s * gps, (s + 1) * gps) of kin / 128.
+// part: f32 [ksplit, M, out] (ignored when ksplit == 1); y: f32 [M, out];
+// tickets: int32, at least (column tiles) x (M / 8 rounded up), 0 between
+// calls; split s takes the groups [s * gps, (s + 1) * gps) of kin / 128;
+// lane_cols: 8 (256 columns a tile), or 16 (512).
 extern "C" int mp_w4_matmul(const void* x, const void* q, const void* scale,
-                            void* part, void* y, int m, int kin, int out,
-                            int ksplit, int gps, void* stream) {
+                            void* part, void* y, void* tickets, int m,
+                            int kin, int out, int ksplit, int gps,
+                            int lane_cols, void* stream) {
   const int groups = kin / kGroup;
-  if (m < 1 || kin % kGroup != 0 || out % kColsPerLane != 0 || gps < 1 ||
-      gps > kMaxGroups || ksplit < 1 || (ksplit - 1) * gps >= groups ||
-      ksplit * gps < groups || (ksplit == 1) != (part == y))
+  if (m < 1 || kin % kGroup != 0 || out % (8 * lane_cols) != 0 || gps < 1 ||
+      gps > kMaxGroups || ksplit < 1 || ksplit > kMaxSplits ||
+      (ksplit - 1) * gps >= groups || ksplit * gps < groups ||
+      (ksplit > 1 && tickets == nullptr) || (lane_cols != 8 && lane_cols != 16))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  int err = m == 1   ? launch_w4<1>(x, q, scale, part, m, kin, out, ksplit, gps, st)
-            : m == 2 ? launch_w4<2>(x, q, scale, part, m, kin, out, ksplit, gps, st)
-                     : launch_w4<kMTile>(x, q, scale, part, m, kin, out, ksplit, gps, st);
-  if (err != 0 || ksplit == 1) return err;
-  const size_t n = static_cast<size_t>(m) * out;
-  w4_reduce_kernel<<<static_cast<unsigned>((n + 255) / 256), 256, 0, st>>>(
-      static_cast<const float*>(part), static_cast<float*>(y), ksplit, n);
-  return static_cast<int>(cudaGetLastError());
+  return lane_cols == 8
+             ? launch_w4<8>(x, q, scale, part, y, tickets, m, kin, out, ksplit, gps, st)
+             : launch_w4<16>(x, q, scale, part, y, tickets, m, kin, out, ksplit, gps, st);
 }

@@ -4,7 +4,11 @@ Each wrapper launches its kernel for CUDA tensors (building the library on
 first use) and runs its plain PyTorch version for CPU tensors.
 """
 
-from magicpig_tpu_torch.ops.kernels._lib import LAUNCHES, reset_launches  # noqa: F401
+from magicpig_tpu_torch.ops.kernels._lib import (  # noqa: F401
+    LAUNCHES,
+    W4_SHAPE_LAUNCHES,
+    reset_launches,
+)
 from magicpig_tpu_torch.ops.kernels.flash_decode import flash_decode  # noqa: F401
 from magicpig_tpu_torch.ops.kernels.flash_prefill import flash_prefill  # noqa: F401
 from magicpig_tpu_torch.ops.kernels.collision_words import collision_words  # noqa: F401

@@ -10,6 +10,7 @@ at import.
 
 `LAUNCHES` counts, per wrapper, the calls that launched a kernel; a run can
 reset it and read it back to show that a path went through the kernels.
+`W4_SHAPE_LAUNCHES` splits the int4 matmul's count by weight shape.
 """
 
 from __future__ import annotations
@@ -59,6 +60,9 @@ LAUNCHES: dict[str, int] = {
     "block_attend": 0,
     "w4_matmul": 0,
 }
+# The int4 matmul's launches by weight shape ("{kin}x{out}"): each product
+# of a decode step's share of LAUNCHES["w4_matmul"].
+W4_SHAPE_LAUNCHES: dict[str, int] = {}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -71,9 +75,9 @@ _SIGNATURES = {
     "mp_lsh_masked_attention": [_P] * 15 + [_I] * 8 + [_F, _I, _P, _P],
     "mp_collision_words": [_P] * 4 + [_I] * 7 + [_P],
     "mp_block_score": [_P] * 6 + [_I] * 7 + [_F, _P],
-    "mp_rescore_attend": [_P] * 11 + [_I] * 8 + [_F, _P],
-    "mp_block_attend": [_P] * 8 + [_I] * 8 + [_P],
-    "mp_w4_matmul": [_P] * 5 + [_I] * 5 + [_P],
+    "mp_rescore_attend": [_P] * 12 + [_I] * 9 + [_F, _P],
+    "mp_block_attend": [_P] * 9 + [_I] * 9 + [_P],
+    "mp_w4_matmul": [_P] * 6 + [_I] * 6 + [_P],
 }
 
 _lib: ctypes.CDLL | None = None
@@ -202,3 +206,4 @@ def require_cuda(name: str, *tensors: torch.Tensor) -> None:
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    W4_SHAPE_LAUNCHES.clear()

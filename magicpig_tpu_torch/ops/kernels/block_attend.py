@@ -4,13 +4,15 @@ with its plain version `block_attend_plain`.
 
 Replaces the TPU kernel `magicpig_tpu/ops/pallas/block_attend.py::
 block_attend` (pallas_call at block_attend.py:224). On the H100 it is bound
-by reading the selected blocks' scores and V rows once; one block of the
-kernel attends one selected block of one (request, kv head), and the LSE
-merge of `csrc/flash_decode.cu` combines the partials.
+by reading the selected blocks' scores and V rows once. The kernel shares
+the rescore's attend (`csrc/chunk_attend.cuh`): one CUDA block a chunk of
+`chunk` tokens of one selected block of one (request, kv head), its rows
+brought by bulk copies, P.V on tensor cores, the chunks merged by LSE in
+the same launch; with the same chunk the two pipelines agree bit for bit.
 
 The V scale (int8 V) multiplies the probabilities, not V. The plain version
 rounds those products to bf16 before the sum over V when V is bf16 or int8,
-as the TPU kernel does; the CUDA kernel keeps them in f32.
+as the TPU kernel does, and so does the kernel (its P.V operand).
 """
 
 from __future__ import annotations
@@ -20,9 +22,12 @@ import torch
 from magicpig_tpu_torch.ops import attention
 from magicpig_tpu_torch.ops.baselines import gather_blocks
 from magicpig_tpu_torch.ops.kernels import _lib
+from magicpig_tpu_torch.ops.kernels.flash_decode import device_state
 
 HEAD_DIM = 64
-MAX_BLOCK_SCORES = 8192   # G * block_size (kMaxBlockScores in block_common.cuh)
+MIN_CHUNK = 128           # tokens a CUDA block of the attends at least ...
+MAX_CHUNK = 512           # ... and at most (kMaxChunk in chunk_attend.cuh)
+MERGE_BYTES = 32 * 1024   # the merge's batch of partials (kMergeBytes)
 
 
 def attend_selected_plain(scores: torch.Tensor, v: torch.Tensor,
@@ -74,19 +79,42 @@ def check_selection(name: str, blk_ids: torch.Tensor, v: torch.Tensor,
     _lib.require(hq % hkv == 0 and hq // hkv in (1, 2, 4, 8),
                  f"{name}: group size {hq}/{hkv} unsupported")
     _lib.require(block_size > 0 and block_size % 64 == 0 and s > 0
-                 and s % block_size == 0
-                 and (hq // hkv) * block_size <= MAX_BLOCK_SCORES,
+                 and s % block_size == 0,
                  f"{name}: block size {block_size} unsupported for S={s}")
     _lib.require(blk_ids.dtype == torch.int32 and blk_ids.dim() == 3
                  and blk_ids.shape[:2] == (b, hkv) and blk_ids.shape[2] > 0,
                  f"{name}: blk_ids must be int32 [B, Hkv, NB']")
 
 
-def merge_buffers(nsel: int, b: int, hq: int, device: torch.device):
-    """Per-selected-block partials and the merged output of an attend."""
+def chunk_plan(block_size: int, chunk: int | None, nsel: int,
+               g: int) -> tuple[int, int]:
+    """(tokens a CUDA block, chunks a selected block) of the attends: a
+    selected block cut into chunks of `chunk` tokens (a power of two from
+    64 to 512), the last one shorter where the block size is not a
+    multiple of it; a block smaller than the chunk is one chunk. By
+    default the smallest chunk from MIN_CHUNK up whose partials (nsel of
+    them a chunk of each block) the merge takes in one batch of its shared
+    memory, at G heads a kv head. `chip_smoke.py` phase 2 sweeps 64 to 512
+    at two shapes (`PERF.md`)."""
+    if chunk is None:
+        batch = MERGE_BYTES // (g * (HEAD_DIM + 1) * 4)
+        chunk = MIN_CHUNK
+        while chunk < MAX_CHUNK and nsel * -(-block_size // chunk) > batch:
+            chunk *= 2
+    _lib.require(64 <= chunk <= MAX_CHUNK and chunk & (chunk - 1) == 0,
+                 f"chunk {chunk} is not a power of two from 64 to {MAX_CHUNK}")
+    chunk = min(chunk, block_size)
+    return chunk, -(-block_size // chunk)
+
+
+def merge_buffers(nparts: int, b: int, hq: int, hkv: int,
+                  device: torch.device):
+    """Per-chunk partials, the merge tickets and the merged output of an
+    attend."""
     f32 = dict(dtype=torch.float32, device=device)
-    return (torch.empty((nsel, b * hq, HEAD_DIM), **f32),
-            torch.empty((nsel, b * hq), **f32),
+    return (torch.empty((nparts, b * hq, HEAD_DIM), **f32),
+            torch.empty((nparts, b * hq), **f32),
+            device_state(device, b * hkv)[0],
             torch.empty((b, hq, HEAD_DIM), **f32),
             torch.empty((b, hq), **f32))
 
@@ -102,6 +130,15 @@ def block_attend(scores: torch.Tensor, blk_ids: torch.Tensor, v: torch.Tensor,
     """
     if scores.device.type == "cpu":
         return block_attend_plain(scores, blk_ids, v, v_scale, block_size)
+    return launch_block_attend(scores, blk_ids, v, v_scale, block_size, None)
+
+
+def launch_block_attend(scores: torch.Tensor, blk_ids: torch.Tensor,
+                        v: torch.Tensor, v_scale: torch.Tensor | None,
+                        block_size: int, chunk: int | None):
+    """One launch of the kernel at `chunk` tokens a CUDA block (None:
+    `chunk_plan`'s choice), inputs checked: the wrapper's, and the card
+    tests' and `chip_smoke.py`'s at each chunk."""
     name = "block_attend"
     _lib.require(scores.device.type == "cuda",
                  f"{name}: unsupported device {scores.device}")
@@ -112,8 +149,11 @@ def block_attend(scores: torch.Tensor, blk_ids: torch.Tensor, v: torch.Tensor,
     _lib.require(scores.dtype == torch.float32, f"{name}: scores must be f32")
     check_selection(name, blk_ids, v, v_scale, hkv * g, block_size)
     nsel = blk_ids.shape[2]
-    part_o, part_lse, out, lse = merge_buffers(nsel, b, hkv * g, v.device)
+    chunk, nch = chunk_plan(block_size, chunk, nsel, g)
+    part_o, part_lse, tickets, out, lse = merge_buffers(
+        nsel * nch, b, hkv * g, hkv, v.device)
     _lib.launch(name, "mp_block_attend", v.device, scores, blk_ids, v,
-                v_scale, part_o, part_lse, out, lse, b, s, hkv * g, hkv,
-                v.shape[3], nsel, block_size, int(v.dtype == torch.int8))
+                v_scale, part_o, part_lse, tickets, out, lse, b, s, hkv * g,
+                hkv, v.shape[3], nsel, block_size, chunk,
+                int(v.dtype == torch.int8))
     return out, lse

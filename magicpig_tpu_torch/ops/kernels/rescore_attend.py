@@ -9,9 +9,9 @@ blocks again with the scorer's own per-token function, so the two agree
 bit for bit, and attends over them. K is bf16, int8, or packed int4
 (`ops/pack4.py`, counted apart as "rescore_attend_int4") with int8 V. On the
 H100 it is bound by reading the selected blocks' K and V rows and scales
-once; one block of the kernel
-takes one selected block of one (request, kv head), and the LSE merge of
-`csrc/flash_decode.cu` combines the partials.
+once; one CUDA block takes a chunk of `chunk` tokens of one selected block
+of one (request, kv head), and the chunks merge by LSE in the same launch
+(`csrc/chunk_attend.cuh`, shared with `block_attend`).
 """
 
 from __future__ import annotations
@@ -25,6 +25,7 @@ from magicpig_tpu_torch.ops.kernels import _lib
 from magicpig_tpu_torch.ops.kernels.block_attend import (
     attend_selected_plain,
     check_selection,
+    chunk_plan,
     merge_buffers,
 )
 from magicpig_tpu_torch.ops.kernels.block_score import (
@@ -59,13 +60,22 @@ def rescore_attend(q: torch.Tensor, blk_ids: torch.Tensor, k: torch.Tensor,
     q: [B, Hq, d] (raw; scaled as in `block_rank`); blk_ids: [B, Hkv, NB']
     int32; k, v: [B, Hkv, S, d] int8 with k_scale, v_scale [B, Hkv, S] f32,
     or k packed int4 [B, Hkv, S, d/2] with int8 v and both scales, or both
-    bf16 with no scales; length: [B] int32 valid tokens. Returns
-    (out [B, Hq, d] f32, lse [B, Hq] f32); a row whose selected tokens are
-    all past its length gives (0, -inf). CPU tensors take the plain version.
+    bf16 with no scales; length: [B] int32 valid tokens. Returns (out
+    [B, Hq, d] f32, lse [B, Hq] f32); a row whose selected tokens are all
+    past its length gives (0, -inf). CPU tensors take the plain version.
     """
     if q.device.type == "cpu":
         return rescore_attend_plain(q, blk_ids, k, k_scale, v, v_scale,
                                     length, block_size)
+    return launch_rescore_attend(q, blk_ids, k, k_scale, v, v_scale, length,
+                                 block_size, None)
+
+
+def launch_rescore_attend(q, blk_ids, k, k_scale, v, v_scale, length,
+                          block_size: int, chunk: int | None):
+    """One launch of the kernel at `chunk` tokens a CUDA block (None:
+    `chunk_plan`'s choice), inputs checked: the wrapper's, and the card
+    tests' and `chip_smoke.py`'s at each chunk."""
     name = "rescore_attend"
     _lib.require(q.device.type == "cuda", f"{name}: unsupported device {q.device}")
     b, hq, d = q.shape
@@ -80,10 +90,12 @@ def rescore_attend(q: torch.Tensor, blk_ids: torch.Tensor, k: torch.Tensor,
     check_selection(name, blk_ids, v, v_scale, hq, block_size)
     hkv, s = k.shape[1], k.shape[2]
     nsel = blk_ids.shape[2]
-    part_o, part_lse, out, lse = merge_buffers(nsel, b, hq, q.device)
+    chunk, nch = chunk_plan(block_size, chunk, nsel, hq // hkv)
+    part_o, part_lse, tickets, out, lse = merge_buffers(nsel * nch, b, hq,
+                                                        hkv, q.device)
     _lib.launch(name + ("_int4" if kind == KEY_INT4 else ""),
                 "mp_rescore_attend",
                 q.device, q, blk_ids, k, k_scale, v, v_scale, length, part_o,
-                part_lse, out, lse, b, s, hq, hkv, d, nsel, block_size, kind,
-                1.0 / math.sqrt(d))
+                part_lse, tickets, out, lse, b, s, hq, hkv, d, nsel,
+                block_size, chunk, kind, 1.0 / math.sqrt(d))
     return out, lse

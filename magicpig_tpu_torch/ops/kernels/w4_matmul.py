@@ -6,8 +6,9 @@ Replaces the TPU kernel `magicpig_tpu/ops/pallas/w4_matmul.py::w4_matmul`
 int4 weight, f32 [M, out] = sum_g (x_g @ unpack(q_g)) * s_g: bf16 values
 times exact nibbles, summed in float32, with no activation quantization.
 At M = 2 the product is bound by reading the packed weight once (half a
-byte per weight plus the group scales); the nibbles are unpacked in
-registers and never stored.
+byte per weight plus the group scales); the nibbles become bf16 in
+registers without a conversion instruction, the products run on tensor
+cores, and K-splits are summed in the same launch (see the source).
 
 The weight layout is the JAX package's (`models/llama.py::Quant4Weight`):
 int8 [kin/2, out], packed row g*64 + j holding input g*128 + j in the low
@@ -19,13 +20,16 @@ from __future__ import annotations
 import torch
 
 from magicpig_tpu_torch.ops.kernels import _lib
+from magicpig_tpu_torch.ops.kernels.flash_decode import device_state
 
 W4_GROUP = 128          # inputs per int4 scale group
 MAX_M = 64              # rows the kernel takes (decode size)
-M_TILE = 4              # rows per CUDA block (kMTile in w4_matmul.cu)
-COLS_PER_BLOCK = 256    # output columns per CUDA block (kCols)
-TARGET_BLOCKS = 264     # two waves of the H100's 132 SMs
-MAX_GROUPS_PER_BLOCK = 16   # x slice in shared memory: 16 * 128 * 4 rows f32
+M_TILE = 8              # rows of x per CUDA block (kMRows in w4_matmul.cu)
+COLS_PER_BLOCK = 256    # output columns per CUDA block at 8 columns a lane
+WIDE_COLS = 512         # ... at 16 columns a lane (kLaneCols)
+TARGET_BLOCKS = 264     # two blocks for each of the H100's 132 SMs
+MAX_GROUPS_PER_BLOCK = 16   # x slice in shared memory (kMaxGroups)
+MAX_SPLITS = 16         # K-splits the last block of a tile sums
 
 
 def unpack_weight4(p: torch.Tensor) -> torch.Tensor:
@@ -66,15 +70,52 @@ def w4_matmul_plain(x: torch.Tensor, q: torch.Tensor,
     return acc
 
 
+def split_groups(groups: int, ksplit: int) -> tuple[int, int]:
+    """(K-splits, groups per split) for about `ksplit` splits of whole
+    groups, none empty: the groups per split rounded up."""
+    per = -(-groups // max(1, min(ksplit, groups)))
+    return -(-groups // per), per
+
+
 def split_k(kin: int, out: int, m: int) -> tuple[int, int]:
-    """(K-splits, groups per split) over CUDA blocks: enough blocks for two
-    waves of the card where the groups allow, at most 16 groups of x in a
-    block's shared memory, no empty split."""
+    """(K-splits, groups per split) over CUDA blocks of 256 columns: enough
+    splits for two blocks per SM where the groups allow, at most
+    MAX_SPLITS (each a load of the reducing block) and at least the
+    16-group x slice of a block's shared memory needs."""
     groups = kin // W4_GROUP
     tiles = -(-out // COLS_PER_BLOCK) * -(-m // M_TILE)
-    want = max(-(-TARGET_BLOCKS // tiles), -(-groups // MAX_GROUPS_PER_BLOCK))
-    per = max(1, groups // want)
-    return -(-groups // per), per
+    floor = -(-groups // MAX_GROUPS_PER_BLOCK)
+    want = max(floor, min(MAX_SPLITS, -(-TARGET_BLOCKS // tiles)))
+    return split_groups(groups, want)
+
+
+def w4_plan(kin: int, out: int, m: int, num_sms: int) -> tuple[int, int, int]:
+    """(columns a lane, K-splits, groups per split): 16 columns a lane and
+    the fewest splits where the output's 512-column tiles alone fill the
+    card (the lm_head), else 8 and `split_k`. `chip_smoke.py` phase 2
+    sweeps the splits at each served shape (`PERF.md`)."""
+    groups = kin // W4_GROUP
+    if -(-out // WIDE_COLS) * -(-m // M_TILE) >= num_sms:
+        return (16, *split_groups(groups, -(-groups // MAX_GROUPS_PER_BLOCK)))
+    return (8, *split_k(kin, out, m))
+
+
+def launch_w4(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
+              ksplit: int, per: int, lane_cols: int = 8) -> torch.Tensor:
+    """One launch of the kernel with the given plan (checked inputs on a
+    card): the wrapper's, and `chip_smoke.py`'s sweep of the splits."""
+    m, kin = x.shape
+    out = scale.shape[1]
+    y = torch.empty((m, out), dtype=torch.float32, device=x.device)
+    part = (torch.empty((ksplit, m, out), dtype=torch.float32, device=x.device)
+            if ksplit > 1 else y)
+    tiles = -(-out // (32 * lane_cols)) * -(-m // M_TILE)
+    _lib.launch("w4_matmul", "mp_w4_matmul", x.device, x, q, scale, part, y,
+                device_state(x.device, tiles)[0], m, kin, out, ksplit, per,
+                lane_cols)
+    shape = f"{kin}x{out}"
+    _lib.W4_SHAPE_LAUNCHES[shape] = _lib.W4_SHAPE_LAUNCHES.get(shape, 0) + 1
+    return y
 
 
 def w4_matmul(x: torch.Tensor, q: torch.Tensor,
@@ -95,10 +136,6 @@ def w4_matmul(x: torch.Tensor, q: torch.Tensor,
     _lib.require(scale.dtype == torch.float32, f"{name}: scale must be f32")
     x = x.to(torch.bfloat16).contiguous()
     _lib.require_cuda(name, x, q, scale)
-    ksplit, per = split_k(kin, out, m)
-    y = torch.empty((m, out), dtype=torch.float32, device=x.device)
-    part = (torch.empty((ksplit, m, out), dtype=torch.float32, device=x.device)
-            if ksplit > 1 else y)
-    _lib.launch(name, "mp_w4_matmul", x.device, x, q, scale, part, y, m, kin,
-                out, ksplit, per)
-    return y
+    lane_cols, ksplit, per = w4_plan(kin, out, m,
+                                     device_state(x.device, 1)[1])
+    return launch_w4(x, q, scale, ksplit, per, lane_cols)

@@ -36,8 +36,14 @@ from magicpig_tpu_torch.ops.kernels import (
     rescore_attend,
     w4_matmul,
 )
+from magicpig_tpu_torch.ops.kernels.block_attend import (
+    chunk_plan,
+    launch_block_attend,
+)
 from magicpig_tpu_torch.ops.kernels.flash_decode import split_tokens
 from magicpig_tpu_torch.ops.kernels.lsh_fused import lsh_fused_decode_plain
+from magicpig_tpu_torch.ops.kernels.rescore_attend import launch_rescore_attend
+from magicpig_tpu_torch.ops.kernels.w4_matmul import split_groups, w4_plan
 
 F32 = 1e-4
 LSH_TOL = 3e-3
@@ -286,13 +292,97 @@ def test_decode_split_size(capacity, batch, hkv, sms, want):
         assert (chunk - 64) * sms < capacity * pairs
 
 
+@pytest.mark.parametrize("block_size,chunk,nsel,g,want", [
+    (512, None, 3, 4, (128, 4)),     # the serves: 12 partials, one batch
+    (512, None, 11, 4, (256, 2)),    # 44 at 128 tokens: over a batch of 31
+    (512, None, 11, 8, (512, 1)),    # a batch of 15
+    (512, None, 40, 4, (512, 1)),    # never past 512
+    (512, 64, 3, 4, (64, 8)),
+    (512, 512, 3, 4, (512, 1)),
+    (64, 256, 3, 4, (64, 1)),        # a block smaller than the chunk
+    (192, 128, 3, 4, (128, 2)),      # the last chunk shorter (64 tokens)
+    (1024, 256, 3, 4, (256, 4)),
+])
+def test_attend_chunk_plan(block_size, chunk, nsel, g, want):
+    """The attends' chunks cover each selected block: chunk x count >= the
+    block size, less than one chunk over it; by default the smallest
+    chunk from 128 whose partials fit one merge batch."""
+    got = chunk_plan(block_size, chunk, nsel, g)
+    assert got == want
+    c, n = got
+    assert (n - 1) * c < block_size <= n * c
+
+
+@pytest.mark.parametrize("chunk", [0, 32, 96, 1024])
+def test_attend_chunk_plan_refuses_other_chunks(chunk):
+    with pytest.raises(ValueError):
+        chunk_plan(512, chunk, 3, 4)
+
+
+@pytest.mark.parametrize("which", ["rescore_attend", "block_attend"])
+def test_attend_launchers_refuse_cpu_tensors(which):
+    """The launchers that take a chunk are the card's path only: the
+    wrappers send CPU tensors to the plain versions, the launchers refuse
+    them and count nothing."""
+    before = dict(LAUNCHES)
+    q = torch.zeros((1, 4, 64), dtype=torch.bfloat16)
+    k = torch.zeros((1, 2, 64, 64), dtype=torch.bfloat16)
+    ids = torch.zeros((1, 2, 1), dtype=torch.int32)
+    with pytest.raises(ValueError):
+        if which == "rescore_attend":
+            launch_rescore_attend(q, ids, k, None, k, None,
+                                  torch.ones((1,), dtype=torch.int32), 64, 64)
+        else:
+            launch_block_attend(torch.zeros((1, 2, 2, 64)), ids, k, None, 64,
+                                64)
+    assert LAUNCHES == before
+
+
+def test_reset_launches_clears_the_w4_shape_counts():
+    _lib.W4_SHAPE_LAUNCHES["2048x3072"] = 3
+    _lib.LAUNCHES["w4_matmul"] += 3
+    _lib.reset_launches()
+    assert _lib.W4_SHAPE_LAUNCHES == {} and set(LAUNCHES.values()) == {0}
+
+
+@pytest.mark.parametrize("groups,want,expect", [
+    (16, 16, (16, 1)), (16, 5, (4, 4)), (16, 1, (1, 16)), (64, 16, (16, 4)),
+    (64, 5, (5, 13)), (16, 32, (16, 1)), (7, 3, (3, 3)),
+])
+def test_w4_split_groups(groups, want, expect):
+    """At most `want` splits of whole groups, the groups per split rounded
+    up, none empty."""
+    ks, per = split_groups(groups, want)
+    assert (ks, per) == expect
+    assert ks <= max(1, min(want, groups))
+    assert (ks - 1) * per < groups <= ks * per
+
+
+@pytest.mark.parametrize("kin,out,m,want", [
+    (2048, 128256, 2, (16, 1, 16)),     # the lm_head: 251 wide tiles
+    (2048, 128256, 64, (16, 1, 16)),
+    (2048, 16384, 2, (8, 4, 4)),        # gate|up: 64 tiles of 256
+    (2048, 3072, 2, (8, 16, 1)),
+    (8192, 2048, 2, (8, 16, 4)),
+])
+def test_w4_plan(kin, out, m, want):
+    """16 columns a lane and the fewest splits where the 512-column tiles
+    alone fill 132 SMs, else 8 columns and `split_k`; never more than 16
+    splits or 16 groups a split."""
+    got = w4_plan(kin, out, m, 132)
+    assert got == want
+    lane_cols, ks, per = got
+    assert ks <= 16 and per <= 16 and (ks - 1) * per < kin // 128 <= ks * per
+
+
 def test_build_is_keyed_on_the_sources(tmp_path, monkeypatch):
     """The library name changes with any source byte, so a stale build is
     never loaded; every .cu and .cuh of csrc/ is covered."""
     names = {p.name for p in _lib.sources()}
     assert {"flash_prefill.cu", "flash_decode.cu", "lsh_fused.cu",
             "block_score.cu", "rescore_attend.cu", "block_attend.cu",
-            "block_common.cuh", "decode_common.cuh", "w4_matmul.cu"} <= names
+            "block_common.cuh", "chunk_attend.cuh", "decode_common.cuh",
+            "w4_matmul.cu"} <= names
     key = _lib.source_hash()
     for p in _lib.sources():
         (tmp_path / p.name).write_bytes(p.read_bytes())

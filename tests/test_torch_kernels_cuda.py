@@ -28,7 +28,9 @@ prefill, decode and block scorer edge cases poison the cache rows past each
 length with NaN and hold the kernels to the plain versions on the
 tail-zeroed cache, to the same limits; the LSH edge cases poison every row
 that no head samples (the attends gather only sampled rows). The rescore
-pipeline equals the store pipeline bit for bit (the scorer's routine).
+pipeline equals the store pipeline bit for bit (the scorer's routine and
+one attend), at every chunk; the int4 matmul runs one kernel a call,
+counted as the kernel nodes of a captured CUDA graph.
 """
 
 import numpy as np
@@ -53,7 +55,10 @@ from magicpig_tpu_torch.ops.kernels import (
     rescore_attend,
     w4_matmul,
 )
-from magicpig_tpu_torch.ops.kernels.block_attend import block_attend_plain
+from magicpig_tpu_torch.ops.kernels.block_attend import (
+    block_attend_plain,
+    launch_block_attend,
+)
 from magicpig_tpu_torch.ops.kernels.block_score import (
     block_scores_plain,
     exact_scores_plain,
@@ -66,7 +71,10 @@ from magicpig_tpu_torch.ops.kernels.lsh_masked import (
 from magicpig_tpu_torch.ops.kernels.lsh_masked import (
     launch_name as masked_launch_name,
 )
-from magicpig_tpu_torch.ops.kernels.rescore_attend import rescore_attend_plain
+from magicpig_tpu_torch.ops.kernels.rescore_attend import (
+    launch_rescore_attend,
+    rescore_attend_plain,
+)
 from magicpig_tpu_torch.ops.kernels.w4_matmul import w4_matmul_plain
 from magicpig_tpu_torch.ops.pack4 import pack_k4
 from magicpig_tpu_torch.ops.quant import dequantize_rows, quantize_rows
@@ -860,3 +868,132 @@ def test_cuda_lsh_fused_lengths(cuda, int8):
         assert torch.equal(sc, pc)
         _assert_within(so, po, rms_share=0.015)
         _assert_within(sl, pl, atol=1e-4, rtol=1e-5)
+
+
+def _poison_past(x, lens, dim=2):
+    """(x with the entries at or past each request's length along `dim`
+    NaN, x with them 0); int8 entries are left as they are (their scales
+    carry the poison)."""
+    zeroed, poisoned = x.clone(), x.clone()
+    for i, n in enumerate(lens):
+        zeroed[i].narrow(dim - 1, n, x.shape[dim] - n).zero_()
+        if x.is_floating_point():
+            poisoned[i].narrow(dim - 1, n, x.shape[dim] - n).fill_(float("nan"))
+    return poisoned, zeroed
+
+
+@pytest.mark.parametrize("g", [1, 2, 4, 8])
+@pytest.mark.parametrize("kind", ["bf16", "int8", "int4"])
+def test_cuda_attend_chunk_edges(cuda, kind, g):
+    """The rescore-attend and the block-attend at lengths around every
+    chunk and block edge (0 included) over a 2048-token capacity in
+    512-token blocks; each request selects all four blocks (those wholly
+    past its length too) in a random order, then an id of -1 and one past
+    the last block, which select nothing. K/V rows and scales past each
+    length hold NaN (scales only, for int8 and packed int4 rows), held to
+    the plain versions on the zeroed cache and the valid ids; at chunks of
+    64 to 512 tokens, the rescore equals the block-attend on the scorer's
+    stored scores bit for bit, packed int4 equals int8 on the unpacked rows
+    bit for bit, a call launches one kernel, and a second call equals the
+    first (the merge tickets were reset)."""
+    rng = np.random.default_rng(25)
+    hkv, cap, bs = 2, 2048, 512
+    lens = [0, 1, 63, 64, 65, 127, 128, 129, 511, 512, 513, 1337]
+    b = len(lens)
+    q = _bf16(rng, b, g * hkv, 64, device=cuda)
+    k = _bf16(rng, b, hkv, cap, 64, device=cuda)
+    v = _bf16(rng, b, hkv, cap, 64, device=cuda)
+    length = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    ks = vs = ks_z = vs_z = None
+    if kind != "bf16":
+        k, ks = quantize_rows(k, bits=4 if kind == "int4" else 8)
+        v, vs = quantize_rows(v)
+        ks, ks_z = _poison_past(ks, lens)
+        vs, vs_z = _poison_past(vs, lens)
+    k, k_z = _poison_past(k, lens)
+    v, v_z = _poison_past(v, lens)
+    pk = pack_k4 if kind == "int4" else (lambda x: x)
+    perm = np.stack([rng.permutation(4) for _ in range(b * hkv)]).reshape(b, hkv, 4)
+    extra = np.broadcast_to(np.array([-1, 4]), (b, hkv, 2))
+    ids = torch.from_numpy(np.concatenate([perm, extra], axis=-1).astype(np.int32)).to(cuda)
+    valid = ids[..., :4].contiguous()
+    want, want_l = rescore_attend_plain(q, valid, pk(k_z), ks_z, v_z, vs_z,
+                                        length, bs)
+    scores, _ = exact_scores_ranked(q, pk(k), ks, length, bs)
+    assert not torch.isnan(scores).any()
+    for chunk in (64, 128, 256, 512):
+        args = (q, ids, pk(k), ks, v, vs, length, bs)
+        o, l = launch_rescore_attend(*args, chunk)
+        assert torch.isfinite(o).all() and not torch.isnan(l).any()
+        _assert_within(o, want, rms_share=0.015)
+        _assert_within(l, want_l, atol=1e-4, rtol=1e-5)
+        assert torch.equal(torch.isneginf(l), torch.isneginf(want_l))
+        o2, l2 = launch_rescore_attend(*args, chunk)
+        assert torch.equal(o2, o) and torch.equal(l2, l)
+        bo, bl = launch_block_attend(scores, ids, v, vs, bs, chunk)
+        assert torch.equal(bo, o) and torch.equal(bl, l)
+        if kind == "int4":
+            io, il = launch_rescore_attend(q, ids, k, ks, v, vs, length, bs,
+                                           chunk)
+            assert torch.equal(io, o) and torch.equal(il, l)
+    assert _kernel_launches(lambda: rescore_attend(*args)) == 3
+    assert _kernel_launches(lambda: block_attend(scores, ids, v, vs, bs)) == 3
+
+
+# The int4 products of the 1B's decode step with fused weights (q|k|v, o,
+# gate|up, down, lm_head), as (kin, out).
+SERVED_W4 = [(2048, 3072), (2048, 2048), (2048, 16384), (8192, 2048),
+             (2048, 128256)]
+
+
+@pytest.mark.parametrize("kin,out", SERVED_W4)
+@pytest.mark.parametrize("M", [1, 2, 3, 7, 8, 9, 64])
+def test_cuda_w4_matmul_served_shapes(cuda, M, kin, out):
+    """Each served shape at M from 1 to 64 (one 8-row slice ragged, two,
+    eight): within `W4_TOL` of the plain version, and a second call equal
+    to the first bit for bit (the K-splits summed in a fixed order)."""
+    rng = np.random.default_rng(26)
+    x = _bf16(rng, M, kin, device=cuda)
+    w = tllama.quantize_weight4(_bf16(rng, kin, out, device=cuda) * kin ** -0.5)
+    y = w4_matmul(x, w.q, w.scale)
+    atol, rtol, rms_share = W4_TOL
+    _assert_within(y, w4_matmul_plain(x, w.q, w.scale), atol=atol, rtol=rtol,
+                   rms_share=rms_share)
+    assert torch.equal(w4_matmul(x, w.q, w.scale), y)
+
+
+def _graph_kernel_nodes(fn) -> int:
+    """Kernel nodes of a CUDA graph captured from one call of `fn` (read
+    through the driver API; the profiler drops kernels when it records
+    many)."""
+    import ctypes
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    torch.cuda.synchronize()
+    drv = ctypes.CDLL("libcuda.so.1")
+    handle = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    assert drv.cuGraphGetNodes(handle, None, ctypes.byref(n)) == 0
+    nodes = (ctypes.c_void_p * n.value)()
+    assert drv.cuGraphGetNodes(handle, nodes, ctypes.byref(n)) == 0
+    kernels = 0
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        assert drv.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)) == 0
+        kernels += kind.value == 0                 # CU_GRAPH_NODE_TYPE_KERNEL
+    return kernels
+
+
+@pytest.mark.parametrize("kin,out", SERVED_W4)
+def test_cuda_w4_matmul_one_kernel_a_call(cuda, kin, out):
+    """One kernel a call at each served shape and M of 1, 2, 9 and 64 (the
+    K-splits summed in the same launch): the kernel nodes of a CUDA graph
+    captured from the calls."""
+    rng = np.random.default_rng(27)
+    w = tllama.quantize_weight4(_bf16(rng, kin, out, device=cuda) * kin ** -0.5)
+    xs = [_bf16(rng, m, kin, device=cuda) for m in (1, 2, 9, 64)]
+    for x in xs:                           # first calls set kernel attributes
+        w4_matmul(x, w.q, w.scale)
+    assert _graph_kernel_nodes(lambda: [w4_matmul(x, w.q, w.scale)
+                                        for x in xs]) == len(xs)
