@@ -50,17 +50,26 @@ Phases, each announced by one flushed progress line with elapsed seconds:
      weights drawn on the card; two requests (12000 and 7000 tokens)
      prefilled into slots 0 and 1, 16 greedy decode steps, clear(), a third
      request (9000 tokens) and 8 more steps; every kernel launch of this
-     run is counted and must equal what the path implies. Then a profiled
-     pass: a warm prefill, 8 decode steps timed and 2 under torch.profiler
-     (wall, device busy time, idle share, launches, kernels by device
+     run is counted and must equal what the path implies. On the card an
+     engine's first decode step runs eagerly and every later one replays
+     its CUDA graph of the whole step, so the 16 steps are one eager step
+     and 15 replays; then clear(), the two first prompts again and the
+     same 16 input tokens through the eager step (`LLM._decode`): logits
+     equal bit for bit, greedy tokens, the mean sampled fraction and the
+     first step's fractions equal. Then a profiled pass: a warm prefill,
+     then the eager and the graphed step, each 8 decode steps timed and 2
+     under torch.profiler (wall, device busy time, idle share, launches,
+     for the graphed step the graph's kernel nodes, kernels by device
      time).
      Then the same weights under the block_topk estimator with int8
      offload (the rescore pipeline): the two first requests, 16 steps,
-     launches counted exactly, the realized fraction checked, and a
-     profiled decode pass. Then three quantized configurations of
+     launches counted exactly, the realized fraction checked, the graphed
+     run held to the eager step, and a profiled decode pass of each. Then
+     three quantized configurations of
      bench.py, each with its own random weights drawn and quantized on the
-     card, the two first requests, 16 steps, launches counted exactly and a
-     profiled decode pass: its "lsh" mode (W8A8 fused weights, LSH K=10,
+     card, the two first requests, 16 steps, launches counted exactly, the
+     graphed run held to the eager step and the profiled passes: its "lsh"
+     mode (W8A8 fused weights, LSH K=10,
      L=150 over int8 offload K/V), its "full_int8" mode with int4 weights
      (K=0, every layer dense over int8 K/V, int4 fused weights through the
      packed-nibble kernel at decode size) and its "block_topk4" mode (W8A8
@@ -1404,10 +1413,11 @@ def serve_attend_kernels(torch, dev) -> dict:
     return results
 
 
-def first_step_fractions(decode, tokens):
-    """One decode step with every sparse layer's sampled fraction recorded
-    (the engine's sparse decode wrapped for that step only). Returns (the
-    step's tokens, the fractions of sparse layers 1, 2, ... in order)."""
+def first_step_fractions(run):
+    """`run()`, one decode step, with every sparse layer's sampled fraction
+    recorded (the engine's sparse decode wrapped for that step only).
+    Returns (what `run` returned, the fractions of sparse layers 1, 2, ...
+    in order)."""
     from magicpig_tpu_torch.runtime import engine
 
     inner, fracs = engine.decode_sparse_layer, []
@@ -1419,10 +1429,82 @@ def first_step_fractions(decode, tokens):
 
     engine.decode_sparse_layer = recorded
     try:
-        tokens = decode(tokens, 1)
+        out = run()
     finally:
         engine.decode_sparse_layer = inner
-    return tokens, fracs
+    return out, fracs
+
+
+class Decoder:
+    """`decoder(tokens, n)`: n greedy steps of a B=2 engine from `tokens`,
+    returning the last step's argmax, through `llm.inference` (on the card
+    the first step of an engine runs eagerly, every later one replays its
+    CUDA graph) or, with `eager`, through the eager step `llm._decode`
+    (its fractions summed in `frac_sum` as the engine sums them). Every
+    step's logits are checked for shape and finiteness (`finite`); while
+    `record` is a list, each step's input tokens and logits go to it."""
+
+    def __init__(self, llm, eager: bool = False):
+        import torch
+        self.llm, self.eager, self.record = llm, eager, None
+        self.finite = torch.ones((), dtype=torch.bool, device=llm.device)
+        self.frac_sum = torch.zeros((), dtype=torch.float64,
+                                    device=llm.device)
+
+    def step(self, tokens):
+        import torch
+        if self.eager:
+            self.llm._guard_decode(1)
+            logits, frac = self.llm._decode(tokens)
+            self.frac_sum = self.frac_sum + frac
+        else:
+            logits = self.llm.inference(tokens)
+        if logits.shape != (2, self.llm.config.vocab_size):
+            raise AssertionError(f"logits shape {tuple(logits.shape)}")
+        self.finite = self.finite & torch.isfinite(logits).all()
+        if self.record is not None:
+            self.record.append((tokens, logits))
+        return logits
+
+    def __call__(self, tokens, n: int):
+        for _ in range(n):
+            tokens = self.step(tokens).argmax(dim=-1)
+        return tokens
+
+
+def check_graphed(torch, llm, prompts, graphed, label: str) -> None:
+    """The graphed run against the eager step. `graphed` holds the run's
+    `record` (each step's input tokens and logits: the first step eager,
+    the rest replays of the captured step), its `avg_sparsity` and the
+    first step's sampled fractions (`first_fracs`). clear(), the two
+    prompts prefilled again, and the same input tokens through
+    `llm._decode`: logits equal bit for bit (the same kernels in the same
+    order on the same inputs; every hand-written kernel is deterministic),
+    so greedy tokens too, and the mean sampled fraction and the first
+    step's fractions equal, or raise."""
+    llm.clear()
+    llm.prefill(prompts[0], request_id=0)
+    llm.prefill(prompts[1], request_id=1)
+    eager = Decoder(llm, eager=True)
+    record = graphed["record"]
+    first, fracs = first_step_fractions(lambda: eager.step(record[0][0]))
+    logits = [first] + [eager.step(tokens) for tokens, _ in record[1:]]
+    fracs = [float(f) for f in fracs]
+    avg = float(eager.frac_sum) / len(record) if llm.lsh.enabled else 0.0
+    diffs = [float((g.float() - e.float()).abs().max())
+             for (_, g), e in zip(record, logits)]
+    same = [torch.equal(g, e) for (_, g), e in zip(record, logits)]
+    tokens_same = all(torch.equal(g.argmax(-1), e.argmax(-1))
+                      for (_, g), e in zip(record, logits))
+    log(f"serve {label}: graphed vs eager over {len(record)} steps: logits "
+        f"equal bit for bit in {sum(same)} of {len(same)} steps (max |diff| "
+        f"{max(diffs):.3e}), greedy tokens equal {tokens_same}; avg sparsity "
+        f"{graphed['avg_sparsity']!r} / {avg!r}; first-step fractions equal "
+        f"{graphed['first_fracs'] == fracs}")
+    if not (all(same) and tokens_same and graphed["avg_sparsity"] == avg
+            and graphed["first_fracs"] == fracs and bool(eager.finite)):
+        raise AssertionError(f"serve {label}: the graphed step disagrees "
+                             "with the eager step")
 
 
 def phase_serve(torch, dev):
@@ -1440,17 +1522,7 @@ def phase_serve(torch, dev):
     gen.manual_seed(7)
     prompts = [torch.randint(1, cfg.vocab_size, (n,), generator=gen, device=dev)
                for n in (12000, 7000, 9000)]
-    finite = torch.ones((), dtype=torch.bool, device=dev)
-
-    def decode(tokens, n):
-        nonlocal finite
-        for _ in range(n):
-            logits = llm.inference(tokens)
-            if logits.shape != (2, cfg.vocab_size):
-                raise AssertionError(f"logits shape {tuple(logits.shape)}")
-            finite = finite & torch.isfinite(logits).all()
-            tokens = logits.argmax(dim=-1)
-        return tokens
+    decode = Decoder(llm)
 
     reset_launches()
     torch.cuda.synchronize()
@@ -1459,13 +1531,18 @@ def phase_serve(torch, dev):
     l1 = llm.prefill(prompts[1], request_id=1)
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t
-    finite = finite & torch.isfinite(l0).all() & torch.isfinite(l1).all()
+    finite = torch.isfinite(l0).all() & torch.isfinite(l1).all()
     first = torch.cat([l0.argmax(-1), l1.argmax(-1)])
+    snap = llm.sparsity_snapshot()
+    decode.record = []
     t = time.perf_counter()
-    tokens, first_fracs = first_step_fractions(decode, first)
+    tokens, first_fracs = first_step_fractions(lambda: decode(first, 1))
     decode(tokens, 15)
     torch.cuda.synchronize()
     decode_ms = (time.perf_counter() - t) * 1e3 / 16
+    graphed = dict(record=decode.record, avg_sparsity=llm.avg_sparsity_since(snap),
+                   first_fracs=[float(f) for f in first_fracs])
+    decode.record = None
     log(f"serve: prefill 12000 + 7000 tokens {prefill_s:.2f} s, "
         f"decode B=2 {decode_ms:.2f} ms/step")
     llm.clear()
@@ -1492,11 +1569,14 @@ def phase_serve(torch, dev):
         raise AssertionError(f"launches {launches} != path's {expect}")
     if not 0 < llm.avg_sparsity < 1:
         raise AssertionError(f"avg sparsity {llm.avg_sparsity} not in (0, 1)")
+    check_graphed(torch, llm, prompts[:2], graphed, "LSH")
+    del graphed
 
     # Where the time goes: the two first requests again, a warm prefill
-    # timed and then profiled, 4 warm-up decode steps, 8 steps timed and 2
-    # profiled. The idle share sets the profiled device time against the
-    # unprofiled wall time (the profiler's own cost is on the host).
+    # timed and then profiled, 4 warm-up decode steps, then the eager and
+    # the graphed step each 8 steps timed and 2 profiled. The idle share
+    # sets the profiled device time against the unprofiled wall time (the
+    # profiler's own cost is on the host).
     llm.clear()
     torch.cuda.synchronize()
     t = time.perf_counter()
@@ -1511,8 +1591,9 @@ def phase_serve(torch, dev):
         log(f"  {_device_us(e) / 1e3:9.2f} ms {e.count:5d} calls  {e.key[:70]}")
     l1 = llm.prefill(prompts[1], request_id=1)
     tokens = decode(torch.cat([l0.argmax(-1), l1.argmax(-1)]), 4)
-    profile_decode(torch, decode, tokens, "decode B=2, 12000 + 7000 tokens")
-    if not bool(finite):
+    profile_decode(torch, llm, decode, tokens,
+                   "decode B=2, 12000 + 7000 tokens")
+    if not bool(finite & decode.finite):
         raise AssertionError("non-finite logits in the serve phase")
     return dict(prefill_s=prefill_s, decode_ms=decode_ms,
                 prefill2_s=prefill2_s, decode2_ms=decode2_ms,
@@ -1525,24 +1606,34 @@ def phase_serve(torch, dev):
 PROFILED_STEPS = 2   # the profiler's processing costs seconds per step
 
 
-def profile_decode(torch, decode, tokens, label: str) -> None:
-    """8 decode steps timed, then 2 under torch.profiler: wall and device
-    busy time per step, the idle share (profiled device time against the
-    unprofiled wall time; the profiler's own cost is on the host),
-    launches per step and the kernels by device time."""
-    t = time.perf_counter()
-    tokens = decode(tokens, 8)
-    torch.cuda.synchronize()
-    wall = (time.perf_counter() - t) * 1e3 / 8
-    n_prof = PROFILED_STEPS
-    busy, n, kernels = profiled(lambda: decode(tokens, n_prof))
-    busy /= n_prof
-    log(f"profile: {label}: wall {wall:.2f} ms/step, device busy "
-        f"{busy:.3f} ms/step, idle share {max(0.0, 1 - busy / wall):.3f}, "
-        f"{n / n_prof:.0f} launches/step")
-    for e in kernels[:8]:
-        log(f"  {_device_us(e) / n_prof:9.1f} us/step {e.count / n_prof:5.1f} "
-            f"calls/step  {e.key[:70]}")
+def profile_decode(torch, llm, decode, tokens, label: str) -> None:
+    """The eager step (`llm._decode`), then the graphed step (`decode`,
+    through `llm.inference`), each 8 steps timed and 2 under
+    torch.profiler: wall and device busy time per step, the idle share
+    (profiled device time against the unprofiled wall time; the profiler's
+    own cost is on the host), launches per step (for the graphed step the
+    captured graph's kernel nodes, beside the kernels the profiler saw) and
+    the kernels by device time."""
+    from magicpig_tpu_torch.runtime.engine import graph_kernel_nodes
+
+    nodes = graph_kernel_nodes(llm._graph.graph)
+    for name, run in (("eager", Decoder(llm, eager=True)), ("graphed", decode)):
+        t = time.perf_counter()
+        tokens = run(tokens, 8)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3 / 8
+        n_prof = PROFILED_STEPS
+        busy, n, kernels = profiled(lambda: run(tokens, n_prof))
+        busy /= n_prof
+        launches = (f"{n / n_prof:.0f} launches/step" if name == "eager" else
+                    f"{nodes} graph kernel nodes/step ({n / n_prof:.0f} "
+                    "launches/step profiled)")
+        log(f"profile: {label} {name}: wall {wall:.2f} ms/step, device busy "
+            f"{busy:.3f} ms/step, idle share {max(0.0, 1 - busy / wall):.3f}, "
+            f"{launches}")
+        for e in kernels[:8]:
+            log(f"  {_device_us(e) / n_prof:9.1f} us/step "
+                f"{e.count / n_prof:5.1f} calls/step  {e.key[:70]}")
 
 
 def serve_counted(torch, dev, prompts, lsh, label: str, expect_fn,
@@ -1551,11 +1642,13 @@ def serve_counted(torch, dev, prompts, lsh, label: str, expect_fn,
     """A serve at Llama-3.2-1B width and depth: `params`, or random weights
     drawn (and quantized as `weight_quant` says, q/k/v and gate|up fused) on
     the card; the two first requests prefilled, 16 greedy steps (the first
-    with each sparse layer's sampled fraction recorded), every kernel
-    launch counted and held to `expect_fn(llm)` (the int4 matmul's by
-    weight shape too, under its "w4_shapes"), the sampled or realized
-    fraction checked (`check_frac(fraction)` raises, or in (0, 1) for a
-    sparse engine), finite logits, then a profiled decode pass."""
+    with each sparse layer's sampled fraction recorded; on the card the
+    first step runs eagerly and the other 15 replay the captured step),
+    every kernel launch counted and held to `expect_fn(llm)` (the int4
+    matmul's by weight shape too, under its "w4_shapes"), the sampled or
+    realized fraction checked (`check_frac(fraction)` raises, or in (0, 1)
+    for a sparse engine), finite logits; then the graphed run held to the
+    eager step (`check_graphed`), then a profiled decode pass of each."""
     import dataclasses
 
     from magicpig_tpu_torch.config import preset
@@ -1573,17 +1666,7 @@ def serve_counted(torch, dev, prompts, lsh, label: str, expect_fn,
     torch.cuda.synchronize()
     log(f"serve {label}: engine ({weight_quant} weights) in "
         f"{time.perf_counter() - t:.1f} s")
-    finite = torch.ones((), dtype=torch.bool, device=dev)
-
-    def decode(tokens, n):
-        nonlocal finite
-        for _ in range(n):
-            logits = llm.inference(tokens)
-            if logits.shape != (2, cfg.vocab_size):
-                raise AssertionError(f"logits shape {tuple(logits.shape)}")
-            finite = finite & torch.isfinite(logits).all()
-            tokens = logits.argmax(dim=-1)
-        return tokens
+    decode = Decoder(llm)
 
     reset_launches()
     torch.cuda.synchronize()
@@ -1592,13 +1675,17 @@ def serve_counted(torch, dev, prompts, lsh, label: str, expect_fn,
     l1 = llm.prefill(prompts[1], request_id=1)
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t
-    finite = finite & torch.isfinite(l0).all() & torch.isfinite(l1).all()
+    finite = torch.isfinite(l0).all() & torch.isfinite(l1).all()
+    decode.record = []
     t = time.perf_counter()
     tokens, first_fracs = first_step_fractions(
-        decode, torch.cat([l0.argmax(-1), l1.argmax(-1)]))
+        lambda: decode(torch.cat([l0.argmax(-1), l1.argmax(-1)]), 1))
     tokens = decode(tokens, 15)
     torch.cuda.synchronize()
     decode_ms = (time.perf_counter() - t) * 1e3 / 16
+    graphed = dict(record=decode.record, avg_sparsity=llm.avg_sparsity,
+                   first_fracs=[float(f) for f in first_fracs])
+    decode.record = None
     launches, w4_shapes = dict(LAUNCHES), dict(W4_SHAPE_LAUNCHES)
     expect = dict.fromkeys(launches, 0)
     expect.update(expect_fn(llm))
@@ -1614,9 +1701,11 @@ def serve_counted(torch, dev, prompts, lsh, label: str, expect_fn,
         check_frac(llm.avg_sparsity)
     elif lsh.enabled and not 0 < llm.avg_sparsity < 1:
         raise AssertionError(f"avg sparsity {llm.avg_sparsity} not in (0, 1)")
-    profile_decode(torch, decode, tokens, f"{label} decode B=2, 12000 + 7000 "
-                   "tokens")
-    if not bool(finite):
+    check_graphed(torch, llm, prompts, graphed, label)
+    del graphed
+    profile_decode(torch, llm, decode, tokens, f"{label} decode B=2, 12000 + "
+                   "7000 tokens")
+    if not bool(finite & decode.finite):
         raise AssertionError(f"non-finite logits in the {label} serve")
     return dict(prefill_s=prefill_s, decode_ms=decode_ms,
                 avg_sparsity=llm.avg_sparsity, launches=launches,

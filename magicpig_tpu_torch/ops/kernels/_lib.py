@@ -10,7 +10,8 @@ at import.
 
 `LAUNCHES` counts, per wrapper, the calls that launched a kernel; a run can
 reset it and read it back to show that a path went through the kernels.
-`W4_SHAPE_LAUNCHES` splits the int4 matmul's count by weight shape.
+`W4_SHAPE_LAUNCHES` splits the int4 matmul's count by weight shape. A CUDA
+graph's launches count once per replay, not at capture (`CapturedLaunches`).
 """
 
 from __future__ import annotations
@@ -207,3 +208,31 @@ def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
     W4_SHAPE_LAUNCHES.clear()
+
+
+class CapturedLaunches:
+    """The launches counted while a CUDA graph was captured. As a context
+    around the capture, it takes them back out of `LAUNCHES` and
+    `W4_SHAPE_LAUNCHES` on exit (a capture runs nothing); `replayed()` adds
+    them once per replay, so the counts keep meaning kernels executed."""
+
+    def __enter__(self) -> "CapturedLaunches":
+        self._before = dict(LAUNCHES), dict(W4_SHAPE_LAUNCHES)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        launches, shapes = self._before
+        self.launches = {k: n - launches[k] for k, n in LAUNCHES.items()
+                         if n != launches[k]}
+        self.shapes = {k: n - shapes.get(k, 0)
+                       for k, n in W4_SHAPE_LAUNCHES.items()
+                       if n != shapes.get(k, 0)}
+        LAUNCHES.update(launches)
+        W4_SHAPE_LAUNCHES.clear()
+        W4_SHAPE_LAUNCHES.update(shapes)
+
+    def replayed(self) -> None:
+        for k, n in self.launches.items():
+            LAUNCHES[k] += n
+        for k, n in self.shapes.items():
+            W4_SHAPE_LAUNCHES[k] = W4_SHAPE_LAUNCHES.get(k, 0) + n

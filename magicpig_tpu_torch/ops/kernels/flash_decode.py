@@ -24,8 +24,12 @@ MIN_SPLIT = 256        # fewest tokens per flash_decode split
 MAX_SPLIT = 1024       # most tokens per flash_decode split
 
 # Per device: the merge tickets (int32, 0 between calls; the kernel resets
-# each one it uses) and the SM count.
+# each one it uses) and the SM count. A CUDA graph captured over a wrapper
+# keeps the address of the tickets it was given, so tickets outgrown by a
+# later call stay allocated (`_outgrown`) for as long as the process runs;
+# each growth at least doubles them, so there are few.
 _tickets: dict[torch.device, torch.Tensor] = {}
+_outgrown: list[torch.Tensor] = []
 _num_sms: dict[torch.device, int] = {}
 
 
@@ -48,6 +52,9 @@ def device_state(device: torch.device,
         _num_sms[device] = props.multi_processor_count
     tickets = _tickets.get(device)
     if tickets is None or tickets.numel() < pairs:
+        if tickets is not None:
+            _outgrown.append(tickets)
+            pairs = max(pairs, 2 * tickets.numel())
         tickets = torch.zeros((pairs,), dtype=torch.int32, device=device)
         _tickets[device] = tickets
     return tickets, _num_sms[device]

@@ -7,7 +7,11 @@ kernel and fills the attention-server state; a decode step runs every layer
 once (dense layers through flash decode, sparse layers through flash decode
 over the hot tokens plus the estimator over the offloaded ones: the fused
 LSH kernel, or for `LSHConfig(estimator="block_topk")` the block scorer and
-an attend over the best blocks). `decode_steps` keeps the greedy tokens on
+an attend over the best blocks). On the card the first decode step runs
+eagerly and creates what the kernels make lazily (the library, the
+tickets, kernel attributes); every later step replays a CUDA graph of the
+whole step (`DecodeGraph`), as the JAX engine runs one jitted program. On
+the CPU every step runs eagerly. `decode_steps` keeps the greedy tokens on
 the device and synchronises once. The model's weights follow
 `ModelConfig.weight_quant` (bf16, W8A8 or int4 through the packed-nibble
 kernel at decode size), and the caches `LSHConfig.offload_quant` and
@@ -18,6 +22,7 @@ int4 forms).
 
 from __future__ import annotations
 
+import ctypes
 import time
 
 import numpy as np
@@ -33,6 +38,7 @@ from magicpig_tpu_torch.models.llama import (
 )
 from magicpig_tpu_torch.ops.hashing import make_hash_projections
 from magicpig_tpu_torch.ops.kernels import flash_prefill
+from magicpig_tpu_torch.ops.kernels._lib import CapturedLaunches
 from magicpig_tpu_torch.ops.sampling import greedy_sample, top_p_sample
 from magicpig_tpu_torch.runtime import state as state_lib
 from magicpig_tpu_torch.runtime.server import (
@@ -52,6 +58,51 @@ def resolve_device(device: torch.device | str | None) -> torch.device:
                                "plain PyTorch versions on the CPU")
         device = "cuda"
     return torch.device(device)
+
+
+def graph_kernel_nodes(graph: torch.cuda.CUDAGraph) -> int:
+    """The kernels a replay of `graph` (captured with `keep_graph=True`)
+    launches: its kernel nodes, read through libcuda's graph API."""
+    drv = ctypes.CDLL("libcuda.so.1")
+    handle = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    if drv.cuGraphGetNodes(handle, None, ctypes.byref(n)) != 0:
+        raise RuntimeError("cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * n.value)()
+    if drv.cuGraphGetNodes(handle, nodes, ctypes.byref(n)) != 0:
+        raise RuntimeError("cuGraphGetNodes failed")
+    kind = ctypes.c_int(-1)
+    kernels = 0
+    for node in nodes:
+        if drv.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)) != 0:
+            raise RuntimeError("cuGraphNodeGetType failed")
+        kernels += kind.value == 0             # CU_GRAPH_NODE_TYPE_KERNEL
+    return kernels
+
+
+class DecodeGraph:
+    """One decode step captured as a CUDA graph: `decode` (the engine's
+    eager step) on a static [B] token buffer, then the greedy next token.
+    A replay reads and advances the engine's state in place, so the state's
+    buffers must keep their addresses (`state.reset_state`); the outputs are
+    static tensors that the next replay overwrites. The graph is kept
+    (`keep_graph`) so that its nodes can be counted (`graph_kernel_nodes`)."""
+
+    def __init__(self, decode, batch: int, device: torch.device):
+        self.tokens = torch.zeros((batch,), dtype=torch.int64, device=device)
+        self.graph = torch.cuda.CUDAGraph(keep_graph=True)
+        with CapturedLaunches() as self.launches, torch.cuda.graph(self.graph):
+            self.logits, self.frac = decode(self.tokens)
+            self.next = greedy_sample(self.logits)
+        self.graph.instantiate()
+
+    def replay(self, tokens: torch.Tensor):
+        """(logits [B, V], mean sampled fraction, greedy tokens [B] int32)
+        of one step on `tokens`."""
+        self.tokens.copy_(tokens)
+        self.graph.replay()
+        self.launches.replayed()
+        return self.logits, self.frac, self.next
 
 
 class LLM:
@@ -103,6 +154,9 @@ class LLM:
         # decode entry fails loudly instead.
         self._hot_used: dict[int, int] = {}
         self._pos_used: dict[int, int] = {}
+        # On the card: whether a step ran eagerly, then the captured step.
+        self._warmed_up = False
+        self._graph: DecodeGraph | None = None
 
     def _tokens(self, input_ids) -> torch.Tensor:
         if isinstance(input_ids, torch.Tensor):
@@ -191,15 +245,31 @@ class LLM:
             self._hot_used[slot] += n_steps
             self._pos_used[slot] += n_steps
 
+    def _step(self, tokens: torch.Tensor):
+        """One decode step: (logits [B, V], mean sampled fraction, greedy
+        tokens [B] int32). On the card the engine's first step runs eagerly
+        and the second captures the step; from then on each step replays it
+        and returns the graph's static outputs. A failed capture or replay
+        raises."""
+        if self._graph is None and self._warmed_up:
+            self._graph = DecodeGraph(self._decode, self.batch_size,
+                                      self.device)
+        if self._graph is not None:
+            return self._graph.replay(tokens)
+        self._warmed_up = self.device.type == "cuda"
+        logits, frac = self._decode(tokens)
+        return logits, frac, greedy_sample(logits)
+
     @torch.no_grad()
     def inference(self, input_ids) -> torch.Tensor:
         """One decode step for the whole batch; returns logits [B, V]."""
         self._guard_decode(1)
-        logits, frac = self._decode(self._tokens(input_ids))
+        logits, frac, _ = self._step(self._tokens(input_ids))
         if self.lsh.enabled:
             self._sparsity_sum = self._sparsity_sum + frac
             self._sparsity_steps += 1
-        return logits
+        # The graph's logits are overwritten by the next step.
+        return logits if self._graph is None else logits.clone()
 
     @torch.no_grad()
     def decode_steps(self, input_ids, n_steps: int) -> torch.Tensor:
@@ -207,17 +277,18 @@ class LLM:
         the device; returns [n_steps, B] int32."""
         self._guard_decode(n_steps)
         tok = self._tokens(input_ids)
-        toks = []
+        toks = torch.empty((n_steps, tok.shape[0]), dtype=torch.int32,
+                           device=self.device)
         frac_sum = torch.zeros((), device=self.device)
-        for _ in range(n_steps):
-            logits, frac = self._decode(tok)
-            tok = greedy_sample(logits).long()
-            toks.append(tok)
+        for i in range(n_steps):
+            _, frac, nxt = self._step(tok)
+            toks[i] = nxt
+            tok = toks[i]
             frac_sum = frac_sum + frac
         if self.lsh.enabled:
             self._sparsity_sum = self._sparsity_sum + frac_sum
             self._sparsity_steps += n_steps
-        return torch.stack(toks).to(torch.int32)
+        return toks
 
     @property
     def avg_sparsity(self) -> float:
@@ -271,9 +342,8 @@ class LLM:
         return generated
 
     def clear(self):
-        """Reset all server state; the sparsity counters survive."""
-        self.state = state_lib.init_state(self.config, self.lsh,
-                                          self.batch_size, self.max_length,
-                                          self.device)
+        """Reset all server state in place (the captured step keeps its
+        buffers); the sparsity counters survive."""
+        state_lib.reset_state(self.state)
         self._hot_used.clear()
         self._pos_used.clear()

@@ -19,8 +19,8 @@ is a TPU choice):
     holds channel j in its low nibble and channel j + d/2 in its high one,
     `ops/pack4.py`); V stays int8 [B, Hkv, off_cap, d];
   * per-request lengths as int32 device tensors [B].
-Fill and decode write into these tensors in place, which keeps one copy of
-each cache.
+Fill, decode and `reset_state` write into these tensors in place, which
+keeps one copy of each cache and the addresses a captured decode step uses.
 """
 
 from __future__ import annotations
@@ -115,6 +115,16 @@ def init_state(config: ModelConfig, lsh: LSHConfig, batch_size: int,
                                  num_words(off_cap)), torch.int32),
         pos=lens(),
     )
+
+
+def reset_state(state: DecodeState) -> None:
+    """Zero every tensor of `state` in place: it then equals a fresh
+    `init_state`, and every buffer keeps its address, which a captured
+    decode step (`runtime/engine.py`) reads and writes on each replay."""
+    for field in dataclasses.fields(state):
+        value = getattr(state, field.name)
+        for t in value if isinstance(value, list) else [value]:
+            t.zero_()
 
 
 def layer_groups(config: ModelConfig, lsh: LSHConfig):

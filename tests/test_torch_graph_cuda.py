@@ -1,0 +1,213 @@
+"""The compiled decode step on the card: `LLM.inference` and
+`LLM.decode_steps` replay a CUDA graph of one whole step (`DecodeGraph`,
+`runtime/engine.py`) after one eager step, and must give what the eager
+step `LLM._decode` gives.
+
+Each test takes the `cuda` fixture and skips without a card. This file
+imports no JAX, so it also runs on the card machine, which has none:
+
+    python3 -m pytest --noconftest tests/test_torch_graph_cuda.py
+
+Engines: two layers at Llama-3.2-1B width (layer 0 dense, layer 1 sparse),
+batch 2, prompts of 1500 and 900 tokens, random weights from a seed. The
+graphed step runs the same kernels in the same order on the same inputs as
+the eager one, and every hand-written kernel is deterministic, so logits
+are compared bit for bit (`torch.equal`) and launch counts exactly.
+"""
+
+import dataclasses
+
+import pytest
+import torch
+
+from magicpig_tpu_torch.config import LSHConfig, preset
+from magicpig_tpu_torch.ops.kernels import (LAUNCHES, W4_SHAPE_LAUNCHES,
+                                            reset_launches)
+from magicpig_tpu_torch.ops.kernels.flash_decode import _outgrown, device_state
+from magicpig_tpu_torch.ops.sampling import greedy_sample
+from magicpig_tpu_torch.runtime.engine import LLM, graph_kernel_nodes
+
+# Each form of the step a phase-3 serve of `chip_smoke.py` runs, as (the
+# engine's LSHConfig, its weight quantization).
+FORMS = {
+    "lsh_bf16": (LSHConfig(), "none"),
+    "lsh_int8": (LSHConfig(offload_quant="int8"), "none"),
+    "sampled": (LSHConfig(decode_mode="sampled"), "none"),
+    "odd_l": (LSHConfig(K=8, L=75), "none"),
+    "block_topk_int8": (LSHConfig(estimator="block_topk",
+                                  offload_quant="int8"), "none"),
+    "block_topk_int4": (LSHConfig(estimator="block_topk",
+                                  offload_quant="int4"), "none"),
+    "dense_int8_w4": (LSHConfig(K=0, L=0, dense_quant="int8"), "int4"),
+    "w8a8": (LSHConfig(offload_quant="int8"), "int8"),
+}
+# The hand-written kernels, as their names appear in the profiler.
+OWN_KERNELS = ("flash_decode_kernel", "lsh_split_kernel",
+               "collision_words_kernel", "block_score_kernel",
+               "rescore_attend_kernel", "block_attend_kernel",
+               "w4_matmul_kernel")
+
+
+@pytest.fixture
+def cuda():
+    """The card; the tests skip without one."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the graphed step runs only there")
+    return torch.device("cuda")
+
+
+def _engine(dev, form, batch_size=2, seed=3):
+    lsh, weight_quant = FORMS[form]
+    cfg = dataclasses.replace(preset("llama-3.2-1b"), num_hidden_layers=2,
+                              weight_quant=weight_quant,
+                              fuse_small_linears=weight_quant != "none")
+    return LLM(cfg, batch_size=batch_size, max_length=2048, lsh=lsh,
+               device=dev, seed=seed)
+
+
+def _prompts(llm, seed=5, lengths=(1500, 900)):
+    gen = torch.Generator().manual_seed(seed)
+    return [torch.randint(1, llm.config.vocab_size, (n,), generator=gen)
+            for n in lengths[:llm.batch_size]]
+
+
+def _prefill(llm, prompts):
+    """Prefill each prompt into its slot; the greedy first tokens [B]."""
+    return torch.cat([llm.prefill(p, request_id=i).argmax(-1)
+                      for i, p in enumerate(prompts)])
+
+
+def _run(step, tokens, n):
+    """n greedy steps of `step` (tokens -> logits): (inputs, logits)."""
+    inputs, logits = [], []
+    for _ in range(n):
+        out = step(tokens)
+        inputs.append(tokens)
+        logits.append(out)
+        tokens = out.argmax(-1)
+    return inputs, logits
+
+
+def _eager(llm, prompts, inputs):
+    """clear(), the prompts again, and the eager step on `inputs`."""
+    llm.clear()
+    _prefill(llm, prompts)
+    return [llm._decode(tokens)[0] for tokens in inputs]
+
+
+@pytest.mark.parametrize("form", sorted(FORMS))
+def test_cuda_graphed_step_equals_eager(cuda, form):
+    """8 steps through `inference` (the first eager, the rest replays)
+    against the eager step on the same tokens after clear() and the same
+    prefills: logits bit for bit, and the same kernel launches counted."""
+    llm = _engine(cuda, form)
+    prompts = _prompts(llm)
+    first = _prefill(llm, prompts)
+    reset_launches()
+    inputs, graphed = _run(llm.inference, first, 8)
+    counted = dict(LAUNCHES), dict(W4_SHAPE_LAUNCHES)
+    assert llm._graph is not None
+    llm.clear()
+    _prefill(llm, prompts)
+    reset_launches()
+    eager = [llm._decode(tokens)[0] for tokens in inputs]
+    assert (dict(LAUNCHES), dict(W4_SHAPE_LAUNCHES)) == counted
+    assert sum(counted[0].values()) > 0
+    for step, (g, e) in enumerate(zip(graphed, eager)):
+        assert torch.equal(g, e), f"step {step}: max |diff| {(g - e).abs().max()}"
+
+
+@pytest.mark.parametrize("form", ["lsh_bf16", "block_topk_int8"])
+def test_cuda_decode_steps_graphed_equals_inference_loop(cuda, form):
+    """`decode_steps` (the greedy token kept on the card across replays, in
+    two calls) gives the tokens and sparsity of an `inference` loop on a
+    twin engine."""
+    a, b = _engine(cuda, form), _engine(cuda, form)
+    first = _prefill(a, _prompts(a))
+    assert torch.equal(_prefill(b, _prompts(b)), first)
+    toks = a.decode_steps(first, 5)
+    toks = torch.cat([toks, a.decode_steps(toks[-1], 4)])
+    _, logits = _run(b.inference, first, 9)
+    loop = torch.stack([l.argmax(-1) for l in logits]).to(torch.int32)
+    assert torch.equal(toks, loop)
+    # decode_steps sums a call's fractions in float32 before adding them.
+    assert a.avg_sparsity == pytest.approx(b.avg_sparsity, rel=1e-6)
+
+
+def test_cuda_clear_and_new_prefill_replay_the_same_graph(cuda):
+    """After clear() and other prompts, the engine replays the graph it
+    captured before, and the replay equals the eager step."""
+    llm = _engine(cuda, "lsh_bf16")
+    _run(llm.inference, _prefill(llm, _prompts(llm)), 4)
+    graph = llm._graph
+    llm.clear()
+    other = _prompts(llm, seed=11, lengths=(1300, 1700))
+    inputs, graphed = _run(llm.inference, _prefill(llm, other), 6)
+    assert llm._graph is graph
+    for g, e in zip(graphed, _eager(llm, other, inputs)):
+        assert torch.equal(g, e)
+
+
+def test_cuda_graph_keeps_its_tickets_when_another_engine_grows_them(cuda):
+    """Engine A captures its step; the merge tickets then grow (engine B at
+    batch 4 and a direct request for more), and small blocks of the size
+    of A's tickets are allocated and filled with -1, which would take
+    their memory were it freed: A's replays still equal its eager step,
+    since the tickets it captured stay allocated."""
+    a = _engine(cuda, "lsh_bf16", batch_size=1)
+    prompts = _prompts(a)
+    _run(a.inference, _prefill(a, prompts), 2)
+    tickets = device_state(cuda, 1)[0]
+    captured, pairs = tickets.data_ptr(), tickets.numel()
+    del tickets
+    b = _engine(cuda, "block_topk_int8", batch_size=4, seed=4)
+    _run(b.inference, _prefill(b, _prompts(b, lengths=(1500, 900, 700, 1100))), 3)
+    device_state(cuda, 4 * pairs)
+    assert device_state(cuda, 1)[0].data_ptr() != captured
+    assert any(t.data_ptr() == captured for t in _outgrown)
+    del b
+    junk = [torch.full((pairs,), -1, dtype=torch.int32, device=cuda)
+            for _ in range(256)]
+    a.clear()
+    inputs, graphed = _run(a.inference, _prefill(a, prompts), 5)
+    del junk
+    for g, e in zip(graphed, _eager(a, prompts, inputs)):
+        assert torch.equal(g, e)
+
+
+def _eager_kernels(llm, tokens):
+    """Kernels of one eager step (`_decode` and the greedy token) by the
+    profiler, the fullest of three sessions: (all kernels, the
+    hand-written ones). In a process that has run many kernels the
+    profiler loses the first few kernel records of a session (five after
+    the kernel tests, the first ops of the step; a capture of the same
+    step holds them all), so 32 sleep kernels go first and are not
+    counted."""
+    from torch.profiler import ProfilerActivity, profile
+
+    best = (0, 0)
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(32):
+                torch.cuda._sleep(1000)
+            greedy_sample(llm._decode(tokens)[0])
+            torch.cuda.synchronize()
+        events = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and "spin_kernel" not in e.name
+                  and not e.name.startswith(("Memcpy", "Memset"))]
+        own = sum(any(k in e.name for k in OWN_KERNELS) for e in events)
+        best = max(best, (len(events), own))
+    return best
+
+
+@pytest.mark.parametrize("form", ["lsh_bf16", "sampled", "dense_int8_w4"])
+def test_cuda_graph_nodes_are_the_eager_kernels(cuda, form):
+    """The captured step's kernel nodes are the eager step's kernels: its
+    hand-written launches (as counted) plus its PyTorch ops."""
+    llm = _engine(cuda, form)
+    inputs, _ = _run(llm.inference, _prefill(llm, _prompts(llm)), 2)
+    reset_launches()
+    total, own = _eager_kernels(llm, inputs[-1])
+    assert own == sum(LAUNCHES.values()) // 3 > 0
+    assert graph_kernel_nodes(llm._graph.graph) == total

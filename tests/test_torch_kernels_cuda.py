@@ -78,6 +78,7 @@ from magicpig_tpu_torch.ops.kernels.rescore_attend import (
 from magicpig_tpu_torch.ops.kernels.w4_matmul import w4_matmul_plain
 from magicpig_tpu_torch.ops.pack4 import pack_k4
 from magicpig_tpu_torch.ops.quant import dequantize_rows, quantize_rows
+from magicpig_tpu_torch.runtime.engine import graph_kernel_nodes
 
 SCORE_TOL = (1e-5, 1e-5, 0.0)
 W4_TOL = (0.0, 0.0, 1e-5)
@@ -966,23 +967,11 @@ def _graph_kernel_nodes(fn) -> int:
     """Kernel nodes of a CUDA graph captured from one call of `fn` (read
     through the driver API; the profiler drops kernels when it records
     many)."""
-    import ctypes
     graph = torch.cuda.CUDAGraph(keep_graph=True)
     with torch.cuda.graph(graph):
         fn()
     torch.cuda.synchronize()
-    drv = ctypes.CDLL("libcuda.so.1")
-    handle = ctypes.c_void_p(graph.raw_cuda_graph())
-    n = ctypes.c_size_t(0)
-    assert drv.cuGraphGetNodes(handle, None, ctypes.byref(n)) == 0
-    nodes = (ctypes.c_void_p * n.value)()
-    assert drv.cuGraphGetNodes(handle, nodes, ctypes.byref(n)) == 0
-    kernels = 0
-    for node in nodes:
-        kind = ctypes.c_int(-1)
-        assert drv.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)) == 0
-        kernels += kind.value == 0                 # CU_GRAPH_NODE_TYPE_KERNEL
-    return kernels
+    return graph_kernel_nodes(graph)
 
 
 @pytest.mark.parametrize("kin,out", SERVED_W4)
