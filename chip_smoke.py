@@ -13,7 +13,9 @@ Phases, each announced by one flushed progress line with elapsed seconds:
      kernels' SASS (mma.sync in the scorer, the attends and the int4
      matmul, bulk copies in the attends, cp.async in the scorer, the int4
      matmul and the LSH kernels, TMA in the collision scan and the fused
-     LSH kernel, and no I2F in the int4 matmul, or it fails; the
+     LSH kernel, and no I2F in the int4 matmul, or it fails; at head dim
+     128 too: HGMMA and UTMALDG in the prefill, UBLKCP in the decode, HMMA,
+     UTMALDG and LDGSTS in the fused LSH kernel; the
      disassembly runs beside phase 2 and is checked after it);
   2. kernels: each hand-written kernel against its plain PyTorch version at
      the shapes of the Llama-3.2-1B decode paths (Hq 32, Hkv 8, d 64;
@@ -46,6 +48,12 @@ Phases, each announced by one flushed progress line with elapsed seconds:
      words at K=8, L=75 in its six forms, the odd-L routes timed against
      each other, and
      the scorer's scores-only form (`exact_scores`) over bf16 and int8 K;
+     then the head-dim-128 forms at Llama-3.1-8B's shapes (Hq 32, Hkv 8, d
+     128): prefill over 8192 and 12000 tokens, bf16 decode at B=2 over
+     16384 + 11000 tokens (splits of 512, 1024 and 2048 timed) and at the
+     hot cache, the fused LSH kernel (bf16, exact, K=10, L=150) over the
+     same caches (counts exact, splits timed), each within `TOL` of its
+     plain version and its planted fault rejected;
   3. serve: `LLM("llama-3.2-1b")` at full width and depth with random
      weights drawn on the card; two requests (12000 and 7000 tokens)
      prefilled into slots 0 and 1, 16 greedy decode steps, clear(), a third
@@ -79,7 +87,12 @@ Phases, each announced by one flushed progress line with elapsed seconds:
      weights and projections: the sampled mode at K=10, L=150 (its first
      step's sampled fraction in sparse layer 1 equal to the LSH serve's)
      and the masked mode at odd L (K=8, L=75: the scan and the masked
-     attend), each counted and profiled like the others;
+     attend), each counted and profiled like the others. Then, the 1B
+     engines freed, `LLM("llama-3.1-8b")` at full width and depth (32
+     layers, d 128, random bf16 weights drawn on the card, LSH K=10, L=150,
+     dense layers 0 and 16) on the same two prompts, 16 steps, launches of
+     the d = 128 forms counted exactly, the graphed run held to the eager
+     step, a warm 12000-token prefill and the decode steps profiled;
   4. reference: a two-layer cut of the same width at K=1, L=32 (nearly
      every key sampled) on the card against the same engine on the CPU
      (the plain versions); then the same cut under block_topk with bf16
@@ -97,6 +110,7 @@ Any failure raises. The last two lines are the kernels' JSON and the result
 JSON; the card's name and power limit come just before them.
 """
 
+import gc
 import json
 import statistics
 import subprocess
@@ -263,20 +277,25 @@ def bound_ms(nbytes: float, flops: float):
 
 # Kernels whose SASS phase 1 counts (one template instance each: G = 4 for
 # the block and LSH kernels; the LSH template's two kernels told apart by
-# its kWords flag in the mangled name), and the instructions counted:
-# warpgroup MMA, TMA tensor load, bulk copy, mma.sync, cp.async and
-# integer-to-float conversion.
+# its kWords flag in the mangled name, and the head dims 64 and 128 of the
+# prefill, the decode and the fused LSH kernel by their last template
+# argument), and the instructions counted: warpgroup MMA, TMA tensor load,
+# bulk copy, mma.sync, cp.async and integer-to-float conversion.
 SASS_KERNELS = {
-    "flash_prefill_kernel": ("flash_prefill_kernel",),
-    "flash_decode_kernel": ("flash_decode_kernel",),
+    "flash_prefill_kernel": ("flash_prefill_kernel", "ILi64E"),
+    "flash_prefill_kernel d128": ("flash_prefill_kernel", "ILi128E"),
+    "flash_decode_kernel": ("flash_decode_kernel", "Li64EE"),
+    "flash_decode_kernel d128": ("flash_decode_kernel", "Li128EE"),
     "block_score_kernel": ("block_score_kernel", "Li4E"),
     "rescore_attend_kernel": ("rescore_attend_kernel", "Li4E"),
     "block_attend_kernel": ("block_attend_kernel", "Li4E"),
     "w4_matmul_kernel": ("w4_matmul_kernel",),
     "lsh_masked (lsh_split_kernel, words)": ("lsh_split_kernel", "Li4E",
-                                             "Lb1E"),
+                                             "Lb1ELi64E"),
     "lsh_fused (lsh_split_kernel, scan)": ("lsh_split_kernel", "Li4E",
-                                           "Lb0E"),
+                                           "Lb0ELi64E"),
+    "lsh_fused d128 (lsh_split_kernel, scan)": ("lsh_split_kernel", "Li4E",
+                                                "Lb0ELi128E"),
     "collision_words_kernel": ("collision_words_kernel", "Li4E"),
 }
 SASS_OPS = ("HGMMA", "UTMALDG", "UBLKCP", "HMMA", "LDGSTS", "I2F")
@@ -328,7 +347,9 @@ def check_sass(counts) -> None:
     (which converts no integer to float: its nibbles become bf16 by bit
     operations), bulk copies in both attends, cp.async in the scorer, the
     int4 matmul and both LSH kernels, TMA in both collision scans (the
-    fused kernel's and the standalone one)."""
+    fused kernel's and the standalone one); and in both head dims' forms of
+    the prefill warpgroup MMA and TMA, of the decode bulk copies, of the
+    fused LSH kernel mma.sync and TMA."""
     if counts.get("w4_matmul_kernel", {}).get("I2F", 1) != 0:
         raise AssertionError("w4_matmul_kernel: I2F in its SASS")
     for name, op in (("block_score_kernel", "HMMA"),
@@ -342,7 +363,14 @@ def check_sass(counts) -> None:
                      ("lsh_masked (lsh_split_kernel, words)", "LDGSTS"),
                      ("lsh_fused (lsh_split_kernel, scan)", "LDGSTS"),
                      ("lsh_fused (lsh_split_kernel, scan)", "UTMALDG"),
-                     ("collision_words_kernel", "UTMALDG")):
+                     ("collision_words_kernel", "UTMALDG"),
+                     *((f"flash_prefill_kernel{dim}", op)
+                       for dim in ("", " d128") for op in ("HGMMA", "UTMALDG")),
+                     *((f"flash_decode_kernel{dim}", "UBLKCP")
+                       for dim in ("", " d128")),
+                     *((f"lsh_fused{dim} (lsh_split_kernel, scan)", op)
+                       for dim in ("", " d128") for op in ("HMMA", "UTMALDG",
+                                                          "LDGSTS"))):
         if counts.get(name, {}).get(op, 0) == 0:
             raise AssertionError(f"{name}: no {op} instruction in its SASS")
 
@@ -405,9 +433,7 @@ def lsh_split_sweep(torch, name: str, entry: str, args, selection) -> dict:
 
 def phase_kernels(torch, F, dev):
     """Each kernel against its plain version at the slice's shapes."""
-    from magicpig_tpu_torch.ops import attention, bitcodes
-    from magicpig_tpu_torch.ops.kernels import flash_decode, lsh_fused_decode
-    from magicpig_tpu_torch.ops.kernels.lsh_fused import lsh_fused_decode_plain
+    from magicpig_tpu_torch.ops import bitcodes
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(1234)
@@ -428,28 +454,8 @@ def phase_kernels(torch, F, dev):
     lens = [16384, 11000]
     q, k, v = rnd(b, hq, d), rnd(b, hkv, s, d), rnd(b, hkv, s, d)
     length = torch.tensor(lens, dtype=torch.int32, device=dev)
-    (got, got_lse) = flash_decode(q, k, v, length)
-    (want, want_lse) = attention.full_decode(q, k, v, length)
-    tol = TOL["flash_decode"]
-    err, share = check_close("flash_decode", got, want, tol)
-    err = max(err, check_close("flash_decode lse", got_lse, want_lse,
-                               TOL["lse"])[0])
-    teeth = check_rejects("flash_decode", attention.full_decode(
-        q, k, drop_tile(v, 2, 8192), length)[0], want, tol)
-    mask = (torch.arange(s, device=dev)[None] < length[:, None])[:, None, None]
-    q4 = q[:, :, None]
-    nbytes = (sum(lens) * hkv * d * 2 * 2 + q.numel() * 2
-              + b * hq * (d + 1) * 4)
-    flops = 4 * d * hq * sum(lens)
-    results["flash_decode"] = dict(
-        max_abs_err=err, tol=tol, bound=bound_ms(nbytes, flops),
-        **timings(lambda: flash_decode(q, k, v, length),
-                  lambda: attention.full_decode(q, k, v, length),
-                  lambda: F.scaled_dot_product_attention(
-                      q4, k, v, attn_mask=mask, enable_gqa=True)))
-    log(f"kernel flash_decode   err {err:.2e}, worst element "
-        f"{share:.2f} of its limit (tol {tol}); a "
-        f"skipped tile's worst element {teeth:.1f}x the limit")
+    results["flash_decode"] = decode_row(torch, F, q, k, v, length, lens,
+                                         "flash_decode")
     decode_split_sweep(torch, q, k, v, length)
 
     # -- fused LSH decode: the same caches as centered keys, K=10, L=150.
@@ -458,40 +464,9 @@ def phase_kernels(torch, F, dev):
     planes = torch.stack([bitcodes.build_planes(k[i].transpose(0, 1), proj, K)
                           for i in range(b)])
     q_bits = bitcodes.hash_bits(q, proj, K)
-    got, got_lse, got_cnt = lsh_fused_decode(q, k, v, k_norm, planes, q_bits,
-                                             length, K, L)
-    want, want_lse, want_cnt = lsh_fused_decode_plain(q, k, v, k_norm, planes,
-                                                      q_bits, length, K, L)
-    if not torch.equal(got_cnt, want_cnt):
-        raise AssertionError("lsh_fused_decode: sampled counts differ")
-    tol = TOL["lsh_fused_decode"]
-    err, share = check_close("lsh_fused_decode", got, want, tol)
-    err = max(err, check_close("lsh_fused_decode lse", got_lse, want_lse,
-                               TOL["lse"])[0])
-    teeth = check_rejects("lsh_fused_decode", lsh_fused_decode_plain(
-        q, k, drop_tile(v, 2, 8192), k_norm, planes, q_bits, length, K,
-        L)[0], want, tol)
-    # Bytes this run needs: every valid signature word; K, V and the norm
-    # of the tokens some head of the group sampled; q, its bits, outputs.
-    sampled = bitcodes.sampled_mask(q_bits, planes, length)    # [B, Hq, S]
-    rows = int(sampled.reshape(b, hkv, -1, s).any(dim=2).sum())
-    words = sum((n + 31) // 32 for n in lens) * hkv * L * K
-    nbytes = (words * 4 + rows * (2 * d * 2 + 4) + q.numel() * 2
-              + q_bits.numel() * 4 + b * hq * (d + 2) * 4)
-    flops = 4 * d * int(want_cnt.sum())
-    results["lsh_fused_decode"] = dict(
-        max_abs_err=err, tol=tol, bound=bound_ms(nbytes, flops),
-        **timings(lambda: lsh_fused_decode(q, k, v, k_norm, planes, q_bits,
-                                           length, K, L),
-                  lambda: lsh_fused_decode_plain(q, k, v, k_norm, planes,
-                                                 q_bits, length, K, L)),
-        sampled_frac=float(want_cnt.sum()) / (hq * sum(lens)),
-        rows_frac=rows / (hkv * sum(lens)))
-    log(f"kernel lsh_fused      err {err:.2e}, worst element "
-        f"{share:.2f} of its limit (tol {tol}); a "
-        f"skipped tile's worst element {teeth:.1f}x the limit; counts exact, "
-        f"sampled {results['lsh_fused_decode']['sampled_frac']:.4f}, "
-        f"rows read {results['lsh_fused_decode']['rows_frac']:.4f}")
+    results["lsh_fused_decode"], (nbytes, rows, flops) = lsh_row(
+        torch, (q, k, v, k_norm, planes, q_bits, length, K, L), lens,
+        "lsh_fused_decode")
     lsh_split_sweep(torch, "lsh_fused_decode", "mp_lsh_fused_decode",
                     (q, k, v, k_norm, None, length, K, L, None, None, "exact"),
                     (planes, q_bits))
@@ -508,13 +483,137 @@ def phase_kernels(torch, F, dev):
     return results
 
 
-def prefill_kernel(torch, F, rnd, s: int, name: str) -> dict:
-    """flash_prefill over one s-token prompt, causal, Hq 32, Hkv 8, d 64,
-    against its plain version, a skipped V tile rejected, SDPA beside it."""
+def decode_row(torch, F, q, k, v, length, lens, name: str) -> dict:
+    """flash_decode (bf16) over the given caches against its plain version,
+    a skipped 64-token V tile rejected, SDPA (length mask, GQA) beside it,
+    the bound from the valid tokens' K and V bytes."""
+    from magicpig_tpu_torch.ops import attention
+    from magicpig_tpu_torch.ops.kernels import flash_decode
+
+    b, hq, d = q.shape
+    hkv, s = k.shape[1], k.shape[2]
+    (got, got_lse) = flash_decode(q, k, v, length)
+    (want, want_lse) = attention.full_decode(q, k, v, length)
+    tol = TOL["flash_decode"]
+    err, share = check_close(name, got, want, tol)
+    err = max(err, check_close(f"{name} lse", got_lse, want_lse,
+                               TOL["lse"])[0])
+    teeth = check_rejects(name, attention.full_decode(
+        q, k, drop_tile(v, 2, 8192), length)[0], want, tol)
+    mask = (torch.arange(s, device=q.device)[None]
+            < length[:, None])[:, None, None]
+    q4 = q[:, :, None]
+    nbytes = (sum(lens) * hkv * d * 2 * 2 + q.numel() * 2
+              + b * hq * (d + 1) * 4)
+    flops = 4 * d * hq * sum(lens)
+    row = dict(
+        max_abs_err=err, tol=tol, bound=bound_ms(nbytes, flops),
+        **timings(lambda: flash_decode(q, k, v, length),
+                  lambda: attention.full_decode(q, k, v, length),
+                  lambda: F.scaled_dot_product_attention(
+                      q4, k, v, attn_mask=mask, enable_gqa=True)))
+    log(f"kernel {name} err {err:.2e}, worst element {share:.2f} of its "
+        f"limit (tol {tol}); a skipped tile's worst element {teeth:.1f}x the "
+        "limit")
+    return row
+
+
+def lsh_row(torch, args, lens, name: str):
+    """The fused LSH kernel (bf16, exact) on `args` (q, centered K, V, key
+    norms, planes, query bits, length, K, L) against its plain version:
+    counts exact, a skipped 64-token V tile rejected, the bound from the
+    bytes this run needs (every valid signature word; K, V and the norm of
+    the tokens some head of the group sampled; q, its bits, outputs).
+    Returns (the row, (bytes, sampled rows, flops))."""
+    from magicpig_tpu_torch.ops import bitcodes
+    from magicpig_tpu_torch.ops.kernels import lsh_fused_decode
+    from magicpig_tpu_torch.ops.kernels.lsh_fused import lsh_fused_decode_plain
+
+    q, k, v, k_norm, planes, q_bits, length, K, L = args
+    b, hq, d = q.shape
+    hkv, s = k.shape[1], k.shape[2]
+    got, got_lse, got_cnt = lsh_fused_decode(*args)
+    want, want_lse, want_cnt = lsh_fused_decode_plain(*args)
+    if not torch.equal(got_cnt, want_cnt):
+        raise AssertionError(f"{name}: sampled counts differ")
+    tol = TOL["lsh_fused_decode"]
+    err, share = check_close(name, got, want, tol)
+    err = max(err, check_close(f"{name} lse", got_lse, want_lse,
+                               TOL["lse"])[0])
+    teeth = check_rejects(name, lsh_fused_decode_plain(
+        q, k, drop_tile(v, 2, 8192), k_norm, planes, q_bits, length, K,
+        L)[0], want, tol)
+    sampled = bitcodes.sampled_mask(q_bits, planes, length)    # [B, Hq, S]
+    rows = int(sampled.reshape(b, hkv, -1, s).any(dim=2).sum())
+    words = sum((n + 31) // 32 for n in lens) * hkv * L * K
+    nbytes = (words * 4 + rows * (2 * d * 2 + 4) + q.numel() * 2
+              + q_bits.numel() * 4 + b * hq * (d + 2) * 4)
+    flops = 4 * d * int(want_cnt.sum())
+    row = dict(
+        max_abs_err=err, tol=tol, bound=bound_ms(nbytes, flops),
+        **timings(lambda: lsh_fused_decode(*args),
+                  lambda: lsh_fused_decode_plain(*args)),
+        sampled_frac=float(want_cnt.sum()) / (hq * sum(lens)),
+        rows_frac=rows / (hkv * sum(lens)))
+    log(f"kernel {name} err {err:.2e}, worst element {share:.2f} of its "
+        f"limit (tol {tol}); a skipped tile's worst element {teeth:.1f}x the "
+        f"limit; counts exact, sampled {row['sampled_frac']:.4f}, rows read "
+        f"{row['rows_frac']:.4f}")
+    return row, (nbytes, rows, flops)
+
+
+def phase_kernels_d128(torch, F, dev):
+    """The head-dim-128 forms at Llama-3.1-8B's shapes (Hq 32, Hkv 8, d
+    128): flash_prefill over 8192 and 12000 tokens, causal; bf16
+    flash_decode at B=2 over 16384 + 11000 tokens (split sizes swept) and
+    at the hot cache; the fused LSH kernel, bf16, exact, K=10, L=150 over
+    the same caches (counts exact; split sizes swept). Each against its
+    plain version within the d = 64 rows' `TOL`, a skipped tile rejected."""
+    from magicpig_tpu_torch.ops import bitcodes
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1283)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev, dtype=torch.bfloat16)
+
+    hq, hkv, d, K, L = 32, 8, 128, 10, 150
+    results = {}
+    results.update(prefill_kernel(torch, F, rnd, 8192, "flash_prefill_d128",
+                                  d=d))
+    results.update(prefill_kernel(torch, F, rnd, 12000,
+                                  "flash_prefill_d128_12000", d=d))
+    b, s = 2, 16384
+    lens = [16384, 11000]
+    q, k, v = rnd(b, hq, d), rnd(b, hkv, s, d), rnd(b, hkv, s, d)
+    length = torch.tensor(lens, dtype=torch.int32, device=dev)
+    results["flash_decode_d128"] = decode_row(torch, F, q, k, v, length, lens,
+                                              "flash_decode_d128")
+    decode_split_sweep(torch, q, k, v, length)
+    proj = torch.randn((d, K * L), generator=gen, device=dev)
+    k_norm = k.float().norm(dim=-1)
+    planes = torch.stack([bitcodes.build_planes(k[i].transpose(0, 1), proj, K)
+                          for i in range(b)])
+    q_bits = bitcodes.hash_bits(q, proj, K)
+    results["lsh_fused_decode_d128"] = lsh_row(
+        torch, (q, k, v, k_norm, planes, q_bits, length, K, L), lens,
+        "lsh_fused_decode_d128")[0]
+    lsh_split_sweep(torch, "lsh_fused_decode_d128", "mp_lsh_fused_decode",
+                    (q, k, v, k_norm, None, length, K, L, None, None, "exact"),
+                    (planes, q_bits))
+    results.update(hot_decode_kernels(torch, F, rnd, d=d))
+    log_timings(results)
+    return results
+
+
+def prefill_kernel(torch, F, rnd, s: int, name: str, d: int = 64) -> dict:
+    """flash_prefill over one s-token prompt, causal, Hq 32, Hkv 8, head dim
+    d, against its plain version, a skipped V tile rejected, SDPA beside
+    it."""
     from magicpig_tpu_torch.ops import attention
     from magicpig_tpu_torch.ops.kernels import flash_prefill
 
-    hq, hkv, d = 32, 8, 64
+    hq, hkv = 32, 8
     dev = torch.device("cuda")
     q, k, v = rnd(1, s, hq, d), rnd(1, s, hkv, d), rnd(1, s, hkv, d)
     length = torch.full((1,), s, dtype=torch.int32, device=dev)
@@ -545,11 +644,12 @@ def decode_split_sweep(torch, q, k, v, length, k_scale=None,
     tokens on the given caches, the split the wrapper picks among them: the
     evidence for `split_tokens`."""
     from magicpig_tpu_torch.ops.kernels import _lib
-    from magicpig_tpu_torch.ops.kernels.flash_decode import device_state
+    from magicpig_tpu_torch.ops.kernels.flash_decode import (device_state,
+                                                             launch_name)
 
     b, hq, d = q.shape
     hkv, s = k.shape[1], k.shape[2]
-    name = "flash_decode" if k_scale is None else "flash_decode_int8"
+    name = launch_name(k_scale is not None, d)
     tickets, _ = device_state(q.device, b * hkv)
     times = {}
     for chunk in (512, 1024, 2048):
@@ -566,16 +666,16 @@ def decode_split_sweep(torch, q, k, v, length, k_scale=None,
     return times
 
 
-def hot_decode_kernels(torch, F, rnd) -> dict:
+def hot_decode_kernels(torch, F, rnd, d: int = 64) -> dict:
     """flash_decode as the sparse layers' hot caches call it every step: B=2,
-    capacity 384, lengths 68 and 69, bf16 (SDPA beside it) and int8 (no
-    library call takes int8 K/V with row scales); each against its plain
-    version, a zeroed first V tile rejected."""
+    capacity 384, lengths 68 and 69, bf16 (SDPA beside it) and, at d = 64,
+    int8 (no library call takes int8 K/V with row scales); each against its
+    plain version, a zeroed first V tile rejected."""
     from magicpig_tpu_torch.ops import attention
     from magicpig_tpu_torch.ops.kernels import flash_decode
     from magicpig_tpu_torch.ops.quant import quantize_rows
 
-    b, hq, hkv, d, s, lens = 2, 32, 8, 64, 384, [68, 69]
+    b, hq, hkv, s, lens = 2, 32, 8, 384, [68, 69]
     dev = torch.device("cuda")
     q, k, v = rnd(b, hq, d), rnd(b, hkv, s, d), rnd(b, hkv, s, d)
     length = torch.tensor(lens, dtype=torch.int32, device=dev)
@@ -584,13 +684,16 @@ def hot_decode_kernels(torch, F, rnd) -> dict:
     kq, ks = quantize_rows(k)
     vq, vs = quantize_rows(v)
     results = {}
-    for name, args, faulty, row_bytes, library in (
+    forms = (
             ("flash_decode_hot", (k, v, None, None),
              (k, drop_tile(v, 2, 0), None, None), d * 2,
              lambda: F.scaled_dot_product_attention(q4, k, v, attn_mask=mask,
                                                    enable_gqa=True)),
             ("flash_decode_int8_hot", (kq, vq, ks, vs),
-             (kq, drop_tile(vq, 2, 0), ks, vs), d + 4, None)):
+             (kq, drop_tile(vq, 2, 0), ks, vs), d + 4, None))
+    if d != 64:              # bf16 only: "flash_decode_d128_hot"
+        forms = ((f"flash_decode_d{d}_hot", *forms[0][1:]),)
+    for name, args, faulty, row_bytes, library in forms:
         kk, vv, ksc, vsc = args
         got, got_lse = flash_decode(q, kk, vv, length, ksc, vsc)
         want, want_lse = attention.full_decode(q, kk, vv, length, ksc, vsc)
@@ -1577,20 +1680,8 @@ def phase_serve(torch, dev):
     # the graphed step each 8 steps timed and 2 profiled. The idle share
     # sets the profiled device time against the unprofiled wall time (the
     # profiler's own cost is on the host).
-    llm.clear()
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    llm.prefill(prompts[0], request_id=0)
-    torch.cuda.synchronize()
-    wall = (time.perf_counter() - t) * 1e3
-    busy, n, kernels = profiled(lambda: llm.prefill(prompts[0], request_id=0))
-    log(f"profile: prefill 12000 tokens wall {wall:.1f} ms, device busy "
-        f"{busy:.1f} ms, idle share {max(0.0, 1 - busy / wall):.3f}, "
-        f"{n} launches")
-    for e in kernels[:6]:
-        log(f"  {_device_us(e) / 1e3:9.2f} ms {e.count:5d} calls  {e.key[:70]}")
-    l1 = llm.prefill(prompts[1], request_id=1)
-    tokens = decode(torch.cat([l0.argmax(-1), l1.argmax(-1)]), 4)
+    first = profile_prefill(torch, llm, prompts, "")
+    tokens = decode(first, 4)
     profile_decode(torch, llm, decode, tokens,
                    "decode B=2, 12000 + 7000 tokens")
     if not bool(finite & decode.finite):
@@ -1604,6 +1695,27 @@ def phase_serve(torch, dev):
 
 
 PROFILED_STEPS = 2   # the profiler's processing costs seconds per step
+
+
+def profile_prefill(torch, llm, prompts, label: str):
+    """clear(), then a warm prefill of the first prompt timed and then
+    profiled (wall, device busy, idle share, launches, kernels by device
+    time), then the second prompt into slot 1. Returns the two requests'
+    greedy first tokens."""
+    llm.clear()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    l0 = llm.prefill(prompts[0], request_id=0)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t) * 1e3
+    busy, n, kernels = profiled(lambda: llm.prefill(prompts[0], request_id=0))
+    log(f"profile: {label}prefill {prompts[0].numel()} tokens wall "
+        f"{wall:.1f} ms, device busy {busy:.1f} ms, idle share "
+        f"{max(0.0, 1 - busy / wall):.3f}, {n} launches")
+    for e in kernels[:6]:
+        log(f"  {_device_us(e) / 1e3:9.2f} ms {e.count:5d} calls  {e.key[:70]}")
+    l1 = llm.prefill(prompts[1], request_id=1)
+    return torch.cat([l0.argmax(-1), l1.argmax(-1)])
 
 
 def profile_decode(torch, llm, decode, tokens, label: str) -> None:
@@ -1631,15 +1743,17 @@ def profile_decode(torch, llm, decode, tokens, label: str) -> None:
         log(f"profile: {label} {name}: wall {wall:.2f} ms/step, device busy "
             f"{busy:.3f} ms/step, idle share {max(0.0, 1 - busy / wall):.3f}, "
             f"{launches}")
-        for e in kernels[:8]:
+        for e in kernels[:12]:
             log(f"  {_device_us(e) / n_prof:9.1f} us/step "
                 f"{e.count / n_prof:5.1f} calls/step  {e.key[:70]}")
 
 
 def serve_counted(torch, dev, prompts, lsh, label: str, expect_fn,
                   weight_quant: str = "none", params=None, check_frac=None,
-                  projections=None):
-    """A serve at Llama-3.2-1B width and depth: `params`, or random weights
+                  projections=None, model: str = "llama-3.2-1b",
+                  prefill_profile: bool = False):
+    """A serve of `model` (Llama-3.2-1B by default) at full width and
+    depth: `params`, or random weights
     drawn (and quantized as `weight_quant` says, q/k/v and gate|up fused) on
     the card; the two first requests prefilled, 16 greedy steps (the first
     with each sparse layer's sampled fraction recorded; on the card the
@@ -1648,7 +1762,8 @@ def serve_counted(torch, dev, prompts, lsh, label: str, expect_fn,
     matmul's by weight shape too, under its "w4_shapes"), the sampled or
     realized fraction checked (`check_frac(fraction)` raises, or in (0, 1)
     for a sparse engine), finite logits; then the graphed run held to the
-    eager step (`check_graphed`), then a profiled decode pass of each."""
+    eager step (`check_graphed`), then (with `prefill_profile`) a warm
+    prefill timed and profiled, then a profiled decode pass of each."""
     import dataclasses
 
     from magicpig_tpu_torch.config import preset
@@ -1656,7 +1771,7 @@ def serve_counted(torch, dev, prompts, lsh, label: str, expect_fn,
                                                 reset_launches)
     from magicpig_tpu_torch.runtime.engine import LLM
 
-    cfg = preset("llama-3.2-1b")
+    cfg = preset(model)
     if weight_quant != "none":
         cfg = dataclasses.replace(cfg, weight_quant=weight_quant,
                                   fuse_small_linears=True)
@@ -1703,6 +1818,8 @@ def serve_counted(torch, dev, prompts, lsh, label: str, expect_fn,
         raise AssertionError(f"avg sparsity {llm.avg_sparsity} not in (0, 1)")
     check_graphed(torch, llm, prompts, graphed, label)
     del graphed
+    if prefill_profile:
+        tokens = decode(profile_prefill(torch, llm, prompts, f"{label} "), 4)
     profile_decode(torch, llm, decode, tokens, f"{label} decode B=2, 12000 + "
                    "7000 tokens")
     if not bool(finite & decode.finite):
@@ -1837,6 +1954,34 @@ def phase_serve_bench_modes(torch, dev, prompts):
         block_topk4_expect, weight_quant="int8",
         check_frac=exact_fraction(lsh, prompts))
     return lsh_mode, full_int8, block_topk4
+
+
+def phase_serve_8b(torch, dev):
+    """`LLM("llama-3.1-8b")` at full width and depth (32 layers, hidden 4096,
+    32/8 heads of 128, vocab 128256, untied lm_head) with random bf16
+    weights drawn on the card; LSH K=10, L=150, masked, exact debias, bf16
+    K/V, dense layers 0 and 16; the two prompts of the 1B serves (12000 and
+    7000 random tokens, drawn again from their seed), 16 greedy steps, every
+    launch counted: the d = 128 forms of the prefill, the decode (the dense
+    layers and every sparse layer's hot cache) and the fused LSH kernel;
+    the graphed run held to the eager step; a warm prefill and the decode
+    steps profiled."""
+    from magicpig_tpu_torch.config import LSHConfig
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    prompts = [torch.randint(1, 128256, (n,), generator=gen, device=dev)
+               for n in (12000, 7000)]
+
+    def expect(llm):
+        n, steps = llm.config.num_hidden_layers, 16
+        n_sparse = sum(1 for kind, _ in llm.groups if kind == "sparse")
+        return dict(flash_prefill_d128=2 * n, flash_decode_d128=steps * n,
+                    lsh_fused_decode_d128=steps * n_sparse)
+
+    return serve_counted(torch, dev, prompts, LSHConfig(K=10, L=150),
+                         "llama-3.1-8b LSH", expect, model="llama-3.1-8b",
+                         prefill_profile=True)
 
 
 def card_vs_cpu(torch, dev, lsh, label: str, n_prompt: int = 1500,
@@ -2099,6 +2244,9 @@ def main() -> int:
     try:
         log("phase 2 kernels vs plain versions")
         kern = phase_kernels(torch, F, dev)
+        torch.cuda.empty_cache()
+        kern.update(phase_kernels_d128(torch, F, dev))
+        torch.cuda.empty_cache()
         kern.update(phase_block_kernels(torch, dev))
         torch.cuda.empty_cache()
         kern.update(serve_attend_kernels(torch, dev))
@@ -2125,6 +2273,11 @@ def main() -> int:
     lsh_mode, full_int8, block_topk4 = phase_serve_bench_modes(torch, dev,
                                                                prompts)
     del prompts
+    gc.collect()         # the 1B engines (their graphs hold them in cycles)
+    torch.cuda.empty_cache()
+    log("phase 3 serve llama-3.1-8b")
+    serve_8b = phase_serve_8b(torch, dev)
+    gc.collect()
     torch.cuda.empty_cache()
 
     log("phase 4 reference on a small input")
@@ -2188,11 +2341,19 @@ def main() -> int:
         "magicpig_tpu/ops/pallas/lsh_decode.py:271")
     sources["exact_scores"] = score_src
     sources["flash_decode_int8"] = sources["flash_decode"]
+    # The head-dim-128 forms: their kernels' sources, launches from the 8B
+    # serve; the 12000-token prefill and the hot cache share their form's.
+    for name in ("flash_prefill_d128", "flash_decode_d128",
+                 "lsh_fused_decode_d128"):
+        sources[name] = sources[name[:-len("_d128")]]
+        launches[name] = serve_8b["launches"][name]
     # The phase-2 shapes of the serve's own calls: its 12000-token prompt
     # and the hot caches; launches as their kernel's.
     for shape, kernel in (("flash_prefill_12000", "flash_prefill"),
                           ("flash_decode_hot", "flash_decode"),
-                          ("flash_decode_int8_hot", "flash_decode_int8")):
+                          ("flash_decode_int8_hot", "flash_decode_int8"),
+                          ("flash_prefill_d128_12000", "flash_prefill_d128"),
+                          ("flash_decode_d128_hot", "flash_decode_d128")):
         sources[shape] = sources[kernel]
         launches[shape] = launches[kernel]
     for form in ("_int8", "_poly", "_none", "_int8_poly", "_int8_none"):
@@ -2210,6 +2371,8 @@ def main() -> int:
     for shape, kernel in (("flash_prefill_12000", "flash_prefill"),
                           ("flash_decode_hot", "flash_decode"),
                           ("flash_decode_int8_hot", "flash_decode_int8"),
+                          ("flash_prefill_d128_12000", "flash_prefill_d128"),
+                          ("flash_decode_d128_hot", "flash_decode_d128"),
                           ("collision_words_length", "collision_words")):
         launches_of[shape] = kernel
     for name in ("rescore_attend", "rescore_attend_int4", "block_attend"):

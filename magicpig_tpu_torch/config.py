@@ -25,7 +25,9 @@ ported yet and raises `NotImplementedError`; an unknown decode mode raises
 from __future__ import annotations
 
 import dataclasses
+import json
 import math
+import os
 
 import torch
 
@@ -47,7 +49,8 @@ WEIGHT_QUANTS = ("none", "int8", "int4")
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     """Llama-family transformer shape (full causal attention: the JAX
-    package's sliding window is not ported yet)."""
+    package's sliding window is not ported yet; `from_hf_config` refuses a
+    config that sets one)."""
 
     name: str = "llama-tiny"
     vocab_size: int = 128256
@@ -75,6 +78,52 @@ class ModelConfig:
     def __post_init__(self):
         if self.weight_quant not in WEIGHT_QUANTS:
             raise ValueError(f"unknown weight_quant {self.weight_quant!r}")
+
+    @classmethod
+    def from_hf_config(cls, path_or_dict, name: str = "hf-model") -> "ModelConfig":
+        """Build from a HuggingFace config.json (a path or the parsed dict),
+        as the JAX package's `ModelConfig.from_hf_config` does. A config with
+        a sliding window raises `NotImplementedError`: the port attends the
+        whole causal prefix."""
+        if isinstance(path_or_dict, (str, os.PathLike)):
+            with open(path_or_dict) as f:
+                cfg = json.load(f)
+        else:
+            cfg = dict(path_or_dict)
+        if cfg.get("sliding_window") is not None:
+            raise NotImplementedError(
+                f"sliding_window={cfg['sliding_window']} is not ported; the "
+                "port attends the whole causal prefix")
+        rs = cfg.get("rope_scaling") or None
+        scaling = None
+        if rs is not None:
+            scaling = RopeScaling(
+                rope_type=rs.get("rope_type", rs.get("type", "default")),
+                factor=rs.get("factor", 8.0),
+                low_freq_factor=rs.get("low_freq_factor", 1.0),
+                high_freq_factor=rs.get("high_freq_factor", 4.0),
+                original_max_position_embeddings=rs.get(
+                    "original_max_position_embeddings", 8192))
+        eos = cfg.get("eos_token_id", 2)
+        eos = tuple(eos) if isinstance(eos, (list, tuple)) else (eos,)
+        hidden = cfg["hidden_size"]
+        heads = cfg["num_attention_heads"]
+        return cls(
+            name=name,
+            vocab_size=cfg["vocab_size"],
+            hidden_size=hidden,
+            intermediate_size=cfg["intermediate_size"],
+            num_hidden_layers=cfg["num_hidden_layers"],
+            num_attention_heads=heads,
+            num_key_value_heads=cfg.get("num_key_value_heads", heads),
+            head_dim=cfg.get("head_dim", hidden // heads),
+            rms_norm_eps=cfg.get("rms_norm_eps", 1e-5),
+            rope_theta=cfg.get("rope_theta", 10000.0),
+            rope_scaling=scaling,
+            max_position_embeddings=cfg.get("max_position_embeddings", 131072),
+            tie_word_embeddings=cfg.get("tie_word_embeddings", False),
+            eos_token_ids=eos,
+        )
 
 
 _LLAMA3_SCALING = RopeScaling(
@@ -113,6 +162,65 @@ PRESETS: dict[str, ModelConfig] = {
         head_dim=64,
         rope_scaling=_LLAMA32_SCALING,
         tie_word_embeddings=True,
+    ),
+    # Head dim 128: the kernels' d = 128 forms take group sizes 1, 2, 4 and
+    # 8, so on the card the 3B (group 3) raises their ValueError.
+    "llama-3.2-3b": ModelConfig(
+        name="llama-3.2-3b",
+        hidden_size=3072,
+        intermediate_size=8192,
+        num_hidden_layers=28,
+        num_attention_heads=24,
+        num_key_value_heads=8,
+        head_dim=128,
+        rope_scaling=_LLAMA32_SCALING,
+        tie_word_embeddings=True,
+    ),
+    "llama-3.1-8b": ModelConfig(
+        name="llama-3.1-8b",
+        hidden_size=4096,
+        intermediate_size=14336,
+        num_hidden_layers=32,
+        num_attention_heads=32,
+        num_key_value_heads=8,
+        head_dim=128,
+        rope_scaling=_LLAMA3_SCALING,
+    ),
+    "llama-3.1-70b": ModelConfig(
+        name="llama-3.1-70b",
+        hidden_size=8192,
+        intermediate_size=28672,
+        num_hidden_layers=80,
+        num_attention_heads=64,
+        num_key_value_heads=8,
+        head_dim=128,
+        rope_scaling=_LLAMA3_SCALING,
+    ),
+    "llama-2-7b": ModelConfig(
+        name="llama-2-7b",
+        vocab_size=32000,
+        hidden_size=4096,
+        intermediate_size=11008,
+        num_hidden_layers=32,
+        num_attention_heads=32,
+        num_key_value_heads=32,
+        head_dim=128,
+        rope_theta=10000.0,
+        max_position_embeddings=4096,
+        eos_token_ids=(2,),
+    ),
+    "mistral-7b": ModelConfig(
+        name="mistral-7b",
+        vocab_size=32768,
+        hidden_size=4096,
+        intermediate_size=14336,
+        num_hidden_layers=32,
+        num_attention_heads=32,
+        num_key_value_heads=8,
+        head_dim=128,
+        rope_theta=1000000.0,
+        max_position_embeddings=131072,
+        eos_token_ids=(2,),
     ),
 }
 

@@ -8,18 +8,22 @@
 // masked rows give out 0 and lse -inf.
 //
 // Bound on the H100: reading K and V once, 256 bytes per token and kv head
-// at d = 64 in bf16, 136 in int8 (rows and scales), over 3.35 TB/s; the
-// arithmetic is ~2 flops per byte. Design, one block per (split, kv head,
-// request), the split size chosen by the wrapper from the capacity and the
-// SM count (`chunk`, a multiple of 64 tokens):
+// at d = 64 in bf16 (512 at d = 128), 136 in int8 (rows and scales), over
+// 3.35 TB/s; the arithmetic is ~2 flops per byte. Head dim 64 (bf16 and
+// int8) and 128 (bf16) are instances of one template. Design, one block per
+// (split, kv head, request), the split size chosen by the wrapper from the
+// capacity and the SM count (`chunk`, a multiple of 64 tokens):
 //  - one copy warp: its first lane brings each 64-token tile of K and V
-//    (contiguous in the [B, Hkv, S, 64] layout: 8 KB each in bf16, 4 KB in
-//    int8) with cp.async.bulk into a three-stage ring, only the rows below
-//    the length, and signals a full mbarrier per stage;
+//    (contiguous in the [B, Hkv, S, d] layout: 8 KB each in bf16 at d = 64,
+//    16 KB at d = 128, 4 KB in int8) with cp.async.bulk into a three-stage
+//    ring, only the rows below the length, and signals a full mbarrier per
+//    stage;
 //  - four compute warps, 16 tokens of each tile each, no block barrier per
-//    tile: a lane holds 8 dims of one token (16-byte shared loads, 4 tokens
-//    a pass, conflict-free), the G scores are reduced over 8 lanes, the
-//    online softmax is per warp in registers (log2 units), and each warp
+//    tile: a lane holds 8 dims of one token (16-byte shared loads, 32 / (d
+//    / 8) tokens a pass, conflict-free), the G scores are reduced over the
+//    d / 8 lanes of a token, the online softmax is per warp in registers
+//    (log2 units) over 4 passes at a time (so that the scores of a pass
+//    group take as many registers at d = 128 as at d = 64), and each warp
 //    releases the stage on its empty mbarrier; rows past the length are
 //    never read from device memory, and their scores and V values are
 //    selected away, not multiplied (stale shared memory may hold NaNs);
@@ -35,25 +39,24 @@
 #include <type_traits>
 
 #include "common.cuh"
-#include "decode_common.cuh"
 #include "hopper_common.cuh"
 
 namespace {
 
-constexpr int kD = 64;
 constexpr int kTile = 64;             // tokens per copy
 constexpr int kStages = 3;
 constexpr int kWarps = 4;             // compute warps; one more copies
 constexpr int kThreads = (kWarps + 1) * 32;
+constexpr int kGroupPasses = 4;       // passes a softmax update takes
 
-template <typename T>
+template <typename T, int kD>
 __host__ __device__ constexpr int tile_bytes() {
   return kTile * kD * static_cast<int>(sizeof(T));
 }
 
-template <typename T>
+template <typename T, int kD>
 __host__ __device__ constexpr int smem_bytes() {
-  return 2 * kStages * tile_bytes<T>();
+  return 2 * kStages * tile_bytes<T, kD>();
 }
 
 // Eight consecutive elements of a row as f32.
@@ -81,10 +84,10 @@ __device__ __forceinline__ void load8(const int8_t* p, float (&x)[8]) {
 }
 
 // T: __nv_bfloat16, or int8_t with the row scales k_scale, v_scale [B,
-// Hkv, S] (null for bf16). part_o [nsplit, B * Hq, 64] and part_lse
-// [nsplit, B * Hq] hold the partials of requests with more than one split;
-// tickets [B * Hkv] is 0 between calls.
-template <int G, typename T>
+// Hkv, S] (null for bf16). kD: the head dim, 64 or 128. part_o [nsplit,
+// B * Hq, kD] and part_lse [nsplit, B * Hq] hold the partials of requests
+// with more than one split; tickets [B * Hkv] is 0 between calls.
+template <int G, typename T, int kD>
 __global__ void __launch_bounds__(kThreads)
 flash_decode_kernel(const __nv_bfloat16* __restrict__ q,
                     const T* __restrict__ k, const T* __restrict__ v,
@@ -96,6 +99,10 @@ flash_decode_kernel(const __nv_bfloat16* __restrict__ q,
                     int batch, int s_cap, int hkv, int chunk,
                     float scale_log2) {
   constexpr bool kQ = std::is_same<T, int8_t>::value;
+  constexpr int kC = kD / 8;          // lanes of a token: 8 dims each
+  constexpr int kR = 32 / kC;         // tokens of a pass
+  constexpr int kP = 16 / kR;         // passes over a warp's 16 tokens
+  constexpr int kTileBytes = tile_bytes<T, kD>();
   extern __shared__ __align__(128) uint8_t smem[];
   __shared__ __align__(8) uint64_t full[kStages], empty[kStages];
   __shared__ float red_m[kWarps][G], red_l[kWarps][G];
@@ -121,7 +128,7 @@ flash_decode_kernel(const __nv_bfloat16* __restrict__ q,
   const int ntiles = (stop - start + kTile - 1) / kTile;
   const size_t head = static_cast<size_t>(b) * hkv + kh;
   uint8_t* k_s = smem;                            // stage i at i * tile bytes
-  uint8_t* v_s = smem + kStages * tile_bytes<T>();
+  uint8_t* v_s = smem + kStages * kTileBytes;
 
   if (tid == 0) {
 #pragma unroll
@@ -146,15 +153,15 @@ flash_decode_kernel(const __nv_bfloat16* __restrict__ q,
             min(kTile, stop - t0) * kD * static_cast<int>(sizeof(T));
         hp::mbar_arrive_expect_tx(&full[s], 2 * bytes);
         const size_t off = static_cast<size_t>(t0) * kD;
-        hp::bulk_load(k_s + s * tile_bytes<T>(), k_h + off, bytes, &full[s]);
-        hp::bulk_load(v_s + s * tile_bytes<T>(), v_h + off, bytes, &full[s]);
+        hp::bulk_load(k_s + s * kTileBytes, k_h + off, bytes, &full[s]);
+        hp::bulk_load(v_s + s * kTileBytes, v_h + off, bytes, &full[s]);
       }
     }
     __syncwarp();
   } else {
-    // Compute warp: lane = (token r of 4, dims 8c..8c+7); this warp's tokens
-    // of a tile are warp * 16 + r + 4p, p = 0..3.
-    const int r = lane >> 3, c = lane & 7;
+    // Compute warp: lane = (token r of kR, dims 8c..8c+7); this warp's
+    // tokens of a tile are warp * 16 + r + kR p, p = 0..kP-1.
+    const int r = lane / kC, c = lane % kC;
     const int tok = warp * 16 + r;
     float qf[G][8];
 #pragma unroll
@@ -177,92 +184,97 @@ flash_decode_kernel(const __nv_bfloat16* __restrict__ q,
     for (int i = 0; i < ntiles; ++i) {
       const int s = i % kStages;
       const int t0 = start + i * kTile;
-      bool valid[4];
-      float ksc[4], vsc[4];
+      bool valid[kP];
+      float ksc[kP], vsc[kP];
 #pragma unroll
-      for (int p = 0; p < 4; ++p) {
-        const int t = t0 + tok + 4 * p;
+      for (int p = 0; p < kP; ++p) {
+        const int t = t0 + tok + kR * p;
         valid[p] = t < stop;
         ksc[p] = kQ && valid[p] ? __ldg(ks_h + t) : 1.f;
         vsc[p] = kQ && valid[p] ? __ldg(vs_h + t) : 1.f;
       }
       hp::mbar_wait(&full[s], (i / kStages) & 1);
-      const T* kt = reinterpret_cast<const T*>(k_s + s * tile_bytes<T>());
-      const T* vt = reinterpret_cast<const T*>(v_s + s * tile_bytes<T>());
-
-      float sc[G][4];
+      const T* kt = reinterpret_cast<const T*>(k_s + s * kTileBytes);
+      const T* vt = reinterpret_cast<const T*>(v_s + s * kTileBytes);
 #pragma unroll
-      for (int p = 0; p < 4; ++p) {
-        float kx[8];
-        load8(kt + (tok + 4 * p) * kD + 8 * c, kx);
+      for (int p0 = 0; p0 < kP; p0 += kGroupPasses) {
+        float sc[G][kGroupPasses];
+#pragma unroll
+        for (int p = 0; p < kGroupPasses; ++p) {
+          float kx[8];
+          load8(kt + (tok + kR * (p0 + p)) * kD + 8 * c, kx);
+#pragma unroll
+          for (int g = 0; g < G; ++g) {
+            float a = 0.f;
+#pragma unroll
+            for (int j = 0; j < 8; ++j) a = fmaf(kx[j], qf[g][j], a);
+            sc[g][p] = a;
+          }
+        }
+#pragma unroll
+        for (int g = 0; g < G; ++g)
+#pragma unroll
+          for (int p = 0; p < kGroupPasses; ++p) {
+            float a = sc[g][p];
+#pragma unroll
+            for (int off = 1; off < kC; off <<= 1)
+              a += __shfl_xor_sync(0xffffffffu, a, off);
+            sc[g][p] = valid[p0 + p] ? a * ksc[p0 + p] : mp::kNegInf;
+          }
+        // Online softmax over the group's tokens; the kC lanes of a token
+        // hold the same values, the kR tokens of a pass are lanes kC apart.
 #pragma unroll
         for (int g = 0; g < G; ++g) {
-          float a = 0.f;
+          float mx = fmaxf(fmaxf(sc[g][0], sc[g][1]), fmaxf(sc[g][2], sc[g][3]));
 #pragma unroll
-          for (int j = 0; j < 8; ++j) a = fmaf(kx[j], qf[g][j], a);
-          sc[g][p] = a;
+          for (int off = kC; off < 32; off <<= 1)
+            mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+          const float mn = fmaxf(m[g], mx);
+          const float mu = mn == mp::kNegInf ? 0.f : mn;
+          const float al = hp::ex2(m[g] - mu);
+          float ps = 0.f;
+#pragma unroll
+          for (int p = 0; p < kGroupPasses; ++p) {
+            sc[g][p] = hp::ex2(sc[g][p] - mu);
+            ps += sc[g][p];
+          }
+#pragma unroll
+          for (int off = kC; off < 32; off <<= 1)
+            ps += __shfl_xor_sync(0xffffffffu, ps, off);
+          l[g] = l[g] * al + ps;
+          m[g] = mn;
+#pragma unroll
+          for (int j = 0; j < 8; ++j) acc[g][j] *= al;
         }
-      }
 #pragma unroll
-      for (int g = 0; g < G; ++g)
+        for (int p = 0; p < kGroupPasses; ++p) {
+          float vx[8];
+          load8(vt + (tok + kR * (p0 + p)) * kD + 8 * c, vx);
 #pragma unroll
-        for (int p = 0; p < 4; ++p) {
-          float a = sc[g][p];
-          a += __shfl_xor_sync(0xffffffffu, a, 1);
-          a += __shfl_xor_sync(0xffffffffu, a, 2);
-          a += __shfl_xor_sync(0xffffffffu, a, 4);
-          sc[g][p] = valid[p] ? a * ksc[p] : mp::kNegInf;
-        }
-      // Online softmax over the warp's 16 tokens; the 8 lanes of a token
-      // hold the same values, the 4 tokens of a pass are lanes 8 apart.
+          for (int j = 0; j < 8; ++j) vx[j] = valid[p0 + p] ? vx[j] : 0.f;
 #pragma unroll
-      for (int g = 0; g < G; ++g) {
-        float mx = fmaxf(fmaxf(sc[g][0], sc[g][1]), fmaxf(sc[g][2], sc[g][3]));
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 8));
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 16));
-        const float mn = fmaxf(m[g], mx);
-        const float mu = mn == mp::kNegInf ? 0.f : mn;
-        const float al = hp::ex2(m[g] - mu);
-        float ps = 0.f;
+          for (int g = 0; g < G; ++g) {
+            // The TPU kernel's P.V operand: p (times the V scale) in bf16.
+            const float w =
+                __bfloat162float(__float2bfloat16_rn(sc[g][p] * vsc[p0 + p]));
 #pragma unroll
-        for (int p = 0; p < 4; ++p) {
-          sc[g][p] = hp::ex2(sc[g][p] - mu);
-          ps += sc[g][p];
-        }
-        ps += __shfl_xor_sync(0xffffffffu, ps, 8);
-        ps += __shfl_xor_sync(0xffffffffu, ps, 16);
-        l[g] = l[g] * al + ps;
-        m[g] = mn;
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[g][j] *= al;
-      }
-#pragma unroll
-      for (int p = 0; p < 4; ++p) {
-        float vx[8];
-        load8(vt + (tok + 4 * p) * kD + 8 * c, vx);
-#pragma unroll
-        for (int j = 0; j < 8; ++j) vx[j] = valid[p] ? vx[j] : 0.f;
-#pragma unroll
-        for (int g = 0; g < G; ++g) {
-          // The TPU kernel's P.V operand: p (times the V scale) in bf16.
-          const float w =
-              __bfloat162float(__float2bfloat16_rn(sc[g][p] * vsc[p]));
-#pragma unroll
-          for (int j = 0; j < 8; ++j) acc[g][j] = fmaf(w, vx[j], acc[g][j]);
+            for (int j = 0; j < 8; ++j) acc[g][j] = fmaf(w, vx[j], acc[g][j]);
+          }
         }
       }
       __syncwarp();
       if (lane == 0) hp::mbar_arrive(&empty[s]);
     }
 
-    // The warp's state: accumulators summed over its 4 token lanes.
+    // The warp's state: accumulators summed over its kR token lanes.
 #pragma unroll
     for (int g = 0; g < G; ++g)
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         float a = acc[g][j];
-        a += __shfl_xor_sync(0xffffffffu, a, 8);
-        a += __shfl_xor_sync(0xffffffffu, a, 16);
+#pragma unroll
+        for (int off = kC; off < 32; off <<= 1)
+          a += __shfl_xor_sync(0xffffffffu, a, off);
         if (r == 0) red_o[warp][g][8 * c + j] = a;
       }
     if (lane == 0)
@@ -334,7 +346,7 @@ flash_decode_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-template <int G, typename T>
+template <int G, typename T, int kD>
 int launch_decode(const void* q, const void* k, const void* v,
                   const void* k_scale, const void* v_scale,
                   const void* length, void* part_o, void* part_lse,
@@ -342,10 +354,12 @@ int launch_decode(const void* q, const void* k, const void* v,
                   int hkv, int chunk, float sm_scale, cudaStream_t stream) {
   static unsigned smem_set = 0;
   const cudaError_t err =
-      hp::allow_smem(flash_decode_kernel<G, T>, smem_bytes<T>(), smem_set);
+      hp::allow_smem(flash_decode_kernel<G, T, kD>, smem_bytes<T, kD>(),
+                     smem_set);
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid((s_cap + chunk - 1) / chunk, hkv, batch);
-  flash_decode_kernel<G, T><<<grid, kThreads, smem_bytes<T>(), stream>>>(
+  flash_decode_kernel<G, T, kD>
+      <<<grid, kThreads, smem_bytes<T, kD>(), stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const float*>(k_scale),
       static_cast<const float*>(v_scale), static_cast<const int*>(length),
@@ -359,8 +373,8 @@ int launch_decode(const void* q, const void* k, const void* v,
 }  // namespace
 
 // k_scale and v_scale null: bf16 K/V; both set: int8 K/V with those
-// per-token scales [B, Hkv, S]. `chunk`: tokens per split, a positive
-// multiple of 64.
+// per-token scales [B, Hkv, S]. head_dim: 64, or 128 for bf16 K/V.
+// `chunk`: tokens per split, a positive multiple of 64.
 extern "C" int mp_flash_decode(const void* q, const void* k, const void* v,
                                const void* k_scale, const void* v_scale,
                                const void* length, void* part_o,
@@ -368,19 +382,25 @@ extern "C" int mp_flash_decode(const void* q, const void* k, const void* v,
                                void* lse, int batch, int s_cap, int hq,
                                int hkv, int head_dim, int chunk,
                                float sm_scale, void* stream) {
-  if (head_dim != kD || hkv <= 0 || hq % hkv != 0 || chunk <= 0 ||
-      chunk % kTile != 0 || (k_scale == nullptr) != (v_scale == nullptr))
+  const bool quant = k_scale != nullptr;
+  if ((head_dim != 64 && (head_dim != 128 || quant)) || hkv <= 0 ||
+      hq % hkv != 0 || chunk <= 0 || chunk % kTile != 0 ||
+      (k_scale == nullptr) != (v_scale == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   if (batch == 0 || s_cap == 0) return static_cast<int>(cudaSuccess);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool quant = k_scale != nullptr;
 #define MP_DECODE_CASE(G)                                                    \
   case G:                                                                    \
-    return quant ? launch_decode<G, int8_t>(q, k, v, k_scale, v_scale,       \
-                                            length, part_o, part_lse,        \
-                                            tickets, out, lse, batch, s_cap, \
-                                            hkv, chunk, sm_scale, st)        \
-                 : launch_decode<G, __nv_bfloat16>(                          \
+    if (head_dim == 128)                                                     \
+      return launch_decode<G, __nv_bfloat16, 128>(                           \
+          q, k, v, nullptr, nullptr, length, part_o, part_lse, tickets, out, \
+          lse, batch, s_cap, hkv, chunk, sm_scale, st);                      \
+    return quant ? launch_decode<G, int8_t, 64>(q, k, v, k_scale, v_scale,   \
+                                                length, part_o, part_lse,    \
+                                                tickets, out, lse, batch,    \
+                                                s_cap, hkv, chunk, sm_scale, \
+                                                st)                          \
+                 : launch_decode<G, __nv_bfloat16, 64>(                      \
                        q, k, v, nullptr, nullptr, length, part_o, part_lse,  \
                        tickets, out, lse, batch, s_cap, hkv, chunk,          \
                        sm_scale, st);

@@ -5,19 +5,27 @@
 // positions q_offset[b] + i attend keys t with t <= position, t < length[b]
 // and, with a window, position - t < window; optional natural-log LSE out.
 //
-// Bound on the H100: at Llama-3.2-1B width an 8K prompt is ~275 GFLOP of
-// attention per layer against ~50 MB of q/k/v/out, so the kernel is
-// compute-bound and has to run on the tensor cores at the warpgroup rate.
+// Bound on the H100: at Llama-3.2-1B width (d = 64) an 8K prompt is ~275
+// GFLOP of attention per layer against ~50 MB of q/k/v/out, at
+// Llama-3.1-8B width (d = 128) twice both, so the kernel is compute-bound
+// and has to run on the tensor cores at the warpgroup rate. One template
+// for head dims 64 and 128: a tile's rows are d * 2 bytes, and the
+// 128-byte swizzle spans 64 columns, so a tile is d / 64 column halves of
+// 128-byte rows, each its own TMA box and swizzle pattern (16 KB for 128
+// rows) placed one after the other.
 // Design, one block per (128 queries, query head, request), 384 threads:
 //  - a producer warpgroup (40 registers after setmaxnreg) whose first
 //    thread brings the Q tile and then 128-key K and V tiles by TMA, with
 //    the 128-byte swizzle, into a two-stage ring of shared memory, each
-//    stage with a full and an empty mbarrier for K and for V;
+//    stage with a full and an empty mbarrier for K and for V (161 KB of
+//    shared memory at d = 128);
 //  - two consumer warpgroups (232 registers), 64 query rows each:
-//    S = Q K^T on wgmma m64n128k16 from shared memory, the online softmax
-//    in registers on the accumulator layout (log2 units), P rounded to bf16
-//    in registers as the A operand of O += P V on wgmma m64n64k16, V read
-//    through a transposed (MN-major) descriptor;
+//    S = Q K^T on wgmma m64n128k16 from shared memory (d / 16 k-steps, the
+//    descriptor moving to the next column half after 4), the online
+//    softmax in registers on the accumulator layout (log2 units), P
+//    rounded to bf16 in registers as the A operand of O += P V on wgmma
+//    m64n64k16, one per column half of V, read through a transposed
+//    (MN-major) descriptor;
 //  - the G query heads of a kv head sit in neighbouring blocks and share
 //    each K/V tile through L2 (K and V of an 8K layer are 16 MB);
 //  - only key tiles that some row of the block can see are loaded; the
@@ -33,14 +41,24 @@
 
 namespace {
 
-constexpr int kD = 64;                          // head dim
 constexpr int kBM = 128;                        // query rows per block
 constexpr int kBN = 128;                        // keys per K/V tile
 constexpr int kStages = 2;
 constexpr int kThreads = 384;                   // producer + 2 consumers
-constexpr uint32_t kTileBytes = kBN * kD * 2;   // a K, V or Q tile: 16 KB
-constexpr int kSmemBytes = (1 + 2 * kStages) * kTileBytes + 1024;
+constexpr uint32_t kHalfBytes = kBN * 64 * 2;   // 64 columns of a tile: 16 KB
 
+// A K, V or Q tile of head dim kD: kD / 64 column halves.
+template <int kD>
+__host__ __device__ constexpr uint32_t tile_bytes() {
+  return kHalfBytes * (kD / 64);
+}
+
+template <int kD>
+__host__ __device__ constexpr int smem_bytes() {
+  return (1 + 2 * kStages) * tile_bytes<kD>() + 1024;
+}
+
+template <int kD>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_prefill_kernel(const __grid_constant__ CUtensorMap tm_q,
                      const __grid_constant__ CUtensorMap tm_k,
@@ -50,6 +68,8 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap tm_q,
                      __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
                      int sq, int skv, int hq, int hkv, int window,
                      int n_qtiles, float scale_log2) {
+  constexpr int kHalves = kD / 64;
+  constexpr uint32_t kTileBytes = tile_bytes<kD>();
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t q_full;
   __shared__ __align__(8) uint64_t k_full[kStages], k_empty[kStages];
@@ -95,17 +115,25 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap tm_q,
     hp::regs_dec<40>();
     if (threadIdx.x == 0 && ntiles > 0) {
       hp::mbar_arrive_expect_tx(&q_full, kTileBytes);
-      hp::tma_load_4d(q_s, &tm_q, 0, h, q0, b, &q_full);
+#pragma unroll
+      for (int c = 0; c < kHalves; ++c)
+        hp::tma_load_4d(q_s + c * kHalfBytes, &tm_q, 64 * c, h, q0, b, &q_full);
       for (int i = 0; i < ntiles; ++i) {
         const int s = i % kStages;
         const uint32_t round = i / kStages;
         const int t0 = t_begin + i * kBN;
         if (i >= kStages) hp::mbar_wait(&k_empty[s], (round - 1) & 1);
         hp::mbar_arrive_expect_tx(&k_full[s], kTileBytes);
-        hp::tma_load_4d(k_s + s * kTileBytes, &tm_k, 0, kh, t0, b, &k_full[s]);
+#pragma unroll
+        for (int c = 0; c < kHalves; ++c)
+          hp::tma_load_4d(k_s + s * kTileBytes + c * kHalfBytes, &tm_k, 64 * c,
+                          kh, t0, b, &k_full[s]);
         if (i >= kStages) hp::mbar_wait(&v_empty[s], (round - 1) & 1);
         hp::mbar_arrive_expect_tx(&v_full[s], kTileBytes);
-        hp::tma_load_4d(v_s + s * kTileBytes, &tm_v, 0, kh, t0, b, &v_full[s]);
+#pragma unroll
+        for (int c = 0; c < kHalves; ++c)
+          hp::tma_load_4d(v_s + s * kTileBytes + c * kHalfBytes, &tm_v, 64 * c,
+                          kh, t0, b, &v_full[s]);
       }
     }
     return;
@@ -120,11 +148,14 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int gr = lane >> 2, tq = lane & 3;
   const int r0 = cw * 64 + warp * 16 + gr;
   const int pos0 = qoff + q0 + r0, pos1 = pos0 + 8;
+  // The warpgroup's rows of each column half of Q.
   const uint64_t q_desc = hp::sw128_desc(q_s + cw * 64 * 128);
 
-  float o[32];
+  float o[kHalves][32];                         // O's columns 64 c .. 64 c + 63
 #pragma unroll
-  for (int i = 0; i < 32; ++i) o[i] = 0.f;
+  for (int c = 0; c < kHalves; ++c)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[c][i] = 0.f;
   float m0 = mp::kNegInf, m1 = mp::kNegInf;     // running max, raw scores
   float l0 = 0.f, l1 = 0.f;                     // this thread's partial sums
 
@@ -134,14 +165,17 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap tm_q,
     const uint32_t parity = (i / kStages) & 1;
     const int t0 = t_begin + i * kBN;
 
-    // S = Q K^T over d = 64: four k-steps of 16 (32 bytes each).
+    // S = Q K^T: d / 16 k-steps of 16 (32 bytes each), four in each column
+    // half (16 KB further on: 1024 in the descriptor's 16-byte units).
     float sc[64];
     const uint64_t k_desc = hp::sw128_desc(k_s + s * kTileBytes);
     hp::mbar_wait(&k_full[s], parity);
     hp::wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < kD / 16; ++kk)
-      hp::wgmma_ss_m64n128k16(sc, q_desc + 2 * kk, k_desc + 2 * kk, kk);
+    for (int kk = 0; kk < kD / 16; ++kk) {
+      const uint64_t step = (kk / 4) * (kHalfBytes >> 4) + 2 * (kk % 4);
+      hp::wgmma_ss_m64n128k16(sc, q_desc + step, k_desc + step, kk);
+    }
     hp::wgmma_commit();
     hp::wgmma_wait<0>();
     hp::fence_regs(sc);
@@ -203,32 +237,41 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap tm_q,
     l0 = l0 * al0 + ps0;
     l1 = l1 * al1 + ps1;
 #pragma unroll
-    for (int j = 0; j < kD / 8; ++j) {
-      o[4 * j] *= al0;
-      o[4 * j + 1] *= al0;
-      o[4 * j + 2] *= al1;
-      o[4 * j + 3] *= al1;
-    }
+    for (int c = 0; c < kHalves; ++c)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        o[c][4 * j] *= al0;
+        o[c][4 * j + 1] *= al0;
+        o[c][4 * j + 2] *= al1;
+        o[c][4 * j + 3] *= al1;
+      }
 
-    // O += P V: 8 k-steps of 16 keys (16 rows of 128 bytes each).
+    // O += P V: 8 k-steps of 16 keys (16 rows of 128 bytes each), in each
+    // column half.
     uint8_t* v_tile = v_s + s * kTileBytes;
     hp::mbar_wait(&v_full[s], parity);
     if (t0 + kBN > len && len < skv) {            // block-uniform
       const uint4 zero = make_uint4(0, 0, 0, 0);
       uint4* rows = reinterpret_cast<uint4*>(v_tile);
       for (int c = max(len - t0, 0) * 8 + cw * 128 + tw; c < kBN * 8; c += 256)
-        rows[c] = zero;                           // a whole row: swizzle-free
+#pragma unroll
+        for (int hf = 0; hf < kHalves; ++hf)      // a whole row: swizzle-free
+          rows[hf * (kHalfBytes / 16) + c] = zero;
       hp::fence_proxy_async();
       hp::named_barrier(1, 256);
     }
     const uint64_t v_desc = hp::sw128_desc(v_tile);
     hp::wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < kBN / 16; ++kk)
-      hp::wgmma_rs_m64n64k16(o, pa[kk], v_desc + 128 * kk, 1);
+    for (int c = 0; c < kHalves; ++c)
+#pragma unroll
+      for (int kk = 0; kk < kBN / 16; ++kk)
+        hp::wgmma_rs_m64n64k16(o[c], pa[kk],
+                               v_desc + c * (kHalfBytes >> 4) + 128 * kk, 1);
     hp::wgmma_commit();
     hp::wgmma_wait<0>();
-    hp::fence_regs(o);
+#pragma unroll
+    for (int c = 0; c < kHalves; ++c) hp::fence_regs(o[c]);
 #pragma unroll
     for (int kk = 0; kk < kBN / 16; ++kk) hp::fence_regs(pa[kk]);
     __syncwarp();
@@ -244,27 +287,34 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap tm_q,
   const float inv0 = l0 > 0.f ? 1.f / l0 : 0.f;
   const float inv1 = l1 > 0.f ? 1.f / l1 : 0.f;
 
-  // Stage this warpgroup's 64 rows in its (consumed) half of the Q tile,
-  // 16-byte chunk c of row r at chunk c ^ (r % 8): conflict-free both ways.
+  // Stage this warpgroup's 64 rows in its (consumed) rows of the Q tile,
+  // column half by column half: 16-byte chunk j of row r of a half at chunk
+  // j ^ (r % 8), conflict-free both ways.
   uint8_t* stage = q_s + cw * 64 * 128;
   const int lr = warp * 16 + gr;                  // local row; lr + 8 too
 #pragma unroll
-  for (int j = 0; j < kD / 8; ++j) {
-    const int off = ((j ^ (lr & 7)) << 4) + tq * 4;
-    *reinterpret_cast<uint32_t*>(stage + lr * 128 + off) =
-        mp::pack_f32_as_bf16(o[4 * j] * inv0, o[4 * j + 1] * inv0);
-    *reinterpret_cast<uint32_t*>(stage + (lr + 8) * 128 + off) =
-        mp::pack_f32_as_bf16(o[4 * j + 2] * inv1, o[4 * j + 3] * inv1);
-  }
+  for (int c = 0; c < kHalves; ++c)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      uint8_t* half = stage + c * kHalfBytes;
+      const int off = ((j ^ (lr & 7)) << 4) + tq * 4;
+      *reinterpret_cast<uint32_t*>(half + lr * 128 + off) =
+          mp::pack_f32_as_bf16(o[c][4 * j] * inv0, o[c][4 * j + 1] * inv0);
+      *reinterpret_cast<uint32_t*>(half + (lr + 8) * 128 + off) =
+          mp::pack_f32_as_bf16(o[c][4 * j + 2] * inv1,
+                               o[c][4 * j + 3] * inv1);
+    }
   hp::named_barrier(2 + cw, 128);
-  for (int c = tw; c < 64 * 8; c += 128) {
-    const int row = c >> 3, ch = c & 7;
+  constexpr int kChunks = kD / 8;                 // 16-byte chunks of a row
+  for (int i = tw; i < 64 * kChunks; i += 128) {
+    const int row = i / kChunks, ch = i % kChunks;
     const int qi = q0 + cw * 64 + row;
     if (qi < sq)
       *reinterpret_cast<uint4*>(
           out + ((static_cast<size_t>(b) * sq + qi) * hq + h) * kD + ch * 8) =
-          *reinterpret_cast<const uint4*>(stage + row * 128 +
-                                          ((ch ^ (row & 7)) << 4));
+          *reinterpret_cast<const uint4*>(stage + (ch / 8) * kHalfBytes +
+                                          row * 128 +
+                                          (((ch % 8) ^ (row & 7)) << 4));
   }
   if (tq == 0 && lse != nullptr) {
     const int qi0 = q0 + r0, qi1 = qi0 + 8;
@@ -278,22 +328,45 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
+template <int kD>
+int launch_prefill(const CUtensorMap& tm_q, const CUtensorMap& tm_k,
+                   const CUtensorMap& tm_v, const void* length,
+                   const void* q_offset, void* out, void* lse, int batch,
+                   int sq, int skv, int hq, int hkv, int window,
+                   float sm_scale, cudaStream_t stream) {
+  static unsigned smem_set = 0;
+  const cudaError_t err =
+      hp::allow_smem(flash_prefill_kernel<kD>, smem_bytes<kD>(), smem_set);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int n_qtiles = (sq + kBM - 1) / kBM;
+  flash_prefill_kernel<kD><<<n_qtiles * hq * batch, kThreads,
+                             smem_bytes<kD>(), stream>>>(
+      tm_q, tm_k, tm_v, static_cast<const int*>(length),
+      static_cast<const int*>(q_offset), static_cast<__nv_bfloat16*>(out),
+      static_cast<float*>(lse), sq, skv, hq, hkv, window, n_qtiles,
+      sm_scale * mp::kLog2e);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
+// head_dim: 64 or 128.
 extern "C" int mp_flash_prefill(const void* q, const void* k, const void* v,
                                 const void* length, const void* q_offset,
                                 void* out, void* lse, int batch, int sq,
                                 int skv, int hq, int hkv, int head_dim,
                                 int window, float sm_scale, void* stream) {
-  if (head_dim != kD || hkv <= 0 || hq % hkv != 0 || batch <= 0 || sq <= 0 ||
-      skv < 0)
+  if ((head_dim != 64 && head_dim != 128) || hkv <= 0 || hq % hkv != 0 ||
+      batch <= 0 || sq <= 0 || skv < 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const uint32_t box[4] = {kD, 1, kBN, 1};
+  // Boxes of 64 columns (one 128-byte swizzle span) by 128 rows.
+  const uint32_t box[4] = {64, 1, kBN, 1};
   CUtensorMap tm_q, tm_k, tm_v;
-  const uint64_t qdim[4] = {kD, static_cast<uint64_t>(hq),
+  const uint64_t d = static_cast<uint64_t>(head_dim);
+  const uint64_t qdim[4] = {d, static_cast<uint64_t>(hq),
                             static_cast<uint64_t>(sq),
                             static_cast<uint64_t>(batch)};
-  const uint64_t kdim[4] = {kD, static_cast<uint64_t>(hkv),
+  const uint64_t kdim[4] = {d, static_cast<uint64_t>(hkv),
                             static_cast<uint64_t>(skv),
                             static_cast<uint64_t>(batch)};
   if (!hp::bf16_map_4d(&tm_q, q, qdim, box))
@@ -305,16 +378,11 @@ extern "C" int mp_flash_prefill(const void* q, const void* k, const void* v,
              !hp::bf16_map_4d(&tm_v, v, kdim, box)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  static unsigned smem_set = 0;
-  const cudaError_t err =
-      hp::allow_smem(flash_prefill_kernel, kSmemBytes, smem_set);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int n_qtiles = (sq + kBM - 1) / kBM;
-  flash_prefill_kernel<<<n_qtiles * hq * batch, kThreads, kSmemBytes,
-                         static_cast<cudaStream_t>(stream)>>>(
-      tm_q, tm_k, tm_v, static_cast<const int*>(length),
-      static_cast<const int*>(q_offset), static_cast<__nv_bfloat16*>(out),
-      static_cast<float*>(lse), sq, skv, hq, hkv, window, n_qtiles,
-      sm_scale * mp::kLog2e);
-  return static_cast<int>(cudaGetLastError());
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return head_dim == 64
+             ? launch_prefill<64>(tm_q, tm_k, tm_v, length, q_offset, out, lse,
+                                  batch, sq, skv, hq, hkv, window, sm_scale, st)
+             : launch_prefill<128>(tm_q, tm_k, tm_v, length, q_offset, out,
+                                   lse, batch, sq, skv, hq, hkv, window,
+                                   sm_scale, st);
 }

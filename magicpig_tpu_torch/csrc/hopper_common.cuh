@@ -304,9 +304,9 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// A bf16 tensor [d3, d2, d1, d0] (d0 contiguous, d0 * 2 = 128 bytes) read
-// in boxes of `box` (innermost first) with the 128-byte swizzle. Returns
-// false when the driver refuses it.
+// A bf16 tensor [d3, d2, d1, d0] (d0 contiguous, d0 * 2 a multiple of 128
+// bytes) read in boxes of `box` (innermost first, box[0] * 2 = 128 bytes)
+// with the 128-byte swizzle. Returns false when the driver refuses it.
 inline bool bf16_map_4d(CUtensorMap* map, const void* base,
                         const uint64_t (&dims)[4], const uint32_t (&box)[4]) {
   EncodeTiledFn fn = encode_tiled();

@@ -8,6 +8,11 @@
 // weighted V sum over the sampled rows only, the sampled count, and the
 // merge of the splits.
 //
+// Head dim 64 (every form) or 128 (bf16 K/V, the exact debias, the scan:
+// Llama-3.1-8B's decode) are instances of one template; a gathered row is
+// d * 2 bytes of bf16 (d of int8), and P.V gives each of the four warps d
+// / 4 output dims.
+//
 // K/V come bf16, or int8 with per-token f32 scales (the TPU kernels'
 // quant=True form: the raw score is q . K_int8 times the K scale, the
 // cosine uses the stored norms of the dequantized keys, and the V scale
@@ -53,7 +58,6 @@
 
 #include "collide_common.cuh"
 #include "common.cuh"
-#include "decode_common.cuh"
 #include "hopper_common.cuh"
 
 namespace mp {
@@ -67,7 +71,7 @@ constexpr float kDebiasEps = 1e-4f;
 constexpr int kPolyTerms = 21;         // degree 20
 constexpr int kMaxDynSmem = 227 * 1024;  // a block's most on the H100
 constexpr int kScanRingBytes = 40 * 1024;  // the fused scan's ring: the size
-                                           // of a pass's bf16 rows
+                                           // of a pass's bf16 rows at d = 64
 
 // Debias forms (LSHConfig.lsh_debias), a template parameter of the kernel.
 enum Debias : int { kExact = 0, kPoly = 1, kNone = 2 };
@@ -80,7 +84,7 @@ struct PolyCoef {
 // q_bits [B, Hq, L, K] for the scan (with the planes' tensor map when
 // scan_tma is set, and scan_tables tables a ring stage), or words
 // [B, Hq, S/32] (the other pointers null). k_scale, v_scale [B, Hkv, S]:
-// int8 K/V only. Partials [nsplit, B * Hq] (part_o with 64 values a row);
+// int8 K/V only. Partials [nsplit, B * Hq] (part_o with d values a row);
 // tickets [B * Hkv], 0 between calls.
 struct LshArgs {
   CUtensorMap plane_map;
@@ -93,10 +97,12 @@ struct LshArgs {
   PolyCoef poly;
 };
 
-// kScan: the fused kernel's, whose union also holds the scan's ring.
-template <int G, typename T, bool kScan>
+// kScan: the fused kernel's, whose union also holds the scan's ring (the
+// same 40 KB at both head dims; the rows' 80 KB at d = 128 are the union's
+// size there). kD: the head dim.
+template <int G, typename T, bool kScan, int kD>
 struct __align__(128) LshSmem {
-  static constexpr int kRowBytes = kDecD * static_cast<int>(sizeof(T));
+  static constexpr int kRowBytes = kD * static_cast<int>(sizeof(T));
   static constexpr int kRingBytes = kScan ? kScanRingBytes : 128;
   union {
     uint8_t ring[kRingBytes];          // the scan's stages (128-aligned)
@@ -106,7 +112,7 @@ struct __align__(128) LshSmem {
       uint8_t v[kLshCap * kRowBytes];
     } rows;
   } u;
-  float qf[G][kDecD];                  // raw query
+  float qf[G][kD];                     // raw query
   float ps[G * kLshCap];               // the pass's pair scores, then p
   float knorm[kLshCap];
   float ksc[kLshCap];                  // int8 only
@@ -128,27 +134,36 @@ struct __align__(128) LshSmem {
 
 // Byte offset of 16-byte unit `unit` of gathered K row `row` (kUnits units
 // a row): within each 128-byte line the unit index is XORed with the
-// line's index, so that lanes reading the same unit of different rows hit
-// distinct banks.
+// line's index (rows of 4 units) or the row's (rows of 8 or more: a row
+// spans kUnits / 8 lines), so that lanes reading the same unit of
+// different rows hit distinct banks.
 template <int kUnits>
 __device__ __forceinline__ int k_unit(int row, int unit) {
-  const int lin = row * kUnits + unit, line = lin >> 3;
-  return line * 128 + 16 * ((lin & 7) ^ (line & 7));
+  if constexpr (kUnits >= 8) {
+    const int line = row * (kUnits / 8) + unit / 8;
+    return line * 128 + 16 * ((unit & 7) ^ (row & 7));
+  } else {
+    const int lin = row * kUnits + unit, line = lin >> 3;
+    return line * 128 + 16 * ((lin & 7) ^ (line & 7));
+  }
 }
 
-// q . K for one gathered K row.
+// q . K for one gathered K row of kD values.
+template <int kD>
 __device__ __forceinline__ float key_dot(const uint8_t* kbuf, int row,
                                          const float* qg,
                                          const __nv_bfloat16*) {
   float acc = 0.f;
 #pragma unroll
-  for (int u = 0; u < 8; ++u)
-    acc += dot8(*reinterpret_cast<const uint4*>(kbuf + k_unit<8>(row, u)),
+  for (int u = 0; u < kD / 8; ++u)
+    acc += dot8(*reinterpret_cast<const uint4*>(kbuf + k_unit<kD / 8>(row, u)),
                 qg + 8 * u);
   return acc;
 }
+template <int kD>
 __device__ __forceinline__ float key_dot(const uint8_t* kbuf, int row,
                                          const float* qg, const int8_t*) {
+  static_assert(kD == 64, "int8 rows: head dim 64");
   float acc = 0.f;
 #pragma unroll
   for (int u = 0; u < 4; ++u) {
@@ -171,15 +186,17 @@ __device__ __forceinline__ uint32_t bf16_bits(int8_t x) {
 }
 
 // T: __nv_bfloat16, or int8_t with the row scales. kDebias: a Debias
-// form. kWords: selection words given (else scanned from the planes).
-template <int G, typename T, int kDebias, bool kWords>
+// form. kWords: selection words given (else scanned from the planes). kD:
+// the head dim.
+template <int G, typename T, int kDebias, bool kWords, int kD>
 __global__ void __launch_bounds__(kLshThreads)
 lsh_split_kernel(const __grid_constant__ LshArgs a) {
   constexpr bool kQ = std::is_same<T, int8_t>::value;
-  using Smem = LshSmem<G, T, !kWords>;
+  using Smem = LshSmem<G, T, !kWords, kD>;
   constexpr int kRowBytes = Smem::kRowBytes;
   constexpr int kUnits = kRowBytes / 16;
   constexpr int kWarps = kLshThreads / 32;
+  constexpr int kNT = kD / (8 * kWarps);      // P.V n-tiles of 8 a warp
   extern __shared__ __align__(128) uint8_t lsh_smem[];
   Smem& sm = *reinterpret_cast<Smem*>(lsh_smem);
 
@@ -194,8 +211,8 @@ lsh_split_kernel(const __grid_constant__ LshArgs a) {
   const size_t row = static_cast<size_t>(b) * hq + kh * G;  // first head's
   if (split >= n_act) {
     if (split == 0)                                  // an empty request
-      for (int i = tid; i < G * kDecD; i += kLshThreads) {
-        a.out[row * kDecD + i] = 0.f;
+      for (int i = tid; i < G * kD; i += kLshThreads) {
+        a.out[row * kD + i] = 0.f;
         if (i < G) {
           a.lse[row + i] = kNegInf;
           a.cnt[row + i] = 0.f;
@@ -228,8 +245,8 @@ lsh_split_kernel(const __grid_constant__ LshArgs a) {
   // the given words load beside them (the scan's query bits come with its
   // stages).
   const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(a.q);
-  for (int i = tid; i < G * kDecD; i += kLshThreads)
-    sm.qf[i / kDecD][i % kDecD] = __bfloat162float(q[row * kDecD + i]);
+  for (int i = tid; i < G * kD; i += kLshThreads)
+    sm.qf[i / kD][i % kD] = __bfloat162float(q[row * kD + i]);
   if constexpr (kWords) {
     for (int i = tid; i < G * nw; i += kLshThreads) {
       const int g = i / nw, w = i % nw, first = start + 32 * w;
@@ -242,8 +259,10 @@ lsh_split_kernel(const __grid_constant__ LshArgs a) {
   }
   __syncthreads();
   for (int g = warp; g < G; g += kWarps) {
-    const float x0 = sm.qf[g][lane], x1 = sm.qf[g][lane + 32];
-    const float s = warp_sum(x0 * x0 + x1 * x1);
+    float x2 = 0.f;
+#pragma unroll
+    for (int j = lane; j < kD; j += 32) x2 += sm.qf[g][j] * sm.qf[g][j];
+    const float s = warp_sum(x2);
     if (lane == 0) {
       sm.qnorm[g] = sqrtf(s);
       sm.m[g] = kNegInf;
@@ -321,11 +340,11 @@ lsh_split_kernel(const __grid_constant__ LshArgs a) {
   const float* ks_h = kQ ? static_cast<const float*>(a.k_scale) + head_off : nullptr;
   const float* vs_h = kQ ? static_cast<const float*>(a.v_scale) + head_off : nullptr;
   const float fK = static_cast<float>(K), fL = static_cast<float>(L);
-  // P.V on mma.sync: warp w owns output dims 16w .. 16w + 15 (two n-tiles
-  // of 8); lane (r = lane / 4, t = lane % 4) accumulates head r's dims
-  // 16w + 8nt + 2t + {0, 1} (heads r >= G are zero rows of P).
+  // P.V on mma.sync: warp w owns output dims 8 kNT w .. 8 kNT (w + 1) - 1
+  // (kNT n-tiles of 8); lane (r = lane / 4, t = lane % 4) accumulates head
+  // r's dims 8 kNT w + 8nt + 2t + {0, 1} (heads r >= G are zero rows of P).
   const int pr = lane >> 2, pt = lane & 3;
-  float acc[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+  float acc[kNT][2] = {};
 
   for (int w0 = 0; w0 < nw;) {
     // The pass: words w0 .. w1 - 1, the longest run whose rows fit (the
@@ -399,8 +418,8 @@ lsh_split_kernel(const __grid_constant__ LshArgs a) {
       int g = 0;
       while (g + 1 < G && i >= sm.off[g + 1]) ++g;
       const int slot = sm.pslot[g][i - sm.off[g]];
-      float raw = key_dot(sm.u.rows.k, slot, sm.qf[g],
-                          static_cast<const T*>(nullptr));
+      float raw = key_dot<kD>(sm.u.rows.k, slot, sm.qf[g],
+                              static_cast<const T*>(nullptr));
       if constexpr (kQ) raw *= sm.ksc[slot];
       float log_w = 0.f;                       // the none form
       if constexpr (kDebias != kNone) {
@@ -457,7 +476,7 @@ lsh_split_kernel(const __grid_constant__ LshArgs a) {
     // P.V: D[head, dim] += P[head, row] V[row, dim] over the pass's rows,
     // 16 a k-step (rows past nr read as zero).
     const T* vbuf = reinterpret_cast<const T*>(sm.u.rows.v);
-    float d[2][4] = {};
+    float d[kNT][4] = {};
     for (int k0 = 0; k0 < nr; k0 += 16) {
       const int ka = k0 + 2 * pt;
       uint32_t af[4] = {0u, 0u, 0u, 0u};     // rows 8..15 of P are zero
@@ -466,13 +485,13 @@ lsh_split_kernel(const __grid_constant__ LshArgs a) {
         af[2] = sm.pdense[pr][ka / 2 + 4];
       }
 #pragma unroll
-      for (int nt = 0; nt < 2; ++nt) {
-        const int n = 16 * warp + 8 * nt + pr;
+      for (int nt = 0; nt < kNT; ++nt) {
+        const int n = 8 * kNT * warp + 8 * nt + pr;
         uint32_t v[4];
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           const int kr = ka + (i & 1) + 8 * (i >> 1);
-          v[i] = kr < nr ? bf16_bits(vbuf[kr * kDecD + n]) : 0u;
+          v[i] = kr < nr ? bf16_bits(vbuf[kr * kD + n]) : 0u;
         }
         mma_bf16_16816(d[nt], af, v[0] | (v[1] << 16), v[2] | (v[3] << 16));
       }
@@ -480,7 +499,7 @@ lsh_split_kernel(const __grid_constant__ LshArgs a) {
     if (pr < G) {
       const float al = sm.alpha[pr];
 #pragma unroll
-      for (int nt = 0; nt < 2; ++nt)
+      for (int nt = 0; nt < kNT; ++nt)
 #pragma unroll
         for (int e = 0; e < 2; ++e) acc[nt][e] = acc[nt][e] * al + d[nt][e];
     }
@@ -490,12 +509,13 @@ lsh_split_kernel(const __grid_constant__ LshArgs a) {
 
   // ---- the split's normalised output and natural-log LSE, per head.
   const size_t part = (static_cast<size_t>(split) * a.batch + b) * hq + kh * G;
-  float* o_dst = n_act == 1 ? a.out + row * kDecD : a.part_o + part * kDecD;
+  float* o_dst = n_act == 1 ? a.out + row * kD : a.part_o + part * kD;
   if (pr < G) {
     const float li = sm.l[pr];
 #pragma unroll
-    for (int nt = 0; nt < 2; ++nt)
-      *reinterpret_cast<float2*>(o_dst + pr * kDecD + 16 * warp + 8 * nt + 2 * pt) =
+    for (int nt = 0; nt < kNT; ++nt)
+      *reinterpret_cast<float2*>(o_dst + pr * kD + 8 * kNT * warp + 8 * nt +
+                                 2 * pt) =
           li > 0.f ? make_float2(acc[nt][0] / li, acc[nt][1] / li)
                    : make_float2(0.f, 0.f);
   }
@@ -530,8 +550,8 @@ lsh_split_kernel(const __grid_constant__ LshArgs a) {
   // exp(lse - max) once; each output value then sums its weighted partials
   // (a split with no sample has lse -inf: weight 0, a zero partial), and
   // the running sums rescale from batch to batch.
-  constexpr int kAcc = (G * kDecD + kLshThreads - 1) / kLshThreads;
-  constexpr int kFit = 2 * kLshCap * kRowBytes / (G * kDecD * 4);
+  constexpr int kAcc = (G * kD + kLshThreads - 1) / kLshThreads;
+  constexpr int kFit = 2 * kLshCap * kRowBytes / (G * kD * 4);
   constexpr int kBatch = kFit < kLshCap / 2 ? kFit : kLshCap / 2;
   float* o_st = reinterpret_cast<float*>(sm.u.rows.k);
   float* w_st = sm.ps;                         // lse, then weights
@@ -547,10 +567,10 @@ lsh_split_kernel(const __grid_constant__ LshArgs a) {
   }
   for (int sp0 = 0; sp0 < n_act; sp0 += kBatch) {
     const int nsp = min(kBatch, n_act - sp0);
-    for (int c = tid; c < nsp * G * (kDecD / 4); c += kLshThreads) {
-      const int sp = c / (G * kDecD / 4), u = c % (G * kDecD / 4);
-      hp::cp_async_16(o_st + sp * G * kDecD + 4 * u,
-                      a.part_o + ((sp0 + sp) * stride + row) * kDecD + 4 * u);
+    for (int c = tid; c < nsp * G * (kD / 4); c += kLshThreads) {
+      const int sp = c / (G * kD / 4), u = c % (G * kD / 4);
+      hp::cp_async_16(o_st + sp * G * kD + 4 * u,
+                      a.part_o + ((sp0 + sp) * stride + row) * kD + 4 * u);
     }
     for (int c = tid; c < nsp * G; c += kLshThreads) {
       const size_t pi = (sp0 + c / G) * stride + row + c % G;
@@ -588,12 +608,12 @@ lsh_split_kernel(const __grid_constant__ LshArgs a) {
 #pragma unroll
     for (int r = 0; r < kAcc; ++r) {
       const int idx = tid + r * kLshThreads;
-      if (idx < G * kDecD) {
-        const int g = idx / kDecD;
+      if (idx < G * kD) {
+        const int g = idx / kD;
         float x = num[r] * sm.alpha[g];
 #pragma unroll 8
         for (int sp = 0; sp < nsp; ++sp)
-          x = fmaf(w_st[sp * G + g], o_st[sp * G * kDecD + idx], x);
+          x = fmaf(w_st[sp * G + g], o_st[sp * G * kD + idx], x);
         num[r] = x;
       }
     }
@@ -602,9 +622,9 @@ lsh_split_kernel(const __grid_constant__ LshArgs a) {
 #pragma unroll
   for (int r = 0; r < kAcc; ++r) {
     const int idx = tid + r * kLshThreads;
-    if (idx < G * kDecD) {
-      const float den = sm.l[idx / kDecD];
-      a.out[row * kDecD + idx] = den > 0.f ? num[r] / den : 0.f;
+    if (idx < G * kD) {
+      const float den = sm.l[idx / kD];
+      a.out[row * kD + idx] = den > 0.f ? num[r] / den : 0.f;
     }
   }
   if (tid < G) {
@@ -614,14 +634,14 @@ lsh_split_kernel(const __grid_constant__ LshArgs a) {
   }
 }
 
-template <int G, typename T, int kDebias, bool kWords>
+template <int G, typename T, int kDebias, bool kWords, int kD>
 int launch_lsh(LshArgs a, cudaStream_t stream) {
   if constexpr (!kWords) {
     // The ring's stages, and a tensor map over the planes where TMA's boxes
     // fit (scan_tma_fits; otherwise every tile comes by cp.async).
     const int words = a.s_cap / 32, nw = a.split / 32;
     a.scan_tables = scan_stage_tables(a.K, a.L, nw, G, kLshThreads,
-                                      LshSmem<G, T, true>::kRingBytes);
+                                      LshSmem<G, T, true, kD>::kRingBytes);
     if (a.scan_tables < 1) return static_cast<int>(cudaErrorInvalidValue);
     a.scan_tma = scan_tma_fits(words, nw);
     if (a.scan_tma && !scan_map(&a.plane_map, a.planes, words,
@@ -631,22 +651,28 @@ int launch_lsh(LshArgs a, cudaStream_t stream) {
   }
   // The scan's query codes grow with L: allow the card's most once.
   static unsigned smem_set = 0;
-  const int dyn = static_cast<int>(sizeof(LshSmem<G, T, !kWords>));
+  const int dyn = static_cast<int>(sizeof(LshSmem<G, T, !kWords, kD>));
   const cudaError_t err = hp::allow_smem(
-      lsh_split_kernel<G, T, kDebias, kWords>, kMaxDynSmem, smem_set);
+      lsh_split_kernel<G, T, kDebias, kWords, kD>, kMaxDynSmem, smem_set);
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid((a.s_cap + a.split - 1) / a.split, a.hkv, a.batch);
-  lsh_split_kernel<G, T, kDebias, kWords><<<grid, kLshThreads, dyn, stream>>>(a);
+  lsh_split_kernel<G, T, kDebias, kWords, kD>
+      <<<grid, kLshThreads, dyn, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
+// head_dim 128: the fused kernel's bf16 exact form only (checked by the
+// caller).
 template <int G, bool kWords>
-int dispatch_lsh_form(int debias, bool quant, const LshArgs& a,
+int dispatch_lsh_form(int debias, bool quant, int head_dim, const LshArgs& a,
                       cudaStream_t st) {
+  if constexpr (!kWords)
+    if (head_dim == 128)
+      return launch_lsh<G, __nv_bfloat16, kExact, false, 128>(a, st);
 #define MP_LSH_FORM(D)                                                   \
   case D:                                                                \
-    return quant ? launch_lsh<G, int8_t, D, kWords>(a, st)               \
-                 : launch_lsh<G, __nv_bfloat16, D, kWords>(a, st);
+    return quant ? launch_lsh<G, int8_t, D, kWords, 64>(a, st)           \
+                 : launch_lsh<G, __nv_bfloat16, D, kWords, 64>(a, st);
   switch (debias) {
     MP_LSH_FORM(kExact)
     MP_LSH_FORM(kPoly)
@@ -660,11 +686,14 @@ int dispatch_lsh_form(int debias, bool quant, const LshArgs& a,
 // coefficients, low degree first; debias 1 only) into the arguments, and
 // launch the form for hq / hkv heads a group. k_scale and v_scale null:
 // bf16 K/V; both set: int8. debias: 0 exact, 1 poly, 2 none. split: tokens
-// a block, a power of two from 32 to 2048.
+// a block, a power of two from 32 to 2048. head_dim: 64, or 128 for the
+// fused kernel's bf16 exact form.
 template <bool kWords>
 int launch_lsh_decode(LshArgs a, int hq, int head_dim, int debias,
                       const void* poly_coef, void* stream) {
-  if (head_dim != kDecD || a.hkv <= 0 || hq % a.hkv != 0 ||
+  const bool quant = a.k_scale != nullptr;
+  const bool d128 = head_dim == 128 && !kWords && !quant && debias == kExact;
+  if ((head_dim != 64 && !d128) || a.hkv <= 0 || hq % a.hkv != 0 ||
       a.s_cap % 32 != 0 || a.K < 1 || a.K > kMaxK || a.L < 1 ||
       a.split < 32 || a.split > 32 * kLshMaxWords ||
       (a.split & (a.split - 1)) != 0 || a.tickets == nullptr ||
@@ -676,12 +705,11 @@ int launch_lsh_decode(LshArgs a, int hq, int head_dim, int debias,
     for (int i = 0; i < kPolyTerms; ++i)
       a.poly.c[i] = static_cast<const float*>(poly_coef)[i];
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool quant = a.k_scale != nullptr;
   switch (hq / a.hkv) {
-    case 1: return dispatch_lsh_form<1, kWords>(debias, quant, a, st);
-    case 2: return dispatch_lsh_form<2, kWords>(debias, quant, a, st);
-    case 4: return dispatch_lsh_form<4, kWords>(debias, quant, a, st);
-    case 8: return dispatch_lsh_form<8, kWords>(debias, quant, a, st);
+    case 1: return dispatch_lsh_form<1, kWords>(debias, quant, head_dim, a, st);
+    case 2: return dispatch_lsh_form<2, kWords>(debias, quant, head_dim, a, st);
+    case 4: return dispatch_lsh_form<4, kWords>(debias, quant, head_dim, a, st);
+    case 8: return dispatch_lsh_form<8, kWords>(debias, quant, head_dim, a, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -7,12 +7,14 @@
 // pallas_call at lsh_fused.py:286), reached through
 // magicpig_tpu/ops/pallas/lsh_decode.py::lsh_fused_decode, with bf16 K/V or
 // int8 K/V and per-token f32 scales, and each of its three debias forms
-// (lsh_fused.py:139-158). Any L, odd or even (the TPU kernel takes even L).
+// (lsh_fused.py:139-158), at head dim 64; and bf16 K/V with the exact
+// debias at head dim 128 (Llama-3.1-8B's decode). Any L, odd or even (the
+// TPU kernel takes even L).
 //
 // Bound on the H100: device memory. The signatures must all be read to
 // know which tokens are sampled: K*L bits per token and kv head, 188 bytes
-// at K=10, L=150, against 256 bytes of bf16 K+V at d = 64, so the scan
-// stream is not small. K, V and the key norm are needed only for tokens that
+// at K=10, L=150, against 256 bytes of bf16 K+V at d = 64 (512 at d =
+// 128), so the scan stream is not small. K, V and the key norm are needed only for tokens that
 // some query head of the group samples (~2% per head at the defaults); int8
 // rows halve those bytes and leave the signature words as they are. The
 // block streams its split's plane rows by TMA into a ring in shared memory

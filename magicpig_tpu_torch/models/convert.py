@@ -4,6 +4,12 @@
 arrays (`dataclasses.asdict` of the pytree with numpy leaves) and returns
 the port's `LlamaParams`. The layouts are the same, the int4 nibble layout
 included, so this is a copy; it imports no JAX.
+
+`load_params` reads the JAX package's `.npz` checkpoints
+(`examples/train_needle.py::save_params`: `n`, the pytree's `treedef`
+string and its leaves `leaf_0 .. leaf_{n-1}` in JAX's flatten order of
+`LlamaParams`). That order is fixed here (`NPZ_LEAVES`), and the saved
+structure is checked against it, without JAX.
 """
 
 from __future__ import annotations
@@ -13,12 +19,27 @@ import dataclasses
 import numpy as np
 import torch
 
+from magicpig_tpu_torch.config import ModelConfig
 from magicpig_tpu_torch.models.llama import (
     LayerParams,
     LlamaParams,
     Quant4Weight,
     QuantWeight,
 )
+from magicpig_tpu_torch.ops.rope import rope_cos_sin
+
+# JAX's flatten order of an unquantized, unfused `LlamaParams` (flax
+# dataclass fields in declaration order; the fused slots, None, hold no
+# leaf), and the structure strings its `treedef` prints: without the fused
+# slots (checkpoints saved before they existed) and with them.
+NPZ_LAYER_LEAVES = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down",
+                    "ln_attn", "ln_mlp")
+NPZ_LEAVES = ("embed", "lm_head", "final_ln",
+              *(f"layers.{k}" for k in NPZ_LAYER_LEAVES), "cos", "sin")
+_TREEDEF = ("PyTreeDef(CustomNode(LlamaParams[()], [*, *, *, "
+            "CustomNode(LayerParams[()], [{}]), *, *]))")
+NPZ_TREEDEFS = (_TREEDEF.format(", ".join(["*"] * 9)),
+                _TREEDEF.format(", ".join(["*"] * 9 + ["None"] * 2)))
 
 
 def params_from_numpy(tree: dict,
@@ -53,3 +74,51 @@ def params_from_numpy(tree: dict,
                        lm_head=weight(tree["lm_head"]),
                        final_ln=t(tree["final_ln"]), layers=layers,
                        cos=t(tree["cos"]), sin=t(tree["sin"]))
+
+
+def _npz_shapes(config: ModelConfig, max_len: int) -> dict[str, tuple]:
+    """The shape of each `NPZ_LEAVES` leaf for `config` and `max_len`."""
+    n, h, v = config.num_hidden_layers, config.hidden_size, config.vocab_size
+    d, inter = config.head_dim, config.intermediate_size
+    hq, hkv = config.num_attention_heads * d, config.num_key_value_heads * d
+    layer = dict(wq=(h, hq), wk=(h, hkv), wv=(h, hkv), wo=(hq, h),
+                 w_gate=(h, inter), w_up=(h, inter), w_down=(inter, h),
+                 ln_attn=(h,), ln_mlp=(h,))
+    return {"embed": (v, h), "lm_head": (h, v), "final_ln": (h,),
+            **{f"layers.{k}": (n, *s) for k, s in layer.items()},
+            "cos": (max_len, d), "sin": (max_len, d)}
+
+
+def load_params(path, config: ModelConfig, max_len: int,
+                device: torch.device | str = "cuda") -> LlamaParams:
+    """Params from a JAX `.npz` checkpoint: its `n` and `treedef` must be
+    those of `NPZ_LEAVES`, and every weight the shape `config` gives it
+    (ValueError otherwise); weights are cast to `config.dtype`. RoPE caches
+    saved for another `max_len` are computed anew, as the JAX loader does."""
+    data = np.load(path, allow_pickle=False)
+    n, treedef = int(data["n"]), str(data["treedef"])
+    if n != len(NPZ_LEAVES):
+        raise ValueError(f"{path}: {n} leaves, expected {len(NPZ_LEAVES)}")
+    if treedef not in NPZ_TREEDEFS:
+        raise ValueError(f"{path}: saved structure {treedef} is not a "
+                         f"LlamaParams of {NPZ_TREEDEFS}")
+    shapes = _npz_shapes(config, max_len)
+    leaves = {}
+    for i, name in enumerate(NPZ_LEAVES):
+        a = data[f"leaf_{i}"]
+        if name in ("cos", "sin"):
+            leaves[name] = (torch.from_numpy(a).to(device, torch.float32)
+                            if a.shape == shapes[name] else None)
+            continue
+        if a.shape != shapes[name]:
+            raise ValueError(f"{path}: {name} has shape {a.shape}, the "
+                             f"config gives {shapes[name]}")
+        leaves[name] = torch.from_numpy(a).to(device).to(config.dtype)
+    if leaves["cos"] is None or leaves["sin"] is None:
+        leaves["cos"], leaves["sin"] = rope_cos_sin(config, max_len,
+                                                    device=device)
+    layers = LayerParams(**{k: leaves[f"layers.{k}"] for k in NPZ_LAYER_LEAVES})
+    return LlamaParams(embed=leaves["embed"], lm_head=leaves["lm_head"],
+                       final_ln=leaves["final_ln"], layers=layers,
+                       cos=leaves["cos"], sin=leaves["sin"])
+

@@ -36,9 +36,12 @@ NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 
 LAUNCHES: dict[str, int] = {
     "flash_prefill": 0,
+    "flash_prefill_d128": 0,
     "flash_decode": 0,
+    "flash_decode_d128": 0,
     "flash_decode_int8": 0,
     "lsh_fused_decode": 0,
+    "lsh_fused_decode_d128": 0,
     "lsh_fused_decode_int8": 0,
     "lsh_fused_decode_poly": 0,
     "lsh_fused_decode_none": 0,
@@ -82,6 +85,7 @@ _SIGNATURES = {
 }
 
 _lib: ctypes.CDLL | None = None
+_build_error: RuntimeError | None = None
 last_build_seconds: float | None = None
 last_build_log: str = ""
 
@@ -118,8 +122,12 @@ def build() -> Path:
     at once, and link the objects into the library (skipped when the
     library for these sources and flags exists). Returns its path. The
     compiler's report (`-Xptxas -v`: registers, shared memory, spills) is
-    kept in `last_build_log` and `_build/build.log`."""
-    global last_build_seconds, last_build_log
+    kept in `last_build_log` and `_build/build.log`. A failed build raises,
+    and raises the same error again on every later call of the process
+    without compiling anew."""
+    global last_build_seconds, last_build_log, _build_error
+    if _build_error is not None:
+        raise _build_error
     out = library_path()
     if out.exists():
         return out
@@ -150,7 +158,8 @@ def build() -> Path:
         last_build_log = "\n".join(logs)
         (BUILD_DIR / "build.log").write_text(last_build_log)
         if failed:
-            raise RuntimeError(f"nvcc failed:\n{last_build_log}")
+            _build_error = RuntimeError(f"nvcc failed:\n{last_build_log}")
+            raise _build_error
         os.replace(so, out)
     return out
 

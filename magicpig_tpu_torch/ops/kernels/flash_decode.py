@@ -2,8 +2,10 @@
 `csrc/flash_decode.cu`, with its plain version `ops.attention.full_decode`.
 
 Replaces the TPU kernel `magicpig_tpu/ops/pallas/decode.py::flash_decode`
-(pallas_call at decode.py:184): bf16 K/V, or int8 K/V with per-token f32
-scales (counted apart, as "flash_decode_int8"). On the H100 it is bound by
+(pallas_call at decode.py:184): bf16 K/V at head dim 64 or 128, or int8
+K/V with per-token f32 scales at head dim 64, counted apart as
+"flash_decode", "flash_decode_d128" and "flash_decode_int8"
+(`launch_name`). On the H100 it is bound by
 reading K and V once; the kernel streams K/V tiles with bulk copies, splits
 the sequence so that a small batch fills the card (`split_tokens`), and
 merges the splits by LSE in the same launch; see the source for the design.
@@ -19,6 +21,7 @@ from magicpig_tpu_torch.ops import attention
 from magicpig_tpu_torch.ops.kernels import _lib
 
 HEAD_DIM = 64
+HEAD_DIMS_BF16 = (64, 128)   # the bf16 forms' head dims; int8: HEAD_DIM
 DECODE_TILE = 64       # tokens per copy of flash_decode (kTile)
 MIN_SPLIT = 256        # fewest tokens per flash_decode split
 MAX_SPLIT = 1024       # most tokens per flash_decode split
@@ -60,12 +63,21 @@ def device_state(device: torch.device,
     return tickets, _num_sms[device]
 
 
+def launch_name(quant: bool, head_dim: int) -> str:
+    """The launch counter of one form: "flash_decode", "_int8" for int8
+    K/V, "_d128" at head dim 128."""
+    return ("flash_decode" + ("_int8" if quant else "")
+            + ("" if head_dim == HEAD_DIM else f"_d{head_dim}"))
+
+
 def check_decode_inputs(name: str, q: torch.Tensor, k: torch.Tensor,
                         v: torch.Tensor, length: torch.Tensor,
                         k_scale: torch.Tensor | None = None,
-                        v_scale: torch.Tensor | None = None) -> None:
+                        v_scale: torch.Tensor | None = None,
+                        head_dims: tuple[int, ...] = (HEAD_DIM,)) -> None:
     """Shape and type checks shared by the split-sequence decode kernels:
-    bf16 q; bf16 k, v, or int8 k, v with f32 scales [B, Hkv, S]."""
+    bf16 q; bf16 k, v, or int8 k, v with f32 scales [B, Hkv, S]; a head dim
+    the caller's form takes (`head_dims`)."""
     _lib.require(q.device.type == "cuda", f"{name}: unsupported device {q.device}")
     _lib.require_cuda(name, q, k, v, length)
     b, hq, d = q.shape
@@ -83,7 +95,7 @@ def check_decode_inputs(name: str, q: torch.Tensor, k: torch.Tensor,
         for sc in (k_scale, v_scale):
             _lib.require(sc.dtype == torch.float32 and sc.shape == k.shape[:3],
                          f"{name}: scales must be f32 [B, Hkv, S]")
-    _lib.require(d == HEAD_DIM, f"{name}: head_dim {d} != {HEAD_DIM}")
+    _lib.require(d in head_dims, f"{name}: head_dim {d} not in {head_dims}")
     _lib.require(k.dim() == 4 and k.shape == v.shape
                  and k.shape[0] == b and k.shape[3] == d,
                  f"{name}: k/v shape {tuple(k.shape)}")
@@ -98,16 +110,19 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  v_scale: torch.Tensor | None = None):
     """Single-query attention over a cache prefix.
 
-    q: [B, Hq, d]; k, v: [B, Hkv, S, d], bf16, or int8 with f32 scales
-    k_scale, v_scale [B, Hkv, S]; length: [B] int32 valid tokens.
+    q: [B, Hq, d]; k, v: [B, Hkv, S, d], bf16 (d 64 or 128 on the card),
+    or int8 with f32 scales k_scale, v_scale [B, Hkv, S] (d 64 on the card);
+    length: [B] int32 valid tokens.
     Returns (out [B, Hq, d] f32, lse [B, Hq] f32); a request with no valid
     token gives out 0 and lse -inf. CPU tensors take the plain version.
     """
     if q.device.type == "cpu":
         return attention.full_decode(q, k, v, length, k_scale, v_scale)
-    name = "flash_decode" if k_scale is None else "flash_decode_int8"
-    check_decode_inputs(name, q, k, v, length, k_scale, v_scale)
     b, hq, d = q.shape
+    quant = k_scale is not None
+    name = launch_name(quant, d)
+    check_decode_inputs(name, q, k, v, length, k_scale, v_scale,
+                        (HEAD_DIM,) if quant else HEAD_DIMS_BF16)
     hkv, s = k.shape[1], k.shape[2]
     tickets, num_sms = device_state(q.device, b * hkv)
     chunk = split_tokens(s, b, hkv, num_sms)

@@ -27,20 +27,26 @@ from magicpig_tpu_torch.ops import attention, bitcodes
 from magicpig_tpu_torch.ops.debias import DEBIAS_FORMS, log_weight_poly
 from magicpig_tpu_torch.ops.kernels import _lib
 from magicpig_tpu_torch.ops.kernels.flash_decode import (
+    HEAD_DIM,
     check_decode_inputs,
     device_state,
 )
 
-LSH_SPLIT = 512    # tokens a block of both LSH kernels: a power of two from
-                   # 32 to 2048; `chip_smoke.py` phase 2 times 512, 1024 and
-                   # 2048 (`PERF.md`)
+# Tokens a block of both LSH kernels, by head dim: a power of two from 32 to
+# 2048. `chip_smoke.py` phase 2 times 512, 1024 and 2048 (`PERF.md`): 512
+# is fastest at d = 64, 1024 at d = 128 (a block there takes ~100 KB of
+# shared memory, two a SM, and 1024-token splits make one wave).
+LSH_SPLIT = {64: 512, 128: 1024}
 
 
-def form_name(base: str, quant: bool, debias: str) -> str:
+def form_name(base: str, quant: bool, debias: str,
+              head_dim: int = HEAD_DIM) -> str:
     """The launch counter of one form of an LSH kernel: `base`, "_int8"
-    for int8 K/V, then "_poly" or "_none" for those debias forms."""
+    for int8 K/V, then "_poly" or "_none" for those debias forms, then
+    "_d128" at head dim 128."""
     return (base + ("_int8" if quant else "")
-            + ("" if debias == "exact" else f"_{debias}"))
+            + ("" if debias == "exact" else f"_{debias}")
+            + ("" if head_dim == HEAD_DIM else f"_d{head_dim}"))
 
 
 def launch_name(quant: bool, debias: str) -> str:
@@ -48,12 +54,14 @@ def launch_name(quant: bool, debias: str) -> str:
 
 
 def check_attend_inputs(name: str, q, k_centered, v, k_norm, length,
-                        k_scale, v_scale, debias: str) -> None:
+                        k_scale, v_scale, debias: str,
+                        head_dims: tuple[int, ...] = (HEAD_DIM,)) -> None:
     """The checks both LSH kernels make of what they attend over: decode
-    inputs, the key norms f32 [B, Hkv, S] on the card, S whole words, a
-    known debias form."""
+    inputs at a head dim of `head_dims`, the key norms f32 [B, Hkv, S] on
+    the card, S whole words, a known debias form."""
     _lib.require(debias in DEBIAS_FORMS, f"unknown debias form {debias!r}")
-    check_decode_inputs(name, q, k_centered, v, length, k_scale, v_scale)
+    check_decode_inputs(name, q, k_centered, v, length, k_scale, v_scale,
+                        head_dims)
     b, hkv, s = k_centered.shape[:3]
     _lib.require_cuda(name, q, k_norm)
     _lib.require(k_norm.dtype == torch.float32 and k_norm.shape == (b, hkv, s)
@@ -63,12 +71,13 @@ def check_attend_inputs(name: str, q, k_centered, v, k_norm, length,
 
 def launch_attend(name: str, entry: str, q, k_centered, v, k_scale, v_scale,
                   k_norm, selection: tuple, length, K: int, L: int,
-                  debias: str, split: int = LSH_SPLIT):
+                  debias: str, split: int | None = None):
     """Allocate the split partials and outputs, and launch `entry` with
     `selection` (the scan's planes and q_bits, or the words) between the
-    norms and the length, `split` tokens a block. Returns (out, lse,
-    count)."""
+    norms and the length, `split` tokens a block (`LSH_SPLIT` of the head
+    dim by default). Returns (out, lse, count)."""
     b, hq, d = q.shape
+    split = split or LSH_SPLIT[d]
     hkv, s = k_centered.shape[1], k_centered.shape[2]
     nsplit = -(-s // split)
     tickets, _ = device_state(q.device, b * hkv)

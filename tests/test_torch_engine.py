@@ -239,6 +239,54 @@ def test_engine_avg_sparsity_matches_jax(single_runs):
                                                       abs=2e-3)
 
 
+# The same engines at head dim 128, group 4 (Llama-3.1-8B's head shape on a
+# tiny model): layer 0 dense, layer 1 sparse.
+JCFG128 = dataclasses.replace(JCFG, num_hidden_layers=2, num_attention_heads=4,
+                              num_key_value_heads=1, head_dim=128)
+TCFG128 = dataclasses.replace(TCFG, num_hidden_layers=2, num_attention_heads=4,
+                              num_key_value_heads=1, head_dim=128)
+
+
+@pytest.fixture(scope="module")
+def d128_runs():
+    """Prefill + 8 greedy steps in both engines at head dim 128."""
+    jp = jllama.init_params(JCFG128, jax.random.key(1), MAX_LEN)
+    tp = params_from_numpy(dataclasses.asdict(
+        jax.tree_util.tree_map(np.asarray, jp)), device="cpu")
+    bank = np.random.default_rng(43).standard_normal(
+        (128, LSH_KW["K"] * LSH_KW["L"])).astype(np.float32)
+    jl = JLLM(JCFG128, max_length=MAX_LEN, chunk_size=64, params=jp,
+              lsh=JLSHConfig(**LSH_KW))
+    jl.projections = jnp.asarray(bank)
+    tl = LLM(TCFG128, max_length=MAX_LEN, params=tp, lsh=LSHConfig(**LSH_KW),
+             projections=_t(bank), device="cpu")
+    prompt = _prompt(6, 300)
+    out = {"j_logits": np.asarray(jl.prefill(prompt)),
+           "t_logits": _np(tl.prefill(prompt))}
+    jt, tt = [int(out["j_logits"][0].argmax())], [int(out["t_logits"][0].argmax())]
+    for _ in range(7):
+        jt.append(int(np.asarray(jl.inference(np.asarray([jt[-1]])))[0].argmax()))
+        tt.append(int(_np(tl.inference(torch.tensor([tt[-1]])))[0].argmax()))
+    out.update(j_tokens=jt, t_tokens=tt, j_sparsity=jl.avg_sparsity,
+               t_sparsity=tl.avg_sparsity)
+    return out
+
+
+def test_engine_d128_prefill_logits_match_jax(d128_runs):
+    np.testing.assert_allclose(d128_runs["t_logits"], d128_runs["j_logits"],
+                               atol=F32, rtol=F32)
+
+
+def test_engine_d128_greedy_tokens_match_jax(d128_runs):
+    assert d128_runs["t_tokens"] == d128_runs["j_tokens"]
+
+
+def test_engine_d128_avg_sparsity_matches_jax(d128_runs):
+    assert 0 < d128_runs["t_sparsity"] < 1
+    assert d128_runs["t_sparsity"] == pytest.approx(d128_runs["j_sparsity"],
+                                                    abs=2e-3)
+
+
 def test_decode_steps_equal_inference_loop(weights, bank):
     _, tl = _engines(weights, bank)
     prompt = _prompt(1, 200)

@@ -211,3 +211,30 @@ def test_cuda_graph_nodes_are_the_eager_kernels(cuda, form):
     total, own = _eager_kernels(llm, inputs[-1])
     assert own == sum(LAUNCHES.values()) // 3 > 0
     assert graph_kernel_nodes(llm._graph.graph) == total
+
+
+def test_cuda_graphed_step_equals_eager_llama_8b_width(cuda):
+    """Two layers at Llama-3.1-8B width (hidden 4096, 32/8 heads of 128,
+    vocab 128256, untied lm_head; layer 0 dense, layer 1 sparse under LSH
+    K=10, L=150): the d = 128 forms of the decode and fused LSH kernels in
+    the graphed step, which must equal the eager step bit for bit with the
+    same launches counted."""
+    cfg = dataclasses.replace(preset("llama-3.1-8b"), num_hidden_layers=2)
+    llm = LLM(cfg, batch_size=2, max_length=2048, lsh=LSHConfig(),
+              device=cuda, seed=3)
+    prompts = _prompts(llm)
+    first = _prefill(llm, prompts)
+    reset_launches()
+    inputs, graphed = _run(llm.inference, first, 8)
+    counted = dict(LAUNCHES)
+    assert llm._graph is not None
+    assert counted["flash_decode_d128"] == 16
+    assert counted["lsh_fused_decode_d128"] == 8
+    assert sum(counted.values()) == 24
+    llm.clear()
+    _prefill(llm, prompts)
+    reset_launches()
+    eager = [llm._decode(tokens)[0] for tokens in inputs]
+    assert dict(LAUNCHES) == counted
+    for step, (g, e) in enumerate(zip(graphed, eager)):
+        assert torch.equal(g, e), f"step {step}: max |diff| {(g - e).abs().max()}"

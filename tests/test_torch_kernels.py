@@ -66,6 +66,7 @@ def _np(x):
     (1, 2, 4, 256, 256, 64, [200], [0], 64),             # sliding window
     (1, 2, 4, 128, 384, 64, [256], [128], None),         # query offset
     (1, 2, 1, 256, 256, 32, [256], [0], None),           # GQA group of 1
+    (2, 2, 4, 256, 256, 128, [256, 150], [0, 0], None),  # d = 128 (8B)
 ])
 def test_flash_prefill_plain_matches_pallas(B, HKV, G, SQ, SKV, D, lengths,
                                             offsets, window):
@@ -135,6 +136,7 @@ def _port_planes(kc, proj, K):
     (2, 2, 4, 256, 64, 6, 20),      # even L: the one-kernel Pallas form
     (1, 2, 2, 512, 16, 10, 30),
     (1, 2, 4, 256, 64, 6, 21),      # odd L: the two-stage Pallas form
+    (2, 2, 4, 256, 128, 6, 20),     # d = 128 (8B), even L: one kernel
 ])
 def test_lsh_plain_matches_pallas_fused_decode(B, HKV, G, S, D, K, L):
     q, kc, v, proj, length = _lsh_inputs(3, B, HKV, G, S, D, K, L)
@@ -381,8 +383,8 @@ def test_build_is_keyed_on_the_sources(tmp_path, monkeypatch):
     names = {p.name for p in _lib.sources()}
     assert {"flash_prefill.cu", "flash_decode.cu", "lsh_fused.cu",
             "block_score.cu", "rescore_attend.cu", "block_attend.cu",
-            "block_common.cuh", "chunk_attend.cuh", "decode_common.cuh",
-            "w4_matmul.cu"} <= names
+            "block_common.cuh", "chunk_attend.cuh", "lsh_common.cuh",
+            "hopper_common.cuh", "w4_matmul.cu"} <= names
     key = _lib.source_hash()
     for p in _lib.sources():
         (tmp_path / p.name).write_bytes(p.read_bytes())

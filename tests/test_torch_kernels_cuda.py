@@ -986,3 +986,167 @@ def test_cuda_w4_matmul_one_kernel_a_call(cuda, kin, out):
         w4_matmul(x, w.q, w.scale)
     assert _graph_kernel_nodes(lambda: [w4_matmul(x, w.q, w.scale)
                                         for x in xs]) == len(xs)
+
+
+# -- head dim 128 (Llama-3.1-8B): prefill, bf16 decode, the fused LSH kernel's
+# bf16 exact form, at every group size the forms take -------------------------
+
+
+@pytest.mark.parametrize("sq", [1, 129, 1000])
+@pytest.mark.parametrize("g", [1, 2, 4, 8])
+def test_cuda_d128_flash_prefill_edges(cuda, g, sq):
+    """The prefill edges at d = 128 (two column halves a tile): a q_offset,
+    length < Skv, a window, the LSE; cache rows past each length NaN, held
+    to the plain version on the tail-zeroed cache; counted as
+    "flash_prefill_d128"."""
+    rng = np.random.default_rng(31)
+    hkv, offs, d = 2, [200, 50], 128
+    skv = sq + 237
+    lens = [200 + sq, 50 + max(sq - 3, 1)]
+    q = _bf16(rng, 2, sq, g * hkv, d, device=cuda)
+    k = _bf16(rng, 2, skv, hkv, d, device=cuda)
+    v = _bf16(rng, 2, skv, hkv, d, device=cuda)
+    kz, vz = k.clone(), v.clone()
+    for b, n in enumerate(lens):
+        k[b, n:] = float("nan")
+        v[b, n:] = float("nan")
+        kz[b, n:] = 0
+        vz[b, n:] = 0
+    length = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    offset = torch.tensor(offs, dtype=torch.int32, device=cuda)
+    for window in (None, 77):
+        before = dict(LAUNCHES)
+        o, l = flash_prefill(q, k, v, length, offset, window=window,
+                             return_lse=True)
+        assert LAUNCHES["flash_prefill_d128"] == before["flash_prefill_d128"] + 1
+        assert sum(LAUNCHES.values()) == sum(before.values()) + 1
+        po, pl = tatt.flash_prefill(q, kz, vz, length, offset, window=window,
+                                    return_lse=True)
+        assert torch.isfinite(o).all() and not torch.isnan(l).any()
+        _assert_within(o, po, atol=4e-3, rtol=1e-2)
+        _assert_within(l, pl, atol=1e-4, rtol=1e-5)
+
+
+@pytest.mark.parametrize("capacity", [384, 16384])
+@pytest.mark.parametrize("g", [1, 2, 4, 8])
+def test_cuda_d128_flash_decode_edges(cuda, g, capacity):
+    """bf16 decode at d = 128: ragged and zero lengths around every tile
+    and split edge, rows past each length NaN, held to the plain version on
+    the tail-zeroed cache; one kernel a call (a captured graph's kernel
+    nodes), counted as "flash_decode_d128", and a second call equal to the
+    first."""
+    rng = np.random.default_rng(32)
+    hkv, d = 2, 128
+    lens = [min(n, capacity) for n in (0, 1, 63, 64, 65, 511, 512, 513, capacity)]
+    b = len(lens)
+    q = _bf16(rng, b, g * hkv, d, device=cuda)
+    k = _bf16(rng, b, hkv, capacity, d, device=cuda)
+    v = _bf16(rng, b, hkv, capacity, d, device=cuda)
+    kz, vz = k.clone(), v.clone()
+    for i, n in enumerate(lens):
+        kz[i, :, n:] = 0
+        vz[i, :, n:] = 0
+        k[i, :, n:] = float("nan")
+        v[i, :, n:] = float("nan")
+    length = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    before = dict(LAUNCHES)
+    o, l = flash_decode(q, k, v, length)
+    assert LAUNCHES["flash_decode_d128"] == before["flash_decode_d128"] + 1
+    assert sum(LAUNCHES.values()) == sum(before.values()) + 1
+    po, pl = tatt.full_decode(q, kz, vz, length)
+    assert torch.isfinite(o).all() and not torch.isnan(l).any()
+    _assert_within(o, po, rms_share=0.015)
+    _assert_within(l, pl, atol=1e-4, rtol=1e-5)
+    assert (o[0] == 0).all() and torch.isneginf(l[0]).all()
+    o2, l2 = flash_decode(q, k, v, length)
+    assert torch.equal(o, o2) and torch.equal(l, l2)
+    assert _graph_kernel_nodes(
+        lambda: [flash_decode(q, k, v, length) for _ in range(3)]) == 3
+
+
+@pytest.mark.parametrize("K,L", [(10, 150), (1, 32)])
+@pytest.mark.parametrize("g", [1, 2, 4, 8])
+def test_cuda_d128_lsh_fused_matches_plain(cuda, g, K, L):
+    """The fused kernel's bf16 exact form at d = 128 over 2048 tokens at
+    lengths 2048, 1337 and 0, keys planted near each head's query; at K=1,
+    L=32 nearly every key is sampled (more rows than a pass holds). Every
+    row and norm that no head samples is NaN; held to the plain version on
+    the zeroed rows, counts exact, counted as "lsh_fused_decode_d128", one
+    kernel a call (the kernel nodes of a captured CUDA graph: the profiler
+    drops kernels late in a long session); splits of 32 and 2048 tokens
+    give the same counts."""
+    rng = np.random.default_rng(33)
+    hkv, S, d = 2, 2048, 128
+    lens = [S, 1337, 0]
+    B = len(lens)
+    q = _bf16(rng, B, g * hkv, d, device=cuda)
+    kc = rng.standard_normal((B, hkv, S, d)).astype(np.float32)
+    qg = q.float().cpu().numpy().reshape(B, hkv, g, d)
+    for t in range(0, S, 7):
+        kc[:, :, t] = qg[:, :, t % g] + 0.3 * kc[:, :, t]
+    k = torch.from_numpy(kc).to(cuda, torch.bfloat16)
+    v = _bf16(rng, B, hkv, S, d, device=cuda)
+    kn = k.float().norm(dim=-1)
+    proj = torch.from_numpy(rng.standard_normal((d, K * L)).astype(np.float32)).to(cuda)
+    planes = torch.stack([tbits.build_planes(k[i].float().transpose(0, 1), proj, K)
+                          for i in range(B)])
+    qb = tbits.hash_bits(q, proj, K)
+    length = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    mask = tbits.sampled_mask(qb, planes, length)
+    poisoned, zeroed = _poison_unsampled(
+        (q, k, v, kn, None, length, K, L, None, None), mask)
+    pick = lambda a: (*a[:4], planes, qb, length, K, L)  # noqa: E731
+    before = dict(LAUNCHES)
+    o, l, c = lsh_fused_decode(*pick(poisoned))
+    assert LAUNCHES["lsh_fused_decode_d128"] == before["lsh_fused_decode_d128"] + 1
+    assert sum(LAUNCHES.values()) == sum(before.values()) + 1
+    po, pl, pc = lsh_fused_decode_plain(*pick(zeroed))
+    assert torch.equal(c, pc) and (pc[:2] > 0).all() and (pc[2] == 0).all()
+    assert torch.isfinite(o).all()
+    _assert_within(o, po, rms_share=0.015)
+    _assert_within(l, pl, atol=1e-4, rtol=1e-5)
+    assert _graph_kernel_nodes(
+        lambda: [lsh_fused_decode(*pick(poisoned)) for _ in range(3)]) == 3
+    p = pick(poisoned)
+    for split in (32, 2048):
+        so, sl, sc = launch_attend("lsh_fused_decode_d128", "mp_lsh_fused_decode",
+                                   p[0], p[1], p[2], None, None, p[3],
+                                   (planes, qb), length, K, L, "exact",
+                                   split=split)
+        assert torch.equal(sc, pc)
+        _assert_within(so, po, rms_share=0.015)
+        _assert_within(sl, pl, atol=1e-4, rtol=1e-5)
+
+
+def test_cuda_d128_other_forms_raise(cuda):
+    """At d = 128 only the bf16 prefill, the bf16 decode and the fused
+    kernel's bf16 exact form exist: every other form, and a group size
+    outside 1, 2, 4, 8, raises ValueError before any launch."""
+    rng = np.random.default_rng(34)
+    d, S, K, L = 128, 512, 4, 8
+    q = _bf16(rng, 1, 8, d, device=cuda)
+    k = _bf16(rng, 1, 2, S, d, device=cuda)
+    v = _bf16(rng, 1, 2, S, d, device=cuda)
+    length = torch.tensor([S], dtype=torch.int32, device=cuda)
+    kq, ks = quantize_rows(k)
+    vq, vs = quantize_rows(v)
+    kn = k.float().norm(dim=-1)
+    proj = torch.from_numpy(rng.standard_normal((d, K * L)).astype(np.float32)).to(cuda)
+    planes = tbits.build_planes(k[0].float().transpose(0, 1), proj, K)[None]
+    qb = tbits.hash_bits(q, proj, K)
+    before = dict(LAUNCHES)
+    with pytest.raises(ValueError):
+        flash_decode(q, kq, vq, length, ks, vs)
+    for debias in ("poly", "none"):
+        with pytest.raises(ValueError):
+            lsh_fused_decode(q, k, v, kn, planes, qb, length, K, L,
+                             debias=debias)
+    with pytest.raises(ValueError):
+        lsh_fused_decode(q, kq, vq, kn, planes, qb, length, K, L, ks, vs)
+    with pytest.raises(ValueError):
+        lsh_masked_attention(q, k, v, kn, collision_words(qb, planes), length,
+                             K, L)
+    q3 = _bf16(rng, 1, 6, d, device=cuda)
+    with pytest.raises(ValueError):
+        flash_decode(q3, k, v, length)
+    assert LAUNCHES == {**before, "collision_words": before["collision_words"] + 1}
