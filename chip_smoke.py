@@ -14,9 +14,10 @@ Phases, each announced by one flushed progress line with elapsed seconds:
      matmul, bulk copies in the attends, cp.async in the scorer, the int4
      matmul and the LSH kernels, TMA in the collision scan and the fused
      LSH kernel, and no I2F in the int4 matmul, or it fails; at head dim
-     128 too: HGMMA and UTMALDG in the prefill, UBLKCP in the decode, HMMA,
-     UTMALDG and LDGSTS in the fused LSH kernel; the
-     disassembly runs beside phase 2 and is checked after it);
+     128 too: HGMMA and UTMALDG in the prefill, UBLKCP in the bf16 and int8
+     decode, HMMA, UTMALDG and LDGSTS in the fused LSH kernel's bf16 and
+     int8 forms, HMMA and LDGSTS in the scorer, HMMA and UBLKCP in both
+     attends; the disassembly runs beside phase 2 and is checked after it);
   2. kernels: each hand-written kernel against its plain PyTorch version at
      the shapes of the Llama-3.2-1B decode paths (Hq 32, Hkv 8, d 64;
      prefill 8192 and 12000 tokens, decode at the hot cache (B=2, capacity
@@ -49,11 +50,15 @@ Phases, each announced by one flushed progress line with elapsed seconds:
      each other, and
      the scorer's scores-only form (`exact_scores`) over bf16 and int8 K;
      then the head-dim-128 forms at Llama-3.1-8B's shapes (Hq 32, Hkv 8, d
-     128): prefill over 8192 and 12000 tokens, bf16 decode at B=2 over
-     16384 + 11000 tokens (splits of 512, 1024 and 2048 timed) and at the
-     hot cache, the fused LSH kernel (bf16, exact, K=10, L=150) over the
-     same caches (counts exact, splits timed), each within `TOL` of its
-     plain version and its planted fault rejected;
+     128): prefill over 8192 and 12000 tokens, bf16 and int8 decode at B=2
+     over 16384 + 11000 tokens (splits of 512, 1024 and 2048 timed) and the
+     bf16 one at the hot cache, the fused LSH kernel (K=10, L=150) in its
+     six forms (bf16 and int8; exact, poly, none) over the same caches
+     (counts exact, splits timed for both exact forms), the block scorer,
+     rescore-attend and block-attend at both block shapes (bf16, int8 and
+     packed int4 K; chunks swept), and the int4 matmul on each product of
+     the 8B's decode step (`W4_SHAPES_8B`, K-splits swept), each within
+     `TOL` of its plain version and its planted fault rejected;
   3. serve: `LLM("llama-3.2-1b")` at full width and depth with random
      weights drawn on the card; two requests (12000 and 7000 tokens)
      prefilled into slots 0 and 1, 16 greedy decode steps, clear(), a third
@@ -92,7 +97,10 @@ Phases, each announced by one flushed progress line with elapsed seconds:
      layers, d 128, random bf16 weights drawn on the card, LSH K=10, L=150,
      dense layers 0 and 16) on the same two prompts, 16 steps, launches of
      the d = 128 forms counted exactly, the graphed run held to the eager
-     step, a warm 12000-token prefill and the decode steps profiled;
+     step, a warm 12000-token prefill and the decode steps profiled; then,
+     on W8A8 and int4 weights quantized from the same bf16 draw, the 8B in
+     bench.py's lsh, block_topk4 and full_int8 (+ W4) modes, each counted
+     (each int4 shape too), held to its eager step and profiled;
   4. reference: a two-layer cut of the same width at K=1, L=32 (nearly
      every key sampled) on the card against the same engine on the CPU
      (the plain versions); then the same cut under block_topk with bf16
@@ -105,7 +113,11 @@ Phases, each announced by one flushed progress line with elapsed seconds:
      forms on the card alone, launches counted; then the sampled mode at
      K=1, L=32 (its 128-id budget truncating) and the masked mode at K=1,
      L=31 over int8 offload with the poly debias against the CPU, and the
-     other masked-attend forms at K=8, L=75 on the card alone.
+     other masked-attend forms at K=8, L=75 on the card alone; then at
+     head dim 128 (hidden 1024, 8/2 heads of 128): the store pipeline over
+     bf16 and packed int4 K, LSH K=1, L=32 over int8 offload with poly and
+     over bf16 with none, each against the CPU, and the bf16 poly and int8
+     none LSH forms and block_topk over int8 K on the card alone.
 Any failure raises. The last two lines are the kernels' JSON and the result
 JSON; the card's name and power limit come just before them.
 """
@@ -277,25 +289,33 @@ def bound_ms(nbytes: float, flops: float):
 
 # Kernels whose SASS phase 1 counts (one template instance each: G = 4 for
 # the block and LSH kernels; the LSH template's two kernels told apart by
-# its kWords flag in the mangled name, and the head dims 64 and 128 of the
-# prefill, the decode and the fused LSH kernel by their last template
-# argument), and the instructions counted: warpgroup MMA, TMA tensor load,
-# bulk copy, mma.sync, cp.async and integer-to-float conversion.
+# its kWords flag in the mangled name, the head dims 64 and 128 by the
+# last template argument, and the bf16 and int8 (`a`) forms at d = 128 of
+# the decode and the fused LSH kernel (its exact form) by their types),
+# and the instructions counted: warpgroup MMA, TMA tensor load, bulk copy,
+# mma.sync, cp.async and integer-to-float conversion.
 SASS_KERNELS = {
     "flash_prefill_kernel": ("flash_prefill_kernel", "ILi64E"),
     "flash_prefill_kernel d128": ("flash_prefill_kernel", "ILi128E"),
     "flash_decode_kernel": ("flash_decode_kernel", "Li64EE"),
-    "flash_decode_kernel d128": ("flash_decode_kernel", "Li128EE"),
-    "block_score_kernel": ("block_score_kernel", "Li4E"),
-    "rescore_attend_kernel": ("rescore_attend_kernel", "Li4E"),
-    "block_attend_kernel": ("block_attend_kernel", "Li4E"),
+    "flash_decode_kernel d128": ("flash_decode_kernel", "bfloat16Li128EE"),
+    "flash_decode_kernel int8 d128": ("flash_decode_kernel", "EaLi128EE"),
+    "block_score_kernel": ("block_score_kernel", "Li4E", "Li64EE"),
+    "block_score_kernel d128": ("block_score_kernel", "Li4E", "Li128EE"),
+    "rescore_attend_kernel": ("rescore_attend_kernel", "Li4E", "Li64EE"),
+    "rescore_attend_kernel d128": ("rescore_attend_kernel", "Li4E",
+                                   "Li128EE"),
+    "block_attend_kernel": ("block_attend_kernel", "Li4E", "Li64EE"),
+    "block_attend_kernel d128": ("block_attend_kernel", "Li4E", "Li128EE"),
     "w4_matmul_kernel": ("w4_matmul_kernel",),
     "lsh_masked (lsh_split_kernel, words)": ("lsh_split_kernel", "Li4E",
                                              "Lb1ELi64E"),
     "lsh_fused (lsh_split_kernel, scan)": ("lsh_split_kernel", "Li4E",
                                            "Lb0ELi64E"),
-    "lsh_fused d128 (lsh_split_kernel, scan)": ("lsh_split_kernel", "Li4E",
-                                                "Lb0ELi128E"),
+    "lsh_fused d128 (lsh_split_kernel, scan)": (
+        "lsh_split_kernel", "Li4E13__nv_bfloat16Li0ELb0ELi128E"),
+    "lsh_fused int8 d128 (lsh_split_kernel, scan)": (
+        "lsh_split_kernel", "Li4EaLi0ELb0ELi128E"),
     "collision_words_kernel": ("collision_words_kernel", "Li4E"),
 }
 SASS_OPS = ("HGMMA", "UTMALDG", "UBLKCP", "HMMA", "LDGSTS", "I2F")
@@ -348,8 +368,10 @@ def check_sass(counts) -> None:
     operations), bulk copies in both attends, cp.async in the scorer, the
     int4 matmul and both LSH kernels, TMA in both collision scans (the
     fused kernel's and the standalone one); and in both head dims' forms of
-    the prefill warpgroup MMA and TMA, of the decode bulk copies, of the
-    fused LSH kernel mma.sync and TMA."""
+    the prefill warpgroup MMA and TMA, of the decode bulk copies (int8 at d
+    = 128 too), of the fused LSH kernel mma.sync, TMA and cp.async (int8 at
+    d = 128 too), of the scorer mma.sync and cp.async, of both attends
+    mma.sync and bulk copies."""
     if counts.get("w4_matmul_kernel", {}).get("I2F", 1) != 0:
         raise AssertionError("w4_matmul_kernel: I2F in its SASS")
     for name, op in (("block_score_kernel", "HMMA"),
@@ -367,10 +389,16 @@ def check_sass(counts) -> None:
                      *((f"flash_prefill_kernel{dim}", op)
                        for dim in ("", " d128") for op in ("HGMMA", "UTMALDG")),
                      *((f"flash_decode_kernel{dim}", "UBLKCP")
-                       for dim in ("", " d128")),
+                       for dim in ("", " d128", " int8 d128")),
                      *((f"lsh_fused{dim} (lsh_split_kernel, scan)", op)
-                       for dim in ("", " d128") for op in ("HMMA", "UTMALDG",
-                                                          "LDGSTS"))):
+                       for dim in ("", " d128", " int8 d128")
+                       for op in ("HMMA", "UTMALDG", "LDGSTS")),
+                     ("block_score_kernel d128", "HMMA"),
+                     ("block_score_kernel d128", "LDGSTS"),
+                     *((f"{kernel} d128", op)
+                       for kernel in ("rescore_attend_kernel",
+                                      "block_attend_kernel")
+                       for op in ("HMMA", "UBLKCP"))):
         if counts.get(name, {}).get(op, 0) == 0:
             raise AssertionError(f"{name}: no {op} instruction in its SASS")
 
@@ -564,10 +592,11 @@ def lsh_row(torch, args, lens, name: str):
 
 def phase_kernels_d128(torch, F, dev):
     """The head-dim-128 forms at Llama-3.1-8B's shapes (Hq 32, Hkv 8, d
-    128): flash_prefill over 8192 and 12000 tokens, causal; bf16
+    128): flash_prefill over 8192 and 12000 tokens, causal; bf16 and int8
     flash_decode at B=2 over 16384 + 11000 tokens (split sizes swept) and
-    at the hot cache; the fused LSH kernel, bf16, exact, K=10, L=150 over
-    the same caches (counts exact; split sizes swept). Each against its
+    the bf16 form at the hot cache; the fused LSH kernel, K=10, L=150 over
+    the same caches in all six forms (bf16 and int8; exact, poly, none;
+    counts exact; split sizes swept for both exact forms). Each against its
     plain version within the d = 64 rows' `TOL`, a skipped tile rejected."""
     from magicpig_tpu_torch.ops import bitcodes
 
@@ -595,12 +624,17 @@ def phase_kernels_d128(torch, F, dev):
     planes = torch.stack([bitcodes.build_planes(k[i].transpose(0, 1), proj, K)
                           for i in range(b)])
     q_bits = bitcodes.hash_bits(q, proj, K)
-    results["lsh_fused_decode_d128"] = lsh_row(
+    results["lsh_fused_decode_d128"], (nbytes, rows, flops) = lsh_row(
         torch, (q, k, v, k_norm, planes, q_bits, length, K, L), lens,
-        "lsh_fused_decode_d128")[0]
+        "lsh_fused_decode_d128")
     lsh_split_sweep(torch, "lsh_fused_decode_d128", "mp_lsh_fused_decode",
                     (q, k, v, k_norm, None, length, K, L, None, None, "exact"),
                     (planes, q_bits))
+    results.update(lsh_debias_forms(
+        torch, (q, k, v, k_norm, planes, q_bits, length, K, L, None, None),
+        nbytes, rows, flops))
+    del planes, q_bits
+    results.update(int8_decode_kernels(torch, q, k, v, length, lens, proj, K, L))
     results.update(hot_decode_kernels(torch, F, rnd, d=d))
     log_timings(results)
     return results
@@ -936,23 +970,25 @@ def int8_decode_kernels(torch, q, k, v, length, lens, proj, K, L):
     kq, ks = quantize_rows(k)
     vq, vs = quantize_rows(v)
     results = {}
+    sfx = "" if d == 64 else f"_d{d}"
 
     # -- flash decode over int8 K/V.
+    name = "flash_decode_int8" + sfx
     got, got_lse = flash_decode(q, kq, vq, length, ks, vs)
     want, want_lse = attention.full_decode(q, kq, vq, length, ks, vs)
     tol = TOL["flash_decode"]
-    err, share = check_close("flash_decode_int8", got, want, tol)
-    err = max(err, check_close("flash_decode_int8 lse", got_lse, want_lse,
+    err, share = check_close(name, got, want, tol)
+    err = max(err, check_close(f"{name} lse", got_lse, want_lse,
                                TOL["lse"])[0])
-    teeth = check_rejects("flash_decode_int8", attention.full_decode(
+    teeth = check_rejects(name, attention.full_decode(
         q, kq, drop_tile(vq, 2, 8192), length, ks, vs)[0], want, tol)
     nbytes = (sum(lens) * hkv * (d * 2 + 8) + q.numel() * 2
               + b * hq * (d + 1) * 4)
-    results["flash_decode_int8"] = dict(
+    results[name] = dict(
         max_abs_err=err, tol=tol, bound=bound_ms(nbytes, 4 * d * hq * sum(lens)),
         **timings(lambda: flash_decode(q, kq, vq, length, ks, vs),
                   lambda: attention.full_decode(q, kq, vq, length, ks, vs)))
-    log(f"kernel flash_decode_int8 err {err:.2e}, worst element "
+    log(f"kernel {name} err {err:.2e}, worst element "
         f"{share:.2f} of its limit (tol {tol}); a skipped tile's worst "
         f"element {teeth:.1f}x the limit")
     decode_split_sweep(torch, q, kq, vq, length, ks, vs)
@@ -965,15 +1001,16 @@ def int8_decode_kernels(torch, q, k, v, length, lens, proj, K, L):
     del kd
     q_bits = bitcodes.hash_bits(q, proj, K)
     args = (q, kq, vq, k_norm, planes, q_bits, length, K, L, ks, vs)
+    name = "lsh_fused_decode_int8" + sfx
     got, got_lse, got_cnt = lsh_fused_decode(*args)
     want, want_lse, want_cnt = lsh_fused_decode_plain(*args)
     if not torch.equal(got_cnt, want_cnt):
-        raise AssertionError("lsh_fused_decode_int8: sampled counts differ")
+        raise AssertionError(f"{name}: sampled counts differ")
     tol = TOL["lsh_fused_decode"]
-    err, share = check_close("lsh_fused_decode_int8", got, want, tol)
-    err = max(err, check_close("lsh_fused_decode_int8 lse", got_lse, want_lse,
+    err, share = check_close(name, got, want, tol)
+    err = max(err, check_close(f"{name} lse", got_lse, want_lse,
                                TOL["lse"])[0])
-    teeth = check_rejects("lsh_fused_decode_int8", lsh_fused_decode_plain(
+    teeth = check_rejects(name, lsh_fused_decode_plain(
         q, kq, drop_tile(vq, 2, 8192), k_norm, planes, q_bits, length, K, L,
         ks, vs)[0], want, tol)
     sampled = bitcodes.sampled_mask(q_bits, planes, length)    # [B, Hq, S]
@@ -981,18 +1018,22 @@ def int8_decode_kernels(torch, q, k, v, length, lens, proj, K, L):
     words = sum((n + 31) // 32 for n in lens) * hkv * L * K
     nbytes = (words * 4 + rows * (2 * d + 8 + 4) + q.numel() * 2
               + q_bits.numel() * 4 + b * hq * (d + 2) * 4)
-    results["lsh_fused_decode_int8"] = dict(
+    results[name] = dict(
         max_abs_err=err, tol=tol,
         bound=bound_ms(nbytes, 4 * d * int(want_cnt.sum())),
         **timings(lambda: lsh_fused_decode(*args),
                   lambda: lsh_fused_decode_plain(*args)),
         sampled_frac=float(want_cnt.sum()) / (hq * sum(lens)),
         rows_frac=rows / (hkv * sum(lens)))
-    log(f"kernel lsh_fused_int8 err {err:.2e}, worst element {share:.2f} of "
+    log(f"kernel {name} err {err:.2e}, worst element {share:.2f} of "
         f"its limit (tol {tol}); a skipped tile's worst element {teeth:.1f}x "
         f"the limit; counts exact, sampled "
-        f"{results['lsh_fused_decode_int8']['sampled_frac']:.4f}, rows read "
-        f"{results['lsh_fused_decode_int8']['rows_frac']:.4f}")
+        f"{results[name]['sampled_frac']:.4f}, rows read "
+        f"{results[name]['rows_frac']:.4f}")
+    if d != 64:     # int8 rows at d = 128 take the shared memory of bf16 at 64
+        lsh_split_sweep(torch, name, "mp_lsh_fused_decode",
+                        (q, kq, vq, k_norm, None, length, K, L, ks, vs,
+                         "exact"), (planes, q_bits))
     results.update(lsh_debias_forms(torch, args, nbytes, rows,
                                     4 * d * int(want_cnt.sum())))
     return results
@@ -1012,7 +1053,7 @@ def lsh_debias_forms(torch, args, nbytes, rows, flops):
     exact = lsh_fused_decode_plain(*args)[0]
     tol, results = TOL["lsh_fused_decode"], {}
     for debias in ("poly", "none"):
-        name = launch_name(ks is not None, debias)
+        name = launch_name(ks is not None, debias, q.shape[-1])
         full = (*args, debias)
         got, got_lse, got_cnt = lsh_fused_decode(*full)
         want, want_lse, want_cnt = lsh_fused_decode_plain(*full)
@@ -1049,14 +1090,22 @@ def lsh_debias_forms(torch, args, nbytes, rows, flops):
 W4_SHAPES = (("w4_matmul_wqkv", 2048, 3072), ("w4_matmul_wo", 2048, 2048),
              ("w4_matmul_gateup", 2048, 16384),
              ("w4_matmul_wdown", 8192, 2048), ("w4_matmul", 2048, 128256))
+# The same products of Llama-3.1-8B (hidden 4096, 32/8 heads of 128,
+# intermediate 14336, the untied lm_head).
+W4_SHAPES_8B = (("w4_matmul_8b_wqkv", 4096, 6144),
+                ("w4_matmul_8b_wo", 4096, 4096),
+                ("w4_matmul_8b_gateup", 4096, 28672),
+                ("w4_matmul_8b_wdown", 14336, 4096),
+                ("w4_matmul_8b_lm_head", 4096, 128256))
 
 
-def phase_w4_kernel(torch, dev):
+def phase_w4_kernel(torch, dev, shapes=W4_SHAPES):
     """The packed-nibble int4 matmul against its plain version at M=2 (B=2
-    decode) on each product a decode step runs (`W4_SHAPES`), weights
-    N(0, 1/kin) quantized on the card, each with a zeroed weight group
-    rejected. The library yardstick is a bf16 torch.matmul over the
-    dequantized weight (no int4 PyTorch call takes this packing)."""
+    decode) on each product a decode step runs (`W4_SHAPES`, or the 8B's
+    `W4_SHAPES_8B`), weights N(0, 1/kin) quantized on the card, each with a
+    zeroed weight group rejected. The library yardstick is a bf16
+    torch.matmul over the dequantized weight (no int4 PyTorch call takes
+    this packing)."""
     from magicpig_tpu_torch.models.llama import quantize_weight4
     from magicpig_tpu_torch.ops.kernels import w4_matmul
     from magicpig_tpu_torch.ops.kernels.w4_matmul import (unpack_weight4,
@@ -1066,7 +1115,7 @@ def phase_w4_kernel(torch, dev):
     gen.manual_seed(99)
     m, tol = 2, TOL["w4_matmul"]
     results = {}
-    for name, kin, out in W4_SHAPES:
+    for name, kin, out in shapes:
         x = torch.randn((m, kin), generator=gen, device=dev, dtype=torch.bfloat16)
         w = quantize_weight4(torch.randn((kin, out), generator=gen, device=dev,
                                          dtype=torch.bfloat16).mul_(kin ** -0.5))
@@ -1123,11 +1172,13 @@ def log_timings(results) -> None:
             f"{r['bound'][0] * 1e3:.1f} us ({r['bound'][1]})")
 
 
-def phase_block_kernels(torch, dev):
+def phase_block_kernels(torch, dev, d: int = 64):
     """The block_topk kernels against their plain versions: B=2 over a
     65536-token offload (lengths 65536 and 40000), 512-token blocks, 11
-    selected (the default 8% budget of 128 blocks); the scorer and the
-    rescore on int8 K/V, the store pipeline's scorer and attend on bf16."""
+    selected (the default 8% budget of 128 blocks), Hq 32, Hkv 8, head dim
+    d (rows named "..._d128" at 128); the scorer and the rescore on int8
+    K/V, the store pipeline's scorer and attend on bf16, the packed int4
+    forms; at d = 64 also the scores-only form."""
     from magicpig_tpu_torch.ops.kernels import (block_attend, block_rank,
                                                 exact_scores_ranked,
                                                 rescore_attend)
@@ -1141,7 +1192,8 @@ def phase_block_kernels(torch, dev):
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(4321)
-    b, hq, hkv, d, s, bs, n_sel = 2, 32, 8, 64, 65536, 512, 11
+    b, hq, hkv, s, bs, n_sel = 2, 32, 8, 65536, 512, 11
+    sfx = "" if d == 64 else f"_d{d}"
     g = hq // hkv
     lens = [65536, 40000]
     q = torch.randn((b, hq, d), generator=gen, device=dev, dtype=torch.bfloat16)
@@ -1175,41 +1227,42 @@ def phase_block_kernels(torch, dev):
     # -- block_rank: int8 K, block maxes only.
     got = block_rank(q, kq, ks, length, bs)
     want = block_scores_plain(q, kq, ks, length, bs)[1]
-    err, share = check_close("block_rank", got, want, tol)
-    same_top("block_rank", got, want)
-    teeth = check_rejects("block_rank", block_scores_plain(
+    err, share = check_close("block_rank" + sfx, got, want, tol)
+    same_top("block_rank" + sfx, got, want)
+    teeth = check_rejects("block_rank" + sfx, block_scores_plain(
         q, drop_tile(kq, 2, 7 * bs, bs), ks, length, bs)[1], want, tol,
         "a skipped ranking block of K")
     nbytes = valid * (d + 4) + q.numel() * 2 + got.numel() * 4
-    results["block_rank"] = dict(
+    results["block_rank" + sfx] = dict(
         max_abs_err=err, tol=tol, bound=bound_ms(nbytes, 2 * d * g * valid),
         **timings(lambda: block_rank(q, kq, ks, length, bs),
                   lambda: block_scores_plain(q, kq, ks, length, bs), library))
-    log(f"kernel block_rank     err {err:.2e}, worst element {share:.2f} of "
+    log(f"kernel block_rank{sfx}     err {err:.2e}, worst element {share:.2f} of "
         f"its limit (tol {tol}); a skipped ranking block's worst element "
         f"{teeth:.1f}x the limit; top-{n_sel} ids equal")
 
     # -- exact_scores_ranked: bf16 K, scores and block maxes.
     got_s, got_m = exact_scores_ranked(q, k, None, length, bs)
     want_s, want_m = block_scores_plain(q, k, None, length, bs)
-    err, share = check_close("exact_scores_ranked", got_s, want_s, tol)
-    err2, share2 = check_close("exact_scores_ranked max", got_m, want_m, tol)
+    err, share = check_close("exact_scores_ranked" + sfx, got_s, want_s, tol)
+    err2, share2 = check_close("exact_scores_ranked" + sfx + " max", got_m, want_m, tol)
     err, share = max(err, err2), max(share, share2)
-    same_top("exact_scores_ranked", got_m, want_m)
-    teeth = check_rejects("exact_scores_ranked", block_scores_plain(
+    same_top("exact_scores_ranked" + sfx, got_m, want_m)
+    teeth = check_rejects("exact_scores_ranked" + sfx, block_scores_plain(
         q, drop_tile(k, 2, 4096), None, length, bs)[0], want_s, tol,
         "a skipped 64-token K tile")
     nbytes = (valid * d * 2 + q.numel() * 2 + got_s.numel() * 4
               + got_m.numel() * 4)
-    results["exact_scores_ranked"] = dict(
+    results["exact_scores_ranked" + sfx] = dict(
         max_abs_err=err, tol=tol, bound=bound_ms(nbytes, 2 * d * g * valid),
         **timings(lambda: exact_scores_ranked(q, k, None, length, bs),
                   lambda: block_scores_plain(q, k, None, length, bs), library))
-    log(f"kernel exact_scores   err {err:.2e}, worst element {share:.2f} of "
+    log(f"kernel exact_scores_ranked{sfx} err {err:.2e}, worst element {share:.2f} of "
         f"its limit (tol {tol}); a skipped K tile's worst element "
         f"{teeth:.1f}x the limit; top-{n_sel} ids equal")
     del want_s
-    results.update(exact_scores_kernel(torch, q, k, kq, ks, bs, library))
+    if d == 64:          # no path calls the scores-only form
+        results.update(exact_scores_kernel(torch, q, k, kq, ks, bs, library))
     del library
 
     # -- rescore_attend: int8 K and V, the blocks block_rank picked.
@@ -1217,53 +1270,53 @@ def phase_block_kernels(torch, dev):
     got, got_lse = rescore_attend(q, ids, kq, ks, vq, vs, length, bs)
     want, want_lse = rescore_attend_plain(q, ids, kq, ks, vq, vs, length, bs)
     tol = TOL["block_attend"]
-    err, share = check_close("rescore_attend", got, want, tol)
-    err = max(err, check_close("rescore_attend lse", got_lse, want_lse,
+    err, share = check_close("rescore_attend" + sfx, got, want, tol)
+    err = max(err, check_close("rescore_attend" + sfx + " lse", got_lse, want_lse,
                                lse_tol)[0])
     first = int(ids[0, 0, 0]) * bs
-    teeth = check_rejects("rescore_attend", rescore_attend_plain(
+    teeth = check_rejects("rescore_attend" + sfx, rescore_attend_plain(
         q, ids, kq, ks, drop_tile(vq, 2, first), vs, length, bs)[0], want, tol)
     tokens = selected_tokens(ids)
     nbytes = (tokens * (2 * d + 8) + ids.numel() * 4 + q.numel() * 2
               + b * hq * (d + 1) * 4)
-    results["rescore_attend"] = dict(
+    results["rescore_attend" + sfx] = dict(
         max_abs_err=err, tol=tol, bound=bound_ms(nbytes, 4 * d * g * tokens),
         **timings(lambda: rescore_attend(q, ids, kq, ks, vq, vs, length, bs),
                   lambda: rescore_attend_plain(q, ids, kq, ks, vq, vs,
                                                length, bs)),
         selected_tokens=tokens)
-    log(f"kernel rescore_attend err {err:.2e}, worst element {share:.2f} of "
+    log(f"kernel rescore_attend{sfx} err {err:.2e}, worst element {share:.2f} of "
         f"its limit (tol {tol}); a skipped tile's worst element "
         f"{teeth:.1f}x the limit; {tokens} valid selected rows")
-    attend_chunk_sweep("rescore_attend", lambda c: launch_rescore_attend(
+    attend_chunk_sweep("rescore_attend" + sfx, lambda c: launch_rescore_attend(
         q, ids, kq, ks, vq, vs, length, bs, c))
 
     # -- block_attend: bf16 V, the stored scores of the bf16 scorer.
     ids = torch.topk(got_m, n_sel).indices.to(torch.int32)
     got, got_lse = block_attend(got_s, ids, v, None, bs)
     want, want_lse = block_attend_plain(got_s, ids, v, None, bs)
-    err, share = check_close("block_attend", got, want, tol)
-    err = max(err, check_close("block_attend lse", got_lse, want_lse,
+    err, share = check_close("block_attend" + sfx, got, want, tol)
+    err = max(err, check_close("block_attend" + sfx + " lse", got_lse, want_lse,
                                lse_tol)[0])
     first = int(ids[0, 0, 0]) * bs
-    teeth = check_rejects("block_attend", block_attend_plain(
+    teeth = check_rejects("block_attend" + sfx, block_attend_plain(
         got_s, ids, drop_tile(v, 2, first), None, bs)[0], want, tol)
     tokens = selected_tokens(ids)
     nbytes = (ids.numel() * bs * g * 4 + tokens * d * 2 + ids.numel() * 4
               + b * hq * (d + 1) * 4)
-    results["block_attend"] = dict(
+    results["block_attend" + sfx] = dict(
         max_abs_err=err, tol=tol, bound=bound_ms(nbytes, 2 * d * g * tokens),
         **timings(lambda: block_attend(got_s, ids, v, None, bs),
                   lambda: block_attend_plain(got_s, ids, v, None, bs)),
         selected_tokens=tokens)
-    log(f"kernel block_attend   err {err:.2e}, worst element {share:.2f} of "
+    log(f"kernel block_attend{sfx}   err {err:.2e}, worst element {share:.2f} of "
         f"its limit (tol {tol}); a skipped tile's worst element "
         f"{teeth:.1f}x the limit; {tokens} valid selected rows")
-    attend_chunk_sweep("block_attend", lambda c: launch_block_attend(
+    attend_chunk_sweep("block_attend" + sfx, lambda c: launch_block_attend(
         got_s, ids, v, None, bs, c))
     del got_s, got_m
     results.update(packed_block_kernels(torch, q, k, vq, vs, length, bs,
-                                        n_sel, same_top, selected_tokens))
+                                        n_sel, same_top, selected_tokens, sfx))
     log_timings(results)
     return results
 
@@ -1306,13 +1359,14 @@ def exact_scores_kernel(torch, q, k, kq, ks, bs, library) -> dict:
 
 
 def packed_block_kernels(torch, q, k, vq, vs, length, bs, n_sel, same_top,
-                         selected_tokens):
+                         selected_tokens, sfx: str = ""):
     """The packed int4 forms of the block scorer and rescore-attend on the
     same keys put on the 4-bit grid: each within `TOL` of its plain version,
     bit for bit the int8 kernel's numbers on the unpacked rows, and a
     planted fault rejected (one ranking block of packed K zeroed; for the
     rescore also one 64-token V tile). The scorer's library yardstick is the
-    bf16 matmul of the int8 rows."""
+    bf16 matmul of the int8 rows. Rows named with `sfx` ("_d128" at head dim
+    128)."""
     from magicpig_tpu_torch.ops.kernels import (block_rank, exact_scores_ranked,
                                                 rescore_attend)
     from magicpig_tpu_torch.ops.kernels.block_score import (block_scores_plain,
@@ -1345,18 +1399,18 @@ def packed_block_kernels(torch, q, k, vq, vs, length, bs, n_sel, same_top,
     # -- block_rank over packed K.
     got = block_rank(q, kp, ks, length, bs)
     want = block_scores_plain(q, kp, ks, length, bs)[1]
-    err, share = check_close("block_rank_int4", got, want, tol)
-    bit_equal("block_rank_int4", [got], [block_rank(q, k4, ks, length, bs)])
-    same_top("block_rank_int4", got, want)
-    teeth = check_rejects("block_rank_int4", block_scores_plain(
+    err, share = check_close("block_rank_int4" + sfx, got, want, tol)
+    bit_equal("block_rank_int4" + sfx, [got], [block_rank(q, k4, ks, length, bs)])
+    same_top("block_rank_int4" + sfx, got, want)
+    teeth = check_rejects("block_rank_int4" + sfx, block_scores_plain(
         q, k_block_zeroed(5), ks, length, bs)[1], want, tol,
         "a skipped ranking block of packed K")
     nbytes = valid * (d // 2 + 4) + q.numel() * 2 + got.numel() * 4
-    results["block_rank_int4"] = dict(
+    results["block_rank_int4" + sfx] = dict(
         max_abs_err=err, tol=tol, bound=bound_ms(nbytes, 2 * d * g * valid),
         **timings(lambda: block_rank(q, kp, ks, length, bs),
                   lambda: block_scores_plain(q, kp, ks, length, bs), library))
-    log(f"kernel block_rank_int4 err {err:.2e}, worst element {share:.2f} "
+    log(f"kernel block_rank_int4{sfx} err {err:.2e}, worst element {share:.2f} "
         f"of its limit (tol {tol}); equal to the int8 kernel's bit for bit; "
         f"a skipped ranking block's worst element {teeth:.1f}x the limit; "
         f"top-{n_sel} ids equal")
@@ -1364,23 +1418,23 @@ def packed_block_kernels(torch, q, k, vq, vs, length, bs, n_sel, same_top,
     # -- exact_scores_ranked over packed K.
     got_s, got_m = exact_scores_ranked(q, kp, ks, length, bs)
     want_s, want_m = block_scores_plain(q, kp, ks, length, bs)
-    err, share = check_close("exact_scores_ranked_int4", got_s, want_s, tol)
-    err2, share2 = check_close("exact_scores_ranked_int4 max", got_m, want_m,
+    err, share = check_close("exact_scores_ranked_int4" + sfx, got_s, want_s, tol)
+    err2, share2 = check_close("exact_scores_ranked_int4" + sfx + " max", got_m, want_m,
                                tol)
     err, share = max(err, err2), max(share, share2)
-    bit_equal("exact_scores_ranked_int4", [got_s, got_m],
+    bit_equal("exact_scores_ranked_int4" + sfx, [got_s, got_m],
               exact_scores_ranked(q, k4, ks, length, bs))
-    same_top("exact_scores_ranked_int4", got_m, want_m)
-    teeth = check_rejects("exact_scores_ranked_int4", block_scores_plain(
+    same_top("exact_scores_ranked_int4" + sfx, got_m, want_m)
+    teeth = check_rejects("exact_scores_ranked_int4" + sfx, block_scores_plain(
         q, k_block_zeroed(6), ks, length, bs)[0], want_s, tol,
         "a skipped ranking block of packed K")
     nbytes = (valid * (d // 2 + 4) + q.numel() * 2 + got_s.numel() * 4
               + got_m.numel() * 4)
-    results["exact_scores_ranked_int4"] = dict(
+    results["exact_scores_ranked_int4" + sfx] = dict(
         max_abs_err=err, tol=tol, bound=bound_ms(nbytes, 2 * d * g * valid),
         **timings(lambda: exact_scores_ranked(q, kp, ks, length, bs),
                   lambda: block_scores_plain(q, kp, ks, length, bs), library))
-    log(f"kernel exact_scores_int4 err {err:.2e}, worst element {share:.2f} "
+    log(f"kernel exact_scores_ranked_int4{sfx} err {err:.2e}, worst element {share:.2f} "
         f"of its limit (tol {tol}); equal to the int8 kernel's bit for bit; "
         f"a skipped ranking block's worst element {teeth:.1f}x the limit; "
         f"top-{n_sel} ids equal")
@@ -1392,44 +1446,44 @@ def packed_block_kernels(torch, q, k, vq, vs, length, bs, n_sel, same_top,
     got, got_lse = rescore_attend(*args)
     want, want_lse = rescore_attend_plain(*args)
     tol = TOL["block_attend"]
-    err, share = check_close("rescore_attend_int4", got, want, tol)
-    err = max(err, check_close("rescore_attend_int4 lse", got_lse, want_lse,
+    err, share = check_close("rescore_attend_int4" + sfx, got, want, tol)
+    err = max(err, check_close("rescore_attend_int4" + sfx + " lse", got_lse, want_lse,
                                TOL["lse"])[0])
-    bit_equal("rescore_attend_int4", [got, got_lse],
+    bit_equal("rescore_attend_int4" + sfx, [got, got_lse],
               rescore_attend(q, ids, k4, ks, vq, vs, length, bs))
     first = int(ids[0, 0, 0])
-    teeth = check_rejects("rescore_attend_int4", rescore_attend_plain(
+    teeth = check_rejects("rescore_attend_int4" + sfx, rescore_attend_plain(
         q, ids, kp, ks, drop_tile(vq, 2, first * bs), vs, length, bs)[0],
         want, tol)
-    teeth_k = check_rejects("rescore_attend_int4", rescore_attend_plain(
+    teeth_k = check_rejects("rescore_attend_int4" + sfx, rescore_attend_plain(
         q, ids, k_block_zeroed(first), ks, vq, vs, length, bs)[0], want, tol,
         "a skipped ranking block of packed K")
     tokens = selected_tokens(ids)
     nbytes = (tokens * (d // 2 + 4 + d + 4) + ids.numel() * 4
               + q.numel() * 2 + b * hq * (d + 1) * 4)
-    results["rescore_attend_int4"] = dict(
+    results["rescore_attend_int4" + sfx] = dict(
         max_abs_err=err, tol=tol, bound=bound_ms(nbytes, 4 * d * g * tokens),
         **timings(lambda: rescore_attend(*args),
                   lambda: rescore_attend_plain(*args)),
         selected_tokens=tokens)
-    log(f"kernel rescore_attend_int4 err {err:.2e}, worst element "
+    log(f"kernel rescore_attend_int4{sfx} err {err:.2e}, worst element "
         f"{share:.2f} of its limit (tol {tol}); equal to the int8 kernel's "
         f"bit for bit; a skipped V tile's worst element {teeth:.1f}x and a "
         f"skipped K block's {teeth_k:.1f}x the limit; {tokens} valid "
         "selected rows")
-    attend_chunk_sweep("rescore_attend_int4", lambda c: launch_rescore_attend(
+    attend_chunk_sweep("rescore_attend_int4" + sfx, lambda c: launch_rescore_attend(
         *args, c))
     return results
 
 
-def serve_attend_kernels(torch, dev) -> dict:
+def serve_attend_kernels(torch, dev, d: int = 64) -> dict:
     """The rescore-attend (int8 K, packed int4 K) and the block-attend (bf16
     V, stored scores) at the block_topk serves' own shape, rows "_serve":
     B=2 over a 16384-token offload holding the phase-3 prompts' offload
     lengths (11932 and 6932), 512-token blocks, the 3 of 32 that each
     scorer ranks first (48 selected blocks of work against the phase-2
-    shape's 176). Each within `TOL` of its plain version, a skipped V tile
-    rejected."""
+    shape's 176), Hq 32, Hkv 8, head dim d (rows "..._d128_serve" at 128).
+    Each within `TOL` of its plain version, a skipped V tile rejected."""
     from magicpig_tpu_torch.ops.kernels import (block_attend, block_rank,
                                                 exact_scores_ranked,
                                                 rescore_attend)
@@ -1442,7 +1496,8 @@ def serve_attend_kernels(torch, dev) -> dict:
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(2468)
-    b, hq, hkv, d, s, bs, n_sel = 2, 32, 8, 64, 16384, 512, 3
+    b, hq, hkv, s, bs, n_sel = 2, 32, 8, 16384, 512, 3
+    sfx = "" if d == 64 else f"_d{d}"
     g = hq // hkv
     length = torch.tensor([11932, 6932], dtype=torch.int32, device=dev)
 
@@ -1470,19 +1525,19 @@ def serve_attend_kernels(torch, dev) -> dict:
         # name: (kernel of V, its launcher at a chunk, plain version of V,
         # V, selected ids, bytes each valid selected token reads, scores
         # stored)
-        "rescore_attend_serve": (
+        f"rescore_attend{sfx}_serve": (
             lambda vv: rescore_attend(q, ids8, kq, ks, vv, vs, length, bs),
             lambda c: launch_rescore_attend(q, ids8, kq, ks, vq, vs, length,
                                             bs, c),
             lambda vv: rescore_attend_plain(q, ids8, kq, ks, vv, vs, length,
                                             bs), vq, ids8, 2 * d + 8, False),
-        "rescore_attend_int4_serve": (
+        f"rescore_attend_int4{sfx}_serve": (
             lambda vv: rescore_attend(q, ids4, kp, ks4, vv, vs, length, bs),
             lambda c: launch_rescore_attend(q, ids4, kp, ks4, vq, vs, length,
                                             bs, c),
             lambda vv: rescore_attend_plain(q, ids4, kp, ks4, vv, vs, length,
                                             bs), vq, ids4, d // 2 + d + 8, False),
-        "block_attend_serve": (
+        f"block_attend{sfx}_serve": (
             lambda vv: block_attend(scores, ids16, vv, None, bs),
             lambda c: launch_block_attend(scores, ids16, v, None, bs, c),
             lambda vv: block_attend_plain(scores, ids16, vv, None, bs), v,
@@ -1958,46 +2013,109 @@ def phase_serve_bench_modes(torch, dev, prompts):
 
 def phase_serve_8b(torch, dev):
     """`LLM("llama-3.1-8b")` at full width and depth (32 layers, hidden 4096,
-    32/8 heads of 128, vocab 128256, untied lm_head) with random bf16
-    weights drawn on the card; LSH K=10, L=150, masked, exact debias, bf16
-    K/V, dense layers 0 and 16; the two prompts of the 1B serves (12000 and
-    7000 random tokens, drawn again from their seed), 16 greedy steps, every
-    launch counted: the d = 128 forms of the prefill, the decode (the dense
-    layers and every sparse layer's hot cache) and the fused LSH kernel;
-    the graphed run held to the eager step; a warm prefill and the decode
-    steps profiled."""
-    from magicpig_tpu_torch.config import LSHConfig
+    32/8 heads of 128, intermediate 14336, vocab 128256, untied lm_head,
+    dense layers 0 and 16) on the two prompts of the 1B serves (12000 and
+    7000 random tokens, drawn again from their seed), 16 greedy steps each,
+    every launch counted (the int4 matmul's by weight shape too), the
+    graphed run held to the eager step, the decode steps profiled. The bf16
+    weights are drawn once on the card (with the hash projections after
+    them, from the generator an `LLM(seed=1)` draws from) and quantized from
+    that draw: bf16 weights under LSH K=10, L=150 over bf16 K/V (a warm
+    prefill profiled too); then `bench.py`'s lsh mode (W8A8 fused weights,
+    LSH over int8 offload K/V), its block_topk4 mode (W8A8, packed int4 K
+    and int8 V, dense int8 layers; the realized fraction exact) and its
+    full_int8 mode with int4 fused weights (K=0, every layer dense over
+    int8 K/V). Returns the four serves' results in that order."""
+    from magicpig_tpu_torch.config import LSHConfig, preset
+    from magicpig_tpu_torch.models.llama import (fuse_params, init_params,
+                                                 quantize_params)
+    from magicpig_tpu_torch.ops.hashing import make_hash_projections
 
+    model, n_ctx = "llama-3.1-8b", 16384
     gen = torch.Generator(device=dev)
     gen.manual_seed(7)
     prompts = [torch.randint(1, 128256, (n,), generator=gen, device=dev)
                for n in (12000, 7000)]
+    t = time.perf_counter()
+    cfg = preset(model)
+    gen.manual_seed(1)
+    params = init_params(cfg, n_ctx, gen, dev)
+    projections = make_hash_projections(cfg.head_dim, 10, 150, gen, dev)
+    w4 = fuse_params(quantize_params(params, 4))
+    torch.cuda.synchronize()
+    log(f"serve llama-3.1-8b: bf16 weights drawn and int4 weights quantized "
+        f"in {time.perf_counter() - t:.1f} s")
 
-    def expect(llm):
+    def counts(steps=16, **per_step):
+        def expect(llm):
+            n = llm.config.num_hidden_layers
+            n_dense = sum(1 for kind, _ in llm.groups if kind == "dense")
+            layers = dict(all=n, dense=n_dense, sparse=n - n_dense)
+            return dict(flash_prefill_d128=2 * n,
+                        **{name: steps * layers[which]
+                           for name, which in per_step.items()})
+        return expect
+
+    def full_int8_expect(llm):
         n, steps = llm.config.num_hidden_layers, 16
-        n_sparse = sum(1 for kind, _ in llm.groups if kind == "sparse")
-        return dict(flash_prefill_d128=2 * n, flash_decode_d128=steps * n,
-                    lsh_fused_decode_d128=steps * n_sparse)
+        # As the 1B's: 4 int4 products a layer and the lm_head a step; at
+        # prefill each request's last-token lm_head.
+        *layers, (_, kin, out) = W4_SHAPES_8B
+        w4_shapes = {f"{k}x{o}": steps * n for _, k, o in layers}
+        w4_shapes[f"{kin}x{out}"] = steps + 2
+        return dict(flash_prefill_d128=2 * n, flash_decode_int8_d128=steps * n,
+                    w4_matmul=steps * (4 * n + 1) + 2, w4_shapes=w4_shapes)
 
-    return serve_counted(torch, dev, prompts, LSHConfig(K=10, L=150),
-                         "llama-3.1-8b LSH", expect, model="llama-3.1-8b",
-                         prefill_profile=True)
+    bf16 = serve_counted(
+        torch, dev, prompts, LSHConfig(K=10, L=150), "llama-3.1-8b LSH",
+        counts(flash_decode_d128="all", lsh_fused_decode_d128="sparse"),
+        model=model, params=params, projections=projections,
+        prefill_profile=True)
+    w8 = fuse_params(quantize_params(params, 8))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    lsh_mode = serve_counted(
+        torch, dev, prompts, LSHConfig(K=10, L=150, offload_quant="int8"),
+        "llama-3.1-8b bench lsh (W8A8, int8 offload)",
+        counts(flash_decode_d128="all", lsh_fused_decode_int8_d128="sparse"),
+        weight_quant="int8", model=model, params=w8, projections=projections)
+    gc.collect()
+    torch.cuda.empty_cache()
+    lsh = LSHConfig(K=1, L=0, estimator="block_topk", offload_quant="int4",
+                    dense_quant="int8")
+    block_topk4 = serve_counted(
+        torch, dev, prompts, lsh,
+        "llama-3.1-8b bench block_topk4 (W8A8, packed int4 K)",
+        counts(flash_decode_d128="sparse", flash_decode_int8_d128="dense",
+               block_rank_int4_d128="sparse",
+               rescore_attend_int4_d128="sparse"),
+        weight_quant="int8", model=model, params=w8,
+        check_frac=exact_fraction(lsh, prompts))
+    del w8
+    gc.collect()
+    torch.cuda.empty_cache()
+    full_int8 = serve_counted(
+        torch, dev, prompts, LSHConfig(K=0, L=0, dense_quant="int8"),
+        "llama-3.1-8b bench full_int8 (W4, dense int8)", full_int8_expect,
+        weight_quant="int4", model=model, params=w4)
+    return bf16, lsh_mode, block_topk4, full_int8
 
 
 def card_vs_cpu(torch, dev, lsh, label: str, n_prompt: int = 1500,
-                weight_quant: str = "none", steps: int = 4):
-    """Two layers at 1B width, layer 1 sparse: the card engine against the
-    same engine on the CPU (the plain versions), prefill of an n_prompt
-    token prompt and `steps` greedy steps. Returns (card engine, CPU
-    engine, the card's launches in this run)."""
+                weight_quant: str = "none", steps: int = 4, cfg=None):
+    """Two layers at 1B width (or `cfg`), layer 1 sparse: the card engine
+    against the same engine on the CPU (the plain versions), prefill of an
+    n_prompt token prompt and `steps` greedy steps. Returns (card engine,
+    CPU engine, the card's launches in this run)."""
     import dataclasses
 
     from magicpig_tpu_torch.config import preset
     from magicpig_tpu_torch.ops.kernels import LAUNCHES, reset_launches
     from magicpig_tpu_torch.runtime.engine import LLM
 
-    cfg = dataclasses.replace(preset("llama-3.2-1b"), num_hidden_layers=2,
-                              weight_quant=weight_quant,
+    cfg = dataclasses.replace(cfg or preset("llama-3.2-1b"),
+                              num_hidden_layers=2, weight_quant=weight_quant,
                               fuse_small_linears=weight_quant != "none")
     card = LLM(cfg, batch_size=1, max_length=2048, lsh=lsh, device=dev, seed=3)
     host = LLM(cfg, batch_size=1, max_length=2048, lsh=lsh, device="cpu",
@@ -2185,17 +2303,89 @@ def phase_reference_two_stage(torch, dev):
     return counted
 
 
-def card_counted(torch, dev, lsh, label: str, steps: int) -> dict:
-    """Two layers at 1B width on the card alone, layer 1 sparse: a
-    1100-token prefill and `steps` greedy steps, finite logits. Returns the
-    launches of this run."""
+def phase_reference_d128(torch, dev):
+    """The d = 128 forms that no 8B serve runs, on a narrow two-layer config
+    with Llama-3.1-8B's head shape (hidden 1024, 8/2 heads of 128,
+    intermediate 3584, vocab 128256; layer 0 dense, layer 1 sparse), 2
+    steps each: against the CPU twin, block_topk on the store pipeline over
+    bf16 and over packed int4 K (every block attended), LSH K=1, L=32 over
+    int8 offload with the poly debias and over bf16 with none; on the card
+    alone (launches counted, logits finite; phase 2 holds each kernel
+    against its plain version), the bf16 poly and int8 none LSH forms at
+    K=10, L=150 and block_topk over int8 K (the rescore pipeline). Returns
+    each form's launches from the run of its path."""
+    import dataclasses
+
+    from magicpig_tpu_torch.config import LSHConfig, preset
+
+    cfg = dataclasses.replace(preset("llama-3.1-8b"), hidden_size=1024,
+                              num_attention_heads=8, num_key_value_heads=2,
+                              intermediate_size=3584)
+    steps, counted = 2, {}
+
+    def expect(launches, **want):
+        full = dict.fromkeys(launches, 0)
+        full.update(flash_prefill_d128=2, flash_decode_d128=2 * steps,
+                    **{name: steps for name in want})
+        if launches != full:
+            raise AssertionError(f"launches {launches} != path's {full}")
+        counted.update({name: steps for name in want})
+
+    for label, lsh, forms, sparse in (
+            ("block_topk bf16, store pipeline",
+             LSHConfig(estimator="block_topk", dense_layers=(0,),
+                       block_topk_budget_frac=1.0),
+             ("exact_scores_ranked_d128", "block_attend_d128"), False),
+            ("block_topk packed int4 K, store pipeline",
+             LSHConfig(estimator="block_topk", dense_layers=(0,),
+                       block_topk_budget_frac=1.0, offload_quant="int4",
+                       block_topk_pipeline="store"),
+             ("exact_scores_ranked_int4_d128", "block_attend_d128"), False),
+            ("LSH K=1/L=32, int8 offload, poly debias",
+             LSHConfig(K=1, L=32, offload_quant="int8", lsh_debias="poly",
+                       dense_layers=(0,)),
+             ("lsh_fused_decode_int8_poly_d128",), True),
+            ("LSH K=1/L=32, bf16, none debias",
+             LSHConfig(K=1, L=32, lsh_debias="none", dense_layers=(0,)),
+             ("lsh_fused_decode_none_d128",), True)):
+        card, host, launches = card_vs_cpu(torch, dev, lsh, f"d128 {label}",
+                                           1100, steps=steps, cfg=cfg)
+        expect(launches, **dict.fromkeys(forms))
+        if sparse and min(card.avg_sparsity, host.avg_sparsity) < 0.9:
+            raise AssertionError("K=1/L=32 should sample nearly every key")
+        if not sparse and card.avg_sparsity != host.avg_sparsity:
+            raise AssertionError("card and CPU realized fractions differ")
+        del card, host
+    for label, lsh, form in (
+            ("LSH bf16, poly debias",
+             LSHConfig(K=10, L=150, lsh_debias="poly", dense_layers=(0,)),
+             "lsh_fused_decode_poly_d128"),
+            ("LSH int8 offload, none debias",
+             LSHConfig(K=10, L=150, offload_quant="int8", lsh_debias="none",
+                       dense_layers=(0,)),
+             "lsh_fused_decode_int8_none_d128")):
+        expect(card_counted(torch, dev, lsh, f"d128 {label}", steps, cfg=cfg),
+               **{form: None})
+    launches = card_counted(
+        torch, dev, LSHConfig(estimator="block_topk", offload_quant="int8",
+                              dense_layers=(0,)),
+        "d128 block_topk int8 offload, rescore pipeline", steps, cfg=cfg)
+    expect(launches, block_rank_d128=None, rescore_attend_d128=None)
+    return counted
+
+
+def card_counted(torch, dev, lsh, label: str, steps: int, cfg=None) -> dict:
+    """Two layers at 1B width (or `cfg`) on the card alone, layer 1 sparse:
+    a 1100-token prefill and `steps` greedy steps, finite logits. Returns
+    the launches of this run."""
     import dataclasses
 
     from magicpig_tpu_torch.config import preset
     from magicpig_tpu_torch.ops.kernels import LAUNCHES, reset_launches
     from magicpig_tpu_torch.runtime.engine import LLM
 
-    cfg = dataclasses.replace(preset("llama-3.2-1b"), num_hidden_layers=2)
+    cfg = dataclasses.replace(cfg or preset("llama-3.2-1b"),
+                              num_hidden_layers=2)
     card = LLM(cfg, batch_size=1, max_length=2048, lsh=lsh, device=dev, seed=3)
     prompt = torch.randint(1, cfg.vocab_size, (1100,),
                            generator=torch.Generator().manual_seed(5))
@@ -2238,7 +2428,9 @@ def main() -> int:
     spills = [l.strip() for l in _lib.last_build_log.splitlines()
               if "spill" in l and not l.strip().startswith("0 bytes stack")]
     log(f"phase 1 build: {so.name} in {time.perf_counter() - t:.1f} s "
-        f"(nvcc {_lib.last_build_seconds}); registers {regs}; "
+        f"(nvcc {_lib.last_build_seconds}; each source done at "
+        f"{ {k: round(v, 1) for k, v in _lib.last_source_seconds.items()} }"
+        f" s); registers {regs}; "
         f"spills {spills or 'none'}")
     dump = start_sass_dump(so)
     try:
@@ -2252,6 +2444,12 @@ def main() -> int:
         kern.update(serve_attend_kernels(torch, dev))
         torch.cuda.empty_cache()
         kern.update(phase_w4_kernel(torch, dev))
+        torch.cuda.empty_cache()
+        kern.update(phase_block_kernels(torch, dev, d=128))
+        torch.cuda.empty_cache()
+        kern.update(serve_attend_kernels(torch, dev, d=128))
+        torch.cuda.empty_cache()
+        kern.update(phase_w4_kernel(torch, dev, W4_SHAPES_8B))
         torch.cuda.empty_cache()
         sass = sass_counts(dump)
     finally:
@@ -2276,13 +2474,14 @@ def main() -> int:
     gc.collect()         # the 1B engines (their graphs hold them in cycles)
     torch.cuda.empty_cache()
     log("phase 3 serve llama-3.1-8b")
-    serve_8b = phase_serve_8b(torch, dev)
+    serve_8b, lsh_8b, block_topk4_8b, full_int8_8b = phase_serve_8b(torch, dev)
     gc.collect()
     torch.cuda.empty_cache()
 
     log("phase 4 reference on a small input")
     store = phase_reference(torch, dev)
     masked_forms = phase_reference_two_stage(torch, dev)
+    forms_d128 = phase_reference_d128(torch, dev)
 
     # Each kernel's launches come from the counted run of the path that
     # uses it: the LSH serve, the block_topk int8 serve (rescore pipeline),
@@ -2341,26 +2540,48 @@ def main() -> int:
         "magicpig_tpu/ops/pallas/lsh_decode.py:271")
     sources["exact_scores"] = score_src
     sources["flash_decode_int8"] = sources["flash_decode"]
-    # The head-dim-128 forms: their kernels' sources, launches from the 8B
-    # serve; the 12000-token prefill and the hot cache share their form's.
-    for name in ("flash_prefill_d128", "flash_decode_d128",
-                 "lsh_fused_decode_d128"):
-        sources[name] = sources[name[:-len("_d128")]]
-        launches[name] = serve_8b["launches"][name]
+    # The fused LSH kernel's instances compile in one source per K/V type
+    # and head dim (lsh_fused.cu holds bf16 at d = 64 and the C entry).
+    for form in ("_int8", "_poly", "_none", "_int8_poly", "_int8_none"):
+        sources["lsh_fused_decode" + form] = (
+            (sources["lsh_fused_decode"][0].replace(".cu", "_int8.cu")
+             if "_int8" in form else sources["lsh_fused_decode"][0]),
+            sources["lsh_fused_decode"][1])
+        sources["lsh_masked_attention" + form] = sources["lsh_masked_attention"]
+    for name in ("block_rank", "exact_scores_ranked", "rescore_attend"):
+        sources[name + "_int4"] = sources[name]
+    # The head-dim-128 forms: their kernels' sources (the fused LSH
+    # kernel's in lsh_fused_d128.cu and lsh_fused_int8_d128.cu), launches
+    # from the run of the path that uses each: the 8B serves (bf16 LSH;
+    # bench.py's lsh, block_topk4 and full_int8 modes) and phase 4's d =
+    # 128 cuts. The 12000-token prefill and the hot cache share their
+    # form's.
+    for name, run in (("flash_prefill_d128", serve_8b["launches"]),
+                      ("flash_decode_d128", serve_8b["launches"]),
+                      ("lsh_fused_decode_d128", serve_8b["launches"]),
+                      ("lsh_fused_decode_int8_d128", lsh_8b["launches"]),
+                      ("flash_decode_int8_d128", full_int8_8b["launches"]),
+                      ("block_rank_int4_d128", block_topk4_8b["launches"]),
+                      ("rescore_attend_int4_d128",
+                       block_topk4_8b["launches"]),
+                      *((name, forms_d128) for name in forms_d128)):
+        base = name[:-len("_d128")]
+        sources[name] = (
+            (sources[base][0].replace(".cu", "_d128.cu"), sources[base][1])
+            if base.startswith("lsh_fused") else sources[base])
+        launches[name] = run[name]
     # The phase-2 shapes of the serve's own calls: its 12000-token prompt
     # and the hot caches; launches as their kernel's.
     for shape, kernel in (("flash_prefill_12000", "flash_prefill"),
                           ("flash_decode_hot", "flash_decode"),
                           ("flash_decode_int8_hot", "flash_decode_int8"),
                           ("flash_prefill_d128_12000", "flash_prefill_d128"),
-                          ("flash_decode_d128_hot", "flash_decode_d128")):
+                          ("flash_decode_d128_hot", "flash_decode_d128"),
+                          *((f"{name}_d128_serve", f"{name}_d128") for name in (
+                              "rescore_attend", "rescore_attend_int4",
+                              "block_attend"))):
         sources[shape] = sources[kernel]
         launches[shape] = launches[kernel]
-    for form in ("_int8", "_poly", "_none", "_int8_poly", "_int8_none"):
-        sources["lsh_fused_decode" + form] = sources["lsh_fused_decode"]
-        sources["lsh_masked_attention" + form] = sources["lsh_masked_attention"]
-    for name in ("block_rank", "exact_scores_ranked", "rescore_attend"):
-        sources[name + "_int4"] = sources[name]
     # The serve-shape rows and the other int4 products: their kernel's
     # source. Rows of one kernel at two shapes share its count:
     # `launches_of` names the count a row's `launches` is, and rows that
@@ -2373,16 +2594,20 @@ def main() -> int:
                           ("flash_decode_int8_hot", "flash_decode_int8"),
                           ("flash_prefill_d128_12000", "flash_prefill_d128"),
                           ("flash_decode_d128_hot", "flash_decode_d128"),
-                          ("collision_words_length", "collision_words")):
+                          ("collision_words_length", "collision_words"),
+                          *((f"{name}_d128_serve", f"{name}_d128") for name in (
+                              "rescore_attend", "rescore_attend_int4",
+                              "block_attend"))):
         launches_of[shape] = kernel
     for name in ("rescore_attend", "rescore_attend_int4", "block_attend"):
         sources[name + "_serve"] = sources[name]
         launches[name + "_serve"] = launches[name]
         launches_of[name + "_serve"] = name
-    for name, kin, out in W4_SHAPES:
-        sources[name] = sources["w4_matmul"]
-        launches[name] = full_int8["w4_shapes"][f"{kin}x{out}"]
-        launches_of[name] = f"w4_matmul {kin}x{out}"
+    for shapes, run in ((W4_SHAPES, full_int8), (W4_SHAPES_8B, full_int8_8b)):
+        for name, kin, out in shapes:
+            sources[name] = sources["w4_matmul"]
+            launches[name] = run["w4_shapes"][f"{kin}x{out}"]
+            launches_of[name] = f"w4_matmul {kin}x{out}"
     kernels = []
     for name, r in kern.items():
         kernels.append({

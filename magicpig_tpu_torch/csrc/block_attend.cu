@@ -7,9 +7,10 @@
 // scales.
 //
 // Bound on the H100: reading the selected blocks' scores (4 bytes a token
-// and query head) and V rows (128 bytes a token and kv head in bf16) once;
-// ~2 flops per byte, so device memory bounds it. Design: the rescore's
-// attend (chunk_attend.cuh), its chunks and its in-launch merge; a chunk's
+// and query head) and V rows (128 bytes a token and kv head in bf16 at d =
+// 64, 256 at d = 128) once; ~2 flops per byte, so device memory bounds
+// it. Design: the rescore's attend (chunk_attend.cuh), its chunks and its
+// in-launch merge; a chunk's
 // G score rows arrive by G bulk copies beside its V rows, where the rescore
 // recomputes them. Scores past the length arrive as -inf and give p = 0
 // (their bf16 V rows zeroed in shared memory, their V scales unused); a
@@ -19,34 +20,34 @@
 
 namespace {
 
-template <int G, typename VT>
+template <int G, typename VT, int kD>
 __global__ void __launch_bounds__(mp::kBlkThreads)
 block_attend_kernel(const __grid_constant__ mp::ChunkArgs a) {
-  mp::chunk_attend<G, int8_t, VT, true>(a);
+  mp::chunk_attend<G, int8_t, VT, true, kD>(a);
 }
 
-template <int G, typename VT>
+template <int G, typename VT, int kD>
 int launch(const mp::ChunkArgs& a, cudaStream_t st) {
   static unsigned smem_set = 0;
-  return mp::launch_chunk_attend<G, int8_t, VT, true>(
-      block_attend_kernel<G, VT>, a, smem_set, st);
+  return mp::launch_chunk_attend<G, int8_t, VT, true, kD>(
+      block_attend_kernel<G, VT, kD>, a, smem_set, st);
 }
 
-template <typename VT>
+template <typename VT, int kD>
 int dispatch(int g, const mp::ChunkArgs& a, cudaStream_t st) {
   switch (g) {
-    case 1: return launch<1, VT>(a, st);
-    case 2: return launch<2, VT>(a, st);
-    case 4: return launch<4, VT>(a, st);
-    case 8: return launch<8, VT>(a, st);
+    case 1: return launch<1, VT, kD>(a, st);
+    case 2: return launch<2, VT, kD>(a, st);
+    case 4: return launch<4, VT, kD>(a, st);
+    case 8: return launch<8, VT, kD>(a, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 }  // namespace
 
-// v_int8: V int8 with row scales; otherwise bf16, v_scale null. Partials,
-// tickets and chunk as for mp_rescore_attend.
+// v_int8: V int8 with row scales; otherwise bf16, v_scale null. head_dim
+// (64 or 128), partials, tickets and chunk as for mp_rescore_attend.
 extern "C" int mp_block_attend(const void* scores, const void* blk_ids,
                                const void* v, const void* v_scale,
                                void* part_o, void* part_lse, void* tickets,
@@ -75,6 +76,10 @@ extern "C" int mp_block_attend(const void* scores, const void* blk_ids,
     return static_cast<int>(cudaErrorInvalidValue);
   if (batch == 0) return static_cast<int>(cudaSuccess);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (v_int8) return dispatch<int8_t>(hq / hkv, a, st);
-  return dispatch<__nv_bfloat16>(hq / hkv, a, st);
+  const int g = hq / hkv;
+  if (head_dim == 128)
+    return v_int8 ? dispatch<int8_t, 128>(g, a, st)
+                  : dispatch<__nv_bfloat16, 128>(g, a, st);
+  return v_int8 ? dispatch<int8_t, 64>(g, a, st)
+                : dispatch<__nv_bfloat16, 64>(g, a, st);
 }

@@ -3,33 +3,25 @@
 // shared by the scorer and the rescore so that ranking and attend see
 // bit-identical numbers (the attend itself: chunk_attend.cuh).
 //
-// Layouts (token order, no fold): q [B, Hq, 64] bf16; K and V
-// [B, Hkv, S, 64] int8 or bf16, or K packed int4 [B, Hkv, S, 32] (Int4x2
+// Layouts (token order, no fold): q [B, Hq, d] bf16; K and V
+// [B, Hkv, S, d] int8 or bf16, or K packed int4 [B, Hkv, S, d/2] (Int4x2
 // below) with V int8; per-row scales [B, Hkv, S] f32 (quantized only);
-// scores [B, Hkv, G, S] f32; block ids [B, Hkv, NB'] int32.
+// scores [B, Hkv, G, S] f32; block ids [B, Hkv, NB'] int32. The head dim d
+// is a template parameter kD, 64 or 128.
 #pragma once
+
+#include <type_traits>
 
 #include "common.cuh"
 
 namespace mp {
 
-constexpr int kBlkD = 64;              // head dim
 constexpr int kBlkThreads = 128;
 
-// One byte of a packed int4 K row (ops/pack4.py): byte j of a token's 32
-// holds channel j in its low nibble and channel j + 32 in its high one.
+// One byte of a packed int4 K row (ops/pack4.py): byte j of a token's d/2
+// holds channel j in its low nibble and channel j + d/2 in its high one.
 struct Int4x2 {
   int8_t bits;
-};
-
-// K elements of one token's row: 64, or 32 packed bytes.
-template <typename KT>
-struct KeyRow {
-  static constexpr int kElems = kBlkD;
-};
-template <>
-struct KeyRow<Int4x2> {
-  static constexpr int kElems = kBlkD / 2;
 };
 
 // K selector of the C entry points: 0 bf16, 1 int8, 2 packed int4.
@@ -38,39 +30,47 @@ enum KeyKind : int { kKeyBf16 = 0, kKeyInt8 = 1, kKeyInt4 = 2 };
 // ---- The score routine: 16 keys against the G heads on mma.sync.
 //
 // One m16n8k16 bf16 product a k-step, f32 sums: the 16 keys are the rows
-// (A), the G queries the columns (B, zero columns up to 8), the 64 channels
-// four k-steps. The channels are ordered so that one lane's 16 channels of
-// a key row are contiguous in every K kind: lane (r = lane / 4, t = lane %
-// 4) holds channels 16t .. 16t + 15 of keys r and r + 8, and k-step kk
-// takes channels 16t + 4kk + {0, 1} at k positions 2t, 2t + 1 and 16t +
-// 4kk + {2, 3} at 2t + 8, 2t + 9. So a lane reads one 16-byte piece of an
-// int8 row (two of bf16, one of packed int4) for all four k-steps, and the
-// packed form puts each 4-bit value in the register and k position that
-// the int8 form puts it: the same products, summed in the same order.
-// Each score depends on its own key row and query alone, so the scorer
-// and the rescore, which tile the keys differently, agree bit for bit.
+// (A), the G queries the columns (B, zero columns up to 8), the kD
+// channels kD / 16 k-steps, in kD / 64 passes of 64 channels. The channels
+// are ordered so that one lane's 16 channels of a pass are contiguous in
+// every K kind: lane (r = lane / 4, t = lane % 4) holds channels 64p + 16t
+// .. 64p + 16t + 15 of keys r and r + 8 in pass p, "piece" 4p + t of the
+// row, and k-step kk = 4p + j takes channels 64p + 16t + 4j + {0, 1} at k
+// positions 2t, 2t + 1 and 64p + 16t + 4j + {2, 3} at 2t + 8, 2t + 9. So a
+// lane reads one 16-byte unit of an int8 row a pass (two of bf16), and a
+// packed int4 row's unit holds a piece's channels in one nibble: piece P
+// lies in unit P % (kD / 32), low nibbles for P < kD / 32 (at d = 64
+// lanes t < 2 take the low nibbles and t >= 2 the high ones of the same
+// two units; at d = 128 pass 0 takes unit t's low nibbles and pass 1 its
+// high ones). The packed form thus puts each 4-bit value in the register
+// and k position that the int8 form puts it: the same products, summed in
+// the same order. Each score depends on its own key row and query alone,
+// so the scorer and the rescore, which tile the keys differently, agree
+// bit for bit.
 
-// Bytes of one key row.
-template <typename KT>
+// Bytes of one key row of kD channels.
+template <typename KT, int kD>
 __host__ __device__ constexpr int key_row_bytes() {
-  return KeyRow<KT>::kElems * static_cast<int>(sizeof(KT));
+  return std::is_same<KT, Int4x2>::value ? kD / 2
+                                         : kD * static_cast<int>(sizeof(KT));
 }
 
 // The B operand: q * sm_scale rounded to bf16 (as the TPU kernel rounds it
 // before the dot), head n = lane / 4's channels of k-step kk in qb[kk]
 // (zero for n >= G).
-template <int G>
+template <int G, int kD>
 __device__ __forceinline__ void load_q_frag(const __nv_bfloat16* q_h,
                                             float sm_scale, int lane,
-                                            uint32_t (&qb)[4][2]) {
+                                            uint32_t (&qb)[kD / 16][2]) {
   const int n = lane >> 2, t = lane & 3;
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
+  for (int kk = 0; kk < kD / 16; ++kk)
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       uint32_t w = 0u;
       if (n < G) {
-        const __nv_bfloat16* p = q_h + n * kBlkD + 16 * t + 4 * kk + 2 * h;
+        const __nv_bfloat16* p =
+            q_h + n * kD + 64 * (kk / 4) + 16 * t + 4 * (kk % 4) + 2 * h;
         w = pack_f32_as_bf16(__bfloat162float(p[0]) * sm_scale,
                              __bfloat162float(p[1]) * sm_scale);
       }
@@ -78,23 +78,32 @@ __device__ __forceinline__ void load_q_frag(const __nv_bfloat16* q_h,
     }
 }
 
-// The raw bytes of lane t's channels of one key row starting at `row`:
-// bf16 pieces 2t and 2t + 1 (their 16-byte units XORed with `swz`, the
-// scorer's shared-memory swizzle; 0 in device memory), the int8 piece t,
-// or packed int4 piece t % 2.
+// The raw bytes of lane t's channels of one key row starting at `row`,
+// kD / 32 units: bf16 units 8p + 2t and 8p + 2t + 1 of each pass p (XORed
+// with `swz`, the scorer's shared-memory swizzle; 0 in device memory), the
+// int8 unit 4p + t of each pass, or the packed int4 unit t % (kD / 32).
+template <int kD>
 __device__ __forceinline__ void key_chunks(const uint8_t* row, int t, int swz,
-                                           uint4 (&x)[2], const __nv_bfloat16*) {
+                                           uint4 (&x)[kD / 32],
+                                           const __nv_bfloat16*) {
   const uint4* u = reinterpret_cast<const uint4*>(row);
-  x[0] = u[(2 * t) ^ swz];
-  x[1] = u[(2 * t + 1) ^ swz];
+#pragma unroll
+  for (int p = 0; p < kD / 64; ++p) {
+    x[2 * p] = u[(8 * p + 2 * t) ^ swz];
+    x[2 * p + 1] = u[(8 * p + 2 * t + 1) ^ swz];
+  }
 }
+template <int kD>
 __device__ __forceinline__ void key_chunks(const uint8_t* row, int t, int,
-                                           uint4 (&x)[2], const int8_t*) {
-  x[0] = reinterpret_cast<const uint4*>(row)[t];
+                                           uint4 (&x)[kD / 32], const int8_t*) {
+#pragma unroll
+  for (int p = 0; p < kD / 64; ++p)
+    x[p] = reinterpret_cast<const uint4*>(row)[4 * p + t];
 }
+template <int kD>
 __device__ __forceinline__ void key_chunks(const uint8_t* row, int t, int,
-                                           uint4 (&x)[2], const Int4x2*) {
-  x[0] = reinterpret_cast<const uint4*>(row)[t & 1];
+                                           uint4 (&x)[kD / 32], const Int4x2*) {
+  x[0] = reinterpret_cast<const uint4*>(row)[t % (kD / 32)];
 }
 
 // Sixteen biased bytes (value + bias in 0..255) to eight bf16 pairs, in
@@ -102,7 +111,7 @@ __device__ __forceinline__ void key_chunks(const uint8_t* row, int t, int,
 // exactly (one byte permute), minus 2^23 + bias (one add); integers this
 // small are exact in bf16.
 __device__ __forceinline__ void widen_biased(const uint32_t (&u)[4],
-                                             float bias, uint32_t (&w)[8]) {
+                                             float bias, uint32_t* w) {
   const float off = 8388608.f + bias;
 #pragma unroll
   for (int i = 0; i < 4; ++i)
@@ -116,45 +125,61 @@ __device__ __forceinline__ void widen_biased(const uint32_t (&u)[4],
     }
 }
 
-// The A operand words of one key row from its raw bytes: word j holds
-// channels 16t + 2j, 16t + 2j + 1.
-__device__ __forceinline__ void key_words(const uint4 (&x)[2], int,
-                                          uint32_t (&w)[8],
+// The A operand words of one key row from its raw bytes: word 8p + j holds
+// channels 64p + 16t + 2j, 64p + 16t + 2j + 1.
+template <int kD>
+__device__ __forceinline__ void key_words(const uint4 (&x)[kD / 32], int,
+                                          uint32_t (&w)[kD / 8],
                                           const __nv_bfloat16*) {
-  const uint32_t v[8] = {x[0].x, x[0].y, x[0].z, x[0].w,
-                         x[1].x, x[1].y, x[1].z, x[1].w};
 #pragma unroll
-  for (int i = 0; i < 8; ++i) w[i] = v[i];
+  for (int i = 0; i < kD / 32; ++i) {
+    w[4 * i] = x[i].x;
+    w[4 * i + 1] = x[i].y;
+    w[4 * i + 2] = x[i].z;
+    w[4 * i + 3] = x[i].w;
+  }
 }
-__device__ __forceinline__ void key_words(const uint4 (&x)[2], int,
-                                          uint32_t (&w)[8], const int8_t*) {
-  const uint32_t u[4] = {x[0].x ^ 0x80808080u, x[0].y ^ 0x80808080u,
-                         x[0].z ^ 0x80808080u, x[0].w ^ 0x80808080u};
-  widen_biased(u, 128.f, w);
+template <int kD>
+__device__ __forceinline__ void key_words(const uint4 (&x)[kD / 32], int,
+                                          uint32_t (&w)[kD / 8],
+                                          const int8_t*) {
+#pragma unroll
+  for (int p = 0; p < kD / 64; ++p) {
+    const uint32_t u[4] = {x[p].x ^ 0x80808080u, x[p].y ^ 0x80808080u,
+                           x[p].z ^ 0x80808080u, x[p].w ^ 0x80808080u};
+    widen_biased(u, 128.f, w + 8 * p);
+  }
 }
-// Packed int4: lanes t < 2 take the low nibbles (channels 0..31), t >= 2
-// the high ones (32..63); a two's-complement nibble XOR 8 is value + 8.
-__device__ __forceinline__ void key_words(const uint4 (&x)[2], int t,
-                                          uint32_t (&w)[8], const Int4x2*) {
-  const int sh = t >= 2 ? 4 : 0;
+// Packed int4: piece 4p + t in the low nibbles below kD / 32, else the
+// high ones; a two's-complement nibble XOR 8 is value + 8.
+template <int kD>
+__device__ __forceinline__ void key_words(const uint4 (&x)[kD / 32], int t,
+                                          uint32_t (&w)[kD / 8],
+                                          const Int4x2*) {
   const uint32_t v[4] = {x[0].x, x[0].y, x[0].z, x[0].w};
-  uint32_t u[4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) u[i] = ((v[i] >> sh) & 0x0F0F0F0Fu) ^ 0x08080808u;
-  widen_biased(u, 8.f, w);
+  for (int p = 0; p < kD / 64; ++p) {
+    const int sh = (4 * p + t) >= kD / 32 ? 4 : 0;
+    uint32_t u[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      u[i] = ((v[i] >> sh) & 0x0F0F0F0Fu) ^ 0x08080808u;
+    widen_biased(u, 8.f, w + 8 * p);
+  }
 }
 
 // Scores of keys r and r + 8 (A words wa, wb) for heads 2t, 2t + 1:
 // d[0], d[1] key r; d[2], d[3] key r + 8. Unscaled: the caller multiplies
 // by the row's K scale (1 for bf16) with score_of.
-__device__ __forceinline__ void mma_scores(const uint32_t (&wa)[8],
-                                           const uint32_t (&wb)[8],
-                                           const uint32_t (&qb)[4][2],
+template <int kD>
+__device__ __forceinline__ void mma_scores(const uint32_t (&wa)[kD / 8],
+                                           const uint32_t (&wb)[kD / 8],
+                                           const uint32_t (&qb)[kD / 16][2],
                                            float (&d)[4]) {
 #pragma unroll
   for (int i = 0; i < 4; ++i) d[i] = 0.f;
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
+  for (int kk = 0; kk < kD / 16; ++kk) {
     const uint32_t a[4] = {wa[2 * kk], wb[2 * kk], wa[2 * kk + 1],
                            wb[2 * kk + 1]};
     mma_bf16_16816(d, a, qb[kk][0], qb[kk][1]);

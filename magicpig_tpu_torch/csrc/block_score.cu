@@ -14,10 +14,12 @@
 // port's layout: two channels a byte, tokens in order), or bf16 K.
 //
 // Bound on the H100: reading K once (32 bytes a token and kv head in packed
-// int4, 64 in int8, 128 in bf16) plus its scales, and in the score-storing
-// variants writing 4 bytes a token and query head; ~2 flops per byte, so
-// device memory bounds it. A thread-a-token design (eight 16-byte loads a
-// row, G x 64 fmaf on CUDA cores reading q from shared memory) lost to a
+// int4, 64 in int8, 128 in bf16 at d = 64; twice that at d = 128, a
+// template instance of the same kernel) plus its scales, and in the
+// score-storing variants writing 4 bytes a token and query head; ~2 flops
+// per byte, so device memory bounds it. A thread-a-token design (eight
+// 16-byte loads a row, G x 64 fmaf on CUDA cores reading q from shared
+// memory, at d = 64) lost to a
 // bf16 matmul by 1.4x on the H100; this one streams K through shared memory
 // and runs the dot on the tensor cores. One block of four warps takes one
 // (ranking block, kv head, request), 2048 blocks at B = 2, Hkv = 8, S = 64K
@@ -25,10 +27,12 @@
 // warps in flight); a block wholly at or past the request's length writes
 // -inf and reads no K (exact_scores masks nothing: every token is scored).
 // Each warp owns every fourth 32-key tile of the block and streams it
-// through its own ring of shared-memory stages (two for bf16, four for the
-// narrower rows; measured) with 16-byte cp.async copies, neighbouring lanes
-// on neighbouring bytes, rows at or past the length zero-filled and never
-// read (bf16 units swizzled so that the lanes' 16-byte reads hit distinct
+// through its own ring of shared-memory stages (two for rows of 128 bytes
+// or more, four for the narrower ones; measured at d = 64; bf16 at d = 128
+// takes 71 KB, dynamic shared memory) with 16-byte cp.async copies,
+// neighbouring lanes on neighbouring bytes, rows at or past the length
+// zero-filled and never read (bf16 units swizzled so that the lanes'
+// 16-byte reads hit distinct
 // banks); no block barrier until the block max. The dot is the score
 // routine of block_common.cuh (mma.sync, int8 and int4 widened to bf16 in
 // registers, exact), which the rescore calls too. The epilogue scales by
@@ -47,20 +51,25 @@ constexpr int kThreads = kWarps * 32;
 constexpr int kTileKeys = 32;      // keys a warp takes at a time
 constexpr int kScPad = 36;         // staged score row stride (floats)
 
-// A warp's stage: the tile's key rows, then their 32 f32 scales.
-template <typename KT>
+// A warp's stage: the tile's key rows, then their 32 f32 scales. Two
+// stages for rows of 128 bytes or more (bf16 at d = 64; int8 and bf16 at
+// d = 128), four for the narrower ones. bf16 at d = 128 (256-byte rows)
+// takes 71 KB, above the 48 KB a block gets without the dynamic-size
+// attribute (set at the first launch).
+template <typename KT, int kD>
 struct Ring {
-  static constexpr int kRowBytes = mp::key_row_bytes<KT>();
-  static constexpr int kStages = kRowBytes == 128 ? 2 : 4;
+  static constexpr int kRowBytes = mp::key_row_bytes<KT, kD>();
+  static constexpr int kStages = kRowBytes >= 128 ? 2 : 4;
   static constexpr int kBytes = kTileKeys * kRowBytes + kTileKeys * 4;
   static constexpr int kSmem =
       kWarps * kStages * kBytes + kWarps * 8 * kScPad * 4;
-  static_assert(kSmem <= 48 * 1024, "more needs the dynamic-size attribute");
+  static_assert(kSmem <= 227 * 1024, "a block's shared memory on the H100");
 };
 
 // kRank: mask at the length and store the block max (else score every
-// token, store no block max; length and block_max are unused).
-template <int G, typename KT, bool kStoreScores, bool kRank>
+// token, store no block max; length and block_max are unused). kD: the
+// head dim, 64 or 128.
+template <int G, typename KT, bool kStoreScores, bool kRank, int kD>
 __global__ void __launch_bounds__(kThreads)
 block_score_kernel(const __nv_bfloat16* __restrict__ q,
                    const KT* __restrict__ k,
@@ -70,7 +79,7 @@ block_score_kernel(const __nv_bfloat16* __restrict__ q,
                    float* __restrict__ block_max, int s_cap, int hkv,
                    int block_size, float sm_scale) {
   using namespace mp;
-  using R = Ring<KT>;
+  using R = Ring<KT, kD>;
   constexpr bool kBf16 = std::is_same<KT, __nv_bfloat16>::value;
   extern __shared__ __align__(128) uint8_t smem[];
   __shared__ float red[kWarps];
@@ -92,8 +101,8 @@ block_score_kernel(const __nv_bfloat16* __restrict__ q,
     return;
   }
   const int stop = min(len, t0 + block_size);
-  uint32_t qb[4][2];
-  load_q_frag<G>(q + head * G * kBlkD, sm_scale, lane, qb);
+  uint32_t qb[kD / 16][2];
+  load_q_frag<G, kD>(q + head * G * kD, sm_scale, lane, qb);
 
   const uint8_t* k_h = reinterpret_cast<const uint8_t*>(k) +
                        head * s_cap * R::kRowBytes;
@@ -144,14 +153,14 @@ block_score_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
     for (int m = 0; m < 2; ++m) {
       const int ka = 16 * m + r, kb = ka + 8;
-      uint4 xa[2], xb[2];
-      key_chunks(st + ka * R::kRowBytes, t, ka & 1, xa, k);
-      key_chunks(st + kb * R::kRowBytes, t, kb & 1, xb, k);
-      uint32_t wa[8], wb[8];
-      key_words(xa, t, wa, k);
-      key_words(xb, t, wb, k);
+      uint4 xa[kD / 32], xb[kD / 32];
+      key_chunks<kD>(st + ka * R::kRowBytes, t, ka & 1, xa, k);
+      key_chunks<kD>(st + kb * R::kRowBytes, t, kb & 1, xb, k);
+      uint32_t wa[kD / 8], wb[kD / 8];
+      key_words<kD>(xa, t, wa, k);
+      key_words<kD>(xb, t, wb, k);
       float d[4];
-      mma_scores(wa, wb, qb, d);
+      mma_scores<kD>(wa, wb, qb, d);
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int key = i < 2 ? ka : kb, h = 2 * t + (i & 1);
@@ -195,46 +204,85 @@ block_score_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-template <int G, typename KT>
+// One variant: its shared memory allowed at its first launch (bf16 at d =
+// 128 needs more than the default 48 KB).
+template <int G, typename KT, bool kStoreScores, bool kRank, int kD>
+int launch_variant(const void* q, const void* k, const void* k_scale,
+                   const void* length, void* scores, void* block_max,
+                   int batch, int s_cap, int hkv, int block_size,
+                   float sm_scale, cudaStream_t stream) {
+  constexpr int kSmem = Ring<KT, kD>::kSmem;
+  auto* kernel = block_score_kernel<G, KT, kStoreScores, kRank, kD>;
+  static unsigned smem_set = 0;
+  const cudaError_t err = hp::allow_smem(kernel, kSmem, smem_set);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 grid(s_cap / block_size, hkv, batch);
+  kernel<<<grid, kThreads, kSmem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const KT*>(k),
+      static_cast<const float*>(k_scale), static_cast<const int*>(length),
+      static_cast<float*>(scores), static_cast<float*>(block_max), s_cap,
+      hkv, block_size, sm_scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int G, typename KT, int kD>
 int launch(const void* q, const void* k, const void* k_scale,
            const void* length, void* scores, void* block_max, int batch,
            int s_cap, int hkv, int block_size, float sm_scale,
            cudaStream_t stream) {
-  const int v = block_max == nullptr ? 0 : scores != nullptr ? 1 : 2;
-  dim3 grid(s_cap / block_size, hkv, batch);
-  const auto* qp = static_cast<const __nv_bfloat16*>(q);
-  const auto* kp = static_cast<const KT*>(k);
-  const auto* ks = static_cast<const float*>(k_scale);
-  const auto* lp = static_cast<const int*>(length);
-  auto* bm = static_cast<float*>(block_max);
-  auto* sc = static_cast<float*>(scores);
-  constexpr int kSmem = Ring<KT>::kSmem;
-  if (v == 0)
-    block_score_kernel<G, KT, true, false><<<grid, kThreads, kSmem, stream>>>(
-        qp, kp, ks, lp, sc, bm, s_cap, hkv, block_size, sm_scale);
-  else if (v == 1)
-    block_score_kernel<G, KT, true, true><<<grid, kThreads, kSmem, stream>>>(
-        qp, kp, ks, lp, sc, bm, s_cap, hkv, block_size, sm_scale);
-  else
-    block_score_kernel<G, KT, false, true><<<grid, kThreads, kSmem, stream>>>(
-        qp, kp, ks, lp, nullptr, bm, s_cap, hkv, block_size, sm_scale);
-  return static_cast<int>(cudaGetLastError());
+  if (block_max == nullptr)
+    return launch_variant<G, KT, true, false, kD>(
+        q, k, k_scale, length, scores, block_max, batch, s_cap, hkv,
+        block_size, sm_scale, stream);
+  if (scores != nullptr)
+    return launch_variant<G, KT, true, true, kD>(
+        q, k, k_scale, length, scores, block_max, batch, s_cap, hkv,
+        block_size, sm_scale, stream);
+  return launch_variant<G, KT, false, true, kD>(
+      q, k, k_scale, length, nullptr, block_max, batch, s_cap, hkv,
+      block_size, sm_scale, stream);
 }
 
-template <typename KT>
+template <typename KT, int kD>
 int dispatch(int g, const void* q, const void* k, const void* k_scale,
              const void* length, void* scores, void* block_max, int batch,
              int s_cap, int hkv, int block_size, float sm_scale,
              cudaStream_t st) {
   switch (g) {
-    case 1: return launch<1, KT>(q, k, k_scale, length, scores, block_max,
-                                 batch, s_cap, hkv, block_size, sm_scale, st);
-    case 2: return launch<2, KT>(q, k, k_scale, length, scores, block_max,
-                                 batch, s_cap, hkv, block_size, sm_scale, st);
-    case 4: return launch<4, KT>(q, k, k_scale, length, scores, block_max,
-                                 batch, s_cap, hkv, block_size, sm_scale, st);
-    case 8: return launch<8, KT>(q, k, k_scale, length, scores, block_max,
-                                 batch, s_cap, hkv, block_size, sm_scale, st);
+    case 1: return launch<1, KT, kD>(q, k, k_scale, length, scores,
+                                     block_max, batch, s_cap, hkv,
+                                     block_size, sm_scale, st);
+    case 2: return launch<2, KT, kD>(q, k, k_scale, length, scores,
+                                     block_max, batch, s_cap, hkv,
+                                     block_size, sm_scale, st);
+    case 4: return launch<4, KT, kD>(q, k, k_scale, length, scores,
+                                     block_max, batch, s_cap, hkv,
+                                     block_size, sm_scale, st);
+    case 8: return launch<8, KT, kD>(q, k, k_scale, length, scores,
+                                     block_max, batch, s_cap, hkv,
+                                     block_size, sm_scale, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+template <int kD>
+int dispatch_kind(int k_kind, int g, const void* q, const void* k,
+                  const void* k_scale, const void* length, void* scores,
+                  void* block_max, int batch, int s_cap, int hkv,
+                  int block_size, float sm_scale, cudaStream_t st) {
+  switch (k_kind) {
+    case mp::kKeyBf16:
+      return dispatch<__nv_bfloat16, kD>(g, q, k, k_scale, length, scores,
+                                         block_max, batch, s_cap, hkv,
+                                         block_size, sm_scale, st);
+    case mp::kKeyInt8:
+      return dispatch<int8_t, kD>(g, q, k, k_scale, length, scores,
+                                  block_max, batch, s_cap, hkv, block_size,
+                                  sm_scale, st);
+    case mp::kKeyInt4:
+      return dispatch<mp::Int4x2, kD>(g, q, k, k_scale, length, scores,
+                                      block_max, batch, s_cap, hkv,
+                                      block_size, sm_scale, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -243,32 +291,24 @@ int dispatch(int g, const void* q, const void* k, const void* k_scale,
 
 // scores may be null (block max only), or block_max null (scores only,
 // unmasked: length unused); k_kind is a KeyKind, and k_scale is null
-// exactly for bf16 K.
+// exactly for bf16 K; head_dim 64 or 128.
 extern "C" int mp_block_score(const void* q, const void* k,
                               const void* k_scale, const void* length,
                               void* scores, void* block_max, int batch,
                               int s_cap, int hq, int hkv, int head_dim,
                               int block_size, int k_kind, float sm_scale,
                               void* stream) {
-  if (head_dim != mp::kBlkD || hq % hkv != 0 || block_size <= 0 ||
-      block_size % 64 != 0 || s_cap % block_size != 0 ||
+  if ((head_dim != 64 && head_dim != 128) || hkv <= 0 || hq % hkv != 0 ||
+      block_size <= 0 || block_size % 64 != 0 || s_cap % block_size != 0 ||
       (k_kind != mp::kKeyBf16) != (k_scale != nullptr) ||
       (scores == nullptr && block_max == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (k_kind) {
-    case mp::kKeyBf16:
-      return dispatch<__nv_bfloat16>(hq / hkv, q, k, k_scale, length, scores,
-                                     block_max, batch, s_cap, hkv,
-                                     block_size, sm_scale, st);
-    case mp::kKeyInt8:
-      return dispatch<int8_t>(hq / hkv, q, k, k_scale, length, scores,
-                              block_max, batch, s_cap, hkv, block_size,
-                              sm_scale, st);
-    case mp::kKeyInt4:
-      return dispatch<mp::Int4x2>(hq / hkv, q, k, k_scale, length, scores,
-                                  block_max, batch, s_cap, hkv, block_size,
-                                  sm_scale, st);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (head_dim == 128)
+    return dispatch_kind<128>(k_kind, hq / hkv, q, k, k_scale, length,
+                              scores, block_max, batch, s_cap, hkv,
+                              block_size, sm_scale, st);
+  return dispatch_kind<64>(k_kind, hq / hkv, q, k, k_scale, length, scores,
+                           block_max, batch, s_cap, hkv, block_size,
+                           sm_scale, st);
 }

@@ -6,10 +6,10 @@
 // after the scores is the same code, so the two pipelines agree bit for
 // bit.
 //
-// Layouts as in block_common.cuh: q [B, Hq, 64] bf16; K [B, Hkv, S, 64]
-// bf16 or int8, or packed int4 [B, Hkv, S, 32]; V [B, Hkv, S, 64] bf16 or
+// Layouts as in block_common.cuh: q [B, Hq, d] bf16; K [B, Hkv, S, d]
+// bf16 or int8, or packed int4 [B, Hkv, S, d/2]; V [B, Hkv, S, d] bf16 or
 // int8; row scales [B, Hkv, S] f32 (quantized only); stored scores
-// [B, Hkv, G, S] f32; block ids [B, Hkv, NB'] int32.
+// [B, Hkv, G, S] f32; block ids [B, Hkv, NB'] int32; d (kD) 64 or 128.
 //
 // Bound on the H100: reading the selected rows once (K, V and scales, or
 // V and the G stored scores); ~4 flops per byte, so device memory bounds
@@ -35,8 +35,10 @@
 //    the TPU kernel round the P.V operand, goes into a row of P in a
 //    permuted order (below); the row sum takes p unrounded; a p of 0 is 0
 //    whatever the V scale holds;
-//  - P.V on mma.sync m16n8k16 with V^T as A (warp w: dims 16w .. 16w + 15)
-//    and P^T as B (the G heads as columns): int8 V widened to bf16 exactly
+//  - P.V on mma.sync m16n8k16 with V^T as A (warp w: dims kD/4 w .. kD/4
+//    (w + 1) - 1, one m-tile of 16 at d = 64, two at d = 128, both on the
+//    same B fragment) and P^T as B (the G heads as columns): int8 V
+//    widened to bf16 exactly
 //    in registers, f32 sums. Rows that no head attends (past the length,
 //    or all -inf) hold zeros in bf16 V, since a NaN there times p = 0 would
 //    be NaN on the tensor cores; int8 values are always finite;
@@ -66,19 +68,22 @@ namespace mp {
 constexpr int kMaxChunk = 512;        // tokens a block
 constexpr int kChunkHeader = 128;     // mbarrier, flag, m, l, alpha
 constexpr int kChunkSmemMax = 227 * 1024;
-constexpr int kMergeBytes = 32 * 1024;  // the merge's batch of partials
+constexpr int kMergeBytes = 32 * 1024;  // the merge's batch of partials,
+                                        // per 64 dims of a partial
 
 // Partials the merge brings into shared memory at a time (each G rows of
-// 64 values and their lse).
-template <int G>
+// kD values and their lse): 31 at G = 4 at both head dims, the batch's
+// bytes growing with d, so that `chunk_plan` keeps at d = 128 the chunks
+// phase 2 measured fastest (256 tokens at 11 of 128 blocks, not 512).
+template <int G, int kD>
 __host__ __device__ constexpr int merge_batch(int total) {
-  return total < kMergeBytes / (G * (kBlkD + 1) * 4)
+  return total < kMergeBytes * (kD / 64) / (G * (kD + 1) * 4)
              ? total
-             : kMergeBytes / (G * (kBlkD + 1) * 4);
+             : kMergeBytes * (kD / 64) / (G * (kD + 1) * 4);
 }
 
 // Arguments of one launch (null where the form has none). Partials
-// [nsel * nchunk, B * Hq] (part_o with 64 values a row); tickets [B * Hkv],
+// [nsel * nchunk, B * Hq] (part_o with d values a row); tickets [B * Hkv],
 // 0 between calls.
 struct ChunkArgs {
   const __nv_bfloat16* q;
@@ -131,7 +136,9 @@ __device__ __forceinline__ int p_pos(int i) {
 }
 
 // The A operand of one P.V k-step: V^T rows dim and dim + 1 (a lane's m
-// and m + 8) over chunk rows k0 + t + {0, 4, 8, 12}, as bf16 pairs.
+// and m + 8) over chunk rows k0 + t + {0, 4, 8, 12} of kD values, as bf16
+// pairs.
+template <int kD>
 __device__ __forceinline__ void v_frag(const uint8_t* v_s, int k0, int t,
                                        int dim, uint32_t (&a)[4],
                                        const __nv_bfloat16*) {
@@ -139,19 +146,20 @@ __device__ __forceinline__ void v_frag(const uint8_t* v_s, int k0, int t,
 #pragma unroll
   for (int i = 0; i < 4; ++i)
     w[i] = *reinterpret_cast<const uint32_t*>(
-        v_s + (k0 + t + 4 * i) * kBlkD * 2 + dim * 2);
+        v_s + (k0 + t + 4 * i) * kD * 2 + dim * 2);
   a[0] = __byte_perm(w[0], w[1], 0x5410);
   a[1] = __byte_perm(w[0], w[1], 0x7632);
   a[2] = __byte_perm(w[2], w[3], 0x5410);
   a[3] = __byte_perm(w[2], w[3], 0x7632);
 }
+template <int kD>
 __device__ __forceinline__ void v_frag(const uint8_t* v_s, int k0, int t,
                                        int dim, uint32_t (&a)[4],
                                        const int8_t*) {
   uint32_t h[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
-    h[i] = *reinterpret_cast<const uint16_t*>(v_s + (k0 + t + 4 * i) * kBlkD +
+    h[i] = *reinterpret_cast<const uint16_t*>(v_s + (k0 + t + 4 * i) * kD +
                                               dim);
   // Bytes (row, dim), (row, dim + 1) of two rows, biased to 0..255.
   const uint32_t u[2] = {__byte_perm(h[0], h[1], 0x5410) ^ 0x80808080u,
@@ -169,13 +177,14 @@ __device__ __forceinline__ void v_frag(const uint8_t* v_s, int k0, int t,
 }
 
 // KT: the K type (unused when kStored); VT: __nv_bfloat16, or int8_t with
-// the row scales.
-template <int G, typename KT, typename VT, bool kStored>
+// the row scales; kD: the head dim, 64 or 128.
+template <int G, typename KT, typename VT, bool kStored, int kD>
 __device__ __forceinline__ void chunk_attend(const ChunkArgs& a) {
   constexpr bool kKQ = !kStored && !std::is_same<KT, __nv_bfloat16>::value;
   constexpr bool kVQ = std::is_same<VT, int8_t>::value;
-  constexpr int kKRow = kStored ? 0 : key_row_bytes<KT>();
-  constexpr int kVRow = kBlkD * static_cast<int>(sizeof(VT));
+  constexpr int kKRow = kStored ? 0 : key_row_bytes<KT, kD>();
+  constexpr int kVRow = kD * static_cast<int>(sizeof(VT));
+  constexpr int kMT = kD / 64;            // P.V m-tiles of 16 dims a warp
   constexpr int kWarps = kBlkThreads / 32;
   extern __shared__ __align__(128) uint8_t chunk_smem_buf[];
   uint8_t* sm = chunk_smem_buf;
@@ -204,8 +213,8 @@ __device__ __forceinline__ void chunk_attend(const ChunkArgs& a) {
   if (id < 0) n = 0;
 
   if (n <= 0) {
-    for (int i = tid; i < G * kBlkD; i += kBlkThreads)
-      a.part_o[prow * kBlkD + i] = 0.f;
+    for (int i = tid; i < G * kD; i += kBlkThreads)
+      a.part_o[prow * kD + i] = 0.f;
     if (tid < G) a.part_lse[prow + tid] = kNegInf;
   } else {
     uint8_t* k_s = sm + o.k;
@@ -242,9 +251,9 @@ __device__ __forceinline__ void chunk_attend(const ChunkArgs& a) {
       if (kKQ) ks_s[n4 + tid] = a.k_scale[tok0 + n4 + tid];
       if (kVQ) vs_s[n4 + tid] = a.v_scale[tok0 + n4 + tid];
     }
-    uint32_t qb[4][2];
+    uint32_t qb[kD / 16][2];
     if constexpr (!kStored)
-      load_q_frag<G>(a.q + head * G * kBlkD, a.sm_scale, lane, qb);
+      load_q_frag<G, kD>(a.q + head * G * kD, a.sm_scale, lane, qb);
     __syncthreads();                      // the barrier's init, the tails
     hp::mbar_wait(bar, 0);
 
@@ -253,16 +262,16 @@ __device__ __forceinline__ void chunk_attend(const ChunkArgs& a) {
     if constexpr (!kStored) {
 #pragma unroll 2
       for (int m0 = 16 * warp; m0 < n; m0 += 16 * kWarps) {
-        uint4 xa[2], xb[2];
-        key_chunks(k_s + (m0 + r) * kKRow, t, 0, xa,
-                   static_cast<const KT*>(nullptr));
-        key_chunks(k_s + (m0 + r + 8) * kKRow, t, 0, xb,
-                   static_cast<const KT*>(nullptr));
-        uint32_t wa[8], wb[8];
-        key_words(xa, t, wa, static_cast<const KT*>(nullptr));
-        key_words(xb, t, wb, static_cast<const KT*>(nullptr));
+        uint4 xa[kD / 32], xb[kD / 32];
+        key_chunks<kD>(k_s + (m0 + r) * kKRow, t, 0, xa,
+                       static_cast<const KT*>(nullptr));
+        key_chunks<kD>(k_s + (m0 + r + 8) * kKRow, t, 0, xb,
+                       static_cast<const KT*>(nullptr));
+        uint32_t wa[kD / 8], wb[kD / 8];
+        key_words<kD>(xa, t, wa, static_cast<const KT*>(nullptr));
+        key_words<kD>(xb, t, wb, static_cast<const KT*>(nullptr));
         float d[4];
-        mma_scores(wa, wb, qb, d);
+        mma_scores<kD>(wa, wb, qb, d);
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           const int h = 2 * t + (i & 1), key = m0 + r + 8 * (i >> 1);
@@ -316,34 +325,42 @@ __device__ __forceinline__ void chunk_attend(const ChunkArgs& a) {
     __syncthreads();
 
     // ---- P.V: D^T[dim, head] over the chunk's rows, 16 a k-step, the
-    // even and odd k-steps in two sums (two chains of products).
-    const int dim = 16 * warp + 2 * r;
-    float d[2][4] = {};
-    const auto pv_step = [&](int k0, float (&dd)[4]) {
-      uint32_t af[4];
-      v_frag(v_s, k0, t, dim, af, static_cast<const VT*>(nullptr));
+    // even and odd k-steps in two sums (two chains of products); m-tile mt
+    // of warp w holds dims 16 (kMT w + mt) .. + 15.
+    float d[kMT][2][4] = {};
+    const auto pv_step = [&](int k0, int e) {
       uint32_t b0 = 0u, b1 = 0u;
       if (r < G) {
         b0 = pb[r * pst + k0 / 2 + t];
         b1 = pb[r * pst + k0 / 2 + 4 + t];
       }
-      mma_bf16_16816(dd, af, b0, b1);
+#pragma unroll
+      for (int mt = 0; mt < kMT; ++mt) {
+        uint32_t af[4];
+        v_frag<kD>(v_s, k0, t, 16 * (kMT * warp + mt) + 2 * r, af,
+                   static_cast<const VT*>(nullptr));
+        mma_bf16_16816(d[mt][e], af, b0, b1);
+      }
     };
     for (int k0 = 0; k0 < n16; k0 += 32) {
-      pv_step(k0, d[0]);
-      if (k0 + 16 < n16) pv_step(k0 + 16, d[1]);
+      pv_step(k0, 0);
+      if (k0 + 16 < n16) pv_step(k0 + 16, 1);
     }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) d[0][i] += d[1][i];
     // d0, d2: head 2t at dims dim, dim + 1; d1, d3: head 2t + 1.
 #pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int h = 2 * t + e;
-      if (h < G) {
-        const float l = l_s[h];
-        *reinterpret_cast<float2*>(a.part_o + (prow + h) * kBlkD + dim) =
-            l > 0.f ? make_float2(d[0][e] / l, d[0][e + 2] / l)
-                    : make_float2(0.f, 0.f);
+    for (int mt = 0; mt < kMT; ++mt) {
+      const int dim = 16 * (kMT * warp + mt) + 2 * r;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) d[mt][0][i] += d[mt][1][i];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int h = 2 * t + e;
+        if (h < G) {
+          const float l = l_s[h];
+          *reinterpret_cast<float2*>(a.part_o + (prow + h) * kD + dim) =
+              l > 0.f ? make_float2(d[mt][0][e] / l, d[mt][0][e + 2] / l)
+                      : make_float2(0.f, 0.f);
+        }
       }
     }
     if (tid < G)
@@ -361,11 +378,11 @@ __device__ __forceinline__ void chunk_attend(const ChunkArgs& a) {
   // each partial by exp(lse - max) once (an empty partial: weight 0); each
   // output value then sums its weighted partials in partial order, and the
   // running sums rescale from batch to batch.
-  const int total = gridDim.x, cap = merge_batch<G>(total);
+  const int total = gridDim.x, cap = merge_batch<G, kD>(total);
   float* o_st = reinterpret_cast<float*>(sm + kChunkHeader);
-  float* w_st = o_st + cap * G * kBlkD;             // lse, then weights
+  float* w_st = o_st + cap * G * kD;                // lse, then weights
   float* alpha = l_s + 8;
-  constexpr int kAcc = (G * kBlkD + kBlkThreads - 1) / kBlkThreads;
+  constexpr int kAcc = (G * kD + kBlkThreads - 1) / kBlkThreads;
   float num[kAcc];
 #pragma unroll
   for (int i = 0; i < kAcc; ++i) num[i] = 0.f;
@@ -375,10 +392,10 @@ __device__ __forceinline__ void chunk_attend(const ChunkArgs& a) {
   }
   for (int p0 = 0; p0 < total; p0 += cap) {
     const int nb = min(cap, total - p0);
-    for (int i = tid; i < nb * G * (kBlkD / 4); i += kBlkThreads) {
-      const int p = i / (G * kBlkD / 4), u = i % (G * kBlkD / 4);
-      hp::cp_async_16(o_st + p * G * kBlkD + 4 * u,
-                      a.part_o + ((p0 + p) * stride + row0) * kBlkD + 4 * u);
+    for (int i = tid; i < nb * G * (kD / 4); i += kBlkThreads) {
+      const int p = i / (G * kD / 4), u = i % (G * kD / 4);
+      hp::cp_async_16(o_st + p * G * kD + 4 * u,
+                      a.part_o + ((p0 + p) * stride + row0) * kD + 4 * u);
     }
     // (Read past L1, which may hold stale lines of other blocks' rows.)
     for (int i = tid; i < nb * G; i += kBlkThreads)
@@ -409,12 +426,12 @@ __device__ __forceinline__ void chunk_attend(const ChunkArgs& a) {
 #pragma unroll
     for (int i = 0; i < kAcc; ++i) {
       const int idx = tid + i * kBlkThreads;
-      if (idx < G * kBlkD) {
-        const int g = idx / kBlkD;
+      if (idx < G * kD) {
+        const int g = idx / kD;
         float x = num[i] * alpha[g];
 #pragma unroll 8
         for (int p = 0; p < nb; ++p)
-          x = fmaf(w_st[p * G + g], o_st[p * G * kBlkD + idx], x);
+          x = fmaf(w_st[p * G + g], o_st[p * G * kD + idx], x);
         num[i] = x;
       }
     }
@@ -423,40 +440,48 @@ __device__ __forceinline__ void chunk_attend(const ChunkArgs& a) {
 #pragma unroll
   for (int i = 0; i < kAcc; ++i) {
     const int idx = tid + i * kBlkThreads;
-    if (idx < G * kBlkD) {
-      const float l = l_s[idx / kBlkD];
-      a.out[row0 * kBlkD + idx] = l > 0.f ? num[i] / l : 0.f;
+    if (idx < G * kD) {
+      const float l = l_s[idx / kD];
+      a.out[row0 * kD + idx] = l > 0.f ? num[i] / l : 0.f;
     }
   }
   if (tid < G)
     a.lse[row0 + tid] = l_s[tid] > 0.f ? m_s[tid] + logf(l_s[tid]) : kNegInf;
 }
 
-// Host: check the launch's sizes and launch `kernel` (a __global__ taking
-// ChunkArgs) on grid (nsel * chunks a block, Hkv, B). Returns a cudaError_t.
-template <int G, typename KT, typename VT, bool kStored, typename Kernel>
+// Host: check the launch's shared memory (a chunk's rows and scores, or
+// the merge's batch, whichever is larger) and launch `kernel` (a
+// __global__ taking ChunkArgs) on grid (nsel * chunks a block, Hkv, B).
+// Returns a cudaError_t: cudaErrorInvalidValue where a chunk's rows do
+// not fit a block (bf16 K and V at d = 128 above 256 tokens).
+template <int G, typename KT, typename VT, bool kStored, int kD,
+          typename Kernel>
 int launch_chunk_attend(Kernel* kernel, const ChunkArgs& a, unsigned& smem_set,
                         cudaStream_t stream) {
   constexpr bool kKQ = !kStored && !std::is_same<KT, __nv_bfloat16>::value;
   constexpr bool kVQ = std::is_same<VT, int8_t>::value;
-  const ChunkSmem o = chunk_smem(a.chunk, G, kStored ? 0 : key_row_bytes<KT>(),
-                                 kBlkD * static_cast<int>(sizeof(VT)), kKQ,
-                                 kVQ);
-  const cudaError_t err = hp::allow_smem(kernel, kChunkSmemMax, smem_set);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  const ChunkSmem o = chunk_smem(a.chunk, G,
+                                 kStored ? 0 : key_row_bytes<KT, kD>(),
+                                 kD * static_cast<int>(sizeof(VT)), kKQ, kVQ);
   const int nch = (a.block_size + a.chunk - 1) / a.chunk;
   const int total = a.nsel * nch;
-  const int merge = kChunkHeader + merge_batch<G>(total) * G * (kBlkD + 1) * 4;
+  const int merge =
+      kChunkHeader + merge_batch<G, kD>(total) * G * (kD + 1) * 4;
+  const int smem = o.bytes > merge ? o.bytes : merge;
+  if (smem > kChunkSmemMax) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t err = hp::allow_smem(kernel, kChunkSmemMax, smem_set);
+  if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid(total, a.hkv, a.batch);
-  kernel<<<grid, kBlkThreads, o.bytes > merge ? o.bytes : merge, stream>>>(a);
+  kernel<<<grid, kBlkThreads, smem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The sizes every form needs: d = 64, G in {1, 2, 4, 8}, block_size a
-// multiple of 64 dividing s_cap, chunk a multiple of 64 up to 512.
+// The sizes every form needs: d = 64 or 128, G in {1, 2, 4, 8},
+// block_size a multiple of 64 dividing s_cap, chunk a multiple of 64 up to
+// 512.
 inline bool chunk_args_ok(const ChunkArgs& a, int hq, int head_dim) {
   const int g = a.hkv > 0 ? hq / a.hkv : 0;
-  return head_dim == kBlkD && g * a.hkv == hq &&
+  return (head_dim == 64 || head_dim == 128) && g * a.hkv == hq &&
          (g == 1 || g == 2 || g == 4 || g == 8) && a.nsel > 0 &&
          a.block_size > 0 && a.block_size % 64 == 0 &&
          a.s_cap % a.block_size == 0 && a.chunk >= 64 &&

@@ -8,14 +8,17 @@
 // masked rows give out 0 and lse -inf.
 //
 // Bound on the H100: reading K and V once, 256 bytes per token and kv head
-// at d = 64 in bf16 (512 at d = 128), 136 in int8 (rows and scales), over
-// 3.35 TB/s; the arithmetic is ~2 flops per byte. Head dim 64 (bf16 and
-// int8) and 128 (bf16) are instances of one template. Design, one block per
-// (split, kv head, request), the split size chosen by the wrapper from the
-// capacity and the SM count (`chunk`, a multiple of 64 tokens):
+// at d = 64 in bf16 (512 at d = 128), 136 in int8 (rows and scales; 264 at
+// d = 128), over 3.35 TB/s; the arithmetic is ~2 flops per byte. Head dims
+// 64 and 128, bf16 and int8, are instances of one template (an int8 row at
+// d = 128 is 128 bytes, as a bf16 one at d = 64: the same ring). Design,
+// one block per (split, kv head, request), the split size chosen by the
+// wrapper from the capacity and the SM count (`chunk`, a multiple of 64
+// tokens):
 //  - one copy warp: its first lane brings each 64-token tile of K and V
 //    (contiguous in the [B, Hkv, S, d] layout: 8 KB each in bf16 at d = 64,
-//    16 KB at d = 128, 4 KB in int8) with cp.async.bulk into a three-stage
+//    16 KB at d = 128, 4 KB in int8 at d = 64 and 8 KB at 128) with
+//    cp.async.bulk into a three-stage
 //    ring, only the rows below the length, and signals a full mbarrier per
 //    stage;
 //  - four compute warps, 16 tokens of each tile each, no block barrier per
@@ -373,7 +376,7 @@ int launch_decode(const void* q, const void* k, const void* v,
 }  // namespace
 
 // k_scale and v_scale null: bf16 K/V; both set: int8 K/V with those
-// per-token scales [B, Hkv, S]. head_dim: 64, or 128 for bf16 K/V.
+// per-token scales [B, Hkv, S]. head_dim: 64 or 128.
 // `chunk`: tokens per split, a positive multiple of 64.
 extern "C" int mp_flash_decode(const void* q, const void* k, const void* v,
                                const void* k_scale, const void* v_scale,
@@ -383,27 +386,23 @@ extern "C" int mp_flash_decode(const void* q, const void* k, const void* v,
                                int hkv, int head_dim, int chunk,
                                float sm_scale, void* stream) {
   const bool quant = k_scale != nullptr;
-  if ((head_dim != 64 && (head_dim != 128 || quant)) || hkv <= 0 ||
+  if ((head_dim != 64 && head_dim != 128) || hkv <= 0 ||
       hq % hkv != 0 || chunk <= 0 || chunk % kTile != 0 ||
       (k_scale == nullptr) != (v_scale == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   if (batch == 0 || s_cap == 0) return static_cast<int>(cudaSuccess);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define MP_DECODE_FORM(G, T, D)                                              \
+  launch_decode<G, T, D>(q, k, v, k_scale, v_scale, length, part_o,          \
+                         part_lse, tickets, out, lse, batch, s_cap, hkv,     \
+                         chunk, sm_scale, st)
 #define MP_DECODE_CASE(G)                                                    \
   case G:                                                                    \
     if (head_dim == 128)                                                     \
-      return launch_decode<G, __nv_bfloat16, 128>(                           \
-          q, k, v, nullptr, nullptr, length, part_o, part_lse, tickets, out, \
-          lse, batch, s_cap, hkv, chunk, sm_scale, st);                      \
-    return quant ? launch_decode<G, int8_t, 64>(q, k, v, k_scale, v_scale,   \
-                                                length, part_o, part_lse,    \
-                                                tickets, out, lse, batch,    \
-                                                s_cap, hkv, chunk, sm_scale, \
-                                                st)                          \
-                 : launch_decode<G, __nv_bfloat16, 64>(                      \
-                       q, k, v, nullptr, nullptr, length, part_o, part_lse,  \
-                       tickets, out, lse, batch, s_cap, hkv, chunk,          \
-                       sm_scale, st);
+      return quant ? MP_DECODE_FORM(G, int8_t, 128)                          \
+                   : MP_DECODE_FORM(G, __nv_bfloat16, 128);                  \
+    return quant ? MP_DECODE_FORM(G, int8_t, 64)                             \
+                 : MP_DECODE_FORM(G, __nv_bfloat16, 64);
   switch (hq / hkv) {
     MP_DECODE_CASE(1)
     MP_DECODE_CASE(2)
@@ -412,6 +411,7 @@ extern "C" int mp_flash_decode(const void* q, const void* k, const void* v,
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef MP_DECODE_CASE
+#undef MP_DECODE_FORM
 }
 
 extern "C" const char* mp_error_string(int err) {

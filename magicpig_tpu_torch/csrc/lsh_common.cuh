@@ -8,10 +8,10 @@
 // weighted V sum over the sampled rows only, the sampled count, and the
 // merge of the splits.
 //
-// Head dim 64 (every form) or 128 (bf16 K/V, the exact debias, the scan:
-// Llama-3.1-8B's decode) are instances of one template; a gathered row is
-// d * 2 bytes of bf16 (d of int8), and P.V gives each of the four warps d
-// / 4 output dims.
+// Head dim 64 (every form) or 128 (every form of the scan, the fused
+// kernel: Llama-3.1-8B's decode; the given words stay at 64) are instances
+// of one template; a gathered row is d * 2 bytes of bf16 (d of int8), and
+// P.V gives each of the four warps d / 4 output dims.
 //
 // K/V come bf16, or int8 with per-token f32 scales (the TPU kernels'
 // quant=True form: the raw score is q . K_int8 times the K scale, the
@@ -133,10 +133,11 @@ struct __align__(128) LshSmem {
 };
 
 // Byte offset of 16-byte unit `unit` of gathered K row `row` (kUnits units
-// a row): within each 128-byte line the unit index is XORed with the
-// line's index (rows of 4 units) or the row's (rows of 8 or more: a row
-// spans kUnits / 8 lines), so that lanes reading the same unit of
-// different rows hit distinct banks.
+// a row, by the row's bytes: 4 for int8 at d = 64, 8 for bf16 at 64 and
+// int8 at 128, 16 for bf16 at 128): within each 128-byte line the unit
+// index is XORed with the line's index (rows of 4 units) or the row's
+// (rows of 8 or more: a row spans kUnits / 8 lines), so that lanes reading
+// the same unit of different rows hit distinct banks.
 template <int kUnits>
 __device__ __forceinline__ int k_unit(int row, int unit) {
   if constexpr (kUnits >= 8) {
@@ -163,11 +164,11 @@ __device__ __forceinline__ float key_dot(const uint8_t* kbuf, int row,
 template <int kD>
 __device__ __forceinline__ float key_dot(const uint8_t* kbuf, int row,
                                          const float* qg, const int8_t*) {
-  static_assert(kD == 64, "int8 rows: head dim 64");
   float acc = 0.f;
 #pragma unroll
-  for (int u = 0; u < 4; ++u) {
-    const uint4 x = *reinterpret_cast<const uint4*>(kbuf + k_unit<4>(row, u));
+  for (int u = 0; u < kD / 16; ++u) {
+    const uint4 x =
+        *reinterpret_cast<const uint4*>(kbuf + k_unit<kD / 16>(row, u));
     const uint32_t w[4] = {x.x, x.y, x.z, x.w};
 #pragma unroll
     for (int i = 0; i < 16; ++i)
@@ -661,41 +662,52 @@ int launch_lsh(LshArgs a, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// head_dim 128: the fused kernel's bf16 exact form only (checked by the
-// caller).
-template <int G, bool kWords>
-int dispatch_lsh_form(int debias, bool quant, int head_dim, const LshArgs& a,
-                      cudaStream_t st) {
-  if constexpr (!kWords)
-    if (head_dim == 128)
-      return launch_lsh<G, __nv_bfloat16, kExact, false, 128>(a, st);
-#define MP_LSH_FORM(D)                                                   \
-  case D:                                                                \
-    return quant ? launch_lsh<G, int8_t, D, kWords, 64>(a, st)           \
-                 : launch_lsh<G, __nv_bfloat16, D, kWords, 64>(a, st);
+// The debias forms of one group size, K/V type and head dim.
+template <int G, typename T, bool kWords, int kD>
+int dispatch_lsh_debias(int debias, const LshArgs& a, cudaStream_t st) {
   switch (debias) {
-    MP_LSH_FORM(kExact)
-    MP_LSH_FORM(kPoly)
-    MP_LSH_FORM(kNone)
+    case kExact: return launch_lsh<G, T, kExact, kWords, kD>(a, st);
+    case kPoly: return launch_lsh<G, T, kPoly, kWords, kD>(a, st);
+    case kNone: return launch_lsh<G, T, kNone, kWords, kD>(a, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-#undef MP_LSH_FORM
 }
+
+// Every form of one K/V type and head dim for g = hq / hkv heads a group.
+template <typename T, bool kWords, int kD>
+int dispatch_lsh_group(int g, int debias, const LshArgs& a,
+                       cudaStream_t st) {
+  switch (g) {
+    case 1: return dispatch_lsh_debias<1, T, kWords, kD>(debias, a, st);
+    case 2: return dispatch_lsh_debias<2, T, kWords, kD>(debias, a, st);
+    case 4: return dispatch_lsh_debias<4, T, kWords, kD>(debias, a, st);
+    case 8: return dispatch_lsh_debias<8, T, kWords, kD>(debias, a, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The fused kernel's forms (dispatch_lsh_group<T, false, kD>), by K/V type
+// and head dim, each compiled in its own source so that nvcc builds them
+// side by side: lsh_fused.cu (bf16, d = 64), lsh_fused_int8.cu,
+// lsh_fused_d128.cu and lsh_fused_int8_d128.cu.
+int lsh_fused_bf16_d64(int g, int debias, const LshArgs& a, cudaStream_t st);
+int lsh_fused_int8_d64(int g, int debias, const LshArgs& a, cudaStream_t st);
+int lsh_fused_bf16_d128(int g, int debias, const LshArgs& a, cudaStream_t st);
+int lsh_fused_int8_d128(int g, int debias, const LshArgs& a, cudaStream_t st);
 
 // Check the sizes, copy the polynomial (a host array of the 21
 // coefficients, low degree first; debias 1 only) into the arguments, and
 // launch the form for hq / hkv heads a group. k_scale and v_scale null:
 // bf16 K/V; both set: int8. debias: 0 exact, 1 poly, 2 none. split: tokens
 // a block, a power of two from 32 to 2048. head_dim: 64, or 128 for the
-// fused kernel's bf16 exact form.
+// fused kernel (kWords false).
 template <bool kWords>
 int launch_lsh_decode(LshArgs a, int hq, int head_dim, int debias,
                       const void* poly_coef, void* stream) {
   const bool quant = a.k_scale != nullptr;
-  const bool d128 = head_dim == 128 && !kWords && !quant && debias == kExact;
-  if ((head_dim != 64 && !d128) || a.hkv <= 0 || hq % a.hkv != 0 ||
-      a.s_cap % 32 != 0 || a.K < 1 || a.K > kMaxK || a.L < 1 ||
-      a.split < 32 || a.split > 32 * kLshMaxWords ||
+  if ((head_dim != 64 && (head_dim != 128 || kWords)) || a.hkv <= 0 ||
+      hq % a.hkv != 0 || a.s_cap % 32 != 0 || a.K < 1 || a.K > kMaxK ||
+      a.L < 1 || a.split < 32 || a.split > 32 * kLshMaxWords ||
       (a.split & (a.split - 1)) != 0 || a.tickets == nullptr ||
       (a.k_scale == nullptr) != (a.v_scale == nullptr) ||
       (debias == kPoly) != (poly_coef != nullptr))
@@ -705,12 +717,17 @@ int launch_lsh_decode(LshArgs a, int hq, int head_dim, int debias,
     for (int i = 0; i < kPolyTerms; ++i)
       a.poly.c[i] = static_cast<const float*>(poly_coef)[i];
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (hq / a.hkv) {
-    case 1: return dispatch_lsh_form<1, kWords>(debias, quant, head_dim, a, st);
-    case 2: return dispatch_lsh_form<2, kWords>(debias, quant, head_dim, a, st);
-    case 4: return dispatch_lsh_form<4, kWords>(debias, quant, head_dim, a, st);
-    case 8: return dispatch_lsh_form<8, kWords>(debias, quant, head_dim, a, st);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+  const int g = hq / a.hkv;
+  if constexpr (kWords) {
+    return quant ? dispatch_lsh_group<int8_t, true, 64>(g, debias, a, st)
+                 : dispatch_lsh_group<__nv_bfloat16, true, 64>(g, debias, a,
+                                                                st);
+  } else {
+    if (head_dim == 128)
+      return quant ? lsh_fused_int8_d128(g, debias, a, st)
+                   : lsh_fused_bf16_d128(g, debias, a, st);
+    return quant ? lsh_fused_int8_d64(g, debias, a, st)
+                 : lsh_fused_bf16_d64(g, debias, a, st);
   }
 }
 

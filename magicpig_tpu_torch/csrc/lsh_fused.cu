@@ -7,9 +7,11 @@
 // pallas_call at lsh_fused.py:286), reached through
 // magicpig_tpu/ops/pallas/lsh_decode.py::lsh_fused_decode, with bf16 K/V or
 // int8 K/V and per-token f32 scales, and each of its three debias forms
-// (lsh_fused.py:139-158), at head dim 64; and bf16 K/V with the exact
-// debias at head dim 128 (Llama-3.1-8B's decode). Any L, odd or even (the
-// TPU kernel takes even L).
+// (lsh_fused.py:139-158), at head dims 64 and 128 (Llama-3.1-8B's decode).
+// Any L, odd or even (the TPU kernel takes even L). This source holds the
+// C entry and the bf16 instances at d = 64; the int8 and d = 128 ones
+// compile beside it in lsh_fused_int8.cu, lsh_fused_d128.cu and
+// lsh_fused_int8_d128.cu (twelve instances each).
 //
 // Bound on the H100: device memory. The signatures must all be read to
 // know which tokens are sampled: K*L bits per token and kv head, 188 bytes
@@ -22,6 +24,14 @@
 // only the sampled rows and merges the splits in the same launch
 // (lsh_common.cuh).
 #include "lsh_common.cuh"
+
+namespace mp {
+
+int lsh_fused_bf16_d64(int g, int debias, const LshArgs& a, cudaStream_t st) {
+  return dispatch_lsh_group<__nv_bfloat16, false, 64>(g, debias, a, st);
+}
+
+}  // namespace mp
 
 // k_scale and v_scale null: bf16 K/V; both set: int8 K/V with those
 // per-token scales [B, Hkv, S]. debias: 0 exact, 1 poly (poly_coef: a host

@@ -9,7 +9,8 @@
 //
 // Bound on the H100: reading the selected blocks' K and V rows and their
 // scales once, 136 bytes a token and kv head in int8 (104 with packed int4
-// K); ~4 flops per byte, so device memory bounds it. The TPU grid is one
+// K) at d = 64, 264 (200) at d = 128; ~4 flops per byte, so device memory
+// bounds it. Both head dims are instances of one template. The TPU grid is one
 // step per (request, kv head) with a loop over the selected blocks; here
 // one block of 128 threads takes one chunk of one selected block of one
 // (kv head, request), brings its K and V rows and scales by bulk copies
@@ -21,26 +22,38 @@
 
 namespace {
 
-template <int G, typename KT, typename VT>
+template <int G, typename KT, typename VT, int kD>
 __global__ void __launch_bounds__(mp::kBlkThreads)
 rescore_attend_kernel(const __grid_constant__ mp::ChunkArgs a) {
-  mp::chunk_attend<G, KT, VT, false>(a);
+  mp::chunk_attend<G, KT, VT, false, kD>(a);
 }
 
-template <int G, typename KT, typename VT>
+template <int G, typename KT, typename VT, int kD>
 int launch(const mp::ChunkArgs& a, cudaStream_t st) {
   static unsigned smem_set = 0;
-  return mp::launch_chunk_attend<G, KT, VT, false>(
-      rescore_attend_kernel<G, KT, VT>, a, smem_set, st);
+  return mp::launch_chunk_attend<G, KT, VT, false, kD>(
+      rescore_attend_kernel<G, KT, VT, kD>, a, smem_set, st);
 }
 
-template <typename KT, typename VT>
+template <typename KT, typename VT, int kD>
 int dispatch(int g, const mp::ChunkArgs& a, cudaStream_t st) {
   switch (g) {
-    case 1: return launch<1, KT, VT>(a, st);
-    case 2: return launch<2, KT, VT>(a, st);
-    case 4: return launch<4, KT, VT>(a, st);
-    case 8: return launch<8, KT, VT>(a, st);
+    case 1: return launch<1, KT, VT, kD>(a, st);
+    case 2: return launch<2, KT, VT, kD>(a, st);
+    case 4: return launch<4, KT, VT, kD>(a, st);
+    case 8: return launch<8, KT, VT, kD>(a, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+template <int kD>
+int dispatch_kind(int k_kind, int g, const mp::ChunkArgs& a,
+                  cudaStream_t st) {
+  switch (k_kind) {
+    case mp::kKeyBf16:
+      return dispatch<__nv_bfloat16, __nv_bfloat16, kD>(g, a, st);
+    case mp::kKeyInt8: return dispatch<int8_t, int8_t, kD>(g, a, st);
+    case mp::kKeyInt4: return dispatch<mp::Int4x2, int8_t, kD>(g, a, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -48,10 +61,11 @@ int dispatch(int g, const mp::ChunkArgs& a, cudaStream_t st) {
 }  // namespace
 
 // k_kind (a KeyKind): bf16 K and V, scales null; int8 K and V with row
-// scales; packed int4 K and int8 V with row scales. part_o [nsel * chunks
-// a block, B * Hq, 64] and part_lse [nsel * chunks a block, B * Hq] hold
-// the partials; tickets [B * Hkv] is 0 between calls; chunk: tokens a CUDA
-// block, a multiple of 64 up to 512.
+// scales; packed int4 K and int8 V with row scales. head_dim: 64 or 128.
+// part_o [nsel * chunks a block, B * Hq, head_dim] and part_lse
+// [nsel * chunks a block, B * Hq] hold the partials; tickets [B * Hkv] is
+// 0 between calls; chunk: tokens a CUDA block, a multiple of 64 up to 512
+// (at most 256 for bf16 K and V at head_dim 128).
 extern "C" int mp_rescore_attend(const void* q, const void* blk_ids,
                                  const void* k, const void* k_scale,
                                  const void* v, const void* v_scale,
@@ -88,11 +102,6 @@ extern "C" int mp_rescore_attend(const void* q, const void* blk_ids,
   if (batch == 0) return static_cast<int>(cudaSuccess);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int g = hq / hkv;
-  switch (k_kind) {
-    case mp::kKeyBf16:
-      return dispatch<__nv_bfloat16, __nv_bfloat16>(g, a, st);
-    case mp::kKeyInt8: return dispatch<int8_t, int8_t>(g, a, st);
-    case mp::kKeyInt4: return dispatch<mp::Int4x2, int8_t>(g, a, st);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return head_dim == 128 ? dispatch_kind<128>(k_kind, g, a, st)
+                         : dispatch_kind<64>(k_kind, g, a, st);
 }

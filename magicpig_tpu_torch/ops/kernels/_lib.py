@@ -34,19 +34,30 @@ ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v", "-lineinfo")
 
+# The forms of each kernel at head dim 64; those of every kernel but the
+# two-stage LSH pair (collision_words, lsh_masked_attention) and the int4
+# matmul are counted apart at head dim 128 too, as "<form>_d128".
+_D64_FORMS = (
+    "flash_prefill",
+    "flash_decode",
+    "flash_decode_int8",
+    "lsh_fused_decode",
+    "lsh_fused_decode_int8",
+    "lsh_fused_decode_poly",
+    "lsh_fused_decode_none",
+    "lsh_fused_decode_int8_poly",
+    "lsh_fused_decode_int8_none",
+    "block_rank",
+    "block_rank_int4",
+    "exact_scores_ranked",
+    "exact_scores_ranked_int4",
+    "exact_scores",
+    "rescore_attend",
+    "rescore_attend_int4",
+    "block_attend",
+)
 LAUNCHES: dict[str, int] = {
-    "flash_prefill": 0,
-    "flash_prefill_d128": 0,
-    "flash_decode": 0,
-    "flash_decode_d128": 0,
-    "flash_decode_int8": 0,
-    "lsh_fused_decode": 0,
-    "lsh_fused_decode_d128": 0,
-    "lsh_fused_decode_int8": 0,
-    "lsh_fused_decode_poly": 0,
-    "lsh_fused_decode_none": 0,
-    "lsh_fused_decode_int8_poly": 0,
-    "lsh_fused_decode_int8_none": 0,
+    **{name + dim: 0 for name in _D64_FORMS for dim in ("", "_d128")},
     "collision_words": 0,
     "lsh_masked_attention": 0,
     "lsh_masked_attention_int8": 0,
@@ -54,14 +65,6 @@ LAUNCHES: dict[str, int] = {
     "lsh_masked_attention_none": 0,
     "lsh_masked_attention_int8_poly": 0,
     "lsh_masked_attention_int8_none": 0,
-    "block_rank": 0,
-    "block_rank_int4": 0,
-    "exact_scores_ranked": 0,
-    "exact_scores_ranked_int4": 0,
-    "exact_scores": 0,
-    "rescore_attend": 0,
-    "rescore_attend_int4": 0,
-    "block_attend": 0,
     "w4_matmul": 0,
 }
 # The int4 matmul's launches by weight shape ("{kin}x{out}"): each product
@@ -88,6 +91,9 @@ _lib: ctypes.CDLL | None = None
 _build_error: RuntimeError | None = None
 last_build_seconds: float | None = None
 last_build_log: str = ""
+# Seconds each source's nvcc took in the last build (they run at once, so
+# the longest one sets the build's time).
+last_source_seconds: dict[str, float] = {}
 
 
 def sources() -> list[Path]:
@@ -122,9 +128,10 @@ def build() -> Path:
     at once, and link the objects into the library (skipped when the
     library for these sources and flags exists). Returns its path. The
     compiler's report (`-Xptxas -v`: registers, shared memory, spills) is
-    kept in `last_build_log` and `_build/build.log`. A failed build raises,
-    and raises the same error again on every later call of the process
-    without compiling anew."""
+    kept in `last_build_log` and `_build/build.log`, each source's compile
+    time in `last_source_seconds`. A failed build raises, and raises the
+    same error again on every later call of the process without compiling
+    anew."""
     global last_build_seconds, last_build_log, _build_error
     if _build_error is not None:
         raise _build_error
@@ -135,17 +142,25 @@ def build() -> Path:
     nvcc = nvcc_path()
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
-        objs, procs, logs = [], [], []
+        objs, procs, logs = [], {}, []
         for src in (p for p in sources() if p.suffix == ".cu"):
             obj = str(Path(tmp) / (src.stem + ".o"))
             cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
             objs.append(obj)
-            procs.append((cmd, subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                text=True)))
+            report = open(Path(tmp) / (src.stem + ".log"), "w+")
+            procs[src.name] = (cmd, report, subprocess.Popen(
+                cmd, stdout=report, stderr=subprocess.STDOUT))
+        last_source_seconds.clear()
+        while len(last_source_seconds) < len(procs):
+            for name, (_, _, proc) in procs.items():
+                if name not in last_source_seconds and proc.poll() is not None:
+                    last_source_seconds[name] = time.perf_counter() - t0
+            time.sleep(0.05)
         failed = False
-        for cmd, proc in procs:
-            logs.append(" ".join(cmd) + "\n" + proc.communicate()[0])
+        for name, (cmd, report, proc) in procs.items():
+            report.seek(0)
+            logs.append(" ".join(cmd) + "\n" + report.read())
+            report.close()
             failed |= proc.returncode != 0
         if not failed:
             so = str(Path(tmp) / out.name)

@@ -22,12 +22,15 @@ import torch
 from magicpig_tpu_torch.ops import attention
 from magicpig_tpu_torch.ops.baselines import gather_blocks
 from magicpig_tpu_torch.ops.kernels import _lib
+from magicpig_tpu_torch.ops.kernels.block_score import HEAD_DIMS, launch_name
 from magicpig_tpu_torch.ops.kernels.flash_decode import device_state
 
-HEAD_DIM = 64
 MIN_CHUNK = 128           # tokens a CUDA block of the attends at least ...
 MAX_CHUNK = 512           # ... and at most (kMaxChunk in chunk_attend.cuh)
-MERGE_BYTES = 32 * 1024   # the merge's batch of partials (kMergeBytes)
+MERGE_BYTES = 32 * 1024   # the merge's batch of partials at d = 64
+#                           (kMergeBytes; d / 64 times that at head dim d)
+CHUNK_HEADER = 128        # mbarrier, flag, m, l, alpha (kChunkHeader)
+SMEM_MAX = 227 * 1024     # a CUDA block's shared memory (kChunkSmemMax)
 
 
 def attend_selected_plain(scores: torch.Tensor, v: torch.Tensor,
@@ -75,7 +78,7 @@ def check_selection(name: str, blk_ids: torch.Tensor, v: torch.Tensor,
     _lib.require(not int8 or (v_scale.dtype == torch.float32
                               and v_scale.shape == (b, hkv, s)),
                  f"{name}: v_scale must be f32 [B, Hkv, S]")
-    _lib.require(d == HEAD_DIM, f"{name}: head_dim {d} != {HEAD_DIM}")
+    _lib.require(d in HEAD_DIMS, f"{name}: head_dim {d} not in {HEAD_DIMS}")
     _lib.require(hq % hkv == 0 and hq // hkv in (1, 2, 4, 8),
                  f"{name}: group size {hq}/{hkv} unsupported")
     _lib.require(block_size > 0 and block_size % 64 == 0 and s > 0
@@ -86,36 +89,53 @@ def check_selection(name: str, blk_ids: torch.Tensor, v: torch.Tensor,
                  f"{name}: blk_ids must be int32 [B, Hkv, NB']")
 
 
-def chunk_plan(block_size: int, chunk: int | None, nsel: int,
-               g: int) -> tuple[int, int]:
+def chunk_bytes(chunk: int, g: int, k_row: int, v_row: int,
+                k_scale: bool, v_scale: bool) -> int:
+    """Shared memory of one CUDA block's chunk (`chunk_smem` in
+    chunk_attend.cuh): the header, the K rows (`k_row` bytes each, 0 when
+    the scores are stored), V rows, the scales, the G score rows and P."""
+    return (CHUNK_HEADER + chunk * (k_row + v_row + 4 * (k_scale + v_scale))
+            + g * (chunk + 4) * 4 + g * (chunk // 2 + 4) * 4)
+
+
+def chunk_plan(block_size: int, chunk: int | None, nsel: int, g: int,
+               d: int = HEAD_DIMS[0],
+               row_bytes: tuple = (0, 128, False, False)) -> tuple[int, int]:
     """(tokens a CUDA block, chunks a selected block) of the attends: a
     selected block cut into chunks of `chunk` tokens (a power of two from
     64 to 512), the last one shorter where the block size is not a
     multiple of it; a block smaller than the chunk is one chunk. By
     default the smallest chunk from MIN_CHUNK up whose partials (nsel of
     them a chunk of each block) the merge takes in one batch of its shared
-    memory, at G heads a kv head. `chip_smoke.py` phase 2 sweeps 64 to 512
-    at two shapes (`PERF.md`)."""
+    memory (`MERGE_BYTES` per 64 dims: as many partials a batch at d = 128
+    as at 64), at G heads a kv head and head dim d, and whose rows
+    (`row_bytes`: K and V row bytes, K and V scales, as `chunk_bytes`
+    takes them) fit a block: bf16 K and V at d = 128 stop at 256 tokens,
+    and the merge then takes more than one batch. `chip_smoke.py` phase 2
+    sweeps 64 to 512 at two shapes and both head dims (`PERF.md`)."""
     if chunk is None:
-        batch = MERGE_BYTES // (g * (HEAD_DIM + 1) * 4)
+        batch = MERGE_BYTES * d // 64 // (g * (d + 1) * 4)
         chunk = MIN_CHUNK
-        while chunk < MAX_CHUNK and nsel * -(-block_size // chunk) > batch:
+        while (chunk < MAX_CHUNK and nsel * -(-block_size // chunk) > batch
+               and chunk_bytes(2 * chunk, g, *row_bytes) <= SMEM_MAX):
             chunk *= 2
     _lib.require(64 <= chunk <= MAX_CHUNK and chunk & (chunk - 1) == 0,
                  f"chunk {chunk} is not a power of two from 64 to {MAX_CHUNK}")
     chunk = min(chunk, block_size)
+    _lib.require(chunk_bytes(chunk, g, *row_bytes) <= SMEM_MAX,
+                 f"chunk {chunk}: its rows do not fit a CUDA block")
     return chunk, -(-block_size // chunk)
 
 
-def merge_buffers(nparts: int, b: int, hq: int, hkv: int,
+def merge_buffers(nparts: int, b: int, hq: int, hkv: int, d: int,
                   device: torch.device):
     """Per-chunk partials, the merge tickets and the merged output of an
-    attend."""
+    attend at head dim d."""
     f32 = dict(dtype=torch.float32, device=device)
-    return (torch.empty((nparts, b * hq, HEAD_DIM), **f32),
+    return (torch.empty((nparts, b * hq, d), **f32),
             torch.empty((nparts, b * hq), **f32),
             device_state(device, b * hkv)[0],
-            torch.empty((b, hq, HEAD_DIM), **f32),
+            torch.empty((b, hq, d), **f32),
             torch.empty((b, hq), **f32))
 
 
@@ -139,21 +159,23 @@ def launch_block_attend(scores: torch.Tensor, blk_ids: torch.Tensor,
     """One launch of the kernel at `chunk` tokens a CUDA block (None:
     `chunk_plan`'s choice), inputs checked: the wrapper's, and the card
     tests' and `chip_smoke.py`'s at each chunk."""
-    name = "block_attend"
     _lib.require(scores.device.type == "cuda",
-                 f"{name}: unsupported device {scores.device}")
+                 f"block_attend: unsupported device {scores.device}")
     b, hkv, g, s = scores.shape
+    d = v.shape[-1]
+    name = launch_name("block_attend", False, d)
     _lib.require(v.dim() == 4 and v.shape[:3] == (b, hkv, s),
                  f"{name}: v shape {tuple(v.shape)}")
     _lib.require_cuda(name, scores, v)
     _lib.require(scores.dtype == torch.float32, f"{name}: scores must be f32")
     check_selection(name, blk_ids, v, v_scale, hkv * g, block_size)
     nsel = blk_ids.shape[2]
-    chunk, nch = chunk_plan(block_size, chunk, nsel, g)
+    int8 = v.dtype == torch.int8
+    chunk, nch = chunk_plan(block_size, chunk, nsel, g, d,
+                            (0, d * v.element_size(), False, int8))
     part_o, part_lse, tickets, out, lse = merge_buffers(
-        nsel * nch, b, hkv * g, hkv, v.device)
+        nsel * nch, b, hkv * g, hkv, d, v.device)
     _lib.launch(name, "mp_block_attend", v.device, scores, blk_ids, v,
                 v_scale, part_o, part_lse, tickets, out, lse, b, s, hkv * g,
-                hkv, v.shape[3], nsel, block_size, chunk,
-                int(v.dtype == torch.int8))
+                hkv, d, nsel, block_size, chunk, int(int8))
     return out, lse

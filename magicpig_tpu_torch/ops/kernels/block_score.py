@@ -16,7 +16,8 @@ one block of the kernel scores one ranking block of one (request, kv head)
 (for `exact_scores`, one 512-token span, or the largest power-of-two span
 from 64 that divides S).
 Packed int4 K ([B, Hkv, S, d/2] bytes, `ops/pack4.py`) is counted apart, as
-"block_rank_int4" and "exact_scores_ranked_int4".
+"block_rank_int4" and "exact_scores_ranked_int4", and head dim 128 (64 and
+128 on the card) as "..._d128" (`launch_name`).
 
 The arithmetic, kernel and plain version alike: q * (1/sqrt(d)) rounded to
 bf16; K as bf16 (int8 and 4-bit values are exact in it); products summed in
@@ -35,7 +36,7 @@ import torch
 from magicpig_tpu_torch.ops.kernels import _lib
 from magicpig_tpu_torch.ops.pack4 import is_packed, unpack_k4
 
-HEAD_DIM = 64
+HEAD_DIMS = (64, 128)   # the kernel's head dims
 KEY_KINDS = {torch.bfloat16: 0, torch.int8: 1}   # KeyKind in block_common.cuh
 KEY_INT4 = 2                                     # packed int4 K
 
@@ -105,6 +106,13 @@ def key_kind(name: str, q: torch.Tensor, k: torch.Tensor,
     return KEY_INT4 if packed else KEY_KINDS[k.dtype]
 
 
+def launch_name(base: str, int4: bool, head_dim: int) -> str:
+    """The launch counter of one form of the block kernels: `base`, "_int4"
+    for packed int4 K, "_d128" at head dim 128."""
+    return (base + ("_int4" if int4 else "")
+            + ("" if head_dim == HEAD_DIMS[0] else f"_d{head_dim}"))
+
+
 def _launch(name: str, q, k, k_scale, length, block_size: int,
             store_scores: bool, rank: bool = True):
     _lib.require(q.device.type == "cuda", f"{name}: unsupported device {q.device}")
@@ -114,7 +122,7 @@ def _launch(name: str, q, k, k_scale, length, block_size: int,
     _lib.require_cuda(name, q, k, *([length] if rank else []),
                       *([k_scale] if kind else []))
     _lib.require(q.dtype == torch.bfloat16, f"{name}: q must be bfloat16")
-    _lib.require(d == HEAD_DIM, f"{name}: head_dim {d} != {HEAD_DIM}")
+    _lib.require(d in HEAD_DIMS, f"{name}: head_dim {d} not in {HEAD_DIMS}")
     _lib.require(hq % hkv == 0 and hq // hkv in (1, 2, 4, 8),
                  f"{name}: group size {hq}/{hkv} unsupported")
     _lib.require(block_size > 0 and block_size % 64 == 0 and s > 0
@@ -127,8 +135,8 @@ def _launch(name: str, q, k, k_scale, length, block_size: int,
     f32 = dict(dtype=torch.float32, device=q.device)
     scores = torch.empty((b, hkv, hq // hkv, s), **f32) if store_scores else None
     bmax = torch.empty((b, hkv, s // block_size), **f32) if rank else None
-    _lib.launch(name + ("_int4" if kind == KEY_INT4 else ""),
-                "mp_block_score", q.device, q, k, k_scale, length, scores,
+    _lib.launch(launch_name(name, kind == KEY_INT4, d), "mp_block_score",
+                q.device, q, k, k_scale, length, scores,
                 bmax, b, s, hq, hkv, d, block_size, kind, 1.0 / math.sqrt(d))
     return scores, bmax
 

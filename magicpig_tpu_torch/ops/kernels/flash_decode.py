@@ -2,9 +2,9 @@
 `csrc/flash_decode.cu`, with its plain version `ops.attention.full_decode`.
 
 Replaces the TPU kernel `magicpig_tpu/ops/pallas/decode.py::flash_decode`
-(pallas_call at decode.py:184): bf16 K/V at head dim 64 or 128, or int8
-K/V with per-token f32 scales at head dim 64, counted apart as
-"flash_decode", "flash_decode_d128" and "flash_decode_int8"
+(pallas_call at decode.py:184): bf16 K/V, or int8 K/V with per-token f32
+scales, at head dim 64 or 128, counted apart as "flash_decode",
+"flash_decode_int8", "flash_decode_d128" and "flash_decode_int8_d128"
 (`launch_name`). On the H100 it is bound by
 reading K and V once; the kernel streams K/V tiles with bulk copies, splits
 the sequence so that a small batch fills the card (`split_tokens`), and
@@ -20,8 +20,8 @@ import torch
 from magicpig_tpu_torch.ops import attention
 from magicpig_tpu_torch.ops.kernels import _lib
 
-HEAD_DIM = 64
-HEAD_DIMS_BF16 = (64, 128)   # the bf16 forms' head dims; int8: HEAD_DIM
+HEAD_DIM = 64          # the d = 64 forms' counters carry no suffix
+HEAD_DIMS = (64, 128)  # the kernel's head dims, bf16 and int8
 DECODE_TILE = 64       # tokens per copy of flash_decode (kTile)
 MIN_SPLIT = 256        # fewest tokens per flash_decode split
 MAX_SPLIT = 1024       # most tokens per flash_decode split
@@ -41,7 +41,8 @@ def split_tokens(capacity: int, batch: int, hkv: int, num_sms: int) -> int:
     head) cut into about one block per SM, in whole 64-token tiles, within
     [MIN_SPLIT, MAX_SPLIT]. A short cache takes one split, which writes its
     output without a merge. `chip_smoke.py` phase 2 times 512, 1024 and 2048
-    at B=2 over 16384 + 11000 tokens (`PERF.md`)."""
+    at B=2 over 16384 + 11000 tokens, bf16 and int8, at d = 64 and 128
+    (`PERF.md`)."""
     per_split = -(-capacity * batch * hkv // max(1, num_sms))
     tiles = -(-per_split // DECODE_TILE)
     return min(MAX_SPLIT, max(MIN_SPLIT, tiles * DECODE_TILE))
@@ -110,9 +111,9 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  v_scale: torch.Tensor | None = None):
     """Single-query attention over a cache prefix.
 
-    q: [B, Hq, d]; k, v: [B, Hkv, S, d], bf16 (d 64 or 128 on the card),
-    or int8 with f32 scales k_scale, v_scale [B, Hkv, S] (d 64 on the card);
-    length: [B] int32 valid tokens.
+    q: [B, Hq, d]; k, v: [B, Hkv, S, d], bf16, or int8 with f32 scales
+    k_scale, v_scale [B, Hkv, S] (d 64 or 128 on the card); length: [B]
+    int32 valid tokens.
     Returns (out [B, Hq, d] f32, lse [B, Hq] f32); a request with no valid
     token gives out 0 and lse -inf. CPU tensors take the plain version.
     """
@@ -121,8 +122,7 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     b, hq, d = q.shape
     quant = k_scale is not None
     name = launch_name(quant, d)
-    check_decode_inputs(name, q, k, v, length, k_scale, v_scale,
-                        (HEAD_DIM,) if quant else HEAD_DIMS_BF16)
+    check_decode_inputs(name, q, k, v, length, k_scale, v_scale, HEAD_DIMS)
     hkv, s = k.shape[1], k.shape[2]
     tickets, num_sms = device_state(q.device, b * hkv)
     chunk = split_tokens(s, b, hkv, num_sms)

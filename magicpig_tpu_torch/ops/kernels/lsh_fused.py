@@ -8,11 +8,10 @@ Replaces the TPU kernel `magicpig_tpu/ops/pallas/lsh_fused.py::
 lsh_fused_attention2` (pallas_call at lsh_fused.py:286), reached through
 `magicpig_tpu/ops/pallas/lsh_decode.py::lsh_fused_decode`: bf16 K/V, or
 int8 K/V with per-token f32 scales (int4-grid K too), each with the exact,
-polynomial or no debias, at head dim 64; and bf16 K/V with the exact
-debias at head dim 128 (Llama-3.1-8B's decode). The forms are counted
-apart: "lsh_fused_decode", with "_int8" for int8 K/V, "_poly" or "_none"
-for those debias forms and "_d128" at head dim 128 (`launch_name`). On the
-H100 it is bound by device memory: every
+polynomial or no debias, at head dim 64 or 128 (Llama-3.1-8B's decode).
+The forms are counted apart: "lsh_fused_decode", with "_int8" for int8
+K/V, "_poly" or "_none" for those debias forms and "_d128" at head dim 128
+(`launch_name`). On the H100 it is bound by device memory: every
 signature word must be read (188 bytes per token and kv head at K=10,
 L=150), but K, V and the key norm only for the tokens some head of the
 group samples, and the kernel reads only those.
@@ -27,7 +26,7 @@ from magicpig_tpu_torch.ops.kernels.collision_words import (
     check_scan_inputs,
     collision_words,
 )
-from magicpig_tpu_torch.ops.kernels.flash_decode import HEAD_DIM
+from magicpig_tpu_torch.ops.kernels.flash_decode import HEAD_DIM, HEAD_DIMS
 from magicpig_tpu_torch.ops.kernels.lsh_masked import (
     check_attend_inputs,
     form_name,
@@ -41,12 +40,6 @@ def launch_name(quant: bool, debias: str, head_dim: int = HEAD_DIM) -> str:
     K/V, then "_poly" or "_none" for those debias forms, "_d128" at head
     dim 128."""
     return form_name("lsh_fused_decode", quant, debias, head_dim)
-
-
-def head_dims(quant: bool, debias: str) -> tuple[int, ...]:
-    """The head dims of the fused kernel's form: 64, and 128 for bf16 K/V
-    with the exact debias."""
-    return (HEAD_DIM, 128) if not quant and debias == "exact" else (HEAD_DIM,)
 
 
 def lsh_fused_decode_plain(q, k_centered, v, k_norm, planes, q_bits, length,
@@ -71,8 +64,8 @@ def lsh_fused_decode(q: torch.Tensor, k_centered: torch.Tensor,
     (any L).
 
     q: [B, Hq, d]; k_centered, v: [B, Hkv, S, d], bf16, or int8 with f32
-    scales k_scale, v_scale [B, Hkv, S] (on the card d = 64, or 128 for bf16
-    with the exact debias); k_norm: [B, Hkv, S] f32 (norms of
+    scales k_scale, v_scale [B, Hkv, S] (d 64 or 128 on the card); k_norm:
+    [B, Hkv, S] f32 (norms of
     the dequantized keys for int8); planes: [B, Hkv, L, K, S/32] int32
     (`ops.bitcodes` flat layout); q_bits: [B, Hq, L, K] int32 0/1; length:
     [B] int32; debias: "exact", "poly" or "none" (`ops/debias.py`).
@@ -86,7 +79,7 @@ def lsh_fused_decode(q: torch.Tensor, k_centered: torch.Tensor,
     quant = k_scale is not None
     name = launch_name(quant, debias, q.shape[-1])
     check_attend_inputs(name, q, k_centered, v, k_norm, length, k_scale,
-                        v_scale, debias, head_dims(quant, debias))
+                        v_scale, debias, HEAD_DIMS)
     check_scan_inputs(name, planes, q_bits, k_centered.shape[1],
                       k_centered.shape[2], K, L)
     return launch_attend(name, "mp_lsh_fused_decode", q, k_centered, v,

@@ -32,11 +32,13 @@ from magicpig_tpu_torch.ops.kernels.flash_decode import (
     device_state,
 )
 
-# Tokens a block of both LSH kernels, by head dim: a power of two from 32 to
-# 2048. `chip_smoke.py` phase 2 times 512, 1024 and 2048 (`PERF.md`): 512
-# is fastest at d = 64, 1024 at d = 128 (a block there takes ~100 KB of
-# shared memory, two a SM, and 1024-token splits make one wave).
-LSH_SPLIT = {64: 512, 128: 1024}
+# Tokens a block of both LSH kernels, by the bytes of a gathered K row (d
+# times the K/V type's size): a power of two from 32 to 2048.
+# `chip_smoke.py` phase 2 times 512, 1024 and 2048 (`PERF.md`): 512 is
+# fastest for rows of 64 and 128 bytes (int8 and bf16 at d = 64, int8 at
+# d = 128), 1024 for bf16 at d = 128 (256-byte rows: a block takes ~100 KB
+# of shared memory, two a SM, and 1024-token splits make one wave).
+LSH_SPLIT = {64: 512, 128: 512, 256: 1024}
 
 
 def form_name(base: str, quant: bool, debias: str,
@@ -74,10 +76,10 @@ def launch_attend(name: str, entry: str, q, k_centered, v, k_scale, v_scale,
                   debias: str, split: int | None = None):
     """Allocate the split partials and outputs, and launch `entry` with
     `selection` (the scan's planes and q_bits, or the words) between the
-    norms and the length, `split` tokens a block (`LSH_SPLIT` of the head
-    dim by default). Returns (out, lse, count)."""
+    norms and the length, `split` tokens a block (`LSH_SPLIT` of the K
+    row's bytes by default). Returns (out, lse, count)."""
     b, hq, d = q.shape
-    split = split or LSH_SPLIT[d]
+    split = split or LSH_SPLIT[d * k_centered.element_size()]
     hkv, s = k_centered.shape[1], k_centered.shape[2]
     nsplit = -(-s // split)
     tickets, _ = device_state(q.device, b * hkv)

@@ -7,7 +7,8 @@ rescore_attend` (pallas_call at rescore_attend.py:217). The ranking pass
 (`block_rank`) stores only block maxes; this kernel scores the selected
 blocks again with the scorer's own per-token function, so the two agree
 bit for bit, and attends over them. K is bf16, int8, or packed int4
-(`ops/pack4.py`, counted apart as "rescore_attend_int4") with int8 V. On the
+(`ops/pack4.py`, counted apart as "rescore_attend_int4") with int8 V, at
+head dim 64 or 128 (counted apart with "_d128"). On the
 H100 it is bound by reading the selected blocks' K and V rows and scales
 once; one CUDA block takes a chunk of `chunk` tokens of one selected block
 of one (request, kv head), and the chunks merge by LSE in the same launch
@@ -31,6 +32,7 @@ from magicpig_tpu_torch.ops.kernels.block_attend import (
 from magicpig_tpu_torch.ops.kernels.block_score import (
     KEY_INT4,
     key_kind,
+    launch_name,
     token_scores,
 )
 
@@ -76,10 +78,11 @@ def launch_rescore_attend(q, blk_ids, k, k_scale, v, v_scale, length,
     """One launch of the kernel at `chunk` tokens a CUDA block (None:
     `chunk_plan`'s choice), inputs checked: the wrapper's, and the card
     tests' and `chip_smoke.py`'s at each chunk."""
-    name = "rescore_attend"
-    _lib.require(q.device.type == "cuda", f"{name}: unsupported device {q.device}")
+    _lib.require(q.device.type == "cuda",
+                 f"rescore_attend: unsupported device {q.device}")
     b, hq, d = q.shape
-    kind = key_kind(name, q, k, k_scale)
+    kind = key_kind("rescore_attend", q, k, k_scale)
+    name = launch_name("rescore_attend", kind == KEY_INT4, d)
     _lib.require(v.dim() == 4 and v.shape[:3] == k.shape[:3]
                  and v.shape[3] == d, f"{name}: v shape {tuple(v.shape)}")
     _lib.require(k.dtype == v.dtype, f"{name}: k and v must share a type")
@@ -90,11 +93,13 @@ def launch_rescore_attend(q, blk_ids, k, k_scale, v, v_scale, length,
     check_selection(name, blk_ids, v, v_scale, hq, block_size)
     hkv, s = k.shape[1], k.shape[2]
     nsel = blk_ids.shape[2]
-    chunk, nch = chunk_plan(block_size, chunk, nsel, hq // hkv)
+    quant = k_scale is not None
+    chunk, nch = chunk_plan(block_size, chunk, nsel, hq // hkv, d,
+                            (k.shape[3] * k.element_size(),
+                             d * v.element_size(), quant, quant))
     part_o, part_lse, tickets, out, lse = merge_buffers(nsel * nch, b, hq,
-                                                        hkv, q.device)
-    _lib.launch(name + ("_int4" if kind == KEY_INT4 else ""),
-                "mp_rescore_attend",
+                                                        hkv, d, q.device)
+    _lib.launch(name, "mp_rescore_attend",
                 q.device, q, blk_ids, k, k_scale, v, v_scale, length, part_o,
                 part_lse, tickets, out, lse, b, s, hq, hkv, d, nsel,
                 block_size, chunk, kind, 1.0 / math.sqrt(d))

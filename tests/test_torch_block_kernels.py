@@ -63,43 +63,49 @@ def _np(x):
 # -- layout converters (JAX fold-major <-> port token order) ------------------
 
 
+def _fold(d):
+    """Tokens a 128-lane row of the JAX kernels holds at head dim d."""
+    return max(128 // d, 1)
+
+
 def _fold_rows(x):
     """[B, Hkv, S, d] -> token-folded [B, Hkv, S/fold, fold*d]."""
     b, h, s, d = x.shape
-    return x.reshape(b, h, s // FOLD, FOLD * d)
+    fold = _fold(d)
+    return x.reshape(b, h, s // fold, fold * d)
 
 
-def _fold_scale(x):
+def _fold_scale(x, fold=FOLD):
     """[B, Hkv, S] -> fold-major [B, Hkv, fold, S/fold]."""
     b, h, s = x.shape
-    return x.reshape(b, h, s // FOLD, FOLD).transpose(0, 1, 3, 2)
+    return x.reshape(b, h, s // fold, fold).transpose(0, 1, 3, 2)
 
 
-def _unfold_scores(x):
+def _unfold_scores(x, fold=FOLD):
     """Fold-major [B, Hkv, G*fold, S/fold] -> token order [B, Hkv, G, S]."""
     b, h, gf, c = x.shape
-    g = gf // FOLD
-    return x.reshape(b, h, FOLD, g, c).transpose(0, 1, 3, 4, 2).reshape(b, h, g, c * FOLD)
+    g = gf // fold
+    return x.reshape(b, h, fold, g, c).transpose(0, 1, 3, 4, 2).reshape(b, h, g, c * fold)
 
 
-def _fold_scores(x):
+def _fold_scores(x, fold=FOLD):
     """Token order [B, Hkv, G, S] -> fold-major [B, Hkv, G*fold, S/fold]."""
     b, h, g, s = x.shape
-    return x.reshape(b, h, g, s // FOLD, FOLD).transpose(0, 1, 4, 2, 3).reshape(
-        b, h, FOLD * g, s // FOLD)
+    return x.reshape(b, h, g, s // fold, fold).transpose(0, 1, 4, 2, 3).reshape(
+        b, h, fold * g, s // fold)
 
 
-def _inputs(seed, lengths=(S, 700), planted=False):
+def _inputs(seed, lengths=(S, 700), planted=False, d=D):
     """bf16 q, K, V and int8 K, V with scales, as numpy (f32 values) and
     torch tensors. `planted`: each block of each kv head gets one key along
     the group's summed query, with a strength that differs from block to
     block by far more than SCORE_TOL, so the block maxes are ordered."""
     rng = np.random.default_rng(seed)
-    q = rng.standard_normal((B, HKV * G, D)).astype(np.float32)
-    k = rng.standard_normal((B, HKV, S, D)).astype(np.float32)
-    v = rng.standard_normal((B, HKV, S, D)).astype(np.float32)
+    q = rng.standard_normal((B, HKV * G, d)).astype(np.float32)
+    k = rng.standard_normal((B, HKV, S, d)).astype(np.float32)
+    v = rng.standard_normal((B, HKV, S, d)).astype(np.float32)
     if planted:
-        qsum = q.reshape(B, HKV, G, D).sum(axis=2)
+        qsum = q.reshape(B, HKV, G, d).sum(axis=2)
         qdir = qsum / np.linalg.norm(qsum, axis=-1, keepdims=True)
         nb = S // BS
         for b in range(B):
@@ -125,13 +131,14 @@ def _j(x):
 def _j_scores(x, quant, rank_only):
     """The Pallas scorer on the port's token-order inputs."""
     k, ks = (x["kq"], x["ks"]) if quant else (x["k"], None)
-    mask = length_mask(_j(x["length"]), S, FOLD)
-    args = (_j(x["q"]), _fold_rows(_j(k)), None if ks is None else _fold_scale(_j(ks)),
-            mask, BS)
+    fold = _fold(x["q"].shape[-1])
+    mask = length_mask(_j(x["length"]), S, fold)
+    args = (_j(x["q"]), _fold_rows(_j(k)),
+            None if ks is None else _fold_scale(_j(ks), fold), mask, BS)
     if rank_only:
         return None, j_block_rank(*args, interpret=True)
     scores, bmax = j_exact_scores_ranked(*args, interpret=True)
-    return _unfold_scores(scores), bmax
+    return _unfold_scores(scores, fold), bmax
 
 
 def _close(got, want, tol):
@@ -164,9 +171,11 @@ def test_quantize_rows_is_bit_exact_with_jax(dtype):
 # -- the block scorer ------------------------------------------------------------
 
 
-@pytest.mark.parametrize("quant", [True, False])
-def test_block_scorer_plain_matches_pallas(quant):
-    x = _inputs(1)
+@pytest.mark.parametrize("quant,d", [
+    pytest.param(True, D, id="True"), pytest.param(False, D, id="False"),
+    pytest.param(True, 128, id="True-d128")])      # Llama-3.1-8B's head dim
+def test_block_scorer_plain_matches_pallas(quant, d):
+    x = _inputs(1, d=d)
     k, ks = (x["kq"], x["ks"]) if quant else (x["k"], None)
     scores, bmax = block_scores_plain(x["q"], k, ks, x["length"], BS)
     j_scores, j_bmax = _j_scores(x, quant, rank_only=False)
@@ -228,33 +237,39 @@ def _selection(x, quant, n_sel):
     return j_ids, _t(np.asarray(j_ids)).to(torch.int32)
 
 
-@pytest.mark.parametrize("n_sel", [3, 8])
-def test_rescore_attend_plain_matches_pallas(n_sel):
+@pytest.mark.parametrize("n_sel,d", [
+    pytest.param(3, D, id="3"), pytest.param(8, D, id="8"),
+    pytest.param(3, 128, id="3-d128")])
+def test_rescore_attend_plain_matches_pallas(n_sel, d):
     """int8 K and V. Request 1 (700 tokens) leaves blocks 6 and 7 empty;
     with 8 blocks selected they are among them."""
-    x = _inputs(4)
+    x = _inputs(4, d=d)
+    fold = _fold(d)
     j_ids, ids = _selection(x, True, n_sel)
     out, lse = rescore_attend(x["q"], ids, x["kq"], x["ks"], x["vq"], x["vs"],
                               x["length"], BS)
     j_out, j_lse = j_rescore_attend(
-        _j(x["q"]), j_ids, _fold_rows(_j(x["kq"])), _fold_scale(_j(x["ks"])),
-        _fold_rows(_j(x["vq"])), _fold_scale(_j(x["vs"])), _j(x["length"]), BS, D,
-        interpret=True)
+        _j(x["q"]), j_ids, _fold_rows(_j(x["kq"])), _fold_scale(_j(x["ks"]), fold),
+        _fold_rows(_j(x["vq"])), _fold_scale(_j(x["vs"]), fold), _j(x["length"]),
+        BS, d, interpret=True)
     _close(out, j_out, INT8_V_TOL)
     _close(lse, j_lse, INT8_V_TOL)
 
 
-@pytest.mark.parametrize("quant", [True, False])
-def test_block_attend_plain_matches_pallas(quant):
-    x = _inputs(5)
+@pytest.mark.parametrize("quant,d", [
+    pytest.param(True, D, id="True"), pytest.param(False, D, id="False"),
+    pytest.param(False, 128, id="False-d128")])    # the store pipeline, bf16
+def test_block_attend_plain_matches_pallas(quant, d):
+    x = _inputs(5, d=d)
+    fold = _fold(d)
     k, ks = (x["kq"], x["ks"]) if quant else (x["k"], None)
     v, vs = (x["vq"], x["vs"]) if quant else (x["v"], None)
     j_ids, ids = _selection(x, quant, 4)
     scores, _ = exact_scores_ranked(x["q"], k, ks, x["length"], BS)
     out, lse = block_attend(scores, ids, v, vs, BS)
     j_out, j_lse = j_block_attend(
-        jnp.asarray(_fold_scores(scores.numpy())), j_ids, _fold_rows(_j(v)),
-        None if vs is None else _fold_scale(_j(vs)), BS, D, interpret=True)
+        jnp.asarray(_fold_scores(scores.numpy(), fold)), j_ids, _fold_rows(_j(v)),
+        None if vs is None else _fold_scale(_j(vs), fold), BS, d, interpret=True)
     tol = INT8_V_TOL if quant else BF16_V_TOL
     _close(out, j_out, tol)
     _close(lse, j_lse, tol)

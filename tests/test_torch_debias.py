@@ -141,10 +141,13 @@ def _t_fused(x, K, L, debias):
                             qb, _t(x["length"]), K, L, x["ks"], x["vs"], debias)
 
 
-@pytest.mark.parametrize("debias", ["poly", "none"])
-@pytest.mark.parametrize("quant", [False, True])
-def test_lsh_debias_plain_matches_pallas_fused(debias, quant):
-    B, HKV, G, S, D, K, L = 2, 2, 4, 256, 64, 6, 20
+@pytest.mark.parametrize("quant,debias,D", [
+    pytest.param(quant, debias, d, id=f"{quant}-{debias}" + (
+        "" if d == 64 else f"-d{d}"))
+    for d in (64, 128)                       # 128: Llama-3.1-8B's head dim
+    for quant in (False, True) for debias in ("poly", "none")])
+def test_lsh_debias_plain_matches_pallas_fused(quant, debias, D):
+    B, HKV, G, S, K, L = 2, 2, 4, 256, 6, 20
     x = _lsh_inputs(3, B, HKV, G, S, D, K, L, quant)
     jo, jl, jc = _j_fused(x, K, L, D, debias)
     before = dict(LAUNCHES)

@@ -287,6 +287,85 @@ def test_engine_d128_avg_sparsity_matches_jax(d128_runs):
                                                     abs=2e-3)
 
 
+# bench.py's quantized modes at head dim 128, on the same tiny model: its lsh
+# mode (W8A8 fused weights, LSH over int8 offload K/V) and its block_topk4
+# mode (W8A8, block_topk over packed int4 K and int8 V, dense int8 layer 0;
+# 16-token blocks, as tests/test_torch_int4.py runs block_topk on the CPU),
+# each also with exact weights. Both engines decode JAX's greedy tokens.
+# Exact weights: every step's logits within 5e-3 of the largest, as
+# tests/test_torch_int8.py holds its int8-offload engines (measured here up
+# to 2.0e-3 for lsh, 3.7e-3 for block_topk4 with its dense int8 layer),
+# tokens and fractions as below. W8A8 (tests/test_torch_int8.py's bounds
+# for it): prefill logits within 5e-2 of the largest and the same first
+# token; W8A8 moves an activation at an int8 rounding boundary by one step,
+# which here flips a SimHash sign or a block's rank now and then, and a
+# decode step's logits then part by up to 0.23 (lsh, one step of seven) or
+# 0.39 (block_topk4, two of seven), so the decode is held by its sampled or
+# realized fraction, to 2e-3.
+W8_LOGIT_TOL = 5e-2
+D128_EXACT_TOL = 5e-3
+D128_MODES = {
+    "lsh": dict(LSH_KW, offload_quant="int8"),
+    "block_topk4": dict(LSH_KW, K=1, L=0, estimator="block_topk",
+                        offload_quant="int4", dense_quant="int8",
+                        block_topk_block_size=16),
+}
+
+
+@pytest.fixture(scope="module", params=[
+    (mode, wq) for mode in sorted(D128_MODES) for wq in ("int8", "none")],
+    ids=lambda p: f"{p[0]}-{'w8a8' if p[1] == 'int8' else 'exact'}")
+def d128_mode_runs(request):
+    """Prefill + 7 decode steps of both engines at head dim 128 in one of
+    `D128_MODES` with W8A8 fused or exact weights, both fed JAX's greedy
+    tokens: (weights, [(logits per call, fraction)] for JAX, the port)."""
+    mode, wq = request.param
+    kw = D128_MODES[mode]
+    jcfg = dataclasses.replace(JCFG128, weight_quant=wq,
+                               fuse_small_linears=wq != "none")
+    tcfg = dataclasses.replace(TCFG128, weight_quant=wq,
+                               fuse_small_linears=wq != "none")
+    jp = jllama.init_params(jcfg, jax.random.key(1), MAX_LEN)
+    tp = params_from_numpy(dataclasses.asdict(
+        jax.tree_util.tree_map(np.asarray, jp)), device="cpu")
+    bank = np.random.default_rng(43).standard_normal(
+        (128, max(kw["K"], 1) * max(kw["L"], 1))).astype(np.float32)
+    jl = JLLM(jcfg, max_length=MAX_LEN, chunk_size=64, params=jp,
+              lsh=JLSHConfig(**kw))
+    jl.projections = jnp.asarray(bank)
+    tl = LLM(tcfg, max_length=MAX_LEN, params=tp, lsh=LSHConfig(**kw),
+             projections=_t(bank), device="cpu")
+    prompt = _prompt(6, 300)
+    jlog, tlog = [np.asarray(jl.prefill(prompt))], [_np(tl.prefill(prompt))]
+    for _ in range(7):
+        tok = int(jlog[-1][0].argmax())
+        jlog.append(np.asarray(jl.inference(np.asarray([tok]))))
+        tlog.append(_np(tl.inference(torch.tensor([tok]))))
+    return wq, (jlog, jl.avg_sparsity), (tlog, tl.avg_sparsity)
+
+
+def _rel(a, b):
+    return float(np.abs(a - b).max() / np.abs(b).max())
+
+
+def test_engine_d128_bench_modes_logits_match_jax(d128_mode_runs):
+    wq, (jlog, _), (tlog, _) = d128_mode_runs
+    if wq == "none":
+        for a, b in zip(tlog, jlog):
+            assert _rel(a, b) < D128_EXACT_TOL
+        assert [int(x[0].argmax()) for x in tlog] == [int(x[0].argmax())
+                                                      for x in jlog]
+    else:
+        assert _rel(tlog[0], jlog[0]) < W8_LOGIT_TOL
+        assert int(tlog[0][0].argmax()) == int(jlog[0][0].argmax())
+
+
+def test_engine_d128_bench_modes_fraction_matches_jax(d128_mode_runs):
+    _, (_, jsp), (_, tsp) = d128_mode_runs
+    assert 0 < tsp < 1
+    assert tsp == pytest.approx(jsp, abs=2e-3)
+
+
 def test_decode_steps_equal_inference_loop(weights, bank):
     _, tl = _engines(weights, bank)
     prompt = _prompt(1, 200)

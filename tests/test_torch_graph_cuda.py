@@ -238,3 +238,35 @@ def test_cuda_graphed_step_equals_eager_llama_8b_width(cuda):
     assert dict(LAUNCHES) == counted
     for step, (g, e) in enumerate(zip(graphed, eager)):
         assert torch.equal(g, e), f"step {step}: max |diff| {(g - e).abs().max()}"
+
+
+def test_cuda_graphed_step_equals_eager_llama_8b_width_block_topk4(cuda):
+    """Two layers at Llama-3.1-8B width under `bench.py`'s block_topk4 mode
+    (W8A8 fused weights; layer 0 dense over int8 K/V, layer 1 block_topk
+    over packed int4 K and int8 V): the d = 128 forms of the int8 decode,
+    the bf16 hot decode, the packed scorer and the packed rescore-attend in
+    the graphed step, which must equal the eager step bit for bit with the
+    same launches counted."""
+    cfg = dataclasses.replace(preset("llama-3.1-8b"), num_hidden_layers=2,
+                              weight_quant="int8", fuse_small_linears=True)
+    lsh = LSHConfig(K=1, L=0, estimator="block_topk", offload_quant="int4",
+                    dense_quant="int8")
+    llm = LLM(cfg, batch_size=2, max_length=2048, lsh=lsh, device=cuda,
+              seed=3)
+    prompts = _prompts(llm)
+    first = _prefill(llm, prompts)
+    reset_launches()
+    inputs, graphed = _run(llm.inference, first, 8)
+    counted = dict(LAUNCHES)
+    assert llm._graph is not None
+    for name in ("flash_decode_int8_d128", "flash_decode_d128",
+                 "block_rank_int4_d128", "rescore_attend_int4_d128"):
+        assert counted[name] == 8, name
+    assert sum(counted.values()) == 32
+    llm.clear()
+    _prefill(llm, prompts)
+    reset_launches()
+    eager = [llm._decode(tokens)[0] for tokens in inputs]
+    assert dict(LAUNCHES) == counted
+    for step, (g, e) in enumerate(zip(graphed, eager)):
+        assert torch.equal(g, e), f"step {step}: max |diff| {(g - e).abs().max()}"

@@ -167,17 +167,20 @@ def test_second_4bit_pass_keeps_the_values():
 # -- the plain packed kernels against the JAX packed kernels ---------------------
 
 
-def _inputs(seed, s=2 * SPAN, lengths=(2 * SPAN - 200, 700), planted=False):
+def _inputs(seed, s=2 * SPAN, lengths=(2 * SPAN - 200, 700), planted=False,
+            d=D):
     """q; K on the 4-bit grid (the port's packed bytes and JAX's packed
-    rows, from the same values); int8 V; lengths. `planted`: one key per
-    block along the group's summed query, with strengths far apart, so the
-    block maxes are ordered."""
+    rows, from the same values); int8 V; lengths; head dim d (JAX folds
+    128 // d tokens a row, one at d = 128). `planted`: one key per block
+    along the group's summed query, with strengths far apart, so the block
+    maxes are ordered."""
     rng = np.random.default_rng(seed)
-    q = rng.standard_normal((B, HKV * G, D)).astype(np.float32)
-    k = rng.standard_normal((B, HKV, s, D)).astype(np.float32)
-    v = rng.standard_normal((B, HKV, s, D)).astype(np.float32)
+    fold = max(128 // d, 1)
+    q = rng.standard_normal((B, HKV * G, d)).astype(np.float32)
+    k = rng.standard_normal((B, HKV, s, d)).astype(np.float32)
+    v = rng.standard_normal((B, HKV, s, d)).astype(np.float32)
     if planted:
-        qsum = q.reshape(B, HKV, G, D).sum(axis=2)
+        qsum = q.reshape(B, HKV, G, d).sum(axis=2)
         qdir = qsum / np.linalg.norm(qsum, axis=-1, keepdims=True)
         for b in range(B):
             for h in range(HKV):
@@ -188,22 +191,23 @@ def _inputs(seed, s=2 * SPAN, lengths=(2 * SPAN - 200, 700), planted=False):
     kq, ks = tquant.quantize_rows(torch.from_numpy(k), 4)
     vq, vs = tquant.quantize_rows(torch.from_numpy(v))
     length = torch.tensor(lengths, dtype=torch.int32)
-    jk = jpack4.pack_rows(jnp.asarray(kq.numpy()).reshape(B, HKV, s // FOLD, 128), FOLD)
+    jk = jpack4.pack_rows(jnp.asarray(kq.numpy()).reshape(B, HKV, s // fold, 128), fold)
     return dict(q=tq, kp=tpack4.pack_k4(kq), kq=kq, ks=ks, vq=vq, vs=vs,
                 length=length, jq=jnp.asarray(tq.float().numpy(), jnp.bfloat16),
-                jk=jk, jks=jpack4.group_scales(jnp.asarray(ks.numpy()), FOLD),
-                jmask=jpack4.group_length_mask(jnp.asarray(lengths, jnp.int32), s, FOLD),
-                jv=jnp.asarray(vq.numpy()).reshape(B, HKV, s // FOLD, 128),
-                jvs=jnp.asarray(vs.numpy()).reshape(B, HKV, s // FOLD, FOLD).transpose(0, 1, 3, 2))
+                jk=jk, jks=jpack4.group_scales(jnp.asarray(ks.numpy()), fold),
+                jmask=jpack4.group_length_mask(jnp.asarray(lengths, jnp.int32), s, fold),
+                jv=jnp.asarray(vq.numpy()).reshape(B, HKV, s // fold, 128),
+                jvs=jnp.asarray(vs.numpy()).reshape(B, HKV, s // fold, fold).transpose(0, 1, 3, 2),
+                fold=fold)
 
 
-def _group_to_tokens(x, s):
+def _group_to_tokens(x, s, fold=FOLD):
     """JAX packed-group scores [B, Hkv, 2*fold*G, s/(2 fold)] -> token order
     [B, Hkv, G, s] (`group_token_index`)."""
-    idx = np.asarray(jpack4.group_token_index(s, FOLD))       # [2 fold, cols]
-    x = np.asarray(x).reshape(B, HKV, 2 * FOLD, G, -1)
+    idx = np.asarray(jpack4.group_token_index(s, fold))       # [2 fold, cols]
+    x = np.asarray(x).reshape(B, HKV, 2 * fold, G, -1)
     out = np.full((B, HKV, G, s), np.nan, np.float32)
-    for g2 in range(2 * FOLD):
+    for g2 in range(2 * fold):
         out[..., idx[g2]] = x[:, :, g2]
     return out
 
@@ -211,13 +215,24 @@ def _group_to_tokens(x, s):
 def test_packed_scorer_plain_matches_pallas():
     """tests/test_pack4.py:67 on the port: scores in token order and block
     maxes, from the packed Pallas scorer (both of its entry points)."""
-    x = _inputs(3)
+    _packed_scorer_case(D)
+
+
+def test_packed_scorer_plain_matches_pallas_d128():
+    """The same at head dim 128 (Llama-3.1-8B's; block_topk4 at 8B width):
+    JAX's packed state at fold 1 against the port's bytes holding channels
+    j and j + 64."""
+    _packed_scorer_case(128)
+
+
+def _packed_scorer_case(d):
+    x = _inputs(3, d=d)
     s = x["kp"].shape[2]
     scores, bmax = block_scores_plain(x["q"], x["kp"], x["ks"], x["length"], SPAN)
     args = (x["jq"], x["jk"], x["jks"], x["jmask"], SPAN)
     j_scores, j_bmax = j_exact_scores_ranked(*args, interpret=True, packed=True)
     j_rank = j_block_rank(*args, interpret=True, packed=True)
-    np.testing.assert_allclose(_np(scores), _group_to_tokens(j_scores, s),
+    np.testing.assert_allclose(_np(scores), _group_to_tokens(j_scores, s, x["fold"]),
                                atol=SCORE_TOL, rtol=SCORE_TOL)
     np.testing.assert_allclose(_np(bmax), np.asarray(j_bmax), atol=SCORE_TOL, rtol=SCORE_TOL)
     np.testing.assert_allclose(_np(bmax), np.asarray(j_rank), atol=SCORE_TOL, rtol=SCORE_TOL)
@@ -238,14 +253,17 @@ def test_packed_top_k_block_ids_equal_jax():
     np.testing.assert_array_equal(ids.numpy(), np.asarray(jax.lax.top_k(j_bmax, 3)[1]))
 
 
-@pytest.mark.parametrize("which", ["rescore", "block"])
-def test_packed_attends_plain_match_pallas(which):
+@pytest.mark.parametrize("which,d", [
+    pytest.param(which, d, id=which + ("" if d == D else f"-d{d}"))
+    for d in (D, 128) for which in ("rescore", "block")])
+def test_packed_attends_plain_match_pallas(which, d):
     """tests/test_pack4.py:114,156 on the port: the rescore pipeline
     (packed K rescored) and the store pipeline (stored token-order scores
     with the unchanged block_attend) against the packed Pallas kernels, on
-    the blocks JAX ranks first; request 1 leaves its last block empty."""
+    the blocks JAX ranks first; request 1 leaves its last block empty; at
+    head dims 64 and 128."""
     s = 4 * SPAN
-    x = _inputs(5, s=s, lengths=(s - 300, SPAN + 100))
+    x = _inputs(5, s=s, lengths=(s - 300, SPAN + 100), d=d)
     j_scores, j_bmax = j_exact_scores_ranked(x["jq"], x["jk"], x["jks"], x["jmask"],
                                              SPAN, interpret=True, packed=True)
     _, j_ids = jax.lax.top_k(j_bmax, 3)
@@ -256,11 +274,11 @@ def test_packed_attends_plain_match_pallas(which):
                                   x["length"], SPAN)
         j_out, j_lse = j_rescore_attend(x["jq"], j_ids, x["jk"], x["jks"], x["jv"],
                                         x["jvs"], jnp.asarray(x["length"].numpy()),
-                                        SPAN, D, interpret=True, packed=True)
+                                        SPAN, d, interpret=True, packed=True)
     else:
         scores, _ = exact_scores_ranked(x["q"], x["kp"], x["ks"], x["length"], SPAN)
         out, lse = block_attend(scores, ids, x["vq"], x["vs"], SPAN)
-        j_out, j_lse = j_block_attend(j_scores, j_ids, x["jv"], x["jvs"], SPAN, D,
+        j_out, j_lse = j_block_attend(j_scores, j_ids, x["jv"], x["jvs"], SPAN, d,
                                       interpret=True, packed=True)
     assert LAUNCHES == before
     np.testing.assert_allclose(_np(out), np.asarray(j_out), atol=INT8_V_TOL, rtol=INT8_V_TOL)

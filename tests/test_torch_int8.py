@@ -122,6 +122,7 @@ def _int8_kv(rng, b, hkv, s, d):
     (3, 2, 4, 256, 64),
     (2, 2, 2, 256, 128),
     (3, 2, 4, 512, 16),
+    (2, 2, 4, 256, 128),     # Llama-3.1-8B's head dim and group size
 ])
 def test_flash_decode_int8_plain_matches_pallas(B, HKV, G, S, D):
     """Request 1 ends mid-block (37 tokens), request 2 is empty."""
@@ -147,6 +148,7 @@ def test_flash_decode_int8_plain_matches_pallas(B, HKV, G, S, D):
     (2, 2, 4, 256, 64, 6, 20),
     (1, 2, 2, 512, 16, 10, 30),
     (2, 2, 4, 256, 64, 10, 150),
+    (2, 2, 4, 256, 128, 6, 20),    # head dim 128, group 4: bench lsh at 8B
 ])
 def test_lsh_int8_plain_matches_pallas_fused(B, HKV, G, S, D, K, L):
     """int8 centered keys and values; norms and signatures of the

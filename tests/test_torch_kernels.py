@@ -315,6 +315,25 @@ def test_attend_chunk_plan(block_size, chunk, nsel, g, want):
     assert (n - 1) * c < block_size <= n * c
 
 
+@pytest.mark.parametrize("nsel,g,rows,want", [
+    (3, 4, (128, 128, True, True), (128, 4)),     # int8 rescore, the serves
+    (11, 4, (128, 128, True, True), (256, 2)),    # 22 partials: one batch
+    (11, 4, (64, 128, True, True), (256, 2)),     # packed int4 K, int8 V
+    (11, 4, (0, 256, False, False), (256, 2)),    # bf16 block-attend
+    (11, 8, (0, 256, False, False), (512, 1)),    # a batch of 15 at G = 8
+    (40, 8, (256, 256, False, False), (256, 2)),  # bf16 rescore: no 512
+])
+def test_attend_chunk_plan_d128(nsel, g, rows, want):
+    """At head dim 128 the merge takes as many partials a batch as at 64
+    (31 at G = 4, 15 at G = 8), and a chunk's rows must fit a CUDA block's
+    227 KB: bf16 K and V of 512 tokens (256 KB) do not, so the plan stops
+    at 256 and an explicit 512 raises."""
+    assert chunk_plan(512, None, nsel, g, 128, rows) == want
+    if rows == (256, 256, False, False):
+        with pytest.raises(ValueError):
+            chunk_plan(512, 512, nsel, g, 128, rows)
+
+
 @pytest.mark.parametrize("chunk", [0, 32, 96, 1024])
 def test_attend_chunk_plan_refuses_other_chunks(chunk):
     with pytest.raises(ValueError):
@@ -366,6 +385,12 @@ def test_w4_split_groups(groups, want, expect):
     (2048, 16384, 2, (8, 4, 4)),        # gate|up: 64 tiles of 256
     (2048, 3072, 2, (8, 16, 1)),
     (8192, 2048, 2, (8, 16, 4)),
+    # Llama-3.1-8B's products at B=2 (bench.py's full_int8 mode with W4):
+    (4096, 6144, 2, (8, 11, 3)),        # q|k|v: 24 tiles of 256
+    (4096, 4096, 2, (8, 16, 2)),        # o
+    (4096, 28672, 2, (8, 3, 11)),       # gate|up: 112 tiles
+    (14336, 4096, 2, (8, 16, 7)),       # down: 112 groups
+    (4096, 128256, 2, (16, 2, 16)),     # the untied lm_head
 ])
 def test_w4_plan(kin, out, m, want):
     """16 columns a lane and the fewest splits where the 512-column tiles

@@ -155,26 +155,13 @@ def test_cuda_flash_decode_int8_matches_plain(cuda):
     assert (o[2] == 0).all() and torch.isneginf(l[2]).all()
 
 
-def _kernel_launches(fn, calls: int = 3, tries: int = 3) -> int:
-    """CUDA kernels that `calls` calls of `fn` launch, by torch.profiler.
-    The profiler now and then drops the kernels of a profiled run, so up to
-    `tries` runs are profiled and the fullest counts (as in
-    `chip_smoke.py`'s `device_ms`); a run that records `calls` kernels or
-    more ends it."""
-    from torch.profiler import ProfilerActivity, profile
-    best = 0
-    for _ in range(tries):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
-        best = max(best, sum(e.count for e in prof.key_averages()
-                             if e.device_type == torch.autograd.DeviceType.CUDA))
-        if best >= calls:
-            break
-    return best
+def _kernel_launches(fn, calls: int = 3) -> int:
+    """CUDA kernels that `calls` calls of `fn` launch: the kernel nodes of a
+    CUDA graph captured from them (`fn` has run once already, so that its
+    kernel attributes are set). Not torch.profiler: it drops kernels late
+    in a long session, and a run of the whole file saw too few in tests
+    that pass alone."""
+    return _graph_kernel_nodes(lambda: [fn() for _ in range(calls)])
 
 
 @pytest.mark.parametrize("sq", [1, 63, 129, 300, 1000])
@@ -218,7 +205,8 @@ def test_cuda_flash_decode_edges(cuda, int8, g, capacity):
     """Ragged and zero lengths around every tile and split edge; cache rows
     past each length hold NaN (bf16) or NaN scales (int8), held to the
     plain version on the tail-zeroed cache. One launch per call, counted
-    by the wrapper and by torch.profiler, and a second call equal to the
+    by the wrapper and by a captured graph's kernel nodes, and a second
+    call equal to the
     first (the merge tickets were reset)."""
     rng = np.random.default_rng(22)
     hkv = 2
@@ -646,11 +634,17 @@ def test_cuda_block_scorer_edges(cuda, kind, g):
     on the tail-zeroed cache. Both masked variants agree on the block max
     bit for bit, and the packed kernel equals the int8 one on the unpacked
     rows; the scores-only form matches on the zeroed cache (bf16, int8)."""
+    _block_scorer_edges(cuda, kind, g, 64)
+
+
+def _block_scorer_edges(cuda, kind, g, d):
+    """`test_cuda_block_scorer_edges` at head dim d; each call counted
+    under its form's name ("_d128" at d = 128)."""
     rng = np.random.default_rng(23)
     hkv, cap, bs = 2, 2048, 512
     lens = [0, 1, 63, 64, 65, 511, 512, 513, cap]
-    q = _bf16(rng, len(lens), g * hkv, 64, device=cuda)
-    k = _bf16(rng, len(lens), hkv, cap, 64, device=cuda)
+    q = _bf16(rng, len(lens), g * hkv, d, device=cuda)
+    k = _bf16(rng, len(lens), hkv, cap, d, device=cuda)
     ks = None
     if kind != "bf16":
         k, ks = quantize_rows(k, bits=4 if kind == "int4" else 8)
@@ -666,8 +660,13 @@ def test_cuda_block_scorer_edges(cuda, kind, g):
     pk = pack_k4 if kind == "int4" else (lambda x: x)
     length = torch.tensor(lens, dtype=torch.int32, device=cuda)
     want_s, want_m = block_scores_plain(q, pk(kz), ksz, length, bs)
+    suffix = ("_int4" if kind == "int4" else "") + ("" if d == 64 else f"_d{d}")
+    before = dict(LAUNCHES)
     got_m = block_rank(q, pk(k), ks, length, bs)
     got_s, got_m2 = exact_scores_ranked(q, pk(k), ks, length, bs)
+    assert LAUNCHES["block_rank" + suffix] == before["block_rank" + suffix] + 1
+    assert (LAUNCHES["exact_scores_ranked" + suffix]
+            == before["exact_scores_ranked" + suffix] + 1)
     atol, rtol, _ = SCORE_TOL
     for got, want in ((got_s, want_s), (got_m, want_m), (got_m2, want_m)):
         assert not torch.isnan(got).any()
@@ -741,7 +740,8 @@ def test_cuda_lsh_masked_attention_edges(cuda, debias, int8, g):
     row and norm is NaN (int8: scales and norms), and the kernel is held to
     the plain version on the same inputs with those rows zeroed; counts
     exact, a head with no sample (0, -inf, 0). One launch per call, counted
-    by the wrapper and by torch.profiler; a second call equal to the first
+    by the wrapper and by a captured graph's kernel nodes; a second call
+    equal to the first
     (the merge tickets were reset); other split sizes give the same counts
     and outputs within the same limits."""
     args, _, _ = _masked_edge_case(cuda, int8, g)
@@ -897,13 +897,22 @@ def test_cuda_attend_chunk_edges(cuda, kind, g):
     stored scores bit for bit, packed int4 equals int8 on the unpacked rows
     bit for bit, a call launches one kernel, and a second call equals the
     first (the merge tickets were reset)."""
+    _attend_chunk_edges(cuda, kind, g, 64, _kernel_launches)
+
+
+def _attend_chunk_edges(cuda, kind, g, d, kernels_of):
+    """`test_cuda_attend_chunk_edges` at head dim d, one kernel a call
+    counted by `kernels_of` (three calls). bf16 K and V rows of a 512-token
+    chunk at d = 128 do not fit a CUDA block: that rescore raises
+    ValueError, and the block-attend at that chunk is held to the plain
+    version alone."""
     rng = np.random.default_rng(25)
     hkv, cap, bs = 2, 2048, 512
     lens = [0, 1, 63, 64, 65, 127, 128, 129, 511, 512, 513, 1337]
     b = len(lens)
-    q = _bf16(rng, b, g * hkv, 64, device=cuda)
-    k = _bf16(rng, b, hkv, cap, 64, device=cuda)
-    v = _bf16(rng, b, hkv, cap, 64, device=cuda)
+    q = _bf16(rng, b, g * hkv, d, device=cuda)
+    k = _bf16(rng, b, hkv, cap, d, device=cuda)
+    v = _bf16(rng, b, hkv, cap, d, device=cuda)
     length = torch.tensor(lens, dtype=torch.int32, device=cuda)
     ks = vs = ks_z = vs_z = None
     if kind != "bf16":
@@ -922,8 +931,15 @@ def test_cuda_attend_chunk_edges(cuda, kind, g):
                                         length, bs)
     scores, _ = exact_scores_ranked(q, pk(k), ks, length, bs)
     assert not torch.isnan(scores).any()
+    args = (q, ids, pk(k), ks, v, vs, length, bs)
     for chunk in (64, 128, 256, 512):
-        args = (q, ids, pk(k), ks, v, vs, length, bs)
+        if kind == "bf16" and d == 128 and chunk == 512:
+            with pytest.raises(ValueError):
+                launch_rescore_attend(*args, chunk)
+            bo, bl = launch_block_attend(scores, ids, v, vs, bs, chunk)
+            _assert_within(bo, want, rms_share=0.015)
+            _assert_within(bl, want_l, atol=1e-4, rtol=1e-5)
+            continue
         o, l = launch_rescore_attend(*args, chunk)
         assert torch.isfinite(o).all() and not torch.isnan(l).any()
         _assert_within(o, want, rms_share=0.015)
@@ -937,8 +953,17 @@ def test_cuda_attend_chunk_edges(cuda, kind, g):
             io, il = launch_rescore_attend(q, ids, k, ks, v, vs, length, bs,
                                            chunk)
             assert torch.equal(io, o) and torch.equal(il, l)
-    assert _kernel_launches(lambda: rescore_attend(*args)) == 3
-    assert _kernel_launches(lambda: block_attend(scores, ids, v, vs, bs)) == 3
+    suffix = "" if d == 64 else f"_d{d}"
+    name = "rescore_attend" + ("_int4" if kind == "int4" else "") + suffix
+    before = dict(LAUNCHES)
+    rescore_attend(*args)
+    block_attend(scores, ids, v, vs, bs)
+    assert LAUNCHES[name] == before[name] + 1
+    assert (LAUNCHES["block_attend" + suffix]
+            == before["block_attend" + suffix] + 1)
+    assert sum(LAUNCHES.values()) == sum(before.values()) + 2
+    assert kernels_of(lambda: rescore_attend(*args)) == 3
+    assert kernels_of(lambda: block_attend(scores, ids, v, vs, bs)) == 3
 
 
 # The int4 products of the 1B's decode step with fused weights (q|k|v, o,
@@ -1075,6 +1100,41 @@ def test_cuda_d128_lsh_fused_matches_plain(cuda, g, K, L):
     kernel a call (the kernel nodes of a captured CUDA graph: the profiler
     drops kernels late in a long session); splits of 32 and 2048 tokens
     give the same counts."""
+    _lsh_fused_d128_case(cuda, g, K, L, False, "exact", planted=True)
+
+
+@pytest.mark.parametrize("form", [(False, "poly"), (False, "none"),
+                                  (True, "exact"), (True, "poly"),
+                                  (True, "none")])
+@pytest.mark.parametrize("g", [1, 2, 4, 8])
+def test_cuda_d128_lsh_fused_forms_match_plain(cuda, g, form):
+    """The fused kernel's other forms at d = 128 (bf16 poly and none; int8
+    K/V with the exact, poly and none debias: `bench.py`'s lsh mode runs
+    int8 exact), K=10, L=150, as the bf16 exact case: every unsampled row's
+    norm and V (bf16) or scales (int8) NaN, counts exact, one kernel a
+    call, splits of 2048 tokens and the default; the poly and none forms
+    move the output away from the exact form's. Random keys, as the d = 64
+    forms
+    test takes: the exact case's planted keys (cosine ~0.96 with their
+    head's query) make the none form coincide with the exact one, and sit
+    where the float32 Horner evaluation of the poly fit (coefficients up to
+    3.2e4) moves by up to 2.2e-3 between neighbouring floats of the cosine,
+    which the kernel and the plain version compute an ulp apart (their
+    dots are summed in another order). At 32-token splits each split
+    rounds its P.V operand against its own max, where the plain version
+    rounds against the head's: a dominant key's bf16 p then moves by up
+    to an ulp, and with ~40 sampled keys a head (2% of 2048) one output
+    value came to 1.08x its limit of 0.015 of the rms (1 of 3072 values,
+    int8 poly, G = 4); the planted bf16 exact case, whose many samples
+    average that out, runs the 32-token split at d = 128 for every form
+    (one template)."""
+    int8, debias = form
+    _lsh_fused_d128_case(cuda, g, 10, 150, int8, debias, planted=False,
+                         splits=(2048,))
+
+
+def _lsh_fused_d128_case(cuda, g, K, L, int8, debias, planted,
+                         splits=(32, 2048)):
     rng = np.random.default_rng(33)
     hkv, S, d = 2, 2048, 128
     lens = [S, 1337, 0]
@@ -1082,46 +1142,117 @@ def test_cuda_d128_lsh_fused_matches_plain(cuda, g, K, L):
     q = _bf16(rng, B, g * hkv, d, device=cuda)
     kc = rng.standard_normal((B, hkv, S, d)).astype(np.float32)
     qg = q.float().cpu().numpy().reshape(B, hkv, g, d)
-    for t in range(0, S, 7):
+    for t in range(0, S, 7) if planted else ():
         kc[:, :, t] = qg[:, :, t % g] + 0.3 * kc[:, :, t]
     k = torch.from_numpy(kc).to(cuda, torch.bfloat16)
     v = _bf16(rng, B, hkv, S, d, device=cuda)
-    kn = k.float().norm(dim=-1)
+    ks = vs = None
+    kd = k.float()
+    if int8:
+        k, ks = quantize_rows(k)
+        v, vs = quantize_rows(v)
+        kd = dequantize_rows(k, ks, torch.float32)
+    kn = kd.norm(dim=-1)
     proj = torch.from_numpy(rng.standard_normal((d, K * L)).astype(np.float32)).to(cuda)
-    planes = torch.stack([tbits.build_planes(k[i].float().transpose(0, 1), proj, K)
+    planes = torch.stack([tbits.build_planes(kd[i].transpose(0, 1), proj, K)
                           for i in range(B)])
     qb = tbits.hash_bits(q, proj, K)
     length = torch.tensor(lens, dtype=torch.int32, device=cuda)
     mask = tbits.sampled_mask(qb, planes, length)
     poisoned, zeroed = _poison_unsampled(
-        (q, k, v, kn, None, length, K, L, None, None), mask)
-    pick = lambda a: (*a[:4], planes, qb, length, K, L)  # noqa: E731
+        (q, k, v, kn, None, length, K, L, ks, vs), mask)
+    pick = lambda a: (*a[:4], planes, qb, length, K, L, a[8], a[9],  # noqa: E731
+                      debias)
+    name = ("lsh_fused_decode" + ("_int8" if int8 else "")
+            + ("" if debias == "exact" else f"_{debias}") + "_d128")
     before = dict(LAUNCHES)
     o, l, c = lsh_fused_decode(*pick(poisoned))
-    assert LAUNCHES["lsh_fused_decode_d128"] == before["lsh_fused_decode_d128"] + 1
+    assert LAUNCHES[name] == before[name] + 1
     assert sum(LAUNCHES.values()) == sum(before.values()) + 1
     po, pl, pc = lsh_fused_decode_plain(*pick(zeroed))
     assert torch.equal(c, pc) and (pc[:2] > 0).all() and (pc[2] == 0).all()
     assert torch.isfinite(o).all()
     _assert_within(o, po, rms_share=0.015)
     _assert_within(l, pl, atol=1e-4, rtol=1e-5)
+    if debias != "exact":
+        exact = lsh_fused_decode(*pick(poisoned)[:-1])[0]
+        assert (exact - o).abs().max() > 1e-3      # the form does something
     assert _graph_kernel_nodes(
         lambda: [lsh_fused_decode(*pick(poisoned)) for _ in range(3)]) == 3
     p = pick(poisoned)
-    for split in (32, 2048):
-        so, sl, sc = launch_attend("lsh_fused_decode_d128", "mp_lsh_fused_decode",
-                                   p[0], p[1], p[2], None, None, p[3],
-                                   (planes, qb), length, K, L, "exact",
-                                   split=split)
+    for split in splits:
+        so, sl, sc = launch_attend(name, "mp_lsh_fused_decode", p[0], p[1],
+                                   p[2], p[9], p[10], p[3], (planes, qb),
+                                   length, K, L, debias, split=split)
         assert torch.equal(sc, pc)
         _assert_within(so, po, rms_share=0.015)
         _assert_within(sl, pl, atol=1e-4, rtol=1e-5)
 
 
+@pytest.mark.parametrize("capacity", [384, 16384])
+@pytest.mark.parametrize("g", [1, 2, 4, 8])
+def test_cuda_d128_flash_decode_int8_edges(cuda, g, capacity):
+    """int8 decode at d = 128 (full_int8's and block_topk4's dense layers):
+    ragged and zero lengths around every tile and split edge, the scales
+    past each length NaN, held to the plain version on the tail-zeroed
+    cache; one kernel a call (a captured graph's kernel nodes), counted as
+    "flash_decode_int8_d128", and a second call equal to the first."""
+    rng = np.random.default_rng(35)
+    hkv, d = 2, 128
+    lens = [min(n, capacity) for n in (0, 1, 63, 64, 65, 511, 512, 513, capacity)]
+    b = len(lens)
+    q = _bf16(rng, b, g * hkv, d, device=cuda)
+    k, ks = quantize_rows(_bf16(rng, b, hkv, capacity, d, device=cuda))
+    v, vs = quantize_rows(_bf16(rng, b, hkv, capacity, d, device=cuda))
+    kz, vz, ksz, vsz = k.clone(), v.clone(), ks.clone(), vs.clone()
+    for i, n in enumerate(lens):
+        for x in (kz, vz, ksz, vsz):
+            x[i, :, n:] = 0
+        ks[i, :, n:] = float("nan")
+        vs[i, :, n:] = float("nan")
+    length = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    before = dict(LAUNCHES)
+    o, l = flash_decode(q, k, v, length, ks, vs)
+    assert (LAUNCHES["flash_decode_int8_d128"]
+            == before["flash_decode_int8_d128"] + 1)
+    assert sum(LAUNCHES.values()) == sum(before.values()) + 1
+    po, pl = tatt.full_decode(q, kz, vz, length, ksz, vsz)
+    assert torch.isfinite(o).all() and not torch.isnan(l).any()
+    _assert_within(o, po, rms_share=0.015)
+    _assert_within(l, pl, atol=1e-4, rtol=1e-5)
+    assert (o[0] == 0).all() and torch.isneginf(l[0]).all()
+    o2, l2 = flash_decode(q, k, v, length, ks, vs)
+    assert torch.equal(o, o2) and torch.equal(l, l2)
+    assert _graph_kernel_nodes(
+        lambda: [flash_decode(q, k, v, length, ks, vs) for _ in range(3)]) == 3
+
+
+@pytest.mark.parametrize("g", [1, 2, 4, 8])
+@pytest.mark.parametrize("kind", ["bf16", "int8", "int4"])
+def test_cuda_d128_block_scorer_edges(cuda, kind, g):
+    """`test_cuda_block_scorer_edges` at d = 128: bf16 (256-byte rows, two
+    ring stages in dynamic shared memory), int8 and packed int4 K (byte j
+    holding channels j and j + 64), each counted under its "_d128" name;
+    packed int4 equals int8 on the unpacked rows bit for bit."""
+    _block_scorer_edges(cuda, kind, g, 128)
+
+
+@pytest.mark.parametrize("g", [1, 2, 4, 8])
+@pytest.mark.parametrize("kind", ["bf16", "int8", "int4"])
+def test_cuda_d128_attend_chunk_edges(cuda, kind, g):
+    """`test_cuda_attend_chunk_edges` at d = 128 (two P.V m-tiles a warp,
+    a merge batch of half the partials): the lengths, ids of -1 and past
+    the last block, NaN past each length, chunks of 64 to 512 tokens, the
+    two pipelines bit for bit, packed int4 equal to int8; one kernel a call
+    by a captured graph's kernel nodes."""
+    _attend_chunk_edges(cuda, kind, g, 128, _kernel_launches)
+
+
 def test_cuda_d128_other_forms_raise(cuda):
-    """At d = 128 only the bf16 prefill, the bf16 decode and the fused
-    kernel's bf16 exact form exist: every other form, and a group size
-    outside 1, 2, 4, 8, raises ValueError before any launch."""
+    """At d = 128 every form of the prefill, the decode, the fused LSH
+    kernel and the block kernels exists; the masked attend from words (the
+    odd-L route) does not yet, and a group size outside 1, 2, 4, 8 has no
+    form at either head dim: each raises ValueError before any launch."""
     rng = np.random.default_rng(34)
     d, S, K, L = 128, 512, 4, 8
     q = _bf16(rng, 1, 8, d, device=cuda)
@@ -1134,19 +1265,16 @@ def test_cuda_d128_other_forms_raise(cuda):
     proj = torch.from_numpy(rng.standard_normal((d, K * L)).astype(np.float32)).to(cuda)
     planes = tbits.build_planes(k[0].float().transpose(0, 1), proj, K)[None]
     qb = tbits.hash_bits(q, proj, K)
+    words = collision_words(qb, planes)
     before = dict(LAUNCHES)
-    with pytest.raises(ValueError):
-        flash_decode(q, kq, vq, length, ks, vs)
-    for debias in ("poly", "none"):
+    for kk, vv, ksc, vsc in ((k, v, None, None), (kq, vq, ks, vs)):
         with pytest.raises(ValueError):
-            lsh_fused_decode(q, k, v, kn, planes, qb, length, K, L,
-                             debias=debias)
-    with pytest.raises(ValueError):
-        lsh_fused_decode(q, kq, vq, kn, planes, qb, length, K, L, ks, vs)
-    with pytest.raises(ValueError):
-        lsh_masked_attention(q, k, v, kn, collision_words(qb, planes), length,
-                             K, L)
+            lsh_masked_attention(q, kk, vv, kn, words, length, K, L, ksc, vsc)
     q3 = _bf16(rng, 1, 6, d, device=cuda)
     with pytest.raises(ValueError):
         flash_decode(q3, k, v, length)
-    assert LAUNCHES == {**before, "collision_words": before["collision_words"] + 1}
+    with pytest.raises(ValueError):
+        flash_decode(q3, kq, vq, length, ks, vs)
+    with pytest.raises(ValueError):
+        block_rank(q3, kq, ks, length, 512)
+    assert LAUNCHES == before
