@@ -16,8 +16,10 @@ Phases, each announced by one flushed progress line with elapsed seconds:
      LSH kernel, and no I2F in the int4 matmul, or it fails; at head dim
      128 too: HGMMA and UTMALDG in the prefill, UBLKCP in the bf16 and int8
      decode, HMMA, UTMALDG and LDGSTS in the fused LSH kernel's bf16 and
-     int8 forms, HMMA and LDGSTS in the scorer, HMMA and UBLKCP in both
-     attends; the disassembly runs beside phase 2 and is checked after it);
+     int8 forms and its group-3 form, HMMA and LDGSTS in the masked attend,
+     HMMA and LDGSTS in the scorer, HMMA and UBLKCP in both attends; TMA in
+     the group-3 scan; the disassembly runs beside phase 2 and is checked
+     after it);
   2. kernels: each hand-written kernel against its plain PyTorch version at
      the shapes of the Llama-3.2-1B decode paths (Hq 32, Hkv 8, d 64;
      prefill 8192 and 12000 tokens, decode at the hot cache (B=2, capacity
@@ -56,9 +58,16 @@ Phases, each announced by one flushed progress line with elapsed seconds:
      six forms (bf16 and int8; exact, poly, none) over the same caches
      (counts exact, splits timed for both exact forms), the block scorer,
      rescore-attend and block-attend at both block shapes (bf16, int8 and
-     packed int4 K; chunks swept), and the int4 matmul on each product of
-     the 8B's decode step (`W4_SHAPES_8B`, K-splits swept), each within
-     `TOL` of its plain version and its planted fault rejected;
+     packed int4 K; chunks swept), the masked attend from words at K=8,
+     L=75 in its six forms (splits swept for both exact forms), and the
+     int4 matmul on each product of the 8B's decode step (`W4_SHAPES_8B`,
+     K-splits swept); then the group-size-3 forms at Llama-3.2-3B's decode
+     shape (Hq 24, Hkv 8, d 128, rows "..._g3") over the same caches: bf16
+     and int8 decode (and bf16 at the hot cache), the fused LSH kernel bf16
+     and int8 exact, the collision scan at K=10, L=150 and K=8, L=75 bit for
+     bit, the masked attend bf16 exact, and the block kernels at both block
+     shapes; each within `TOL` of its plain version and its planted fault
+     rejected;
   3. serve: `LLM("llama-3.2-1b")` at full width and depth with random
      weights drawn on the card; two requests (12000 and 7000 tokens)
      prefilled into slots 0 and 1, 16 greedy decode steps, clear(), a third
@@ -98,9 +107,14 @@ Phases, each announced by one flushed progress line with elapsed seconds:
      dense layers 0 and 16) on the same two prompts, 16 steps, launches of
      the d = 128 forms counted exactly, the graphed run held to the eager
      step, a warm 12000-token prefill and the decode steps profiled; then,
-     on W8A8 and int4 weights quantized from the same bf16 draw, the 8B in
-     bench.py's lsh, block_topk4 and full_int8 (+ W4) modes, each counted
-     (each int4 shape too), held to its eager step and profiled;
+     on the same weights odd L (K=8, L=75: the scan and the d = 128 masked
+     attend); on W8A8 and int4 weights quantized from the same bf16 draw,
+     the 8B in bench.py's lsh, block_topk4 and full_int8 (+ W4) modes, each
+     counted (each int4 shape too), held to its eager step and profiled;
+     then `LLM("llama-3.2-3b")` at full width and depth (28 layers, 24/8
+     heads of 128: group size 3) under LSH K=10, L=150 on the same prompts,
+     counted, held to its eager step, a warm prefill and the decode
+     profiled;
   4. reference: a two-layer cut of the same width at K=1, L=32 (nearly
      every key sampled) on the card against the same engine on the CPU
      (the plain versions); then the same cut under block_topk with bf16
@@ -117,7 +131,13 @@ Phases, each announced by one flushed progress line with elapsed seconds:
      head dim 128 (hidden 1024, 8/2 heads of 128): the store pipeline over
      bf16 and packed int4 K, LSH K=1, L=32 over int8 offload with poly and
      over bf16 with none, each against the CPU, and the bf16 poly and int8
-     none LSH forms and block_topk over int8 K on the card alone.
+     none LSH forms, block_topk over int8 K and the masked attend's other
+     forms at K=8, L=75 on the card alone; then with Llama-3.2-3B's head
+     shape (hidden 768, 6/2 heads of 128, group size 3): odd L (K=1, L=31)
+     over int8 with poly, the sampled mode at K=1, L=32 and the store
+     pipeline over bf16 and packed int4 K against the CPU, and block_topk
+     over int8 K, bench.py's block_topk4, LSH over int8 offload and odd L
+     (K=8, L=75) over bf16 on the card alone.
 Any failure raises. The last two lines are the kernels' JSON and the result
 JSON; the card's name and power limit come just before them.
 """
@@ -288,7 +308,8 @@ def bound_ms(nbytes: float, flops: float):
 
 
 # Kernels whose SASS phase 1 counts (one template instance each: G = 4 for
-# the block and LSH kernels; the LSH template's two kernels told apart by
+# the block and LSH kernels, and G = 3 for the fused LSH kernel at d = 128
+# and the scan; the LSH template's two kernels told apart by
 # its kWords flag in the mangled name, the head dims 64 and 128 by the
 # last template argument, and the bf16 and int8 (`a`) forms at d = 128 of
 # the decode and the fused LSH kernel (its exact form) by their types),
@@ -316,7 +337,12 @@ SASS_KERNELS = {
         "lsh_split_kernel", "Li4E13__nv_bfloat16Li0ELb0ELi128E"),
     "lsh_fused int8 d128 (lsh_split_kernel, scan)": (
         "lsh_split_kernel", "Li4EaLi0ELb0ELi128E"),
+    "lsh_fused g3 d128 (lsh_split_kernel, scan)": (
+        "lsh_split_kernel", "Li3E13__nv_bfloat16Li0ELb0ELi128E"),
+    "lsh_masked d128 (lsh_split_kernel, words)": (
+        "lsh_split_kernel", "Li4E13__nv_bfloat16Li0ELb1ELi128E"),
     "collision_words_kernel": ("collision_words_kernel", "Li4E"),
+    "collision_words_kernel g3": ("collision_words_kernel", "Li3E"),
 }
 SASS_OPS = ("HGMMA", "UTMALDG", "UBLKCP", "HMMA", "LDGSTS", "I2F")
 
@@ -367,10 +393,11 @@ def check_sass(counts) -> None:
     (which converts no integer to float: its nibbles become bf16 by bit
     operations), bulk copies in both attends, cp.async in the scorer, the
     int4 matmul and both LSH kernels, TMA in both collision scans (the
-    fused kernel's and the standalone one); and in both head dims' forms of
-    the prefill warpgroup MMA and TMA, of the decode bulk copies (int8 at d
-    = 128 too), of the fused LSH kernel mma.sync, TMA and cp.async (int8 at
-    d = 128 too), of the scorer mma.sync and cp.async, of both attends
+    fused kernel's and the standalone one, at G = 3 too); and in both head
+    dims' forms of the prefill warpgroup MMA and TMA, of the decode bulk
+    copies (int8 at d = 128 too), of the fused LSH kernel mma.sync, TMA and
+    cp.async (int8 and G = 3 at d = 128 too), of the masked attend mma.sync
+    and cp.async, of the scorer mma.sync and cp.async, of both attends
     mma.sync and bulk copies."""
     if counts.get("w4_matmul_kernel", {}).get("I2F", 1) != 0:
         raise AssertionError("w4_matmul_kernel: I2F in its SASS")
@@ -391,8 +418,11 @@ def check_sass(counts) -> None:
                      *((f"flash_decode_kernel{dim}", "UBLKCP")
                        for dim in ("", " d128", " int8 d128")),
                      *((f"lsh_fused{dim} (lsh_split_kernel, scan)", op)
-                       for dim in ("", " d128", " int8 d128")
+                       for dim in ("", " d128", " int8 d128", " g3 d128")
                        for op in ("HMMA", "UTMALDG", "LDGSTS")),
+                     ("lsh_masked d128 (lsh_split_kernel, words)", "HMMA"),
+                     ("lsh_masked d128 (lsh_split_kernel, words)", "LDGSTS"),
+                     ("collision_words_kernel g3", "UTMALDG"),
                      ("block_score_kernel d128", "HMMA"),
                      ("block_score_kernel d128", "LDGSTS"),
                      *((f"{kernel} d128", op)
@@ -455,7 +485,7 @@ def lsh_split_sweep(torch, name: str, entry: str, args, selection) -> dict:
             raise AssertionError(f"{name}: split {split} changes the counts")
         counts = cnt
         times[split] = round(device_ms(call) * 1e3, 2)
-    log(f"  {name} device us by split tokens: {times}")
+    log(f"  {name} (Hq {q.shape[1]}) device us by split tokens: {times}")
     return times
 
 
@@ -596,8 +626,10 @@ def phase_kernels_d128(torch, F, dev):
     flash_decode at B=2 over 16384 + 11000 tokens (split sizes swept) and
     the bf16 form at the hot cache; the fused LSH kernel, K=10, L=150 over
     the same caches in all six forms (bf16 and int8; exact, poly, none;
-    counts exact; split sizes swept for both exact forms). Each against its
-    plain version within the d = 64 rows' `TOL`, a skipped tile rejected."""
+    counts exact; split sizes swept for both exact forms); the masked
+    attend from words (the odd-L route), K=8, L=75, in its six forms (split
+    sizes swept for both exact forms). Each against its plain version
+    within the d = 64 rows' `TOL`, a skipped tile rejected."""
     from magicpig_tpu_torch.ops import bitcodes
 
     gen = torch.Generator(device=dev)
@@ -633,10 +665,69 @@ def phase_kernels_d128(torch, F, dev):
     results.update(lsh_debias_forms(
         torch, (q, k, v, k_norm, planes, q_bits, length, K, L, None, None),
         nbytes, rows, flops))
+    results.update(two_stage_kernels(torch, F, gen, q, k, v, length, lens,
+                                     planes, q_bits, scans=False,
+                                     sweep=(False, True)))
     del planes, q_bits
     results.update(int8_decode_kernels(torch, q, k, v, length, lens, proj, K, L))
     results.update(hot_decode_kernels(torch, F, rnd, d=d))
     log_timings(results)
+    return results
+
+
+def phase_kernels_g3(torch, F, dev):
+    """Group size 3 at head dim 128, Llama-3.2-3B's decode shape (Hq 24,
+    Hkv 8, d 128) over the 8B rows' caches, rows "<form>_d128_g3" (the
+    collision scan's "collision_words..._g3"): bf16 and int8 flash_decode
+    at B=2 over 16384 + 11000 tokens (splits swept) and the bf16 one at the
+    hot cache; the fused LSH kernel, K=10, L=150, bf16 and int8, exact
+    (counts exact, splits swept); the collision scan at K=10, L=150 (also
+    with the lengths) and K=8, L=75 (bit for bit, planted collisions); the
+    masked attend from words at K=8, L=75, bf16 exact; then the block
+    kernels at both block shapes (`phase_block_kernels`,
+    `serve_attend_kernels`): the scorer over bf16, int8 and packed int4 K,
+    the rescore-attend over int8 and packed int4 K, the block-attend. Each
+    against its plain version within `TOL`, its planted fault rejected. The
+    3B has the 8B's KV heads and head dim: each row reads its G = 4 row's
+    bytes, and only the query heads and the arithmetic differ."""
+    from magicpig_tpu_torch.ops import bitcodes
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1289)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev, dtype=torch.bfloat16)
+
+    hq, hkv, d, K, L, tag = 24, 8, 128, 10, 150, "_g3"
+    b, s = 2, 16384
+    lens = [16384, 11000]
+    q, k, v = rnd(b, hq, d), rnd(b, hkv, s, d), rnd(b, hkv, s, d)
+    length = torch.tensor(lens, dtype=torch.int32, device=dev)
+    results = {"flash_decode_d128" + tag: decode_row(
+        torch, F, q, k, v, length, lens, "flash_decode_d128" + tag)}
+    decode_split_sweep(torch, q, k, v, length)
+    proj = torch.randn((d, K * L), generator=gen, device=dev)
+    k_norm = k.float().norm(dim=-1)
+    planes = torch.stack([bitcodes.build_planes(k[i].transpose(0, 1), proj, K)
+                          for i in range(b)])
+    q_bits = bitcodes.hash_bits(q, proj, K)
+    results["lsh_fused_decode_d128" + tag], _ = lsh_row(
+        torch, (q, k, v, k_norm, planes, q_bits, length, K, L), lens,
+        "lsh_fused_decode_d128" + tag)
+    lsh_split_sweep(torch, "lsh_fused_decode_d128", "mp_lsh_fused_decode",
+                    (q, k, v, k_norm, None, length, K, L, None, None, "exact"),
+                    (planes, q_bits))
+    results.update(two_stage_kernels(torch, F, gen, q, k, v, length, lens,
+                                     planes, q_bits, forms=((False, "exact"),),
+                                     tag=tag, sweep=()))
+    del planes, q_bits
+    results.update(int8_decode_kernels(torch, q, k, v, length, lens, proj, K,
+                                       L, tag=tag, debias_forms=False))
+    results.update(hot_decode_kernels(torch, F, rnd, d=d, hq=hq, tag=tag))
+    log_timings(results)
+    del q, k, v, k_norm
+    results.update(phase_block_kernels(torch, dev, d=d, hq=hq, tag=tag))
+    results.update(serve_attend_kernels(torch, dev, d=d, hq=hq, tag=tag))
     return results
 
 
@@ -696,20 +787,22 @@ def decode_split_sweep(torch, q, k, v, length, k_scale=None,
             name, "mp_flash_decode", q.device, q, k, v, k_scale, v_scale,
             length, part_o, part_lse, tickets, out, lse, b, s, hq, hkv, d,
             chunk, d ** -0.5)) * 1e3, 2)
-    log(f"  {name} device us by split tokens: {times}")
+    log(f"  {name} (Hq {hq}) device us by split tokens: {times}")
     return times
 
 
-def hot_decode_kernels(torch, F, rnd, d: int = 64) -> dict:
+def hot_decode_kernels(torch, F, rnd, d: int = 64, hq: int = 32,
+                       tag: str = "") -> dict:
     """flash_decode as the sparse layers' hot caches call it every step: B=2,
-    capacity 384, lengths 68 and 69, bf16 (SDPA beside it) and, at d = 64,
-    int8 (no library call takes int8 K/V with row scales); each against its
-    plain version, a zeroed first V tile rejected."""
+    capacity 384, lengths 68 and 69, Hq `hq` over 8 kv heads, bf16 (SDPA
+    beside it) and, at d = 64, int8 (no library call takes int8 K/V with
+    row scales); each against its plain version, a zeroed first V tile
+    rejected. Rows "flash_decode_d128{tag}_hot" at d = 128."""
     from magicpig_tpu_torch.ops import attention
     from magicpig_tpu_torch.ops.kernels import flash_decode
     from magicpig_tpu_torch.ops.quant import quantize_rows
 
-    b, hq, hkv, s, lens = 2, 32, 8, 384, [68, 69]
+    b, hkv, s, lens = 2, 8, 384, [68, 69]
     dev = torch.device("cuda")
     q, k, v = rnd(b, hq, d), rnd(b, hkv, s, d), rnd(b, hkv, s, d)
     length = torch.tensor(lens, dtype=torch.int32, device=dev)
@@ -726,7 +819,7 @@ def hot_decode_kernels(torch, F, rnd, d: int = 64) -> dict:
             ("flash_decode_int8_hot", (kq, vq, ks, vs),
              (kq, drop_tile(vq, 2, 0), ks, vs), d + 4, None))
     if d != 64:              # bf16 only: "flash_decode_d128_hot"
-        forms = ((f"flash_decode_d{d}_hot", *forms[0][1:]),)
+        forms = ((f"flash_decode_d{d}{tag}_hot", *forms[0][1:]),)
     for name, args, faulty, row_bytes, library in forms:
         kk, vv, ksc, vsc = args
         got, got_lse = flash_decode(q, kk, vv, length, ksc, vsc)
@@ -835,16 +928,26 @@ def scan_length_kernel(torch, planes, q_bits, length, lens) -> dict:
                                                            length)))
 
 
-def two_stage_kernels(torch, F, gen, q, k, v, length, lens, planes, q_bits):
-    """The two-stage LSH route's kernels on the caches of phase 2: the
-    collision scan at K=10, L=150 (the sampled serve's) and at K=8, L=75
-    (the odd-L serve's); the masked attend from the words at K=8, L=75 in
-    each of its six forms (bf16 and int8 K/V, each with the exact, poly and
-    none debias), counts exact, within `TOL` of its plain version, a skipped
-    V tile rejected, the none form nearer its own plain version than the
-    exact form's; and the odd-L routes on the same inputs, the scan and the
-    masked attend against the fused kernel called directly. The none form's
-    library yardstick is SDPA with the boolean sample mask (bf16 only)."""
+# The masked attend's forms: (int8 K/V, debias).
+MASKED_FORMS = tuple((quant, debias) for quant in (False, True)
+                     for debias in ("exact", "poly", "none"))
+
+
+def two_stage_kernels(torch, F, gen, q, k, v, length, lens, planes, q_bits,
+                      forms=MASKED_FORMS, tag: str = "", scans: bool = True,
+                      sweep=(False,)):
+    """The two-stage LSH route's kernels on the caches of phase 2: with
+    `scans`, the collision scan at K=10, L=150 (the sampled serve's; also
+    with the lengths) and at K=8, L=75 (the odd-L serve's); the masked
+    attend from the words at K=8, L=75 in each of `forms` (bf16 and int8
+    K/V, each with the exact, poly and none debias), counts exact, within
+    `TOL` of its plain version, a skipped V tile rejected, the none form
+    nearer its own plain version than the exact form's, its split sizes
+    swept for the exact forms of the K/V types in `sweep`; and the odd-L
+    routes on the same inputs, the scan and the masked attend against the
+    fused kernel called directly. Rows named by form and head dim, then
+    `tag`. The none form's library yardstick is SDPA with the boolean
+    sample mask (bf16 only)."""
     from magicpig_tpu_torch.ops import bitcodes
     from magicpig_tpu_torch.ops.kernels import (collision_words, lsh_decode,
                                                 lsh_fused_decode,
@@ -856,14 +959,16 @@ def two_stage_kernels(torch, F, gen, q, k, v, length, lens, planes, q_bits):
     b, hq, d = q.shape
     hkv, s = k.shape[1], k.shape[2]
     K, L = 8, 75
-    results = {"collision_words": scan_kernel(torch, planes, q_bits,
-                                              "K=10, L=150"),
-               "collision_words_length": scan_length_kernel(
-                   torch, planes, q_bits, length, lens)}
+    results = {}
+    if scans:
+        results["collision_words" + tag] = scan_kernel(
+            torch, planes, q_bits, f"K=10, L=150, Hq {hq}")
+        results["collision_words_length" + tag] = scan_length_kernel(
+            torch, planes, q_bits, length, lens)
     proj = torch.randn((d, K * L), generator=gen, device=q.device)
     valid_words = sum((n + 31) // 32 for n in lens)
     tol = TOL["lsh_fused_decode"]
-    for quant in (False, True):
+    for quant in sorted({quant for quant, _ in forms}):
         kk, vv, ks, vs, kd = k, v, None, None, k.float()
         if quant:
             kk, ks = quantize_rows(k)
@@ -875,15 +980,17 @@ def two_stage_kernels(torch, F, gen, q, k, v, length, lens, planes, q_bits):
                                 for i in range(b)])
         del kd
         qb = bitcodes.hash_bits(q, proj, K)
-        if not quant:
-            scan75 = scan_kernel(torch, planes75, qb, "K=8, L=75")
+        if scans and not quant:
+            results["collision_words_l75" + tag] = scan_kernel(
+                torch, planes75, qb, f"K=8, L=75, Hq {hq}")
         words = collision_words(qb, planes75, length)
         mask = bitcodes.unpack_words(words, s)                 # [B, Hq, S]
         rows = int(mask.reshape(b, hkv, -1, s).any(dim=2).sum())
         row_bytes = 2 * d * 2 + 4 if not quant else 2 * d + 8 + 4
         exact = None
-        for debias in ("exact", "poly", "none"):
-            name = launch_name(quant, debias)
+        for debias in (debias for fq, debias in forms if fq == quant):
+            form = launch_name(quant, debias, d)      # its launch counter
+            name = form + tag
             args = (q, kk, vv, k_norm, words, length, K, L, ks, vs, debias)
             got, got_lse, got_cnt = lsh_masked_attention(*args)
             want, want_lse, want_cnt = lsh_masked_attention_plain(*args)
@@ -898,7 +1005,7 @@ def two_stage_kernels(torch, F, gen, q, k, v, length, lens, planes, q_bits):
             moved = 0.0
             if debias == "exact":
                 exact = got
-            else:
+            elif exact is not None:
                 # At K=8, L=75 the polynomial lies closer to the exact
                 # weight than the plain version's bf16 rounding, so only
                 # the none form is told apart here; phase 4's poly cut
@@ -928,8 +1035,8 @@ def two_stage_kernels(torch, F, gen, q, k, v, length, lens, planes, q_bits):
                 f"{teeth:.1f}x the limit; counts exact, sampled "
                 f"{results[name]['sampled_frac']:.4f}"
                 + (f"; {moved:.2e} from the exact form" if moved else ""))
-            if debias == "exact" and not quant:
-                lsh_split_sweep(torch, name, "mp_lsh_masked_attention", args,
+            if debias == "exact" and quant in sweep:
+                lsh_split_sweep(torch, form, "mp_lsh_masked_attention", args,
                                 (words,))
         if not quant:
             # The odd-L routes on the same inputs: lsh_decode's two stages
@@ -946,20 +1053,22 @@ def two_stage_kernels(torch, F, gen, q, k, v, length, lens, planes, q_bits):
                      "fused": dict(ms=cuda_ms(lambda: lsh_fused_decode(*args)),
                                    device_ms=device_ms(
                                        lambda: lsh_fused_decode(*args)))}
-            log(f"routes K=8, L=75, bf16 exact: two-stage {route['two-stage']}"
+            log(f"routes K=8, L=75, bf16 exact, Hq {hq}, d {d}: two-stage "
+                f"{route['two-stage']}"
                 f", fused {route['fused']}; outputs "
                 f"{'equal' if same else f'within tol (err {err:.2e})'}")
         del planes75, words, mask
-    log_timings({"collision_words K=8, L=75": scan75})
     return results
 
 
-def int8_decode_kernels(torch, q, k, v, length, lens, proj, K, L):
+def int8_decode_kernels(torch, q, k, v, length, lens, proj, K, L,
+                        tag: str = "", debias_forms: bool = True):
     """The int8 forms of flash decode and the fused LSH decode, on the same
     caches quantized per row (for LSH as centered keys whose norms and
     signatures are those of the dequantized rows, as the fill stores
-    them). No PyTorch call takes int8 K/V with row scales: no library
-    time."""
+    them), rows named with `tag` after the head dim; with `debias_forms`
+    also the poly and none forms of the LSH kernel. No PyTorch call takes
+    int8 K/V with row scales: no library time."""
     from magicpig_tpu_torch.ops import attention, bitcodes
     from magicpig_tpu_torch.ops.kernels import flash_decode, lsh_fused_decode
     from magicpig_tpu_torch.ops.kernels.lsh_fused import lsh_fused_decode_plain
@@ -973,7 +1082,7 @@ def int8_decode_kernels(torch, q, k, v, length, lens, proj, K, L):
     sfx = "" if d == 64 else f"_d{d}"
 
     # -- flash decode over int8 K/V.
-    name = "flash_decode_int8" + sfx
+    name = "flash_decode_int8" + sfx + tag
     got, got_lse = flash_decode(q, kq, vq, length, ks, vs)
     want, want_lse = attention.full_decode(q, kq, vq, length, ks, vs)
     tol = TOL["flash_decode"]
@@ -1001,7 +1110,8 @@ def int8_decode_kernels(torch, q, k, v, length, lens, proj, K, L):
     del kd
     q_bits = bitcodes.hash_bits(q, proj, K)
     args = (q, kq, vq, k_norm, planes, q_bits, length, K, L, ks, vs)
-    name = "lsh_fused_decode_int8" + sfx
+    form = "lsh_fused_decode_int8" + sfx          # its launch counter
+    name = form + tag
     got, got_lse, got_cnt = lsh_fused_decode(*args)
     want, want_lse, want_cnt = lsh_fused_decode_plain(*args)
     if not torch.equal(got_cnt, want_cnt):
@@ -1031,11 +1141,12 @@ def int8_decode_kernels(torch, q, k, v, length, lens, proj, K, L):
         f"{results[name]['sampled_frac']:.4f}, rows read "
         f"{results[name]['rows_frac']:.4f}")
     if d != 64:     # int8 rows at d = 128 take the shared memory of bf16 at 64
-        lsh_split_sweep(torch, name, "mp_lsh_fused_decode",
+        lsh_split_sweep(torch, form, "mp_lsh_fused_decode",
                         (q, kq, vq, k_norm, None, length, K, L, ks, vs,
                          "exact"), (planes, q_bits))
-    results.update(lsh_debias_forms(torch, args, nbytes, rows,
-                                    4 * d * int(want_cnt.sum())))
+    if debias_forms:
+        results.update(lsh_debias_forms(torch, args, nbytes, rows,
+                                        4 * d * int(want_cnt.sum())))
     return results
 
 
@@ -1172,13 +1283,14 @@ def log_timings(results) -> None:
             f"{r['bound'][0] * 1e3:.1f} us ({r['bound'][1]})")
 
 
-def phase_block_kernels(torch, dev, d: int = 64):
+def phase_block_kernels(torch, dev, d: int = 64, hq: int = 32,
+                        tag: str = ""):
     """The block_topk kernels against their plain versions: B=2 over a
     65536-token offload (lengths 65536 and 40000), 512-token blocks, 11
-    selected (the default 8% budget of 128 blocks), Hq 32, Hkv 8, head dim
-    d (rows named "..._d128" at 128); the scorer and the rescore on int8
-    K/V, the store pipeline's scorer and attend on bf16, the packed int4
-    forms; at d = 64 also the scores-only form."""
+    selected (the default 8% budget of 128 blocks), Hq `hq` (32), Hkv 8,
+    head dim d (rows named "..._d128" at 128, then `tag`); the scorer and
+    the rescore on int8 K/V, the store pipeline's scorer and attend on
+    bf16, the packed int4 forms; at d = 64 also the scores-only form."""
     from magicpig_tpu_torch.ops.kernels import (block_attend, block_rank,
                                                 exact_scores_ranked,
                                                 rescore_attend)
@@ -1192,8 +1304,8 @@ def phase_block_kernels(torch, dev, d: int = 64):
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(4321)
-    b, hq, hkv, s, bs, n_sel = 2, 32, 8, 65536, 512, 11
-    sfx = "" if d == 64 else f"_d{d}"
+    b, hkv, s, bs, n_sel = 2, 8, 65536, 512, 11
+    sfx = ("" if d == 64 else f"_d{d}") + tag
     g = hq // hkv
     lens = [65536, 40000]
     q = torch.randn((b, hq, d), generator=gen, device=dev, dtype=torch.bfloat16)
@@ -1261,7 +1373,7 @@ def phase_block_kernels(torch, dev, d: int = 64):
         f"its limit (tol {tol}); a skipped K tile's worst element "
         f"{teeth:.1f}x the limit; top-{n_sel} ids equal")
     del want_s
-    if d == 64:          # no path calls the scores-only form
+    if sfx == "":        # no path calls the scores-only form
         results.update(exact_scores_kernel(torch, q, k, kq, ks, bs, library))
     del library
 
@@ -1476,14 +1588,16 @@ def packed_block_kernels(torch, q, k, vq, vs, length, bs, n_sel, same_top,
     return results
 
 
-def serve_attend_kernels(torch, dev, d: int = 64) -> dict:
+def serve_attend_kernels(torch, dev, d: int = 64, hq: int = 32,
+                         tag: str = "") -> dict:
     """The rescore-attend (int8 K, packed int4 K) and the block-attend (bf16
     V, stored scores) at the block_topk serves' own shape, rows "_serve":
     B=2 over a 16384-token offload holding the phase-3 prompts' offload
     lengths (11932 and 6932), 512-token blocks, the 3 of 32 that each
     scorer ranks first (48 selected blocks of work against the phase-2
-    shape's 176), Hq 32, Hkv 8, head dim d (rows "..._d128_serve" at 128).
-    Each within `TOL` of its plain version, a skipped V tile rejected."""
+    shape's 176), Hq `hq` (32), Hkv 8, head dim d (rows "..._d128_serve" at
+    128, `tag` before "_serve"). Each within `TOL` of its plain version, a
+    skipped V tile rejected."""
     from magicpig_tpu_torch.ops.kernels import (block_attend, block_rank,
                                                 exact_scores_ranked,
                                                 rescore_attend)
@@ -1496,8 +1610,8 @@ def serve_attend_kernels(torch, dev, d: int = 64) -> dict:
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(2468)
-    b, hq, hkv, s, bs, n_sel = 2, 32, 8, 16384, 512, 3
-    sfx = "" if d == 64 else f"_d{d}"
+    b, hkv, s, bs, n_sel = 2, 8, 16384, 512, 3
+    sfx = ("" if d == 64 else f"_d{d}") + tag
     g = hq // hkv
     length = torch.tensor([11932, 6932], dtype=torch.int32, device=dev)
 
@@ -2021,11 +2135,13 @@ def phase_serve_8b(torch, dev):
     weights are drawn once on the card (with the hash projections after
     them, from the generator an `LLM(seed=1)` draws from) and quantized from
     that draw: bf16 weights under LSH K=10, L=150 over bf16 K/V (a warm
-    prefill profiled too); then `bench.py`'s lsh mode (W8A8 fused weights,
+    prefill profiled too), and at odd L, K=8, L=75 (the collision scan and
+    the masked attend at d = 128; its projections drawn by the engine);
+    then `bench.py`'s lsh mode (W8A8 fused weights,
     LSH over int8 offload K/V), its block_topk4 mode (W8A8, packed int4 K
     and int8 V, dense int8 layers; the realized fraction exact) and its
     full_int8 mode with int4 fused weights (K=0, every layer dense over
-    int8 K/V). Returns the four serves' results in that order."""
+    int8 K/V). Returns the five serves' results in that order."""
     from magicpig_tpu_torch.config import LSHConfig, preset
     from magicpig_tpu_torch.models.llama import (fuse_params, init_params,
                                                  quantize_params)
@@ -2071,6 +2187,15 @@ def phase_serve_8b(torch, dev):
         counts(flash_decode_d128="all", lsh_fused_decode_d128="sparse"),
         model=model, params=params, projections=projections,
         prefill_profile=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    odd = serve_counted(
+        torch, dev, prompts, LSHConfig(K=8, L=75), "llama-3.1-8b odd L K=8/L=75",
+        counts(flash_decode_d128="all", collision_words="sparse",
+               lsh_masked_attention_d128="sparse"),
+        model=model, params=params)
+    gc.collect()
+    torch.cuda.empty_cache()
     w8 = fuse_params(quantize_params(params, 8))
     del params
     gc.collect()
@@ -2099,7 +2224,35 @@ def phase_serve_8b(torch, dev):
         torch, dev, prompts, LSHConfig(K=0, L=0, dense_quant="int8"),
         "llama-3.1-8b bench full_int8 (W4, dense int8)", full_int8_expect,
         weight_quant="int4", model=model, params=w4)
-    return bf16, lsh_mode, block_topk4, full_int8
+    return bf16, odd, lsh_mode, block_topk4, full_int8
+
+
+def phase_serve_3b(torch, dev):
+    """`LLM("llama-3.2-3b")` at full width and depth (28 layers, hidden 3072,
+    24/8 heads of 128: group size 3; intermediate 8192, vocab 128256, tied
+    embeddings, dense layers 0 and 16), random bf16 weights drawn on the
+    card by the engine (`seed=1`), on the two prompts of the 1B and 8B
+    serves (12000 and 7000 random tokens, drawn again from their seed),
+    LSH K=10, L=150, exact debias: 16 greedy steps, every launch counted
+    (the G = 3 forms of the d = 128 prefill, decode and fused LSH kernel),
+    the graphed run held to the eager step bit for bit, a warm prefill and
+    the decode steps profiled."""
+    from magicpig_tpu_torch.config import LSHConfig
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    prompts = [torch.randint(1, 128256, (n,), generator=gen, device=dev)
+               for n in (12000, 7000)]
+
+    def expect(llm):
+        n = llm.config.num_hidden_layers
+        n_sparse = sum(1 for kind, _ in llm.groups if kind == "sparse")
+        return dict(flash_prefill_d128=2 * n, flash_decode_d128=16 * n,
+                    lsh_fused_decode_d128=16 * n_sparse)
+
+    return serve_counted(torch, dev, prompts, LSHConfig(K=10, L=150),
+                         "llama-3.2-3b LSH", expect, model="llama-3.2-3b",
+                         prefill_profile=True)
 
 
 def card_vs_cpu(torch, dev, lsh, label: str, n_prompt: int = 1500,
@@ -2312,11 +2465,14 @@ def phase_reference_d128(torch, dev):
     int8 offload with the poly debias and over bf16 with none; on the card
     alone (launches counted, logits finite; phase 2 holds each kernel
     against its plain version), the bf16 poly and int8 none LSH forms at
-    K=10, L=150 and block_topk over int8 K (the rescore pipeline). Returns
-    each form's launches from the run of its path."""
+    K=10, L=150, block_topk over int8 K (the rescore pipeline) and the
+    masked attend's forms at K=8, L=75 that no 8B serve runs (bf16 poly and
+    none, int8 exact, poly and none). Returns each form's launches from the
+    run of its path."""
     import dataclasses
 
     from magicpig_tpu_torch.config import LSHConfig, preset
+    from magicpig_tpu_torch.ops.kernels.lsh_masked import launch_name
 
     cfg = dataclasses.replace(preset("llama-3.1-8b"), hidden_size=1024,
                               num_attention_heads=8, num_key_value_heads=2,
@@ -2371,6 +2527,100 @@ def phase_reference_d128(torch, dev):
                               dense_layers=(0,)),
         "d128 block_topk int8 offload, rescore pipeline", steps, cfg=cfg)
     expect(launches, block_rank_d128=None, rescore_attend_d128=None)
+    for offload, debias in (("none", "poly"), ("none", "none"),
+                            ("int8", "exact"), ("int8", "poly"),
+                            ("int8", "none")):
+        lsh = LSHConfig(K=8, L=75, offload_quant=offload, lsh_debias=debias,
+                        dense_layers=(0,))
+        form = launch_name(offload == "int8", debias, 128)
+        launches = card_counted(torch, dev, lsh, f"d128 LSH K=8/L=75, "
+                                f"{offload} offload, {debias} debias", steps,
+                                cfg=cfg)
+        scan = launches.pop("collision_words")
+        if scan != steps:
+            raise AssertionError(f"collision_words {scan} != {steps}")
+        expect(launches, **{form: None})
+    return counted
+
+
+def phase_reference_g3(torch, dev):
+    """The G = 3 forms on a narrow two-layer config with Llama-3.2-3B's head
+    shape (hidden 768, 6/2 heads of 128, intermediate 2048, vocab 128256;
+    layer 0 dense, layer 1 sparse), 2 steps each: against the CPU twin, odd
+    L (K=1, L=31) over int8 offload with the poly debias (the scan and the
+    int8 masked attend), the sampled mode at K=1, L=32 (the scan), and
+    block_topk on the store pipeline over bf16 and over packed int4 K
+    (every block attended); on the card alone (launches counted, logits
+    finite; phase 2 holds each kernel against its plain version),
+    block_topk over int8 K (the rescore pipeline), `bench.py`'s block_topk4
+    (packed int4 K, int8 V, a dense int8 layer 0: the packed scorer and
+    rescore, the int8 decode), LSH K=10, L=150 over int8 offload (the fused
+    kernel's int8 form) and odd L (K=8, L=75) over bf16 (the masked
+    attend's bf16 exact form). Returns each form's launches from the run of
+    its path."""
+    import dataclasses
+
+    from magicpig_tpu_torch.config import LSHConfig, preset
+
+    cfg = dataclasses.replace(preset("llama-3.2-3b"), hidden_size=768,
+                              num_attention_heads=6, num_key_value_heads=2,
+                              intermediate_size=2048)
+    steps, counted = 2, {}
+
+    def expect(launches, dense="flash_decode_d128", **want):
+        full = dict.fromkeys(launches, 0)
+        full.update(flash_prefill_d128=2, flash_decode_d128=steps)
+        full[dense] += steps
+        full.update({name: steps for name in want})
+        if launches != full:
+            raise AssertionError(f"launches {launches} != path's {full}")
+        counted.update({name: steps for name in want})
+        counted.setdefault(dense, steps)
+
+    for label, lsh, forms, sparse in (
+            ("odd L K=1/L=31, int8 offload, poly debias",
+             LSHConfig(K=1, L=31, offload_quant="int8", lsh_debias="poly",
+                       dense_layers=(0,)),
+             ("collision_words", "lsh_masked_attention_int8_poly_d128"), True),
+            ("sampled K=1/L=32",
+             LSHConfig(K=1, L=32, decode_mode="sampled", dense_layers=(0,)),
+             ("collision_words",), True),
+            ("block_topk bf16, store pipeline",
+             LSHConfig(estimator="block_topk", dense_layers=(0,),
+                       block_topk_budget_frac=1.0),
+             ("exact_scores_ranked_d128", "block_attend_d128"), False),
+            ("block_topk packed int4 K, store pipeline",
+             LSHConfig(estimator="block_topk", dense_layers=(0,),
+                       block_topk_budget_frac=1.0, offload_quant="int4",
+                       block_topk_pipeline="store"),
+             ("exact_scores_ranked_int4_d128", "block_attend_d128"), False)):
+        card, host, launches = card_vs_cpu(torch, dev, lsh, f"g3 {label}",
+                                           1100, steps=steps, cfg=cfg)
+        expect(launches, **dict.fromkeys(forms))
+        if sparse and min(card.avg_sparsity, host.avg_sparsity) < 0.9:
+            raise AssertionError("K=1 should sample nearly every key")
+        if not sparse and card.avg_sparsity != host.avg_sparsity:
+            raise AssertionError("card and CPU realized fractions differ")
+        del card, host
+    for label, lsh, dense, forms in (
+            ("block_topk int8 offload, rescore pipeline",
+             LSHConfig(estimator="block_topk", offload_quant="int8",
+                       dense_layers=(0,)),
+             "flash_decode_d128", ("block_rank_d128", "rescore_attend_d128")),
+            ("bench block_topk4 (packed int4 K, dense int8 layer 0)",
+             LSHConfig(K=1, L=0, estimator="block_topk", offload_quant="int4",
+                       dense_quant="int8", dense_layers=(0,)),
+             "flash_decode_int8_d128",
+             ("block_rank_int4_d128", "rescore_attend_int4_d128")),
+            ("LSH K=10/L=150, int8 offload",
+             LSHConfig(K=10, L=150, offload_quant="int8", dense_layers=(0,)),
+             "flash_decode_d128", ("lsh_fused_decode_int8_d128",)),
+            ("odd L K=8/L=75, bf16",
+             LSHConfig(K=8, L=75, dense_layers=(0,)),
+             "flash_decode_d128",
+             ("collision_words", "lsh_masked_attention_d128"))):
+        expect(card_counted(torch, dev, lsh, f"g3 {label}", steps, cfg=cfg),
+               dense, **dict.fromkeys(forms))
     return counted
 
 
@@ -2451,6 +2701,8 @@ def main() -> int:
         torch.cuda.empty_cache()
         kern.update(phase_w4_kernel(torch, dev, W4_SHAPES_8B))
         torch.cuda.empty_cache()
+        kern.update(phase_kernels_g3(torch, F, dev))
+        torch.cuda.empty_cache()
         sass = sass_counts(dump)
     finally:
         dump[0].kill()
@@ -2474,7 +2726,12 @@ def main() -> int:
     gc.collect()         # the 1B engines (their graphs hold them in cycles)
     torch.cuda.empty_cache()
     log("phase 3 serve llama-3.1-8b")
-    serve_8b, lsh_8b, block_topk4_8b, full_int8_8b = phase_serve_8b(torch, dev)
+    (serve_8b, odd_8b, lsh_8b, block_topk4_8b,
+     full_int8_8b) = phase_serve_8b(torch, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("phase 3 serve llama-3.2-3b")
+    serve_3b = phase_serve_3b(torch, dev)
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -2482,6 +2739,7 @@ def main() -> int:
     store = phase_reference(torch, dev)
     masked_forms = phase_reference_two_stage(torch, dev)
     forms_d128 = phase_reference_d128(torch, dev)
+    forms_g3 = phase_reference_g3(torch, dev)
 
     # Each kernel's launches come from the counted run of the path that
     # uses it: the LSH serve, the block_topk int8 serve (rescore pipeline),
@@ -2551,14 +2809,16 @@ def main() -> int:
     for name in ("block_rank", "exact_scores_ranked", "rescore_attend"):
         sources[name + "_int4"] = sources[name]
     # The head-dim-128 forms: their kernels' sources (the fused LSH
-    # kernel's in lsh_fused_d128.cu and lsh_fused_int8_d128.cu), launches
-    # from the run of the path that uses each: the 8B serves (bf16 LSH;
-    # bench.py's lsh, block_topk4 and full_int8 modes) and phase 4's d =
+    # kernel's in lsh_fused_d128.cu and lsh_fused_int8_d128.cu, the masked
+    # attend's in lsh_masked_d128.cu and lsh_masked_int8_d128.cu), launches
+    # from the run of the path that uses each: the 8B serves (bf16 LSH, odd
+    # L; bench.py's lsh, block_topk4 and full_int8 modes) and phase 4's d =
     # 128 cuts. The 12000-token prefill and the hot cache share their
     # form's.
     for name, run in (("flash_prefill_d128", serve_8b["launches"]),
                       ("flash_decode_d128", serve_8b["launches"]),
                       ("lsh_fused_decode_d128", serve_8b["launches"]),
+                      ("lsh_masked_attention_d128", odd_8b["launches"]),
                       ("lsh_fused_decode_int8_d128", lsh_8b["launches"]),
                       ("flash_decode_int8_d128", full_int8_8b["launches"]),
                       ("block_rank_int4_d128", block_topk4_8b["launches"]),
@@ -2566,9 +2826,13 @@ def main() -> int:
                        block_topk4_8b["launches"]),
                       *((name, forms_d128) for name in forms_d128)):
         base = name[:-len("_d128")]
-        sources[name] = (
-            (sources[base][0].replace(".cu", "_d128.cu"), sources[base][1])
-            if base.startswith("lsh_fused") else sources[base])
+        src = sources[base][0]
+        if base.startswith("lsh_masked"):
+            src = src.replace(".cu", ("_int8" if "_int8" in base else "")
+                              + "_d128.cu")
+        elif base.startswith("lsh_fused"):
+            src = src.replace(".cu", "_d128.cu")
+        sources[name] = (src, sources[base][1])
         launches[name] = run[name]
     # The phase-2 shapes of the serve's own calls: its 12000-token prompt
     # and the hot caches; launches as their kernel's.
@@ -2603,6 +2867,29 @@ def main() -> int:
         sources[name + "_serve"] = sources[name]
         launches[name + "_serve"] = launches[name]
         launches_of[name + "_serve"] = name
+    # The scan at K=8, L=75: the odd-L serve's count (the sampled serve's
+    # is the K=10, L=150 rows').
+    sources["collision_words_l75"] = sources["collision_words"]
+    launches["collision_words_l75"] = odd["launches"]["collision_words"]
+    launches_of["collision_words_l75"] = "collision_words odd L"
+    # Group size 3 at d = 128 (rows "..._g3"): the kernel of the row's d =
+    # 128 form; launches from the 3B serve (the bf16 decode and the fused
+    # LSH kernel) or phase 4's G = 3 cut (every other form, the scan's
+    # rows from its odd-L run). A row's shapes share one count.
+    g3_runs = {**forms_g3,
+               "flash_decode_d128": serve_3b["launches"]["flash_decode_d128"],
+               "lsh_fused_decode_d128":
+                   serve_3b["launches"]["lsh_fused_decode_d128"]}
+    for name in kern:
+        if "_g3" not in name:
+            continue
+        form = name.replace("_g3", "").removesuffix("_serve").removesuffix(
+            "_hot")
+        if form.startswith("collision_words"):
+            form = "collision_words"
+        sources[name] = sources[form]
+        launches[name] = g3_runs[form]
+        launches_of[name] = form + " G=3"
     for shapes, run in ((W4_SHAPES, full_int8), (W4_SHAPES_8B, full_int8_8b)):
         for name, kin, out in shapes:
             sources[name] = sources["w4_matmul"]

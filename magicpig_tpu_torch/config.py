@@ -163,8 +163,8 @@ PRESETS: dict[str, ModelConfig] = {
         rope_scaling=_LLAMA32_SCALING,
         tie_word_embeddings=True,
     ),
-    # Head dim 128: the kernels' d = 128 forms take group sizes 1, 2, 4 and
-    # 8, so on the card the 3B (group 3) raises their ValueError.
+    # Head dim 128 and group size 3 (24 query heads over 8): every decode
+    # kernel has its G = 3 form at d = 128, so the 3B runs on the card.
     "llama-3.2-3b": ModelConfig(
         name="llama-3.2-3b",
         hidden_size=3072,

@@ -243,6 +243,7 @@ int launch(const void* q, const void* k, const void* k_scale,
       block_size, sm_scale, stream);
 }
 
+// Group sizes 1, 2, 4 and 8, and 3 at head dim 128 only.
 template <typename KT, int kD>
 int dispatch(int g, const void* q, const void* k, const void* k_scale,
              const void* length, void* scores, void* block_max, int batch,
@@ -255,6 +256,11 @@ int dispatch(int g, const void* q, const void* k, const void* k_scale,
     case 2: return launch<2, KT, kD>(q, k, k_scale, length, scores,
                                      block_max, batch, s_cap, hkv,
                                      block_size, sm_scale, st);
+    case 3:
+      if constexpr (kD == 128)
+        return launch<3, KT, kD>(q, k, k_scale, length, scores, block_max,
+                                 batch, s_cap, hkv, block_size, sm_scale, st);
+      return static_cast<int>(cudaErrorInvalidValue);
     case 4: return launch<4, KT, kD>(q, k, k_scale, length, scores,
                                      block_max, batch, s_cap, hkv,
                                      block_size, sm_scale, st);
@@ -291,7 +297,8 @@ int dispatch_kind(int k_kind, int g, const void* q, const void* k,
 
 // scores may be null (block max only), or block_max null (scores only,
 // unmasked: length unused); k_kind is a KeyKind, and k_scale is null
-// exactly for bf16 K; head_dim 64 or 128.
+// exactly for bf16 K; head_dim 64 or 128; hq / hkv 1, 2, 4 or 8, or 3 at
+// head dim 128.
 extern "C" int mp_block_score(const void* q, const void* k,
                               const void* k_scale, const void* length,
                               void* scores, void* block_max, int batch,

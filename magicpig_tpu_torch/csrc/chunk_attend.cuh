@@ -72,7 +72,8 @@ constexpr int kMergeBytes = 32 * 1024;  // the merge's batch of partials,
                                         // per 64 dims of a partial
 
 // Partials the merge brings into shared memory at a time (each G rows of
-// kD values and their lse): 31 at G = 4 at both head dims, the batch's
+// kD values and their lse): 31 at G = 4 at both head dims (42 at G = 3,
+// d = 128), the batch's
 // bytes growing with d, so that `chunk_plan` keeps at d = 128 the chunks
 // phase 2 measured fastest (256 tokens at 11 of 128 blocks, not 512).
 template <int G, int kD>
@@ -476,13 +477,14 @@ int launch_chunk_attend(Kernel* kernel, const ChunkArgs& a, unsigned& smem_set,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The sizes every form needs: d = 64 or 128, G in {1, 2, 4, 8},
-// block_size a multiple of 64 dividing s_cap, chunk a multiple of 64 up to
-// 512.
+// The sizes every form needs: d = 64 or 128, G in {1, 2, 4, 8} (or 3 at
+// d = 128), block_size a multiple of 64 dividing s_cap, chunk a multiple
+// of 64 up to 512.
 inline bool chunk_args_ok(const ChunkArgs& a, int hq, int head_dim) {
   const int g = a.hkv > 0 ? hq / a.hkv : 0;
   return (head_dim == 64 || head_dim == 128) && g * a.hkv == hq &&
-         (g == 1 || g == 2 || g == 4 || g == 8) && a.nsel > 0 &&
+         (g == 1 || g == 2 || g == 4 || g == 8 ||
+          (g == 3 && head_dim == 128)) && a.nsel > 0 &&
          a.block_size > 0 && a.block_size % 64 == 0 &&
          a.s_cap % a.block_size == 0 && a.chunk >= 64 &&
          a.chunk <= kMaxChunk && a.chunk % 64 == 0 && a.tickets != nullptr;

@@ -29,8 +29,10 @@
 //    (4-byte cp.async copies by every thread, on the same mbarrier), laid
 //    out by (table, bit, head) and turned in place into flip words
 //    (q_bit - 1) once the stage has landed: a head's match of a plane word
-//    is one LOP3, one vector load gives a bit's flips for four heads, and
-//    no step at block start waits on the query bits.
+//    is one LOP3, one vector load gives a bit's flips for four heads (a
+//    bit's three flips at G = 3 padded to four words, so that the load
+//    stays 16-byte aligned), and no step at block start waits on the query
+//    bits.
 //  - A thread owns two words of a row and a slot of the tables (all K bits
 //    of each, one 8-byte load a bit, the flips' load shared by both words);
 //    a warp reads 32 consecutive words of two or more rows a load, the odd
@@ -57,6 +59,10 @@ constexpr int kScanMaxRows = 256;   // rows of a TMA box
 // words at a time); TMA's rows (nw % 4 == 0) as they come.
 __host__ __device__ inline int scan_row_words(int nw) { return nw < 2 ? 2 : nw; }
 
+// Flip words a (table, bit) takes in a stage: G, padded to 4 at G = 3 so
+// that load_flips reads them with one aligned 16-byte load.
+__host__ __device__ constexpr int scan_flip_words(int G) { return G == 3 ? 4 : G; }
+
 // Bytes of a stage's plane rows (a multiple of 16); its flip words follow.
 __host__ __device__ inline int scan_rows_bytes(int K, int tables, int nw) {
   return (tables * K * scan_row_words(nw) * 4 + 15) / 16 * 16;
@@ -66,7 +72,8 @@ __host__ __device__ inline int scan_rows_bytes(int K, int tables, int nw) {
 // alignment).
 __host__ __device__ inline int scan_stage_bytes(int K, int tables, int nw,
                                                 int G) {
-  return (scan_rows_bytes(K, tables, nw) + tables * K * G * 4 + 127) / 128 * 128;
+  return (scan_rows_bytes(K, tables, nw) + tables * K * scan_flip_words(G) * 4 +
+          127) / 128 * 128;
 }
 
 // Tables a stage for a ring of `ring_bytes`, for a block of `threads`
@@ -78,7 +85,7 @@ __host__ __device__ inline int scan_stage_tables(int K, int L, int nw, int G,
                                                  int threads, int ring_bytes) {
   const int rw = scan_row_words(nw);
   int t = (ring_bytes - kScanStages * (128 + 16)) /
-          (kScanStages * K * (rw + G) * 4);
+          (kScanStages * K * (rw + scan_flip_words(G)) * 4);
   t = t < kScanMaxRows / K ? t : kScanMaxRows / K;
   const int slots = 2 * threads / rw;
   if (t >= slots) t = t / slots * slots;
@@ -134,7 +141,8 @@ __device__ __forceinline__ void scan_issue(const ScanTile& t, uint8_t* ring,
   uint8_t* fl = dst + scan_rows_bytes(t.K, t.tables, t.nw);
   for (int g = 0; g < G; ++g) {
     const int* q = t.q_bits + static_cast<size_t>(g) * t.L * t.K + r0;
-    for (int i = tid; i < rows; i += kThreads) hp::cp_async_4(fl + 4 * (i * G + g), q + i);
+    for (int i = tid; i < rows; i += kThreads)
+      hp::cp_async_4(fl + 4 * (i * scan_flip_words(G) + g), q + i);
   }
   if (scan_by_tma(t)) {
     if (tid == 0) {
@@ -190,6 +198,11 @@ __device__ __forceinline__ void load_flips(const uint32_t* p, uint32_t (&f)[G]) 
     const uint2 v = *reinterpret_cast<const uint2*>(p);
     f[0] = v.x;
     f[1] = v.y;
+  } else if constexpr (G == 3) {   // the padded fourth word unused
+    const uint4 v = *reinterpret_cast<const uint4*>(p);
+    f[0] = v.x;
+    f[1] = v.y;
+    f[2] = v.z;
   } else {
 #pragma unroll
     for (int i = 0; i < G; i += 4) {
@@ -219,7 +232,8 @@ __device__ __forceinline__ void scan_run(const ScanTile& t, uint8_t* ring,
   const int rw = scan_row_words(t.nw), lpr = rw / 2;
   const int pair = tid % lpr, slot = tid / lpr, slots = kThreads / lpr;
   const bool back = slot & 1;
-  const int xstep = back ? -rw : rw, fstep = back ? -G : G;
+  constexpr int FW = scan_flip_words(G);
+  const int xstep = back ? -rw : rw, fstep = back ? -FW : FW;
   const int stage_bytes = scan_stage_bytes(t.K, t.tables, t.nw, G);
   const int rows_bytes = scan_rows_bytes(t.K, t.tables, t.nw);
   const int nst = scan_stages(t);
@@ -232,14 +246,14 @@ __device__ __forceinline__ void scan_run(const ScanTile& t, uint8_t* ring,
     uint32_t* flips = reinterpret_cast<uint32_t*>(stage + rows_bytes);
     const int l0 = i * t.tables, n = min(t.tables, t.L - l0);
     hp::mbar_wait(&bar[slot_i], (i / kScanStages) & 1);
-    for (int e = tid; e < n * t.K * G; e += kThreads) flips[e] -= 1u;   // q_bit - 1
+    for (int e = tid; e < n * t.K * FW; e += kThreads) flips[e] -= 1u;  // q_bit - 1
     __syncthreads();
     const uint32_t* st = reinterpret_cast<const uint32_t*>(stage) + 2 * pair +
                          (back ? (t.K - 1) * rw : 0);
-    const uint32_t* fl = flips + (back ? (t.K - 1) * G : 0);
+    const uint32_t* fl = flips + (back ? (t.K - 1) * FW : 0);
     for (int tt = ((slot - l0) % slots + slots) % slots; tt < n; tt += slots) {
       const uint32_t* xp = st + tt * t.K * rw;
-      const uint32_t* fp = fl + tt * t.K * G;
+      const uint32_t* fp = fl + tt * t.K * FW;
       uint32_t m0[G], m1[G];
 #pragma unroll
       for (int g = 0; g < G; ++g) m0[g] = m1[g] = 0xffffffffu;

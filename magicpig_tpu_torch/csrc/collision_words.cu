@@ -109,7 +109,8 @@ int launch(const void* planes, const void* q_bits, const void* length,
 
 // planes [B, Hkv, L, K, W] int32, q_bits [B, Hq, L, K] int32 0/1, length
 // [B] int32 or null (every word) -> out [B, Hq, W] int32. block_words: words
-// a block, a power of two from 1 to 64.
+// a block, a power of two from 1 to 64. hq / hkv: 1, 2, 3, 4 or 8 (the scan
+// has no head dim).
 extern "C" int mp_collision_words(const void* planes, const void* q_bits,
                                   const void* length, void* out, int batch,
                                   int words, int hq, int hkv, int K, int L,
@@ -124,6 +125,7 @@ extern "C" int mp_collision_words(const void* planes, const void* q_bits,
   switch (hq / hkv) {
     case 1: return launch<1>(planes, q_bits, length, out, batch, words, hkv, K, L, nw, st);
     case 2: return launch<2>(planes, q_bits, length, out, batch, words, hkv, K, L, nw, st);
+    case 3: return launch<3>(planes, q_bits, length, out, batch, words, hkv, K, L, nw, st);
     case 4: return launch<4>(planes, q_bits, length, out, batch, words, hkv, K, L, nw, st);
     case 8: return launch<8>(planes, q_bits, length, out, batch, words, hkv, K, L, nw, st);
     default: return static_cast<int>(cudaErrorInvalidValue);

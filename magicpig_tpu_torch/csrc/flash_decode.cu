@@ -376,7 +376,8 @@ int launch_decode(const void* q, const void* k, const void* v,
 }  // namespace
 
 // k_scale and v_scale null: bf16 K/V; both set: int8 K/V with those
-// per-token scales [B, Hkv, S]. head_dim: 64 or 128.
+// per-token scales [B, Hkv, S]. head_dim: 64 or 128. hq / hkv: 1, 2, 4 or
+// 8, or 3 at head dim 128.
 // `chunk`: tokens per split, a positive multiple of 64.
 extern "C" int mp_flash_decode(const void* q, const void* k, const void* v,
                                const void* k_scale, const void* v_scale,
@@ -406,6 +407,10 @@ extern "C" int mp_flash_decode(const void* q, const void* k, const void* v,
   switch (hq / hkv) {
     MP_DECODE_CASE(1)
     MP_DECODE_CASE(2)
+    case 3:   // Llama-3.2-3B's 24 query heads over 8: head dim 128 only
+      if (head_dim != 128) return static_cast<int>(cudaErrorInvalidValue);
+      return quant ? MP_DECODE_FORM(3, int8_t, 128)
+                   : MP_DECODE_FORM(3, __nv_bfloat16, 128);
     MP_DECODE_CASE(4)
     MP_DECODE_CASE(8)
     default: return static_cast<int>(cudaErrorInvalidValue);

@@ -8,10 +8,13 @@
 // weighted V sum over the sampled rows only, the sampled count, and the
 // merge of the splits.
 //
-// Head dim 64 (every form) or 128 (every form of the scan, the fused
-// kernel: Llama-3.1-8B's decode; the given words stay at 64) are instances
-// of one template; a gathered row is d * 2 bytes of bf16 (d of int8), and
-// P.V gives each of the four warps d / 4 output dims.
+// Head dims 64 and 128 (Llama-3.1-8B's and Llama-3.2-3B's decode), both
+// kernels, are instances of one template; a gathered row is d * 2 bytes of
+// bf16 (d of int8), and P.V gives each of the four warps d / 4 output
+// dims. Group sizes 1, 2, 4 and 8 at both head dims, and 3 (Llama-3.2-3B:
+// 24 query heads over 8) at 128 only: every per-head loop runs to G, the
+// P.V's and the merge's head rows past G are zero or unwritten, and the
+// scan pads a bit's three flip words to four (collide_common.cuh).
 //
 // K/V come bf16, or int8 with per-token f32 scales (the TPU kernels'
 // quant=True form: the raw score is q . K_int8 times the K scale, the
@@ -98,8 +101,8 @@ struct LshArgs {
 };
 
 // kScan: the fused kernel's, whose union also holds the scan's ring (the
-// same 40 KB at both head dims; the rows' 80 KB at d = 128 are the union's
-// size there). kD: the head dim.
+// same 40 KB at both head dims; the rows' 80 KB of bf16 at d = 128 are the
+// union's size there, in both kernels). kD: the head dim.
 template <int G, typename T, bool kScan, int kD>
 struct __align__(128) LshSmem {
   static constexpr int kRowBytes = kD * static_cast<int>(sizeof(T));
@@ -673,39 +676,46 @@ int dispatch_lsh_debias(int debias, const LshArgs& a, cudaStream_t st) {
   }
 }
 
-// Every form of one K/V type and head dim for g = hq / hkv heads a group.
+// Every form of one K/V type and head dim for g = hq / hkv heads a group
+// (3 at head dim 128 only).
 template <typename T, bool kWords, int kD>
 int dispatch_lsh_group(int g, int debias, const LshArgs& a,
                        cudaStream_t st) {
   switch (g) {
     case 1: return dispatch_lsh_debias<1, T, kWords, kD>(debias, a, st);
     case 2: return dispatch_lsh_debias<2, T, kWords, kD>(debias, a, st);
+    case 3:
+      if constexpr (kD == 128)
+        return dispatch_lsh_debias<3, T, kWords, kD>(debias, a, st);
+      return static_cast<int>(cudaErrorInvalidValue);
     case 4: return dispatch_lsh_debias<4, T, kWords, kD>(debias, a, st);
     case 8: return dispatch_lsh_debias<8, T, kWords, kD>(debias, a, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-// The fused kernel's forms (dispatch_lsh_group<T, false, kD>), by K/V type
-// and head dim, each compiled in its own source so that nvcc builds them
-// side by side: lsh_fused.cu (bf16, d = 64), lsh_fused_int8.cu,
-// lsh_fused_d128.cu and lsh_fused_int8_d128.cu.
+// The forms of both kernels (dispatch_lsh_group<T, kWords, kD>), by K/V
+// type and head dim, each compiled in its own source so that nvcc builds
+// them side by side: lsh_fused.cu (bf16, d = 64), lsh_fused_int8.cu,
+// lsh_fused_d128.cu and lsh_fused_int8_d128.cu; lsh_masked.cu (d = 64,
+// bf16 and int8), lsh_masked_d128.cu and lsh_masked_int8_d128.cu.
 int lsh_fused_bf16_d64(int g, int debias, const LshArgs& a, cudaStream_t st);
 int lsh_fused_int8_d64(int g, int debias, const LshArgs& a, cudaStream_t st);
 int lsh_fused_bf16_d128(int g, int debias, const LshArgs& a, cudaStream_t st);
 int lsh_fused_int8_d128(int g, int debias, const LshArgs& a, cudaStream_t st);
+int lsh_masked_bf16_d128(int g, int debias, const LshArgs& a, cudaStream_t st);
+int lsh_masked_int8_d128(int g, int debias, const LshArgs& a, cudaStream_t st);
 
 // Check the sizes, copy the polynomial (a host array of the 21
 // coefficients, low degree first; debias 1 only) into the arguments, and
 // launch the form for hq / hkv heads a group. k_scale and v_scale null:
 // bf16 K/V; both set: int8. debias: 0 exact, 1 poly, 2 none. split: tokens
-// a block, a power of two from 32 to 2048. head_dim: 64, or 128 for the
-// fused kernel (kWords false).
+// a block, a power of two from 32 to 2048. head_dim: 64 or 128.
 template <bool kWords>
 int launch_lsh_decode(LshArgs a, int hq, int head_dim, int debias,
                       const void* poly_coef, void* stream) {
   const bool quant = a.k_scale != nullptr;
-  if ((head_dim != 64 && (head_dim != 128 || kWords)) || a.hkv <= 0 ||
+  if ((head_dim != 64 && head_dim != 128) || a.hkv <= 0 ||
       hq % a.hkv != 0 || a.s_cap % 32 != 0 || a.K < 1 || a.K > kMaxK ||
       a.L < 1 || a.split < 32 || a.split > 32 * kLshMaxWords ||
       (a.split & (a.split - 1)) != 0 || a.tickets == nullptr ||
@@ -719,6 +729,9 @@ int launch_lsh_decode(LshArgs a, int hq, int head_dim, int debias,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int g = hq / a.hkv;
   if constexpr (kWords) {
+    if (head_dim == 128)
+      return quant ? lsh_masked_int8_d128(g, debias, a, st)
+                   : lsh_masked_bf16_d128(g, debias, a, st);
     return quant ? dispatch_lsh_group<int8_t, true, 64>(g, debias, a, st)
                  : dispatch_lsh_group<__nv_bfloat16, true, 64>(g, debias, a,
                                                                 st);

@@ -1,6 +1,7 @@
 // The fused LSH-sampled decode (lsh_fused.cu) at head dim 128 with bf16
 // K/V: the same template (lsh_common.cuh) instantiated for Llama-3.1-8B's
-// decode, the exact, poly and none debias for group sizes 1, 2, 4 and 8.
+// and Llama-3.2-3B's decode, the exact, poly and none debias for group
+// sizes 1, 2, 3, 4 and 8.
 // A source of its own so that nvcc compiles these instances beside the
 // others; mp_lsh_fused_decode (lsh_fused.cu) calls lsh_fused_bf16_d128.
 //

@@ -1,8 +1,9 @@
 // The fused LSH-sampled decode (lsh_fused.cu) at head dim 128 with int8
 // K/V and per-token f32 scales: `bench.py`'s lsh mode at Llama-3.1-8B's
-// shapes, the exact, poly and none debias for group sizes 1, 2, 4 and 8.
-// A source of its own so that nvcc compiles these instances beside the
-// others; mp_lsh_fused_decode (lsh_fused.cu) calls lsh_fused_int8_d128.
+// shapes, the exact, poly and none debias for group sizes 1, 2, 3 (the
+// 3B's 24 query heads over 8), 4 and 8. A source of its own so that nvcc
+// compiles these instances beside the others; mp_lsh_fused_decode
+// (lsh_fused.cu) calls lsh_fused_int8_d128.
 //
 // Replaces, bounds and design: as lsh_fused.cu. An int8 row at d = 128 is
 // 128 bytes, 8 swizzled 16-byte units as a bf16 row at d = 64; the pass's

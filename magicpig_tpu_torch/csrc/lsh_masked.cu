@@ -7,9 +7,11 @@
 // pallas_call at lsh_decode.py:271), the attend of the two-stage fallback
 // of magicpig_tpu/ops/pallas/lsh_decode.py::lsh_fused_decode (odd L), with
 // bf16 K/V or int8 K/V and per-token f32 scales, and the exact, poly and
-// none debias forms. The TPU kernel streams a [B, Hq, S] int8 mask; this
-// one reads the packed words [B, Hq, S/32] int32 the scan wrote (8x fewer
-// bytes: one bit a token and head), so the unpack happens in the kernel.
+// none debias forms, at head dims 64 (this source's instances) and 128
+// (lsh_masked_d128.cu, lsh_masked_int8_d128.cu: Llama-3.1-8B at odd L).
+// The TPU kernel streams a [B, Hq, S] int8 mask; this one reads the packed
+// words [B, Hq, S/32] int32 the scan wrote (8x fewer bytes: one bit a
+// token and head), so the unpack happens in the kernel.
 //
 // Bound on the H100: device memory: the words (4 bytes per 32 tokens and
 // query head) and the K/V/norm rows some head of the group sampled. The

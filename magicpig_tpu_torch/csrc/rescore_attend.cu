@@ -40,6 +40,9 @@ int dispatch(int g, const mp::ChunkArgs& a, cudaStream_t st) {
   switch (g) {
     case 1: return launch<1, KT, VT, kD>(a, st);
     case 2: return launch<2, KT, VT, kD>(a, st);
+    case 3:   // head dim 128 only (chunk_args_ok)
+      if constexpr (kD == 128) return launch<3, KT, VT, kD>(a, st);
+      return static_cast<int>(cudaErrorInvalidValue);
     case 4: return launch<4, KT, VT, kD>(a, st);
     case 8: return launch<8, KT, VT, kD>(a, st);
     default: return static_cast<int>(cudaErrorInvalidValue);

@@ -35,8 +35,9 @@ NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v", "-lineinfo")
 
 # The forms of each kernel at head dim 64; those of every kernel but the
-# two-stage LSH pair (collision_words, lsh_masked_attention) and the int4
-# matmul are counted apart at head dim 128 too, as "<form>_d128".
+# collision scan and the int4 matmul (which have no head dim) are counted
+# apart at head dim 128 too, as "<form>_d128". The group size is not in
+# the name.
 _D64_FORMS = (
     "flash_prefill",
     "flash_decode",
@@ -55,16 +56,16 @@ _D64_FORMS = (
     "rescore_attend",
     "rescore_attend_int4",
     "block_attend",
+    "lsh_masked_attention",
+    "lsh_masked_attention_int8",
+    "lsh_masked_attention_poly",
+    "lsh_masked_attention_none",
+    "lsh_masked_attention_int8_poly",
+    "lsh_masked_attention_int8_none",
 )
 LAUNCHES: dict[str, int] = {
     **{name + dim: 0 for name in _D64_FORMS for dim in ("", "_d128")},
     "collision_words": 0,
-    "lsh_masked_attention": 0,
-    "lsh_masked_attention_int8": 0,
-    "lsh_masked_attention_poly": 0,
-    "lsh_masked_attention_none": 0,
-    "lsh_masked_attention_int8_poly": 0,
-    "lsh_masked_attention_int8_none": 0,
     "w4_matmul": 0,
 }
 # The int4 matmul's launches by weight shape ("{kin}x{out}"): each product
@@ -214,9 +215,26 @@ def launch(name: str, entry: str, device: torch.device, *args) -> None:
     LAUNCHES[name] += 1
 
 
+# Query heads a kv head that every kernel form takes, and those taken at
+# head dim 128 only (Llama-3.2-3B: 24 query heads over 8). The other group
+# sizes, and 3 at head dim 64, raise before any launch.
+GROUPS = (1, 2, 4, 8)
+GROUPS_D128 = (3,)
+
+
 def require(cond: bool, msg: str) -> None:
     if not cond:
         raise ValueError(msg)
+
+
+def check_group(name: str, hq: int, hkv: int, head_dim: int | None) -> None:
+    """hq / hkv is a group size the kernel's forms take at `head_dim`
+    (None: a kernel with no head dim, the collision scan, takes them
+    all)."""
+    g = hq // hkv if hkv > 0 and hq % hkv == 0 else 0
+    groups = GROUPS + (GROUPS_D128 if head_dim in (None, 128) else ())
+    require(g in groups, f"{name}: group size {hq}/{hkv} unsupported at "
+            f"head_dim {head_dim}")
 
 
 def require_cuda(name: str, *tensors: torch.Tensor) -> None:

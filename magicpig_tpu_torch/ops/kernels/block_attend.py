@@ -79,8 +79,7 @@ def check_selection(name: str, blk_ids: torch.Tensor, v: torch.Tensor,
                               and v_scale.shape == (b, hkv, s)),
                  f"{name}: v_scale must be f32 [B, Hkv, S]")
     _lib.require(d in HEAD_DIMS, f"{name}: head_dim {d} not in {HEAD_DIMS}")
-    _lib.require(hq % hkv == 0 and hq // hkv in (1, 2, 4, 8),
-                 f"{name}: group size {hq}/{hkv} unsupported")
+    _lib.check_group(name, hq, hkv, d)
     _lib.require(block_size > 0 and block_size % 64 == 0 and s > 0
                  and s % block_size == 0,
                  f"{name}: block size {block_size} unsupported for S={s}")

@@ -123,8 +123,7 @@ def _launch(name: str, q, k, k_scale, length, block_size: int,
                       *([k_scale] if kind else []))
     _lib.require(q.dtype == torch.bfloat16, f"{name}: q must be bfloat16")
     _lib.require(d in HEAD_DIMS, f"{name}: head_dim {d} not in {HEAD_DIMS}")
-    _lib.require(hq % hkv == 0 and hq // hkv in (1, 2, 4, 8),
-                 f"{name}: group size {hq}/{hkv} unsupported")
+    _lib.check_group(name, hq, hkv, d)
     _lib.require(block_size > 0 and block_size % 64 == 0 and s > 0
                  and s % block_size == 0,
                  f"{name}: block size {block_size} must be a multiple of 64 "

@@ -37,8 +37,7 @@ def check_scan_inputs(name: str, planes: torch.Tensor, q_bits: torch.Tensor,
                  f"{name}: planes must be int32 [B, Hkv, L, K, S/32]")
     _lib.require(q_bits.dtype == torch.int32 and q_bits.shape == (b, hq, L, K),
                  f"{name}: q_bits must be int32 [B, Hq, L, K]")
-    _lib.require(hq % hkv == 0 and hq // hkv in (1, 2, 4, 8),
-                 f"{name}: group size {hq}/{hkv} unsupported")
+    _lib.check_group(name, hq, hkv, None)
     _lib.require(1 <= K <= MAX_K and L >= 1,
                  f"{name}: K={K}, L={L} unsupported")
 

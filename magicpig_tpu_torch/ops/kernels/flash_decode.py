@@ -3,9 +3,9 @@
 
 Replaces the TPU kernel `magicpig_tpu/ops/pallas/decode.py::flash_decode`
 (pallas_call at decode.py:184): bf16 K/V, or int8 K/V with per-token f32
-scales, at head dim 64 or 128, counted apart as "flash_decode",
-"flash_decode_int8", "flash_decode_d128" and "flash_decode_int8_d128"
-(`launch_name`). On the H100 it is bound by
+scales, at head dim 64 or 128 (group size 3 at 128 only), counted apart as
+"flash_decode", "flash_decode_int8", "flash_decode_d128" and
+"flash_decode_int8_d128" (`launch_name`). On the H100 it is bound by
 reading K and V once; the kernel streams K/V tiles with bulk copies, splits
 the sequence so that a small batch fills the card (`split_tokens`), and
 merges the splits by LSE in the same launch; see the source for the design.
@@ -78,7 +78,8 @@ def check_decode_inputs(name: str, q: torch.Tensor, k: torch.Tensor,
                         head_dims: tuple[int, ...] = (HEAD_DIM,)) -> None:
     """Shape and type checks shared by the split-sequence decode kernels:
     bf16 q; bf16 k, v, or int8 k, v with f32 scales [B, Hkv, S]; a head dim
-    the caller's form takes (`head_dims`)."""
+    the caller's form takes (`head_dims`) and a group size the kernels take
+    there (`_lib.check_group`)."""
     _lib.require(q.device.type == "cuda", f"{name}: unsupported device {q.device}")
     _lib.require_cuda(name, q, k, v, length)
     b, hq, d = q.shape
@@ -100,8 +101,7 @@ def check_decode_inputs(name: str, q: torch.Tensor, k: torch.Tensor,
     _lib.require(k.dim() == 4 and k.shape == v.shape
                  and k.shape[0] == b and k.shape[3] == d,
                  f"{name}: k/v shape {tuple(k.shape)}")
-    _lib.require(hq % hkv == 0 and hq // hkv in (1, 2, 4, 8),
-                 f"{name}: group size {hq}/{hkv} unsupported")
+    _lib.check_group(name, hq, hkv, d)
     _lib.require(length.dtype == torch.int32 and length.shape == (b,),
                  f"{name}: length must be int32 [B]")
 

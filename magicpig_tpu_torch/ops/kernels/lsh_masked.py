@@ -7,9 +7,10 @@ Replaces the TPU kernel `magicpig_tpu/ops/pallas/lsh_decode.py::
 lsh_masked_attention` (pallas_call at lsh_decode.py:271), the attend of the
 two-stage route that `lsh_fused.lsh_decode` takes for odd L: bf16 K/V, or
 int8 K/V with per-token f32 scales, each with the exact, poly or no
-debias, counted as "lsh_masked_attention", "_int8" for int8 K/V, then
-"_poly" or "_none". The TPU kernel reads a [B, Hq, S] int8 mask; this one
-reads the packed collision words [B, Hq, S/32] int32 that stage 1 writes
+debias, at head dim 64 or 128, counted as "lsh_masked_attention", "_int8"
+for int8 K/V, then "_poly" or "_none", then "_d128" at head dim 128. The
+TPU kernel reads a [B, Hq, S] int8 mask; this one reads the packed
+collision words [B, Hq, S/32] int32 that stage 1 writes
 (`collision_words.py`), 8x fewer bytes. On the H100 it is bound by device
 memory: the words, and K, V and the key norm of the rows some head of the
 group sampled, which alone it gathers; the splits merge in the same launch
@@ -28,6 +29,7 @@ from magicpig_tpu_torch.ops.debias import DEBIAS_FORMS, log_weight_poly
 from magicpig_tpu_torch.ops.kernels import _lib
 from magicpig_tpu_torch.ops.kernels.flash_decode import (
     HEAD_DIM,
+    HEAD_DIMS,
     check_decode_inputs,
     device_state,
 )
@@ -51,8 +53,8 @@ def form_name(base: str, quant: bool, debias: str,
             + ("" if head_dim == HEAD_DIM else f"_d{head_dim}"))
 
 
-def launch_name(quant: bool, debias: str) -> str:
-    return form_name("lsh_masked_attention", quant, debias)
+def launch_name(quant: bool, debias: str, head_dim: int = HEAD_DIM) -> str:
+    return form_name("lsh_masked_attention", quant, debias, head_dim)
 
 
 def check_attend_inputs(name: str, q, k_centered, v, k_norm, length,
@@ -128,7 +130,8 @@ def lsh_masked_attention(q: torch.Tensor, k_centered: torch.Tensor,
     q: [B, Hq, d]; k_centered, v: [B, Hkv, S, d], bf16, or int8 with f32
     scales k_scale, v_scale [B, Hkv, S]; k_norm: [B, Hkv, S] f32; words:
     [B, Hq, S/32] int32, bit j of word w set iff token 32w + j is sampled
-    for that head (bits at or past `length` are ignored); length: [B] int32;
+    for that head (bits at or past `length` are ignored); d 64 or 128 on
+    the card; length: [B] int32;
     debias: "exact", "poly" or "none" (`ops/debias.py`). Returns (out
     [B, Hq, d] f32, lse [B, Hq] f32, sampled count [B, Hq] f32). CPU tensors
     take the plain version.
@@ -137,9 +140,9 @@ def lsh_masked_attention(q: torch.Tensor, k_centered: torch.Tensor,
         return lsh_masked_attention_plain(q, k_centered, v, k_norm, words,
                                           length, K, L, k_scale, v_scale,
                                           debias)
-    name = launch_name(k_scale is not None, debias)
+    name = launch_name(k_scale is not None, debias, q.shape[-1])
     check_attend_inputs(name, q, k_centered, v, k_norm, length, k_scale,
-                        v_scale, debias)
+                        v_scale, debias, HEAD_DIMS)
     b, hq = q.shape[:2]
     s = k_centered.shape[2]
     _lib.require_cuda(name, q, words)

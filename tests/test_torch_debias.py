@@ -34,13 +34,14 @@ from magicpig_tpu.config import preset as jpreset
 from magicpig_tpu.ops import attention as jatt
 from magicpig_tpu.ops import bitcodes as jbits
 from magicpig_tpu.ops import debias as jdebias
+from magicpig_tpu.ops.pallas.lsh_decode import lsh_fused_decode as j_route
 from magicpig_tpu.ops.pallas.lsh_fused import lsh_fused_attention2
 from magicpig_tpu.runtime import server as jserver
 from magicpig_tpu.runtime import state as jstate
 from magicpig_tpu_torch.config import LSHConfig, preset
 from magicpig_tpu_torch.ops import bitcodes as tbits
 from magicpig_tpu_torch.ops import debias as tdebias
-from magicpig_tpu_torch.ops.kernels import LAUNCHES, lsh_fused_decode
+from magicpig_tpu_torch.ops.kernels import LAUNCHES, lsh_decode, lsh_fused_decode
 from magicpig_tpu_torch.ops.quant import dequantize_rows, quantize_rows
 from magicpig_tpu_torch.runtime import server as tserver
 from magicpig_tpu_torch.runtime import state as tstate
@@ -114,7 +115,9 @@ def _lsh_inputs(seed, B, HKV, G, S, D, K, L, quant):
 
 
 def _j_fused(x, K, L, D, debias):
-    """The Pallas kernel (interpret mode) on the same inputs."""
+    """The Pallas kernel (interpret mode) on the same inputs; at odd L
+    JAX's own route, `lsh_decode.py::lsh_fused_decode`: the scan, then the
+    Pallas masked attend."""
     fold = max(128 // D, 1)
     blk = jbits.plane_block(x["kd"].shape[2], fold)
     planes = jax.vmap(lambda kb: jbits.build_planes_blocked(
@@ -124,7 +127,7 @@ def _j_fused(x, K, L, D, debias):
     quant = x["ks"] is not None
     as_j = (lambda t: jnp.asarray(_np(t)) if quant
             else jnp.asarray(t.float().numpy(), jnp.bfloat16))
-    return lsh_fused_attention2(
+    return (lsh_fused_attention2 if L % 2 == 0 else j_route)(
         jnp.asarray(x["q"]), as_j(x["k"]), as_j(x["v"]),
         jnp.asarray(x["knorm"]), planes, qb, jnp.asarray(x["length"]), K, L,
         interpret=True,
@@ -134,20 +137,26 @@ def _j_fused(x, K, L, D, debias):
 
 
 def _t_fused(x, K, L, debias):
+    """The port's fused kernel on the same inputs; at odd L its route,
+    `lsh_decode`: the collision words, then the masked attend."""
     planes = torch.stack([tbits.build_planes(_t(kd).transpose(0, 1),
                                              _t(x["proj"]), K) for kd in x["kd"]])
     qb = tbits.hash_bits(_t(x["q"]), _t(x["proj"]), K)
-    return lsh_fused_decode(_t(x["q"]), x["k"], x["v"], _t(x["knorm"]), planes,
-                            qb, _t(x["length"]), K, L, x["ks"], x["vs"], debias)
+    return (lsh_fused_decode if L % 2 == 0 else lsh_decode)(
+        _t(x["q"]), x["k"], x["v"], _t(x["knorm"]), planes, qb,
+        _t(x["length"]), K, L, x["ks"], x["vs"], debias)
 
 
-@pytest.mark.parametrize("quant,debias,D", [
-    pytest.param(quant, debias, d, id=f"{quant}-{debias}" + (
+@pytest.mark.parametrize("quant,debias,D,L", [
+    *(pytest.param(quant, debias, d, 20, id=f"{quant}-{debias}" + (
         "" if d == 64 else f"-d{d}"))
-    for d in (64, 128)                       # 128: Llama-3.1-8B's head dim
-    for quant in (False, True) for debias in ("poly", "none")])
-def test_lsh_debias_plain_matches_pallas_fused(quant, debias, D):
-    B, HKV, G, S, K, L = 2, 2, 4, 256, 6, 20
+      for d in (64, 128)                     # 128: Llama-3.1-8B's head dim
+      for quant in (False, True) for debias in ("poly", "none")),
+    # Odd L at d = 128: both packages' two-stage routes, each debias form.
+    *(pytest.param(quant, debias, 128, 21, id=f"{quant}-{debias}-d128-odd-l")
+      for quant in (False, True) for debias in ("exact", "poly", "none"))])
+def test_lsh_debias_plain_matches_pallas_fused(quant, debias, D, L):
+    B, HKV, G, S, K = 2, 2, 4, 256, 6
     x = _lsh_inputs(3, B, HKV, G, S, D, K, L, quant)
     jo, jl, jc = _j_fused(x, K, L, D, debias)
     before = dict(LAUNCHES)

@@ -302,6 +302,17 @@ def test_engine_d128_avg_sparsity_matches_jax(d128_runs):
 # decode step's logits then part by up to 0.23 (lsh, one step of seven) or
 # 0.39 (block_topk4, two of seven), so the decode is held by its sampled or
 # realized fraction, to 2e-3.
+# Group size 3 at head dim 128 (Llama-3.2-3B's head shape, 6/2 heads of 128
+# on the tiny model) with exact weights, every decode path of the 3B's
+# kernels: LSH masked at even L (the fused kernel's path), the sampled
+# mode, odd L (the scan and the masked attend), block_topk over int8 K (the
+# rescore pipeline) and bench.py's block_topk4; held as the exact-weight
+# modes above. JAX runs block_topk here through its Pallas kernels in
+# interpret mode (`use_pallas="on"`), whose arithmetic the port's follows
+# (q / sqrt(d) rounded to bf16 before the dot; tests/test_torch_block_topk.py):
+# against its XLA oracle, which scores with q unrounded, two blocks a few
+# f32 ulps apart swap rank at one step of the seven and that step's logits
+# part by 0.12-0.14 of the largest.
 W8_LOGIT_TOL = 5e-2
 D128_EXACT_TOL = 5e-3
 D128_MODES = {
@@ -310,28 +321,42 @@ D128_MODES = {
                         offload_quant="int4", dense_quant="int8",
                         block_topk_block_size=16),
 }
+G3_MODES = {
+    "lsh": dict(LSH_KW),
+    "sampled": dict(LSH_KW, decode_mode="sampled"),
+    "odd_l": dict(LSH_KW, K=8, L=75),
+    "block_topk": dict(LSH_KW, K=1, L=0, estimator="block_topk",
+                       offload_quant="int8", block_topk_block_size=16),
+    "block_topk4": D128_MODES["block_topk4"],
+}
 
 
 @pytest.fixture(scope="module", params=[
-    (mode, wq) for mode in sorted(D128_MODES) for wq in ("int8", "none")],
-    ids=lambda p: f"{p[0]}-{'w8a8' if p[1] == 'int8' else 'exact'}")
+    *((mode, wq, 4) for mode in sorted(D128_MODES) for wq in ("int8", "none")),
+    *((mode, "none", 3) for mode in sorted(G3_MODES))],
+    ids=lambda p: ("g3-" if p[2] == 3 else "")
+    + f"{p[0]}-{'w8a8' if p[1] == 'int8' else 'exact'}")
 def d128_mode_runs(request):
     """Prefill + 7 decode steps of both engines at head dim 128 in one of
-    `D128_MODES` with W8A8 fused or exact weights, both fed JAX's greedy
+    `D128_MODES` with W8A8 fused or exact weights (group size 4), or of
+    `G3_MODES` with exact weights (group size 3), both fed JAX's greedy
     tokens: (weights, [(logits per call, fraction)] for JAX, the port)."""
-    mode, wq = request.param
-    kw = D128_MODES[mode]
+    mode, wq, group = request.param
+    kw = (D128_MODES if group == 4 else G3_MODES)[mode]
+    heads = {} if group == 4 else dict(num_attention_heads=6,
+                                       num_key_value_heads=2)
     jcfg = dataclasses.replace(JCFG128, weight_quant=wq,
-                               fuse_small_linears=wq != "none")
+                               fuse_small_linears=wq != "none", **heads)
     tcfg = dataclasses.replace(TCFG128, weight_quant=wq,
-                               fuse_small_linears=wq != "none")
+                               fuse_small_linears=wq != "none", **heads)
     jp = jllama.init_params(jcfg, jax.random.key(1), MAX_LEN)
     tp = params_from_numpy(dataclasses.asdict(
         jax.tree_util.tree_map(np.asarray, jp)), device="cpu")
     bank = np.random.default_rng(43).standard_normal(
         (128, max(kw["K"], 1) * max(kw["L"], 1))).astype(np.float32)
+    pallas = group == 3 and kw.get("estimator") == "block_topk"
     jl = JLLM(jcfg, max_length=MAX_LEN, chunk_size=64, params=jp,
-              lsh=JLSHConfig(**kw))
+              lsh=JLSHConfig(**kw, use_pallas="on" if pallas else "auto"))
     jl.projections = jnp.asarray(bank)
     tl = LLM(tcfg, max_length=MAX_LEN, params=tp, lsh=LSHConfig(**kw),
              projections=_t(bank), device="cpu")

@@ -240,6 +240,38 @@ def test_cuda_graphed_step_equals_eager_llama_8b_width(cuda):
         assert torch.equal(g, e), f"step {step}: max |diff| {(g - e).abs().max()}"
 
 
+@pytest.mark.parametrize("lsh,forms", [
+    (LSHConfig(), ("lsh_fused_decode_d128",)),
+    (LSHConfig(K=8, L=75), ("collision_words", "lsh_masked_attention_d128"))],
+    ids=["lsh", "odd_l"])
+def test_cuda_graphed_step_equals_eager_llama_3b_width(cuda, lsh, forms):
+    """Two layers at Llama-3.2-3B width (hidden 3072, 24/8 heads of 128:
+    group size 3; tied embeddings; layer 0 dense, layer 1 sparse) under LSH
+    K=10, L=150 (the fused kernel) and at odd L, K=8, L=75 (the scan and
+    the masked attend): the G = 3 forms in the graphed step, which must
+    equal the eager step bit for bit with the same launches counted."""
+    cfg = dataclasses.replace(preset("llama-3.2-3b"), num_hidden_layers=2)
+    llm = LLM(cfg, batch_size=2, max_length=2048, lsh=lsh, device=cuda,
+              seed=3)
+    prompts = _prompts(llm)
+    first = _prefill(llm, prompts)
+    reset_launches()
+    inputs, graphed = _run(llm.inference, first, 8)
+    counted = dict(LAUNCHES)
+    assert llm._graph is not None
+    assert counted["flash_decode_d128"] == 16
+    for name in forms:
+        assert counted[name] == 8, name
+    assert sum(counted.values()) == 16 + 8 * len(forms)
+    llm.clear()
+    _prefill(llm, prompts)
+    reset_launches()
+    eager = [llm._decode(tokens)[0] for tokens in inputs]
+    assert dict(LAUNCHES) == counted
+    for step, (g, e) in enumerate(zip(graphed, eager)):
+        assert torch.equal(g, e), f"step {step}: max |diff| {(g - e).abs().max()}"
+
+
 def test_cuda_graphed_step_equals_eager_llama_8b_width_block_topk4(cuda):
     """Two layers at Llama-3.1-8B width under `bench.py`'s block_topk4 mode
     (W8A8 fused weights; layer 0 dense over int8 K/V, layer 1 block_topk

@@ -322,10 +322,15 @@ def test_attend_chunk_plan(block_size, chunk, nsel, g, want):
     (11, 4, (0, 256, False, False), (256, 2)),    # bf16 block-attend
     (11, 8, (0, 256, False, False), (512, 1)),    # a batch of 15 at G = 8
     (40, 8, (256, 256, False, False), (256, 2)),  # bf16 rescore: no 512
+    (3, 3, (128, 128, True, True), (128, 4)),     # the 3B's serves, G = 3
+    (11, 3, (64, 128, True, True), (256, 2)),     # 44 partials: over 42
+    (21, 3, (0, 256, False, False), (256, 2)),    # 42: one batch exactly
+    (22, 3, (0, 256, False, False), (512, 1)),    # 44 at 256: 512 fits
 ])
 def test_attend_chunk_plan_d128(nsel, g, rows, want):
     """At head dim 128 the merge takes as many partials a batch as at 64
-    (31 at G = 4, 15 at G = 8), and a chunk's rows must fit a CUDA block's
+    (31 at G = 4, 15 at G = 8; 42 at G = 3, the 3B's group, which has no
+    d = 64 form), and a chunk's rows must fit a CUDA block's
     227 KB: bf16 K and V of 512 tokens (256 KB) do not, so the plan stops
     at 256 and an explicit 512 raises."""
     assert chunk_plan(512, None, nsel, g, 128, rows) == want

@@ -82,6 +82,9 @@ from magicpig_tpu_torch.runtime.engine import graph_kernel_nodes
 
 SCORE_TOL = (1e-5, 1e-5, 0.0)
 W4_TOL = (0.0, 0.0, 1e-5)
+# The group sizes of the d = 128 forms (3: Llama-3.2-3B's 24 query heads
+# over 8) and of the collision scan, which has no head dim.
+G128 = [1, 2, 3, 4, 8]
 
 
 @pytest.fixture
@@ -508,7 +511,7 @@ def _poison_past_length(planes, qb, length):
 
 
 @pytest.mark.parametrize("W", [77, 100])
-@pytest.mark.parametrize("g", [1, 2, 4, 8])
+@pytest.mark.parametrize("g", G128)
 def test_cuda_collision_words_lengths_and_poison(cuda, g, W):
     """K 1, 10, 16 by L 1, 2, 3, 75, 150; lengths 0, 1, 31, 32, 33, a mid
     value and the full capacity. W = 77 takes cp.async for every tile (TMA
@@ -681,24 +684,25 @@ def _block_scorer_edges(cuda, kind, g, d):
                        atol=atol, rtol=rtol)
 
 
-def _masked_edge_case(cuda, int8, g, seed=24):
-    """B=6 over 2048 tokens, G heads a kv head (Hkv 2), K=8, L=75: lengths
-    not multiples of 32, one (33) ending before the second split and one 0;
-    request 0 samples from its collision words with head 1 sampling none,
-    request 2 every key (more rows than a pass holds), request 3 none."""
+def _masked_edge_case(cuda, int8, g, seed=24, d=64):
+    """B=6 over 2048 tokens, G heads a kv head (Hkv 2), head dim d, K=8,
+    L=75: lengths not multiples of 32, one (33) ending before the second
+    split and one 0; request 0 samples from its collision words with head 1
+    sampling none, request 2 every key (more rows than a pass holds),
+    request 3 none."""
     rng = np.random.default_rng(seed)
     B, S, HKV, K, L = 6, 2048, 2, 8, 75
     lens = [2048, 1337, 1000, 33, 0, 513]
-    q = _bf16(rng, B, g * HKV, 64, device=cuda)
-    k = _bf16(rng, B, HKV, S, 64, device=cuda)
-    v = _bf16(rng, B, HKV, S, 64, device=cuda)
+    q = _bf16(rng, B, g * HKV, d, device=cuda)
+    k = _bf16(rng, B, HKV, S, d, device=cuda)
+    v = _bf16(rng, B, HKV, S, d, device=cuda)
     ks = vs = None
     kd = k.float()
     if int8:
         k, ks = quantize_rows(k)
         v, vs = quantize_rows(v)
         kd = dequantize_rows(k, ks, torch.float32)
-    proj = torch.from_numpy(rng.standard_normal((64, K * L)).astype(np.float32)).to(cuda)
+    proj = torch.from_numpy(rng.standard_normal((d, K * L)).astype(np.float32)).to(cuda)
     planes = torch.stack([tbits.build_planes(kd[i].transpose(0, 1), proj, K)
                           for i in range(B)])
     qb = tbits.hash_bits(q, proj, K)
@@ -744,14 +748,21 @@ def test_cuda_lsh_masked_attention_edges(cuda, debias, int8, g):
     equal to the first
     (the merge tickets were reset); other split sizes give the same counts
     and outputs within the same limits."""
-    args, _, _ = _masked_edge_case(cuda, int8, g)
+    _masked_edges(cuda, debias, int8, g, 64, _kernel_launches)
+
+
+def _masked_edges(cuda, debias, int8, g, d, kernels_of,
+                  splits=(32, 1024, 2048)):
+    """`test_cuda_lsh_masked_attention_edges` at head dim d, one kernel a
+    call counted by `kernels_of` (three calls), at each of `splits`."""
+    args, _, _ = _masked_edge_case(cuda, int8, g, d=d)
     args = (*args, debias)
     q, k, v, kn, words, length, K, L, ks, vs, _ = args
     s = k.shape[2]
     mask = tbits.unpack_words(words & tbits.valid_words(length, s // 32)[:, None], s)
     poisoned, zeroed = _poison_unsampled(args[:-1], mask)
     poisoned, zeroed = (*poisoned, debias), (*zeroed, debias)
-    name = masked_launch_name(int8, debias)
+    name = masked_launch_name(int8, debias, d)
     before = dict(LAUNCHES)
     o, l, c = lsh_masked_attention(*poisoned)
     assert LAUNCHES[name] == before[name] + 1
@@ -767,8 +778,8 @@ def test_cuda_lsh_masked_attention_edges(cuda, debias, int8, g):
     assert (pc[2] == float(min(int(length[2]), s))).all()
     o2, l2, c2 = lsh_masked_attention(*poisoned)
     assert torch.equal(o, o2) and torch.equal(l, l2) and torch.equal(c, c2)
-    assert _kernel_launches(lambda: lsh_masked_attention(*poisoned)) == 3
-    for split in (32, 1024, 2048):
+    assert kernels_of(lambda: lsh_masked_attention(*poisoned)) == 3
+    for split in splits:
         so, sl, sc = launch_attend(name, "mp_lsh_masked_attention", q,
                                    poisoned[1], poisoned[2], poisoned[8],
                                    poisoned[9], poisoned[3], (words,), length,
@@ -1018,7 +1029,7 @@ def test_cuda_w4_matmul_one_kernel_a_call(cuda, kin, out):
 
 
 @pytest.mark.parametrize("sq", [1, 129, 1000])
-@pytest.mark.parametrize("g", [1, 2, 4, 8])
+@pytest.mark.parametrize("g", G128)
 def test_cuda_d128_flash_prefill_edges(cuda, g, sq):
     """The prefill edges at d = 128 (two column halves a tile): a q_offset,
     length < Skv, a window, the LSE; cache rows past each length NaN, held
@@ -1053,7 +1064,7 @@ def test_cuda_d128_flash_prefill_edges(cuda, g, sq):
 
 
 @pytest.mark.parametrize("capacity", [384, 16384])
-@pytest.mark.parametrize("g", [1, 2, 4, 8])
+@pytest.mark.parametrize("g", G128)
 def test_cuda_d128_flash_decode_edges(cuda, g, capacity):
     """bf16 decode at d = 128: ragged and zero lengths around every tile
     and split edge, rows past each length NaN, held to the plain version on
@@ -1090,7 +1101,7 @@ def test_cuda_d128_flash_decode_edges(cuda, g, capacity):
 
 
 @pytest.mark.parametrize("K,L", [(10, 150), (1, 32)])
-@pytest.mark.parametrize("g", [1, 2, 4, 8])
+@pytest.mark.parametrize("g", G128)
 def test_cuda_d128_lsh_fused_matches_plain(cuda, g, K, L):
     """The fused kernel's bf16 exact form at d = 128 over 2048 tokens at
     lengths 2048, 1337 and 0, keys planted near each head's query; at K=1,
@@ -1106,7 +1117,7 @@ def test_cuda_d128_lsh_fused_matches_plain(cuda, g, K, L):
 @pytest.mark.parametrize("form", [(False, "poly"), (False, "none"),
                                   (True, "exact"), (True, "poly"),
                                   (True, "none")])
-@pytest.mark.parametrize("g", [1, 2, 4, 8])
+@pytest.mark.parametrize("g", G128)
 def test_cuda_d128_lsh_fused_forms_match_plain(cuda, g, form):
     """The fused kernel's other forms at d = 128 (bf16 poly and none; int8
     K/V with the exact, poly and none debias: `bench.py`'s lsh mode runs
@@ -1190,7 +1201,7 @@ def _lsh_fused_d128_case(cuda, g, K, L, int8, debias, planted,
 
 
 @pytest.mark.parametrize("capacity", [384, 16384])
-@pytest.mark.parametrize("g", [1, 2, 4, 8])
+@pytest.mark.parametrize("g", G128)
 def test_cuda_d128_flash_decode_int8_edges(cuda, g, capacity):
     """int8 decode at d = 128 (full_int8's and block_topk4's dense layers):
     ragged and zero lengths around every tile and split edge, the scales
@@ -1227,7 +1238,7 @@ def test_cuda_d128_flash_decode_int8_edges(cuda, g, capacity):
         lambda: [flash_decode(q, k, v, length, ks, vs) for _ in range(3)]) == 3
 
 
-@pytest.mark.parametrize("g", [1, 2, 4, 8])
+@pytest.mark.parametrize("g", G128)
 @pytest.mark.parametrize("kind", ["bf16", "int8", "int4"])
 def test_cuda_d128_block_scorer_edges(cuda, kind, g):
     """`test_cuda_block_scorer_edges` at d = 128: bf16 (256-byte rows, two
@@ -1237,7 +1248,7 @@ def test_cuda_d128_block_scorer_edges(cuda, kind, g):
     _block_scorer_edges(cuda, kind, g, 128)
 
 
-@pytest.mark.parametrize("g", [1, 2, 4, 8])
+@pytest.mark.parametrize("g", G128)
 @pytest.mark.parametrize("kind", ["bf16", "int8", "int4"])
 def test_cuda_d128_attend_chunk_edges(cuda, kind, g):
     """`test_cuda_attend_chunk_edges` at d = 128 (two P.V m-tiles a warp,
@@ -1248,33 +1259,75 @@ def test_cuda_d128_attend_chunk_edges(cuda, kind, g):
     _attend_chunk_edges(cuda, kind, g, 128, _kernel_launches)
 
 
+@pytest.mark.parametrize("g", G128)
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("debias", ["exact", "poly", "none"])
+def test_cuda_d128_lsh_masked_attention_edges(cuda, debias, int8, g):
+    """`test_cuda_lsh_masked_attention_edges` at d = 128 (the odd-L route of
+    Llama-3.1-8B and Llama-3.2-3B), each of the six forms, counted as
+    "lsh_masked_attention[_int8][_poly|_none]_d128": every unsampled row
+    and norm NaN, counts exact, empty heads (0, -inf, 0), one kernel a call
+    (a captured graph's kernel nodes), a second call equal to the first,
+    splits of 32 (bf16), 1024 and 2048 tokens besides the default. int8 at
+    32-token splits: each split rounds its P.V operand, p times the V
+    scale, against its own max where the plain version rounds against the
+    head's (the fused kernel's d = 128 forms test states the same), and
+    the outputs came to 1.09-1.57x the limit of 0.015 of the rms on 1 to
+    8 of their 1536-12288 values in 9 of the 15 int8 cases, the largest
+    each time in request 5 (513 tokens: 17 splits, the last of one token);
+    the split the wrapper uses (512 for int8 at d = 128), 1024 and 2048
+    hold."""
+    _masked_edges(cuda, debias, int8, g, 128, lambda fn: _graph_kernel_nodes(
+        lambda: [fn() for _ in range(3)]),
+        splits=(1024, 2048) if int8 else (32, 1024, 2048))
+
+
 def test_cuda_d128_other_forms_raise(cuda):
-    """At d = 128 every form of the prefill, the decode, the fused LSH
-    kernel and the block kernels exists; the masked attend from words (the
-    odd-L route) does not yet, and a group size outside 1, 2, 4, 8 has no
-    form at either head dim: each raises ValueError before any launch."""
+    """The forms still to port raise ValueError before any launch: group
+    size 3 at head dim 64 (every decode-side kernel: the decode in bf16
+    and int8, both LSH kernels, the scorer and both attends), group size 5
+    at head dim 128 (and in the collision scan, which has no head dim), and
+    the masked attend at a head dim other than 64 and 128."""
     rng = np.random.default_rng(34)
-    d, S, K, L = 128, 512, 4, 8
-    q = _bf16(rng, 1, 8, d, device=cuda)
-    k = _bf16(rng, 1, 2, S, d, device=cuda)
-    v = _bf16(rng, 1, 2, S, d, device=cuda)
+    S, K, L, bs = 512, 4, 9, 512
     length = torch.tensor([S], dtype=torch.int32, device=cuda)
-    kq, ks = quantize_rows(k)
-    vq, vs = quantize_rows(v)
-    kn = k.float().norm(dim=-1)
-    proj = torch.from_numpy(rng.standard_normal((d, K * L)).astype(np.float32)).to(cuda)
-    planes = tbits.build_planes(k[0].float().transpose(0, 1), proj, K)[None]
-    qb = tbits.hash_bits(q, proj, K)
-    words = collision_words(qb, planes)
+    ids = torch.zeros((1, 2, 1), dtype=torch.int32, device=cuda)
     before = dict(LAUNCHES)
-    for kk, vv, ksc, vsc in ((k, v, None, None), (kq, vq, ks, vs)):
+    for d, hq in ((64, 6), (128, 10), (96, 8)):
+        q = _bf16(rng, 1, hq, d, device=cuda)
+        k = _bf16(rng, 1, 2, S, d, device=cuda)
+        v = _bf16(rng, 1, 2, S, d, device=cuda)
+        kq, ks = quantize_rows(k)
+        vq, vs = quantize_rows(v)
+        kn = k.float().norm(dim=-1)
+        proj = torch.from_numpy(rng.standard_normal((d, K * L))
+                                .astype(np.float32)).to(cuda)
+        planes = tbits.build_planes(k[0].float().transpose(0, 1), proj, K)[None]
+        qb = tbits.hash_bits(q, proj, K)
+        words = torch.zeros((1, hq, S // 32), dtype=torch.int32, device=cuda)
+        for kk, vv, ksc, vsc in ((k, v, None, None), (kq, vq, ks, vs)):
+            with pytest.raises(ValueError):
+                lsh_masked_attention(q, kk, vv, kn, words, length, K, L, ksc,
+                                     vsc)
+            if d == 96:        # the other kernels take their head dims only
+                continue
+            with pytest.raises(ValueError):
+                flash_decode(q, kk, vv, length, ksc, vsc)
+            with pytest.raises(ValueError):
+                lsh_fused_decode(q, kk, vv, kn, planes, qb, length, K, L + 1,
+                                 ksc, vsc)
+        if d == 96:
+            continue
         with pytest.raises(ValueError):
-            lsh_masked_attention(q, kk, vv, kn, words, length, K, L, ksc, vsc)
-    q3 = _bf16(rng, 1, 6, d, device=cuda)
-    with pytest.raises(ValueError):
-        flash_decode(q3, k, v, length)
-    with pytest.raises(ValueError):
-        flash_decode(q3, kq, vq, length, ks, vs)
-    with pytest.raises(ValueError):
-        block_rank(q3, kq, ks, length, 512)
+            block_rank(q, kq, ks, length, bs)
+        with pytest.raises(ValueError):
+            exact_scores_ranked(q, k, None, length, bs)
+        with pytest.raises(ValueError):
+            rescore_attend(q, ids, kq, ks, vq, vs, length, bs)
+        scores = torch.zeros((1, 2, hq // 2, S), device=cuda)
+        with pytest.raises(ValueError):
+            block_attend(scores, ids, v, None, bs)
+        if hq // 2 == 5:
+            with pytest.raises(ValueError):
+                collision_words(qb, planes)
     assert LAUNCHES == before

@@ -105,6 +105,7 @@ SCAN_CASES = [
     (1, 2, 4, 21, 6, 16),      # odd L
     (1, 2, 4, 75, 8, 32),      # the odd-L serve's K and L
     (1, 1, 8, 1, 3, 8),        # one table: nothing collides twice
+    (1, 2, 3, 21, 6, 16),      # group size 3 (Llama-3.2-3B), odd L
 ]
 
 
@@ -204,10 +205,13 @@ def _lsh_inputs(seed, B, HKV, G, S, D, K, L, quant):
                 planes=planes, qb=qb, words=words)
 
 
-@pytest.mark.parametrize("debias", ["exact", "poly", "none"])
-@pytest.mark.parametrize("quant", [False, True])
-def test_lsh_masked_attention_plain_matches_pallas(debias, quant):
-    B, HKV, G, S, D, K, L = 2, 2, 4, 256, 64, 6, 21
+@pytest.mark.parametrize("quant,debias,D,G", [
+    pytest.param(quant, debias, d, g, id=f"{quant}-{debias}" + (
+        "" if d == 64 else f"-d{d}-g{g}"))
+    for d, g in ((64, 4), (128, 3))        # 128, 3: Llama-3.2-3B's heads
+    for quant in (False, True) for debias in ("exact", "poly", "none")])
+def test_lsh_masked_attention_plain_matches_pallas(quant, debias, D, G):
+    B, HKV, S, K, L = 2, 2, 256, 6, 21
     x = _lsh_inputs(3, B, HKV, G, S, D, K, L, quant)
     mask = tbits.unpack_words(x["words"], S)
     as_j = (lambda t: jnp.asarray(_np(t)) if quant
