@@ -66,8 +66,16 @@ Phases, each announced by one flushed progress line with elapsed seconds:
      and int8 decode (and bf16 at the hot cache), the fused LSH kernel bf16
      and int8 exact, the collision scan at K=10, L=150 and K=8, L=75 bit for
      bit, the masked attend bf16 exact, and the block kernels at both block
-     shapes; each within `TOL` of its plain version and its planted fault
-     rejected;
+     shapes; then the rows at MagicPIG's context length ("..._98k", B=2 in
+     a 98304-token state, bench.py's M): bf16 and int8 decode over 98000
+     and 61000 tokens, the fused LSH kernel (bf16, exact, K=10, L=150) over
+     offloads of 97932 and 60932 tokens, the packed int4 scorer and
+     rescore-attend over 192 ranking blocks (16 selected), and flash
+     prefill at a query offset (the last 256 queries of a 98000-token
+     prefix, as a chunk of a chunked prefill runs it; queries scaled so
+     that each attends a few keys) at d 64 and 128
+     ("flash_prefill[_d128]_q_offset"); each within `TOL` of its plain
+     version and its planted fault rejected;
   3. serve: `LLM("llama-3.2-1b")` at full width and depth with random
      weights drawn on the card; two requests (12000 and 7000 tokens)
      prefilled into slots 0 and 1, 16 greedy decode steps, clear(), a third
@@ -114,7 +122,24 @@ Phases, each announced by one flushed progress line with elapsed seconds:
      then `LLM("llama-3.2-3b")` at full width and depth (28 layers, 24/8
      heads of 128: group size 3) under LSH K=10, L=150 on the same prompts,
      counted, held to its eager step, a warm prefill and the decode
-     profiled;
+     profiled. Then the 1B at MagicPIG's context length: B=8 slots of a
+     98304-token state, each built by `synthetic_prefill` at 98000 tokens,
+     in bf16 LSH (K=10, L=150) and in bench.py's block_topk4 mode (16 of
+     192 blocks, the realized fraction exact), 16 greedy steps, launches
+     counted, the graphed run held to the eager step bit for bit, and a
+     profiled pass through `utils/profiling` (StepTimer wall, a Chrome
+     trace under traces/, device busy, idle share, graph
+     nodes). Then the `Scheduler` over two slots at max_length 98304 and
+     chunk_size 8192: four requests of 98000, 61000, 30000 and 12000
+     random tokens, 16 tokens each, synchronous and then interleaved (one
+     chunk a step): flash_prefill launches equal the requests (chunks)
+     times the layers, one graph capture per engine across admissions and
+     releases, first-token logits of the two runs within 5e-2 of the
+     largest |logit|, greedy tokens equal up to the first near tie of the
+     synchronous run; then idle slots: a `Scheduler` over four slots fed
+     four requests one at a time, 200 tokens each, so the last slot's hot
+     length passes its 384-row cache before it is used: the graphed run
+     raises no device assert and its tokens equal an eager engine's;
   4. reference: a two-layer cut of the same width at K=1, L=32 (nearly
      every key sampled) on the card against the same engine on the CPU
      (the plain versions); then the same cut under block_topk with bf16
@@ -137,13 +162,17 @@ Phases, each announced by one flushed progress line with elapsed seconds:
      over int8 with poly, the sampled mode at K=1, L=32 and the store
      pipeline over bf16 and packed int4 K against the CPU, and block_topk
      over int8 K, bench.py's block_topk4, LSH over int8 offload and odd L
-     (K=8, L=75) over bf16 on the card alone.
+     (K=8, L=75) over bf16 on the card alone; then chunked prefill
+     (`start_prefill`, 512-token chunks) at d 64 (1B width) and d 128 (the
+     8B's head shape) against the CPU, 2 steps of LSH at K=1, L=32,
+     launches counted.
 Any failure raises. The last two lines are the kernels' JSON and the result
 JSON; the card's name and power limit come just before them.
 """
 
 import gc
 import json
+import pathlib
 import statistics
 import subprocess
 import sys
@@ -731,6 +760,129 @@ def phase_kernels_g3(torch, F, dev):
     return results
 
 
+LONG_P, LONG_M = 98000, 98304   # bench.py's P and M (bench.py:278-279)
+LONG_P2 = 61000                 # phase 2's second request
+
+
+def phase_kernels_long(torch, F, dev):
+    """The decode-side kernels at MagicPIG's context length, rows "..._98k":
+    B=2 (where every plain version fits) in a 98304-token state (bench.py's
+    M) at the 1B's shapes (Hq 32, Hkv 8, d 64): bf16 and int8 flash_decode
+    over 98000 and 61000 tokens (6x the 16384-token rows' splits; split
+    sizes swept); the fused LSH kernel, bf16, exact, K=10, L=150, over
+    offloads of 97932 and 60932 tokens (the 98000-token prompt's middle:
+    3072 signature words a table, counts exact; split sizes swept); the
+    packed int4 scorer and rescore-attend over 98304 tokens (192 ranking
+    blocks of 512, the 16 of the 8% budget; lengths 97932 and 60932). Then
+    the prefill at a query offset, as each chunk of a chunked prefill runs
+    it, at d 64 and d 128. Each within `TOL` of its plain version, its
+    planted fault rejected."""
+    from magicpig_tpu_torch.ops import bitcodes
+    from magicpig_tpu_torch.ops.quant import quantize_rows
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(9800)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev, dtype=torch.bfloat16)
+
+    hq, hkv, d, K, L, b = 32, 8, 64, 10, 150, 2
+    results = {}
+    lens = [LONG_P, LONG_P2]
+    q, k, v = rnd(b, hq, d), rnd(b, hkv, LONG_M, d), rnd(b, hkv, LONG_M, d)
+    length = torch.tensor(lens, dtype=torch.int32, device=dev)
+    results["flash_decode_98k"] = decode_row(torch, F, q, k, v, length, lens,
+                                             "flash_decode_98k")
+    decode_split_sweep(torch, q, k, v, length)
+    results.update(int8_decode_kernels(torch, q, k, v, length, lens, None, K,
+                                       L, tag="_98k"))
+    lens = [n - 68 for n in lens]      # sink 4 + local 64 stay hot
+    length = torch.tensor(lens, dtype=torch.int32, device=dev)
+    proj = torch.randn((d, K * L), generator=gen, device=dev)
+    k_norm = k.float().norm(dim=-1)
+    planes = torch.stack([bitcodes.build_planes(k[i].transpose(0, 1), proj, K)
+                          for i in range(b)])
+    q_bits = bitcodes.hash_bits(q, proj, K)
+    results["lsh_fused_decode_98k"], _ = lsh_row(
+        torch, (q, k, v, k_norm, planes, q_bits, length, K, L), lens,
+        "lsh_fused_decode_98k")
+    lsh_split_sweep(torch, "lsh_fused_decode", "mp_lsh_fused_decode",
+                    (q, k, v, k_norm, None, length, K, L, None, None, "exact"),
+                    (planes, q_bits))
+    del planes, q_bits, k_norm
+    vq, vs = quantize_rows(v)
+    bs, n_sel = 512, 16              # ceil(8% of 192 blocks)
+
+    def same_top(name, got_max, want_max):
+        got = torch.topk(got_max, n_sel).indices.sort(dim=-1).values
+        want = torch.topk(want_max, n_sel).indices.sort(dim=-1).values
+        if not torch.equal(got, want):
+            raise AssertionError(f"{name}: top-{n_sel} block ids differ from "
+                                 "the plain version's")
+
+    def selected_tokens(ids):
+        start = ids.long() * bs
+        return int((length.long()[:, None, None] - start).clamp(0, bs).sum())
+
+    results.update(packed_block_kernels(torch, q, k, vq, vs, length, bs,
+                                        n_sel, same_top, selected_tokens,
+                                        "_98k"))
+    del q, k, v, vq, vs
+    torch.cuda.empty_cache()
+    for dd in (64, 128):
+        results.update(prefill_offset_kernel(torch, F, rnd, dd))
+    log_timings(results)
+    return results
+
+
+def prefill_offset_kernel(torch, F, rnd, d: int) -> dict:
+    """flash_prefill as the last chunk of a chunked prefill calls it: the
+    queries of a 256-token span at positions 97744..97999 (q_offset) over
+    a 98304-row staged K/V whose first 98000 rows are valid, Hq 32, Hkv 8,
+    head dim d; against its plain version, a skipped 64-token V tile (the
+    one holding the first query's top key) rejected, SDPA over the valid
+    keys with the span's causal mask beside it. Row
+    "flash_prefill[_d128]_q_offset"."""
+    from magicpig_tpu_torch.ops import attention
+    from magicpig_tpu_torch.ops.kernels import flash_prefill
+
+    hq, hkv, sq = 32, 8, 256
+    name = "flash_prefill" + ("" if d == 64 else f"_d{d}") + "_q_offset"
+    # Queries scaled by 3 (scores of std 3): each puts most of its weight
+    # on ~100 of its 98000 keys (its top key ~5%), so that one skipped tile
+    # shows; at std 1 every key weighs ~1/98000 and the output sits under
+    # the atol.
+    q = rnd(1, sq, hq, d) * 3
+    dev = q.device
+    k, v = rnd(1, LONG_M, hkv, d), rnd(1, LONG_M, hkv, d)
+    length = torch.full((1,), LONG_P, dtype=torch.int32, device=dev)
+    off = torch.full((1,), LONG_P - sq, dtype=torch.int32, device=dev)
+    got = flash_prefill(q, k, v, length, off)
+    want = attention.flash_prefill(q, k, v, length, off)
+    tol = TOL["flash_prefill"]
+    err, share = check_close(name, got, want, tol)
+    top = int((k[0, :LONG_P - sq + 1, 0].float() @ q[0, 0, 0].float()).argmax())
+    teeth = check_rejects(name, attention.flash_prefill(
+        q, k, drop_tile(v, 1, top // 64 * 64), length, off), want, tol,
+        "a skipped 64-token V tile (the first query's top key's)")
+    qt = q.transpose(1, 2).contiguous()
+    kt, vt = (x[:, :LONG_P].transpose(1, 2).contiguous() for x in (k, v))
+    mask = (torch.arange(LONG_P, device=dev)[None]
+            <= torch.arange(LONG_P - sq, LONG_P, device=dev)[:, None])
+    keys = sum(range(LONG_P - sq + 1, LONG_P + 1))    # (query, key) pairs
+    nbytes = 2 * (2 * q.numel() + 2 * LONG_P * hkv * d)   # q, out, k, v
+    row = dict(
+        max_abs_err=err, tol=tol, bound=bound_ms(nbytes, 4 * d * hq * keys),
+        **timings(lambda: flash_prefill(q, k, v, length, off),
+                  lambda: attention.flash_prefill(q, k, v, length, off),
+                  lambda: F.scaled_dot_product_attention(
+                      qt, kt, vt, attn_mask=mask, enable_gqa=True)))
+    log(f"kernel {name} err {err:.2e}, worst element {share:.2f} of its "
+        f"limit (tol {tol}); a skipped tile's worst element {teeth:.1f}x the "
+        "limit")
+    return {name: row}
+
+
 def prefill_kernel(torch, F, rnd, s: int, name: str, d: int = 64) -> dict:
     """flash_prefill over one s-token prompt, causal, Hq 32, Hkv 8, head dim
     d, against its plain version, a skipped V tile rejected, SDPA beside
@@ -1067,8 +1219,9 @@ def int8_decode_kernels(torch, q, k, v, length, lens, proj, K, L,
     caches quantized per row (for LSH as centered keys whose norms and
     signatures are those of the dequantized rows, as the fill stores
     them), rows named with `tag` after the head dim; with `debias_forms`
-    also the poly and none forms of the LSH kernel. No PyTorch call takes
-    int8 K/V with row scales: no library time."""
+    also the poly and none forms of the LSH kernel; with `proj` None the
+    decode alone. No PyTorch call takes int8 K/V with row scales: no
+    library time."""
     from magicpig_tpu_torch.ops import attention, bitcodes
     from magicpig_tpu_torch.ops.kernels import flash_decode, lsh_fused_decode
     from magicpig_tpu_torch.ops.kernels.lsh_fused import lsh_fused_decode_plain
@@ -1101,6 +1254,8 @@ def int8_decode_kernels(torch, q, k, v, length, lens, proj, K, L,
         f"{share:.2f} of its limit (tol {tol}); a skipped tile's worst "
         f"element {teeth:.1f}x the limit")
     decode_split_sweep(torch, q, kq, vq, length, ks, vs)
+    if proj is None:
+        return results
 
     # -- fused LSH decode over int8 centered keys and values.
     kd = dequantize_rows(kq, ks, torch.float32)
@@ -1708,7 +1863,7 @@ def first_step_fractions(run):
 
 
 class Decoder:
-    """`decoder(tokens, n)`: n greedy steps of a B=2 engine from `tokens`,
+    """`decoder(tokens, n)`: n greedy steps of an engine from `tokens`,
     returning the last step's argmax, through `llm.inference` (on the card
     the first step of an engine runs eagerly, every later one replays its
     CUDA graph) or, with `eager`, through the eager step `llm._decode`
@@ -1731,7 +1886,7 @@ class Decoder:
             self.frac_sum = self.frac_sum + frac
         else:
             logits = self.llm.inference(tokens)
-        if logits.shape != (2, self.llm.config.vocab_size):
+        if logits.shape != (self.llm.batch_size, self.llm.config.vocab_size):
             raise AssertionError(f"logits shape {tuple(logits.shape)}")
         self.finite = self.finite & torch.isfinite(logits).all()
         if self.record is not None:
@@ -1744,19 +1899,23 @@ class Decoder:
         return tokens
 
 
-def check_graphed(torch, llm, prompts, graphed, label: str) -> None:
+def check_graphed(torch, llm, prompts, graphed, label: str,
+                  refill=None) -> None:
     """The graphed run against the eager step. `graphed` holds the run's
     `record` (each step's input tokens and logits: the first step eager,
     the rest replays of the captured step), its `avg_sparsity` and the
     first step's sampled fractions (`first_fracs`). clear(), the two
-    prompts prefilled again, and the same input tokens through
+    prompts prefilled again (or `refill()`), and the same input tokens through
     `llm._decode`: logits equal bit for bit (the same kernels in the same
     order on the same inputs; every hand-written kernel is deterministic),
     so greedy tokens too, and the mean sampled fraction and the first
     step's fractions equal, or raise."""
     llm.clear()
-    llm.prefill(prompts[0], request_id=0)
-    llm.prefill(prompts[1], request_id=1)
+    if refill is None:
+        llm.prefill(prompts[0], request_id=0)
+        llm.prefill(prompts[1], request_id=1)
+    else:
+        refill()
     eager = Decoder(llm, eager=True)
     record = graphed["record"]
     first, fracs = first_step_fractions(lambda: eager.step(record[0][0]))
@@ -2255,12 +2414,439 @@ def phase_serve_3b(torch, dev):
                          prefill_profile=True)
 
 
+def state_bytes(state) -> int:
+    """Bytes of every tensor of an engine's decode state."""
+    import dataclasses
+    total = 0
+    for field in dataclasses.fields(state):
+        value = getattr(state, field.name)
+        for t in value if isinstance(value, list) else [value]:
+            total += t.numel() * t.element_size()
+    return total
+
+
+TRACE_DIR = str(pathlib.Path(__file__).resolve().parent / "traces")
+
+
+def profile_decode_traced(torch, llm, decode, tokens, label: str):
+    """The eager step, then the graphed step, each 8 steps under
+    `utils/profiling.StepTimer` (wall, the card synchronized at both ends);
+    then 2 graphed steps under `utils/profiling.trace`, whose Chrome trace
+    goes to traces/ beside this script: device busy per step, the idle share
+    against the timed wall, the graph's kernel nodes. Returns the tokens
+    and the graphed step's (wall ms, busy ms, idle share)."""
+    import os
+
+    from magicpig_tpu_torch.runtime.engine import graph_kernel_nodes
+    from magicpig_tpu_torch.utils.profiling import StepTimer, annotate, trace
+
+    walls = {}
+    for name, run in (("eager", Decoder(llm, eager=True)), ("graphed", decode)):
+        timer = StepTimer()
+        with timer:
+            tokens = run(tokens, 8)
+            timer.step(8)
+        walls[name] = timer.ms_per_token
+        log(f"profile: {label} {name}: {timer.report(llm.batch_size)} "
+            f"(B={llm.batch_size})")
+    before = set(os.listdir(TRACE_DIR)) if os.path.isdir(TRACE_DIR) else set()
+    region = f"{label} graphed decode"
+    with trace(TRACE_DIR) as prof:
+        with annotate(region):
+            tokens = decode(tokens, PROFILED_STEPS)
+    (written,) = set(os.listdir(TRACE_DIR)) - before
+    # The annotated region has a device-side span of its own: not a kernel.
+    kernels = sorted((e for e in prof.key_averages()
+                      if e.device_type == torch.autograd.DeviceType.CUDA
+                      and e.key != region),
+                     key=_device_us, reverse=True)
+    busy = sum(map(_device_us, kernels)) / 1e3 / PROFILED_STEPS
+    wall = walls["graphed"]
+    idle = max(0.0, 1 - busy / wall)
+    nodes = graph_kernel_nodes(llm._graph.graph) if llm._graph else 0
+    log(f"profile: {label} graphed: wall {wall:.2f} ms/step, device busy "
+        f"{busy:.3f} ms/step, idle share {idle:.3f}, "
+        f"{nodes} graph kernel nodes/step; "
+        f"eager wall {walls['eager']:.2f} ms/step; trace {written} "
+        f"({os.path.getsize(os.path.join(TRACE_DIR, written)) / 1e6:.1f} MB)")
+    for e in kernels[:10]:
+        log(f"  {_device_us(e) / PROFILED_STEPS:9.1f} us/step "
+            f"{e.count / PROFILED_STEPS:5.1f} calls/step  {e.key[:70]}")
+    return tokens, (wall, busy, idle)
+
+
+def long_serve(torch, dev, lsh, label: str, expect_fn, batch: int,
+               weight_quant: str = "none", check_frac=None):
+    """`LLM("llama-3.2-1b")` at full width and depth with `batch` slots of
+    bench.py's M (98304 tokens), each slot's state built by
+    `synthetic_prefill` at bench.py's P (98000 tokens): 16 greedy steps
+    (one eager, 15 replays), every launch held to `expect_fn(llm)`, the
+    sampled or realized fraction checked, the graphed run held to the eager
+    step bit for bit (the state rebuilt by the same synthetic_prefill),
+    then a profiled pass through `utils/profiling`."""
+    import dataclasses
+
+    from magicpig_tpu_torch.config import preset
+    from magicpig_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+    from magicpig_tpu_torch.runtime.engine import LLM
+    from magicpig_tpu_torch.runtime.synthetic import synthetic_prefill
+
+    cfg = preset("llama-3.2-1b")
+    if weight_quant != "none":
+        cfg = dataclasses.replace(cfg, weight_quant=weight_quant,
+                                  fuse_small_linears=True)
+    torch.cuda.reset_peak_memory_stats()
+    llm = LLM(cfg, batch_size=batch, max_length=LONG_M, lsh=lsh, device=dev,
+              seed=1)
+    nbytes = state_bytes(llm.state)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    synthetic_prefill(llm, LONG_P, seed=11)
+    torch.cuda.synchronize()
+    fill_s = time.perf_counter() - t
+    log(f"serve {label}: B={batch}, state {nbytes / 1e9:.3f} GB, "
+        f"synthetic_prefill of {LONG_P} tokens a slot {fill_s:.1f} s, peak "
+        f"memory {torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(13)
+    tokens = torch.randint(1, cfg.vocab_size, (batch,), generator=gen,
+                           device=dev)
+    decode = Decoder(llm)
+    reset_launches()
+    decode.record = []
+    t = time.perf_counter()
+    out, first_fracs = first_step_fractions(lambda: decode(tokens, 1))
+    decode(out, 15)
+    torch.cuda.synchronize()
+    decode_ms = (time.perf_counter() - t) * 1e3 / 16
+    graphed = dict(record=decode.record, avg_sparsity=llm.avg_sparsity,
+                   first_fracs=[float(f) for f in first_fracs])
+    decode.record = None
+    launches = dict(LAUNCHES)
+    expect = dict.fromkeys(launches, 0)
+    expect.update(expect_fn(llm))
+    log(f"serve {label}: decode B={batch} {decode_ms:.2f} ms/step over 16 "
+        f"steps; avg sparsity {llm.avg_sparsity!r}; launches {launches}")
+    if launches != expect:
+        raise AssertionError(f"launches {launches} != path's {expect}")
+    if check_frac is not None:
+        check_frac(llm.avg_sparsity)
+    elif not 0 < llm.avg_sparsity < 1:
+        raise AssertionError(f"avg sparsity {llm.avg_sparsity} not in (0, 1)")
+    check_graphed(torch, llm, None, graphed, label,
+                  refill=lambda: synthetic_prefill(llm, LONG_P, seed=11))
+    del graphed
+    tokens, profile = profile_decode_traced(torch, llm, decode, out,
+                                            f"{label} decode B={batch}")
+    if not bool(decode.finite):
+        raise AssertionError(f"non-finite logits in the {label} serve")
+    return dict(launches=launches, decode_ms=decode_ms, fill_s=fill_s,
+                state_bytes=nbytes, profile=profile,
+                avg_sparsity=llm.avg_sparsity)
+
+
+LONG_BATCH = 8     # bench.py --max-batch
+
+
+def phase_serve_long(torch, dev):
+    """The 1B at MagicPIG's context length: bf16 LSH at K=10, L=150 (the
+    main path's defaults), then bench.py's block_topk4 mode (W8A8 weights,
+    packed int4 K, int8 V, a dense int8 layer 0; 16 of 192 blocks), B=8
+    each."""
+    import math
+
+    from magicpig_tpu_torch.config import LSHConfig
+    from magicpig_tpu_torch.runtime.state import offload_capacity
+
+    def lsh_expect(llm):
+        n = llm.config.num_hidden_layers
+        n_sparse = sum(1 for kind, _ in llm.groups if kind == "sparse")
+        return dict(flash_decode=16 * n, lsh_fused_decode=16 * n_sparse)
+
+    def block_topk4_expect(llm):
+        n = llm.config.num_hidden_layers
+        n_sparse = sum(1 for kind, _ in llm.groups if kind == "sparse")
+        return dict(flash_decode=16 * n_sparse,
+                    flash_decode_int8=16 * (n - n_sparse),
+                    block_rank_int4=16 * n_sparse,
+                    rescore_attend_int4=16 * n_sparse)
+
+    bt4 = LSHConfig(K=1, L=0, estimator="block_topk", offload_quant="int4",
+                    dense_quant="int8")
+    off = LONG_P - 68                          # sink 4 and local 64 stay hot
+    blocks = -(-offload_capacity(bt4, LONG_M) // 512)     # 192 at 98304
+    want_frac = min(math.ceil(blocks * bt4.block_topk_budget_frac) * 512,
+                    off) / off
+
+    def check_frac(frac):
+        if abs(frac - want_frac) > 1e-6:
+            raise AssertionError(f"avg sparsity {frac} != {want_frac}")
+
+    lsh_run = long_serve(torch, dev, LSHConfig(K=10, L=150), "98K LSH bf16",
+                         lsh_expect, LONG_BATCH)
+    gc.collect()
+    torch.cuda.empty_cache()
+    bt4 = long_serve(torch, dev, bt4,
+                     "98K bench block_topk4 (W8A8, packed int4 K)",
+                     block_topk4_expect, LONG_BATCH, weight_quant="int8",
+                     check_frac=check_frac)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return lsh_run, bt4
+
+
+SCHED_PROMPTS = (98000, 61000, 30000, 12000)
+SCHED_CHUNK = 8192
+SCHED_TOL = 5e-2    # of the largest |logit|: phase 4's bf16 limit
+
+
+def scheduler_run(torch, dev, prompts, interleave: bool) -> dict:
+    """One `Scheduler` serve of the 1B at full width and depth, B=2,
+    max_length 98304, chunk_size 8192: the four prompts submitted at once,
+    16 greedy tokens each. Records each request's first-token logits, its
+    prefill time (the card synchronized around each prefill or chunk) and,
+    at every token it gets, the gap of the top two logits over the largest
+    |logit|; holds the launches to the path's and the engine to one graph
+    capture."""
+    from magicpig_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+    from magicpig_tpu_torch.runtime.engine import LLM
+    from magicpig_tpu_torch.runtime.serving import Scheduler
+
+    llm = LLM("llama-3.2-1b", batch_size=2, max_length=LONG_M,
+              chunk_size=SCHED_CHUNK, device=dev, seed=0)
+    sched = Scheduler(llm, interleave=interleave)
+    rec = dict(first={}, margin={}, prefill_s={}, steps=0)
+    prefill, start_prefill, inference = (llm.prefill, llm.start_prefill,
+                                         llm.inference)
+
+    def margins(logits):
+        x = logits.float()
+        top = x.topk(2, dim=-1).values
+        return ((top[:, 0] - top[:, 1]) / x.abs().amax(-1)).tolist()
+
+    def first(n, logits, dt):
+        rec["first"][n] = logits.float()
+        rec["margin"][n] = {0: margins(logits)[0]}
+        rec["prefill_s"][n] = rec["prefill_s"].get(n, 0.0) + dt
+
+    def timed(fn, *args, **kwargs):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t
+
+    def timed_prefill(ids, request_id=0):
+        logits, dt = timed(prefill, ids, request_id=request_id)
+        first(ids.numel(), logits, dt)
+        return logits
+
+    def timed_start(ids, request_id=0):
+        cp = start_prefill(ids, request_id)
+        step = cp.step
+
+        def timed_step():
+            logits, dt = timed(step)
+            if logits is None:
+                rec["prefill_s"][cp.true_len] = (
+                    rec["prefill_s"].get(cp.true_len, 0.0) + dt)
+            else:
+                first(cp.true_len, logits, dt)
+            return logits
+        cp.step = timed_step
+        return cp
+
+    def recorded_inference(tokens):
+        logits = inference(tokens)
+        m = margins(logits)
+        for slot, req in sched.active.items():
+            rec["margin"][req.prompt.numel()][len(req.generated)] = m[slot]
+        rec["steps"] += 1
+        return logits
+
+    llm.prefill, llm.start_prefill = timed_prefill, timed_start
+    llm.inference = recorded_inference
+    for p in prompts:
+        sched.submit(p, max_tokens=16)
+    reset_launches()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    finished = sched.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = dict(LAUNCHES)
+    n, steps = llm.config.num_hidden_layers, rec["steps"]
+    n_sparse = sum(1 for kind, _ in llm.groups if kind == "sparse")
+    chunks = sum(-(-p.numel() // SCHED_CHUNK) for p in prompts)
+    expect = dict.fromkeys(launches, 0)
+    expect.update(flash_prefill=n * (chunks if interleave else len(prompts)),
+                  flash_decode=n * steps, lsh_fused_decode=n_sparse * steps)
+    tokens = {r.prompt.numel(): r.generated for r in finished}
+    mode = "interleaved" if interleave else "synchronous"
+    log(f"serve scheduler {mode}: {len(finished)} requests, {steps} decode "
+        f"steps in {wall:.2f} s; prefill s by prompt "
+        f"{ {k: round(v, 3) for k, v in rec['prefill_s'].items()} }; "
+        f"{llm.graph_captures} graph capture(s); launches {launches}")
+    if launches != expect:
+        raise AssertionError(f"launches {launches} != path's {expect}")
+    if llm.graph_captures != (dev.type == "cuda"):
+        raise AssertionError(f"{llm.graph_captures} graph captures, not 1")
+    if sorted(tokens) != sorted(p.numel() for p in prompts) or any(
+            len(t) != 16 for t in tokens.values()):
+        raise AssertionError(f"requests served {tokens}")
+    if not all(bool(torch.isfinite(x).all()) for x in rec["first"].values()):
+        raise AssertionError("non-finite first-token logits")
+    return dict(rec, tokens=tokens, wall=wall, launches=launches,
+                chunks=chunks)
+
+
+def phase_serve_scheduler(torch, dev):
+    """The `Scheduler` at MagicPIG's context length: four requests (98000,
+    61000, 30000 and 12000 random tokens) over two slots, synchronous, then
+    interleaved (one 8192-token chunk a step). Each request's first-token
+    logits agree within `SCHED_TOL` of the largest |logit|, and its greedy
+    tokens agree up to the first token whose synchronous top two logits lie
+    within that limit of each other."""
+    from magicpig_tpu_torch.config import preset
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(17)
+    vocab = preset("llama-3.2-1b").vocab_size
+    prompts = [torch.randint(1, vocab, (n,), generator=gen, device=dev)
+               for n in SCHED_PROMPTS]
+    runs = {}
+    for interleave in (False, True):
+        runs[interleave] = scheduler_run(torch, dev, prompts, interleave)
+        gc.collect()
+        torch.cuda.empty_cache()
+    sync, inter = runs[False], runs[True]
+    agree, report = 0, {}
+    for n in SCHED_PROMPTS:
+        a, b = inter["first"][n], sync["first"][n]
+        err = float((a - b).abs().max() / b.abs().max())
+        if err > SCHED_TOL:
+            raise AssertionError(f"{n}-token request: first-token logits "
+                                 f"differ by {err:.3e} of the largest")
+        near = [i for i, m in sync["margin"][n].items() if m < SCHED_TOL]
+        held = min(near, default=16)
+        ts, ti = sync["tokens"][n], inter["tokens"][n]
+        if ts[:held] != ti[:held]:
+            raise AssertionError(f"{n}-token request: tokens {ts} != {ti} "
+                                 f"before the first near tie ({held})")
+        same = sum(x == y for x, y in zip(ts, ti))
+        agree += same
+        report[n] = dict(first_err=round(err, 5), held=held, equal=same)
+    log(f"serve scheduler: synchronous vs interleaved per request "
+        f"(first-token err of the largest |logit|, tokens held before the "
+        f"first near tie, tokens equal of 16): {report}; {agree} of "
+        f"{16 * len(SCHED_PROMPTS)} tokens equal")
+    return dict(sync=sync, inter=inter, agree=agree, report=report)
+
+
+IDLE_LAYERS = 16
+
+
+def phase_serve_idle(torch, dev):
+    """Idle slots under the graph: a `Scheduler` over four slots of the 1B
+    (full width, `IDLE_LAYERS` layers) at max_length 4096 is fed four
+    requests one at a time, 200 greedy tokens each, so slot 3 stays free
+    (decoded with stale tokens) for 600 steps, past its 384-row hot cache.
+    The graphed engine runs with no device assert, and every request's
+    tokens equal those of an engine on the same weights that runs every
+    step eagerly."""
+    import dataclasses
+
+    from magicpig_tpu_torch.config import preset
+    from magicpig_tpu_torch.ops.sampling import greedy_sample
+    from magicpig_tpu_torch.runtime import state as state_lib
+    from magicpig_tpu_torch.runtime.engine import LLM
+    from magicpig_tpu_torch.runtime.serving import Scheduler
+
+    cfg = dataclasses.replace(preset("llama-3.2-1b"),
+                              num_hidden_layers=IDLE_LAYERS)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(19)
+    prompts = [torch.randint(1, cfg.vocab_size, (1000 + 100 * i,),
+                             generator=gen, device=dev) for i in range(4)]
+
+    def serve(llm):
+        sched, idle = Scheduler(llm), None
+        for i, p in enumerate(prompts):
+            if i == 3:
+                idle = int(llm.state.hot_len[3])
+            sched.submit(p, max_tokens=200)
+            sched.run()
+        torch.cuda.synchronize()
+        return ([r.generated for r in sched.finished],
+                [r.slot for r in sched.finished], idle)
+
+    graphed = LLM(cfg, batch_size=4, max_length=4096, device=dev, seed=2)
+    t = time.perf_counter()
+    tokens, slots, idle = serve(graphed)
+    wall = time.perf_counter() - t
+    eager = LLM(cfg, batch_size=4, max_length=4096, params=graphed.params,
+                projections=graphed.projections, device=dev, seed=2)
+
+    def eager_step(tokens):
+        logits, frac = eager._decode(tokens)
+        return logits, frac, greedy_sample(logits)
+
+    eager._step = eager_step
+    t = time.perf_counter()
+    want, want_slots, _ = serve(eager)
+    eager_wall = time.perf_counter() - t
+    cap = state_lib.hot_capacity(graphed.lsh)
+    log(f"serve idle slots: 4 requests one at a time over B=4, slots "
+        f"{slots}, slot 3's hot length {idle} (hot capacity {cap}) when it "
+        f"was admitted; graphed {wall:.1f} s ({graphed.graph_captures} "
+        f"capture), eager {eager_wall:.1f} s; tokens equal "
+        f"{tokens == want}")
+    if slots != [0, 1, 2, 3] or want_slots != slots or not idle > cap:
+        raise AssertionError(f"slots {slots}, idle hot length {idle}")
+    if tokens != want or graphed.graph_captures != (dev.type == "cuda"):
+        raise AssertionError("the graphed idle-slot serve differs from the "
+                             "eager one")
+    return dict(idle_hot=idle, wall=wall, eager_wall=eager_wall)
+
+
+def phase_reference_chunked(torch, dev):
+    """Chunked prefill (`start_prefill`, 512-token chunks: flash_prefill at
+    a query offset over the staged K/V) on two-layer cuts at d = 64 (1B
+    width) and d = 128 (the 8B's head shape, as `phase_reference_d128`)
+    against the same engines on the CPU, then 2 steps of LSH at K=1, L=32
+    (nearly every key sampled, so bf16 rounding cannot move the sample).
+    Returns the d = 128 form's launches."""
+    import dataclasses
+
+    from magicpig_tpu_torch.config import LSHConfig, preset
+
+    counted = {}
+    cfg128 = dataclasses.replace(preset("llama-3.1-8b"), hidden_size=1024,
+                                 num_attention_heads=8, num_key_value_heads=2,
+                                 intermediate_size=3584)
+    for name, cfg in (("flash_prefill", None), ("flash_prefill_d128", cfg128)):
+        card, host, launches = card_vs_cpu(
+            torch, dev, LSHConfig(K=1, L=32, dense_layers=(0,)),
+            f"chunked prefill {name}, LSH K=1/L=32", 1500, steps=2, cfg=cfg,
+            chunk=512)
+        want = dict.fromkeys(launches, 0)
+        want.update({name: 2 * 3, name.replace("prefill", "decode"): 2 * 2,
+                     "lsh_fused_decode" + name[len("flash_prefill"):]: 2})
+        if launches != want:
+            raise AssertionError(f"launches {launches} != path's {want}")
+        counted[name] = launches[name]
+        del card, host
+    return counted
+
+
 def card_vs_cpu(torch, dev, lsh, label: str, n_prompt: int = 1500,
-                weight_quant: str = "none", steps: int = 4, cfg=None):
+                weight_quant: str = "none", steps: int = 4, cfg=None,
+                chunk: int | None = None):
     """Two layers at 1B width (or `cfg`), layer 1 sparse: the card engine
     against the same engine on the CPU (the plain versions), prefill of an
-    n_prompt token prompt and `steps` greedy steps. Returns (card engine,
-    CPU engine, the card's launches in this run)."""
+    n_prompt token prompt (with `chunk`, `start_prefill` in chunks of that
+    many tokens) and `steps` greedy steps. Returns (card engine, CPU
+    engine, the card's launches in this run)."""
     import dataclasses
 
     from magicpig_tpu_torch.config import preset
@@ -2270,14 +2856,25 @@ def card_vs_cpu(torch, dev, lsh, label: str, n_prompt: int = 1500,
     cfg = dataclasses.replace(cfg or preset("llama-3.2-1b"),
                               num_hidden_layers=2, weight_quant=weight_quant,
                               fuse_small_linears=weight_quant != "none")
-    card = LLM(cfg, batch_size=1, max_length=2048, lsh=lsh, device=dev, seed=3)
+    kw = {} if chunk is None else dict(chunk_size=chunk)
+    card = LLM(cfg, batch_size=1, max_length=2048, lsh=lsh, device=dev,
+               seed=3, **kw)
     host = LLM(cfg, batch_size=1, max_length=2048, lsh=lsh, device="cpu",
                params=card.params.to("cpu"),
-               projections=card.projections.cpu())
+               projections=card.projections.cpu(), **kw)
     prompt = torch.randint(1, cfg.vocab_size, (n_prompt,),
                            generator=torch.Generator().manual_seed(5))
+
+    def prefill(llm):
+        if chunk is None:
+            return llm.prefill(prompt)
+        cp = llm.start_prefill(prompt)
+        while not cp.done:
+            cp.step()
+        return cp.logits
+
     reset_launches()
-    a, b = card.prefill(prompt).cpu(), host.prefill(prompt)
+    a, b = prefill(card).cpu(), prefill(host)
     errs = [float((a - b).abs().max() / b.abs().max())]
     tok = b.argmax(-1)
     for _ in range(steps):
@@ -2703,6 +3300,8 @@ def main() -> int:
         torch.cuda.empty_cache()
         kern.update(phase_kernels_g3(torch, F, dev))
         torch.cuda.empty_cache()
+        kern.update(phase_kernels_long(torch, F, dev))
+        torch.cuda.empty_cache()
         sass = sass_counts(dump)
     finally:
         dump[0].kill()
@@ -2734,12 +3333,20 @@ def main() -> int:
     serve_3b = phase_serve_3b(torch, dev)
     gc.collect()
     torch.cuda.empty_cache()
+    log(f"phase 3 serve llama-3.2-1b at {LONG_P} tokens")
+    long_lsh, long_bt4 = phase_serve_long(torch, dev)
+    log("phase 3 serve llama-3.2-1b through the Scheduler")
+    sched = phase_serve_scheduler(torch, dev)
+    phase_serve_idle(torch, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
 
     log("phase 4 reference on a small input")
     store = phase_reference(torch, dev)
     masked_forms = phase_reference_two_stage(torch, dev)
     forms_d128 = phase_reference_d128(torch, dev)
     forms_g3 = phase_reference_g3(torch, dev)
+    chunked = phase_reference_chunked(torch, dev)
 
     # Each kernel's launches come from the counted run of the path that
     # uses it: the LSH serve, the block_topk int8 serve (rescore pipeline),
@@ -2890,6 +3497,31 @@ def main() -> int:
         sources[name] = sources[form]
         launches[name] = g3_runs[form]
         launches_of[name] = form + " G=3"
+    # MagicPIG's context length (rows "..._98k"): launches from the 98K
+    # serves (bf16 LSH; block_topk4), the store pipeline's from phase 4;
+    # the prefill at a query offset from the interleaved Scheduler serve
+    # (its chunks times the layers) and, at d = 128, phase 4's chunked cut.
+    for name, form, count in (
+            ("flash_decode_98k", "flash_decode",
+             long_lsh["launches"]["flash_decode"]),
+            ("flash_decode_int8_98k", "flash_decode_int8",
+             long_bt4["launches"]["flash_decode_int8"]),
+            ("lsh_fused_decode_98k", "lsh_fused_decode",
+             long_lsh["launches"]["lsh_fused_decode"]),
+            ("block_rank_int4_98k", "block_rank_int4",
+             long_bt4["launches"]["block_rank_int4"]),
+            ("rescore_attend_int4_98k", "rescore_attend_int4",
+             long_bt4["launches"]["rescore_attend_int4"]),
+            ("exact_scores_ranked_int4_98k", "exact_scores_ranked_int4",
+             launches["exact_scores_ranked_int4"]),
+            ("flash_prefill_q_offset", "flash_prefill",
+             sched["inter"]["launches"]["flash_prefill"]),
+            ("flash_prefill_d128_q_offset", "flash_prefill_d128",
+             chunked["flash_prefill_d128"])):
+        sources[name] = sources[form]
+        launches[name] = count
+        launches_of[name] = (form if name.startswith("exact") else
+                             f"{form} {'chunked' if 'q_offset' in name else '98K'}")
     for shapes, run in ((W4_SHAPES, full_int8), (W4_SHAPES_8B, full_int8_8b)):
         for name, kin, out in shapes:
             sources[name] = sources["w4_matmul"]

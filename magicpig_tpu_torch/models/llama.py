@@ -26,7 +26,7 @@ from magicpig_tpu_torch.ops.kernels.w4_matmul import (
 )
 from magicpig_tpu_torch.ops.norms import rms_norm
 from magicpig_tpu_torch.ops.quant import div_exact
-from magicpig_tpu_torch.ops.rope import apply_rope, rope_cos_sin
+from magicpig_tpu_torch.ops.rope import rope_cos_sin, rope_rows, rotate
 
 W4_DEQUANT_MIN_M = 512   # rows from which an int4 product dequantizes first
 
@@ -327,7 +327,8 @@ def qkv_proj(lp: LayerParams, config: ModelConfig, hidden: torch.Tensor,
     q = q.reshape(b, s, config.num_attention_heads, d)
     k = k.reshape(b, s, config.num_key_value_heads, d)
     v = v.reshape(b, s, config.num_key_value_heads, d)
-    return apply_rope(q, cos, sin, positions), apply_rope(k, cos, sin, positions), v
+    rows = rope_rows(cos, sin, positions)      # one lookup for q and k
+    return rotate(q, *rows), rotate(k, *rows), v
 
 
 def post_attention(lp: LayerParams, config: ModelConfig,

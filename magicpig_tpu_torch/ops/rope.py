@@ -41,12 +41,23 @@ def rope_cos_sin(config: ModelConfig, max_len: int,
     return torch.cos(emb), torch.sin(emb)
 
 
-def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
-               positions: torch.Tensor) -> torch.Tensor:
-    """x: [..., S, H, d]; positions: [..., S] int; cos/sin: [max_len, d]."""
-    c = cos[positions].unsqueeze(-2)                  # [..., S, 1, d]
-    s = sin[positions].unsqueeze(-2)
+def rope_rows(cos: torch.Tensor, sin: torch.Tensor, positions: torch.Tensor):
+    """The cos / sin rows [..., S, 1, d] at `positions` [..., S]. Positions
+    past the table read its last row, as the JAX gather clamps: an idle
+    slot's position keeps growing with every batched decode step."""
+    positions = positions.clamp(max=cos.shape[0] - 1)
+    return cos[positions].unsqueeze(-2), sin[positions].unsqueeze(-2)
+
+
+def rotate(x: torch.Tensor, c: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """Rotate-half RoPE of x [..., S, H, d] by the rows of `rope_rows`."""
     d = x.shape[-1]
     x1, x2 = x[..., : d // 2], x[..., d // 2:]
     rotated = torch.cat([-x2, x1], dim=-1)
     return (x.float() * c + rotated.float() * s).to(x.dtype)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
+               positions: torch.Tensor) -> torch.Tensor:
+    """x: [..., S, H, d]; positions: [..., S] int; cos/sin: [max_len, d]."""
+    return rotate(x, *rope_rows(cos, sin, positions))

@@ -1,9 +1,15 @@
-"""The LLM engine: prefill / inference / decode_steps / generate / clear
-(port of `magicpig_tpu/runtime/engine.py`, the single-device path).
+"""The LLM engine: prefill / start_prefill / inference / decode_steps /
+generate / release_slot / clear (port of `magicpig_tpu/runtime/engine.py`,
+the single-device path).
 
 PyTorch runs eagerly, so the engine calls the layer functions directly:
 `prefill` runs the whole prompt layer by layer through the flash-prefill
-kernel and fills the attention-server state; a decode step runs every layer
+kernel and fills the attention-server state; `start_prefill` runs it one
+`chunk_size` chunk at a time (`ChunkedPrefill`: each chunk's queries attend
+the request's K/V staged so far, through the same kernel at a query
+offset), and fills the state from the staged K/V after the last chunk, so
+that a scheduler can run decode steps between chunks
+(`runtime/serving.py`); a decode step runs every layer
 once (dense layers through flash decode, sparse layers through flash decode
 over the hot tokens plus the estimator over the offloaded ones: the fused
 LSH kernel, or for `LSHConfig(estimator="block_topk")` the block scorer and
@@ -113,7 +119,7 @@ class LLM:
 
     def __init__(self, model: str | ModelConfig = "llama-tiny", K: int = 10,
                  L: int = 150, batch_size: int = 1, max_length: int = 8192,
-                 generation_buffer: int = 256,
+                 generation_buffer: int = 256, chunk_size: int = 8192,
                  params: LlamaParams | None = None, seed: int = 0,
                  lsh: LSHConfig | None = None,
                  projections: torch.Tensor | None = None,
@@ -128,6 +134,7 @@ class LLM:
         self.lsh = lsh
         self.batch_size = batch_size
         self.max_length = max_length
+        self.chunk_size = chunk_size
         self.groups = state_lib.layer_groups(self.config, self.lsh)
 
         gen = torch.Generator(device=self.device)
@@ -154,9 +161,15 @@ class LLM:
         # decode entry fails loudly instead.
         self._hot_used: dict[int, int] = {}
         self._pos_used: dict[int, int] = {}
-        # On the card: whether a step ran eagerly, then the captured step.
+        # On the card: whether a step ran eagerly, then the captured step
+        # (captured once: admissions and releases keep the state's buffers).
         self._warmed_up = False
         self._graph: DecodeGraph | None = None
+        self.graph_captures = 0
+        # start_prefill's staged K/V [n_layers, max_length, Hkv, d] each,
+        # allocated at its first call; one chunked prefill at a time.
+        self._stage_k: torch.Tensor | None = None
+        self._stage_v: torch.Tensor | None = None
 
     def _tokens(self, input_ids) -> torch.Tensor:
         if isinstance(input_ids, torch.Tensor):
@@ -171,11 +184,7 @@ class LLM:
         """Prefill one request into slot `request_id`; returns logits [1, V]."""
         cfg, lsh = self.config, self.lsh
         tokens = self._tokens(input_ids)
-        p = tokens.shape[0]
-        if p < lsh.num_sink_tokens + lsh.num_local_tokens + 1:
-            raise ValueError("prompt shorter than sink + local tokens + 1")
-        if p > self.max_length:
-            raise ValueError(f"prompt of {p} tokens > max_length {self.max_length}")
+        p = self._check_prompt(tokens)
         params = self.params
         hidden = params.embed[tokens][None]                    # [1, P, h]
         positions = torch.arange(p, device=self.device)[None]
@@ -191,10 +200,89 @@ class LLM:
                 fill_sparse_layer(self.state, gi, request_id, k[0], v[0],
                                   self.projections, lsh)
         logits = unembed(params, cfg, hidden[:, -1])           # [1, V]
-        self.state.pos[request_id] = p
-        self._hot_used[request_id] = lsh.num_sink_tokens + lsh.num_local_tokens
-        self._pos_used[request_id] = p
+        self._admitted(request_id, p)
         return logits
+
+    def _check_prompt(self, tokens: torch.Tensor) -> int:
+        p = tokens.shape[0]
+        if p < self.lsh.num_sink_tokens + self.lsh.num_local_tokens + 1:
+            raise ValueError("prompt shorter than sink + local tokens + 1")
+        if p > self.max_length:
+            raise ValueError(f"prompt of {p} tokens > max_length {self.max_length}")
+        return p
+
+    def _admitted(self, request_id: int, p: int) -> None:
+        """The slot's position and guard mirrors after its fill."""
+        self.state.pos[request_id] = p
+        self._hot_used[request_id] = (self.lsh.num_sink_tokens
+                                      + self.lsh.num_local_tokens)
+        self._pos_used[request_id] = p
+
+    # -- chunked prefill ------------------------------------------------------
+
+    def start_prefill(self, input_ids, request_id: int = 0) -> "ChunkedPrefill":
+        """Begin a chunked prefill of one request into slot `request_id`;
+        each `.step()` of the returned `ChunkedPrefill` runs one chunk, and
+        the last one fills the slot and returns the first-token logits.
+        The prompt is padded with token 0 to whole chunks of
+        min(chunk_size, max_length); a padded prompt longer than
+        max_length raises. The first call allocates the staging pair
+        [n_layers, max_length, Hkv, d] (one more request's K/V in the
+        compute dtype), shared by every later one: one chunked prefill may
+        be in flight at a time."""
+        cp = ChunkedPrefill(self, input_ids, request_id)
+        if self._stage_k is None:
+            cfg = self.config
+            shape = (len(self.groups), self.max_length,
+                     cfg.num_key_value_heads, cfg.head_dim)
+            self._stage_k = torch.zeros(shape, dtype=cfg.dtype,
+                                        device=self.device)
+            self._stage_v = torch.zeros_like(self._stage_k)
+        return cp
+
+    def _prefill_chunk(self, tokens: torch.Tensor, off: int,
+                       true_len: int) -> torch.Tensor:
+        """One chunk (tokens [c] at positions off..off + c - 1) through
+        every layer: its K/V go into the staging pair, and its queries
+        attend the staged prefix. Returns the logits [1, V] at the last
+        prompt position the chunk holds."""
+        cfg, params = self.config, self.params
+        c = tokens.shape[0]
+        hidden = params.embed[tokens][None]                    # [1, c, h]
+        positions = torch.arange(off, off + c, device=self.device)[None]
+        length = torch.full((1,), off + c, dtype=torch.int32, device=self.device)
+        q_offset = torch.full((1,), off, dtype=torch.int32, device=self.device)
+        for i in range(len(self.groups)):
+            lp = params.layers.layer(i)
+            q, k, v = qkv_proj(lp, cfg, hidden, positions, params.cos, params.sin)
+            self._stage_k[i, off:off + c] = k[0]
+            self._stage_v[i, off:off + c] = v[0]
+            attn = flash_prefill(q, self._stage_k[i][None],
+                                 self._stage_v[i][None], length, q_offset)
+            hidden = post_attention(lp, cfg, attn.reshape(1, c, -1), hidden)
+        last = min(max(true_len - 1 - off, 0), c - 1)
+        return unembed(params, cfg, hidden[:, last])           # [1, V]
+
+    def _fill_from_staging(self, true_len: int, request_id: int) -> None:
+        """The fills of `prefill`, from the staged K/V of the whole prompt."""
+        for i, (kind, gi) in enumerate(self.groups):
+            k, v = self._stage_k[i, :true_len], self._stage_v[i, :true_len]
+            if kind == "dense":
+                fill_dense_layer(self.state, gi, request_id, k, v)
+            else:
+                fill_sparse_layer(self.state, gi, request_id, k, v,
+                                  self.projections, self.lsh)
+        self._admitted(request_id, true_len)
+
+    def release_slot(self, slot: int) -> None:
+        """Free one request slot for a later prefill: its four lengths
+        zeroed in place (a captured step keeps its buffers) and its guard
+        mirrors dropped."""
+        st = self.state
+        for lens in (st.pos, st.dense_len, st.hot_len, st.off_len):
+            lens[slot] = 0
+        self._hot_used.pop(slot, None)
+        self._pos_used.pop(slot, None)
 
     # -- decode -------------------------------------------------------------
 
@@ -254,6 +342,7 @@ class LLM:
         if self._graph is None and self._warmed_up:
             self._graph = DecodeGraph(self._decode, self.batch_size,
                                       self.device)
+            self.graph_captures += 1
         if self._graph is not None:
             return self._graph.replay(tokens)
         self._warmed_up = self.device.type == "cuda"
@@ -347,3 +436,47 @@ class LLM:
         state_lib.reset_state(self.state)
         self._hot_used.clear()
         self._pos_used.clear()
+
+
+class ChunkedPrefill:
+    """One request's prefill in flight (`LLM.start_prefill`). `step()` runs
+    the next chunk and returns None, or after the last chunk fills the
+    slot from the staged K/V and returns the first-token logits [1, V]."""
+
+    def __init__(self, llm: LLM, input_ids, request_id: int):
+        tokens = llm._tokens(input_ids)
+        p = llm._check_prompt(tokens)
+        self.c = min(llm.chunk_size, llm.max_length)
+        self.n_chunks = -(-p // self.c)
+        if self.n_chunks * self.c > llm.max_length:
+            raise ValueError(
+                f"prompt of {p} tokens padded to {self.n_chunks} chunks of "
+                f"{self.c} > max_length {llm.max_length}")
+        self.llm = llm
+        self.request_id = request_id
+        self.true_len = p
+        self._tokens = torch.zeros((self.n_chunks * self.c,), dtype=torch.int64,
+                                   device=llm.device)
+        self._tokens[:p] = tokens
+        self._idx = 0
+        self.logits: torch.Tensor | None = None
+
+    @property
+    def done(self) -> bool:
+        return self.logits is not None
+
+    @torch.no_grad()
+    def step(self) -> torch.Tensor | None:
+        """One chunk of prefill work; the logits after the last chunk."""
+        if self.done:
+            raise RuntimeError("the chunked prefill has finished")
+        llm, c = self.llm, self.c
+        off = self._idx * c
+        logits = llm._prefill_chunk(self._tokens[off:off + c], off,
+                                    self.true_len)
+        self._idx += 1
+        if self._idx < self.n_chunks:
+            return None
+        llm._fill_from_staging(self.true_len, self.request_id)
+        self.logits = logits
+        return logits

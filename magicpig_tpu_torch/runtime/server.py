@@ -146,11 +146,20 @@ def _fill_lsh(state: DecodeState, si: int, req: int, off_k: torch.Tensor,
     return centered[:off_len], hot_k.float() - avg
 
 
-def _append(cache: torch.Tensor, new: torch.Tensor, lens: torch.Tensor) -> None:
-    """cache[b, :, lens[b]] = new[b] for every request (in place); rows
-    [B, Hkv, S, d] or row scales [B, Hkv, S]."""
-    rows = torch.arange(cache.shape[0], device=cache.device)
-    cache[rows, :, lens.long()] = new.to(cache.dtype)
+def _append_at(lens: torch.Tensor, cap: int):
+    """Where `_append` writes request b's row: at lens[b], clamped to the
+    cache's last row as `jax.lax.dynamic_update_slice` clamps its start.
+    The batched step decodes free slots too, so their lengths grow past
+    their caches; what they write there feeds only their own outputs,
+    which nobody reads, until a fill resets the slot."""
+    rows = torch.arange(lens.shape[0], device=lens.device)
+    return rows, lens.clamp(max=cap - 1).long()
+
+
+def _append(cache: torch.Tensor, new: torch.Tensor, at) -> None:
+    """cache[b, :, at[1][b]] = new[b] for every request (in place); rows
+    [B, Hkv, S, d] or row scales [B, Hkv, S]; `at` from `_append_at`."""
+    cache[at[0], :, at[1]] = new.to(cache.dtype)
 
 
 def decode_dense_layer(state: DecodeState, di: int, q: torch.Tensor,
@@ -159,14 +168,15 @@ def decode_dense_layer(state: DecodeState, di: int, q: torch.Tensor,
     [B, Hkv, d]. Returns out [B, Hq, d] f32. With dense int8 the new row is
     quantized and its scales appended too."""
     k_scale = v_scale = None
+    at = _append_at(state.dense_len, state.dense_k[di].shape[2])
     if state.dense_k_scale:
         k_new, k_sc = quantize_rows(k_new)
         v_new, v_sc = quantize_rows(v_new)
         k_scale, v_scale = state.dense_k_scale[di], state.dense_v_scale[di]
-        _append(k_scale, k_sc, state.dense_len)
-        _append(v_scale, v_sc, state.dense_len)
-    _append(state.dense_k[di], k_new, state.dense_len)
-    _append(state.dense_v[di], v_new, state.dense_len)
+        _append(k_scale, k_sc, at)
+        _append(v_scale, v_sc, at)
+    _append(state.dense_k[di], k_new, at)
+    _append(state.dense_v[di], v_new, at)
     out, _ = flash_decode(q, state.dense_k[di], state.dense_v[di],
                           state.dense_len + 1, k_scale, v_scale)
     return out
@@ -250,8 +260,9 @@ def decode_sparse_layer(state: DecodeState, si: int, q: torch.Tensor,
     as a device scalar)."""
     if lsh.estimator == "lsh":
         k_new = (k_new.float() - state.avg_k[si]).to(k_new.dtype)
-    _append(state.hot_k[si], k_new, state.hot_len)
-    _append(state.hot_v[si], v_new, state.hot_len)
+    at = _append_at(state.hot_len, state.hot_k[si].shape[2])
+    _append(state.hot_k[si], k_new, at)
+    _append(state.hot_v[si], v_new, at)
     o_hot, lse_hot = flash_decode(q, state.hot_k[si], state.hot_v[si],
                                   state.hot_len + 1)
     if lsh.estimator == "lsh":

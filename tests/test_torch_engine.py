@@ -485,6 +485,9 @@ def test_port_and_chip_smoke_import_no_jax():
     files = sorted((ROOT / "magicpig_tpu_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 10
+    names = {f.relative_to(ROOT).as_posix() for f in files}
+    assert {f"magicpig_tpu_torch/{m}.py" for m in (
+        "runtime/serving", "runtime/synthetic", "utils/profiling")} <= names
     for f in files:
         bad = _imported_roots(f) & {"jax", "jaxlib", "flax", "magicpig_tpu"}
         assert not bad, f"{f.relative_to(ROOT)} imports {sorted(bad)}"

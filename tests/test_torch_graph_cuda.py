@@ -302,3 +302,71 @@ def test_cuda_graphed_step_equals_eager_llama_8b_width_block_topk4(cuda):
     assert dict(LAUNCHES) == counted
     for step, (g, e) in enumerate(zip(graphed, eager)):
         assert torch.equal(g, e), f"step {step}: max |diff| {(g - e).abs().max()}"
+
+
+
+def _state_tensors(llm):
+    st = llm.state
+    return [t for f in dataclasses.fields(st)
+            for t in (getattr(st, f.name) if isinstance(getattr(st, f.name), list)
+                      else [getattr(st, f.name)])]
+
+
+def _replays_equal_eager(llm, tokens, n):
+    """n graphed steps from `tokens`, then the state put back as it was
+    before them (in place) and the eager step on the same inputs: logits
+    bit for bit."""
+    tensors = _state_tensors(llm)
+    saved = [t.clone() for t in tensors]
+    inputs, graphed = _run(llm.inference, tokens, n)
+    for t, s in zip(tensors, saved):
+        t.copy_(s)
+    for tok, g in zip(inputs, graphed):
+        e = llm._decode(tok)[0]
+        assert torch.equal(g, e), f"max |diff| {(g - e).abs().max()}"
+
+
+@pytest.mark.parametrize("form", ["lsh_bf16", "block_topk_int4"])
+def test_cuda_graph_survives_chunked_admission_and_release(cuda, form):
+    """A graph captured before a `release_slot` and a chunked prefill
+    (`start_prefill`, 512-token chunks, flash_prefill at a query offset)
+    into the freed slot is not captured again, and its replays after them
+    equal the eager step on the same state, bit for bit."""
+    llm = _engine(cuda, form)
+    llm.chunk_size = 512
+    prompts = _prompts(llm)
+    _, logits = _run(llm.inference, _prefill(llm, prompts), 3)
+    graph = llm._graph
+    assert graph is not None and llm.graph_captures == 1
+    llm.release_slot(1)
+    assert all(int(x[1]) == 0 for x in (llm.state.pos, llm.state.dense_len,
+                                        llm.state.hot_len, llm.state.off_len))
+    reset_launches()
+    cp = llm.start_prefill(_prompts(llm, seed=6, lengths=(1300,))[0],
+                           request_id=1)
+    while not cp.done:
+        cp.step()
+    assert cp.n_chunks == 3 and LAUNCHES["flash_prefill"] == 3 * 2
+    tokens = torch.stack([logits[-1][0].argmax(), cp.logits[0].argmax()])
+    _replays_equal_eager(llm, tokens, 4)
+    assert llm._graph is graph and llm.graph_captures == 1
+
+
+def test_cuda_idle_slot_past_hot_capacity_under_the_graph(cuda):
+    """Slot 1 is never filled while slot 0 takes two requests of 250
+    steps: the batched step takes slot 1's hot length to 500, past its
+    384-row hot cache (the append clamps to the last row, the kernels read
+    at most the capacity). The graph replays with no device assert, and
+    its last steps equal the eager step on the same state, bit for bit."""
+    llm = _engine(cuda, "lsh_bf16")
+    for seed in (5, 7):
+        (prompt,) = _prompts(llm, seed=seed, lengths=(1500,))
+        tok = llm.prefill(prompt, request_id=0).argmax(-1)
+        tokens = torch.cat([tok, tok])
+        for _ in range(246):
+            tokens = llm.inference(tokens).argmax(-1)
+        torch.cuda.synchronize()
+    assert int(llm.state.hot_len[1]) == 492 > llm.state.hot_k[0].shape[2] == 384
+    _replays_equal_eager(llm, tokens, 4)
+    torch.cuda.synchronize()
+    assert int(llm.state.hot_len[1]) == 496 and llm.graph_captures == 1
