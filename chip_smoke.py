@@ -74,8 +74,15 @@ Phases, each announced by one flushed progress line with elapsed seconds:
      prefill at a query offset (the last 256 queries of a 98000-token
      prefix, as a chunk of a chunked prefill runs it; queries scaled so
      that each attends a few keys) at d 64 and 128
-     ("flash_prefill[_d128]_q_offset"); each within `TOL` of its plain
-     version and its planted fault rejected;
+     ("flash_prefill[_d128]_q_offset"); then the sliding-window rows at
+     Mistral-7B-v0.1's shapes (window 4096, rows "..._window"): flash
+     prefill over 16000 tokens with the window (the bound counts the
+     pairs in the window; SDPA with the band mask beside it), flash decode
+     from a first row per request at the windowed serve's dense shape
+     (lengths 16001 and 4091, first rows 11905 and 0), bf16 and int8, and
+     at its hot caches with the sinks fully and partly aged (first rows 4
+     and 2), the start ignored and one tile late both rejected; each within
+     `TOL` of its plain version and its planted fault rejected;
   3. serve: `LLM("llama-3.2-1b")` at full width and depth with random
      weights drawn on the card; two requests (12000 and 7000 tokens)
      prefilled into slots 0 and 1, 16 greedy decode steps, clear(), a third
@@ -139,7 +146,17 @@ Phases, each announced by one flushed progress line with elapsed seconds:
      synchronous run; then idle slots: a `Scheduler` over four slots fed
      four requests one at a time, 200 tokens each, so the last slot's hot
      length passes its 384-row cache before it is used: the graphed run
-     raises no device assert and its tokens equal an eager engine's;
+     raises no device assert and its tokens equal an eager engine's. Before
+     the 98K serves, Mistral-7B-v0.1 from its published config.json values
+     (sliding window 4096) at full width and depth, random bf16 weights,
+     LSH K=10, L=150, prompts of 16000 and 4090 tokens: offload lengths
+     4032 and 4022 (the window's clip), 16 steps counted and held to the
+     eager step bit for bit while request 1's sinks leave the window, the
+     first step with the window off moving request 0's logits past 5e-2
+     of their largest, a warm prefill and the decode profiled; then a
+     two-layer checkpoint at its width written, read back by
+     `load_checkpoint` byte for byte, and `examples/generation_torch.py`
+     run on it in its own process over a 6240-byte prompt;
   4. reference: a two-layer cut of the same width at K=1, L=32 (nearly
      every key sampled) on the card against the same engine on the CPU
      (the plain versions); then the same cut under block_topk with bf16
@@ -165,7 +182,11 @@ Phases, each announced by one flushed progress line with elapsed seconds:
      (K=8, L=75) over bf16 on the card alone; then chunked prefill
      (`start_prefill`, 512-token chunks) at d 64 (1B width) and d 128 (the
      8B's head shape) against the CPU, 2 steps of LSH at K=1, L=32,
-     launches counted.
+     launches counted; then with a sliding window of 512 at Mistral's head
+     shape (hidden 1024, 8/2 heads of 128) against the CPU, 4 steps each:
+     LSH K=1, L=32 over a 510-token prompt whose position crosses the
+     window, the same over int8 offload and dense on 1500 tokens, and
+     chunked prefill.
 Any failure raises. The last two lines are the kernels' JSON and the result
 JSON; the card's name and power limit come just before them.
 """
@@ -835,6 +856,158 @@ def phase_kernels_long(torch, F, dev):
     return results
 
 
+def phase_kernels_window(torch, F, dev):
+    """The sliding-window forms at Mistral-7B-v0.1's shapes (Hq 32, Hkv 8,
+    d 128, window 4096), rows "..._window": flash_prefill over a 16000-token
+    prompt with the window (`prefill_window_kernel`); flash_decode with a
+    first row per request at the serve's dense shape, bf16 and int8, and
+    at its hot caches with the sinks fully and partly aged
+    (`window_decode_kernels`). Each against its plain version within `TOL`,
+    its planted faults rejected."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4096)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev, dtype=torch.bfloat16)
+
+    results = prefill_window_kernel(torch, F, rnd, MISTRAL_PROMPTS[0],
+                                    MISTRAL_V01["sliding_window"])
+    torch.cuda.empty_cache()
+    results.update(window_decode_kernels(torch, F, rnd))
+    log_timings(results)
+    return results
+
+
+def prefill_window_kernel(torch, F, rnd, s: int, window: int,
+                          d: int = 128) -> dict:
+    """flash_prefill over one s-token prompt with a sliding window (query t
+    sees keys (t - window, t]), Hq 32, Hkv 8, head dim d, against its plain
+    version; a skipped 64-token V tile and the window ignored (causal over
+    the whole prefix) both rejected; the library call SDPA with the band
+    mask (the memory-efficient kernel, which takes a boolean mask; K and V
+    expanded to the 32 query heads beforehand). The bound counts only the
+    (query, key) pairs inside the window. Row "flash_prefill_d128_window"."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from magicpig_tpu_torch.ops import attention
+    from magicpig_tpu_torch.ops.kernels import flash_prefill
+
+    hq, hkv = 32, 8
+    name = f"flash_prefill_d{d}_window"
+    q, k, v = rnd(1, s, hq, d), rnd(1, s, hkv, d), rnd(1, s, hkv, d)
+    dev = q.device
+    length = torch.full((1,), s, dtype=torch.int32, device=dev)
+    got = flash_prefill(q, k, v, length, window=window)
+    want = attention.flash_prefill(q, k, v, length, window=window)
+    tol = TOL["flash_prefill"]
+    err, share = check_close(name, got, want, tol)
+    teeth = check_rejects(name, attention.flash_prefill(
+        q, k, drop_tile(v, 1, s // 2), length, window=window), want, tol)
+    teeth_w = check_rejects(name, attention.flash_prefill(q, k, v, length),
+                            want, tol, "the window ignored")
+    qt = q.transpose(1, 2).contiguous()
+    kt, vt = (x.repeat_interleave(hq // hkv, dim=2).transpose(1, 2).contiguous()
+              for x in (k, v))
+    pos = torch.arange(s, device=dev)
+    band = ((pos[None] <= pos[:, None])
+            & (pos[:, None] - pos[None] < window))           # [S, S]
+
+    def library():
+        with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
+            return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=band)
+
+    try:
+        library()
+    except RuntimeError as e:     # no kernel of the library takes this call
+        log(f"  {name}: no library time (SDPA: {str(e)[:200]})")
+        library = None
+
+    pairs = sum(min(t + 1, window) for t in range(s))
+    nbytes = 2 * (2 * q.numel() + 2 * k.numel())          # q, out, k, v
+    row = dict(
+        max_abs_err=err, tol=tol, bound=bound_ms(nbytes, 4 * d * hq * pairs),
+        **timings(lambda: flash_prefill(q, k, v, length, window=window),
+                  lambda: attention.flash_prefill(q, k, v, length,
+                                                  window=window),
+                  library))
+    log(f"kernel {name} err {err:.2e}, worst element {share:.2f} of its "
+        f"limit (tol {tol}); a skipped tile's worst element {teeth:.1f}x, the "
+        f"window ignored {teeth_w:.1f}x the limit; {pairs / (s * (s + 1) / 2):.3f}"
+        " of the causal pairs")
+    return {name: row}
+
+
+def window_decode_kernels(torch, F, rnd, d: int = 128, hq: int = 32) -> dict:
+    """flash_decode with a first row `start` per request, as the windowed
+    serve calls it: at the dense layers' shape of its first step (B=2 in a
+    16384-row cache, lengths 16001 and 4091, starts 11905 and 0: request 0
+    attends its last 4096 rows), bf16 and int8 (row "flash_decode[_int8]
+    _d128_window"), and at the sparse layers' hot caches (capacity 384,
+    lengths 69 and 72, starts 4 and 2: request 0's four sinks out of the
+    window, request 1's first two; bf16, "flash_decode_d128_hot_window").
+    Each against its plain version with the same `start`, the bytes and
+    the bound counted from each start; the plain version with the start
+    ignored and with it one 64-token tile late both rejected; SDPA with
+    the range as a mask beside the bf16 rows."""
+    from magicpig_tpu_torch.ops import attention
+    from magicpig_tpu_torch.ops.kernels import flash_decode
+    from magicpig_tpu_torch.ops.quant import quantize_rows
+
+    b, hkv = 2, 8
+    results = {}
+    shapes = (("", 16384, [MISTRAL_PROMPTS[0] + 1, MISTRAL_PROMPTS[1] + 1],
+               list(MISTRAL_STEP_START)),
+              ("_hot", 384, [69, 72], [4, 2]))
+    for where, cap, lens, starts in shapes:
+        q, k, v = rnd(b, hq, d), rnd(b, hkv, cap, d), rnd(b, hkv, cap, d)
+        dev = q.device
+        length = torch.tensor(lens, dtype=torch.int32, device=dev)
+        start = torch.tensor(starts, dtype=torch.int32, device=dev)
+        late = start + 64
+        rows = torch.arange(cap, device=dev)[None]
+        mask = ((rows >= start[:, None]) & (rows < length[:, None]))[:, None,
+                                                                     None]
+        q4 = q[:, :, None]
+        kq, ks = quantize_rows(k)
+        vq, vs = quantize_rows(v)
+        forms = [(f"flash_decode_d{d}{where}_window", (k, v, None, None),
+                  d * 2, lambda: F.scaled_dot_product_attention(
+                      q4, k, v, attn_mask=mask, enable_gqa=True))]
+        if not where:
+            forms.append((f"flash_decode_int8_d{d}_window", (kq, vq, ks, vs),
+                          d + 4, None))
+        n_rows = sum(n - lo for n, lo in zip(lens, starts))
+        for name, (kk, vv, ksc, vsc), row_bytes, library in forms:
+            got, got_lse = flash_decode(q, kk, vv, length, ksc, vsc, start)
+            want, want_lse = attention.full_decode(q, kk, vv, length, ksc,
+                                                   vsc, start)
+            tol = TOL["flash_decode"]
+            err, share = check_close(name, got, want, tol)
+            err = max(err, check_close(f"{name} lse", got_lse, want_lse,
+                                       TOL["lse"])[0])
+            ignored = check_rejects(name, attention.full_decode(
+                q, kk, vv, length, ksc, vsc)[0], want, tol,
+                "the start ignored")
+            shifted = check_rejects(name, attention.full_decode(
+                q, kk, vv, length, ksc, vsc, late)[0], want, tol,
+                "the start one tile late")
+            nbytes = (n_rows * hkv * row_bytes * 2 + q.numel() * 2
+                      + b * hq * (d + 1) * 4 + 2 * b * 4)
+            results[name] = dict(
+                max_abs_err=err, tol=tol,
+                bound=bound_ms(nbytes, 4 * d * hq * n_rows),
+                **timings(lambda: flash_decode(q, kk, vv, length, ksc, vsc,
+                                               start),
+                          lambda: attention.full_decode(q, kk, vv, length,
+                                                        ksc, vsc, start),
+                          library))
+            log(f"kernel {name} err {err:.2e}, worst element {share:.2f} of "
+                f"its limit (tol {tol}); the start ignored {ignored:.1f}x, "
+                f"one tile late {shifted:.1f}x the limit; {n_rows} of "
+                f"{sum(lens)} rows in range")
+    return results
+
+
 def prefill_offset_kernel(torch, F, rnd, d: int) -> dict:
     """flash_prefill as the last chunk of a chunked prefill calls it: the
     queries of a 256-token span at positions 97744..97999 (q_offset) over
@@ -937,8 +1110,8 @@ def decode_split_sweep(torch, q, k, v, length, k_scale=None,
         out, lse = torch.empty((b, hq, d), **f32), torch.empty((b, hq), **f32)
         times[chunk] = round(device_ms(lambda: _lib.launch(
             name, "mp_flash_decode", q.device, q, k, v, k_scale, v_scale,
-            length, part_o, part_lse, tickets, out, lse, b, s, hq, hkv, d,
-            chunk, d ** -0.5)) * 1e3, 2)
+            length, None, part_o, part_lse, tickets, out, lse, b, s, hq, hkv,
+            d, chunk, d ** -0.5)) * 1e3, 2)
     log(f"  {name} (Hq {hq}) device us by split tokens: {times}")
     return times
 
@@ -2078,10 +2251,11 @@ def profile_decode(torch, llm, decode, tokens, label: str) -> None:
 
 def serve_counted(torch, dev, prompts, lsh, label: str, expect_fn,
                   weight_quant: str = "none", params=None, check_frac=None,
-                  projections=None, model: str = "llama-3.2-1b",
-                  prefill_profile: bool = False):
-    """A serve of `model` (Llama-3.2-1B by default) at full width and
-    depth: `params`, or random weights
+                  projections=None, model="llama-3.2-1b",
+                  prefill_profile: bool = False, after_prefill=None,
+                  after_check=None):
+    """A serve of `model` (a preset's name, Llama-3.2-1B by default, or a
+    `ModelConfig`) at full width and depth: `params`, or random weights
     drawn (and quantized as `weight_quant` says, q/k/v and gate|up fused) on
     the card; the two first requests prefilled, 16 greedy steps (the first
     with each sparse layer's sampled fraction recorded; on the card the
@@ -2091,7 +2265,10 @@ def serve_counted(torch, dev, prompts, lsh, label: str, expect_fn,
     realized fraction checked (`check_frac(fraction)` raises, or in (0, 1)
     for a sparse engine), finite logits; then the graphed run held to the
     eager step (`check_graphed`), then (with `prefill_profile`) a warm
-    prefill timed and profiled, then a profiled decode pass of each."""
+    prefill timed and profiled, then a profiled decode pass of each.
+    `after_prefill(llm)` runs after the counted run's prefills and
+    `after_check(llm, graphed)` after `check_graphed`; either raises on a
+    fault."""
     import dataclasses
 
     from magicpig_tpu_torch.config import preset
@@ -2099,10 +2276,11 @@ def serve_counted(torch, dev, prompts, lsh, label: str, expect_fn,
                                                 reset_launches)
     from magicpig_tpu_torch.runtime.engine import LLM
 
-    cfg = preset(model)
+    cfg = preset(model) if isinstance(model, str) else model
     if weight_quant != "none":
         cfg = dataclasses.replace(cfg, weight_quant=weight_quant,
                                   fuse_small_linears=True)
+    lens = " + ".join(str(p.numel()) for p in prompts[:2])
     t = time.perf_counter()
     llm = LLM(cfg, batch_size=2, max_length=16384, lsh=lsh, params=params,
               projections=projections, device=dev, seed=1)
@@ -2119,6 +2297,8 @@ def serve_counted(torch, dev, prompts, lsh, label: str, expect_fn,
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t
     finite = torch.isfinite(l0).all() & torch.isfinite(l1).all()
+    if after_prefill is not None:
+        after_prefill(llm)
     decode.record = []
     t = time.perf_counter()
     tokens, first_fracs = first_step_fractions(
@@ -2133,7 +2313,7 @@ def serve_counted(torch, dev, prompts, lsh, label: str, expect_fn,
     expect = dict.fromkeys(launches, 0)
     expect.update(expect_fn(llm))
     expect_w4 = expect.pop("w4_shapes", {})
-    log(f"serve {label}: prefill 12000 + 7000 tokens {prefill_s:.2f} s, "
+    log(f"serve {label}: prefill {lens} tokens {prefill_s:.2f} s, "
         f"decode B=2 {decode_ms:.2f} ms/step; avg sparsity "
         f"{llm.avg_sparsity:.6f}; launches {launches}"
         + (f", int4 matmul by weight shape {w4_shapes}" if w4_shapes else ""))
@@ -2145,11 +2325,13 @@ def serve_counted(torch, dev, prompts, lsh, label: str, expect_fn,
     elif lsh.enabled and not 0 < llm.avg_sparsity < 1:
         raise AssertionError(f"avg sparsity {llm.avg_sparsity} not in (0, 1)")
     check_graphed(torch, llm, prompts, graphed, label)
+    if after_check is not None:
+        after_check(llm, graphed)
     del graphed
     if prefill_profile:
         tokens = decode(profile_prefill(torch, llm, prompts, f"{label} "), 4)
-    profile_decode(torch, llm, decode, tokens, f"{label} decode B=2, 12000 + "
-                   "7000 tokens")
+    profile_decode(torch, llm, decode, tokens, f"{label} decode B=2, {lens} "
+                   "tokens")
     if not bool(finite & decode.finite):
         raise AssertionError(f"non-finite logits in the {label} serve")
     return dict(prefill_s=prefill_s, decode_ms=decode_ms,
@@ -2412,6 +2594,266 @@ def phase_serve_3b(torch, dev):
     return serve_counted(torch, dev, prompts, LSHConfig(K=10, L=150),
                          "llama-3.2-3b LSH", expect, model="llama-3.2-3b",
                          prefill_profile=True)
+
+
+# Mistral-7B-v0.1 as its published config.json gives it
+# (huggingface.co/mistralai/Mistral-7B-v0.1, config.json): Mistral's 7B
+# shape with a sliding window of 4096 tokens.
+MISTRAL_V01 = dict(
+    architectures=["MistralForCausalLM"], vocab_size=32000, hidden_size=4096,
+    intermediate_size=14336, num_hidden_layers=32, num_attention_heads=32,
+    num_key_value_heads=8, hidden_act="silu", rms_norm_eps=1e-5,
+    rope_theta=10000.0, max_position_embeddings=32768, sliding_window=4096,
+    tie_word_embeddings=False, bos_token_id=1, eos_token_id=2,
+    torch_dtype="bfloat16")
+# Request 0 a window and more past its start (the offload clipped, the
+# dense layers bounded); request 1 six tokens short of the window, so that
+# its sinks leave it one by one during 16 steps (positions 4096-4099).
+MISTRAL_PROMPTS = (16000, 4090)
+MISTRAL_STEP_START = (11905, 0)     # the dense decode's first row at step 1
+
+
+def mistral_config(**overrides):
+    """The port's config of Mistral-7B-v0.1 from its published values
+    (`MISTRAL_V01`, with `overrides`), through `from_hf_config`."""
+    from magicpig_tpu_torch.config import ModelConfig
+
+    return ModelConfig.from_hf_config(dict(MISTRAL_V01, **overrides),
+                                      name="mistral-7b-v0.1")
+
+
+def phase_serve_mistral(torch, dev):
+    """Mistral-7B-v0.1 at full width and depth (32 layers, hidden 4096,
+    32/8 heads of 128, intermediate 14336, vocab 32000, untied lm_head,
+    sliding window 4096; the config built by `from_hf_config` from the
+    published config.json values), random bf16 weights drawn on the card
+    by the engine (`seed=1`), LSH K=10, L=150 (masked), dense layers 0 and
+    16, two requests of 16000 and 4090 random tokens: request 0's offload
+    clipped to its last 4096 tokens less the 64 local ones (4032 rows; the
+    JAX fill's clip), its dense layers attending 4096 of its 16001 rows at
+    the first step (flash decode from row 11905); request 1 (4022 offload
+    rows) crossing the window during the 16 steps, its sinks leaving the
+    hot partial one by one. 16 greedy steps (the first eager, 15 replays),
+    every launch counted, the graphed run held to the eager step bit for
+    bit, the sampled fraction in (0, 1); then the planted fault: the first
+    step again with the window off (every decode bound 0) must move
+    request 0's logits by more than `SCHED_TOL` of their largest value and
+    leave request 1's (whose rows all lie in the window at that step) bit
+    for bit; then a warm prefill and the decode steps profiled."""
+    import dataclasses
+
+    from magicpig_tpu_torch.config import LSHConfig
+
+    cfg = mistral_config()
+    window, label = cfg.sliding_window, "mistral-7b-v0.1 LSH window 4096"
+    lsh = LSHConfig(K=10, L=150)
+    sink, local = lsh.num_sink_tokens, lsh.num_local_tokens
+    off_want = [p - local - max(sink, p - window) for p in MISTRAL_PROMPTS]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    prompts = [torch.randint(1, cfg.vocab_size, (n,), generator=gen,
+                             device=dev) for n in MISTRAL_PROMPTS]
+
+    def expect(llm):
+        n = llm.config.num_hidden_layers
+        n_sparse = sum(1 for kind, _ in llm.groups if kind == "sparse")
+        return dict(flash_prefill_d128=2 * n, flash_decode_d128=16 * n,
+                    lsh_fused_decode_d128=16 * n_sparse)
+
+    def after_prefill(llm):
+        off, dense = llm.state.off_len.tolist(), llm.state.dense_len.tolist()
+        starts = [max(0, n + 1 - window) for n in dense]
+        log(f"serve {label}: offload lengths {off} (the window's clip: "
+            f"{off_want}), dense lengths {dense}, the first step's dense "
+            f"rows from {starts}; request 1's sinks leave the window at "
+            f"positions {window}-{window + sink - 1}")
+        if off != off_want or starts != list(MISTRAL_STEP_START):
+            raise AssertionError(f"serve {label}: offload lengths {off} / "
+                                 f"first rows {starts} != {off_want} / "
+                                 f"{MISTRAL_STEP_START}")
+
+    def after_check(llm, graphed):
+        tokens, windowed = graphed["record"][0]
+        llm.clear()
+        llm.prefill(prompts[0], request_id=0)
+        llm.prefill(prompts[1], request_id=1)
+        llm.config = dataclasses.replace(cfg, sliding_window=None)
+        try:
+            faulty, _ = llm._decode(tokens)
+        finally:
+            llm.config = cfg
+        moved = float((faulty[0].float() - windowed[0].float()).abs().max()
+                      / windowed[0].float().abs().max())
+        same = torch.equal(faulty[1], windowed[1])
+        log(f"serve {label}: the window off at the first step moves request "
+            f"0's logits by {moved:.3e} of their largest ({moved / SCHED_TOL:.1f}x "
+            f"the limit {SCHED_TOL}); request 1's equal bit for bit {same}")
+        if not (moved > SCHED_TOL and same):
+            raise AssertionError(f"serve {label}: the window changes nothing "
+                                 "the tolerance can see")
+
+    return serve_counted(torch, dev, prompts, lsh, label, expect, model=cfg,
+                         prefill_profile=True, after_prefill=after_prefill,
+                         after_check=after_check)
+
+
+def write_safetensors(torch, path, tensors: dict) -> None:
+    """A .safetensors file of `tensors` (bf16, f16 or f32, on any device),
+    written as the format defines it: an 8-byte little-endian header
+    length, the JSON header (names in sorted order, each with its dtype,
+    shape and byte offsets in the data), padded with spaces to 8 bytes,
+    then the raw data."""
+    codes = {torch.bfloat16: "BF16", torch.float16: "F16",
+             torch.float32: "F32"}
+    header, offset = {}, 0
+    for name in sorted(tensors):
+        t = tensors[name]
+        n = t.numel() * t.element_size()
+        header[name] = {"dtype": codes[t.dtype], "shape": list(t.shape),
+                        "data_offsets": [offset, offset + n]}
+        offset += n
+    raw = json.dumps(header).encode()
+    raw += b" " * (-len(raw) % 8)
+    with open(path, "wb") as f:
+        f.write(len(raw).to_bytes(8, "little"))
+        f.write(raw)
+        for name in sorted(tensors):
+            t = tensors[name].contiguous().reshape(-1).view(torch.uint8)
+            f.write(t.cpu().numpy().data)
+
+
+ROOT = pathlib.Path(__file__).resolve().parent
+CKPT_DIR = ROOT / "_ckpt"           # the phase's checkpoints (git-ignored)
+GENERATION_TEXT = ("MagicPIG samples the keys of a long context by "
+                   "locality-sensitive hashing and attends them on the card. "
+                   ) * 60             # 6240 bytes: past the window of 4096
+
+
+def phase_checkpoint(torch, dev):
+    """The local-checkpoint path: a two-layer checkpoint at Mistral-7B-v0.1
+    width (random bf16 weights drawn on the card, HF names and [out, in]
+    layouts, the lm_head untied; ~1.4 GB in two shards) and its config.json
+    (the published values, two layers) written with `write_safetensors`
+    (the card has no safetensors package) into a temporary directory under
+    `_ckpt/`; loaded by `load_checkpoint` onto the card, each tensor the
+    reader gives and each weight of the params byte-equal to what was
+    written (the linear weights transposed) and the config that of the
+    published values; then `examples/generation_torch.py --model <dir> --M
+    8192 --G 16` on a 6240-byte text file (the byte tokenizer: 6241 tokens,
+    past the window, so that dense layer 0 is bounded and sparse layer 1's
+    offload clipped) in its own process, which must exit 0 and report its
+    prefill and generation."""
+    import dataclasses
+    import tempfile
+
+    from magicpig_tpu_torch.models.loader import (SafetensorsFiles,
+                                                  load_checkpoint)
+
+    n_layers = 2
+    cfg = mistral_config(num_hidden_layers=n_layers)
+    h, inter = cfg.hidden_size, cfg.intermediate_size
+    hq, hkv = (cfg.num_attention_heads * cfg.head_dim,
+               cfg.num_key_value_heads * cfg.head_dim)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(11)
+
+    def draw(*shape):
+        x = torch.randn(shape, generator=gen, device=dev, dtype=torch.bfloat16)
+        return x.mul_(shape[-1] ** -0.5)
+
+    def norm():
+        return 1 + draw(h) * 0.1
+
+    sd = {"model.embed_tokens.weight": draw(cfg.vocab_size, h),
+          "model.norm.weight": norm(), "lm_head.weight": draw(cfg.vocab_size, h)}
+    for i in range(n_layers):
+        pre = f"model.layers.{i}."
+        sd.update({pre + "self_attn.q_proj.weight": draw(hq, h),
+                   pre + "self_attn.k_proj.weight": draw(hkv, h),
+                   pre + "self_attn.v_proj.weight": draw(hkv, h),
+                   pre + "self_attn.o_proj.weight": draw(h, hq),
+                   pre + "mlp.gate_proj.weight": draw(inter, h),
+                   pre + "mlp.up_proj.weight": draw(inter, h),
+                   pre + "mlp.down_proj.weight": draw(h, inter),
+                   pre + "input_layernorm.weight": norm(),
+                   pre + "post_attention_layernorm.weight": norm()})
+    nbytes = sum(t.numel() * t.element_size() for t in sd.values())
+    CKPT_DIR.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=CKPT_DIR) as tmp:
+        path = pathlib.Path(tmp) / "mistral-7b-v0.1-2l"
+        path.mkdir()
+        (path / "config.json").write_text(json.dumps(
+            dict(MISTRAL_V01, num_hidden_layers=n_layers)))
+        t = time.perf_counter()
+        shards = ({k: v for k, v in sd.items() if ".layers." in k},
+                  {k: v for k, v in sd.items() if ".layers." not in k})
+        for i, shard in enumerate(shards):
+            write_safetensors(torch, path / f"model-{i + 1:05d}-of-00002"
+                              ".safetensors", shard)
+        write_s = time.perf_counter() - t
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        got_cfg, params = load_checkpoint(str(path), 8192, device=dev)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t
+        want_cfg = dataclasses.replace(cfg, name=path.name)
+        if got_cfg != want_cfg:
+            raise AssertionError(f"checkpoint config {got_cfg} != {want_cfg}")
+        with SafetensorsFiles(sorted(str(p) for p in
+                                     path.glob("*.safetensors")), dev) as files:
+            if sorted(files) != sorted(sd):
+                raise AssertionError("the reader's names differ from the "
+                                     "written")
+            same = all(torch.equal(files[k], v) for k, v in sd.items())
+        lw = params.layers
+        pairs = [(params.embed, sd["model.embed_tokens.weight"]),
+                 (params.lm_head, sd["lm_head.weight"].T),
+                 (params.final_ln, sd["model.norm.weight"])]
+        for i in range(n_layers):
+            pre = f"model.layers.{i}."
+            pairs += [(getattr(lw, name)[i], sd[pre + hf].T) for name, hf in (
+                ("wq", "self_attn.q_proj.weight"),
+                ("wk", "self_attn.k_proj.weight"),
+                ("wv", "self_attn.v_proj.weight"),
+                ("wo", "self_attn.o_proj.weight"),
+                ("w_gate", "mlp.gate_proj.weight"),
+                ("w_up", "mlp.up_proj.weight"),
+                ("w_down", "mlp.down_proj.weight"))]
+            pairs += [(lw.ln_attn[i], sd[pre + "input_layernorm.weight"]),
+                      (lw.ln_mlp[i], sd[pre + "post_attention_layernorm.weight"])]
+        same_params = all(a.dtype == b.dtype and torch.equal(a, b)
+                          for a, b in pairs)
+        log(f"checkpoint: {nbytes / 1e9:.2f} GB of bf16 in 2 shards written "
+            f"in {write_s:.1f} s, loaded by load_checkpoint in {load_s:.2f} s "
+            f"({nbytes / 1e9 / load_s:.2f} GB/s, the files in the page "
+            f"cache); every tensor byte-equal {same}, every weight of the "
+            f"params {same_params}; config {got_cfg.name}, window "
+            f"{got_cfg.sliding_window}, {got_cfg.num_hidden_layers} layers")
+        if not (same and same_params):
+            raise AssertionError("the loaded checkpoint differs from the "
+                                 "written one")
+        del params, pairs, lw, sd, shards
+        gc.collect()
+        torch.cuda.empty_cache()
+        data = path / "prompt.txt"
+        data.write_text(GENERATION_TEXT)
+        cmd = [sys.executable, str(ROOT / "examples" / "generation_torch.py"),
+               "--model", str(path), "--M", "8192", "--G", "16", "--data",
+               str(data), "--device", dev.type]
+        t = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True, cwd=ROOT,
+                              timeout=600)
+        gen_s = time.perf_counter() - t
+    lines = proc.stdout.splitlines()
+    info = [l for l in lines if l.startswith("[INFO]")]
+    n_prompt = len(GENERATION_TEXT.encode()) + 1           # the byte tokenizer
+    log(f"generation_torch.py: exit {proc.returncode} in {gen_s:.1f} s; "
+        f"{info}; text {lines[-1][:80]!r}" if lines else "no output")
+    if (proc.returncode != 0 or f"[INFO] Prefill {n_prompt} tokens" not in info
+            or not any(l.startswith("[INFO] Generate") for l in info)):
+        raise AssertionError(f"generation_torch.py failed:\n{proc.stdout[-2000:]}"
+                             f"\n{proc.stderr[-4000:]}")
+    return dict(load_s=load_s, gen_s=gen_s)
 
 
 def state_bytes(state) -> int:
@@ -3221,6 +3663,59 @@ def phase_reference_g3(torch, dev):
     return counted
 
 
+def phase_reference_window(torch, dev):
+    """Sliding-window cuts against the CPU: two layers at Mistral-7B-v0.1's
+    head shape cut narrow (hidden 1024, 8/2 heads of 128, intermediate
+    3584, vocab 32000) with a window of 512 tokens (the hot capacity is
+    384), 4 steps each: LSH K=1, L=32 over a 510-token prompt, whose
+    position crosses the window at the third step (the dense layer's first
+    row and the sinks' aging move under the replayed graph); the same over
+    int8 offload and a dense int8 layer on a 1500-token prompt (the offload
+    clipped to 448 rows; flash decode's int8 form with a first row); and
+    chunked prefill (512-token chunks, each chunk's queries windowed) of
+    the 1500-token prompt. Launches counted exactly. Returns the int8
+    form's launches with a window, from its cut."""
+    from magicpig_tpu_torch.config import LSHConfig
+
+    cfg = mistral_config(hidden_size=1024, intermediate_size=3584,
+                         num_attention_heads=8, num_key_value_heads=2,
+                         sliding_window=512)
+    steps = 4
+
+    def expect(launches, label, prefills=2, **want):
+        full = dict.fromkeys(launches, 0)
+        full.update(flash_prefill_d128=prefills, **want)
+        if launches != full:
+            raise AssertionError(f"{label}: launches {launches} != path's "
+                                 f"{full}")
+
+    lsh = LSHConfig(K=1, L=32, dense_layers=(0,))
+    label = "window 512 LSH K=1/L=32, crossing the window"
+    card, host, launches = card_vs_cpu(torch, dev, lsh, label, 510,
+                                       steps=steps, cfg=cfg)
+    expect(launches, label, flash_decode_d128=2 * steps,
+           lsh_fused_decode_d128=steps)
+    if card.state.pos.tolist() != [514]:
+        raise AssertionError(f"{label}: position {card.state.pos.tolist()}")
+    lsh = LSHConfig(K=1, L=32, dense_layers=(0,), offload_quant="int8",
+                    dense_quant="int8")
+    label = "window 512 LSH K=1/L=32, int8 offload and dense"
+    card, host, launches = card_vs_cpu(torch, dev, lsh, label, 1500,
+                                       steps=steps, cfg=cfg)
+    expect(launches, label, flash_decode_d128=steps,
+           flash_decode_int8_d128=steps, lsh_fused_decode_int8_d128=steps)
+    counted = {"flash_decode_int8_d128": launches["flash_decode_int8_d128"]}
+    if card.state.off_len.tolist() != [448]:
+        raise AssertionError(f"{label}: offload {card.state.off_len.tolist()}")
+    lsh = LSHConfig(K=1, L=32, dense_layers=(0,))
+    label = "window 512 LSH K=1/L=32, chunked prefill"
+    card, host, launches = card_vs_cpu(torch, dev, lsh, label, 1500,
+                                       steps=steps, cfg=cfg, chunk=512)
+    expect(launches, label, prefills=3 * 2, flash_decode_d128=2 * steps,
+           lsh_fused_decode_d128=steps)
+    return counted
+
+
 def card_counted(torch, dev, lsh, label: str, steps: int, cfg=None) -> dict:
     """Two layers at 1B width (or `cfg`) on the card alone, layer 1 sparse:
     a 1100-token prefill and `steps` greedy steps, finite logits. Returns
@@ -3302,6 +3797,8 @@ def main() -> int:
         torch.cuda.empty_cache()
         kern.update(phase_kernels_long(torch, F, dev))
         torch.cuda.empty_cache()
+        kern.update(phase_kernels_window(torch, F, dev))
+        torch.cuda.empty_cache()
         sass = sass_counts(dump)
     finally:
         dump[0].kill()
@@ -3333,6 +3830,14 @@ def main() -> int:
     serve_3b = phase_serve_3b(torch, dev)
     gc.collect()
     torch.cuda.empty_cache()
+    log("phase 3 serve mistral-7b-v0.1 (sliding window)")
+    serve_mistral = phase_serve_mistral(torch, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("phase 3 load_checkpoint and examples/generation_torch.py")
+    phase_checkpoint(torch, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
     log(f"phase 3 serve llama-3.2-1b at {LONG_P} tokens")
     long_lsh, long_bt4 = phase_serve_long(torch, dev)
     log("phase 3 serve llama-3.2-1b through the Scheduler")
@@ -3347,6 +3852,7 @@ def main() -> int:
     forms_d128 = phase_reference_d128(torch, dev)
     forms_g3 = phase_reference_g3(torch, dev)
     chunked = phase_reference_chunked(torch, dev)
+    window = phase_reference_window(torch, dev)
 
     # Each kernel's launches come from the counted run of the path that
     # uses it: the LSH serve, the block_topk int8 serve (rescore pipeline),
@@ -3522,6 +4028,22 @@ def main() -> int:
         launches[name] = count
         launches_of[name] = (form if name.startswith("exact") else
                              f"{form} {'chunked' if 'q_offset' in name else '98K'}")
+    # The sliding window (rows "..._window"): the prefill's and the bf16
+    # decode's launches from the Mistral-7B-v0.1 serve (every dense and hot
+    # decode there takes a first row), the int8 decode's from phase 4's
+    # windowed int8 cut.
+    for name, form, count in (
+            ("flash_prefill_d128_window", "flash_prefill_d128",
+             serve_mistral["launches"]["flash_prefill_d128"]),
+            ("flash_decode_d128_window", "flash_decode_d128",
+             serve_mistral["launches"]["flash_decode_d128"]),
+            ("flash_decode_d128_hot_window", "flash_decode_d128",
+             serve_mistral["launches"]["flash_decode_d128"]),
+            ("flash_decode_int8_d128_window", "flash_decode_int8_d128",
+             window["flash_decode_int8_d128"])):
+        sources[name] = sources[form]
+        launches[name] = count
+        launches_of[name] = f"{form} window"
     for shapes, run in ((W4_SHAPES, full_int8), (W4_SHAPES_8B, full_int8_8b)):
         for name, kin, out in shapes:
             sources[name] = sources["w4_matmul"]

@@ -48,9 +48,8 @@ WEIGHT_QUANTS = ("none", "int8", "int4")
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """Llama-family transformer shape (full causal attention: the JAX
-    package's sliding window is not ported yet; `from_hf_config` refuses a
-    config that sets one)."""
+    """Llama-family transformer shape; with `sliding_window` (Mistral
+    v0.1) position t attends keys in (t - window, t]."""
 
     name: str = "llama-tiny"
     vocab_size: int = 128256
@@ -67,6 +66,9 @@ class ModelConfig:
     tie_word_embeddings: bool = False
     eos_token_ids: tuple[int, ...] = (128001, 128008, 128009)
     dtype: torch.dtype = torch.bfloat16
+    # Sliding-window attention (Mistral v0.1): position t attends keys in
+    # (t - window, t]; None attends the whole causal prefix.
+    sliding_window: int | None = None
     # Matmul weight storage: "none" (the model dtype), "int8" (W8A8:
     # per-output-channel int8 weights, per-token int8 activations) or
     # "int4" (group-128 int4 weights, nibble-packed; models/llama.py).
@@ -82,18 +84,13 @@ class ModelConfig:
     @classmethod
     def from_hf_config(cls, path_or_dict, name: str = "hf-model") -> "ModelConfig":
         """Build from a HuggingFace config.json (a path or the parsed dict),
-        as the JAX package's `ModelConfig.from_hf_config` does. A config with
-        a sliding window raises `NotImplementedError`: the port attends the
-        whole causal prefix."""
+        as the JAX package's `ModelConfig.from_hf_config` does, its
+        `sliding_window` included."""
         if isinstance(path_or_dict, (str, os.PathLike)):
             with open(path_or_dict) as f:
                 cfg = json.load(f)
         else:
             cfg = dict(path_or_dict)
-        if cfg.get("sliding_window") is not None:
-            raise NotImplementedError(
-                f"sliding_window={cfg['sliding_window']} is not ported; the "
-                "port attends the whole causal prefix")
         rs = cfg.get("rope_scaling") or None
         scaling = None
         if rs is not None:
@@ -123,6 +120,7 @@ class ModelConfig:
             max_position_embeddings=cfg.get("max_position_embeddings", 131072),
             tie_word_embeddings=cfg.get("tie_word_embeddings", False),
             eos_token_ids=eos,
+            sliding_window=cfg.get("sliding_window"),
         )
 
 

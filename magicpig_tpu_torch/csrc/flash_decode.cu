@@ -3,9 +3,11 @@
 //
 // Replaces magicpig_tpu/ops/pallas/decode.py::flash_decode (the pallas_call
 // at decode.py:184), bf16 K/V, or int8 K/V with per-token f32 scales (its
-// quant=True form). One query per request attends a cache prefix of
-// length[b]; the G query heads of a kv head share every K/V read; fully
-// masked rows give out 0 and lse -inf.
+// quant=True form). One query per request attends the cache rows
+// [start[b], length[b]) (start null: 0; a sliding window's lower bound,
+// which the JAX package applies as a mask over the whole prefix); the G
+// query heads of a kv head share every K/V read; fully masked rows give out
+// 0 and lse -inf.
 //
 // Bound on the H100: reading K and V once, 256 bytes per token and kv head
 // at d = 64 in bf16 (512 at d = 128), 136 in int8 (rows and scales; 264 at
@@ -19,16 +21,17 @@
 //    (contiguous in the [B, Hkv, S, d] layout: 8 KB each in bf16 at d = 64,
 //    16 KB at d = 128, 4 KB in int8 at d = 64 and 8 KB at 128) with
 //    cp.async.bulk into a three-stage
-//    ring, only the rows below the length, and signals a full mbarrier per
-//    stage;
+//    ring, only the rows in [start, length): tiles wholly before start are
+//    never copied, and the tile that holds start is copied from that row
+//    on; it signals a full mbarrier per stage;
 //  - four compute warps, 16 tokens of each tile each, no block barrier per
 //    tile: a lane holds 8 dims of one token (16-byte shared loads, 32 / (d
 //    / 8) tokens a pass, conflict-free), the G scores are reduced over the
 //    d / 8 lanes of a token, the online softmax is per warp in registers
 //    (log2 units) over 4 passes at a time (so that the scores of a pass
 //    group take as many registers at d = 128 as at d = 64), and each warp
-//    releases the stage on its empty mbarrier; rows past the length are
-//    never read from device memory, and their scores and V values are
+//    releases the stage on its empty mbarrier; rows outside [start, length)
+//    are never read from device memory, and their scores and V values are
 //    selected away, not multiplied (stale shared memory may hold NaNs);
 //  - int8 rows are widened in registers; the K scale multiplies the score
 //    and the V scale the probability, which is rounded to bf16 as the TPU
@@ -38,7 +41,12 @@
 //    writes its partial, and the last block of the (request, kv head) to
 //    take a ticket (an atomic after __threadfence) merges the partials by
 //    LSE and resets the ticket to 0 for the next call. So one launch per
-//    call, and no memset.
+//    call, and no memset;
+//  - the active splits of a request are those that hold a row of [start,
+//    length): a split wholly before start returns at once, as one past the
+//    length does, writes no partial and takes no ticket, so the merge never
+//    sees it; the active ones number their partials from 0. An empty
+//    range (start >= length) gives out 0 and lse -inf.
 #include <type_traits>
 
 #include "common.cuh"
@@ -87,16 +95,19 @@ __device__ __forceinline__ void load8(const int8_t* p, float (&x)[8]) {
 }
 
 // T: __nv_bfloat16, or int8_t with the row scales k_scale, v_scale [B,
-// Hkv, S] (null for bf16). kD: the head dim, 64 or 128. part_o [nsplit,
-// B * Hq, kD] and part_lse [nsplit, B * Hq] hold the partials of requests
-// with more than one split; tickets [B * Hkv] is 0 between calls.
+// Hkv, S] (null for bf16). kD: the head dim, 64 or 128. start_row [B]:
+// each request's first row (null: 0). part_o [nsplit, B * Hq, kD] and
+// part_lse [nsplit, B * Hq] hold the partials of requests with more than
+// one active split; tickets [B * Hkv] is 0 between calls.
 template <int G, typename T, int kD>
 __global__ void __launch_bounds__(kThreads)
 flash_decode_kernel(const __nv_bfloat16* __restrict__ q,
                     const T* __restrict__ k, const T* __restrict__ v,
                     const float* __restrict__ k_scale,
                     const float* __restrict__ v_scale,
-                    const int* __restrict__ length, float* __restrict__ part_o,
+                    const int* __restrict__ length,
+                    const int* __restrict__ start_row,
+                    float* __restrict__ part_o,
                     float* __restrict__ part_lse, int* __restrict__ tickets,
                     float* __restrict__ out, float* __restrict__ lse,
                     int batch, int s_cap, int hkv, int chunk,
@@ -115,19 +126,22 @@ flash_decode_kernel(const __nv_bfloat16* __restrict__ q,
   const int split = blockIdx.x, kh = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int hq = hkv * G;
-  const int len = min(length[b], s_cap);
-  const int n_act = (len + chunk - 1) / chunk;    // splits with tokens
+  const int len = max(min(length[b], s_cap), 0);
+  const int lo = start_row == nullptr ? 0 : min(max(start_row[b], 0), len);
+  const int first = lo / chunk;                   // first split with rows
+  const int n_act = lo < len ? (len + chunk - 1) / chunk - first : 0;
   const size_t row = static_cast<size_t>(b) * hq + kh * G;  // first head row
-  if (split >= n_act) {
-    if (split == 0)                               // an empty request
+  if (split < first || split >= first + n_act) {
+    if (n_act == 0 && split == 0)                 // an empty range
       for (int i = tid; i < G * kD; i += kThreads) {
         out[row * kD + i] = 0.f;
         if (i < G) lse[row + i] = mp::kNegInf;
       }
     return;
   }
-  const int start = split * chunk;
-  const int stop = min(len, start + chunk);
+  // The split's 64-token tiles, from the one that holds its first row.
+  const int start = max(split * chunk, lo / kTile * kTile);
+  const int stop = min(len, (split + 1) * chunk);
   const int ntiles = (stop - start + kTile - 1) / kTile;
   const size_t head = static_cast<size_t>(b) * hkv + kh;
   uint8_t* k_s = smem;                            // stage i at i * tile bytes
@@ -152,12 +166,15 @@ flash_decode_kernel(const __nv_bfloat16* __restrict__ q,
         const int s = i % kStages;
         if (i >= kStages) hp::mbar_wait(&empty[s], (i / kStages - 1) & 1);
         const int t0 = start + i * kTile;
-        const uint32_t bytes =
-            min(kTile, stop - t0) * kD * static_cast<int>(sizeof(T));
+        const int r0 = max(t0, lo) - t0;          // the tile's rows before lo
+        constexpr int kRowBytes = kD * static_cast<int>(sizeof(T));
+        const uint32_t bytes = (min(kTile, stop - t0) - r0) * kRowBytes;
         hp::mbar_arrive_expect_tx(&full[s], 2 * bytes);
-        const size_t off = static_cast<size_t>(t0) * kD;
-        hp::bulk_load(k_s + s * kTileBytes, k_h + off, bytes, &full[s]);
-        hp::bulk_load(v_s + s * kTileBytes, v_h + off, bytes, &full[s]);
+        const size_t off = static_cast<size_t>(t0 + r0) * kD;
+        hp::bulk_load(k_s + s * kTileBytes + r0 * kRowBytes, k_h + off, bytes,
+                      &full[s]);
+        hp::bulk_load(v_s + s * kTileBytes + r0 * kRowBytes, v_h + off, bytes,
+                      &full[s]);
       }
     }
     __syncwarp();
@@ -192,7 +209,7 @@ flash_decode_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
       for (int p = 0; p < kP; ++p) {
         const int t = t0 + tok + kR * p;
-        valid[p] = t < stop;
+        valid[p] = t >= lo && t < stop;
         ksc[p] = kQ && valid[p] ? __ldg(ks_h + t) : 1.f;
         vsc[p] = kQ && valid[p] ? __ldg(vs_h + t) : 1.f;
       }
@@ -289,8 +306,9 @@ flash_decode_kernel(const __nv_bfloat16* __restrict__ q,
   }
   __syncthreads();
 
-  // The block's (out / l, natural-log lse) per head.
-  const size_t part = static_cast<size_t>(split) * batch * hq + row;
+  // The block's (out / l, natural-log lse) per head; partials numbered
+  // from the first active split.
+  const size_t part = static_cast<size_t>(split - first) * batch * hq + row;
   for (int idx = tid; idx < G * kD; idx += kThreads) {
     const int g = idx / kD;
     float mx = mp::kNegInf;
@@ -352,9 +370,10 @@ flash_decode_kernel(const __nv_bfloat16* __restrict__ q,
 template <int G, typename T, int kD>
 int launch_decode(const void* q, const void* k, const void* v,
                   const void* k_scale, const void* v_scale,
-                  const void* length, void* part_o, void* part_lse,
-                  void* tickets, void* out, void* lse, int batch, int s_cap,
-                  int hkv, int chunk, float sm_scale, cudaStream_t stream) {
+                  const void* length, const void* start_row, void* part_o,
+                  void* part_lse, void* tickets, void* out, void* lse,
+                  int batch, int s_cap, int hkv, int chunk, float sm_scale,
+                  cudaStream_t stream) {
   static unsigned smem_set = 0;
   const cudaError_t err =
       hp::allow_smem(flash_decode_kernel<G, T, kD>, smem_bytes<T, kD>(),
@@ -366,7 +385,8 @@ int launch_decode(const void* q, const void* k, const void* v,
       static_cast<const __nv_bfloat16*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const float*>(k_scale),
       static_cast<const float*>(v_scale), static_cast<const int*>(length),
-      static_cast<float*>(part_o), static_cast<float*>(part_lse),
+      static_cast<const int*>(start_row), static_cast<float*>(part_o),
+      static_cast<float*>(part_lse),
       static_cast<int*>(tickets), static_cast<float*>(out),
       static_cast<float*>(lse), batch, s_cap, hkv, chunk,
       sm_scale * mp::kLog2e);
@@ -377,11 +397,12 @@ int launch_decode(const void* q, const void* k, const void* v,
 
 // k_scale and v_scale null: bf16 K/V; both set: int8 K/V with those
 // per-token scales [B, Hkv, S]. head_dim: 64 or 128. hq / hkv: 1, 2, 4 or
-// 8, or 3 at head dim 128.
+// 8, or 3 at head dim 128. start_row: [B] int32 first rows, or null for 0.
 // `chunk`: tokens per split, a positive multiple of 64.
 extern "C" int mp_flash_decode(const void* q, const void* k, const void* v,
                                const void* k_scale, const void* v_scale,
-                               const void* length, void* part_o,
+                               const void* length, const void* start_row,
+                               void* part_o,
                                void* part_lse, void* tickets, void* out,
                                void* lse, int batch, int s_cap, int hq,
                                int hkv, int head_dim, int chunk,
@@ -394,9 +415,9 @@ extern "C" int mp_flash_decode(const void* q, const void* k, const void* v,
   if (batch == 0 || s_cap == 0) return static_cast<int>(cudaSuccess);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define MP_DECODE_FORM(G, T, D)                                              \
-  launch_decode<G, T, D>(q, k, v, k_scale, v_scale, length, part_o,          \
-                         part_lse, tickets, out, lse, batch, s_cap, hkv,     \
-                         chunk, sm_scale, st)
+  launch_decode<G, T, D>(q, k, v, k_scale, v_scale, length, start_row,       \
+                         part_o, part_lse, tickets, out, lse, batch, s_cap,  \
+                         hkv, chunk, sm_scale, st)
 #define MP_DECODE_CASE(G)                                                    \
   case G:                                                                    \
     if (head_dim == 128)                                                     \

@@ -6,8 +6,9 @@ against them.
 
   * `flash_prefill`: causal attention of a query span against the KV
     prefix, online softmax over KV blocks;
-  * `full_decode`: one-query dense attention over a cache prefix with an
-    explicit length, returning (out, lse) for the LSE merge;
+  * `full_decode`: one-query dense attention over a cache range (an
+    explicit length and an optional first row), returning (out, lse) for
+    the LSE merge;
   * `collision_mask` / `lsh_masked_decode`: the LSH-sampled estimator in its
     dense masked form (>=2-of-L collision mask + debias, exact, polynomial
     or none, + masked softmax);
@@ -134,11 +135,14 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def full_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 length: torch.Tensor, k_scale: torch.Tensor | None = None,
-                v_scale: torch.Tensor | None = None):
-    """Single-token decode attention over a cache prefix, with LSE.
+                v_scale: torch.Tensor | None = None,
+                start: torch.Tensor | None = None):
+    """Single-token decode attention over a cache range, with LSE.
 
     q: [B, Hq, d]; k, v: [B, Hkv, S, d] (int8 with k_scale, v_scale
-    [B, Hkv, S]); length: [B] valid tokens.
+    [B, Hkv, S]); length: [B] valid tokens; start: [B] first valid token
+    (None: 0), so request b attends rows [start[b], length[b]): a sliding
+    window's lower bound, which the JAX package applies as an `extra_mask`.
     Returns (out [B, Hq, d] f32, lse [B, Hq] f32, natural log).
     """
     b, hq, d = q.shape
@@ -146,8 +150,10 @@ def full_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     scale = 1.0 / math.sqrt(d)
     qh = q.float().reshape(b, hkv, hq // hkv, d)
     scores = _raw_scores(qh, k, k_scale) * scale
-    valid = (torch.arange(s, device=q.device)[None, :]
-             < length.to(torch.int64)[:, None])              # [B, S]
+    rows = torch.arange(s, device=q.device)[None, :]
+    valid = rows < length.to(torch.int64)[:, None]           # [B, S]
+    if start is not None:
+        valid = valid & (rows >= start.to(torch.int64)[:, None])
     scores = torch.where(valid[:, None, None], scores,
                          torch.full_like(scores, _NEG_INF))
     out, lse = _softmax_pv(scores, v, v_scale)

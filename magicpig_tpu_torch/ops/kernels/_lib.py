@@ -78,7 +78,7 @@ _F = ctypes.c_float
 # C entry points: argument types, each returning cudaGetLastError().
 _SIGNATURES = {
     "mp_flash_prefill": [_P] * 7 + [_I] * 7 + [_F, _P],
-    "mp_flash_decode": [_P] * 11 + [_I] * 6 + [_F, _P],
+    "mp_flash_decode": [_P] * 12 + [_I] * 6 + [_F, _P],
     "mp_lsh_fused_decode": [_P] * 16 + [_I] * 8 + [_F, _I, _P, _P],
     "mp_lsh_masked_attention": [_P] * 15 + [_I] * 8 + [_F, _I, _P, _P],
     "mp_collision_words": [_P] * 4 + [_I] * 7 + [_P],

@@ -3,7 +3,9 @@
 
 Replaces the TPU kernel `magicpig_tpu/ops/pallas/decode.py::flash_decode`
 (pallas_call at decode.py:184): bf16 K/V, or int8 K/V with per-token f32
-scales, at head dim 64 or 128 (group size 3 at 128 only), counted apart as
+scales, at head dim 64 or 128 (group size 3 at 128 only), over each
+request's rows [start, length) (`start` optional: a sliding window's lower
+bound, which the JAX package applies as a mask), counted apart as
 "flash_decode", "flash_decode_int8", "flash_decode_d128" and
 "flash_decode_int8_d128" (`launch_name`). On the H100 it is bound by
 reading K and V once; the kernel streams K/V tiles with bulk copies, splits
@@ -108,21 +110,27 @@ def check_decode_inputs(name: str, q: torch.Tensor, k: torch.Tensor,
 
 def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  length: torch.Tensor, k_scale: torch.Tensor | None = None,
-                 v_scale: torch.Tensor | None = None):
-    """Single-query attention over a cache prefix.
+                 v_scale: torch.Tensor | None = None,
+                 start: torch.Tensor | None = None):
+    """Single-query attention over a cache range.
 
     q: [B, Hq, d]; k, v: [B, Hkv, S, d], bf16, or int8 with f32 scales
     k_scale, v_scale [B, Hkv, S] (d 64 or 128 on the card); length: [B]
-    int32 valid tokens.
+    int32 valid tokens; start: [B] int32 first valid token, or None for 0
+    (the kernel reads no tile that lies wholly before it).
     Returns (out [B, Hq, d] f32, lse [B, Hq] f32); a request with no valid
     token gives out 0 and lse -inf. CPU tensors take the plain version.
     """
     if q.device.type == "cpu":
-        return attention.full_decode(q, k, v, length, k_scale, v_scale)
+        return attention.full_decode(q, k, v, length, k_scale, v_scale, start)
     b, hq, d = q.shape
     quant = k_scale is not None
     name = launch_name(quant, d)
     check_decode_inputs(name, q, k, v, length, k_scale, v_scale, HEAD_DIMS)
+    if start is not None:
+        _lib.require_cuda(name, q, start)
+        _lib.require(start.dtype == torch.int32 and start.shape == (b,),
+                     f"{name}: start must be int32 [B]")
     hkv, s = k.shape[1], k.shape[2]
     tickets, num_sms = device_state(q.device, b * hkv)
     chunk = split_tokens(s, b, hkv, num_sms)
@@ -133,6 +141,6 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty((b, hq, d), **f32)
     lse = torch.empty((b, hq), **f32)
     _lib.launch(name, "mp_flash_decode", q.device, q, k, v, k_scale, v_scale,
-                length, part_o, part_lse, tickets, out, lse, b, s, hq, hkv,
-                d, chunk, 1.0 / math.sqrt(d))
+                length, start, part_o, part_lse, tickets, out, lse, b, s, hq,
+                hkv, d, chunk, 1.0 / math.sqrt(d))
     return out, lse

@@ -23,7 +23,10 @@ the device and synchronises once. The model's weights follow
 kernel at decode size), and the caches `LSHConfig.offload_quant` and
 `dense_quant` (bf16, or int8 rows through the kernels' int8 forms; int4
 offload K through the int8 LSH form, or packed through the block kernels'
-int4 forms).
+int4 forms). A config with a sliding window (`ModelConfig.sliding_window`,
+Mistral v0.1) takes it through every stage: the prefill's and the chunks'
+flash prefill, the sparse fill's offload clip, and the decode step's
+flash decode bounds (`runtime/server.py`), eager and graphed alike.
 """
 
 from __future__ import annotations
@@ -132,6 +135,15 @@ class LLM:
             lsh = LSHConfig(K=abs(K), L=L, generation_buffer=generation_buffer,
                             estimator="quest" if K < 0 else "lsh")
         self.lsh = lsh
+        window = self.config.sliding_window
+        if (window is not None and lsh.enabled
+                and window <= state_lib.hot_capacity(lsh)):
+            # Only sink tokens may leave the window (decode_sparse_layer):
+            # every local and generated hot token must stay inside it.
+            raise ValueError(
+                f"sliding_window {window} must exceed the hot capacity "
+                f"{state_lib.hot_capacity(lsh)} (sink + local + generation "
+                "buffer)")
         self.batch_size = batch_size
         self.max_length = max_length
         self.chunk_size = chunk_size
@@ -192,13 +204,14 @@ class LLM:
         for i, (kind, gi) in enumerate(self.groups):
             lp = params.layers.layer(i)
             q, k, v = qkv_proj(lp, cfg, hidden, positions, params.cos, params.sin)
-            attn = flash_prefill(q, k, v, length)              # [1, P, Hq, d]
+            attn = flash_prefill(q, k, v, length,
+                                 window=cfg.sliding_window)    # [1, P, Hq, d]
             hidden = post_attention(lp, cfg, attn.reshape(1, p, -1), hidden)
             if kind == "dense":
                 fill_dense_layer(self.state, gi, request_id, k[0], v[0])
             else:
                 fill_sparse_layer(self.state, gi, request_id, k[0], v[0],
-                                  self.projections, lsh)
+                                  self.projections, lsh, cfg.sliding_window)
         logits = unembed(params, cfg, hidden[:, -1])           # [1, V]
         self._admitted(request_id, p)
         return logits
@@ -258,7 +271,8 @@ class LLM:
             self._stage_k[i, off:off + c] = k[0]
             self._stage_v[i, off:off + c] = v[0]
             attn = flash_prefill(q, self._stage_k[i][None],
-                                 self._stage_v[i][None], length, q_offset)
+                                 self._stage_v[i][None], length, q_offset,
+                                 window=cfg.sliding_window)
             hidden = post_attention(lp, cfg, attn.reshape(1, c, -1), hidden)
         last = min(max(true_len - 1 - off, 0), c - 1)
         return unembed(params, cfg, hidden[:, last])           # [1, V]
@@ -271,7 +285,8 @@ class LLM:
                 fill_dense_layer(self.state, gi, request_id, k, v)
             else:
                 fill_sparse_layer(self.state, gi, request_id, k, v,
-                                  self.projections, self.lsh)
+                                  self.projections, self.lsh,
+                                  self.config.sliding_window)
         self._admitted(request_id, true_len)
 
     def release_slot(self, slot: int) -> None:
@@ -290,6 +305,7 @@ class LLM:
         """One decode step of the whole batch: (logits [B, V], mean sampled
         fraction of the sparse layers as a device scalar)."""
         cfg, lsh, params, st = self.config, self.lsh, self.params, self.state
+        window = cfg.sliding_window
         b = tokens.shape[0]
         hidden = params.embed[tokens]                          # [B, h]
         positions = st.pos.long()[:, None]
@@ -301,10 +317,10 @@ class LLM:
                                params.cos, params.sin)
             q, k, v = q[:, 0], k[:, 0], v[:, 0]                # [B, H, d]
             if kind == "dense":
-                out = decode_dense_layer(st, gi, q, k, v)
+                out = decode_dense_layer(st, gi, q, k, v, window)
             else:
                 out, frac = decode_sparse_layer(st, gi, q, k, v,
-                                                self.projections, lsh)
+                                                self.projections, lsh, window)
                 frac_sum = frac_sum + frac
                 n_sparse += 1
             hidden = post_attention(lp, cfg, out.reshape(b, 1, -1),

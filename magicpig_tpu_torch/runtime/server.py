@@ -24,6 +24,14 @@
     debias. block_topk runs the block scorer, top-k blocks, and an attend
     over them; the block kernels take packed int4 K as stored.
 
+With a sliding window (`ModelConfig.sliding_window`, Mistral v0.1) the
+sparse fill clips the offload region to the prompt's last `window` tokens
+(older ones can never re-enter the window), the dense decode attends the
+rows in the window, and the sparse decode drops each sink token from the
+hot partial once the position has moved a window past it; both pass that
+lower bound to flash decode as its `start`, computed on the device from
+the state's lengths, so that a captured decode step replays it anew.
+
 The state is updated in place (see `runtime/state.py`). Fill takes the
 prompt's K/V at its true length, [P, Hkv, d] with P a host integer.
 """
@@ -76,15 +84,23 @@ def fill_dense_layer(state: DecodeState, di: int, req: int,
 
 
 def _split_offload(k_full: torch.Tensor, v_full: torch.Tensor,
-                   lsh: LSHConfig):
+                   lsh: LSHConfig, window: int | None = None):
     """Sink/local/offload partition of a prompt's K/V [P, Hkv, d].
 
-    Returns (off_k, off_v [P - sink - local, Hkv, d], hot_k, hot_v
-    [sink + local, Hkv, d]), un-centered.
+    With a sliding `window` the offload starts at max(sink, P - window):
+    older tokens can never re-enter the window, so the estimators never
+    see them. (Decode moves the window past this clip by at most the
+    generation buffer; the offload keys in that sliver stay, as in the JAX
+    package.)
+
+    Returns (off_k, off_v [off_len, Hkv, d], hot_k, hot_v
+    [sink + local, Hkv, d]), un-centered; off_len = P - sink - local
+    without a window.
     """
     p = k_full.shape[0]
     sink, local = lsh.num_sink_tokens, lsh.num_local_tokens
-    off = slice(sink, p - local)
+    off_start = sink if window is None else max(sink, p - window)
+    off = slice(off_start, max(p - local, off_start))
     hot_k = torch.cat([k_full[:sink], k_full[p - local:]], dim=0)
     hot_v = torch.cat([v_full[:sink], v_full[p - local:]], dim=0)
     return k_full[off], v_full[off], hot_k, hot_v
@@ -92,10 +108,12 @@ def _split_offload(k_full: torch.Tensor, v_full: torch.Tensor,
 
 def fill_sparse_layer(state: DecodeState, si: int, req: int,
                       k_full: torch.Tensor, v_full: torch.Tensor,
-                      projections: torch.Tensor, lsh: LSHConfig) -> None:
-    """Partition a prompt's K/V [P, Hkv, d] into hot + offload and build the
-    estimator's state (module docstring)."""
-    off_k, off_v, hot_k, hot_v = _split_offload(k_full, v_full, lsh)
+                      projections: torch.Tensor, lsh: LSHConfig,
+                      window: int | None = None) -> None:
+    """Partition a prompt's K/V [P, Hkv, d] into hot + offload (the offload
+    clipped to a sliding `window`) and build the estimator's state (module
+    docstring)."""
+    off_k, off_v, hot_k, hot_v = _split_offload(k_full, v_full, lsh, window)
     off_len, hot_len = off_k.shape[0], hot_k.shape[0]
     if lsh.estimator == "lsh":
         off_k, hot_k = _fill_lsh(state, si, req, off_k, hot_k, projections,
@@ -163,10 +181,13 @@ def _append(cache: torch.Tensor, new: torch.Tensor, at) -> None:
 
 
 def decode_dense_layer(state: DecodeState, di: int, q: torch.Tensor,
-                       k_new: torch.Tensor, v_new: torch.Tensor) -> torch.Tensor:
-    """Append + full attention over the prefix. q: [B, Hq, d]; k/v_new:
-    [B, Hkv, d]. Returns out [B, Hq, d] f32. With dense int8 the new row is
-    quantized and its scales appended too."""
+                       k_new: torch.Tensor, v_new: torch.Tensor,
+                       window: int | None = None) -> torch.Tensor:
+    """Append + full attention over the prefix, or with a sliding `window`
+    over its last `window` rows (the query at row dense_len sees rows j
+    with dense_len - j < window). q: [B, Hq, d]; k/v_new: [B, Hkv, d].
+    Returns out [B, Hq, d] f32. With dense int8 the new row is quantized
+    and its scales appended too."""
     k_scale = v_scale = None
     at = _append_at(state.dense_len, state.dense_k[di].shape[2])
     if state.dense_k_scale:
@@ -177,8 +198,10 @@ def decode_dense_layer(state: DecodeState, di: int, q: torch.Tensor,
         _append(v_scale, v_sc, at)
     _append(state.dense_k[di], k_new, at)
     _append(state.dense_v[di], v_new, at)
+    start = (None if window is None else
+             torch.clamp(state.dense_len + 1 - window, min=0))
     out, _ = flash_decode(q, state.dense_k[di], state.dense_v[di],
-                          state.dense_len + 1, k_scale, v_scale)
+                          state.dense_len + 1, k_scale, v_scale, start)
     return out
 
 
@@ -254,17 +277,23 @@ def _block_topk_partial(state: DecodeState, si: int, q: torch.Tensor,
 
 def decode_sparse_layer(state: DecodeState, si: int, q: torch.Tensor,
                         k_new: torch.Tensor, v_new: torch.Tensor,
-                        projections: torch.Tensor, lsh: LSHConfig):
+                        projections: torch.Tensor, lsh: LSHConfig,
+                        window: int | None = None):
     """Hot dense partial + the estimator's partial over the offload region,
-    merged by LSE. Returns (out [B, Hq, d] f32, sampled or covered fraction
-    as a device scalar)."""
+    merged by LSE. With a sliding `window`, sink token i (hot row i, at
+    absolute position i) drops out of the hot partial once pos - i >=
+    window; every later hot row is inside the window (`LLM` refuses a
+    window no larger than the hot capacity). Returns (out [B, Hq, d] f32,
+    sampled or covered fraction as a device scalar)."""
     if lsh.estimator == "lsh":
         k_new = (k_new.float() - state.avg_k[si]).to(k_new.dtype)
     at = _append_at(state.hot_len, state.hot_k[si].shape[2])
     _append(state.hot_k[si], k_new, at)
     _append(state.hot_v[si], v_new, at)
+    start = (None if window is None else
+             torch.clamp(state.pos - window + 1, 0, lsh.num_sink_tokens))
     o_hot, lse_hot = flash_decode(q, state.hot_k[si], state.hot_v[si],
-                                  state.hot_len + 1)
+                                  state.hot_len + 1, start=start)
     if lsh.estimator == "lsh":
         o_off, lse_off, frac = _lsh_partial(state, si, q, projections, lsh)
     else:

@@ -44,7 +44,8 @@ def synthetic_prefill(llm, seq_len: int, seed: int = 0):
             if kind == "dense":
                 fill_dense_layer(llm.state, gi, r, k, v)
             else:
-                fill_sparse_layer(llm.state, gi, r, k, v, llm.projections, lsh)
+                fill_sparse_layer(llm.state, gi, r, k, v, llm.projections, lsh,
+                                  cfg.sliding_window)
     for r in range(llm.batch_size):
         llm._admitted(r, seq_len)
     return llm

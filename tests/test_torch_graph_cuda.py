@@ -370,3 +370,39 @@ def test_cuda_idle_slot_past_hot_capacity_under_the_graph(cuda):
     _replays_equal_eager(llm, tokens, 4)
     torch.cuda.synchronize()
     assert int(llm.state.hot_len[1]) == 496 and llm.graph_captures == 1
+
+
+@pytest.mark.parametrize("form", ["lsh_bf16", "block_topk_int8"])
+def test_cuda_graphed_step_equals_eager_with_sliding_window(cuda, form):
+    """A two-layer cut at Mistral-7B's head shape (8/2 heads of 128) with a
+    sliding window of 512 tokens (the hot capacity is 384): request 0's
+    1500-token prompt has its offload clipped to the window (448 rows) and
+    its dense layer bounded by it; request 1's 508-token prompt crosses the
+    window during the 8 steps, so that its sinks age one by one (positions
+    512 to 515) under the replayed graph, whose bounds come from the state
+    on the card at each replay. Logits bit for bit against the eager step,
+    launches equal."""
+    from magicpig_tpu_torch.config import ModelConfig
+
+    cfg = ModelConfig(name="mistral-cut", vocab_size=32000, hidden_size=1024,
+                      intermediate_size=2048, num_hidden_layers=2,
+                      num_attention_heads=8, num_key_value_heads=2,
+                      head_dim=128, rope_theta=10000.0,
+                      max_position_embeddings=32768, eos_token_ids=(2,),
+                      sliding_window=512)
+    llm = LLM(cfg, batch_size=2, max_length=2048, lsh=FORMS[form][0],
+              device=cuda, seed=3)
+    prompts = _prompts(llm, lengths=(1500, 508))
+    first = _prefill(llm, prompts)
+    assert llm.state.off_len.tolist() == [448, 440]
+    reset_launches()
+    inputs, graphed = _run(llm.inference, first, 8)
+    counted = dict(LAUNCHES)
+    assert llm._graph is not None and llm.state.pos.tolist() == [1508, 516]
+    llm.clear()
+    _prefill(llm, prompts)
+    reset_launches()
+    eager = [llm._decode(tokens)[0] for tokens in inputs]
+    assert dict(LAUNCHES) == counted and counted["flash_decode_d128"] == 16
+    for step, (g, e) in enumerate(zip(graphed, eager)):
+        assert torch.equal(g, e), f"step {step}: max |diff| {(g - e).abs().max()}"

@@ -250,6 +250,75 @@ def test_cuda_flash_decode_edges(cuda, int8, g, capacity):
     assert _kernel_launches(lambda: flash_decode(q, k, v, length, ks, vs)) == 3
 
 
+# flash_decode's `start` forms: (head dim, group size), every group size
+# `_lib.check_group` takes at each head dim.
+START_FORMS = [(64, g) for g in (1, 2, 4, 8)] + [(128, g) for g in G128]
+
+
+@pytest.mark.parametrize("d,g", START_FORMS)
+@pytest.mark.parametrize("int8", [False, True])
+def test_cuda_flash_decode_start_matches_plain(cuda, int8, d, g):
+    """Each request attends rows [start, length) of a 16384-token cache
+    (1024-token splits at this batch): starts past whole splits (11905:
+    the 11 splits before it wholly masked, as a sliding window's dense
+    decode at 16000 tokens; 8999 in the split that holds the last row),
+    inside the first tile, on a tile and a split edge, at 0, and empty
+    ranges (start = length, start past it). Rows before each start and
+    past each length hold NaN (bf16) or NaN scales (int8), which the
+    kernel must never read: held to the plain version on the zeroed
+    cache. A start of zeros equals no start bit for bit; one launch a
+    call, counted by the wrapper and a captured graph's kernel nodes, and
+    a second call equal to the first (the tickets were reset)."""
+    rng = np.random.default_rng(31 + g + d)
+    hkv, cap = 2, 16384
+    lens = [16001, 9000, 5000, 700, 300, 64, 4096, 2048, 700, 16384]
+    starts = [11905, 8999, 0, 700, 1, 63, 1024, 64, 900, 12288]
+    b = len(lens)
+    q = _bf16(rng, b, g * hkv, d, device=cuda)
+    k = _bf16(rng, b, hkv, cap, d, device=cuda)
+    v = _bf16(rng, b, hkv, cap, d, device=cuda)
+    ks = vs = None
+    if int8:
+        k, ks = quantize_rows(k)
+        v, vs = quantize_rows(v)
+    zeroed = [x.clone() if x is not None else None for x in (k, v, ks, vs)]
+    for i, (lo, n) in enumerate(zip(starts, lens)):
+        for rows in (slice(0, lo), slice(n, cap)):
+            for x in zeroed:
+                if x is not None:
+                    x[i, :, rows] = 0
+            for x in ((ks, vs) if int8 else (k, v)):
+                x[i, :, rows] = float("nan")
+    length = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    start = torch.tensor(starts, dtype=torch.int32, device=cuda)
+    name = ("flash_decode" + ("_int8" if int8 else "")
+            + ("" if d == 64 else f"_d{d}"))
+    before = dict(LAUNCHES)
+    o, l = flash_decode(q, k, v, length, ks, vs, start)
+    assert LAUNCHES[name] == before[name] + 1
+    assert sum(LAUNCHES.values()) == sum(before.values()) + 1
+    kz, vz, ksz, vsz = zeroed
+    po, pl = tatt.full_decode(q, kz, vz, length, ksz, vsz, start)
+    assert torch.isfinite(o).all() and not torch.isnan(l).any()
+    _assert_within(o, po, rms_share=0.015)
+    _assert_within(l, pl, atol=1e-4, rtol=1e-5)
+    empty = [i for i, (lo, n) in enumerate(zip(starts, lens)) if lo >= n]
+    assert empty and (o[empty] == 0).all() and torch.isneginf(l[empty]).all()
+    o2, l2 = flash_decode(q, k, v, length, ks, vs, start)
+    assert torch.equal(o, o2) and torch.equal(l, l2)
+    assert _kernel_launches(
+        lambda: flash_decode(q, k, v, length, ks, vs, start)) == 3
+    # A start of zeros is no start at all (on the cache without NaN).
+    zero = torch.zeros_like(start)
+    assert all(torch.equal(a, b) for a, b in zip(
+        flash_decode(q, kz, vz, length, ksz, vsz, zero),
+        flash_decode(q, kz, vz, length, ksz, vsz)))
+    with pytest.raises(ValueError, match="start"):
+        flash_decode(q, k, v, length, ks, vs, start.long())
+    with pytest.raises(ValueError, match="start"):
+        flash_decode(q, k, v, length, ks, vs, start[:3])
+
+
 @pytest.mark.parametrize("K,L", [(10, 150), (6, 41)])
 def test_cuda_lsh_fused_int8_matches_plain(cuda, K, L):
     """int8 centered keys and values, norms of the dequantized keys."""

@@ -82,6 +82,14 @@ HF_DICTS = {
     "defaults_only": dict(
         vocab_size=1000, hidden_size=384, intermediate_size=1024,
         num_hidden_layers=3, num_attention_heads=6, num_key_value_heads=2),
+    # huggingface.co/mistralai/Mistral-7B-v0.1, config.json: the sliding
+    # window.
+    "mistral_v01": dict(
+        vocab_size=32000, hidden_size=4096, intermediate_size=14336,
+        num_hidden_layers=32, num_attention_heads=32, num_key_value_heads=8,
+        rms_norm_eps=1e-5, rope_theta=10000.0, max_position_embeddings=32768,
+        sliding_window=4096, tie_word_embeddings=False, bos_token_id=1,
+        eos_token_id=2),
 }
 
 
@@ -90,7 +98,7 @@ def test_from_hf_config_matches_jax(case):
     cfg = HF_DICTS[case]
     got = ModelConfig.from_hf_config(cfg, name=case)
     want = jcfg.ModelConfig.from_hf_config(cfg, name=case)
-    assert want.sliding_window is None
+    assert want.sliding_window == cfg.get("sliding_window")
     assert _fields(got) == _fields(want)
     assert ModelConfig.from_hf_config(cfg).name == "hf-model"
 
@@ -103,13 +111,6 @@ def test_from_hf_config_reads_a_config_json(tmp_path):
     assert _fields(got) == _fields(want)
     assert _fields(got) == _fields(dataclasses.replace(
         tcfg.preset("llama-3.1-8b"), name="8b"))
-
-
-def test_from_hf_config_refuses_a_sliding_window():
-    cfg = dict(HF_DICTS["defaults_only"], sliding_window=4096)
-    assert jcfg.ModelConfig.from_hf_config(cfg).sliding_window == 4096
-    with pytest.raises(NotImplementedError, match="sliding_window"):
-        ModelConfig.from_hf_config(cfg)
 
 
 # -- the HF state-dict loader --------------------------------------------------
