@@ -123,7 +123,10 @@ Phases, each announced by one flushed progress line with elapsed seconds:
      the d = 128 forms counted exactly, the graphed run held to the eager
      step, a warm 12000-token prefill and the decode steps profiled; then,
      on the same weights odd L (K=8, L=75: the scan and the d = 128 masked
-     attend); on W8A8 and int4 weights quantized from the same bf16 draw,
+     attend); on the same weights the reference's baselines, Quest (41
+     16-token pages), TopK and OracleSampling (328 tokens), dense layers 0
+     and 1, their realized fractions exact (656 / 9432, 328 / 9432); on
+     W8A8 and int4 weights quantized from the same bf16 draw,
      the 8B in bench.py's lsh, block_topk4 and full_int8 (+ W4) modes, each
      counted (each int4 shape too), held to its eager step and profiled;
      then `LLM("llama-3.2-3b")` at full width and depth (28 layers, 24/8
@@ -186,7 +189,12 @@ Phases, each announced by one flushed progress line with elapsed seconds:
      shape (hidden 1024, 8/2 heads of 128) against the CPU, 4 steps each:
      LSH K=1, L=32 over a 510-token prompt whose position crosses the
      window, the same over int8 offload and dense on 1500 tokens, and
-     chunked prefill.
+     chunked prefill; then the baselines at the 8B's head shape (layer 1's
+     query weight x4): TopK and Quest at full budget and OracleSampling at
+     2048 draws against the K=0 engine on layer 1's f32 output (2e-3,
+     0.15) and the logits (5e-2, 0.15), each tolerance rejecting the top
+     token of every head dropped, and at their default budgets the sparse
+     choice of a card engine's step, on its inputs, equal on the CPU.
 Any failure raises. The last two lines are the kernels' JSON and the result
 JSON; the card's name and power limit come just before them.
 """
@@ -2537,6 +2545,8 @@ def phase_serve_8b(torch, dev):
         model=model, params=params)
     gc.collect()
     torch.cuda.empty_cache()
+    serve_8b_baselines(torch, dev, prompts, params,
+                       counts(flash_decode_d128="all"))
     w8 = fuse_params(quantize_params(params, 8))
     del params
     gc.collect()
@@ -2566,6 +2576,59 @@ def phase_serve_8b(torch, dev):
         "llama-3.1-8b bench full_int8 (W4, dense int8)", full_int8_expect,
         weight_quant="int4", model=model, params=w4)
     return bf16, odd, lsh_mode, block_topk4, full_int8
+
+
+# The baselines' budgets in the 8B serves: a 16384-token offload capacity
+# (16384 - 68 rounded up to 128), 41 of its 1024 16-token Quest pages (4%,
+# rounded up), 328 TopK or OracleSampling tokens (2%, rounded up); the
+# realized fraction over offloads of 11932 and 6932 tokens is the budget
+# over their mean, 9432.
+BASELINE_BUDGETS = {"quest": 41 * 16, "topk": 328, "oracle_sampling": 328}
+
+
+def serve_8b_baselines(torch, dev, prompts, params, expect):
+    """The reference's accuracy baselines at the 8B's full width and depth
+    on the bf16 LSH serve's weights and prompts, each with its default
+    budget and dense layers {0, 1}: Quest (16-token pages, 4%), TopK (2%)
+    and OracleSampling (2%; its draws from the decode step, so the graphed
+    run draws as the eager one does). 16 steps each, counted (flash decode
+    in every layer, no other hand-written kernel: the baselines are plain
+    PyTorch), the realized fraction exact, held to the eager step bit for
+    bit and profiled. Returns the three serves' results."""
+    from magicpig_tpu_torch.config import LSHConfig
+    from magicpig_tpu_torch.runtime.server import _static_budget
+
+    def after_prefill(llm):
+        off_cap = llm.state.off_v[0].shape[2]
+        dense = [i for i, (kind, _) in enumerate(llm.groups) if kind == "dense"]
+        lsh = llm.lsh
+        pages = _static_budget(off_cap // lsh.quest_page_size,
+                               lsh.quest_budget_frac, floor=1)
+        tokens = _static_budget(off_cap, lsh.topk_budget_frac, floor=16)
+        if (off_cap, dense, llm.state.off_len.tolist(), pages * 16,
+                tokens) != (16384, [0, 1], [11932, 6932], 656, 328):
+            raise AssertionError(
+                f"{lsh.estimator}: offload capacity {off_cap}, dense layers "
+                f"{dense}, offloads {llm.state.off_len.tolist()}, budgets "
+                f"{pages * 16} / {tokens}")
+
+    results = {}
+    for estimator, budget in BASELINE_BUDGETS.items():
+        want = budget / 9432
+
+        def check_frac(frac, want=want, estimator=estimator):
+            log(f"serve llama-3.1-8b {estimator}: realized fraction "
+                f"{frac:.6f}, the budgets give {want:.6f}")
+            if abs(frac - want) > 1e-6:
+                raise AssertionError(f"avg sparsity {frac} != {want}")
+
+        results[estimator] = serve_counted(
+            torch, dev, prompts, LSHConfig(estimator=estimator),
+            f"llama-3.1-8b {estimator}", expect, model="llama-3.1-8b",
+            params=params, check_frac=check_frac, after_prefill=after_prefill)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return results
 
 
 def phase_serve_3b(torch, dev):
@@ -3716,6 +3779,233 @@ def phase_reference_window(torch, dev):
     return counted
 
 
+def recorded_layers(run):
+    """`run()` with the attention output of layer 1 (f32, before the bf16
+    cast) of each decode step recorded: the dense layer's of a K=0 engine,
+    the sparse layer's otherwise. Returns (what `run` returned, the
+    outputs). Only eager steps call the wrapped functions."""
+    from magicpig_tpu_torch.runtime import engine
+
+    dense, sparse, outs = (engine.decode_dense_layer,
+                           engine.decode_sparse_layer, [])
+
+    def rec_dense(state, di, *args, **kwargs):
+        out = dense(state, di, *args, **kwargs)
+        if di == 1:
+            outs.append(out.clone())
+        return out
+
+    def rec_sparse(*args, **kwargs):
+        out, frac = sparse(*args, **kwargs)
+        outs.append(out.clone())
+        return out, frac
+
+    engine.decode_dense_layer, engine.decode_sparse_layer = rec_dense, rec_sparse
+    try:
+        result = run()
+    finally:
+        engine.decode_dense_layer, engine.decode_sparse_layer = dense, sparse
+    return result, outs
+
+
+def drop_top_token():
+    """The planted fault of phase 4's baseline cuts, as a context: the
+    highest-scoring offload token of every head dropped from TopK's and
+    Quest's masks (`baselines._masked_softmax_wv`) and from oracle
+    sampling's draws (`baselines.sample_ids`)."""
+    import contextlib
+
+    import torch
+
+    from magicpig_tpu_torch.ops import baselines
+
+    @contextlib.contextmanager
+    def planted():
+        softmax_wv, sample_ids = baselines._masked_softmax_wv, baselines.sample_ids
+
+        def faulty_softmax_wv(scores, mask, v):
+            top = torch.where(mask, scores, -torch.inf).argmax(-1, keepdim=True)
+            return softmax_wv(scores, mask.scatter(-1, top, False), v)
+
+        def faulty_sample_ids(scores, u):
+            top = scores.argmax(-1, keepdim=True)
+            return sample_ids(scores.scatter(-1, top, -torch.inf), u)
+
+        baselines._masked_softmax_wv = faulty_softmax_wv
+        baselines.sample_ids = faulty_sample_ids
+        try:
+            yield
+        finally:
+            baselines._masked_softmax_wv = softmax_wv
+            baselines.sample_ids = sample_ids
+
+    return planted()
+
+
+BASELINE_CUT_STEPS = 4
+BASELINE_LAYER_TOL = {"topk": 2e-3, "quest": 2e-3, "oracle_sampling": 0.15}
+
+
+def phase_reference_baselines(torch, dev):
+    """The reference's baselines on two layers with Llama-3.1-8B's head
+    shape (hidden 1024, 8/2 heads of 128, intermediate 3584, vocab 128256;
+    `dense_layers=(0,)`, so layer 1 is sparse), 1100-token prompts.
+
+    At full budget (TopK and Quest 1.0, every offloaded token attended;
+    OracleSampling 8.0, 2048 draws) each engine against the K=0 engine on
+    the card with the same weights, fed the K=0 engine's greedy tokens for
+    4 eager steps: layer 0 is dense in both, so layer 1's inputs are the
+    same bit for bit, and its attention output (f32, before the bf16 cast)
+    must stay within 2e-3 of its largest |value| (0.15 for oracle
+    sampling; tests/test_engine.py:170-200 holds the logits so in f32).
+    The bf16 logits follow within 5e-2 of the largest (0.15): from there on
+    every activation is rounded to bf16, which alone parts them by ~5e-3.
+    Layer 1's query weight is scaled by 4, so that each head attends a few
+    keys and the planted fault (`drop_top_token`) moves the layer past each
+    tolerance, as it must. Then at the default budgets (41 TopK tokens, 6
+    Quest pages of a 2048-token capacity) the sparse choice of a card
+    engine's first step, on its own inputs (the offload state after the
+    prefill, the step's query) on the card and on the CPU: the TopK and
+    Quest masks equal, as phase 2 holds block_topk's choice. (A CPU twin
+    computes its own bf16 activations, and its Quest pages part from the
+    card's near a tie: its first step's logits differed by 4.97e-2 of the
+    largest, on the edge of phase 4's 5e-2.) Returns nothing; any failure
+    raises."""
+    import dataclasses
+
+    from magicpig_tpu_torch.config import LSHConfig, preset
+    from magicpig_tpu_torch.ops import baselines
+    from magicpig_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+    from magicpig_tpu_torch.runtime import engine, server
+    from magicpig_tpu_torch.runtime.engine import LLM
+
+    cfg = dataclasses.replace(preset("llama-3.1-8b"), num_hidden_layers=2,
+                              hidden_size=1024, num_attention_heads=8,
+                              num_key_value_heads=2, intermediate_size=3584)
+    prompt = torch.randint(1, cfg.vocab_size, (1100,),
+                           generator=torch.Generator().manual_seed(5))
+    steps = BASELINE_CUT_STEPS
+
+    def eager_run(llm, tokens=None):
+        """Prefill and `steps` eager steps (the K=0 engine's greedy tokens
+        when `tokens` is None): (tokens fed, logits, layer-1 outputs, the
+        steps' realized fractions)."""
+        def run():
+            logits, fracs = [llm.prefill(prompt)], []
+            fed = [logits[0].argmax(-1)] if tokens is None else tokens
+            for i in range(steps):
+                llm._guard_decode(1)
+                out, frac = llm._decode(fed[i])
+                logits.append(out)
+                fracs.append(float(frac))
+                if tokens is None:
+                    fed.append(logits[-1].argmax(-1))
+            return fed[:steps], logits[1:], fracs
+        (fed, logits, fracs), outs = recorded_layers(run)
+        return fed, logits, outs, fracs
+
+    def rel(a, b):
+        return max(float((x - y).abs().max() / y.abs().max())
+                   for x, y in zip(a, b))
+
+    full = LLM(cfg, max_length=2048, lsh=LSHConfig(K=0, L=0), device=dev,
+               seed=3)
+    params = full.params
+    params.layers.wq[1] *= 4
+    tokens, full_logits, full_outs, _ = eager_run(full)
+    for estimator, kw in (("topk", dict(topk_budget_frac=1.0)),
+                          ("quest", dict(quest_budget_frac=1.0)),
+                          ("oracle_sampling", dict(os_budget_frac=8.0))):
+        lsh = LSHConfig(estimator=estimator, dense_layers=(0,), **kw)
+        tol = BASELINE_LAYER_TOL[estimator]
+        logit_tol = max(5e-2, tol)
+        errs = {}
+        for fault in (False, True):
+            llm = LLM(cfg, max_length=2048, lsh=lsh, params=params, device=dev)
+            reset_launches()
+            if fault:
+                with drop_top_token():
+                    _, logits, outs, fracs = eager_run(llm, tokens)
+            else:
+                _, logits, outs, fracs = eager_run(llm, tokens)
+                expect = dict.fromkeys(LAUNCHES, 0)
+                expect.update(flash_prefill_d128=2, flash_decode_d128=2 * steps)
+                if dict(LAUNCHES) != expect:
+                    raise AssertionError(f"{estimator}: launches "
+                                         f"{dict(LAUNCHES)} != {expect}")
+            errs[fault] = (rel(outs, full_outs), rel(logits, full_logits),
+                           fracs)
+            del llm
+        (layer, logit, frac), (layer_f, logit_f, _) = errs[False], errs[True]
+        log(f"reference: 2-layer d128 {estimator} at full budget vs the K=0 "
+            f"engine on the card: layer 1 max |err| / max |out| {layer:.2e} "
+            f"(tolerance {tol:g}), logits {logit:.2e} ({logit_tol:g}); "
+            f"realized fractions {frac}; the top token of every head "
+            f"dropped: layer {layer_f:.2e}, logits {logit_f:.2e}")
+        if not (layer < tol and logit < logit_tol and frac == [1.0] * steps):
+            raise AssertionError(f"{estimator} at full budget does not track "
+                                 "the K=0 engine")
+        if not (layer_f > tol and logit_f > logit_tol):
+            raise AssertionError(f"{estimator}: the tolerance does not reject "
+                                 "the dropped top token")
+    del full, params
+    gc.collect()
+
+    for estimator in ("topk", "quest"):
+        lsh = LSHConfig(estimator=estimator, dense_layers=(0,))
+        inner, queries = engine.decode_sparse_layer, []
+
+        def recording(state, si, q, *args, inner=inner, queries=queries,
+                      **kwargs):
+            queries.append(q.clone())
+            return inner(state, si, q, *args, **kwargs)
+
+        engine.decode_sparse_layer = recording
+        try:
+            card = LLM(cfg, max_length=2048, lsh=lsh, device=dev, seed=3)
+            reset_launches()
+            logits = card.inference(card.prefill(prompt).argmax(-1))
+        finally:
+            engine.decode_sparse_layer = inner
+        expect = dict.fromkeys(LAUNCHES, 0)
+        expect.update(flash_prefill_d128=2, flash_decode_d128=2)
+        if dict(LAUNCHES) != expect or not bool(torch.isfinite(logits).all()):
+            raise AssertionError(f"launches {dict(LAUNCHES)} != path's "
+                                 f"{expect}, or non-finite logits")
+        st, q = card.state, queries[0]     # the first, eager step
+        off_cap = st.off_v[0].shape[2]
+        if estimator == "topk":
+            n = server._static_budget(off_cap, lsh.topk_budget_frac, floor=16)
+
+            def select(q, st):
+                k, _ = server._off_kv(st, 0, lsh)
+                return baselines.topk_select(
+                    baselines.masked_scores(q, k, st.off_len), n)
+        else:
+            page = lsh.quest_page_size
+            n = server._static_budget(off_cap // page, lsh.quest_budget_frac,
+                                      floor=1)
+
+            def select(q, st):
+                return baselines.quest_select(q, st.quest_min[0],
+                                              st.quest_max[0], st.off_len,
+                                              page, n, off_cap)
+        on_card = select(q, st).cpu()
+        on_host = select(q.cpu(), dataclasses.replace(st, **{
+            f.name: (getattr(st, f.name).cpu()
+                     if isinstance(getattr(st, f.name), torch.Tensor)
+                     else [t.cpu() for t in getattr(st, f.name)])
+            for f in dataclasses.fields(st)}))
+        log(f"reference: 2-layer d128 {estimator} default budget ({n} "
+            f"{'tokens' if estimator == 'topk' else 'pages'}): the card "
+            f"chose {int(on_card.sum())} (head, token) pairs, the CPU on the "
+            f"same inputs {int(on_host.sum())}, equal {torch.equal(on_card, on_host)}")
+        if not torch.equal(on_card, on_host):
+            raise AssertionError(f"{estimator}: the card's sparse choice is "
+                                 "not the CPU's")
+        del card
+
+
 def card_counted(torch, dev, lsh, label: str, steps: int, cfg=None) -> dict:
     """Two layers at 1B width (or `cfg`) on the card alone, layer 1 sparse:
     a 1100-token prefill and `steps` greedy steps, finite logits. Returns
@@ -3853,6 +4143,7 @@ def main() -> int:
     forms_g3 = phase_reference_g3(torch, dev)
     chunked = phase_reference_chunked(torch, dev)
     window = phase_reference_window(torch, dev)
+    phase_reference_baselines(torch, dev)
 
     # Each kernel's launches come from the counted run of the path that
     # uses it: the LSH serve, the block_topk int8 serve (rescore pipeline),

@@ -11,15 +11,14 @@ The knobs mirror the reference system (MagicPIG):
 channel (W8A8) or int4 in 128-input groups; `fuse_small_linears` joins
 q/k/v and gate/up of quantized weights into one matmul each.
 
-`LSHConfig` keeps the fields the ported estimators read: "lsh" (SimHash
+`LSHConfig` keeps the fields the estimators read: "lsh" (SimHash
 sampling, with the exact, polynomial or no debias, decoded in the masked
-or the sampled form) and "block_topk"
-(exact-score block ranking), each with bf16, int8 or int4 offload K (V
-int8 when quantized), and the dense layers' K/V bf16 or int8
-(`dense_quant`). With int4 offload under block_topk the K rows are stored
-packed, two channels a byte (`ops/pack4.py`). Any other estimator is not
-ported yet and raises `NotImplementedError`; an unknown decode mode raises
-`ValueError`.
+or the sampled form), "block_topk" (exact-score block ranking), and the
+reference's accuracy baselines "quest", "topk" and "oracle_sampling";
+each with bf16, int8 or int4 offload K (V int8 when quantized), and the
+dense layers' K/V bf16 or int8 (`dense_quant`). With int4 offload under
+block_topk the K rows are stored packed, two channels a byte
+(`ops/pack4.py`). An unknown estimator or decode mode raises `ValueError`.
 """
 
 from __future__ import annotations
@@ -230,7 +229,6 @@ def default_dense_layers(num_layers: int) -> tuple[int, ...]:
 
 
 ESTIMATORS = ("lsh", "quest", "topk", "oracle_sampling", "block_topk")
-PORTED_ESTIMATORS = ("lsh", "block_topk")
 DECODE_MODES = ("masked", "sampled")
 
 
@@ -246,7 +244,16 @@ class LSHConfig:
         (by their max score over the GQA group) attended. Quantized,
         `block_topk_pipeline="rescore"` ranks from block maxes and rescores
         the chosen blocks; "store" (and bf16 offload) stores the scores and
-        attends from them.
+        attends from them;
+      * "quest"      -- page-landmark top-k: each `quest_page_size`-token
+        page scored by its key min/max bound, the `quest_budget_frac`
+        best pages attended;
+      * "topk"       -- oracle top-k: exact scores, the `topk_budget_frac`
+        highest attended (ties admit more);
+      * "oracle_sampling" -- `os_budget_frac` token ids drawn from the
+        exact softmax with replacement, their values averaged.
+    The three baselines score every offloaded key in plain PyTorch (they
+    are accuracy references, not fast paths) and keep layers {0, 1} dense.
     `offload_quant="int8"` stores the offload K/V int8 per row with f32
     scales (for lsh, the centered keys, whose stored norms and signatures
     are those of the dequantized rows); "int4" puts K on the 4-bit grid
@@ -259,8 +266,7 @@ class LSHConfig:
     sampled key of the offload region in place; "sampled" compacts each
     head's sampled keys to a static budget of token ids
     (`sample_budget`), gathers those rows and applies the exact debias
-    whatever `lsh_debias` says (as the reference's sampled path does). A
-    value the port does not have yet raises `NotImplementedError`.
+    whatever `lsh_debias` says (as the reference's sampled path does).
     """
 
     K: int = 10
@@ -273,6 +279,12 @@ class LSHConfig:
     block_topk_block_size: int = 512
     block_topk_budget_frac: float = 0.08
     block_topk_pipeline: str = "rescore"
+    # Quest: page size and page budget as a fraction of the offload
+    # capacity; TopK and OracleSampling token budgets (the same fraction).
+    quest_page_size: int = 16
+    quest_budget_frac: float = 0.04
+    topk_budget_frac: float = 0.02
+    os_budget_frac: float = 0.02
     # Static per-head budget of the sampled mode, a fraction of the offload
     # capacity (the expected collision rate at K=10, L=150 is ~2%).
     sample_budget_frac: float = 0.06
@@ -283,27 +295,23 @@ class LSHConfig:
     dense_quant: str = "none"
 
     def __post_init__(self):
-        if self.estimator not in ESTIMATORS:
-            raise ValueError(f"unknown estimator {self.estimator!r}")
-        if self.decode_mode not in DECODE_MODES:
-            raise ValueError(f"unknown decode_mode {self.decode_mode!r}")
-        if self.block_topk_pipeline not in ("rescore", "store"):
-            raise ValueError(
-                f"unknown block_topk_pipeline {self.block_topk_pipeline!r}")
-        for field, value, ported in (
-                ("estimator", self.estimator, PORTED_ESTIMATORS),
+        for field, value, known in (
+                ("estimator", self.estimator, ESTIMATORS),
+                ("decode_mode", self.decode_mode, DECODE_MODES),
+                ("block_topk_pipeline", self.block_topk_pipeline,
+                 ("rescore", "store")),
                 ("lsh_debias", self.lsh_debias, ("exact", "poly", "none")),
                 ("offload_quant", self.offload_quant,
                  ("none", "int8", "int4")),
                 ("dense_quant", self.dense_quant, ("none", "int8"))):
-            if value not in ported:
-                raise NotImplementedError(
-                    f"LSHConfig.{field}={value!r} is not ported; only "
-                    f"{ported} are")
+            if value not in known:
+                raise ValueError(f"unknown {field} {value!r}; known: {known}")
         if self.K < 0 or self.L < 0:
             raise ValueError(f"K and L must be >= 0, got K={self.K} L={self.L}")
         if self.block_topk_block_size <= 0:
             raise ValueError("block_topk_block_size must be > 0")
+        if self.quest_page_size <= 0:
+            raise ValueError("quest_page_size must be > 0")
 
     @property
     def offload_quantized(self) -> bool:
@@ -347,12 +355,15 @@ class LSHConfig:
 
     def dense_layers_for(self, num_layers: int) -> tuple[int, ...]:
         """Full-attention layers: all with K=0, else the given ones, else
-        the default rule (both ported estimators use it)."""
+        the default rule for lsh and block_topk and layers {0, 1} for the
+        reference's baselines (`quest_cache.py:128`)."""
         if not self.enabled:
             return tuple(range(num_layers))
         if self.dense_layers is not None:
             return tuple(l for l in self.dense_layers if l < num_layers)
-        return default_dense_layers(num_layers)
+        if self.estimator in ("lsh", "block_topk"):
+            return default_dense_layers(num_layers)
+        return tuple(l for l in (0, 1) if l < num_layers)
 
 
 def preset(name: str) -> ModelConfig:

@@ -12,8 +12,9 @@ that a scheduler can run decode steps between chunks
 (`runtime/serving.py`); a decode step runs every layer
 once (dense layers through flash decode, sparse layers through flash decode
 over the hot tokens plus the estimator over the offloaded ones: the fused
-LSH kernel, or for `LSHConfig(estimator="block_topk")` the block scorer and
-an attend over the best blocks). On the card the first decode step runs
+LSH kernel, for `LSHConfig(estimator="block_topk")` the block scorer and
+an attend over the best blocks, or the reference's baselines "quest",
+"topk" and "oracle_sampling" in plain PyTorch; `K < 0` selects quest). On the card the first decode step runs
 eagerly and creates what the kernels make lazily (the library, the
 tickets, kernel attributes); every later step replays a CUDA graph of the
 whole step (`DecodeGraph`), as the JAX engine runs one jitted program. On
@@ -130,8 +131,7 @@ class LLM:
         self.device = resolve_device(device)
         self.config = preset(model) if isinstance(model, str) else model
         if lsh is None:
-            # K < 0 selects the Quest baseline in the reference; LSHConfig
-            # raises for it until that estimator is ported.
+            # K < 0 selects the Quest baseline, as in the reference.
             lsh = LSHConfig(K=abs(K), L=L, generation_buffer=generation_buffer,
                             estimator="quest" if K < 0 else "lsh")
         self.lsh = lsh
@@ -329,6 +329,8 @@ class LLM:
         st.pos += 1
         st.dense_len += 1
         st.hot_len += 1
+        if lsh.estimator == "oracle_sampling" and lsh.enabled:
+            st.step += 1        # its draws' counter; no other path reads it
         return logits, frac_sum / max(n_sparse, 1)
 
     def _guard_decode(self, n_steps: int):

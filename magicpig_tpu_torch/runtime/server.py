@@ -1,12 +1,16 @@
 """Attention-server layer ops: the dense layers and the sparse layers'
-"lsh" and "block_topk" estimators (port of `magicpig_tpu/runtime/server.py`).
+estimators, "lsh", "block_topk" and the reference's baselines "quest",
+"topk" and "oracle_sampling" (port of `magicpig_tpu/runtime/server.py`).
 
   * fill (prefill time): `fill_dense_layer` / `fill_sparse_layer` store a
     request's prompt K/V (the dense layers' bf16 or int8 per row with f32
     scales); the sparse fill splits sink + local (hot) from the offloaded
     middle. For "lsh" it centers keys by the mean offload key and stores
-    the centered-key norms and SimHash bit-planes; for "block_topk" it
-    stores the offload K/V as they are. Either stores the offload quantized
+    the centered-key norms and SimHash bit-planes; for "quest" it stores
+    each page's key minima and maxima (from the keys before any
+    quantization; rows past the length count as +-max, so that the page
+    holding the length takes its bounds from its valid rows); the others
+    store the offload K/V as they are. Each stores the offload quantized
     per row with f32 scales when `offload_quant` is "int8" or "int4" (K on
     the 8- or 4-bit grid, V on the 8-bit one); lsh then computes the norms
     and signatures from the centered keys quantized and dequantized, the
@@ -46,6 +50,14 @@ from magicpig_tpu_torch.config import LSHConfig
 from magicpig_tpu_torch.ops.attention import (
     lsh_sampled_decode,
     mask_to_budget_ids,
+)
+from magicpig_tpu_torch.ops.baselines import (
+    OS_SEED,
+    counter_uniforms,
+    oracle_sampling_decode,
+    quest_decode,
+    quest_landmarks,
+    topk_decode,
 )
 from magicpig_tpu_torch.ops.bitcodes import (
     WORD,
@@ -118,6 +130,8 @@ def fill_sparse_layer(state: DecodeState, si: int, req: int,
     if lsh.estimator == "lsh":
         off_k, hot_k = _fill_lsh(state, si, req, off_k, hot_k, projections,
                                  lsh)
+    elif lsh.estimator == "quest":
+        _fill_quest(state, si, req, off_k, lsh.quest_page_size)
     if lsh.offload_quantized:
         off_k, k_scale = quantize_rows(off_k, lsh.offload_k_bits)
         off_v, v_scale = quantize_rows(off_v)
@@ -162,6 +176,26 @@ def _fill_lsh(state: DecodeState, si: int, req: int, off_k: torch.Tensor,
         centered[:off_len], dim=-1).T
     state.avg_k[si][req] = avg
     return centered[:off_len], hot_k.float() - avg
+
+
+def _fill_quest(state: DecodeState, si: int, req: int, off_k: torch.Tensor,
+                page_size: int) -> None:
+    """Quest's page landmarks of one request from its offload keys
+    [off_len, Hkv, d] (before any quantization): rows past off_len count as
+    +max for the minima and -max for the maxima (the largest finite value
+    of the cache dtype), so the page holding the length takes its bounds
+    from its valid rows and wholly empty pages hold +-max (decode masks
+    them by the length). Cast to the cache dtype."""
+    off_len, hkv, d = off_k.shape
+    cap = state.off_v[si].shape[2]
+    big = torch.finfo(off_k.dtype).max
+    lo = torch.full((hkv, cap, d), big, dtype=torch.float32,
+                    device=off_k.device)
+    hi = torch.full_like(lo, -big)
+    lo[:, :off_len] = off_k.float().transpose(0, 1)
+    hi[:, :off_len] = lo[:, :off_len]
+    state.quest_min[si][req] = quest_landmarks(lo[None], page_size)[0][0]
+    state.quest_max[si][req] = quest_landmarks(hi[None], page_size)[1][0]
 
 
 def _append_at(lens: torch.Tensor, cap: int):
@@ -275,6 +309,45 @@ def _block_topk_partial(state: DecodeState, si: int, q: torch.Tensor,
     return out, lse, _realized_frac(blocks * bs, length)
 
 
+def _off_kv(state: DecodeState, si: int, lsh: LSHConfig):
+    """The offload K/V [B, Hkv, off_cap, d] as the baselines read them:
+    dequantized to bf16 when quantized (the 4-bit K grid is stored in the
+    int8 layout for them), else as stored."""
+    k, v = state.off_k[si], state.off_v[si]
+    if lsh.offload_quantized:
+        k = dequantize_rows(k, state.off_k_scale[si], torch.bfloat16)
+        v = dequantize_rows(v, state.off_v_scale[si], torch.bfloat16)
+    return k, v
+
+
+def _baseline_partial(state: DecodeState, si: int, q: torch.Tensor,
+                      lsh: LSHConfig):
+    """Quest, TopK or OracleSampling over the offload region: (out, lse,
+    realized fraction as a device scalar). Budgets are static, from the
+    offload capacity (Quest's in pages, at least 1; the others' in tokens,
+    at least 16); oracle sampling's uniforms come from the state's decode
+    step and the layer."""
+    off_cap = state.off_v[si].shape[2]
+    k, v = _off_kv(state, si, lsh)
+    length = state.off_len
+    if lsh.estimator == "quest":
+        page = lsh.quest_page_size
+        pages = _static_budget(off_cap // page, lsh.quest_budget_frac, floor=1)
+        out, lse = quest_decode(q, k, v, state.quest_min[si],
+                                state.quest_max[si], length, page, pages)
+        return out, lse, _realized_frac(pages * page, length)
+    if lsh.estimator == "topk":
+        n = _static_budget(off_cap, lsh.topk_budget_frac, floor=16)
+        out, lse = topk_decode(q, k, v, length, n)
+        return out, lse, _realized_frac(n, length)
+    n = _static_budget(off_cap, lsh.os_budget_frac, floor=16)
+    b, hq, _ = q.shape
+    hkv = k.shape[1]
+    u = counter_uniforms(OS_SEED, state.step, si, (b, hkv, hq // hkv, n))
+    out, lse = oracle_sampling_decode(q, k, v, length, n, u)
+    return out, lse, _realized_frac(n, length)
+
+
 def decode_sparse_layer(state: DecodeState, si: int, q: torch.Tensor,
                         k_new: torch.Tensor, v_new: torch.Tensor,
                         projections: torch.Tensor, lsh: LSHConfig,
@@ -296,7 +369,9 @@ def decode_sparse_layer(state: DecodeState, si: int, q: torch.Tensor,
                                   state.hot_len + 1, start=start)
     if lsh.estimator == "lsh":
         o_off, lse_off, frac = _lsh_partial(state, si, q, projections, lsh)
-    else:
+    elif lsh.estimator == "block_topk":
         o_off, lse_off, frac = _block_topk_partial(state, si, q, lsh)
+    else:
+        o_off, lse_off, frac = _baseline_partial(state, si, q, lsh)
     out, _ = merge_partials([o_hot, o_off], [lse_hot, lse_off])
     return out, frac

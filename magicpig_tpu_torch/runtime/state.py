@@ -18,7 +18,11 @@ is a TPU choice):
     packed along the head dimension, off_k [B, Hkv, off_cap, d/2] (byte j
     holds channel j in its low nibble and channel j + d/2 in its high one,
     `ops/pack4.py`); V stays int8 [B, Hkv, off_cap, d];
-  * per-request lengths as int32 device tensors [B].
+  * Quest only: per-page key minima and maxima quest_min / quest_max
+    [B, Hkv, off_cap / page, d] in the cache dtype, taken from the offload
+    keys before any quantization;
+  * per-request lengths as int32 device tensors [B], and the decode step
+    counter `step` [] int32, which oracle sampling folds into its draws.
 Fill, decode and `reset_state` write into these tensors in place, which
 keeps one copy of each cache and the addresses a captured decode step uses.
 """
@@ -26,6 +30,7 @@ keeps one copy of each cache and the addresses a captured decode step uses.
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 
@@ -55,7 +60,11 @@ class DecodeState:
     k_norm: list[torch.Tensor]    # per sparse layer [B, Hkv, off_cap] f32
     avg_k: list[torch.Tensor]     # per sparse layer [B, Hkv, d] f32
     planes: list[torch.Tensor]    # per sparse layer [B, Hkv, L, K, W] i32
+    # Quest only (empty lists otherwise):
+    quest_min: list[torch.Tensor]  # per sparse layer [B, Hkv, n_pages, d]
+    quest_max: list[torch.Tensor]
     pos: torch.Tensor             # [B] i32, next absolute position
+    step: torch.Tensor            # [] i32, decode steps since the last reset
 
 
 def hot_capacity(lsh: LSHConfig) -> int:
@@ -64,12 +73,14 @@ def hot_capacity(lsh: LSHConfig) -> int:
 
 
 def offload_capacity(lsh: LSHConfig, max_length: int) -> int:
-    """Offload tokens per request: 128-aligned (whole signature words), and
-    for block_topk a whole number of ranking blocks."""
+    """Offload tokens per request: 128-aligned (whole signature words), for
+    block_topk a whole number of ranking blocks, for quest of pages."""
     cap = max(0, max_length - lsh.num_sink_tokens - lsh.num_local_tokens)
     align = 128
     if lsh.estimator == "block_topk":
         align = max(align, lsh.block_topk_block_size)
+    if lsh.estimator == "quest":
+        align = math.lcm(align, lsh.quest_page_size)
     return ((cap + align - 1) // align) * align
 
 
@@ -83,6 +94,7 @@ def init_state(config: ModelConfig, lsh: LSHConfig, batch_size: int,
     off_cap = offload_capacity(lsh, max_length)
     hot_cap = hot_capacity(lsh)
     n_lsh = ns if lsh.estimator == "lsh" else 0
+    n_quest = ns if lsh.estimator == "quest" else 0
     n_quant = ns if lsh.offload_quantized else 0
     off_dt = torch.int8 if lsh.offload_quantized else dt
     off_kd = d // 2 if lsh.packed_k4(d) else d
@@ -113,7 +125,12 @@ def init_state(config: ModelConfig, lsh: LSHConfig, batch_size: int,
         avg_k=per_layer(n_lsh, (b, hkv, d), torch.float32),
         planes=per_layer(n_lsh, (b, hkv, max(lsh.L, 1), max(lsh.K, 1),
                                  num_words(off_cap)), torch.int32),
+        quest_min=per_layer(n_quest, (b, hkv, off_cap // lsh.quest_page_size,
+                                      d), dt),
+        quest_max=per_layer(n_quest, (b, hkv, off_cap // lsh.quest_page_size,
+                                      d), dt),
         pos=lens(),
+        step=torch.zeros((), dtype=torch.int32, device=device),
     )
 
 

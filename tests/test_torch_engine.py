@@ -484,10 +484,14 @@ def _imported_roots(path: Path) -> set[str]:
 def test_port_and_chip_smoke_import_no_jax():
     files = sorted((ROOT / "magicpig_tpu_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
+    files += sorted((ROOT / "examples").glob("*_torch.py"))
+    files.append(ROOT / "examples" / "ruler_compare.py")
     assert len(files) > 10
     names = {f.relative_to(ROOT).as_posix() for f in files}
     assert {f"magicpig_tpu_torch/{m}.py" for m in (
-        "runtime/serving", "runtime/synthetic", "utils/profiling")} <= names
+        "runtime/serving", "runtime/synthetic", "utils/profiling",
+        "evals/ruler/tasks", "evals/ruler/predict")} <= names
+    assert "examples/ruler_eval_torch.py" in names
     for f in files:
         bad = _imported_roots(f) & {"jax", "jaxlib", "flax", "magicpig_tpu"}
         assert not bad, f"{f.relative_to(ROOT)} imports {sorted(bad)}"

@@ -40,6 +40,12 @@ FORMS = {
                                   offload_quant="int4"), "none"),
     "dense_int8_w4": (LSHConfig(K=0, L=0, dense_quant="int8"), "int4"),
     "w8a8": (LSHConfig(offload_quant="int8"), "int8"),
+    # The reference's baselines in plain PyTorch, layer 1 sparse (their
+    # default keeps layers {0, 1} dense).
+    "quest": (LSHConfig(estimator="quest", dense_layers=(0,)), "none"),
+    "topk": (LSHConfig(estimator="topk", dense_layers=(0,)), "none"),
+    "oracle_sampling": (LSHConfig(estimator="oracle_sampling",
+                                  dense_layers=(0,)), "none"),
 }
 # The hand-written kernels, as their names appear in the profiler.
 OWN_KERNELS = ("flash_decode_kernel", "lsh_split_kernel",
@@ -211,6 +217,41 @@ def test_cuda_graph_nodes_are_the_eager_kernels(cuda, form):
     total, own = _eager_kernels(llm, inputs[-1])
     assert own == sum(LAUNCHES.values()) // 3 > 0
     assert graph_kernel_nodes(llm._graph.graph) == total
+
+
+def test_cuda_oracle_sampling_draws_new_ids_at_each_replay(cuda, monkeypatch):
+    """Oracle sampling's ids come from the state's decode step and the
+    layer: inside the captured step each replay draws new ids, and a fresh
+    engine with the same seed, fed the same prompts, draws the same ones.
+    The ids are copied out of the step (a copy the capture records) into a
+    buffer the first, eager step allocates."""
+    from magicpig_tpu_torch.ops import baselines
+
+    inner, buf = baselines.sample_ids, []
+
+    def recording(scores, u):
+        ids = inner(scores, u)
+        if not buf:
+            buf.append(torch.zeros_like(ids))
+        buf[0].copy_(ids)
+        return ids
+
+    monkeypatch.setattr(baselines, "sample_ids", recording)
+    runs = []
+    for _ in range(2):
+        buf.clear()
+        llm = _engine(cuda, "oracle_sampling")
+        tokens = _prefill(llm, _prompts(llm))
+        ids = []
+        for _ in range(4):
+            tokens = llm.inference(tokens).argmax(-1)
+            ids.append(buf[0].clone())
+        assert llm._graph is not None and int(llm.state.step) == 4
+        runs.append(ids)
+    for a, b in zip(runs[0][1:], runs[0][2:]):
+        assert not torch.equal(a, b)
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
 
 
 def test_cuda_graphed_step_equals_eager_llama_8b_width(cuda):

@@ -79,8 +79,16 @@ def test_default_dense_layers_match_jax(n):
     ("estimator", "quest"), ("estimator", "topk"),
     ("estimator", "oracle_sampling")])
 def test_unported_lsh_options_raise(field, value):
-    with pytest.raises(NotImplementedError):
-        tcfg.LSHConfig(**{field: value})
+    """The reference's baselines construct with the JAX package's budgets
+    and dense layers; a name neither package knows raises ValueError."""
+    t, j = tcfg.LSHConfig(**{field: value}), jcfg.LSHConfig(**{field: value})
+    for f in ("quest_page_size", "quest_budget_frac", "topk_budget_frac",
+              "os_budget_frac"):
+        assert getattr(t, f) == getattr(j, f), f
+    for n in (1, 2, 16, 33):
+        assert t.dense_layers_for(n) == j.dense_layers_for(n)
+    with pytest.raises(ValueError, match=field):
+        tcfg.LSHConfig(**{field: value + "_x"})
 
 
 @pytest.mark.parametrize("mode", ["gathered", "dense", ""])
