@@ -61,7 +61,9 @@ Phases, each announced by one flushed progress line with elapsed seconds:
      packed int4 K; chunks swept), the masked attend from words at K=8,
      L=75 in its six forms (splits swept for both exact forms), and the
      int4 matmul on each product of the 8B's decode step (`W4_SHAPES_8B`,
-     K-splits swept); then the group-size-3 forms at Llama-3.2-3B's decode
+     K-splits swept) and, at M=1, on each of the 1B's unfused products at
+     a model rank's shapes at 2 model ranks (`W4_SHAPES_TP`, rows
+     "w4_matmul_tp_..."); then the group-size-3 forms at Llama-3.2-3B's decode
      shape (Hq 24, Hkv 8, d 128, rows "..._g3") over the same caches: bf16
      and int8 decode (and bf16 at the hot cache), the fused LSH kernel bf16
      and int8 exact, the collision scan at K=10, L=150 and K=8, L=75 bit for
@@ -159,7 +161,28 @@ Phases, each announced by one flushed progress line with elapsed seconds:
      of their largest, a warm prefill and the decode profiled; then a
      two-layer checkpoint at its width written, read back by
      `load_checkpoint` byte for byte, and `examples/generation_torch.py`
-     run on it in its own process over a 6240-byte prompt;
+     run on it in its own process over a 6240-byte prompt. Last, sharded
+     serving over torch.distributed on the one card (`parallel/`): NCCL at
+     one rank in this process (the 1B under LSH over the 12000- and
+     7000-token prompts, `shard_engine` over a 1 x 1 mesh on the
+     unsharded engine's weights: 16 steps' logits equal bit for bit, the
+     step captured once with its collectives, launches exact); then four
+     gloo ranks sharing the card, started once: two of them on a 1 x 2
+     mesh (the 8B at full depth, bf16 LSH, one 8192-token prompt, 8 eager
+     steps on the unsharded run's tokens) and all four on a 2 x 2 mesh
+     (the ring over "data": the 1B over 8192 + 6144 tokens through the
+     zigzag ring, 8 steps; then bench.py's block_topk4 mode with int4
+     weights, 4 steps), each rank's launches exact at its local shapes,
+     prefill logits within `SHARD_TOL` of the unsharded engine on the
+     card; with the smooth runs (LSH at K=1, L=32, 4 steps: the 8B at 1 x
+     2 over a 2048-token prompt and the 1B with int4 weights through the
+     ring at 2 x 2 over 4096 + 3072 tokens), whose every decode step is
+     also held within `SHARD_TOL`; each planted fault (one rank keeping its own
+     partial of an all-reduce in the prefill or in the first decode step,
+     a ring pass not rotated, the kv-head shards swapped) outside the
+     bounds of its run; a line per run and rank with
+     wall and device busy per step, the collectives' share, launches and
+     graph nodes, the card's name and power limit;
   4. reference: a two-layer cut of the same width at K=1, L=32 (nearly
      every key sampled) on the card against the same engine on the CPU
      (the plain versions); then the same cut under block_topk with bf16
@@ -1544,13 +1567,23 @@ W4_SHAPES_8B = (("w4_matmul_8b_wqkv", 4096, 6144),
                 ("w4_matmul_8b_gateup", 4096, 28672),
                 ("w4_matmul_8b_wdown", 14336, 4096),
                 ("w4_matmul_8b_lm_head", 4096, 128256))
+# The 1B's unfused products at a model rank's shapes at 2 model ranks (the
+# sharded phase's int4 runs, M = 1 a rank): q, k and v (and gate, up) at
+# half their columns, o and down at half their input rows, the lm_head at
+# half the vocabulary.
+W4_SHAPES_TP = (("w4_matmul_tp_wq", 2048, 1024), ("w4_matmul_tp_wkv", 2048, 256),
+                ("w4_matmul_tp_wo", 1024, 2048),
+                ("w4_matmul_tp_gateup", 2048, 4096),
+                ("w4_matmul_tp_wdown", 4096, 2048),
+                ("w4_matmul_tp_lm_head", 2048, 64128))
 
 
-def phase_w4_kernel(torch, dev, shapes=W4_SHAPES):
-    """The packed-nibble int4 matmul against its plain version at M=2 (B=2
-    decode) on each product a decode step runs (`W4_SHAPES`, or the 8B's
-    `W4_SHAPES_8B`), weights N(0, 1/kin) quantized on the card, each with a
-    zeroed weight group rejected. The library yardstick is a bf16
+def phase_w4_kernel(torch, dev, shapes=W4_SHAPES, m: int = 2):
+    """The packed-nibble int4 matmul against its plain version at M=m (a
+    decode step's rows: B=2, or a model rank's one) on each product a
+    decode step runs (`W4_SHAPES`, the 8B's `W4_SHAPES_8B`, or a model
+    rank's `W4_SHAPES_TP`), weights N(0, 1/kin) quantized on the card, each
+    with a zeroed weight group rejected. The library yardstick is a bf16
     torch.matmul over the dequantized weight (no int4 PyTorch call takes
     this packing)."""
     from magicpig_tpu_torch.models.llama import quantize_weight4
@@ -1560,7 +1593,7 @@ def phase_w4_kernel(torch, dev, shapes=W4_SHAPES):
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(99)
-    m, tol = 2, TOL["w4_matmul"]
+    tol = TOL["w4_matmul"]
     results = {}
     for name, kin, out in shapes:
         x = torch.randn((m, kin), generator=gen, device=dev, dtype=torch.bfloat16)
@@ -1570,7 +1603,8 @@ def phase_w4_kernel(torch, dev, shapes=W4_SHAPES):
         want = w4_matmul_plain(x, w.q, w.scale)
         err, share = check_close(name, got, want, tol)
         faulty = w.q.clone()
-        faulty[3 * 64:4 * 64, 5 * 256:6 * 256] = 0     # group 3 of tile 5
+        tile = min(5, out // 256 - 1)          # group 3 of tile 5 (or the last)
+        faulty[3 * 64:4 * 64, tile * 256:(tile + 1) * 256] = 0
         teeth = check_rejects(name, w4_matmul_plain(x, faulty, w.scale), want,
                               tol, "a skipped 128-input group of one output "
                               "tile")
@@ -4035,6 +4069,670 @@ def card_counted(torch, dev, lsh, label: str, steps: int, cfg=None) -> dict:
     return launches
 
 
+# -- phase 3b: multi-GPU serving over torch.distributed ------------------------
+
+# The sharded engines against the unsharded one on the card. A row-split
+# product sums bf16 partials (rounded once more than the whole product), so
+# the prefill logits, through dense flash attention, move smoothly: 1.8e-2
+# to 2.1e-2 of the largest |logit| (8B at 1 x 2, the 1B at 2 x 2, under
+# LSH and block_topk4), held to phase 4's bf16 limit SHARD_TOL. A sparse
+# decode step at K=10, L=150 or under block_topk4 is not smooth in its
+# inputs: a key's SimHash sign, or a block's rank, flips on a rounding
+# difference, and the step attends another set of keys (the sampled
+# fraction moves by 2e-3 relative); its logits stay correlated with the
+# unsharded step's, 0.16-0.29 relative L2 error, where an unrelated state
+# gives ~1-1.4 (the planted ring faults): SHARD_DECODE_TOL bounds that, a
+# guard that a fault of one all-reduce can pass. The decode path itself
+# (the decode-time row-split sums, the vocabulary and batch gathers, the
+# fraction's reduction, the int4 kernel's split products) is held by the
+# smooth runs: LSH at K=1, L=32 (SMOOTH_LSH: nearly every key collides in
+# two of the 32 tables, so a rounding flip moves no key's weight much, as
+# in phase 4's K=1, L=32 cuts), every prefill and decode step within
+# SHARD_TOL, with an all-reduce skipped at the first decode step as their
+# planted fault. Each planted fault must fail its run's bounds.
+SHARD_TOL = 5e-2        # prefill (and smooth decode) logits: max |diff| / max
+SHARD_DECODE_TOL = 0.5  # each sparse decode step's logits: relative L2 error
+SHARD_FRAC_TOL = 0.05   # of the unsharded sampled fraction
+SMOOTH_LSH = dict(K=1, L=32)
+SHARD_STEPS_1X1 = 16
+SHARD_STEPS_8B = 8
+RING_PROMPTS = (8192, 6144)
+RING_STEPS = 8
+BT4_STEPS = 4
+SMOOTH_STEPS = 4
+# The smooth runs' prompts: a prefill is most of a gloo run's time (gloo
+# stages every all-reduce through the host), and decode is what they hold.
+SMOOTH_PROMPT = 2048                # the 8B at 1 x 2
+SMOOTH_PROMPTS = (4096, 3072)       # the 1B with int4 weights at 2 x 2
+FAULT_STEPS = 2
+RANKS_SHARE = "ranks share one H100"
+# The all-reduce rank 1 skips: layer 1's down_proj, of the prefill's first
+# prompt ("skip_sum") or of the first decode step ("skip_sum_decode").
+SKIP_CALL = 3
+
+
+def shard_collective_share(kernels) -> tuple:
+    """(device busy ms, the collectives' device ms): NCCL's kernels, or
+    under gloo the host-staging copies of its collectives."""
+    busy = sum(map(_device_us, kernels)) / 1e3
+    coll = sum(_device_us(e) for e in kernels
+               if "nccl" in e.key.lower() or e.key.startswith("Memcpy"))
+    return busy, coll / 1e3
+
+
+def ring_live_pairs(n: int, rank: int) -> int:
+    """The (query chunk, key chunk) pairs of a zigzag ring that are not
+    wholly in the future (the flash-prefill launches of one layer)."""
+    def start(r, h):
+        return r if h == 0 else 2 * n - 1 - r
+    return sum(start(rank, qi) >= start((rank - t) % n, ki)
+               for t in range(n) for qi in range(2) for ki in range(2))
+
+
+def shard_error(got, want) -> float:
+    """max |got - want| over the largest |want| (numpy arrays)."""
+    import numpy as np
+    return float(np.abs(got - want).max() / np.abs(want).max())
+
+
+def shard_errors(pre, logits, ref) -> dict:
+    """Per stage (the prefill logits, each step's) the max-abs error over
+    the largest |logit| and the relative L2 error, against `ref`."""
+    import numpy as np
+
+    def l2(a, b):
+        return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+    want = ref["logits"][:len(logits)]
+    return dict(
+        max=[shard_error(pre, ref["prefill"])]
+        + [shard_error(g, w) for g, w in zip(logits, want)],
+        l2=[l2(pre, ref["prefill"])] + [l2(g, w) for g, w in zip(logits, want)])
+
+
+def unsharded_reference(torch, dev, cfg, lsh, prompt_lens, seed: int,
+                        steps: int, batch: int, max_length: int, label: str,
+                        n_model: int = 2, local: bool = True):
+    """The unsharded engine on the card: the prompts (drawn on the card
+    from `seed`) prefilled, `steps` greedy steps; returns the prompts' and
+    steps' logits (host f32), the tokens fed at each step, the mean
+    sampled fraction and the step wall time."""
+    import numpy as np
+    from magicpig_tpu_torch.runtime.engine import LLM
+
+    llm = LLM(cfg, batch_size=batch, max_length=max_length, lsh=lsh,
+              device=dev, seed=0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    prompts = [torch.randint(1, cfg.vocab_size, (n,), generator=gen,
+                             device=dev) for n in prompt_lens]
+    pre = [llm.prefill(p, request_id=r)[0].float().cpu().numpy()
+           for r, p in enumerate(prompts)]
+    local = local_heads_check(torch, llm, n_model, label) if local else None
+    tok = torch.stack([torch.tensor(int(np.argmax(x))) for x in pre]).to(dev)
+    tok = tok.reshape(-1).repeat(batch // len(prompts))
+    snap = llm.sparsity_snapshot()
+    fed, logits = [], []
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(steps):
+        fed.append(tok.cpu().numpy())
+        out = llm.inference(tok)
+        logits.append(out.float().cpu().numpy())
+        tok = out.argmax(-1)
+    wall = (time.perf_counter() - t) * 1e3 / steps
+    frac = llm.avg_sparsity_since(snap)
+    log(f"sharded {label}: unsharded reference on the card, prefill "
+        f"{' + '.join(map(str, prompt_lens))} tokens, {steps} steps "
+        f"{wall:.2f} ms/step, avg sparsity {frac:.6f}")
+    del llm, prompts
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(prefill=np.stack(pre), logits=np.stack(logits),
+                tokens=np.stack(fed), frac=frac, wall=wall, local=local)
+
+
+# Of the largest |output|: phase 2's decode-kernel tolerance. A slice's
+# flash decode picks its split from its head count, and each split's P
+# enters the bf16 P.V at that split's running max (measured 1.1e-3).
+LOCAL_TOL = TOL["flash_decode"][2]
+
+
+def local_heads_check(torch, llm, n_model: int, label: str) -> float:
+    """The attention layers at a model rank's local shapes: after the
+    engine's prefill, its first dense and first sparse layer decode random
+    q, k, v on a copy of the whole state, and on each of the n_model
+    kv-head slices of it (`shard_state`) with that slice's heads
+    (the server functions, as a sharded engine calls them; no collective).
+    Each slice's output
+    equals its heads' output of the whole layer within LOCAL_TOL, and the
+    slices' sampled fractions average to the whole layer's. Returns the
+    largest error."""
+    import dataclasses
+
+    from magicpig_tpu_torch.parallel.mesh import shard_state
+    from magicpig_tpu_torch.runtime import server
+
+    def copy(state):
+        return dataclasses.replace(state, **{
+            f.name: ([t.clone() for t in v] if isinstance(v, list) else v.clone())
+            for f in dataclasses.fields(state)
+            for v in [getattr(state, f.name)]})
+
+    cfg, dev = llm.config, llm.device
+    b, hq, hkv, d = (llm.batch_size, cfg.num_attention_heads,
+                     cfg.num_key_value_heads, cfg.head_dim)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(41)
+    q, k, v = (torch.randn((b, h, d), generator=gen, device=dev,
+                           dtype=cfg.dtype) for h in (hq, hkv, hkv))
+    si = next(gi for kind, gi in llm.groups if kind == "sparse")
+
+    def layers(state, q, k, v):
+        dense = server.decode_dense_layer(copy(state), 0, q, k, v)
+        sparse, frac = server.decode_sparse_layer(
+            copy(state), si, q, k, v, llm.projections, llm.lsh)
+        return dense, sparse, float(frac)
+
+    want = layers(llm.state, q, k, v)
+    errs, fracs = [], []
+    for m in range(n_model):
+        st = shard_state(llm.state, 1, 0, n_model, m)
+        hs = slice(m * hq // n_model, (m + 1) * hq // n_model)
+        ks = slice(m * hkv // n_model, (m + 1) * hkv // n_model)
+        got = layers(st, *(x.contiguous() for x in (q[:, hs], k[:, ks],
+                                                    v[:, ks])))
+        errs += [float((g - w[:, hs]).abs().max() / w.abs().max())
+                 for g, w in zip(got[:2], want[:2])]
+        fracs.append(got[2])
+        del st
+    frac_err = abs(sum(fracs) / n_model - want[2])
+    log(f"sharded {label}: the dense and sparse layer at {n_model} kv-head "
+        f"slices ({hq // n_model}/{hkv // n_model} heads) against the whole "
+        f"layer: max error {max(errs):.3e} (bound {LOCAL_TOL}), sampled "
+        f"fraction {sum(fracs) / n_model!r} / {want[2]!r}")
+    if max(errs) > LOCAL_TOL or frac_err > 1e-6:
+        raise AssertionError(f"sharded {label}: a kv-head slice's attention "
+                             "differs from the whole layer's")
+    torch.cuda.empty_cache()
+    return max(errs)
+
+
+def _faulty_sum(shard, skip: int):
+    """`shard.sum` whose call number `skip` (from now) still joins the
+    all-reduce but keeps this rank's own partial: one layer's all-reduce
+    skipped on this rank, the collectives still matched."""
+    import torch.distributed as dist
+    inner, calls = shard.sum, [0]
+
+    def faulty(t):
+        calls[0] += 1
+        if calls[0] - 1 != skip:
+            return inner(t)
+        dist.all_reduce(t.clone(), group=shard.model)
+        return t
+    return faulty
+
+
+def _ring_no_rotate(ring_mod):
+    """`_Ring.pass_on` that passes the K/V on but keeps the rank's own (a
+    ring step's K/V not rotated); the collectives still matched."""
+    inner = ring_mod._Ring.pass_on
+
+    def pass_on(self, kb, vb):
+        inner(self, kb, vb)
+        return kb, vb
+    return inner, pass_on
+
+
+def _sharded_rank(rank: int, runs: list) -> list:
+    """One rank of the gloo runs: for each run the engine built as in the
+    parent (the same seed draws the same weights), sharded over its mesh
+    (None for a rank outside it),
+    the prompts prefilled and the parent's tokens decoded eagerly (gloo's
+    collectives cannot be captured), the launches counted, two steps
+    profiled (`run["profile"]`); then the planted faults, each on a fresh
+    fill."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from magicpig_tpu_torch.config import LSHConfig, preset
+    from magicpig_tpu_torch.ops.kernels import LAUNCHES, W4_SHAPE_LAUNCHES, reset_launches
+    from magicpig_tpu_torch.parallel import ring as ring_mod
+    from magicpig_tpu_torch.parallel.mesh import make_mesh, shard_engine, split_weight
+    from magicpig_tpu_torch.parallel.sharded import COLLECTIVES, reset_collectives
+    from magicpig_tpu_torch.runtime.engine import LLM
+
+    out = []
+    for run in runs:
+        dev = torch.device(run.get("device", "cuda"))
+        cfg = dataclasses.replace(preset(run["model"]), **run.get("cfg", {}))
+        lsh = LSHConfig(**run["lsh"])
+        mesh = make_mesh(*run["mesh"])
+        if mesh.get_coordinate() is None:
+            # Outside this run's mesh: meanwhile start the profiler once
+            # (its first session in a process costs seconds).
+            if run.get("profile", True):
+                profiled(lambda: torch.ones(1, device=dev).add_(1))
+            out.append(None)
+            continue
+        t = time.perf_counter()
+        llm = LLM(cfg, batch_size=run["batch"], max_length=run["max_length"],
+                  lsh=lsh, device=dev, seed=0)
+        full_kv = (llm.params.layers.wk, llm.params.layers.wv)
+        shard_engine(llm, mesh, seq_axis=run["seq_axis"])
+        m, nm = llm.shard.m, llm.shard.n_model
+        if "swap_kv" not in run["faults"]:
+            full_kv = None
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(run["seed"])
+        prompts = [torch.randint(1, cfg.vocab_size, (n,), generator=gen,
+                                 device=dev) for n in run["prompts"]]
+        tokens = [torch.from_numpy(x).to(dev) for x in run["tokens"]]
+
+        def serve(steps, before_decode=None):
+            llm.clear()
+            pre = [llm.prefill(p, request_id=r)[0].float().cpu().numpy()
+                   for r, p in enumerate(prompts)]
+            if before_decode is not None:
+                before_decode()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            logits = [llm.inference(x).float().cpu().numpy()
+                      for x in tokens[:steps]]
+            wall = (time.perf_counter() - t) * 1e3 / steps
+            return np.stack(pre), np.stack(logits), wall
+
+        reset_launches()
+        reset_collectives()
+        snap = llm.sparsity_snapshot()
+        t = time.perf_counter()
+        pre, logits, wall = serve(len(tokens))
+        serve_s = time.perf_counter() - t
+        res = dict(prefill=pre, logits=logits, wall=wall, build_s=build_s,
+                   serve_s=serve_s, frac=llm.avg_sparsity_since(snap),
+                   launches={k: v for k, v in LAUNCHES.items() if v},
+                   w4_shapes=dict(W4_SHAPE_LAUNCHES),
+                   collectives=dict(COLLECTIVES),
+                   graph_captures=llm.graph_captures)
+        x = tokens[-1]
+        t = time.perf_counter()
+        if run.get("profile", True):
+            busy, n, kernels = profiled(
+                lambda: [llm.inference(x) for _ in range(2)])
+            busy, coll = shard_collective_share(kernels)
+            res.update(busy=busy / 2, coll=coll / 2, profiled_launches=n / 2)
+        res["profile_s"] = time.perf_counter() - t
+        res["faults"] = {}
+        t = time.perf_counter()
+        def skip_sum():
+            # Call 2i is layer i's o_proj all-reduce, 2i + 1 its down_proj.
+            llm.shard.sum = _faulty_sum(llm.shard, SKIP_CALL)
+        for fault in run["faults"]:
+            at_decode = None
+            if fault == "skip_sum" and rank == run["fault_rank"]:
+                skip_sum()                  # in the first prompt's prefill
+            if fault == "skip_sum_decode" and rank == run["fault_rank"]:
+                at_decode = skip_sum        # in the first decode step
+            if fault == "no_rotate":
+                inner, ring_mod._Ring.pass_on = _ring_no_rotate(ring_mod)
+            if fault == "swap_kv":
+                lw = llm.params.layers
+                good = (lw.wk, lw.wv)
+                lw.wk, lw.wv = (split_weight(w, "out", nm, nm - 1 - m)
+                                for w in full_kv)
+            try:
+                res["faults"][fault] = serve(FAULT_STEPS, at_decode)[:2]
+            finally:
+                llm.shard.__dict__.pop("sum", None)
+                if fault == "no_rotate":
+                    ring_mod._Ring.pass_on = inner
+                if fault == "swap_kv":
+                    lw.wk, lw.wv = good
+        res["faults_s"] = time.perf_counter() - t
+        out.append(res)
+        del llm, full_kv, prompts
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def check_sharded_run(label: str, ranks: list, ref: dict, expect: dict,
+                      frac: bool, steps_note: str, smooth: bool = False) -> dict:
+    """Every rank's results equal rank 0's; rank 0's prefill logits within
+    SHARD_TOL of the unsharded reference and each step's within
+    SHARD_DECODE_TOL (`smooth`: within SHARD_TOL, as the prefill's), its
+    sampled fraction within SHARD_FRAC_TOL; each rank's launches exact;
+    every planted fault outside the bounds. Logs a line per rank and one
+    for the run."""
+    import numpy as np
+
+    r0 = ranks[0]
+    for r, res in enumerate(ranks[1:], 1):
+        if not (np.array_equal(res["prefill"], r0["prefill"])
+                and np.array_equal(res["logits"], r0["logits"])):
+            raise AssertionError(f"sharded {label}: rank {r}'s logits differ "
+                                 "from rank 0's")
+    errs = shard_errors(r0["prefill"], r0["logits"], ref)
+    tokens_same = bool((r0["logits"].argmax(-1)
+                        == ref["logits"][:len(r0["logits"])].argmax(-1)).all())
+    frac_err = abs(r0["frac"] - ref["frac"]) / max(ref["frac"], 1e-12)
+
+    def passes(e):
+        if smooth:
+            return max(e["max"]) <= SHARD_TOL
+        return e["max"][0] <= SHARD_TOL and max(e["l2"][1:]) <= SHARD_DECODE_TOL
+    bounds = (f"steps' max of the largest (bound {SHARD_TOL})" if smooth else
+              f"steps' relative L2 (bound {SHARD_DECODE_TOL})")
+    faults = {}
+    for name, (pre, logits) in r0["faults"].items():
+        e = faults[name] = shard_errors(pre, logits, ref)
+        steps = e["max" if smooth else "l2"][1:]
+        log(f"sharded {label}: planted fault {name}: prefill "
+            f"{e['max'][0]:.3e} (bound {SHARD_TOL}), {bounds} "
+            f"{[f'{x:.3e}' for x in steps]}")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip().splitlines()[0]
+    for r, res in enumerate(ranks):
+        busy = ("not profiled" if "busy" not in res else
+                f"device busy {res['busy']:.3f} ms/step, collectives "
+                f"{res['coll']:.3f} ms/step "
+                f"({res['coll'] / max(res['busy'], 1e-9):.3f} of busy), "
+                f"{res['profiled_launches']:.0f} launches/step profiled")
+        log(f"sharded {label} rank {r}: wall {res['wall']:.2f} ms/step, {busy}, "
+            f"graph captures {res['graph_captures']}; engine {res['build_s']:.1f}"
+            f" s, serve {res['serve_s']:.1f} s, profile {res['profile_s']:.1f} s,"
+            f" faults {res['faults_s']:.1f} s; launches {res['launches']}"
+            + (f", int4 shapes {res['w4_shapes']}" if res["w4_shapes"] else "")
+            + f"; collective calls {res['collectives']} ({smi}; {RANKS_SHARE})")
+    log(f"sharded {label}: {steps_note}; against the unsharded engine: "
+        f"prefill logits {errs['max'][0]:.3e} of the largest (bound "
+        f"{SHARD_TOL}), steps' max {[f'{e:.3e}' for e in errs['max'][1:]]}, "
+        f"relative L2 {[f'{e:.3e}' for e in errs['l2'][1:]]} (bound "
+        f"{f'{SHARD_TOL} on the max' if smooth else SHARD_DECODE_TOL}), "
+        f"greedy tokens equal {tokens_same}; avg "
+        f"sparsity {r0['frac']!r} vs {ref['frac']!r} (relative "
+        f"{frac_err:.3e}, bound {SHARD_FRAC_TOL if frac else '-'})")
+    if not passes(errs) or (frac and frac_err > SHARD_FRAC_TOL):
+        raise AssertionError(f"sharded {label}: disagrees with the unsharded "
+                             "engine")
+    for name, e in faults.items():
+        if passes(e):
+            raise AssertionError(f"sharded {label}: the planted fault {name} "
+                                 "passes the tolerance")
+    for r, res in enumerate(ranks):
+        want = expect(r)
+        w4 = want.pop("w4_shapes", {})
+        if res["launches"] != want or res["w4_shapes"] != w4:
+            raise AssertionError(f"sharded {label} rank {r}: launches "
+                                 f"{res['launches']}, {res['w4_shapes']} != "
+                                 f"{want}, {w4}")
+        if res["graph_captures"] != 0:
+            raise AssertionError(f"sharded {label}: a gloo step was captured")
+    return dict(err=errs, faults=faults, frac=r0["frac"],
+                launches=[res["launches"] for res in ranks],
+                w4_shapes=r0["w4_shapes"])
+
+
+def sharded_nccl_1x1(torch, dev) -> dict:
+    """NCCL at one rank, in this process: the 1B (bf16 LSH K=10, L=150,
+    B=2, phase 3's 12000- and 7000-token prompts) unsharded and then
+    through `shard_engine` over a 1 x 1 mesh on the same weights, 16 steps
+    each on the unsharded run's tokens: every step's logits equal bit for
+    bit, the sharded step captured once with its collectives inside the
+    graph, launches exact."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from magicpig_tpu_torch.config import LSHConfig
+    from magicpig_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+    from magicpig_tpu_torch.parallel.launch import init_process
+    from magicpig_tpu_torch.parallel.mesh import make_mesh, shard_engine
+    from magicpig_tpu_torch.parallel.sharded import COLLECTIVES, reset_collectives
+    from magicpig_tpu_torch.runtime.engine import LLM, graph_kernel_nodes
+
+    lsh = LSHConfig(K=10, L=150)
+    ref = LLM("llama-3.2-1b", batch_size=2, max_length=16384, lsh=lsh,
+              device=dev, seed=0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    prompts = [torch.randint(1, ref.config.vocab_size, (n,), generator=gen,
+                             device=dev) for n in (12000, 7000)]
+
+    def serve(llm, feed=None):
+        """Prefill, then 16 steps on `feed` (or greedy): (step logits, the
+        tokens fed, wall ms/step, launches, collective calls)."""
+        reset_launches()
+        reset_collectives()
+        tok = torch.cat([llm.prefill(p, request_id=r).argmax(-1)
+                         for r, p in enumerate(prompts)])
+        out, fed = [], []
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for i in range(SHARD_STEPS_1X1):
+            tok = tok if feed is None else feed[i]
+            fed.append(tok)
+            out.append(llm.inference(tok))
+            tok = out[-1].argmax(-1)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3 / SHARD_STEPS_1X1
+        return out, fed, wall, dict(LAUNCHES), dict(COLLECTIVES)
+
+    def steady_ms(llm, tok, n=8):
+        """Wall ms/step of n more graphed steps (after the serve)."""
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(n):
+            llm.inference(tok)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) * 1e3 / n
+
+    want, fed, ref_wall, ref_launches, _ = serve(ref)
+    ref_steady = steady_ms(ref, fed[-1])
+    ref_nodes = graph_kernel_nodes(ref._graph.graph)
+    tmp = tempfile.mkdtemp(prefix="nccl_1x1_")
+    init_process(0, 1, "nccl", f"{tmp}/store", "cuda")
+    try:
+        llm = LLM("llama-3.2-1b", batch_size=2, max_length=16384, lsh=lsh,
+                  params=ref.params, projections=ref.projections, device=dev)
+        shard_engine(llm, make_mesh(1, 1))
+        got, _, wall, launches, calls = serve(llm, fed)
+        steady = steady_ms(llm, fed[-1])
+        nodes = graph_kernel_nodes(llm._graph.graph)
+        same = [torch.equal(g, w) for g, w in zip(got, want)]
+        tok = fed[-1]
+        busy, n, kernels = profiled(lambda: [llm.inference(tok) for _ in range(2)])
+        busy, coll = shard_collective_share(kernels)
+        captures = llm.graph_captures
+    finally:
+        dist.destroy_process_group()
+    layers = llm.config.num_hidden_layers
+    n_sparse = sum(1 for kind, _ in llm.groups if kind == "sparse")
+    expect = {k: 0 for k in launches}
+    expect.update(flash_prefill=2 * layers,
+                  flash_decode=SHARD_STEPS_1X1 * layers,
+                  lsh_fused_decode=SHARD_STEPS_1X1 * n_sparse)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip().splitlines()[0]
+    log(f"sharded nccl 1x1 (llama-3.2-1b, B=2, 12000 + 7000 tokens): logits "
+        f"equal to the unsharded engine's bit for bit in {sum(same)} of "
+        f"{len(same)} steps; graph captures {captures}; wall over the 16 "
+        f"steps {wall:.2f} ms/step (unsharded {ref_wall:.2f}), 8 more graphed "
+        f"{steady:.2f} (unsharded {ref_steady:.2f}), device busy {busy / 2:.3f} "
+        f"ms/step, collectives {coll / 2:.3f} ms/step "
+        f"({coll / max(busy, 1e-9):.3f} of busy), {n / 2:.0f} launches/step "
+        f"profiled, graph kernel nodes {nodes} (unsharded {ref_nodes}); "
+        f"collective calls in the two prefills, the eager and the captured "
+        f"step {calls}; "
+        f"launches {({k: v for k, v in launches.items() if v})} ({smi})")
+    if not all(same) or captures != 1 or nodes <= ref_nodes:
+        raise AssertionError("sharded nccl 1x1: differs from the unsharded "
+                             "engine, or its step was not captured with its "
+                             "collectives")
+    if launches != expect or launches != ref_launches:
+        raise AssertionError(f"sharded nccl 1x1: launches {launches} != "
+                             f"{expect} (unsharded {ref_launches})")
+    if not calls["sum"] or not calls["gather"]:
+        raise AssertionError(f"sharded nccl 1x1: collectives not called {calls}")
+    del llm, ref, want, got
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(wall=steady, nodes=nodes, launches=launches)
+
+
+def sharded_gloo(torch, dev) -> dict:
+    """gloo, four ranks started once on the card. Mesh 1 x 2 on ranks 0
+    and 1 (2 and 3 idle): Llama-3.1-8B at full width and depth, bf16 LSH
+    (K=10, L=150), one 8192-token prompt, 8 eager steps on the unsharded
+    run's tokens; planted fault: rank 1 keeps its own partial of layer 1's
+    MLP all-reduce in the prefill. Then its smooth run (SMOOTH_LSH, a
+    SMOOTH_PROMPT-token prompt, 4 steps, every step within SHARD_TOL), the
+    same all-reduce skipped in the first decode step. Mesh 2 x 2 with
+    seq_axis="data": the 1B at full width and depth, bf16 LSH, two prompts
+    (8192 and 6144 tokens) prefilled through the zigzag ring, 8 eager
+    steps (faults: a ring step's K/V not rotated, the kv-head shards of
+    the two model ranks swapped); bench.py's block_topk4 mode with int4
+    weights (unfused) without the ring, 4 steps (fault: the skipped
+    all-reduce in the prefill); the smooth run with int4 weights through
+    the ring (SMOOTH_LSH, SMOOTH_PROMPTS, 4 steps; fault: the all-reduce
+    skipped in the first decode step). Each run against the unsharded
+    engine on the card."""
+    import dataclasses
+
+    from magicpig_tpu_torch.config import LSHConfig, preset
+    from magicpig_tpu_torch.parallel.launch import launch
+
+    max_length = 8192 + 512
+    lsh = dict(K=10, L=150)
+    bt4 = dict(K=1, L=0, estimator="block_topk", offload_quant="int4",
+               dense_quant="int8")
+    cfg8, cfg = preset("llama-3.1-8b"), preset("llama-3.2-1b")
+    cfg4 = dataclasses.replace(cfg, weight_quant="int4")
+    label8 = "gloo 1x2 llama-3.1-8b"
+    refs = dict(
+        b8=unsharded_reference(torch, dev, cfg8, LSHConfig(**lsh), (8192,),
+                               31, SHARD_STEPS_8B, 1, max_length, label8),
+        b8_smooth=unsharded_reference(
+            torch, dev, cfg8, LSHConfig(**SMOOTH_LSH), (SMOOTH_PROMPT,), 31,
+            SMOOTH_STEPS, 1, max_length, f"{label8} smooth", local=False),
+        ring=unsharded_reference(torch, dev, cfg, LSHConfig(**lsh),
+                                 RING_PROMPTS, 37, RING_STEPS, 2, max_length,
+                                 "gloo 2x2 ring llama-3.2-1b"),
+        bt4=unsharded_reference(torch, dev, cfg4, LSHConfig(**bt4),
+                                RING_PROMPTS, 37, BT4_STEPS, 2, max_length,
+                                "gloo 2x2 block_topk4 W4 llama-3.2-1b"),
+        smooth=unsharded_reference(torch, dev, cfg4, LSHConfig(**SMOOTH_LSH),
+                                   SMOOTH_PROMPTS, 37, SMOOTH_STEPS, 2,
+                                   max_length,
+                                   "gloo 2x2 ring W4 llama-3.2-1b smooth",
+                                   local=False))
+    b8 = dict(model="llama-3.1-8b", lsh=lsh, mesh=(1, 2), seq_axis=None,
+              batch=1, max_length=max_length, seed=31, prompts=(8192,),
+              tokens=refs["b8"]["tokens"], faults=("skip_sum",), fault_rank=1)
+    b8_smooth = dict(b8, lsh=SMOOTH_LSH, prompts=(SMOOTH_PROMPT,),
+                     tokens=refs["b8_smooth"]["tokens"],
+                     faults=("skip_sum_decode",), profile=False)
+    ring = dict(model="llama-3.2-1b", lsh=lsh, mesh=(2, 2), seq_axis="data",
+                batch=2, max_length=max_length, seed=37, prompts=RING_PROMPTS,
+                tokens=refs["ring"]["tokens"], faults=("no_rotate", "swap_kv"))
+    block = dict(ring, cfg=dict(weight_quant="int4"), lsh=bt4, seq_axis=None,
+                 tokens=refs["bt4"]["tokens"], faults=("skip_sum",),
+                 fault_rank=1)
+    smooth = dict(block, lsh=SMOOTH_LSH, seq_axis="data",
+                  prompts=SMOOTH_PROMPTS, tokens=refs["smooth"]["tokens"],
+                  faults=("skip_sum_decode",), profile=False)
+    t = time.perf_counter()
+    ranks = launch(_sharded_rank, 4, [b8, b8_smooth, ring, block, smooth],
+                   backend="gloo", device="cuda", timeout=600)
+    spawn_s = time.perf_counter() - t
+    if any(r[i] is not None for r in ranks[2:] for i in (0, 1)):
+        raise AssertionError("sharded: a rank outside the 1 x 2 mesh ran it")
+
+    layers8 = cfg8.num_hidden_layers
+    n_dense8 = len(LSHConfig(**lsh).dense_layers_for(layers8))   # 0 and 16
+    layers = cfg.num_hidden_layers
+    n_dense = len(LSHConfig(**lsh).dense_layers_for(layers))     # layer 0
+    n_prompts = len(RING_PROMPTS)
+
+    def b8_expect(steps):
+        return lambda r: dict(
+            flash_prefill_d128=layers8, flash_decode_d128=steps * layers8,
+            lsh_fused_decode_d128=steps * (layers8 - n_dense8))
+
+    def ring_expect(steps):
+        return lambda r: dict(
+            flash_prefill=layers * n_prompts * ring_live_pairs(2, r // 2),
+            flash_decode=steps * layers,
+            lsh_fused_decode=steps * (layers - n_dense))
+
+    def w4_expect(steps):
+        # Per step and layer 7 int4 products (wq, wk, wv, wo, w_gate, w_up,
+        # w_down at the rank's columns or rows) and the lm_head's shard;
+        # each prompt's last-token lm_head at prefill; M = 1 a rank.
+        shapes = {f"{kin}x{out}": n for (_, kin, out), n
+                  in zip(W4_SHAPES_TP, (1, 2, 1, 2, 1))}
+        w4 = {k: steps * layers * n for k, n in shapes.items()}
+        _, kin, out = W4_SHAPES_TP[-1]
+        w4[f"{kin}x{out}"] = steps + n_prompts
+        return dict(w4_matmul=sum(w4.values()), w4_shapes=w4)
+
+    def bt4_expect(r):
+        return dict(flash_prefill=layers * n_prompts,
+                    flash_decode=BT4_STEPS * (layers - n_dense),
+                    flash_decode_int8=BT4_STEPS * n_dense,
+                    block_rank_int4=BT4_STEPS * (layers - n_dense),
+                    rescore_attend_int4=BT4_STEPS * (layers - n_dense),
+                    **w4_expect(BT4_STEPS))
+
+    def smooth_expect(r):
+        return dict(ring_expect(SMOOTH_STEPS)(r), **w4_expect(SMOOTH_STEPS))
+
+    note = f"launch of the five runs {spawn_s:.1f} s"
+    out = dict(
+        b8=check_sharded_run(
+            label8, [r[0] for r in ranks[:2]], refs["b8"],
+            b8_expect(SHARD_STEPS_8B), True,
+            f"2 ranks, 8192 tokens, {SHARD_STEPS_8B} eager steps, {note}"),
+        b8_smooth=check_sharded_run(
+            f"{label8} smooth", [r[1] for r in ranks[:2]], refs["b8_smooth"],
+            b8_expect(SMOOTH_STEPS), True,
+            f"2 ranks, {SMOOTH_PROMPT} tokens, LSH K=1, L=32, {SMOOTH_STEPS} "
+            "eager steps", smooth=True),
+        ring=check_sharded_run(
+            "gloo 2x2 ring llama-3.2-1b", [r[2] for r in ranks], refs["ring"],
+            ring_expect(RING_STEPS), True,
+            f"4 ranks, zigzag ring over data, {RING_STEPS} eager steps"),
+        block=check_sharded_run(
+            "gloo 2x2 block_topk4 W4 llama-3.2-1b", [r[3] for r in ranks],
+            refs["bt4"], bt4_expect, False,
+            f"4 ranks, no ring, {BT4_STEPS} eager steps (realized fraction: "
+            "the budget clamped to each length)"),
+        smooth=check_sharded_run(
+            "gloo 2x2 ring W4 llama-3.2-1b smooth", [r[4] for r in ranks],
+            refs["smooth"], smooth_expect, True,
+            f"4 ranks, zigzag ring over data, int4 weights, LSH K=1, L=32, "
+            f"{' + '.join(map(str, SMOOTH_PROMPTS))} tokens, {SMOOTH_STEPS} "
+            "eager steps", smooth=True))
+    return out
+
+
+def phase_sharded(torch, dev) -> dict:
+    """Multi-GPU serving over torch.distributed, on the one card: NCCL at
+    one rank, then gloo ranks sharing it, 2 or 4 a run (NCCL takes one
+    card per rank)."""
+    t = time.perf_counter()
+    out = dict(nccl=sharded_nccl_1x1(torch, dev), gloo=sharded_gloo(torch, dev))
+    out["seconds"] = time.perf_counter() - t
+    log(f"phase 3 sharded serving done in {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
     import torch.nn.functional as F
@@ -4082,6 +4780,8 @@ def main() -> int:
         kern.update(serve_attend_kernels(torch, dev, d=128))
         torch.cuda.empty_cache()
         kern.update(phase_w4_kernel(torch, dev, W4_SHAPES_8B))
+        torch.cuda.empty_cache()
+        kern.update(phase_w4_kernel(torch, dev, W4_SHAPES_TP, m=1))
         torch.cuda.empty_cache()
         kern.update(phase_kernels_g3(torch, F, dev))
         torch.cuda.empty_cache()
@@ -4133,6 +4833,11 @@ def main() -> int:
     log("phase 3 serve llama-3.2-1b through the Scheduler")
     sched = phase_serve_scheduler(torch, dev)
     phase_serve_idle(torch, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("phase 3 sharded serving over torch.distributed (NCCL at one rank, "
+        "then gloo ranks sharing the card)")
+    sharded = phase_sharded(torch, dev)
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -4335,11 +5040,14 @@ def main() -> int:
         sources[name] = sources[form]
         launches[name] = count
         launches_of[name] = f"{form} window"
-    for shapes, run in ((W4_SHAPES, full_int8), (W4_SHAPES_8B, full_int8_8b)):
+    for shapes, run, where in (
+            (W4_SHAPES, full_int8, ""), (W4_SHAPES_8B, full_int8_8b, ""),
+            (W4_SHAPES_TP, sharded["gloo"]["block"],
+             " rank 0 of the 2x2 block_topk4 run")):
         for name, kin, out in shapes:
             sources[name] = sources["w4_matmul"]
             launches[name] = run["w4_shapes"][f"{kin}x{out}"]
-            launches_of[name] = f"w4_matmul {kin}x{out}"
+            launches_of[name] = f"w4_matmul {kin}x{out}{where}"
     kernels = []
     for name, r in kern.items():
         kernels.append({

@@ -8,6 +8,15 @@ activations quantized per token on the fly) or a `Quant4Weight` (int4 in
 `torch.matmul`, as the JAX package left them to XLA; the int8 product is
 `torch._int_mm`; the int4 product at decode size is the hand-written
 kernel `ops/kernels/w4_matmul.py`.
+
+Under tensor parallelism (`parallel/`) a row-split weight's product takes
+a `reduce` (`parallel.sharded.Shard`): x holds the rank's slice of the
+input, w its rows, and the partial products are summed over the ranks
+before the one cast to the model dtype: W8A8's exact int32 products (as
+GSPMD sums the JAX package's int32 dot, so the sum is the unsharded
+product bit for bit), W4A8's and the int4 kernel's float32 sums, a plain
+product's output. W8A8 and W4A8 quantize x by the amax of its whole row
+(`reduce.max`).
 """
 
 from __future__ import annotations
@@ -110,20 +119,31 @@ def _int8_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch._int_mm(a, b)[:m]
 
 
-def _linear8(x: torch.Tensor, w: QuantWeight) -> torch.Tensor:
+def _row_scale(xf: torch.Tensor, reduce=None) -> torch.Tensor:
+    """Per-token int8 activation scale amax / 127 (the amax over the
+    whole row: over the ranks under `reduce`)."""
+    amax = xf.abs().amax(dim=-1, keepdim=True)
+    if reduce is not None:
+        amax = reduce.max(amax)
+    return div_exact(amax, 127.0)
+
+
+def _linear8(x: torch.Tensor, w: QuantWeight, reduce=None) -> torch.Tensor:
     """W8A8: per-token int8 activations (amax / 127, round half to even,
     clip), an exact int8 product, rescaled by both scales."""
     xf = x.float()
-    sx = div_exact(xf.abs().amax(dim=-1, keepdim=True), 127.0)
+    sx = _row_scale(xf, reduce)
     xq = torch.clamp(torch.round(xf / torch.clamp(sx, min=1e-12)), -127, 127)
     kin = w.q.shape[-2]
     acc = _int8_matmul(xq.to(torch.int8).reshape(-1, kin), w.q)
+    if reduce is not None:
+        acc = reduce.sum(acc)
     acc = acc.reshape(*x.shape[:-1], -1)
     return (acc.float() * sx * w.scale).to(x.dtype)
 
 
-def _linear4_part(x: torch.Tensor, q: torch.Tensor,
-                  scale: torch.Tensor) -> torch.Tensor:
+def _linear4_part(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
+                  reduce=None) -> torch.Tensor:
     """x @ W for a Quant4Weight's (q, scale) without the kernel: from
     W4_DEQUANT_MIN_M rows one dequantized weight in x's dtype and a plain
     matmul; below, per-token int8 activations and one exact integer product
@@ -136,16 +156,19 @@ def _linear4_part(x: torch.Tensor, q: torch.Tensor,
     wq = unpack_weight4(q).float().reshape(g, W4_GROUP, out)
     if m >= W4_DEQUANT_MIN_M:
         wde = (wq * scale[:, None, :]).reshape(kin, out).to(x.dtype)
-        return torch.matmul(x, wde)
+        y = torch.matmul(x, wde)
+        return y if reduce is None else reduce.sum(y)
     xf = x.float().reshape(m, kin)
-    sx = div_exact(xf.abs().amax(dim=-1, keepdim=True), 127.0)
+    sx = _row_scale(xf, reduce)
     xq = torch.clamp(torch.round(xf / torch.clamp(sx, min=1e-12)), -127, 127)
     res = torch.bmm(xq.reshape(m, g, W4_GROUP).transpose(0, 1), wq)
-    outv = (res * scale[:, None, :]).sum(0) * sx
-    return outv.to(x.dtype).reshape(*x.shape[:-1], out)
+    outv = (res * scale[:, None, :]).sum(0)
+    if reduce is not None:
+        outv = reduce.sum(outv)
+    return (outv * sx).to(x.dtype).reshape(*x.shape[:-1], out)
 
 
-def _linear4(x: torch.Tensor, w: Quant4Weight) -> torch.Tensor:
+def _linear4(x: torch.Tensor, w: Quant4Weight, reduce=None) -> torch.Tensor:
     """Decode-size products (the kernel's shapes) through the packed-nibble
     kernel, bf16 activations times exact nibbles; the rest `_linear4_part`.
     The JAX package routes the same way on its TPU."""
@@ -154,17 +177,22 @@ def _linear4(x: torch.Tensor, w: Quant4Weight) -> torch.Tensor:
     m = x.numel() // kin
     if m < W4_DEQUANT_MIN_M and w4_supported(m, kin, out):
         y = w4_matmul(x.reshape(m, kin), w.q, w.scale)
+        if reduce is not None:
+            y = reduce.sum(y)
         return y.to(x.dtype).reshape(*x.shape[:-1], out)
-    return _linear4_part(x, w.q, w.scale)
+    return _linear4_part(x, w.q, w.scale, reduce)
 
 
-def linear(x: torch.Tensor, w) -> torch.Tensor:
-    """x @ w for a plain tensor, a QuantWeight or a Quant4Weight."""
+def linear(x: torch.Tensor, w, reduce=None) -> torch.Tensor:
+    """x @ w for a plain tensor, a QuantWeight or a Quant4Weight; with
+    `reduce`, w is a row-split weight and the products are summed over the
+    ranks (module docstring)."""
     if isinstance(w, Quant4Weight):
-        return _linear4(x, w)
+        return _linear4(x, w, reduce)
     if isinstance(w, QuantWeight):
-        return _linear8(x, w)
-    return torch.matmul(x, w)
+        return _linear8(x, w, reduce)
+    y = torch.matmul(x, w)
+    return y if reduce is None else reduce.sum(y)
 
 
 @dataclasses.dataclass
@@ -332,17 +360,20 @@ def qkv_proj(lp: LayerParams, config: ModelConfig, hidden: torch.Tensor,
 
 
 def post_attention(lp: LayerParams, config: ModelConfig,
-                   attn_out: torch.Tensor, residual: torch.Tensor) -> torch.Tensor:
+                   attn_out: torch.Tensor, residual: torch.Tensor,
+                   reduce=None) -> torch.Tensor:
     """o_proj + residual + MLP block. attn_out: [B, S, Hq*d]; residual:
-    [B, S, h]."""
-    hidden = residual + linear(attn_out.to(residual.dtype), lp.wo)
+    [B, S, h]. With `reduce` (tensor parallelism) attn_out holds the rank's
+    heads, the MLP runs at its columns, and o_proj's and down_proj's
+    products are summed over the ranks."""
+    hidden = residual + linear(attn_out.to(residual.dtype), lp.wo, reduce)
     x = rms_norm(hidden, lp.ln_mlp, config.rms_norm_eps)
     if lp.w_gateup is not None:
         g, u = linear(x, lp.w_gateup).chunk(2, dim=-1)
     else:
         g, u = linear(x, lp.w_gate), linear(x, lp.w_up)
     gate = F.silu(g.float()).to(x.dtype)
-    return hidden + linear(gate * u.to(x.dtype), lp.w_down)
+    return hidden + linear(gate * u.to(x.dtype), lp.w_down, reduce)
 
 
 def unembed(params: LlamaParams, config: ModelConfig,

@@ -28,6 +28,17 @@ int4 forms). A config with a sliding window (`ModelConfig.sliding_window`,
 Mistral v0.1) takes it through every stage: the prefill's and the chunks'
 flash prefill, the sparse fill's offload clip, and the decode step's
 flash decode bounds (`runtime/server.py`), eager and graphed alike.
+
+Sharded over a ("data", "model") mesh (`parallel.mesh.shard_engine`),
+every rank makes the same calls with the same global arguments (request
+ids, [B] tokens) and returns the same global results (logits [B, V],
+tokens, the sparsity counters): each rank runs its batch slice at its kv
+heads (`layer_config`), sums the row-split products and gathers the
+logits (`parallel/sharded.py`). A prompt runs whole on every data rank,
+or with `seq_axis` over the ring (`parallel/ring.py`), and its fill lands
+in the owning data rank's slot. The step is captured as a CUDA graph
+only when every collective is NCCL's (a gloo collective cannot be
+captured: those steps run eagerly, and `graph_captures` stays 0).
 """
 
 from __future__ import annotations
@@ -50,6 +61,7 @@ from magicpig_tpu_torch.ops.hashing import make_hash_projections
 from magicpig_tpu_torch.ops.kernels import flash_prefill
 from magicpig_tpu_torch.ops.kernels._lib import CapturedLaunches
 from magicpig_tpu_torch.ops.sampling import greedy_sample, top_p_sample
+from magicpig_tpu_torch.parallel.ring import ring_prefill, shard_tokens, unshard_tokens
 from magicpig_tpu_torch.runtime import state as state_lib
 from magicpig_tpu_torch.runtime.server import (
     decode_dense_layer,
@@ -182,6 +194,17 @@ class LLM:
         # allocated at its first call; one chunked prefill at a time.
         self._stage_k: torch.Tensor | None = None
         self._stage_v: torch.Tensor | None = None
+        # Set by `parallel.mesh.shard_engine`: the mesh, the prefill's
+        # sequence axis and this rank's `Shard`.
+        self.mesh = None
+        self.seq_axis: str | None = None
+        self.shard = None
+
+    @property
+    def layer_config(self) -> ModelConfig:
+        """The shapes the layers run at: the config, or under a mesh the
+        rank's heads, MLP columns and vocabulary shard."""
+        return self.config if self.shard is None else self.shard.config
 
     def _tokens(self, input_ids) -> torch.Tensor:
         if isinstance(input_ids, torch.Tensor):
@@ -194,9 +217,11 @@ class LLM:
     @torch.no_grad()
     def prefill(self, input_ids, request_id: int = 0) -> torch.Tensor:
         """Prefill one request into slot `request_id`; returns logits [1, V]."""
-        cfg, lsh = self.config, self.lsh
+        cfg, sh = self.layer_config, self.shard
         tokens = self._tokens(input_ids)
         p = self._check_prompt(tokens)
+        if sh is not None and sh.n_seq > 1:
+            return self._prefill_ring(tokens, request_id)
         params = self.params
         hidden = params.embed[tokens][None]                    # [1, P, h]
         positions = torch.arange(p, device=self.device)[None]
@@ -206,13 +231,72 @@ class LLM:
             q, k, v = qkv_proj(lp, cfg, hidden, positions, params.cos, params.sin)
             attn = flash_prefill(q, k, v, length,
                                  window=cfg.sliding_window)    # [1, P, Hq, d]
-            hidden = post_attention(lp, cfg, attn.reshape(1, p, -1), hidden)
-            if kind == "dense":
-                fill_dense_layer(self.state, gi, request_id, k[0], v[0])
-            else:
-                fill_sparse_layer(self.state, gi, request_id, k[0], v[0],
-                                  self.projections, lsh, cfg.sliding_window)
-        logits = unembed(params, cfg, hidden[:, -1])           # [1, V]
+            hidden = post_attention(lp, cfg, attn.reshape(1, p, -1), hidden, sh)
+            self._fill(kind, gi, request_id, k[0], v[0])
+        logits = self._logits(hidden[:, -1])                   # [1, V]
+        self._admitted(request_id, p)
+        return logits
+
+    def _fill(self, kind: str, gi: int, request_id: int, k: torch.Tensor,
+              v: torch.Tensor) -> None:
+        """One layer's fill of request `request_id` from its prompt K/V
+        [P, Hkv, d] (under a mesh: on the owning data rank only, into its
+        local slot, at the rank's kv heads)."""
+        sh = self.shard
+        if sh is not None:
+            if not sh.owns(request_id):
+                return
+            request_id = sh.slot(request_id)
+        if kind == "dense":
+            fill_dense_layer(self.state, gi, request_id, k, v)
+        else:
+            fill_sparse_layer(self.state, gi, request_id, k, v,
+                              self.projections, self.lsh,
+                              self.config.sliding_window)
+
+    def _logits(self, hidden: torch.Tensor) -> torch.Tensor:
+        """f32 logits [rows, V] of final hidden rows (under a mesh, the
+        vocabulary shards gathered over "model")."""
+        logits = unembed(self.params, self.layer_config, hidden)
+        return logits if self.shard is None else self.shard.gather_vocab(logits)
+
+    def _prefill_ring(self, tokens: torch.Tensor, request_id: int) -> torch.Tensor:
+        """`prefill` with the prompt's sequence split over the seq axis:
+        padded with token 0 to whole chunks of min(chunk_size, max_length)
+        (`shard_engine` makes them split into 2 x N zigzag chunks), each
+        rank runs its tokens through every layer, attention through the
+        ring, and the owning data rank gathers each layer's K/V for its
+        fill. Pad tokens lie after the prompt, so no prompt token attends
+        them."""
+        cfg, sh, params = self.layer_config, self.shard, self.params
+        p = tokens.shape[0]
+        n, r, layout = sh.n_seq, sh.seq_rank, "zigzag"
+        c = min(self.chunk_size, self.max_length)
+        p_pad = -(-p // c) * c
+        padded = torch.zeros((1, p_pad), dtype=torch.int64, device=self.device)
+        padded[0, :p] = tokens
+        # Pad positions past the RoPE table take its last row.
+        positions = torch.arange(p_pad, device=self.device).clamp(
+            max=params.cos.shape[0] - 1)[None]
+        local = shard_tokens(padded, n, r, layout)               # [1, P/N]
+        positions = shard_tokens(positions, n, r, layout)
+        sl = local.shape[1]
+        hidden = params.embed[local]                             # [1, P/N, h]
+        for i, (kind, gi) in enumerate(self.groups):
+            lp = params.layers.layer(i)
+            q, k, v = qkv_proj(lp, cfg, hidden, positions, params.cos, params.sin)
+            attn = ring_prefill(q, k, v, self.mesh, self.seq_axis, layout)
+            hidden = post_attention(lp, cfg, attn.reshape(1, sl, -1), hidden, sh)
+            k_all = unshard_tokens(sh.gather_seq(k[0]), layout, dim=0)[:p]
+            v_all = unshard_tokens(sh.gather_seq(v[0]), layout, dim=0)[:p]
+            self._fill(kind, gi, request_id, k_all, v_all)
+        # The last prompt token's hidden row, from the rank that holds it
+        # (the others add zeros).
+        where = shard_tokens(torch.arange(p_pad, device=self.device)[None],
+                             n, r, layout)[0]
+        last = (where == p - 1).to(hidden.dtype)[:, None] * hidden[0]
+        last = sh.sum_seq(last.sum(dim=0, keepdim=True))         # [1, h]
+        logits = self._logits(last)
         self._admitted(request_id, p)
         return logits
 
@@ -225,8 +309,13 @@ class LLM:
         return p
 
     def _admitted(self, request_id: int, p: int) -> None:
-        """The slot's position and guard mirrors after its fill."""
-        self.state.pos[request_id] = p
+        """The slot's position and guard mirrors after its fill (the
+        mirrors are global on every rank; the position the owner's)."""
+        sh = self.shard
+        if sh is None:
+            self.state.pos[request_id] = p
+        elif sh.owns(request_id):
+            self.state.pos[sh.slot(request_id)] = p
         self._hot_used[request_id] = (self.lsh.num_sink_tokens
                                       + self.lsh.num_local_tokens)
         self._pos_used[request_id] = p
@@ -245,7 +334,7 @@ class LLM:
         be in flight at a time."""
         cp = ChunkedPrefill(self, input_ids, request_id)
         if self._stage_k is None:
-            cfg = self.config
+            cfg = self.layer_config
             shape = (len(self.groups), self.max_length,
                      cfg.num_key_value_heads, cfg.head_dim)
             self._stage_k = torch.zeros(shape, dtype=cfg.dtype,
@@ -259,7 +348,7 @@ class LLM:
         every layer: its K/V go into the staging pair, and its queries
         attend the staged prefix. Returns the logits [1, V] at the last
         prompt position the chunk holds."""
-        cfg, params = self.config, self.params
+        cfg, params, sh = self.layer_config, self.params, self.shard
         c = tokens.shape[0]
         hidden = params.embed[tokens][None]                    # [1, c, h]
         positions = torch.arange(off, off + c, device=self.device)[None]
@@ -273,39 +362,44 @@ class LLM:
             attn = flash_prefill(q, self._stage_k[i][None],
                                  self._stage_v[i][None], length, q_offset,
                                  window=cfg.sliding_window)
-            hidden = post_attention(lp, cfg, attn.reshape(1, c, -1), hidden)
+            hidden = post_attention(lp, cfg, attn.reshape(1, c, -1), hidden, sh)
         last = min(max(true_len - 1 - off, 0), c - 1)
-        return unembed(params, cfg, hidden[:, last])           # [1, V]
+        return self._logits(hidden[:, last])                   # [1, V]
 
     def _fill_from_staging(self, true_len: int, request_id: int) -> None:
         """The fills of `prefill`, from the staged K/V of the whole prompt."""
         for i, (kind, gi) in enumerate(self.groups):
-            k, v = self._stage_k[i, :true_len], self._stage_v[i, :true_len]
-            if kind == "dense":
-                fill_dense_layer(self.state, gi, request_id, k, v)
-            else:
-                fill_sparse_layer(self.state, gi, request_id, k, v,
-                                  self.projections, self.lsh,
-                                  self.config.sliding_window)
+            self._fill(kind, gi, request_id, self._stage_k[i, :true_len],
+                       self._stage_v[i, :true_len])
         self._admitted(request_id, true_len)
 
     def release_slot(self, slot: int) -> None:
         """Free one request slot for a later prefill: its four lengths
         zeroed in place (a captured step keeps its buffers) and its guard
-        mirrors dropped."""
-        st = self.state
-        for lens in (st.pos, st.dense_len, st.hot_len, st.off_len):
-            lens[slot] = 0
+        mirrors dropped. `slot` is global: under a mesh the owning data
+        rank zeroes its local slot."""
+        st, sh = self.state, self.shard
         self._hot_used.pop(slot, None)
         self._pos_used.pop(slot, None)
+        if sh is not None:
+            if not sh.owns(slot):
+                return
+            slot = sh.slot(slot)
+        for lens in (st.pos, st.dense_len, st.hot_len, st.off_len):
+            lens[slot] = 0
 
     # -- decode -------------------------------------------------------------
 
     def _decode(self, tokens: torch.Tensor):
         """One decode step of the whole batch: (logits [B, V], mean sampled
-        fraction of the sparse layers as a device scalar)."""
-        cfg, lsh, params, st = self.config, self.lsh, self.params, self.state
+        fraction of the sparse layers as a device scalar). Under a mesh the
+        rank decodes its batch slice at its heads and returns the global
+        logits and fraction."""
+        cfg, lsh, params, st = self.layer_config, self.lsh, self.params, self.state
+        sh = self.shard
         window = cfg.sliding_window
+        if sh is not None:
+            tokens = sh.local_batch(tokens)
         b = tokens.shape[0]
         hidden = params.embed[tokens]                          # [B, h]
         positions = st.pos.long()[:, None]
@@ -316,6 +410,8 @@ class LLM:
             q, k, v = qkv_proj(lp, cfg, hidden[:, None], positions,
                                params.cos, params.sin)
             q, k, v = q[:, 0], k[:, 0], v[:, 0]                # [B, H, d]
+            # Under a mesh q, k, v and the state are the rank's (batch,
+            # kv-head) slice, so the layers run unchanged at local shapes.
             if kind == "dense":
                 out = decode_dense_layer(st, gi, q, k, v, window)
             else:
@@ -324,14 +420,18 @@ class LLM:
                 frac_sum = frac_sum + frac
                 n_sparse += 1
             hidden = post_attention(lp, cfg, out.reshape(b, 1, -1),
-                                    hidden[:, None])[:, 0]
-        logits = unembed(params, cfg, hidden)                  # [B, V]
+                                    hidden[:, None], sh)[:, 0]
+        logits = self._logits(hidden)                          # [B, V]
         st.pos += 1
         st.dense_len += 1
         st.hot_len += 1
         if lsh.estimator == "oracle_sampling" and lsh.enabled:
             st.step += 1        # its draws' counter; no other path reads it
-        return logits, frac_sum / max(n_sparse, 1)
+        frac = frac_sum / max(n_sparse, 1)
+        if sh is not None:
+            logits = sh.gather_batch(logits)
+            frac = sh.global_frac(frac, st.off_len)
+        return logits, frac
 
     def _guard_decode(self, n_steps: int):
         """Fail loudly if `n_steps` more decode tokens would overflow any
@@ -356,14 +456,15 @@ class LLM:
         tokens [B] int32). On the card the engine's first step runs eagerly
         and the second captures the step; from then on each step replays it
         and returns the graph's static outputs. A failed capture or replay
-        raises."""
+        raises. A mesh with a gloo collective runs every step eagerly."""
         if self._graph is None and self._warmed_up:
             self._graph = DecodeGraph(self._decode, self.batch_size,
                                       self.device)
             self.graph_captures += 1
         if self._graph is not None:
             return self._graph.replay(tokens)
-        self._warmed_up = self.device.type == "cuda"
+        self._warmed_up = self.device.type == "cuda" and (
+            self.shard is None or self.shard.capturable)
         logits, frac = self._decode(tokens)
         return logits, frac, greedy_sample(logits)
 

@@ -447,3 +447,45 @@ def test_cuda_graphed_step_equals_eager_with_sliding_window(cuda, form):
     assert dict(LAUNCHES) == counted and counted["flash_decode_d128"] == 16
     for step, (g, e) in enumerate(zip(graphed, eager)):
         assert torch.equal(g, e), f"step {step}: max |diff| {(g - e).abs().max()}"
+
+
+def test_cuda_nccl_one_rank_graph_holds_the_collectives_llama_8b_width(
+        cuda, tmp_path):
+    """Two layers at Llama-3.1-8B width under LSH, sharded over a 1 x 1
+    mesh with NCCL (`parallel/`): the step captured with its collectives
+    (the row-split sums, the logits' gathers, the fraction's sum) replays
+    to the eager step's logits bit for bit, equals the unsharded engine on
+    the same weights bit for bit, and its graph holds more kernel nodes
+    than the unsharded step's: the collectives'."""
+    import torch.distributed as dist
+
+    from magicpig_tpu_torch.parallel.launch import init_process
+    from magicpig_tpu_torch.parallel.mesh import make_mesh, shard_engine
+    from magicpig_tpu_torch.parallel.sharded import COLLECTIVES, reset_collectives
+
+    cfg = dataclasses.replace(preset("llama-3.1-8b"), num_hidden_layers=2)
+    ref = LLM(cfg, batch_size=2, max_length=2048, lsh=LSHConfig(),
+              device=cuda, seed=3)
+    prompts = _prompts(ref)
+    inputs, want = _run(ref.inference, _prefill(ref, prompts), 8)
+    init_process(0, 1, "nccl", str(tmp_path / "store"), "cuda")
+    try:
+        llm = LLM(cfg, batch_size=2, max_length=2048, lsh=LSHConfig(),
+                  params=ref.params, projections=ref.projections, device=cuda)
+        shard_engine(llm, make_mesh(1, 1))
+        _prefill(llm, prompts)
+        reset_launches()
+        reset_collectives()
+        graphed = [llm.inference(tokens) for tokens in inputs]
+        calls = dict(COLLECTIVES)
+        assert llm.graph_captures == 1
+        assert calls["sum"] == 2 * (2 * 2 + 1) and calls["gather"] == 2 * 2
+        assert dict(LAUNCHES)["lsh_fused_decode_d128"] == 8
+        nodes = graph_kernel_nodes(llm._graph.graph)
+        assert nodes > graph_kernel_nodes(ref._graph.graph)
+        eager = _eager(llm, prompts, inputs)
+    finally:
+        dist.destroy_process_group()
+    for step, (g, e, w) in enumerate(zip(graphed, eager, want)):
+        assert torch.equal(g, e), f"step {step}: max |diff| {(g - e).abs().max()}"
+        assert torch.equal(g, w), f"step {step}: max |diff| {(g - w).abs().max()}"

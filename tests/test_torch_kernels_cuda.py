@@ -1052,7 +1052,14 @@ SERVED_W4 = [(2048, 3072), (2048, 2048), (2048, 16384), (8192, 2048),
              (2048, 128256)]
 
 
-@pytest.mark.parametrize("kin,out", SERVED_W4)
+# The same unfused products at a model rank's shapes at 2 model ranks (q,
+# k, v, gate and up at half their columns, o and down at half their input
+# rows, the lm_head at half the vocabulary), as (kin, out).
+RANK_W4 = [(2048, 1024), (2048, 256), (1024, 2048), (2048, 4096),
+           (4096, 2048), (2048, 64128)]
+
+
+@pytest.mark.parametrize("kin,out", SERVED_W4 + RANK_W4)
 @pytest.mark.parametrize("M", [1, 2, 3, 7, 8, 9, 64])
 def test_cuda_w4_matmul_served_shapes(cuda, M, kin, out):
     """Each served shape at M from 1 to 64 (one 8-row slice ragged, two,
