@@ -217,13 +217,37 @@ Phases, each announced by one flushed progress line with elapsed seconds:
      2048 draws against the K=0 engine on layer 1's f32 output (2e-3,
      0.15) and the logits (5e-2, 0.15), each tolerance rejecting the top
      token of every head dropped, and at their default budgets the sparse
-     choice of a card engine's step, on its inputs, equal on the CPU.
+     choice of a card engine's step, on its inputs, equal on the CPU;
+  5. train: the training attention's backward kernel (`flash_prefill_bwd`)
+     against its plain version at the needle trainer's shape (B = 32, S =
+     1024, 8/4 heads of 64), the RULER LM's (B = 8, S = 8192) and a cut with
+     a window of 1024, query offsets and lengths short of 4096 keys, within
+     `BWD_TOL` of each gradient's largest |value|, bit-equal from run to
+     run, one key tile's dV dropped rejected, SDPA's backward timed beside
+     each form (the window's through its mask); then
+     `examples/train_needle_torch.py` at full width (needle-12m, B = 32, S
+     = 1024, 20 steps from the weights `init_params` draws on the CPU from
+     seed 0) through the kernels and through their plain versions
+     (patched into FlashPrefillTrain), each step's loss within
+     `TRAIN_LOSS_TOL` of the other's and steps 0 and 19 of the JAX
+     example's on the CPU from the same weights
+     (`results/train_needle_jax_cpu/`, the weights' digest checked), every
+     leaf's step-0 gradient within `TRAIN_GRAD_TOL` of the plain versions',
+     a backward that drops dq rejected by both checks, launches counted (the prefill twice
+     a layer and step, the backward once); then
+     `examples/train_ruler_lm_torch.py` at full width (B = 8, S = 8192, 3
+     steps) the same two ways; ms per step of both models, steps 1-2 of a
+     3-step run of each profiled (device busy, idle share, kernels by
+     device time), and the backward's time against its bound, with the
+     card's name and power limit.
 Any failure raises. The last two lines are the kernels' JSON and the result
 JSON; the card's name and power limit come just before them.
 """
 
+import contextlib
 import gc
 import json
+import math
 import pathlib
 import statistics
 import subprocess
@@ -302,6 +326,13 @@ def profiled(fn) -> tuple:
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
+    return device_kernels(prof)
+
+
+def device_kernels(prof) -> tuple:
+    """(device busy ms, kernel launches, kernels by device time) of a
+    finished torch.profiler session."""
+    import torch
     kernels = sorted((e for e in prof.key_averages()
                       if e.device_type == torch.autograd.DeviceType.CUDA),
                      key=_device_us, reverse=True)
@@ -4733,6 +4764,449 @@ def phase_sharded(torch, dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 5: training (the needle and RULER-LM trainers, the backward kernel)
+# ---------------------------------------------------------------------------
+
+# The backward kernel's dq, dk and dv (f32 from bf16 inputs, p and dS
+# rounded to bf16 as the operands of their products) against the plain
+# version on the same bf16 inputs: the largest |error| of each gradient
+# within this share of its largest |value|.
+BWD_TOL = 1e-2
+# A training run through the kernels against the same run through their
+# plain versions on the card (the same bf16 inputs, patched into
+# FlashPrefillTrain), and against the JAX example on the CPU: each step's
+# loss within this share of the other's. The readings were 1.0e-4 (kernels
+# against plain) and 4e-5-6e-5 (against JAX); a backward that drops dq
+# (`TRAIN_FAULT`) came to 1.0e-3.
+TRAIN_LOSS_TOL = 3e-4
+# The needle loss's gradient at step 0, every leaf, through the kernels
+# against the plain versions on the card: the largest |error| of each leaf
+# within this share of its largest |value|. It holds FlashPrefillTrain's
+# wiring: a backward that drops dq leaves the query weights no gradient.
+TRAIN_GRAD_TOL = 2e-2
+NEEDLE_STEPS = 20          # as the JAX reference ran (results/train_needle_jax_cpu)
+NEEDLE_SEED = 0
+RULER_STEPS = 3
+RULER_POOL = 8
+JAX_NEEDLE_LOG = ROOT / "results" / "train_needle_jax_cpu" / "jax_cpu.log"
+# (row, batch, sq, skv, q_offset, kv_len, window): the needle trainer's
+# shape, the RULER LM's, and a cut with a window, offsets and lengths
+# short of the keys.
+BWD_FORMS = (
+    ("flash_prefill_bwd", 32, 1024, 1024, (0,), (1024,), None),
+    ("flash_prefill_bwd_8192", 8, 8192, 8192, (0,), (8192,), None),
+    ("flash_prefill_bwd_window", 4, 1024, 4096, (3000, 1500, 2000, 3072),
+     (4000, 2600, 3100, 4096), 1024),
+)
+
+
+def visible_pairs(torch, sq: int, q_offset, kv_len, window) -> int:
+    """(query, key) pairs the training attention's mask lets through, over
+    the requests of a batch, for one head."""
+    total = 0
+    for off, n in zip(q_offset, kv_len):
+        pos = off + torch.arange(sq, dtype=torch.int64)
+        hi = torch.clamp(torch.minimum(pos, torch.tensor(n - 1)) + 1, min=0)
+        lo = (torch.zeros_like(pos) if window is None
+              else torch.clamp(pos - window + 1, min=0))
+        total += int(torch.clamp(hi - lo, min=0).sum())
+    return total
+
+
+def bwd_kernel(torch, F, form) -> dict:
+    """flash_prefill_bwd against its plain version at one form (Hq 8, Hkv
+    4, d 64: both trained models), out and lse from the prefill kernel;
+    bit-equal repeats; one key tile's dV dropped rejected; SDPA's backward
+    beside it. The bound: the inputs read and gradients
+    written once, and five products of 2 d operations per visible (query,
+    key, head) triple (S recomputed, dP, dV, dK, dQ)."""
+    from magicpig_tpu_torch.ops import attention
+    from magicpig_tpu_torch.ops.kernels import flash_prefill, flash_prefill_bwd
+
+    name, b, sq, skv, off, kvl, window = form
+    hq, hkv, d = 8, 4, 64
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(5)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev,
+                           dtype=torch.bfloat16)
+
+    q, do = rnd(b, sq, hq, d), rnd(b, sq, hq, d)
+    k, v = rnd(b, skv, hkv, d), rnd(b, skv, hkv, d)
+    off = [off[i % len(off)] for i in range(b)]
+    kvl = [kvl[i % len(kvl)] for i in range(b)]
+    off_t = torch.tensor(off, dtype=torch.int32, device=dev)
+    kvl_t = torch.tensor(kvl, dtype=torch.int32, device=dev)
+    out, lse = flash_prefill(q, k, v, kvl_t, off_t, window=window,
+                             return_lse=True)
+
+    def kernel():
+        return flash_prefill_bwd(q, k, v, out, lse, do, off_t, kvl_t,
+                                 window=window)
+
+    def plain():
+        return attention.flash_prefill_train_backward(
+            q, k, v, out, lse, do, off_t, kvl_t, 512, window=window)
+
+    got, again, want = kernel(), kernel(), plain()
+    torch.cuda.synchronize()
+    errs = {}
+    for g_name, g, a, w in zip(("dq", "dk", "dv"), got, again, want):
+        if not torch.equal(g, a):
+            raise AssertionError(f"{name}: {g_name} differs between runs")
+        w = w.float()
+        limit = BWD_TOL * float(w.abs().max())
+        err = float((g - w).abs().max())
+        if not err <= limit:
+            raise AssertionError(f"{name}: {g_name} max abs err {err:.3e} > "
+                                 f"{BWD_TOL} of its largest |value| ({limit:.3e})")
+        errs[g_name] = (err, err / limit)
+    # The planted fault: a kernel that dropped one key tile's dV.
+    tile = (min(kvl) // 2) // 64 * 64
+    faulty = got[2].clone()
+    faulty[:, tile:tile + 64].zero_()
+    want_v = want[2].float()
+    fault_share = float((faulty - want_v).abs().max()) / (
+        BWD_TOL * float(want_v.abs().max()))
+    if not fault_share > 1:
+        raise AssertionError(f"{name}: the tolerance passes a dropped dV tile")
+
+    # SDPA's backward: causal over whole spans as is, else (every query
+    # row here sees a key) through the training mask as a [B, 1, Sq, Skv]
+    # boolean on the memory-efficient kernel, K/V expanded to the query
+    # heads in the graph (its backward sums the group).
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
+                  for x in (q, k, v))
+    dot = do.transpose(1, 2).contiguous()
+    try:
+        if window is None and min(off) == 0 and min(kvl) == skv == sq:
+            ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                enable_gqa=True)
+        else:
+            from torch.nn.attention import SDPBackend, sdpa_kernel
+            q_pos = off_t[:, None].long() + torch.arange(sq, device=dev)
+            mask = attention._fp_mask(q_pos, torch.arange(skv, device=dev),
+                                     kvl_t.long(), window)
+            if not bool(mask.any(-1).all()):
+                raise AssertionError(f"{name}: a query row sees no key")
+            g = hq // hkv
+            with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
+                ot = F.scaled_dot_product_attention(
+                    qt, kt.repeat_interleave(g, dim=1),
+                    vt.repeat_interleave(g, dim=1), attn_mask=mask[:, None])
+
+        def library():
+            return torch.autograd.grad(ot, (qt, kt, vt), dot,
+                                       retain_graph=True)
+
+        library()
+    except RuntimeError as e:   # no kernel of the library takes this call
+        log(f"  {name}: no library time (SDPA: {str(e)[:200]})")
+        library = None
+
+    pairs = visible_pairs(torch, sq, off, kvl, window) * hq
+    nbytes = (2 * (3 * q.numel() + 2 * k.numel()) + 4 * lse.numel()
+              + 4 * (q.numel() + 2 * k.numel()))
+    row = dict(max_abs_err=max(e[0] for e in errs.values()), tol=BWD_TOL,
+               bound=bound_ms(nbytes, 5 * 2 * d * pairs),
+               **timings(kernel, plain, library))
+    log(f"kernel {name} (B={b}, Sq={sq}, Skv={skv}, q_offset {form[4]}, "
+        f"kv_len {form[5]} by request, window {window}): max abs err (share "
+        f"of the limit, "
+        f"{BWD_TOL} of the largest |grad|) "
+        + ", ".join(f"{n} {e:.2e} ({s:.2f})" for n, (e, s) in errs.items())
+        + f"; repeats bit-equal; a dropped dV tile {fault_share:.1f}x the "
+        "limit")
+    return {name: row}
+
+
+def jax_needle_reference() -> dict:
+    """The digest of the JAX reference run's initial weights and its losses
+    by step, from its log (`results/train_needle_jax_cpu/run.sh`)."""
+    ref = {"losses": {}}
+    for line in JAX_NEEDLE_LOG.read_text().splitlines():
+        if line.startswith("init digest "):
+            ref["digest"] = line.split()[-1]
+        elif line.startswith("step ") and ": loss " in line:
+            step, rest = line[len("step "):].split(": loss ")
+            ref["losses"][int(step)] = float(rest.split()[0])
+    return ref
+
+
+# The runs held to the kernels' run: FlashPrefillTrain's two kernel calls
+# patched by `mock` with their plain versions, and the planted fault, a
+# backward that returns dq as zeros.
+TRAIN_PLAIN = "plain versions"
+TRAIN_FAULT = "dq dropped"
+
+
+def train_route(torch, route: str | None):
+    """The patch that sends FlashPrefillTrain through `route` (None: the
+    kernels)."""
+    import importlib
+    from unittest import mock
+
+    from magicpig_tpu_torch.ops import attention
+
+    # The module (the package's `flash_prefill` is its function).
+    fp = importlib.import_module("magicpig_tpu_torch.ops.kernels.flash_prefill")
+    if route is None:
+        return contextlib.nullcontext()
+    if route == TRAIN_PLAIN:
+        return mock.patch.multiple(fp, flash_prefill=attention.flash_prefill,
+                                   flash_prefill_bwd=fp.flash_prefill_bwd_plain)
+    kernel = fp.flash_prefill_bwd
+
+    def dq_dropped(*args, **kwargs):
+        dq, dk, dv = kernel(*args, **kwargs)
+        return torch.zeros_like(dq), dk, dv
+
+    return mock.patch.object(fp, "flash_prefill_bwd", dq_dropped)
+
+
+def needle_grads(torch, module, route: str | None) -> list:
+    """Every leaf's gradient (`convert.NPZ_LEAVES` order) of the needle
+    trainer's loss at its first step (seed NEEDLE_SEED's weights and first
+    batch, B = 32, S = 1024) on the card, through `train_route(route)`."""
+    import numpy as np
+
+    from magicpig_tpu_torch import training
+
+    cfg = module.model_config()
+    params = training.initial_params(cfg, 1024, NEEDLE_SEED, "cuda")
+    leaves = training.trainable(params)
+    batch = module.make_batch(np.random.default_rng(NEEDLE_SEED + 1), 32,
+                              1024, 4)
+    toks, tgt, msk = (torch.from_numpy(x).cuda() for x in batch)
+    with train_route(torch, route):
+        loss, _ = training.masked_loss(
+            training.forward_all(params, cfg, toks), tgt, msk)
+        return torch.autograd.grad(loss, leaves)
+
+
+def grad_shares(got: list, want: list) -> dict:
+    """Each leaf's largest |error| as a share of TRAIN_GRAD_TOL times its
+    largest |value|, by leaf name."""
+    from magicpig_tpu_torch.models.convert import NPZ_LEAVES
+
+    return {name: float((g - w).abs().max())
+            / (TRAIN_GRAD_TOL * max(float(w.abs().max()), 1e-30))
+            for name, g, w in zip(NPZ_LEAVES, got, want, strict=True)}
+
+
+def train_counted(torch, module, argv: list, layers: int, label: str,
+                  route: str | None = None) -> dict:
+    """One run of an example trainer's `train` on the card through the
+    kernels, or through `train_route(route)`, its launches counted: a run
+    on the kernels launches the prefill twice a layer and step (forward and
+    the checkpoint's recomputation) and the backward once, the plain run
+    neither; every other count stays 0."""
+    from magicpig_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+
+    args = module.parse_args(argv)
+    patch = train_route(torch, route)
+    reset_launches()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    with patch:
+        run = module.train(args)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t
+    launches = {k: n for k, n in LAUNCHES.items() if n}
+    steps = args.steps
+    expect = {} if route == TRAIN_PLAIN else {
+        "flash_prefill": 2 * layers * steps,
+        "flash_prefill_bwd": layers * steps}
+    if launches != expect:
+        raise AssertionError(f"train {label}: launches {launches} != {expect}")
+    if not all(math.isfinite(x) for x in run["losses"]):
+        raise AssertionError(f"train {label}: losses {run['losses']}")
+    # The first and the last step print (waiting for the device).
+    first, last = run["printed"][0], run["printed"][-1]
+    run.update(launches=launches, seconds=seconds,
+               step_ms=(last - first) * 1e3 / (steps - 1))
+    log(f"train {label}: {steps} steps in {seconds:.1f} s, "
+        f"{run['step_ms']:.1f} ms per step after the first; losses "
+        f"{[round(x, 4) for x in run['losses']]}; launches {launches}")
+    return run
+
+
+def profile_train(torch, module, argv: list, step_ms: float,
+                  label: str) -> None:
+    """Steps 1 and 2 of a 3-step run through the kernels under
+    torch.profiler, started when step 0 has finished on the device (so the
+    set-up and the first step's allocations stay out) and stopped when
+    step 2 has: device busy and wall per step, the idle share of that wall
+    (the profiler's own host time in it) and of `step_ms` (the counted
+    run's steps after the first, unprofiled), and the kernels by device
+    time."""
+    from unittest import mock
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from magicpig_tpu_torch import training
+
+    steps = 3
+    args = module.parse_args(argv + ["--steps", str(steps)])
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    train_step, ends = training.train_step, []
+
+    def step(*a, **kw):
+        out = train_step(*a, **kw)
+        ends.append(None)
+        if len(ends) in (1, steps):
+            torch.cuda.synchronize()
+            ends[-1] = time.perf_counter()
+            (prof.start if len(ends) == 1 else prof.stop)()
+        return out
+
+    with mock.patch.object(training, "train_step", step):
+        module.train(args)
+    steps -= 1
+    wall = (ends[-1] - ends[0]) * 1e3 / steps
+    busy, n, kernels = device_kernels(prof)
+    busy /= steps
+    log(f"profile: train {label}: steps 1-{steps}: device busy {busy:.3f} "
+        f"ms/step, wall {wall:.3f} ms/step under the profiler, idle share "
+        f"{1 - busy / wall:.3f} of it and {1 - busy / step_ms:.3f} of the "
+        f"unprofiled {step_ms:.1f} ms/step, {n / steps:.0f} launches/step")
+    for e in kernels[:10]:
+        log(f"  {_device_us(e) / steps:9.1f} us/step "
+            f"{e.count / steps:5.1f} calls/step  {e.key[:70]}")
+
+
+def loss_share(got: list, want: list) -> float:
+    """The largest share of TRAIN_LOSS_TOL that a step's loss uses."""
+    return max(abs(g - w) / (TRAIN_LOSS_TOL * abs(w))
+               for g, w in zip(got, want, strict=True))
+
+
+def check_losses(label: str, got: list, want: list) -> float:
+    """Each step's loss within TRAIN_LOSS_TOL of the other's; returns the
+    largest share of that limit used."""
+    share = loss_share(got, want)
+    if not share <= 1:
+        raise AssertionError(f"{label}: losses {got} vs {want} differ by more "
+                             f"than {TRAIN_LOSS_TOL} relative")
+    return share
+
+
+def phase_train(torch, F, smi: str) -> dict:
+    """The backward kernel against its plain version at three forms, then
+    `examples/train_needle_torch.py` at full width (needle-12m, B = 32, S =
+    1024, 20 steps, weights drawn on the CPU from seed 0) through the
+    kernels and through the plain versions, each step's loss held to the
+    other's and steps 0 and 19 to the JAX example's on the CPU from the
+    same weights (their digest checked), every leaf's step-0 gradient held
+    to the plain versions', a backward that drops dq rejected by both;
+    then
+    `examples/train_ruler_lm_torch.py` at full width (B = 8, S = 8192, 3
+    steps) the same two ways. Returns the kernel rows and the runs."""
+    sys.path.insert(0, str(ROOT / "examples"))
+    import train_needle_torch
+    import train_ruler_lm_torch
+
+    from magicpig_tpu_torch.training import digest, initial_params
+
+    rows = {}
+    for form in BWD_FORMS:
+        rows.update(bwd_kernel(torch, F, form))
+        torch.cuda.empty_cache()
+    log_timings(rows)
+
+    plain = needle_grads(torch, train_needle_torch, TRAIN_PLAIN)
+    shares = grad_shares(needle_grads(torch, train_needle_torch, None), plain)
+    worst = max(shares, key=shares.get)
+    if not shares[worst] <= 1:
+        raise AssertionError(f"train needle: step 0's gradient of {worst} "
+                             f"through the kernels {shares[worst]:.2f}x the "
+                             f"limit ({TRAIN_GRAD_TOL} of its largest |value|)")
+    fault = grad_shares(needle_grads(torch, train_needle_torch, TRAIN_FAULT),
+                        plain)
+    fault_worst = max(fault, key=fault.get)
+    if not fault[fault_worst] > 1:
+        raise AssertionError(f"train needle: the gradient limit passes a "
+                             f"backward with {TRAIN_FAULT}")
+    log(f"train needle: step 0's gradients through the kernels within "
+        f"{shares[worst]:.3f} of the limit ({TRAIN_GRAD_TOL} of each leaf's "
+        f"largest |value|) of the plain versions' (worst {worst}); a backward "
+        f"with {TRAIN_FAULT} {fault[fault_worst]:.1f}x it ({fault_worst})")
+    del plain
+    torch.cuda.empty_cache()
+
+    ref = jax_needle_reference()
+    cfg = train_needle_torch.model_config()
+    drawn = digest(initial_params(cfg, 1024, NEEDLE_SEED, "cpu"))
+    if drawn != ref["digest"]:
+        raise AssertionError(f"train needle: the initial weights' digest "
+                             f"{drawn} is not the JAX reference's "
+                             f"{ref['digest']}")
+    out = CKPT_DIR / "train"
+    shape = ["--batch", "32", "--seq", "1024", "--seed", str(NEEDLE_SEED),
+             "--out", str(out / "needle.npz")]
+    argv = ["--steps", str(NEEDLE_STEPS), *shape]
+    needle = train_counted(torch, train_needle_torch, argv,
+                           cfg.num_hidden_layers, "needle-12m B=32 S=1024")
+    profile_train(torch, train_needle_torch, shape, needle["step_ms"],
+                  "needle-12m B=32 S=1024")
+    needle_plain = train_counted(torch, train_needle_torch, argv,
+                                 cfg.num_hidden_layers,
+                                 f"needle-12m {TRAIN_PLAIN}", TRAIN_PLAIN)
+    share = check_losses("train needle kernels vs plain", needle["losses"],
+                         needle_plain["losses"])
+    faulty = train_counted(torch, train_needle_torch, argv,
+                           cfg.num_hidden_layers,
+                           f"needle-12m planted fault, {TRAIN_FAULT}",
+                           TRAIN_FAULT)
+    share_fault = loss_share(faulty["losses"], needle["losses"])
+    if not share_fault > 1:
+        raise AssertionError(f"train needle: the loss limit passes a backward "
+                             f"with {TRAIN_FAULT} ({share_fault:.3f} of it)")
+    jax_steps = sorted(ref["losses"])
+    share_jax = check_losses(
+        "train needle kernels vs JAX on the CPU",
+        [needle["losses"][i] for i in jax_steps],
+        [ref["losses"][i] for i in jax_steps])
+    log(f"train needle: losses through the kernels within {share:.3f} of "
+        f"the limit ({TRAIN_LOSS_TOL} relative) of the plain versions' at "
+        f"every step, and within {share_jax:.3f} of it of the JAX example's "
+        f"on the CPU at steps {jax_steps} ({[ref['losses'][i] for i in jax_steps]}); "
+        f"a backward with {TRAIN_FAULT} {share_fault:.1f}x the limit")
+    torch.cuda.empty_cache()
+
+    rcfg = train_ruler_lm_torch.model_config()
+    shape = ["--batch", "8", "--seq", "8192", "--pool", str(RULER_POOL),
+             "--out", str(out / "ruler_lm.npz")]
+    argv = ["--steps", str(RULER_STEPS), *shape]
+    ruler = train_counted(torch, train_ruler_lm_torch, argv,
+                          rcfg.num_hidden_layers, "ruler-byte-lm B=8 S=8192")
+    profile_train(torch, train_ruler_lm_torch, shape, ruler["step_ms"],
+                  "ruler-byte-lm B=8 S=8192")
+    ruler_plain = train_counted(torch, train_ruler_lm_torch, argv,
+                                rcfg.num_hidden_layers,
+                                f"ruler-byte-lm {TRAIN_PLAIN}", TRAIN_PLAIN)
+    share_r = check_losses("train ruler-lm kernels vs plain",
+                           ruler["losses"], ruler_plain["losses"])
+    torch.cuda.empty_cache()
+    for label, run, row, layers in (
+            ("needle-12m B=32 S=1024", needle, "flash_prefill_bwd",
+             cfg.num_hidden_layers),
+            ("ruler-byte-lm B=8 S=8192", ruler, "flash_prefill_bwd_8192",
+             rcfg.num_hidden_layers)):
+        r = rows[row]
+        log(f"train {label} on {smi}: {run['step_ms']:.1f} ms per step; "
+            f"flash_prefill_bwd {layers} launches per step, "
+            f"{r['ms']:.3f} ms each (device {r['device_ms']:.3f} ms, bound "
+            f"{r['bound'][0]:.3f} ms by {r['bound'][1]}, plain "
+            f"{r['plain_ms']:.1f} ms, SDPA's backward "
+            f"{r['library_ms'] if r['library_ms'] is None else round(r['library_ms'], 3)} ms)")
+    log(f"train ruler-lm: losses through the kernels within {share_r:.3f} of "
+        f"the limit of the plain versions' at every step")
+    return dict(rows=rows, needle=needle, ruler=ruler)
+
+
 def main() -> int:
     import torch
     import torch.nn.functional as F
@@ -4849,6 +5323,12 @@ def main() -> int:
     chunked = phase_reference_chunked(torch, dev)
     window = phase_reference_window(torch, dev)
     phase_reference_baselines(torch, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    log("phase 5 train: the backward kernel, needle-12m and ruler-byte-lm")
+    train = phase_train(torch, F, smi)
+    kern.update(train["rows"])
 
     # Each kernel's launches come from the counted run of the path that
     # uses it: the LSH serve, the block_topk int8 serve (rescore pipeline),
@@ -4906,6 +5386,16 @@ def main() -> int:
         "magicpig_tpu_torch/csrc/lsh_masked.cu",
         "magicpig_tpu/ops/pallas/lsh_decode.py:271")
     sources["exact_scores"] = score_src
+    # The training backward: no TPU kernel (the JAX package's backward is
+    # XLA); its launches from the trainers' kernel runs, the windowed cut's
+    # as the needle run's.
+    bwd_src = ("magicpig_tpu_torch/csrc/flash_prefill_bwd.cu",
+               "magicpig_tpu/ops/attention.py:216")
+    for name, run in (("flash_prefill_bwd", train["needle"]),
+                      ("flash_prefill_bwd_8192", train["ruler"]),
+                      ("flash_prefill_bwd_window", train["needle"])):
+        sources[name] = bwd_src
+        launches[name] = run["launches"]["flash_prefill_bwd"]
     sources["flash_decode_int8"] = sources["flash_decode"]
     # The fused LSH kernel's instances compile in one source per K/V type
     # and head dim (lsh_fused.cu holds bf16 at d = 64 and the C entry).
@@ -4972,6 +5462,8 @@ def main() -> int:
                               "rescore_attend", "rescore_attend_int4",
                               "block_attend"))):
         launches_of[shape] = kernel
+    launches_of["flash_prefill_bwd_8192"] = "flash_prefill_bwd ruler-byte-lm"
+    launches_of["flash_prefill_bwd_window"] = "flash_prefill_bwd"
     for name in ("rescore_attend", "rescore_attend_int4", "block_attend"):
         sources[name + "_serve"] = sources[name]
         launches[name + "_serve"] = launches[name]

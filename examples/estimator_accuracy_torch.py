@@ -14,8 +14,9 @@ protocol. Per sample:
 Rows are appended to <out>/summary.csv (default
 results/estimator_accuracy_torch/; multiquery and hop write
 summary_<task>.csv) with the columns context, estimator, accuracy,
-avg_sparsity, n; a (context, estimator) row already there is skipped, so
-a run resumes where it stopped. --weight-quant int8 / int4 quantizes the
+avg_sparsity, n; a (context, estimator, n) row already there is skipped,
+so a run resumes where it stopped (a rerun with more samples, so another
+n, scores anew; an empty summary file gets its header). --weight-quant int8 / int4 quantizes the
 loaded weights (names get "_w8" / "_w4"). On the card (--device cuda, the
 default) the model runs in bf16, the type the kernels take; on the CPU in
 f32. Imports only the port.
@@ -90,12 +91,15 @@ def main(argv=None):
     csv_name = ("summary.csv" if args.task == "single"
                 else f"summary_{args.task}.csv")
     csv_path = os.path.join(args.out, csv_name)
-    if not os.path.exists(csv_path):
+    if not os.path.exists(csv_path) or os.path.getsize(csv_path) == 0:
         with open(csv_path, "w") as f:
             f.write("context,estimator,accuracy,avg_sparsity,n\n")
     with open(csv_path) as f:
         next(f)
-        done = {tuple(line.strip().split(",")[:2]) for line in f}
+        done = set()
+        for line in f:
+            ctx, name, *_, n = line.strip().split(",")
+            done.add((ctx, name, n))
 
     configs = estimator_configs(args.K, args.L)
     if args.estimators:
@@ -106,8 +110,9 @@ def main(argv=None):
         rng = np.random.default_rng(args.seed + ctx)
         samples = [make_eval_sample(rng, ctx, args.needles, task=args.task)
                    for _ in range(args.samples)]
+        n_probes = str(sum(len(queries) for _, queries in samples))
         for name, lsh in configs.items():
-            if (str(ctx), f"{name}{suffix}") in done:
+            if (str(ctx), f"{name}{suffix}", n_probes) in done:
                 print(f"ctx={ctx} {name}{suffix}: done (resume skip)",
                       flush=True)
                 continue

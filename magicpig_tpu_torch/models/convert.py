@@ -9,7 +9,9 @@ included, so this is a copy; it imports no JAX.
 (`examples/train_needle.py::save_params`: `n`, the pytree's `treedef`
 string and its leaves `leaf_0 .. leaf_{n-1}` in JAX's flatten order of
 `LlamaParams`). That order is fixed here (`NPZ_LEAVES`), and the saved
-structure is checked against it, without JAX.
+structure is checked against it, without JAX. `save_params` writes that
+layout: JAX's `load_params` (`examples/train_needle.py`) and this module's
+read it back unchanged.
 """
 
 from __future__ import annotations
@@ -122,3 +124,36 @@ def load_params(path, config: ModelConfig, max_len: int,
                        final_ln=leaves["final_ln"], layers=layers,
                        cos=leaves["cos"], sin=leaves["sin"])
 
+
+def leaves(params: LlamaParams) -> list[torch.Tensor]:
+    """The leaves of unquantized, unfused params in the JAX pytree's order
+    (`NPZ_LEAVES`), the RoPE tables last."""
+    out = []
+    for name in NPZ_LEAVES:
+        obj = params
+        for part in name.split("."):
+            obj = getattr(obj, part)
+        out.append(obj)
+    return out
+
+
+def save_params(params: LlamaParams, path) -> None:
+    """Write unquantized, unfused params in the JAX `.npz` layout: `n`, the
+    `treedef` string the JAX package prints for `LlamaParams` today (with
+    the fused slots), and `leaf_i` in `NPZ_LEAVES` order, each as a numpy
+    array of its own dtype (bf16 leaves as float32, which numpy can hold)."""
+    layers = params.layers
+    if layers.wqkv is not None or layers.w_gateup is not None or any(
+            isinstance(w, (QuantWeight, Quant4Weight))
+            for w in (params.lm_head, *(getattr(layers, k)
+                                        for k in NPZ_LAYER_LEAVES))):
+        raise ValueError("save_params writes unquantized, unfused params")
+
+    def numpy(t):
+        t = t.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            t = t.float()
+        return t.contiguous().numpy()
+
+    np.savez(path, n=len(NPZ_LEAVES), treedef=NPZ_TREEDEFS[1],
+             **{f"leaf_{i}": numpy(t) for i, t in enumerate(leaves(params))})

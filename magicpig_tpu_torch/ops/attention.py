@@ -5,7 +5,9 @@ These functions are the plain versions of the port's hand-written kernels
 against them.
 
   * `flash_prefill`: causal attention of a query span against the KV
-    prefix, online softmax over KV blocks;
+    prefix, online softmax over KV blocks; with
+    `flash_prefill_train_forward` / `flash_prefill_train_backward` the
+    training pair of the custom gradient (FlashAttention-2 backward);
   * `full_decode`: one-query dense attention over a cache range (an
     explicit length and an optional first row), returning (out, lse) for
     the LSE merge;
@@ -78,42 +80,58 @@ def _raw_scores(qh: torch.Tensor, k: torch.Tensor,
     return raw if k_scale is None else raw * k_scale[:, :, None, :]
 
 
+def per_batch(x, b: int, device) -> torch.Tensor:
+    """An int, or a [B] tensor, as int64 [B] on `device`."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=torch.int64).expand(b)
+    return torch.full((b,), int(x), dtype=torch.int64, device=device)
+
+
+def _fp_mask(q_pos: torch.Tensor, k_pos: torch.Tensor, kv_len: torch.Tensor,
+             window: int | None) -> torch.Tensor:
+    """[B, Sq, Bk] visibility of keys at k_pos [Bk] to queries at q_pos
+    [B, Sq]: causal, below kv_len [B], and inside the window."""
+    mask = ((k_pos[None, None, :] <= q_pos[:, :, None])
+            & (k_pos[None, None, :] < kv_len[:, None, None]))
+    if window is not None:
+        mask = mask & (q_pos[:, :, None] - k_pos[None, None, :] < window)
+    return mask
+
+
 def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   length: torch.Tensor, q_offset: torch.Tensor | None = None,
-                  window: int | None = None, return_lse: bool = False):
+                  window: int | None = None, return_lse: bool = False,
+                  sm_scale: float | None = None,
+                  block_k: int = _PREFILL_BLOCK):
     """Causal attention of a query span against the filled KV prefix.
 
     q: [B, Sq, Hq, d], queries at absolute positions q_offset[b] + i;
     k, v: [B, Skv, Hkv, d]; length: [B] valid keys; q_offset: [B] or None;
-    window: query t sees keys in (t - window, t], or None for full causal.
-    Returns out [B, Sq, Hq, d] in q.dtype, plus lse [B, Sq, Hq] f32 (-inf
-    where nothing was attended) when return_lse.
+    window: query t sees keys in (t - window, t], or None for full causal;
+    sm_scale: the score scale (None: 1 / sqrt(d)); block_k: keys per step
+    of the online softmax. Returns out [B, Sq, Hq, d] in q.dtype, plus lse
+    [B, Sq, Hq] f32 (-inf where nothing was attended) when return_lse.
     """
     b, sq, hq, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     g = hq // hkv
-    scale = 1.0 / math.sqrt(d)
+    scale = 1.0 / math.sqrt(d) if sm_scale is None else sm_scale
     dev = q.device
-    if q_offset is None:
-        q_offset = torch.zeros((b,), dtype=torch.int32, device=dev)
     qh = q.float().permute(0, 2, 1, 3).reshape(b, hkv, g, sq, d)
-    q_pos = (q_offset.to(torch.int64)[:, None]
+    q_pos = (per_batch(0 if q_offset is None else q_offset, b, dev)[:, None]
              + torch.arange(sq, device=dev))                 # [B, Sq]
-    kv_len = length.to(torch.int64)
+    kv_len = per_batch(length, b, dev)
 
     m = torch.full((b, hkv, g, sq), _NEG_INF, device=dev)
     l = torch.zeros((b, hkv, g, sq), device=dev)
     acc = torch.zeros((b, hkv, g, sq, d), device=dev)
-    for start in range(0, skv, _PREFILL_BLOCK):
-        stop = min(start + _PREFILL_BLOCK, skv)
+    for start in range(0, skv, block_k):
+        stop = min(start + block_k, skv)
         kb = k[:, start:stop].float().permute(0, 2, 1, 3)     # [B,Hkv,bk,d]
         vb = v[:, start:stop].permute(0, 2, 1, 3)
         k_pos = torch.arange(start, stop, device=dev)
         s = torch.matmul(qh, kb.unsqueeze(2).transpose(-1, -2)) * scale
-        mask = ((k_pos[None, None, :] <= q_pos[:, :, None])
-                & (k_pos[None, None, :] < kv_len[:, None, None]))
-        if window is not None:
-            mask = mask & (q_pos[:, :, None] - k_pos[None, None, :] < window)
+        mask = _fp_mask(q_pos, k_pos, kv_len, window)
         s = torch.where(mask[:, None, None], s,
                         torch.full_like(s, _NEG_INF))
         m_new = torch.maximum(m, torch.max(s, dim=-1).values)
@@ -131,6 +149,76 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if return_lse:
         return out, lse.reshape(b, hq, sq).permute(0, 2, 1)
     return out
+
+
+def check_train_blocks(skv: int, block_k: int) -> None:
+    """The training attention's block rule (JAX's `_fp_train_bwd`)."""
+    if skv % block_k:
+        raise ValueError(f"flash backward requires skv % block_k == 0 "
+                         f"(skv={skv}, block_k={block_k})")
+
+
+def flash_prefill_train_forward(q, k, v, q_offset, kv_len, block_k: int,
+                                sm_scale: float | None = None,
+                                window: int | None = None):
+    """The training forward (JAX's `_fp_train_fwd`): every block of k/v,
+    `block_k` keys at a time; q_offset and kv_len an int or [B]. Returns
+    (out [B, Sq, Hq, d] in q.dtype, lse [B, Sq, Hq] f32, -inf where nothing
+    was attended)."""
+    check_train_blocks(k.shape[1], block_k)
+    return flash_prefill(q, k, v, kv_len, q_offset=q_offset, window=window,
+                         return_lse=True, sm_scale=sm_scale, block_k=block_k)
+
+
+def flash_prefill_train_backward(q, k, v, out, lse, do, q_offset, kv_len,
+                                 block_k: int, sm_scale: float | None = None,
+                                 window: int | None = None):
+    """The FlashAttention-2 backward of the training forward (JAX's
+    `_fp_train_bwd`): p = exp(s - lse) recomputed block by block, delta =
+    rowsum(dO * O), the G query heads of a group summed into dK and dV.
+    lse: [B, Sq, Hq] f32 from the forward; do: dL/d out. Raises ValueError
+    unless skv % block_k == 0. Returns (dq, dk, dv) in the dtypes of q, k
+    and v."""
+    b, sq, hq, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    check_train_blocks(skv, block_k)
+    scale = 1.0 / math.sqrt(d) if sm_scale is None else sm_scale
+    dev = q.device
+
+    def heads(x):                                    # [B, Sq, Hq, ...]
+        return x.permute(0, 2, 1, *range(3, x.dim())).reshape(
+            b, hkv, g, sq, *x.shape[3:])
+
+    qh = heads(q).float()
+    doh = heads(do).float()
+    delta = torch.sum(doh * heads(out).float(), dim=-1)       # [B,Hkv,G,Sq]
+    lse = heads(lse)
+    # exp(-inf - 0) = 0 covers masked slots; lse_safe keeps the rows that
+    # attend nothing (lse == -inf) free of NaNs.
+    lse_safe = torch.where(torch.isneginf(lse), torch.zeros_like(lse), lse)
+    q_pos = (per_batch(q_offset, b, dev)[:, None]
+             + torch.arange(sq, device=dev))
+    kv_len = per_batch(kv_len, b, dev)
+    dq = torch.zeros((b, hkv, g, sq, d), device=dev)
+    dks, dvs = [], []
+    for start in range(0, skv, block_k):
+        kb = k[:, start:start + block_k].float().permute(0, 2, 1, 3)
+        vb = v[:, start:start + block_k].float().permute(0, 2, 1, 3)
+        k_pos = torch.arange(start, start + block_k, device=dev)
+        s = torch.matmul(qh, kb.unsqueeze(2).transpose(-1, -2)) * scale
+        mask = _fp_mask(q_pos, k_pos, kv_len, window)[:, None, None]
+        p = torch.where(mask, torch.exp(s - lse_safe.unsqueeze(-1)),
+                        torch.zeros_like(s))                 # [B,Hkv,G,Sq,Bk]
+        dvs.append(torch.einsum("bhgqk,bhgqd->bhkd", p, doh))
+        dp = torch.matmul(doh, vb.unsqueeze(2).transpose(-1, -2))
+        ds = (p * (dp - delta.unsqueeze(-1)) * scale).to(k.dtype).float()
+        dq = dq + torch.matmul(ds, kb.unsqueeze(2))
+        dks.append(torch.einsum("bhgqk,bhgqd->bhkd", ds, qh))
+    dq = dq.reshape(b, hq, sq, d).permute(0, 2, 1, 3).to(q.dtype)
+    dk = torch.cat(dks, dim=2).permute(0, 2, 1, 3).to(k.dtype)
+    dv = torch.cat(dvs, dim=2).permute(0, 2, 1, 3).to(v.dtype)
+    return dq, dk, dv
 
 
 def full_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

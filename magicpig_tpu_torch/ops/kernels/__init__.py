@@ -10,7 +10,12 @@ from magicpig_tpu_torch.ops.kernels._lib import (  # noqa: F401
     reset_launches,
 )
 from magicpig_tpu_torch.ops.kernels.flash_decode import flash_decode  # noqa: F401
-from magicpig_tpu_torch.ops.kernels.flash_prefill import flash_prefill  # noqa: F401
+from magicpig_tpu_torch.ops.kernels.flash_prefill import (  # noqa: F401
+    FlashPrefillTrain,
+    flash_prefill,
+    flash_prefill_bwd,
+    flash_prefill_train,
+)
 from magicpig_tpu_torch.ops.kernels.collision_words import collision_words  # noqa: F401
 from magicpig_tpu_torch.ops.kernels.lsh_masked import lsh_masked_attention  # noqa: F401
 from magicpig_tpu_torch.ops.kernels.lsh_fused import (  # noqa: F401

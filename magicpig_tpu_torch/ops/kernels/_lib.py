@@ -67,6 +67,7 @@ LAUNCHES: dict[str, int] = {
     **{name + dim: 0 for name in _D64_FORMS for dim in ("", "_d128")},
     "collision_words": 0,
     "w4_matmul": 0,
+    "flash_prefill_bwd": 0,
 }
 # The int4 matmul's launches by weight shape ("{kin}x{out}"): each product
 # of a decode step's share of LAUNCHES["w4_matmul"].
@@ -78,6 +79,7 @@ _F = ctypes.c_float
 # C entry points: argument types, each returning cudaGetLastError().
 _SIGNATURES = {
     "mp_flash_prefill": [_P] * 7 + [_I] * 7 + [_F, _P],
+    "mp_flash_prefill_bwd": [_P] * 12 + [_I] * 7 + [_F, _P],
     "mp_flash_decode": [_P] * 12 + [_I] * 6 + [_F, _P],
     "mp_lsh_fused_decode": [_P] * 16 + [_I] * 8 + [_F, _I, _P, _P],
     "mp_lsh_masked_attention": [_P] * 15 + [_I] * 8 + [_F, _I, _P, _P],

@@ -198,3 +198,44 @@ def test_full_attention_at_8192_reproduces_jax():
     print(f"JAX full at {ctx}: {j_acc:.4f} over {n}; port {t_acc:.4f} over "
           f"the first {n_port}, JAX {np.mean(np.asarray(jp[:n_port]) == values[:n_port]):.4f}")
     np.testing.assert_array_equal(tp, jp[:n_port])
+
+
+def _port_example():
+    sys.path.insert(0, str(ROOT / "examples"))
+    try:
+        import estimator_accuracy_torch as tea
+    finally:
+        sys.path.remove(str(ROOT / "examples"))
+    return tea
+
+
+def _summary_rows(path):
+    lines = path.read_text().splitlines()
+    assert lines[0] == "context,estimator,accuracy,avg_sparsity,n"
+    return [line.split(",") for line in lines[1:]]
+
+
+def _run_example(out, samples: int):
+    _port_example().main(["--ckpt", str(CKPT), "--contexts", "512",
+                          "--samples", str(samples), "--estimators", "full",
+                          "--device", "cpu", "--out", str(out)])
+
+
+def test_example_reads_an_empty_summary(tmp_path):
+    """An existing but empty summary.csv is given its header and scored
+    into, not read past its end."""
+    (tmp_path / "summary.csv").write_text("")
+    _run_example(tmp_path, samples=1)
+    rows = _summary_rows(tmp_path / "summary.csv")
+    assert [(r[0], r[1], r[4]) for r in rows] == [("512", "full", "1")]
+
+
+def test_example_resume_keys_on_n(tmp_path):
+    """A rerun at the same n is skipped; one with more samples (another n)
+    is scored into the same folder."""
+    _run_example(tmp_path, samples=1)
+    _run_example(tmp_path, samples=1)
+    _run_example(tmp_path, samples=2)
+    rows = _summary_rows(tmp_path / "summary.csv")
+    assert [(r[0], r[1], r[4]) for r in rows] == [("512", "full", "1"),
+                                                  ("512", "full", "2")]

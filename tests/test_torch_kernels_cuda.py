@@ -30,7 +30,10 @@ tail-zeroed cache, to the same limits; the LSH edge cases poison every row
 that no head samples (the attends gather only sampled rows). The rescore
 pipeline equals the store pipeline bit for bit (the scorer's routine and
 one attend), at every chunk; the int4 matmul runs one kernel a call,
-counted as the kernel nodes of a captured CUDA graph.
+counted as the kernel nodes of a captured CUDA graph. The training
+backward's dq, dk and dv (f32, from bf16 inputs, p and dS rounded to bf16
+for their products) within `BWD_TOL` = 1e-2 of each plain gradient's
+largest |value|, and bit-equal from run to run (no atomics).
 """
 
 import numpy as np
@@ -49,6 +52,8 @@ from magicpig_tpu_torch.ops.kernels import (
     exact_scores_ranked,
     flash_decode,
     flash_prefill,
+    flash_prefill_bwd,
+    flash_prefill_train,
     lsh_decode,
     lsh_fused_decode,
     lsh_masked_attention,
@@ -1407,3 +1412,88 @@ def test_cuda_d128_other_forms_raise(cuda):
             with pytest.raises(ValueError):
                 collision_words(qb, planes)
     assert LAUNCHES == before
+
+
+BWD_TOL = 1e-2   # of each gradient's largest |value|: bf16 p and dS
+# (name, batch, sq, skv, q_offset, kv_len, window): the needle trainer's
+# shape, a window, and a ragged query span at offsets (one request sees
+# no key at all) with and without a window.
+BWD_FORMS = [
+    ("needle", 32, 1024, 1024, [0], [1024], None),
+    ("window", 4, 1024, 1024, [0], [1024], 200),
+    ("offset", 4, 300, 1024, [700, 0, 500, 10], [1000, 300, 777, 0], None),
+    ("offset_window", 4, 300, 1024, [700, 0, 500, 10], [1000, 300, 777, 0],
+     150),
+]
+
+
+@pytest.mark.parametrize("form", BWD_FORMS, ids=[f[0] for f in BWD_FORMS])
+def test_cuda_flash_prefill_bwd_matches_plain(cuda, form):
+    _, b, sq, skv, off, kvl, window = form
+    rng = np.random.default_rng(21)
+    q, do = (_bf16(rng, b, sq, 8, 64, device=cuda) for _ in range(2))
+    k, v = (_bf16(rng, b, skv, 4, 64, device=cuda) for _ in range(2))
+    off = torch.tensor(off * (b // len(off)), dtype=torch.int32, device=cuda)
+    kvl = torch.tensor(kvl * (b // len(kvl)), dtype=torch.int32, device=cuda)
+    out, lse = flash_prefill(q, k, v, kvl, off, window=window,
+                             return_lse=True)
+    before = LAUNCHES["flash_prefill"]
+    got = flash_prefill_bwd(q, k, v, out, lse, do, off, kvl, window=window)
+    again = flash_prefill_bwd(q, k, v, out, lse, do, off, kvl, window=window)
+    torch.cuda.synchronize()
+    assert LAUNCHES["flash_prefill"] == before
+    want = tatt.flash_prefill_train_backward(q, k, v, out, lse, do, off, kvl,
+                                             256, window=window)
+    for name, g, a, w in zip("qkv", got, again, want):
+        assert g.dtype == torch.float32 and g.shape == w.shape, name
+        assert torch.equal(g, a), f"d{name} differs between runs"
+        w = w.float()
+        err = float((g - w).abs().max())
+        assert err <= BWD_TOL * float(w.abs().max()), (name, err)
+    # Keys past each length get no gradient.
+    for i, n in enumerate(kvl.tolist()):
+        assert not got[1][i, n:].any() and not got[2][i, n:].any()
+
+
+def test_cuda_flash_prefill_train_autograd(cuda):
+    """The Function on f32 leaves: forward by the prefill kernel, backward
+    by flash_prefill_bwd (one launch each), gradients in f32 against the
+    plain Function on the CPU."""
+    rng = np.random.default_rng(22)
+    leaves = [rng.standard_normal(s).astype(np.float32)
+              for s in ((2, 256, 8, 64), (2, 256, 4, 64), (2, 256, 4, 64))]
+    grads = {}
+    for dev in (cuda, torch.device("cpu")):
+        q, k, v = (torch.from_numpy(x).to(dev).requires_grad_()
+                   for x in leaves)
+        bwd, fwd = LAUNCHES["flash_prefill_bwd"], LAUNCHES["flash_prefill"]
+        out = flash_prefill_train(q, k, v, 0, 256, block_k=128)
+        assert out.dtype == torch.float32
+        out.square().sum().backward()
+        if dev.type == "cuda":
+            assert LAUNCHES["flash_prefill_bwd"] == bwd + 1
+            assert LAUNCHES["flash_prefill"] == fwd + 1
+        grads[dev.type] = [x.grad.cpu() for x in (q, k, v)]
+    for g, w in zip(grads["cuda"], grads["cpu"]):
+        assert g.dtype == torch.float32
+        assert float((g - w).abs().max()) <= 2e-2 * float(w.abs().max())
+
+
+def test_cuda_flash_prefill_bwd_other_forms_raise(cuda):
+    """Head dim 128, a group size check_group refuses and f32 inputs raise
+    ValueError before any launch."""
+    rng = np.random.default_rng(23)
+    before = LAUNCHES["flash_prefill_bwd"]
+    for hq, hkv, d in ((8, 4, 128), (6, 2, 64), (5, 1, 64)):
+        q = _bf16(rng, 1, 64, hq, d, device=cuda)
+        k = _bf16(rng, 1, 64, hkv, d, device=cuda)
+        lse = torch.zeros((1, 64, hq), device=cuda)
+        with pytest.raises(ValueError):
+            flash_prefill_bwd(q, k, k, q, lse, q, 0, 64)
+    q = _bf16(rng, 1, 64, 8, 64, device=cuda)
+    k = _bf16(rng, 1, 64, 4, 64, device=cuda)
+    with pytest.raises(ValueError, match="bfloat16"):
+        flash_prefill_bwd(q.float(), k, k, q, torch.zeros((1, 64, 8),
+                                                          device=cuda),
+                          q, 0, 64)
+    assert LAUNCHES["flash_prefill_bwd"] == before
