@@ -18,8 +18,12 @@ Phases, each announced by one flushed progress line with elapsed seconds:
      decode, HMMA, UTMALDG and LDGSTS in the fused LSH kernel's bf16 and
      int8 forms and its group-3 form, HMMA and LDGSTS in the masked attend,
      HMMA and LDGSTS in the scorer, HMMA and UBLKCP in both attends; TMA in
-     the group-3 scan; the disassembly runs beside phase 2 and is checked
-     after it);
+     the group-3 scan; and in the kernels' general tile and small head dims
+     the same: HGMMA and UTMALDG in the prefill at d = 16, UBLKCP in the
+     decode, HMMA, UTMALDG and LDGSTS in the fused LSH kernel, HMMA and
+     LDGSTS in the masked attend and the scorer, HMMA and UBLKCP in both
+     attends, TMA in the scan; the disassembly runs beside phase 2 and is
+     checked after it);
   2. kernels: each hand-written kernel against its plain PyTorch version at
      the shapes of the Llama-3.2-1B decode paths (Hq 32, Hkv 8, d 64;
      prefill 8192 and 12000 tokens, decode at the hot cache (B=2, capacity
@@ -83,8 +87,19 @@ Phases, each announced by one flushed progress line with elapsed seconds:
      from a first row per request at the windowed serve's dense shape
      (lengths 16001 and 4091, first rows 11905 and 0), bf16 and int8, and
      at its hot caches with the sinks fully and partly aged (first rows 4
-     and 2), the start ignored and one tile late both rejected; each within
-     `TOL` of its plain version and its planted fault rejected;
+     and 2), the start ignored and one tile late both rejected; then the
+     kernels' general tile and the small head dims (`FORM_SHAPES`, rows
+     named as the forms' launch counters, "..._g5", "..._d128_g16",
+     "..._d16"): flash prefill over 8192 tokens at d 16 and 32, and at
+     SmolLM2-360M's decode shape (15/5 heads of 64: G = 3), group sizes 5,
+     6 and 7 at Hq 40 / 48 / 56 over Hkv 8 at d 128 and 64,
+     Llama-3.1-405B's (128/8 heads of 128: G = 16) and d 16 and 32 at Hq
+     32, Hkv 8: bf16 and int8 decode, the fused LSH kernel and the masked
+     attend (bf16 exact; int8 at the shapes the serves run; its five other
+     forms at G 6, d 128 and at d 32), the collision scan once a new group
+     size, and the block kernels (packed int4 where the serves' shapes
+     take it); each within `TOL` of its plain version and its planted fault
+     rejected;
   3. serve: `LLM("llama-3.2-1b")` at full width and depth with random
      weights drawn on the card; two requests (12000 and 7000 tokens)
      prefilled into slots 0 and 1, 16 greedy decode steps, clear(), a third
@@ -134,7 +149,15 @@ Phases, each announced by one flushed progress line with elapsed seconds:
      then `LLM("llama-3.2-3b")` at full width and depth (28 layers, 24/8
      heads of 128: group size 3) under LSH K=10, L=150 on the same prompts,
      counted, held to its eager step, a warm prefill and the decode
-     profiled. Then the 1B at MagicPIG's context length: B=8 slots of a
+     profiled. Then the kernels' general tile at full width: SmolLM2-360M
+     from its published config.json values (`SMOLLM2_360M`: 32 layers,
+     15/5 heads of 64, G = 3) at full depth, max_length 8192, prompts of
+     7000 and 4000 tokens, under LSH (the engine's defaults), block_topk
+     over int8 offload and odd L (K=8, L=75), and Llama-3.1-405B
+     (`LLAMA_31_405B`: 128/8 heads of 128, G = 16) at full width cut to 4
+     of its 126 layers, prompts of 12000 and 7000 tokens, under LSH and
+     block_topk int8: each 16 steps counted, held to its eager step bit for
+     bit and profiled. Then the 1B at MagicPIG's context length: B=8 slots of a
      98304-token state, each built by `synthetic_prefill` at 98000 tokens,
      in bf16 LSH (K=10, L=150) and in bench.py's block_topk4 mode (16 of
      192 blocks, the realized fraction exact), 16 greedy steps, launches
@@ -161,7 +184,8 @@ Phases, each announced by one flushed progress line with elapsed seconds:
      of their largest, a warm prefill and the decode profiled; then a
      two-layer checkpoint at its width written, read back by
      `load_checkpoint` byte for byte, and `examples/generation_torch.py`
-     run on it in its own process over a 6240-byte prompt. Last, sharded
+     run on it in its own process over a 6240-byte prompt (beside phase 4,
+     which times nothing). Last, sharded
      serving over torch.distributed on the one card (`parallel/`): NCCL at
      one rank in this process (the 1B under LSH over the 12000- and
      7000-token prompts, `shard_engine` over a 1 x 1 mesh on the
@@ -212,7 +236,11 @@ Phases, each announced by one flushed progress line with elapsed seconds:
      shape (hidden 1024, 8/2 heads of 128) against the CPU, 4 steps each:
      LSH K=1, L=32 over a 510-token prompt whose position crosses the
      window, the same over int8 offload and dense on 1500 tokens, and
-     chunked prefill; then the baselines at the 8B's head shape (layer 1's
+     chunked prefill; then llama-tiny (8/2 heads of 16) and the same model
+     at head dim 32, two layers each, 2 steps against the CPU under LSH
+     K=1, L=32, odd L (K=1, L=31), the sampled mode and block_topk over int8
+     offload (every block attended), launches counted; then the baselines
+     at the 8B's head shape (layer 1's
      query weight x4): TopK and Quest at full budget and OracleSampling at
      2048 draws against the K=0 engine on layer 1's f32 output (2e-3,
      0.15) and the logits (5e-2, 0.15), each tolerance rejecting the top
@@ -249,6 +277,7 @@ import gc
 import json
 import math
 import pathlib
+import re
 import statistics
 import subprocess
 import sys
@@ -430,11 +459,12 @@ def bound_ms(nbytes: float, flops: float):
 SASS_KERNELS = {
     "flash_prefill_kernel": ("flash_prefill_kernel", "ILi64E"),
     "flash_prefill_kernel d128": ("flash_prefill_kernel", "ILi128E"),
-    "flash_decode_kernel": ("flash_decode_kernel", "Li64EE"),
-    "flash_decode_kernel d128": ("flash_decode_kernel", "bfloat16Li128EE"),
-    "flash_decode_kernel int8 d128": ("flash_decode_kernel", "EaLi128EE"),
-    "block_score_kernel": ("block_score_kernel", "Li4E", "Li64EE"),
-    "block_score_kernel d128": ("block_score_kernel", "Li4E", "Li128EE"),
+    "flash_decode_kernel": ("flash_decode_kernel", "Li64ELb0EE"),
+    "flash_decode_kernel d128": ("flash_decode_kernel",
+                                 "bfloat16Li128ELb0EE"),
+    "flash_decode_kernel int8 d128": ("flash_decode_kernel", "EaLi128ELb0EE"),
+    "block_score_kernel": ("block_score_kernel", "Li4E", "Li64ELb0EE"),
+    "block_score_kernel d128": ("block_score_kernel", "Li4E", "Li128ELb0EE"),
     "rescore_attend_kernel": ("rescore_attend_kernel", "Li4E", "Li64EE"),
     "rescore_attend_kernel d128": ("rescore_attend_kernel", "Li4E",
                                    "Li128EE"),
@@ -455,6 +485,17 @@ SASS_KERNELS = {
         "lsh_split_kernel", "Li4E13__nv_bfloat16Li0ELb1ELi128E"),
     "collision_words_kernel": ("collision_words_kernel", "Li4E"),
     "collision_words_kernel g3": ("collision_words_kernel", "Li3E"),
+    # The general tile (G = 8 with kPart) and the small head dims.
+    "flash_prefill_kernel d16": ("flash_prefill_kernel", "ILi16E"),
+    "flash_decode_kernel tile d16": ("flash_decode_kernel", "Li16ELb1EE"),
+    "lsh_fused tile d64 (lsh_split_kernel, scan)": (
+        "lsh_split_kernel", "Li8E13__nv_bfloat16Li3ELb0ELi64ELb1EE"),
+    "lsh_masked tile d16 (lsh_split_kernel, words)": (
+        "lsh_split_kernel", "Li3ELb1ELi16ELb1EE"),
+    "block_score_kernel tile d16": ("block_score_kernel", "Li16ELb1EE"),
+    "rescore_attend_part_kernel d16": ("rescore_attend_part_kernel", "Li16EE"),
+    "block_attend_part_kernel d32": ("block_attend_part_kernel", "Li32EE"),
+    "collision_words_kernel tile": ("collision_words_kernel", "Li8ELb1E"),
 }
 SASS_OPS = ("HGMMA", "UTMALDG", "UBLKCP", "HMMA", "LDGSTS", "I2F")
 
@@ -510,7 +551,10 @@ def check_sass(counts) -> None:
     copies (int8 at d = 128 too), of the fused LSH kernel mma.sync, TMA and
     cp.async (int8 and G = 3 at d = 128 too), of the masked attend mma.sync
     and cp.async, of the scorer mma.sync and cp.async, of both attends
-    mma.sync and bulk copies."""
+    mma.sync and bulk copies; the same in the general tile's instances and
+    at the small head dims (the prefill at d = 16, the decode at d = 16,
+    the fused LSH kernel at d = 64, the masked attend, the scorer and the
+    rescore at d = 16, the block-attend at d = 32, the scan)."""
     if counts.get("w4_matmul_kernel", {}).get("I2F", 1) != 0:
         raise AssertionError("w4_matmul_kernel: I2F in its SASS")
     for name, op in (("block_score_kernel", "HMMA"),
@@ -540,7 +584,22 @@ def check_sass(counts) -> None:
                      *((f"{kernel} d128", op)
                        for kernel in ("rescore_attend_kernel",
                                       "block_attend_kernel")
-                       for op in ("HMMA", "UBLKCP"))):
+                       for op in ("HMMA", "UBLKCP")),
+                     ("flash_prefill_kernel d16", "HGMMA"),
+                     ("flash_prefill_kernel d16", "UTMALDG"),
+                     ("flash_decode_kernel tile d16", "UBLKCP"),
+                     *(("lsh_fused tile d64 (lsh_split_kernel, scan)", op)
+                       for op in ("HMMA", "UTMALDG", "LDGSTS")),
+                     ("lsh_masked tile d16 (lsh_split_kernel, words)", "HMMA"),
+                     ("lsh_masked tile d16 (lsh_split_kernel, words)",
+                      "LDGSTS"),
+                     ("block_score_kernel tile d16", "HMMA"),
+                     ("block_score_kernel tile d16", "LDGSTS"),
+                     *((kernel, op) for kernel in (
+                         "rescore_attend_part_kernel d16",
+                         "block_attend_part_kernel d32")
+                       for op in ("HMMA", "UBLKCP")),
+                     ("collision_words_kernel tile", "UTMALDG")):
         if counts.get(name, {}).get(op, 0) == 0:
             raise AssertionError(f"{name}: no {op} instruction in its SASS")
 
@@ -840,6 +899,95 @@ def phase_kernels_g3(torch, F, dev):
     del q, k, v, k_norm
     results.update(phase_block_kernels(torch, dev, d=d, hq=hq, tag=tag))
     results.update(serve_attend_kernels(torch, dev, d=d, hq=hq, tag=tag))
+    return results
+
+
+# The kernels' general tile and the small head dims in phase 2, as (head
+# dim, Hq, Hkv, whether every kernel runs, not only the decode paths'):
+# SmolLM2-360M's decode shape (15/5 heads of 64: G = 3 at d = 64); group
+# sizes 5, 6 and 7 at the decode shapes Hq 40 / 48 / 56 over Hkv 8 at d =
+# 128 (Mistral-Small-Instruct-2409's 48/8 and Yi-34B's 56/8) and at d = 64;
+# Llama-3.1-405B's 128/8 heads of 128 (G = 16: two blocks of the general
+# tile a kv head); head dims 16 and 32 at Hq 32, Hkv 8 (llama-tiny's group
+# of 4).
+FORM_SHAPES = ((64, 15, 5, True), (128, 40, 8, False), (128, 48, 8, False),
+               (128, 56, 8, False), (64, 40, 8, False), (64, 48, 8, False),
+               (64, 56, 8, False), (128, 128, 8, True), (16, 32, 8, True),
+               (32, 32, 8, True))
+# The forms whose fused LSH kernel runs its five other forms too (one new
+# group size, one new head dim): Mistral-Small's G = 6 at d = 128, d = 32.
+FORM_DEBIAS = ((128, 48), (32, 32))
+
+
+def phase_kernels_forms(torch, F, dev):
+    """The kernels' general tile and the small head dims (`FORM_SHAPES`),
+    rows named as the forms' launch counters ("..._d<d>" at head dims other
+    than 64, "..._g<G>" at group sizes other than 1, 2, 4, 8 and 3 at d =
+    128): flash_prefill over 8192 tokens at d = 16 and 32 (SDPA beside
+    it); at each shape over B=2, 16384 + 11000 tokens: bf16 and int8
+    flash_decode (SDPA beside the bf16 one), the fused LSH kernel bf16
+    exact (K=10, L=150; counts exact) and the masked attend from words bf16
+    exact (K=8, L=75), then the block kernels over a 65536-token offload
+    (the int8 scorer and rescore, the bf16 scorer and block-attend); at the
+    shapes marked full also the int8 LSH kernel and, at d = 64 and 128,
+    the packed int4 forms; the collision scan (K=10, L=150, also with the
+    lengths, and K=8, L=75) once a group size; the fused kernel's five
+    other forms at `FORM_DEBIAS`. Each within `TOL` of its plain version,
+    its planted fault rejected; no split or chunk sweeps."""
+    from magicpig_tpu_torch.ops import bitcodes
+    from magicpig_tpu_torch.ops.kernels import _lib
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2222)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev, dtype=torch.bfloat16)
+
+    results = {}
+    for d in (16, 32):
+        results.update(prefill_kernel(torch, F, rnd, 8192,
+                                      f"flash_prefill_d{d}", d=d))
+    K, L, b, s = 10, 150, 2, 16384
+    lens = [16384, 11000]
+    length = torch.tensor(lens, dtype=torch.int32, device=dev)
+    scanned = {3, 4}     # the scan's exact instances, rows of phases before
+    for d, hq, hkv, full in FORM_SHAPES:
+        g = hq // hkv
+        sfx = "" if d == 64 else f"_d{d}"
+        tag = _lib.group_suffix(g, d)
+        rows_of = {}
+        q, k, v = rnd(b, hq, d), rnd(b, hkv, s, d), rnd(b, hkv, s, d)
+        rows_of["flash_decode" + sfx + tag] = decode_row(
+            torch, F, q, k, v, length, lens, "flash_decode" + sfx + tag)
+        proj = torch.randn((d, K * L), generator=gen, device=dev)
+        k_norm = k.float().norm(dim=-1)
+        planes = torch.stack([bitcodes.build_planes(k[i].transpose(0, 1),
+                                                    proj, K)
+                              for i in range(b)])
+        q_bits = bitcodes.hash_bits(q, proj, K)
+        args = (q, k, v, k_norm, planes, q_bits, length, K, L)
+        rows_of["lsh_fused_decode" + sfx + tag], (nbytes, n_rows, flops) = (
+            lsh_row(torch, args, lens, "lsh_fused_decode" + sfx + tag))
+        debias = (d, hq) in FORM_DEBIAS
+        if debias:
+            rows_of.update(lsh_debias_forms(torch, (*args, None, None),
+                                            nbytes, n_rows, flops, tag))
+        rows_of.update(two_stage_kernels(
+            torch, F, gen, q, k, v, length, lens, planes, q_bits,
+            forms=((False, "exact"),), tag=tag, scans=g not in scanned,
+            sweep=(), routes=False))
+        scanned.add(g)
+        del planes, q_bits, k_norm
+        rows_of.update(int8_decode_kernels(
+            torch, q, k, v, length, lens, proj if full or debias else None,
+            K, L, tag=tag, debias_forms=debias, sweeps=False))
+        del q, k, v
+        log_timings(rows_of)
+        results.update(rows_of)
+        results.update(phase_block_kernels(
+            torch, dev, d=d, hq=hq, hkv=hkv, tag=tag, sweeps=False,
+            packed=full and d >= 64))
+        torch.cuda.empty_cache()
     return results
 
 
@@ -1156,13 +1304,13 @@ def decode_split_sweep(torch, q, k, v, length, k_scale=None,
     tokens on the given caches, the split the wrapper picks among them: the
     evidence for `split_tokens`."""
     from magicpig_tpu_torch.ops.kernels import _lib
-    from magicpig_tpu_torch.ops.kernels.flash_decode import (device_state,
-                                                             launch_name)
+    from magicpig_tpu_torch.ops.kernels.flash_decode import (launch_name,
+                                                             tickets_for)
 
     b, hq, d = q.shape
     hkv, s = k.shape[1], k.shape[2]
-    name = launch_name(k_scale is not None, d)
-    tickets, _ = device_state(q.device, b * hkv)
+    name = launch_name(k_scale is not None, d, hq // hkv)
+    tickets, _ = tickets_for(q.device, b, hq, hkv, d)
     times = {}
     for chunk in (512, 1024, 2048):
         n = -(-s // chunk)
@@ -1322,7 +1470,7 @@ MASKED_FORMS = tuple((quant, debias) for quant in (False, True)
 
 def two_stage_kernels(torch, F, gen, q, k, v, length, lens, planes, q_bits,
                       forms=MASKED_FORMS, tag: str = "", scans: bool = True,
-                      sweep=(False,)):
+                      sweep=(False,), routes: bool = True):
     """The two-stage LSH route's kernels on the caches of phase 2: with
     `scans`, the collision scan at K=10, L=150 (the sampled serve's; also
     with the lengths) and at K=8, L=75 (the odd-L serve's); the masked
@@ -1330,9 +1478,10 @@ def two_stage_kernels(torch, F, gen, q, k, v, length, lens, planes, q_bits,
     K/V, each with the exact, poly and none debias), counts exact, within
     `TOL` of its plain version, a skipped V tile rejected, the none form
     nearer its own plain version than the exact form's, its split sizes
-    swept for the exact forms of the K/V types in `sweep`; and the odd-L
-    routes on the same inputs, the scan and the masked attend against the
-    fused kernel called directly. Rows named by form and head dim, then
+    swept for the exact forms of the K/V types in `sweep`; and, with
+    `routes`, the odd-L routes on the same inputs, the scan and the masked
+    attend against the fused kernel called directly. Rows named by form
+    and head dim, then
     `tag`. The none form's library yardstick is SDPA with the boolean
     sample mask (bf16 only)."""
     from magicpig_tpu_torch.ops import bitcodes
@@ -1425,7 +1574,7 @@ def two_stage_kernels(torch, F, gen, q, k, v, length, lens, planes, q_bits,
             if debias == "exact" and quant in sweep:
                 lsh_split_sweep(torch, form, "mp_lsh_masked_attention", args,
                                 (words,))
-        if not quant:
+        if not quant and routes:
             # The odd-L routes on the same inputs: lsh_decode's two stages
             # against the fused kernel called directly.
             args = (q, kk, vv, k_norm, planes75, qb, length, K, L)
@@ -1449,14 +1598,15 @@ def two_stage_kernels(torch, F, gen, q, k, v, length, lens, planes, q_bits,
 
 
 def int8_decode_kernels(torch, q, k, v, length, lens, proj, K, L,
-                        tag: str = "", debias_forms: bool = True):
+                        tag: str = "", debias_forms: bool = True,
+                        sweeps: bool = True):
     """The int8 forms of flash decode and the fused LSH decode, on the same
     caches quantized per row (for LSH as centered keys whose norms and
     signatures are those of the dequantized rows, as the fill stores
     them), rows named with `tag` after the head dim; with `debias_forms`
     also the poly and none forms of the LSH kernel; with `proj` None the
-    decode alone. No PyTorch call takes int8 K/V with row scales: no
-    library time."""
+    decode alone; with `sweeps` their split sizes timed. No PyTorch call
+    takes int8 K/V with row scales: no library time."""
     from magicpig_tpu_torch.ops import attention, bitcodes
     from magicpig_tpu_torch.ops.kernels import flash_decode, lsh_fused_decode
     from magicpig_tpu_torch.ops.kernels.lsh_fused import lsh_fused_decode_plain
@@ -1488,7 +1638,8 @@ def int8_decode_kernels(torch, q, k, v, length, lens, proj, K, L,
     log(f"kernel {name} err {err:.2e}, worst element "
         f"{share:.2f} of its limit (tol {tol}); a skipped tile's worst "
         f"element {teeth:.1f}x the limit")
-    decode_split_sweep(torch, q, kq, vq, length, ks, vs)
+    if sweeps:
+        decode_split_sweep(torch, q, kq, vq, length, ks, vs)
     if proj is None:
         return results
 
@@ -1530,22 +1681,23 @@ def int8_decode_kernels(torch, q, k, v, length, lens, proj, K, L,
         f"the limit; counts exact, sampled "
         f"{results[name]['sampled_frac']:.4f}, rows read "
         f"{results[name]['rows_frac']:.4f}")
-    if d != 64:     # int8 rows at d = 128 take the shared memory of bf16 at 64
+    if d != 64 and sweeps:   # int8 rows at d = 128: bf16's shared memory at 64
         lsh_split_sweep(torch, form, "mp_lsh_fused_decode",
                         (q, kq, vq, k_norm, None, length, K, L, ks, vs,
                          "exact"), (planes, q_bits))
     if debias_forms:
         results.update(lsh_debias_forms(torch, args, nbytes, rows,
-                                        4 * d * int(want_cnt.sum())))
+                                        4 * d * int(want_cnt.sum()), tag))
     return results
 
 
-def lsh_debias_forms(torch, args, nbytes, rows, flops):
+def lsh_debias_forms(torch, args, nbytes, rows, flops, tag: str = ""):
     """The poly and none debias forms of the fused LSH kernel on the inputs
     of its exact form (`args`, scales None for bf16): counts exact, within
     `TOL` of the plain version, a skipped V tile rejected, and bound by the
     exact form's bytes (the none form reads no key norm). Each must move
-    the output away from the exact form's."""
+    the output away from the exact form's. Rows named by form and head
+    dim, then `tag`."""
     from magicpig_tpu_torch.ops.kernels import lsh_fused_decode
     from magicpig_tpu_torch.ops.kernels.lsh_fused import (
         launch_name, lsh_fused_decode_plain)
@@ -1554,7 +1706,7 @@ def lsh_debias_forms(torch, args, nbytes, rows, flops):
     exact = lsh_fused_decode_plain(*args)[0]
     tol, results = TOL["lsh_fused_decode"], {}
     for debias in ("poly", "none"):
-        name = launch_name(ks is not None, debias, q.shape[-1])
+        name = launch_name(ks is not None, debias, q.shape[-1]) + tag
         full = (*args, debias)
         got, got_lse, got_cnt = lsh_fused_decode(*full)
         want, want_lse, want_cnt = lsh_fused_decode_plain(*full)
@@ -1685,13 +1837,16 @@ def log_timings(results) -> None:
 
 
 def phase_block_kernels(torch, dev, d: int = 64, hq: int = 32,
-                        tag: str = ""):
+                        tag: str = "", hkv: int = 8, sweeps: bool = True,
+                        packed: bool = True):
     """The block_topk kernels against their plain versions: B=2 over a
     65536-token offload (lengths 65536 and 40000), 512-token blocks, 11
-    selected (the default 8% budget of 128 blocks), Hq `hq` (32), Hkv 8,
-    head dim d (rows named "..._d128" at 128, then `tag`); the scorer and
-    the rescore on int8 K/V, the store pipeline's scorer and attend on
-    bf16, the packed int4 forms; at d = 64 also the scores-only form."""
+    selected (the default 8% budget of 128 blocks), Hq `hq` (32), Hkv
+    `hkv` (8), head dim d (rows named "..._d<d>" at d other than 64, then
+    `tag`); the scorer and the rescore on int8 K/V, the store pipeline's
+    scorer and attend on bf16, with `packed` the packed int4 forms, with
+    `sweeps` the attends' chunks timed; at d = 64 also the scores-only
+    form."""
     from magicpig_tpu_torch.ops.kernels import (block_attend, block_rank,
                                                 exact_scores_ranked,
                                                 rescore_attend)
@@ -1705,7 +1860,7 @@ def phase_block_kernels(torch, dev, d: int = 64, hq: int = 32,
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(4321)
-    b, hkv, s, bs, n_sel = 2, 8, 65536, 512, 11
+    b, s, bs, n_sel = 2, 65536, 512, 11
     sfx = ("" if d == 64 else f"_d{d}") + tag
     g = hq // hkv
     lens = [65536, 40000]
@@ -1774,7 +1929,7 @@ def phase_block_kernels(torch, dev, d: int = 64, hq: int = 32,
         f"its limit (tol {tol}); a skipped K tile's worst element "
         f"{teeth:.1f}x the limit; top-{n_sel} ids equal")
     del want_s
-    if sfx == "":        # no path calls the scores-only form
+    if sfx == "" and hq == 32:     # no path calls the scores-only form
         results.update(exact_scores_kernel(torch, q, k, kq, ks, bs, library))
     del library
 
@@ -1801,8 +1956,10 @@ def phase_block_kernels(torch, dev, d: int = 64, hq: int = 32,
     log(f"kernel rescore_attend{sfx} err {err:.2e}, worst element {share:.2f} of "
         f"its limit (tol {tol}); a skipped tile's worst element "
         f"{teeth:.1f}x the limit; {tokens} valid selected rows")
-    attend_chunk_sweep("rescore_attend" + sfx, lambda c: launch_rescore_attend(
-        q, ids, kq, ks, vq, vs, length, bs, c))
+    if sweeps:
+        attend_chunk_sweep("rescore_attend" + sfx,
+                           lambda c: launch_rescore_attend(
+                               q, ids, kq, ks, vq, vs, length, bs, c))
 
     # -- block_attend: bf16 V, the stored scores of the bf16 scorer.
     ids = torch.topk(got_m, n_sel).indices.to(torch.int32)
@@ -1825,11 +1982,14 @@ def phase_block_kernels(torch, dev, d: int = 64, hq: int = 32,
     log(f"kernel block_attend{sfx}   err {err:.2e}, worst element {share:.2f} of "
         f"its limit (tol {tol}); a skipped tile's worst element "
         f"{teeth:.1f}x the limit; {tokens} valid selected rows")
-    attend_chunk_sweep("block_attend" + sfx, lambda c: launch_block_attend(
-        got_s, ids, v, None, bs, c))
+    if sweeps:
+        attend_chunk_sweep("block_attend" + sfx, lambda c: launch_block_attend(
+            got_s, ids, v, None, bs, c))
     del got_s, got_m
-    results.update(packed_block_kernels(torch, q, k, vq, vs, length, bs,
-                                        n_sel, same_top, selected_tokens, sfx))
+    if packed:
+        results.update(packed_block_kernels(torch, q, k, vq, vs, length, bs,
+                                            n_sel, same_top, selected_tokens,
+                                            sfx, sweeps))
     log_timings(results)
     return results
 
@@ -1872,14 +2032,14 @@ def exact_scores_kernel(torch, q, k, kq, ks, bs, library) -> dict:
 
 
 def packed_block_kernels(torch, q, k, vq, vs, length, bs, n_sel, same_top,
-                         selected_tokens, sfx: str = ""):
+                         selected_tokens, sfx: str = "", sweeps: bool = True):
     """The packed int4 forms of the block scorer and rescore-attend on the
     same keys put on the 4-bit grid: each within `TOL` of its plain version,
     bit for bit the int8 kernel's numbers on the unpacked rows, and a
     planted fault rejected (one ranking block of packed K zeroed; for the
     rescore also one 64-token V tile). The scorer's library yardstick is the
     bf16 matmul of the int8 rows. Rows named with `sfx` ("_d128" at head dim
-    128)."""
+    128); with `sweeps` the rescore's chunks timed."""
     from magicpig_tpu_torch.ops.kernels import (block_rank, exact_scores_ranked,
                                                 rescore_attend)
     from magicpig_tpu_torch.ops.kernels.block_score import (block_scores_plain,
@@ -1984,8 +2144,9 @@ def packed_block_kernels(torch, q, k, vq, vs, length, bs, n_sel, same_top,
         f"bit for bit; a skipped V tile's worst element {teeth:.1f}x and a "
         f"skipped K block's {teeth_k:.1f}x the limit; {tokens} valid "
         "selected rows")
-    attend_chunk_sweep("rescore_attend_int4" + sfx, lambda c: launch_rescore_attend(
-        *args, c))
+    if sweeps:
+        attend_chunk_sweep("rescore_attend_int4" + sfx,
+                           lambda c: launch_rescore_attend(*args, c))
     return results
 
 
@@ -2326,7 +2487,7 @@ def serve_counted(torch, dev, prompts, lsh, label: str, expect_fn,
                   weight_quant: str = "none", params=None, check_frac=None,
                   projections=None, model="llama-3.2-1b",
                   prefill_profile: bool = False, after_prefill=None,
-                  after_check=None):
+                  after_check=None, max_length: int = 16384):
     """A serve of `model` (a preset's name, Llama-3.2-1B by default, or a
     `ModelConfig`) at full width and depth: `params`, or random weights
     drawn (and quantized as `weight_quant` says, q/k/v and gate|up fused) on
@@ -2341,7 +2502,7 @@ def serve_counted(torch, dev, prompts, lsh, label: str, expect_fn,
     prefill timed and profiled, then a profiled decode pass of each.
     `after_prefill(llm)` runs after the counted run's prefills and
     `after_check(llm, graphed)` after `check_graphed`; either raises on a
-    fault."""
+    fault. `max_length`: the engine's (16384)."""
     import dataclasses
 
     from magicpig_tpu_torch.config import preset
@@ -2355,8 +2516,8 @@ def serve_counted(torch, dev, prompts, lsh, label: str, expect_fn,
                                   fuse_small_linears=True)
     lens = " + ".join(str(p.numel()) for p in prompts[:2])
     t = time.perf_counter()
-    llm = LLM(cfg, batch_size=2, max_length=16384, lsh=lsh, params=params,
-              projections=projections, device=dev, seed=1)
+    llm = LLM(cfg, batch_size=2, max_length=max_length, lsh=lsh,
+              params=params, projections=projections, device=dev, seed=1)
     torch.cuda.synchronize()
     log(f"serve {label}: engine ({weight_quant} weights) in "
         f"{time.perf_counter() - t:.1f} s")
@@ -2468,13 +2629,19 @@ def phase_serve_two_stage(torch, dev, serve):
     return sampled, odd
 
 
-def exact_fraction(lsh, prompts):
+def exact_fraction(lsh, prompts, max_length: int = 16384):
     """A check of block_topk's realized fraction at the two first prompts:
-    3 blocks of 512 (8% of 32, rounded up) against 11932 and 6932 offloaded
-    tokens give 1536 / 9432."""
+    the budget's blocks of 512 (8% of the offload capacity's, rounded up:
+    3 of 32 at max_length 16384) against the prompts' offloaded tokens
+    (11932 and 6932 give 1536 / 9432)."""
+    from magicpig_tpu_torch.runtime.state import offload_capacity
+
+    bs = lsh.block_topk_block_size
+    nb = offload_capacity(lsh, max_length) // bs
+    blocks = min(nb, max(1, math.ceil(nb * lsh.block_topk_budget_frac)))
     off = [n - lsh.num_sink_tokens - lsh.num_local_tokens
            for n in (prompts[0].numel(), prompts[1].numel())]
-    want_frac = sum(min(3 * 512, n) for n in off) / sum(off)
+    want_frac = sum(min(blocks * bs, n) for n in off) / sum(off)
 
     def check_frac(frac):
         if abs(frac - want_frac) > 1e-6:
@@ -2724,6 +2891,118 @@ def phase_serve_3b(torch, dev):
                          prefill_profile=True)
 
 
+# SmolLM2-360M as its published config.json gives it
+# (huggingface.co/HuggingFaceTB/SmolLM2-360M, config.json): 15 query heads
+# over 5 kv heads of 64 (group size 3 at head dim 64), tied embeddings,
+# 8192 positions.
+SMOLLM2_360M = dict(
+    architectures=["LlamaForCausalLM"], vocab_size=49152, hidden_size=960,
+    intermediate_size=2560, num_hidden_layers=32, num_attention_heads=15,
+    num_key_value_heads=5, hidden_act="silu", rms_norm_eps=1e-5,
+    rope_theta=100000, rope_scaling=None, max_position_embeddings=8192,
+    tie_word_embeddings=True, bos_token_id=0, eos_token_id=0,
+    torch_dtype="bfloat16")
+SMOLLM2_PROMPTS = (7000, 4000)
+SMOLLM2_MAX_LEN = 8192
+# Llama-3.1-405B as its published config.json gives it
+# (huggingface.co/meta-llama/Llama-3.1-405B, config.json): 128 query heads
+# over 8 kv heads of 128 (group size 16), the 8B's rope scaling; served
+# here at its full width with its depth cut from 126 layers to 4
+# (`LLAMA405B_LAYERS`: layer 0 dense, 1-3 sparse; ~34 GB of bf16 weights).
+LLAMA_31_405B = dict(
+    architectures=["LlamaForCausalLM"], vocab_size=128256, hidden_size=16384,
+    intermediate_size=53248, num_hidden_layers=126, num_attention_heads=128,
+    num_key_value_heads=8, hidden_act="silu", rms_norm_eps=1e-5,
+    rope_theta=500000.0, max_position_embeddings=131072,
+    rope_scaling=dict(factor=8.0, low_freq_factor=1.0, high_freq_factor=4.0,
+                      original_max_position_embeddings=8192,
+                      rope_type="llama3"),
+    tie_word_embeddings=False, bos_token_id=128000, eos_token_id=128001,
+    torch_dtype="bfloat16")
+LLAMA405B_LAYERS = 4
+
+
+def phase_serve_forms(torch, dev):
+    """The kernels' general tile at full width. SmolLM2-360M at full width
+    and depth (32 layers, hidden 960, 15/5 heads of 64: G = 3 at d = 64;
+    intermediate 2560, vocab 49152, tied embeddings, dense layers 0 and 16;
+    the config built by `from_hf_config` from the published config.json
+    values, `SMOLLM2_360M`), max_length 8192, random bf16 weights drawn on
+    the card by the engine (`seed=1`), two requests of 7000 and 4000 random
+    tokens: under LSH K=10, L=150 (the engine's defaults: masked, bf16 KV;
+    the slice's main path), block_topk over int8 offload (the realized
+    fraction exact) and odd L (K=8, L=75): 16 greedy steps each (the first
+    eager, 15 replays), every launch counted (the "_g3" forms of the
+    decode, the fused and masked LSH kernels, the scorer and the rescore),
+    the graphed run held to the eager step bit for bit, the LSH serve's
+    prefill and each serve's decode profiled. Then Llama-3.1-405B
+    (`LLAMA_31_405B`) at full width, its depth cut to 4 layers (layer 0
+    dense), prompts of 12000 and 7000 tokens at max_length 16384, under
+    LSH K=10, L=150 and block_topk int8 (G = 16: the "_d128_g16" forms, two
+    blocks of the general tile a kv head) on one draw of its weights, the
+    same checks; the weights freed after. Returns the serves' results."""
+    from magicpig_tpu_torch.config import LSHConfig, ModelConfig
+    from magicpig_tpu_torch.models.llama import init_params
+
+    def expect_fn(decode, prefill, **sparse):
+        def expect(llm):
+            n = llm.config.num_hidden_layers
+            n_sparse = sum(1 for kind, _ in llm.groups if kind == "sparse")
+            return {prefill: 2 * n, decode: 16 * n,
+                    **{name: 16 * n_sparse for name in sparse}}
+        return expect
+
+    out = {}
+    cfg = ModelConfig.from_hf_config(SMOLLM2_360M, name="smollm2-360m")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    prompts = [torch.randint(1, cfg.vocab_size, (n,), generator=gen,
+                             device=dev) for n in SMOLLM2_PROMPTS]
+    block = LSHConfig(estimator="block_topk", offload_quant="int8")
+    for key, label, lsh, sparse, kw in (
+            ("smollm2", "LSH", LSHConfig(), ("lsh_fused_decode_g3",),
+             dict(prefill_profile=True)),
+            ("smollm2_block", "block_topk int8", block,
+             ("block_rank_g3", "rescore_attend_g3"),
+             dict(check_frac=exact_fraction(block, prompts, SMOLLM2_MAX_LEN))),
+            ("smollm2_odd", "odd L K=8/L=75", LSHConfig(K=8, L=75),
+             ("collision_words", "lsh_masked_attention_g3"), {})):
+        out[key] = serve_counted(
+            torch, dev, prompts, lsh, f"smollm2-360m {label}",
+            expect_fn("flash_decode_g3", "flash_prefill",
+                      **dict.fromkeys(sparse)),
+            model=cfg, max_length=SMOLLM2_MAX_LEN, **kw)
+        gc.collect()
+        torch.cuda.empty_cache()
+    del prompts
+
+    cfg = ModelConfig.from_hf_config(
+        dict(LLAMA_31_405B, num_hidden_layers=LLAMA405B_LAYERS),
+        name="llama-3.1-405b")
+    gen.manual_seed(7)
+    prompts = [torch.randint(1, cfg.vocab_size, (n,), generator=gen,
+                             device=dev) for n in (12000, 7000)]
+    gen.manual_seed(1)       # the draw of an `LLM(seed=1)`, once for both
+    params = init_params(cfg, 16384, gen, dev)
+    block = LSHConfig(estimator="block_topk", offload_quant="int8")
+    for key, lsh, sparse, kw in (
+            ("405b", LSHConfig(K=10, L=150), ("lsh_fused_decode_d128_g16",),
+             dict(prefill_profile=True)),
+            ("405b_block", block,
+             ("block_rank_d128_g16", "rescore_attend_d128_g16"),
+             dict(check_frac=exact_fraction(block, prompts)))):
+        out[key] = serve_counted(
+            torch, dev, prompts, lsh,
+            f"llama-3.1-405b ({LLAMA405B_LAYERS} layers) "
+            f"{'LSH' if key == '405b' else 'block_topk int8'}",
+            expect_fn("flash_decode_d128_g16", "flash_prefill_d128",
+                      **dict.fromkeys(sparse)),
+            model=cfg, params=params, **kw)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
 # Mistral-7B-v0.1 as its published config.json gives it
 # (huggingface.co/mistralai/Mistral-7B-v0.1, config.json): Mistral's 7B
 # shape with a sliding window of 4096 tokens.
@@ -2870,8 +3149,13 @@ def phase_checkpoint(torch, dev):
     8192 --G 16` on a 6240-byte text file (the byte tokenizer: 6241 tokens,
     past the window, so that dense layer 0 is bounded and sparse layer 1's
     offload clipped) in its own process, which must exit 0 and report its
-    prefill and generation."""
+    prefill and generation. That process is started by the returned
+    `start()` and checked by the `finish()` it returns: `main` runs it
+    beside phase 4, which times nothing (so its decoding latency is read
+    with phase 4 on the card too); the checkpoint's directory goes with
+    `finish()`."""
     import dataclasses
+    import shutil
     import tempfile
 
     from magicpig_tpu_torch.models.loader import (SafetensorsFiles,
@@ -2907,7 +3191,8 @@ def phase_checkpoint(torch, dev):
                    pre + "post_attention_layernorm.weight": norm()})
     nbytes = sum(t.numel() * t.element_size() for t in sd.values())
     CKPT_DIR.mkdir(exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=CKPT_DIR) as tmp:
+    tmp = tempfile.mkdtemp(dir=CKPT_DIR)
+    try:
         path = pathlib.Path(tmp) / "mistral-7b-v0.1-2l"
         path.mkdir()
         (path / "config.json").write_text(json.dumps(
@@ -2965,23 +3250,57 @@ def phase_checkpoint(torch, dev):
         torch.cuda.empty_cache()
         data = path / "prompt.txt"
         data.write_text(GENERATION_TEXT)
-        cmd = [sys.executable, str(ROOT / "examples" / "generation_torch.py"),
-               "--model", str(path), "--M", "8192", "--G", "16", "--data",
-               str(data), "--device", dev.type]
-        t = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True, cwd=ROOT,
-                              timeout=600)
-        gen_s = time.perf_counter() - t
-    lines = proc.stdout.splitlines()
-    info = [l for l in lines if l.startswith("[INFO]")]
-    n_prompt = len(GENERATION_TEXT.encode()) + 1           # the byte tokenizer
-    log(f"generation_torch.py: exit {proc.returncode} in {gen_s:.1f} s; "
-        f"{info}; text {lines[-1][:80]!r}" if lines else "no output")
-    if (proc.returncode != 0 or f"[INFO] Prefill {n_prompt} tokens" not in info
-            or not any(l.startswith("[INFO] Generate") for l in info)):
-        raise AssertionError(f"generation_torch.py failed:\n{proc.stdout[-2000:]}"
-                             f"\n{proc.stderr[-4000:]}")
-    return dict(load_s=load_s, gen_s=gen_s)
+    except BaseException:
+        shutil.rmtree(tmp, ignore_errors=True)
+        raise
+    cmd = [sys.executable, str(ROOT / "examples" / "generation_torch.py"),
+           "--model", str(path), "--M", "8192", "--G", "16", "--data",
+           str(data), "--device", dev.type]
+    run = {}
+
+    def start():
+        run["out"] = open(pathlib.Path(tmp) / "stdout", "w+")
+        run["err"] = open(pathlib.Path(tmp) / "stderr", "w+")
+        run["t"] = time.perf_counter()
+        run["proc"] = subprocess.Popen(cmd, stdout=run["out"],
+                                       stderr=run["err"], text=True, cwd=ROOT)
+        log("generation_torch.py started in its own process")
+
+    def finish(kill: bool = False):
+        """Wait for the process and check it (with `kill`: stop it, check
+        nothing); the checkpoint's directory goes either way."""
+        try:
+            proc = run["proc"]
+            if kill:
+                proc.kill()
+            proc.wait(timeout=600)
+            gen_s = time.perf_counter() - run["t"]
+            run["out"].seek(0)
+            run["err"].seek(0)
+            stdout, stderr = run["out"].read(), run["err"].read()
+            run["out"].close()
+            run["err"].close()
+        finally:
+            if "proc" in run and run["proc"].poll() is None:
+                run["proc"].kill()
+                run["proc"].wait()
+            shutil.rmtree(tmp, ignore_errors=True)
+        if kill:
+            return None
+        lines = stdout.splitlines()
+        info = [l for l in lines if l.startswith("[INFO]")]
+        n_prompt = len(GENERATION_TEXT.encode()) + 1       # the byte tokenizer
+        log(f"generation_torch.py: exit {proc.returncode} in {gen_s:.1f} s "
+            f"(phase 4 on the card beside it); {info}; text "
+            f"{lines[-1][:80]!r}" if lines else "no output")
+        if (proc.returncode != 0
+                or f"[INFO] Prefill {n_prompt} tokens" not in info
+                or not any(l.startswith("[INFO] Generate") for l in info)):
+            raise AssertionError(f"generation_torch.py failed:\n"
+                                 f"{stdout[-2000:]}\n{stderr[-4000:]}")
+        return dict(load_s=load_s, gen_s=gen_s)
+
+    return start, finish
 
 
 def state_bytes(state) -> int:
@@ -3788,6 +4107,59 @@ def phase_reference_g3(torch, dev):
              ("collision_words", "lsh_masked_attention_d128"))):
         expect(card_counted(torch, dev, lsh, f"g3 {label}", steps, cfg=cfg),
                dense, **dict.fromkeys(forms))
+    return counted
+
+
+def phase_reference_forms(torch, dev):
+    """The small head dims against the CPU: llama-tiny (hidden 128, 8/2
+    heads of 16, intermediate 256, vocab 512) and the same model at head
+    dim 32, each cut to two layers (layer 0 dense, layer 1 sparse), 2 steps
+    each on a 1100-token prompt: LSH K=1, L=32 (the fused kernel), odd L
+    (K=1, L=31: the scan and the masked attend), the sampled mode (K=1, L=32:
+    the scan) and block_topk over int8 offload with every block attended
+    (the rescore pipeline's scorer and attend), logits within phase 4's 5e-2
+    of the CPU engine's, launches counted (the "_d16" / "_d32" forms).
+    Returns each form's launches from the run of its path."""
+    import dataclasses
+
+    from magicpig_tpu_torch.config import LSHConfig, preset
+
+    steps, counted = 2, {}
+    for d in (16, 32):
+        cfg = dataclasses.replace(preset("llama-tiny"), head_dim=d)
+        sfx = f"_d{d}"
+
+        def expect(launches, *forms):
+            full = dict.fromkeys(launches, 0)
+            full.update({"flash_prefill" + sfx: 2,
+                         "flash_decode" + sfx: 2 * steps})
+            full.update({name: steps for name in forms})
+            if launches != full:
+                raise AssertionError(f"launches {launches} != path's {full}")
+            counted.update({name: steps for name in forms})
+            counted.update({"flash_prefill" + sfx: 2,
+                            "flash_decode" + sfx: 2 * steps})
+
+        for label, lsh, forms, sparse in (
+                ("LSH K=1/L=32", LSHConfig(K=1, L=32, dense_layers=(0,)),
+                 ("lsh_fused_decode" + sfx,), True),
+                ("odd L K=1/L=31", LSHConfig(K=1, L=31, dense_layers=(0,)),
+                 ("collision_words", "lsh_masked_attention" + sfx), True),
+                ("sampled K=1/L=32",
+                 LSHConfig(K=1, L=32, decode_mode="sampled",
+                           dense_layers=(0,)), ("collision_words",), True),
+                ("block_topk int8, rescore pipeline",
+                 LSHConfig(estimator="block_topk", offload_quant="int8",
+                           dense_layers=(0,), block_topk_budget_frac=1.0),
+                 ("block_rank" + sfx, "rescore_attend" + sfx), False)):
+            card, host, launches = card_vs_cpu(
+                torch, dev, lsh, f"d{d} {label}", 1100, steps=steps, cfg=cfg)
+            expect(launches, *forms)
+            if sparse and min(card.avg_sparsity, host.avg_sparsity) < 0.9:
+                raise AssertionError("K=1 should sample nearly every key")
+            if not sparse and card.avg_sparsity != host.avg_sparsity:
+                raise AssertionError("card and CPU realized fractions differ")
+            del card, host
     return counted
 
 
@@ -5263,6 +5635,9 @@ def main() -> int:
         torch.cuda.empty_cache()
         kern.update(phase_kernels_window(torch, F, dev))
         torch.cuda.empty_cache()
+        forms_rows = phase_kernels_forms(torch, F, dev)
+        kern.update(forms_rows)
+        torch.cuda.empty_cache()
         sass = sass_counts(dump)
     finally:
         dump[0].kill()
@@ -5294,12 +5669,18 @@ def main() -> int:
     serve_3b = phase_serve_3b(torch, dev)
     gc.collect()
     torch.cuda.empty_cache()
+    log("phase 3 serve smollm2-360m and llama-3.1-405b (4 layers): the "
+        "kernels' general tile")
+    serve_forms = phase_serve_forms(torch, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
     log("phase 3 serve mistral-7b-v0.1 (sliding window)")
     serve_mistral = phase_serve_mistral(torch, dev)
     gc.collect()
     torch.cuda.empty_cache()
-    log("phase 3 load_checkpoint and examples/generation_torch.py")
-    phase_checkpoint(torch, dev)
+    log("phase 3 load_checkpoint (examples/generation_torch.py runs beside "
+        "phase 4)")
+    start_generation, finish_generation = phase_checkpoint(torch, dev)
     gc.collect()
     torch.cuda.empty_cache()
     log(f"phase 3 serve llama-3.2-1b at {LONG_P} tokens")
@@ -5315,14 +5696,22 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    log("phase 4 reference on a small input")
-    store = phase_reference(torch, dev)
-    masked_forms = phase_reference_two_stage(torch, dev)
-    forms_d128 = phase_reference_d128(torch, dev)
-    forms_g3 = phase_reference_g3(torch, dev)
-    chunked = phase_reference_chunked(torch, dev)
-    window = phase_reference_window(torch, dev)
-    phase_reference_baselines(torch, dev)
+    log("phase 4 reference on a small input, examples/generation_torch.py "
+        "on the checkpoint beside it")
+    start_generation()
+    try:
+        store = phase_reference(torch, dev)
+        masked_forms = phase_reference_two_stage(torch, dev)
+        forms_d128 = phase_reference_d128(torch, dev)
+        forms_g3 = phase_reference_g3(torch, dev)
+        chunked = phase_reference_chunked(torch, dev)
+        window = phase_reference_window(torch, dev)
+        forms_cut = phase_reference_forms(torch, dev)
+        phase_reference_baselines(torch, dev)
+    except BaseException:
+        finish_generation(kill=True)
+        raise
+    finish_generation()
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -5482,7 +5871,7 @@ def main() -> int:
                "lsh_fused_decode_d128":
                    serve_3b["launches"]["lsh_fused_decode_d128"]}
     for name in kern:
-        if "_g3" not in name:
+        if "_g3" not in name or name in forms_rows:
             continue
         form = name.replace("_g3", "").removesuffix("_serve").removesuffix(
             "_hot")
@@ -5532,6 +5921,42 @@ def main() -> int:
         sources[name] = sources[form]
         launches[name] = count
         launches_of[name] = f"{form} window"
+    # The general tile's forms and the small head dims (`phase_kernels_forms`,
+    # rows named as their launch counters): their instances' sources; the
+    # launches from the first run of the path that uses each, SmolLM2-360M's
+    # serves, the 405B cut's and phase 4's small-head-dim cuts. A form that
+    # no serve or cut runs counts 0.
+    form_runs = (("smollm2-360m LSH", serve_forms["smollm2"]["launches"]),
+                 ("smollm2-360m block_topk int8",
+                  serve_forms["smollm2_block"]["launches"]),
+                 ("smollm2-360m odd L", serve_forms["smollm2_odd"]["launches"]),
+                 ("llama-3.1-405b LSH", serve_forms["405b"]["launches"]),
+                 ("llama-3.1-405b block_topk int8",
+                  serve_forms["405b_block"]["launches"]),
+                 ("phase 4 head dim 16 / 32 cuts", forms_cut))
+    for name in forms_rows:
+        counter = name.replace("_length", "").replace("_l75", "")
+        base = re.sub(r"_d(16|32|128)|_g\d+", "", counter)
+        src, replaces = sources[base]
+        if name.startswith("collision_words_length"):
+            replaces = sources["collision_words_length"][1]
+        part = base.split("_int")[0].removesuffix("_poly").removesuffix(
+            "_none")
+        part_src = {"lsh_fused_decode": "lsh_fused_part{}.cu",
+                    "lsh_masked_attention": "lsh_masked_part{}.cu",
+                    "block_rank": "block_score_part.cu",
+                    "exact_scores_ranked": "block_score_part.cu",
+                    "rescore_attend": "chunk_attend_part.cu",
+                    "block_attend": "chunk_attend_part.cu"}.get(part)
+        if part_src is not None:
+            src = "magicpig_tpu_torch/csrc/" + part_src.format(
+                "_int8" if "_int8" in base and part.startswith("lsh") else "")
+        sources[name] = (src, replaces)
+        run = next(((label, r[counter]) for label, r in form_runs
+                    if r.get(counter)), (None, 0))
+        launches[name] = run[1]
+        launches_of[name] = (f"{counter} {run[0]}" if run[0] else
+                             f"{counter}: no serve or cut at this form")
     for shapes, run, where in (
             (W4_SHAPES, full_int8, ""), (W4_SHAPES_8B, full_int8_8b, ""),
             (W4_SHAPES_TP, sharded["gloo"]["block"],

@@ -29,7 +29,7 @@ block_attend_kernel(const __grid_constant__ mp::ChunkArgs a) {
 template <int G, typename VT, int kD>
 int launch(const mp::ChunkArgs& a, cudaStream_t st) {
   static unsigned smem_set = 0;
-  return mp::launch_chunk_attend<G, int8_t, VT, true, kD>(
+  return mp::launch_chunk_attend<G, int8_t, VT, true, kD, false>(
       block_attend_kernel<G, VT, kD>, a, smem_set, st);
 }
 
@@ -50,7 +50,8 @@ int dispatch(int g, const mp::ChunkArgs& a, cudaStream_t st) {
 }  // namespace
 
 // v_int8: V int8 with row scales; otherwise bf16, v_scale null. head_dim
-// (64 or 128), partials, tickets and chunk as for mp_rescore_attend.
+// (16, 32, 64 or 128), group sizes, partials, tickets and chunk as for
+// mp_rescore_attend (the general tile: block_attend_part).
 extern "C" int mp_block_attend(const void* scores, const void* blk_ids,
                                const void* v, const void* v_scale,
                                void* part_o, void* part_lse, void* tickets,
@@ -80,6 +81,9 @@ extern "C" int mp_block_attend(const void* scores, const void* blk_ids,
   if (batch == 0) return static_cast<int>(cudaSuccess);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int g = hq / hkv;
+  a.group = g;
+  if (!mp::exact_group(g, head_dim))
+    return mp::block_attend_part(v_int8 != 0, head_dim, a, st);
   if (head_dim == 128)
     return v_int8 ? dispatch<int8_t, 128>(g, a, st)
                   : dispatch<__nv_bfloat16, 128>(g, a, st);

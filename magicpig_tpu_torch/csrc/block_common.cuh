@@ -7,7 +7,8 @@
 // [B, Hkv, S, d] int8 or bf16, or K packed int4 [B, Hkv, S, d/2] (Int4x2
 // below) with V int8; per-row scales [B, Hkv, S] f32 (quantized only);
 // scores [B, Hkv, G, S] f32; block ids [B, Hkv, NB'] int32. The head dim d
-// is a template parameter kD, 64 or 128.
+// is a template parameter kD, 16, 32, 64 or 128 (packed int4 K at 64 and
+// 128 only, where the JAX package packs K).
 #pragma once
 
 #include <type_traits>
@@ -48,6 +49,12 @@ enum KeyKind : int { kKeyBf16 = 0, kKeyInt8 = 1, kKeyInt4 = 2 };
 // so the scorer and the rescore, which tile the keys differently, agree
 // bit for bit.
 
+// Channels of the score routine's fragments: kD, or 64 for the head dims
+// below it, whose rows the routine reads as 64 channels with the channels
+// at and past kD zero (lanes t >= kD / 16 hold no channel): the products
+// of zeros add exact zeros, so the scores are those of the kD channels.
+__host__ __device__ constexpr int frag_dim(int kD) { return kD < 64 ? 64 : kD; }
+
 // Bytes of one key row of kD channels.
 template <typename KT, int kD>
 __host__ __device__ constexpr int key_row_bytes() {
@@ -57,18 +64,20 @@ __host__ __device__ constexpr int key_row_bytes() {
 
 // The B operand: q * sm_scale rounded to bf16 (as the TPU kernel rounds it
 // before the dot), head n = lane / 4's channels of k-step kk in qb[kk]
-// (zero for n >= G).
+// (zero for n >= gn, the block's heads, G for the exact instances, and for
+// channels at or past kD).
 template <int G, int kD>
 __device__ __forceinline__ void load_q_frag(const __nv_bfloat16* q_h,
                                             float sm_scale, int lane,
-                                            uint32_t (&qb)[kD / 16][2]) {
+                                            uint32_t (&qb)[frag_dim(kD) / 16][2],
+                                            int gn = G) {
   const int n = lane >> 2, t = lane & 3;
 #pragma unroll
-  for (int kk = 0; kk < kD / 16; ++kk)
+  for (int kk = 0; kk < frag_dim(kD) / 16; ++kk)
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       uint32_t w = 0u;
-      if (n < G) {
+      if (n < gn && 16 * t + 4 * (kk % 4) + 2 * h < kD) {
         const __nv_bfloat16* p =
             q_h + n * kD + 64 * (kk / 4) + 16 * t + 4 * (kk % 4) + 2 * h;
         w = pack_f32_as_bf16(__bfloat162float(p[0]) * sm_scale,
@@ -82,27 +91,43 @@ __device__ __forceinline__ void load_q_frag(const __nv_bfloat16* q_h,
 // kD / 32 units: bf16 units 8p + 2t and 8p + 2t + 1 of each pass p (XORed
 // with `swz`, the scorer's shared-memory swizzle; 0 in device memory), the
 // int8 unit 4p + t of each pass, or the packed int4 unit t % (kD / 32).
+// Below d = 64 lane t reads its units only for t < kD / 16 (its 16
+// channels lie in the row) and holds zeros otherwise.
 template <int kD>
 __device__ __forceinline__ void key_chunks(const uint8_t* row, int t, int swz,
-                                           uint4 (&x)[kD / 32],
+                                           uint4 (&x)[frag_dim(kD) / 32],
                                            const __nv_bfloat16*) {
   const uint4* u = reinterpret_cast<const uint4*>(row);
+  if constexpr (kD < 64) {
+    const bool in = t < kD / 16;
+    x[0] = in ? u[(2 * t) ^ swz] : make_uint4(0, 0, 0, 0);
+    x[1] = in ? u[(2 * t + 1) ^ swz] : make_uint4(0, 0, 0, 0);
+  } else {
 #pragma unroll
-  for (int p = 0; p < kD / 64; ++p) {
-    x[2 * p] = u[(8 * p + 2 * t) ^ swz];
-    x[2 * p + 1] = u[(8 * p + 2 * t + 1) ^ swz];
+    for (int p = 0; p < kD / 64; ++p) {
+      x[2 * p] = u[(8 * p + 2 * t) ^ swz];
+      x[2 * p + 1] = u[(8 * p + 2 * t + 1) ^ swz];
+    }
   }
 }
 template <int kD>
 __device__ __forceinline__ void key_chunks(const uint8_t* row, int t, int,
-                                           uint4 (&x)[kD / 32], const int8_t*) {
+                                           uint4 (&x)[frag_dim(kD) / 32],
+                                           const int8_t*) {
+  if constexpr (kD < 64) {
+    x[0] = t < kD / 16 ? reinterpret_cast<const uint4*>(row)[t]
+                       : make_uint4(0, 0, 0, 0);
+  } else {
 #pragma unroll
-  for (int p = 0; p < kD / 64; ++p)
-    x[p] = reinterpret_cast<const uint4*>(row)[4 * p + t];
+    for (int p = 0; p < kD / 64; ++p)
+      x[p] = reinterpret_cast<const uint4*>(row)[4 * p + t];
+  }
 }
 template <int kD>
 __device__ __forceinline__ void key_chunks(const uint8_t* row, int t, int,
-                                           uint4 (&x)[kD / 32], const Int4x2*) {
+                                           uint4 (&x)[frag_dim(kD) / 32],
+                                           const Int4x2*) {
+  static_assert(kD >= 64, "packed int4 K at head dims 64 and 128 only");
   x[0] = reinterpret_cast<const uint4*>(row)[t % (kD / 32)];
 }
 

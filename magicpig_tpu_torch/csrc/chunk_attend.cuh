@@ -9,7 +9,13 @@
 // Layouts as in block_common.cuh: q [B, Hq, d] bf16; K [B, Hkv, S, d]
 // bf16 or int8, or packed int4 [B, Hkv, S, d/2]; V [B, Hkv, S, d] bf16 or
 // int8; row scales [B, Hkv, S] f32 (quantized only); stored scores
-// [B, Hkv, G, S] f32; block ids [B, Hkv, NB'] int32; d (kD) 64 or 128.
+// [B, Hkv, G, S] f32; block ids [B, Hkv, NB'] int32; d (kD) 16, 32, 64 or
+// 128 (below 64 the scores take the scorer's zero-padded fragments, and
+// P.V runs on d / 16 warps, one m-tile each). Group sizes: the exact
+// instances (1, 2, 4 and 8 at d = 64 and 128, and 3 at 128), else the
+// general tile (common.cuh, `Heads`: a block attends at most 8 query heads
+// of its kv head; each sub-group takes its own chunks, partials, ticket
+// and merge).
 //
 // Bound on the H100: reading the selected rows once (K, V and scales, or
 // V and the G stored scores); ~4 flops per byte, so device memory bounds
@@ -78,14 +84,14 @@ constexpr int kMergeBytes = 32 * 1024;  // the merge's batch of partials,
 // phase 2 measured fastest (256 tokens at 11 of 128 blocks, not 512).
 template <int G, int kD>
 __host__ __device__ constexpr int merge_batch(int total) {
-  return total < kMergeBytes * (kD / 64) / (G * (kD + 1) * 4)
+  return total < kMergeBytes * (frag_dim(kD) / 64) / (G * (kD + 1) * 4)
              ? total
-             : kMergeBytes * (kD / 64) / (G * (kD + 1) * 4);
+             : kMergeBytes * (frag_dim(kD) / 64) / (G * (kD + 1) * 4);
 }
 
 // Arguments of one launch (null where the form has none). Partials
-// [nsel * nchunk, B * Hq] (part_o with d values a row); tickets [B * Hkv],
-// 0 between calls.
+// [nsel * nchunk, B * Hq] (part_o with d values a row); tickets [B * Hkv *
+// sub-groups], 0 between calls; group: query heads a kv head.
 struct ChunkArgs {
   const __nv_bfloat16* q;
   const int* blk_ids;
@@ -94,7 +100,7 @@ struct ChunkArgs {
   const int* length;
   float *part_o, *part_lse, *out, *lse;
   int* tickets;
-  int batch, s_cap, hkv, nsel, block_size, chunk;
+  int batch, s_cap, hkv, group, nsel, block_size, chunk;
   float sm_scale;
 };
 
@@ -178,15 +184,19 @@ __device__ __forceinline__ void v_frag(const uint8_t* v_s, int k0, int t,
 }
 
 // KT: the K type (unused when kStored); VT: __nv_bfloat16, or int8_t with
-// the row scales; kD: the head dim, 64 or 128.
-template <int G, typename KT, typename VT, bool kStored, int kD>
+// the row scales; kD: the head dim, 16, 32, 64 or 128; kPart: the general
+// tile (mp::Heads).
+template <int G, typename KT, typename VT, bool kStored, int kD,
+          bool kPart = false>
 __device__ __forceinline__ void chunk_attend(const ChunkArgs& a) {
   constexpr bool kKQ = !kStored && !std::is_same<KT, __nv_bfloat16>::value;
   constexpr bool kVQ = std::is_same<VT, int8_t>::value;
   constexpr int kKRow = kStored ? 0 : key_row_bytes<KT, kD>();
   constexpr int kVRow = kD * static_cast<int>(sizeof(VT));
-  constexpr int kMT = kD / 64;            // P.V m-tiles of 16 dims a warp
+  constexpr int kDP = frag_dim(kD);
+  constexpr int kMT = kD < 64 ? 1 : kD / 64;   // P.V m-tiles of 16 dims a warp
   constexpr int kWarps = kBlkThreads / 32;
+  constexpr int kPVWarps = kD / (16 * kMT);    // warps of the P.V
   extern __shared__ __align__(128) uint8_t chunk_smem_buf[];
   uint8_t* sm = chunk_smem_buf;
   uint64_t* bar = reinterpret_cast<uint64_t*>(sm);
@@ -198,12 +208,15 @@ __device__ __forceinline__ void chunk_attend(const ChunkArgs& a) {
   const ChunkSmem o = chunk_smem(C, G, kKRow, kVRow, kKQ, kVQ);
   const int nch = (a.block_size + C - 1) / C;
   const int part = blockIdx.x, j = part / nch, c = part % nch;
-  const int kh = blockIdx.y, b = blockIdx.z;
+  const int b = blockIdx.z;
+  const Heads<G, kPart> hd(blockIdx.y, a.group);
+  const int kh = hd.kh, gn = hd.gn;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const bool pv_warp = kPVWarps == kWarps || warp < kPVWarps;
   const int r = lane >> 2, t = lane & 3;
-  const int hq = a.hkv * G;
+  const int hq = a.hkv * hd.group;
   const size_t head = static_cast<size_t>(b) * a.hkv + kh;
-  const size_t row0 = static_cast<size_t>(b) * hq + kh * G;
+  const size_t row0 = hd.row(b, a.hkv);
   const size_t stride = static_cast<size_t>(a.batch) * hq;
   const size_t prow = part * stride + row0;
   const int id = selected_block(a.blk_ids, b, kh, j, a.hkv, a.nsel,
@@ -214,9 +227,9 @@ __device__ __forceinline__ void chunk_attend(const ChunkArgs& a) {
   if (id < 0) n = 0;
 
   if (n <= 0) {
-    for (int i = tid; i < G * kD; i += kBlkThreads)
+    for (int i = tid; i < gn * kD; i += kBlkThreads)
       a.part_o[prow * kD + i] = 0.f;
-    if (tid < G) a.part_lse[prow + tid] = kNegInf;
+    if (tid < gn) a.part_lse[prow + tid] = kNegInf;
   } else {
     uint8_t* k_s = sm + o.k;
     uint8_t* v_s = sm + o.v;
@@ -232,14 +245,14 @@ __device__ __forceinline__ void chunk_attend(const ChunkArgs& a) {
       hp::mbar_init(bar, 1);
       hp::fence_barrier_init();
       uint32_t bytes = n * kVRow + (kVQ ? n4 * 4 : 0);
-      bytes += kStored ? G * n * 4 : n * kKRow + (kKQ ? n4 * 4 : 0);
+      bytes += kStored ? gn * n * 4 : n * kKRow + (kKQ ? n4 * 4 : 0);
       hp::mbar_arrive_expect_tx(bar, bytes);
       hp::bulk_load(v_s, static_cast<const uint8_t*>(a.v) + tok0 * kVRow,
                     n * kVRow, bar);
       if (kVQ && n4 > 0) hp::bulk_load(vs_s, a.v_scale + tok0, n4 * 4, bar);
       if constexpr (kStored) {
-        const float* sc = a.scores + head * G * a.s_cap + t0;
-        for (int g = 0; g < G; ++g)
+        const float* sc = a.scores + (head * hd.group + hd.g0) * a.s_cap + t0;
+        for (int g = 0; g < gn; ++g)
           hp::bulk_load(ps + g * sst, sc + static_cast<size_t>(g) * a.s_cap,
                         n * 4, bar);
       } else {
@@ -252,9 +265,9 @@ __device__ __forceinline__ void chunk_attend(const ChunkArgs& a) {
       if (kKQ) ks_s[n4 + tid] = a.k_scale[tok0 + n4 + tid];
       if (kVQ) vs_s[n4 + tid] = a.v_scale[tok0 + n4 + tid];
     }
-    uint32_t qb[kD / 16][2];
+    uint32_t qb[kDP / 16][2];
     if constexpr (!kStored)
-      load_q_frag<G, kD>(a.q + head * G * kD, a.sm_scale, lane, qb);
+      load_q_frag<G, kD>(a.q + row0 * kD, a.sm_scale, lane, qb, gn);
     __syncthreads();                      // the barrier's init, the tails
     hp::mbar_wait(bar, 0);
 
@@ -263,20 +276,20 @@ __device__ __forceinline__ void chunk_attend(const ChunkArgs& a) {
     if constexpr (!kStored) {
 #pragma unroll 2
       for (int m0 = 16 * warp; m0 < n; m0 += 16 * kWarps) {
-        uint4 xa[kD / 32], xb[kD / 32];
+        uint4 xa[kDP / 32], xb[kDP / 32];
         key_chunks<kD>(k_s + (m0 + r) * kKRow, t, 0, xa,
                        static_cast<const KT*>(nullptr));
         key_chunks<kD>(k_s + (m0 + r + 8) * kKRow, t, 0, xb,
                        static_cast<const KT*>(nullptr));
-        uint32_t wa[kD / 8], wb[kD / 8];
-        key_words<kD>(xa, t, wa, static_cast<const KT*>(nullptr));
-        key_words<kD>(xb, t, wb, static_cast<const KT*>(nullptr));
+        uint32_t wa[kDP / 8], wb[kDP / 8];
+        key_words<kDP>(xa, t, wa, static_cast<const KT*>(nullptr));
+        key_words<kDP>(xb, t, wb, static_cast<const KT*>(nullptr));
         float d[4];
-        mma_scores<kD>(wa, wb, qb, d);
+        mma_scores<kDP>(wa, wb, qb, d);
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           const int h = 2 * t + (i & 1), key = m0 + r + 8 * (i >> 1);
-          if (h < G)
+          if (h < gn)
             ps[h * sst + key] =
                 key < n ? score_of(d[i], kKQ ? ks_s[key] : 1.f) : kNegInf;
         }
@@ -285,7 +298,7 @@ __device__ __forceinline__ void chunk_attend(const ChunkArgs& a) {
     }
 
     // ---- one softmax per head; P in bf16, permuted, zero past n.
-    for (int g = warp; g < G; g += kWarps) {
+    for (int g = warp; g < gn; g += kWarps) {
       const float* s = ps + g * sst;
       float mx = kNegInf;
       for (int i = lane; i < n; i += 32) mx = fmaxf(mx, s[i]);
@@ -315,7 +328,8 @@ __device__ __forceinline__ void chunk_attend(const ChunkArgs& a) {
         if (!dead) {
           dead = true;
 #pragma unroll
-          for (int g = 0; g < G; ++g) dead = dead && ps[g * sst + i] == kNegInf;
+          for (int g = 0; g < G; ++g)
+            dead = dead && (g >= gn || ps[g * sst + i] == kNegInf);
         }
         if (dead)
 #pragma unroll
@@ -331,7 +345,7 @@ __device__ __forceinline__ void chunk_attend(const ChunkArgs& a) {
     float d[kMT][2][4] = {};
     const auto pv_step = [&](int k0, int e) {
       uint32_t b0 = 0u, b1 = 0u;
-      if (r < G) {
+      if (r < gn) {
         b0 = pb[r * pst + k0 / 2 + t];
         b1 = pb[r * pst + k0 / 2 + 4 + t];
       }
@@ -343,7 +357,7 @@ __device__ __forceinline__ void chunk_attend(const ChunkArgs& a) {
         mma_bf16_16816(d[mt][e], af, b0, b1);
       }
     };
-    for (int k0 = 0; k0 < n16; k0 += 32) {
+    for (int k0 = 0; pv_warp && k0 < n16; k0 += 32) {
       pv_step(k0, 0);
       if (k0 + 16 < n16) pv_step(k0 + 16, 1);
     }
@@ -356,7 +370,7 @@ __device__ __forceinline__ void chunk_attend(const ChunkArgs& a) {
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int h = 2 * t + e;
-        if (h < G) {
+        if (h < gn && pv_warp) {
           const float l = l_s[h];
           *reinterpret_cast<float2*>(a.part_o + (prow + h) * kD + dim) =
               l > 0.f ? make_float2(d[mt][0][e] / l, d[mt][0][e + 2] / l)
@@ -364,14 +378,14 @@ __device__ __forceinline__ void chunk_attend(const ChunkArgs& a) {
         }
       }
     }
-    if (tid < G)
+    if (tid < gn)
       a.part_lse[prow + tid] =
           l_s[tid] > 0.f ? m_s[tid] + logf(l_s[tid]) : kNegInf;
   }
 
   // ---- the last chunk of this (request, kv head) to finish merges all.
   __syncthreads();
-  if (tid == 0) *is_last = take_ticket(&a.tickets[head], gridDim.x);
+  if (tid == 0) *is_last = take_ticket(&a.tickets[hd.slot(b, a.hkv)], gridDim.x);
   __syncthreads();
   if (!*is_last) return;
   // The partials come into shared memory in batches (merge_batch), one
@@ -393,18 +407,19 @@ __device__ __forceinline__ void chunk_attend(const ChunkArgs& a) {
   }
   for (int p0 = 0; p0 < total; p0 += cap) {
     const int nb = min(cap, total - p0);
-    for (int i = tid; i < nb * G * (kD / 4); i += kBlkThreads) {
-      const int p = i / (G * kD / 4), u = i % (G * kD / 4);
+    for (int i = tid; i < nb * gn * (kD / 4); i += kBlkThreads) {
+      const int p = i / (gn * kD / 4), u = i % (gn * kD / 4);
       hp::cp_async_16(o_st + p * G * kD + 4 * u,
                       a.part_o + ((p0 + p) * stride + row0) * kD + 4 * u);
     }
     // (Read past L1, which may hold stale lines of other blocks' rows.)
     for (int i = tid; i < nb * G; i += kBlkThreads)
-      w_st[i] = __ldcg(a.part_lse + (p0 + i / G) * stride + row0 + i % G);
+      if (i % G < gn)
+        w_st[i] = __ldcg(a.part_lse + (p0 + i / G) * stride + row0 + i % G);
     hp::cp_async_commit();
     hp::cp_async_wait<0>();
     __syncthreads();
-    for (int g = warp; g < G; g += kWarps) {
+    for (int g = warp; g < gn; g += kWarps) {
       float mx = kNegInf;
       for (int p = lane; p < nb; p += 32) mx = fmaxf(mx, w_st[p * G + g]);
       mx = fmaxf(warp_max(mx), m_s[g]);
@@ -427,7 +442,7 @@ __device__ __forceinline__ void chunk_attend(const ChunkArgs& a) {
 #pragma unroll
     for (int i = 0; i < kAcc; ++i) {
       const int idx = tid + i * kBlkThreads;
-      if (idx < G * kD) {
+      if (idx < gn * kD) {
         const int g = idx / kD;
         float x = num[i] * alpha[g];
 #pragma unroll 8
@@ -441,12 +456,12 @@ __device__ __forceinline__ void chunk_attend(const ChunkArgs& a) {
 #pragma unroll
   for (int i = 0; i < kAcc; ++i) {
     const int idx = tid + i * kBlkThreads;
-    if (idx < G * kD) {
+    if (idx < gn * kD) {
       const float l = l_s[idx / kD];
       a.out[row0 * kD + idx] = l > 0.f ? num[i] / l : 0.f;
     }
   }
-  if (tid < G)
+  if (tid < gn)
     a.lse[row0 + tid] = l_s[tid] > 0.f ? m_s[tid] + logf(l_s[tid]) : kNegInf;
 }
 
@@ -456,7 +471,7 @@ __device__ __forceinline__ void chunk_attend(const ChunkArgs& a) {
 // Returns a cudaError_t: cudaErrorInvalidValue where a chunk's rows do
 // not fit a block (bf16 K and V at d = 128 above 256 tokens).
 template <int G, typename KT, typename VT, bool kStored, int kD,
-          typename Kernel>
+          bool kPart, typename Kernel>
 int launch_chunk_attend(Kernel* kernel, const ChunkArgs& a, unsigned& smem_set,
                         cudaStream_t stream) {
   constexpr bool kKQ = !kStored && !std::is_same<KT, __nv_bfloat16>::value;
@@ -472,19 +487,24 @@ int launch_chunk_attend(Kernel* kernel, const ChunkArgs& a, unsigned& smem_set,
   if (smem > kChunkSmemMax) return static_cast<int>(cudaErrorInvalidValue);
   const cudaError_t err = hp::allow_smem(kernel, kChunkSmemMax, smem_set);
   if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid(total, a.hkv, a.batch);
+  dim3 grid(total, a.hkv * (kPart ? group_blocks(a.group) : 1), a.batch);
   kernel<<<grid, kBlkThreads, smem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The sizes every form needs: d = 64 or 128, G in {1, 2, 4, 8} (or 3 at
-// d = 128), block_size a multiple of 64 dividing s_cap, chunk a multiple
-// of 64 up to 512.
+// The sizes every form needs: d = 16, 32, 64 or 128, hq a multiple of
+// hkv, block_size a multiple of 64 dividing s_cap, chunk a multiple of 64
+// up to 512.
+// The general tile of both attends (chunk_attend_part.cu): k_kind a KeyKind
+// (packed int4 at d = 64 and 128), or V int8 / bf16 for the stored scores.
+int rescore_attend_part(int k_kind, int head_dim, const ChunkArgs& a,
+                        cudaStream_t st);
+int block_attend_part(bool v_int8, int head_dim, const ChunkArgs& a,
+                      cudaStream_t st);
+
 inline bool chunk_args_ok(const ChunkArgs& a, int hq, int head_dim) {
   const int g = a.hkv > 0 ? hq / a.hkv : 0;
-  return (head_dim == 64 || head_dim == 128) && g * a.hkv == hq &&
-         (g == 1 || g == 2 || g == 4 || g == 8 ||
-          (g == 3 && head_dim == 128)) && a.nsel > 0 &&
+  return head_dim_ok(head_dim) && g >= 1 && g * a.hkv == hq && a.nsel > 0 &&
          a.block_size > 0 && a.block_size % 64 == 0 &&
          a.s_cap % a.block_size == 0 && a.chunk >= 64 &&
          a.chunk <= kMaxChunk && a.chunk % 64 == 0 && a.tickets != nullptr;

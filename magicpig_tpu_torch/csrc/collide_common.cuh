@@ -129,17 +129,20 @@ __device__ __forceinline__ int scan_stages(const ScanTile& t) {
 }
 
 // Issue stage `stage` into its slot of the ring (every thread calls it): the
-// query bits of its tables at (table, bit, head), then the rows, every
-// thread's copies arriving on the stage's mbarrier.
+// query bits of its tables at (table, bit, head) for the first `gn` heads
+// (G for the exact instances; the general tile's heads past gn have no
+// bits, and their words are garbage that the callers drop), then the rows,
+// every thread's copies arriving on the stage's mbarrier.
 template <int G, int kThreads>
 __device__ __forceinline__ void scan_issue(const ScanTile& t, uint8_t* ring,
-                                           uint64_t* bar, int stage, int tid) {
+                                           uint64_t* bar, int stage, int tid,
+                                           int gn) {
   const int slot = stage % kScanStages;
   uint8_t* dst = ring + slot * scan_stage_bytes(t.K, t.tables, t.nw, G);
   const int r0 = stage * t.tables * t.K;
   const int rows = min(t.tables * t.K, t.L * t.K - r0);
   uint8_t* fl = dst + scan_rows_bytes(t.K, t.tables, t.nw);
-  for (int g = 0; g < G; ++g) {
+  for (int g = 0; g < gn; ++g) {
     const int* q = t.q_bits + static_cast<size_t>(g) * t.L * t.K + r0;
     for (int i = tid; i < rows; i += kThreads)
       hp::cp_async_4(fl + 4 * (i * scan_flip_words(G) + g), q + i);
@@ -178,7 +181,7 @@ __device__ __forceinline__ void scan_issue(const ScanTile& t, uint8_t* ring,
 // end in a __syncthreads before scan_run).
 template <int G, int kThreads>
 __device__ __forceinline__ void scan_begin(const ScanTile& t, uint8_t* ring,
-                                           uint64_t* bar, int tid) {
+                                           uint64_t* bar, int tid, int gn) {
   if (tid == 0) {
     for (int s = 0; s < kScanStages; ++s)   // every thread's copies, and TMA's
       hp::mbar_init(&bar[s], kThreads + (scan_by_tma(t) ? 1 : 0));
@@ -186,7 +189,7 @@ __device__ __forceinline__ void scan_begin(const ScanTile& t, uint8_t* ring,
   }
   __syncthreads();
   const int n = min(kScanStages, scan_stages(t));
-  for (int i = 0; i < n; ++i) scan_issue<G, kThreads>(t, ring, bar, i, tid);
+  for (int i = 0; i < n; ++i) scan_issue<G, kThreads>(t, ring, bar, i, tid, gn);
 }
 
 // The G flip words of one (table, bit), in vector loads.
@@ -222,7 +225,7 @@ __device__ __forceinline__ void load_flips(const uint32_t* p, uint32_t (&f)[G]) 
 template <int G, int kThreads>
 __device__ __forceinline__ void scan_run(const ScanTile& t, uint8_t* ring,
                                          uint64_t* bar, uint32_t* part,
-                                         int tid) {
+                                         int tid, int gn) {
   // Thread (slot, pair): slot tid / (rw / 2) takes the tables l with
   // l % slots == slot, all K bits of its two words (one 8-byte load a bit,
   // the flips' vector load shared by both). A warp reads 32 consecutive
@@ -279,7 +282,8 @@ __device__ __forceinline__ void scan_run(const ScanTile& t, uint8_t* ring,
       }
     }
     __syncthreads();   // the slot is free
-    if (i + kScanStages < nst) scan_issue<G, kThreads>(t, ring, bar, i + kScanStages, tid);
+    if (i + kScanStages < nst)
+      scan_issue<G, kThreads>(t, ring, bar, i + kScanStages, tid, gn);
   }
 #pragma unroll
   for (int g = 0; g < G; ++g)

@@ -75,6 +75,68 @@ __device__ __forceinline__ bool take_ticket(int* ticket, int count) {
   return last;
 }
 
+// ---- Group sizes and head dims of the decode-side kernels.
+//
+// Each kernel has exact instances for the group sizes G = hq / hkv of 1, 2,
+// 4 and 8 at head dims 64 and 128, and 3 at 128 (their code is as it was
+// before the other forms came). Every other form (any G at head dims 16
+// and 32, and the other G at 64 and 128) takes the general tile: an
+// instance at G = kGroupTile with kPart set, which serves any group size
+// with ceil(group / kGroupTile) sub-groups of at most kGroupTile query
+// heads per kv head; a block takes one sub-group (blockIdx.y = kv head *
+// sub-groups + sub-group) and runs the exact instance's code with its
+// heads past `gn` empty (no query read, no selection, no output written).
+constexpr int kGroupTile = 8;
+
+__host__ __device__ inline bool exact_group(int g, int head_dim) {
+  return (head_dim == 64 || head_dim == 128) &&
+         (g == 1 || g == 2 || g == 4 || g == 8 || (g == 3 && head_dim == 128));
+}
+
+__host__ __device__ inline int group_blocks(int group) {
+  return (group + kGroupTile - 1) / kGroupTile;
+}
+
+// The head dims the decode-side kernels take: every one that divides 128
+// from 16 (a bf16 row of at least 32 bytes, an int8 one of 16).
+__host__ __device__ inline bool head_dim_ok(int d) {
+  return d == 16 || d == 32 || d == 64 || d == 128;
+}
+
+// The query heads of one block. Exact instances (kPart false): the kv
+// head's G heads, blockIdx.y the kv head. The general tile (kPart): the
+// sub-group blockIdx.y % blocks of kv head blockIdx.y / blocks, `group`
+// heads a kv head. `slot` (b * hkv * blocks + blockIdx.y) numbers the
+// block's (request, kv head, sub-group) for the merge tickets.
+template <int G, bool kPart>
+struct Heads {
+  int kh, group, g0, gn;
+  __device__ __forceinline__ Heads(int y, int group_) {
+    if constexpr (kPart) {
+      const int blocks = group_blocks(group_);
+      kh = y / blocks;
+      group = group_;
+      g0 = (y % blocks) * G;
+      gn = min(G, group_ - g0);
+    } else {
+      kh = y;
+      group = G;
+      g0 = 0;
+      gn = G;
+    }
+  }
+  // Row of the block's first query head in [B * Hq].
+  __device__ __forceinline__ size_t row(int b, int hkv) const {
+    return (static_cast<size_t>(b) * hkv + kh) * group + g0;
+  }
+  // The block's merge ticket: one per (request, kv head, sub-group).
+  __device__ __forceinline__ int slot(int b, int hkv) const {
+    if constexpr (kPart)
+      return b * static_cast<int>(gridDim.y) + static_cast<int>(blockIdx.y);
+    return b * hkv + kh;
+  }
+};
+
 // Eight bf16 values (one 16-byte vector) dotted with eight f32 values.
 __device__ __forceinline__ float dot8(const uint4& kv, const float* q) {
   const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&kv);

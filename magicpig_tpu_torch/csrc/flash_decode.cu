@@ -12,8 +12,12 @@
 // Bound on the H100: reading K and V once, 256 bytes per token and kv head
 // at d = 64 in bf16 (512 at d = 128), 136 in int8 (rows and scales; 264 at
 // d = 128), over 3.35 TB/s; the arithmetic is ~2 flops per byte. Head dims
-// 64 and 128, bf16 and int8, are instances of one template (an int8 row at
-// d = 128 is 128 bytes, as a bf16 one at d = 64: the same ring). Design,
+// 16, 32, 64 and 128, bf16 and int8, are instances of one template (an
+// int8 row at d = 128 is 128 bytes, as a bf16 one at d = 64: the same
+// ring; at d = 16 a token's dims take 2 lanes, 16 tokens a pass). Group
+// sizes: the exact instances and the general tile (common.cuh, `Heads`: a
+// block takes at most 8 query heads of its kv head; the heads past `gn`
+// hold a zero query and write nothing; a ticket per sub-group). Design,
 // one block per (split, kv head, request), the split size chosen by the
 // wrapper from the capacity and the SM count (`chunk`, a multiple of 64
 // tokens):
@@ -95,11 +99,12 @@ __device__ __forceinline__ void load8(const int8_t* p, float (&x)[8]) {
 }
 
 // T: __nv_bfloat16, or int8_t with the row scales k_scale, v_scale [B,
-// Hkv, S] (null for bf16). kD: the head dim, 64 or 128. start_row [B]:
+// Hkv, S] (null for bf16). kD: the head dim, 16, 32, 64 or 128. kPart: the
+// general tile (mp::Heads), `group` query heads a kv head. start_row [B]:
 // each request's first row (null: 0). part_o [nsplit, B * Hq, kD] and
 // part_lse [nsplit, B * Hq] hold the partials of requests with more than
-// one active split; tickets [B * Hkv] is 0 between calls.
-template <int G, typename T, int kD>
+// one active split; tickets [B * Hkv * sub-groups] is 0 between calls.
+template <int G, typename T, int kD, bool kPart>
 __global__ void __launch_bounds__(kThreads)
 flash_decode_kernel(const __nv_bfloat16* __restrict__ q,
                     const T* __restrict__ k, const T* __restrict__ v,
@@ -110,12 +115,14 @@ flash_decode_kernel(const __nv_bfloat16* __restrict__ q,
                     float* __restrict__ part_o,
                     float* __restrict__ part_lse, int* __restrict__ tickets,
                     float* __restrict__ out, float* __restrict__ lse,
-                    int batch, int s_cap, int hkv, int chunk,
+                    int batch, int s_cap, int hkv, int group, int chunk,
                     float scale_log2) {
   constexpr bool kQ = std::is_same<T, int8_t>::value;
   constexpr int kC = kD / 8;          // lanes of a token: 8 dims each
   constexpr int kR = 32 / kC;         // tokens of a pass
   constexpr int kP = 16 / kR;         // passes over a warp's 16 tokens
+  // Passes a softmax update takes (1 and 2 at d = 16 and 32).
+  constexpr int kGP = kP < kGroupPasses ? kP : kGroupPasses;
   constexpr int kTileBytes = tile_bytes<T, kD>();
   extern __shared__ __align__(128) uint8_t smem[];
   __shared__ __align__(8) uint64_t full[kStages], empty[kStages];
@@ -123,19 +130,21 @@ flash_decode_kernel(const __nv_bfloat16* __restrict__ q,
   __shared__ float red_o[kWarps][G][kD];
   __shared__ int is_last;
 
-  const int split = blockIdx.x, kh = blockIdx.y, b = blockIdx.z;
+  const int split = blockIdx.x, b = blockIdx.z;
+  const mp::Heads<G, kPart> hd(blockIdx.y, group);
+  const int kh = hd.kh, gn = hd.gn;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int hq = hkv * G;
+  const int hq = hkv * hd.group;
   const int len = max(min(length[b], s_cap), 0);
   const int lo = start_row == nullptr ? 0 : min(max(start_row[b], 0), len);
   const int first = lo / chunk;                   // first split with rows
   const int n_act = lo < len ? (len + chunk - 1) / chunk - first : 0;
-  const size_t row = static_cast<size_t>(b) * hq + kh * G;  // first head row
+  const size_t row = hd.row(b, hkv);              // first head row
   if (split < first || split >= first + n_act) {
     if (n_act == 0 && split == 0)                 // an empty range
-      for (int i = tid; i < G * kD; i += kThreads) {
+      for (int i = tid; i < gn * kD; i += kThreads) {
         out[row * kD + i] = 0.f;
-        if (i < G) lse[row + i] = mp::kNegInf;
+        if (i < gn) lse[row + i] = mp::kNegInf;
       }
     return;
   }
@@ -186,7 +195,12 @@ flash_decode_kernel(const __nv_bfloat16* __restrict__ q,
     float qf[G][8];
 #pragma unroll
     for (int g = 0; g < G; ++g) {
-      load8(q + (row + g) * kD + 8 * c, qf[g]);
+      if (g < gn) {
+        load8(q + (row + g) * kD + 8 * c, qf[g]);
+      } else {                                    // the general tile's empty heads
+#pragma unroll
+        for (int j = 0; j < 8; ++j) qf[g][j] = 0.f;
+      }
 #pragma unroll
       for (int j = 0; j < 8; ++j) qf[g][j] *= scale_log2;
     }
@@ -217,10 +231,10 @@ flash_decode_kernel(const __nv_bfloat16* __restrict__ q,
       const T* kt = reinterpret_cast<const T*>(k_s + s * kTileBytes);
       const T* vt = reinterpret_cast<const T*>(v_s + s * kTileBytes);
 #pragma unroll
-      for (int p0 = 0; p0 < kP; p0 += kGroupPasses) {
-        float sc[G][kGroupPasses];
+      for (int p0 = 0; p0 < kP; p0 += kGP) {
+        float sc[G][kGP];
 #pragma unroll
-        for (int p = 0; p < kGroupPasses; ++p) {
+        for (int p = 0; p < kGP; ++p) {
           float kx[8];
           load8(kt + (tok + kR * (p0 + p)) * kD + 8 * c, kx);
 #pragma unroll
@@ -234,7 +248,7 @@ flash_decode_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
         for (int g = 0; g < G; ++g)
 #pragma unroll
-          for (int p = 0; p < kGroupPasses; ++p) {
+          for (int p = 0; p < kGP; ++p) {
             float a = sc[g][p];
 #pragma unroll
             for (int off = 1; off < kC; off <<= 1)
@@ -245,7 +259,13 @@ flash_decode_kernel(const __nv_bfloat16* __restrict__ q,
         // hold the same values, the kR tokens of a pass are lanes kC apart.
 #pragma unroll
         for (int g = 0; g < G; ++g) {
-          float mx = fmaxf(fmaxf(sc[g][0], sc[g][1]), fmaxf(sc[g][2], sc[g][3]));
+          float mx = sc[g][0];
+          if constexpr (kGP == 4) {
+            mx = fmaxf(fmaxf(sc[g][0], sc[g][1]), fmaxf(sc[g][2], sc[g][3]));
+          } else {
+#pragma unroll
+            for (int p = 1; p < kGP; ++p) mx = fmaxf(mx, sc[g][p]);
+          }
 #pragma unroll
           for (int off = kC; off < 32; off <<= 1)
             mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
@@ -254,7 +274,7 @@ flash_decode_kernel(const __nv_bfloat16* __restrict__ q,
           const float al = hp::ex2(m[g] - mu);
           float ps = 0.f;
 #pragma unroll
-          for (int p = 0; p < kGroupPasses; ++p) {
+          for (int p = 0; p < kGP; ++p) {
             sc[g][p] = hp::ex2(sc[g][p] - mu);
             ps += sc[g][p];
           }
@@ -267,7 +287,7 @@ flash_decode_kernel(const __nv_bfloat16* __restrict__ q,
           for (int j = 0; j < 8; ++j) acc[g][j] *= al;
         }
 #pragma unroll
-        for (int p = 0; p < kGroupPasses; ++p) {
+        for (int p = 0; p < kGP; ++p) {
           float vx[8];
           load8(vt + (tok + kR * (p0 + p)) * kD + 8 * c, vx);
 #pragma unroll
@@ -309,7 +329,7 @@ flash_decode_kernel(const __nv_bfloat16* __restrict__ q,
   // The block's (out / l, natural-log lse) per head; partials numbered
   // from the first active split.
   const size_t part = static_cast<size_t>(split - first) * batch * hq + row;
-  for (int idx = tid; idx < G * kD; idx += kThreads) {
+  for (int idx = tid; idx < gn * kD; idx += kThreads) {
     const int g = idx / kD;
     float mx = mp::kNegInf;
 #pragma unroll
@@ -339,8 +359,9 @@ flash_decode_kernel(const __nv_bfloat16* __restrict__ q,
   __threadfence();
   __syncthreads();
   if (tid == 0) {
-    is_last = atomicAdd(&tickets[head], 1) == n_act - 1;
-    if (is_last) atomicExch(&tickets[head], 0);
+    const int ti = hd.slot(b, hkv);
+    is_last = atomicAdd(&tickets[ti], 1) == n_act - 1;
+    if (is_last) atomicExch(&tickets[ti], 0);
   }
   __syncthreads();
   if (!is_last) return;
@@ -348,7 +369,7 @@ flash_decode_kernel(const __nv_bfloat16* __restrict__ q,
   // One pass over the partials with a running max; loads of 8 splits at a
   // time in flight (every active split has a token: its lse is finite).
   const size_t split_stride = static_cast<size_t>(batch) * hq;
-  for (int idx = tid; idx < G * kD; idx += kThreads) {
+  for (int idx = tid; idx < gn * kD; idx += kThreads) {
     const int g = idx / kD;
     float mx = mp::kNegInf, acc = 0.f, denom = 0.f;
 #pragma unroll 8
@@ -367,28 +388,28 @@ flash_decode_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-template <int G, typename T, int kD>
+template <int G, typename T, int kD, bool kPart>
 int launch_decode(const void* q, const void* k, const void* v,
                   const void* k_scale, const void* v_scale,
                   const void* length, const void* start_row, void* part_o,
                   void* part_lse, void* tickets, void* out, void* lse,
-                  int batch, int s_cap, int hkv, int chunk, float sm_scale,
-                  cudaStream_t stream) {
+                  int batch, int s_cap, int hkv, int group, int chunk,
+                  float sm_scale, cudaStream_t stream) {
   static unsigned smem_set = 0;
+  auto* kernel = flash_decode_kernel<G, T, kD, kPart>;
   const cudaError_t err =
-      hp::allow_smem(flash_decode_kernel<G, T, kD>, smem_bytes<T, kD>(),
-                     smem_set);
+      hp::allow_smem(kernel, smem_bytes<T, kD>(), smem_set);
   if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid((s_cap + chunk - 1) / chunk, hkv, batch);
-  flash_decode_kernel<G, T, kD>
-      <<<grid, kThreads, smem_bytes<T, kD>(), stream>>>(
+  const int blocks = kPart ? mp::group_blocks(group) : 1;
+  dim3 grid((s_cap + chunk - 1) / chunk, hkv * blocks, batch);
+  kernel<<<grid, kThreads, smem_bytes<T, kD>(), stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const float*>(k_scale),
       static_cast<const float*>(v_scale), static_cast<const int*>(length),
       static_cast<const int*>(start_row), static_cast<float*>(part_o),
       static_cast<float*>(part_lse),
       static_cast<int*>(tickets), static_cast<float*>(out),
-      static_cast<float*>(lse), batch, s_cap, hkv, chunk,
+      static_cast<float*>(lse), batch, s_cap, hkv, group, chunk,
       sm_scale * mp::kLog2e);
   return static_cast<int>(cudaGetLastError());
 }
@@ -396,9 +417,12 @@ int launch_decode(const void* q, const void* k, const void* v,
 }  // namespace
 
 // k_scale and v_scale null: bf16 K/V; both set: int8 K/V with those
-// per-token scales [B, Hkv, S]. head_dim: 64 or 128. hq / hkv: 1, 2, 4 or
-// 8, or 3 at head dim 128. start_row: [B] int32 first rows, or null for 0.
-// `chunk`: tokens per split, a positive multiple of 64.
+// per-token scales [B, Hkv, S]. head_dim: 16, 32, 64 or 128; hq a multiple
+// of hkv (the exact instances at hq / hkv 1, 2, 4 and 8, and 3 at head dim
+// 128; every other form the general tile). start_row: [B] int32 first
+// rows, or null for 0. `chunk`: tokens per split, a positive multiple of
+// 64. tickets: [B * Hkv * ceil(hq / hkv / 8)] (B * Hkv for the exact
+// instances).
 extern "C" int mp_flash_decode(const void* q, const void* k, const void* v,
                                const void* k_scale, const void* v_scale,
                                const void* length, const void* start_row,
@@ -408,35 +432,43 @@ extern "C" int mp_flash_decode(const void* q, const void* k, const void* v,
                                int hkv, int head_dim, int chunk,
                                float sm_scale, void* stream) {
   const bool quant = k_scale != nullptr;
-  if ((head_dim != 64 && head_dim != 128) || hkv <= 0 ||
+  if (!mp::head_dim_ok(head_dim) || hkv <= 0 || hq < hkv ||
       hq % hkv != 0 || chunk <= 0 || chunk % kTile != 0 ||
       (k_scale == nullptr) != (v_scale == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   if (batch == 0 || s_cap == 0) return static_cast<int>(cudaSuccess);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define MP_DECODE_FORM(G, T, D)                                              \
-  launch_decode<G, T, D>(q, k, v, k_scale, v_scale, length, start_row,       \
-                         part_o, part_lse, tickets, out, lse, batch, s_cap,  \
-                         hkv, chunk, sm_scale, st)
+  const int g = hq / hkv;
+#define MP_DECODE_FORM(G, T, D, P)                                           \
+  launch_decode<G, T, D, P>(q, k, v, k_scale, v_scale, length, start_row,    \
+                            part_o, part_lse, tickets, out, lse, batch,      \
+                            s_cap, hkv, g, chunk, sm_scale, st)
+#define MP_DECODE_TYPES(G, D, P)                                             \
+  (quant ? MP_DECODE_FORM(G, int8_t, D, P)                                   \
+         : MP_DECODE_FORM(G, __nv_bfloat16, D, P))
+  if (!mp::exact_group(g, head_dim)) {
+    switch (head_dim) {
+      case 16: return MP_DECODE_TYPES(mp::kGroupTile, 16, true);
+      case 32: return MP_DECODE_TYPES(mp::kGroupTile, 32, true);
+      case 64: return MP_DECODE_TYPES(mp::kGroupTile, 64, true);
+      default: return MP_DECODE_TYPES(mp::kGroupTile, 128, true);
+    }
+  }
 #define MP_DECODE_CASE(G)                                                    \
   case G:                                                                    \
-    if (head_dim == 128)                                                     \
-      return quant ? MP_DECODE_FORM(G, int8_t, 128)                          \
-                   : MP_DECODE_FORM(G, __nv_bfloat16, 128);                  \
-    return quant ? MP_DECODE_FORM(G, int8_t, 64)                             \
-                 : MP_DECODE_FORM(G, __nv_bfloat16, 64);
-  switch (hq / hkv) {
+    if (head_dim == 128) return MP_DECODE_TYPES(G, 128, false);              \
+    return MP_DECODE_TYPES(G, 64, false);
+  switch (g) {
     MP_DECODE_CASE(1)
     MP_DECODE_CASE(2)
-    case 3:   // Llama-3.2-3B's 24 query heads over 8: head dim 128 only
-      if (head_dim != 128) return static_cast<int>(cudaErrorInvalidValue);
-      return quant ? MP_DECODE_FORM(3, int8_t, 128)
-                   : MP_DECODE_FORM(3, __nv_bfloat16, 128);
+    case 3:   // Llama-3.2-3B's 24 query heads over 8: head dim 128 (exact_group)
+      return MP_DECODE_TYPES(3, 128, false);
     MP_DECODE_CASE(4)
     MP_DECODE_CASE(8)
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef MP_DECODE_CASE
+#undef MP_DECODE_TYPES
 #undef MP_DECODE_FORM
 }
 

@@ -9,10 +9,13 @@
 // GFLOP of attention per layer against ~50 MB of q/k/v/out, at
 // Llama-3.1-8B width (d = 128) twice both, so the kernel is compute-bound
 // and has to run on the tensor cores at the warpgroup rate. One template
-// for head dims 64 and 128: a tile's rows are d * 2 bytes, and the
+// for head dims 16, 32, 64 and 128: a tile's rows are d * 2 bytes, and the
 // 128-byte swizzle spans 64 columns, so a tile is d / 64 column halves of
 // 128-byte rows, each its own TMA box and swizzle pattern (16 KB for 128
-// rows) placed one after the other.
+// rows) placed one after the other. Below d = 64 a tile is one such half:
+// its TMA box of 64 columns reads the d columns of each row and fills the
+// rest with zeros (columns past the tensor's d), S takes d / 16 k-steps,
+// and P.V runs over the 64 columns, of which the output keeps the first d.
 // Design, one block per (128 queries, query head, request), 384 threads:
 //  - a producer warpgroup (40 registers after setmaxnreg) whose first
 //    thread brings the Q tile and then 128-key K and V tiles by TMA, with
@@ -47,10 +50,16 @@ constexpr int kStages = 2;
 constexpr int kThreads = 384;                   // producer + 2 consumers
 constexpr uint32_t kHalfBytes = kBN * 64 * 2;   // 64 columns of a tile: 16 KB
 
-// A K, V or Q tile of head dim kD: kD / 64 column halves.
+// Column halves of a tile of head dim kD: kD / 64, and one below 64.
+template <int kD>
+__host__ __device__ constexpr int halves() {
+  return kD < 64 ? 1 : kD / 64;
+}
+
+// A K, V or Q tile of head dim kD.
 template <int kD>
 __host__ __device__ constexpr uint32_t tile_bytes() {
-  return kHalfBytes * (kD / 64);
+  return kHalfBytes * halves<kD>();
 }
 
 template <int kD>
@@ -68,7 +77,7 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap tm_q,
                      __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
                      int sq, int skv, int hq, int hkv, int window,
                      int n_qtiles, float scale_log2) {
-  constexpr int kHalves = kD / 64;
+  constexpr int kHalves = halves<kD>();
   constexpr uint32_t kTileBytes = tile_bytes<kD>();
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t q_full;
@@ -350,16 +359,17 @@ int launch_prefill(const CUtensorMap& tm_q, const CUtensorMap& tm_k,
 
 }  // namespace
 
-// head_dim: 64 or 128.
+// head_dim: 16, 32, 64 or 128.
 extern "C" int mp_flash_prefill(const void* q, const void* k, const void* v,
                                 const void* length, const void* q_offset,
                                 void* out, void* lse, int batch, int sq,
                                 int skv, int hq, int hkv, int head_dim,
                                 int window, float sm_scale, void* stream) {
-  if ((head_dim != 64 && head_dim != 128) || hkv <= 0 || hq % hkv != 0 ||
+  if (!mp::head_dim_ok(head_dim) || hkv <= 0 || hq % hkv != 0 ||
       batch <= 0 || sq <= 0 || skv < 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  // Boxes of 64 columns (one 128-byte swizzle span) by 128 rows.
+  // Boxes of 64 columns (one 128-byte swizzle span) by 128 rows; at d = 16
+  // and 32 the columns past d come zero-filled.
   const uint32_t box[4] = {64, 1, kBN, 1};
   CUtensorMap tm_q, tm_k, tm_v;
   const uint64_t d = static_cast<uint64_t>(head_dim);
@@ -379,10 +389,14 @@ extern "C" int mp_flash_prefill(const void* q, const void* k, const void* v,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return head_dim == 64
-             ? launch_prefill<64>(tm_q, tm_k, tm_v, length, q_offset, out, lse,
-                                  batch, sq, skv, hq, hkv, window, sm_scale, st)
-             : launch_prefill<128>(tm_q, tm_k, tm_v, length, q_offset, out,
-                                   lse, batch, sq, skv, hq, hkv, window,
-                                   sm_scale, st);
+#define MP_PREFILL(D)                                                        \
+  launch_prefill<D>(tm_q, tm_k, tm_v, length, q_offset, out, lse, batch, sq, \
+                    skv, hq, hkv, window, sm_scale, st)
+  switch (head_dim) {
+    case 16: return MP_PREFILL(16);
+    case 32: return MP_PREFILL(32);
+    case 64: return MP_PREFILL(64);
+    default: return MP_PREFILL(128);
+  }
+#undef MP_PREFILL
 }

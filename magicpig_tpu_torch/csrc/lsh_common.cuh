@@ -8,13 +8,21 @@
 // weighted V sum over the sampled rows only, the sampled count, and the
 // merge of the splits.
 //
-// Head dims 64 and 128 (Llama-3.1-8B's and Llama-3.2-3B's decode), both
-// kernels, are instances of one template; a gathered row is d * 2 bytes of
-// bf16 (d of int8), and P.V gives each of the four warps d / 4 output
-// dims. Group sizes 1, 2, 4 and 8 at both head dims, and 3 (Llama-3.2-3B:
-// 24 query heads over 8) at 128 only: every per-head loop runs to G, the
-// P.V's and the merge's head rows past G are zero or unwritten, and the
-// scan pads a bit's three flip words to four (collide_common.cuh).
+// Head dims 16, 32, 64 and 128, both kernels, are instances of one
+// template; a gathered row is d * 2 bytes of bf16 (d of int8; 16 bytes,
+// one swizzled unit, for int8 at d = 16), and P.V gives each warp 8 or
+// more output dims (d / 4 at 64 and 128; at d = 16 two warps take 8 each
+// and the other two idle). Exact instances at group sizes 1, 2, 4 and 8 at
+// head dims 64 and 128, and 3 (Llama-3.2-3B: 24 query heads over 8) at 128:
+// every per-head loop runs to G, the P.V's and the merge's head rows past
+// G are zero or unwritten, and the scan pads a bit's three flip words to
+// four (collide_common.cuh). Every other form takes the general tile
+// (common.cuh, `Heads`): an instance at G = 8 whose block serves at most 8
+// query heads of its kv head (a group of 16: two blocks, each gathering
+// its own rows), the heads past `gn` with no selection, so that they
+// sample nothing and write nothing, and the debias form read from the
+// arguments (kAnyDebias), so that one instance a K/V type, head dim and
+// kernel serves all three.
 //
 // K/V come bf16, or int8 with per-token f32 scales (the TPU kernels'
 // quant=True form: the raw score is q . K_int8 times the K scale, the
@@ -76,8 +84,9 @@ constexpr int kMaxDynSmem = 227 * 1024;  // a block's most on the H100
 constexpr int kScanRingBytes = 40 * 1024;  // the fused scan's ring: the size
                                            // of a pass's bf16 rows at d = 64
 
-// Debias forms (LSHConfig.lsh_debias), a template parameter of the kernel.
-enum Debias : int { kExact = 0, kPoly = 1, kNone = 2 };
+// Debias forms (LSHConfig.lsh_debias), a template parameter of the kernel;
+// kAnyDebias: the form in LshArgs::debias (the general tile's instances).
+enum Debias : int { kExact = 0, kPoly = 1, kNone = 2, kAnyDebias = 3 };
 
 struct PolyCoef {
   float c[kPolyTerms];   // power basis, low degree first
@@ -88,14 +97,15 @@ struct PolyCoef {
 // scan_tma is set, and scan_tables tables a ring stage), or words
 // [B, Hq, S/32] (the other pointers null). k_scale, v_scale [B, Hkv, S]:
 // int8 K/V only. Partials [nsplit, B * Hq] (part_o with d values a row);
-// tickets [B * Hkv], 0 between calls.
+// tickets [B * Hkv * sub-groups], 0 between calls. group: query heads a kv
+// head; debias: the form, read where the kernel's is kAnyDebias.
 struct LshArgs {
   CUtensorMap plane_map;
   const void *q, *k, *v, *k_scale, *v_scale, *k_norm;
   const int *planes, *q_bits, *words, *length;
   float *part_o, *part_lse, *part_cnt, *out, *lse, *cnt;
   int* tickets;
-  int batch, s_cap, hkv, K, L, split, scan_tables, scan_tma;
+  int batch, s_cap, hkv, group, debias, K, L, split, scan_tables, scan_tma;
   float sm_scale;
   PolyCoef poly;
 };
@@ -191,8 +201,9 @@ __device__ __forceinline__ uint32_t bf16_bits(int8_t x) {
 
 // T: __nv_bfloat16, or int8_t with the row scales. kDebias: a Debias
 // form. kWords: selection words given (else scanned from the planes). kD:
-// the head dim.
-template <int G, typename T, int kDebias, bool kWords, int kD>
+// the head dim. kPart: the general tile (mp::Heads).
+template <int G, typename T, int kDebias, bool kWords, int kD,
+          bool kPart = false>
 __global__ void __launch_bounds__(kLshThreads)
 lsh_split_kernel(const __grid_constant__ LshArgs a) {
   constexpr bool kQ = std::is_same<T, int8_t>::value;
@@ -200,24 +211,30 @@ lsh_split_kernel(const __grid_constant__ LshArgs a) {
   constexpr int kRowBytes = Smem::kRowBytes;
   constexpr int kUnits = kRowBytes / 16;
   constexpr int kWarps = kLshThreads / 32;
-  constexpr int kNT = kD / (8 * kWarps);      // P.V n-tiles of 8 a warp
+  // Warps of the P.V (two at d = 16) and their n-tiles of 8 output dims.
+  constexpr int kPVWarps = kD / 8 < kWarps ? kD / 8 : kWarps;
+  constexpr int kNT = kD / (8 * kPVWarps);
   extern __shared__ __align__(128) uint8_t lsh_smem[];
   Smem& sm = *reinterpret_cast<Smem*>(lsh_smem);
 
-  const int split = blockIdx.x, kh = blockIdx.y, b = blockIdx.z;
+  const int split = blockIdx.x, b = blockIdx.z;
+  const Heads<G, kPart> hd(blockIdx.y, a.group);
+  const int kh = hd.kh, gn = hd.gn;
+  const int debias = kDebias == kAnyDebias ? a.debias : kDebias;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const bool pv_warp = kPVWarps == kWarps || warp < kPVWarps;
   const int K = a.K, L = a.L, s_cap = a.s_cap;
   const int nw = a.split / 32;
-  const int hq = a.hkv * G;
+  const int hq = a.hkv * hd.group;
   const int words = s_cap / 32;
   const int len = min(a.length[b], s_cap);
   const int n_act = (len + a.split - 1) / a.split;   // splits with tokens
-  const size_t row = static_cast<size_t>(b) * hq + kh * G;  // first head's
+  const size_t row = hd.row(b, a.hkv);               // first head's
   if (split >= n_act) {
     if (split == 0)                                  // an empty request
-      for (int i = tid; i < G * kD; i += kLshThreads) {
+      for (int i = tid; i < gn * kD; i += kLshThreads) {
         a.out[row * kD + i] = 0.f;
-        if (i < G) {
+        if (i < gn) {
           a.lse[row + i] = kNegInf;
           a.cnt[row + i] = 0.f;
         }
@@ -242,7 +259,7 @@ lsh_split_kernel(const __grid_constant__ LshArgs a) {
     tile.K = K;
     tile.L = L;
     tile.tables = a.scan_tables;
-    scan_begin<G, kLshThreads>(tile, sm.u.ring, sm.scan_bar, tid);
+    scan_begin<G, kLshThreads>(tile, sm.u.ring, sm.scan_bar, tid, gn);
   }
 
   // Query: raw f32 values (the debias needs the unscaled dot) and norms;
@@ -250,12 +267,12 @@ lsh_split_kernel(const __grid_constant__ LshArgs a) {
   // stages).
   const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(a.q);
   for (int i = tid; i < G * kD; i += kLshThreads)
-    sm.qf[i / kD][i % kD] = __bfloat162float(q[row * kD + i]);
+    sm.qf[i / kD][i % kD] = i < gn * kD ? __bfloat162float(q[row * kD + i]) : 0.f;
   if constexpr (kWords) {
     for (int i = tid; i < G * nw; i += kLshThreads) {
       const int g = i / nw, w = i % nw, first = start + 32 * w;
       uint32_t t = 0u;
-      if (first < stop)
+      if (first < stop && g < gn)
         t = static_cast<uint32_t>(a.words[(row + g) * words + first / 32]) &
             valid_bits(first, stop);
       sm.sel[g][w] = t;
@@ -277,11 +294,13 @@ lsh_split_kernel(const __grid_constant__ LshArgs a) {
   // ---- the scan's selection words, ANDed with the split's valid tokens.
   if constexpr (!kWords) {
     scan_run<G, kLshThreads>(tile, sm.u.ring, sm.scan_bar, sm.u.scan_part,
-                             tid);
+                             tid, gn);
     for (int i = tid; i < G * nw; i += kLshThreads) {
       const int g = i / nw, w = i % nw;
-      sm.sel[g][w] = scan_word<G, kLshThreads>(sm.u.scan_part, nw, g, w) &
-                     valid_bits(start + 32 * w, stop);
+      sm.sel[g][w] = g < gn ? scan_word<G, kLshThreads>(sm.u.scan_part, nw,
+                                                        g, w) &
+                                  valid_bits(start + 32 * w, stop)
+                            : 0u;
     }
     __syncthreads();
   }
@@ -406,7 +425,7 @@ lsh_split_kernel(const __grid_constant__ LshArgs a) {
     }
     for (int rr = tid; rr < nr; rr += kLshThreads) {
       const size_t tok = start + sm.rowtok[rr];
-      if (kDebias != kNone) hp::cp_async_4(&sm.knorm[rr], n_h + tok);
+      if (debias != kNone) hp::cp_async_4(&sm.knorm[rr], n_h + tok);
       if (kQ) {
         hp::cp_async_4(&sm.ksc[rr], ks_h + tok);
         hp::cp_async_4(&sm.vsc[rr], vs_h + tok);
@@ -426,10 +445,10 @@ lsh_split_kernel(const __grid_constant__ LshArgs a) {
                               static_cast<const T*>(nullptr));
       if constexpr (kQ) raw *= sm.ksc[slot];
       float log_w = 0.f;                       // the none form
-      if constexpr (kDebias != kNone) {
+      if (debias != kNone) {
         float c = raw / fmaxf(sm.qnorm[g] * sm.knorm[slot], 1e-20f);
         c = fminf(fmaxf(c, -1.f), 1.f);
-        if constexpr (kDebias == kPoly) {
+        if (debias == kPoly) {
           log_w = a.poly.c[kPolyTerms - 1];
 #pragma unroll
           for (int t = kPolyTerms - 2; t >= 0; --t)
@@ -481,7 +500,7 @@ lsh_split_kernel(const __grid_constant__ LshArgs a) {
     // 16 a k-step (rows past nr read as zero).
     const T* vbuf = reinterpret_cast<const T*>(sm.u.rows.v);
     float d[kNT][4] = {};
-    for (int k0 = 0; k0 < nr; k0 += 16) {
+    for (int k0 = 0; pv_warp && k0 < nr; k0 += 16) {
       const int ka = k0 + 2 * pt;
       uint32_t af[4] = {0u, 0u, 0u, 0u};     // rows 8..15 of P are zero
       if (pr < G) {
@@ -512,9 +531,9 @@ lsh_split_kernel(const __grid_constant__ LshArgs a) {
   }
 
   // ---- the split's normalised output and natural-log LSE, per head.
-  const size_t part = (static_cast<size_t>(split) * a.batch + b) * hq + kh * G;
+  const size_t part = static_cast<size_t>(split) * a.batch * hq + row;
   float* o_dst = n_act == 1 ? a.out + row * kD : a.part_o + part * kD;
-  if (pr < G) {
+  if (pr < gn && pv_warp) {
     const float li = sm.l[pr];
 #pragma unroll
     for (int nt = 0; nt < kNT; ++nt)
@@ -523,7 +542,7 @@ lsh_split_kernel(const __grid_constant__ LshArgs a) {
           li > 0.f ? make_float2(acc[nt][0] / li, acc[nt][1] / li)
                    : make_float2(0.f, 0.f);
   }
-  if (tid < G) {
+  if (tid < gn) {
     const float li = sm.l[tid];
     const float lse = li > 0.f ? sm.m[tid] * kLn2 + logf(li) : kNegInf;
     const float cnt = static_cast<float>(sm.hbase[tid][nw]);
@@ -541,7 +560,7 @@ lsh_split_kernel(const __grid_constant__ LshArgs a) {
   __threadfence();
   __syncthreads();
   if (tid == 0) {
-    const int ti = b * a.hkv + kh;
+    const int ti = hd.slot(b, a.hkv);
     sm.is_last = atomicAdd(&a.tickets[ti], 1) == n_act - 1;
     if (sm.is_last) atomicExch(&a.tickets[ti], 0);
   }
@@ -571,12 +590,13 @@ lsh_split_kernel(const __grid_constant__ LshArgs a) {
   }
   for (int sp0 = 0; sp0 < n_act; sp0 += kBatch) {
     const int nsp = min(kBatch, n_act - sp0);
-    for (int c = tid; c < nsp * G * (kD / 4); c += kLshThreads) {
-      const int sp = c / (G * kD / 4), u = c % (G * kD / 4);
+    for (int c = tid; c < nsp * gn * (kD / 4); c += kLshThreads) {
+      const int sp = c / (gn * kD / 4), u = c % (gn * kD / 4);
       hp::cp_async_16(o_st + sp * G * kD + 4 * u,
                       a.part_o + ((sp0 + sp) * stride + row) * kD + 4 * u);
     }
     for (int c = tid; c < nsp * G; c += kLshThreads) {
+      if (c % G >= gn) continue;
       const size_t pi = (sp0 + c / G) * stride + row + c % G;
       hp::cp_async_4(w_st + c, a.part_lse + pi);
       hp::cp_async_4(cnt_st + c, a.part_cnt + pi);
@@ -584,7 +604,7 @@ lsh_split_kernel(const __grid_constant__ LshArgs a) {
     hp::cp_async_commit();
     hp::cp_async_wait<0>();
     __syncthreads();
-    for (int g = warp; g < G; g += kWarps) {
+    for (int g = warp; g < gn; g += kWarps) {
       float mx = kNegInf, cnt = 0.f;
       for (int sp = lane; sp < nsp; sp += 32) {
         mx = fmaxf(mx, w_st[sp * G + g]);
@@ -612,7 +632,7 @@ lsh_split_kernel(const __grid_constant__ LshArgs a) {
 #pragma unroll
     for (int r = 0; r < kAcc; ++r) {
       const int idx = tid + r * kLshThreads;
-      if (idx < G * kD) {
+      if (idx < gn * kD) {
         const int g = idx / kD;
         float x = num[r] * sm.alpha[g];
 #pragma unroll 8
@@ -626,19 +646,20 @@ lsh_split_kernel(const __grid_constant__ LshArgs a) {
 #pragma unroll
   for (int r = 0; r < kAcc; ++r) {
     const int idx = tid + r * kLshThreads;
-    if (idx < G * kD) {
+    if (idx < gn * kD) {
       const float den = sm.l[idx / kD];
       a.out[row * kD + idx] = den > 0.f ? num[r] / den : 0.f;
     }
   }
-  if (tid < G) {
+  if (tid < gn) {
     const float den = sm.l[tid];
     a.lse[row + tid] = den > 0.f ? sm.m[tid] + logf(den) : kNegInf;
     a.cnt[row + tid] = sm.cnt[tid];
   }
 }
 
-template <int G, typename T, int kDebias, bool kWords, int kD>
+template <int G, typename T, int kDebias, bool kWords, int kD,
+          bool kPart = false>
 int launch_lsh(LshArgs a, cudaStream_t stream) {
   if constexpr (!kWords) {
     // The ring's stages, and a tensor map over the planes where TMA's boxes
@@ -656,13 +677,26 @@ int launch_lsh(LshArgs a, cudaStream_t stream) {
   // The scan's query codes grow with L: allow the card's most once.
   static unsigned smem_set = 0;
   const int dyn = static_cast<int>(sizeof(LshSmem<G, T, !kWords, kD>));
-  const cudaError_t err = hp::allow_smem(
-      lsh_split_kernel<G, T, kDebias, kWords, kD>, kMaxDynSmem, smem_set);
+  auto* kernel = lsh_split_kernel<G, T, kDebias, kWords, kD, kPart>;
+  const cudaError_t err = hp::allow_smem(kernel, kMaxDynSmem, smem_set);
   if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid((a.s_cap + a.split - 1) / a.split, a.hkv, a.batch);
-  lsh_split_kernel<G, T, kDebias, kWords, kD>
-      <<<grid, kLshThreads, dyn, stream>>>(a);
+  const int blocks = kPart ? group_blocks(a.group) : 1;
+  dim3 grid((a.s_cap + a.split - 1) / a.split, a.hkv * blocks, a.batch);
+  kernel<<<grid, kLshThreads, dyn, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The general tile of one K/V type (every group size, every debias form)
+// at head dim d.
+template <typename T, bool kWords>
+int launch_lsh_part(int d, const LshArgs& a, cudaStream_t st) {
+  switch (d) {
+    case 16: return launch_lsh<kGroupTile, T, kAnyDebias, kWords, 16, true>(a, st);
+    case 32: return launch_lsh<kGroupTile, T, kAnyDebias, kWords, 32, true>(a, st);
+    case 64: return launch_lsh<kGroupTile, T, kAnyDebias, kWords, 64, true>(a, st);
+    case 128: return launch_lsh<kGroupTile, T, kAnyDebias, kWords, 128, true>(a, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 // The debias forms of one group size, K/V type and head dim.
@@ -705,17 +739,26 @@ int lsh_fused_bf16_d128(int g, int debias, const LshArgs& a, cudaStream_t st);
 int lsh_fused_int8_d128(int g, int debias, const LshArgs& a, cudaStream_t st);
 int lsh_masked_bf16_d128(int g, int debias, const LshArgs& a, cudaStream_t st);
 int lsh_masked_int8_d128(int g, int debias, const LshArgs& a, cudaStream_t st);
+// The general tile (launch_lsh_part) at head dim d, in four more sources:
+// lsh_fused_part.cu, lsh_fused_part_int8.cu, lsh_masked_part.cu and
+// lsh_masked_part_int8.cu.
+int lsh_fused_part_bf16(int d, const LshArgs& a, cudaStream_t st);
+int lsh_fused_part_int8(int d, const LshArgs& a, cudaStream_t st);
+int lsh_masked_part_bf16(int d, const LshArgs& a, cudaStream_t st);
+int lsh_masked_part_int8(int d, const LshArgs& a, cudaStream_t st);
 
 // Check the sizes, copy the polynomial (a host array of the 21
 // coefficients, low degree first; debias 1 only) into the arguments, and
 // launch the form for hq / hkv heads a group. k_scale and v_scale null:
 // bf16 K/V; both set: int8. debias: 0 exact, 1 poly, 2 none. split: tokens
-// a block, a power of two from 32 to 2048. head_dim: 64 or 128.
+// a block, a power of two from 32 to 2048. head_dim: 16, 32, 64 or 128; hq
+// any multiple of hkv (the exact instances, else the general tile).
 template <bool kWords>
 int launch_lsh_decode(LshArgs a, int hq, int head_dim, int debias,
                       const void* poly_coef, void* stream) {
   const bool quant = a.k_scale != nullptr;
-  if ((head_dim != 64 && head_dim != 128) || a.hkv <= 0 ||
+  if (!head_dim_ok(head_dim) || a.hkv <= 0 || hq < a.hkv ||
+      debias < kExact || debias > kNone ||
       hq % a.hkv != 0 || a.s_cap % 32 != 0 || a.K < 1 || a.K > kMaxK ||
       a.L < 1 || a.split < 32 || a.split > 32 * kLshMaxWords ||
       (a.split & (a.split - 1)) != 0 || a.tickets == nullptr ||
@@ -728,6 +771,15 @@ int launch_lsh_decode(LshArgs a, int hq, int head_dim, int debias,
       a.poly.c[i] = static_cast<const float*>(poly_coef)[i];
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int g = hq / a.hkv;
+  a.group = g;
+  a.debias = debias;
+  if (!exact_group(g, head_dim)) {
+    if constexpr (kWords)
+      return quant ? lsh_masked_part_int8(head_dim, a, st)
+                   : lsh_masked_part_bf16(head_dim, a, st);
+    return quant ? lsh_fused_part_int8(head_dim, a, st)
+                 : lsh_fused_part_bf16(head_dim, a, st);
+  }
   if constexpr (kWords) {
     if (head_dim == 128)
       return quant ? lsh_masked_int8_d128(g, debias, a, st)

@@ -10,7 +10,7 @@
 // Bound on the H100: reading the selected blocks' K and V rows and their
 // scales once, 136 bytes a token and kv head in int8 (104 with packed int4
 // K) at d = 64, 264 (200) at d = 128; ~4 flops per byte, so device memory
-// bounds it. Both head dims are instances of one template. The TPU grid is one
+// bounds it. Every head dim is an instance of one template. The TPU grid is one
 // step per (request, kv head) with a loop over the selected blocks; here
 // one block of 128 threads takes one chunk of one selected block of one
 // (kv head, request), brings its K and V rows and scales by bulk copies
@@ -31,7 +31,7 @@ rescore_attend_kernel(const __grid_constant__ mp::ChunkArgs a) {
 template <int G, typename KT, typename VT, int kD>
 int launch(const mp::ChunkArgs& a, cudaStream_t st) {
   static unsigned smem_set = 0;
-  return mp::launch_chunk_attend<G, KT, VT, false, kD>(
+  return mp::launch_chunk_attend<G, KT, VT, false, kD, false>(
       rescore_attend_kernel<G, KT, VT, kD>, a, smem_set, st);
 }
 
@@ -64,11 +64,15 @@ int dispatch_kind(int k_kind, int g, const mp::ChunkArgs& a,
 }  // namespace
 
 // k_kind (a KeyKind): bf16 K and V, scales null; int8 K and V with row
-// scales; packed int4 K and int8 V with row scales. head_dim: 64 or 128.
-// part_o [nsel * chunks a block, B * Hq, head_dim] and part_lse
-// [nsel * chunks a block, B * Hq] hold the partials; tickets [B * Hkv] is
-// 0 between calls; chunk: tokens a CUDA block, a multiple of 64 up to 512
-// (at most 256 for bf16 K and V at head_dim 128).
+// scales; packed int4 K and int8 V with row scales. head_dim: 16, 32, 64
+// or 128 (packed int4 at 64 and 128); hq any multiple of hkv (the exact
+// instances at hq / hkv 1, 2, 4 and 8, and 3 at 128; the general tile,
+// rescore_attend_part in chunk_attend_part.cu, otherwise). part_o [nsel *
+// chunks a block, B * Hq, head_dim] and part_lse [nsel * chunks a block,
+// B * Hq] hold the partials; tickets [B * Hkv * ceil(hq / hkv / 8)] (B *
+// Hkv for the exact instances) is 0 between calls; chunk: tokens a CUDA
+// block, a multiple of 64 up to 512 (at most 256 for bf16 K and V at
+// head_dim 128).
 extern "C" int mp_rescore_attend(const void* q, const void* blk_ids,
                                  const void* k, const void* k_scale,
                                  const void* v, const void* v_scale,
@@ -100,11 +104,15 @@ extern "C" int mp_rescore_attend(const void* q, const void* blk_ids,
   a.sm_scale = sm_scale;
   const bool quant = k_kind != mp::kKeyBf16;
   if (!mp::chunk_args_ok(a, hq, head_dim) ||
+      (k_kind == mp::kKeyInt4 && head_dim < 64) ||
       quant != (k_scale != nullptr) || quant != (v_scale != nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   if (batch == 0) return static_cast<int>(cudaSuccess);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int g = hq / hkv;
+  a.group = g;
+  if (!mp::exact_group(g, head_dim))
+    return mp::rescore_attend_part(k_kind, head_dim, a, st);
   return head_dim == 128 ? dispatch_kind<128>(k_kind, g, a, st)
                          : dispatch_kind<64>(k_kind, g, a, st);
 }

@@ -8,8 +8,10 @@ PyTorch header is compiled, so the build takes seconds. The library lands in
 so it is rebuilt only when they change. The build runs on first use, never
 at import.
 
-`LAUNCHES` counts, per wrapper, the calls that launched a kernel; a run can
-reset it and read it back to show that a path went through the kernels.
+`LAUNCHES` counts, per kernel form, the calls that launched a kernel; a run
+can reset it and read it back to show that a path went through the kernels.
+A form outside the pre-registered ones (a group size of the general tile,
+"_g<G>") gets its key at its first launch.
 `W4_SHAPE_LAUNCHES` splits the int4 matmul's count by weight shape. A CUDA
 graph's launches count once per replay, not at capture (`CapturedLaunches`).
 """
@@ -36,8 +38,9 @@ NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 
 # The forms of each kernel at head dim 64; those of every kernel but the
 # collision scan and the int4 matmul (which have no head dim) are counted
-# apart at head dim 128 too, as "<form>_d128". The group size is not in
-# the name.
+# apart at head dims 16, 32 and 128 too, as "<form>_d<d>". The group size
+# is in the name only where it is not 1, 2, 4 or 8 (nor 3 at head dim 128
+# or in the scan): "<form>[_d<d>]_g<G>" (`group_suffix`).
 _D64_FORMS = (
     "flash_prefill",
     "flash_decode",
@@ -64,7 +67,8 @@ _D64_FORMS = (
     "lsh_masked_attention_int8_none",
 )
 LAUNCHES: dict[str, int] = {
-    **{name + dim: 0 for name in _D64_FORMS for dim in ("", "_d128")},
+    **{name + dim: 0 for name in _D64_FORMS
+       for dim in ("", "_d16", "_d32", "_d128")},
     "collision_words": 0,
     "w4_matmul": 0,
     "flash_prefill_bwd": 0,
@@ -214,14 +218,23 @@ def launch(name: str, entry: str, device: torch.device, *args) -> None:
     cargs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
     cargs.append(torch.cuda.current_stream(device).cuda_stream)
     _check(getattr(lib, entry)(*cargs), name)
-    LAUNCHES[name] += 1
+    LAUNCHES[name] = LAUNCHES.get(name, 0) + 1
 
 
-# Query heads a kv head that every kernel form takes, and those taken at
-# head dim 128 only (Llama-3.2-3B: 24 query heads over 8). The other group
-# sizes, and 3 at head dim 64, raise before any launch.
+# The head dims of the decode-side kernels and of the prefill: every one
+# that divides 128 from 16 (the JAX package's Pallas kernels take each
+# divisor of 128; below 16 no preset or published model goes). Others raise
+# before any launch.
+HEAD_DIMS = (16, 32, 64, 128)
+# Group sizes with an exact instance of every decode-side kernel at head
+# dims 64 and 128, and the one at 128 only (Llama-3.2-3B: 24 query heads
+# over 8; the scan has no head dim and takes it too). Every other group
+# size, and every one at head dims 16 and 32, runs the general tile
+# (`exact_group` in csrc/common.cuh): blocks of at most GROUP_TILE query
+# heads of a kv head, ceil(G / GROUP_TILE) of them a kv head.
 GROUPS = (1, 2, 4, 8)
 GROUPS_D128 = (3,)
+GROUP_TILE = 8
 
 
 def require(cond: bool, msg: str) -> None:
@@ -229,14 +242,41 @@ def require(cond: bool, msg: str) -> None:
         raise ValueError(msg)
 
 
+def group_suffix(g: int, head_dim: int | None) -> str:
+    """The launch counter's group part: "" for the group sizes the
+    counters have always taken (1, 2, 4, 8; 3 at head dim 128 or in the
+    scan), else "_g<G>"."""
+    plain = g in GROUPS or (g in GROUPS_D128 and head_dim in (None, 128))
+    return "" if plain else f"_g{g}"
+
+
+def exact_group(g: int, head_dim: int | None) -> bool:
+    """Whether group size g has an exact instance at `head_dim` (None:
+    the collision scan): those `group_suffix` leaves unnamed, at head dims
+    64 and 128."""
+    return head_dim in (None, 64, 128) and not group_suffix(g, head_dim)
+
+
+def tile_group(g: int, head_dim: int | None) -> int:
+    """The G of the instance that serves group size g: g itself, or
+    GROUP_TILE for the general tile."""
+    return g if exact_group(g, head_dim) else GROUP_TILE
+
+
+def head_blocks(g: int, head_dim: int | None) -> int:
+    """Blocks a kv head's query heads take (each with its own merge
+    ticket): 1 for an exact instance, ceil(g / GROUP_TILE) for the general
+    tile."""
+    return 1 if exact_group(g, head_dim) else -(-g // GROUP_TILE)
+
+
 def check_group(name: str, hq: int, hkv: int, head_dim: int | None) -> None:
-    """hq / hkv is a group size the kernel's forms take at `head_dim`
-    (None: a kernel with no head dim, the collision scan, takes them
-    all)."""
-    g = hq // hkv if hkv > 0 and hq % hkv == 0 else 0
-    groups = GROUPS + (GROUPS_D128 if head_dim in (None, 128) else ())
-    require(g in groups, f"{name}: group size {hq}/{hkv} unsupported at "
-            f"head_dim {head_dim}")
+    """hq is a positive multiple of hkv, and `head_dim` (None: the
+    collision scan, which has none) one of HEAD_DIMS."""
+    require(hkv > 0 and hq >= hkv and hq % hkv == 0,
+            f"{name}: {hq} query heads over {hkv} kv heads unsupported")
+    require(head_dim is None or head_dim in HEAD_DIMS,
+            f"{name}: head_dim {head_dim} not in {HEAD_DIMS}")
 
 
 def require_cuda(name: str, *tensors: torch.Tensor) -> None:
@@ -248,9 +288,17 @@ def require_cuda(name: str, *tensors: torch.Tensor) -> None:
         require(t.data_ptr() % 16 == 0, f"{name}: inputs must be 16-byte aligned")
 
 
+# The pre-registered forms; `reset_launches` drops the others (a general
+# tile's group sizes), so that a run's counts list only its own.
+_REGISTERED = frozenset(LAUNCHES)
+
+
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for k in list(LAUNCHES):
+        if k in _REGISTERED:
+            LAUNCHES[k] = 0
+        else:
+            del LAUNCHES[k]
     W4_SHAPE_LAUNCHES.clear()
 
 
@@ -266,17 +314,19 @@ class CapturedLaunches:
 
     def __exit__(self, *exc) -> None:
         launches, shapes = self._before
-        self.launches = {k: n - launches[k] for k, n in LAUNCHES.items()
-                         if n != launches[k]}
+        self.launches = {k: n - launches.get(k, 0)
+                         for k, n in LAUNCHES.items()
+                         if n != launches.get(k, 0)}
         self.shapes = {k: n - shapes.get(k, 0)
                        for k, n in W4_SHAPE_LAUNCHES.items()
                        if n != shapes.get(k, 0)}
-        LAUNCHES.update(launches)
+        for k in LAUNCHES:
+            LAUNCHES[k] = launches.get(k, 0)
         W4_SHAPE_LAUNCHES.clear()
         W4_SHAPE_LAUNCHES.update(shapes)
 
     def replayed(self) -> None:
         for k, n in self.launches.items():
-            LAUNCHES[k] += n
+            LAUNCHES[k] = LAUNCHES.get(k, 0) + n
         for k, n in self.shapes.items():
             W4_SHAPE_LAUNCHES[k] = W4_SHAPE_LAUNCHES.get(k, 0) + n

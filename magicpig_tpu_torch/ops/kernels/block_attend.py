@@ -22,12 +22,12 @@ import torch
 from magicpig_tpu_torch.ops import attention
 from magicpig_tpu_torch.ops.baselines import gather_blocks
 from magicpig_tpu_torch.ops.kernels import _lib
-from magicpig_tpu_torch.ops.kernels.block_score import HEAD_DIMS, launch_name
-from magicpig_tpu_torch.ops.kernels.flash_decode import device_state
+from magicpig_tpu_torch.ops.kernels.block_score import launch_name
+from magicpig_tpu_torch.ops.kernels.flash_decode import tickets_for
 
 MIN_CHUNK = 128           # tokens a CUDA block of the attends at least ...
 MAX_CHUNK = 512           # ... and at most (kMaxChunk in chunk_attend.cuh)
-MERGE_BYTES = 32 * 1024   # the merge's batch of partials at d = 64
+MERGE_BYTES = 32 * 1024   # the merge's batch of partials at d <= 64
 #                           (kMergeBytes; d / 64 times that at head dim d)
 CHUNK_HEADER = 128        # mbarrier, flag, m, l, alpha (kChunkHeader)
 SMEM_MAX = 227 * 1024     # a CUDA block's shared memory (kChunkSmemMax)
@@ -78,7 +78,6 @@ def check_selection(name: str, blk_ids: torch.Tensor, v: torch.Tensor,
     _lib.require(not int8 or (v_scale.dtype == torch.float32
                               and v_scale.shape == (b, hkv, s)),
                  f"{name}: v_scale must be f32 [B, Hkv, S]")
-    _lib.require(d in HEAD_DIMS, f"{name}: head_dim {d} not in {HEAD_DIMS}")
     _lib.check_group(name, hq, hkv, d)
     _lib.require(block_size > 0 and block_size % 64 == 0 and s > 0
                  and s % block_size == 0,
@@ -98,9 +97,10 @@ def chunk_bytes(chunk: int, g: int, k_row: int, v_row: int,
 
 
 def chunk_plan(block_size: int, chunk: int | None, nsel: int, g: int,
-               d: int = HEAD_DIMS[0],
+               d: int = 64,
                row_bytes: tuple = (0, 128, False, False)) -> tuple[int, int]:
-    """(tokens a CUDA block, chunks a selected block) of the attends: a
+    """(tokens a CUDA block, chunks a selected block) of the attends (`g`:
+    the G of the instance, `_lib.tile_group`): a
     selected block cut into chunks of `chunk` tokens (a power of two from
     64 to 512), the last one shorter where the block size is not a
     multiple of it; a block smaller than the chunk is one chunk. By
@@ -113,7 +113,7 @@ def chunk_plan(block_size: int, chunk: int | None, nsel: int, g: int,
     and the merge then takes more than one batch. `chip_smoke.py` phase 2
     sweeps 64 to 512 at two shapes and both head dims (`PERF.md`)."""
     if chunk is None:
-        batch = MERGE_BYTES * d // 64 // (g * (d + 1) * 4)
+        batch = MERGE_BYTES * max(d, 64) // 64 // (g * (d + 1) * 4)
         chunk = MIN_CHUNK
         while (chunk < MAX_CHUNK and nsel * -(-block_size // chunk) > batch
                and chunk_bytes(2 * chunk, g, *row_bytes) <= SMEM_MAX):
@@ -133,7 +133,7 @@ def merge_buffers(nparts: int, b: int, hq: int, hkv: int, d: int,
     f32 = dict(dtype=torch.float32, device=device)
     return (torch.empty((nparts, b * hq, d), **f32),
             torch.empty((nparts, b * hq), **f32),
-            device_state(device, b * hkv)[0],
+            tickets_for(device, b, hq, hkv, d)[0],
             torch.empty((b, hq, d), **f32),
             torch.empty((b, hq), **f32))
 
@@ -162,7 +162,7 @@ def launch_block_attend(scores: torch.Tensor, blk_ids: torch.Tensor,
                  f"block_attend: unsupported device {scores.device}")
     b, hkv, g, s = scores.shape
     d = v.shape[-1]
-    name = launch_name("block_attend", False, d)
+    name = launch_name("block_attend", False, d, g)
     _lib.require(v.dim() == 4 and v.shape[:3] == (b, hkv, s),
                  f"{name}: v shape {tuple(v.shape)}")
     _lib.require_cuda(name, scores, v)
@@ -170,7 +170,7 @@ def launch_block_attend(scores: torch.Tensor, blk_ids: torch.Tensor,
     check_selection(name, blk_ids, v, v_scale, hkv * g, block_size)
     nsel = blk_ids.shape[2]
     int8 = v.dtype == torch.int8
-    chunk, nch = chunk_plan(block_size, chunk, nsel, g, d,
+    chunk, nch = chunk_plan(block_size, chunk, nsel, _lib.tile_group(g, d), d,
                             (0, d * v.element_size(), False, int8))
     part_o, part_lse, tickets, out, lse = merge_buffers(
         nsel * nch, b, hkv * g, hkv, d, v.device)

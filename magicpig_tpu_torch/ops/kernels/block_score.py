@@ -15,9 +15,11 @@ bf16) once, plus the f32 score store in the `exact_scores_ranked` variant;
 one block of the kernel scores one ranking block of one (request, kv head)
 (for `exact_scores`, one 512-token span, or the largest power-of-two span
 from 64 that divides S).
-Packed int4 K ([B, Hkv, S, d/2] bytes, `ops/pack4.py`) is counted apart, as
-"block_rank_int4" and "exact_scores_ranked_int4", and head dim 128 (64 and
-128 on the card) as "..._d128" (`launch_name`).
+Packed int4 K ([B, Hkv, S, d/2] bytes, `ops/pack4.py`, at head dims 64 and
+128) is counted apart, as "block_rank_int4" and "exact_scores_ranked_int4",
+the head dims other than 64 (16, 32, 64 and 128 on the card, any group
+size) as "..._d<d>", and a group size of the kernel's general tile as
+"..._g<G>" (`launch_name`).
 
 The arithmetic, kernel and plain version alike: q * (1/sqrt(d)) rounded to
 bf16; K as bf16 (int8 and 4-bit values are exact in it); products summed in
@@ -34,9 +36,10 @@ import math
 import torch
 
 from magicpig_tpu_torch.ops.kernels import _lib
+from magicpig_tpu_torch.ops.kernels.flash_decode import head_suffix
 from magicpig_tpu_torch.ops.pack4 import is_packed, unpack_k4
 
-HEAD_DIMS = (64, 128)   # the kernel's head dims
+INT4_HEAD_DIMS = (64, 128)   # the head dims of packed int4 K
 KEY_KINDS = {torch.bfloat16: 0, torch.int8: 1}   # KeyKind in block_common.cuh
 KEY_INT4 = 2                                     # packed int4 K
 
@@ -106,11 +109,11 @@ def key_kind(name: str, q: torch.Tensor, k: torch.Tensor,
     return KEY_INT4 if packed else KEY_KINDS[k.dtype]
 
 
-def launch_name(base: str, int4: bool, head_dim: int) -> str:
+def launch_name(base: str, int4: bool, head_dim: int, group: int = 1) -> str:
     """The launch counter of one form of the block kernels: `base`, "_int4"
-    for packed int4 K, "_d128" at head dim 128."""
-    return (base + ("_int4" if int4 else "")
-            + ("" if head_dim == HEAD_DIMS[0] else f"_d{head_dim}"))
+    for packed int4 K, then `head_suffix` ("_d128" at head dim 128, "_g6"
+    at group size 6, ...)."""
+    return base + ("_int4" if int4 else "") + head_suffix(head_dim, group)
 
 
 def _launch(name: str, q, k, k_scale, length, block_size: int,
@@ -122,8 +125,9 @@ def _launch(name: str, q, k, k_scale, length, block_size: int,
     _lib.require_cuda(name, q, k, *([length] if rank else []),
                       *([k_scale] if kind else []))
     _lib.require(q.dtype == torch.bfloat16, f"{name}: q must be bfloat16")
-    _lib.require(d in HEAD_DIMS, f"{name}: head_dim {d} not in {HEAD_DIMS}")
     _lib.check_group(name, hq, hkv, d)
+    _lib.require(kind != KEY_INT4 or d in INT4_HEAD_DIMS,
+                 f"{name}: packed int4 K at head dims {INT4_HEAD_DIMS} only")
     _lib.require(block_size > 0 and block_size % 64 == 0 and s > 0
                  and s % block_size == 0,
                  f"{name}: block size {block_size} must be a multiple of 64 "
@@ -134,7 +138,8 @@ def _launch(name: str, q, k, k_scale, length, block_size: int,
     f32 = dict(dtype=torch.float32, device=q.device)
     scores = torch.empty((b, hkv, hq // hkv, s), **f32) if store_scores else None
     bmax = torch.empty((b, hkv, s // block_size), **f32) if rank else None
-    _lib.launch(launch_name(name, kind == KEY_INT4, d), "mp_block_score",
+    _lib.launch(launch_name(name, kind == KEY_INT4, d, hq // hkv),
+                "mp_block_score",
                 q.device, q, k, k_scale, length, scores,
                 bmax, b, s, hq, hkv, d, block_size, kind, 1.0 / math.sqrt(d))
     return scores, bmax

@@ -9,8 +9,9 @@ collision_words_pallas` (pallas_call at mask.py:87, the same planes viewed
 as [B, Hkv, L*K, W]): in the port's flat layout they are one function. With
 a length it also applies the AND with the valid words that the JAX callers
 apply right after their scan, and reads no plane word past the length.
-Counted as "collision_words". Bit-exact against the plain version; bound on
-the H100 by reading every (valid) plane word once.
+Counted as "collision_words" ("collision_words_g<G>" at a group size of the
+kernel's general tile: any but 1, 2, 3, 4 and 8). Bit-exact against the
+plain version; bound on the H100 by reading every (valid) plane word once.
 """
 
 from __future__ import annotations
@@ -63,12 +64,14 @@ def launch_scan(q_bits: torch.Tensor, planes: torch.Tensor,
                 block_words: int = SCAN_WORDS) -> torch.Tensor:
     """Check the inputs and launch the kernel, `block_words` words a
     block."""
-    name = "collision_words"
     _lib.require(q_bits.device.type == "cuda",
-                 f"{name}: unsupported device {q_bits.device}")
-    _lib.require(planes.dim() == 5, f"{name}: planes must be [B, Hkv, L, K, W]")
+                 f"collision_words: unsupported device {q_bits.device}")
+    _lib.require(planes.dim() == 5 and q_bits.dim() == 4,
+                 "collision_words: planes must be [B, Hkv, L, K, W] and "
+                 "q_bits [B, Hq, L, K]")
     b, hq, L, K = q_bits.shape
     hkv, w = planes.shape[1], planes.shape[-1]
+    name = "collision_words" + (_lib.group_suffix(hq // hkv, None) if hkv else "")
     check_scan_inputs(name, planes, q_bits, hkv, w * bitcodes.WORD, K, L)
     if length is not None:
         _lib.require_cuda(name, q_bits, length)

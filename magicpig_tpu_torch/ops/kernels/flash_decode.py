@@ -3,11 +3,12 @@
 
 Replaces the TPU kernel `magicpig_tpu/ops/pallas/decode.py::flash_decode`
 (pallas_call at decode.py:184): bf16 K/V, or int8 K/V with per-token f32
-scales, at head dim 64 or 128 (group size 3 at 128 only), over each
+scales, at head dims 16, 32, 64 and 128 and any group size, over each
 request's rows [start, length) (`start` optional: a sliding window's lower
 bound, which the JAX package applies as a mask), counted apart as
-"flash_decode", "flash_decode_int8", "flash_decode_d128" and
-"flash_decode_int8_d128" (`launch_name`). On the H100 it is bound by
+"flash_decode", "flash_decode_int8", with "_d16", "_d32" or "_d128" at
+those head dims and "_g<G>" at the group sizes of the kernel's general tile
+beyond those it has always taken (`launch_name`). On the H100 it is bound by
 reading K and V once; the kernel streams K/V tiles with bulk copies, splits
 the sequence so that a small batch fills the card (`split_tokens`), and
 merges the splits by LSE in the same launch; see the source for the design.
@@ -23,7 +24,6 @@ from magicpig_tpu_torch.ops import attention
 from magicpig_tpu_torch.ops.kernels import _lib
 
 HEAD_DIM = 64          # the d = 64 forms' counters carry no suffix
-HEAD_DIMS = (64, 128)  # the kernel's head dims, bf16 and int8
 DECODE_TILE = 64       # tokens per copy of flash_decode (kTile)
 MIN_SPLIT = 256        # fewest tokens per flash_decode split
 MAX_SPLIT = 1024       # most tokens per flash_decode split
@@ -66,22 +66,36 @@ def device_state(device: torch.device,
     return tickets, _num_sms[device]
 
 
-def launch_name(quant: bool, head_dim: int) -> str:
+def head_suffix(head_dim: int, group: int) -> str:
+    """The counters' head part of every decode-side kernel: "_d<d>" unless
+    d = 64, then `_lib.group_suffix`."""
+    return (("" if head_dim == HEAD_DIM else f"_d{head_dim}")
+            + _lib.group_suffix(group, head_dim))
+
+
+def launch_name(quant: bool, head_dim: int, group: int = 1) -> str:
     """The launch counter of one form: "flash_decode", "_int8" for int8
-    K/V, "_d128" at head dim 128."""
+    K/V, then `head_suffix` ("_d128" at head dim 128, "_g6" at group size
+    6, ...)."""
     return ("flash_decode" + ("_int8" if quant else "")
-            + ("" if head_dim == HEAD_DIM else f"_d{head_dim}"))
+            + head_suffix(head_dim, group))
+
+
+def tickets_for(device: torch.device, b: int, hq: int, hkv: int,
+                head_dim: int) -> tuple[torch.Tensor, int]:
+    """`device_state` with a ticket for each (request, kv head, block of
+    its query heads): the general tile's blocks take one each."""
+    return device_state(device, b * hkv * _lib.head_blocks(hq // hkv, head_dim))
 
 
 def check_decode_inputs(name: str, q: torch.Tensor, k: torch.Tensor,
                         v: torch.Tensor, length: torch.Tensor,
                         k_scale: torch.Tensor | None = None,
-                        v_scale: torch.Tensor | None = None,
-                        head_dims: tuple[int, ...] = (HEAD_DIM,)) -> None:
+                        v_scale: torch.Tensor | None = None) -> None:
     """Shape and type checks shared by the split-sequence decode kernels:
     bf16 q; bf16 k, v, or int8 k, v with f32 scales [B, Hkv, S]; a head dim
-    the caller's form takes (`head_dims`) and a group size the kernels take
-    there (`_lib.check_group`)."""
+    of `_lib.HEAD_DIMS` and query heads a multiple of the kv heads
+    (`_lib.check_group`)."""
     _lib.require(q.device.type == "cuda", f"{name}: unsupported device {q.device}")
     _lib.require_cuda(name, q, k, v, length)
     b, hq, d = q.shape
@@ -99,7 +113,6 @@ def check_decode_inputs(name: str, q: torch.Tensor, k: torch.Tensor,
         for sc in (k_scale, v_scale):
             _lib.require(sc.dtype == torch.float32 and sc.shape == k.shape[:3],
                          f"{name}: scales must be f32 [B, Hkv, S]")
-    _lib.require(d in head_dims, f"{name}: head_dim {d} not in {head_dims}")
     _lib.require(k.dim() == 4 and k.shape == v.shape
                  and k.shape[0] == b and k.shape[3] == d,
                  f"{name}: k/v shape {tuple(k.shape)}")
@@ -115,7 +128,8 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Single-query attention over a cache range.
 
     q: [B, Hq, d]; k, v: [B, Hkv, S, d], bf16, or int8 with f32 scales
-    k_scale, v_scale [B, Hkv, S] (d 64 or 128 on the card); length: [B]
+    k_scale, v_scale [B, Hkv, S] (d 16, 32, 64 or 128 on the card, Hq any
+    multiple of Hkv); length: [B]
     int32 valid tokens; start: [B] int32 first valid token, or None for 0
     (the kernel reads no tile that lies wholly before it).
     Returns (out [B, Hq, d] f32, lse [B, Hq] f32); a request with no valid
@@ -125,14 +139,15 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return attention.full_decode(q, k, v, length, k_scale, v_scale, start)
     b, hq, d = q.shape
     quant = k_scale is not None
-    name = launch_name(quant, d)
-    check_decode_inputs(name, q, k, v, length, k_scale, v_scale, HEAD_DIMS)
+    hkv = k.shape[1] if k.dim() == 4 else 0
+    name = launch_name(quant, d, hq // hkv if hkv else 0)
+    check_decode_inputs(name, q, k, v, length, k_scale, v_scale)
     if start is not None:
         _lib.require_cuda(name, q, start)
         _lib.require(start.dtype == torch.int32 and start.shape == (b,),
                      f"{name}: start must be int32 [B]")
-    hkv, s = k.shape[1], k.shape[2]
-    tickets, num_sms = device_state(q.device, b * hkv)
+    s = k.shape[2]
+    tickets, num_sms = tickets_for(q.device, b, hq, hkv, d)
     chunk = split_tokens(s, b, hkv, num_sms)
     nsplit = -(-s // chunk)
     f32 = dict(dtype=torch.float32, device=q.device)

@@ -7,9 +7,9 @@ is bound by tensor-core operations (~275 GFLOP per layer for an 8K prompt at
 Llama-3.2-1B width, twice that at Llama-3.1-8B's head dim 128), so the
 kernel runs its products on warpgroup MMAs (wgmma) fed by TMA copies
 through a ring of shared memory, with the score and output tiles in
-registers; see the source for the design. Head dims 64 and 128 are
-instances of one template, counted apart ("flash_prefill",
-"flash_prefill_d128": `launch_name`).
+registers; see the source for the design. Head dims 16, 32, 64 and 128
+are instances of one template, counted apart ("flash_prefill",
+"flash_prefill_d16", "_d32", "_d128": `launch_name`); any group size.
 
 Training differentiates through `FlashPrefillTrain`, the port's form of
 JAX's custom VJP `_flash_prefill_train` (`magicpig_tpu/ops/attention.py`):
@@ -27,8 +27,6 @@ import torch
 
 from magicpig_tpu_torch.ops import attention
 from magicpig_tpu_torch.ops.kernels import _lib
-
-HEAD_DIMS = (64, 128)  # the kernel's head dims
 
 
 def launch_name(head_dim: int) -> str:
@@ -69,11 +67,9 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _lib.require_cuda(name, q, k, v, length, q_offset)
     _lib.require(q.dtype == k.dtype == v.dtype == torch.bfloat16,
                  f"{name}: q, k, v must be bfloat16")
-    _lib.require(d in HEAD_DIMS, f"{name}: head_dim {d} not in {HEAD_DIMS}")
     _lib.require(k.shape == v.shape == (b, skv, hkv, d),
                  f"{name}: k/v shape {tuple(k.shape)}")
-    _lib.require(hkv > 0 and hq % hkv == 0,
-                 f"{name}: group size {hq}/{hkv} unsupported")
+    _lib.check_group(name, hq, hkv, d)
     _lib.require(sq > 0, f"{name}: empty query span")
     _lib.require(length.dtype == q_offset.dtype == torch.int32
                  and length.shape == q_offset.shape == (b,),
@@ -90,6 +86,7 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 BWD_NAME = "flash_prefill_bwd"
 BWD_HEAD_DIMS = (64,)   # the backward kernel's head dims
+BWD_GROUPS = _lib.GROUPS   # and the group sizes it has been held to
 
 
 def _int32_batch(x, b: int, device: torch.device) -> torch.Tensor:
@@ -117,8 +114,8 @@ def flash_prefill_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """(dq, dk, dv) in f32 of the training attention's output `out` with
     its lse [B, Sq, Hq] f32, for dL/d out `do`. q, out, do: [B, Sq, Hq,
     d]; k, v: [B, Skv, Hkv, d]; q_offset, kv_len: int or [B]. CUDA tensors
-    launch the kernel (bf16 inputs, head dim 64, the group sizes of
-    `_lib.check_group`; ValueError otherwise, before any launch); CPU
+    launch the kernel (bf16 inputs, head dim 64, group sizes 1, 2, 4 and
+    8, `BWD_GROUPS`; ValueError otherwise, before any launch); CPU
     tensors take the plain version (`flash_prefill_bwd_plain`)."""
     if q.device.type == "cpu":
         return flash_prefill_bwd_plain(q, k, v, out, lse, do, q_offset,
@@ -130,6 +127,8 @@ def flash_prefill_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _lib.require(d in BWD_HEAD_DIMS,
                  f"{BWD_NAME}: head_dim {d} not in {BWD_HEAD_DIMS}")
     _lib.check_group(BWD_NAME, hq, hkv, d)
+    _lib.require(hq // hkv in BWD_GROUPS,
+                 f"{BWD_NAME}: group size {hq}/{hkv} not in {BWD_GROUPS}")
     _lib.require(k.shape == v.shape == (b, skv, hkv, d),
                  f"{BWD_NAME}: k/v shape {tuple(k.shape)}")
     _lib.require(out.shape == do.shape == q.shape,

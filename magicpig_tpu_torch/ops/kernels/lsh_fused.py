@@ -8,9 +8,10 @@ Replaces the TPU kernel `magicpig_tpu/ops/pallas/lsh_fused.py::
 lsh_fused_attention2` (pallas_call at lsh_fused.py:286), reached through
 `magicpig_tpu/ops/pallas/lsh_decode.py::lsh_fused_decode`: bf16 K/V, or
 int8 K/V with per-token f32 scales (int4-grid K too), each with the exact,
-polynomial or no debias, at head dim 64 or 128 (Llama-3.1-8B's decode).
-The forms are counted apart: "lsh_fused_decode", with "_int8" for int8
-K/V, "_poly" or "_none" for those debias forms and "_d128" at head dim 128
+polynomial or no debias, at head dims 16, 32, 64 and 128 and any group
+size. The forms are counted apart: "lsh_fused_decode", with "_int8" for
+int8 K/V, "_poly" or "_none" for those debias forms, "_d<d>" at a head dim
+other than 64 and "_g<G>" at a group size of the kernel's general tile
 (`launch_name`). On the H100 it is bound by device memory: every
 signature word must be read (188 bytes per token and kv head at K=10,
 L=150), but K, V and the key norm only for the tokens some head of the
@@ -26,20 +27,22 @@ from magicpig_tpu_torch.ops.kernels.collision_words import (
     check_scan_inputs,
     collision_words,
 )
-from magicpig_tpu_torch.ops.kernels.flash_decode import HEAD_DIM, HEAD_DIMS
+from magicpig_tpu_torch.ops.kernels.flash_decode import HEAD_DIM
 from magicpig_tpu_torch.ops.kernels.lsh_masked import (
     check_attend_inputs,
     form_name,
+    group_size,
     launch_attend,
     lsh_masked_attention,
 )
 
 
-def launch_name(quant: bool, debias: str, head_dim: int = HEAD_DIM) -> str:
+def launch_name(quant: bool, debias: str, head_dim: int = HEAD_DIM,
+                group: int = 1) -> str:
     """The launch counter of one form: "lsh_fused_decode", "_int8" for int8
     K/V, then "_poly" or "_none" for those debias forms, "_d128" at head
-    dim 128."""
-    return form_name("lsh_fused_decode", quant, debias, head_dim)
+    dim 128, "_g6" at group size 6, ... (`form_name`)."""
+    return form_name("lsh_fused_decode", quant, debias, head_dim, group)
 
 
 def lsh_fused_decode_plain(q, k_centered, v, k_norm, planes, q_bits, length,
@@ -64,7 +67,8 @@ def lsh_fused_decode(q: torch.Tensor, k_centered: torch.Tensor,
     (any L).
 
     q: [B, Hq, d]; k_centered, v: [B, Hkv, S, d], bf16, or int8 with f32
-    scales k_scale, v_scale [B, Hkv, S] (d 64 or 128 on the card); k_norm:
+    scales k_scale, v_scale [B, Hkv, S] (d 16, 32, 64 or 128 on the card,
+    Hq any multiple of Hkv); k_norm:
     [B, Hkv, S] f32 (norms of
     the dequantized keys for int8); planes: [B, Hkv, L, K, S/32] int32
     (`ops.bitcodes` flat layout); q_bits: [B, Hq, L, K] int32 0/1; length:
@@ -77,9 +81,9 @@ def lsh_fused_decode(q: torch.Tensor, k_centered: torch.Tensor,
                                       q_bits, length, K, L, k_scale, v_scale,
                                       debias)
     quant = k_scale is not None
-    name = launch_name(quant, debias, q.shape[-1])
+    name = launch_name(quant, debias, q.shape[-1], group_size(q, k_centered))
     check_attend_inputs(name, q, k_centered, v, k_norm, length, k_scale,
-                        v_scale, debias, HEAD_DIMS)
+                        v_scale, debias)
     check_scan_inputs(name, planes, q_bits, k_centered.shape[1],
                       k_centered.shape[2], K, L)
     return launch_attend(name, "mp_lsh_fused_decode", q, k_centered, v,

@@ -7,8 +7,9 @@ rescore_attend` (pallas_call at rescore_attend.py:217). The ranking pass
 (`block_rank`) stores only block maxes; this kernel scores the selected
 blocks again with the scorer's own per-token function, so the two agree
 bit for bit, and attends over them. K is bf16, int8, or packed int4
-(`ops/pack4.py`, counted apart as "rescore_attend_int4") with int8 V, at
-head dim 64 or 128 (counted apart with "_d128"). On the
+(`ops/pack4.py`, counted apart as "rescore_attend_int4", at head dims 64
+and 128) with int8 V, at head dims 16, 32, 64 and 128 and any group size
+(counted apart with "_d<d>" and "_g<G>", `block_score.launch_name`). On the
 H100 it is bound by reading the selected blocks' K and V rows and scales
 once; one CUDA block takes a chunk of `chunk` tokens of one selected block
 of one (request, kv head), and the chunks merge by LSE in the same launch
@@ -30,6 +31,7 @@ from magicpig_tpu_torch.ops.kernels.block_attend import (
     merge_buffers,
 )
 from magicpig_tpu_torch.ops.kernels.block_score import (
+    INT4_HEAD_DIMS,
     KEY_INT4,
     key_kind,
     launch_name,
@@ -82,7 +84,8 @@ def launch_rescore_attend(q, blk_ids, k, k_scale, v, v_scale, length,
                  f"rescore_attend: unsupported device {q.device}")
     b, hq, d = q.shape
     kind = key_kind("rescore_attend", q, k, k_scale)
-    name = launch_name("rescore_attend", kind == KEY_INT4, d)
+    hkv = k.shape[1]
+    name = launch_name("rescore_attend", kind == KEY_INT4, d, hq // hkv)
     _lib.require(v.dim() == 4 and v.shape[:3] == k.shape[:3]
                  and v.shape[3] == d, f"{name}: v shape {tuple(v.shape)}")
     _lib.require(k.dtype == v.dtype, f"{name}: k and v must share a type")
@@ -91,10 +94,13 @@ def launch_rescore_attend(q, blk_ids, k, k_scale, v, v_scale, length,
     _lib.require(length.dtype == torch.int32 and length.shape == (b,),
                  f"{name}: length must be int32 [B]")
     check_selection(name, blk_ids, v, v_scale, hq, block_size)
-    hkv, s = k.shape[1], k.shape[2]
+    _lib.require(kind != KEY_INT4 or d in INT4_HEAD_DIMS,
+                 f"{name}: packed int4 K at head dims {INT4_HEAD_DIMS} only")
+    s = k.shape[2]
     nsel = blk_ids.shape[2]
     quant = k_scale is not None
-    chunk, nch = chunk_plan(block_size, chunk, nsel, hq // hkv, d,
+    chunk, nch = chunk_plan(block_size, chunk, nsel,
+                            _lib.tile_group(hq // hkv, d), d,
                             (k.shape[3] * k.element_size(),
                              d * v.element_size(), quant, quant))
     part_o, part_lse, tickets, out, lse = merge_buffers(nsel * nch, b, hq,

@@ -95,17 +95,18 @@ def _fold_scores(x, fold=FOLD):
         b, h, fold * g, s // fold)
 
 
-def _inputs(seed, lengths=(S, 700), planted=False, d=D):
+def _inputs(seed, lengths=(S, 700), planted=False, d=D, g=G):
     """bf16 q, K, V and int8 K, V with scales, as numpy (f32 values) and
-    torch tensors. `planted`: each block of each kv head gets one key along
-    the group's summed query, with a strength that differs from block to
-    block by far more than SCORE_TOL, so the block maxes are ordered."""
+    torch tensors, g query heads a kv head. `planted`: each block of each kv
+    head gets one key along the group's summed query, with a strength that
+    differs from block to block by far more than SCORE_TOL, so the block
+    maxes are ordered."""
     rng = np.random.default_rng(seed)
-    q = rng.standard_normal((B, HKV * G, d)).astype(np.float32)
+    q = rng.standard_normal((B, HKV * g, d)).astype(np.float32)
     k = rng.standard_normal((B, HKV, S, d)).astype(np.float32)
     v = rng.standard_normal((B, HKV, S, d)).astype(np.float32)
     if planted:
-        qsum = q.reshape(B, HKV, G, d).sum(axis=2)
+        qsum = q.reshape(B, HKV, g, d).sum(axis=2)
         qdir = qsum / np.linalg.norm(qsum, axis=-1, keepdims=True)
         nb = S // BS
         for b in range(B):
@@ -171,11 +172,17 @@ def test_quantize_rows_is_bit_exact_with_jax(dtype):
 # -- the block scorer ------------------------------------------------------------
 
 
-@pytest.mark.parametrize("quant,d", [
-    pytest.param(True, D, id="True"), pytest.param(False, D, id="False"),
-    pytest.param(True, 128, id="True-d128")])      # Llama-3.1-8B's head dim
-def test_block_scorer_plain_matches_pallas(quant, d):
-    x = _inputs(1, d=d)
+# The general tile's group sizes and the small head dims, as (head dim,
+# group size).
+NEW_FORMS = ((64, 3), (128, 6), (128, 16), (32, 4), (16, 6))
+
+
+@pytest.mark.parametrize("quant,d,g", [
+    pytest.param(True, D, G, id="True"), pytest.param(False, D, G, id="False"),
+    pytest.param(True, 128, G, id="True-d128"),    # Llama-3.1-8B's head dim
+    *(pytest.param(True, d, g, id=f"True-d{d}-g{g}") for d, g in NEW_FORMS)])
+def test_block_scorer_plain_matches_pallas(quant, d, g):
+    x = _inputs(1, d=d, g=g)
     k, ks = (x["kq"], x["ks"]) if quant else (x["k"], None)
     scores, bmax = block_scores_plain(x["q"], k, ks, x["length"], BS)
     j_scores, j_bmax = _j_scores(x, quant, rank_only=False)
@@ -237,13 +244,14 @@ def _selection(x, quant, n_sel):
     return j_ids, _t(np.asarray(j_ids)).to(torch.int32)
 
 
-@pytest.mark.parametrize("n_sel,d", [
-    pytest.param(3, D, id="3"), pytest.param(8, D, id="8"),
-    pytest.param(3, 128, id="3-d128")])
-def test_rescore_attend_plain_matches_pallas(n_sel, d):
+@pytest.mark.parametrize("n_sel,d,g", [
+    pytest.param(3, D, G, id="3"), pytest.param(8, D, G, id="8"),
+    pytest.param(3, 128, G, id="3-d128"),
+    *(pytest.param(3, d, g, id=f"3-d{d}-g{g}") for d, g in NEW_FORMS)])
+def test_rescore_attend_plain_matches_pallas(n_sel, d, g):
     """int8 K and V. Request 1 (700 tokens) leaves blocks 6 and 7 empty;
     with 8 blocks selected they are among them."""
-    x = _inputs(4, d=d)
+    x = _inputs(4, d=d, g=g)
     fold = _fold(d)
     j_ids, ids = _selection(x, True, n_sel)
     out, lse = rescore_attend(x["q"], ids, x["kq"], x["ks"], x["vq"], x["vs"],
@@ -256,11 +264,12 @@ def test_rescore_attend_plain_matches_pallas(n_sel, d):
     _close(lse, j_lse, INT8_V_TOL)
 
 
-@pytest.mark.parametrize("quant,d", [
-    pytest.param(True, D, id="True"), pytest.param(False, D, id="False"),
-    pytest.param(False, 128, id="False-d128")])    # the store pipeline, bf16
-def test_block_attend_plain_matches_pallas(quant, d):
-    x = _inputs(5, d=d)
+@pytest.mark.parametrize("quant,d,g", [
+    pytest.param(True, D, G, id="True"), pytest.param(False, D, G, id="False"),
+    pytest.param(False, 128, G, id="False-d128"),  # the store pipeline, bf16
+    *(pytest.param(False, d, g, id=f"False-d{d}-g{g}") for d, g in NEW_FORMS)])
+def test_block_attend_plain_matches_pallas(quant, d, g):
+    x = _inputs(5, d=d, g=g)
     fold = _fold(d)
     k, ks = (x["kq"], x["ks"]) if quant else (x["k"], None)
     v, vs = (x["vq"], x["vs"]) if quant else (x["v"], None)

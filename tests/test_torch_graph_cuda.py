@@ -313,6 +313,75 @@ def test_cuda_graphed_step_equals_eager_llama_3b_width(cuda, lsh, forms):
         assert torch.equal(g, e), f"step {step}: max |diff| {(g - e).abs().max()}"
 
 
+# SmolLM2-360M as its published config.json gives it
+# (huggingface.co/HuggingFaceTB/SmolLM2-360M, config.json).
+SMOLLM2_360M = dict(
+    architectures=["LlamaForCausalLM"], vocab_size=49152, hidden_size=960,
+    intermediate_size=2560, num_hidden_layers=32, num_attention_heads=15,
+    num_key_value_heads=5, hidden_act="silu", rms_norm_eps=1e-5,
+    rope_theta=100000, rope_scaling=None, max_position_embeddings=8192,
+    tie_word_embeddings=True, bos_token_id=0, eos_token_id=0,
+    torch_dtype="bfloat16")
+
+
+def _graphed_equals_eager(llm, dense, forms):
+    """8 graphed steps against the eager step on the same inputs: logits
+    bit for bit, the same launches (`dense` twice a step, each of `forms`
+    once)."""
+    prompts = _prompts(llm)
+    first = _prefill(llm, prompts)
+    reset_launches()
+    inputs, graphed = _run(llm.inference, first, 8)
+    counted = dict(LAUNCHES)
+    assert llm._graph is not None
+    assert counted[dense] == 16
+    for name in forms:
+        assert counted[name] == 8, name
+    assert sum(counted.values()) == 16 + 8 * len(forms)
+    llm.clear()
+    _prefill(llm, prompts)
+    reset_launches()
+    eager = [llm._decode(tokens)[0] for tokens in inputs]
+    assert dict(LAUNCHES) == counted
+    for step, (g, e) in enumerate(zip(graphed, eager)):
+        assert torch.equal(g, e), f"step {step}: max |diff| {(g - e).abs().max()}"
+
+
+@pytest.mark.parametrize("lsh,forms", [
+    (LSHConfig(), ("lsh_fused_decode_g3",)),
+    (LSHConfig(K=8, L=75), ("collision_words", "lsh_masked_attention_g3")),
+    (LSHConfig(estimator="block_topk", offload_quant="int8"),
+     ("block_rank_g3", "rescore_attend_g3"))],
+    ids=["lsh", "odd_l", "block_topk_int8"])
+def test_cuda_graphed_step_equals_eager_smollm2_width(cuda, lsh, forms):
+    """Two layers at SmolLM2-360M's width (hidden 960, 15/5 heads of 64:
+    group size 3 at head dim 64, the kernels' general tile; tied
+    embeddings; the config from its config.json values through
+    `from_hf_config`; layer 0 dense, layer 1 sparse) under LSH, odd L and
+    block_topk over int8 offload: the "_g3" forms in the graphed step, bit
+    for bit the eager step's, the same launches counted."""
+    from magicpig_tpu_torch.config import ModelConfig
+
+    cfg = ModelConfig.from_hf_config(dict(SMOLLM2_360M, num_hidden_layers=2),
+                                     name="smollm2-360m")
+    llm = LLM(cfg, batch_size=2, max_length=2048,
+              lsh=dataclasses.replace(lsh, dense_layers=(0,)), device=cuda,
+              seed=3)
+    _graphed_equals_eager(llm, "flash_decode_g3", forms)
+
+
+@pytest.mark.parametrize("d", [16, 32])
+def test_cuda_graphed_step_equals_eager_small_head_dims(cuda, d):
+    """Two layers of llama-tiny (8/2 heads of 16) and of the same model at
+    head dim 32 under LSH K=10, L=150: the "_d16" / "_d32" forms in the
+    graphed step, bit for bit the eager step's."""
+    cfg = dataclasses.replace(preset("llama-tiny"), num_hidden_layers=2,
+                              head_dim=d)
+    llm = LLM(cfg, batch_size=2, max_length=2048,
+              lsh=LSHConfig(dense_layers=(0,)), device=cuda, seed=3)
+    _graphed_equals_eager(llm, f"flash_decode_d{d}", (f"lsh_fused_decode_d{d}",))
+
+
 def test_cuda_graphed_step_equals_eager_llama_8b_width_block_topk4(cuda):
     """Two layers at Llama-3.1-8B width under `bench.py`'s block_topk4 mode
     (W8A8 fused weights; layer 0 dense over int8 K/V, layer 1 block_topk

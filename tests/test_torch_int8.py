@@ -123,6 +123,9 @@ def _int8_kv(rng, b, hkv, s, d):
     (2, 2, 2, 256, 128),
     (3, 2, 4, 512, 16),
     (2, 2, 4, 256, 128),     # Llama-3.1-8B's head dim and group size
+    (2, 2, 3, 256, 64),      # the general tile's group sizes, the small
+    (2, 1, 16, 256, 128),    # head dims
+    (2, 2, 6, 256, 32),
 ])
 def test_flash_decode_int8_plain_matches_pallas(B, HKV, G, S, D):
     """Request 1 ends mid-block (37 tokens), request 2 is empty."""
@@ -149,6 +152,9 @@ def test_flash_decode_int8_plain_matches_pallas(B, HKV, G, S, D):
     (1, 2, 2, 512, 16, 10, 30),
     (2, 2, 4, 256, 64, 10, 150),
     (2, 2, 4, 256, 128, 6, 20),    # head dim 128, group 4: bench lsh at 8B
+    (1, 2, 3, 256, 64, 6, 20),     # the general tile's group sizes, the
+    (1, 1, 16, 256, 128, 6, 20),   # small head dims
+    (1, 2, 6, 256, 32, 6, 20),
 ])
 def test_lsh_int8_plain_matches_pallas_fused(B, HKV, G, S, D, K, L):
     """int8 centered keys and values; norms and signatures of the

@@ -67,6 +67,8 @@ def _np(x):
     (1, 2, 4, 128, 384, 64, [256], [128], None),         # query offset
     (1, 2, 1, 256, 256, 32, [256], [0], None),           # GQA group of 1
     (2, 2, 4, 256, 256, 128, [256, 150], [0, 0], None),  # d = 128 (8B)
+    (1, 2, 6, 128, 384, 32, [300], [128], 100),          # d = 32, G = 6
+    (1, 1, 16, 128, 256, 16, [200], [0], None),          # d = 16, G = 16
 ])
 def test_flash_prefill_plain_matches_pallas(B, HKV, G, SQ, SKV, D, lengths,
                                             offsets, window):
@@ -93,6 +95,15 @@ def test_flash_prefill_plain_matches_pallas(B, HKV, G, SQ, SKV, D, lengths,
     (3, 2, 4, 256, 64),
     (2, 2, 2, 256, 128),
     (2, 2, 4, 512, 16),
+    # The kernels' general tile (every group size but 1, 2, 4, 8, and 3 at
+    # d = 128) and the small head dims, as the card runs them.
+    (2, 2, 3, 256, 64),
+    (2, 2, 5, 256, 128),
+    (2, 2, 6, 256, 64),
+    (2, 1, 7, 256, 128),
+    (2, 1, 16, 256, 128),
+    (2, 2, 4, 256, 32),
+    (2, 2, 6, 256, 16),
 ])
 def test_flash_decode_plain_matches_pallas(B, HKV, G, S, D):
     rng = np.random.default_rng(1)
@@ -137,6 +148,14 @@ def _port_planes(kc, proj, K):
     (1, 2, 2, 512, 16, 10, 30),
     (1, 2, 4, 256, 64, 6, 21),      # odd L: the two-stage Pallas form
     (2, 2, 4, 256, 128, 6, 20),     # d = 128 (8B), even L: one kernel
+    # The general tile's group sizes and the small head dims.
+    (1, 2, 3, 256, 64, 6, 20),      # SmolLM2-360M's group of 3 at d = 64
+    (1, 2, 5, 256, 128, 6, 21),
+    (1, 1, 6, 256, 128, 6, 20),     # Mistral-Small-2409's group of 6
+    (1, 1, 7, 256, 64, 6, 21),
+    (1, 1, 16, 256, 128, 6, 20),    # Llama-3.1-405B's group of 16
+    (1, 2, 4, 256, 32, 6, 20),
+    (1, 2, 4, 512, 16, 6, 21),      # llama-tiny's head shape, odd L
 ])
 def test_lsh_plain_matches_pallas_fused_decode(B, HKV, G, S, D, K, L):
     q, kc, v, proj, length = _lsh_inputs(3, B, HKV, G, S, D, K, L)
@@ -148,8 +167,8 @@ def test_lsh_plain_matches_pallas_fused_decode(B, HKV, G, S, D, K, L):
     jqb = jbits.hash_bits(jnp.asarray(q), jnp.asarray(proj), K)
     jo, jl, jc = j_lsh_fused_decode(
         jnp.asarray(q), jnp.asarray(kc), jnp.asarray(v), jnp.asarray(knorm),
-        jplanes, jqb, jnp.asarray(length), K, L, block_tokens=128,
-        interpret=True)
+        jplanes, jqb, jnp.asarray(length), K, L,
+        block_tokens=max(128, 32 * fold), interpret=True)
     qb = tbits.hash_bits(_t(q), _t(proj), K)
     to, tl, tc = lsh_fused_decode(_t(q), _t(kc), _t(v), _t(knorm),
                                   _port_planes(kc, proj, K), qb, _t(length),

@@ -68,6 +68,13 @@ from magicpig_tpu_torch.ops.kernels.block_score import (
     block_scores_plain,
     exact_scores_plain,
 )
+from magicpig_tpu_torch.ops.kernels.flash_decode import head_suffix
+from magicpig_tpu_torch.ops.kernels.flash_decode import (
+    launch_name as decode_launch_name,
+)
+from magicpig_tpu_torch.ops.kernels.lsh_fused import (
+    launch_name as fused_launch_name,
+)
 from magicpig_tpu_torch.ops.kernels.lsh_fused import lsh_fused_decode_plain
 from magicpig_tpu_torch.ops.kernels.lsh_masked import (
     launch_attend,
@@ -90,6 +97,18 @@ W4_TOL = (0.0, 0.0, 1e-5)
 # The group sizes of the d = 128 forms (3: Llama-3.2-3B's 24 query heads
 # over 8) and of the collision scan, which has no head dim.
 G128 = [1, 2, 3, 4, 8]
+# The forms of the kernels' general tile and of the small head dims, as
+# (head dim, group size): the group sizes with no exact instance at head
+# dims 64 and 128 (SmolLM2-360M's 3 at 64; 5; Mistral-Small-2409's 6;
+# Yi-34B's 7; Llama-3.1-405B's 16, two blocks a kv head) and head dims 16
+# and 32 (llama-tiny: 4 at 16), each at a group size of one block and one
+# of two or more.
+NEW_FORMS = [(64, 3), (64, 5), (64, 6), (64, 7), (64, 16), (128, 5),
+             (128, 6), (128, 7), (128, 16), (16, 1), (16, 4), (16, 6),
+             (32, 4), (32, 16)]
+NEW_FORM_IDS = [f"d{d}-g{g}" for d, g in NEW_FORMS]
+# The group sizes of the general tile in the collision scan (no head dim).
+SCAN_NEW_GROUPS = [5, 6, 7, 16]
 
 
 @pytest.fixture
@@ -107,6 +126,37 @@ def _assert_within(got, want, atol=0.0, rtol=0.0, rms_share=0.0):
     rms = float(finite.square().mean().sqrt()) if finite.numel() else 0.0
     torch.testing.assert_close(got.float(), want.float(),
                                atol=atol + rms_share * rms, rtol=rtol)
+
+
+# The bf16 rounding of a sampled attend's P.V operand, p times the V scale:
+# the kernel rounds each split's p against the split's running max, the
+# plain version against the head's, so each term of the sum may round an
+# ulp apart (2^-9 of it each way). The new forms' LSH tests add this
+# bound, 2^-8 of sum(p |v|) / sum(p), to 0.015 of the rms
+# (`_output_check`): with few sampled keys in a head one key can carry a
+# whole output value, and where a request's last split holds one token
+# (513 tokens) the rms limit alone was passed by 1.04-1.06x on 1 of
+# 5376-12288 values (G = 7 int8, G = 16 bf16, d = 64).
+ROUNDING_ULPS = 2.0 ** -8
+
+
+def _output_check(plain, args, rounding: bool, v_at: int = 2):
+    """The check of a sampled attend's output against its plain version
+    `plain(*args)`: within 0.015 of the rms, plus (with `rounding`)
+    ROUNDING_ULPS times the plain attend over |V| (the same p, the same
+    scales), elementwise."""
+    if not rounding:
+        return lambda got, want: _assert_within(got, want, rms_share=0.015)
+    args = list(args)
+    args[v_at] = args[v_at].abs()
+    bound = ROUNDING_ULPS * plain(*args)[0].float()
+
+    def check(got, want):
+        finite = want[torch.isfinite(want)].float()
+        rms = float(finite.square().mean().sqrt()) if finite.numel() else 0.0
+        excess = (got.float() - want.float()).abs() - 0.015 * rms - bound
+        assert not torch.isnan(excess).any() and float(excess.max()) <= 0.0
+    return check
 
 
 def _bf16(rng, *shape, device):
@@ -255,9 +305,10 @@ def test_cuda_flash_decode_edges(cuda, int8, g, capacity):
     assert _kernel_launches(lambda: flash_decode(q, k, v, length, ks, vs)) == 3
 
 
-# flash_decode's `start` forms: (head dim, group size), every group size
-# `_lib.check_group` takes at each head dim.
-START_FORMS = [(64, g) for g in (1, 2, 4, 8)] + [(128, g) for g in G128]
+# flash_decode's `start` forms: (head dim, group size), the exact
+# instances, then the general tile's and the small head dims' forms.
+START_FORMS = ([(64, g) for g in (1, 2, 4, 8)] + [(128, g) for g in G128]
+               + NEW_FORMS)
 
 
 @pytest.mark.parametrize("d,g", START_FORMS)
@@ -296,11 +347,10 @@ def test_cuda_flash_decode_start_matches_plain(cuda, int8, d, g):
                 x[i, :, rows] = float("nan")
     length = torch.tensor(lens, dtype=torch.int32, device=cuda)
     start = torch.tensor(starts, dtype=torch.int32, device=cuda)
-    name = ("flash_decode" + ("_int8" if int8 else "")
-            + ("" if d == 64 else f"_d{d}"))
+    name = decode_launch_name(int8, d, g)
     before = dict(LAUNCHES)
     o, l = flash_decode(q, k, v, length, ks, vs, start)
-    assert LAUNCHES[name] == before[name] + 1
+    assert LAUNCHES[name] == before.get(name, 0) + 1
     assert sum(LAUNCHES.values()) == sum(before.values()) + 1
     kz, vz, ksz, vsz = zeroed
     po, pl = tatt.full_decode(q, kz, vz, length, ksz, vsz, start)
@@ -585,7 +635,7 @@ def _poison_past_length(planes, qb, length):
 
 
 @pytest.mark.parametrize("W", [77, 100])
-@pytest.mark.parametrize("g", G128)
+@pytest.mark.parametrize("g", G128 + SCAN_NEW_GROUPS)
 def test_cuda_collision_words_lengths_and_poison(cuda, g, W):
     """K 1, 10, 16 by L 1, 2, 3, 75, 150; lengths 0, 1, 31, 32, 33, a mid
     value and the full capacity. W = 77 takes cp.async for every tile (TMA
@@ -615,9 +665,10 @@ def test_cuda_collision_words_lengths_and_poison(cuda, g, W):
             if L > 1:    # read, the poison collides (request 0: every word)
                 seen = tbits.collision_words(qb.cpu(), poisoned.cpu())
                 assert (seen[0, ::g] == -1).all() and not want_len[0].any()
-            before = LAUNCHES["collision_words"]
+            name = "collision_words" + ("" if g in G128 else f"_g{g}")
+            before = LAUNCHES.get(name, 0)
             assert torch.equal(collision_words(qb, poisoned, length).cpu(), want_len)
-            assert LAUNCHES["collision_words"] == before + 1
+            assert LAUNCHES[name] == before + 1
             for bw in (1, 4, 16, 64):
                 assert torch.equal(launch_scan(qb, planes, None, bw).cpu(), want)
                 assert torch.equal(launch_scan(qb, poisoned, length, bw).cpu(),
@@ -737,13 +788,13 @@ def _block_scorer_edges(cuda, kind, g, d):
     pk = pack_k4 if kind == "int4" else (lambda x: x)
     length = torch.tensor(lens, dtype=torch.int32, device=cuda)
     want_s, want_m = block_scores_plain(q, pk(kz), ksz, length, bs)
-    suffix = ("_int4" if kind == "int4" else "") + ("" if d == 64 else f"_d{d}")
+    suffix = ("_int4" if kind == "int4" else "") + head_suffix(d, g)
     before = dict(LAUNCHES)
     got_m = block_rank(q, pk(k), ks, length, bs)
     got_s, got_m2 = exact_scores_ranked(q, pk(k), ks, length, bs)
-    assert LAUNCHES["block_rank" + suffix] == before["block_rank" + suffix] + 1
+    assert LAUNCHES["block_rank" + suffix] == before.get("block_rank" + suffix, 0) + 1
     assert (LAUNCHES["exact_scores_ranked" + suffix]
-            == before["exact_scores_ranked" + suffix] + 1)
+            == before.get("exact_scores_ranked" + suffix, 0) + 1)
     atol, rtol, _ = SCORE_TOL
     for got, want in ((got_s, want_s), (got_m, want_m), (got_m2, want_m)):
         assert not torch.isnan(got).any()
@@ -826,9 +877,11 @@ def test_cuda_lsh_masked_attention_edges(cuda, debias, int8, g):
 
 
 def _masked_edges(cuda, debias, int8, g, d, kernels_of,
-                  splits=(32, 1024, 2048)):
+                  splits=(32, 1024, 2048), rounding=False):
     """`test_cuda_lsh_masked_attention_edges` at head dim d, one kernel a
-    call counted by `kernels_of` (three calls), at each of `splits`."""
+    call counted by `kernels_of` (three calls), at each of `splits`; with
+    `rounding`, the outputs within the P.V operand's rounding bound too
+    (`_output_check`)."""
     args, _, _ = _masked_edge_case(cuda, int8, g, d=d)
     args = (*args, debias)
     q, k, v, kn, words, length, K, L, ks, vs, _ = args
@@ -836,15 +889,16 @@ def _masked_edges(cuda, debias, int8, g, d, kernels_of,
     mask = tbits.unpack_words(words & tbits.valid_words(length, s // 32)[:, None], s)
     poisoned, zeroed = _poison_unsampled(args[:-1], mask)
     poisoned, zeroed = (*poisoned, debias), (*zeroed, debias)
-    name = masked_launch_name(int8, debias, d)
+    name = masked_launch_name(int8, debias, d, g)
     before = dict(LAUNCHES)
     o, l, c = lsh_masked_attention(*poisoned)
-    assert LAUNCHES[name] == before[name] + 1
+    assert LAUNCHES[name] == before.get(name, 0) + 1
     assert sum(LAUNCHES.values()) == sum(before.values()) + 1
     po, pl, pc = lsh_masked_attention_plain(*zeroed)
+    check = _output_check(lsh_masked_attention_plain, zeroed, rounding)
     assert torch.equal(c, pc)
     assert torch.isfinite(o).all() and not torch.isnan(l).any()
-    _assert_within(o, po, rms_share=0.015)
+    check(o, po)
     _assert_within(l, pl, atol=1e-4, rtol=1e-5)
     empty = pc == 0
     assert empty[0, 1] and empty[3].all() and empty[4].all()
@@ -859,7 +913,7 @@ def _masked_edges(cuda, debias, int8, g, d, kernels_of,
                                    poisoned[9], poisoned[3], (words,), length,
                                    K, L, debias, split=split)
         assert torch.equal(sc, pc)
-        _assert_within(so, po, rms_share=0.015)
+        check(so, po)
         _assert_within(sl, pl, atol=1e-4, rtol=1e-5)
 
 
@@ -1038,14 +1092,14 @@ def _attend_chunk_edges(cuda, kind, g, d, kernels_of):
             io, il = launch_rescore_attend(q, ids, k, ks, v, vs, length, bs,
                                            chunk)
             assert torch.equal(io, o) and torch.equal(il, l)
-    suffix = "" if d == 64 else f"_d{d}"
+    suffix = head_suffix(d, g)
     name = "rescore_attend" + ("_int4" if kind == "int4" else "") + suffix
     before = dict(LAUNCHES)
     rescore_attend(*args)
     block_attend(scores, ids, v, vs, bs)
-    assert LAUNCHES[name] == before[name] + 1
+    assert LAUNCHES[name] == before.get(name, 0) + 1
     assert (LAUNCHES["block_attend" + suffix]
-            == before["block_attend" + suffix] + 1)
+            == before.get("block_attend" + suffix, 0) + 1)
     assert sum(LAUNCHES.values()) == sum(before.values()) + 2
     assert kernels_of(lambda: rescore_attend(*args)) == 3
     assert kernels_of(lambda: block_attend(scores, ids, v, vs, bs)) == 3
@@ -1116,8 +1170,22 @@ def test_cuda_d128_flash_prefill_edges(cuda, g, sq):
     length < Skv, a window, the LSE; cache rows past each length NaN, held
     to the plain version on the tail-zeroed cache; counted as
     "flash_prefill_d128"."""
+    _prefill_edges(cuda, g, sq, 128)
+
+
+@pytest.mark.parametrize("sq", [1, 129, 1000])
+@pytest.mark.parametrize("g", [1, 4, 6])
+@pytest.mark.parametrize("d", [16, 32])
+def test_cuda_small_d_flash_prefill_edges(cuda, d, g, sq):
+    """The prefill edges at head dims 16 and 32 (one 64-column TMA box a
+    tile, its columns past d zero-filled; S over d / 16 k-steps), counted
+    as "flash_prefill_d16" / "_d32"."""
+    _prefill_edges(cuda, g, sq, d)
+
+
+def _prefill_edges(cuda, g, sq, d):
     rng = np.random.default_rng(31)
-    hkv, offs, d = 2, [200, 50], 128
+    hkv, offs = 2, [200, 50]
     skv = sq + 237
     lens = [200 + sq, 50 + max(sq - 3, 1)]
     q = _bf16(rng, 2, sq, g * hkv, d, device=cuda)
@@ -1131,11 +1199,12 @@ def test_cuda_d128_flash_prefill_edges(cuda, g, sq):
         vz[b, n:] = 0
     length = torch.tensor(lens, dtype=torch.int32, device=cuda)
     offset = torch.tensor(offs, dtype=torch.int32, device=cuda)
+    name = f"flash_prefill_d{d}"
     for window in (None, 77):
         before = dict(LAUNCHES)
         o, l = flash_prefill(q, k, v, length, offset, window=window,
                              return_lse=True)
-        assert LAUNCHES["flash_prefill_d128"] == before["flash_prefill_d128"] + 1
+        assert LAUNCHES[name] == before[name] + 1
         assert sum(LAUNCHES.values()) == sum(before.values()) + 1
         po, pl = tatt.flash_prefill(q, kz, vz, length, offset, window=window,
                                     return_lse=True)
@@ -1226,9 +1295,11 @@ def test_cuda_d128_lsh_fused_forms_match_plain(cuda, g, form):
 
 
 def _lsh_fused_d128_case(cuda, g, K, L, int8, debias, planted,
-                         splits=(32, 2048)):
+                         splits=(32, 2048), d=128, rounding=False):
+    """The fused kernel at head dim d against its plain version (with
+    `rounding`, within the P.V operand's rounding bound too)."""
     rng = np.random.default_rng(33)
-    hkv, S, d = 2, 2048, 128
+    hkv, S = 2, 2048
     lens = [S, 1337, 0]
     B = len(lens)
     q = _bf16(rng, B, g * hkv, d, device=cuda)
@@ -1255,16 +1326,16 @@ def _lsh_fused_d128_case(cuda, g, K, L, int8, debias, planted,
         (q, k, v, kn, None, length, K, L, ks, vs), mask)
     pick = lambda a: (*a[:4], planes, qb, length, K, L, a[8], a[9],  # noqa: E731
                       debias)
-    name = ("lsh_fused_decode" + ("_int8" if int8 else "")
-            + ("" if debias == "exact" else f"_{debias}") + "_d128")
+    name = fused_launch_name(int8, debias, d, g)
     before = dict(LAUNCHES)
     o, l, c = lsh_fused_decode(*pick(poisoned))
-    assert LAUNCHES[name] == before[name] + 1
+    assert LAUNCHES[name] == before.get(name, 0) + 1
     assert sum(LAUNCHES.values()) == sum(before.values()) + 1
     po, pl, pc = lsh_fused_decode_plain(*pick(zeroed))
+    check = _output_check(lsh_fused_decode_plain, pick(zeroed), rounding)
     assert torch.equal(c, pc) and (pc[:2] > 0).all() and (pc[2] == 0).all()
     assert torch.isfinite(o).all()
-    _assert_within(o, po, rms_share=0.015)
+    check(o, po)
     _assert_within(l, pl, atol=1e-4, rtol=1e-5)
     if debias != "exact":
         exact = lsh_fused_decode(*pick(poisoned)[:-1])[0]
@@ -1277,7 +1348,7 @@ def _lsh_fused_d128_case(cuda, g, K, L, int8, debias, planted,
                                    p[2], p[9], p[10], p[3], (planes, qb),
                                    length, K, L, debias, split=split)
         assert torch.equal(sc, pc)
-        _assert_within(so, po, rms_share=0.015)
+        check(so, po)
         _assert_within(sl, pl, atol=1e-4, rtol=1e-5)
 
 
@@ -1363,21 +1434,139 @@ def test_cuda_d128_lsh_masked_attention_edges(cuda, debias, int8, g):
         splits=(1024, 2048) if int8 else (32, 1024, 2048))
 
 
+@pytest.mark.parametrize("capacity", [384, 16384])
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("d,g", NEW_FORMS, ids=NEW_FORM_IDS)
+def test_cuda_new_forms_flash_decode_edges(cuda, d, g, int8, capacity):
+    """The decode edges (`test_cuda_flash_decode_edges`) in the general
+    tile's forms and at head dims 16 and 32: ragged and zero lengths around
+    every tile and split edge, rows (bf16) or scales (int8) past each
+    length NaN, held to the plain version on the tail-zeroed cache; one
+    kernel a call (a captured graph's kernel nodes), counted under the
+    form's name ("_d16", "_g6", ...), and a second call equal to the first
+    (every sub-group's ticket was reset)."""
+    rng = np.random.default_rng(36)
+    hkv = 2
+    lens = [min(n, capacity) for n in (0, 1, 63, 64, 65, 511, 512, 513, capacity)]
+    b = len(lens)
+    q = _bf16(rng, b, g * hkv, d, device=cuda)
+    k = _bf16(rng, b, hkv, capacity, d, device=cuda)
+    v = _bf16(rng, b, hkv, capacity, d, device=cuda)
+    ks = vs = None
+    if int8:
+        k, ks = quantize_rows(k)
+        v, vs = quantize_rows(v)
+    zeroed = [x.clone() if x is not None else None for x in (k, v, ks, vs)]
+    for i, n in enumerate(lens):
+        for x in zeroed:
+            if x is not None:
+                x[i, :, n:] = 0
+        for x in ((ks, vs) if int8 else (k, v)):
+            x[i, :, n:] = float("nan")
+    length = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    name = decode_launch_name(int8, d, g)
+    before = dict(LAUNCHES)
+    o, l = flash_decode(q, k, v, length, ks, vs)
+    assert LAUNCHES[name] == before.get(name, 0) + 1
+    assert sum(LAUNCHES.values()) == sum(before.values()) + 1
+    kz, vz, ksz, vsz = zeroed
+    po, pl = tatt.full_decode(q, kz, vz, length, ksz, vsz)
+    assert torch.isfinite(o).all() and not torch.isnan(l).any()
+    _assert_within(o, po, rms_share=0.015)
+    _assert_within(l, pl, atol=1e-4, rtol=1e-5)
+    assert (o[0] == 0).all() and torch.isneginf(l[0]).all()
+    o2, l2 = flash_decode(q, k, v, length, ks, vs)
+    assert torch.equal(o, o2) and torch.equal(l, l2)
+    assert _kernel_launches(lambda: flash_decode(q, k, v, length, ks, vs)) == 3
+
+
+@pytest.mark.parametrize("K,L", [(10, 150), (1, 32)])
+@pytest.mark.parametrize("d,g", NEW_FORMS, ids=NEW_FORM_IDS)
+def test_cuda_new_forms_lsh_fused_matches_plain(cuda, d, g, K, L):
+    """`test_cuda_d128_lsh_fused_matches_plain` in the general tile's forms
+    and at head dims 16 and 32: keys planted near each head's query, every
+    unsampled row and norm NaN, counts exact, one kernel a call, splits of
+    32 and 2048 tokens; at K=1, L=32 more rows than a pass holds."""
+    _lsh_fused_d128_case(cuda, g, K, L, False, "exact", planted=True, d=d,
+                         rounding=True)
+
+
+# The fused kernel's other forms: at one new group size a head dim and at
+# each small head dim (the general tile's instances read the debias form
+# from their arguments, one instance a K/V type and head dim).
+FUSED_FORM_CASES = [(64, 6), (128, 16), (16, 4), (32, 4)]
+
+
+@pytest.mark.parametrize("form", [(False, "poly"), (False, "none"),
+                                  (True, "exact"), (True, "poly"),
+                                  (True, "none")])
+@pytest.mark.parametrize("d,g", FUSED_FORM_CASES,
+                         ids=[f"d{d}-g{g}" for d, g in FUSED_FORM_CASES])
+def test_cuda_new_forms_lsh_fused_forms_match_plain(cuda, d, g, form):
+    """`test_cuda_d128_lsh_fused_forms_match_plain` in new forms: random
+    keys, K=10, L=150, each of the five other forms."""
+    int8, debias = form
+    _lsh_fused_d128_case(cuda, g, 10, 150, int8, debias, planted=False,
+                         splits=(2048,), d=d, rounding=True)
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("debias", ["exact", "poly", "none"])
+@pytest.mark.parametrize("d,g", NEW_FORMS, ids=NEW_FORM_IDS)
+def test_cuda_new_forms_lsh_masked_attention_edges(cuda, d, g, debias, int8):
+    """`test_cuda_lsh_masked_attention_edges` in the general tile's forms
+    and at head dims 16 and 32, each of the six forms (the wrapper's split
+    and 1024 and 2048 tokens besides; 32 for bf16), the outputs within 0.015
+    of the rms plus the P.V operand's rounding bound (`_output_check`)."""
+    _masked_edges(cuda, debias, int8, g, d, _kernel_launches,
+                  splits=(1024, 2048) if int8 else (32, 1024, 2048),
+                  rounding=True)
+
+
+# (head dim, group size, K kind) of the block kernels' new forms: packed
+# int4 K at head dims 64 and 128 only, where the JAX package packs K.
+BLOCK_NEW_CASES = [(d, g, kind) for d, g in NEW_FORMS
+                   for kind in ("bf16", "int8", "int4")
+                   if kind != "int4" or d >= 64]
+BLOCK_NEW_IDS = [f"d{d}-g{g}-{kind}" for d, g, kind in BLOCK_NEW_CASES]
+
+
+@pytest.mark.parametrize("d,g,kind", BLOCK_NEW_CASES, ids=BLOCK_NEW_IDS)
+def test_cuda_new_forms_block_scorer_edges(cuda, d, g, kind):
+    """`test_cuda_block_scorer_edges` in the general tile's forms (a block
+    scores every head of its kv head, in sub-groups of at most 8, so the
+    block max spans the group) and at head dims 16 and 32 (rows read as 64
+    channels, zero past d)."""
+    _block_scorer_edges(cuda, kind, g, d)
+
+
+@pytest.mark.parametrize("d,g,kind", BLOCK_NEW_CASES, ids=BLOCK_NEW_IDS)
+def test_cuda_new_forms_attend_chunk_edges(cuda, d, g, kind):
+    """`test_cuda_attend_chunk_edges` in the general tile's forms (each
+    sub-group of at most 8 heads its own chunks and merge) and at head dims
+    16 and 32 (P.V on d / 16 warps): lengths, ids of -1 and past the last
+    block, NaN past each length, chunks of 64 to 512 tokens, the two
+    pipelines bit for bit, packed int4 equal to int8; one kernel a call."""
+    _attend_chunk_edges(cuda, kind, g, d, _kernel_launches)
+
+
 def test_cuda_d128_other_forms_raise(cuda):
-    """The forms still to port raise ValueError before any launch: group
-    size 3 at head dim 64 (every decode-side kernel: the decode in bf16
-    and int8, both LSH kernels, the scorer and both attends), group size 5
-    at head dim 128 (and in the collision scan, which has no head dim), and
-    the masked attend at a head dim other than 64 and 128."""
+    """What the kernels still refuse raises ValueError before any launch: a
+    head dim that does not divide 128 (96, as the JAX package's prefill
+    refuses it) or is above 128 (256), in every kernel with a head dim (the
+    prefill, the decode in bf16 and int8, both LSH kernels, the scorer and
+    both attends), packed int4 K below head dim 64 in the scorer and the
+    rescore, and query heads that are not a multiple of the kv heads (6
+    over 4) in those and in the collision scan."""
     rng = np.random.default_rng(34)
     S, K, L, bs = 512, 4, 9, 512
     length = torch.tensor([S], dtype=torch.int32, device=cuda)
-    ids = torch.zeros((1, 2, 1), dtype=torch.int32, device=cuda)
     before = dict(LAUNCHES)
-    for d, hq in ((64, 6), (128, 10), (96, 8)):
+    for d, hq, hkv in ((96, 8, 2), (256, 8, 2), (64, 6, 4), (128, 6, 4)):
+        ids = torch.zeros((1, hkv, 1), dtype=torch.int32, device=cuda)
         q = _bf16(rng, 1, hq, d, device=cuda)
-        k = _bf16(rng, 1, 2, S, d, device=cuda)
-        v = _bf16(rng, 1, 2, S, d, device=cuda)
+        k = _bf16(rng, 1, hkv, S, d, device=cuda)
+        v = _bf16(rng, 1, hkv, S, d, device=cuda)
         kq, ks = quantize_rows(k)
         vq, vs = quantize_rows(v)
         kn = k.float().norm(dim=-1)
@@ -1390,27 +1579,36 @@ def test_cuda_d128_other_forms_raise(cuda):
             with pytest.raises(ValueError):
                 lsh_masked_attention(q, kk, vv, kn, words, length, K, L, ksc,
                                      vsc)
-            if d == 96:        # the other kernels take their head dims only
-                continue
             with pytest.raises(ValueError):
                 flash_decode(q, kk, vv, length, ksc, vsc)
             with pytest.raises(ValueError):
                 lsh_fused_decode(q, kk, vv, kn, planes, qb, length, K, L + 1,
                                  ksc, vsc)
-        if d == 96:
-            continue
+        with pytest.raises(ValueError):
+            flash_prefill(q[:, None], k.transpose(1, 2).contiguous(),
+                          v.transpose(1, 2).contiguous(), length)
         with pytest.raises(ValueError):
             block_rank(q, kq, ks, length, bs)
         with pytest.raises(ValueError):
             exact_scores_ranked(q, k, None, length, bs)
         with pytest.raises(ValueError):
             rescore_attend(q, ids, kq, ks, vq, vs, length, bs)
-        scores = torch.zeros((1, 2, hq // 2, S), device=cuda)
-        with pytest.raises(ValueError):
-            block_attend(scores, ids, v, None, bs)
-        if hq // 2 == 5:
+        if hq % hkv:         # the stored scores' shape gives the group
             with pytest.raises(ValueError):
                 collision_words(qb, planes)
+        else:
+            scores = torch.zeros((1, hkv, hq // hkv, S), device=cuda)
+            with pytest.raises(ValueError):
+                block_attend(scores, ids, v, None, bs)
+    for d in (16, 32):       # packed int4 K below head dim 64
+        q = _bf16(rng, 1, 8, d, device=cuda)
+        k4, ks4 = quantize_rows(_bf16(rng, 1, 2, S, d, device=cuda), bits=4)
+        vq, vs = quantize_rows(_bf16(rng, 1, 2, S, d, device=cuda))
+        ids = torch.zeros((1, 2, 1), dtype=torch.int32, device=cuda)
+        with pytest.raises(ValueError, match="int4"):
+            block_rank(q, pack_k4(k4), ks4, length, bs)
+        with pytest.raises(ValueError, match="int4"):
+            rescore_attend(q, ids, pack_k4(k4), ks4, vq, vs, length, bs)
     assert LAUNCHES == before
 
 

@@ -375,3 +375,108 @@ def test_ranks_run_on_the_card_unless_the_caller_asks_for_the_cpu(monkeypatch):
     with pytest.raises(ValueError, match="device"):
         launch(_never_called, 2, device="tpu")
     assert rank_device(1, "cpu") == torch.device("cpu")
+
+
+# -- synthetic_prefill on a sharded engine ------------------------------------------
+
+SYN_SEQ = 150
+SYN_MESHES = ((1, 2), (2, 1))
+
+
+def _state_numpy(state) -> dict:
+    """Copies of a DecodeState's tensors as numpy arrays (per-layer lists
+    as lists), taken before a decode step appends to the state in place."""
+    out = {}
+    for f in dataclasses.fields(state):
+        v = getattr(state, f.name)
+        out[f.name] = ([t.numpy().copy() for t in v] if isinstance(v, list)
+                       else v.numpy().copy())
+    return out
+
+
+def _synthetic_ranks(rank, tree, bank):
+    """Each estimator: on rank 0 the unsharded engine's state after
+    `synthetic_prefill` and its decode logits on fixed tokens; on every
+    rank, at each mesh of SYN_MESHES, its sharded engine's local state,
+    the same decode's logits and its (data, model) coordinate."""
+    from magicpig_tpu_torch.models.convert import params_from_numpy
+    from magicpig_tpu_torch.parallel.mesh import make_mesh, shard_engine
+    from magicpig_tpu_torch.runtime.engine import LLM
+    from magicpig_tpu_torch.runtime.synthetic import synthetic_prefill
+
+    _, tokens = _inputs()
+    cfg = ModelConfig(**CFG, dtype=torch.float32)
+    params = params_from_numpy(tree, device="cpu")
+    out = {}
+    for est in ESTIMATORS:
+        def engine():
+            return LLM(cfg, batch_size=B, max_length=MAX_LEN, chunk_size=CHUNK,
+                       params=params,
+                       lsh=LSHConfig(**ESTIMATORS[est], **LSH_KW),
+                       projections=torch.from_numpy(bank), device="cpu")
+
+        def decode(llm):
+            return np.stack([llm.inference(t).numpy() for t in tokens])
+
+        if rank == 0:
+            llm = synthetic_prefill(engine(), SYN_SEQ, seed=4)
+            out["unsharded", est] = _state_numpy(llm.state), decode(llm)
+        for nd, nm in SYN_MESHES:
+            llm = shard_engine(engine(), make_mesh(nd, nm))
+            synthetic_prefill(llm, SYN_SEQ, seed=4)
+            out[(nd, nm), est] = (_state_numpy(llm.state), decode(llm),
+                                  (llm.shard.d, llm.shard.m))
+    return out
+
+
+@pytest.fixture(scope="module")
+def synthetic_runs():
+    trees, bank = _weights()
+    return launch(_synthetic_ranks, 2, trees["f32"], bank, device="cpu",
+                  timeout=300)
+
+
+def _rank_slice(a: np.ndarray, heads: bool, nd: int, d: int, nm: int,
+                m: int) -> np.ndarray:
+    """Rank (d, m)'s part of an unsharded state array: by request, and by
+    kv head for the per-layer arrays (`parallel/mesh.py::shard_state`)."""
+    a = np.split(a, nd, axis=0)[d]
+    return np.split(a, nm, axis=1)[m] if heads else a
+
+
+@pytest.mark.parametrize("est", list(ESTIMATORS))
+@pytest.mark.parametrize("mesh", SYN_MESHES,
+                         ids=[f"{nd}x{nm}" for nd, nm in SYN_MESHES])
+def test_synthetic_prefill_fills_each_ranks_slice(synthetic_runs, mesh, est):
+    """On a sharded engine `synthetic_prefill` leaves each rank its slice
+    of the unsharded engine's state: every rank draws all heads of every
+    (layer, request) from the same generator, keeps its kv heads and its
+    requests. Lengths, positions, signature bits and int8 rows exactly;
+    float caches, means, norms and scales to 1e-6 (the same fills on fewer
+    heads); then the decode logits within the sharded engine's bound
+    (LOGIT_TOL), every rank's the same."""
+    nd, nm = mesh
+    full, full_dec = synthetic_runs[0]["unsharded", est]
+    decs = []
+    for rank in synthetic_runs:
+        state, dec, (d, m) = rank[mesh, est]
+        decs.append(dec)
+        for name, got in state.items():
+            want = full[name]
+            if name == "step":
+                np.testing.assert_array_equal(got, want)
+                continue
+            pairs = (zip(got, want) if isinstance(got, list)
+                     else [(got, want)])
+            for g, w in pairs:
+                w = _rank_slice(w, isinstance(got, list), nd, d, nm, m)
+                assert g.shape == w.shape, name
+                if np.issubdtype(g.dtype, np.floating):
+                    np.testing.assert_allclose(g, w, rtol=1e-6, atol=1e-6,
+                                               err_msg=name)
+                else:
+                    np.testing.assert_array_equal(g, w, err_msg=name)
+        assert state["pos"].tolist() == [SYN_SEQ] * (B // nd)
+        np.testing.assert_allclose(dec, full_dec, rtol=LOGIT_TOL,
+                                   atol=LOGIT_TOL)
+    np.testing.assert_array_equal(decs[0], decs[1])

@@ -90,6 +90,24 @@ HF_DICTS = {
         rms_norm_eps=1e-5, rope_theta=10000.0, max_position_embeddings=32768,
         sliding_window=4096, tie_word_embeddings=False, bos_token_id=1,
         eos_token_id=2),
+    # huggingface.co/HuggingFaceTB/SmolLM2-360M, config.json: 15 query heads
+    # over 5 of 64 (group size 3 at head dim 64), tied embeddings.
+    "smollm2_360m": dict(
+        vocab_size=49152, hidden_size=960, intermediate_size=2560,
+        num_hidden_layers=32, num_attention_heads=15, num_key_value_heads=5,
+        rms_norm_eps=1e-5, rope_theta=100000, rope_scaling=None,
+        max_position_embeddings=8192, tie_word_embeddings=True,
+        bos_token_id=0, eos_token_id=0),
+    # huggingface.co/meta-llama/Llama-3.1-405B, config.json: 128 query
+    # heads over 8 of 128 (group size 16).
+    "llama_31_405b": dict(
+        vocab_size=128256, hidden_size=16384, intermediate_size=53248,
+        num_hidden_layers=126, num_attention_heads=128, num_key_value_heads=8,
+        rms_norm_eps=1e-5, rope_theta=500000.0, max_position_embeddings=131072,
+        tie_word_embeddings=False, bos_token_id=128000, eos_token_id=128001,
+        rope_scaling=dict(rope_type="llama3", factor=8.0, low_freq_factor=1.0,
+                          high_freq_factor=4.0,
+                          original_max_position_embeddings=8192)),
 }
 
 
