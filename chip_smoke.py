@@ -22,8 +22,9 @@ Phases, each announced by one flushed progress line with elapsed seconds:
      the same: HGMMA and UTMALDG in the prefill at d = 16, UBLKCP in the
      decode, HMMA, UTMALDG and LDGSTS in the fused LSH kernel, HMMA and
      LDGSTS in the masked attend and the scorer, HMMA and UBLKCP in both
-     attends, TMA in the scan; the disassembly runs beside phase 2 and is
-     checked after it);
+     attends, TMA in the scan; HGMMA and UTMALDG in the training
+     backward's dK/dV and dQ kernels at d = 64 and 128, UBLKCP in dK/dV;
+     the disassembly runs beside phase 2 and is checked after it);
   2. kernels: each hand-written kernel against its plain PyTorch version at
      the shapes of the Llama-3.2-1B decode paths (Hq 32, Hkv 8, d 64;
      prefill 8192 and 12000 tokens, decode at the hot cache (B=2, capacity
@@ -249,10 +250,13 @@ Phases, each announced by one flushed progress line with elapsed seconds:
   5. train: the training attention's backward kernel (`flash_prefill_bwd`)
      against its plain version at the needle trainer's shape (B = 32, S =
      1024, 8/4 heads of 64), the RULER LM's (B = 8, S = 8192) and a cut with
-     a window of 1024, query offsets and lengths short of 4096 keys, within
-     `BWD_TOL` of each gradient's largest |value|, bit-equal from run to
-     run, one key tile's dV dropped rejected, SDPA's backward timed beside
-     each form (the window's through its mask); then
+     a window of 1024, query offsets and lengths short of 4096 keys, and at
+     every head dim and group size (`BWD_FORMS`: Llama-3.2-3B's 24/8 heads
+     of 128 at B = 2, S = 4096 and with the window cut, Llama-3.1-405B's
+     128/8, SmolLM2-360M's 15/5 of 64, llama-tiny's 8/2 at d 16 and 32),
+     within `BWD_TOL` of each gradient's largest |value|, bit-equal from
+     run to run, one key tile's dV dropped rejected, SDPA's backward timed
+     beside each form (the window's through its mask); then
      `examples/train_needle_torch.py` at full width (needle-12m, B = 32, S
      = 1024, 20 steps from the weights `init_params` draws on the CPU from
      seed 0) through the kernels and through their plain versions
@@ -267,7 +271,13 @@ Phases, each announced by one flushed progress line with elapsed seconds:
      steps) the same two ways; ms per step of both models, steps 1-2 of a
      3-step run of each profiled (device busy, idle share, kernels by
      device time), and the backward's time against its bound, with the
-     card's name and power limit.
+     card's name and power limit; then Llama-3.2-3B's width cut to 2
+     layers (`TRAIN_3B`: B = 2, S = 4096, 3 steps, seed 0's weights drawn
+     on the CPU) through `training` the same two ways and with the dq
+     fault, losses and every leaf's step-0 gradient held to the plain
+     versions', the fault rejected by both, launches counted under the d =
+     128 names, its last step profiled; and llama-tiny at d 16 and its d 32
+     twin, 3 steps each, losses held to the plain versions'.
 Any failure raises. The last two lines are the kernels' JSON and the result
 JSON; the card's name and power limit come just before them.
 """
@@ -496,6 +506,11 @@ SASS_KERNELS = {
     "rescore_attend_part_kernel d16": ("rescore_attend_part_kernel", "Li16EE"),
     "block_attend_part_kernel d32": ("block_attend_part_kernel", "Li32EE"),
     "collision_words_kernel tile": ("collision_words_kernel", "Li8ELb1E"),
+    # The training backward's two kernels at head dims 64 and 128.
+    "flash_bwd_dkdv_kernel": ("flash_bwd_dkdv_kernel", "ILi64E"),
+    "flash_bwd_dkdv_kernel d128": ("flash_bwd_dkdv_kernel", "ILi128E"),
+    "flash_bwd_dq_kernel": ("flash_bwd_dq_kernel", "ILi64E"),
+    "flash_bwd_dq_kernel d128": ("flash_bwd_dq_kernel", "ILi128E"),
 }
 SASS_OPS = ("HGMMA", "UTMALDG", "UBLKCP", "HMMA", "LDGSTS", "I2F")
 
@@ -554,7 +569,9 @@ def check_sass(counts) -> None:
     mma.sync and bulk copies; the same in the general tile's instances and
     at the small head dims (the prefill at d = 16, the decode at d = 16,
     the fused LSH kernel at d = 64, the masked attend, the scorer and the
-    rescore at d = 16, the block-attend at d = 32, the scan)."""
+    rescore at d = 16, the block-attend at d = 32, the scan); and in the
+    training backward's dK/dV and dQ kernels at head dims 64 and 128
+    warpgroup MMA and TMA, bulk copies (lse and delta) in dK/dV."""
     if counts.get("w4_matmul_kernel", {}).get("I2F", 1) != 0:
         raise AssertionError("w4_matmul_kernel: I2F in its SASS")
     for name, op in (("block_score_kernel", "HMMA"),
@@ -599,7 +616,12 @@ def check_sass(counts) -> None:
                          "rescore_attend_part_kernel d16",
                          "block_attend_part_kernel d32")
                        for op in ("HMMA", "UBLKCP")),
-                     ("collision_words_kernel tile", "UTMALDG")):
+                     ("collision_words_kernel tile", "UTMALDG"),
+                     *((f"flash_bwd_{part}_kernel{dim}", op)
+                       for part in ("dkdv", "dq") for dim in ("", " d128")
+                       for op in ("HGMMA", "UTMALDG")),
+                     ("flash_bwd_dkdv_kernel", "UBLKCP"),
+                     ("flash_bwd_dkdv_kernel d128", "UBLKCP")):
         if counts.get(name, {}).get(op, 0) == 0:
             raise AssertionError(f"{name}: no {op} instruction in its SASS")
 
@@ -5162,14 +5184,29 @@ NEEDLE_SEED = 0
 RULER_STEPS = 3
 RULER_POOL = 8
 JAX_NEEDLE_LOG = ROOT / "results" / "train_needle_jax_cpu" / "jax_cpu.log"
-# (row, batch, sq, skv, q_offset, kv_len, window): the needle trainer's
-# shape, the RULER LM's, and a cut with a window, offsets and lengths
-# short of the keys.
+# (row, batch, sq, skv, q_offset, kv_len, window, (hq, hkv, d)): the needle
+# trainer's shape, the RULER LM's, and a cut with a window, offsets and
+# lengths short of the keys, at their 8/4 heads of 64; then the forms of
+# every head dim and group size: Llama-3.2-3B's 24/8 heads of 128 (G = 3)
+# at the training run's B = 2, S = 4096, Llama-3.1-405B's 128/8 (G = 16),
+# SmolLM2-360M's 15/5 of 64 (G = 3), llama-tiny's 8/2 heads at d 16 (with
+# the window cut's offsets and lengths) and d 32, and the window cut at
+# the 3B's heads.
+_BWD_WINDOW = (4, 1024, 4096, (3000, 1500, 2000, 3072),
+               (4000, 2600, 3100, 4096), 1024)
 BWD_FORMS = (
-    ("flash_prefill_bwd", 32, 1024, 1024, (0,), (1024,), None),
-    ("flash_prefill_bwd_8192", 8, 8192, 8192, (0,), (8192,), None),
-    ("flash_prefill_bwd_window", 4, 1024, 4096, (3000, 1500, 2000, 3072),
-     (4000, 2600, 3100, 4096), 1024),
+    ("flash_prefill_bwd", 32, 1024, 1024, (0,), (1024,), None, (8, 4, 64)),
+    ("flash_prefill_bwd_8192", 8, 8192, 8192, (0,), (8192,), None,
+     (8, 4, 64)),
+    ("flash_prefill_bwd_window", *_BWD_WINDOW, (8, 4, 64)),
+    ("flash_prefill_bwd_d128_g3", 2, 4096, 4096, (0,), (4096,), None,
+     (24, 8, 128)),
+    ("flash_prefill_bwd_d128_g16", 1, 2048, 2048, (0,), (2048,), None,
+     (128, 8, 128)),
+    ("flash_prefill_bwd_g3", 4, 2048, 2048, (0,), (2048,), None, (15, 5, 64)),
+    ("flash_prefill_bwd_d16_window", *_BWD_WINDOW, (8, 2, 16)),
+    ("flash_prefill_bwd_d32", 4, 1024, 1024, (0,), (1024,), None, (8, 2, 32)),
+    ("flash_prefill_bwd_d128_g3_window", *_BWD_WINDOW, (24, 8, 128)),
 )
 
 
@@ -5187,17 +5224,15 @@ def visible_pairs(torch, sq: int, q_offset, kv_len, window) -> int:
 
 
 def bwd_kernel(torch, F, form) -> dict:
-    """flash_prefill_bwd against its plain version at one form (Hq 8, Hkv
-    4, d 64: both trained models), out and lse from the prefill kernel;
-    bit-equal repeats; one key tile's dV dropped rejected; SDPA's backward
-    beside it. The bound: the inputs read and gradients
-    written once, and five products of 2 d operations per visible (query,
-    key, head) triple (S recomputed, dP, dV, dK, dQ)."""
+    """flash_prefill_bwd against its plain version at one form, out and
+    lse from the prefill kernel; bit-equal repeats; one key tile's dV
+    dropped rejected; SDPA's backward beside it. The bound: the inputs read
+    and gradients written once, and five products of 2 d operations per
+    visible (query, key, head) triple (S recomputed, dP, dV, dK, dQ)."""
     from magicpig_tpu_torch.ops import attention
     from magicpig_tpu_torch.ops.kernels import flash_prefill, flash_prefill_bwd
 
-    name, b, sq, skv, off, kvl, window = form
-    hq, hkv, d = 8, 4, 64
+    name, b, sq, skv, off, kvl, window, (hq, hkv, d) = form
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(5)
 
@@ -5284,7 +5319,8 @@ def bwd_kernel(torch, F, form) -> dict:
     row = dict(max_abs_err=max(e[0] for e in errs.values()), tol=BWD_TOL,
                bound=bound_ms(nbytes, 5 * 2 * d * pairs),
                **timings(kernel, plain, library))
-    log(f"kernel {name} (B={b}, Sq={sq}, Skv={skv}, q_offset {form[4]}, "
+    log(f"kernel {name} (B={b}, Sq={sq}, Skv={skv}, {hq}/{hkv} heads of "
+        f"{d}, q_offset {form[4]}, "
         f"kv_len {form[5]} by request, window {window}): max abs err (share "
         f"of the limit, "
         f"{BWD_TOL} of the largest |grad|) "
@@ -5465,6 +5501,200 @@ def check_losses(label: str, got: list, want: list) -> float:
     return share
 
 
+# Llama-3.2-3B's width trained through `training` (no trainer example has
+# this model): the preset (hidden 3072, 24/8 heads of 128, G = 3, tied
+# embeddings, vocab 128256) cut from 28 layers to 2 (f32 weights and
+# AdamW's moments are 16 bytes a parameter; the cut keeps the run within
+# its time), B = 2, S = 4096, 3 steps on the needle trainer's batches and
+# masked loss, from the weights `init_params` draws on the CPU from seed 0.
+TRAIN_3B = dict(layers=2, batch=2, seq=4096, steps=3, lr=3e-4)
+
+
+def train_3b_config(torch):
+    import dataclasses
+
+    from magicpig_tpu_torch.config import preset
+
+    return dataclasses.replace(preset("llama-3.2-3b"),
+                               num_hidden_layers=TRAIN_3B["layers"],
+                               dtype=torch.float32)
+
+
+def train_run(torch, cfg, host_params, batches, route: str | None,
+              label: str, lr: float, profile_last: bool = False) -> dict:
+    """One optimizer step a batch of `batches` (tokens, target, mask) on
+    the card, from a copy of `host_params`, through the kernels or
+    `train_route(route)`: losses, every leaf's step-0 gradient (kept on the
+    card), ms per step 1 (and the last step's), launches (the prefill twice
+    a layer and step, the backward once, under their head dim's names; none
+    on the plain route); with `profile_last`, the last step under
+    torch.profiler (device busy, idle share, kernels by time)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from magicpig_tpu_torch import training
+    from magicpig_tpu_torch.ops.kernels import LAUNCHES, reset_launches
+    from magicpig_tpu_torch.ops.kernels.flash_prefill import (
+        bwd_launch_name,
+        launch_name,
+    )
+
+    params = host_params.to("cuda")
+    opt = training.adamw(params, lr)
+    steps = len(batches)
+    losses, ends, grads, prof = [], [], None, None
+    reset_launches()
+    torch.cuda.synchronize()
+    ends.append(time.perf_counter())
+    with train_route(torch, route):
+        for i, batch in enumerate(batches):
+            if profile_last and i == steps - 1:
+                prof = profile(activities=[ProfilerActivity.CPU,
+                                           ProfilerActivity.CUDA])
+                prof.start()
+            loss, _ = training.train_step(
+                params, cfg, opt, training.cosine_decay(lr, steps, i),
+                training.masked_loss, *batch)
+            losses.append(float(loss))          # waits for the device
+            if prof is not None:
+                torch.cuda.synchronize()
+                prof.stop()
+            ends.append(time.perf_counter())
+            if i == 0:
+                grads = [t.grad.detach().clone()
+                         for t in training.leaves(params)]
+                torch.cuda.synchronize()
+                ends[-1] = time.perf_counter()
+    launches = {k: n for k, n in LAUNCHES.items() if n}
+    layers = cfg.num_hidden_layers
+    expect = {} if route == TRAIN_PLAIN else {
+        launch_name(cfg.head_dim): 2 * layers * steps,
+        bwd_launch_name(cfg.head_dim): layers * steps}
+    if launches != expect:
+        raise AssertionError(f"train {label}: launches {launches} != {expect}")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"train {label}: losses {losses}")
+    run = dict(losses=losses, grads=grads, launches=launches,
+               step_ms=(ends[2] - ends[1]) * 1e3,
+               last_ms=(ends[-1] - ends[-2]) * 1e3)
+    log(f"train {label}: {steps} steps in {ends[-1] - ends[0]:.1f} s, "
+        f"{run['step_ms']:.1f} ms step 1; "
+        f"losses {[round(x, 4) for x in losses]}; launches {launches}")
+    if prof is not None:
+        busy, n, kernels = device_kernels(prof)
+        wall = run["last_ms"]
+        log(f"profile: train {label}: step {steps - 1}: device busy "
+            f"{busy:.3f} ms, wall {wall:.1f} ms under the profiler, idle "
+            f"share {1 - busy / wall:.3f} of it and "
+            f"{1 - busy / run['step_ms']:.3f} of the unprofiled "
+            f"{run['step_ms']:.1f} ms, {n} launches")
+        for e in kernels[:10]:
+            log(f"  {_device_us(e):9.1f} us  {e.count:5d} calls  "
+                f"{e.key[:70]}")
+        run["busy_ms"] = busy
+    del params, opt
+    return run
+
+
+def phase_train_3b(torch) -> dict:
+    """TRAIN_3B through the kernels, through their plain versions and with
+    the planted TRAIN_FAULT: each step's loss within TRAIN_LOSS_TOL of the
+    plain versions' and every leaf's step-0 gradient within
+    TRAIN_GRAD_TOL, the fault rejected by both."""
+    import numpy as np
+
+    sys.path.insert(0, str(ROOT / "examples"))
+    import train_needle_torch
+
+    from magicpig_tpu_torch.training import initial_params, leaves
+
+    cfg = train_3b_config(torch)
+    t = time.perf_counter()
+    host = initial_params(cfg, TRAIN_3B["seq"], 0, "cpu")
+    rng = np.random.default_rng(1)
+    batches = [[torch.from_numpy(x).cuda() for x in train_needle_torch.
+                make_batch(rng, TRAIN_3B["batch"], TRAIN_3B["seq"])]
+               for _ in range(TRAIN_3B["steps"])]
+    label = (f"llama-3.2-3b {TRAIN_3B['layers']} layers B={TRAIN_3B['batch']} "
+             f"S={TRAIN_3B['seq']}")
+    log(f"train {label}: {sum(x.numel() for x in leaves(host)) / 1e6:.0f} M "
+        f"parameters (the tied lm_head a leaf of its own, as in JAX's "
+        f"pytree) drawn on the CPU in {time.perf_counter() - t:.1f} s")
+    lr = TRAIN_3B["lr"]
+    plain = train_run(torch, cfg, host, batches, TRAIN_PLAIN,
+                      f"{label} {TRAIN_PLAIN}", lr)
+    torch.cuda.empty_cache()
+    run = train_run(torch, cfg, host, batches, None, label, lr,
+                    profile_last=True)
+    shares = grad_shares(run.pop("grads"), plain["grads"])
+    torch.cuda.empty_cache()
+    faulty = train_run(torch, cfg, host, batches, TRAIN_FAULT,
+                       f"{label} planted fault, {TRAIN_FAULT}", lr)
+    fault = grad_shares(faulty.pop("grads"), plain.pop("grads"))
+    del host
+    torch.cuda.empty_cache()
+    worst, fault_worst = (max(x, key=x.get) for x in (shares, fault))
+    if not shares[worst] <= 1:
+        raise AssertionError(f"train {label}: step 0's gradient of {worst} "
+                             f"through the kernels {shares[worst]:.2f}x the "
+                             f"limit ({TRAIN_GRAD_TOL} of its largest |value|)")
+    if not fault[fault_worst] > 1:
+        raise AssertionError(f"train {label}: the gradient limit passes a "
+                             f"backward with {TRAIN_FAULT}")
+    share = check_losses(f"train {label} kernels vs plain", run["losses"],
+                         plain["losses"])
+    share_fault = loss_share(faulty["losses"], run["losses"])
+    if not share_fault > 1:
+        raise AssertionError(f"train {label}: the loss limit passes a "
+                             f"backward with {TRAIN_FAULT} ({share_fault:.3f} "
+                             f"of it)")
+    log(f"train {label}: losses through the kernels within {share:.3f} of "
+        f"the limit ({TRAIN_LOSS_TOL} relative) of the plain versions' at "
+        f"every step, a backward with {TRAIN_FAULT} {share_fault:.1f}x it; "
+        f"step 0's gradients within {shares[worst]:.3f} of the limit "
+        f"({TRAIN_GRAD_TOL} of each leaf's largest |value|; worst {worst}), "
+        f"the fault {fault[fault_worst]:.1f}x it ({fault_worst})")
+    return dict(run=run, plain=plain, label=label, layers=cfg.num_hidden_layers)
+
+
+def phase_train_tiny(torch) -> dict:
+    """llama-tiny (8/2 heads of 16) and its d = 32 twin, all 4 layers,
+    trained 3 steps at B = 4, S = 1024 on random tokens (next-token loss)
+    through the kernels and through their plain versions: each step's loss
+    within TRAIN_LOSS_TOL of the other's, launches counted under the head
+    dim's names. Returns the kernel runs by head dim."""
+    import dataclasses
+
+    import numpy as np
+
+    from magicpig_tpu_torch.config import preset
+    from magicpig_tpu_torch.training import initial_params
+
+    runs = {}
+    for d in (16, 32):
+        cfg = dataclasses.replace(preset("llama-tiny"), head_dim=d,
+                                  dtype=torch.float32)
+        rng = np.random.default_rng(d)
+        batches = []
+        for _ in range(3):
+            toks = rng.integers(1, cfg.vocab_size, size=(4, 1024))
+            target = np.roll(toks, -1, axis=1)
+            mask = np.ones(toks.shape, bool)
+            mask[:, -1] = False
+            batches.append([torch.from_numpy(x).cuda() for x in (
+                toks.astype(np.int32), target.astype(np.int32), mask)])
+        host = initial_params(cfg, 1024, 0, "cpu")
+        label = f"llama-tiny d{d} B=4 S=1024"
+        plain = train_run(torch, cfg, host, batches, TRAIN_PLAIN,
+                          f"{label} {TRAIN_PLAIN}", 1e-3)
+        run = train_run(torch, cfg, host, batches, None, label, 1e-3)
+        share = check_losses(f"train {label} kernels vs plain",
+                             run["losses"], plain["losses"])
+        log(f"train {label}: losses through the kernels within {share:.3f} "
+            f"of the limit of the plain versions'")
+        runs[d] = run
+    return runs
+
+
 def phase_train(torch, F, smi: str) -> dict:
     """The backward kernel against its plain version at three forms, then
     `examples/train_needle_torch.py` at full width (needle-12m, B = 32, S =
@@ -5576,7 +5806,17 @@ def phase_train(torch, F, smi: str) -> dict:
             f"{r['library_ms'] if r['library_ms'] is None else round(r['library_ms'], 3)} ms)")
     log(f"train ruler-lm: losses through the kernels within {share_r:.3f} of "
         f"the limit of the plain versions' at every step")
-    return dict(rows=rows, needle=needle, ruler=ruler)
+    llama_3b = phase_train_3b(torch)
+    tiny = phase_train_tiny(torch)
+    r = rows["flash_prefill_bwd_d128_g3"]
+    log(f"train {llama_3b['label']} on {smi}: {llama_3b['run']['step_ms']:.1f} "
+        f"ms per step; flash_prefill_bwd_d128 {llama_3b['layers']} launches "
+        f"per step, {r['ms']:.3f} ms each (device {r['device_ms']:.3f} ms, "
+        f"bound {r['bound'][0]:.3f} ms by {r['bound'][1]}, plain "
+        f"{r['plain_ms']:.1f} ms, SDPA's backward "
+        f"{r['library_ms'] if r['library_ms'] is None else round(r['library_ms'], 3)} ms)")
+    return dict(rows=rows, needle=needle, ruler=ruler, llama_3b=llama_3b,
+                tiny=tiny)
 
 
 def main() -> int:
@@ -5715,7 +5955,8 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    log("phase 5 train: the backward kernel, needle-12m and ruler-byte-lm")
+    log("phase 5 train: the backward kernel, needle-12m, ruler-byte-lm, a "
+        "llama-3.2-3b cut and llama-tiny")
     train = phase_train(torch, F, smi)
     kern.update(train["rows"])
 
@@ -5778,6 +6019,7 @@ def main() -> int:
     # The training backward: no TPU kernel (the JAX package's backward is
     # XLA); its launches from the trainers' kernel runs, the windowed cut's
     # as the needle run's.
+    launches_of_bwd = {}
     bwd_src = ("magicpig_tpu_torch/csrc/flash_prefill_bwd.cu",
                "magicpig_tpu/ops/attention.py:216")
     for name, run in (("flash_prefill_bwd", train["needle"]),
@@ -5785,6 +6027,26 @@ def main() -> int:
                       ("flash_prefill_bwd_window", train["needle"])):
         sources[name] = bwd_src
         launches[name] = run["launches"]["flash_prefill_bwd"]
+    # The other forms: each head dim's count from the run at that head dim
+    # (the 3B cut at d = 128, whose count the G = 16 and windowed d = 128
+    # rows share; the needle's at d = 64 for SmolLM2's G = 3; llama-tiny's
+    # d 16 and d 32 runs).
+    for name, counter, run, of in (
+            ("flash_prefill_bwd_d128_g3", "flash_prefill_bwd_d128",
+             train["llama_3b"]["run"], "llama-3.2-3b"),
+            ("flash_prefill_bwd_d128_g16", "flash_prefill_bwd_d128",
+             train["llama_3b"]["run"], "llama-3.2-3b"),
+            ("flash_prefill_bwd_d128_g3_window", "flash_prefill_bwd_d128",
+             train["llama_3b"]["run"], "llama-3.2-3b"),
+            ("flash_prefill_bwd_g3", "flash_prefill_bwd", train["needle"],
+             "needle-12m"),
+            ("flash_prefill_bwd_d16_window", "flash_prefill_bwd_d16",
+             train["tiny"][16], "llama-tiny d16"),
+            ("flash_prefill_bwd_d32", "flash_prefill_bwd_d32",
+             train["tiny"][32], "llama-tiny d32")):
+        sources[name] = bwd_src
+        launches[name] = run["launches"][counter]
+        launches_of_bwd[name] = f"{counter} {of}"
     sources["flash_decode_int8"] = sources["flash_decode"]
     # The fused LSH kernel's instances compile in one source per K/V type
     # and head dim (lsh_fused.cu holds bf16 at d = 64 and the C entry).
@@ -5853,6 +6115,7 @@ def main() -> int:
         launches_of[shape] = kernel
     launches_of["flash_prefill_bwd_8192"] = "flash_prefill_bwd ruler-byte-lm"
     launches_of["flash_prefill_bwd_window"] = "flash_prefill_bwd"
+    launches_of.update(launches_of_bwd)
     for name in ("rescore_attend", "rescore_attend_int4", "block_attend"):
         sources[name + "_serve"] = sources[name]
         launches[name + "_serve"] = launches[name]
@@ -5871,7 +6134,8 @@ def main() -> int:
                "lsh_fused_decode_d128":
                    serve_3b["launches"]["lsh_fused_decode_d128"]}
     for name in kern:
-        if "_g3" not in name or name in forms_rows:
+        if ("_g3" not in name or name in forms_rows
+                or name.startswith("flash_prefill_bwd")):
             continue
         form = name.replace("_g3", "").removesuffix("_serve").removesuffix(
             "_hot")

@@ -71,7 +71,7 @@ LAUNCHES: dict[str, int] = {
        for dim in ("", "_d16", "_d32", "_d128")},
     "collision_words": 0,
     "w4_matmul": 0,
-    "flash_prefill_bwd": 0,
+    **{"flash_prefill_bwd" + dim: 0 for dim in ("", "_d16", "_d32", "_d128")},
 }
 # The int4 matmul's launches by weight shape ("{kin}x{out}"): each product
 # of a decode step's share of LAUNCHES["w4_matmul"].

@@ -14,9 +14,12 @@ are instances of one template, counted apart ("flash_prefill",
 Training differentiates through `FlashPrefillTrain`, the port's form of
 JAX's custom VJP `_flash_prefill_train` (`magicpig_tpu/ops/attention.py`):
 on the card its forward is this kernel with its LSE and its backward the
-hand-written `csrc/flash_prefill_bwd.cu` (`flash_prefill_bwd`), both on bf16 copies of q, k, v and dO with f32
-sums, as the TPU ran the JAX package's f32 products at bf16 precision; on
-the CPU both directions are the plain versions in `ops.attention`.
+hand-written `csrc/flash_prefill_bwd.cu` (`flash_prefill_bwd`: wgmma on
+TMA tiles, as the forward; head dims 16, 32, 64 and 128, any group size,
+counted as "flash_prefill_bwd", "_d16", "_d32", "_d128":
+`bwd_launch_name`), both on bf16 copies of q, k, v and dO with f32 sums,
+as the TPU ran the JAX package's f32 products at bf16 precision; on the CPU
+both directions are the plain versions in `ops.attention`.
 """
 
 from __future__ import annotations
@@ -84,9 +87,14 @@ def flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return (out, lse) if return_lse else out
 
 
-BWD_NAME = "flash_prefill_bwd"
-BWD_HEAD_DIMS = (64,)   # the backward kernel's head dims
-BWD_GROUPS = _lib.GROUPS   # and the group sizes it has been held to
+def bwd_launch_name(head_dim: int) -> str:
+    """The backward kernel's launch counter for `head_dim`."""
+    return "flash_prefill_bwd" + ("" if head_dim == 64 else f"_d{head_dim}")
+
+
+# The backward kernel pads the query span to tiles of this many rows in its
+# [2, B, Hq, Sq padded] f32 scratch (lse in log2 units, then delta).
+BWD_PAD = 128
 
 
 def _int32_batch(x, b: int, device: torch.device) -> torch.Tensor:
@@ -114,40 +122,37 @@ def flash_prefill_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """(dq, dk, dv) in f32 of the training attention's output `out` with
     its lse [B, Sq, Hq] f32, for dL/d out `do`. q, out, do: [B, Sq, Hq,
     d]; k, v: [B, Skv, Hkv, d]; q_offset, kv_len: int or [B]. CUDA tensors
-    launch the kernel (bf16 inputs, head dim 64, group sizes 1, 2, 4 and
-    8, `BWD_GROUPS`; ValueError otherwise, before any launch); CPU
-    tensors take the plain version (`flash_prefill_bwd_plain`)."""
+    launch the kernel (bf16 inputs, a head dim of `_lib.HEAD_DIMS`, any
+    group size; ValueError otherwise, before any launch); CPU tensors take
+    the plain version (`flash_prefill_bwd_plain`)."""
     if q.device.type == "cpu":
         return flash_prefill_bwd_plain(q, k, v, out, lse, do, q_offset,
                                        kv_len, window, sm_scale, block_k)
     b, sq, hq, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     dev = q.device
-    _lib.require(dev.type == "cuda", f"{BWD_NAME}: unsupported device {dev}")
-    _lib.require(d in BWD_HEAD_DIMS,
-                 f"{BWD_NAME}: head_dim {d} not in {BWD_HEAD_DIMS}")
-    _lib.check_group(BWD_NAME, hq, hkv, d)
-    _lib.require(hq // hkv in BWD_GROUPS,
-                 f"{BWD_NAME}: group size {hq}/{hkv} not in {BWD_GROUPS}")
+    name = bwd_launch_name(d)
+    _lib.require(dev.type == "cuda", f"{name}: unsupported device {dev}")
+    _lib.check_group(name, hq, hkv, d)
     _lib.require(k.shape == v.shape == (b, skv, hkv, d),
-                 f"{BWD_NAME}: k/v shape {tuple(k.shape)}")
+                 f"{name}: k/v shape {tuple(k.shape)}")
     _lib.require(out.shape == do.shape == q.shape,
-                 f"{BWD_NAME}: out/do shape {tuple(out.shape)}")
+                 f"{name}: out/do shape {tuple(out.shape)}")
     _lib.require(lse.shape == (b, sq, hq) and lse.dtype == torch.float32,
-                 f"{BWD_NAME}: lse must be float32 [B, Sq, Hq]")
+                 f"{name}: lse must be float32 [B, Sq, Hq]")
     _lib.require(all(x.dtype == torch.bfloat16 for x in (q, k, v, out, do)),
-                 f"{BWD_NAME}: q, k, v, out, do must be bfloat16")
-    _lib.require(sq > 0 and skv > 0, f"{BWD_NAME}: empty query or key span")
-    _lib.require(window is None or window > 0,
-                 f"{BWD_NAME}: window must be > 0")
+                 f"{name}: q, k, v, out, do must be bfloat16")
+    _lib.require(sq > 0 and skv > 0, f"{name}: empty query or key span")
+    _lib.require(window is None or window > 0, f"{name}: window must be > 0")
     off, length = _int32_batch(q_offset, b, dev), _int32_batch(kv_len, b, dev)
-    _lib.require_cuda(BWD_NAME, q, k, v, out, do, lse, off, length)
-    delta = torch.empty((b, sq, hq), dtype=torch.float32, device=dev)
+    _lib.require_cuda(name, q, k, v, out, do, lse, off, length)
+    scratch = torch.empty((2, b, hq, -(-sq // BWD_PAD) * BWD_PAD),
+                          dtype=torch.float32, device=dev)
     dq = torch.empty(q.shape, dtype=torch.float32, device=dev)
     dk = torch.empty(k.shape, dtype=torch.float32, device=dev)
     dv = torch.empty(k.shape, dtype=torch.float32, device=dev)
-    _lib.launch(BWD_NAME, "mp_flash_prefill_bwd", dev, q, k, v, out, do, lse,
-                length, off, delta, dq, dk, dv, b, sq, skv, hq, hkv, d,
+    _lib.launch(name, "mp_flash_prefill_bwd", dev, q, k, v, out, do, lse,
+                length, off, scratch, dq, dk, dv, b, sq, skv, hq, hkv, d,
                 window or 0, 1.0 / math.sqrt(d) if sm_scale is None
                 else sm_scale)
     return dq, dk, dv

@@ -69,6 +69,10 @@ from magicpig_tpu_torch.ops.kernels.block_score import (
     exact_scores_plain,
 )
 from magicpig_tpu_torch.ops.kernels.flash_decode import head_suffix
+from magicpig_tpu_torch.ops.kernels.flash_prefill import (
+    bwd_launch_name,
+    launch_name as prefill_launch_name,
+)
 from magicpig_tpu_torch.ops.kernels.flash_decode import (
     launch_name as decode_launch_name,
 )
@@ -1613,35 +1617,54 @@ def test_cuda_d128_other_forms_raise(cuda):
 
 
 BWD_TOL = 1e-2   # of each gradient's largest |value|: bf16 p and dS
-# (name, batch, sq, skv, q_offset, kv_len, window): the needle trainer's
-# shape, a window, and a ragged query span at offsets (one request sees
-# no key at all) with and without a window.
+# (name, batch, sq, skv, q_offset, kv_len, window, (hq, hkv, d)): the
+# needle trainer's shape, a window, and a ragged query span at offsets (one
+# request sees no key at all) with and without a window, at 8/4 heads of
+# 64; then the other forms the kernel takes, at small spans: Llama-3.2-3B's
+# 24/8 heads of 128 (G = 3), Llama-3.1-405B's 128/8 (G = 16), SmolLM2-360M's
+# 15/5 of 64 (G = 3), llama-tiny's 8/2 heads at d 16 and 32, and the ragged
+# windowed span at d 16 and at the 3B's heads.
+_RAGGED = (4, 300, 1024, [700, 0, 500, 10], [1000, 300, 777, 0])
 BWD_FORMS = [
-    ("needle", 32, 1024, 1024, [0], [1024], None),
-    ("window", 4, 1024, 1024, [0], [1024], 200),
-    ("offset", 4, 300, 1024, [700, 0, 500, 10], [1000, 300, 777, 0], None),
-    ("offset_window", 4, 300, 1024, [700, 0, 500, 10], [1000, 300, 777, 0],
-     150),
+    ("needle", 32, 1024, 1024, [0], [1024], None, (8, 4, 64)),
+    ("window", 4, 1024, 1024, [0], [1024], 200, (8, 4, 64)),
+    ("offset", *_RAGGED, None, (8, 4, 64)),
+    ("offset_window", *_RAGGED, 150, (8, 4, 64)),
+    ("d128_g3", 2, 512, 512, [0], [512], None, (24, 8, 128)),
+    ("d128_g16", 1, 256, 256, [0], [256], None, (128, 8, 128)),
+    ("d64_g3", 2, 384, 384, [0], [384], None, (15, 5, 64)),
+    ("d16", 4, 256, 256, [0], [256], None, (8, 2, 16)),
+    ("d32", 4, 256, 256, [0], [256], None, (8, 2, 32)),
+    ("d16_offset_window", *_RAGGED, 150, (8, 2, 16)),
+    ("d128_g3_offset_window", *_RAGGED, 150, (24, 8, 128)),
 ]
 
 
 @pytest.mark.parametrize("form", BWD_FORMS, ids=[f[0] for f in BWD_FORMS])
 def test_cuda_flash_prefill_bwd_matches_plain(cuda, form):
-    _, b, sq, skv, off, kvl, window = form
+    """The kernel against the plain backward on the same bf16 inputs, K and
+    V rows past each length NaN for the kernel (zeros for the plain
+    version); bit-equal repeats; dK and dV rows past each length 0."""
+    _, b, sq, skv, off, kvl, window, (hq, hkv, d) = form
     rng = np.random.default_rng(21)
-    q, do = (_bf16(rng, b, sq, 8, 64, device=cuda) for _ in range(2))
-    k, v = (_bf16(rng, b, skv, 4, 64, device=cuda) for _ in range(2))
+    q, do = (_bf16(rng, b, sq, hq, d, device=cuda) for _ in range(2))
+    k, v = (_bf16(rng, b, skv, hkv, d, device=cuda) for _ in range(2))
     off = torch.tensor(off * (b // len(off)), dtype=torch.int32, device=cuda)
     kvl = torch.tensor(kvl * (b // len(kvl)), dtype=torch.int32, device=cuda)
-    out, lse = flash_prefill(q, k, v, kvl, off, window=window,
+    past = torch.arange(skv, device=cuda)[None, :] >= kvl[:, None].long()
+    k0, v0 = (x.masked_fill(past[..., None, None], 0.0) for x in (k, v))
+    kn, vn = (x.masked_fill(past[..., None, None], float("nan"))
+              for x in (k, v))
+    out, lse = flash_prefill(q, k0, v0, kvl, off, window=window,
                              return_lse=True)
-    before = LAUNCHES["flash_prefill"]
-    got = flash_prefill_bwd(q, k, v, out, lse, do, off, kvl, window=window)
-    again = flash_prefill_bwd(q, k, v, out, lse, do, off, kvl, window=window)
+    before = dict(LAUNCHES)
+    got = flash_prefill_bwd(q, kn, vn, out, lse, do, off, kvl, window=window)
+    again = flash_prefill_bwd(q, kn, vn, out, lse, do, off, kvl, window=window)
     torch.cuda.synchronize()
-    assert LAUNCHES["flash_prefill"] == before
-    want = tatt.flash_prefill_train_backward(q, k, v, out, lse, do, off, kvl,
-                                             256, window=window)
+    name = bwd_launch_name(d)
+    assert LAUNCHES == {**before, name: before[name] + 2}
+    want = tatt.flash_prefill_train_backward(q, k0, v0, out, lse, do, off,
+                                             kvl, 128, window=window)
     for name, g, a, w in zip("qkv", got, again, want):
         assert g.dtype == torch.float32 and g.shape == w.shape, name
         assert torch.equal(g, a), f"d{name} differs between runs"
@@ -1653,24 +1676,29 @@ def test_cuda_flash_prefill_bwd_matches_plain(cuda, form):
         assert not got[1][i, n:].any() and not got[2][i, n:].any()
 
 
-def test_cuda_flash_prefill_train_autograd(cuda):
+@pytest.mark.parametrize("heads", [(8, 4, 64), (24, 8, 128)],
+                         ids=["d64_g2", "d128_g3"])
+def test_cuda_flash_prefill_train_autograd(cuda, heads):
     """The Function on f32 leaves: forward by the prefill kernel, backward
     by flash_prefill_bwd (one launch each), gradients in f32 against the
-    plain Function on the CPU."""
+    plain Function on the CPU; at 8/4 heads of 64 and at Llama-3.2-3B's
+    24/8 heads of 128."""
+    hq, hkv, d = heads
     rng = np.random.default_rng(22)
     leaves = [rng.standard_normal(s).astype(np.float32)
-              for s in ((2, 256, 8, 64), (2, 256, 4, 64), (2, 256, 4, 64))]
+              for s in ((2, 256, hq, d), (2, 256, hkv, d), (2, 256, hkv, d))]
+    fwd_name, bwd_name = prefill_launch_name(d), bwd_launch_name(d)
     grads = {}
     for dev in (cuda, torch.device("cpu")):
         q, k, v = (torch.from_numpy(x).to(dev).requires_grad_()
                    for x in leaves)
-        bwd, fwd = LAUNCHES["flash_prefill_bwd"], LAUNCHES["flash_prefill"]
+        bwd, fwd = LAUNCHES[bwd_name], LAUNCHES[fwd_name]
         out = flash_prefill_train(q, k, v, 0, 256, block_k=128)
         assert out.dtype == torch.float32
         out.square().sum().backward()
         if dev.type == "cuda":
-            assert LAUNCHES["flash_prefill_bwd"] == bwd + 1
-            assert LAUNCHES["flash_prefill"] == fwd + 1
+            assert LAUNCHES[bwd_name] == bwd + 1
+            assert LAUNCHES[fwd_name] == fwd + 1
         grads[dev.type] = [x.grad.cpu() for x in (q, k, v)]
     for g, w in zip(grads["cuda"], grads["cpu"]):
         assert g.dtype == torch.float32
@@ -1678,11 +1706,13 @@ def test_cuda_flash_prefill_train_autograd(cuda):
 
 
 def test_cuda_flash_prefill_bwd_other_forms_raise(cuda):
-    """Head dim 128, a group size check_group refuses and f32 inputs raise
-    ValueError before any launch."""
+    """Head dims 96 and 256 (not dividing 128, or above it), query heads not
+    a multiple of the kv heads, and f32 inputs raise ValueError before any
+    launch; the forms that raised before (8/4 heads of 128, 6/2 and 5/1 of
+    64) now run."""
     rng = np.random.default_rng(23)
-    before = LAUNCHES["flash_prefill_bwd"]
-    for hq, hkv, d in ((8, 4, 128), (6, 2, 64), (5, 1, 64)):
+    before = dict(LAUNCHES)
+    for hq, hkv, d in ((8, 4, 96), (8, 4, 256), (6, 4, 64), (5, 2, 128)):
         q = _bf16(rng, 1, 64, hq, d, device=cuda)
         k = _bf16(rng, 1, 64, hkv, d, device=cuda)
         lse = torch.zeros((1, 64, hq), device=cuda)
@@ -1694,4 +1724,12 @@ def test_cuda_flash_prefill_bwd_other_forms_raise(cuda):
         flash_prefill_bwd(q.float(), k, k, q, torch.zeros((1, 64, 8),
                                                           device=cuda),
                           q, 0, 64)
-    assert LAUNCHES["flash_prefill_bwd"] == before
+    assert LAUNCHES == before
+    for hq, hkv, d in ((8, 4, 128), (6, 2, 64), (5, 1, 64)):
+        q = _bf16(rng, 1, 64, hq, d, device=cuda)
+        k = _bf16(rng, 1, 64, hkv, d, device=cuda)
+        out, lse = flash_prefill(q, k, k, torch.full((1,), 64, dtype=torch.int32,
+                                                     device=cuda),
+                                 return_lse=True)
+        grads = flash_prefill_bwd(q, k, k, out, lse, q, 0, 64)
+        assert all(bool(torch.isfinite(g).all()) for g in grads)

@@ -11,7 +11,9 @@ Tolerances (measured and stated):
     weights: losses over 3 steps within 1e-4 relative (1.3e-5 needle,
     2.6e-5 RULER measured), every leaf's gradient at step 0 (`cos` and
     `sin` included) within 1e-4 of that leaf's largest |gradient| (2.1e-6
-    measured), and the trained `cos` within 1e-4 of JAX's (7.3e-6);
+    measured), and the trained `cos` within 1e-4 of JAX's (7.3e-6); the
+    needle config at 3/1 heads of 128 (the card's 3B form) to the same
+    losses and gradients (its `cos` not: see the test);
   * the cosine schedule against optax's: 1e-6 relative (optax evaluates
     it in float32);
   * a resumed 2 + 2-step run, `save_params` read back by both packages'
@@ -80,21 +82,35 @@ def _close(got, want, tol, what):
 
 # -- the training attention -----------------------------------------------------
 
-# (group, batch, sq, skv, block_k, q_offset, kv_len, window)
-ATTN_FORMS = [
-    (g, *form) for g in (1, 2, 4) for form in (
-        (2, 64, 64, 32, 0, 64, None),         # self-attention
-        (2, 48, 128, 32, 64, 100, None),      # q_offset, kv_len < skv
-        (2, 64, 96, 32, 20, 90, 17),          # and a window
-    )
+# (group, batch, sq, skv, block_k, q_offset, kv_len, window, head_dim)
+_GEOMETRIES = (
+    (2, 64, 64, 32, 0, 64, None),         # self-attention
+    (2, 48, 128, 32, 64, 100, None),      # q_offset, kv_len < skv
+    (2, 64, 96, 32, 20, 90, 17),          # and a window
+)
+ATTN_FORMS = [(g, *form, 16) for g in (1, 2, 4) for form in _GEOMETRIES] + [
+    # The forms the card's backward took on with every group size and head
+    # dim: Llama-3.2-3B's (G 3, d 128), SmolLM2-360M's (G 3, d 64), the
+    # general group sizes 5 and 16 (Llama-3.1-405B: G 16, d 128), d 32.
+    (3, *_GEOMETRIES[1], 128),
+    (3, *_GEOMETRIES[2], 64),
+    (5, *_GEOMETRIES[0], 64),
+    (5, *_GEOMETRIES[2], 32),
+    (16, *_GEOMETRIES[2], 128),
+    (16, *_GEOMETRIES[1], 32),
 ]
 
 
-@pytest.mark.parametrize("form", ATTN_FORMS, ids=lambda f: "-".join(
-    str(x) for x in f))
+def _attn_id(form) -> str:
+    # Head dim 16 forms keep the ids they had before the head dim joined.
+    return "-".join(str(x) for x in form[:-1]) + (
+        "" if form[-1] == 16 else f"-d{form[-1]}")
+
+
+@pytest.mark.parametrize("form", ATTN_FORMS, ids=_attn_id)
 def test_train_attention_matches_jax_vjp(form):
-    g, b, sq, skv, block_k, off, kv_len, window = form
-    hkv, d = 2, 16
+    g, b, sq, skv, block_k, off, kv_len, window, d = form
+    hkv = 2
     rng = np.random.default_rng(sum(x or 0 for x in form))
     q = rng.standard_normal((b, sq, g * hkv, d)).astype(np.float32)
     k, v = (rng.standard_normal((b, skv, hkv, d)).astype(np.float32)
@@ -214,15 +230,23 @@ def _ruler_batches(ttr, seq):
     return [(toks[s], toks[s], wts[s]) for s in sels]
 
 
-@pytest.mark.parametrize("kind", ["needle", "ruler"])
+# The needle config reshaped to Llama-3.2-3B's head shape: 3 query heads
+# over 1 kv head of 128 (G = 3, d = 128), the form the card trains the 3B at.
+G3_D128 = dict(num_attention_heads=3, num_key_value_heads=1, head_dim=128)
+
+
+@pytest.mark.parametrize("kind", ["needle", "ruler", "needle_g3_d128"])
 def test_train_steps_match_jax(kind):
     jtn, ttn, jtr, ttr = _examples()
-    jmod, tmod, seq = ((jtn, ttn, 128) if kind == "needle"
-                       else (jtr, ttr, 512))
-    jcfg = dataclasses.replace(jmod.model_config(), num_hidden_layers=2)
-    tcfg = dataclasses.replace(tmod.model_config(), num_hidden_layers=2)
-    batches = (_needle_batches(ttn, seq) if kind == "needle"
-               else _ruler_batches(ttr, seq))
+    jmod, tmod, seq = ((jtr, ttr, 512) if kind == "ruler"
+                       else (jtn, ttn, 128))
+    shape = G3_D128 if kind == "needle_g3_d128" else {}
+    jcfg = dataclasses.replace(jmod.model_config(), num_hidden_layers=2,
+                               **shape)
+    tcfg = dataclasses.replace(tmod.model_config(), num_hidden_layers=2,
+                               **shape)
+    batches = (_ruler_batches(ttr, seq) if kind == "ruler"
+               else _needle_batches(ttn, seq))
     jparams = jllama.init_params(jcfg, jax.random.key(0), seq)
     tparams = params_from_numpy(dataclasses.asdict(
         jax.tree_util.tree_map(np.asarray, jparams)), device="cpu")
@@ -230,10 +254,11 @@ def test_train_steps_match_jax(kind):
     tx = optax.adamw(optax.cosine_decay_schedule(LR, STEPS, 0.1),
                      weight_decay=0.01)
     opt_state = tx.init(jparams)
-    step = _jax_step(jcfg, jtn, tx, kind)
+    loss_kind = "ruler" if kind == "ruler" else "needle"
+    step = _jax_step(jcfg, jtn, tx, loss_kind)
     opt = training.adamw(tparams, LR)
-    loss_fn = (training.masked_loss if kind == "needle"
-               else ttr.next_byte_loss)
+    loss_fn = (ttr.next_byte_loss if kind == "ruler"
+               else training.masked_loss)
     jl, tl = [], []
     for i, batch in enumerate(batches):
         jparams, opt_state, loss, jgrads = step(
@@ -251,9 +276,13 @@ def test_train_steps_match_jax(kind):
                 assert float(np.abs(np.asarray(j)).max()) > 0, name
                 _close(t, j, GRAD_TOL, f"step-0 gradient of {name}")
     np.testing.assert_allclose(tl, jl, rtol=LOSS_RTOL)
-    # The RoPE tables moved, as optax moves them.
-    _close(tparams.cos.detach(), np.asarray(jparams.cos), GRAD_TOL,
-           "trained cos")
+    # The RoPE tables moved, as optax moves them. Not held to JAX's at d =
+    # 128: there some entries' step-0 gradients are float noise (~1e-8 in
+    # both packages, against a largest 0.12), and AdamW's first update,
+    # lr * g / (|g| + eps), moves such an entry by up to ~lr either way.
+    if kind != "needle_g3_d128":
+        _close(tparams.cos.detach(), np.asarray(jparams.cos), GRAD_TOL,
+               "trained cos")
     assert not torch.equal(tparams.cos.detach(),
                            training.initial_params(tcfg, seq, 0, "cpu").cos)
 
