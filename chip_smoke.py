@@ -296,6 +296,10 @@ import time
 T0 = time.perf_counter()
 H100_BYTES_PER_S = 3.35e12          # HBM3, H100 SXM data sheet
 H100_BF16_FLOPS = 989e12            # dense bf16 tensor-core peak
+# INT32 operations a second, the rate of the scan's LOP3s: 64 INT32 lanes a
+# SM x 132 SMs x the 1.98 GHz boost clock (H100 SXM5, NVIDIA's Hopper
+# architecture white paper).
+H100_INT32_OPS = 64 * 132 * 1.98e9
 ATTEND_CHUNKS = (128, 256, 512)    # the attends' chunks `chunk_plan` picks
 
 # Each kernel against its plain version on the card, as (atol, rtol,
@@ -495,11 +499,14 @@ SASS_KERNELS = {
         "lsh_split_kernel", "Li4E13__nv_bfloat16Li0ELb1ELi128E"),
     "collision_words_kernel": ("collision_words_kernel", "Li4E"),
     "collision_words_kernel g3": ("collision_words_kernel", "Li3E"),
-    # The general tile (G = 8 with kPart) and the small head dims.
+    # The general tile (kPart: G = 16 in the decode and LSH kernels, 8 in
+    # the others) and the small head dims.
     "flash_prefill_kernel d16": ("flash_prefill_kernel", "ILi16E"),
     "flash_decode_kernel tile d16": ("flash_decode_kernel", "Li16ELb1EE"),
+    "flash_decode_kernel tile d128": ("flash_decode_kernel",
+                                      "bfloat16Li128ELb1EE"),
     "lsh_fused tile d64 (lsh_split_kernel, scan)": (
-        "lsh_split_kernel", "Li8E13__nv_bfloat16Li3ELb0ELi64ELb1EE"),
+        "lsh_split_kernel", "Li16E13__nv_bfloat16Li3ELb0ELi64ELb1EE"),
     "lsh_masked tile d16 (lsh_split_kernel, words)": (
         "lsh_split_kernel", "Li3ELb1ELi16ELb1EE"),
     "block_score_kernel tile d16": ("block_score_kernel", "Li16ELb1EE"),
@@ -567,7 +574,8 @@ def check_sass(counts) -> None:
     cp.async (int8 and G = 3 at d = 128 too), of the masked attend mma.sync
     and cp.async, of the scorer mma.sync and cp.async, of both attends
     mma.sync and bulk copies; the same in the general tile's instances and
-    at the small head dims (the prefill at d = 16, the decode at d = 16,
+    at the small head dims (the prefill at d = 16, the decode at d = 16
+    and 128, with mma.sync,
     the fused LSH kernel at d = 64, the masked attend, the scorer and the
     rescore at d = 16, the block-attend at d = 32, the scan); and in the
     training backward's dK/dV and dQ kernels at head dims 64 and 128
@@ -604,7 +612,8 @@ def check_sass(counts) -> None:
                        for op in ("HMMA", "UBLKCP")),
                      ("flash_prefill_kernel d16", "HGMMA"),
                      ("flash_prefill_kernel d16", "UTMALDG"),
-                     ("flash_decode_kernel tile d16", "UBLKCP"),
+                     *((f"flash_decode_kernel tile d{dim}", op)
+                       for dim in (16, 128) for op in ("UBLKCP", "HMMA")),
                      *(("lsh_fused tile d64 (lsh_split_kernel, scan)", op)
                        for op in ("HMMA", "UTMALDG", "LDGSTS")),
                      ("lsh_masked tile d16 (lsh_split_kernel, words)", "HMMA"),
@@ -734,10 +743,49 @@ def phase_kernels(torch, F, dev):
     return results
 
 
+def head_tile_faults(hq: int, hkv: int) -> list:
+    """Planted faults of the decode and LSH kernels' 16-head tile, as
+    (label, function of the plain output [B, Hq, d]), for a group of hq /
+    hkv heads: from 16 heads, the last head of each 16-head block given its
+    neighbour's output (a tile that lost its last M row); from 48, the
+    third block given the first block's outputs (a block that read the
+    wrong heads' queries)."""
+    g = hq // hkv
+
+    def last_head(want):
+        w = want.unflatten(1, (hkv, g))
+        f = w.clone()
+        f[:, :, 15::16] = w[:, :, 14::16]
+        return f.flatten(1, 2)
+
+    def third_block(want):
+        w = want.unflatten(1, (hkv, g))
+        f = w.clone()
+        f[:, :, 32:48] = w[:, :, :16]
+        return f.flatten(1, 2)
+
+    faults = []
+    if g >= 16:
+        faults.append(("the last head of each 16-head block given its "
+                       "neighbour's output", last_head))
+    if g >= 48:
+        faults.append(("the third 16-head block given the first block's "
+                       "outputs", third_block))
+    return faults
+
+
+def reject_head_faults(name: str, want, hq: int, hkv: int, tol) -> None:
+    """Each of `head_tile_faults` fails the tolerance."""
+    for label, fault in head_tile_faults(hq, hkv):
+        share = check_rejects(name, fault(want), want, tol, fault=label)
+        log(f"  {name}: {label}: its worst element {share:.1f}x the limit")
+
+
 def decode_row(torch, F, q, k, v, length, lens, name: str) -> dict:
     """flash_decode (bf16) over the given caches against its plain version,
-    a skipped 64-token V tile rejected, SDPA (length mask, GQA) beside it,
-    the bound from the valid tokens' K and V bytes."""
+    a skipped 64-token V tile rejected (and the faults of the 16-head tile,
+    `head_tile_faults`), SDPA (length mask, GQA) beside it, the bound from
+    the valid tokens' K and V bytes."""
     from magicpig_tpu_torch.ops import attention
     from magicpig_tpu_torch.ops.kernels import flash_decode
 
@@ -751,6 +799,7 @@ def decode_row(torch, F, q, k, v, length, lens, name: str) -> dict:
                                TOL["lse"])[0])
     teeth = check_rejects(name, attention.full_decode(
         q, k, drop_tile(v, 2, 8192), length)[0], want, tol)
+    reject_head_faults(name, want, hq, hkv, tol)
     mask = (torch.arange(s, device=q.device)[None]
             < length[:, None])[:, None, None]
     q4 = q[:, :, None]
@@ -772,12 +821,13 @@ def decode_row(torch, F, q, k, v, length, lens, name: str) -> dict:
 def lsh_row(torch, args, lens, name: str):
     """The fused LSH kernel (bf16, exact) on `args` (q, centered K, V, key
     norms, planes, query bits, length, K, L) against its plain version:
-    counts exact, a skipped 64-token V tile rejected, the bound from the
+    counts exact, a skipped 64-token V tile rejected (and the faults of the
+    16-head tile, `head_tile_faults`), the bound from the
     bytes this run needs (every valid signature word; K, V and the norm of
     the tokens some head of the group sampled; q, its bits, outputs).
     Returns (the row, (bytes, sampled rows, flops))."""
     from magicpig_tpu_torch.ops import bitcodes
-    from magicpig_tpu_torch.ops.kernels import lsh_fused_decode
+    from magicpig_tpu_torch.ops.kernels import _lib, lsh_fused_decode
     from magicpig_tpu_torch.ops.kernels.lsh_fused import lsh_fused_decode_plain
 
     q, k, v, k_norm, planes, q_bits, length, K, L = args
@@ -794,14 +844,23 @@ def lsh_row(torch, args, lens, name: str):
     teeth = check_rejects(name, lsh_fused_decode_plain(
         q, k, drop_tile(v, 2, 8192), k_norm, planes, q_bits, length, K,
         L)[0], want, tol)
+    reject_head_faults(name, want, hq, hkv, tol)
     sampled = bitcodes.sampled_mask(q_bits, planes, length)    # [B, Hq, S]
     rows = int(sampled.reshape(b, hkv, -1, s).any(dim=2).sum())
     words = sum((n + 31) // 32 for n in lens) * hkv * L * K
     nbytes = (words * 4 + rows * (2 * d * 2 + 4) + q.numel() * 2
               + q_bits.numel() * 4 + b * hq * (d + 2) * 4)
     flops = 4 * d * int(want_cnt.sum())
+    # The matching's ALU bound: one LOP3 a plane word and matched head (the
+    # general tile matches its heads rounded up to 4, `scan_tile_heads`).
+    g = hq // hkv
+    matched = (g if _lib.exact_group(g, d) else
+               -(-min(g, _lib.HEAD_TILE) // 4) * 4 * _lib.head_blocks(
+                   g, d, _lib.HEAD_TILE))
+    match_ms = words * matched / H100_INT32_OPS * 1e3
     row = dict(
         max_abs_err=err, tol=tol, bound=bound_ms(nbytes, flops),
+        match_bound_ms=match_ms,
         **timings(lambda: lsh_fused_decode(*args),
                   lambda: lsh_fused_decode_plain(*args)),
         sampled_frac=float(want_cnt.sum()) / (hq * sum(lens)),
@@ -809,7 +868,8 @@ def lsh_row(torch, args, lens, name: str):
     log(f"kernel {name} err {err:.2e}, worst element {share:.2f} of its "
         f"limit (tol {tol}); a skipped tile's worst element {teeth:.1f}x the "
         f"limit; counts exact, sampled {row['sampled_frac']:.4f}, rows read "
-        f"{row['rows_frac']:.4f}")
+        f"{row['rows_frac']:.4f}; the matching's bound {match_ms:.4f} ms "
+        f"({matched} heads' LOP3s a plane word at the INT32 rate)")
     return row, (nbytes, rows, flops)
 
 
@@ -929,16 +989,25 @@ def phase_kernels_g3(torch, F, dev):
 # SmolLM2-360M's decode shape (15/5 heads of 64: G = 3 at d = 64); group
 # sizes 5, 6 and 7 at the decode shapes Hq 40 / 48 / 56 over Hkv 8 at d =
 # 128 (Mistral-Small-Instruct-2409's 48/8 and Yi-34B's 56/8) and at d = 64;
-# Llama-3.1-405B's 128/8 heads of 128 (G = 16: two blocks of the general
-# tile a kv head); head dims 16 and 32 at Hq 32, Hkv 8 (llama-tiny's group
+# Llama-3.1-405B's 128/8 heads of 128 (G = 16: one block of the decode
+# and LSH kernels' 16-head tile a kv head, two of the block kernels'
+# 8-head one); StarCoder-15B's multi-query 48 heads of 128 over one (three
+# 16-head blocks); head dims 16 and 32 at Hq 32, Hkv 8 (llama-tiny's group
 # of 4).
 FORM_SHAPES = ((64, 15, 5, True), (128, 40, 8, False), (128, 48, 8, False),
                (128, 56, 8, False), (64, 40, 8, False), (64, 48, 8, False),
-               (64, 56, 8, False), (128, 128, 8, True), (16, 32, 8, True),
-               (32, 32, 8, True))
+               (64, 56, 8, False), (128, 128, 8, True), (128, 48, 1, False),
+               (16, 32, 8, True), (32, 32, 8, True))
 # The forms whose fused LSH kernel runs its five other forms too (one new
 # group size, one new head dim): Mistral-Small's G = 6 at d = 128, d = 32.
-FORM_DEBIAS = ((128, 48), (32, 32))
+FORM_DEBIAS = ((128, 48, 8), (32, 32, 8))
+# Shapes whose rows cover the decode-side kernels of the 16-head tile only
+# (flash decode, both LSH kernels, the scan), not the block kernels.
+TILE_ONLY = ((128, 48, 1),)
+# The general tile's served shapes (SmolLM2-360M's, the 405B cut's): the
+# decode and fused LSH kernels' splits swept, the evidence for the tile's
+# `split_tokens` and `LSH_SPLIT`.
+TILE_SWEEPS = ((64, 15, 5), (128, 128, 8))
 
 
 def phase_kernels_forms(torch, F, dev):
@@ -949,13 +1018,15 @@ def phase_kernels_forms(torch, F, dev):
     it); at each shape over B=2, 16384 + 11000 tokens: bf16 and int8
     flash_decode (SDPA beside the bf16 one), the fused LSH kernel bf16
     exact (K=10, L=150; counts exact) and the masked attend from words bf16
-    exact (K=8, L=75), then the block kernels over a 65536-token offload
-    (the int8 scorer and rescore, the bf16 scorer and block-attend); at the
-    shapes marked full also the int8 LSH kernel and, at d = 64 and 128,
-    the packed int4 forms; the collision scan (K=10, L=150, also with the
-    lengths, and K=8, L=75) once a group size; the fused kernel's five
-    other forms at `FORM_DEBIAS`. Each within `TOL` of its plain version,
-    its planted fault rejected; no split or chunk sweeps."""
+    exact (K=8, L=75), then (but at `TILE_ONLY`) the block kernels over a
+    65536-token offload (the int8 scorer and rescore, the bf16 scorer and
+    block-attend); at the shapes marked full also the int8 LSH kernel and,
+    at d = 64 and 128, the packed int4 forms; the collision scan (K=10,
+    L=150, also with the lengths, and K=8, L=75) once a group size; the
+    fused kernel's five other forms at `FORM_DEBIAS`. Each within `TOL` of
+    its plain version, its planted faults rejected (the 16-head tile's
+    too, `head_tile_faults`); the decode and fused LSH splits swept at
+    `TILE_SWEEPS`, no other sweeps."""
     from magicpig_tpu_torch.ops import bitcodes
     from magicpig_tpu_torch.ops.kernels import _lib
 
@@ -981,6 +1052,9 @@ def phase_kernels_forms(torch, F, dev):
         q, k, v = rnd(b, hq, d), rnd(b, hkv, s, d), rnd(b, hkv, s, d)
         rows_of["flash_decode" + sfx + tag] = decode_row(
             torch, F, q, k, v, length, lens, "flash_decode" + sfx + tag)
+        sweep = (d, hq, hkv) in TILE_SWEEPS
+        if sweep:
+            decode_split_sweep(torch, q, k, v, length)
         proj = torch.randn((d, K * L), generator=gen, device=dev)
         k_norm = k.float().norm(dim=-1)
         planes = torch.stack([bitcodes.build_planes(k[i].transpose(0, 1),
@@ -990,7 +1064,12 @@ def phase_kernels_forms(torch, F, dev):
         args = (q, k, v, k_norm, planes, q_bits, length, K, L)
         rows_of["lsh_fused_decode" + sfx + tag], (nbytes, n_rows, flops) = (
             lsh_row(torch, args, lens, "lsh_fused_decode" + sfx + tag))
-        debias = (d, hq) in FORM_DEBIAS
+        if sweep:
+            lsh_split_sweep(torch, "lsh_fused_decode" + sfx + tag,
+                            "mp_lsh_fused_decode",
+                            (q, k, v, k_norm, None, length, K, L, None, None,
+                             "exact"), (planes, q_bits))
+        debias = (d, hq, hkv) in FORM_DEBIAS
         if debias:
             rows_of.update(lsh_debias_forms(torch, (*args, None, None),
                                             nbytes, n_rows, flops, tag))
@@ -1006,9 +1085,10 @@ def phase_kernels_forms(torch, F, dev):
         del q, k, v
         log_timings(rows_of)
         results.update(rows_of)
-        results.update(phase_block_kernels(
-            torch, dev, d=d, hq=hq, hkv=hkv, tag=tag, sweeps=False,
-            packed=full and d >= 64))
+        if (d, hq, hkv) not in TILE_ONLY:
+            results.update(phase_block_kernels(
+                torch, dev, d=d, hq=hq, hkv=hkv, tag=tag, sweeps=False,
+                packed=full and d >= 64))
         torch.cuda.empty_cache()
     return results
 
@@ -1332,7 +1412,7 @@ def decode_split_sweep(torch, q, k, v, length, k_scale=None,
     b, hq, d = q.shape
     hkv, s = k.shape[1], k.shape[2]
     name = launch_name(k_scale is not None, d, hq // hkv)
-    tickets, _ = tickets_for(q.device, b, hq, hkv, d)
+    tickets, _ = tickets_for(q.device, b, hq, hkv, d, _lib.HEAD_TILE)
     times = {}
     for chunk in (512, 1024, 2048):
         n = -(-s // chunk)
@@ -2960,8 +3040,9 @@ def phase_serve_forms(torch, dev):
     prefill and each serve's decode profiled. Then Llama-3.1-405B
     (`LLAMA_31_405B`) at full width, its depth cut to 4 layers (layer 0
     dense), prompts of 12000 and 7000 tokens at max_length 16384, under
-    LSH K=10, L=150 and block_topk int8 (G = 16: the "_d128_g16" forms, two
-    blocks of the general tile a kv head) on one draw of its weights, the
+    LSH K=10, L=150 and block_topk int8 (G = 16: the "_d128_g16" forms, one
+    block of the decode and LSH kernels' 16-head tile a kv head, two of the
+    block kernels' 8-head one) on one draw of its weights, the
     same checks; the weights freed after. Returns the serves' results."""
     from magicpig_tpu_torch.config import LSHConfig, ModelConfig
     from magicpig_tpu_torch.models.llama import init_params

@@ -49,7 +49,7 @@ block_score_kernel(const __nv_bfloat16* __restrict__ q,
   constexpr bool kBf16 = std::is_same<KT, __nv_bfloat16>::value;
   constexpr int kDP = frag_dim(kD);
   const int group = kPart ? group_ : G;
-  const int nsub = kPart ? group_blocks(group) : 1;
+  const int nsub = kPart ? group_blocks(group, G) : 1;
   extern __shared__ __align__(128) uint8_t smem[];
   __shared__ float red[kWarps];
 

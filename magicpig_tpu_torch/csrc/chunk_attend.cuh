@@ -487,7 +487,7 @@ int launch_chunk_attend(Kernel* kernel, const ChunkArgs& a, unsigned& smem_set,
   if (smem > kChunkSmemMax) return static_cast<int>(cudaErrorInvalidValue);
   const cudaError_t err = hp::allow_smem(kernel, kChunkSmemMax, smem_set);
   if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid(total, a.hkv * (kPart ? group_blocks(a.group) : 1), a.batch);
+  dim3 grid(total, a.hkv * (kPart ? group_blocks(a.group, G) : 1), a.batch);
   kernel<<<grid, kBlkThreads, smem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }

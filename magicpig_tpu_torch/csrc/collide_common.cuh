@@ -26,7 +26,9 @@
 //    valid, else 4), every thread's copies arriving on the stage's
 //    mbarrier: no word at or past the valid ones is read.
 //  - Each stage also brings the query bits of its tables for the G heads
-//    (4-byte cp.async copies by every thread, on the same mbarrier), laid
+//    (4-byte cp.async copies by every thread, on the same mbarrier; in the
+//    fused kernel's general tile for its block's heads, up to 16, laid out
+//    as the 4, 8, 12 or 16 heads it matches, `scan_tile_heads`), laid
 //    out by (table, bit, head) and turned in place into flip words
 //    (q_bit - 1) once the stage has landed: a head's match of a plane word
 //    is one LOP3, one vector load gives a bit's flips for four heads (a
@@ -59,9 +61,18 @@ constexpr int kScanMaxRows = 256;   // rows of a TMA box
 // words at a time); TMA's rows (nw % 4 == 0) as they come.
 __host__ __device__ inline int scan_row_words(int nw) { return nw < 2 ? 2 : nw; }
 
-// Flip words a (table, bit) takes in a stage: G, padded to 4 at G = 3 so
-// that load_flips reads them with one aligned 16-byte load.
+// Flip words a (table, bit) takes in a stage for G matched heads: G, padded
+// to 4 at G = 3 so that load_flips reads them with one aligned 16-byte load.
 __host__ __device__ constexpr int scan_flip_words(int G) { return G == 3 ? 4 : G; }
+
+// The heads the fused LSH kernel's general tile matches for a group of
+// `group` heads a kv head: its block's heads (at most kHeadTile) rounded up
+// to whole 4-head flip vectors, so that a group of 3 matches 4 heads, 5 to
+// 7 match 8 and 16 match 16.
+__host__ __device__ inline int scan_tile_heads(int group) {
+  const int g = group < kHeadTile ? group : kHeadTile;
+  return (g + 3) / 4 * 4;
+}
 
 // Bytes of a stage's plane rows (a multiple of 16); its flip words follow.
 __host__ __device__ inline int scan_rows_bytes(int K, int tables, int nw) {
@@ -132,20 +143,34 @@ __device__ __forceinline__ int scan_stages(const ScanTile& t) {
 // query bits of its tables at (table, bit, head) for the first `gn` heads
 // (G for the exact instances; the general tile's heads past gn have no
 // bits, and their words are garbage that the callers drop), then the rows,
-// every thread's copies arriving on the stage's mbarrier.
-template <int G, int kThreads>
+// every thread's copies arriving on the stage's mbarrier. kByWord (the
+// fused kernel's general tile): consecutive threads copy consecutive flip
+// words, so that a warp's copies land in distinct banks (copying a head at
+// a time, as the exact instances do, writes words scan_flip_words(G) apart:
+// 16-way bank conflicts at 16 heads).
+template <int G, int kThreads, bool kByWord = false>
 __device__ __forceinline__ void scan_issue(const ScanTile& t, uint8_t* ring,
                                            uint64_t* bar, int stage, int tid,
                                            int gn) {
+  constexpr int FW = scan_flip_words(G);
   const int slot = stage % kScanStages;
   uint8_t* dst = ring + slot * scan_stage_bytes(t.K, t.tables, t.nw, G);
   const int r0 = stage * t.tables * t.K;
   const int rows = min(t.tables * t.K, t.L * t.K - r0);
   uint8_t* fl = dst + scan_rows_bytes(t.K, t.tables, t.nw);
-  for (int g = 0; g < gn; ++g) {
-    const int* q = t.q_bits + static_cast<size_t>(g) * t.L * t.K + r0;
-    for (int i = tid; i < rows; i += kThreads)
-      hp::cp_async_4(fl + 4 * (i * scan_flip_words(G) + g), q + i);
+  if constexpr (kByWord) {
+    for (int e = tid; e < rows * FW; e += kThreads) {
+      const int i = e / FW, g = e % FW;
+      if (g < gn)
+        hp::cp_async_4(fl + 4 * e,
+                       t.q_bits + static_cast<size_t>(g) * t.L * t.K + r0 + i);
+    }
+  } else {
+    for (int g = 0; g < gn; ++g) {
+      const int* q = t.q_bits + static_cast<size_t>(g) * t.L * t.K + r0;
+      for (int i = tid; i < rows; i += kThreads)
+        hp::cp_async_4(fl + 4 * (i * FW + g), q + i);
+    }
   }
   if (scan_by_tma(t)) {
     if (tid == 0) {
@@ -179,7 +204,7 @@ __device__ __forceinline__ void scan_issue(const ScanTile& t, uint8_t* ring,
 // Initialise the ring's mbarriers and issue its first stages: called by every
 // thread at block start, before the rest of the block's set-up (which must
 // end in a __syncthreads before scan_run).
-template <int G, int kThreads>
+template <int G, int kThreads, bool kByWord = false>
 __device__ __forceinline__ void scan_begin(const ScanTile& t, uint8_t* ring,
                                            uint64_t* bar, int tid, int gn) {
   if (tid == 0) {
@@ -189,7 +214,8 @@ __device__ __forceinline__ void scan_begin(const ScanTile& t, uint8_t* ring,
   }
   __syncthreads();
   const int n = min(kScanStages, scan_stages(t));
-  for (int i = 0; i < n; ++i) scan_issue<G, kThreads>(t, ring, bar, i, tid, gn);
+  for (int i = 0; i < n; ++i)
+    scan_issue<G, kThreads, kByWord>(t, ring, bar, i, tid, gn);
 }
 
 // The G flip words of one (table, bit), in vector loads.
@@ -218,11 +244,12 @@ __device__ __forceinline__ void load_flips(const uint32_t* p, uint32_t (&f)[G]) 
   }
 }
 
-// Match and fold every table of the tile for the G heads; on return the
-// threads' (once, twice) partials are in `part` (at most 4 * kThreads * G
-// words, which may overlay the ring) and visible to the whole block:
-// scan_word merges them.
-template <int G, int kThreads>
+// Match and fold every table of the tile for HM heads (the stages' flip
+// layout of scan_issue<HM>); on return the threads' (once, twice) partials
+// are in `part`, laid out for G heads (G >= HM; at most 4 * kThreads * G
+// words, which may overlay the ring), and visible to the whole block:
+// scan_word<G> merges them.
+template <int G, int kThreads, int HM = G, bool kByWord = false>
 __device__ __forceinline__ void scan_run(const ScanTile& t, uint8_t* ring,
                                          uint64_t* bar, uint32_t* part,
                                          int tid, int gn) {
@@ -235,14 +262,14 @@ __device__ __forceinline__ void scan_run(const ScanTile& t, uint8_t* ring,
   const int rw = scan_row_words(t.nw), lpr = rw / 2;
   const int pair = tid % lpr, slot = tid / lpr, slots = kThreads / lpr;
   const bool back = slot & 1;
-  constexpr int FW = scan_flip_words(G);
+  constexpr int FW = scan_flip_words(HM);
   const int xstep = back ? -rw : rw, fstep = back ? -FW : FW;
-  const int stage_bytes = scan_stage_bytes(t.K, t.tables, t.nw, G);
+  const int stage_bytes = scan_stage_bytes(t.K, t.tables, t.nw, HM);
   const int rows_bytes = scan_rows_bytes(t.K, t.tables, t.nw);
   const int nst = scan_stages(t);
-  uint32_t once[2][G], twice[2][G];
+  uint32_t once[2][HM], twice[2][HM];
 #pragma unroll
-  for (int g = 0; g < G; ++g) once[0][g] = once[1][g] = twice[0][g] = twice[1][g] = 0u;
+  for (int g = 0; g < HM; ++g) once[0][g] = once[1][g] = twice[0][g] = twice[1][g] = 0u;
   for (int i = 0; i < nst; ++i) {
     const int slot_i = i % kScanStages;
     uint8_t* stage = ring + slot_i * stage_bytes;
@@ -257,16 +284,16 @@ __device__ __forceinline__ void scan_run(const ScanTile& t, uint8_t* ring,
     for (int tt = ((slot - l0) % slots + slots) % slots; tt < n; tt += slots) {
       const uint32_t* xp = st + tt * t.K * rw;
       const uint32_t* fp = fl + tt * t.K * FW;
-      uint32_t m0[G], m1[G];
+      uint32_t m0[HM], m1[HM];
 #pragma unroll
-      for (int g = 0; g < G; ++g) m0[g] = m1[g] = 0xffffffffu;
+      for (int g = 0; g < HM; ++g) m0[g] = m1[g] = 0xffffffffu;
 #pragma unroll 2
       for (int k = 0; k < t.K; ++k) {
         const uint2 x = *reinterpret_cast<const uint2*>(xp);
-        uint32_t f[G];
-        load_flips<G>(fp, f);
+        uint32_t f[HM];
+        load_flips<HM>(fp, f);
 #pragma unroll
-        for (int g = 0; g < G; ++g) {
+        for (int g = 0; g < HM; ++g) {
           m0[g] &= x.x ^ f[g];
           m1[g] &= x.y ^ f[g];
         }
@@ -274,19 +301,24 @@ __device__ __forceinline__ void scan_run(const ScanTile& t, uint8_t* ring,
         fp += fstep;
       }
 #pragma unroll
-      for (int g = 0; g < G; ++g) {
+      for (int g = 0; g < HM; ++g) {
         twice[0][g] |= once[0][g] & m0[g];
         once[0][g] |= m0[g];
         twice[1][g] |= once[1][g] & m1[g];
         once[1][g] |= m1[g];
       }
     }
-    __syncthreads();   // the slot is free
+    // The slot is free; the fused tile also orders its threads' reads (and
+    // the flips' writes) before the next copies into it, TMA's async ones
+    // among them, by a proxy fence.
+    if constexpr (kByWord) hp::fence_proxy_async();
+    __syncthreads();
     if (i + kScanStages < nst)
-      scan_issue<G, kThreads>(t, ring, bar, i + kScanStages, tid, gn);
+      scan_issue<HM, kThreads, kByWord>(t, ring, bar, i + kScanStages, tid,
+                                        gn);
   }
 #pragma unroll
-  for (int g = 0; g < G; ++g)
+  for (int g = 0; g < HM; ++g)
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
       part[(slot * G + g) * rw + 2 * pair + e] = once[e][g];

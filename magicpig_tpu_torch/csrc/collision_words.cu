@@ -103,7 +103,7 @@ int launch(const void* planes, const void* q_bits, const void* length,
   if (use_map && !mp::scan_map(&map, planes, words, batch * hkv * L * K, nw, K,
                                tables))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int blocks = kPart ? mp::group_blocks(group) : 1;
+  const int blocks = kPart ? mp::group_blocks(group, G) : 1;
   dim3 grid((words + nw - 1) / nw, hkv * blocks, batch);
   kernel<<<grid, kScanThreads, kRingBytes, stream>>>(
       map, use_map, static_cast<const int*>(planes),

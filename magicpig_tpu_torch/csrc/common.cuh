@@ -80,21 +80,26 @@ __device__ __forceinline__ bool take_ticket(int* ticket, int count) {
 // Each kernel has exact instances for the group sizes G = hq / hkv of 1, 2,
 // 4 and 8 at head dims 64 and 128, and 3 at 128 (their code is as it was
 // before the other forms came). Every other form (any G at head dims 16
-// and 32, and the other G at 64 and 128) takes the general tile: an
-// instance at G = kGroupTile with kPart set, which serves any group size
-// with ceil(group / kGroupTile) sub-groups of at most kGroupTile query
-// heads per kv head; a block takes one sub-group (blockIdx.y = kv head *
-// sub-groups + sub-group) and runs the exact instance's code with its
-// heads past `gn` empty (no query read, no selection, no output written).
+// and 32, and the other G at 64 and 128) takes the kernel's general tile,
+// which serves any group size with ceil(group / tile) blocks of at most
+// `tile` query heads per kv head: a block takes one of them (blockIdx.y =
+// kv head * blocks + block, `Heads`), and its heads past `gn` are empty
+// (no query read, no selection, no output written). The tile is a kernel's
+// own: kHeadTile (16, one mma.sync M tile of heads) for the decode and both
+// LSH kernels, so that every served group reads its kv head's K/V or
+// signatures once; kGroupTile (8: an instance at G = 8 with kPart set) for
+// the block scorer, both attends of the selected blocks and the standalone
+// collision scan.
 constexpr int kGroupTile = 8;
+constexpr int kHeadTile = 16;
 
 __host__ __device__ inline bool exact_group(int g, int head_dim) {
   return (head_dim == 64 || head_dim == 128) &&
          (g == 1 || g == 2 || g == 4 || g == 8 || (g == 3 && head_dim == 128));
 }
 
-__host__ __device__ inline int group_blocks(int group) {
-  return (group + kGroupTile - 1) / kGroupTile;
+__host__ __device__ inline int group_blocks(int group, int tile) {
+  return (group + tile - 1) / tile;
 }
 
 // The head dims the decode-side kernels take: every one that divides 128
@@ -104,16 +109,16 @@ __host__ __device__ inline bool head_dim_ok(int d) {
 }
 
 // The query heads of one block. Exact instances (kPart false): the kv
-// head's G heads, blockIdx.y the kv head. The general tile (kPart): the
-// sub-group blockIdx.y % blocks of kv head blockIdx.y / blocks, `group`
-// heads a kv head. `slot` (b * hkv * blocks + blockIdx.y) numbers the
-// block's (request, kv head, sub-group) for the merge tickets.
+// head's G heads, blockIdx.y the kv head. The general tile (kPart, G the
+// tile): the block blockIdx.y % blocks of kv head blockIdx.y / blocks,
+// `group` heads a kv head. `slot` (b * hkv * blocks + blockIdx.y) numbers
+// the block's (request, kv head, block of heads) for the merge tickets.
 template <int G, bool kPart>
 struct Heads {
   int kh, group, g0, gn;
   __device__ __forceinline__ Heads(int y, int group_) {
     if constexpr (kPart) {
-      const int blocks = group_blocks(group_);
+      const int blocks = group_blocks(group_, G);
       kh = y / blocks;
       group = group_;
       g0 = (y % blocks) * G;
@@ -129,7 +134,7 @@ struct Heads {
   __device__ __forceinline__ size_t row(int b, int hkv) const {
     return (static_cast<size_t>(b) * hkv + kh) * group + g0;
   }
-  // The block's merge ticket: one per (request, kv head, sub-group).
+  // The block's merge ticket: one per (request, kv head, block of heads).
   __device__ __forceinline__ int slot(int b, int hkv) const {
     if constexpr (kPart)
       return b * static_cast<int>(gridDim.y) + static_cast<int>(blockIdx.y);

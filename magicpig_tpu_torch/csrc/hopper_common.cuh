@@ -152,8 +152,9 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
-// Generic-proxy writes to shared memory made visible to the async proxy
-// (wgmma operand reads).
+// Generic-proxy accesses to shared memory ordered before the async proxy's
+// later ones: writes made visible to wgmma operand reads, reads done before
+// a bulk copy overwrites the buffer.
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }

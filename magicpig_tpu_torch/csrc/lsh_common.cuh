@@ -17,12 +17,23 @@
 // every per-head loop runs to G, the P.V's and the merge's head rows past
 // G are zero or unwritten, and the scan pads a bit's three flip words to
 // four (collide_common.cuh). Every other form takes the general tile
-// (common.cuh, `Heads`): an instance at G = 8 whose block serves at most 8
-// query heads of its kv head (a group of 16: two blocks, each gathering
-// its own rows), the heads past `gn` with no selection, so that they
-// sample nothing and write nothing, and the debias form read from the
-// arguments (kAnyDebias), so that one instance a K/V type, head dim and
-// kernel serves all three.
+// (common.cuh, `Heads`): an instance at G = kHeadTile = 16 whose block
+// serves up to 16 query heads of its kv head, so that one block per
+// (split, kv head, request) streams each signature plane word from device
+// memory once for any group of up to 16 (more: ceil(G / 16) blocks). Its
+// per-head loops run to the block's heads `gn` (the heads past it have no
+// selection, sample nothing and write nothing); its scan matches gn heads
+// rounded up to whole 4-head flip vectors (`with_tile_heads`: a group of 3
+// pays for 4 heads, 5-7 for 8, 16 for 16; each count its own instance of
+// the matching loop, picked at run time); P.V puts heads 8-15 on the
+// fragments' rows 8-15; a pass gathers at most 128 rows (`LshSmem::kCap`),
+// so that as many blocks share an SM as of the exact instances; and the
+// debias form is read from the arguments (kAnyDebias), so that one
+// instance a K/V type, head dim and kernel serves all three; the last
+// block merges the splits in registers, four values a thread. Its work
+// beside the bytes: the matching's 16 heads x L x K LOP3s a plane word at
+// G = 16; on the card each block's serial chain of scan stages, passes and
+// merge bounds it, not either count.
 //
 // K/V come bf16, or int8 with per-token f32 scales (the TPU kernels'
 // quant=True form: the raw score is q . K_int8 times the K scale, the
@@ -97,8 +108,8 @@ struct PolyCoef {
 // scan_tma is set, and scan_tables tables a ring stage), or words
 // [B, Hq, S/32] (the other pointers null). k_scale, v_scale [B, Hkv, S]:
 // int8 K/V only. Partials [nsplit, B * Hq] (part_o with d values a row);
-// tickets [B * Hkv * sub-groups], 0 between calls. group: query heads a kv
-// head; debias: the form, read where the kernel's is kAnyDebias.
+// tickets [B * Hkv * blocks of heads], 0 between calls. group: query heads
+// a kv head; debias: the form, read where the kernel's is kAnyDebias.
 struct LshArgs {
   CUtensorMap plane_map;
   const void *q, *k, *v, *k_scale, *v_scale, *k_norm;
@@ -112,31 +123,42 @@ struct LshArgs {
 
 // kScan: the fused kernel's, whose union also holds the scan's ring (the
 // same 40 KB at both head dims; the rows' 80 KB of bf16 at d = 128 are the
-// union's size there, in both kernels). kD: the head dim.
+// union's size there, in both kernels). kD: the head dim. kCap: rows
+// gathered a pass, kLshCap but 128 for the general tile's 16 heads, so that
+// as many of its blocks share an SM as of the exact instances' (two at
+// rows of 256 bytes, ~99 KB each; three at d = 64, ~71 KB).
 template <int G, typename T, bool kScan, int kD>
 struct __align__(128) LshSmem {
   static constexpr int kRowBytes = kD * static_cast<int>(sizeof(T));
-  static constexpr int kRingBytes = kScan ? kScanRingBytes : 128;
+  static constexpr int kCap = G > 8 ? 128 : kLshCap;
+  // The general tile's ring takes the whole union where the rows are
+  // larger (64 KB at d = 128 in bf16): more tables a stage, fewer stages.
+  static constexpr int kTileRing = 2 * kCap * kRowBytes;
+  static constexpr int kRingBytes =
+      !kScan ? 128
+             : G > 8 && kTileRing > kScanRingBytes ? kTileRing
+                                                   : kScanRingBytes;
   union {
     uint8_t ring[kRingBytes];          // the scan's stages (128-aligned)
-    uint32_t scan_part[4 * kLshThreads * G];   // then its threads' partials
+    uint32_t scan_part[kScan ? 4 * kLshThreads * G : 1];  // then its
+                                       // threads' partials
     struct {                           // a pass's gathered rows
-      uint8_t k[kLshCap * kRowBytes];  // 16-byte units swizzled (k_unit)
-      uint8_t v[kLshCap * kRowBytes];
+      uint8_t k[kCap * kRowBytes];     // 16-byte units swizzled (k_unit)
+      uint8_t v[kCap * kRowBytes];
     } rows;
   } u;
   float qf[G][kD];                     // raw query
-  float ps[G * kLshCap];               // the pass's pair scores, then p
-  float knorm[kLshCap];
-  float ksc[kLshCap];                  // int8 only
-  float vsc[kLshCap];
+  float ps[G * kCap];                  // the pass's pair scores, then p
+  float knorm[kCap];
+  float ksc[kCap];                     // int8 only
+  float vsc[kCap];
   uint32_t sel[G][kLshMaxWords];       // sampled and valid tokens
   uint32_t any[kLshMaxWords];          // sampled by some head of the group
   int anybase[kLshMaxWords + 1];       // rows before each word
   int hbase[G][kLshMaxWords + 1];      // head g's pairs before each word
-  uint16_t pslot[G][kLshCap];          // the pass's row of head g's pairs
-  uint16_t rowtok[kLshCap];            // each gathered row's token - start
-  uint32_t pdense[G][kLshCap / 2];     // the P.V operand, bf16 pairs: p of
+  uint16_t pslot[G][kCap];             // the pass's row of head g's pairs
+  uint16_t rowtok[kCap];               // each gathered row's token - start
+  uint32_t pdense[G][kCap / 2];        // the P.V operand, bf16 pairs: p of
                                        // head g at each of the pass's rows
   float qnorm[G], m[G], l[G], alpha[G];
   float cnt[G];                        // the merge's summed counts
@@ -144,6 +166,20 @@ struct __align__(128) LshSmem {
   int is_last;
   uint64_t scan_bar[kScanStages];      // the ring's stages
 };
+
+// Calls f(std::integral_constant<int, HM>{}) with the heads the general
+// tile's scan matches for `group` heads a kv head (scan_tile_heads: 4, 8,
+// 12 or 16): one instance of the matching a head count, so that a group
+// of 3 pays for 4 heads and not 16.
+template <typename F>
+__device__ __forceinline__ void with_tile_heads(int group, F&& f) {
+  switch (scan_tile_heads(group)) {
+    case 4: f(std::integral_constant<int, 4>{}); break;
+    case 8: f(std::integral_constant<int, 8>{}); break;
+    case 12: f(std::integral_constant<int, 12>{}); break;
+    default: f(std::integral_constant<int, 16>{}); break;
+  }
+}
 
 // Byte offset of 16-byte unit `unit` of gathered K row `row` (kUnits units
 // a row, by the row's bytes: 4 for int8 at d = 64, 8 for bf16 at 64 and
@@ -209,6 +245,7 @@ lsh_split_kernel(const __grid_constant__ LshArgs a) {
   constexpr bool kQ = std::is_same<T, int8_t>::value;
   using Smem = LshSmem<G, T, !kWords, kD>;
   constexpr int kRowBytes = Smem::kRowBytes;
+  constexpr int kCap = Smem::kCap;
   constexpr int kUnits = kRowBytes / 16;
   constexpr int kWarps = kLshThreads / 32;
   // Warps of the P.V (two at d = 16) and their n-tiles of 8 output dims.
@@ -259,27 +296,33 @@ lsh_split_kernel(const __grid_constant__ LshArgs a) {
     tile.K = K;
     tile.L = L;
     tile.tables = a.scan_tables;
-    scan_begin<G, kLshThreads>(tile, sm.u.ring, sm.scan_bar, tid, gn);
+    if constexpr (kPart)
+      with_tile_heads(a.group, [&](auto hm) {
+        scan_begin<decltype(hm)::value, kLshThreads, true>(
+            tile, sm.u.ring, sm.scan_bar, tid, gn);
+      });
+    else
+      scan_begin<G, kLshThreads>(tile, sm.u.ring, sm.scan_bar, tid, gn);
   }
 
   // Query: raw f32 values (the debias needs the unscaled dot) and norms;
   // the given words load beside them (the scan's query bits come with its
   // stages).
   const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(a.q);
-  for (int i = tid; i < G * kD; i += kLshThreads)
-    sm.qf[i / kD][i % kD] = i < gn * kD ? __bfloat162float(q[row * kD + i]) : 0.f;
+  for (int i = tid; i < gn * kD; i += kLshThreads)
+    sm.qf[i / kD][i % kD] = __bfloat162float(q[row * kD + i]);
   if constexpr (kWords) {
-    for (int i = tid; i < G * nw; i += kLshThreads) {
+    for (int i = tid; i < gn * nw; i += kLshThreads) {
       const int g = i / nw, w = i % nw, first = start + 32 * w;
       uint32_t t = 0u;
-      if (first < stop && g < gn)
+      if (first < stop)
         t = static_cast<uint32_t>(a.words[(row + g) * words + first / 32]) &
             valid_bits(first, stop);
       sm.sel[g][w] = t;
     }
   }
   __syncthreads();
-  for (int g = warp; g < G; g += kWarps) {
+  for (int g = warp; g < gn; g += kWarps) {
     float x2 = 0.f;
 #pragma unroll
     for (int j = lane; j < kD; j += 32) x2 += sm.qf[g][j] * sm.qf[g][j];
@@ -293,14 +336,18 @@ lsh_split_kernel(const __grid_constant__ LshArgs a) {
 
   // ---- the scan's selection words, ANDed with the split's valid tokens.
   if constexpr (!kWords) {
-    scan_run<G, kLshThreads>(tile, sm.u.ring, sm.scan_bar, sm.u.scan_part,
-                             tid, gn);
-    for (int i = tid; i < G * nw; i += kLshThreads) {
+    if constexpr (kPart)
+      with_tile_heads(a.group, [&](auto hm) {
+        scan_run<G, kLshThreads, decltype(hm)::value, true>(
+            tile, sm.u.ring, sm.scan_bar, sm.u.scan_part, tid, gn);
+      });
+    else
+      scan_run<G, kLshThreads>(tile, sm.u.ring, sm.scan_bar, sm.u.scan_part,
+                               tid, gn);
+    for (int i = tid; i < gn * nw; i += kLshThreads) {
       const int g = i / nw, w = i % nw;
-      sm.sel[g][w] = g < gn ? scan_word<G, kLshThreads>(sm.u.scan_part, nw,
-                                                        g, w) &
-                                  valid_bits(start + 32 * w, stop)
-                            : 0u;
+      sm.sel[g][w] = scan_word<G, kLshThreads>(sm.u.scan_part, nw, g, w) &
+                     valid_bits(start + 32 * w, stop);
     }
     __syncthreads();
   }
@@ -320,10 +367,10 @@ lsh_split_kernel(const __grid_constant__ LshArgs a) {
       for (int i = 0; i < kLists; ++i) {
         const int li = warp + kWarps * i;
         uint32_t x = 0u;
-        if (li <= G && w < nw) {
+        if (li <= gn && w < nw) {
           if (li == 0) {
 #pragma unroll
-            for (int g = 0; g < G; ++g) x |= sm.sel[g][w];
+            for (int g = 0; g < (kPart ? gn : G); ++g) x |= sm.sel[g][w];
             sm.any[w] = x;
           } else {
             x = sm.sel[li - 1][w];
@@ -341,7 +388,7 @@ lsh_split_kernel(const __grid_constant__ LshArgs a) {
 #pragma unroll
       for (int i = 0; i < kLists; ++i) {
         const int li = warp + kWarps * i;
-        if (li <= G && w < nw)
+        if (li <= gn && w < nw)
           (li == 0 ? sm.anybase : sm.hbase[li - 1])[w] = carry[i] + inc[i] - c[i];
         carry[i] += __shfl_sync(0xffffffffu, inc[i], 31);
       }
@@ -349,13 +396,13 @@ lsh_split_kernel(const __grid_constant__ LshArgs a) {
 #pragma unroll
     for (int i = 0; i < kLists; ++i) {
       const int li = warp + kWarps * i;
-      if (li <= G && lane == 0)
+      if (li <= gn && lane == 0)
         (li == 0 ? sm.anybase : sm.hbase[li - 1])[nw] = carry[i];
     }
   }
   __syncthreads();
 
-  // ---- passes of whole words, at most kLshCap rows each.
+  // ---- passes of whole words, at most kCap rows each.
   const size_t head_off = (static_cast<size_t>(b) * a.hkv + kh) * s_cap;
   const uint8_t* k_h = static_cast<const uint8_t*>(a.k) + head_off * kRowBytes;
   const uint8_t* v_h = static_cast<const uint8_t*>(a.v) + head_off * kRowBytes;
@@ -364,10 +411,12 @@ lsh_split_kernel(const __grid_constant__ LshArgs a) {
   const float* vs_h = kQ ? static_cast<const float*>(a.v_scale) + head_off : nullptr;
   const float fK = static_cast<float>(K), fL = static_cast<float>(L);
   // P.V on mma.sync: warp w owns output dims 8 kNT w .. 8 kNT (w + 1) - 1
-  // (kNT n-tiles of 8); lane (r = lane / 4, t = lane % 4) accumulates head
-  // r's dims 8 kNT w + 8nt + 2t + {0, 1} (heads r >= G are zero rows of P).
+  // (kNT n-tiles of 8); lane (r = lane / 4, t = lane % 4) accumulates heads
+  // r and (kRows 4: the general tile's 16) r + 8 at dims 8 kNT w + 8nt + 2t
+  // + {0, 1} (heads >= gn are zero rows of P).
+  constexpr int kRows = G > 8 ? 4 : 2;
   const int pr = lane >> 2, pt = lane & 3;
-  float acc[kNT][2] = {};
+  float acc[kNT][kRows] = {};
 
   for (int w0 = 0; w0 < nw;) {
     // The pass: words w0 .. w1 - 1, the longest run whose rows fit (the
@@ -378,7 +427,7 @@ lsh_split_kernel(const __grid_constant__ LshArgs a) {
     for (int h = 0; h < kLshMaxWords / 32; ++h) {
       const int w = lane + 32 * h;
       w1 += __popc(__ballot_sync(0xffffffffu, w > w0 && w < nw &&
-                                 sm.anybase[w + 1] - r0 <= kLshCap));
+                                 sm.anybase[w + 1] - r0 <= kCap));
     }
     const int nr = sm.anybase[w1] - r0;
     if (nr == 0) {                                   // block-uniform
@@ -394,7 +443,7 @@ lsh_split_kernel(const __grid_constant__ LshArgs a) {
         const int slot = sm.anybase[w] - r0 + __popc(any & below);
         sm.rowtok[slot] = static_cast<uint16_t>(t);
 #pragma unroll
-        for (int g = 0; g < G; ++g) {
+        for (int g = 0; g < (kPart ? gn : G); ++g) {
           const uint32_t x = sm.sel[g][w];
           if ((x >> bit) & 1u)
             sm.pslot[g][sm.hbase[g][w] - sm.hbase[g][w0] + __popc(x & below)] =
@@ -402,9 +451,9 @@ lsh_split_kernel(const __grid_constant__ LshArgs a) {
         }
       }
     }
-    for (int i = tid; i < G * kLshCap / 2; i += kLshThreads)
+    for (int i = tid; i < gn * kCap / 2; i += kLshThreads)
       (&sm.pdense[0][0])[i] = 0u;
-    if (tid <= G) {
+    if (tid <= gn) {
       int o = 0;
       for (int g = 0; g < tid; ++g) o += sm.hbase[g][w1] - sm.hbase[g][w0];
       sm.off[tid] = o;
@@ -436,10 +485,10 @@ lsh_split_kernel(const __grid_constant__ LshArgs a) {
     __syncthreads();
 
     // Score the sampled pairs only, densely by head.
-    const int np = sm.off[G];
+    const int np = sm.off[gn];
     for (int i = tid; i < np; i += kLshThreads) {
       int g = 0;
-      while (g + 1 < G && i >= sm.off[g + 1]) ++g;
+      while (g + 1 < gn && i >= sm.off[g + 1]) ++g;
       const int slot = sm.pslot[g][i - sm.off[g]];
       float raw = key_dot<kD>(sm.u.rows.k, slot, sm.qf[g],
                               static_cast<const T*>(nullptr));
@@ -470,7 +519,7 @@ lsh_split_kernel(const __grid_constant__ LshArgs a) {
     // passes. The P.V operand is p (times the V scale) rounded to bf16, as
     // the TPU kernel feeds its matrix unit, placed at its row in the head's
     // dense row of P; the row sum takes p unrounded.
-    for (int g = warp; g < G; g += kWarps) {
+    for (int g = warp; g < gn; g += kWarps) {
       const int o = sm.off[g], n = sm.off[g + 1] - o;
       float mx = kNegInf;
       for (int j = lane; j < n; j += 32) mx = fmaxf(mx, sm.ps[o + j]);
@@ -502,10 +551,14 @@ lsh_split_kernel(const __grid_constant__ LshArgs a) {
     float d[kNT][4] = {};
     for (int k0 = 0; pv_warp && k0 < nr; k0 += 16) {
       const int ka = k0 + 2 * pt;
-      uint32_t af[4] = {0u, 0u, 0u, 0u};     // rows 8..15 of P are zero
-      if (pr < G) {
+      uint32_t af[4] = {0u, 0u, 0u, 0u};     // rows past gn of P are zero
+      if (pr < gn) {
         af[0] = sm.pdense[pr][ka / 2];
         af[2] = sm.pdense[pr][ka / 2 + 4];
+      }
+      if (G > 8 && pr + 8 < gn) {
+        af[1] = sm.pdense[pr + 8][ka / 2];
+        af[3] = sm.pdense[pr + 8][ka / 2 + 4];
       }
 #pragma unroll
       for (int nt = 0; nt < kNT; ++nt) {
@@ -519,13 +572,16 @@ lsh_split_kernel(const __grid_constant__ LshArgs a) {
         mma_bf16_16816(d[nt], af, v[0] | (v[1] << 16), v[2] | (v[3] << 16));
       }
     }
-    if (pr < G) {
-      const float al = sm.alpha[pr];
 #pragma unroll
-      for (int nt = 0; nt < kNT; ++nt)
+    for (int h = 0; h < kRows / 2; ++h)
+      if (pr + 8 * h < gn) {
+        const float al = sm.alpha[pr + 8 * h];
 #pragma unroll
-        for (int e = 0; e < 2; ++e) acc[nt][e] = acc[nt][e] * al + d[nt][e];
-    }
+        for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+          for (int e = 2 * h; e < 2 * h + 2; ++e)
+            acc[nt][e] = acc[nt][e] * al + d[nt][e];
+      }
     __syncthreads();
     w0 = w1;
   }
@@ -533,14 +589,18 @@ lsh_split_kernel(const __grid_constant__ LshArgs a) {
   // ---- the split's normalised output and natural-log LSE, per head.
   const size_t part = static_cast<size_t>(split) * a.batch * hq + row;
   float* o_dst = n_act == 1 ? a.out + row * kD : a.part_o + part * kD;
-  if (pr < gn && pv_warp) {
-    const float li = sm.l[pr];
 #pragma unroll
-    for (int nt = 0; nt < kNT; ++nt)
-      *reinterpret_cast<float2*>(o_dst + pr * kD + 8 * kNT * warp + 8 * nt +
-                                 2 * pt) =
-          li > 0.f ? make_float2(acc[nt][0] / li, acc[nt][1] / li)
-                   : make_float2(0.f, 0.f);
+  for (int h = 0; h < kRows / 2; ++h) {
+    const int hr = pr + 8 * h;
+    if (hr < gn && pv_warp) {
+      const float li = sm.l[hr];
+#pragma unroll
+      for (int nt = 0; nt < kNT; ++nt)
+        *reinterpret_cast<float2*>(o_dst + hr * kD + 8 * kNT * warp + 8 * nt +
+                                   2 * pt) =
+            li > 0.f ? make_float2(acc[nt][2 * h] / li, acc[nt][2 * h + 1] / li)
+                     : make_float2(0.f, 0.f);
+    }
   }
   if (tid < gn) {
     const float li = sm.l[tid];
@@ -567,6 +627,42 @@ lsh_split_kernel(const __grid_constant__ LshArgs a) {
   __syncthreads();
   if (!sm.is_last) return;
   __threadfence();
+  const size_t stride = static_cast<size_t>(a.batch) * hq;
+  if constexpr (kPart) {
+    // The general tile's 16 heads: a register merge, four values a thread
+    // by vector loads, 8 splits in flight, one pass with a running max (a
+    // split with no sample has lse -inf: weight 0, a zero partial).
+    for (int idx = tid; idx < gn * kD / 4; idx += kLshThreads) {
+      const int g = 4 * idx / kD;
+      const bool first = (4 * idx) % kD == 0;
+      float mx = kNegInf, den = 0.f, cnt = 0.f, acc[4] = {};
+#pragma unroll 8
+      for (int sp = 0; sp < n_act; ++sp) {
+        const size_t pi = sp * stride + row;
+        const float ls = __ldcg(a.part_lse + pi + g);
+        const float4 ov =
+            __ldcg(reinterpret_cast<const float4*>(a.part_o + pi * kD) + idx);
+        if (first) cnt += __ldcg(a.part_cnt + pi + g);
+        const float nm = fmaxf(mx, ls);
+        const float mu = nm == kNegInf ? 0.f : nm;
+        const float keep = expf(mx - mu), w = expf(ls - mu);
+        den = den * keep + w;
+        acc[0] = acc[0] * keep + w * ov.x;
+        acc[1] = acc[1] * keep + w * ov.y;
+        acc[2] = acc[2] * keep + w * ov.z;
+        acc[3] = acc[3] * keep + w * ov.w;
+        mx = nm;
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        a.out[row * kD + 4 * idx + j] = den > 0.f ? acc[j] / den : 0.f;
+      if (first) {
+        a.lse[row + g] = den > 0.f ? mx + logf(den) : kNegInf;
+        a.cnt[row + g] = cnt;
+      }
+    }
+    return;
+  }
   // The partials come into shared memory (the gathered rows' buffer, then
   // the scores') in batches of kBatch splits, one round trip each: a warp a
   // head takes the max of the batch's lse and weights each split by
@@ -574,12 +670,11 @@ lsh_split_kernel(const __grid_constant__ LshArgs a) {
   // (a split with no sample has lse -inf: weight 0, a zero partial), and
   // the running sums rescale from batch to batch.
   constexpr int kAcc = (G * kD + kLshThreads - 1) / kLshThreads;
-  constexpr int kFit = 2 * kLshCap * kRowBytes / (G * kD * 4);
-  constexpr int kBatch = kFit < kLshCap / 2 ? kFit : kLshCap / 2;
+  constexpr int kFit = 2 * kCap * kRowBytes / (G * kD * 4);
+  constexpr int kBatch = kFit < kCap / 2 ? kFit : kCap / 2;
   float* o_st = reinterpret_cast<float*>(sm.u.rows.k);
   float* w_st = sm.ps;                         // lse, then weights
   float* cnt_st = sm.ps + kBatch * G;
-  const size_t stride = static_cast<size_t>(a.batch) * hq;
   float num[kAcc];
 #pragma unroll
   for (int r = 0; r < kAcc; ++r) num[r] = 0.f;
@@ -665,7 +760,9 @@ int launch_lsh(LshArgs a, cudaStream_t stream) {
     // The ring's stages, and a tensor map over the planes where TMA's boxes
     // fit (scan_tma_fits; otherwise every tile comes by cp.async).
     const int words = a.s_cap / 32, nw = a.split / 32;
-    a.scan_tables = scan_stage_tables(a.K, a.L, nw, G, kLshThreads,
+    a.scan_tables = scan_stage_tables(a.K, a.L, nw,
+                                      kPart ? scan_tile_heads(a.group) : G,
+                                      kLshThreads,
                                       LshSmem<G, T, true, kD>::kRingBytes);
     if (a.scan_tables < 1) return static_cast<int>(cudaErrorInvalidValue);
     a.scan_tma = scan_tma_fits(words, nw);
@@ -680,7 +777,7 @@ int launch_lsh(LshArgs a, cudaStream_t stream) {
   auto* kernel = lsh_split_kernel<G, T, kDebias, kWords, kD, kPart>;
   const cudaError_t err = hp::allow_smem(kernel, kMaxDynSmem, smem_set);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int blocks = kPart ? group_blocks(a.group) : 1;
+  const int blocks = kPart ? group_blocks(a.group, G) : 1;
   dim3 grid((a.s_cap + a.split - 1) / a.split, a.hkv * blocks, a.batch);
   kernel<<<grid, kLshThreads, dyn, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
@@ -691,10 +788,10 @@ int launch_lsh(LshArgs a, cudaStream_t stream) {
 template <typename T, bool kWords>
 int launch_lsh_part(int d, const LshArgs& a, cudaStream_t st) {
   switch (d) {
-    case 16: return launch_lsh<kGroupTile, T, kAnyDebias, kWords, 16, true>(a, st);
-    case 32: return launch_lsh<kGroupTile, T, kAnyDebias, kWords, 32, true>(a, st);
-    case 64: return launch_lsh<kGroupTile, T, kAnyDebias, kWords, 64, true>(a, st);
-    case 128: return launch_lsh<kGroupTile, T, kAnyDebias, kWords, 128, true>(a, st);
+    case 16: return launch_lsh<kHeadTile, T, kAnyDebias, kWords, 16, true>(a, st);
+    case 32: return launch_lsh<kHeadTile, T, kAnyDebias, kWords, 32, true>(a, st);
+    case 64: return launch_lsh<kHeadTile, T, kAnyDebias, kWords, 64, true>(a, st);
+    case 128: return launch_lsh<kHeadTile, T, kAnyDebias, kWords, 128, true>(a, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

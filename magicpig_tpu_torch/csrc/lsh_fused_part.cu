@@ -1,5 +1,6 @@
 // The fused LSH-sampled decode (lsh_fused.cu) in its general tile
-// with bf16 K/V: the template of lsh_common.cuh at G = 8 with kPart, for
+// with bf16 K/V: the template of
+// lsh_common.cuh at G = 16 (kHeadTile) with kPart, for
 // every form that has no exact instance (any group size at head dims 16
 // and 32; group sizes other than 1, 2, 4 and 8 at 64, and other than 1, 2,
 // 3, 4 and 8 at 128), one instance a head dim, the debias form read from
@@ -8,7 +9,7 @@
 // lsh_fused_part_bf16.
 //
 // Replaces, bounds and design: as lsh_fused.cu; the general tile's block
-// takes at most 8 query heads of its kv head (common.cuh, `Heads`).
+// takes up to 16 query heads of its kv head (common.cuh, `Heads`).
 #include "lsh_common.cuh"
 
 namespace mp {

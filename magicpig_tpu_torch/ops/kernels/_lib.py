@@ -229,12 +229,17 @@ HEAD_DIMS = (16, 32, 64, 128)
 # Group sizes with an exact instance of every decode-side kernel at head
 # dims 64 and 128, and the one at 128 only (Llama-3.2-3B: 24 query heads
 # over 8; the scan has no head dim and takes it too). Every other group
-# size, and every one at head dims 16 and 32, runs the general tile
-# (`exact_group` in csrc/common.cuh): blocks of at most GROUP_TILE query
-# heads of a kv head, ceil(G / GROUP_TILE) of them a kv head.
+# size, and every one at head dims 16 and 32, runs the kernel's general
+# tile (`exact_group` in csrc/common.cuh): blocks of at most `tile` query
+# heads of a kv head, ceil(G / tile) of them a kv head, each with its own
+# merge ticket. The tile is a kernel family's: HEAD_TILE (16, one mma.sync
+# M tile of heads: `kHeadTile`) for flash decode and both LSH kernels,
+# GROUP_TILE (8: `kGroupTile`) for the block scorer, both attends of the
+# selected blocks and the collision scan.
 GROUPS = (1, 2, 4, 8)
 GROUPS_D128 = (3,)
 GROUP_TILE = 8
+HEAD_TILE = 16
 
 
 def require(cond: bool, msg: str) -> None:
@@ -258,16 +263,16 @@ def exact_group(g: int, head_dim: int | None) -> bool:
 
 
 def tile_group(g: int, head_dim: int | None) -> int:
-    """The G of the instance that serves group size g: g itself, or
-    GROUP_TILE for the general tile."""
+    """The G of the block kernels' instance that serves group size g: g
+    itself, or GROUP_TILE for their general tile."""
     return g if exact_group(g, head_dim) else GROUP_TILE
 
 
-def head_blocks(g: int, head_dim: int | None) -> int:
+def head_blocks(g: int, head_dim: int | None, tile: int) -> int:
     """Blocks a kv head's query heads take (each with its own merge
-    ticket): 1 for an exact instance, ceil(g / GROUP_TILE) for the general
-    tile."""
-    return 1 if exact_group(g, head_dim) else -(-g // GROUP_TILE)
+    ticket): 1 for an exact instance, ceil(g / tile) for the general tile
+    of a family whose tile is `tile` (HEAD_TILE or GROUP_TILE)."""
+    return 1 if exact_group(g, head_dim) else -(-g // tile)
 
 
 def check_group(name: str, hq: int, hkv: int, head_dim: int | None) -> None:

@@ -133,7 +133,7 @@ def merge_buffers(nparts: int, b: int, hq: int, hkv: int, d: int,
     f32 = dict(dtype=torch.float32, device=device)
     return (torch.empty((nparts, b * hq, d), **f32),
             torch.empty((nparts, b * hq), **f32),
-            tickets_for(device, b, hq, hkv, d)[0],
+            tickets_for(device, b, hq, hkv, d, _lib.GROUP_TILE)[0],
             torch.empty((b, hq, d), **f32),
             torch.empty((b, hq), **f32))
 

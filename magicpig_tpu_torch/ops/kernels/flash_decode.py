@@ -27,6 +27,7 @@ HEAD_DIM = 64          # the d = 64 forms' counters carry no suffix
 DECODE_TILE = 64       # tokens per copy of flash_decode (kTile)
 MIN_SPLIT = 256        # fewest tokens per flash_decode split
 MAX_SPLIT = 1024       # most tokens per flash_decode split
+MAX_SPLIT_TILE = 2048  # most per split of the general tile above 4 heads
 
 # Per device: the merge tickets (int32, 0 between calls; the kernel resets
 # each one it uses) and the SM count. A CUDA graph captured over a wrapper
@@ -38,16 +39,29 @@ _outgrown: list[torch.Tensor] = []
 _num_sms: dict[torch.device, int] = {}
 
 
-def split_tokens(capacity: int, batch: int, hkv: int, num_sms: int) -> int:
+def split_tokens(capacity: int, batch: int, hkv: int, num_sms: int,
+                 heads: int = 0) -> int:
     """Tokens per flash_decode split: the capacity of every (request, kv
     head) cut into about one block per SM, in whole 64-token tiles, within
     [MIN_SPLIT, MAX_SPLIT]. A short cache takes one split, which writes its
-    output without a merge. `chip_smoke.py` phase 2 times 512, 1024 and 2048
-    at B=2 over 16384 + 11000 tokens, bf16 and int8, at d = 64 and 128
-    (`PERF.md`)."""
+    output without a merge. `heads`: the query heads a block of the general
+    tile serves (0: an exact instance). A tile block's set-up and the last
+    block's merge grow with its heads, so its fewest tokens are MIN_SPLIT
+    for every 4 heads, and above 4 heads its most MAX_SPLIT_TILE.
+    `chip_smoke.py` phase 2 times 512, 1024 and 2048 at B=2 over 16384 +
+    11000 tokens, bf16 and int8, at d = 64 and 128, and the general tile's
+    served forms (`PERF.md`)."""
     per_split = -(-capacity * batch * hkv // max(1, num_sms))
     tiles = -(-per_split // DECODE_TILE)
-    return min(MAX_SPLIT, max(MIN_SPLIT, tiles * DECODE_TILE))
+    fewest = MIN_SPLIT * max(1, -(-heads // 4))
+    most = MAX_SPLIT_TILE if heads > 4 else MAX_SPLIT
+    return min(most, max(fewest, tiles * DECODE_TILE))
+
+
+def tile_heads(group: int, head_dim: int) -> int:
+    """Query heads a block of the general tile serves for `group` heads a
+    kv head (0 for an exact instance)."""
+    return 0 if _lib.exact_group(group, head_dim) else min(group, _lib.HEAD_TILE)
 
 
 def device_state(device: torch.device,
@@ -82,10 +96,13 @@ def launch_name(quant: bool, head_dim: int, group: int = 1) -> str:
 
 
 def tickets_for(device: torch.device, b: int, hq: int, hkv: int,
-                head_dim: int) -> tuple[torch.Tensor, int]:
+                head_dim: int, tile: int) -> tuple[torch.Tensor, int]:
     """`device_state` with a ticket for each (request, kv head, block of
-    its query heads): the general tile's blocks take one each."""
-    return device_state(device, b * hkv * _lib.head_blocks(hq // hkv, head_dim))
+    its query heads): the general tile's blocks take one each, `tile`
+    (`_lib.HEAD_TILE` or `_lib.GROUP_TILE`) the kernel family's heads a
+    block."""
+    return device_state(device,
+                        b * hkv * _lib.head_blocks(hq // hkv, head_dim, tile))
 
 
 def check_decode_inputs(name: str, q: torch.Tensor, k: torch.Tensor,
@@ -147,8 +164,8 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         _lib.require(start.dtype == torch.int32 and start.shape == (b,),
                      f"{name}: start must be int32 [B]")
     s = k.shape[2]
-    tickets, num_sms = tickets_for(q.device, b, hq, hkv, d)
-    chunk = split_tokens(s, b, hkv, num_sms)
+    tickets, num_sms = tickets_for(q.device, b, hq, hkv, d, _lib.HEAD_TILE)
+    chunk = split_tokens(s, b, hkv, num_sms, tile_heads(hq // hkv, d))
     nsplit = -(-s // chunk)
     f32 = dict(dtype=torch.float32, device=q.device)
     part_o = torch.empty((nsplit, b * hq, d), **f32)

@@ -93,7 +93,7 @@ def launch_attend(name: str, entry: str, q, k_centered, v, k_scale, v_scale,
     split = split or LSH_SPLIT[d * k_centered.element_size()]
     hkv, s = k_centered.shape[1], k_centered.shape[2]
     nsplit = -(-s // split)
-    tickets, _ = tickets_for(q.device, b, hq, hkv, d)
+    tickets, _ = tickets_for(q.device, b, hq, hkv, d, _lib.HEAD_TILE)
     f32 = dict(dtype=torch.float32, device=q.device)
     part_o = torch.empty((nsplit, b * hq, d), **f32)
     part_lse = torch.empty((nsplit, b * hq), **f32)

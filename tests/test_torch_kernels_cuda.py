@@ -104,12 +104,14 @@ G128 = [1, 2, 3, 4, 8]
 # The forms of the kernels' general tile and of the small head dims, as
 # (head dim, group size): the group sizes with no exact instance at head
 # dims 64 and 128 (SmolLM2-360M's 3 at 64; 5; Mistral-Small-2409's 6;
-# Yi-34B's 7; Llama-3.1-405B's 16, two blocks a kv head) and head dims 16
-# and 32 (llama-tiny: 4 at 16), each at a group size of one block and one
-# of two or more.
+# Yi-34B's 7; Llama-3.1-405B's 16: one block of the decode and LSH
+# kernels' 16-head tile, two of the block kernels' 8-head one;
+# StarCoder-15B's multi-query 48 heads of 128 over one: three 16-head
+# blocks) and head dims 16 and 32 (llama-tiny: 4 at 16), each at a group
+# size of one block and one of two or more.
 NEW_FORMS = [(64, 3), (64, 5), (64, 6), (64, 7), (64, 16), (128, 5),
-             (128, 6), (128, 7), (128, 16), (16, 1), (16, 4), (16, 6),
-             (32, 4), (32, 16)]
+             (128, 6), (128, 7), (128, 16), (128, 48), (16, 1), (16, 4),
+             (16, 6), (32, 4), (32, 16)]
 NEW_FORM_IDS = [f"d{d}-g{g}" for d, g in NEW_FORMS]
 # The group sizes of the general tile in the collision scan (no head dim).
 SCAN_NEW_GROUPS = [5, 6, 7, 16]
@@ -1299,9 +1301,12 @@ def test_cuda_d128_lsh_fused_forms_match_plain(cuda, g, form):
 
 
 def _lsh_fused_d128_case(cuda, g, K, L, int8, debias, planted,
-                         splits=(32, 2048), d=128, rounding=False):
+                         splits=(32, 2048), d=128, rounding=False,
+                         heads=None, repeat=False):
     """The fused kernel at head dim d against its plain version (with
-    `rounding`, within the P.V operand's rounding bound too)."""
+    `rounding`, within the P.V operand's rounding bound too); `planted`
+    keys near the queries of every head, or of `heads` only; with
+    `repeat`, a second call equal to the first."""
     rng = np.random.default_rng(33)
     hkv, S = 2, 2048
     lens = [S, 1337, 0]
@@ -1309,8 +1314,9 @@ def _lsh_fused_d128_case(cuda, g, K, L, int8, debias, planted,
     q = _bf16(rng, B, g * hkv, d, device=cuda)
     kc = rng.standard_normal((B, hkv, S, d)).astype(np.float32)
     qg = q.float().cpu().numpy().reshape(B, hkv, g, d)
-    for t in range(0, S, 7) if planted else ():
-        kc[:, :, t] = qg[:, :, t % g] + 0.3 * kc[:, :, t]
+    heads = list(range(g)) if heads is None else heads
+    for i, t in enumerate(range(0, S, 7)) if planted else ():
+        kc[:, :, t] = qg[:, :, heads[i % len(heads)]] + 0.3 * kc[:, :, t]
     k = torch.from_numpy(kc).to(cuda, torch.bfloat16)
     v = _bf16(rng, B, hkv, S, d, device=cuda)
     ks = vs = None
@@ -1341,6 +1347,9 @@ def _lsh_fused_d128_case(cuda, g, K, L, int8, debias, planted,
     assert torch.isfinite(o).all()
     check(o, po)
     _assert_within(l, pl, atol=1e-4, rtol=1e-5)
+    if repeat:
+        assert all(torch.equal(x, y) for x, y in zip(
+            (o, l, c), lsh_fused_decode(*pick(poisoned))))
     if debias != "exact":
         exact = lsh_fused_decode(*pick(poisoned)[:-1])[0]
         assert (exact - o).abs().max() > 1e-3      # the form does something
@@ -1489,10 +1498,11 @@ def test_cuda_new_forms_flash_decode_edges(cuda, d, g, int8, capacity):
 def test_cuda_new_forms_lsh_fused_matches_plain(cuda, d, g, K, L):
     """`test_cuda_d128_lsh_fused_matches_plain` in the general tile's forms
     and at head dims 16 and 32: keys planted near each head's query, every
-    unsampled row and norm NaN, counts exact, one kernel a call, splits of
-    32 and 2048 tokens; at K=1, L=32 more rows than a pass holds."""
+    unsampled row and norm NaN, counts exact, one kernel a call, a second
+    call equal to the first, splits of 32 and 2048 tokens; at K=1, L=32
+    more rows than a pass holds."""
     _lsh_fused_d128_case(cuda, g, K, L, False, "exact", planted=True, d=d,
-                         rounding=True)
+                         rounding=True, repeat=True)
 
 
 # The fused kernel's other forms: at one new group size a head dim and at
@@ -1552,6 +1562,87 @@ def test_cuda_new_forms_attend_chunk_edges(cuda, d, g, kind):
     block, NaN past each length, chunks of 64 to 512 tokens, the two
     pipelines bit for bit, packed int4 equal to int8; one kernel a call."""
     _attend_chunk_edges(cuda, kind, g, d, _kernel_launches)
+
+
+# The edges of the decode and LSH kernels' 16-head tile: the last head of
+# a whole block (Llama-3.1-405B's 16), of the third block (StarCoder-15B's
+# 48), and of a block of 4 after a block of 16 (20 heads).
+TILE_EDGE_FORMS = [(128, 16), (128, 48), (64, 20)]
+TILE_EDGE_IDS = [f"d{d}-g{g}" for d, g in TILE_EDGE_FORMS]
+
+
+def _tile_last_heads(g: int) -> list:
+    """The last head of each 16-head block of a group of g."""
+    return [h for h in range(g) if h % 16 == 15 or h == g - 1]
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("d,g", TILE_EDGE_FORMS, ids=TILE_EDGE_IDS)
+def test_cuda_head_tile_last_heads_flash_decode(cuda, d, g, int8):
+    """flash_decode's general tile at the last head of each block: a key
+    equal to that head's query (and a V row of 4s) inside each request's
+    rows [start, length), so that those heads' outputs lean on one row of
+    one block's last M row; rows before each start and past each length
+    NaN (bf16) or NaN scales (int8). Held to the plain version on the
+    zeroed cache; the planted heads' outputs show the planted row; a second
+    call equals the first."""
+    rng = np.random.default_rng(40 + g)
+    hkv, cap = 2, 4096
+    lens = [4096, 3001, 700, 65]
+    starts = [1000, 0, 64, 1]
+    b = len(lens)
+    q = _bf16(rng, b, g * hkv, d, device=cuda)
+    kc = rng.standard_normal((b, hkv, cap, d)).astype(np.float32)
+    vc = rng.standard_normal((b, hkv, cap, d)).astype(np.float32)
+    qn = q.float().cpu().numpy().reshape(b, hkv, g, d)
+    last = _tile_last_heads(g)
+    for i, (lo, n) in enumerate(zip(starts, lens)):
+        for j, h in enumerate(last):
+            t = lo + (37 * (j + 1)) % (n - lo)
+            kc[i, :, t] = 2.0 * qn[i, :, h]
+            vc[i, :, t] = 4.0
+    k = torch.from_numpy(kc).to(cuda, torch.bfloat16)
+    v = torch.from_numpy(vc).to(cuda, torch.bfloat16)
+    ks = vs = None
+    if int8:
+        k, ks = quantize_rows(k)
+        v, vs = quantize_rows(v)
+    zeroed = [x.clone() if x is not None else None for x in (k, v, ks, vs)]
+    for i, (lo, n) in enumerate(zip(starts, lens)):
+        for rows in (slice(0, lo), slice(n, cap)):
+            for x in zeroed:
+                if x is not None:
+                    x[i, :, rows] = 0
+            for x in ((ks, vs) if int8 else (k, v)):
+                x[i, :, rows] = float("nan")
+    length = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    start = torch.tensor(starts, dtype=torch.int32, device=cuda)
+    name = decode_launch_name(int8, d, g)
+    before = dict(LAUNCHES)
+    o, l = flash_decode(q, k, v, length, ks, vs, start)
+    assert LAUNCHES[name] == before.get(name, 0) + 1
+    assert sum(LAUNCHES.values()) == sum(before.values()) + 1
+    po, pl = tatt.full_decode(q, *zeroed[:2], length, *zeroed[2:], start)
+    assert torch.isfinite(o).all() and not torch.isnan(l).any()
+    _assert_within(o, po, rms_share=0.015)
+    _assert_within(l, pl, atol=1e-4, rtol=1e-5)
+    heads = [kh * g + h for kh in range(hkv) for h in last]
+    assert (po[:, heads].mean(dim=-1) > 2.0).all()     # the planted row
+    o2, l2 = flash_decode(q, k, v, length, ks, vs, start)
+    assert torch.equal(o, o2) and torch.equal(l, l2)
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("d,g", TILE_EDGE_FORMS, ids=TILE_EDGE_IDS)
+def test_cuda_head_tile_last_heads_lsh_fused(cuda, d, g, int8):
+    """The fused LSH kernel's general tile with keys planted near the
+    queries of the last head of each block only (`_tile_last_heads`):
+    those heads sample many rows, their neighbours few; every unsampled row
+    and norm NaN, counts exact, a second call equal to the first, splits
+    of 32 and 2048 tokens besides the wrapper's."""
+    _lsh_fused_d128_case(cuda, g, 10, 150, int8, "exact", planted=True,
+                         d=d, rounding=True, heads=_tile_last_heads(g),
+                         repeat=True)
 
 
 def test_cuda_d128_other_forms_raise(cuda):
