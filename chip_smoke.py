@@ -300,7 +300,7 @@ H100_BF16_FLOPS = 989e12            # dense bf16 tensor-core peak
 # SM x 132 SMs x the 1.98 GHz boost clock (H100 SXM5, NVIDIA's Hopper
 # architecture white paper).
 H100_INT32_OPS = 64 * 132 * 1.98e9
-ATTEND_CHUNKS = (128, 256, 512)    # the attends' chunks `chunk_plan` picks
+ATTEND_CHUNKS = (128, 256, 512)    # the attends' chunks swept
 
 # Each kernel against its plain version on the card, as (atol, rtol,
 # rms_share): |kernel - plain| <= atol + rtol * |plain| + rms_share *
@@ -477,8 +477,8 @@ SASS_KERNELS = {
     "flash_decode_kernel d128": ("flash_decode_kernel",
                                  "bfloat16Li128ELb0EE"),
     "flash_decode_kernel int8 d128": ("flash_decode_kernel", "EaLi128ELb0EE"),
-    "block_score_kernel": ("block_score_kernel", "Li4E", "Li64ELb0EE"),
-    "block_score_kernel d128": ("block_score_kernel", "Li4E", "Li128ELb0EE"),
+    "block_score_kernel": ("block_score_kernel", "Li4E", "Li64EEEv"),
+    "block_score_kernel d128": ("block_score_kernel", "Li4E", "Li128EEEv"),
     "rescore_attend_kernel": ("rescore_attend_kernel", "Li4E", "Li64EE"),
     "rescore_attend_kernel d128": ("rescore_attend_kernel", "Li4E",
                                    "Li128EE"),
@@ -500,7 +500,8 @@ SASS_KERNELS = {
     "collision_words_kernel": ("collision_words_kernel", "Li4E"),
     "collision_words_kernel g3": ("collision_words_kernel", "Li3E"),
     # The general tile (kPart: G = 16 in the decode and LSH kernels, 8 in
-    # the others) and the small head dims.
+    # the scan; the block scorer's and both attends' own tile kernels) and
+    # the small head dims.
     "flash_prefill_kernel d16": ("flash_prefill_kernel", "ILi16E"),
     "flash_decode_kernel tile d16": ("flash_decode_kernel", "Li16ELb1EE"),
     "flash_decode_kernel tile d128": ("flash_decode_kernel",
@@ -509,8 +510,11 @@ SASS_KERNELS = {
         "lsh_split_kernel", "Li16E13__nv_bfloat16Li3ELb0ELi64ELb1EE"),
     "lsh_masked tile d16 (lsh_split_kernel, words)": (
         "lsh_split_kernel", "Li3ELb1ELi16ELb1EE"),
-    "block_score_kernel tile d16": ("block_score_kernel", "Li16ELb1EE"),
+    "block_score_tile_kernel d16": ("block_score_tile_kernel", "Li16EEEv"),
+    "block_score_tile_kernel d128": ("block_score_tile_kernel", "Li128EEEv"),
     "rescore_attend_part_kernel d16": ("rescore_attend_part_kernel", "Li16EE"),
+    "rescore_attend_part_kernel d128": ("rescore_attend_part_kernel",
+                                        "Li128EE"),
     "block_attend_part_kernel d32": ("block_attend_part_kernel", "Li32EE"),
     "collision_words_kernel tile": ("collision_words_kernel", "Li8ELb1E"),
     # The training backward's two kernels at head dims 64 and 128.
@@ -576,8 +580,10 @@ def check_sass(counts) -> None:
     mma.sync and bulk copies; the same in the general tile's instances and
     at the small head dims (the prefill at d = 16, the decode at d = 16
     and 128, with mma.sync,
-    the fused LSH kernel at d = 64, the masked attend, the scorer and the
-    rescore at d = 16, the block-attend at d = 32, the scan); and in the
+    the fused LSH kernel at d = 64, the masked attend, the rescore at d =
+    16, the block-attend at d = 32, the scan), where the scorer's and the
+    rescore's 16-head tiles (d = 16 and 128) use mma.sync and bulk copies;
+    and in the
     training backward's dK/dV and dQ kernels at head dims 64 and 128
     warpgroup MMA and TMA, bulk copies (lse and delta) in dK/dV."""
     if counts.get("w4_matmul_kernel", {}).get("I2F", 1) != 0:
@@ -619,10 +625,11 @@ def check_sass(counts) -> None:
                      ("lsh_masked tile d16 (lsh_split_kernel, words)", "HMMA"),
                      ("lsh_masked tile d16 (lsh_split_kernel, words)",
                       "LDGSTS"),
-                     ("block_score_kernel tile d16", "HMMA"),
-                     ("block_score_kernel tile d16", "LDGSTS"),
                      *((kernel, op) for kernel in (
+                         "block_score_tile_kernel d16",
+                         "block_score_tile_kernel d128",
                          "rescore_attend_part_kernel d16",
+                         "rescore_attend_part_kernel d128",
                          "block_attend_part_kernel d32")
                        for op in ("HMMA", "UBLKCP")),
                      ("collision_words_kernel tile", "UTMALDG"),
@@ -646,6 +653,64 @@ def attend_chunk_sweep(name: str, call) -> dict:
                     TOL["block_attend"])
         times[chunk] = round(device_ms(lambda: call(chunk)) * 1e3, 2)
     log(f"  {name} device us by chunk tokens: {times}")
+    return times
+
+
+def evicted_us(torch, fn, key: str, reps: int = 12) -> float:
+    """Device us of the kernel whose name holds `key` in `fn()`, with the
+    50 MB L2 emptied before each call by a 512 MB read: its code and its
+    rows come from device memory, as a serve's layer finds them after its
+    weight GEMMs. The median of `reps` calls (profiler events)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    evict = torch.ones(128 << 20, dtype=torch.float32, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            evict.sum()
+            fn()
+        torch.cuda.synchronize()
+    del evict
+    times = sorted(e.time_range.end - e.time_range.start for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and key in e.name)
+    if not times:
+        raise AssertionError(f"no kernel named *{key}* in the profile")
+    return times[len(times) // 2]
+
+
+def serve_selected(max_length: int) -> int:
+    """The blocks a block_topk serve at `max_length` selects (LSHConfig's
+    defaults): 8% of the offload capacity's 512-token blocks, rounded up
+    (2 at SmolLM2's 8192, 3 at 16384)."""
+    from magicpig_tpu_torch.config import LSHConfig
+    from magicpig_tpu_torch.runtime.state import offload_capacity
+
+    lsh = LSHConfig(estimator="block_topk", offload_quant="int8")
+    nb = offload_capacity(lsh, max_length) // lsh.block_topk_block_size
+    return min(nb, max(1, math.ceil(nb * lsh.block_topk_budget_frac)))
+
+
+def attend_split_sweep(torch, name: str, call, tokens: int) -> dict:
+    """The attends' general tile (`call(chunk)`: its launcher at `chunk`
+    tokens a CUDA block, None for `tile_plan`'s choice) at a serve's
+    selected count (`tokens` a (request, kv head, block of heads)), the
+    kernel alone after an L2 eviction (`evicted_us`): at the plan's choice
+    ("plan"), at ATTEND_CHUNKS tokens a CUDA block and at the whole
+    list (one CUDA block a triple, no merge), device us, each output within
+    `TOL` of the plan's: the evidence for `tile_plan`."""
+    want = call(None)[0]
+    times = {"plan": round(evicted_us(torch, lambda: call(None),
+                                      "attend_part"), 2)}
+    for chunk in sorted({c for c in ATTEND_CHUNKS if c < tokens}
+                        | {tokens}):
+        check_close(f"{name} chunk {chunk}", call(chunk)[0], want,
+                    TOL["block_attend"])
+        times[chunk] = round(evicted_us(torch, lambda: call(chunk),
+                                        "attend_part"), 2)
+    log(f"  {name} at {tokens} selected tokens a triple, L2 evicted: "
+        f"device us by tokens a CUDA block: {times}")
     return times
 
 
@@ -989,9 +1054,8 @@ def phase_kernels_g3(torch, F, dev):
 # SmolLM2-360M's decode shape (15/5 heads of 64: G = 3 at d = 64); group
 # sizes 5, 6 and 7 at the decode shapes Hq 40 / 48 / 56 over Hkv 8 at d =
 # 128 (Mistral-Small-Instruct-2409's 48/8 and Yi-34B's 56/8) and at d = 64;
-# Llama-3.1-405B's 128/8 heads of 128 (G = 16: one block of the decode
-# and LSH kernels' 16-head tile a kv head, two of the block kernels'
-# 8-head one); StarCoder-15B's multi-query 48 heads of 128 over one (three
+# Llama-3.1-405B's 128/8 heads of 128 (G = 16: one block of every
+# kernel's 16-head tile a kv head); StarCoder-15B's multi-query 48 heads of 128 over one (three
 # 16-head blocks); head dims 16 and 32 at Hq 32, Hkv 8 (llama-tiny's group
 # of 4).
 FORM_SHAPES = ((64, 15, 5, True), (128, 40, 8, False), (128, 48, 8, False),
@@ -1005,9 +1069,12 @@ FORM_DEBIAS = ((128, 48, 8), (32, 32, 8))
 # (flash decode, both LSH kernels, the scan), not the block kernels.
 TILE_ONLY = ((128, 48, 1),)
 # The general tile's served shapes (SmolLM2-360M's, the 405B cut's): the
-# decode and fused LSH kernels' splits swept, the evidence for the tile's
-# `split_tokens` and `LSH_SPLIT`.
+# decode and fused LSH kernels' splits and the rescore's tokens a CUDA
+# block (at the serve's selected count) swept, the evidence for the tile's
+# `split_tokens`, `LSH_SPLIT` and `tile_plan`.
 TILE_SWEEPS = ((64, 15, 5), (128, 128, 8))
+# Their serves' max_length (the rescore's sweep runs at its selected count).
+TILE_SWEEP_LEN = {(64, 15, 5): 8192, (128, 128, 8): 16384}
 
 
 def phase_kernels_forms(torch, F, dev):
@@ -1025,8 +1092,9 @@ def phase_kernels_forms(torch, F, dev):
     L=150, also with the lengths, and K=8, L=75) once a group size; the
     fused kernel's five other forms at `FORM_DEBIAS`. Each within `TOL` of
     its plain version, its planted faults rejected (the 16-head tile's
-    too, `head_tile_faults`); the decode and fused LSH splits swept at
-    `TILE_SWEEPS`, no other sweeps."""
+    too, `head_tile_faults`); the decode and fused LSH splits and the
+    rescore's tokens a CUDA block swept at `TILE_SWEEPS`, no other
+    sweeps."""
     from magicpig_tpu_torch.ops import bitcodes
     from magicpig_tpu_torch.ops.kernels import _lib
 
@@ -1087,7 +1155,7 @@ def phase_kernels_forms(torch, F, dev):
         results.update(rows_of)
         if (d, hq, hkv) not in TILE_ONLY:
             results.update(phase_block_kernels(
-                torch, dev, d=d, hq=hq, hkv=hkv, tag=tag, sweeps=False,
+                torch, dev, d=d, hq=hq, hkv=hkv, tag=tag, sweeps=sweep,
                 packed=full and d >= 64))
         torch.cuda.empty_cache()
     return results
@@ -1947,9 +2015,13 @@ def phase_block_kernels(torch, dev, d: int = 64, hq: int = 32,
     `hkv` (8), head dim d (rows named "..._d<d>" at d other than 64, then
     `tag`); the scorer and the rescore on int8 K/V, the store pipeline's
     scorer and attend on bf16, with `packed` the packed int4 forms, with
-    `sweeps` the attends' chunks timed; at d = 64 also the scores-only
-    form."""
-    from magicpig_tpu_torch.ops.kernels import (block_attend, block_rank,
+    `sweeps` the attends' chunks timed (the general tile: the rescore's
+    tokens a CUDA block at the serve's selected count, `attend_split_sweep`);
+    at d = 64 also the scores-only form. From 16 heads a kv head the
+    16-head tile's planted fault (`head_tile_faults`) fails the scorer's
+    and both attends' tolerances."""
+    from magicpig_tpu_torch.ops.kernels import (_lib, block_attend,
+                                                block_rank,
                                                 exact_scores_ranked,
                                                 rescore_attend)
     from magicpig_tpu_torch.ops.kernels.block_attend import (
@@ -1965,6 +2037,7 @@ def phase_block_kernels(torch, dev, d: int = 64, hq: int = 32,
     b, s, bs, n_sel = 2, 65536, 512, 11
     sfx = ("" if d == 64 else f"_d{d}") + tag
     g = hq // hkv
+    tile = not _lib.exact_group(g, d)
     lens = [65536, 40000]
     q = torch.randn((b, hq, d), generator=gen, device=dev, dtype=torch.bfloat16)
     k = torch.randn((b, hkv, s, d), generator=gen, device=dev, dtype=torch.bfloat16)
@@ -2030,6 +2103,8 @@ def phase_block_kernels(torch, dev, d: int = 64, hq: int = 32,
     log(f"kernel exact_scores_ranked{sfx} err {err:.2e}, worst element {share:.2f} of "
         f"its limit (tol {tol}); a skipped K tile's worst element "
         f"{teeth:.1f}x the limit; top-{n_sel} ids equal")
+    reject_head_faults("exact_scores_ranked" + sfx, want_s.flatten(1, 2), hq,
+                       hkv, tol)
     del want_s
     if sfx == "" and hq == 32:     # no path calls the scores-only form
         results.update(exact_scores_kernel(torch, q, k, kq, ks, bs, library))
@@ -2058,7 +2133,15 @@ def phase_block_kernels(torch, dev, d: int = 64, hq: int = 32,
     log(f"kernel rescore_attend{sfx} err {err:.2e}, worst element {share:.2f} of "
         f"its limit (tol {tol}); a skipped tile's worst element "
         f"{teeth:.1f}x the limit; {tokens} valid selected rows")
-    if sweeps:
+    reject_head_faults("rescore_attend" + sfx, want, hq, hkv, tol)
+    if sweeps and tile:
+        n_served = serve_selected(TILE_SWEEP_LEN[(d, hq, hkv)])
+        served = ids[:, :, :n_served].contiguous()
+        attend_split_sweep(torch, "rescore_attend" + sfx,
+                           lambda c: launch_rescore_attend(
+                               q, served, kq, ks, vq, vs, length, bs, c),
+                           served.shape[2] * bs)
+    elif sweeps:
         attend_chunk_sweep("rescore_attend" + sfx,
                            lambda c: launch_rescore_attend(
                                q, ids, kq, ks, vq, vs, length, bs, c))
@@ -2084,14 +2167,15 @@ def phase_block_kernels(torch, dev, d: int = 64, hq: int = 32,
     log(f"kernel block_attend{sfx}   err {err:.2e}, worst element {share:.2f} of "
         f"its limit (tol {tol}); a skipped tile's worst element "
         f"{teeth:.1f}x the limit; {tokens} valid selected rows")
-    if sweeps:
+    reject_head_faults("block_attend" + sfx, want, hq, hkv, tol)
+    if sweeps and not tile:
         attend_chunk_sweep("block_attend" + sfx, lambda c: launch_block_attend(
             got_s, ids, v, None, bs, c))
     del got_s, got_m
     if packed:
         results.update(packed_block_kernels(torch, q, k, vq, vs, length, bs,
                                             n_sel, same_top, selected_tokens,
-                                            sfx, sweeps))
+                                            sfx, sweeps and not tile))
     log_timings(results)
     return results
 
@@ -2555,14 +2639,16 @@ def profile_prefill(torch, llm, prompts, label: str):
     return torch.cat([l0.argmax(-1), l1.argmax(-1)])
 
 
-def profile_decode(torch, llm, decode, tokens, label: str) -> None:
+def profile_decode(torch, llm, decode, tokens, label: str,
+                   named: tuple = ()) -> None:
     """The eager step (`llm._decode`), then the graphed step (`decode`,
     through `llm.inference`), each 8 steps timed and 2 under
     torch.profiler: wall and device busy time per step, the idle share
     (profiled device time against the unprofiled wall time; the profiler's
     own cost is on the host), launches per step (for the graphed step the
     captured graph's kernel nodes, beside the kernels the profiler saw) and
-    the kernels by device time."""
+    the kernels by device time; then each kernel whose name holds one of
+    `named`, wherever it ranks."""
     from magicpig_tpu_torch.runtime.engine import graph_kernel_nodes
 
     nodes = graph_kernel_nodes(llm._graph.graph)
@@ -2583,13 +2669,19 @@ def profile_decode(torch, llm, decode, tokens, label: str) -> None:
         for e in kernels[:12]:
             log(f"  {_device_us(e) / n_prof:9.1f} us/step "
                 f"{e.count / n_prof:5.1f} calls/step  {e.key[:70]}")
+        for part in named:
+            for e in kernels:
+                if part in e.key:
+                    log(f"  {part}: {_device_us(e) / n_prof:.1f} us/step "
+                        f"{e.count / n_prof:.1f} calls/step  {e.key[:70]}")
 
 
 def serve_counted(torch, dev, prompts, lsh, label: str, expect_fn,
                   weight_quant: str = "none", params=None, check_frac=None,
                   projections=None, model="llama-3.2-1b",
                   prefill_profile: bool = False, after_prefill=None,
-                  after_check=None, max_length: int = 16384):
+                  after_check=None, max_length: int = 16384,
+                  profile_named: tuple = ()):
     """A serve of `model` (a preset's name, Llama-3.2-1B by default, or a
     `ModelConfig`) at full width and depth: `params`, or random weights
     drawn (and quantized as `weight_quant` says, q/k/v and gate|up fused) on
@@ -2604,7 +2696,8 @@ def serve_counted(torch, dev, prompts, lsh, label: str, expect_fn,
     prefill timed and profiled, then a profiled decode pass of each.
     `after_prefill(llm)` runs after the counted run's prefills and
     `after_check(llm, graphed)` after `check_graphed`; either raises on a
-    fault. `max_length`: the engine's (16384)."""
+    fault. `max_length`: the engine's (16384). `profile_named`: kernels
+    the decode profile names wherever they rank (`profile_decode`)."""
     import dataclasses
 
     from magicpig_tpu_torch.config import preset
@@ -2667,7 +2760,7 @@ def serve_counted(torch, dev, prompts, lsh, label: str, expect_fn,
     if prefill_profile:
         tokens = decode(profile_prefill(torch, llm, prompts, f"{label} "), 4)
     profile_decode(torch, llm, decode, tokens, f"{label} decode B=2, {lens} "
-                   "tokens")
+                   "tokens", profile_named)
     if not bool(finite & decode.finite):
         raise AssertionError(f"non-finite logits in the {label} serve")
     return dict(prefill_s=prefill_s, decode_ms=decode_ms,
@@ -3024,6 +3117,9 @@ LLAMA_31_405B = dict(
 LLAMA405B_LAYERS = 4
 
 
+BLOCK_KERNELS = ("block_score", "rescore_attend")   # B7 and B8 by name
+
+
 def phase_serve_forms(torch, dev):
     """The kernels' general tile at full width. SmolLM2-360M at full width
     and depth (32 layers, hidden 960, 15/5 heads of 64: G = 3 at d = 64;
@@ -3041,9 +3137,10 @@ def phase_serve_forms(torch, dev):
     (`LLAMA_31_405B`) at full width, its depth cut to 4 layers (layer 0
     dense), prompts of 12000 and 7000 tokens at max_length 16384, under
     LSH K=10, L=150 and block_topk int8 (G = 16: the "_d128_g16" forms, one
-    block of the decode and LSH kernels' 16-head tile a kv head, two of the
-    block kernels' 8-head one) on one draw of its weights, the
-    same checks; the weights freed after. Returns the serves' results."""
+    block of every kernel's 16-head tile a kv head) on one draw of its
+    weights, the same checks; the weights freed after. The block_topk
+    serves' profiles name the scorer's and the rescore's device time a step
+    (`BLOCK_KERNELS`). Returns the serves' results."""
     from magicpig_tpu_torch.config import LSHConfig, ModelConfig
     from magicpig_tpu_torch.models.llama import init_params
 
@@ -3067,7 +3164,8 @@ def phase_serve_forms(torch, dev):
              dict(prefill_profile=True)),
             ("smollm2_block", "block_topk int8", block,
              ("block_rank_g3", "rescore_attend_g3"),
-             dict(check_frac=exact_fraction(block, prompts, SMOLLM2_MAX_LEN))),
+             dict(check_frac=exact_fraction(block, prompts, SMOLLM2_MAX_LEN),
+                  profile_named=BLOCK_KERNELS)),
             ("smollm2_odd", "odd L K=8/L=75", LSHConfig(K=8, L=75),
              ("collision_words", "lsh_masked_attention_g3"), {})):
         out[key] = serve_counted(
@@ -3093,7 +3191,8 @@ def phase_serve_forms(torch, dev):
              dict(prefill_profile=True)),
             ("405b_block", block,
              ("block_rank_d128_g16", "rescore_attend_d128_g16"),
-             dict(check_frac=exact_fraction(block, prompts)))):
+             dict(check_frac=exact_fraction(block, prompts),
+                  profile_named=BLOCK_KERNELS))):
         out[key] = serve_counted(
             torch, dev, prompts, lsh,
             f"llama-3.1-405b ({LLAMA405B_LAYERS} layers) "

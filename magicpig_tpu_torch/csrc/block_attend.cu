@@ -29,7 +29,7 @@ block_attend_kernel(const __grid_constant__ mp::ChunkArgs a) {
 template <int G, typename VT, int kD>
 int launch(const mp::ChunkArgs& a, cudaStream_t st) {
   static unsigned smem_set = 0;
-  return mp::launch_chunk_attend<G, int8_t, VT, true, kD, false>(
+  return mp::launch_chunk_attend<G, int8_t, VT, true, kD>(
       block_attend_kernel<G, VT, kD>, a, smem_set, st);
 }
 

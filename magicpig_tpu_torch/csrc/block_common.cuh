@@ -211,6 +211,40 @@ __device__ __forceinline__ void mma_scores(const uint32_t (&wa)[kD / 8],
   }
 }
 
+// The general tile's form of mma_scores: the same A words against the
+// heads of kNT n8 tiles (1 or 2; qb[n] and d[n] as mma_scores's qb and d),
+// the products of a k-step on the one pair of A words. Each column's sum
+// is mma_scores's: the same words and k-steps in the same order, the head
+// in the same column of its n8 tile.
+template <int kD, int kNT>
+__device__ __forceinline__ void mma_scores_tiles(
+    const uint32_t (&wa)[kD / 8], const uint32_t (&wb)[kD / 8],
+    const uint32_t (&qb)[2][kD / 16][2], float (&d)[2][4]) {
+#pragma unroll
+  for (int n = 0; n < 2; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) d[n][i] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < kD / 16; ++kk) {
+    const uint32_t a[4] = {wa[2 * kk], wb[2 * kk], wa[2 * kk + 1],
+                           wb[2 * kk + 1]};
+#pragma unroll
+    for (int n = 0; n < kNT; ++n)
+      mma_bf16_16816(d[n], a, qb[n][kk][0], qb[n][kk][1]);
+  }
+}
+
+// The B operands of the general tile's up to 16 heads: load_q_frag for
+// heads 0-7 and 8-15 of the block (row q_h, `gn` of them; the second
+// n8 tile zero when gn <= 8).
+template <int kD>
+__device__ __forceinline__ void load_q_tiles(
+    const __nv_bfloat16* q_h, float sm_scale, int lane,
+    uint32_t (&qb)[2][frag_dim(kD) / 16][2], int gn) {
+  load_q_frag<8, kD>(q_h, sm_scale, lane, qb[0], gn);
+  load_q_frag<8, kD>(q_h + 8 * kD, sm_scale, lane, qb[1], gn - 8);
+}
+
 __device__ __forceinline__ float score_of(float dot, float kscale) {
   return __fmul_rn(dot, kscale);
 }

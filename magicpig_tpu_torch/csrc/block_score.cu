@@ -41,11 +41,12 @@
 // takes the block max by warp shuffles and one shared-memory reduce.
 // Head dims 16 and 32 read their rows as 64 channels with zeros past d
 // (block_common.cuh, `frag_dim`). Group sizes: the exact instances (1, 2, 4
-// and 8 at d = 64 and 128, and 3 at 128), else the general tile at G = 8
-// (common.cuh): here one block takes every query head of its kv head, in
-// sub-groups of at most 8 over each tile of keys in shared memory (each
-// sub-group its own q fragment and products), since the block max runs
-// over all of them; K is read once whatever the group size.
+// and 8 at d = 64 and 128, and 3 at 128), else the general tile
+// (block_score.cuh, `block_score_tile_kernel`): a block takes up to 16
+// query heads of its kv head (ceil(G / 16) blocks above that), K arrives by
+// bulk copies into a ring under mbarriers and is widened once for every
+// head of the block, and the blocks of heads of one kv head combine their
+// block maxes by an atomic max.
 #include "block_score.cuh"
 
 namespace {
@@ -106,7 +107,9 @@ int dispatch_kind(int k_kind, int g, const void* q, const void* k,
 // unmasked: length unused); k_kind is a KeyKind, and k_scale is null
 // exactly for bf16 K; head_dim 16, 32, 64 or 128 (packed int4 at 64 and
 // 128); hq any multiple of hkv (exact instances at hq / hkv 1, 2, 4 and 8,
-// and 3 at head dim 128; the general tile otherwise).
+// and 3 at head dim 128; the general tile otherwise). Above 16 query heads
+// a kv head block_max must hold -inf at the call (its blocks of heads
+// combine their maxes by an atomic max).
 extern "C" int mp_block_score(const void* q, const void* k,
                               const void* k_scale, const void* length,
                               void* scores, void* block_max, int batch,

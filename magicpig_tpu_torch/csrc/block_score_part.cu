@@ -1,13 +1,15 @@
-// The block scorer (block_score.cu) in its general tile: the kernel of
-// block_score.cuh at G = 8 with kPart, for every form that has no exact
-// instance (any group size at head dims 16 and 32, bf16 and int8 K; group
-// sizes other than 1, 2, 4 and 8 at 64, and other than 1, 2, 3, 4 and 8 at
-// 128, bf16, int8 and packed int4 K), in each of its three variants. A
-// source of its own so that nvcc compiles these instances beside the
-// others; mp_block_score (block_score.cu) calls block_score_part.
+// The block scorer (block_score.cu) in its general tile: the tile kernel of
+// block_score.cuh (up to mp::kHeadTile query heads a block), for every form
+// that has no exact instance (any group size at head dims 16 and 32, bf16
+// and int8 K; group sizes other than 1, 2, 4 and 8 at 64, and other than 1,
+// 2, 3, 4 and 8 at 128, bf16, int8 and packed int4 K), in each of its three
+// variants. A source of its own so that nvcc compiles these instances
+// beside the others; mp_block_score (block_score.cu) calls
+// block_score_part.
 //
-// Replaces, bounds and design: as block_score.cu; the general tile's block
-// scores every query head of its kv head in sub-groups of at most 8.
+// Replaces and bounds: as block_score.cu. Design: block_score.cuh,
+// `block_score_tile_kernel` (a block scores up to 16 query heads of its kv
+// head, K brought by bulk copies and widened once for all of them).
 #include "block_score.cuh"
 
 namespace {
@@ -17,9 +19,9 @@ int launch_part(int group, const void* q, const void* k, const void* k_scale,
                 const void* length, void* scores, void* block_max, int batch,
                 int s_cap, int hkv, int block_size, float sm_scale,
                 cudaStream_t st) {
-  return launch<mp::kGroupTile, KT, kD, true>(
-      q, k, k_scale, length, scores, block_max, batch, s_cap, hkv,
-      block_size, sm_scale, st, group);
+  return launch_tile<KT, kD>(group, q, k, k_scale, length, scores,
+                            block_max, batch, s_cap, hkv, block_size,
+                            sm_scale, st);
 }
 
 template <int kD>

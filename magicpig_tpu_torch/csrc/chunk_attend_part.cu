@@ -1,43 +1,44 @@
 // Both block_topk attends (rescore_attend.cu, block_attend.cu) in their
-// general tile: the template of chunk_attend.cuh at G = 8 with kPart, for
-// every form that has no exact instance (any group size at head dims 16
-// and 32; group sizes other than 1, 2, 4 and 8 at 64, and other than 1, 2,
-// 3, 4 and 8 at 128): the rescore over bf16, int8 and (at 64 and 128)
-// packed int4 K, the stored-score attend over bf16 and int8 V. A source of
-// its own so that nvcc compiles these instances beside the others;
-// mp_rescore_attend and mp_block_attend call rescore_attend_part and
-// block_attend_part.
+// general tile: `chunk_attend_tile` of chunk_attend.cuh (up to
+// mp::kHeadTile query heads a block), for every form that has no exact
+// instance (any group size at head dims 16 and 32; group sizes other than
+// 1, 2, 4 and 8 at 64, and other than 1, 2, 3, 4 and 8 at 128): the
+// rescore over bf16, int8 and (at 64 and 128) packed int4 K, the
+// stored-score attend over bf16 and int8 V. A source of its own so that
+// nvcc compiles these instances beside the others; mp_rescore_attend and
+// mp_block_attend call rescore_attend_part and block_attend_part.
 //
-// Replaces, bounds and design: as rescore_attend.cu and block_attend.cu;
-// the general tile's block attends at most 8 query heads of its kv head,
-// and each sub-group merges its own chunks.
+// Replaces and bounds: as rescore_attend.cu and block_attend.cu. Design:
+// chunk_attend.cuh (a block takes `chunk` tokens of its (request, kv head,
+// block of heads)'s selected blocks through a bulk-copy ring, an online
+// softmax carries across them, and the blocks merge in the same launch).
 #include "chunk_attend.cuh"
 
 namespace {
 
 template <typename KT, typename VT, int kD>
-__global__ void __launch_bounds__(mp::kBlkThreads)
+__global__ void __launch_bounds__(mp::kAttThreads, 1)
 rescore_attend_part_kernel(const __grid_constant__ mp::ChunkArgs a) {
-  mp::chunk_attend<mp::kGroupTile, KT, VT, false, kD, true>(a);
+  mp::chunk_attend_tile<KT, VT, false, kD>(a);
 }
 
 template <typename VT, int kD>
-__global__ void __launch_bounds__(mp::kBlkThreads)
+__global__ void __launch_bounds__(mp::kAttThreads, 1)
 block_attend_part_kernel(const __grid_constant__ mp::ChunkArgs a) {
-  mp::chunk_attend<mp::kGroupTile, int8_t, VT, true, kD, true>(a);
+  mp::chunk_attend_tile<int8_t, VT, true, kD>(a);
 }
 
 template <typename KT, typename VT, int kD>
 int launch_rescore(const mp::ChunkArgs& a, cudaStream_t st) {
   static unsigned smem_set = 0;
-  return mp::launch_chunk_attend<mp::kGroupTile, KT, VT, false, kD, true>(
+  return mp::launch_chunk_tile<KT, VT, false, kD>(
       rescore_attend_part_kernel<KT, VT, kD>, a, smem_set, st);
 }
 
 template <typename VT, int kD>
 int launch_stored(const mp::ChunkArgs& a, cudaStream_t st) {
   static unsigned smem_set = 0;
-  return mp::launch_chunk_attend<mp::kGroupTile, int8_t, VT, true, kD, true>(
+  return mp::launch_chunk_tile<int8_t, VT, true, kD>(
       block_attend_part_kernel<VT, kD>, a, smem_set, st);
 }
 

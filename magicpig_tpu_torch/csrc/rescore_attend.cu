@@ -31,7 +31,7 @@ rescore_attend_kernel(const __grid_constant__ mp::ChunkArgs a) {
 template <int G, typename KT, typename VT, int kD>
 int launch(const mp::ChunkArgs& a, cudaStream_t st) {
   static unsigned smem_set = 0;
-  return mp::launch_chunk_attend<G, KT, VT, false, kD, false>(
+  return mp::launch_chunk_attend<G, KT, VT, false, kD>(
       rescore_attend_kernel<G, KT, VT, kD>, a, smem_set, st);
 }
 

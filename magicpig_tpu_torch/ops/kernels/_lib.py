@@ -232,10 +232,10 @@ HEAD_DIMS = (16, 32, 64, 128)
 # size, and every one at head dims 16 and 32, runs the kernel's general
 # tile (`exact_group` in csrc/common.cuh): blocks of at most `tile` query
 # heads of a kv head, ceil(G / tile) of them a kv head, each with its own
-# merge ticket. The tile is a kernel family's: HEAD_TILE (16, one mma.sync
-# M tile of heads: `kHeadTile`) for flash decode and both LSH kernels,
-# GROUP_TILE (8: `kGroupTile`) for the block scorer, both attends of the
-# selected blocks and the collision scan.
+# merge ticket. The tile is a kernel family's: HEAD_TILE (16 heads: one
+# mma.sync M tile in flash decode and both LSH kernels, two n8 tiles in the
+# block scorer and both attends of the selected blocks: `kHeadTile`),
+# GROUP_TILE (8: `kGroupTile`) for the standalone collision scan.
 GROUPS = (1, 2, 4, 8)
 GROUPS_D128 = (3,)
 GROUP_TILE = 8
@@ -260,12 +260,6 @@ def exact_group(g: int, head_dim: int | None) -> bool:
     the collision scan): those `group_suffix` leaves unnamed, at head dims
     64 and 128."""
     return head_dim in (None, 64, 128) and not group_suffix(g, head_dim)
-
-
-def tile_group(g: int, head_dim: int | None) -> int:
-    """The G of the block kernels' instance that serves group size g: g
-    itself, or GROUP_TILE for their general tile."""
-    return g if exact_group(g, head_dim) else GROUP_TILE
 
 
 def head_blocks(g: int, head_dim: int | None, tile: int) -> int:

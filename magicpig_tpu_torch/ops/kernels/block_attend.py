@@ -9,6 +9,9 @@ the rescore's attend (`csrc/chunk_attend.cuh`): one CUDA block a chunk of
 `chunk` tokens of one selected block of one (request, kv head), its rows
 brought by bulk copies, P.V on tensor cores, the chunks merged by LSE in
 the same launch; with the same chunk the two pipelines agree bit for bit.
+Group sizes without an exact instance take the general tile: a CUDA block
+attends up to 16 query heads of a kv head over `tile_plan`'s share of the
+selected blocks, through a bulk-copy ring with an online softmax.
 
 The V scale (int8 V) multiplies the probabilities, not V. The plain version
 rounds those products to bf16 before the sum over V when V is bf16 or int8,
@@ -31,6 +34,8 @@ MERGE_BYTES = 32 * 1024   # the merge's batch of partials at d <= 64
 #                           (kMergeBytes; d / 64 times that at head dim d)
 CHUNK_HEADER = 128        # mbarrier, flag, m, l, alpha (kChunkHeader)
 SMEM_MAX = 227 * 1024     # a CUDA block's shared memory (kChunkSmemMax)
+ATTEND_STAGE = 64         # tokens a unit of the general tile (kAttTile)
+FILL_STAGES = 4           # units a fill of its ring holds (kAttFill / kAttTile)
 
 
 def attend_selected_plain(scores: torch.Tensor, v: torch.Tensor,
@@ -99,11 +104,11 @@ def chunk_bytes(chunk: int, g: int, k_row: int, v_row: int,
 def chunk_plan(block_size: int, chunk: int | None, nsel: int, g: int,
                d: int = 64,
                row_bytes: tuple = (0, 128, False, False)) -> tuple[int, int]:
-    """(tokens a CUDA block, chunks a selected block) of the attends (`g`:
-    the G of the instance, `_lib.tile_group`): a
-    selected block cut into chunks of `chunk` tokens (a power of two from
-    64 to 512), the last one shorter where the block size is not a
-    multiple of it; a block smaller than the chunk is one chunk. By
+    """(tokens a CUDA block, chunks a selected block) of the attends'
+    exact instances (`g` heads a kv head): a selected block cut into
+    chunks of `chunk` tokens (a power of two from 64 to 512), the last one
+    shorter where the block size is not a multiple of it; a block smaller
+    than the chunk is one chunk. By
     default the smallest chunk from MIN_CHUNK up whose partials (nsel of
     them a chunk of each block) the merge takes in one batch of its shared
     memory (`MERGE_BYTES` per 64 dims: as many partials a batch at d = 128
@@ -126,6 +131,31 @@ def chunk_plan(block_size: int, chunk: int | None, nsel: int, g: int,
     return chunk, -(-block_size // chunk)
 
 
+def tile_plan(nsel: int, block_size: int, blocks: int, num_sms: int,
+              chunk: int | None = None) -> tuple[int, int]:
+    """(tokens a CUDA block, CUDA blocks a (request, kv head, block of
+    heads)) of the attends' general tile, which takes the selected blocks
+    of each (request, kv head, block of heads) as one list of nsel *
+    block_size tokens in units of ATTEND_STAGE, brought FILL_STAGES units
+    of one selected block at a time. By default the list is cut into about
+    num_sms // blocks pieces (`blocks`: the grid's (request, kv head, block
+    of heads) triples; the ring's shared memory holds an SM), so that the
+    grid is about one wave, each of whole fills; `chunk` (a multiple of 64
+    tokens) sets the piece for the card tests and `chip_smoke.py`'s sweep,
+    which times the serves' selected counts after an L2 eviction: there a
+    fill a CUDA block beat 128 tokens, 512 and the whole list (`PERF.md`).
+    A piece past the list is the whole list."""
+    tokens = nsel * block_size
+    if chunk is None:
+        pieces = max(1, num_sms // max(1, blocks))
+        stages = -(-tokens // (ATTEND_STAGE * pieces))
+        chunk = -(-stages // FILL_STAGES) * FILL_STAGES * ATTEND_STAGE
+    _lib.require(chunk >= ATTEND_STAGE and chunk % ATTEND_STAGE == 0,
+                 f"chunk {chunk} is not a positive multiple of {ATTEND_STAGE}")
+    chunk = min(chunk, tokens)
+    return chunk, -(-tokens // chunk)
+
+
 def merge_buffers(nparts: int, b: int, hq: int, hkv: int, d: int,
                   device: torch.device):
     """Per-chunk partials, the merge tickets and the merged output of an
@@ -133,9 +163,27 @@ def merge_buffers(nparts: int, b: int, hq: int, hkv: int, d: int,
     f32 = dict(dtype=torch.float32, device=device)
     return (torch.empty((nparts, b * hq, d), **f32),
             torch.empty((nparts, b * hq), **f32),
-            tickets_for(device, b, hq, hkv, d, _lib.GROUP_TILE)[0],
+            tickets_for(device, b, hq, hkv, d, _lib.HEAD_TILE)[0],
             torch.empty((b, hq, d), **f32),
             torch.empty((b, hq), **f32))
+
+
+def launch_plan(b: int, hq: int, hkv: int, d: int, nsel: int,
+                block_size: int, chunk: int | None, row_bytes: tuple,
+                device: torch.device):
+    """(chunk, merge buffers) of one attend launch: an exact instance's
+    chunks of each selected block (`chunk_plan`), or the general tile's
+    share of the selected blocks a CUDA block (`tile_plan`, from the SM
+    count)."""
+    g = hq // hkv
+    if _lib.exact_group(g, d):
+        chunk, nch = chunk_plan(block_size, chunk, nsel, g, d, row_bytes)
+        nparts = nsel * nch
+    else:
+        num_sms = tickets_for(device, b, hq, hkv, d, _lib.HEAD_TILE)[1]
+        blocks = b * hkv * _lib.head_blocks(g, d, _lib.HEAD_TILE)
+        chunk, nparts = tile_plan(nsel, block_size, blocks, num_sms, chunk)
+    return chunk, merge_buffers(nparts, b, hq, hkv, d, device)
 
 
 def block_attend(scores: torch.Tensor, blk_ids: torch.Tensor, v: torch.Tensor,
@@ -156,7 +204,7 @@ def launch_block_attend(scores: torch.Tensor, blk_ids: torch.Tensor,
                         v: torch.Tensor, v_scale: torch.Tensor | None,
                         block_size: int, chunk: int | None):
     """One launch of the kernel at `chunk` tokens a CUDA block (None:
-    `chunk_plan`'s choice), inputs checked: the wrapper's, and the card
+    `launch_plan`'s choice), inputs checked: the wrapper's, and the card
     tests' and `chip_smoke.py`'s at each chunk."""
     _lib.require(scores.device.type == "cuda",
                  f"block_attend: unsupported device {scores.device}")
@@ -170,10 +218,9 @@ def launch_block_attend(scores: torch.Tensor, blk_ids: torch.Tensor,
     check_selection(name, blk_ids, v, v_scale, hkv * g, block_size)
     nsel = blk_ids.shape[2]
     int8 = v.dtype == torch.int8
-    chunk, nch = chunk_plan(block_size, chunk, nsel, _lib.tile_group(g, d), d,
-                            (0, d * v.element_size(), False, int8))
-    part_o, part_lse, tickets, out, lse = merge_buffers(
-        nsel * nch, b, hkv * g, hkv, d, v.device)
+    chunk, (part_o, part_lse, tickets, out, lse) = launch_plan(
+        b, hkv * g, hkv, d, nsel, block_size, chunk,
+        (0, d * v.element_size(), False, int8), v.device)
     _lib.launch(name, "mp_block_attend", v.device, scores, blk_ids, v,
                 v_scale, part_o, part_lse, tickets, out, lse, b, s, hkv * g,
                 hkv, d, nsel, block_size, chunk, int(int8))

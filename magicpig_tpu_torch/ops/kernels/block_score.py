@@ -14,7 +14,8 @@ reading K (int8 with f32 row scales, packed int4 with f32 row scales, or
 bf16) once, plus the f32 score store in the `exact_scores_ranked` variant;
 one block of the kernel scores one ranking block of one (request, kv head)
 (for `exact_scores`, one 512-token span, or the largest power-of-two span
-from 64 that divides S).
+from 64 that divides S); the general tile's block, up to 16 of its query
+heads.
 Packed int4 K ([B, Hkv, S, d/2] bytes, `ops/pack4.py`, at head dims 64 and
 128) is counted apart, as "block_rank_int4" and "exact_scores_ranked_int4",
 the head dims other than 64 (16, 32, 64 and 128 on the card, any group
@@ -137,7 +138,13 @@ def _launch(name: str, q, k, k_scale, length, block_size: int,
                  f"{name}: length must be int32 [B]")
     f32 = dict(dtype=torch.float32, device=q.device)
     scores = torch.empty((b, hkv, hq // hkv, s), **f32) if store_scores else None
-    bmax = torch.empty((b, hkv, s // block_size), **f32) if rank else None
+    bmax = None
+    if rank:
+        # Above one block of 16 heads a kv head, the blocks of heads take
+        # the max of their block maxes by atomics on a -inf start.
+        bmax = (torch.full((b, hkv, s // block_size), -math.inf, **f32)
+                if _lib.head_blocks(hq // hkv, d, _lib.HEAD_TILE) > 1
+                else torch.empty((b, hkv, s // block_size), **f32))
     _lib.launch(launch_name(name, kind == KEY_INT4, d, hq // hkv),
                 "mp_block_score",
                 q.device, q, k, k_scale, length, scores,

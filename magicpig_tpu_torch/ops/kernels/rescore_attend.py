@@ -12,8 +12,9 @@ and 128) with int8 V, at head dims 16, 32, 64 and 128 and any group size
 (counted apart with "_d<d>" and "_g<G>", `block_score.launch_name`). On the
 H100 it is bound by reading the selected blocks' K and V rows and scales
 once; one CUDA block takes a chunk of `chunk` tokens of one selected block
-of one (request, kv head), and the chunks merge by LSE in the same launch
-(`csrc/chunk_attend.cuh`, shared with `block_attend`).
+of one (request, kv head) (the general tile: a share of all its selected
+blocks for up to 16 query heads), and the chunks merge by LSE in the same
+launch (`csrc/chunk_attend.cuh`, shared with `block_attend`).
 """
 
 from __future__ import annotations
@@ -27,8 +28,7 @@ from magicpig_tpu_torch.ops.kernels import _lib
 from magicpig_tpu_torch.ops.kernels.block_attend import (
     attend_selected_plain,
     check_selection,
-    chunk_plan,
-    merge_buffers,
+    launch_plan,
 )
 from magicpig_tpu_torch.ops.kernels.block_score import (
     INT4_HEAD_DIMS,
@@ -78,7 +78,7 @@ def rescore_attend(q: torch.Tensor, blk_ids: torch.Tensor, k: torch.Tensor,
 def launch_rescore_attend(q, blk_ids, k, k_scale, v, v_scale, length,
                           block_size: int, chunk: int | None):
     """One launch of the kernel at `chunk` tokens a CUDA block (None:
-    `chunk_plan`'s choice), inputs checked: the wrapper's, and the card
+    `launch_plan`'s choice), inputs checked: the wrapper's, and the card
     tests' and `chip_smoke.py`'s at each chunk."""
     _lib.require(q.device.type == "cuda",
                  f"rescore_attend: unsupported device {q.device}")
@@ -99,12 +99,10 @@ def launch_rescore_attend(q, blk_ids, k, k_scale, v, v_scale, length,
     s = k.shape[2]
     nsel = blk_ids.shape[2]
     quant = k_scale is not None
-    chunk, nch = chunk_plan(block_size, chunk, nsel,
-                            _lib.tile_group(hq // hkv, d), d,
-                            (k.shape[3] * k.element_size(),
-                             d * v.element_size(), quant, quant))
-    part_o, part_lse, tickets, out, lse = merge_buffers(nsel * nch, b, hq,
-                                                        hkv, d, q.device)
+    chunk, (part_o, part_lse, tickets, out, lse) = launch_plan(
+        b, hq, hkv, d, nsel, block_size, chunk,
+        (k.shape[3] * k.element_size(), d * v.element_size(), quant, quant),
+        q.device)
     _lib.launch(name, "mp_rescore_attend",
                 q.device, q, blk_ids, k, k_scale, v, v_scale, length, part_o,
                 part_lse, tickets, out, lse, b, s, hq, hkv, d, nsel,

@@ -4,12 +4,14 @@ kernel family, and the plain versions of the two kernels whose tile holds 16
 heads (flash decode, the fused LSH decode) against the JAX package's Pallas
 kernels (interpret mode) at group sizes of one and three 16-head blocks.
 
-Blocks: the decode and both LSH kernels take up to 16 query heads of a kv
-head a block (`_lib.HEAD_TILE`, `kHeadTile` in csrc/common.cuh), the block
-scorer, both attends of the selected blocks and the collision scan up to 8
-(`_lib.GROUP_TILE`, `kGroupTile`); the exact instances one block a kv head.
-Each block of heads merges its splits by its own ticket, so a family's
-tickets must number B * Hkv * blocks.
+Blocks: the decode, both LSH kernels, the block scorer and both attends of
+the selected blocks take up to 16 query heads of a kv head a block
+(`_lib.HEAD_TILE`, `kHeadTile` in csrc/common.cuh), the collision scan up
+to 8 (`_lib.GROUP_TILE`, `kGroupTile`); the exact instances one block a kv
+head. Each block of heads merges its splits by its own ticket, so a
+family's tickets must number B * Hkv * blocks. The attends' general tile
+splits each (request, kv head, block of heads)'s selected blocks by the SM
+count (`tile_plan`).
 
 Parity: Llama-3.1-405B's 16 query heads over one kv head and StarCoder-15B's
 48 (three 16-head blocks), head dim 128, small caches. Tolerances those of
@@ -40,7 +42,12 @@ from magicpig_tpu_torch.ops.kernels import (
     flash_decode,
     lsh_fused_decode,
 )
-from magicpig_tpu_torch.ops.kernels.block_attend import merge_buffers
+from magicpig_tpu_torch.ops.kernels.block_attend import (
+    ATTEND_STAGE,
+    FILL_STAGES,
+    merge_buffers,
+    tile_plan,
+)
 from magicpig_tpu_torch.ops.quant import dequantize_rows, quantize_rows
 
 # The wrapper modules (the package exports their functions under the same
@@ -82,8 +89,8 @@ def _fold_major(scale, d):
         _np(scale).reshape(b, h, s // fold, fold).transpose(0, 1, 3, 2))
 
 
-def _cxx_constant(name: str) -> int:
-    text = (CSRC / "common.cuh").read_text()
+def _cxx_constant(name: str, source: str = "common.cuh") -> int:
+    text = (CSRC / source).read_text()
     return int(re.search(rf"constexpr int {name} = (\d+);", text).group(1))
 
 
@@ -92,15 +99,24 @@ def _cxx_constant(name: str) -> int:
 
 def test_tiles_match_the_cuda_sources():
     """The Python tiles are the C++ ones, and each kernel family's general
-    tile is instantiated at its own: the decode and LSH dispatch at
-    kHeadTile, the block kernels and the scan at kGroupTile."""
+    tile is instantiated at its own: the decode, LSH and block kernels at
+    kHeadTile (the block kernels' tiles in block_score.cuh and
+    chunk_attend.cuh, launched from their *_part.cu sources), the scan at
+    kGroupTile; the attends' stage is the Python plan's."""
     assert _lib.HEAD_TILE == _cxx_constant("kHeadTile") == 16
     assert _lib.GROUP_TILE == _cxx_constant("kGroupTile") == 8
     assert "MP_DECODE_TYPES(mp::kHeadTile," in (CSRC / "flash_decode.cu").read_text()
     assert "launch_lsh<kHeadTile," in (CSRC / "lsh_common.cuh").read_text()
-    for src in ("block_score_part.cu", "chunk_attend_part.cu",
-                "collision_words.cu"):
-        assert "mp::kGroupTile" in (CSRC / src).read_text()
+    for src in ("block_score.cuh", "chunk_attend.cuh"):
+        assert "Heads<kHeadTile, true>" in (CSRC / src).read_text()
+    assert "launch_tile<" in (CSRC / "block_score_part.cu").read_text()
+    assert "launch_chunk_tile<" in (CSRC / "chunk_attend_part.cu").read_text()
+    assert "mp::kGroupTile" in (CSRC / "collision_words.cu").read_text()
+    text = (CSRC / "chunk_attend.cuh").read_text()
+    assert "constexpr int kAttTile = 16 * kAttRT;" in text
+    assert "constexpr int kAttFill = kAttWarps * kAttTile;" in text
+    assert ATTEND_STAGE == 16 * _cxx_constant("kAttRT", "chunk_attend.cuh")
+    assert FILL_STAGES == _cxx_constant("kAttWarps", "chunk_attend.cuh")
 
 
 @pytest.mark.parametrize("g,d,head_blocks,group_blocks", BLOCK_CASES)
@@ -108,7 +124,6 @@ def test_head_blocks_per_family(g, d, head_blocks, group_blocks):
     assert _lib.head_blocks(g, d, _lib.HEAD_TILE) == head_blocks
     assert _lib.head_blocks(g, d, _lib.GROUP_TILE) == group_blocks
     exact = _lib.exact_group(g, d)
-    assert _lib.tile_group(g, d) == (g if exact else 8)
     assert decode_mod.tile_heads(g, d) == (0 if exact else min(g, 16))
 
 
@@ -151,9 +166,9 @@ def _launched(monkeypatch):
 
 @pytest.mark.parametrize("g", [16, 48, 20])
 def test_wrappers_take_their_familys_tickets(monkeypatch, fresh_tickets, g):
-    """flash_decode and the LSH launcher hand their kernel B * Hkv * ceil(G
-    / 16) tickets, the block attends B * Hkv * ceil(G / 8) (meta tensors:
-    the wrappers' set-up runs, the stubbed launch records it)."""
+    """flash_decode, the LSH launcher and the block attends hand their
+    kernel B * Hkv * ceil(G / 16) tickets (meta tensors: the wrappers'
+    set-up runs, the stubbed launch records it)."""
     meta = torch.device("meta")
     fresh_tickets(meta)
     calls = _launched(monkeypatch)
@@ -175,9 +190,37 @@ def test_wrappers_take_their_familys_tickets(monkeypatch, fresh_tickets, g):
     assert calls[-1][2][11].numel() == b * hkv * -(-g // 16)  # tickets
     monkeypatch.setattr(decode_mod, "_tickets", {})
     tickets = merge_buffers(4, b, g * hkv, hkv, d, meta)[2]
-    assert tickets.numel() == b * hkv * -(-g // 8)
+    assert tickets.numel() == b * hkv * -(-g // 16)
     assert not [c for c in calls if c[1] not in ("mp_flash_decode",
                                                  "mp_lsh_masked_attention")]
+
+
+@pytest.mark.parametrize("nsel,block_size,blocks,sms,want", [
+    (11, 512, 10, 132, (512, 11)),    # SmolLM2-360M's phase-2 shape: 110 blocks
+    (11, 512, 16, 132, (768, 8)),     # the 405B's: 128 blocks, one an SM
+    (3, 512, 10, 132, (256, 6)),      # a serve's 3 blocks: one fill a block
+    (3, 512, 16, 132, (256, 6)),
+    (11, 512, 48, 132, (2816, 2)),    # 48 triples: two pieces each
+    (3, 512, 400, 132, (1536, 1)),    # more triples than SMs: one a triple
+    (1, 64, 2, 132, (64, 1)),         # one unit in all
+    (11, 512, 10, 66, (1024, 6)),     # half the SMs: half the blocks
+])
+def test_tile_plan(nsel, block_size, blocks, sms, want):
+    """The attends' general tile: each (request, kv head, block of heads)
+    list of selected blocks cut into about sms // blocks pieces of whole
+    fills (four 64-token units), the pieces covering the list; the grid at
+    most one block an SM where a triple gets more than one piece."""
+    chunk, pieces = tile_plan(nsel, block_size, blocks, sms)
+    assert (chunk, pieces) == want
+    tokens = nsel * block_size
+    assert chunk % ATTEND_STAGE == 0 and (pieces - 1) * chunk < tokens <= pieces * chunk
+    fill = FILL_STAGES * ATTEND_STAGE
+    assert chunk % fill == 0 or chunk == tokens
+    if pieces > 1 and chunk > fill:
+        assert pieces * blocks <= sms
+    assert tile_plan(nsel, block_size, blocks, sms, 256)[0] == min(256, tokens)
+    with pytest.raises(ValueError):
+        tile_plan(nsel, block_size, blocks, sms, 96)
 
 
 # -- plain versions against the Pallas kernels at 16 and 48 heads a kv head -----

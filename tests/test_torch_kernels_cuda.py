@@ -45,6 +45,7 @@ from magicpig_tpu_torch.ops import bitcodes as tbits
 from magicpig_tpu_torch.models import llama as tllama
 from magicpig_tpu_torch.ops.kernels import (
     LAUNCHES,
+    _lib,
     block_attend,
     block_rank,
     collision_words,
@@ -1048,9 +1049,10 @@ def test_cuda_attend_chunk_edges(cuda, kind, g):
 def _attend_chunk_edges(cuda, kind, g, d, kernels_of):
     """`test_cuda_attend_chunk_edges` at head dim d, one kernel a call
     counted by `kernels_of` (three calls). bf16 K and V rows of a 512-token
-    chunk at d = 128 do not fit a CUDA block: that rescore raises
-    ValueError, and the block-attend at that chunk is held to the plain
-    version alone."""
+    chunk at d = 128 do not fit a CUDA block of an exact instance: that
+    rescore raises ValueError, and the block-attend at that chunk is held
+    to the plain version alone. The general tile reads `chunk` as the
+    tokens a CUDA block takes of the selected blocks (`tile_plan`)."""
     rng = np.random.default_rng(25)
     hkv, cap, bs = 2, 2048, 512
     lens = [0, 1, 63, 64, 65, 127, 128, 129, 511, 512, 513, 1337]
@@ -1077,8 +1079,10 @@ def _attend_chunk_edges(cuda, kind, g, d, kernels_of):
     scores, _ = exact_scores_ranked(q, pk(k), ks, length, bs)
     assert not torch.isnan(scores).any()
     args = (q, ids, pk(k), ks, v, vs, length, bs)
+    # (The general tile takes any multiple of 64 tokens a CUDA block.)
+    exact = _lib.exact_group(g, d)
     for chunk in (64, 128, 256, 512):
-        if kind == "bf16" and d == 128 and chunk == 512:
+        if kind == "bf16" and d == 128 and chunk == 512 and exact:
             with pytest.raises(ValueError):
                 launch_rescore_attend(*args, chunk)
             bo, bl = launch_block_attend(scores, ids, v, vs, bs, chunk)
@@ -1548,19 +1552,20 @@ BLOCK_NEW_IDS = [f"d{d}-g{g}-{kind}" for d, g, kind in BLOCK_NEW_CASES]
 @pytest.mark.parametrize("d,g,kind", BLOCK_NEW_CASES, ids=BLOCK_NEW_IDS)
 def test_cuda_new_forms_block_scorer_edges(cuda, d, g, kind):
     """`test_cuda_block_scorer_edges` in the general tile's forms (a block
-    scores every head of its kv head, in sub-groups of at most 8, so the
-    block max spans the group) and at head dims 16 and 32 (rows read as 64
-    channels, zero past d)."""
+    scores up to 16 heads of its kv head; above 16 the blocks of heads
+    combine their block maxes, which span the group) and at head dims 16
+    and 32 (rows read as 64 channels, zero past d)."""
     _block_scorer_edges(cuda, kind, g, d)
 
 
 @pytest.mark.parametrize("d,g,kind", BLOCK_NEW_CASES, ids=BLOCK_NEW_IDS)
 def test_cuda_new_forms_attend_chunk_edges(cuda, d, g, kind):
-    """`test_cuda_attend_chunk_edges` in the general tile's forms (each
-    sub-group of at most 8 heads its own chunks and merge) and at head dims
-    16 and 32 (P.V on d / 16 warps): lengths, ids of -1 and past the last
-    block, NaN past each length, chunks of 64 to 512 tokens, the two
-    pipelines bit for bit, packed int4 equal to int8; one kernel a call."""
+    """`test_cuda_attend_chunk_edges` in the general tile's forms (a block
+    attends up to 16 heads over its share of the selected blocks, `chunk`
+    tokens of them, and the blocks merge by tickets) and at head dims 16
+    and 32: lengths, ids of -1 and past the last block, NaN past each
+    length, 64 to 512 tokens a CUDA block, the two pipelines bit for bit,
+    packed int4 equal to int8; one kernel a call."""
     _attend_chunk_edges(cuda, kind, g, d, _kernel_launches)
 
 
@@ -1643,6 +1648,105 @@ def test_cuda_head_tile_last_heads_lsh_fused(cuda, d, g, int8):
     _lsh_fused_d128_case(cuda, g, 10, 150, int8, "exact", planted=True,
                          d=d, rounding=True, heads=_tile_last_heads(g),
                          repeat=True)
+
+
+# The block kernels' 16-head tile at the same edges, int8 and packed int4 K.
+BLOCK_TILE_CASES = [(d, g, kind) for d, g in TILE_EDGE_FORMS
+                    for kind in ("int8", "int4")]
+BLOCK_TILE_IDS = [f"d{d}-g{g}-{kind}" for d, g, kind in BLOCK_TILE_CASES]
+
+
+def _head_block_faults(want, hkv: int, g: int) -> list:
+    """Planted faults of the block kernels' 16-head tile on a [B, Hq, ...]
+    output: the second block of heads given the first block's output (a
+    block that read the wrong heads), or with one block the last head given
+    its neighbour's."""
+    w = want.unflatten(1, (hkv, g))
+    f = w.clone()
+    if g > 16:
+        n = min(16, g - 16)
+        f[:, :, 16:16 + n] = w[:, :, :n]
+    else:
+        f[:, :, g - 1] = w[:, :, g - 2]
+    return f.flatten(1, 2)
+
+
+@pytest.mark.parametrize("d,g,kind", BLOCK_TILE_CASES, ids=BLOCK_TILE_IDS)
+def test_cuda_head_tile_last_heads_block_kernels(cuda, d, g, kind):
+    """The block scorer's and both attends' 16-head tile at the last head
+    of each block: a key of 4 times that head's query in a ranking block of
+    its own, so that the block ranks first for that head alone; K rows past
+    each length NaN (NaN scales for int8 and packed int4 K) and V scales
+    past it NaN. The scorer's block maxes and scores, the rescore's (out,
+    lse) over the block_rank's top blocks and the block-attend's from the
+    scorer's stored scores held to the plain versions on the zeroed cache;
+    the block-attend equals the rescore bit for bit, a second call the
+    first; the planted fault of `_head_block_faults` fails each tolerance."""
+    rng = np.random.default_rng(50 + g)
+    hkv, cap, bs, n_sel = 2, 4096, 512, 4
+    lens = [4096, 2900]
+    b = len(lens)
+    q = _bf16(rng, b, g * hkv, d, device=cuda)
+    kc = rng.standard_normal((b, hkv, cap, d)).astype(np.float32)
+    qn = q.float().cpu().numpy().reshape(b, hkv, g, d)
+    last = _tile_last_heads(g)
+    for j, h in enumerate(last):
+        for i, n in enumerate(lens):          # ranking block 1 + j, in range
+            t = (1 + j) * bs + (97 * (j + 1)) % bs
+            assert t < n
+            kc[i, :, t] = 4.0 * qn[i, :, h] * np.sqrt(d)
+    k = torch.from_numpy(kc).to(cuda, torch.bfloat16)
+    v = _bf16(rng, b, hkv, cap, d, device=cuda)
+    kq, ks = quantize_rows(k, bits=4 if kind == "int4" else 8)
+    vq, vs = quantize_rows(v)
+    ks, ks_z = _poison_past(ks, lens)
+    vs, vs_z = _poison_past(vs, lens)
+    kq_z = _poison_past(kq, lens)[1]
+    vq_z = _poison_past(vq, lens)[1]
+    pk = pack_k4 if kind == "int4" else (lambda x: x)
+    length = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    atol, rtol, _ = SCORE_TOL
+
+    # The scorer: block maxes and scores; the planted blocks rank first for
+    # the last heads (their block maxes are theirs).
+    want_s, want_m = block_scores_plain(q, pk(kq_z), ks_z, length, bs)
+    got_m = block_rank(q, pk(kq), ks, length, bs)
+    got_s, got_m2 = exact_scores_ranked(q, pk(kq), ks, length, bs)
+    for got, want in ((got_s, want_s), (got_m, want_m), (got_m2, want_m)):
+        assert not torch.isnan(got).any()
+        assert torch.equal(torch.isneginf(got), torch.isneginf(want))
+        _assert_within(got, want, atol=atol, rtol=rtol)
+    assert torch.equal(got_m, got_m2)
+    top = want_s.amax(dim=-1)                     # [B, Hkv, G]: each head's max
+    for j, h in enumerate(last):
+        assert (want_m[:, :, 1 + j] == top[:, :, h]).all()    # head h's own
+    faulty_s = _head_block_faults(want_s.flatten(1, 2), hkv, g)
+    with pytest.raises(AssertionError):
+        _assert_within(faulty_s, want_s.flatten(1, 2), atol=atol, rtol=rtol)
+    s2, m2 = exact_scores_ranked(q, pk(kq), ks, length, bs)
+    assert torch.equal(s2, got_s) and torch.equal(m2, got_m2)
+
+    # Both attends over the blocks block_rank picked (the planted ones).
+    ids = torch.topk(got_m, n_sel, dim=-1).indices.to(torch.int32)
+    for j in range(min(n_sel, len(last))):
+        assert (ids == 1 + j).any(dim=-1).all()
+    want, want_l = rescore_attend_plain(q, ids, pk(kq_z), ks_z, vq_z, vs_z,
+                                        length, bs)
+    o, l = rescore_attend(q, ids, pk(kq), ks, vq, vs, length, bs)
+    assert torch.isfinite(o).all() and not torch.isnan(l).any()
+    _assert_within(o, want, rms_share=0.015)
+    _assert_within(l, want_l, atol=1e-4, rtol=1e-5)
+    with pytest.raises(AssertionError):
+        _assert_within(_head_block_faults(want, hkv, g), want, rms_share=0.015)
+    bo, bl = block_attend(got_s, ids, vq, vs, bs)
+    assert torch.equal(bo, o) and torch.equal(bl, l)
+    bwant, bwant_l = block_attend_plain(got_s, ids, vq_z, vs_z, bs)
+    _assert_within(bo, bwant, rms_share=0.015)
+    _assert_within(bl, bwant_l, atol=1e-4, rtol=1e-5)
+    o2, l2 = rescore_attend(q, ids, pk(kq), ks, vq, vs, length, bs)
+    bo2, bl2 = block_attend(got_s, ids, vq, vs, bs)
+    assert torch.equal(o2, o) and torch.equal(l2, l)
+    assert torch.equal(bo2, bo) and torch.equal(bl2, bl)
 
 
 def test_cuda_d128_other_forms_raise(cuda):
